@@ -1,0 +1,134 @@
+"""Batched fractional OGB_cl on PyTorch tensors: the data-plane form.
+
+Counterpart of ``repro.jaxcache.fractional``.  Per batch of B requests over
+a catalog of N items (paper Eq. 2 / §5.3):
+
+    counts = histogram(request_ids)           # the summed gradient
+    y      = f + eta * counts                 # ascent step
+    tau    = root of sum(clip(y - tau, 0, 1)) = C     (capped-simplex proj.)
+    f'     = clip(y - tau, 0, 1)
+
+Unlike the reference, the projections here take ``(f, counts, eta)`` as the
+kernels do and never store y: every catalog pass is one launch of
+:func:`repro_torch.kernels.capped_simplex.ops.masses` and the final clip is
+one :func:`~repro_torch.kernels.capped_simplex.ops.apply`.  Scalars stay
+0-d tensors on the device, so a projection never waits on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.capped_simplex.ops import Scalar, apply, as_scalar, masses
+from repro_torch.kernels.scatter_counts.ops import histogram
+
+DEFAULT_BISECT_ITERS = 50
+DEFAULT_WARM_SWEEPS = 5
+
+
+def request_counts(ids: torch.Tensor, catalog_size: int) -> torch.Tensor:
+    """Histogram of request ids: the batch gradient (one-hot sum)."""
+    return histogram(ids, catalog_size)
+
+
+def warm_bracket_hi(step_mass: torch.Tensor) -> torch.Tensor:
+    """Upper bracket for the warm projection of y = f + (gradient step).
+
+    ``step_mass`` is the total gradient mass added this step (eta * B for a
+    B-request batch).  For a feasible pre-step f the threshold satisfies
+    0 <= tau <= step_mass; the slack absorbs float32 rounding of the sums.
+    """
+    return step_mass.to(torch.float32) * (1.0 + 1e-5) + 1e-7
+
+
+def capped_simplex_project(
+    f: torch.Tensor,
+    counts: torch.Tensor,
+    eta: Scalar,
+    capacity: Scalar,
+    iters: int = DEFAULT_BISECT_ITERS,
+    lo: Optional[Scalar] = None,
+    hi: Optional[Scalar] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bisection projection of f + eta * counts onto the capped simplex.
+
+    Returns (f', tau).  ``lo``/``hi`` override the cold bracket
+    [min(y) - 1, max(y)].  Each of the ``iters`` steps is one mass pass.
+    """
+    dev = f.device
+    eta = as_scalar(eta, dev)
+    cap = as_scalar(capacity, dev)
+    if lo is None or hi is None:
+        y_min, y_max = torch.aminmax(f + eta * counts)
+    lo = y_min - 1.0 if lo is None else as_scalar(lo, dev)
+    hi = y_max if hi is None else as_scalar(hi, dev)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        mass, _cnt = masses(f, counts, eta, mid.reshape(1))
+        too_much = mass[0] >= cap
+        lo, hi = torch.where(too_much, mid, lo), torch.where(too_much, hi, mid)
+    tau = 0.5 * (lo + hi)
+    return apply(f, counts, eta, tau), tau
+
+
+def capped_simplex_project_warm(
+    f: torch.Tensor,
+    counts: torch.Tensor,
+    eta: Scalar,
+    capacity: Scalar,
+    lo: Scalar,
+    hi: Scalar,
+    tau0: Scalar,
+    sweeps: int = DEFAULT_WARM_SWEEPS,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Warm-started projection: bracketed Newton on the piecewise-linear g.
+
+    g(tau) = sum(clip(y - tau, 0, 1)) is non-increasing with slope
+    -#{i : 0 < y_i - tau < 1}.  Each sweep is one :func:`masses` launch at
+    K = 1, then the bracket shrinks and the Newton point
+    ``tau + (g - C) / count`` is taken if it has a count and lies in the
+    bracket, else the midpoint.  Requires g(lo) >= C >= g(hi); for an OGB
+    step lo = 0, hi = warm_bracket_hi(eta * B) always holds, and ``tau0`` =
+    the previous step's tau is a good seed.
+
+    The safeguard is the reference's: it accepts a Newton point equal to an
+    end of the bracket, so, as in ``repro``, the iterate can alternate
+    between the two ends on some instances and stop at an infeasible tau.
+    """
+    dev = f.device
+    eta = as_scalar(eta, dev)
+    cap = as_scalar(capacity, dev)
+    lo = as_scalar(lo, dev)
+    hi = as_scalar(hi, dev)
+    t = torch.clamp(as_scalar(tau0, dev), lo, hi)
+    for _ in range(sweeps):
+        mass, cnt = masses(f, counts, eta, t.reshape(1))
+        mass, cnt = mass[0], cnt[0]
+        too_much = mass >= cap
+        lo = torch.where(too_much, t, lo)
+        hi = torch.where(too_much, hi, t)
+        t_newton = t + (mass - cap) / torch.clamp(cnt, min=1.0)
+        t_mid = 0.5 * (lo + hi)
+        ok = (cnt > 0.0) & (t_newton >= lo) & (t_newton <= hi)
+        t = torch.where(ok, t_newton, t_mid)
+    return apply(f, counts, eta, t), t
+
+
+def poisson_sample(f: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Coordinated Poisson sample: x_i = (f_i >= p_i); E[sum x] = C."""
+    return f >= p
+
+
+def permanent_random_numbers(
+    seed: int, catalog_size: int, device: torch.device
+) -> torch.Tensor:
+    """The p_i of §5.1: uniform [0, 1) float32, drawn once from ``seed``.
+
+    Same distribution as the reference's, different bits (a
+    ``torch.Generator``, not JAX's threefry).  They are drawn on the CPU and
+    moved, so one seed gives the same p on every device.
+    """
+    gen = torch.Generator().manual_seed(int(seed))
+    return torch.rand(catalog_size, generator=gen, dtype=torch.float32).to(device)

@@ -1,0 +1,28 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
+
+Each wrapper counts its launches in a plain integer attribute
+(``histogram.launches``, ``masses.launches``, ``apply.launches``), so a run
+can show that it went through the kernels; :func:`launch_counts` reads them
+and :func:`reset_launch_counts` sets them to 0.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+
+def _wrappers():
+    from repro_torch.kernels.capped_simplex.ops import apply, masses
+    from repro_torch.kernels.scatter_counts.ops import histogram
+
+    return {"histogram": histogram, "mass": masses, "apply": apply}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel name -> launches since the last reset."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
