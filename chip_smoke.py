@@ -101,6 +101,20 @@ def timed_ms(torch, fn, reps, flush=None):
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
+def root_tau(y, cap):
+    """The tau with sum(clip(y - tau, 0, 1)) = cap, by float64 bisection."""
+    import numpy as np
+
+    lo, hi = float(y.min()) - 1.0, float(y.max())
+    for _ in range(100):
+        mid = 0.5 * (lo + hi)
+        if np.clip(y - mid, 0.0, 1.0).sum() >= cap:
+            lo = mid
+        else:
+            hi = mid
+    return 0.5 * (lo + hi)
+
+
 def check_kernels(torch, dev, trace, eta):
     """Phase 3: each kernel against its plain version, then timings."""
     from repro_torch.kernels.capped_simplex.ops import apply, masses
@@ -117,22 +131,34 @@ def check_kernels(torch, dev, trace, eta):
     need(torch.equal(counts, want), "histogram differs from its plain version")
     print(f"histogram: exact ({int(counts.gt(0).sum())} distinct ids of {W})")
 
-    hi = eta * W
-    taus = {1: torch.tensor([0.3 * hi], device=dev),
-            64: torch.linspace(0.0, hi, 64, device=dev)}
+    # Thresholds inside the range of y = f + eta * counts, so that every
+    # check sees items on each side of the clip: the projection's root for
+    # (f, counts), and K = 64 spread over [0, max(y)].
+    y = (f.double() + eta * counts.double()).cpu().numpy()
+    tau_root = root_tau(y, C)
+    taus = {1: torch.tensor([tau_root], dtype=torch.float32, device=dev),
+            64: torch.linspace(0.0, float(y.max()), 64, device=dev)}
+    print(f"thresholds: max y {y.max():.6f}, root tau {tau_root:.9e}")
     errs = {}
     for k, tk in taus.items():
         mass, cnt = masses(f, counts, eta_t, tk)
         rmass, rcnt = masses_ref(f, counts, eta_t, tk)
+        need(bool(mass[0] > 0) and bool(cnt.gt(0).any()),
+             f"mass K={k}: no mass or no interior item, the check would be vacuous")
         need(torch.equal(cnt, rcnt), f"mass K={k}: interior counts differ")
         err = float((mass.double() - rmass.double()).abs().max())
         need(err <= MASS_TOL, f"mass K={k}: |mass - plain| = {err} > {MASS_TOL}")
         errs[k] = err
-        print(f"mass K={k}: counts exact, max |mass - plain| = {err:.3e} (limit {MASS_TOL:.1e})")
+        print(f"mass K={k}: counts exact (interior {int(cnt.max())} items at most), "
+              f"max |mass - plain| = {err:.3e} (limit {MASS_TOL:.1e})")
+    root_mass = float(masses(f, counts, eta_t, taus[1])[0][0])
+    need(abs(root_mass - C) <= MASS_TOL, f"mass at the root tau is {root_mass}, not C = {C}")
     tau = taus[1][0]
     out = apply(f, counts, eta_t, tau)
     need(torch.equal(out, apply_ref(f, counts, eta_t, tau)), "apply differs from its plain version")
-    print("apply: exact")
+    kept, total = int(out.gt(0).sum()), float(out.double().sum())
+    need(kept > 0 and abs(total - C) <= MASS_TOL, f"apply kept {kept} items, sum {total}, not C")
+    print(f"apply: exact ({kept} items above 0, sum {total:.6f}; mass at root {root_mass:.6f})")
 
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)  # 256 MB > L2
 
@@ -261,9 +287,7 @@ def breakdown(torch, trace, eta):
     launches = sum(e.count for e in rows) / PROFILE_CHUNKS
     wall_us = plain.wall_seconds * 1e6 / PROFILE_CHUNKS
     prof_wall_us = profiled.wall_seconds * 1e6 / PROFILE_CHUNKS
-    if busy_us == 0:
-        print("breakdown: the profiler saw no device time: device busy share not measured")
-        return
+    need(busy_us > 0, "breakdown: the profiler saw no device time")
     print(f"breakdown, {PROFILE_CHUNKS} chunks: wall {wall_us:.1f} us/chunk "
           f"(profiled {prof_wall_us:.1f}), device busy {busy_us:.1f} us/chunk, "
           f"{launches:.1f} device kernels/chunk, device idle share "

@@ -145,7 +145,9 @@ def fused_ogb_update(
     :func:`apply` writes f'.  The bracket is [0, 1 + eta * sum(counts)], or
     [tau0, tau0 + warm_bracket_hi(eta * sum(counts))] when ``tau0`` is given
     (see ``repro.kernels.capped_simplex.ops.fused_ogb_update`` for when a
-    nonzero ``tau0`` is a valid lower bound).
+    nonzero ``tau0`` is a valid lower bound).  ``tau0``, ``hi`` and
+    ``return_tau`` mirror the reference's signature; no path of the port
+    passes them yet.
     """
     from repro_torch.jaxcache.fractional import warm_bracket_hi
 
