@@ -11,13 +11,25 @@ script with a non-zero exit:
 1. versions, and the card's name and power limit (nvidia-smi);
 2. build every kernel;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (N = 1e6 items, B = 1000 ids, mass at K = 1 and 64), and
-   its time beside its bound, the plain version's and a library call's;
-4. the main path: run(policy_def("ogb")) over zipf(0.8) with N = 1e6,
-   T = 1e7, C = 50 000, window 1000, with every kernel's launches counted;
+   paths' shapes (N = 1e6 items, B = 1000 ids, mass at K = 1 and 64;
+   segsum 1e6 -> 15 625 and 65 536 -> 1024, bucket_mass at K = 63 and 64
+   over a real mid-run ogb_tree histogram), and its time beside its bound,
+   the plain version's and a library call's;
+4. the dense main path: run(policy_def("ogb")) over zipf(0.8) with
+   N = 1e6, T = 1e7, C = 50 000, window 1000, every kernel's launches
+   counted;
 5. the card against the CPU (the plain versions) over the first 200 chunks;
 6. resume: 2000 chunks in two calls equal one call, bit for bit;
-7. where a chunk's time goes, from torch.profiler over 300 chunks.
+7. where a chunk's time goes, from torch.profiler over 300 chunks;
+8. the lazy main path: run(policy_def("ogb_tree")) over the same trace,
+   launches, host syncs and re-anchors counted, its fractional hit ratio
+   held to the JAX reference's for this trace and eta;
+9. ogb_tree on the card against the CPU over 200 chunks, two runs and a
+   resumed run bit for bit, and a re-anchor in every chunk (batch_hint=1:
+   200 chunks on the card, 50 against the CPU);
+10. Madow sampling (madow, madow_tree): 2000 chunks each, occupancy exactly
+   C in every chunk, the card against the CPU over 100 chunks;
+11. where an ogb_tree chunk's time goes, from torch.profiler over 300 chunks.
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -38,6 +50,11 @@ ROOT = Path(__file__).resolve().parent
 N, T, C, W = 1_000_000, 10_000_000, 50_000, 1000
 ALPHA = 0.8
 CPU_CHUNKS, RESUME_CHUNKS, PROFILE_CHUNKS = 200, 2000, 300
+MADOW_CHUNKS, MADOW_CPU_CHUNKS, REANCHOR_CHUNKS, REANCHOR_CPU_CHUNKS = 2000, 100, 200, 50
+V = 65536  # ogb_tree's buckets
+#: fractional hit ratio of the JAX reference's ogb_tree (repro.cachesim.api)
+#: over this trace at this eta, on the CPU
+REF_TREE_FRAC_HIT_RATIO = 0.4842919
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
 MASS_TOL = 1e-6 * N  # float32 summation order over N items
@@ -46,12 +63,17 @@ REPLACES = {
     "histogram": "src/repro/kernels/scatter_counts/kernel.py:28",
     "mass": "src/repro/kernels/capped_simplex/kernel.py:59",
     "apply": "src/repro/kernels/capped_simplex/kernel.py:97",
+    "segsum": "src/repro/kernels/prefix_tree/kernel.py:43",
+    "bucket_mass": "src/repro/kernels/prefix_tree/kernel.py:69",
 }
 SOURCES = {
     "histogram": "src/repro_torch/kernels/scatter_counts/csrc/histogram.cu",
     "mass": "src/repro_torch/kernels/capped_simplex/csrc/mass.cu",
     "apply": "src/repro_torch/kernels/capped_simplex/csrc/apply.cu",
+    "segsum": "src/repro_torch/kernels/prefix_tree/csrc/segsum.cu",
+    "bucket_mass": "src/repro_torch/kernels/prefix_tree/csrc/bucket_mass.cu",
 }
+KERNELS = ("histogram", "mass", "apply", "segsum", "bucket_mass")
 
 
 class Failed(Exception):
@@ -216,7 +238,7 @@ def check_main_path(torch, trace, eta):
     res = run(pd, trace, N, C, window=W)
     launches = launch_counts()
     m = T // W
-    want = {"histogram": m, "mass": 5 * m, "apply": m}
+    want = {"histogram": m, "mass": 5 * m, "apply": m, "segsum": 0, "bucket_mass": 0}
     f = res.final_f.astype(np.float64)
     print(f"main path: hit_ratio {res.hit_ratio}, frac_hit_ratio {res.frac_hit_ratio}, "
           f"regret {res.regret}, opt_hits {res.opt_hits}, us_per_request "
@@ -270,13 +292,14 @@ def check_resume(torch, trace, eta):
     print(f"resume: {RESUME_CHUNKS} chunks in two calls == one call, bit for bit")
 
 
-def breakdown(torch, trace, eta):
-    """Phase 7: device busy share and kernel time by name over a short run."""
+def breakdown(torch, trace, eta, kind="ogb"):
+    """Phases 7 and 11: device busy share and kernel time by name over a
+    short run of policy ``kind``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import policy_def, run
 
-    pd = policy_def("ogb")
+    pd = policy_def(kind)
     part = trace[: PROFILE_CHUNKS * W]
     plain = run(pd, part, N, C, window=W, eta=eta)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -288,13 +311,269 @@ def breakdown(torch, trace, eta):
     wall_us = plain.wall_seconds * 1e6 / PROFILE_CHUNKS
     prof_wall_us = profiled.wall_seconds * 1e6 / PROFILE_CHUNKS
     need(busy_us > 0, "breakdown: the profiler saw no device time")
-    print(f"breakdown, {PROFILE_CHUNKS} chunks: wall {wall_us:.1f} us/chunk "
+    print(f"breakdown {kind}, {PROFILE_CHUNKS} chunks: wall {wall_us:.1f} us/chunk "
           f"(profiled {prof_wall_us:.1f}), device busy {busy_us:.1f} us/chunk, "
           f"{launches:.1f} device kernels/chunk, device idle share "
           f"{1 - busy_us / wall_us:.3f} (profiled {1 - busy_us / prof_wall_us:.3f})")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / PROFILE_CHUNKS:8.2f} us/chunk "
               f"{e.count / PROFILE_CHUNKS:6.2f}/chunk  {e.key[:90]}")
+
+
+def tree_state(trace, eta, chunks=1000):
+    """A real mid-run ogb_tree state: the carry after ``chunks`` chunks."""
+    from repro_torch import policy_def, run
+
+    res = run(policy_def("ogb_tree"), trace[: chunks * W], N, C, window=W, eta=eta,
+              track_opt=False)
+    return res.carry
+
+
+def check_tree_kernels(torch, dev, carry):
+    """Phase 3, prefix-tree kernels: segsum and bucket_mass against their
+    plain versions on a real mid-run ogb_tree state, then timings."""
+    from repro_torch.kernels.prefix_tree.kernel import block_segment_sums, bucket_masses
+    from repro_torch.kernels.prefix_tree.ref import bucket_masses_ref, segment_sums_ref
+
+    cnt, tot = carry.ycnt[:V], carry.ysum[:V]
+    f = torch.clamp(carry.y - carry.rho, 0.0, 1.0)  # the fractional state of 1e6 items
+    gen = torch.Generator().manual_seed(2)
+    ints = torch.randint(0, 1000, (N,), generator=gen).to(torch.float32).to(dev)
+    # integer-valued inputs: exact whatever the order of the sums
+    for label, x, out in (("1e6 -> 15625, integers", ints, N // 64),
+                          ("65536 -> 1024, bucket counts", cnt, V // 64)):
+        got = block_segment_sums(x, out, 64)
+        need(torch.equal(got, segment_sums_ref(x, out, 64)), f"segsum {label} differs")
+        need(float(got.double().sum()) == float(x.double().sum()) > 0, f"segsum {label}: wrong total")
+        print(f"segsum {label}: exact, total {float(got.double().sum())}")
+    seg_errs = []
+    for label, x, out in (("1e6 -> 15625, f", f, N // 64), ("65536 -> 1024, bucket sums", tot, V // 64)):
+        got, want = block_segment_sums(x, out, 64), segment_sums_ref(x, out, 64)
+        err = float((got.double() - want.double()).abs().max())
+        rel = err / max(1.0, float(want.abs().max()))
+        need(rel <= 1e-6 and float(got.abs().sum()) > 0, f"segsum {label}: |d| {err}")
+        seg_errs.append(err)
+        print(f"segsum {label}: max |kernel - plain| = {err:.3e} (relative {rel:.3e}, limit 1e-6)")
+
+    total = float(cnt.double().sum())
+    nz = cnt > 0
+    means = (tot[nz] / cnt[nz]).double()
+    taus = {63: torch.linspace(float(means.min()), float(means.max()), 63, device=dev),
+            64: torch.linspace(float(carry.rho), float(carry.rho) + 1.0, 64, device=dev)}
+    print(f"bucket histogram: {int(nz.sum())} of {V} buckets non-empty, {total} items, "
+          f"means in [{float(means.min()):.6f}, {float(means.max()):.6f}], rho {float(carry.rho):.6f}")
+    mass_errs = {}
+    for k, tk in taus.items():
+        got, want = bucket_masses(cnt, tot, tk), bucket_masses_ref(cnt, tot, tk)
+        need(bool(got.max() > 0) and bool(got.min() < total), f"bucket_mass K={k}: vacuous check")
+        need(bool(((got > 0) & (got < total)).any()), f"bucket_mass K={k}: no mass strictly inside")
+        need(bool((got[1:] <= got[:-1]).all()), f"bucket_mass K={k}: not non-increasing in tau")
+        err = float((got.double() - want.double()).abs().max())
+        need(err <= 1e-6 * total, f"bucket_mass K={k}: |d| {err} > {1e-6 * total}")
+        mass_errs[k] = err
+        print(f"bucket_mass K={k}: masses {float(got.max()):.3f} .. {float(got.min()):.3f}, "
+              f"max |kernel - plain| = {err:.3e} (limit {1e-6 * total:.3e})")
+
+    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    t63 = taus[63]
+    jobs = {
+        "segsum": (lambda: block_segment_sums(f, N // 64, 64),
+                   lambda: segment_sums_ref(f, N // 64, 64),
+                   lambda: f.view(N // 64, 64).sum(1)),
+        "bucket_mass": (lambda: bucket_masses(cnt, tot, t63),
+                        lambda: bucket_masses_ref(cnt, tot, t63), None),
+    }
+    bounds = {
+        # children read once, nodes written once; one add a child
+        "segsum": bound_ms(4 * N + 4 * (N // 64), N),
+        # counts and sums read, taus read, masses written; 2 + 5K ops a bucket
+        "bucket_mass": bound_ms(8 * V + 8 * 63, V * (2 + 5 * 63)),
+    }
+    rows = {}
+    for name, (kern, plain, lib) in jobs.items():
+        ms = timed_ms(torch, kern, 50, flush)
+        warm = timed_ms(torch, kern, 50)
+        plain_ms = timed_ms(torch, plain, 20, flush)
+        lib_ms = timed_ms(torch, lib, 20, flush) if lib else None
+        b, by = bounds[name]
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                      "library_ms": lib_ms,
+                      "max_abs_err": seg_errs[0] if name == "segsum" else mass_errs[63]}
+        lib_s = f", library {lib_ms * 1e3:.2f} us" if lib else ""
+        print(f"{name}: cold {ms * 1e3:.2f} us, warm in L2 {warm * 1e3:.2f} us "
+              f"(plain {plain_ms * 1e3:.2f} us{lib_s}, bound {b * 1e3:.3f} us by {by})")
+    small = timed_ms(torch, lambda: block_segment_sums(cnt, V // 64, 64), 50, flush)
+    b_small, _ = bound_ms(4 * V + 4 * (V // 64), V)
+    t64 = taus[64]
+    m64 = timed_ms(torch, lambda: bucket_masses(cnt, tot, t64), 50, flush)
+    print(f"segsum 65536 -> 1024: cold {small * 1e3:.2f} us (bound {b_small * 1e3:.3f} us); "
+          f"bucket_mass K=64: cold {m64 * 1e3:.2f} us")
+    return rows
+
+
+def check_tree_main_path(trace, eta):
+    """Phase 8: the lazy main path, every launch and host read counted."""
+    import numpy as np
+
+    from repro_torch import policy_def, run
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    pd = policy_def("ogb_tree")
+    reset_launch_counts()
+    res = run(pd, trace, N, C, window=W)
+    launches = launch_counts()
+    m = T // W
+    reanchors, syncs = int(res.extras["reanchors"]), int(res.extras["host_syncs"])
+    # a re-anchor rebuilds the three trees (two segsum levels each) from
+    # leaves whose counts come from the histogram kernel
+    want = {"histogram": 2 * reanchors, "mass": 0, "apply": 0, "segsum": 6 * (1 + reanchors),
+            "bucket_mass": 5 * m}
+    print(f"ogb_tree main path: hit_ratio {res.hit_ratio}, frac_hit_ratio {res.frac_hit_ratio} "
+          f"(reference {REF_TREE_FRAC_HIT_RATIO}), regret {res.regret}, us_per_request "
+          f"{res.us_per_request}, wall {res.wall_seconds} s, final rho {float(res.carry.rho)}, "
+          f"mean occupancy {float(np.mean(res.occupancy))}, re-anchors {reanchors}, host syncs "
+          f"{syncs}, launches {launches}")
+    need(res.extras["eta"] == eta, "ogb_tree main path resolved another eta")
+    need(launches == want, f"ogb_tree launches {launches}, expected {want}")
+    need(np.all(np.isfinite(res.reward)) and np.all(np.isfinite(res.aux)), "non-finite output")
+    need(abs(res.frac_hit_ratio - REF_TREE_FRAC_HIT_RATIO) <= 1e-4,
+         f"ogb_tree fractional hit ratio {res.frac_hit_ratio} is not the reference's")
+    need(0.0 < res.hit_ratio < 1.0, f"ogb_tree hit ratio {res.hit_ratio} out of range")
+    need(abs(float(np.mean(res.occupancy)) - C) < 0.2 * C, "ogb_tree occupancy far from C")
+    need(syncs <= m // 20, f"ogb_tree read the device in {syncs} of {m} chunks")
+    return launches
+
+
+def _close_to_cpu(card, cpu, label):
+    """Card against CPU: hits within 1 per 10 000 requests, |d rho| <= 1e-5
+    in every chunk (rho_t = the sum of the steps since the last re-anchor)."""
+    import numpy as np
+
+    dtau = float(np.abs(card.aux - cpu.aux).max())
+    dhits = abs(int(card.hits.sum()) - int(cpu.hits.sum()))
+    print(f"{label}: max |d dtau| {dtau:.3e}, hits {int(card.hits.sum())} vs "
+          f"{int(cpu.hits.sum())}, re-anchors {card.extras.get('reanchors')} vs "
+          f"{cpu.extras.get('reanchors')}")
+    need(card.extras.get("reanchors") == cpu.extras.get("reanchors"), f"{label}: re-anchors differ")
+    need(dtau <= 1e-5, f"{label}: dtau differs by {dtau}")
+    need(dhits <= card.T // 10_000, f"{label}: hits differ by {dhits}")
+    return dtau
+
+
+def check_tree_card_against_cpu(trace, eta):
+    """Phase 9a: 200 ogb_tree chunks through the kernels and the plain versions."""
+    import numpy as np
+
+    from repro_torch import policy_def, run
+
+    pd = policy_def("ogb_tree")
+    part = trace[: CPU_CHUNKS * W]
+    card = run(pd, part, N, C, window=W, eta=eta)
+    cpu = run(pd, part, N, C, window=W, eta=eta, device="cpu")
+    _close_to_cpu(card, cpu, f"ogb_tree card vs CPU, {CPU_CHUNKS} chunks")
+    need(card.extras["reanchors"] == 0, "a re-anchor fired: rho is not a plain sum of steps")
+    drho = float(np.abs(np.cumsum(card.aux) - np.cumsum(cpu.aux)).max())
+    print(f"ogb_tree card vs CPU: max |d rho| over the chunks {drho:.3e}")
+    need(drho <= 1e-5, f"ogb_tree card and CPU rho differ by {drho}")
+
+
+def _same_runs(torch, a, b, label):
+    import numpy as np
+
+    for name in ("reward", "hits", "aux", "occupancy"):
+        need(np.array_equal(getattr(a, name), getattr(b, name)), f"{label}: {name} differs")
+    need(all(torch.equal(x, y) for x, y in zip(a.carry.tensors(), b.carry.tensors())),
+         f"{label}: carry differs")
+
+
+def check_tree_repeat_and_resume(torch, trace, eta):
+    """Phase 9b: two ogb_tree runs on the card, and a resumed one, bit for bit."""
+    import numpy as np
+
+    from repro_torch import policy_def, run
+
+    pd = policy_def("ogb_tree")
+    part = trace[: RESUME_CHUNKS * W]
+    half = len(part) // 2
+    whole = run(pd, part, N, C, window=W, eta=eta)
+    again = run(pd, part, N, C, window=W, eta=eta)
+    _same_runs(torch, whole, again, "ogb_tree two runs")
+    first = run(pd, part[:half], N, C, window=W, eta=eta)
+    second = run(pd, part[half:], capacity=C, window=W, carry=first.carry)
+    for name in ("reward", "hits", "aux", "occupancy"):
+        cat = np.concatenate([getattr(first, name), getattr(second, name)])
+        need(np.array_equal(cat, getattr(whole, name)), f"ogb_tree resume: {name} differs")
+    need(all(torch.equal(x, y) for x, y in zip(second.carry.tensors(), whole.carry.tensors())),
+         "ogb_tree resume: carry differs")
+    print(f"ogb_tree: two runs of {RESUME_CHUNKS} chunks equal, and two calls equal one, "
+          f"bit for bit (host syncs {whole.extras['host_syncs']:.0f}, re-anchors "
+          f"{whole.extras['reanchors']:.0f})")
+
+
+def check_reanchor(torch, trace, eta):
+    """Phase 9c: batch_hint=1 sizes the value grid for one request a chunk,
+    so at this eta every chunk of 1000 re-anchors."""
+    from repro_torch import policy_def, run
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    pd = policy_def("ogb_tree", batch_hint=1)
+    part = trace[: REANCHOR_CHUNKS * W]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    one = run(pd, part, N, C, window=W, eta=eta)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    two = run(pd, part, N, C, window=W, eta=eta)
+    n_re = int(one.extras["reanchors"])
+    print(f"forced re-anchor, {REANCHOR_CHUNKS} chunks: re-anchors {n_re}, host syncs "
+          f"{one.extras['host_syncs']:.0f}, {wall * 1e3 / REANCHOR_CHUNKS:.2f} ms a chunk, "
+          f"launches {launches}")
+    need(n_re == REANCHOR_CHUNKS, f"forced re-anchor fired {n_re} times")
+    want = {"histogram": 2 * n_re, "mass": 0, "apply": 0, "segsum": 6 * (1 + n_re),
+            "bucket_mass": 5 * REANCHOR_CHUNKS}
+    need(launches == want, f"forced re-anchor launches {launches}, expected {want}")
+    _same_runs(torch, one, two, "forced re-anchor two runs")
+    short = part[: REANCHOR_CPU_CHUNKS * W]
+    card = run(pd, short, N, C, window=W, eta=eta)
+    cpu = run(pd, short, N, C, window=W, eta=eta, device="cpu")
+    _close_to_cpu(card, cpu, f"forced re-anchor card vs CPU, {REANCHOR_CPU_CHUNKS} chunks")
+
+
+def check_madow(trace, eta):
+    """Phase 10: Madow sampling on the dense path, occupancy exactly C."""
+    import numpy as np
+
+    from repro_torch import policy_def, run
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    segsum = None
+    for sample in ("madow", "madow_tree"):
+        pd = policy_def("ogb", sample=sample, madow_capacity=C)
+        reset_launch_counts()
+        res = run(pd, trace[: MADOW_CHUNKS * W], N, C, window=W, eta=eta)
+        launches = launch_counts()
+        print(f"{sample}, {MADOW_CHUNKS} chunks: hit_ratio {res.hit_ratio}, frac_hit_ratio "
+              f"{res.frac_hit_ratio}, us_per_request {res.us_per_request}, occupancy "
+              f"{res.occupancy.min()} .. {res.occupancy.max()}, launches {launches}")
+        need(np.all(res.occupancy == C), f"{sample}: occupancy is not C in every chunk")
+        want_seg = 3 * MADOW_CHUNKS if sample == "madow_tree" else 0
+        need(launches["segsum"] == want_seg, f"{sample}: segsum launched {launches['segsum']}")
+        part = trace[: MADOW_CPU_CHUNKS * W]
+        card = run(pd, part, N, C, window=W, eta=eta)
+        cpu = run(pd, part, N, C, window=W, eta=eta, device="cpu")
+        d = abs(card.hit_ratio - cpu.hit_ratio)
+        print(f"{sample} card vs CPU, {MADOW_CPU_CHUNKS} chunks: hit ratio {card.hit_ratio} vs "
+              f"{cpu.hit_ratio} (|d| {d:.3e}, limit 2e-3)")
+        need(d <= 2e-3 and np.all(cpu.occupancy == C), f"{sample}: card and CPU differ")
+        if sample == "madow_tree":
+            segsum = launches["segsum"]
+    return segsum
+
+
 
 
 def main() -> int:
@@ -333,15 +612,27 @@ def main() -> int:
     eta = theoretical_eta(C, N, T, 1)
 
     rows = check_kernels(torch, dev, trace, eta)
+    rows.update(check_tree_kernels(torch, dev, tree_state(trace, eta)))
     launches = check_main_path(torch, trace, eta)
     check_card_against_cpu(trace, eta)
     check_resume(torch, trace, eta)
     breakdown(torch, trace, eta)
+    tree_launches = check_tree_main_path(trace, eta)
+    check_tree_card_against_cpu(trace, eta)
+    check_tree_repeat_and_resume(torch, trace, eta)
+    check_reanchor(torch, trace, eta)
+    madow_segsum = check_madow(trace, eta)
+    breakdown(torch, trace, eta, kind="ogb_tree")
 
+    # launches: the dense main path's for its kernels, the lazy main path's
+    # for the prefix-tree kernels (segsum also ran 3 a chunk on madow_tree)
+    launches.update({k: tree_launches[k] for k in ("segsum", "bucket_mass")})
+    print(f"segsum launches: ogb_tree main path {launches['segsum']}, madow_tree "
+          f"{madow_segsum} over {MADOW_CHUNKS} chunks")
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": launches[name], **rows[name]}
-        for name in ("histogram", "mass", "apply")
+        for name in KERNELS
     ]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

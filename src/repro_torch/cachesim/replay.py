@@ -5,51 +5,61 @@ Counterpart of ``repro.cachesim.replay`` (``sampling_keys``,
 step inside one ``lax.scan``; here :func:`repro_torch.cachesim.api.run`
 calls it once per chunk from a Python loop.  Every catalog-sized pass of
 the step is a hand-written kernel on the card: the histogram, one mass pass
-per Newton sweep, and the final clip.
+per Newton sweep, and the final clip; ``madow_tree`` adds one segsum per
+tree level for its sample.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.jaxcache.fractional import (
     capped_simplex_project,
     capped_simplex_project_warm,
+    madow_sample,
     permanent_random_numbers,
     request_counts,
     warm_bracket_hi,
 )
+from repro_torch.kernels.prefix_tree.ops import madow_sample_tree
 
-#: sampling modes of the reference that a later slice of the port brings
-#: over, with the Madow offsets they draw per chunk
-LATER_SAMPLES = ("madow", "madow_tree")
+#: sampling modes that draw a per-chunk Madow offset u from the carried key
+MADOW_SAMPLES = ("madow", "madow_tree")
+SAMPLES = ("poisson", "none") + MADOW_SAMPLES
 
 
 def _check_sample(sample: str) -> None:
-    if sample in LATER_SAMPLES:
-        raise NotImplementedError(
-            f"sample={sample!r} is not ported yet: Madow sampling comes with "
-            f"the next slice of the port (see ROADMAP.md); use 'poisson' or "
-            f"'none'"
-        )
-    if sample not in ("poisson", "none"):
+    if sample not in SAMPLES:
         raise ValueError(f"unknown sample mode {sample!r}")
 
 
-def sampling_keys(
-    seed: int, catalog_size: int, sample: str, device: torch.device
-) -> torch.Tensor:
-    """The seed-derived permanent random numbers p for Poisson sampling
-    (size 0 when unused).  The Madow key arrives with Madow sampling."""
+def sampling_keys(seed: int, catalog_size: int, sample: str, device: torch.device):
+    """Seed-derived ``(p, u_key)``: the permanent random numbers for
+    Poisson sampling (size 0 when unused) and the () int64 key that drives
+    the per-chunk Madow offsets (:func:`repro_torch.cachesim.api._chunk_u`).
+
+    Same roles as the reference's, other bits: JAX's threefry cannot be
+    reproduced.  p comes from a CPU ``torch.Generator`` and the key is the
+    seed itself, so both are the same on every device.
+    """
     _check_sample(sample)
     if sample == "poisson":
-        return permanent_random_numbers(seed, catalog_size, device)
-    return torch.zeros((0,), dtype=torch.float32, device=device)
+        p = permanent_random_numbers(seed, catalog_size, device)
+    else:
+        p = torch.zeros((0,), dtype=torch.float32, device=device)
+    return p, torch.tensor(int(seed), dtype=torch.int64, device=device)
 
 
-def sample_chunk_metrics(sample: str, f: torch.Tensor, ids: torch.Tensor, p: torch.Tensor):
+def sample_chunk_metrics(sample: str, capacity, f: torch.Tensor, ids: torch.Tensor,
+                         p: torch.Tensor, u: torch.Tensor):
     """(reward, hits, occupancy) for one request chunk at the pre-update
-    state ``f`` (OCO order), as 0-d tensors on f's device."""
+    state ``f`` (OCO order), as 0-d tensors on f's device.
+
+    ``capacity`` is the static C the Madow modes sample (None otherwise).
+    ``madow_tree`` draws the same systematic sample as ``madow`` by
+    prefix-tree descent, up to float32 tree sums at the boundaries."""
     _check_sample(sample)
     fi = f.index_select(0, ids)
     reward = fi.sum()
@@ -58,24 +68,39 @@ def sample_chunk_metrics(sample: str, f: torch.Tensor, ids: torch.Tensor, p: tor
         # remaining catalog pass
         hits = (fi >= p.index_select(0, ids)).sum(dtype=torch.int32)
         occ = (f >= p).sum(dtype=torch.float32)
+    elif sample == "madow":
+        cached = madow_sample(f, u, capacity)
+        hits = cached.index_select(0, ids).sum(dtype=torch.int32)
+        occ = cached.sum(dtype=torch.float32)
+    elif sample == "madow_tree":
+        sel = madow_sample_tree(f, u, capacity)  # (C,) ascending leaf ids
+        ids64 = ids.to(torch.int64)
+        pos = torch.clamp(torch.searchsorted(sel, ids64), max=capacity - 1)
+        hits = (sel.index_select(0, pos) == ids64).sum(dtype=torch.int32)
+        occ = torch.full((), float(capacity), dtype=torch.float32, device=f.device)
     else:
         hits = torch.zeros((), dtype=torch.int32, device=f.device)
         occ = f.sum()
     return reward, hits, occ
 
 
-def _make_ogb_step(sample: str, projection: str, sweeps: int, iters: int):
+def _make_ogb_step(sample: str, projection: str, sweeps: int, iters: int,
+                   madow_capacity: Optional[int] = None):
     """The per-chunk OGB_cl update with eta and capacity as 0-d tensors.
 
-    Returns ``step(eta, p, cap, f, tau_prev, ids) -> (f', tau, (reward,
-    hits, tau, occupancy))``; the chunk size B is read off ``ids``.
+    Returns ``step(eta, p, cap, f, tau_prev, ids, u) -> (f', tau, (reward,
+    hits, tau, occupancy))``; the chunk size B is read off ``ids`` and ``u``
+    is the chunk's Madow offset (unused by the other modes).
+    ``madow_capacity`` must be the static C for the Madow modes.
     """
     _check_sample(sample)
     if projection not in ("warm", "bisect"):
         raise ValueError(f"unknown projection mode {projection!r}")
+    if sample in MADOW_SAMPLES and madow_capacity is None:
+        raise ValueError("madow sampling needs a static capacity")
 
-    def step(eta, p, cap, f, tau_prev, ids):
-        reward, hits, occ = sample_chunk_metrics(sample, f, ids, p)
+    def step(eta, p, cap, f, tau_prev, ids, u):
+        reward, hits, occ = sample_chunk_metrics(sample, madow_capacity, f, ids, p, u)
         # The gradient step is y = f + eta * counts, formed inside the
         # kernels.  The reference adds eta once per duplicate id
         # (f.at[ids].add(eta)), so with duplicates y can differ by 1 ulp.

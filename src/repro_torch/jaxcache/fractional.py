@@ -121,6 +121,37 @@ def poisson_sample(f: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return f >= p
 
 
+def madow_sample(f: torch.Tensor, u: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Madow systematic sampling: a bool mask of exactly C items, P(i) = f_i.
+
+    Item i is selected iff one of the C thresholds u, u + 1, ..., u + C - 1
+    falls in (cum[i-1], cum[i]].  Where sum(f) is exactly C this is the
+    reference's sample (``repro.jaxcache.fractional.madow_sample_jax``).
+    A projection leaves sum(f) within float32 rounding of C, and three
+    things keep the count at C all the same:
+
+    * the prefix sums and thresholds are float64, so an item with f_i = 1
+      spans one threshold, never two, and the card selects what the CPU
+      selects (its scan adds in another order);
+    * only the C thresholds count (the reference takes a (C+1)-th where
+      sum(f) exceeds C + u), and the last prefix sum is raised to C where
+      sum(f) falls short of it, so the last threshold lands in the last
+      item's interval;
+    * u = 0 counts as u = 1 (threshold 0 lies in no interval (a, b]).
+    """
+    cap = float(capacity)
+    cum = torch.cumsum(f, dim=0, dtype=torch.float64)
+    cum[-1:] = torch.clamp(cum[-1:], min=cap)
+    lower = torch.cat([torch.zeros(1, dtype=torch.float64, device=f.device), cum[:-1]])
+    u = torch.where(u > 0, u, torch.ones_like(u)).to(torch.float64)
+
+    def taken(x):
+        # how many of the thresholds u + k, 0 <= k < C, are <= x
+        return torch.clamp(torch.floor(x - u) + 1.0, 0.0, cap)
+
+    return (taken(cum) - taken(lower)) >= 1.0
+
+
 def permanent_random_numbers(
     seed: int, catalog_size: int, device: torch.device
 ) -> torch.Tensor:

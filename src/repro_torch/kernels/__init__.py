@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
 Each wrapper counts its launches in a plain integer attribute
-(``histogram.launches``, ``masses.launches``, ``apply.launches``), so a run
+(``histogram.launches``, ``masses.launches``, ``apply.launches``,
+``block_segment_sums.launches``, ``bucket_masses.launches``), so a run
 can show that it went through the kernels; :func:`launch_counts` reads them
 and :func:`reset_launch_counts` sets them to 0.
 """
@@ -13,9 +14,16 @@ from typing import Dict
 
 def _wrappers():
     from repro_torch.kernels.capped_simplex.ops import apply, masses
+    from repro_torch.kernels.prefix_tree.kernel import block_segment_sums, bucket_masses
     from repro_torch.kernels.scatter_counts.ops import histogram
 
-    return {"histogram": histogram, "mass": masses, "apply": apply}
+    return {
+        "histogram": histogram,
+        "mass": masses,
+        "apply": apply,
+        "segsum": block_segment_sums,
+        "bucket_mass": bucket_masses,
+    }
 
 
 def launch_counts() -> Dict[str, int]:

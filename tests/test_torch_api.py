@@ -105,8 +105,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(trace, monkeypatch):
 
 
 def test_unported_options_and_bad_input_raise(trace):
-    with pytest.raises(NotImplementedError, match="Madow"):
-        repro_torch.policy_def("ogb", sample="madow")
+    with pytest.raises(ValueError, match="madow"):
+        repro_torch.policy_def("ogb_tree", sample="madow")
     with pytest.raises(KeyError, match="ported so far"):
         repro_torch.policy_def("lru")
     with pytest.raises(ValueError, match="trace ids"):

@@ -7,7 +7,7 @@ the card, run them with
 
 They cover the shapes chip_smoke.py does not: ragged catalog sizes, every
 K around the 8-threshold chunk, ids out of range, and run-to-run
-determinism.
+determinism, of the kernels and of whole ogb_tree replays.
 """
 
 import numpy as np
@@ -19,6 +19,8 @@ from repro_torch.cachesim.traces import zipf
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.capped_simplex.ops import apply, fused_ogb_update, masses
 from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref
+from repro_torch.kernels.prefix_tree.kernel import block_segment_sums, bucket_masses
+from repro_torch.kernels.prefix_tree.ref import bucket_masses_ref, segment_sums_ref
 from repro_torch.kernels.scatter_counts.ops import histogram
 from repro_torch.kernels.scatter_counts.ref import histogram_ref
 
@@ -83,8 +85,74 @@ def test_run_on_the_card_matches_the_cpu_and_counts_launches(card):
     pd = repro_torch.policy_def("ogb")
     reset_launch_counts()
     got = repro_torch.run(pd, trace, n, c, window=w)
-    assert launch_counts() == {"histogram": 100, "mass": 500, "apply": 100}
+    assert launch_counts() == {"histogram": 100, "mass": 500, "apply": 100, "segsum": 0,
+                               "bucket_mass": 0}
     want = repro_torch.run(pd, trace, n, c, window=w, device="cpu")
     np.testing.assert_allclose(got.aux, want.aux, rtol=0, atol=1e-6)
     np.testing.assert_allclose(got.reward, want.reward, rtol=1e-5, atol=0)
     assert abs(int(got.hits.sum()) - int(want.hits.sum())) <= len(trace) // 10_000
+
+
+@pytest.mark.parametrize("n,radix", [(1, 64), (64, 64), (1000, 16), (65536, 64),
+                                     (1_000_000, 64), (15_625, 64)])
+def test_segsum_matches_plain(card, n, radix):
+    out_size = -(-n // radix)
+    gen = torch.Generator().manual_seed(n)
+    ints = torch.randint(0, 1000, (n,), generator=gen).to(torch.float32).to(card)
+    assert torch.equal(block_segment_sums(ints, out_size, radix),
+                       segment_sums_ref(ints, out_size, radix))
+    floats = torch.rand(n, generator=gen).to(card)
+    got = block_segment_sums(floats, out_size, radix)
+    torch.testing.assert_close(got, segment_sums_ref(floats, out_size, radix), rtol=1e-6, atol=0)
+    assert torch.equal(block_segment_sums(floats, out_size, radix), got)
+
+
+@pytest.mark.parametrize("k", [1, 7, 8, 12, 63, 64, 65])
+@pytest.mark.parametrize("v", [1, 1000, 65536])
+def test_bucket_masses_match_plain_and_repeat_bit_for_bit(card, v, k):
+    gen = torch.Generator().manual_seed(v + k)
+    cnt = torch.randint(0, 40, (v,), generator=gen).to(torch.float32)
+    cnt[torch.rand(v, generator=gen) < 0.7] = 0.0
+    centre = -1.0 + (torch.arange(v) + torch.rand(v, generator=gen)) * (3.0 / v)
+    total = cnt * centre
+    taus = torch.sort(torch.rand(k, generator=gen) * 2.4 - 0.8).values
+    cnt, total, taus = cnt.to(card), total.to(card), taus.to(card)
+    got = bucket_masses(cnt, total, taus)
+    want = bucket_masses_ref(cnt, total, taus)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * max(1.0, float(cnt.sum())))
+    assert torch.equal(bucket_masses(cnt, total, taus), got)
+
+
+@pytest.mark.parametrize("batch_hint,chunks", [(4096, 200), (1, 50)])
+def test_ogb_tree_two_runs_equal_bit_for_bit(card, batch_hint, chunks):
+    """Two replays on the card agree bit for bit (index_put_ accumulates
+    in a fixed order); batch_hint=1 re-anchors every chunk here."""
+    n, c, w = 200_000, 10_000, 1000
+    trace = zipf(n, chunks * w, seed=3)
+    pd = repro_torch.policy_def("ogb_tree", batch_hint=batch_hint)
+    reset_launch_counts()
+    one = repro_torch.run(pd, trace, n, c, window=w, eta=0.05)
+    counts = launch_counts()
+    two = repro_torch.run(pd, trace, n, c, window=w, eta=0.05)
+    assert counts["bucket_mass"] == 5 * chunks
+    reanchors = one.extras["reanchors"]
+    assert (reanchors == chunks) if batch_hint == 1 else (reanchors == 0)
+    assert counts["segsum"] == 6 * (1 + reanchors)
+    for name in ("reward", "hits", "aux", "occupancy"):
+        np.testing.assert_array_equal(getattr(one, name), getattr(two, name))
+    for a, b in zip(one.carry.tensors(), two.carry.tensors()):
+        assert torch.equal(a, b)
+    cpu = repro_torch.run(pd, trace, n, c, window=w, eta=0.05, device="cpu")
+    np.testing.assert_allclose(one.aux, cpu.aux, rtol=0, atol=1e-5)
+    assert abs(int(one.hits.sum()) - int(cpu.hits.sum())) <= len(trace) // 10_000
+
+
+@pytest.mark.parametrize("sample", ["madow", "madow_tree"])
+def test_madow_on_the_card_holds_capacity_and_matches_the_cpu(card, sample):
+    n, c, w = 100_000, 5000, 1000
+    trace = zipf(n, 100 * w, seed=4)
+    pd = repro_torch.policy_def("ogb", sample=sample, madow_capacity=c)
+    got = repro_torch.run(pd, trace, n, c, window=w)
+    want = repro_torch.run(pd, trace, n, c, window=w, device="cpu")
+    np.testing.assert_array_equal(got.occupancy, c)
+    assert abs(got.hit_ratio - want.hit_ratio) <= 2e-3
