@@ -29,7 +29,24 @@ script with a non-zero exit:
    200 chunks on the card, 50 against the CPU);
 10. Madow sampling (madow, madow_tree): 2000 chunks each, occupancy exactly
    C in every chunk, the card against the CPU over 100 chunks;
-11. where an ogb_tree chunk's time goes, from torch.profiler over 300 chunks.
+11. where an ogb_tree chunk's time goes, from torch.profiler over 300 chunks;
+12. the attention kernels against their plain versions, in bf16 and f32:
+   flash-decode at glm4-9b's B=8, H=32, Hkv=2, D=128 over S = 32 768 (lengths
+   from a seed, with 1, S and a length that is no multiple of the tile), and
+   at qwen3-14b's and gemma-7b's heads; flash-prefill at glm4-9b B=1,
+   S=4096, a ragged S=4000 and gemma-7b's D=256; two runs bit for bit;
+13. their times cold and warm in L2, beside the plain versions, one
+   scaled_dot_product_attention call each and their bounds;
+14. serving at glm4-9b's full width: ServeEngine with random bf16 weights
+   drawn on the card, an OGB PagedKVPool, 4 generate calls of 8 prompts of
+   2048 tokens and 32 new tokens, half of each batch hot prompts; every
+   prefill and decode launch counted;
+   14b. where a prefill and a decode step go, from torch.profiler;
+15. the served model through the kernels against the same model through
+   the plain versions on the card: last-token logits and the first greedy
+   token after prefill (beside a run with float64 prefill attention, the
+   yardstick of how far rounding alone moves the logits), 8 teacher-forced
+   decode steps, and two generate calls on equal prompts.
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -39,6 +56,7 @@ by one JSON line of per-kernel numbers; the last line is
 from __future__ import annotations
 
 import json
+import math
 import platform
 import subprocess
 import sys
@@ -57,6 +75,14 @@ V = 65536  # ogb_tree's buckets
 REF_TREE_FRAC_HIT_RATIO = 0.4842919
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12  # float32 outside the tensor cores, same source
+BF16_OPS_PER_S = 989e12  # bf16 on the tensor cores, dense, same source
+#: us a request of the two replay paths at this N and T before the serving
+#: path was added: this script at commit e3b81f4 (NVIDIA H100 80GB HBM3, 700 W)
+EARLIER_US_PER_REQUEST = {"ogb": 1.6159251664000003, "ogb_tree": 5.9824}
+ARCH = "glm4-9b"  # the served model, at full width
+SERVE_B, SERVE_S, SERVE_NEW, SERVE_CALLS = 8, 2048, 32, 4
+PAGE_SIZE, POOL_PAGES, HOT_PROMPTS = 64, 4096, 6  # a 262 144-token prefix pool
+TEACHER_STEPS = 8
 MASS_TOL = 1e-6 * N  # float32 summation order over N items
 HOLD_CYCLES = 2_000_000  # about 1 ms of device time at the H100's clock
 REPLACES = {
@@ -65,6 +91,8 @@ REPLACES = {
     "apply": "src/repro/kernels/capped_simplex/kernel.py:97",
     "segsum": "src/repro/kernels/prefix_tree/kernel.py:43",
     "bucket_mass": "src/repro/kernels/prefix_tree/kernel.py:69",
+    "flash_prefill": "src/repro/kernels/flash_prefill/kernel.py:29",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:29",
 }
 SOURCES = {
     "histogram": "src/repro_torch/kernels/scatter_counts/csrc/histogram.cu",
@@ -72,8 +100,12 @@ SOURCES = {
     "apply": "src/repro_torch/kernels/capped_simplex/csrc/apply.cu",
     "segsum": "src/repro_torch/kernels/prefix_tree/csrc/segsum.cu",
     "bucket_mass": "src/repro_torch/kernels/prefix_tree/csrc/bucket_mass.cu",
+    "flash_prefill": "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
+    "decode_attention": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
 }
-KERNELS = ("histogram", "mass", "apply", "segsum", "bucket_mass")
+KERNELS = ("histogram", "mass", "apply", "segsum", "bucket_mass", "flash_prefill",
+           "decode_attention")
+NO_ATTENTION = {"flash_prefill": 0, "decode_attention": 0}
 
 
 class Failed(Exception):
@@ -93,10 +125,11 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(n_bytes, n_ops):
-    """The least time for the work: bytes over HBM rate or ops over fp32 peak."""
+def bound_ms(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
+    """The least time for the work: bytes over HBM rate or ops over the peak
+    (float32 outside the tensor cores unless another is given)."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -238,12 +271,15 @@ def check_main_path(torch, trace, eta):
     res = run(pd, trace, N, C, window=W)
     launches = launch_counts()
     m = T // W
-    want = {"histogram": m, "mass": 5 * m, "apply": m, "segsum": 0, "bucket_mass": 0}
+    want = {"histogram": m, "mass": 5 * m, "apply": m, "segsum": 0, "bucket_mass": 0,
+            **NO_ATTENTION}
     f = res.final_f.astype(np.float64)
     print(f"main path: hit_ratio {res.hit_ratio}, frac_hit_ratio {res.frac_hit_ratio}, "
           f"regret {res.regret}, opt_hits {res.opt_hits}, us_per_request "
           f"{res.us_per_request}, wall {res.wall_seconds} s, sum f {f.sum()}, "
           f"eta {res.extras['eta']}, launches {launches}")
+    print(f"ogb: {res.us_per_request} us a request at T={T} (at e3b81f4: "
+          f"{EARLIER_US_PER_REQUEST['ogb']})")
     need(res.extras["eta"] == eta, "main path resolved another eta")
     need(launches == want, f"launches {launches}, expected {want}")
     need(np.all(np.isfinite(res.reward)) and np.all(np.isfinite(res.aux)), "non-finite output")
@@ -431,12 +467,14 @@ def check_tree_main_path(trace, eta):
     # a re-anchor rebuilds the three trees (two segsum levels each) from
     # leaves whose counts come from the histogram kernel
     want = {"histogram": 2 * reanchors, "mass": 0, "apply": 0, "segsum": 6 * (1 + reanchors),
-            "bucket_mass": 5 * m}
+            "bucket_mass": 5 * m, **NO_ATTENTION}
     print(f"ogb_tree main path: hit_ratio {res.hit_ratio}, frac_hit_ratio {res.frac_hit_ratio} "
           f"(reference {REF_TREE_FRAC_HIT_RATIO}), regret {res.regret}, us_per_request "
           f"{res.us_per_request}, wall {res.wall_seconds} s, final rho {float(res.carry.rho)}, "
           f"mean occupancy {float(np.mean(res.occupancy))}, re-anchors {reanchors}, host syncs "
           f"{syncs}, launches {launches}")
+    print(f"ogb_tree: {res.us_per_request} us a request at T={T} (at e3b81f4: "
+          f"{EARLIER_US_PER_REQUEST['ogb_tree']})")
     need(res.extras["eta"] == eta, "ogb_tree main path resolved another eta")
     need(launches == want, f"ogb_tree launches {launches}, expected {want}")
     need(np.all(np.isfinite(res.reward)) and np.all(np.isfinite(res.aux)), "non-finite output")
@@ -534,7 +572,7 @@ def check_reanchor(torch, trace, eta):
           f"launches {launches}")
     need(n_re == REANCHOR_CHUNKS, f"forced re-anchor fired {n_re} times")
     want = {"histogram": 2 * n_re, "mass": 0, "apply": 0, "segsum": 6 * (1 + n_re),
-            "bucket_mass": 5 * REANCHOR_CHUNKS}
+            "bucket_mass": 5 * REANCHOR_CHUNKS, **NO_ATTENTION}
     need(launches == want, f"forced re-anchor launches {launches}, expected {want}")
     _same_runs(torch, one, two, "forced re-anchor two runs")
     short = part[: REANCHOR_CPU_CHUNKS * W]
@@ -574,6 +612,363 @@ def check_madow(trace, eta):
     return segsum
 
 
+
+
+def _held(torch, label, got, again, want, dtype):
+    """Kernel against plain: float32 within 2e-5 (the JAX package's kernel
+    tests' tolerance); bf16 within one ulp of the largest output (2^-7 of it:
+    both round a float32 result once).  Not empty, not all zero, two runs
+    bit for bit."""
+    err = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7 * top
+    print(f"{label}: max |kernel - plain| = {err:.3e} (limit {tol:.3e}), max |out| {top:.4f}")
+    need(got.numel() > 0 and bool(torch.isfinite(got).all()), f"{label}: empty or non-finite")
+    need(float(got.float().abs().max()) > 0, f"{label}: all zero")
+    need(err <= tol, f"{label}: |kernel - plain| = {err} > {tol}")
+    need(torch.equal(got, again), f"{label}: two runs differ")
+    return err
+
+
+def check_attention_kernels(torch, dev):
+    """Phase 12: both attention kernels against their plain versions."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        for arch, B, H, Hkv, D, S in (("glm4-9b", 8, 32, 2, 128, 32768),
+                                      ("qwen3-14b", 8, 40, 8, 128, 8192),
+                                      ("gemma-7b", 8, 16, 16, 256, 8192)):
+            q, k, v = randn(B, H, D, dtype=dtype), randn(B, S, Hkv, D, dtype=dtype), \
+                randn(B, S, Hkv, D, dtype=dtype)
+            lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+            lengths[:3] = torch.tensor([1, S, 4001], dtype=torch.int32)  # 4001 = 62 * 64 + 33
+            label = f"decode {arch} {kind} B={B} H={H} Hkv={Hkv} D={D} S={S}"
+            errs[("decode", arch, kind)] = _held(
+                torch, label, decode_attention(q, k, v, lengths), decode_attention(q, k, v, lengths),
+                decode_attention_ref(q, k, v, lengths), dtype)
+        for arch, B, S, H, Hkv, D in (("glm4-9b", 1, 4096, 32, 2, 128),
+                                      ("glm4-9b", 1, 4000, 32, 2, 128),
+                                      ("gemma-7b", 1, 2048, 16, 16, 256)):
+            q = randn(B, S, H, D, dtype=dtype)
+            k, v = randn(B, S, Hkv, D, dtype=dtype), randn(B, S, Hkv, D, dtype=dtype)
+            label = f"prefill {arch} {kind} B={B} S={S} H={H} Hkv={Hkv} D={D}"
+            errs[("prefill", arch, kind, S)] = _held(
+                torch, label, flash_prefill(q, k, v), flash_prefill(q, k, v),
+                flash_prefill_ref(q, k, v), dtype)
+        torch.cuda.empty_cache()
+    return {"decode_attention": errs[("decode", "glm4-9b", "bf16")],
+            "flash_prefill": errs[("prefill", "glm4-9b", "bf16", 4096)]}
+
+
+def time_attention_kernels(torch, dev, errs):
+    """Phase 13: each attention kernel at glm4-9b's shapes in bf16, cold and
+    warm in L2, beside its plain version, one scaled_dot_product_attention
+    call (timed as a yardstick only: the port never calls it) and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    B, H, Hkv, D, S = 8, 32, 2, 128, 32768  # decode_32k's cache length, every sequence full
+    q, k, v = randn(B, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    qd, kd, vd = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    lib = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, enable_gqa=True)[:, :, 0]
+    print(f"decode: max |kernel - scaled_dot_product_attention| = "
+          f"{float((decode_attention(q, k, v, lengths).float() - lib.float()).abs().max()):.3e}")
+    # K and V of every valid position read once, q read and out written once;
+    # 4 operations per (query head, position, dim): the two dot products
+    dec_bytes = 2 * 2 * B * S * Hkv * D + 2 * 2 * B * H * D + 4 * B
+    jobs = {"decode_attention": (
+        lambda: decode_attention(q, k, v, lengths),
+        lambda: decode_attention_ref(q, k, v, lengths),
+        lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, enable_gqa=True),
+        bound_ms(dec_bytes, 4 * B * H * S * D, BF16_OPS_PER_S))}
+
+    Bp, Sp = 1, 4096
+    qp, kp, vp = randn(Bp, Sp, H, D), randn(Bp, Sp, Hkv, D), randn(Bp, Sp, Hkv, D)
+    qt, kt, vt = qp.transpose(1, 2), kp.transpose(1, 2), vp.transpose(1, 2)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    print(f"prefill: max |kernel - scaled_dot_product_attention| = "
+          f"{float((flash_prefill(qp, kp, vp).float() - lib.transpose(1, 2).float()).abs().max()):.3e}")
+    # 4 B H (S^2 / 2) D operations over the bf16 tensor-core peak
+    pre_bytes = 2 * (2 * Bp * Sp * H * D + 2 * Bp * Sp * Hkv * D)
+    jobs["flash_prefill"] = (
+        lambda: flash_prefill(qp, kp, vp),
+        lambda: flash_prefill_ref(qp, kp, vp),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+        bound_ms(pre_bytes, 4 * Bp * H * (Sp * Sp / 2) * D, BF16_OPS_PER_S))
+
+    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    rows = {}
+    for name, (kern, plain, lib_fn, (b, by)) in jobs.items():
+        ms = timed_ms(torch, kern, 20, flush)
+        warm = timed_ms(torch, kern, 20)
+        plain_ms = timed_ms(torch, plain, 5, flush)
+        lib_ms = timed_ms(torch, lib_fn, 20, flush)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                      "library_ms": lib_ms, "max_abs_err": errs[name]}
+        print(f"{name}: cold {ms * 1e3:.2f} us, warm in L2 {warm * 1e3:.2f} us (plain "
+              f"{plain_ms * 1e3:.2f} us, scaled_dot_product_attention {lib_ms * 1e3:.2f} us, "
+              f"bound {b * 1e3:.3f} us by {by}; kernel / library {ms / lib_ms:.2f})")
+    del flush_buf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def serve_full_width(torch, dev):
+    """Phase 14: glm4-9b at full width behind an OGB page pool, 4 generate
+    calls, every attention launch counted."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.policies import make_policy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+
+    cfg = get_arch(ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads} / KV "
+          f"{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{n_params} parameters (ArchConfig.param_count {cfg.param_count()} + norms) drawn in "
+          f"bf16 on the card in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
+    need(n_params == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
+         "the served model is not glm4-9b's full width")
+    pages = SERVE_S // PAGE_SIZE
+    policy = make_policy("ogb", 1 << 18, POOL_PAGES, horizon=SERVE_CALLS * SERVE_B * pages,
+                         batch_size=SERVE_B * pages)
+    pool = PagedKVPool(policy, page_size=PAGE_SIZE)
+    engine = ServeEngine(cfg, params, pool=pool, max_len=SERVE_S + SERVE_NEW, device=dev)
+    print(f"page pool: OGB over 2^18 page ids, {POOL_PAGES} pages of {PAGE_SIZE} tokens, "
+          f"eta {policy.eta:.6f}, horizon {SERVE_CALLS * SERVE_B * pages} page touches, "
+          f"batch {SERVE_B * pages}")
+    rng = np.random.default_rng(0)
+    hot = [rng.integers(1, cfg.vocab_size, SERVE_S) for _ in range(HOT_PROMPTS)]
+    reset_launch_counts()
+    batches, outs, steady = [], [], []
+    for step in range(SERVE_CALLS):
+        prompts = np.stack([hot[(step + b) % HOT_PROMPTS] if b < SERVE_B // 2
+                            else rng.integers(1, cfg.vocab_size, SERVE_S)
+                            for b in range(SERVE_B)]).astype(np.int32)
+        wp, wd = engine.stats.wall_prefill, engine.stats.wall_decode
+        out = engine.generate(prompts, SERVE_NEW)
+        wp, wd = engine.stats.wall_prefill - wp, engine.stats.wall_decode - wd
+        print(f"generate {step + 1}: prefill {wp:.4f} s ({SERVE_B * SERVE_S / wp:.1f} tokens/s), "
+              f"decode {wd * 1e3 / SERVE_NEW:.3f} ms a step ({SERVE_B * SERVE_NEW / wd:.2f} "
+              f"tokens/s), prefix reuse {engine.stats.prefix_reuse:.6f}, page hit ratio "
+              f"{pool.stats.page_hit_ratio:.6f}, occupancy {pool.occupancy():.1f}")
+        need(out.shape == (SERVE_B, SERVE_NEW) and out.min() >= 0 and out.max() < cfg.vocab_size,
+             f"generate {step + 1}: tokens out of range or of the wrong shape")
+        batches.append(prompts)
+        outs.append(out)
+        if step:
+            steady.append((wp, wd))
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {name: 0 for name in launches}
+    want["flash_prefill"] = cfg.n_layers * SERVE_CALLS
+    want["decode_attention"] = cfg.n_layers * SERVE_NEW * SERVE_CALLS
+    wp = sum(w for w, _ in steady) / len(steady)
+    wd = sum(w for _, w in steady) / len(steady)
+    print(f"serving, calls 2-{SERVE_CALLS}: prefill {SERVE_B * SERVE_S / wp:.1f} tokens/s, "
+          f"decode {wd * 1e3 / SERVE_NEW:.3f} ms a step, {SERVE_B * SERVE_NEW / wd:.2f} tokens/s; "
+          f"peak memory {peak / 1e9:.3f} GB (max_memory_allocated); prefix reuse "
+          f"{engine.stats.prefix_reuse:.6f}, page hit ratio {pool.stats.page_hit_ratio:.6f}, "
+          f"pool stats {pool.stats}; launches {launches} (a decode_attention launch is its "
+          f"split pass and its combine pass together)")
+    need(launches == want, f"serving launches {launches}, expected {want}")
+    need(engine.stats.prefix_reuse > 0 and pool.stats.page_hit_ratio > 0,
+         "the page pool reused nothing by the last call")
+    return engine, batches[0], outs[0], launches
+
+
+def serve_breakdown(torch, engine, prompts, steps=4):
+    """Phase 14b: where a prefill and a decode step of the served model go,
+    from torch.profiler: device busy time, device kernels, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import decode_step, prefill
+
+    cfg, params, dev = engine.cfg, engine.params, engine.device
+    tokens = torch.from_numpy(prompts).to(dev)
+    for label in ("prefill", "decode"):
+        logits, cache = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+        tok = torch.argmax(logits[:, :cfg.vocab_size], -1)
+        torch.cuda.synchronize()
+        n = 1 if label == "prefill" else steps
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if label == "prefill":
+                    prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+                else:
+                    logits, cache = decode_step(cfg, params, cache, tok, dev)
+                    tok = torch.argmax(logits[:, :cfg.vocab_size], -1)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in rows) / n / 1e3
+        kernels = sum(e.count for e in rows) / n
+        need(busy_ms > 0, f"serving breakdown: the profiler saw no device time in {label}")
+        print(f"breakdown {label}: wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms, "
+              f"{kernels:.1f} device kernels, device idle share {1 - busy_ms / wall_ms:.3f}")
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"  {e.self_device_time_total / n / 1e3:9.3f} ms {e.count / n:7.1f}x  {e.key[:90]}")
+
+
+class plain_attention:
+    """Within this block the served model runs the plain PyTorch versions on
+    the card (or ``prefill`` in place of the plain prefill version): the
+    attention module's two kernel wrappers are swapped for them, and put
+    back on leaving."""
+
+    def __init__(self, prefill=None):
+        self.prefill = prefill
+
+    def __enter__(self):
+        from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+        from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+        from repro_torch.models import attention
+
+        self.saved = attention.flash_prefill, attention.decode_attention
+        attention.flash_prefill = self.prefill or flash_prefill_ref
+        attention.decode_attention = decode_attention_ref
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+
+        attention.flash_prefill, attention.decode_attention = self.saved
+
+
+def _prefill_f64(q, k, v):
+    """Causal GQA attention in float64, one sequence at a time: what the
+    float32 plain version approximates, for a yardstick of how far the served
+    model's logits move when attention is rounded differently."""
+    import torch
+
+    B, S, H, D = q.shape
+    g = H // k.shape[2]
+    future = torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1)
+    out = torch.empty_like(q)
+    for b in range(B):
+        kf = k[b].double().repeat_interleave(g, dim=1)
+        vf = v[b].double().repeat_interleave(g, dim=1)
+        s = torch.einsum("qhd,khd->hqk", q[b].double(), kf) / math.sqrt(D)
+        s.masked_fill_(future, -1e30)
+        out[b] = torch.einsum("hqk,khd->qhd", torch.softmax(s, dim=-1), vf).to(q.dtype)
+    return out
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at magnitude x (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def check_served_against_plain(torch, engine, prompts, first_out):
+    """Phase 15: the served model through the kernels against the plain
+    versions on the card, and two generate calls on equal prompts."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.model import decode_step, prefill
+
+    cfg, params, dev, V = engine.cfg, engine.params, engine.device, engine.cfg.vocab_size
+    tokens = torch.from_numpy(prompts).to(dev)
+    lk, ck = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    before = launch_counts()
+    with plain_attention():
+        lp, cp = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    need(launch_counts() == before, "the plain run launched a kernel")
+
+    def compare(label, a, b):
+        """Logits within 8 bf16 ulps of the largest |logit|: each layer's
+        attention output may round one ulp apart, and 40 layers carry it."""
+        a, b = a[:, :V].float(), b[:, :V].float()
+        top = float(b.abs().max())
+        tol = 8 * bf16_ulp(top)
+        err = float((a - b).abs().max())
+        print(f"{label}: max |logit kernels - plain| = {err:.4e} (limit {tol:.4e}, 8 bf16 ulps "
+              f"of the largest |logit| {top:.4f})")
+        need(bool(torch.isfinite(a).all()) and err <= tol, f"{label}: logits differ by {err}")
+        return tol
+
+    tol = compare("prefill, last token", lk, lp)
+    with plain_attention(prefill=_prefill_f64):
+        l64, _ = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    d32 = float((lp[:, :V].float() - l64[:, :V].float()).abs().max())
+    dk = float((lk[:, :V].float() - l64[:, :V].float()).abs().max())
+    print(f"yardstick, prefill attention in float64: max |logit plain - float64| = {d32:.4e}, "
+          f"max |logit kernels - float64| = {dk:.4e}")
+    tk, tp = torch.argmax(lk[:, :V], -1), torch.argmax(lp[:, :V], -1)
+    t64 = torch.argmax(l64[:, :V], -1)
+    top2 = lp[:, :V].float().topk(2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    decided = gap > 2 * tol  # there the tolerance fixes the argmax
+    print(f"first greedy token: {int((tk == tp).sum())} of {len(tk)} equal; "
+          f"{int(decided.sum())} rows with a top-2 gap over twice the limit")
+    for b in range(len(tk)):
+        print(f"  row {b}: kernels {int(tk[b])}, plain {int(tp[b])}, float64 {int(t64[b])}, "
+              f"plain top-2 gap {float(gap[b]):.4f}")
+    need(torch.equal(tk[decided], tp[decided]), "the first greedy token differs")
+    top2 = l64[:, :V].float().topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    print(f"first greedy token against float64 attention: kernels {int((tk == t64).sum())}, "
+          f"plain {int((tp == t64).sum())} of {len(tk)} equal; {int(decided.sum())} rows decided")
+    need(torch.equal(tk[decided], t64[decided]), "the first greedy token differs from float64's")
+    need(np.array_equal(tk.cpu().numpy(), first_out[:, 0]), "prefill does not repeat generate")
+    tok = tk
+    for step in range(TEACHER_STEPS):
+        lk, ck = decode_step(cfg, params, ck, tok, dev)
+        with plain_attention():
+            lp, cp = decode_step(cfg, params, cp, tok, dev)
+        compare(f"decode step {step + 1}, teacher-forced", lk, lp)
+        tok = torch.argmax(lk[:, :V], -1)
+    again = engine.generate(prompts, SERVE_NEW)
+    need(np.array_equal(again, first_out), "two generate calls on equal prompts differ")
+    print(f"two generate calls on equal prompts: equal tokens ({again.size})")
 
 
 def main() -> int:
@@ -623,10 +1018,16 @@ def main() -> int:
     check_reanchor(torch, trace, eta)
     madow_segsum = check_madow(trace, eta)
     breakdown(torch, trace, eta, kind="ogb_tree")
+    attn_errs = check_attention_kernels(torch, dev)
+    rows.update(time_attention_kernels(torch, dev, attn_errs))
+    engine, prompts, first_out, serve_launches = serve_full_width(torch, dev)
+    serve_breakdown(torch, engine, prompts)
+    check_served_against_plain(torch, engine, prompts, first_out)
 
     # launches: the dense main path's for its kernels, the lazy main path's
     # for the prefix-tree kernels (segsum also ran 3 a chunk on madow_tree)
     launches.update({k: tree_launches[k] for k in ("segsum", "bucket_mass")})
+    launches.update({k: serve_launches[k] for k in ("flash_prefill", "decode_attention")})
     print(f"segsum launches: ogb_tree main path {launches['segsum']}, madow_tree "
           f"{madow_segsum} over {MADOW_CHUNKS} chunks")
     kernels = [

@@ -2,7 +2,8 @@
 
 Each wrapper counts its launches in a plain integer attribute
 (``histogram.launches``, ``masses.launches``, ``apply.launches``,
-``block_segment_sums.launches``, ``bucket_masses.launches``), so a run
+``block_segment_sums.launches``, ``bucket_masses.launches``,
+``flash_prefill.launches``, ``decode_attention.launches``), so a run
 can show that it went through the kernels; :func:`launch_counts` reads them
 and :func:`reset_launch_counts` sets them to 0.
 """
@@ -14,6 +15,8 @@ from typing import Dict
 
 def _wrappers():
     from repro_torch.kernels.capped_simplex.ops import apply, masses
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.prefix_tree.kernel import block_segment_sums, bucket_masses
     from repro_torch.kernels.scatter_counts.ops import histogram
 
@@ -23,6 +26,8 @@ def _wrappers():
         "apply": apply,
         "segsum": block_segment_sums,
         "bucket_mass": bucket_masses,
+        "flash_prefill": flash_prefill,
+        "decode_attention": decode_attention,
     }
 
 

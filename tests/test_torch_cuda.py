@@ -7,7 +7,9 @@ the card, run them with
 
 They cover the shapes chip_smoke.py does not: ragged catalog sizes, every
 K around the 8-threshold chunk, ids out of range, and run-to-run
-determinism, of the kernels and of whole ogb_tree replays.
+determinism, of the kernels and of whole ogb_tree replays; and the
+attention kernels at the served models' head shapes in bf16 and f32, and
+the smoke serving engine on the card against the same engine on the CPU.
 """
 
 import numpy as np
@@ -19,6 +21,10 @@ from repro_torch.cachesim.traces import zipf
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.capped_simplex.ops import apply, fused_ogb_update, masses
 from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref
+from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_prefill.ops import flash_prefill
+from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 from repro_torch.kernels.prefix_tree.kernel import block_segment_sums, bucket_masses
 from repro_torch.kernels.prefix_tree.ref import bucket_masses_ref, segment_sums_ref
 from repro_torch.kernels.scatter_counts.ops import histogram
@@ -86,7 +92,7 @@ def test_run_on_the_card_matches_the_cpu_and_counts_launches(card):
     reset_launch_counts()
     got = repro_torch.run(pd, trace, n, c, window=w)
     assert launch_counts() == {"histogram": 100, "mass": 500, "apply": 100, "segsum": 0,
-                               "bucket_mass": 0}
+                               "bucket_mass": 0, "flash_prefill": 0, "decode_attention": 0}
     want = repro_torch.run(pd, trace, n, c, window=w, device="cpu")
     np.testing.assert_allclose(got.aux, want.aux, rtol=0, atol=1e-6)
     np.testing.assert_allclose(got.reward, want.reward, rtol=1e-5, atol=0)
@@ -156,3 +162,87 @@ def test_madow_on_the_card_holds_capacity_and_matches_the_cpu(card, sample):
     want = repro_torch.run(pd, trace, n, c, window=w, device="cpu")
     np.testing.assert_array_equal(got.occupancy, c)
     assert abs(got.hit_ratio - want.hit_ratio) <= 2e-3
+
+
+def _attention_limit(dtype, want):
+    """float32: 2e-5, the JAX package's kernel tests' tolerance; bf16: one
+    ulp of the largest output (both round a float32 result once)."""
+    return 2e-5 if dtype == torch.float32 else 2.0 ** -7 * float(want.float().abs().max())
+
+
+# (B, H, Hkv, D): glm4-9b, qwen3-14b, gemma-7b, a smoke config, MQA
+DECODE_HEADS = [(8, 32, 2, 128), (8, 40, 8, 128), (4, 16, 16, 256), (2, 8, 2, 16), (3, 16, 1, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("S", [1, 130, 4096])
+@pytest.mark.parametrize("B,H,Hkv,D", DECODE_HEADS)
+def test_decode_attention_matches_plain(card, B, H, Hkv, D, S, dtype):
+    gen = torch.Generator(device=card).manual_seed(B * S + D)
+    q = torch.randn(B, H, D, generator=gen, device=card).to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device=card).to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=card).to(dtype)
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=card, dtype=torch.int32)
+    lengths[0], lengths[-1] = 1, S
+    got = decode_attention(q, k, v, lengths)
+    want = decode_attention_ref(q, k, v, lengths)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_attention_limit(dtype, want))
+    assert torch.equal(got, decode_attention(q, k, v, lengths))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,S,H,Hkv,D", [(1, 1024, 32, 2, 128), (2, 200, 40, 8, 128),
+                                         (1, 700, 16, 16, 256), (2, 1, 8, 2, 16),
+                                         (2, 65, 8, 2, 16), (1, 512, 4, 1, 64)])
+def test_flash_prefill_matches_plain(card, B, S, H, Hkv, D, dtype):
+    gen = torch.Generator(device=card).manual_seed(B * S + D)
+    q = torch.randn(B, S, H, D, generator=gen, device=card).to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device=card).to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device=card).to(dtype)
+    got = flash_prefill(q, k, v)
+    want = flash_prefill_ref(q, k, v)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_attention_limit(dtype, want))
+    assert torch.equal(got, flash_prefill(q, k, v))
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "qwen3-14b", "gemma-7b"])
+def test_smoke_engine_on_the_card_matches_the_cpu(card, arch):
+    """The float32 smoke engine gives the same tokens on the card, through
+    the kernels, as on the CPU, through the plain versions."""
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.core.ogb import OGB
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+
+    cfg = get_smoke(arch)
+    cpu_params = init_params(cfg, seed=0, device="cpu")
+    prompt = np.random.default_rng(1).integers(1, cfg.vocab_size, (2, 16)).astype(np.int32)
+    outs, reuse = {}, {}
+    for dev in ("cpu", card):
+        params = _to(cpu_params, dev)
+        pool = PagedKVPool(OGB(catalog_size=1 << 16, capacity=16, eta=0.3, batch_size=8),
+                           page_size=4)
+        engine = ServeEngine(cfg, params, pool=pool, max_len=48, device=dev)
+        reset_launch_counts()
+        outs[str(dev)] = [engine.generate(prompt, max_new_tokens=4) for _ in range(3)]
+        reuse[str(dev)] = engine.stats.prefix_reuse
+        if dev == card:
+            counts = launch_counts()
+            assert counts["flash_prefill"] == 3 * cfg.n_layers
+            assert counts["decode_attention"] == 3 * 4 * cfg.n_layers
+    for a, b in zip(outs["cpu"], outs[str(card)]):
+        np.testing.assert_array_equal(a, b)
+    assert reuse["cpu"] == reuse[str(card)]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
