@@ -30,13 +30,21 @@ script with a non-zero exit:
 10. Madow sampling (madow, madow_tree): 2000 chunks each, occupancy exactly
    C in every chunk, the card against the CPU over 100 chunks;
 11. where an ogb_tree chunk's time goes, from torch.profiler over 300 chunks;
-12. the attention kernels against their plain versions, in bf16 and f32:
-   flash-decode at glm4-9b's B=8, H=32, Hkv=2, D=128 over S = 32 768 (lengths
-   from a seed, with 1, S and a length that is no multiple of the tile), and
-   at qwen3-14b's and gemma-7b's heads; flash-prefill at glm4-9b B=1,
-   S=4096, a ragged S=4000 and gemma-7b's D=256; two runs bit for bit;
+12. the attention kernels against their plain versions, in bf16 and f32,
+   each line naming the design that ran (bf16: wgmma+tma prefill and
+   mma.sync+cp.async decode; f32: the CUDA-core designs): flash-decode at
+   glm4-9b's B=8, H=32, Hkv=2, D=128 over S = 32 768 (lengths from a seed,
+   with 1, S and a length that is no multiple of the tile), at serving's
+   S = 2080 (lengths 2049..2055 and 2080), and at qwen3-14b's and
+   gemma-7b's heads;
+   flash-prefill at glm4-9b B=1, S=4096, a ragged S=4000, serving's B=8,
+   S=2048 and gemma-7b's D=256; two runs bit for bit;
 13. their times cold and warm in L2, beside the plain versions, one
-   scaled_dot_product_attention call each and their bounds;
+   scaled_dot_product_attention call each and their bounds, at glm4-9b's
+   long shapes (prefill B=1, S=4096; decode B=8, S=32 768) and at the
+   shapes the served model launches them (prefill B=8, S=2048; decode B=8,
+   S=2080, lengths 2049..2056); and the bf16 decode design at split
+   lengths around split_plan's;
 14. serving at glm4-9b's full width: ServeEngine with random bf16 weights
    drawn on the card, an OGB PagedKVPool, 4 generate calls of 8 prompts of
    2048 tokens and 32 new tokens, half of each batch hot prompts; every
@@ -632,8 +640,10 @@ def _held(torch, label, got, again, want, dtype):
 
 def check_attention_kernels(torch, dev):
     """Phase 12: both attention kernels against their plain versions."""
+    from repro_torch.kernels.decode_attention.kernel import design as decode_design
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_prefill.kernel import design as prefill_design
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 
@@ -646,97 +656,185 @@ def check_attention_kernels(torch, dev):
     for dtype in (torch.bfloat16, torch.float32):
         kind = "bf16" if dtype == torch.bfloat16 else "f32"
         for arch, B, H, Hkv, D, S in (("glm4-9b", 8, 32, 2, 128, 32768),
+                                      ("glm4-9b", 8, 32, 2, 128, SERVE_S + SERVE_NEW),
                                       ("qwen3-14b", 8, 40, 8, 128, 8192),
                                       ("gemma-7b", 8, 16, 16, 256, 8192)):
             q, k, v = randn(B, H, D, dtype=dtype), randn(B, S, Hkv, D, dtype=dtype), \
                 randn(B, S, Hkv, D, dtype=dtype)
-            lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
-            lengths[:3] = torch.tensor([1, S, 4001], dtype=torch.int32)  # 4001 = 62 * 64 + 33
-            label = f"decode {arch} {kind} B={B} H={H} Hkv={Hkv} D={D} S={S}"
-            errs[("decode", arch, kind)] = _held(
+            if S == SERVE_S + SERVE_NEW:  # the served cache: lengths SERVE_S + 1 .. S
+                lengths = torch.arange(SERVE_S + 1, SERVE_S + 1 + B, device=dev,
+                                       dtype=torch.int32).clamp(max=S)
+                lengths[-1] = S
+            else:
+                lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                                        dtype=torch.int32)
+                lengths[:3] = torch.tensor([1, S, 4001], dtype=torch.int32)  # 4001 = 62 * 64 + 33
+            label = (f"decode {arch} {kind} B={B} H={H} Hkv={Hkv} D={D} S={S} "
+                     f"[{decode_design(dtype, D)}]")
+            errs[("decode", arch, kind, S)] = _held(
                 torch, label, decode_attention(q, k, v, lengths), decode_attention(q, k, v, lengths),
                 decode_attention_ref(q, k, v, lengths), dtype)
         for arch, B, S, H, Hkv, D in (("glm4-9b", 1, 4096, 32, 2, 128),
                                       ("glm4-9b", 1, 4000, 32, 2, 128),
+                                      ("glm4-9b", SERVE_B, SERVE_S, 32, 2, 128),
                                       ("gemma-7b", 1, 2048, 16, 16, 256)):
             q = randn(B, S, H, D, dtype=dtype)
             k, v = randn(B, S, Hkv, D, dtype=dtype), randn(B, S, Hkv, D, dtype=dtype)
-            label = f"prefill {arch} {kind} B={B} S={S} H={H} Hkv={Hkv} D={D}"
+            label = (f"prefill {arch} {kind} B={B} S={S} H={H} Hkv={Hkv} D={D} "
+                     f"[{prefill_design(dtype, D)}]")
             errs[("prefill", arch, kind, S)] = _held(
                 torch, label, flash_prefill(q, k, v), flash_prefill(q, k, v),
                 flash_prefill_ref(q, k, v), dtype)
         torch.cuda.empty_cache()
-    return {"decode_attention": errs[("decode", "glm4-9b", "bf16")],
+    return {"decode_attention": errs[("decode", "glm4-9b", "bf16", 32768)],
             "flash_prefill": errs[("prefill", "glm4-9b", "bf16", 4096)]}
 
 
 def time_attention_kernels(torch, dev, errs):
-    """Phase 13: each attention kernel at glm4-9b's shapes in bf16, cold and
-    warm in L2, beside its plain version, one scaled_dot_product_attention
-    call (timed as a yardstick only: the port never calls it) and its bound."""
+    """Phase 13: each attention kernel in bf16, cold and warm in L2, beside
+    its plain version, one scaled_dot_product_attention call (timed as a
+    yardstick only: the port never calls it) and its bound, at glm4-9b's
+    long shapes and at the shapes the served model launches it."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.decode_attention.kernel import design as decode_design
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_prefill.kernel import design as prefill_design
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 
     gen = torch.Generator(device=dev).manual_seed(4)
     bf = torch.bfloat16
+    H, Hkv, D = 32, 2, 128
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(bf)
 
-    B, H, Hkv, D, S = 8, 32, 2, 128, 32768  # decode_32k's cache length, every sequence full
-    q, k, v = randn(B, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
-    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
-    mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-    qd, kd, vd = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-    lib = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, enable_gqa=True)[:, :, 0]
-    print(f"decode: max |kernel - scaled_dot_product_attention| = "
-          f"{float((decode_attention(q, k, v, lengths).float() - lib.float()).abs().max()):.3e}")
-    # K and V of every valid position read once, q read and out written once;
-    # 4 operations per (query head, position, dim): the two dot products
-    dec_bytes = 2 * 2 * B * S * Hkv * D + 2 * 2 * B * H * D + 4 * B
-    jobs = {"decode_attention": (
-        lambda: decode_attention(q, k, v, lengths),
-        lambda: decode_attention_ref(q, k, v, lengths),
-        lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, enable_gqa=True),
-        bound_ms(dec_bytes, 4 * B * H * S * D, BF16_OPS_PER_S))}
+    def decode_job(B, S, lengths):
+        q, k, v = randn(B, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+        qd, kd, vd = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        lib = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, enable_gqa=True)[:, :, 0]
+        print(f"decode B={B} S={S}: max |kernel - scaled_dot_product_attention| = "
+              f"{float((decode_attention(q, k, v, lengths).float() - lib.float()).abs().max()):.3e}")
+        # K and V of every valid position read once, q read and out written once;
+        # 4 operations per (query head, position, dim): the two dot products
+        valid = int(lengths.sum())
+        n_bytes = 2 * 2 * valid * Hkv * D + 2 * 2 * B * H * D + 4 * B
+        return (lambda: decode_attention(q, k, v, lengths),
+                lambda: decode_attention_ref(q, k, v, lengths),
+                lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, enable_gqa=True),
+                bound_ms(n_bytes, 4 * valid * H * D, BF16_OPS_PER_S))
 
-    Bp, Sp = 1, 4096
-    qp, kp, vp = randn(Bp, Sp, H, D), randn(Bp, Sp, Hkv, D), randn(Bp, Sp, Hkv, D)
-    qt, kt, vt = qp.transpose(1, 2), kp.transpose(1, 2), vp.transpose(1, 2)
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-    print(f"prefill: max |kernel - scaled_dot_product_attention| = "
-          f"{float((flash_prefill(qp, kp, vp).float() - lib.transpose(1, 2).float()).abs().max()):.3e}")
-    # 4 B H (S^2 / 2) D operations over the bf16 tensor-core peak
-    pre_bytes = 2 * (2 * Bp * Sp * H * D + 2 * Bp * Sp * Hkv * D)
-    jobs["flash_prefill"] = (
-        lambda: flash_prefill(qp, kp, vp),
-        lambda: flash_prefill_ref(qp, kp, vp),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
-        bound_ms(pre_bytes, 4 * Bp * H * (Sp * Sp / 2) * D, BF16_OPS_PER_S))
+    def prefill_job(B, S):
+        q, k, v = randn(B, S, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        print(f"prefill B={B} S={S}: max |kernel - scaled_dot_product_attention| = "
+              f"{float((flash_prefill(q, k, v).float() - lib.transpose(1, 2).float()).abs().max()):.3e}")
+        # 4 B H (S^2 / 2) D operations over the bf16 tensor-core peak
+        n_bytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+        return (lambda: flash_prefill(q, k, v),
+                lambda: flash_prefill_ref(q, k, v),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
+                bound_ms(n_bytes, 4 * B * H * (S * S / 2) * D, BF16_OPS_PER_S))
 
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
 
     def flush():
         flush_buf.zero_()
 
-    rows = {}
-    for name, (kern, plain, lib_fn, (b, by)) in jobs.items():
+    def measure(name, label, job, plain_reps):
+        kern, plain, lib_fn, (b, by) = job
         ms = timed_ms(torch, kern, 20, flush)
         warm = timed_ms(torch, kern, 20)
-        plain_ms = timed_ms(torch, plain, 5, flush)
+        plain_ms = timed_ms(torch, plain, plain_reps, flush)
         lib_ms = timed_ms(torch, lib_fn, 20, flush)
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                      "library_ms": lib_ms, "max_abs_err": errs[name]}
-        print(f"{name}: cold {ms * 1e3:.2f} us, warm in L2 {warm * 1e3:.2f} us (plain "
+        print(f"{name} {label}: cold {ms * 1e3:.2f} us, warm in L2 {warm * 1e3:.2f} us (plain "
               f"{plain_ms * 1e3:.2f} us, scaled_dot_product_attention {lib_ms * 1e3:.2f} us, "
               f"bound {b * 1e3:.3f} us by {by}; kernel / library {ms / lib_ms:.2f})")
+        return {"ms": ms, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                "library_ms": lib_ms}
+
+    rows = {}
+    S = 32768  # decode_32k's cache length, every sequence full
+    full = torch.full((8,), S, dtype=torch.int32, device=dev)
+    rows["decode_attention"] = {
+        **measure("decode_attention", f"B=8 S={S}", decode_job(8, S, full), 5),
+        "max_abs_err": errs["decode_attention"], "design": decode_design(bf, D)}
+    torch.cuda.empty_cache()
+    rows["flash_prefill"] = {
+        **measure("flash_prefill", "B=1 S=4096", prefill_job(1, 4096), 5),
+        "max_abs_err": errs["flash_prefill"], "design": prefill_design(bf, D)}
+    torch.cuda.empty_cache()
+    # the served model's shapes: a prefill of SERVE_B prompts of SERVE_S tokens,
+    # and a decode step over the SERVE_S + SERVE_NEW cache, lengths SERVE_S + 1 ..
+    S = SERVE_S + SERVE_NEW
+    served = torch.arange(SERVE_S + 1, SERVE_S + 1 + SERVE_B, device=dev,
+                          dtype=torch.int32).clamp(max=S)
+    rows["decode_attention"]["serving"] = {
+        "shape": f"B={SERVE_B} S={S} lengths {int(served.min())}..{int(served.max())}",
+        **measure("decode_attention", f"serving B={SERVE_B} S={S}",
+                  decode_job(SERVE_B, S, served), 10)}
+    torch.cuda.empty_cache()
+    rows["flash_prefill"]["serving"] = {
+        "shape": f"B={SERVE_B} S={SERVE_S}",
+        **measure("flash_prefill", f"serving B={SERVE_B} S={SERVE_S}",
+                  prefill_job(SERVE_B, SERVE_S), 3)}
+    sweep_decode_splits(torch, dev, flush)
     del flush_buf
     torch.cuda.empty_cache()
     return rows
+
+
+def sweep_decode_splits(torch, dev, flush):
+    """Phase 13, last: the bf16 decode design (split and combine passes) at
+    split lengths around split_plan's (marked), cold, at serving's cache and
+    at S = 32 768: the measurement behind the plan.  Launched through the C
+    entry point, beside the wrapper: no launch is counted."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    B, H, Hkv, D = SERVE_B, 32, 2, 128
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smem = dk.decode_plan(D)["smem_bytes"]
+    for S, first, tiles in ((SERVE_S + SERVE_NEW, SERVE_S + 1, (1, 3, 5)),
+                            (32768, 32768, (16, 32, 64))):
+        q = torch.randn(B, H, D, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(torch.bfloat16)
+        lengths = torch.arange(first, first + B, device=dev, dtype=torch.int32).clamp(max=S)
+        want = decode_attention_ref(q, k, v, lengths)
+        plan_len = dk.mma_grid_plan(B, H, Hkv, S, D, sms)[1]
+        for t in tiles:
+            split_len = dk.TILE * t
+            n_splits = -(-S // split_len)
+            part_m = torch.empty((B, H, n_splits), dtype=torch.float32, device=dev)
+            part_l = torch.empty_like(part_m)
+            part_acc = torch.empty((B, H, n_splits, D), dtype=torch.float32, device=dev)
+            out = torch.empty_like(q)
+
+            def call():
+                _build.check(dk._entry_mma()(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), B, H, Hkv, D, S,
+                    n_splits, split_len, 1.0 / math.sqrt(D), smem, part_m.data_ptr(),
+                    part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream), "decode split sweep")
+
+            call()
+            torch.cuda.synchronize()
+            err = float((out.float() - want.float()).abs().max())
+            need(err <= 2.0 ** -7 * float(want.float().abs().max()),
+                 f"decode split sweep S={S}, {t} tiles a split: |kernel - plain| = {err}")
+            ms = timed_ms(torch, call, 20, flush)
+            mark = " [split_plan]" if split_len == plan_len else ""
+            print(f"decode split sweep S={S} lengths {first}..{int(lengths.max())}: {t} tiles a "
+                  f"split, {n_splits} splits, {B * Hkv * n_splits} blocks{mark}: cold "
+                  f"{ms * 1e3:.2f} us (both passes), max |kernel - plain| {err:.3e}")
+        torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -856,7 +954,8 @@ def serve_breakdown(torch, engine, prompts, steps=4):
         print(f"breakdown {label}: wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms, "
               f"{kernels:.1f} device kernels, device idle share {1 - busy_ms / wall_ms:.3f}")
         for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"  {e.self_device_time_total / n / 1e3:9.3f} ms {e.count / n:7.1f}x  {e.key[:90]}")
+            print(f"  {e.self_device_time_total / n / 1e3:9.3f} ms {e.count / n:7.1f}x "
+                  f"{e.self_device_time_total / e.count:9.2f} us a launch  {e.key[:80]}")
 
 
 class plain_attention:
@@ -998,7 +1097,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s, {sorted(_libs)}")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Function properties" in line or "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()

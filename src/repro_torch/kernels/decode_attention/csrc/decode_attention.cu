@@ -1,27 +1,57 @@
 // GQA flash-decode: one query token per sequence attends over a padded KV cache.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/decode_attention/kernel.py
-// (decode_kernel, launched by _grid_decode).  That kernel walks the whole
-// cache in order on one core, carrying the online-softmax state (m, l, acc)
-// across S blocks in scratch memory, and masks positions at or past each
-// sequence's length.  Hopper runs blocks in parallel and in no order, and a
-// grid of (batch, KV head) alone is 16 blocks at glm4-9b's B=8, Hkv=2 on
-// 132 SMs, so the cache is split along S as well (flash-decoding):
+// Replaces the Pallas TPU kernel src/repro/kernels/decode_attention/kernel.py:29
+// (decode_kernel, launched by _grid_decode at :98).  That kernel walks the
+// whole cache in order on one core, carrying the online-softmax state
+// (m, l, acc) across S blocks in scratch memory, and masks positions at or
+// past each sequence's length.  Hopper runs blocks in parallel and in no
+// order, and a grid of (batch, KV head) alone is 16 blocks at glm4-9b's B=8,
+// Hkv=2 on 132 SMs, so the cache is split along S as well (flash-decoding):
 //
-//   pass 1, grid (split, KV head, batch): a block streams its split of the
-//     cache in tiles of 64 positions through shared memory, once for the
-//     whole q-group of its KV head (16 queries at glm4-9b, 5 at qwen3-14b,
-//     1 at gemma-7b; any group), and writes its (m, l, acc) partials.
-//     Splits and tiles at or past the sequence's length are skipped, not
-//     streamed and masked; only the last tile masks, with the finite -1e30
-//     of the Pallas kernel, so no score is ever -inf and nothing is NaN.
+//   pass 1, grid (split, KV head [x row tile], batch): a block streams its
+//     split of the cache in tiles of 64 positions through shared memory,
+//     once for the whole q-group of its KV head (16 queries at glm4-9b, 5
+//     at qwen3-14b, 1 at gemma-7b), and writes its (m, l, acc) partials.
+//     Splits and tiles at or past the sequence's length are never loaded;
+//     only the last tile masks, with the finite -1e30 of the Pallas kernel,
+//     so no score is ever -inf and nothing is NaN.
 //   pass 2, grid (head, batch): combines the valid splits in a fixed order
 //     and divides by max(l, 1e-30), as the Pallas finalize does.
+// No atomics: two runs agree bit for bit.
 //
-// No atomics: two runs agree bit for bit.  Math in float32 on bf16 or f32
-// loads (CUDA cores; wgmma, TMA and pipelining are later work).  Bound on an
-// H100 (3.35 TB/s): bytes, K and V of the valid positions read once: at
-// glm4-9b, B=8, S=32 768, bf16, 268 MB, 80 us.
+// Bound on an H100 (3.35 TB/s): bytes, K and V of the valid positions read
+// once: at glm4-9b, B=8, S=32 768, bf16, 268 MB, 80 us.  At glm4-9b's group
+// of 16 every bf16 byte of K and V takes 16 operations, 53.6 TFLOP/s at the
+// memory's rate: 80% of the float32 CUDA-core peak before any shared-memory
+// traffic, so CUDA cores cannot reach the bytes bound, and tensor cores can.
+// Two designs of pass 1, chosen by kernel.py::design by dtype and D alone:
+//
+// decode_mma_kernel (bf16, D % 16 == 0, D <= 256), "mma.sync+cp.async":
+//   * K and V tiles stay bf16 in shared memory (rows padded by 16 bytes, so
+//     the fragment loads below hit 32 distinct banks), in a ring of 3 tiles
+//     filled by 16-byte cp.async.cg copies: a split's first 3 tiles are
+//     requested at once (serving's short splits are 3 tiles: one wait), and
+//     each stage is refilled as soon as its tile is computed, so the next
+//     tiles' loads are in flight while one is computed; positions past the
+//     split's end are zero-filled (never read from memory);
+//   * the q-group is the 16 rows of mma.sync.m16n8k16 (bf16 -> f32): a
+//     group of 5 or 1 pads with zero rows that are never stored, a group
+//     over 16 takes more row tiles (a grid dimension).  Q lives in
+//     registers as A fragments for the whole split;
+//   * each of the 4 warps owns 16 positions of every tile and keeps its own
+//     online softmax on the accumulator fragments (a row spans a quad);
+//     S = Q K^T takes K's rows as B fragments directly, P (rounded to bf16 in
+//     place) is the A fragment of O += P V, whose B fragments come from V's
+//     rows by ldmatrix.trans; at the split's end the 4 warps' states are
+//     merged in a fixed order through shared memory.
+//
+// decode_split_kernel (float32, and bf16 at any other D), "cuda-core": the
+//   port's first design, unchanged: math in float32 on CUDA cores, K and V
+//   widened to float32 in shared memory.  The tensor cores have no
+//   full-float32 product, and TF32's 10 mantissa bits would break the 2e-5
+//   float32 limit the kernel is held to; the served models decode in bf16.
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -244,6 +274,278 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, int
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: mma.sync.m16n8k16 over a cp.async ring.
+
+constexpr int kMmaThreads = 128;  // 4 warps, each 16 positions of a tile
+constexpr int kMmaStages = 3;     // tiles of the ring
+constexpr int kRowPad = 8;        // bf16 padding of a staged row (16 bytes)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared memory of one block at head dimension D: the ring of K and V tiles,
+// which the warps' merge reuses (4 x 16 x D floats and 2 x 64 floats fit in
+// it).  kernel.py's decode_plan computes the same figure and passes it in.
+constexpr int mma_smem_bytes(int D) { return kMmaStages * 2 * kTile * (D + kRowPad) * 2; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src to dst, or 16 zero bytes when bytes == 0 (src not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row) b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// NT: 16-column steps of D the registers are sized for (D <= 16 NT); the
+// steps at or past D / 16 are skipped.  Writes partials as decode_split_kernel
+// does (m in the natural-log domain), so decode_combine_kernel finishes both.
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads)
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths, int H,
+                  int Hkv, int D, long long S, int n_splits, long long split_len,
+                  float scale_log2, float* __restrict__ part_m, float* __restrict__ part_l,
+                  float* __restrict__ part_acc) {
+  const int g = H / Hkv, row_tiles = (g + 15) / 16;
+  const int split = blockIdx.x, kvh = blockIdx.y / row_tiles, g0 = 16 * (blockIdx.y % row_tiles);
+  const int b = blockIdx.z;
+  const long long len = min((long long)lengths[b], S);
+  const long long s_begin = (long long)split * split_len;
+  if (s_begin >= len) return;  // past this sequence's length: pass 2 reads no partial here
+  const long long s_end = min(s_begin + split_len, len);
+  const int n_tiles = (int)((s_end - s_begin + kTile - 1) / kTile);
+  const int rows = min(16, g - g0);  // query rows of this block's row tile
+  const int nt = D / 16;
+  const int ld = D + kRowPad;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qr = lane >> 2, qc = 2 * (lane & 3);  // fragment row (and row + 8) and column pair
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // stage s: K [64][ld] then V [64][ld]
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+
+  auto load_tile = [&](int t) {
+    const long long t0 = s_begin + (long long)kTile * t;
+    const int valid = (int)min((long long)kTile, s_end - t0);
+    __nv_bfloat16* ks = ring + (t % kMmaStages) * 2 * kTile * ld;
+    __nv_bfloat16* vs = ks + kTile * ld;
+    const int chunks = D / 8;  // 16-byte chunks of a row
+    for (int i = tid; i < kTile * chunks; i += kMmaThreads) {
+      const int r = i / chunks, c = (i % chunks) * 8;
+      const long long off = (((long long)b * S + t0 + min(r, valid - 1)) * Hkv + kvh) * D + c;
+      const int bytes = r < valid ? 16 : 0;
+      cp_async16(ks + r * ld + c, k + off, bytes);
+      cp_async16(vs + r * ld + c, v + off, bytes);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < kMmaStages; ++t) {  // the whole ring in flight: a short split waits once
+    if (t < n_tiles) load_tile(t);
+    cp_async_commit();
+  }
+
+  // the block's queries as A fragments: rows g0 + qr and g0 + qr + 8 of the group
+  const __nv_bfloat16* qg = q + ((long long)b * H + (long long)kvh * g + g0) * D;
+  uint32_t qa[NT][4];
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = qr + 8 * (i & 1), c = 16 * kk + qc + 8 * (i >> 1);
+      qa[kk][i] = (kk < nt && r < rows) ? *reinterpret_cast<const uint32_t*>(qg + r * D + c) : 0u;
+    }
+
+  float o[2 * NT][4];
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kMmaStages - 1>();  // tile t has landed (this thread's copies)
+    __syncthreads();                  // and everyone's
+    const long long key0 = s_begin + (long long)kTile * t + 16 * warp;  // the warp's 16 keys
+    if (key0 < s_end) {  // else none of them is valid: nothing to add
+      const __nv_bfloat16* ks = ring + (t % kMmaStages) * 2 * kTile * ld + 16 * warp * ld;
+      const __nv_bfloat16* vs = ks + kTile * ld;
+
+      // scores of 16 rows x 16 keys: register 2r + e of n-block nb is row qr + 8r,
+      // key key0 + 8 nb + qc + e
+      float sc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        if (kk >= nt) break;
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb) {
+          const __nv_bfloat16* kr = ks + (8 * nb + qr) * ld + 16 * kk + qc;
+          mma_16816(sc[nb], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
+                    *reinterpret_cast<const uint32_t*>(kr + 8));
+        }
+      }
+      const bool last = key0 + 16 > s_end;  // only the split's last keys mask
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = sc[nb][2 * r + e] * scale_log2;
+            if (last && key0 + 8 * nb + qc + e >= s_end) x = kNegInf;
+            sc[nb][2 * r + e] = x;
+            mx[r] = fmaxf(mx[r], x);
+          }
+      float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        alpha[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+      uint32_t pa[4];  // P as the A fragment of O += P V
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float p0 = exp2f(sc[nb][2 * r] - m[r]), p1 = exp2f(sc[nb][2 * r + 1] - m[r]);
+          sum[r] += p0 + p1;
+          pa[2 * nb + r] = pack_bf16(p0, p1);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+      // B fragments of V (16 keys x 16 columns) by ldmatrix.trans: lanes 0-7
+      // address keys 0-7, lanes 8-15 keys 8-15, lanes 16-31 the same 8 columns on
+      const __nv_bfloat16* vl = vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4);
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        if (kk >= nt) break;
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vl + 16 * kk);
+        mma_16816(o[2 * kk], pa, vb[0], vb[1]);
+        mma_16816(o[2 * kk + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // everyone is done with tile t's stage: refill it
+    if (t + kMmaStages < n_tiles) load_tile(t + kMmaStages);
+    cp_async_commit();
+  }
+
+  // merge the 4 warps' states in a fixed order through the ring's memory
+  cp_async_wait<0>();
+  __syncthreads();
+  float* w_acc = reinterpret_cast<float*>(smem_raw);  // [4][16][D]
+  float* w_m = w_acc + 4 * 16 * D;                     // [4][16]
+  float* w_l = w_m + 4 * 16;                           // [4][16]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qr + 8 * r;
+    const float lr = quad_sum(l[r]);
+    float* dst = w_acc + (warp * 16 + row) * D + qc;
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+      if (j >= 2 * nt) break;
+      *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(o[j][2 * r], o[j][2 * r + 1]);
+    }
+    if ((lane & 3) == 0) {
+      w_m[warp * 16 + row] = m[r];
+      w_l[warp * 16 + row] = lr;
+    }
+  }
+  __syncthreads();
+  const long long head0 = (long long)b * H + (long long)kvh * g + g0;
+  for (int i = tid; i < rows * D; i += kMmaThreads) {
+    const int gi = i / D, d = i % D;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, w_m[w * 16 + gi]);
+    float ll = 0.0f, acc = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float s = exp2f(w_m[w * 16 + gi] - mm);  // 0 for a warp that saw no key
+      ll = fmaf(s, w_l[w * 16 + gi], ll);
+      acc = fmaf(s, w_acc[(w * 16 + gi) * D + d], acc);
+    }
+    part_acc[((head0 + gi) * n_splits + split) * D + d] = acc;
+    if (d == 0) {
+      part_m[(head0 + gi) * n_splits + split] = mm * kLn2;
+      part_l[(head0 + gi) * n_splits + split] = ll;
+    }
+  }
+}
+
+template <int NT>
+int launch_mma(const void* q, const void* k, const void* v, const void* lengths, int B, int H,
+               int Hkv, int D, long long S, int n_splits, long long split_len, float scale,
+               int smem, void* part_m, void* part_l, void* part_acc, void* out,
+               cudaStream_t stream) {
+  if (smem < mma_smem_bytes(D)) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_mma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int row_tiles = (H / Hkv + 15) / 16;
+  decode_mma_kernel<NT><<<dim3(n_splits, Hkv * row_tiles, B), kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths), H, Hkv, D, S,
+      n_splits, split_len, scale * kLog2e, static_cast<float*>(part_m),
+      static_cast<float*>(part_l), static_cast<float*>(part_acc));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  decode_combine_kernel<__nv_bfloat16><<<dim3(H, B), 128, 0, stream>>>(
+      static_cast<const int*>(lengths), H, D, S, n_splits, split_len,
+      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
+      static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q (B, H, D), k and v (B, S, Hkv, D), all contiguous, of one type (is_bf16: bf16, else
@@ -262,4 +564,28 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
                                  part_m, part_l, part_acc, out, st);
   return launch<float>(q, k, v, lengths, B, H, Hkv, D, S, n_splits, split_len, scale, part_m,
                        part_l, part_acc, out, st);
+}
+
+// bf16 q (B, H, D), k and v (B, S, Hkv, D), contiguous and 16-byte aligned;
+// lengths (B,) int32; partials: m and l (B, H, n_splits), acc (B, H, n_splits, D)
+// float32; out (B, H, D) bf16.  D % 16 == 0, D <= 256; split_len a multiple of
+// 64 with n_splits * split_len >= S; smem_bytes from kernel.py's decode_plan.
+extern "C" int repro_decode_attention_mma(const void* q, const void* k, const void* v,
+                                          const void* lengths, int B, int H, int Hkv, int D,
+                                          long long S, int n_splits, long long split_len,
+                                          float scale, int smem_bytes, void* part_m,
+                                          void* part_l, void* part_acc, void* out,
+                                          void* stream) {
+  if (B <= 0 || H <= 0) return (int)cudaGetLastError();
+  if (D <= 0 || D % 16 || D > 256) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_MMA(NT)                                                                      \
+  return launch_mma<NT>(q, k, v, lengths, B, H, Hkv, D, S, n_splits, split_len, scale,      \
+                        smem_bytes, part_m, part_l, part_acc, out, st)
+  if (D <= 16) REPRO_MMA(1);
+  if (D <= 32) REPRO_MMA(2);
+  if (D <= 64) REPRO_MMA(4);
+  if (D <= 128) REPRO_MMA(8);
+  REPRO_MMA(16);
+#undef REPRO_MMA
 }

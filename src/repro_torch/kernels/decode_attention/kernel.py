@@ -1,10 +1,18 @@
-"""Binding of ``csrc/decode_attention.cu`` and its split of the cache.
+"""Binding of ``csrc/decode_attention.cu``, its two designs and its split of the cache.
 
 Counterpart of ``repro.kernels.decode_attention.kernel._grid_decode``.  The
 Pallas kernel walks the cache in order; here the cache is cut along S into
 ``n_splits`` runs of ``split_len`` positions (a multiple of the 64-position
-tile), so that (splits x KV heads x batch) blocks fill the card.  The split
-depends only on the shapes and the card, so two calls agree bit for bit.
+tile), so that the split pass's blocks fill the card.  The split depends
+only on the shapes and the card, so two calls agree bit for bit.
+
+:func:`design` names the design a call takes, by dtype and head dimension
+alone: bf16 at D % 16 == 0, D <= 256 runs ``"mma.sync+cp.async"`` (bf16
+tiles on the tensor cores, a 3-tile cp.async ring; every bf16 call of the
+served models, D = 128 and 256, is one), everything else ``"cuda-core"``
+(float32 inputs, which the tensor cores cannot multiply without TF32's loss,
+and bf16 at another D).  It is a dispatch, not a fallback: an error of
+either design raises.
 """
 
 from __future__ import annotations
@@ -22,7 +30,27 @@ TILE = 64  # cache positions a block stages at once (kTile in the source)
 THREADS = 256
 MAX_GROUP_DIM = THREADS * 4 * 4  # (H / Hkv) * D a block accumulates (kMaxPacks float4 a thread)
 MAX_HEAD_DIM = 256
-BLOCKS_PER_SM = 2  # the split aims at this many blocks on every SM
+BLOCKS_PER_SM = 2  # the CUDA-core split aims at this many blocks on every SM
+MMA = "mma.sync+cp.async"
+CUDA_CORE = "cuda-core"
+MMA_STAGES, MMA_ROW_PAD = 3, 8  # ring tiles; bf16 padding of a staged row
+SM_SHARED = 233_472  # shared memory of an H100 SM; each resident block reserves 1024 more
+
+
+def design(dtype: torch.dtype, head_dim: int) -> str:
+    """The design a CUDA call with this dtype and head dimension launches."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= MAX_HEAD_DIM:
+        return MMA
+    return CUDA_CORE
+
+
+def decode_plan(head_dim: int) -> dict:
+    """The mma design at ``head_dim``: its ring, the shared memory a block
+    asks for (mma_smem_bytes in the source, which checks it) and how many
+    blocks that lets an SM hold."""
+    smem = MMA_STAGES * 2 * TILE * (head_dim + MMA_ROW_PAD) * 2
+    return {"tile": TILE, "stages": MMA_STAGES, "smem_bytes": smem,
+            "blocks_per_sm": max(1, SM_SHARED // (smem + 1024))}
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,14 +64,25 @@ def _entry():
 
 
 @functools.lru_cache(maxsize=None)
+def _entry_mma():
+    fn = _build.library("decode_attention").repro_decode_attention_mma
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_longlong, i, ctypes.c_longlong,
+                   ctypes.c_float, i, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def split_plan(batch: int, kv_heads: int, seq: int, sm_count: int) -> Tuple[int, int]:
-    """(n_splits, split_len): the fewest whole tiles a split such that the
-    grid has at most ``BLOCKS_PER_SM * sm_count`` blocks where it can (one
-    wave, no second wave of a few blocks), with no empty split."""
+    """(n_splits, split_len) of the CUDA-core design: the fewest whole tiles
+    a split such that the grid has at most ``BLOCKS_PER_SM * sm_count``
+    blocks where it can (one wave, no second wave of a few blocks), with no
+    empty split."""
     n_tiles = -(-seq // TILE)
     want = BLOCKS_PER_SM * sm_count // max(batch * kv_heads, 1)
     split_len = -(-n_tiles // max(1, min(want, n_tiles))) * TILE
@@ -63,25 +102,71 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: tor
         raise ValueError(f"lengths must be ({B},), got {tuple(lengths.shape)}")
 
 
+def mma_grid_plan(batch: int, heads: int, kv_heads: int, seq: int, head_dim: int,
+                  sm_count: int) -> Tuple[int, int]:
+    """(n_splits, split_len) of the mma design, a block a (split, KV head,
+    16-query row tile, sequence).  Of two splits, the one that puts fewer
+    tiles on the busiest SM (the first on a tie): the fewest whole tiles
+    whose grid fills the SMs' block slots (as many blocks an SM as the ring
+    allows) in one wave, and the fewest whose grid puts one block on an SM.
+    At glm4-9b's B=8 on 132 SMs the second wins for the serving cache
+    (S=2080: 7 splits of 5 tiles, where 11 of 3 put 6 tiles on 44 SMs) and
+    the first at S=32 768 (16 splits of 32: two blocks an SM stream faster
+    than one block of 64)."""
+    units = batch * kv_heads * -(-(heads // kv_heads) // 16)
+    n_tiles = -(-seq // TILE)
+
+    def fewest_tiles(max_blocks: int) -> int:
+        return -(-n_tiles // max(1, min(max_blocks // units, n_tiles)))
+
+    def busiest(tiles: int) -> int:
+        return -(-units * -(-n_tiles // tiles) // sm_count) * tiles
+
+    tiles = fewest_tiles(decode_plan(head_dim)["blocks_per_sm"] * sm_count)
+    alone = fewest_tiles(sm_count)
+    if busiest(alone) < busiest(tiles):
+        tiles = alone
+    return -(-seq // (tiles * TILE)), tiles * TILE
+
+
 def grid_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 lengths: torch.Tensor) -> torch.Tensor:
-    """Launch both passes of the kernel on CUDA tensors; returns (B, H, D)."""
+    """Launch both passes of the kernel on CUDA tensors; returns (B, H, D).
+
+    bf16 at D % 16 == 0 launches the mma.sync design, every other call the
+    CUDA-core design (:func:`design`)."""
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"decode attention takes float32 or bfloat16, got {q.dtype}")
-    if D % 8 or D > MAX_HEAD_DIM or (H // Hkv) * D > MAX_GROUP_DIM:
+    mma = design(q.dtype, D) == MMA
+    if D % 8 or D > MAX_HEAD_DIM or (not mma and (H // Hkv) * D > MAX_GROUP_DIM):
         raise ValueError(f"head_dim {D} with group {H // Hkv} is outside the kernel's range")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _build.require(t, q.dtype, name, q.device)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     _build.require(lengths, torch.int32, "lengths", q.device)
-    n_splits, split_len = split_plan(B, Hkv, S, _sm_count(q.device.index))
+    sms = _sm_count(q.device.index)
+    if mma:
+        n_splits, split_len = mma_grid_plan(B, H, Hkv, S, D, sms)
+    else:
+        n_splits, split_len = split_plan(B, Hkv, S, sms)
     part_m = torch.empty((B, H, n_splits), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((B, H, n_splits, D), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
+    if mma:
+        _build.check(
+            _entry_mma()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), B, H, Hkv, D, S,
+                n_splits, split_len, 1.0 / math.sqrt(D), decode_plan(D)["smem_bytes"],
+                part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+                _build.stream_of(q),
+            ),
+            "decode_attention (mma.sync+cp.async)",
+        )
+        return out
     _build.check(
         _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), B, H, Hkv, D, S,

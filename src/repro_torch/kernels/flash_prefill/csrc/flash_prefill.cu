@@ -1,33 +1,67 @@
-// Causal GQA flash attention over a whole prompt.
+// Causal GQA flash attention over a whole prompt: two designs in one library.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/flash_prefill/kernel.py
-// (prefill_kernel, launched by _grid_prefill).  That kernel runs a grid
-// (B, H, q block, kv block) in order, carrying the online-softmax state
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_prefill/kernel.py:29
+// (prefill_kernel, launched by _grid_prefill at :102).  That kernel runs a
+// grid (B, H, q block, kv block) in order, carrying the online-softmax state
 // across kv blocks in scratch memory; it skips kv blocks above the diagonal
-// and masks only the one that straddles it.  Here a block owns one
-// (batch, query head, 64-row query tile) and loops over the 64-key tiles up
-// to the diagonal itself, so the state stays in registers:
+// and masks only the one that straddles it.  Hopper runs blocks in parallel
+// and in no order, so here a block owns one (query tile, query head, batch)
+// and loops over the key tiles up to the diagonal itself, keeping the state
+// in registers.  Query head h reads KV head h / (H / Hkv), as the Pallas
+// index map does; query tiles are scheduled longest first.
 //
-//   * the query tile and one K (then V) tile are staged in shared memory as
-//     float32, rows of D + 4 floats so that 16 lanes reading 16 rows with
-//     float4 loads hit distinct banks;
-//   * 256 threads as 16 x 16: thread (ty, tx) holds scores of rows
-//     ty + 16i and keys tx + 16j (i, j < 4), and output columns
-//     4 tx + 64 jj .. + 3 of its four rows; row max and row sum reduce over
-//     the 16 lanes of a half-warp by shuffles;
-//   * query head h reads KV head h / (H / Hkv), as the Pallas index map does:
-//     no K/V replication;
-//   * tiles above the diagonal are never visited; only the diagonal tile
-//     masks (finite -1e30, so nothing is NaN); an S that is not a multiple
-//     of 64 is handled here: rows at or past S read as 0 and are never
-//     written, nothing is padded on the host;
-//   * query tiles are scheduled longest first (the last tile sees S keys).
+// Bound on an H100: operations, 4 B H (S^2 / 2) D over the 989 TFLOP/s bf16
+// tensor-core peak: at glm4-9b, B=1, S=4096, 1.37e11 operations, 139 us.
+// No CUDA-core design can come near it (67 TFLOP/s float32 is 2.05 ms), so
+// bf16 runs on the tensor cores:
 //
-// Math in float32 on bf16 or f32 loads, on the CUDA cores; wgmma, TMA and
-// pipelining are later work.  Bound on an H100: operations,
-// 4 B H (S^2 / 2) D over the 989 TFLOP/s bf16 tensor-core peak: at glm4-9b,
-// B=1, S=4096, 1.37e11 operations, 139 us.
+// repro_flash_prefill_wgmma (bf16, D in {64, 128, 192, 256}):
+//   * a block of two consumer warpgroups owns a 128-row query tile, 64 rows
+//     each; key tiles are 128 keys at D <= 128 and 64 at larger D, where the
+//     output accumulator alone is 3 or 4 x 32 floats a thread;
+//   * one thread of a third, producer warpgroup issues TMA loads: the Q tile
+//     once, and K and V tiles into a two-stage ring with full and empty
+//     mbarriers, so tile j + 1 is in flight while tile j is computed and
+//     neither consumer waits for the other to refill a stage.  The tensor
+//     maps are 4-D over (D, heads, S, B) with boxes of (64, 1, rows, 1) and
+//     the 128-byte swizzle, built on the host for each call from the
+//     (B, S, H, D) strides (no copy, no transpose); rows at or past S are
+//     filled with zeros by the TMA unit;
+//   * S = Q K^T by wgmma m64nNk16 with A and B from shared memory (both
+//     K-major); the online softmax runs in registers on the accumulator's own
+//     layout (a row spans the 4 threads of a quad: two shuffles a max);
+//   * O += P V by wgmma m64n64k16 with P from registers (the f32 accumulator
+//     rounded to bf16 in place: its layout is the A fragment's) and V from
+//     shared memory as an MN-major B (D-contiguous rows, the transpose flag),
+//     so nothing is transposed in shared memory;
+//   * the warpgroups take turns on the tensor cores: in its turn one issues
+//     S_j and P_{j-1} V_{j-1}, then runs the softmax of S_j while the other's
+//     products run, so the SM's exp2 and tensor-core work overlap; the
+//     softmax is one FFMA and one ex2 a score (log2(e) / sqrt(D) folded into
+//     the scale), and the producer warpgroup gives its registers to the two
+//     consumers (setmaxnreg), whose S, P and O fragments take ~200 a thread;
+//   * tiles above the block's diagonal are never loaded; only the tiles
+//     that straddle a warpgroup's diagonal mask, with the finite -1e30; the
+//     epilogue divides by max(l, 1e-30), rounds to bf16 and never writes a
+//     row at or past S;
+//   * no branch that differs between threads of a warpgroup holds a wgmma
+//     in flight, and every turn commits the same groups: ptxas serializes
+//     the wgmmas of a kernel otherwise (its C7514/C7518 notes).
+//
+// repro_flash_prefill (float32, and bf16 at any other D % 8 == 0, D <= 256):
+//   the CUDA-core design of the port's first version, unchanged.  wgmma has
+//   no full-float32 mode, and TF32 keeps 10 mantissa bits, which would break
+//   the 2e-5 float32 limit that the kernel is held to; float32 attention is
+//   not on the served path (the served models run bf16).  Math in float32
+//   on bf16 or f32 loads: the query tile and one K (then V) tile staged in
+//   shared memory as float32 rows of D + 4 floats; 256 threads as 16 x 16.
+//
+// The wrapper (kernel.py::grid_prefill) chooses between the two by dtype and
+// D alone (kernel.py::design); a build or launch error of either raises.
 
+#include <cstdint>
+
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -236,4 +270,481 @@ extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) return launch_d<__nv_bfloat16>(q, k, v, out, B, S, H, Hkv, D, scale, st);
   return launch_d<float>(q, k, v, out, B, S, H, Hkv, D, scale, st);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: TMA + wgmma.
+
+namespace wg {
+
+constexpr int kRows = 128;                 // query rows of a block: two warpgroups of 64
+constexpr int kConsumers = 256;             // the two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+// Registers a thread after setmaxnreg: the producer gives its registers to
+// the consumers (128 x 24 + 256 x 240 <= 65 536).
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kStages = 2;                  // K/V ring
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory a block of head dimension D asks for: Q, the K/V ring, its
+// mbarriers (Q; full and empty, K and V, a stage), and 1024 bytes to align
+// the swizzled tiles.  kernel.py's prefill_plan computes the same figure and
+// passes it in.
+constexpr int key_tile(int D) { return D <= 128 ? 128 : 64; }
+constexpr int smem_bytes(int D) {
+  return 1024 + kRows * D * 2 + 2 * kStages * key_tile(D) * D * 2 + 128;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Named barriers 1 and 2 hand the tensor cores from one warpgroup to the other.
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box (64 columns, 1 head, rows, 1 batch) of a 4-D tensor map into dst.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(batch)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>  // at most N of this warp's wgmma groups still pending
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma (its outputs are only valid after the wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define WG_D8(i)                                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+
+// D (64 x 64, f32) (+)= A (64 x 16, shared, K-major) B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 128, f32) (+)= A (64 x 16, shared, K-major) B (16 x 128, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D64
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 registers) B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef WG_D64
+#undef WG_D32
+#undef WG_D8
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {  // 2^x, flushing subnormal results to 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// D: head dimension (a multiple of 64); BC: keys of a tile.
+//
+// Warpgroup 2 is the producer: one thread issues the TMA loads of Q and of
+// every K and V tile, each into its stage once both consumer warpgroups have
+// released the tile that stage held (every consumer thread arrives on its
+// empty barrier: no lane-0 branch while a wgmma is in flight).  The two
+// consumers take turns on the tensor cores (named barriers 1 and 2): in its
+// turn a warpgroup issues S_j = Q K_j^T and O += P_{j-1} V_{j-1}, then
+// passes the turn and runs the softmax of S_j while the other warpgroup's
+// products run, so the exp2 work and the tensor-core work of the SM overlap.
+template <int D, int BC>
+__global__ void __launch_bounds__(kThreads, 1)
+prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+                     int S, int H, int Hkv, float scale_log2) {
+  constexpr int kBoxes = D / 64;           // 64-column boxes of a row (128 bytes each)
+  constexpr int kQBytes = kRows * D * 2;
+  constexpr int kTileBytes = BC * D * 2;   // one K or V tile
+  constexpr int kS = BC / 2;               // score registers a thread (m64 x BC)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + kQBytes;                  // stage s at k_s + s * kTileBytes
+  const uint32_t v_s = k_s + kStages * kTileBytes;     // stage s at v_s + s * kTileBytes
+  const uint32_t bar_q = v_s + kStages * kTileBytes;   // then 4 barriers a stage, 8 bytes each
+  const uint32_t full_k = bar_q + 8, full_v = full_k + 8 * kStages;
+  const uint32_t empty_k = full_v + 8 * kStages, empty_v = empty_k + 8 * kStages;
+
+  const int n_q = (S + kRows - 1) / kRows;
+  const int qi = n_q - 1 - (int)blockIdx.x;  // longest query tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / Hkv);
+  const int q0 = qi * kRows;
+  // key tiles up to the diagonal of the block's last row, and within S
+  const int n_kv = min((q0 + kRows + BC - 1) / BC, (S + BC - 1) / BC);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, kConsumers);
+      mbar_init(empty_v + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == kConsumers) {
+      mbar_expect_tx(bar_q, kQBytes);
+#pragma unroll
+      for (int c = 0; c < kBoxes; ++c)
+        tma_load(q_s + c * kRows * 128, &tm_q, bar_q, 64 * c, h, q0, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages, round = j / kStages;
+        if (round > 0) mbar_wait(empty_k + 8 * s, (round - 1) & 1);
+        mbar_expect_tx(full_k + 8 * s, kTileBytes);
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c)
+          tma_load(k_s + s * kTileBytes + c * BC * 128, &tm_k, full_k + 8 * s, 64 * c, kvh,
+                   j * BC, b);
+        if (round > 0) mbar_wait(empty_v + 8 * s, (round - 1) & 1);
+        mbar_expect_tx(full_v + 8 * s, kTileBytes);
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c)
+          tma_load(v_s + s * kTileBytes + c * BC * 128, &tm_v, full_v + 8 * s, 64 * c, kvh,
+                   j * BC, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int wg = tid >> 7, lane = tid & 31, warp = (tid >> 5) & 3;
+    const int my_turn = 1 + wg, other_turn = 2 - wg;
+    const int wg_row = q0 + 64 * wg;                     // the warpgroup's first row
+    const int row0 = wg_row + 16 * warp + (lane >> 2);  // this thread's rows: row0, row0 + 8
+    const int col0 = 2 * (lane & 3);                     // and columns col0, col0 + 1 of each 8
+
+    float o[kBoxes][32];
+#pragma unroll
+    for (int c = 0; c < kBoxes; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.0f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+    float sc[kS];
+    uint32_t p[BC / 16][4];  // P of the previous tile as the A fragments of its P V product
+
+    // O += P V_j, issued asynchronously (one commit group); O was rescaled to
+    // tile j's running max when P was made, so no other instruction touches
+    // an accumulator between the two products of a turn
+    auto issue_pv = [&](int j) {
+      const int s = j % kStages;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < kBoxes; ++c) {
+          const uint64_t db =
+              desc_sw128(v_s + s * kTileBytes + c * BC * 128 + kk * 16 * 128, BC * 128, 1024);
+          wgmma_rs(o[c], p[kk], db);
+        }
+      wgmma_commit();
+    };
+
+    // S = Q K_j^T: 64 x BC a warpgroup, K = D in steps of 16 (one commit group)
+    auto issue_s = [&](int j) {
+      const int s = j % kStages;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, off = 32 * (kk % 4);
+        const uint64_t da = desc_sw128(q_s + c * kRows * 128 + wg * 64 * 128 + off, 16, 1024);
+        const uint64_t db = desc_sw128(k_s + s * kTileBytes + c * BC * 128 + off, 16, 1024);
+        wgmma_ss(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+    };
+
+    // online softmax of S_j in place, on the accumulator's layout: register
+    // 4n + 2r + e holds row row0 + 8r, key j * BC + 8n + col0 + e; leaves P
+    // (as floats) in sc and the rescale of the running sums in alpha.  m is
+    // the running max of the unscaled scores (masked ones are -1e30), and
+    // p = 2^(s log2(e) / sqrt(D) - m log2(e) / sqrt(D)) is one FFMA and one ex2
+    float alpha[2];
+    auto softmax = [&](int j) {
+      const int k0 = j * BC;
+      const bool diag = k0 + BC - 1 > wg_row;  // straddles the warpgroup's diagonal
+      float mx[2] = {m[0], m[1]}, sum[2] = {0.0f, 0.0f}, ms[2];
+      if (diag) {
+#pragma unroll
+        for (int n = 0; n < BC / 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (k0 + 8 * n + col0 + (i & 1) > row0 + 8 * (i >> 1)) sc[4 * n + i] = kNegInf;
+      }
+#pragma unroll
+      for (int i = 0; i < kS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = quad_max(mx[r]);
+        alpha[r] = fast_exp2((m[r] - mx[r]) * scale_log2);
+        m[r] = mx[r];
+        ms[r] = mx[r] * scale_log2;
+      }
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        sc[i] = fast_exp2(fmaf(sc[i], scale_log2, -ms[(i >> 1) & 1]));
+        sum[(i >> 1) & 1] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
+    };
+
+    // P to bf16 A fragments, and O rescaled to the new running max, both
+    // while no product is in flight
+    auto to_p = [&]() {
+#pragma unroll
+      for (int n = 0; n < BC / 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          p[n / 2][2 * (n % 2) + r] = pack_bf16(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]);
+#pragma unroll
+      for (int c = 0; c < kBoxes; ++c) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+        fence_regs(o[c]);
+      }
+    };
+
+    // Both warpgroups walk every key tile of the block, so that no branch
+    // that differs between them holds a wgmma in flight (ptxas would then
+    // serialize them all): at 64-key tiles, warpgroup 0's last tile lies
+    // wholly above its diagonal, is masked to -1e30 and adds nothing.  The
+    // first tile is peeled, so that every turn of the loop commits the same
+    // two groups.
+    if (wg == 1) turn_pass(1);  // warpgroup 0 takes the first turn
+    mbar_wait(bar_q, 0);
+    mbar_wait(full_k, 0);
+    turn_wait(my_turn);
+    issue_s(0);
+    turn_pass(other_turn);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(empty_k);  // K_0 is read
+    softmax(0);
+    to_p();
+    for (int j = 1; j < n_kv; ++j) {
+      const int s = j % kStages, sp = (j - 1) % kStages;
+      mbar_wait(full_k + 8 * s, (j / kStages) & 1);
+      mbar_wait(full_v + 8 * sp, ((j - 1) / kStages) & 1);
+      turn_wait(my_turn);
+      issue_s(j);
+      issue_pv(j - 1);
+      turn_pass(other_turn);
+      wgmma_wait<1>();  // S_j is done; P_{j-1} V_{j-1} may still run
+      fence_regs(sc);
+      mbar_arrive(empty_k + 8 * s);  // K_j is read
+      softmax(j);
+      wgmma_wait<0>();  // P_{j-1} V_{j-1} is done: its registers are free
+#pragma unroll
+      for (int c = 0; c < kBoxes; ++c) fence_regs(o[c]);
+      mbar_arrive(empty_v + 8 * sp);  // V_{j-1} is read
+      to_p();
+    }
+    mbar_wait(full_v + 8 * ((n_kv - 1) % kStages), ((n_kv - 1) / kStages) & 1);
+    turn_wait(my_turn);  // the last turn: P V of the last tile
+    issue_pv(n_kv - 1);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kBoxes; ++c) fence_regs(o[c]);
+    if (wg == 0) turn_pass(other_turn);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
+      if (row >= S) continue;  // rows past a ragged S are never written
+      __nv_bfloat16* dst = out + (((long long)b * S + row) * H + h) * D + col0;
+#pragma unroll
+      for (int c = 0; c < kBoxes; ++c)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 64 * c + 8 * n) =
+              __floats2bfloat162_rn(o[c][4 * n + 2 * r] / denom, o[c][4 * n + 2 * r + 1] / denom);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4-D map (D, heads, S, B) of a contiguous (B, S, heads, D) bf16 tensor,
+// boxes of (64, 1, rows, 1), 128-byte swizzle, zeros out of bounds.
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S, int heads,
+              int D, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int Hkv,
+           float scale, int smem, cudaStream_t stream) {
+  constexpr int BC = key_tile(D);
+  if (smem < smem_bytes(D)) return (int)cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(encode, &tq, q, B, S, H, D, kRows) || !make_map(encode, &tk, k, B, S, Hkv, D, BC) ||
+      !make_map(encode, &tv, v, B, S, Hkv, D, BC))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      prefill_wgmma_kernel<D, BC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_q = (S + kRows - 1) / kRows;
+  prefill_wgmma_kernel<D, BC><<<dim3(n_q, H, B), kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, H, Hkv, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
+// bf16 q (B, S, H, D), k and v (B, S, Hkv, D), out (B, S, H, D), contiguous and
+// 16-byte aligned; D in {64, 128, 192, 256}; smem_bytes from kernel.py's
+// prefill_plan (at least wg::smem_bytes(D)).
+extern "C" int repro_flash_prefill_wgmma(const void* q, const void* k, const void* v, void* out,
+                                         int B, int S, int H, int Hkv, int D, float scale,
+                                         int smem_bytes, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return wg::launch<64>(q, k, v, out, B, S, H, Hkv, scale, smem_bytes, st);
+    case 128: return wg::launch<128>(q, k, v, out, B, S, H, Hkv, scale, smem_bytes, st);
+    case 192: return wg::launch<192>(q, k, v, out, B, S, H, Hkv, scale, smem_bytes, st);
+    case 256: return wg::launch<256>(q, k, v, out, B, S, H, Hkv, scale, smem_bytes, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

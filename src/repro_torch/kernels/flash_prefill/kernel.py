@@ -1,9 +1,17 @@
-"""Binding of ``csrc/flash_prefill.cu``.
+"""Binding of ``csrc/flash_prefill.cu`` and the choice of its two designs.
 
 Counterpart of ``repro.kernels.flash_prefill.kernel._grid_prefill``: one
 launch over a grid of (query tile, query head, batch), each block looping
 over the key tiles up to the diagonal.  A ragged S is handled in the
 kernel; nothing is padded here.
+
+:func:`design` names the design a call takes, by dtype and head dimension
+alone: bf16 at D in {64, 128, 192, 256} runs ``"wgmma+tma"`` (tensor
+cores, TMA loads into a two-stage K/V ring; every bf16 call of the served
+models, D = 128 and 256, is one), everything else ``"cuda-core"`` (the
+float32 CUDA-core kernel: float32 inputs, which wgmma cannot multiply
+without TF32's loss, and bf16 at another D).  It is a dispatch, not a
+fallback: an error of either design raises.
 """
 
 from __future__ import annotations
@@ -16,13 +24,43 @@ import torch
 
 from repro_torch.kernels import _build
 
-TILE = 64  # query rows and keys of a tile (kTile in the source)
+TILE = 64  # query rows and keys of a tile of the CUDA-core design (kTile in the source)
 MAX_HEAD_DIM = 256
+WGMMA = "wgmma+tma"
+CUDA_CORE = "cuda-core"
+#: the wgmma design's query rows a block (two consumer warpgroups of 64, and
+#: a producer warpgroup) and K/V ring stages
+WG_ROWS, WG_STAGES = 128, 2
+
+
+def design(dtype: torch.dtype, head_dim: int) -> str:
+    """The design a CUDA call with this dtype and head dimension launches."""
+    if dtype == torch.bfloat16 and head_dim % 64 == 0 and head_dim <= MAX_HEAD_DIM:
+        return WGMMA
+    return CUDA_CORE
+
+
+def prefill_plan(head_dim: int) -> dict:
+    """Tiles of the wgmma design at ``head_dim`` and the shared memory a
+    block asks for (wg::smem_bytes in the source, which checks it): the Q
+    tile, the K and V ring, 128 bytes of mbarriers and 1024 of alignment."""
+    key_tile = 128 if head_dim <= 128 else 64
+    smem = 1024 + WG_ROWS * head_dim * 2 + 2 * WG_STAGES * key_tile * head_dim * 2 + 128
+    return {"tile_rows": WG_ROWS, "key_tile": key_tile, "stages": WG_STAGES, "smem_bytes": smem}
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.library("flash_prefill").repro_flash_prefill
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_wgmma():
+    fn = _build.library("flash_prefill").repro_flash_prefill_wgmma
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
@@ -41,7 +79,10 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def grid_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; returns (B, S, H, D) in q's type."""
+    """Launch the kernel on CUDA tensors; returns (B, S, H, D) in q's type.
+
+    bf16 at D in {64, 128, 192, 256} launches the wgmma+TMA design, every
+    other call the CUDA-core design (:func:`design`)."""
     B, S, H, D = q.shape
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash prefill takes float32 or bfloat16, got {q.dtype}")
@@ -52,6 +93,15 @@ def grid_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
+    if design(q.dtype, D) == WGMMA:
+        _build.check(
+            _entry_wgmma()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], D,
+                1.0 / math.sqrt(D), prefill_plan(D)["smem_bytes"], _build.stream_of(q),
+            ),
+            "flash_prefill (wgmma+tma)",
+        )
+        return out
     _build.check(
         _entry()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], D,

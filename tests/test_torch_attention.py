@@ -29,7 +29,10 @@ from repro.kernels.flash_prefill.ref import flash_prefill_ref as jax_prefill_ref
 from repro.models import attention as jattn
 from repro_torch.configs.base import get_smoke
 from repro_torch.kernels import launch_counts
-from repro_torch.kernels.decode_attention.kernel import TILE, split_plan
+from repro_torch.configs.base import get_arch
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.decode_attention.kernel import TILE, mma_grid_plan, split_plan
+from repro_torch.kernels.flash_prefill import kernel as prefill_kernel
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
 from repro_torch.models import attention
@@ -142,10 +145,81 @@ def test_wrappers_reject_bad_shapes(bad):
 @pytest.mark.parametrize("B,Hkv,S", [(8, 2, 32768), (8, 2, 2080), (8, 16, 4096), (1, 1, 1),
                                      (4, 8, 130), (128, 8, 64)])
 def test_decode_split_covers_the_cache_once(B, Hkv, S):
+    """Both designs' splits: whole tiles, no empty split, and one wave of
+    the split pass where the cache allows it (the CUDA-core design at 2
+    blocks an SM; the mma design at most as many as its ring lets an SM
+    hold, with a block a 16-query row tile of the group: glm4-9b's 16,
+    qwen3-14b's 5, gemma-7b's 1 and a group of 40 that takes 3 row tiles)."""
     n_splits, split_len = split_plan(B, Hkv, S, 132)
     assert split_len % TILE == 0
     assert (n_splits - 1) * split_len < S <= n_splits * split_len  # no empty split
     assert B * Hkv * n_splits <= 2 * 132 or n_splits == 1  # one wave where it can
+    for g, D in ((16, 128), (5, 128), (1, 256), (40, 64)):
+        n_splits, split_len = mma_grid_plan(B, g * Hkv, Hkv, S, D, 132)
+        blocks = B * Hkv * -(-g // 16) * n_splits
+        assert split_len % TILE == 0
+        assert (n_splits - 1) * split_len < S <= n_splits * split_len
+        assert blocks <= decode_kernel.decode_plan(D)["blocks_per_sm"] * 132 or n_splits == 1
+        assert mma_grid_plan(B, g * Hkv, Hkv, S, D, 132) == (n_splits, split_len)
+
+
+def test_decode_split_of_the_served_caches():
+    """glm4-9b at B=8 on 132 SMs: the serving cache (S = 2080) in 7 splits
+    of 5 tiles, 112 blocks, one an SM (11 splits of 3 would put 6 tiles on
+    44 SMs), and S = 32 768 in 16 splits of 32 tiles, 256 blocks, two an SM
+    (8 of 64 put as many tiles on an SM); the CUDA-core design keeps its
+    fewest-tiles rule (11 of 3 at S = 2080)."""
+    assert decode_kernel.decode_plan(128)["blocks_per_sm"] == 2
+    assert mma_grid_plan(8, 32, 2, 2080, 128, 132) == (7, 5 * TILE)
+    assert mma_grid_plan(8, 32, 2, 32768, 128, 132) == (16, 32 * TILE)
+    assert split_plan(8, 2, 2080, 132) == (11, 3 * TILE)
+
+
+SERVED = ["glm4-9b", "qwen3-14b", "gemma-7b"]
+
+
+@pytest.mark.parametrize("arch", SERVED)
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+def test_attention_design_by_dtype_and_head_dim(arch, smoke):
+    """The served configurations' bf16 shapes take the tensor-core designs,
+    float32 the CUDA-core ones; the smoke configurations' head_dim 16 is no
+    multiple of 64, so their prefill takes the CUDA-core design in both."""
+    D = (get_smoke if smoke else get_arch)(arch).head_dim
+    assert D == (16 if smoke else (256 if arch == "gemma-7b" else 128))
+    bf, f32 = torch.bfloat16, torch.float32
+    assert prefill_kernel.design(bf, D) == (prefill_kernel.CUDA_CORE if smoke else "wgmma+tma")
+    assert decode_kernel.design(bf, D) == "mma.sync+cp.async"
+    assert prefill_kernel.design(f32, D) == prefill_kernel.CUDA_CORE == "cuda-core"
+    assert decode_kernel.design(f32, D) == decode_kernel.CUDA_CORE == "cuda-core"
+
+
+@pytest.mark.parametrize("D", [8, 16, 24, 48, 64, 96, 128, 192, 200, 256, 320])
+def test_design_edges(D):
+    bf = torch.bfloat16
+    assert (prefill_kernel.design(bf, D) == "wgmma+tma") == (D % 64 == 0 and D <= 256)
+    assert (decode_kernel.design(bf, D) == "mma.sync+cp.async") == (D % 16 == 0 and D <= 256)
+
+
+@pytest.mark.parametrize("D,key_tile", [(64, 128), (128, 128), (192, 64), (256, 64)])
+def test_prefill_plan_fits_shared_memory(D, key_tile):
+    """Two warpgroups of 64 query rows, a 2-stage K/V ring, and the shared
+    memory the wrapper hands to the launch within an H100 block's 232 448
+    bytes: Q, two stages of K and V, the ring's mbarriers (128 bytes), 1024
+    bytes of alignment."""
+    plan = prefill_kernel.prefill_plan(D)
+    assert (plan["tile_rows"], plan["key_tile"], plan["stages"]) == (128, key_tile, 2)
+    ring = 2 * plan["stages"] * key_tile * D * 2
+    assert plan["smem_bytes"] == 1024 + 128 * D * 2 + ring + 128
+    assert plan["smem_bytes"] <= 232_448
+
+
+@pytest.mark.parametrize("D,blocks", [(16, 12), (64, 4), (128, 2), (256, 1)])
+def test_decode_plan_fits_shared_memory(D, blocks):
+    """A ring of 3 tiles of 64 positions of K and V, rows padded by 16 bytes."""
+    plan = decode_kernel.decode_plan(D)
+    assert (plan["tile"], plan["stages"]) == (TILE, 3)
+    assert plan["smem_bytes"] == 3 * 2 * TILE * (D + 8) * 2 <= 232_448
+    assert plan["blocks_per_sm"] == blocks
 
 
 def _attn_params(cfg, seed):
@@ -164,7 +238,7 @@ def _attn_params(cfg, seed):
     return p, {k: torch.from_numpy(v) for k, v in p.items()}, {k: jnp.asarray(v) for k, v in p.items()}
 
 
-ARCHS = ["glm4-9b", "qwen3-14b", "gemma-7b"]
+ARCHS = SERVED
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -172,18 +172,40 @@ def _attention_limit(dtype, want):
 
 # (B, H, Hkv, D): glm4-9b, qwen3-14b, gemma-7b, a smoke config, MQA
 DECODE_HEADS = [(8, 32, 2, 128), (8, 40, 8, 128), (4, 16, 16, 256), (2, 8, 2, 16), (3, 16, 1, 64)]
+KINDS = {torch.bfloat16: "bf16", torch.float32: "f32"}
+#: bf16 lengths at serving's S = 2080 around the mma design's edges: its
+#: 64-position tile, its 3-tile ring (refilled from the 4th tile on), the
+#: 320-position split of glm4-9b's plan and the 1088-position split of
+#: qwen3-14b's, and the served lengths 2049..2080
+EDGE_LENGTHS = {
+    "tile": [1, 63, 64, 65, 127, 128, 129, 2080],
+    "ring": [191, 192, 193, 255, 256, 257, 2049, 2080],
+    "split": [319, 320, 321, 639, 640, 641, 1919, 2080],
+    "qwen-split": [575, 576, 577, 1087, 1088, 1089, 2079, 2080],
+    "served": [2049, 2050, 2051, 2052, 2053, 2054, 2055, 2080],
+}
+DECODE_CASES = [
+    pytest.param(B, H, Hkv, D, S, dtype, None, id=f"{B}-{H}-{Hkv}-{D}-{S}-{KINDS[dtype]}")
+    for dtype in (torch.bfloat16, torch.float32) for S in (1, 130, 4096)
+    for B, H, Hkv, D in DECODE_HEADS
+] + [
+    pytest.param(8, H, Hkv, D, 2080, torch.bfloat16, lengths, id=f"8-{H}-{Hkv}-{D}-2080-bf16-{name}")
+    for H, Hkv, D in ((32, 2, 128), (40, 8, 128), (16, 16, 256))
+    for name, lengths in EDGE_LENGTHS.items()
+]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("S", [1, 130, 4096])
-@pytest.mark.parametrize("B,H,Hkv,D", DECODE_HEADS)
-def test_decode_attention_matches_plain(card, B, H, Hkv, D, S, dtype):
+@pytest.mark.parametrize("B,H,Hkv,D,S,dtype,lengths", DECODE_CASES)
+def test_decode_attention_matches_plain(card, B, H, Hkv, D, S, dtype, lengths):
     gen = torch.Generator(device=card).manual_seed(B * S + D)
     q = torch.randn(B, H, D, generator=gen, device=card).to(dtype)
     k = torch.randn(B, S, Hkv, D, generator=gen, device=card).to(dtype)
     v = torch.randn(B, S, Hkv, D, generator=gen, device=card).to(dtype)
-    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=card, dtype=torch.int32)
-    lengths[0], lengths[-1] = 1, S
+    if lengths is None:
+        lengths = torch.randint(1, S + 1, (B,), generator=gen, device=card, dtype=torch.int32)
+        lengths[0], lengths[-1] = 1, S
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=card)
     got = decode_attention(q, k, v, lengths)
     want = decode_attention_ref(q, k, v, lengths)
     assert got.dtype == dtype and bool(torch.isfinite(got).all())
@@ -192,10 +214,21 @@ def test_decode_attention_matches_plain(card, B, H, Hkv, D, S, dtype):
     assert torch.equal(got, decode_attention(q, k, v, lengths))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("B,S,H,Hkv,D", [(1, 1024, 32, 2, 128), (2, 200, 40, 8, 128),
-                                         (1, 700, 16, 16, 256), (2, 1, 8, 2, 16),
-                                         (2, 65, 8, 2, 16), (1, 512, 4, 1, 64)])
+PREFILL_SHAPES = [(1, 1024, 32, 2, 128), (2, 200, 40, 8, 128), (1, 700, 16, 16, 256), (2, 1, 8, 2, 16),
+                  (2, 65, 8, 2, 16), (1, 512, 4, 1, 64)]
+#: bf16 edges of the wgmma design: S around its 64- and 128-row tiles (TMA's
+#: zero fill past S, the diagonal tiles), D = 128 (128-key tiles) and 256
+#: (64-key tiles), groups of 1, 5 and 16 query heads a KV head
+PREFILL_CASES = [
+    pytest.param(B, S, H, Hkv, D, dtype, id=f"{B}-{S}-{H}-{Hkv}-{D}-{KINDS[dtype]}")
+    for dtype in (torch.bfloat16, torch.float32) for B, S, H, Hkv, D in PREFILL_SHAPES
+] + [
+    pytest.param(1, S, 2 * g, 2, D, torch.bfloat16, id=f"1-{S}-{2 * g}-2-{D}-bf16-edge")
+    for S in (1, 63, 64, 127, 128, 129, 2047, 4000) for D in (128, 256) for g in (1, 5, 16)
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,dtype", PREFILL_CASES)
 def test_flash_prefill_matches_plain(card, B, S, H, Hkv, D, dtype):
     gen = torch.Generator(device=card).manual_seed(B * S + D)
     q = torch.randn(B, S, H, D, generator=gen, device=card).to(dtype)
@@ -207,6 +240,43 @@ def test_flash_prefill_matches_plain(card, B, S, H, Hkv, D, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=_attention_limit(dtype, want))
     assert torch.equal(got, flash_prefill(q, k, v))
+
+
+@pytest.mark.parametrize("arch", ["glm4-9b", "qwen3-14b", "gemma-7b"])
+def test_served_shapes_take_their_design(card, arch, monkeypatch):
+    """bf16 at a served model's head shapes launches the tensor-core designs
+    and float32 the CUDA-core ones: with the other design's entry point made
+    to raise, each call still runs, and is counted once."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_prefill import kernel as pk
+
+    cfg = get_arch(arch)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=card).manual_seed(D)
+    for dtype, new in ((torch.bfloat16, True), (torch.float32, False)):
+        assert (pk.design(dtype, D) == pk.WGMMA) == new
+        assert (dk.design(dtype, D) == dk.MMA) == new
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("the other design was launched")
+
+        with monkeypatch.context() as m:
+            m.setattr(pk, "_entry" if new else "_entry_wgmma", lambda: refuse)
+            m.setattr(dk, "_entry" if new else "_entry_mma", lambda: refuse)
+            q = torch.randn(1, 130, H, D, generator=gen, device=card).to(dtype)
+            k = torch.randn(1, 130, Hkv, D, generator=gen, device=card).to(dtype)
+            reset_launch_counts()
+            out = flash_prefill(q, k, k)
+            lengths = torch.tensor([97], dtype=torch.int32, device=card)
+            dec = decode_attention(q[:, 0].contiguous(), k, k, lengths)
+            torch.cuda.synchronize()
+            assert launch_counts()["flash_prefill"] == 1
+            assert launch_counts()["decode_attention"] == 1
+        for got, want in ((out, flash_prefill_ref(q, k, k)),
+                          (dec, decode_attention_ref(q[:, 0], k, k, lengths))):
+            torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                       atol=_attention_limit(dtype, want))
 
 
 @pytest.mark.parametrize("arch", ["glm4-9b", "qwen3-14b", "gemma-7b"])
