@@ -14,7 +14,13 @@ script with a non-zero exit:
    paths' shapes (N = 1e6 items, B = 1000 ids, mass at K = 1 and 64;
    segsum 1e6 -> 15 625 and 65 536 -> 1024, bucket_mass at K = 63 and 64
    over a real mid-run ogb_tree histogram), and its time beside its bound,
-   the plain version's and a library call's;
+   the plain version's and a library call's; and the two persistent
+   threshold solves the main paths launch (the warm projection, 5 sweeps
+   from a mid-run tau, and ogb_tree's bucket solve, 30 halvings over that
+   histogram), each with both grid barriers, cold and warm in L2, beside
+   its whole-solve bound, its plain version and the earlier design (the
+   K-way kernel and PyTorch's scalar ops, a launch at a time), then at a
+   few grids and step counts (what a step of the solve costs);
 4. the dense main path: run(policy_def("ogb")) over zipf(0.8) with
    N = 1e6, T = 1e7, C = 50 000, window 1000, every kernel's launches
    counted;
@@ -35,10 +41,10 @@ script with a non-zero exit:
    mma.sync+cp.async decode; f32: the CUDA-core designs): flash-decode at
    glm4-9b's B=8, H=32, Hkv=2, D=128 over S = 32 768 (lengths from a seed,
    with 1, S and a length that is no multiple of the tile), at serving's
-   S = 2080 (lengths 2049..2055 and 2080), and at qwen3-14b's and
-   gemma-7b's heads;
+   S = 2080 (lengths 2049..2055 and 2080), at qwen3-14b's and gemma-7b's
+   heads, at phi-3-vision's D = 96 and at a q-group of 32;
    flash-prefill at glm4-9b B=1, S=4096, a ragged S=4000, serving's B=8,
-   S=2048 and gemma-7b's D=256; two runs bit for bit;
+   S=2048, gemma-7b's D=256 and D=192; two runs bit for bit;
 13. their times cold and warm in L2, beside the plain versions, one
    scaled_dot_product_attention call each and their bounds, at glm4-9b's
    long shapes (prefill B=1, S=4096; decode B=8, S=32 768) and at the
@@ -92,6 +98,8 @@ SERVE_B, SERVE_S, SERVE_NEW, SERVE_CALLS = 8, 2048, 32, 4
 PAGE_SIZE, POOL_PAGES, HOT_PROMPTS = 64, 4096, 6  # a 262 144-token prefix pool
 TEACHER_STEPS = 8
 MASS_TOL = 1e-6 * N  # float32 summation order over N items
+SWEEPS = 5  # the warm projection's Newton sweeps a chunk (replay's default)
+TREE_ITERS = 30  # ogb_tree's halvings a chunk (OGB_TREE_ITERS)
 HOLD_CYCLES = 2_000_000  # about 1 ms of device time at the H100's clock
 REPLACES = {
     "histogram": "src/repro/kernels/scatter_counts/kernel.py:28",
@@ -113,6 +121,14 @@ SOURCES = {
 }
 KERNELS = ("histogram", "mass", "apply", "segsum", "bucket_mass", "flash_prefill",
            "decode_attention")
+#: the one design of each kernel that has one (the others name theirs in
+#: their rows: the attention kernels by design(), the two threshold solves
+#: by the launches of their main path)
+DESIGNS = {
+    "histogram": "zero fill, then one atomic add an id",
+    "apply": "grid-stride elementwise",
+    "segsum": "one warp a node, fixed-order shuffles",
+}
 NO_ATTENTION = {"flash_prefill": 0, "decode_attention": 0}
 
 
@@ -141,20 +157,21 @@ def bound_ms(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def timed_ms(torch, fn, reps, flush=None):
+def timed_ms(torch, fn, reps, flush=None, hold=HOLD_CYCLES):
     """Mean device time of one fn() call, by CUDA events around each call.
 
-    Before each call the device is held busy (torch.cuda._sleep) until the
-    host has enqueued the whole call, so the events time the device and not
-    the host's launch overhead.  Cold (L2 flushed before each call) when
-    ``flush`` is given, else warm in L2 from the previous call."""
+    Before each call the device is held busy (torch.cuda._sleep, ``hold``
+    cycles) until the host has enqueued the whole call, so the events time
+    the device and not the host's launch overhead.  Cold (L2 flushed before
+    each call) when ``flush`` is given, else warm in L2 from the previous
+    call."""
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
         if flush is not None:
             flush()
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
@@ -178,10 +195,27 @@ def root_tau(y, cap):
     return 0.5 * (lo + hi)
 
 
-def check_kernels(torch, dev, trace, eta):
+def dense_tau(trace, eta, chunks=500):
+    """A real mid-run tau of the dense main path: the carry's after ``chunks``."""
+    from repro_torch import policy_def, run
+
+    res = run(policy_def("ogb"), trace[: chunks * W], N, C, window=W, eta=eta, track_opt=False)
+    return float(res.carry.tau)
+
+
+def time_both(torch, label, kern, flush, reps=50, hold=HOLD_CYCLES):
+    """Cold and warm device ms of ``kern``, printed."""
+    cold, warm = timed_ms(torch, kern, reps, flush, hold), timed_ms(torch, kern, reps, None, hold)
+    print(f"  {label}: cold {cold * 1e3:.2f} us, warm in L2 {warm * 1e3:.2f} us")
+    return cold, warm
+
+
+def check_kernels(torch, dev, trace, eta, tau0):
     """Phase 3: each kernel against its plain version, then timings."""
-    from repro_torch.kernels.capped_simplex.ops import apply, masses
-    from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref
+    from repro_torch.jaxcache.fractional import warm_bracket_hi
+    from repro_torch.kernels._build import ARRIVE_COUNTER, GRID_SYNC
+    from repro_torch.kernels.capped_simplex.ops import apply, masses, project_warm_tau
+    from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref, project_warm_tau_ref
     from repro_torch.kernels.scatter_counts.ops import histogram
     from repro_torch.kernels.scatter_counts.ref import histogram_ref
 
@@ -223,6 +257,30 @@ def check_kernels(torch, dev, trace, eta):
     need(kept > 0 and abs(total - C) <= MASS_TOL, f"apply kept {kept} items, sum {total}, not C")
     print(f"apply: exact ({kept} items above 0, sum {total:.6f}; mass at root {root_mass:.6f})")
 
+    # the warm projection as the main path calls it: lo = 0, hi from the
+    # chunk's step, tau0 a mid-run tau, SWEEPS sweeps, in one launch
+    cap_t = torch.tensor(float(C), device=dev)
+    lo, hi = torch.zeros((), device=dev), warm_bracket_hi(eta_t * float(W))
+    tau0_t = torch.tensor(tau0, dtype=torch.float32, device=dev)
+    warm = (f, counts, eta_t, cap_t, lo, hi, tau0_t, SWEEPS)
+    proj = {b: project_warm_tau(*warm, barrier=b) for b in (GRID_SYNC, ARRIVE_COUNTER)}
+    for b, t in proj.items():
+        need(torch.equal(project_warm_tau(*warm, barrier=b), t),
+             f"project_warm_tau {b}: two runs differ")
+    need(torch.equal(proj[GRID_SYNC], proj[ARRIVE_COUNTER]),
+         "project_warm_tau: the barriers differ")
+    tau_k = float(proj[GRID_SYNC])
+    tau_plain = float(project_warm_tau_ref(*warm))
+    tau_earlier = float(project_warm_tau_ref(*warm, masses=masses))
+    dtau = abs(tau_k - tau_plain)
+    need(math.isfinite(tau_k) and dtau <= 1e-6,
+         f"project_warm_tau: |kernel - plain| = {dtau} > 1e-6")
+    warm_mass = float(masses_ref(f, counts, eta_t, proj[GRID_SYNC].reshape(1))[0][0])
+    print(f"project_warm_tau, {SWEEPS} sweeps from tau0 {tau0:.9e} over [0, {float(hi):.6f}]: "
+          f"tau {tau_k:.9e}, plain {tau_plain:.9e} (|d| {dtau:.3e}, limit 1e-6), earlier design "
+          f"{tau_earlier:.9e}, float64 root {tau_root:.9e}; plain mass there {warm_mass:.4f} "
+          f"(C = {C}); two runs and both barriers bit for bit")
+
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)  # 256 MB > L2
 
     def flush():
@@ -233,31 +291,48 @@ def check_kernels(torch, dev, trace, eta):
     jobs = {
         "histogram": (lambda: histogram(ids, N), lambda: histogram_ref(ids, N),
                       lambda: torch.bincount(ids64, minlength=N)),
-        "mass": (lambda: masses(f, counts, eta_t, t1), lambda: masses_ref(f, counts, eta_t, t1),
-                 None),
+        "mass": (lambda: project_warm_tau(*warm), lambda: project_warm_tau_ref(*warm), None),
         "apply": (lambda: apply(f, counts, eta_t, tau), lambda: apply_ref(f, counts, eta_t, tau),
                   None),
     }
     bounds = {
         # ids read, the dense counts written; the B atomic adds are no bound
         "histogram": bound_ms(4 * W + 4 * N, W),
-        # f and counts read, taus read, mass and cnt written; 2 + 7K ops per item
-        "mass": bound_ms(8 * N + 12, N * (2 + 7 * 1)),
+        # the whole solve: f and counts read once, five scalars read, tau
+        # written; 9 operations an item a sweep
+        "mass": bound_ms(8 * N + 5 * 4 + 4, SWEEPS * 9 * N),
         # f and counts read, f' written; 5 ops per item
         "apply": bound_ms(12 * N + 8, 5 * N),
     }
     rows = {}
     for name, (kern, plain, lib) in jobs.items():
         ms = timed_ms(torch, kern, 50, flush)
-        warm = timed_ms(torch, kern, 50)
+        warm_ms = timed_ms(torch, kern, 50)
         plain_ms = timed_ms(torch, plain, 20, flush)
         lib_ms = timed_ms(torch, lib, 20, flush) if lib else None
         b, by = bounds[name]
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                      "library_ms": lib_ms, "max_abs_err": errs[1] if name == "mass" else 0.0}
+        rows[name] = {"ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": b,
+                      "bound_by": by, "library_ms": lib_ms,
+                      "max_abs_err": dtau if name == "mass" else 0.0}
         lib_s = f", library {lib_ms * 1e3:.2f} us" if lib else ""
-        print(f"{name}: cold {ms * 1e3:.2f} us, warm in L2 {warm * 1e3:.2f} us "
+        print(f"{name}: cold {ms * 1e3:.2f} us, warm in L2 {warm_ms * 1e3:.2f} us "
               f"(plain {plain_ms * 1e3:.2f} us{lib_s}, bound {b * 1e3:.3f} us by {by})")
+    # the projection's other barrier, and the earlier design of the same
+    # solve: SWEEPS K-way mass launches and PyTorch's 0-d ops, a launch at a time
+    other, other_warm = time_both(torch, f"project_warm_tau with the {ARRIVE_COUNTER} barrier",
+                                  lambda: project_warm_tau(*warm, barrier=ARRIVE_COUNTER), flush)
+    # ~70 launches: a longer hold keeps the host's enqueueing out of the time
+    earlier, earlier_warm = time_both(
+        torch, f"earlier design: {SWEEPS} x masses (K=1) + 0-d ops",
+        lambda: project_warm_tau_ref(*warm, masses=masses), flush, hold=10 * HOLD_CYCLES)
+    kway, kway_warm = time_both(torch, "masses K=1 (one K-way pass)",
+                                lambda: masses(f, counts, eta_t, t1), flush)
+    rows["mass"].update({
+        "other_barrier": {"barrier": ARRIVE_COUNTER, "ms": other, "warm_ms": other_warm},
+        "earlier_design": f"{SWEEPS} x K-way masses + 0-d PyTorch ops",
+        "earlier_ms": earlier, "earlier_warm_ms": earlier_warm,
+        "kway_k1_ms": kway, "kway_k1_warm_ms": kway_warm, "kway_k1_max_abs_err": errs[1]})
+    sweep_warm(torch, dev, warm, flush)
     t64 = taus[64]
     ms64 = timed_ms(torch, lambda: masses(f, counts, eta_t, t64), 50, flush)
     plain64 = timed_ms(torch, lambda: masses_ref(f, counts, eta_t, t64), 10, flush)
@@ -272,14 +347,15 @@ def check_main_path(torch, trace, eta):
     import numpy as np
 
     from repro_torch import policy_def, run
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
 
     pd = policy_def("ogb")
     reset_launch_counts()
     res = run(pd, trace, N, C, window=W)
     launches = launch_counts()
+    designs = design_counts()
     m = T // W
-    want = {"histogram": m, "mass": 5 * m, "apply": m, "segsum": 0, "bucket_mass": 0,
+    want = {"histogram": m, "mass": m, "apply": m, "segsum": 0, "bucket_mass": 0,
             **NO_ATTENTION}
     f = res.final_f.astype(np.float64)
     print(f"main path: hit_ratio {res.hit_ratio}, frac_hit_ratio {res.frac_hit_ratio}, "
@@ -287,14 +363,14 @@ def check_main_path(torch, trace, eta):
           f"{res.us_per_request}, wall {res.wall_seconds} s, sum f {f.sum()}, "
           f"eta {res.extras['eta']}, launches {launches}")
     print(f"ogb: {res.us_per_request} us a request at T={T} (at e3b81f4: "
-          f"{EARLIER_US_PER_REQUEST['ogb']})")
+          f"{EARLIER_US_PER_REQUEST['ogb']}); mass launches by design {designs['mass']}")
     need(res.extras["eta"] == eta, "main path resolved another eta")
     need(launches == want, f"launches {launches}, expected {want}")
     need(np.all(np.isfinite(res.reward)) and np.all(np.isfinite(res.aux)), "non-finite output")
     need(f.min() >= 0.0 and f.max() <= 1.0, "final f leaves [0, 1]")
     need(abs(f.sum() - C) <= 1e-4 * C, f"sum f = {f.sum()} is not C = {C}")
     need(0.0 < res.hit_ratio < 1.0, f"hit ratio {res.hit_ratio} out of range")
-    return launches
+    return launches, designs
 
 
 def check_card_against_cpu(trace, eta):
@@ -373,11 +449,101 @@ def tree_state(trace, eta, chunks=1000):
     return res.carry
 
 
-def check_tree_kernels(torch, dev, carry):
+def bucket_root(cnt, tot, cap, lo, hi):
+    """The threshold in [lo, hi] where the bucket mass falls to cap, by
+    float64 bisection over the same means."""
+    import numpy as np
+
+    c, t = cnt.double().cpu().numpy(), tot.double().cpu().numpy()
+    mean = np.where(c > 0, t / np.maximum(c, 1.0), 0.0)
+    for _ in range(100):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if (c * np.clip(mean - mid, 0.0, 1.0)).sum() >= cap else (lo, mid)
+    return 0.5 * (lo + hi)
+
+
+def sweep_steps(torch, label, launch, grids, steps, flush):
+    """Phase 3, last of each solve: the persistent kernel through its C
+    entry point (no launch counted) at a few grids and step counts, cold and
+    warm in L2: 0 steps is the launch and the prologue alone, and the rest
+    shows what a step costs.  ``launch(blocks, flag, steps)`` returns the
+    call; ``grids`` is [(blocks, flag, name)]."""
+    for blocks, flag, name in grids:
+        times = []
+        for n in steps:
+            cold, warm = (timed_ms(torch, launch(blocks, flag, n), 30, fl) for fl in (flush, None))
+            times.append(f"{n}: {cold * 1e3:.2f} / {warm * 1e3:.2f}")
+        print(f"{label} at {blocks} blocks, {name}; steps: cold / warm us: " + ", ".join(times))
+
+
+def sweep_warm(torch, dev, warm, flush):
+    """The warm projection's step sweep: one block an SM with y in
+    registers (the plan), and with y re-read from L2 at one and at half a
+    block an SM."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.capped_simplex import ops
+
+    f, counts, eta, cap, lo, hi, tau0, _ = warm
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(blocks, resident, sweeps):
+        pmass = torch.empty(max(1, sweeps * blocks), dtype=torch.float64, device=dev)
+        pcnt = torch.empty(max(1, sweeps * blocks), dtype=torch.int32, device=dev)
+        arrived = torch.empty(1, dtype=torch.int32, device=dev)
+        tau = torch.empty((), dtype=torch.float32, device=dev)
+        return lambda: _build.check(ops._warm_entry()(
+            f.data_ptr(), counts.data_ptr(), eta.data_ptr(), cap.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), tau0.data_ptr(), N, sweeps, blocks, int(resident),
+            _build.BARRIERS[_build.GRID_SYNC], pmass.data_ptr(), pcnt.data_ptr(),
+            arrived.data_ptr(), tau.data_ptr(), stream), "project_warm_tau sweep")
+
+    sms = _build.sm_count(dev.index)
+    sweep_steps(torch, "project_warm_tau", launch,
+                [(sms, True, "y in registers [plan]"), (sms, False, "y re-read from L2"),
+                 (sms // 2, False, "y re-read from L2")], (0, 1, 5), flush)
+
+
+def sweep_solve(torch, dev, solve, flush):
+    """The bucket solve's step sweep (rounds of 6 halvings) at one block an
+    SM (the plan), a half and a quarter, the means in shared memory."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.prefix_tree import kernel as pk
+
+    cnt, tot, cap, lo, hi, _ = solve
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(blocks, on_chip, iters):
+        pmass = torch.empty(max(1, -(-iters // 6) * pk.SOLVE_POINTS * blocks),
+                            dtype=torch.float64, device=dev)
+        arrived = torch.empty(1, dtype=torch.int32, device=dev)
+        out = torch.empty((), dtype=torch.float32, device=dev)
+        return lambda: _build.check(pk._solve_entry()(
+            cnt.data_ptr(), tot.data_ptr(), cap.data_ptr(), lo.data_ptr(), hi.data_ptr(), V,
+            iters, blocks, int(on_chip), _build.BARRIERS[_build.GRID_SYNC], pmass.data_ptr(),
+            arrived.data_ptr(), out.data_ptr(), stream), "solve_buckets sweep")
+
+    sms = _build.sm_count(dev.index)
+    sweep_steps(torch, "solve_buckets", launch,
+                [(sms, True, "means in shared memory [plan]"),
+                 (sms // 2, True, "means in shared memory"),
+                 (sms // 4, True, "means in shared memory")], (0, 6, 30), flush)
+
+
+def check_tree_kernels(torch, dev, carry, eta):
     """Phase 3, prefix-tree kernels: segsum and bucket_mass against their
     plain versions on a real mid-run ogb_tree state, then timings."""
-    from repro_torch.kernels.prefix_tree.kernel import block_segment_sums, bucket_masses
-    from repro_torch.kernels.prefix_tree.ref import bucket_masses_ref, segment_sums_ref
+    from repro_torch.kernels._build import ARRIVE_COUNTER, GRID_SYNC
+    from repro_torch.kernels.prefix_tree.kernel import (
+        block_segment_sums,
+        bucket_masses,
+        solve_buckets,
+    )
+    from repro_torch.kernels.prefix_tree.ref import (
+        bucket_masses_ref,
+        segment_sums_ref,
+        solve_buckets_ref,
+        solve_rounds,
+    )
 
     cnt, tot = carry.ycnt[:V], carry.ysum[:V]
     f = torch.clamp(carry.y - carry.rho, 0.0, 1.0)  # the fractional state of 1e6 items
@@ -418,6 +584,26 @@ def check_tree_kernels(torch, dev, carry):
         print(f"bucket_mass K={k}: masses {float(got.max()):.3f} .. {float(got.min()):.3f}, "
               f"max |kernel - plain| = {err:.3e} (limit {1e-6 * total:.3e})")
 
+    # the whole solve as the chunk launches it, over a bracket of the chunk's
+    # width on each side of this state's rho, so that the root is inside
+    rho, half = float(carry.rho), max(eta * W, 4.0 * float(carry.w))
+    lo, hi = (torch.tensor(x, dtype=torch.float32, device=dev) for x in (rho - half, rho + half))
+    solve = (cnt, tot, torch.tensor(float(C), device=dev), lo, hi, TREE_ITERS)
+    got = {b: solve_buckets(*solve, barrier=b) for b in (GRID_SYNC, ARRIVE_COUNTER)}
+    for b, t in got.items():
+        need(torch.equal(solve_buckets(*solve, barrier=b), t),
+             f"solve_buckets {b}: two runs differ")
+    need(torch.equal(got[GRID_SYNC], got[ARRIVE_COUNTER]), "solve_buckets: the barriers differ")
+    want = solve_buckets_ref(*solve)
+    earlier_lo = solve_buckets_ref(*solve, bucket_masses=bucket_masses)
+    need(torch.equal(got[GRID_SYNC], want), f"solve_buckets {float(got[GRID_SYNC])!r} is not the "
+         f"plain version's {float(want)!r}")
+    root = bucket_root(cnt, tot, float(C), float(lo), float(hi))
+    print(f"solve_buckets, {TREE_ITERS} halvings over [{float(lo):.6f}, {float(hi):.6f}]: "
+          f"{float(got[GRID_SYNC]):.9e}, equal to the plain version bit for bit (earlier design "
+          f"{float(earlier_lo):.9e}, float64 root {root:.9e}, |d| "
+          f"{abs(float(got[GRID_SYNC]) - root):.3e}); two runs and both barriers bit for bit")
+
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
 
     def flush():
@@ -428,14 +614,16 @@ def check_tree_kernels(torch, dev, carry):
         "segsum": (lambda: block_segment_sums(f, N // 64, 64),
                    lambda: segment_sums_ref(f, N // 64, 64),
                    lambda: f.view(N // 64, 64).sum(1)),
-        "bucket_mass": (lambda: bucket_masses(cnt, tot, t63),
-                        lambda: bucket_masses_ref(cnt, tot, t63), None),
+        "bucket_mass": (lambda: solve_buckets(*solve), lambda: solve_buckets_ref(*solve), None),
     }
     bounds = {
         # children read once, nodes written once; one add a child
         "segsum": bound_ms(4 * N + 4 * (N // 64), N),
-        # counts and sums read, taus read, masses written; 2 + 5K ops a bucket
-        "bucket_mass": bound_ms(8 * V + 8 * 63, V * (2 + 5 * 63)),
+        # the whole solve: counts and sums read once, three scalars read, the
+        # threshold written; 2 + 5K ops a bucket a round of K = 2^h - 1 points
+        "bucket_mass": bound_ms(8 * V + 3 * 4 + 4,
+                                sum(V * (2 + 5 * ((1 << h) - 1))
+                                    for h in solve_rounds(TREE_ITERS))),
     }
     rows = {}
     for name, (kern, plain, lib) in jobs.items():
@@ -444,12 +632,30 @@ def check_tree_kernels(torch, dev, carry):
         plain_ms = timed_ms(torch, plain, 20, flush)
         lib_ms = timed_ms(torch, lib, 20, flush) if lib else None
         b, by = bounds[name]
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                      "library_ms": lib_ms,
-                      "max_abs_err": seg_errs[0] if name == "segsum" else mass_errs[63]}
+        rows[name] = {"ms": ms, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": b,
+                      "bound_by": by, "library_ms": lib_ms,
+                      "max_abs_err": seg_errs[0] if name == "segsum" else 0.0}
         lib_s = f", library {lib_ms * 1e3:.2f} us" if lib else ""
         print(f"{name}: cold {ms * 1e3:.2f} us, warm in L2 {warm * 1e3:.2f} us "
               f"(plain {plain_ms * 1e3:.2f} us{lib_s}, bound {b * 1e3:.3f} us by {by})")
+    # the solve's other barrier, and the earlier design of the same solve: a
+    # K-way bucket_masses launch and PyTorch's bracket ops a round
+    rounds = len(solve_rounds(TREE_ITERS))
+    other, other_warm = time_both(torch, f"solve_buckets with the {ARRIVE_COUNTER} barrier",
+                                  lambda: solve_buckets(*solve, barrier=ARRIVE_COUNTER), flush)
+    earlier, earlier_warm = time_both(
+        torch, f"earlier design: {rounds} x bucket_masses + bracket ops",
+        lambda: solve_buckets_ref(*solve, bucket_masses=bucket_masses), flush,
+        hold=10 * HOLD_CYCLES)
+    kway, kway_warm = time_both(torch, "bucket_masses K=63 (one K-way pass)",
+                                lambda: bucket_masses(cnt, tot, t63), flush)
+    rows["bucket_mass"].update({
+        "other_barrier": {"barrier": ARRIVE_COUNTER, "ms": other, "warm_ms": other_warm},
+        "earlier_design": f"{rounds} x K-way bucket_masses + bracket ops",
+        "earlier_ms": earlier, "earlier_warm_ms": earlier_warm,
+        "kway_k63_ms": kway, "kway_k63_warm_ms": kway_warm,
+        "kway_k63_max_abs_err": mass_errs[63]})
+    sweep_solve(torch, dev, solve, flush)
     small = timed_ms(torch, lambda: block_segment_sums(cnt, V // 64, 64), 50, flush)
     b_small, _ = bound_ms(4 * V + 4 * (V // 64), V)
     t64 = taus[64]
@@ -464,25 +670,27 @@ def check_tree_main_path(trace, eta):
     import numpy as np
 
     from repro_torch import policy_def, run
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
 
     pd = policy_def("ogb_tree")
     reset_launch_counts()
     res = run(pd, trace, N, C, window=W)
     launches = launch_counts()
+    designs = design_counts()
     m = T // W
     reanchors, syncs = int(res.extras["reanchors"]), int(res.extras["host_syncs"])
     # a re-anchor rebuilds the three trees (two segsum levels each) from
     # leaves whose counts come from the histogram kernel
     want = {"histogram": 2 * reanchors, "mass": 0, "apply": 0, "segsum": 6 * (1 + reanchors),
-            "bucket_mass": 5 * m, **NO_ATTENTION}
+            "bucket_mass": m, **NO_ATTENTION}
     print(f"ogb_tree main path: hit_ratio {res.hit_ratio}, frac_hit_ratio {res.frac_hit_ratio} "
           f"(reference {REF_TREE_FRAC_HIT_RATIO}), regret {res.regret}, us_per_request "
           f"{res.us_per_request}, wall {res.wall_seconds} s, final rho {float(res.carry.rho)}, "
           f"mean occupancy {float(np.mean(res.occupancy))}, re-anchors {reanchors}, host syncs "
           f"{syncs}, launches {launches}")
     print(f"ogb_tree: {res.us_per_request} us a request at T={T} (at e3b81f4: "
-          f"{EARLIER_US_PER_REQUEST['ogb_tree']})")
+          f"{EARLIER_US_PER_REQUEST['ogb_tree']}); bucket_mass launches by design "
+          f"{designs['bucket_mass']}")
     need(res.extras["eta"] == eta, "ogb_tree main path resolved another eta")
     need(launches == want, f"ogb_tree launches {launches}, expected {want}")
     need(np.all(np.isfinite(res.reward)) and np.all(np.isfinite(res.aux)), "non-finite output")
@@ -491,7 +699,7 @@ def check_tree_main_path(trace, eta):
     need(0.0 < res.hit_ratio < 1.0, f"ogb_tree hit ratio {res.hit_ratio} out of range")
     need(abs(float(np.mean(res.occupancy)) - C) < 0.2 * C, "ogb_tree occupancy far from C")
     need(syncs <= m // 20, f"ogb_tree read the device in {syncs} of {m} chunks")
-    return launches
+    return launches, designs
 
 
 def _close_to_cpu(card, cpu, label):
@@ -580,7 +788,7 @@ def check_reanchor(torch, trace, eta):
           f"launches {launches}")
     need(n_re == REANCHOR_CHUNKS, f"forced re-anchor fired {n_re} times")
     want = {"histogram": 2 * n_re, "mass": 0, "apply": 0, "segsum": 6 * (1 + n_re),
-            "bucket_mass": 5 * REANCHOR_CHUNKS, **NO_ATTENTION}
+            "bucket_mass": REANCHOR_CHUNKS, **NO_ATTENTION}
     need(launches == want, f"forced re-anchor launches {launches}, expected {want}")
     _same_runs(torch, one, two, "forced re-anchor two runs")
     short = part[: REANCHOR_CPU_CHUNKS * W]
@@ -658,7 +866,9 @@ def check_attention_kernels(torch, dev):
         for arch, B, H, Hkv, D, S in (("glm4-9b", 8, 32, 2, 128, 32768),
                                       ("glm4-9b", 8, 32, 2, 128, SERVE_S + SERVE_NEW),
                                       ("qwen3-14b", 8, 40, 8, 128, 8192),
-                                      ("gemma-7b", 8, 16, 16, 256, 8192)):
+                                      ("gemma-7b", 8, 16, 16, 256, 8192),
+                                      ("phi-3-vision D=96", 8, 32, 32, 96, 8192),
+                                      ("q-group 32", 8, 64, 2, 128, 8192)):
             q, k, v = randn(B, H, D, dtype=dtype), randn(B, S, Hkv, D, dtype=dtype), \
                 randn(B, S, Hkv, D, dtype=dtype)
             if S == SERVE_S + SERVE_NEW:  # the served cache: lengths SERVE_S + 1 .. S
@@ -677,7 +887,8 @@ def check_attention_kernels(torch, dev):
         for arch, B, S, H, Hkv, D in (("glm4-9b", 1, 4096, 32, 2, 128),
                                       ("glm4-9b", 1, 4000, 32, 2, 128),
                                       ("glm4-9b", SERVE_B, SERVE_S, 32, 2, 128),
-                                      ("gemma-7b", 1, 2048, 16, 16, 256)):
+                                      ("gemma-7b", 1, 2048, 16, 16, 256),
+                                      ("D=192", 1, 2048, 16, 2, 192)):
             q = randn(B, S, H, D, dtype=dtype)
             k, v = randn(B, S, Hkv, D, dtype=dtype), randn(B, S, Hkv, D, dtype=dtype)
             label = (f"prefill {arch} {kind} B={B} S={S} H={H} Hkv={Hkv} D={D} "
@@ -1105,13 +1316,13 @@ def main() -> int:
     print(f"trace: zipf N={N} T={T} alpha={ALPHA}, {time.perf_counter() - t0:.2f} s")
     eta = theoretical_eta(C, N, T, 1)
 
-    rows = check_kernels(torch, dev, trace, eta)
-    rows.update(check_tree_kernels(torch, dev, tree_state(trace, eta)))
-    launches = check_main_path(torch, trace, eta)
+    rows = check_kernels(torch, dev, trace, eta, dense_tau(trace, eta))
+    rows.update(check_tree_kernels(torch, dev, tree_state(trace, eta), eta))
+    launches, designs = check_main_path(torch, trace, eta)
     check_card_against_cpu(trace, eta)
     check_resume(torch, trace, eta)
     breakdown(torch, trace, eta)
-    tree_launches = check_tree_main_path(trace, eta)
+    tree_launches, tree_designs = check_tree_main_path(trace, eta)
     check_tree_card_against_cpu(trace, eta)
     check_tree_repeat_and_resume(torch, trace, eta)
     check_reanchor(torch, trace, eta)
@@ -1127,6 +1338,11 @@ def main() -> int:
     # for the prefix-tree kernels (segsum also ran 3 a chunk on madow_tree)
     launches.update({k: tree_launches[k] for k in ("segsum", "bucket_mass")})
     launches.update({k: serve_launches[k] for k in ("flash_prefill", "decode_attention")})
+    # the redesigned kernels name the design their main path launched
+    rows["mass"]["design"] = " + ".join(designs["mass"])
+    rows["bucket_mass"]["design"] = " + ".join(tree_designs["bucket_mass"])
+    for name, design in DESIGNS.items():
+        rows[name]["design"] = design
     print(f"segsum launches: ogb_tree main path {launches['segsum']}, madow_tree "
           f"{madow_segsum} over {MADOW_CHUNKS} chunks")
     kernels = [

@@ -9,13 +9,15 @@ and ``make_ogb_tree_chunk``).  The state is the unprojected accumulation
 Two things differ from the reference, and neither changes what it computes:
 
 * **Threshold solve.**  The reference bisects ``iters`` times, each step a
-  few tree-prefix reads.  Here each round of six halvings is ONE
-  :func:`~repro_torch.kernels.prefix_tree.kernel.bucket_masses` launch at
-  the 63 interior points of a 64-way grid over the bracket, over the leaf
-  level of the count and sum trees; the round keeps the last point whose
-  mass is at least C and the point after it.  In exact arithmetic that is
-  the bracket six bisection steps reach.  The grid choice is a count and a
-  gather on the device, with no read on the host.
+  few tree-prefix reads.  Here the solve goes in rounds of six halvings,
+  each evaluating the bucket mass over the leaf level of the count and sum
+  trees at the 63 interior points of a 64-way grid over the bracket and
+  keeping the last point whose mass is at least C and the point after it.
+  In exact arithmetic that is the bracket six bisection steps reach.  The
+  whole solve is ONE
+  :func:`~repro_torch.kernels.prefix_tree.kernel.solve_buckets` launch: the
+  rounds, their reductions and the grid choice run on the device, with no
+  read on the host.
 * **Re-anchor without a read per chunk.**  The reference decides each chunk
   with ``lax.cond``.  Since ``rho_new <= rho + max(eta*B, 4w)``, the host
   carries a float64 upper bound on rho (:class:`TreeHost`) and reads the
@@ -41,7 +43,7 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.cachesim.replay import sampling_keys
 from repro_torch.jaxcache.fractional import request_counts
-from repro_torch.kernels.prefix_tree.kernel import bucket_masses
+from repro_torch.kernels.prefix_tree.kernel import solve_buckets
 from repro_torch.kernels.prefix_tree.ops import tree_build, tree_prefix, tree_total, tree_update_
 
 #: bucket count of the value histogram the lazy projection solves over
@@ -55,8 +57,6 @@ OGB_TREE_ITERS = 30
 OGB_TREE_GAIN = 8.0
 
 _I32_MAX = 2**31 - 1
-#: halvings of the bracket that one bucket_masses launch resolves (63 points)
-_HALVINGS_PER_ROUND = 6
 #: relative slack of the host's float64 bound over float32 rounding on the
 #: device (a few float32 ulps, 2**-23 each, per chunk)
 _SLACK = 1e-6
@@ -180,33 +180,6 @@ def init_ogb_tree_carry(
     )
 
 
-@functools.lru_cache(maxsize=None)
-def _grid_fractions(halvings: int, device: torch.device) -> torch.Tensor:
-    """j / 2^h for the 2^h - 1 interior points j = 1 .. 2^h - 1 (exact)."""
-    m = 1 << halvings
-    return torch.arange(1, m, dtype=torch.float32, device=device) / m
-
-
-def solve_threshold(cnt: torch.Tensor, total: torch.Tensor, cap: torch.Tensor,
-                    lo: torch.Tensor, hi: torch.Tensor, iters: int) -> torch.Tensor:
-    """The largest threshold in [lo, hi], to ``iters`` halvings, whose
-    bucket mass is at least ``cap``: the reference's bisection, six
-    halvings per :func:`bucket_masses` launch (a last round takes the
-    remainder).  Requires mass(lo) >= cap; returns lo's counterpart of the
-    final bracket, as the reference does."""
-    rounds = [_HALVINGS_PER_ROUND] * (iters // _HALVINGS_PER_ROUND)
-    if iters % _HALVINGS_PER_ROUND:
-        rounds.append(iters % _HALVINGS_PER_ROUND)
-    for h in rounds:
-        taus = lo + (hi - lo) * _grid_fractions(h, lo.device)
-        mass = bucket_masses(cnt, total, taus)
-        # mass is non-increasing in tau: the points with mass >= C come first
-        c = (mass >= cap).sum().reshape(1)
-        grid = torch.cat([lo.reshape(1), taus, hi.reshape(1)])
-        lo, hi = grid.index_select(0, torch.cat([c, c + 1])).unbind()
-    return lo
-
-
 def _leaf_sums(idx: torch.Tensor, vals: torch.Tensor, v: int) -> torch.Tensor:
     """(v,) float32 sums of ``vals`` by bucket ``idx``, accumulated in float64.
 
@@ -316,7 +289,7 @@ def make_ogb_tree_chunk(v: int, radix: int, sample: str, iters: int = OGB_TREE_I
         # rho* - rho <= eta*B (chained-projection bound); the 4w floor keeps
         # the bracket wider than the mass quantization when eta*B < w
         hi0 = rho + torch.maximum(eta * float(b), 4.0 * wv)
-        rho_new = solve_threshold(ycnt[:v], ysum[:v], cap, rho, hi0, iters)
+        rho_new = solve_buckets(ycnt[:v], ysum[:v], cap, rho, hi0, iters)
         out = (reward, hits, rho_new - rho, occ)
 
         # --- re-anchor when the next chunk could outgrow the value grid ---

@@ -9,10 +9,13 @@ a catalog of N items (paper Eq. 2 / §5.3):
     f'     = clip(y - tau, 0, 1)
 
 Unlike the reference, the projections here take ``(f, counts, eta)`` as the
-kernels do and never store y: every catalog pass is one launch of
-:func:`repro_torch.kernels.capped_simplex.ops.masses` and the final clip is
-one :func:`~repro_torch.kernels.capped_simplex.ops.apply`.  Scalars stay
-0-d tensors on the device, so a projection never waits on the host.
+kernels do and never store y: each bisection step is one launch of
+:func:`repro_torch.kernels.capped_simplex.ops.masses`, the warm projection's
+whole solve is one launch of
+:func:`~repro_torch.kernels.capped_simplex.ops.project_warm_tau`, and the
+final clip is one :func:`~repro_torch.kernels.capped_simplex.ops.apply`.
+Scalars stay 0-d tensors on the device, so a projection never waits on the
+host.
 """
 
 from __future__ import annotations
@@ -21,7 +24,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.capped_simplex.ops import Scalar, apply, as_scalar, masses
+from repro_torch.kernels.capped_simplex.ops import (
+    Scalar,
+    apply,
+    as_scalar,
+    masses,
+    project_warm_tau,
+)
 from repro_torch.kernels.scatter_counts.ops import histogram
 
 DEFAULT_BISECT_ITERS = 50
@@ -86,33 +95,19 @@ def capped_simplex_project_warm(
     """Warm-started projection: bracketed Newton on the piecewise-linear g.
 
     g(tau) = sum(clip(y - tau, 0, 1)) is non-increasing with slope
-    -#{i : 0 < y_i - tau < 1}.  Each sweep is one :func:`masses` launch at
-    K = 1, then the bracket shrinks and the Newton point
-    ``tau + (g - C) / count`` is taken if it has a count and lies in the
-    bracket, else the midpoint.  Requires g(lo) >= C >= g(hi); for an OGB
-    step lo = 0, hi = warm_bracket_hi(eta * B) always holds, and ``tau0`` =
-    the previous step's tau is a good seed.
+    -#{i : 0 < y_i - tau < 1}.  Each sweep is one mass pass, then the
+    bracket shrinks and the Newton point ``tau + (g - C) / count`` is taken
+    if it has a count and lies in the bracket, else the midpoint; on the
+    card all ``sweeps`` are one :func:`project_warm_tau` launch, then one
+    :func:`apply`.  Requires g(lo) >= C >= g(hi); for an OGB step lo = 0,
+    hi = warm_bracket_hi(eta * B) always holds, and ``tau0`` = the previous
+    step's tau is a good seed.
 
     The safeguard is the reference's: it accepts a Newton point equal to an
     end of the bracket, so, as in ``repro``, the iterate can alternate
     between the two ends on some instances and stop at an infeasible tau.
     """
-    dev = f.device
-    eta = as_scalar(eta, dev)
-    cap = as_scalar(capacity, dev)
-    lo = as_scalar(lo, dev)
-    hi = as_scalar(hi, dev)
-    t = torch.clamp(as_scalar(tau0, dev), lo, hi)
-    for _ in range(sweeps):
-        mass, cnt = masses(f, counts, eta, t.reshape(1))
-        mass, cnt = mass[0], cnt[0]
-        too_much = mass >= cap
-        lo = torch.where(too_much, t, lo)
-        hi = torch.where(too_much, hi, t)
-        t_newton = t + (mass - cap) / torch.clamp(cnt, min=1.0)
-        t_mid = 0.5 * (lo + hi)
-        ok = (cnt > 0.0) & (t_newton >= lo) & (t_newton <= hi)
-        t = torch.where(ok, t_newton, t_mid)
+    t = project_warm_tau(f, counts, eta, capacity, lo, hi, tau0, sweeps)
     return apply(f, counts, eta, t), t
 
 

@@ -1,11 +1,15 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
 Each wrapper counts its launches in a plain integer attribute
-(``histogram.launches``, ``masses.launches``, ``apply.launches``,
-``block_segment_sums.launches``, ``bucket_masses.launches``,
-``flash_prefill.launches``, ``decode_attention.launches``), so a run
-can show that it went through the kernels; :func:`launch_counts` reads them
-and :func:`reset_launch_counts` sets them to 0.
+(``histogram.launches``, ``masses.launches``, ``project_warm_tau.launches``,
+``apply.launches``, ``block_segment_sums.launches``,
+``bucket_masses.launches``, ``solve_buckets.launches``,
+``flash_prefill.launches``, ``decode_attention.launches``), so a run can show
+that it went through the kernels.  :func:`launch_counts` reads them by
+kernel source (the warm projection counts as ``mass``, the bucket solve as
+``bucket_mass``), :func:`design_counts` reads the launches by design of the
+wrappers that keep them (a ``designs`` dict), and :func:`reset_launch_counts`
+sets both to 0.
 """
 
 from __future__ import annotations
@@ -14,28 +18,46 @@ from typing import Dict
 
 
 def _wrappers():
-    from repro_torch.kernels.capped_simplex.ops import apply, masses
+    from repro_torch.kernels.capped_simplex.ops import apply, masses, project_warm_tau
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
-    from repro_torch.kernels.prefix_tree.kernel import block_segment_sums, bucket_masses
+    from repro_torch.kernels.prefix_tree.kernel import (
+        block_segment_sums,
+        bucket_masses,
+        solve_buckets,
+    )
     from repro_torch.kernels.scatter_counts.ops import histogram
 
     return {
-        "histogram": histogram,
-        "mass": masses,
-        "apply": apply,
-        "segsum": block_segment_sums,
-        "bucket_mass": bucket_masses,
-        "flash_prefill": flash_prefill,
-        "decode_attention": decode_attention,
+        "histogram": (histogram,),
+        "mass": (masses, project_warm_tau),
+        "apply": (apply,),
+        "segsum": (block_segment_sums,),
+        "bucket_mass": (bucket_masses, solve_buckets),
+        "flash_prefill": (flash_prefill,),
+        "decode_attention": (decode_attention,),
     }
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel name -> launches since the last reset."""
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: sum(fn.launches for fn in fns) for name, fns in _wrappers().items()}
+
+
+def design_counts() -> Dict[str, Dict[str, int]]:
+    """Kernel name -> {design: launches since the last reset}, for the
+    kernels whose wrappers count by design."""
+    out: Dict[str, Dict[str, int]] = {}
+    for name, fns in _wrappers().items():
+        for fn in fns:
+            for design, n in getattr(fn, "designs", {}).items():
+                out.setdefault(name, {})[design] = n
+    return out
 
 
 def reset_launch_counts() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fns in _wrappers().values():
+        for fn in fns:
+            fn.launches = 0
+            if hasattr(fn, "designs"):
+                fn.designs = {}

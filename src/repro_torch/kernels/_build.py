@@ -2,10 +2,12 @@
 
 Every ``kernels/*/csrc/*.cu`` source is compiled on first use into its own
 shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds, not minutes).  All sources are compiled together, one
-``nvcc`` process each.  Libraries land in ``build/repro_torch/`` at the
-root of the checkout under a name hashed from the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+takes seconds, not minutes); sources may include the shared headers of
+``kernels/csrc/``.  All sources are compiled together, one ``nvcc``
+process each.  Libraries land in ``build/repro_torch/`` at the root of the
+checkout under a name hashed from the source, the shared headers and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
@@ -31,6 +33,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: the barriers across the grid that the persistent solves can take, by the
+#: number their C entry points know them by (kernels/csrc/persistent.cuh)
+GRID_SYNC, ARRIVE_COUNTER = "grid-sync", "arrive-counter"
+BARRIERS = {GRID_SYNC: 0, ARRIVE_COUNTER: 1}
+
 
 def sources() -> Dict[str, Path]:
     """Kernel name (the source's stem) -> path of its ``.cu`` file."""
@@ -44,8 +51,13 @@ def _nvcc() -> str:
     return found
 
 
+def _headers() -> bytes:
+    """The shared headers (``kernels/csrc/*.cuh``) that sources include."""
+    return b"".join(p.read_bytes() for p in sorted(KERNELS_DIR.glob("csrc/*.cuh")))
+
+
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + _headers() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 
@@ -99,6 +111,32 @@ def check(code: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error code."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def counted(fn, design: str) -> None:
+    """Count one launch of wrapper ``fn``, in total and by design."""
+    fn.launches += 1
+    fn.designs[design] = fn.designs.get(design, 0) + 1
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(name: str, symbol: str, index: int, variant: bool, barrier: str) -> int:
+    """Blocks of a persistent kernel that one SM of CUDA device ``index``
+    holds at once, from the occupancy entry point ``symbol`` of library
+    ``name``, for the kernel's ``variant`` and ``barrier``."""
+    fn = getattr(library(name), symbol)
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        check(fn(int(variant), BARRIERS[barrier], ctypes.byref(out)), symbol)
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_of(t) -> int:

@@ -2,9 +2,11 @@
 
 Counterpart of ``repro.kernels.capped_simplex.ops``.  ``masses`` and
 ``apply`` launch ``csrc/mass.cu`` and ``csrc/apply.cu`` on a CUDA tensor and
-run the plain versions of :mod:`.ref` on a CPU tensor.  Scalars (``eta``,
-the thresholds, ``tau``) stay on the device and the kernels read them by
-pointer, so no call waits on the host.
+run the plain versions of :mod:`.ref` on a CPU tensor; ``project_warm_tau``
+launches the warm projection's whole threshold solve, one persistent
+launch of ``csrc/mass.cu``.  Scalars (``eta``, the thresholds, ``tau``) stay
+on the device and the kernels read them by pointer, so no call waits on the
+host.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref
+from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref, project_warm_tau_ref
 
 Scalar = Union[float, torch.Tensor]
 
@@ -24,6 +26,9 @@ Scalar = Union[float, torch.Tensor]
 #: partials stay small and the finishing block sums at most this many
 _MASS_ITEMS_PER_BLOCK = 1024
 _MASS_MAX_BLOCKS = 1024
+#: threads of a warm-projection block and items of y each keeps in
+#: registers (kWarmThreads and kWarmItems of csrc/mass.cu)
+WARM_THREADS, WARM_ITEMS = 1024, 8
 
 
 def as_scalar(x: Scalar, device: torch.device) -> torch.Tensor:
@@ -52,6 +57,15 @@ def _mass_entry():
     fn.argtypes = [
         p, p, p, p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, p, p, p, p, p,
     ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _warm_entry():
+    fn = _build.library("mass").repro_project_warm
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -95,11 +109,80 @@ def masses(
         ),
         "masses",
     )
-    masses.launches += 1
+    _build.counted(masses, "k-way, partials and finish")
     return mass, cnt
 
 
 masses.launches = 0
+masses.designs = {}
+
+
+def warm_plan(n: int, sweeps: int, sms: int, resident_blocks_per_sm: int,
+              stream_blocks_per_sm: int) -> dict:
+    """The persistent warm projection's launch over ``n`` items.
+
+    One block per resident slot: ``sms`` times the blocks an SM holds of the
+    kernel that keeps y in registers, if its threads hold all ``n`` items at
+    ``WARM_ITEMS`` each; else of the kernel that re-reads f and c every sweep.
+    ``partials`` is the length of each of the (sweeps, blocks) partials
+    buffers (the mass in float64, the count in int32)."""
+    blocks = sms * resident_blocks_per_sm
+    resident = n <= blocks * WARM_THREADS * WARM_ITEMS
+    if not resident:
+        blocks = sms * stream_blocks_per_sm
+    return {"blocks": blocks, "resident": resident, "partials": sweeps * blocks,
+            "design": "persistent, y " + ("in registers" if resident else "re-read from L2")}
+
+
+def project_warm_tau(
+    f: torch.Tensor,
+    counts: torch.Tensor,
+    eta: Scalar,
+    capacity: Scalar,
+    lo: Scalar,
+    hi: Scalar,
+    tau0: Scalar,
+    sweeps: int,
+    barrier: str = _build.GRID_SYNC,
+) -> torch.Tensor:
+    """The warm projection's threshold: ``sweeps`` safeguarded Newton steps
+    on g(tau) = sum(clip(f + eta * counts - tau, 0, 1)) = C from
+    clamp(tau0, lo, hi), as :func:`.ref.project_warm_tau_ref` takes them;
+    a 0-d float32 tensor.  On the card the whole solve is one persistent
+    launch; ``barrier`` picks its barrier across the grid."""
+    _check_catalog(f, counts)
+    dev = f.device
+    eta, cap, lo, hi, tau0 = (as_scalar(x, dev) for x in (eta, capacity, lo, hi, tau0))
+    if dev.type == "cpu":
+        return project_warm_tau_ref(f, counts, eta, cap, lo, hi, tau0, sweeps)
+    for t, name in ((f, "f"), (counts, "counts"), (eta, "eta"), (cap, "capacity"),
+                    (lo, "lo"), (hi, "hi"), (tau0, "tau0")):
+        _build.require(t, torch.float32, name, dev)
+    if barrier not in _build.BARRIERS:
+        raise ValueError(f"unknown barrier {barrier!r}")
+    n = f.numel()
+    plan = warm_plan(n, sweeps, _build.sm_count(dev.index),
+                     *(_build.blocks_per_sm("mass", "repro_project_warm_occupancy", dev.index,
+                                            resident, barrier) for resident in (True, False)))
+    pmass = torch.empty(plan["partials"], dtype=torch.float64, device=dev)
+    pcnt = torch.empty(plan["partials"], dtype=torch.int32, device=dev)
+    arrived = torch.empty(1, dtype=torch.int32, device=dev)
+    tau = torch.empty((), dtype=torch.float32, device=dev)
+    _build.check(
+        _warm_entry()(
+            f.data_ptr(), counts.data_ptr(), eta.data_ptr(), cap.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), tau0.data_ptr(), n, sweeps, plan["blocks"], int(plan["resident"]),
+            _build.BARRIERS[barrier], pmass.data_ptr(), pcnt.data_ptr(), arrived.data_ptr(),
+            tau.data_ptr(), _build.stream_of(f),
+        ),
+        "project_warm_tau",
+    )
+    _build.counted(project_warm_tau, f"{plan['design']}, {barrier}")
+    return tau
+
+
+project_warm_tau.launches = 0
+project_warm_tau.designs = {}
 
 
 def apply(f: torch.Tensor, counts: torch.Tensor, eta: Scalar, tau: Scalar) -> torch.Tensor:

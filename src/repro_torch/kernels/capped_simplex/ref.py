@@ -1,14 +1,16 @@
 """Plain PyTorch versions of the capped-simplex catalog passes.
 
 Counterparts of ``repro.kernels.capped_simplex.kernel``'s ``mass_kernel``
-and ``apply_kernel``.  They compute ``y = f + eta * counts`` with the same
-two roundings as the CUDA kernels, so ``apply`` agrees bit for bit and
-``masses`` up to float32 summation order.
+and ``apply_kernel``, and of the warm projection's whole threshold solve
+(``csrc/mass.cu``'s ``repro_project_warm``).  They compute
+``y = f + eta * counts`` with the same two roundings as the CUDA kernels,
+so ``apply`` agrees bit for bit and ``masses`` up to float32 summation
+order.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -30,3 +32,39 @@ def apply_ref(
     """clip(f + eta * counts - tau, 0, 1)."""
     return torch.clamp(f + eta * counts - tau, 0.0, 1.0)
 
+
+
+def project_warm_tau_ref(
+    f: torch.Tensor,
+    counts: torch.Tensor,
+    eta: torch.Tensor,
+    cap: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    tau0: torch.Tensor,
+    sweeps: int,
+    masses: Callable = masses_ref,
+) -> torch.Tensor:
+    """tau after ``sweeps`` safeguarded Newton steps from clamp(tau0, lo, hi).
+
+    g(tau) = sum(clip(y - tau, 0, 1)) is non-increasing with slope
+    -#{i : 0 < y_i - tau < 1}.  Each sweep is one ``masses`` pass at K = 1,
+    then the bracket shrinks and the Newton point ``tau + (g - C) / count``
+    is taken if it has a count and lies in the bracket, else the midpoint.
+    The safeguard is the reference's: it accepts a point equal to an end of
+    the bracket.  ``masses`` is the plain pass; given the kernel wrapper,
+    this is the projection as it ran before it was one launch.  The scalars
+    are 0-d float32 tensors on f's device.
+    """
+    t = torch.clamp(tau0, lo, hi)
+    for _ in range(sweeps):
+        mass, cnt = masses(f, counts, eta, t.reshape(1))
+        mass, cnt = mass[0], cnt[0]
+        too_much = mass >= cap
+        lo = torch.where(too_much, t, lo)
+        hi = torch.where(too_much, hi, t)
+        t_newton = t + (mass - cap) / torch.clamp(cnt, min=1.0)
+        t_mid = 0.5 * (lo + hi)
+        ok = (cnt > 0.0) & (t_newton >= lo) & (t_newton <= hi)
+        t = torch.where(ok, t_newton, t_mid)
+    return t

@@ -73,11 +73,6 @@ def _entry_mma():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def split_plan(batch: int, kv_heads: int, seq: int, sm_count: int) -> Tuple[int, int]:
     """(n_splits, split_len) of the CUDA-core design: the fewest whole tiles
     a split such that the grid has at most ``BLOCKS_PER_SM * sm_count``
@@ -147,7 +142,7 @@ def grid_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     _build.require(lengths, torch.int32, "lengths", q.device)
-    sms = _sm_count(q.device.index)
+    sms = _build.sm_count(q.device.index)
     if mma:
         n_splits, split_len = mma_grid_plan(B, H, Hkv, S, D, sms)
     else:

@@ -26,8 +26,43 @@
 // us): operations, far below launch latency.  __fdiv_rn/__fsub_rn/__fmul_rn
 // keep nvcc from contracting what the plain PyTorch version rounds twice, so
 // every term is bit for bit the plain version's.
+//
+// repro_solve_buckets: ogb_tree's whole threshold solve in one launch.  The
+// solve bisects `iters` times in rounds of six halvings: a round evaluates
+// the mass at the 63 interior points of a 64-way grid over the bracket and
+// keeps the last point whose mass is at least C and the point after it.  As
+// a bucket_masses launch (two kernels) and ~8 PyTorch ops a round, each
+// round was pure launch latency on an H100 (11 us against a 0.31 us bound).
+// Here:
+//   * one persistent cooperative launch, one block of kSolveThreads per
+//     resident slot (one a SM); a barrier across the grid ends each round
+//     (../../csrc/persistent.cuh);
+//   * the bucket means are computed once and kept in shared memory with the
+//     counts, kChipBuckets a block (0.5 MB for V = 65 536 over 132 blocks),
+//     the empty buckets left out (each adds an exact 0); past that each round
+//     re-reads the counts and sums and recomputes the means, rounded the same
+//     way;
+//   * a block's threads split into 16 slices of its buckets by 64 grid
+//     points (the last idle); each term is the plain version's float32 term,
+//     summed in double per thread and over the slices in order;
+//     a block's 63 partials go to its slots of the (rounds, 63, G) partials;
+//     after the barrier every block sums each point's G partials in one
+//     fixed order, 16 lanes a point with all their loads in flight at once,
+//     so every block holds the same 63 masses and picks the same sub-bracket
+//     on the device, with no second barrier and no host round trip;
+//   * grid points are lo + (hi - lo) * (j / 2^h) with the plain version's
+//     three float32 roundings, and the chosen ends are those same points.
+// Fixed-order double sums rounded once: two runs give the same threshold,
+// bit for bit, and the plain version's wherever no mass rounds to float32 on
+// a tie.
+// Bound of the whole solve on an H100 at V = 65 536 and 30 halvings:
+// counts and sums read once (0.52 MB, 0.16 us) against 2 + 5 * 63
+// operations a bucket a round over 5 rounds (104 M, 1.55 us at 67 TFLOP/s):
+// operations.
 
 #include <cuda_runtime.h>
+
+#include "../../csrc/persistent.cuh"
 
 namespace {
 
@@ -111,4 +146,170 @@ extern "C" int repro_bucket_masses(const void* cnt, const void* total, const voi
   bucket_mass_finish_kernel<<<(unsigned)k, kThreads, 0, s>>>(
       static_cast<const double*>(pmass), blocks, static_cast<float*>(mass));
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The K-way threshold solve in one persistent launch.
+
+namespace {
+
+constexpr int kSolveThreads = 1024;
+constexpr int kSolveHalvings = 6;                        // halvings a round
+constexpr int kSolvePoints = (1 << kSolveHalvings) - 1;  // grid points a round
+constexpr int kSolveSlots = kSolvePoints + 1;            // a thread's point index
+constexpr int kSolveSlices = kSolveThreads / kSolveSlots;  // bucket slices a block
+constexpr int kChipBuckets = 4096;  // buckets a block keeps in shared memory
+constexpr int kPointLanes = 16;     // lanes that sum one point's G partials
+constexpr int kPointUnroll = 9;     // partials a lane loads at once: 16 * 9 >= 132 blocks
+static_assert(kPointLanes * kSolveSlots == kSolveThreads, "a lane group a point");
+
+__device__ __forceinline__ float bucket_mean(float c, float total) {
+  return c > 0.0f ? __fdiv_rn(total, fmaxf(c, 1.0f)) : 0.0f;
+}
+
+// Point j of the 2^h-way grid over [lo, lo + d], rounded as the plain version
+// rounds lo + (hi - lo) * (j / 2^h); j / 2^h is exact, so it is j * 2^-h.
+__device__ __forceinline__ float grid_point(float lo, float d, int j, int h) {
+  return __fadd_rn(lo, __fmul_rn(d, __fmul_rn((float)j, __int_as_float((127 - h) << 23))));
+}
+
+template <bool kOnChip, int kBarrier>
+__global__ void __launch_bounds__(kSolveThreads, 1)
+solve_buckets_kernel(const float* __restrict__ cnt, const float* __restrict__ total,
+                     const float* __restrict__ cap_p, const float* __restrict__ lo_p,
+                     const float* __restrict__ hi_p, long long v, int iters,
+                     double* __restrict__ pmass, unsigned* __restrict__ barrier_count,
+                     float* __restrict__ lo_out) {
+  __shared__ float2 chip[kOnChip ? kChipBuckets : 1];  // (count, mean), non-empty buckets
+  __shared__ int warp_kept[kSolveThreads / 32];
+  __shared__ double slice_sums[kSolveSlices][kSolveSlots];
+  __shared__ float mass[kSolveSlots];
+  const int blocks = gridDim.x;
+  const long long per = (v + blocks - 1) / blocks;
+  const long long b0 = min(v, per * blockIdx.x);
+  int nb = (int)(min(v, b0 + per) - b0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if constexpr (kOnChip) {
+    // keep the block's non-empty buckets, in order: an empty one adds an
+    // exact 0 to every mass (the plain version skips them too), and a value
+    // histogram is mostly empty
+    int kept = 0;
+    for (int i0 = 0; i0 < nb; i0 += kSolveThreads) {
+      const int i = i0 + threadIdx.x;
+      const float c = i < nb ? cnt[b0 + i] : 0.0f;
+      const bool keep = c != 0.0f;
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      if (lane == 0) warp_kept[warp] = __popc(ballot);
+      __syncthreads();
+      int at = kept + __popc(ballot & ((1u << lane) - 1u));
+      for (int w = 0; w < kSolveThreads / 32; ++w) {
+        at += w < warp ? warp_kept[w] : 0;
+        kept += warp_kept[w];
+      }
+      if (keep) chip[at] = make_float2(c, bucket_mean(c, total[b0 + i]));
+      __syncthreads();
+    }
+    nb = kept;
+  }
+  const float cap = *cap_p;
+  float lo = *lo_p, hi = *hi_p;
+  // this thread's grid point j = slot + 1 and its slice of the block's buckets
+  const int slot = threadIdx.x % kSolveSlots, slice = threadIdx.x / kSolveSlots;
+  for (int round = 0, done = 0; done < iters; ++round) {
+    const int h = min(kSolveHalvings, iters - done);
+    done += h;
+    const int points = (1 << h) - 1;
+    const float d = __fsub_rn(hi, lo);
+    const float tau = grid_point(lo, d, slot + 1, h);
+    // the plain version's float32 term for every bucket of the slice, summed
+    // in double (a warp reads one bucket at a time: a broadcast)
+    double acc = 0.0;
+    if (slot < points) {
+      for (int i = slice; i < nb; i += kSolveSlices) {
+        float c, mean;
+        if constexpr (kOnChip) {
+          const float2 e = chip[i];
+          c = e.x;
+          mean = e.y;
+        } else {
+          c = cnt[b0 + i];
+          mean = bucket_mean(c, total[b0 + i]);
+        }
+        acc += (double)__fmul_rn(c, fminf(fmaxf(__fsub_rn(mean, tau), 0.0f), 1.0f));
+      }
+    }
+    slice_sums[slice][slot] = acc;
+    __syncthreads();
+    double* pm = pmass + (long long)round * kSolvePoints * blocks;
+    if (threadIdx.x < points) {
+      double s = 0.0;
+      for (int k = 0; k < kSolveSlices; ++k) s += slice_sums[k][threadIdx.x];
+      pm[(long long)threadIdx.x * blocks + blockIdx.x] = s;
+    }
+    persistent::grid_barrier<kBarrier>(barrier_count, round);
+    // every block: each point's G partials in one fixed order, summed by a
+    // group of kPointLanes lanes with every load in flight at once
+    {
+      const int p = threadIdx.x / kPointLanes, l = threadIdx.x % kPointLanes;
+      const bool mine = p < points;
+      double s = 0.0;
+      for (int g0 = l; g0 < blocks; g0 += kPointLanes * kPointUnroll) {
+        double part[kPointUnroll];
+#pragma unroll
+        for (int u = 0; u < kPointUnroll; ++u) {
+          const int b = g0 + kPointLanes * u;
+          part[u] = mine && b < blocks ? __ldcg(pm + (long long)p * blocks + b) : 0.0;
+        }
+#pragma unroll
+        for (int u = 0; u < kPointUnroll; ++u) s += part[u];
+      }
+      for (int o = kPointLanes / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (mine && l == 0) mass[p] = (float)s;
+    }
+    __syncthreads();
+    // mass is non-increasing in tau: the points with mass >= C come first;
+    // keep the last of them (or lo) and the point after it (or hi)
+    const int above =
+        __popc(__ballot_sync(0xffffffffu, lane < points && mass[lane] >= cap)) +
+        __popc(__ballot_sync(0xffffffffu, lane + 32 < points && mass[lane + 32] >= cap));
+    const float new_lo = above == 0 ? lo : grid_point(lo, d, above, h);
+    hi = above == points ? hi : grid_point(lo, d, above + 1, h);
+    lo = new_lo;
+    // slice_sums was last read before this round's barrier, and mass is
+    // written again only past the next one
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *lo_out = lo;
+}
+
+const void* solve_kernel(int on_chip, int barrier) {
+  if (barrier == persistent::kGridSync) {
+    return on_chip ? (const void*)solve_buckets_kernel<true, persistent::kGridSync>
+                   : (const void*)solve_buckets_kernel<false, persistent::kGridSync>;
+  }
+  return on_chip ? (const void*)solve_buckets_kernel<true, persistent::kArriveCounter>
+                 : (const void*)solve_buckets_kernel<false, persistent::kArriveCounter>;
+}
+
+}  // namespace
+
+// Blocks of the bucket solve that one SM holds at once.
+extern "C" int repro_solve_buckets_occupancy(int on_chip, int barrier, int* blocks_per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, solve_kernel(on_chip, barrier), kSolveThreads, 0);
+}
+
+// pmass holds ceil(iters / 6) * 63 * blocks double partials, barrier_count
+// one word; the wrapper allocates them.  on_chip: the means in shared
+// memory, which needs ceil(v / blocks) <= kChipBuckets.
+extern "C" int repro_solve_buckets(const void* cnt, const void* total, const void* cap,
+                                   const void* lo, const void* hi, long long v, int iters,
+                                   int blocks, int on_chip, int barrier, void* pmass,
+                                   void* barrier_count, void* lo_out, void* stream) {
+  if (blocks < 1 || iters < 0 || (on_chip && (v + blocks - 1) / blocks > kChipBuckets)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  void* args[] = {&cnt, &total, &cap, &lo, &hi, &v, &iters, &pmass, &barrier_count, &lo_out};
+  return persistent::launch(solve_kernel(on_chip, barrier), blocks, kSolveThreads, args, barrier,
+                            static_cast<unsigned*>(barrier_count),
+                            static_cast<cudaStream_t>(stream));
 }

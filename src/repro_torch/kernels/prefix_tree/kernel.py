@@ -1,10 +1,12 @@
 """The prefix-tree block reductions: one tree level, and bucket masses.
 
 Counterpart of ``repro.kernels.prefix_tree.kernel``.  On a CUDA tensor
-:func:`block_segment_sums` launches ``csrc/segsum.cu`` and
-:func:`bucket_masses` ``csrc/bucket_mass.cu``; on a CPU tensor each runs
-its plain version in :mod:`.ref`.  The thresholds stay on the device and
-the kernel reads them by pointer, so no call waits on the host.
+:func:`block_segment_sums` launches ``csrc/segsum.cu``, and
+:func:`bucket_masses` and :func:`solve_buckets` (``ogb_tree``'s whole
+threshold solve, one persistent launch) ``csrc/bucket_mass.cu``; on a CPU
+tensor each runs its plain version in :mod:`.ref`.  The thresholds stay on
+the device and the kernels read them by pointer, so no call waits on the
+host.
 """
 
 from __future__ import annotations
@@ -15,12 +17,22 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.prefix_tree.ref import bucket_masses_ref, segment_sums_ref
+from repro_torch.kernels.capped_simplex.ops import Scalar, as_scalar
+from repro_torch.kernels.prefix_tree.ref import (
+    bucket_masses_ref,
+    segment_sums_ref,
+    solve_buckets_ref,
+    solve_rounds,
+)
 
 #: buckets of one bucket-mass partials block; the grid is capped so that
 #: the finishing block sums at most this many partials
 _MASS_ITEMS_PER_BLOCK = 1024
 _MASS_MAX_BLOCKS = 1024
+#: threads of a solve block, buckets it keeps in shared memory, and the
+#: partials a block writes a round (kSolveThreads, kChipBuckets and
+#: kSolvePoints of csrc/bucket_mass.cu)
+SOLVE_THREADS, SOLVE_CHIP_BUCKETS, SOLVE_POINTS = 1024, 4096, 63
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,6 +49,15 @@ def _bucket_mass_entry():
     fn = _build.library("bucket_mass").repro_bucket_masses
     p = ctypes.c_void_p
     fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _solve_entry():
+    fn = _build.library("bucket_mass").repro_solve_buckets
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, i, i, i, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -92,8 +113,72 @@ def bucket_masses(cnt: torch.Tensor, total: torch.Tensor, taus: torch.Tensor) ->
         ),
         "bucket_masses",
     )
-    bucket_masses.launches += 1
+    _build.counted(bucket_masses, "k-way, partials and finish")
     return mass
 
 
 bucket_masses.launches = 0
+bucket_masses.designs = {}
+
+
+def solve_plan(v: int, iters: int, sms: int, chip_blocks_per_sm: int,
+               stream_blocks_per_sm: int) -> dict:
+    """The persistent bucket solve's launch over ``v`` buckets.
+
+    One block per resident slot: ``sms`` times the blocks an SM holds of the
+    kernel that keeps the buckets' counts and means in shared memory, if each
+    block's share of the ``v`` buckets fits there (``SOLVE_CHIP_BUCKETS``);
+    else of the kernel that re-reads them every round.  ``partials`` is the
+    length of the (rounds, SOLVE_POINTS, blocks) float64 partials buffer."""
+    blocks = sms * chip_blocks_per_sm
+    on_chip = -(-v // blocks) <= SOLVE_CHIP_BUCKETS
+    if not on_chip:
+        blocks = sms * stream_blocks_per_sm
+    rounds = len(solve_rounds(iters))
+    return {"blocks": blocks, "on_chip": on_chip, "rounds": rounds,
+            "partials": rounds * SOLVE_POINTS * blocks,
+            "design": "persistent, means " + ("in shared memory" if on_chip else "re-read from L2")}
+
+
+def solve_buckets(cnt: torch.Tensor, total: torch.Tensor, cap: Scalar, lo: Scalar,
+                  hi: Scalar, iters: int, barrier: str = _build.GRID_SYNC) -> torch.Tensor:
+    """The largest threshold in [lo, hi], to ``iters`` halvings, whose bucket
+    mass over the (V,) counts and sums is at least ``cap``, as
+    :func:`.ref.solve_buckets_ref` finds it; a 0-d float32 tensor.  On the
+    card the whole solve is one persistent launch; ``barrier`` picks its
+    barrier across the grid."""
+    if cnt.dim() != 1 or cnt.shape != total.shape or cnt.numel() == 0:
+        raise ValueError(
+            f"cnt and total must be non-empty 1-D of one shape, got "
+            f"{tuple(cnt.shape)} and {tuple(total.shape)}"
+        )
+    dev = cnt.device
+    cap, lo, hi = (as_scalar(x, dev) for x in (cap, lo, hi))
+    if dev.type == "cpu":
+        return solve_buckets_ref(cnt, total, cap, lo, hi, iters)
+    for t, name in ((cnt, "cnt"), (total, "total"), (cap, "cap"), (lo, "lo"), (hi, "hi")):
+        _build.require(t, torch.float32, name, dev)
+    if barrier not in _build.BARRIERS:
+        raise ValueError(f"unknown barrier {barrier!r}")
+    v = cnt.numel()
+    plan = solve_plan(v, iters, _build.sm_count(dev.index),
+                      *(_build.blocks_per_sm("bucket_mass", "repro_solve_buckets_occupancy",
+                                             dev.index, on_chip, barrier)
+                        for on_chip in (True, False)))
+    pmass = torch.empty(plan["partials"], dtype=torch.float64, device=dev)
+    arrived = torch.empty(1, dtype=torch.int32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    _build.check(
+        _solve_entry()(
+            cnt.data_ptr(), total.data_ptr(), cap.data_ptr(), lo.data_ptr(), hi.data_ptr(), v,
+            iters, plan["blocks"], int(plan["on_chip"]), _build.BARRIERS[barrier],
+            pmass.data_ptr(), arrived.data_ptr(), out.data_ptr(), _build.stream_of(cnt),
+        ),
+        "solve_buckets",
+    )
+    _build.counted(solve_buckets, f"{plan['design']}, {barrier}")
+    return out
+
+
+solve_buckets.launches = 0
+solve_buckets.designs = {}

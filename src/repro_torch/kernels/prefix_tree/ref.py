@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the prefix-tree block reductions.
 
 Counterparts of ``repro.kernels.prefix_tree.kernel``'s ``segsum_kernel``
-and ``bucket_mass_kernel``.  The wrappers in :mod:`.kernel` run these on a
-CPU tensor; on the card ``chip_smoke.py`` and the ``cuda`` tests hold the
-CUDA kernels against them.  Each term is rounded as the kernels round it,
+and ``bucket_mass_kernel``, and of ``ogb_tree``'s whole threshold solve
+over the buckets (``csrc/bucket_mass.cu``'s ``repro_solve_buckets``).  The
+wrappers in :mod:`.kernel` run these on a CPU tensor; on the card
+``chip_smoke.py`` and the ``cuda`` tests hold the CUDA kernels against
+them.  Each term is rounded as the kernels round it,
 so they differ only in summation order: not at all for integer values,
 and for the bucket masses, summed in float64 by both, only where a float64
 sum rounds to float32 on a tie.
@@ -11,7 +13,14 @@ sum rounds to float32 on a tie.
 
 from __future__ import annotations
 
+import functools
+from typing import Callable, List
+
 import torch
+
+#: bisection halvings of the bracket that one round of the threshold solve
+#: resolves (a grid of 2^6 - 1 = 63 interior points)
+HALVINGS_PER_ROUND = 6
 
 
 def segment_sums_ref(values: torch.Tensor, out_size: int, radix: int) -> torch.Tensor:
@@ -34,3 +43,42 @@ def bucket_masses_ref(cnt: torch.Tensor, total: torch.Tensor, taus: torch.Tensor
     mean = torch.where(cnt > 0, total / torch.clamp(cnt, min=1.0), torch.zeros_like(total))
     z = torch.clamp(mean[None, :] - taus[:, None], 0.0, 1.0)
     return (cnt[None, :] * z).sum(dim=1, dtype=torch.float64).to(torch.float32)
+
+
+def solve_rounds(iters: int) -> List[int]:
+    """Halvings of each round of an ``iters``-halving solve: rounds of
+    :data:`HALVINGS_PER_ROUND`, and a last round that takes the remainder."""
+    rounds = [HALVINGS_PER_ROUND] * (iters // HALVINGS_PER_ROUND)
+    if iters % HALVINGS_PER_ROUND:
+        rounds.append(iters % HALVINGS_PER_ROUND)
+    return rounds
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_fractions(halvings: int, device: torch.device) -> torch.Tensor:
+    """j / 2^h for the 2^h - 1 interior points j = 1 .. 2^h - 1 (exact)."""
+    m = 1 << halvings
+    return torch.arange(1, m, dtype=torch.float32, device=device) / m
+
+
+def solve_buckets_ref(cnt: torch.Tensor, total: torch.Tensor, cap: torch.Tensor,
+                      lo: torch.Tensor, hi: torch.Tensor, iters: int,
+                      bucket_masses: Callable = bucket_masses_ref) -> torch.Tensor:
+    """The largest threshold in [lo, hi], to ``iters`` halvings, whose bucket
+    mass is at least ``cap``: the reference's bisection, taken a round of
+    :func:`solve_rounds` at a time.  A round of h halvings evaluates the mass
+    at the 2^h - 1 interior points lo + (hi - lo) * (j / 2^h) and keeps the
+    last point whose mass is at least C (or lo) and the point after it (or
+    hi); in exact arithmetic that is the bracket h bisection steps reach.
+    Requires mass(lo) >= cap; returns lo's counterpart of the final bracket,
+    as the reference does.  ``bucket_masses`` is the plain pass; given the
+    kernel wrapper, this is the solve as it ran before it was one launch.
+    The scalars are 0-d float32 tensors on cnt's device."""
+    for h in solve_rounds(iters):
+        taus = lo + (hi - lo) * _grid_fractions(h, lo.device)
+        mass = bucket_masses(cnt, total, taus)
+        # mass is non-increasing in tau: the points with mass >= C come first
+        c = (mass >= cap).sum().reshape(1)
+        grid = torch.cat([lo.reshape(1), taus, hi.reshape(1)])
+        lo, hi = grid.index_select(0, torch.cat([c, c + 1])).unbind()
+    return lo

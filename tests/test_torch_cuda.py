@@ -7,9 +7,11 @@ the card, run them with
 
 They cover the shapes chip_smoke.py does not: ragged catalog sizes, every
 K around the 8-threshold chunk, ids out of range, and run-to-run
-determinism, of the kernels and of whole ogb_tree replays; and the
-attention kernels at the served models' head shapes in bf16 and f32, and
-the smoke serving engine on the card against the same engine on the CPU.
+determinism, of the kernels and of whole ogb_tree replays; both persistent
+threshold solves (the warm projection and the bucket solve) on each side of
+their on-chip plans and with both grid barriers; and the attention kernels
+at the served models' head shapes in bf16 and f32, and the smoke serving
+engine on the card against the same engine on the CPU.
 """
 
 import numpy as np
@@ -18,15 +20,31 @@ import torch
 
 import repro_torch
 from repro_torch.cachesim.traces import zipf
-from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.capped_simplex.ops import apply, fused_ogb_update, masses
-from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref
+from repro_torch.jaxcache.fractional import warm_bracket_hi
+from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
+from repro_torch.kernels._build import ARRIVE_COUNTER, GRID_SYNC
+from repro_torch.kernels.capped_simplex.ops import (
+    apply,
+    as_scalar,
+    fused_ogb_update,
+    masses,
+    project_warm_tau,
+)
+from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref, project_warm_tau_ref
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
-from repro_torch.kernels.prefix_tree.kernel import block_segment_sums, bucket_masses
-from repro_torch.kernels.prefix_tree.ref import bucket_masses_ref, segment_sums_ref
+from repro_torch.kernels.prefix_tree.kernel import (
+    block_segment_sums,
+    bucket_masses,
+    solve_buckets,
+)
+from repro_torch.kernels.prefix_tree.ref import (
+    bucket_masses_ref,
+    segment_sums_ref,
+    solve_buckets_ref,
+)
 from repro_torch.kernels.scatter_counts.ops import histogram
 from repro_torch.kernels.scatter_counts.ref import histogram_ref
 
@@ -91,7 +109,7 @@ def test_run_on_the_card_matches_the_cpu_and_counts_launches(card):
     pd = repro_torch.policy_def("ogb")
     reset_launch_counts()
     got = repro_torch.run(pd, trace, n, c, window=w)
-    assert launch_counts() == {"histogram": 100, "mass": 500, "apply": 100, "segsum": 0,
+    assert launch_counts() == {"histogram": 100, "mass": 100, "apply": 100, "segsum": 0,
                                "bucket_mass": 0, "flash_prefill": 0, "decode_attention": 0}
     want = repro_torch.run(pd, trace, n, c, window=w, device="cpu")
     np.testing.assert_allclose(got.aux, want.aux, rtol=0, atol=1e-6)
@@ -129,6 +147,115 @@ def test_bucket_masses_match_plain_and_repeat_bit_for_bit(card, v, k):
     assert torch.equal(bucket_masses(cnt, total, taus), got)
 
 
+def _warm_step(n, seed, card):
+    """A projection step of the replay's shape: f feasible-ish around C =
+    n / 20, the counts of n / 10 ids, eta 0.05, lo = 0 and the bracket's hi
+    for that step."""
+    gen = torch.Generator().manual_seed(seed)
+    cap = max(1.0, float(n // 20))
+    f = (torch.rand(n, generator=gen) * (2.0 * cap / n)).clamp(max=1.0).to(card)
+    b = max(1, n // 10)
+    counts = histogram(torch.randint(0, n, (b,), generator=gen, dtype=torch.int32).to(card), n)
+    eta = torch.tensor(0.05, device=card)
+    return f, counts, eta, as_scalar(cap, card), torch.zeros((), device=card), \
+        warm_bracket_hi(eta * float(b))
+
+
+def _held_warm(card, f, counts, eta, cap, lo, hi, tau0, sweeps, barrier=GRID_SYNC):
+    """The persistent projection within 1e-6 of its plain version, and two
+    runs bit for bit; returns the designs it ran."""
+    reset_launch_counts()
+    got = project_warm_tau(f, counts, eta, cap, lo, hi, tau0, sweeps, barrier=barrier)
+    want = project_warm_tau_ref(f, counts, eta, cap, lo, hi, tau0, sweeps)
+    assert got.shape == () and bool(torch.isfinite(got))
+    assert abs(float(got) - float(want)) <= 1e-6
+    assert torch.equal(project_warm_tau(f, counts, eta, cap, lo, hi, tau0, sweeps,
+                                        barrier=barrier), got)
+    assert launch_counts()["mass"] == 2
+    return design_counts()["mass"]
+
+
+@pytest.mark.parametrize("barrier", [GRID_SYNC, ARRIVE_COUNTER])
+@pytest.mark.parametrize("n", [1, 1000, 20_000, 1_000_000, 4_000_000])
+def test_project_warm_tau_matches_plain_on_each_side_of_the_register_plan(card, n, barrier):
+    f, counts, eta, cap, lo, hi = _warm_step(n, n, card)
+    designs = _held_warm(card, f, counts, eta, cap, lo, hi, 0.3 * hi, 5, barrier)
+    where = "in registers" if n <= 1_000_000 else "re-read from L2"
+    assert designs == {f"persistent, y {where}, {barrier}": 2}
+
+
+@pytest.mark.parametrize("sweeps", [1, 5, 25])
+@pytest.mark.parametrize("start", ["lo", "mid", "hi"])
+def test_project_warm_tau_sweeps_and_starts(card, sweeps, start):
+    f, counts, eta, cap, lo, hi = _warm_step(20_000, 7, card)
+    tau0 = {"lo": lo, "mid": 0.5 * hi, "hi": hi}[start]
+    _held_warm(card, f, counts, eta, cap, lo, hi, tau0, sweeps)
+
+
+def test_project_warm_tau_stops_where_the_reference_does_on_its_cycling_instance(card):
+    y = torch.tensor([1.0, 0.5, 1.5, 0.0], device=card)
+    zeros = torch.zeros(4, device=card)
+    one = lambda x: as_scalar(x, card)  # noqa: E731
+    got = project_warm_tau(y, zeros, one(0.5), one(2.0), one(0.0), one(1.0), one(0.5), 25)
+    assert float(got) == 0.0
+    _held_warm(card, y, zeros, one(0.5), one(2.0), one(0.0), one(1.0), one(0.5), 25)
+
+
+def _buckets(v, seed, card):
+    """(V,) bucket counts (70% empty) and sums with means spread over
+    [-1, 2], as a value histogram of y holds them."""
+    gen = torch.Generator().manual_seed(seed)
+    cnt = torch.randint(0, 40, (v,), generator=gen).to(torch.float32)
+    cnt[torch.rand(v, generator=gen) < 0.7] = 0.0
+    cnt[v // 2] = 7.0
+    centre = -1.0 + (torch.arange(v) + torch.rand(v, generator=gen)) * (3.0 / v)
+    return cnt.to(card), (cnt * centre).to(card)
+
+
+@pytest.mark.parametrize("barrier", [GRID_SYNC, ARRIVE_COUNTER])
+@pytest.mark.parametrize("iters", [6, 7, 30])
+@pytest.mark.parametrize("v", [1, 1000, 65536, 1 << 20])
+def test_solve_buckets_equals_plain_bit_for_bit(card, v, iters, barrier):
+    cnt, total = _buckets(v, v + iters, card)
+    cap = as_scalar(0.4 * float(cnt.double().sum()), card)
+    lo, hi = as_scalar(-1.5, card), as_scalar(2.5, card)
+    reset_launch_counts()
+    got = solve_buckets(cnt, total, cap, lo, hi, iters, barrier=barrier)
+    want = solve_buckets_ref(cnt, total, cap, lo, hi, iters)
+    assert got.shape == () and torch.equal(got, want)
+    assert torch.equal(solve_buckets(cnt, total, cap, lo, hi, iters, barrier=barrier), got)
+    where = "in shared memory" if v <= 65536 else "re-read from L2"
+    assert design_counts()["bucket_mass"] == {f"persistent, means {where}, {barrier}": 2}
+    assert launch_counts()["bucket_mass"] == 2
+
+
+@pytest.mark.parametrize("barrier", [GRID_SYNC, ARRIVE_COUNTER])
+def test_persistent_solves_replay_in_a_cuda_graph(card, barrier):
+    """Both cooperative launches can be captured in a CUDA graph (the step
+    of a later replay loop) and replay to the eager results, bit for bit."""
+    f, counts, eta, cap, lo, hi = _warm_step(1_000_000, 11, card)
+    cnt, total = _buckets(65536, 11, card)
+    bcap = as_scalar(0.4 * float(cnt.double().sum()), card)
+    blo, bhi = as_scalar(-1.5, card), as_scalar(2.5, card)
+
+    def step():
+        return (project_warm_tau(f, counts, eta, cap, lo, hi, 0.3 * hi, 5, barrier=barrier),
+                solve_buckets(cnt, total, bcap, blo, bhi, 30, barrier=barrier))
+
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()  # warm up outside the capture (builds, occupancy queries)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
 @pytest.mark.parametrize("batch_hint,chunks", [(4096, 200), (1, 50)])
 def test_ogb_tree_two_runs_equal_bit_for_bit(card, batch_hint, chunks):
     """Two replays on the card agree bit for bit (index_put_ accumulates
@@ -140,7 +267,7 @@ def test_ogb_tree_two_runs_equal_bit_for_bit(card, batch_hint, chunks):
     one = repro_torch.run(pd, trace, n, c, window=w, eta=0.05)
     counts = launch_counts()
     two = repro_torch.run(pd, trace, n, c, window=w, eta=0.05)
-    assert counts["bucket_mass"] == 5 * chunks
+    assert counts["bucket_mass"] == chunks
     reanchors = one.extras["reanchors"]
     assert (reanchors == chunks) if batch_hint == 1 else (reanchors == 0)
     assert counts["segsum"] == 6 * (1 + reanchors)
@@ -171,7 +298,11 @@ def _attention_limit(dtype, want):
 
 
 # (B, H, Hkv, D): glm4-9b, qwen3-14b, gemma-7b, a smoke config, MQA
-DECODE_HEADS = [(8, 32, 2, 128), (8, 40, 8, 128), (4, 16, 16, 256), (2, 8, 2, 16), (3, 16, 1, 64)]
+DECODE_HEADS = [(8, 32, 2, 128), (8, 40, 8, 128), (4, 16, 16, 256), (2, 8, 2, 16), (3, 16, 1, 64),
+                # phi-3-vision's D = 96 (the mma design at a D outside {16, 64, 128,
+                # 256}); q-groups of 32 and 40 (mma_grid_plan's row tiles past 16,
+                # the last one ragged)
+                (4, 32, 32, 96), (2, 64, 2, 128), (2, 40, 1, 64)]
 KINDS = {torch.bfloat16: "bf16", torch.float32: "f32"}
 #: bf16 lengths at serving's S = 2080 around the mma design's edges: its
 #: 64-position tile, its 3-tile ring (refilled from the 4th tile on), the
@@ -215,16 +346,16 @@ def test_decode_attention_matches_plain(card, B, H, Hkv, D, S, dtype, lengths):
 
 
 PREFILL_SHAPES = [(1, 1024, 32, 2, 128), (2, 200, 40, 8, 128), (1, 700, 16, 16, 256), (2, 1, 8, 2, 16),
-                  (2, 65, 8, 2, 16), (1, 512, 4, 1, 64)]
+                  (2, 65, 8, 2, 16), (1, 512, 4, 1, 64), (1, 700, 8, 2, 192)]
 #: bf16 edges of the wgmma design: S around its 64- and 128-row tiles (TMA's
-#: zero fill past S, the diagonal tiles), D = 128 (128-key tiles) and 256
+#: zero fill past S, the diagonal tiles), D = 128 (128-key tiles), 192 and 256
 #: (64-key tiles), groups of 1, 5 and 16 query heads a KV head
 PREFILL_CASES = [
     pytest.param(B, S, H, Hkv, D, dtype, id=f"{B}-{S}-{H}-{Hkv}-{D}-{KINDS[dtype]}")
     for dtype in (torch.bfloat16, torch.float32) for B, S, H, Hkv, D in PREFILL_SHAPES
 ] + [
     pytest.param(1, S, 2 * g, 2, D, torch.bfloat16, id=f"1-{S}-{2 * g}-2-{D}-bf16-edge")
-    for S in (1, 63, 64, 127, 128, 129, 2047, 4000) for D in (128, 256) for g in (1, 5, 16)
+    for S in (1, 63, 64, 127, 128, 129, 2047, 4000) for D in (128, 192, 256) for g in (1, 5, 16)
 ]
 
 
