@@ -17,10 +17,9 @@ script with a non-zero exit:
    the plain version's and a library call's; and the two persistent
    threshold solves the main paths launch (the warm projection, 5 sweeps
    from a mid-run tau, and ogb_tree's bucket solve, 30 halvings over that
-   histogram), each with both grid barriers, cold and warm in L2, beside
-   its whole-solve bound, its plain version and the earlier design (the
-   K-way kernel and PyTorch's scalar ops, a launch at a time), then at a
-   few grids and step counts (what a step of the solve costs);
+   histogram), cold and warm in L2, beside its whole-solve bound, its plain
+   version and the earlier design (the K-way kernel and PyTorch's scalar
+   ops, a launch at a time);
 4. the dense main path: run(policy_def("ogb")) over zipf(0.8) with
    N = 1e6, T = 1e7, C = 50 000, window 1000, every kernel's launches
    counted;
@@ -210,10 +209,53 @@ def time_both(torch, label, kern, flush, reps=50, hold=HOLD_CYCLES):
     return cold, warm
 
 
+def earlier_warm_tau(torch, f, counts, eta, cap, lo, hi, tau0, sweeps):
+    """The warm projection as the main path ran it before it was one launch:
+    a K = 1 masses launch and PyTorch's 0-d ops a sweep (timed in phase 3
+    as the earlier design of the same solve)."""
+    from repro_torch.kernels.capped_simplex.ops import masses
+
+    t = torch.clamp(tau0, lo, hi)
+    for _ in range(sweeps):
+        mass, cnt = masses(f, counts, eta, t.reshape(1))
+        mass, cnt = mass[0], cnt[0]
+        too_much = mass >= cap
+        lo = torch.where(too_much, t, lo)
+        hi = torch.where(too_much, hi, t)
+        t_newton = t + (mass - cap) / torch.clamp(cnt, min=1.0)
+        t_mid = 0.5 * (lo + hi)
+        ok = (cnt > 0.0) & (t_newton >= lo) & (t_newton <= hi)
+        t = torch.where(ok, t_newton, t_mid)
+    return t
+
+
+def earlier_solve(torch, cnt, total, cap, lo, hi, iters):
+    """ogb_tree's bucket solve as its chunk ran it before it was one launch:
+    a K-way bucket_masses launch and PyTorch's bracket ops a round.  Returns
+    the call, with the grid fractions made once, as the chunk cached them."""
+    from repro_torch.kernels.prefix_tree.kernel import bucket_masses
+    from repro_torch.kernels.prefix_tree.ref import solve_rounds
+
+    rounds = solve_rounds(iters)
+    fractions = {h: torch.arange(1, 1 << h, dtype=torch.float32, device=lo.device) / (1 << h)
+                 for h in set(rounds)}
+
+    def call():
+        a, b = lo, hi
+        for h in rounds:
+            taus = a + (b - a) * fractions[h]
+            mass = bucket_masses(cnt, total, taus)
+            c = (mass >= cap).sum().reshape(1)
+            grid = torch.cat([a.reshape(1), taus, b.reshape(1)])
+            a, b = grid.index_select(0, torch.cat([c, c + 1])).unbind()
+        return a
+
+    return call
+
+
 def check_kernels(torch, dev, trace, eta, tau0):
     """Phase 3: each kernel against its plain version, then timings."""
     from repro_torch.jaxcache.fractional import warm_bracket_hi
-    from repro_torch.kernels._build import ARRIVE_COUNTER, GRID_SYNC
     from repro_torch.kernels.capped_simplex.ops import apply, masses, project_warm_tau
     from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref, project_warm_tau_ref
     from repro_torch.kernels.scatter_counts.ops import histogram
@@ -226,6 +268,7 @@ def check_kernels(torch, dev, trace, eta, tau0):
     counts = histogram(ids, N)
     want = histogram_ref(ids, N)
     need(torch.equal(counts, want), "histogram differs from its plain version")
+    hist_err = float((counts - want).abs().max())
     print(f"histogram: exact ({int(counts.gt(0).sum())} distinct ids of {W})")
 
     # Thresholds inside the range of y = f + eta * counts, so that every
@@ -252,7 +295,9 @@ def check_kernels(torch, dev, trace, eta, tau0):
     need(abs(root_mass - C) <= MASS_TOL, f"mass at the root tau is {root_mass}, not C = {C}")
     tau = taus[1][0]
     out = apply(f, counts, eta_t, tau)
-    need(torch.equal(out, apply_ref(f, counts, eta_t, tau)), "apply differs from its plain version")
+    out_ref = apply_ref(f, counts, eta_t, tau)
+    need(torch.equal(out, out_ref), "apply differs from its plain version")
+    apply_err = float((out - out_ref).abs().max())
     kept, total = int(out.gt(0).sum()), float(out.double().sum())
     need(kept > 0 and abs(total - C) <= MASS_TOL, f"apply kept {kept} items, sum {total}, not C")
     print(f"apply: exact ({kept} items above 0, sum {total:.6f}; mass at root {root_mass:.6f})")
@@ -263,23 +308,19 @@ def check_kernels(torch, dev, trace, eta, tau0):
     lo, hi = torch.zeros((), device=dev), warm_bracket_hi(eta_t * float(W))
     tau0_t = torch.tensor(tau0, dtype=torch.float32, device=dev)
     warm = (f, counts, eta_t, cap_t, lo, hi, tau0_t, SWEEPS)
-    proj = {b: project_warm_tau(*warm, barrier=b) for b in (GRID_SYNC, ARRIVE_COUNTER)}
-    for b, t in proj.items():
-        need(torch.equal(project_warm_tau(*warm, barrier=b), t),
-             f"project_warm_tau {b}: two runs differ")
-    need(torch.equal(proj[GRID_SYNC], proj[ARRIVE_COUNTER]),
-         "project_warm_tau: the barriers differ")
-    tau_k = float(proj[GRID_SYNC])
+    proj = project_warm_tau(*warm)
+    need(torch.equal(project_warm_tau(*warm), proj), "project_warm_tau: two runs differ")
+    tau_k = float(proj)
     tau_plain = float(project_warm_tau_ref(*warm))
-    tau_earlier = float(project_warm_tau_ref(*warm, masses=masses))
+    tau_earlier = float(earlier_warm_tau(torch, *warm))
     dtau = abs(tau_k - tau_plain)
     need(math.isfinite(tau_k) and dtau <= 1e-6,
          f"project_warm_tau: |kernel - plain| = {dtau} > 1e-6")
-    warm_mass = float(masses_ref(f, counts, eta_t, proj[GRID_SYNC].reshape(1))[0][0])
+    warm_mass = float(masses_ref(f, counts, eta_t, proj.reshape(1))[0][0])
     print(f"project_warm_tau, {SWEEPS} sweeps from tau0 {tau0:.9e} over [0, {float(hi):.6f}]: "
           f"tau {tau_k:.9e}, plain {tau_plain:.9e} (|d| {dtau:.3e}, limit 1e-6), earlier design "
           f"{tau_earlier:.9e}, float64 root {tau_root:.9e}; plain mass there {warm_mass:.4f} "
-          f"(C = {C}); two runs and both barriers bit for bit")
+          f"(C = {C}); two runs bit for bit")
 
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)  # 256 MB > L2
 
@@ -304,6 +345,7 @@ def check_kernels(torch, dev, trace, eta, tau0):
         # f and counts read, f' written; 5 ops per item
         "apply": bound_ms(12 * N + 8, 5 * N),
     }
+    errors = {"histogram": hist_err, "mass": dtau, "apply": apply_err}
     rows = {}
     for name, (kern, plain, lib) in jobs.items():
         ms = timed_ms(torch, kern, 50, flush)
@@ -312,27 +354,22 @@ def check_kernels(torch, dev, trace, eta, tau0):
         lib_ms = timed_ms(torch, lib, 20, flush) if lib else None
         b, by = bounds[name]
         rows[name] = {"ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": b,
-                      "bound_by": by, "library_ms": lib_ms,
-                      "max_abs_err": dtau if name == "mass" else 0.0}
+                      "bound_by": by, "library_ms": lib_ms, "max_abs_err": errors[name]}
         lib_s = f", library {lib_ms * 1e3:.2f} us" if lib else ""
         print(f"{name}: cold {ms * 1e3:.2f} us, warm in L2 {warm_ms * 1e3:.2f} us "
               f"(plain {plain_ms * 1e3:.2f} us{lib_s}, bound {b * 1e3:.3f} us by {by})")
-    # the projection's other barrier, and the earlier design of the same
-    # solve: SWEEPS K-way mass launches and PyTorch's 0-d ops, a launch at a time
-    other, other_warm = time_both(torch, f"project_warm_tau with the {ARRIVE_COUNTER} barrier",
-                                  lambda: project_warm_tau(*warm, barrier=ARRIVE_COUNTER), flush)
-    # ~70 launches: a longer hold keeps the host's enqueueing out of the time
+    # the earlier design of the same solve: SWEEPS K-way mass launches and
+    # PyTorch's 0-d ops, a launch at a time; ~70 launches, so a longer hold
+    # keeps the host's enqueueing out of the time
     earlier, earlier_warm = time_both(
         torch, f"earlier design: {SWEEPS} x masses (K=1) + 0-d ops",
-        lambda: project_warm_tau_ref(*warm, masses=masses), flush, hold=10 * HOLD_CYCLES)
+        lambda: earlier_warm_tau(torch, *warm), flush, hold=10 * HOLD_CYCLES)
     kway, kway_warm = time_both(torch, "masses K=1 (one K-way pass)",
                                 lambda: masses(f, counts, eta_t, t1), flush)
     rows["mass"].update({
-        "other_barrier": {"barrier": ARRIVE_COUNTER, "ms": other, "warm_ms": other_warm},
         "earlier_design": f"{SWEEPS} x K-way masses + 0-d PyTorch ops",
         "earlier_ms": earlier, "earlier_warm_ms": earlier_warm,
         "kway_k1_ms": kway, "kway_k1_warm_ms": kway_warm, "kway_k1_max_abs_err": errs[1]})
-    sweep_warm(torch, dev, warm, flush)
     t64 = taus[64]
     ms64 = timed_ms(torch, lambda: masses(f, counts, eta_t, t64), 50, flush)
     plain64 = timed_ms(torch, lambda: masses_ref(f, counts, eta_t, t64), 10, flush)
@@ -462,77 +499,9 @@ def bucket_root(cnt, tot, cap, lo, hi):
     return 0.5 * (lo + hi)
 
 
-def sweep_steps(torch, label, launch, grids, steps, flush):
-    """Phase 3, last of each solve: the persistent kernel through its C
-    entry point (no launch counted) at a few grids and step counts, cold and
-    warm in L2: 0 steps is the launch and the prologue alone, and the rest
-    shows what a step costs.  ``launch(blocks, flag, steps)`` returns the
-    call; ``grids`` is [(blocks, flag, name)]."""
-    for blocks, flag, name in grids:
-        times = []
-        for n in steps:
-            cold, warm = (timed_ms(torch, launch(blocks, flag, n), 30, fl) for fl in (flush, None))
-            times.append(f"{n}: {cold * 1e3:.2f} / {warm * 1e3:.2f}")
-        print(f"{label} at {blocks} blocks, {name}; steps: cold / warm us: " + ", ".join(times))
-
-
-def sweep_warm(torch, dev, warm, flush):
-    """The warm projection's step sweep: one block an SM with y in
-    registers (the plan), and with y re-read from L2 at one and at half a
-    block an SM."""
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.capped_simplex import ops
-
-    f, counts, eta, cap, lo, hi, tau0, _ = warm
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch(blocks, resident, sweeps):
-        pmass = torch.empty(max(1, sweeps * blocks), dtype=torch.float64, device=dev)
-        pcnt = torch.empty(max(1, sweeps * blocks), dtype=torch.int32, device=dev)
-        arrived = torch.empty(1, dtype=torch.int32, device=dev)
-        tau = torch.empty((), dtype=torch.float32, device=dev)
-        return lambda: _build.check(ops._warm_entry()(
-            f.data_ptr(), counts.data_ptr(), eta.data_ptr(), cap.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), tau0.data_ptr(), N, sweeps, blocks, int(resident),
-            _build.BARRIERS[_build.GRID_SYNC], pmass.data_ptr(), pcnt.data_ptr(),
-            arrived.data_ptr(), tau.data_ptr(), stream), "project_warm_tau sweep")
-
-    sms = _build.sm_count(dev.index)
-    sweep_steps(torch, "project_warm_tau", launch,
-                [(sms, True, "y in registers [plan]"), (sms, False, "y re-read from L2"),
-                 (sms // 2, False, "y re-read from L2")], (0, 1, 5), flush)
-
-
-def sweep_solve(torch, dev, solve, flush):
-    """The bucket solve's step sweep (rounds of 6 halvings) at one block an
-    SM (the plan), a half and a quarter, the means in shared memory."""
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.prefix_tree import kernel as pk
-
-    cnt, tot, cap, lo, hi, _ = solve
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch(blocks, on_chip, iters):
-        pmass = torch.empty(max(1, -(-iters // 6) * pk.SOLVE_POINTS * blocks),
-                            dtype=torch.float64, device=dev)
-        arrived = torch.empty(1, dtype=torch.int32, device=dev)
-        out = torch.empty((), dtype=torch.float32, device=dev)
-        return lambda: _build.check(pk._solve_entry()(
-            cnt.data_ptr(), tot.data_ptr(), cap.data_ptr(), lo.data_ptr(), hi.data_ptr(), V,
-            iters, blocks, int(on_chip), _build.BARRIERS[_build.GRID_SYNC], pmass.data_ptr(),
-            arrived.data_ptr(), out.data_ptr(), stream), "solve_buckets sweep")
-
-    sms = _build.sm_count(dev.index)
-    sweep_steps(torch, "solve_buckets", launch,
-                [(sms, True, "means in shared memory [plan]"),
-                 (sms // 2, True, "means in shared memory"),
-                 (sms // 4, True, "means in shared memory")], (0, 6, 30), flush)
-
-
 def check_tree_kernels(torch, dev, carry, eta):
     """Phase 3, prefix-tree kernels: segsum and bucket_mass against their
     plain versions on a real mid-run ogb_tree state, then timings."""
-    from repro_torch.kernels._build import ARRIVE_COUNTER, GRID_SYNC
     from repro_torch.kernels.prefix_tree.kernel import (
         block_segment_sums,
         bucket_masses,
@@ -589,20 +558,19 @@ def check_tree_kernels(torch, dev, carry, eta):
     rho, half = float(carry.rho), max(eta * W, 4.0 * float(carry.w))
     lo, hi = (torch.tensor(x, dtype=torch.float32, device=dev) for x in (rho - half, rho + half))
     solve = (cnt, tot, torch.tensor(float(C), device=dev), lo, hi, TREE_ITERS)
-    got = {b: solve_buckets(*solve, barrier=b) for b in (GRID_SYNC, ARRIVE_COUNTER)}
-    for b, t in got.items():
-        need(torch.equal(solve_buckets(*solve, barrier=b), t),
-             f"solve_buckets {b}: two runs differ")
-    need(torch.equal(got[GRID_SYNC], got[ARRIVE_COUNTER]), "solve_buckets: the barriers differ")
+    got = solve_buckets(*solve)
+    need(torch.equal(solve_buckets(*solve), got), "solve_buckets: two runs differ")
     want = solve_buckets_ref(*solve)
-    earlier_lo = solve_buckets_ref(*solve, bucket_masses=bucket_masses)
-    need(torch.equal(got[GRID_SYNC], want), f"solve_buckets {float(got[GRID_SYNC])!r} is not the "
-         f"plain version's {float(want)!r}")
+    earlier = earlier_solve(torch, *solve)
+    earlier_lo = earlier()
+    need(torch.equal(got, want), f"solve_buckets {float(got)!r} is not the plain version's "
+         f"{float(want)!r}")
+    solve_err = float((got - want).abs())
     root = bucket_root(cnt, tot, float(C), float(lo), float(hi))
     print(f"solve_buckets, {TREE_ITERS} halvings over [{float(lo):.6f}, {float(hi):.6f}]: "
-          f"{float(got[GRID_SYNC]):.9e}, equal to the plain version bit for bit (earlier design "
+          f"{float(got):.9e}, equal to the plain version bit for bit (earlier design "
           f"{float(earlier_lo):.9e}, float64 root {root:.9e}, |d| "
-          f"{abs(float(got[GRID_SYNC]) - root):.3e}); two runs and both barriers bit for bit")
+          f"{abs(float(got) - root):.3e}); two runs bit for bit")
 
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
 
@@ -616,15 +584,21 @@ def check_tree_kernels(torch, dev, carry, eta):
                    lambda: f.view(N // 64, 64).sum(1)),
         "bucket_mass": (lambda: solve_buckets(*solve), lambda: solve_buckets_ref(*solve), None),
     }
+    # the whole solve's work follows the histogram: every count read once,
+    # the sums of the non-empty buckets, three scalars read, the threshold
+    # written; 2 + 5K ops a non-empty bucket a round of K = 2^h - 1 points
+    # (an empty bucket adds an exact 0)
+    nnz = int(nz.sum())
+    ops_a_bucket = sum(2 + 5 * ((1 << h) - 1) for h in solve_rounds(TREE_ITERS))
     bounds = {
         # children read once, nodes written once; one add a child
         "segsum": bound_ms(4 * N + 4 * (N // 64), N),
-        # the whole solve: counts and sums read once, three scalars read, the
-        # threshold written; 2 + 5K ops a bucket a round of K = 2^h - 1 points
-        "bucket_mass": bound_ms(8 * V + 3 * 4 + 4,
-                                sum(V * (2 + 5 * ((1 << h) - 1))
-                                    for h in solve_rounds(TREE_ITERS))),
+        "bucket_mass": bound_ms(4 * V + 4 * nnz + 3 * 4 + 4, nnz * ops_a_bucket),
     }
+    dense_b, dense_by = bound_ms(8 * V + 3 * 4 + 4, V * ops_a_bucket)
+    print(f"solve_buckets bound: {nnz} non-empty buckets x {ops_a_bucket} ops; were every "
+          f"bucket non-empty: {dense_b * 1e3:.3f} us by {dense_by}")
+    errors = {"segsum": seg_errs[0], "bucket_mass": solve_err}
     rows = {}
     for name, (kern, plain, lib) in jobs.items():
         ms = timed_ms(torch, kern, 50, flush)
@@ -633,29 +607,23 @@ def check_tree_kernels(torch, dev, carry, eta):
         lib_ms = timed_ms(torch, lib, 20, flush) if lib else None
         b, by = bounds[name]
         rows[name] = {"ms": ms, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": b,
-                      "bound_by": by, "library_ms": lib_ms,
-                      "max_abs_err": seg_errs[0] if name == "segsum" else 0.0}
+                      "bound_by": by, "library_ms": lib_ms, "max_abs_err": errors[name]}
         lib_s = f", library {lib_ms * 1e3:.2f} us" if lib else ""
         print(f"{name}: cold {ms * 1e3:.2f} us, warm in L2 {warm * 1e3:.2f} us "
               f"(plain {plain_ms * 1e3:.2f} us{lib_s}, bound {b * 1e3:.3f} us by {by})")
-    # the solve's other barrier, and the earlier design of the same solve: a
-    # K-way bucket_masses launch and PyTorch's bracket ops a round
+    # the earlier design of the same solve: a K-way bucket_masses launch and
+    # PyTorch's bracket ops a round
     rounds = len(solve_rounds(TREE_ITERS))
-    other, other_warm = time_both(torch, f"solve_buckets with the {ARRIVE_COUNTER} barrier",
-                                  lambda: solve_buckets(*solve, barrier=ARRIVE_COUNTER), flush)
-    earlier, earlier_warm = time_both(
-        torch, f"earlier design: {rounds} x bucket_masses + bracket ops",
-        lambda: solve_buckets_ref(*solve, bucket_masses=bucket_masses), flush,
+    earlier_ms, earlier_warm = time_both(
+        torch, f"earlier design: {rounds} x bucket_masses + bracket ops", earlier, flush,
         hold=10 * HOLD_CYCLES)
     kway, kway_warm = time_both(torch, "bucket_masses K=63 (one K-way pass)",
                                 lambda: bucket_masses(cnt, tot, t63), flush)
     rows["bucket_mass"].update({
-        "other_barrier": {"barrier": ARRIVE_COUNTER, "ms": other, "warm_ms": other_warm},
         "earlier_design": f"{rounds} x K-way bucket_masses + bracket ops",
-        "earlier_ms": earlier, "earlier_warm_ms": earlier_warm,
+        "earlier_ms": earlier_ms, "earlier_warm_ms": earlier_warm,
         "kway_k63_ms": kway, "kway_k63_warm_ms": kway_warm,
         "kway_k63_max_abs_err": mass_errs[63]})
-    sweep_solve(torch, dev, solve, flush)
     small = timed_ms(torch, lambda: block_segment_sums(cnt, V // 64, 64), 50, flush)
     b_small, _ = bound_ms(4 * V + 4 * (V // 64), V)
     t64 = taus[64]

@@ -33,11 +33,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: the barriers across the grid that the persistent solves can take, by the
-#: number their C entry points know them by (kernels/csrc/persistent.cuh)
-GRID_SYNC, ARRIVE_COUNTER = "grid-sync", "arrive-counter"
-BARRIERS = {GRID_SYNC: 0, ARRIVE_COUNTER: 1}
-
 
 def sources() -> Dict[str, Path]:
     """Kernel name (the source's stem) -> path of its ``.cu`` file."""
@@ -120,16 +115,16 @@ def counted(fn, design: str) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def blocks_per_sm(name: str, symbol: str, index: int, variant: bool, barrier: str) -> int:
+def blocks_per_sm(name: str, symbol: str, index: int, variant: bool) -> int:
     """Blocks of a persistent kernel that one SM of CUDA device ``index``
     holds at once, from the occupancy entry point ``symbol`` of library
-    ``name``, for the kernel's ``variant`` and ``barrier``."""
+    ``name``, for the kernel's ``variant``."""
     fn = getattr(library(name), symbol)
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = ctypes.c_int(0)
     with torch.cuda.device(index):
-        check(fn(int(variant), BARRIERS[barrier], ctypes.byref(out)), symbol)
+        check(fn(int(variant), ctypes.byref(out)), symbol)
     return out.value
 
 

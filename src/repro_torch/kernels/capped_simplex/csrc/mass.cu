@@ -190,14 +190,14 @@ __device__ __forceinline__ void add_term(float y, float t, double& m, unsigned& 
   q += (z > 0.0f && z < 1.0f) ? 1u : 0u;
 }
 
-template <bool kResident, int kBarrier>
+template <bool kResident>
 __global__ void __launch_bounds__(kWarmThreads, kWarmBlocksPerSm)
 project_warm_kernel(const float* __restrict__ f, const float* __restrict__ c,
                     const float* __restrict__ eta_p, const float* __restrict__ cap_p,
                     const float* __restrict__ lo_p, const float* __restrict__ hi_p,
                     const float* __restrict__ tau0_p, long long n, int sweeps,
                     double* __restrict__ pmass, unsigned* __restrict__ pcnt,
-                    unsigned* __restrict__ barrier_count, float* __restrict__ tau_out) {
+                    float* __restrict__ tau_out) {
   __shared__ double sm[kWarmWarps];
   __shared__ unsigned sq[kWarmWarps];
   __shared__ float next_t;
@@ -246,7 +246,7 @@ project_warm_kernel(const float* __restrict__ f, const float* __restrict__ c,
         pq[blockIdx.x] = q;
       }
     }
-    persistent::grid_barrier<kBarrier>(barrier_count, s);
+    persistent::grid_barrier();
     // warp 0 sums the G partials in one fixed order, every load in flight
     // at once, takes the Newton step and hands the next tau to the block
     if (warp == 0) {
@@ -287,37 +287,31 @@ project_warm_kernel(const float* __restrict__ f, const float* __restrict__ c,
   if (blockIdx.x == 0 && threadIdx.x == 0) *tau_out = t;
 }
 
-const void* warm_kernel(int resident, int barrier) {
-  if (barrier == persistent::kGridSync) {
-    return resident ? (const void*)project_warm_kernel<true, persistent::kGridSync>
-                    : (const void*)project_warm_kernel<false, persistent::kGridSync>;
-  }
-  return resident ? (const void*)project_warm_kernel<true, persistent::kArriveCounter>
-                  : (const void*)project_warm_kernel<false, persistent::kArriveCounter>;
+const void* warm_kernel(int resident) {
+  return resident ? (const void*)project_warm_kernel<true>
+                  : (const void*)project_warm_kernel<false>;
 }
 
 }  // namespace
 
 // Blocks of the warm projection that one SM holds at once.
-extern "C" int repro_project_warm_occupancy(int resident, int barrier, int* blocks_per_sm) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, warm_kernel(resident, barrier), kWarmThreads, 0);
+extern "C" int repro_project_warm_occupancy(int resident, int* blocks_per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, warm_kernel(resident),
+                                                            kWarmThreads, 0);
 }
 
-// pmass (double) and pcnt hold sweeps * blocks partials, barrier_count one
-// word; the wrapper allocates them.  resident: y in registers, which needs
+// pmass (double) and pcnt hold sweeps * blocks partials; the wrapper
+// allocates them.  resident: y in registers, which needs
 // n <= blocks * kWarmThreads * kWarmItems.
 extern "C" int repro_project_warm(const void* f, const void* c, const void* eta, const void* cap,
                                   const void* lo, const void* hi, const void* tau0, long long n,
-                                  int sweeps, int blocks, int resident, int barrier, void* pmass,
-                                  void* pcnt, void* barrier_count, void* tau, void* stream) {
+                                  int sweeps, int blocks, int resident, void* pmass, void* pcnt,
+                                  void* tau, void* stream) {
   if (blocks < 1 || sweeps < 0 ||
       (resident && n > (long long)blocks * kWarmThreads * kWarmItems)) {
     return (int)cudaErrorInvalidValue;
   }
-  void* args[] = {&f, &c, &eta, &cap, &lo, &hi, &tau0, &n, &sweeps, &pmass, &pcnt,
-                  &barrier_count, &tau};
-  return persistent::launch(warm_kernel(resident, barrier), blocks, kWarmThreads, args, barrier,
-                            static_cast<unsigned*>(barrier_count),
+  void* args[] = {&f, &c, &eta, &cap, &lo, &hi, &tau0, &n, &sweeps, &pmass, &pcnt, &tau};
+  return persistent::launch(warm_kernel(resident), blocks, kWarmThreads, args,
                             static_cast<cudaStream_t>(stream));
 }

@@ -65,7 +65,7 @@ def _mass_entry():
 def _warm_entry():
     fn = _build.library("mass").repro_project_warm
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, p, p, p, p, p]
+    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -143,13 +143,12 @@ def project_warm_tau(
     hi: Scalar,
     tau0: Scalar,
     sweeps: int,
-    barrier: str = _build.GRID_SYNC,
 ) -> torch.Tensor:
     """The warm projection's threshold: ``sweeps`` safeguarded Newton steps
     on g(tau) = sum(clip(f + eta * counts - tau, 0, 1)) = C from
     clamp(tau0, lo, hi), as :func:`.ref.project_warm_tau_ref` takes them;
     a 0-d float32 tensor.  On the card the whole solve is one persistent
-    launch; ``barrier`` picks its barrier across the grid."""
+    launch."""
     _check_catalog(f, counts)
     dev = f.device
     eta, cap, lo, hi, tau0 = (as_scalar(x, dev) for x in (eta, capacity, lo, hi, tau0))
@@ -158,26 +157,22 @@ def project_warm_tau(
     for t, name in ((f, "f"), (counts, "counts"), (eta, "eta"), (cap, "capacity"),
                     (lo, "lo"), (hi, "hi"), (tau0, "tau0")):
         _build.require(t, torch.float32, name, dev)
-    if barrier not in _build.BARRIERS:
-        raise ValueError(f"unknown barrier {barrier!r}")
     n = f.numel()
     plan = warm_plan(n, sweeps, _build.sm_count(dev.index),
                      *(_build.blocks_per_sm("mass", "repro_project_warm_occupancy", dev.index,
-                                            resident, barrier) for resident in (True, False)))
+                                            resident) for resident in (True, False)))
     pmass = torch.empty(plan["partials"], dtype=torch.float64, device=dev)
     pcnt = torch.empty(plan["partials"], dtype=torch.int32, device=dev)
-    arrived = torch.empty(1, dtype=torch.int32, device=dev)
     tau = torch.empty((), dtype=torch.float32, device=dev)
     _build.check(
         _warm_entry()(
             f.data_ptr(), counts.data_ptr(), eta.data_ptr(), cap.data_ptr(), lo.data_ptr(),
             hi.data_ptr(), tau0.data_ptr(), n, sweeps, plan["blocks"], int(plan["resident"]),
-            _build.BARRIERS[barrier], pmass.data_ptr(), pcnt.data_ptr(), arrived.data_ptr(),
-            tau.data_ptr(), _build.stream_of(f),
+            pmass.data_ptr(), pcnt.data_ptr(), tau.data_ptr(), _build.stream_of(f),
         ),
         "project_warm_tau",
     )
-    _build.counted(project_warm_tau, f"{plan['design']}, {barrier}")
+    _build.counted(project_warm_tau, plan["design"])
     return tau
 
 

@@ -10,7 +10,7 @@ order.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Tuple
 
 import torch
 
@@ -33,7 +33,6 @@ def apply_ref(
     return torch.clamp(f + eta * counts - tau, 0.0, 1.0)
 
 
-
 def project_warm_tau_ref(
     f: torch.Tensor,
     counts: torch.Tensor,
@@ -43,7 +42,6 @@ def project_warm_tau_ref(
     hi: torch.Tensor,
     tau0: torch.Tensor,
     sweeps: int,
-    masses: Callable = masses_ref,
 ) -> torch.Tensor:
     """tau after ``sweeps`` safeguarded Newton steps from clamp(tau0, lo, hi).
 
@@ -52,13 +50,11 @@ def project_warm_tau_ref(
     then the bracket shrinks and the Newton point ``tau + (g - C) / count``
     is taken if it has a count and lies in the bracket, else the midpoint.
     The safeguard is the reference's: it accepts a point equal to an end of
-    the bracket.  ``masses`` is the plain pass; given the kernel wrapper,
-    this is the projection as it ran before it was one launch.  The scalars
-    are 0-d float32 tensors on f's device.
+    the bracket.  The scalars are 0-d float32 tensors on f's device.
     """
     t = torch.clamp(tau0, lo, hi)
     for _ in range(sweeps):
-        mass, cnt = masses(f, counts, eta, t.reshape(1))
+        mass, cnt = masses_ref(f, counts, eta, t.reshape(1))
         mass, cnt = mass[0], cnt[0]
         too_much = mass >= cap
         lo = torch.where(too_much, t, lo)

@@ -8,17 +8,12 @@
 // steps.  The launch is cooperative, so the runtime refuses it (and the C
 // entry point returns the error) unless every block fits on the card at once.
 //
-// Two barriers, chosen by the caller at run time (chip_smoke.py phase 3
-// times both):
-//   kGridSync      cooperative_groups' grid sync (CUDA >= 11 needs no -rdc);
-//   kArriveCounter a counter in device memory, zeroed before the launch: a
-//                  block's thread 0 fences its block's writes, adds one
-//                  without waiting for the old value (red) and spins with
-//                  an acquire load until every block of this step has
-//                  arrived.
-// Either way a block reads other blocks' partials only after the barrier and
-// through ld.global.cg (__ldcg), which skips the SM's L1: a line of the
-// partials buffer that an earlier step brought into L1 is never read stale.
+// The barrier is cooperative_groups' grid sync (CUDA >= 11 needs no -rdc).
+// A hand-written arrive counter (one red.add a block and an acquire spin)
+// measured no faster on an H100 (PERF.md), so it is not kept.
+// A block reads other blocks' partials only after the barrier and through
+// ld.global.cg (__ldcg), which skips the SM's L1: a line of the partials
+// buffer that an earlier step brought into L1 is never read stale.
 
 #pragma once
 
@@ -26,8 +21,6 @@
 #include <cuda_runtime.h>
 
 namespace persistent {
-
-enum Barrier : int { kGridSync = 0, kArriveCounter = 1 };
 
 // Butterfly sums: every lane ends with the same value, bit for bit (each
 // step adds the same two operands in every lane of a pair).
@@ -41,34 +34,11 @@ __device__ __forceinline__ unsigned warp_sum(unsigned v) {
   return v;
 }
 
-// Step `step` (0-based) of the solve ends here for every block of the grid.
-template <int kBarrier>
-__device__ __forceinline__ void grid_barrier(unsigned* count, int step) {
-  if constexpr (kBarrier == kGridSync) {
-    cooperative_groups::this_grid().sync();
-  } else {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const unsigned target = (unsigned)(step + 1) * gridDim.x;
-      __threadfence();
-      // fire and forget: the fence before makes it a release
-      asm volatile("red.relaxed.gpu.global.add.u32 [%0], %1;" : : "l"(count), "r"(1u) : "memory");
-      unsigned seen;
-      do {
-        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(count) : "memory");
-      } while (seen < target);
-    }
-    __syncthreads();
-  }
-}
+// Every block of the grid reaches this point before any goes on.
+__device__ __forceinline__ void grid_barrier() { cooperative_groups::this_grid().sync(); }
 
 // Launch `kernel` with all `blocks` resident; returns the launch's error.
-inline int launch(const void* kernel, int blocks, int threads, void** args, int barrier,
-                  unsigned* count, cudaStream_t s) {
-  if (barrier == kArriveCounter) {
-    const cudaError_t e = cudaMemsetAsync(count, 0, sizeof(unsigned), s);
-    if (e != cudaSuccess) return (int)e;
-  }
+inline int launch(const void* kernel, int blocks, int threads, void** args, cudaStream_t s) {
   const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3((unsigned)blocks),
                                                     dim3((unsigned)threads), args, 0, s);
   if (e != cudaSuccess) return (int)e;

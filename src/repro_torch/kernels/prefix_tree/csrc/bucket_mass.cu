@@ -55,10 +55,13 @@
 // Fixed-order double sums rounded once: two runs give the same threshold,
 // bit for bit, and the plain version's wherever no mass rounds to float32 on
 // a tie.
-// Bound of the whole solve on an H100 at V = 65 536 and 30 halvings:
-// counts and sums read once (0.52 MB, 0.16 us) against 2 + 5 * 63
-// operations a bucket a round over 5 rounds (104 M, 1.55 us at 67 TFLOP/s):
-// operations.
+// Bound of the whole solve on an H100 (3.35 TB/s, 67 TFLOP/s float32): the
+// counts read once and the sums of the non-empty buckets, against
+// 2 + 5 * (2^h - 1) operations a non-empty bucket a round of h halvings (an
+// empty one adds an exact 0).  The work follows the histogram: at 30
+// halvings over a mid-run ogb_tree histogram of 65 536 buckets, 23 of them
+// non-empty, the 0.26 MB of counts (0.078 us): bytes; were every bucket
+// non-empty, 104 M operations (1.55 us): operations.
 
 #include <cuda_runtime.h>
 
@@ -173,13 +176,12 @@ __device__ __forceinline__ float grid_point(float lo, float d, int j, int h) {
   return __fadd_rn(lo, __fmul_rn(d, __fmul_rn((float)j, __int_as_float((127 - h) << 23))));
 }
 
-template <bool kOnChip, int kBarrier>
+template <bool kOnChip>
 __global__ void __launch_bounds__(kSolveThreads, 1)
 solve_buckets_kernel(const float* __restrict__ cnt, const float* __restrict__ total,
                      const float* __restrict__ cap_p, const float* __restrict__ lo_p,
                      const float* __restrict__ hi_p, long long v, int iters,
-                     double* __restrict__ pmass, unsigned* __restrict__ barrier_count,
-                     float* __restrict__ lo_out) {
+                     double* __restrict__ pmass, float* __restrict__ lo_out) {
   __shared__ float2 chip[kOnChip ? kChipBuckets : 1];  // (count, mean), non-empty buckets
   __shared__ int warp_kept[kSolveThreads / 32];
   __shared__ double slice_sums[kSolveSlices][kSolveSlots];
@@ -246,7 +248,7 @@ solve_buckets_kernel(const float* __restrict__ cnt, const float* __restrict__ to
       for (int k = 0; k < kSolveSlices; ++k) s += slice_sums[k][threadIdx.x];
       pm[(long long)threadIdx.x * blocks + blockIdx.x] = s;
     }
-    persistent::grid_barrier<kBarrier>(barrier_count, round);
+    persistent::grid_barrier();
     // every block: each point's G partials in one fixed order, summed by a
     // group of kPointLanes lanes with every load in flight at once
     {
@@ -281,35 +283,30 @@ solve_buckets_kernel(const float* __restrict__ cnt, const float* __restrict__ to
   if (blockIdx.x == 0 && threadIdx.x == 0) *lo_out = lo;
 }
 
-const void* solve_kernel(int on_chip, int barrier) {
-  if (barrier == persistent::kGridSync) {
-    return on_chip ? (const void*)solve_buckets_kernel<true, persistent::kGridSync>
-                   : (const void*)solve_buckets_kernel<false, persistent::kGridSync>;
-  }
-  return on_chip ? (const void*)solve_buckets_kernel<true, persistent::kArriveCounter>
-                 : (const void*)solve_buckets_kernel<false, persistent::kArriveCounter>;
+const void* solve_kernel(int on_chip) {
+  return on_chip ? (const void*)solve_buckets_kernel<true>
+                 : (const void*)solve_buckets_kernel<false>;
 }
 
 }  // namespace
 
 // Blocks of the bucket solve that one SM holds at once.
-extern "C" int repro_solve_buckets_occupancy(int on_chip, int barrier, int* blocks_per_sm) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, solve_kernel(on_chip, barrier), kSolveThreads, 0);
+extern "C" int repro_solve_buckets_occupancy(int on_chip, int* blocks_per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, solve_kernel(on_chip),
+                                                            kSolveThreads, 0);
 }
 
-// pmass holds ceil(iters / 6) * 63 * blocks double partials, barrier_count
-// one word; the wrapper allocates them.  on_chip: the means in shared
+// pmass holds ceil(iters / 6) * 63 * blocks double partials; the wrapper
+// allocates it.  on_chip: the means in shared
 // memory, which needs ceil(v / blocks) <= kChipBuckets.
 extern "C" int repro_solve_buckets(const void* cnt, const void* total, const void* cap,
                                    const void* lo, const void* hi, long long v, int iters,
-                                   int blocks, int on_chip, int barrier, void* pmass,
-                                   void* barrier_count, void* lo_out, void* stream) {
+                                   int blocks, int on_chip, void* pmass, void* lo_out,
+                                   void* stream) {
   if (blocks < 1 || iters < 0 || (on_chip && (v + blocks - 1) / blocks > kChipBuckets)) {
     return (int)cudaErrorInvalidValue;
   }
-  void* args[] = {&cnt, &total, &cap, &lo, &hi, &v, &iters, &pmass, &barrier_count, &lo_out};
-  return persistent::launch(solve_kernel(on_chip, barrier), blocks, kSolveThreads, args, barrier,
-                            static_cast<unsigned*>(barrier_count),
+  void* args[] = {&cnt, &total, &cap, &lo, &hi, &v, &iters, &pmass, &lo_out};
+  return persistent::launch(solve_kernel(on_chip), blocks, kSolveThreads, args,
                             static_cast<cudaStream_t>(stream));
 }

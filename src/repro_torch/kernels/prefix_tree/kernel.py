@@ -57,7 +57,7 @@ def _bucket_mass_entry():
 def _solve_entry():
     fn = _build.library("bucket_mass").repro_solve_buckets
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, i, i, i, p, p, p, p]
+    fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, i, i, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -141,12 +141,11 @@ def solve_plan(v: int, iters: int, sms: int, chip_blocks_per_sm: int,
 
 
 def solve_buckets(cnt: torch.Tensor, total: torch.Tensor, cap: Scalar, lo: Scalar,
-                  hi: Scalar, iters: int, barrier: str = _build.GRID_SYNC) -> torch.Tensor:
+                  hi: Scalar, iters: int) -> torch.Tensor:
     """The largest threshold in [lo, hi], to ``iters`` halvings, whose bucket
     mass over the (V,) counts and sums is at least ``cap``, as
     :func:`.ref.solve_buckets_ref` finds it; a 0-d float32 tensor.  On the
-    card the whole solve is one persistent launch; ``barrier`` picks its
-    barrier across the grid."""
+    card the whole solve is one persistent launch."""
     if cnt.dim() != 1 or cnt.shape != total.shape or cnt.numel() == 0:
         raise ValueError(
             f"cnt and total must be non-empty 1-D of one shape, got "
@@ -158,25 +157,22 @@ def solve_buckets(cnt: torch.Tensor, total: torch.Tensor, cap: Scalar, lo: Scala
         return solve_buckets_ref(cnt, total, cap, lo, hi, iters)
     for t, name in ((cnt, "cnt"), (total, "total"), (cap, "cap"), (lo, "lo"), (hi, "hi")):
         _build.require(t, torch.float32, name, dev)
-    if barrier not in _build.BARRIERS:
-        raise ValueError(f"unknown barrier {barrier!r}")
     v = cnt.numel()
     plan = solve_plan(v, iters, _build.sm_count(dev.index),
                       *(_build.blocks_per_sm("bucket_mass", "repro_solve_buckets_occupancy",
-                                             dev.index, on_chip, barrier)
+                                             dev.index, on_chip)
                         for on_chip in (True, False)))
     pmass = torch.empty(plan["partials"], dtype=torch.float64, device=dev)
-    arrived = torch.empty(1, dtype=torch.int32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     _build.check(
         _solve_entry()(
             cnt.data_ptr(), total.data_ptr(), cap.data_ptr(), lo.data_ptr(), hi.data_ptr(), v,
-            iters, plan["blocks"], int(plan["on_chip"]), _build.BARRIERS[barrier],
-            pmass.data_ptr(), arrived.data_ptr(), out.data_ptr(), _build.stream_of(cnt),
+            iters, plan["blocks"], int(plan["on_chip"]), pmass.data_ptr(), out.data_ptr(),
+            _build.stream_of(cnt),
         ),
         "solve_buckets",
     )
-    _build.counted(solve_buckets, f"{plan['design']}, {barrier}")
+    _build.counted(solve_buckets, plan["design"])
     return out
 
 

@@ -14,7 +14,7 @@ sum rounds to float32 on a tie.
 from __future__ import annotations
 
 import functools
-from typing import Callable, List
+from typing import List
 
 import torch
 
@@ -62,8 +62,7 @@ def _grid_fractions(halvings: int, device: torch.device) -> torch.Tensor:
 
 
 def solve_buckets_ref(cnt: torch.Tensor, total: torch.Tensor, cap: torch.Tensor,
-                      lo: torch.Tensor, hi: torch.Tensor, iters: int,
-                      bucket_masses: Callable = bucket_masses_ref) -> torch.Tensor:
+                      lo: torch.Tensor, hi: torch.Tensor, iters: int) -> torch.Tensor:
     """The largest threshold in [lo, hi], to ``iters`` halvings, whose bucket
     mass is at least ``cap``: the reference's bisection, taken a round of
     :func:`solve_rounds` at a time.  A round of h halvings evaluates the mass
@@ -71,12 +70,11 @@ def solve_buckets_ref(cnt: torch.Tensor, total: torch.Tensor, cap: torch.Tensor,
     last point whose mass is at least C (or lo) and the point after it (or
     hi); in exact arithmetic that is the bracket h bisection steps reach.
     Requires mass(lo) >= cap; returns lo's counterpart of the final bracket,
-    as the reference does.  ``bucket_masses`` is the plain pass; given the
-    kernel wrapper, this is the solve as it ran before it was one launch.
-    The scalars are 0-d float32 tensors on cnt's device."""
+    as the reference does.  The scalars are 0-d float32 tensors on cnt's
+    device."""
     for h in solve_rounds(iters):
         taus = lo + (hi - lo) * _grid_fractions(h, lo.device)
-        mass = bucket_masses(cnt, total, taus)
+        mass = bucket_masses_ref(cnt, total, taus)
         # mass is non-increasing in tau: the points with mass >= C come first
         c = (mass >= cap).sum().reshape(1)
         grid = torch.cat([lo.reshape(1), taus, hi.reshape(1)])

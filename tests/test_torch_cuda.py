@@ -9,7 +9,7 @@ They cover the shapes chip_smoke.py does not: ragged catalog sizes, every
 K around the 8-threshold chunk, ids out of range, and run-to-run
 determinism, of the kernels and of whole ogb_tree replays; both persistent
 threshold solves (the warm projection and the bucket solve) on each side of
-their on-chip plans and with both grid barriers; and the attention kernels
+their on-chip plans; and the attention kernels
 at the served models' head shapes in bf16 and f32, and the smoke serving
 engine on the card against the same engine on the CPU.
 """
@@ -22,7 +22,6 @@ import repro_torch
 from repro_torch.cachesim.traces import zipf
 from repro_torch.jaxcache.fractional import warm_bracket_hi
 from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
-from repro_torch.kernels._build import ARRIVE_COUNTER, GRID_SYNC
 from repro_torch.kernels.capped_simplex.ops import (
     apply,
     as_scalar,
@@ -161,27 +160,25 @@ def _warm_step(n, seed, card):
         warm_bracket_hi(eta * float(b))
 
 
-def _held_warm(card, f, counts, eta, cap, lo, hi, tau0, sweeps, barrier=GRID_SYNC):
+def _held_warm(card, f, counts, eta, cap, lo, hi, tau0, sweeps):
     """The persistent projection within 1e-6 of its plain version, and two
     runs bit for bit; returns the designs it ran."""
     reset_launch_counts()
-    got = project_warm_tau(f, counts, eta, cap, lo, hi, tau0, sweeps, barrier=barrier)
+    got = project_warm_tau(f, counts, eta, cap, lo, hi, tau0, sweeps)
     want = project_warm_tau_ref(f, counts, eta, cap, lo, hi, tau0, sweeps)
     assert got.shape == () and bool(torch.isfinite(got))
     assert abs(float(got) - float(want)) <= 1e-6
-    assert torch.equal(project_warm_tau(f, counts, eta, cap, lo, hi, tau0, sweeps,
-                                        barrier=barrier), got)
+    assert torch.equal(project_warm_tau(f, counts, eta, cap, lo, hi, tau0, sweeps), got)
     assert launch_counts()["mass"] == 2
     return design_counts()["mass"]
 
 
-@pytest.mark.parametrize("barrier", [GRID_SYNC, ARRIVE_COUNTER])
 @pytest.mark.parametrize("n", [1, 1000, 20_000, 1_000_000, 4_000_000])
-def test_project_warm_tau_matches_plain_on_each_side_of_the_register_plan(card, n, barrier):
+def test_project_warm_tau_matches_plain_on_each_side_of_the_register_plan(card, n):
     f, counts, eta, cap, lo, hi = _warm_step(n, n, card)
-    designs = _held_warm(card, f, counts, eta, cap, lo, hi, 0.3 * hi, 5, barrier)
+    designs = _held_warm(card, f, counts, eta, cap, lo, hi, 0.3 * hi, 5)
     where = "in registers" if n <= 1_000_000 else "re-read from L2"
-    assert designs == {f"persistent, y {where}, {barrier}": 2}
+    assert designs == {f"persistent, y {where}": 2}
 
 
 @pytest.mark.parametrize("sweeps", [1, 5, 25])
@@ -212,25 +209,23 @@ def _buckets(v, seed, card):
     return cnt.to(card), (cnt * centre).to(card)
 
 
-@pytest.mark.parametrize("barrier", [GRID_SYNC, ARRIVE_COUNTER])
 @pytest.mark.parametrize("iters", [6, 7, 30])
 @pytest.mark.parametrize("v", [1, 1000, 65536, 1 << 20])
-def test_solve_buckets_equals_plain_bit_for_bit(card, v, iters, barrier):
+def test_solve_buckets_equals_plain_bit_for_bit(card, v, iters):
     cnt, total = _buckets(v, v + iters, card)
     cap = as_scalar(0.4 * float(cnt.double().sum()), card)
     lo, hi = as_scalar(-1.5, card), as_scalar(2.5, card)
     reset_launch_counts()
-    got = solve_buckets(cnt, total, cap, lo, hi, iters, barrier=barrier)
+    got = solve_buckets(cnt, total, cap, lo, hi, iters)
     want = solve_buckets_ref(cnt, total, cap, lo, hi, iters)
     assert got.shape == () and torch.equal(got, want)
-    assert torch.equal(solve_buckets(cnt, total, cap, lo, hi, iters, barrier=barrier), got)
+    assert torch.equal(solve_buckets(cnt, total, cap, lo, hi, iters), got)
     where = "in shared memory" if v <= 65536 else "re-read from L2"
-    assert design_counts()["bucket_mass"] == {f"persistent, means {where}, {barrier}": 2}
+    assert design_counts()["bucket_mass"] == {f"persistent, means {where}": 2}
     assert launch_counts()["bucket_mass"] == 2
 
 
-@pytest.mark.parametrize("barrier", [GRID_SYNC, ARRIVE_COUNTER])
-def test_persistent_solves_replay_in_a_cuda_graph(card, barrier):
+def test_persistent_solves_replay_in_a_cuda_graph(card):
     """Both cooperative launches can be captured in a CUDA graph (the step
     of a later replay loop) and replay to the eager results, bit for bit."""
     f, counts, eta, cap, lo, hi = _warm_step(1_000_000, 11, card)
@@ -239,8 +234,8 @@ def test_persistent_solves_replay_in_a_cuda_graph(card, barrier):
     blo, bhi = as_scalar(-1.5, card), as_scalar(2.5, card)
 
     def step():
-        return (project_warm_tau(f, counts, eta, cap, lo, hi, 0.3 * hi, 5, barrier=barrier),
-                solve_buckets(cnt, total, bcap, blo, bhi, 30, barrier=barrier))
+        return (project_warm_tau(f, counts, eta, cap, lo, hi, 0.3 * hi, 5),
+                solve_buckets(cnt, total, bcap, blo, bhi, 30))
 
     eager = step()
     side = torch.cuda.Stream()

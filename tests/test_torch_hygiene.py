@@ -1,7 +1,8 @@
 """The port stands alone: no file of it imports JAX or the JAX package.
 
-Walks the AST of every Python file under src/repro_torch/ and of
-chip_smoke.py, so an import hidden inside a function is found too.
+Walks the AST of every Python file under src/repro_torch/, of
+chip_smoke.py and of the port's sweep script, so an import hidden inside a
+function is found too.
 """
 
 import ast
@@ -10,7 +11,10 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py",
+    ROOT / "tools" / "sweep_threshold_solves.py",
+]
 
 
 def _imported_modules(path):
