@@ -14,15 +14,22 @@ script with a non-zero exit:
    paths' shapes (N = 1e6 items, B = 1000 ids, mass at K = 1 and 64;
    segsum 1e6 -> 15 625 and 65 536 -> 1024, bucket_mass at K = 63 and 64
    over a real mid-run ogb_tree histogram), and its time beside its bound,
-   the plain version's and a library call's; and the two persistent
-   threshold solves the main paths launch (the warm projection, 5 sweeps
-   from a mid-run tau, and ogb_tree's bucket solve, 30 halvings over that
-   histogram), cold and warm in L2, beside its whole-solve bound, its plain
-   version and the earlier design (the K-way kernel and PyTorch's scalar
-   ops, a launch at a time);
+   the plain version's and a library call's; the histogram in both its
+   plans, at the chunk's shape (bin tiles) and at a re-anchor's (id slices:
+   the bucket ids of that mid-run state's y and y - p, 1e6 ids over 65 536
+   buckets), one device kernel a call, and the floor of a time taken this
+   way (one block that writes one float); the standalone apply, and the
+   clip in the warm projection's epilogue (project_warm less
+   project_warm_tau);
+   and the two persistent threshold solves the main paths launch (the warm
+   projection, 5 sweeps from a mid-run tau, and ogb_tree's bucket solve, 30
+   halvings over that histogram), cold and warm in L2, beside its
+   whole-solve bound, its plain version and the earlier design (the K-way
+   kernel and PyTorch's scalar ops, a launch at a time);
 4. the dense main path: run(policy_def("ogb")) over zipf(0.8) with
    N = 1e6, T = 1e7, C = 50 000, window 1000, every kernel's launches
-   counted;
+   counted, the histogram's all bin tiles and the clip's all in the
+   projection's epilogue;
 5. the card against the CPU (the plain versions) over the first 200 chunks;
 6. resume: 2000 chunks in two calls equal one call, bit for bit;
 7. where a chunk's time goes, from torch.profiler over 300 chunks;
@@ -31,7 +38,8 @@ script with a non-zero exit:
    held to the JAX reference's for this trace and eta;
 9. ogb_tree on the card against the CPU over 200 chunks, two runs and a
    resumed run bit for bit, and a re-anchor in every chunk (batch_hint=1:
-   200 chunks on the card, 50 against the CPU);
+   200 chunks on the card, 50 against the CPU), two id-slices histograms
+   a re-anchor;
 10. Madow sampling (madow, madow_tree): 2000 chunks each, occupancy exactly
    C in every chunk, the card against the CPU over 100 chunks;
 11. where an ogb_tree chunk's time goes, from torch.profiler over 300 chunks;
@@ -121,13 +129,13 @@ SOURCES = {
 KERNELS = ("histogram", "mass", "apply", "segsum", "bucket_mass", "flash_prefill",
            "decode_attention")
 #: the one design of each kernel that has one (the others name theirs in
-#: their rows: the attention kernels by design(), the two threshold solves
-#: by the launches of their main path)
-DESIGNS = {
-    "histogram": "zero fill, then one atomic add an id",
-    "apply": "grid-stride elementwise",
-    "segsum": "one warp a node, fixed-order shuffles",
-}
+#: their rows: the attention kernels by design(), the histogram, the clip
+#: and the two threshold solves by the launches of their main path)
+DESIGNS = {"segsum": "one warp a node, fixed-order shuffles"}
+#: the design of the standalone apply kernel, which phase 3 times (the dense
+#: main path's clip is the projection's epilogue)
+APPLY_STANDALONE = "standalone: 16-byte body, 2 float4 of f and c in flight a thread"
+DENSE_KERNELS = 21  # device kernels a dense chunk launches (phase 7)
 NO_ATTENTION = {"flash_prefill": 0, "decode_attention": 0}
 
 
@@ -253,23 +261,88 @@ def earlier_solve(torch, cnt, total, cap, lo, hi, iters):
     return call
 
 
-def check_kernels(torch, dev, trace, eta, tau0):
+def device_kernels(torch, fn):
+    """Device kernels that one fn() call runs, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == cuda and e.self_device_time_total > 0)
+
+
+def check_reanchor_histograms(torch, carry, flush, earlier):
+    """Phase 3, the histogram at a re-anchor's shape: the bucket ids of a
+    mid-run ogb_tree state's y (ycnt) and y - p (dcnt) over V buckets, as
+    the re-anchor of tree_engines makes them, against the plain version,
+    one device kernel a call, timed beside its bound, torch.bincount and
+    ``earlier``, the design it replaced."""
+    from repro_torch.cachesim.tree_engines import _ogb_bucket
+    from repro_torch.kernels.scatter_counts.ops import ID_SLICES, design, histogram
+    from repro_torch.kernels.scatter_counts.ref import histogram_ref
+
+    y = torch.clamp(carry.y - carry.rho, 0.0, 1.0)
+    sets = {"ycnt": _ogb_bucket(y, carry.w, V).to(torch.int32),
+            "dcnt": _ogb_bucket(y - carry.p, carry.w, V).to(torch.int32)}
+    out = {}
+    for label, ids in sets.items():
+        b = ids.numel()
+        need(design(b, V) == ID_SLICES, f"histogram {label}: plan {design(b, V)}, not id slices")
+        got, want = histogram(ids, V), histogram_ref(ids, V)
+        need(torch.equal(got, want), f"histogram {label} differs from its plain version")
+        need(torch.equal(histogram(ids, V), got), f"histogram {label}: two runs differ")
+        kernels = device_kernels(torch, lambda ids=ids: histogram(ids, V))
+        need(kernels == 1, f"histogram {label}: {kernels} device kernels a call, not 1")
+        ms, warm = time_both(torch, f"histogram {label}, {ID_SLICES}",
+                             lambda ids=ids: histogram(ids, V), flush)
+        need(torch.equal(earlier(ids, V), want), f"histogram {label}: the earlier design differs")
+        earlier_ms, earlier_warm = time_both(torch, f"histogram {label}, the earlier design",
+                                             lambda ids=ids: earlier(ids, V), flush)
+        plain = timed_ms(torch, lambda ids=ids: histogram_ref(ids, V), 20, flush)
+        ids64 = ids.long()
+        lib = timed_ms(torch, lambda ids64=ids64: torch.bincount(ids64, minlength=V), 20, flush)
+        bound, by = bound_ms(4 * b + 4 * V, b)
+        nnz, top = int(got.gt(0).sum()), int(got.max())
+        print(f"histogram {label} ({b} ids over {V} buckets, {nnz} non-empty, the largest "
+              f"{top}): exact, 1 device kernel a call; plain {plain * 1e3:.2f} us, "
+              f"torch.bincount {lib * 1e3:.2f} us, bound {bound * 1e3:.3f} us by {by}")
+        out[label] = {"design": ID_SLICES, "ids": b, "bins": V, "non_empty": nnz, "ms": ms,
+                      "warm_ms": warm, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                      "library_ms": lib, "max_abs_err": float((got - want).abs().max()),
+                      "earlier_ms": earlier_ms, "earlier_warm_ms": earlier_warm}
+    return out
+
+
+def check_kernels(torch, dev, trace, eta, tau0, carry):
     """Phase 3: each kernel against its plain version, then timings."""
     from repro_torch.jaxcache.fractional import warm_bracket_hi
-    from repro_torch.kernels.capped_simplex.ops import apply, masses, project_warm_tau
+    from repro_torch.kernels.capped_simplex.ops import (
+        apply,
+        masses,
+        project_warm,
+        project_warm_tau,
+    )
     from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref, project_warm_tau_ref
-    from repro_torch.kernels.scatter_counts.ops import histogram
+    from repro_torch.kernels.scatter_counts.ops import BIN_TILES, design, histogram
     from repro_torch.kernels.scatter_counts.ref import histogram_ref
 
     gen = torch.Generator().manual_seed(1)
     f = (torch.rand(N, generator=gen) * (2.0 * C / N)).to(dev)
     ids = torch.from_numpy(trace[:W].astype("int32")).to(dev)
     eta_t = torch.tensor(eta, dtype=torch.float32, device=dev)
+    need(design(W, N) == BIN_TILES, f"histogram: the chunk's plan is {design(W, N)}")
     counts = histogram(ids, N)
     want = histogram_ref(ids, N)
     need(torch.equal(counts, want), "histogram differs from its plain version")
     hist_err = float((counts - want).abs().max())
-    print(f"histogram: exact ({int(counts.gt(0).sum())} distinct ids of {W})")
+    kernels = device_kernels(torch, lambda: histogram(ids, N))
+    need(kernels == 1, f"histogram: {kernels} device kernels a call, not 1")
+    print(f"histogram, {BIN_TILES}: exact ({int(counts.gt(0).sum())} distinct ids of {W}), "
+          f"1 device kernel a call")
 
     # Thresholds inside the range of y = f + eta * counts, so that every
     # check sees items on each side of the clip: the projection's root for
@@ -321,6 +394,18 @@ def check_kernels(torch, dev, trace, eta, tau0):
           f"tau {tau_k:.9e}, plain {tau_plain:.9e} (|d| {dtau:.3e}, limit 1e-6), earlier design "
           f"{tau_earlier:.9e}, float64 root {tau_root:.9e}; plain mass there {warm_mass:.4f} "
           f"(C = {C}); two runs bit for bit")
+    # the projection with the clip in its epilogue, as the dense main path
+    # calls it: project_warm_tau's tau, and f' the plain clip at it
+    f_new, tau_e = project_warm(*warm)
+    need(torch.equal(tau_e, proj), "project_warm: tau differs from project_warm_tau's")
+    f_want = apply_ref(f, counts, eta_t, tau_e)
+    need(torch.equal(f_new, f_want), "project_warm: f' differs from the plain clip at its tau")
+    need(all(torch.equal(a, b) for a, b in zip(project_warm(*warm), (f_new, tau_e))),
+         "project_warm: two runs differ")
+    epi_err = float((f_new - f_want).abs().max())
+    print(f"project_warm: tau equal to project_warm_tau's, f' equal to the plain clip at it, "
+          f"bit for bit ({int(f_new.gt(0).sum())} items above 0, sum "
+          f"{float(f_new.double().sum()):.6f}); two runs bit for bit")
 
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)  # 256 MB > L2
 
@@ -329,6 +414,8 @@ def check_kernels(torch, dev, trace, eta, tau0):
 
     ids64 = ids.long()
     t1 = taus[1]
+    kernels = device_kernels(torch, lambda: project_warm(*warm))
+    need(kernels == 1, f"project_warm: {kernels} device kernels a call, not 1")
     jobs = {
         "histogram": (lambda: histogram(ids, N), lambda: histogram_ref(ids, N),
                       lambda: torch.bincount(ids64, minlength=N)),
@@ -361,6 +448,39 @@ def check_kernels(torch, dev, trace, eta, tau0):
     # the earlier design of the same solve: SWEEPS K-way mass launches and
     # PyTorch's 0-d ops, a launch at a time; ~70 launches, so a longer hold
     # keeps the host's enqueueing out of the time
+    # the clip in the projection's epilogue: project_warm less
+    # project_warm_tau, both cold, timed one after the other; its bound is
+    # f' written (f and c are read by the solve either way)
+    tau_only, tau_only_warm = time_both(torch, "project_warm_tau (tau alone)",
+                                        lambda: project_warm_tau(*warm), flush)
+    fused, fused_warm = time_both(torch, "project_warm (tau and f' in one launch)",
+                                  lambda: project_warm(*warm), flush)
+    epi_bound, epi_by = bound_ms(4 * N, 3 * N)
+    rows["apply"].update({
+        "timed_design": APPLY_STANDALONE,
+        "epilogue": {"design": "projection epilogue", "ms": fused - tau_only,
+                     "warm_ms": fused_warm - tau_only_warm, "project_warm_ms": fused,
+                     "project_warm_tau_ms": tau_only, "bound_ms": epi_bound, "bound_by": epi_by,
+                     "max_abs_err": epi_err}})
+    print(f"apply in the projection's epilogue: {(fused - tau_only) * 1e3:.2f} us cold, "
+          f"{(fused_warm - tau_only_warm) * 1e3:.2f} us warm (bound {epi_bound * 1e3:.3f} us by "
+          f"{epi_by}: f' written); one launch where the parent launched two")
+    # the design the histogram replaced (a zero fill, then a global atomic
+    # add an id; two launches), built from tools/time_histogram_designs.py
+    from tools.time_histogram_designs import earlier_histogram
+
+    earlier_hist = earlier_histogram()
+    need(torch.equal(earlier_hist(ids, N), counts), "histogram: the earlier design differs")
+    hist_earlier, hist_earlier_warm = time_both(torch, "histogram, the earlier design",
+                                                lambda: earlier_hist(ids, N), flush)
+    rows["histogram"].update({"earlier_design": "zero fill, then a global atomic add an id",
+                              "earlier_ms": hist_earlier, "earlier_warm_ms": hist_earlier_warm})
+    rows["histogram"]["reanchor"] = check_reanchor_histograms(torch, carry, flush, earlier_hist)
+    # the floor of a time taken this way: one block that writes one float
+    none = torch.empty(0, dtype=torch.int32, device=dev)
+    floor, floor_warm = time_both(torch, "floor: histogram of 0 ids over 1 bin, one block",
+                                  lambda: histogram(none, 1), flush)
+    rows["histogram"].update({"floor_ms": floor, "floor_warm_ms": floor_warm})
     earlier, earlier_warm = time_both(
         torch, f"earlier design: {SWEEPS} x masses (K=1) + 0-d ops",
         lambda: earlier_warm_tau(torch, *warm), flush, hold=10 * HOLD_CYCLES)
@@ -400,9 +520,12 @@ def check_main_path(torch, trace, eta):
           f"{res.us_per_request}, wall {res.wall_seconds} s, sum f {f.sum()}, "
           f"eta {res.extras['eta']}, launches {launches}")
     print(f"ogb: {res.us_per_request} us a request at T={T} (at e3b81f4: "
-          f"{EARLIER_US_PER_REQUEST['ogb']}); mass launches by design {designs['mass']}")
+          f"{EARLIER_US_PER_REQUEST['ogb']}); launches by design: mass {designs['mass']}, "
+          f"histogram {designs['histogram']}, apply {designs['apply']}")
     need(res.extras["eta"] == eta, "main path resolved another eta")
     need(launches == want, f"launches {launches}, expected {want}")
+    need(designs["histogram"] == {"bin tiles": m}, f"histogram designs {designs['histogram']}")
+    need(designs["apply"] == {"projection epilogue": m}, f"apply designs {designs['apply']}")
     need(np.all(np.isfinite(res.reward)) and np.all(np.isfinite(res.aux)), "non-finite output")
     need(f.min() >= 0.0 and f.max() <= 1.0, "final f leaves [0, 1]")
     need(abs(f.sum() - C) <= 1e-4 * C, f"sum f = {f.sum()} is not C = {C}")
@@ -468,9 +591,10 @@ def breakdown(torch, trace, eta, kind="ogb"):
     wall_us = plain.wall_seconds * 1e6 / PROFILE_CHUNKS
     prof_wall_us = profiled.wall_seconds * 1e6 / PROFILE_CHUNKS
     need(busy_us > 0, "breakdown: the profiler saw no device time")
+    expected = f" (expected {DENSE_KERNELS})" if kind == "ogb" else ""
     print(f"breakdown {kind}, {PROFILE_CHUNKS} chunks: wall {wall_us:.1f} us/chunk "
           f"(profiled {prof_wall_us:.1f}), device busy {busy_us:.1f} us/chunk, "
-          f"{launches:.1f} device kernels/chunk, device idle share "
+          f"{launches:.1f} device kernels/chunk{expected}, device idle share "
           f"{1 - busy_us / wall_us:.3f} (profiled {1 - busy_us / prof_wall_us:.3f})")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / PROFILE_CHUNKS:8.2f} us/chunk "
@@ -661,6 +785,8 @@ def check_tree_main_path(trace, eta):
           f"{designs['bucket_mass']}")
     need(res.extras["eta"] == eta, "ogb_tree main path resolved another eta")
     need(launches == want, f"ogb_tree launches {launches}, expected {want}")
+    need(designs.get("histogram", {}) == ({"id slices": 2 * reanchors} if reanchors else {}),
+         f"ogb_tree histogram designs {designs.get('histogram')}")
     need(np.all(np.isfinite(res.reward)) and np.all(np.isfinite(res.aux)), "non-finite output")
     need(abs(res.frac_hit_ratio - REF_TREE_FRAC_HIT_RATIO) <= 1e-4,
          f"ogb_tree fractional hit ratio {res.frac_hit_ratio} is not the reference's")
@@ -738,9 +864,10 @@ def check_tree_repeat_and_resume(torch, trace, eta):
 
 def check_reanchor(torch, trace, eta):
     """Phase 9c: batch_hint=1 sizes the value grid for one request a chunk,
-    so at this eta every chunk of 1000 re-anchors."""
+    so at this eta every chunk of 1000 re-anchors.  Returns the histogram's
+    launches by design."""
     from repro_torch import policy_def, run
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
 
     pd = policy_def("ogb_tree", batch_hint=1)
     part = trace[: REANCHOR_CHUNKS * W]
@@ -749,11 +876,14 @@ def check_reanchor(torch, trace, eta):
     one = run(pd, part, N, C, window=W, eta=eta)
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    hist_designs = design_counts()["histogram"]
     two = run(pd, part, N, C, window=W, eta=eta)
     n_re = int(one.extras["reanchors"])
     print(f"forced re-anchor, {REANCHOR_CHUNKS} chunks: re-anchors {n_re}, host syncs "
           f"{one.extras['host_syncs']:.0f}, {wall * 1e3 / REANCHOR_CHUNKS:.2f} ms a chunk, "
-          f"launches {launches}")
+          f"launches {launches}, histogram launches by design {hist_designs}")
+    need(hist_designs == {"id slices": 2 * n_re},
+         f"forced re-anchor histogram designs {hist_designs}")
     need(n_re == REANCHOR_CHUNKS, f"forced re-anchor fired {n_re} times")
     want = {"histogram": 2 * n_re, "mass": 0, "apply": 0, "segsum": 6 * (1 + n_re),
             "bucket_mass": REANCHOR_CHUNKS, **NO_ATTENTION}
@@ -763,6 +893,7 @@ def check_reanchor(torch, trace, eta):
     card = run(pd, short, N, C, window=W, eta=eta)
     cpu = run(pd, short, N, C, window=W, eta=eta, device="cpu")
     _close_to_cpu(card, cpu, f"forced re-anchor card vs CPU, {REANCHOR_CPU_CHUNKS} chunks")
+    return hist_designs
 
 
 def check_madow(trace, eta):
@@ -1284,8 +1415,9 @@ def main() -> int:
     print(f"trace: zipf N={N} T={T} alpha={ALPHA}, {time.perf_counter() - t0:.2f} s")
     eta = theoretical_eta(C, N, T, 1)
 
-    rows = check_kernels(torch, dev, trace, eta, dense_tau(trace, eta))
-    rows.update(check_tree_kernels(torch, dev, tree_state(trace, eta), eta))
+    carry = tree_state(trace, eta)
+    rows = check_kernels(torch, dev, trace, eta, dense_tau(trace, eta), carry)
+    rows.update(check_tree_kernels(torch, dev, carry, eta))
     launches, designs = check_main_path(torch, trace, eta)
     check_card_against_cpu(trace, eta)
     check_resume(torch, trace, eta)
@@ -1293,7 +1425,7 @@ def main() -> int:
     tree_launches, tree_designs = check_tree_main_path(trace, eta)
     check_tree_card_against_cpu(trace, eta)
     check_tree_repeat_and_resume(torch, trace, eta)
-    check_reanchor(torch, trace, eta)
+    reanchor_histograms = check_reanchor(torch, trace, eta)
     madow_segsum = check_madow(trace, eta)
     breakdown(torch, trace, eta, kind="ogb_tree")
     attn_errs = check_attention_kernels(torch, dev)
@@ -1307,7 +1439,10 @@ def main() -> int:
     launches.update({k: tree_launches[k] for k in ("segsum", "bucket_mass")})
     launches.update({k: serve_launches[k] for k in ("flash_prefill", "decode_attention")})
     # the redesigned kernels name the design their main path launched
-    rows["mass"]["design"] = " + ".join(designs["mass"])
+    for name in ("mass", "histogram", "apply"):
+        rows[name]["design"] = " + ".join(designs[name])
+    # the re-anchor's histograms: their launches in phase 9's forced re-anchors
+    rows["histogram"]["reanchor"]["launches_by_design"] = reanchor_histograms
     rows["bucket_mass"]["design"] = " + ".join(tree_designs["bucket_mass"])
     for name, design in DESIGNS.items():
         rows[name]["design"] = design

@@ -4,8 +4,9 @@ Counterpart of ``repro.cachesim.replay`` (``sampling_keys``,
 ``sample_chunk_metrics`` and ``_make_ogb_step``).  The reference scans this
 step inside one ``lax.scan``; here :func:`repro_torch.cachesim.api.run`
 calls it once per chunk from a Python loop.  Every catalog-sized pass of
-the step is a hand-written kernel on the card: the histogram, one mass pass
-per Newton sweep, and the final clip; ``madow_tree`` adds one segsum per
+the step is a hand-written kernel on the card: the histogram, and the warm
+projection's Newton sweeps with the final clip in one launch (bisection:
+one mass pass a step, then the clip); ``madow_tree`` adds one segsum per
 tree level for its sample.
 """
 

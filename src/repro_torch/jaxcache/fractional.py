@@ -10,10 +10,11 @@ a catalog of N items (paper Eq. 2 / §5.3):
 
 Unlike the reference, the projections here take ``(f, counts, eta)`` as the
 kernels do and never store y: each bisection step is one launch of
-:func:`repro_torch.kernels.capped_simplex.ops.masses`, the warm projection's
-whole solve is one launch of
-:func:`~repro_torch.kernels.capped_simplex.ops.project_warm_tau`, and the
-final clip is one :func:`~repro_torch.kernels.capped_simplex.ops.apply`.
+:func:`repro_torch.kernels.capped_simplex.ops.masses` and its final clip one
+:func:`~repro_torch.kernels.capped_simplex.ops.apply`; the warm projection's
+whole solve and its final clip are one launch of
+:func:`~repro_torch.kernels.capped_simplex.ops.project_warm`, f' written
+from the y the solve keeps in registers.
 Scalars stay 0-d tensors on the device, so a projection never waits on the
 host.
 """
@@ -29,7 +30,7 @@ from repro_torch.kernels.capped_simplex.ops import (
     apply,
     as_scalar,
     masses,
-    project_warm_tau,
+    project_warm,
 )
 from repro_torch.kernels.scatter_counts.ops import histogram
 
@@ -98,17 +99,16 @@ def capped_simplex_project_warm(
     -#{i : 0 < y_i - tau < 1}.  Each sweep is one mass pass, then the
     bracket shrinks and the Newton point ``tau + (g - C) / count`` is taken
     if it has a count and lies in the bracket, else the midpoint; on the
-    card all ``sweeps`` are one :func:`project_warm_tau` launch, then one
-    :func:`apply`.  Requires g(lo) >= C >= g(hi); for an OGB step lo = 0,
-    hi = warm_bracket_hi(eta * B) always holds, and ``tau0`` = the previous
-    step's tau is a good seed.
+    card all ``sweeps`` and the final clip are one :func:`project_warm`
+    launch, f' written in its epilogue.  Requires g(lo) >= C >= g(hi); for
+    an OGB step lo = 0, hi = warm_bracket_hi(eta * B) always holds, and
+    ``tau0`` = the previous step's tau is a good seed.
 
     The safeguard is the reference's: it accepts a Newton point equal to an
     end of the bracket, so, as in ``repro``, the iterate can alternate
     between the two ends on some instances and stop at an infeasible tau.
     """
-    t = project_warm_tau(f, counts, eta, capacity, lo, hi, tau0, sweeps)
-    return apply(f, counts, eta, t), t
+    return project_warm(f, counts, eta, capacity, lo, hi, tau0, sweeps)
 
 
 def poisson_sample(f: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

@@ -2,14 +2,17 @@
 
 Each wrapper counts its launches in a plain integer attribute
 (``histogram.launches``, ``masses.launches``, ``project_warm_tau.launches``,
-``apply.launches``, ``block_segment_sums.launches``,
+``project_warm.launches``, ``apply.launches``, ``block_segment_sums.launches``,
 ``bucket_masses.launches``, ``solve_buckets.launches``,
 ``flash_prefill.launches``, ``decode_attention.launches``), so a run can show
 that it went through the kernels.  :func:`launch_counts` reads them by
 kernel source (the warm projection counts as ``mass``, the bucket solve as
-``bucket_mass``), :func:`design_counts` reads the launches by design of the
-wrappers that keep them (a ``designs`` dict), and :func:`reset_launch_counts`
-sets both to 0.
+``bucket_mass``); ``apply`` counts the clip's executions, so a
+``project_warm`` launch, whose epilogue is the clip, counts once as ``mass``
+and once as ``apply`` (design ``"projection epilogue"``).
+:func:`design_counts` reads the launches by design of the wrappers that
+keep them (a ``designs`` dict), summed over a kernel's wrappers, and
+:func:`reset_launch_counts` sets both to 0.
 """
 
 from __future__ import annotations
@@ -18,7 +21,12 @@ from typing import Dict
 
 
 def _wrappers():
-    from repro_torch.kernels.capped_simplex.ops import apply, masses, project_warm_tau
+    from repro_torch.kernels.capped_simplex.ops import (
+        apply,
+        masses,
+        project_warm,
+        project_warm_tau,
+    )
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.prefix_tree.kernel import (
@@ -30,7 +38,7 @@ def _wrappers():
 
     return {
         "histogram": (histogram,),
-        "mass": (masses, project_warm_tau),
+        "mass": (masses, project_warm_tau, project_warm),
         "apply": (apply,),
         "segsum": (block_segment_sums,),
         "bucket_mass": (bucket_masses, solve_buckets),
@@ -51,7 +59,8 @@ def design_counts() -> Dict[str, Dict[str, int]]:
     for name, fns in _wrappers().items():
         for fn in fns:
             for design, n in getattr(fn, "designs", {}).items():
-                out.setdefault(name, {})[design] = n
+                by_design = out.setdefault(name, {})
+                by_design[design] = by_design.get(design, 0) + n
     return out
 
 

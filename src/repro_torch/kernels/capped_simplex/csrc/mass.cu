@@ -48,10 +48,20 @@
 //     (__fsub_rn, __fdiv_rn, __fadd_rn, 0.5f * __fadd_rn(lo, hi)) and its
 //     safeguard, which accepts an end of the bracket.
 // Fixed-order sums and integer counts: two runs give the same tau, bit for
-// bit.  It writes tau only; apply.cu writes f'.
+// bit.
 // Bound of the whole solve on an H100: f and c read once, 8 B an item
 // (2.39 us at n = 1e6), against 9 operations an item a sweep (5 sweeps:
 // 0.67 us at 67 TFLOP/s): bytes.
+//
+// The epilogue: given an output `out`, the kernel also writes the
+// projection's f' = clip(y - tau, 0, 1) at the final tau, which every block
+// already holds after the last sweep, so it needs no further barrier.  In
+// the resident plan y comes from registers and f and c are not read again;
+// the streaming plan reads them once more.  The roundings are apply.cu's, so
+// f' is bit for bit apply's at that tau; the solve itself is the same with
+// or without it.  With out == nullptr (project_warm_tau) it writes tau only.
+// Bound with the epilogue: f and c read once and f' written, 12 B an item
+// (3.58 us at n = 1e6).
 
 #include <cuda_runtime.h>
 
@@ -197,7 +207,7 @@ project_warm_kernel(const float* __restrict__ f, const float* __restrict__ c,
                     const float* __restrict__ lo_p, const float* __restrict__ hi_p,
                     const float* __restrict__ tau0_p, long long n, int sweeps,
                     double* __restrict__ pmass, unsigned* __restrict__ pcnt,
-                    float* __restrict__ tau_out) {
+                    float* __restrict__ tau_out, float* __restrict__ out) {
   __shared__ double sm[kWarmWarps];
   __shared__ unsigned sq[kWarmWarps];
   __shared__ float next_t;
@@ -285,6 +295,19 @@ project_warm_kernel(const float* __restrict__ f, const float* __restrict__ c,
     t = next_t;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) *tau_out = t;
+  if (out == nullptr) return;
+  if constexpr (kResident) {
+#pragma unroll
+    for (int j = 0; j < kWarmItems; ++j) {
+      const long long i = first + j * stride;
+      if (i < n) out[i] = fminf(fmaxf(__fsub_rn(y[j], t), 0.0f), 1.0f);
+    }
+  } else {
+    for (long long i = first; i < n; i += stride) {
+      const float z = __fsub_rn(__fadd_rn(f[i], __fmul_rn(eta, c[i])), t);
+      out[i] = fminf(fmaxf(z, 0.0f), 1.0f);
+    }
+  }
 }
 
 const void* warm_kernel(int resident) {
@@ -302,16 +325,17 @@ extern "C" int repro_project_warm_occupancy(int resident, int* blocks_per_sm) {
 
 // pmass (double) and pcnt hold sweeps * blocks partials; the wrapper
 // allocates them.  resident: y in registers, which needs
-// n <= blocks * kWarmThreads * kWarmItems.
+// n <= blocks * kWarmThreads * kWarmItems.  out: n floats for f', or null
+// for tau alone.
 extern "C" int repro_project_warm(const void* f, const void* c, const void* eta, const void* cap,
                                   const void* lo, const void* hi, const void* tau0, long long n,
                                   int sweeps, int blocks, int resident, void* pmass, void* pcnt,
-                                  void* tau, void* stream) {
+                                  void* tau, void* out, void* stream) {
   if (blocks < 1 || sweeps < 0 ||
       (resident && n > (long long)blocks * kWarmThreads * kWarmItems)) {
     return (int)cudaErrorInvalidValue;
   }
-  void* args[] = {&f, &c, &eta, &cap, &lo, &hi, &tau0, &n, &sweeps, &pmass, &pcnt, &tau};
+  void* args[] = {&f, &c, &eta, &cap, &lo, &hi, &tau0, &n, &sweeps, &pmass, &pcnt, &tau, &out};
   return persistent::launch(warm_kernel(resident), blocks, kWarmThreads, args,
                             static_cast<cudaStream_t>(stream));
 }

@@ -4,7 +4,8 @@ Counterpart of ``repro.kernels.capped_simplex.ops``.  ``masses`` and
 ``apply`` launch ``csrc/mass.cu`` and ``csrc/apply.cu`` on a CUDA tensor and
 run the plain versions of :mod:`.ref` on a CPU tensor; ``project_warm_tau``
 launches the warm projection's whole threshold solve, one persistent
-launch of ``csrc/mass.cu``.  Scalars (``eta``, the thresholds, ``tau``) stay
+launch of ``csrc/mass.cu``, and ``project_warm`` the same launch with the
+final clip in its epilogue.  Scalars (``eta``, the thresholds, ``tau``) stay
 on the device and the kernels read them by pointer, so no call waits on the
 host.
 """
@@ -18,7 +19,12 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref, project_warm_tau_ref
+from repro_torch.kernels.capped_simplex.ref import (
+    apply_ref,
+    masses_ref,
+    project_warm_ref,
+    project_warm_tau_ref,
+)
 
 Scalar = Union[float, torch.Tensor]
 
@@ -29,6 +35,7 @@ _MASS_MAX_BLOCKS = 1024
 #: threads of a warm-projection block and items of y each keeps in
 #: registers (kWarmThreads and kWarmItems of csrc/mass.cu)
 WARM_THREADS, WARM_ITEMS = 1024, 8
+STANDALONE, EPILOGUE = "standalone", "projection epilogue"
 
 
 def as_scalar(x: Scalar, device: torch.device) -> torch.Tensor:
@@ -65,7 +72,7 @@ def _mass_entry():
 def _warm_entry():
     fn = _build.library("mass").repro_project_warm
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p, p, p, p]
+    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -74,7 +81,7 @@ def _warm_entry():
 def _apply_entry():
     fn = _build.library("apply").repro_apply
     p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, ctypes.c_longlong, p, p]
+    fn.argtypes = [p, p, p, p, ctypes.c_longlong, p, ctypes.c_int, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -134,6 +141,37 @@ def warm_plan(n: int, sweeps: int, sms: int, resident_blocks_per_sm: int,
             "design": "persistent, y " + ("in registers" if resident else "re-read from L2")}
 
 
+def _warm_scalars(f, counts, eta, capacity, lo, hi, tau0) -> tuple:
+    _check_catalog(f, counts)
+    return tuple(as_scalar(x, f.device) for x in (eta, capacity, lo, hi, tau0))
+
+
+def _launch_warm(f: torch.Tensor, counts: torch.Tensor, scalars: tuple, sweeps: int,
+                 out: Optional[torch.Tensor]) -> Tuple[torch.Tensor, str]:
+    """One persistent launch of the warm projection (its epilogue writes
+    ``out`` unless it is None); returns tau and the plan's design."""
+    dev = f.device
+    for t, name in zip((f, counts) + scalars,
+                       ("f", "counts", "eta", "capacity", "lo", "hi", "tau0")):
+        _build.require(t, torch.float32, name, dev)
+    n = f.numel()
+    plan = warm_plan(n, sweeps, _build.sm_count(dev.index),
+                     *(_build.blocks_per_sm("mass", "repro_project_warm_occupancy", dev.index,
+                                            resident) for resident in (True, False)))
+    pmass = torch.empty(plan["partials"], dtype=torch.float64, device=dev)
+    pcnt = torch.empty(plan["partials"], dtype=torch.int32, device=dev)
+    tau = torch.empty((), dtype=torch.float32, device=dev)
+    _build.check(
+        _warm_entry()(
+            f.data_ptr(), counts.data_ptr(), *(x.data_ptr() for x in scalars), n, sweeps,
+            plan["blocks"], int(plan["resident"]), pmass.data_ptr(), pcnt.data_ptr(),
+            tau.data_ptr(), None if out is None else out.data_ptr(), _build.stream_of(f),
+        ),
+        "project_warm",
+    )
+    return tau, plan["design"]
+
+
 def project_warm_tau(
     f: torch.Tensor,
     counts: torch.Tensor,
@@ -149,30 +187,11 @@ def project_warm_tau(
     clamp(tau0, lo, hi), as :func:`.ref.project_warm_tau_ref` takes them;
     a 0-d float32 tensor.  On the card the whole solve is one persistent
     launch."""
-    _check_catalog(f, counts)
-    dev = f.device
-    eta, cap, lo, hi, tau0 = (as_scalar(x, dev) for x in (eta, capacity, lo, hi, tau0))
-    if dev.type == "cpu":
-        return project_warm_tau_ref(f, counts, eta, cap, lo, hi, tau0, sweeps)
-    for t, name in ((f, "f"), (counts, "counts"), (eta, "eta"), (cap, "capacity"),
-                    (lo, "lo"), (hi, "hi"), (tau0, "tau0")):
-        _build.require(t, torch.float32, name, dev)
-    n = f.numel()
-    plan = warm_plan(n, sweeps, _build.sm_count(dev.index),
-                     *(_build.blocks_per_sm("mass", "repro_project_warm_occupancy", dev.index,
-                                            resident) for resident in (True, False)))
-    pmass = torch.empty(plan["partials"], dtype=torch.float64, device=dev)
-    pcnt = torch.empty(plan["partials"], dtype=torch.int32, device=dev)
-    tau = torch.empty((), dtype=torch.float32, device=dev)
-    _build.check(
-        _warm_entry()(
-            f.data_ptr(), counts.data_ptr(), eta.data_ptr(), cap.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), tau0.data_ptr(), n, sweeps, plan["blocks"], int(plan["resident"]),
-            pmass.data_ptr(), pcnt.data_ptr(), tau.data_ptr(), _build.stream_of(f),
-        ),
-        "project_warm_tau",
-    )
-    _build.counted(project_warm_tau, plan["design"])
+    scalars = _warm_scalars(f, counts, eta, capacity, lo, hi, tau0)
+    if f.device.type == "cpu":
+        return project_warm_tau_ref(f, counts, *scalars, sweeps)
+    tau, plan = _launch_warm(f, counts, scalars, sweeps, None)
+    _build.counted(project_warm_tau, plan)
     return tau
 
 
@@ -180,8 +199,39 @@ project_warm_tau.launches = 0
 project_warm_tau.designs = {}
 
 
+def project_warm(
+    f: torch.Tensor,
+    counts: torch.Tensor,
+    eta: Scalar,
+    capacity: Scalar,
+    lo: Scalar,
+    hi: Scalar,
+    tau0: Scalar,
+    sweeps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(f', tau): :func:`project_warm_tau`'s tau and f' = clip(f + eta *
+    counts - tau, 0, 1) at it, as :func:`.ref.project_warm_ref` gives them.
+    On the card both come from one launch, f' from the solve's epilogue; it
+    counts as a ``mass`` launch and as an ``apply`` (the clip), by the
+    design ``"projection epilogue"``."""
+    scalars = _warm_scalars(f, counts, eta, capacity, lo, hi, tau0)
+    if f.device.type == "cpu":
+        return project_warm_ref(f, counts, *scalars, sweeps)
+    out = torch.empty_like(f)
+    tau, plan = _launch_warm(f, counts, scalars, sweeps, out)
+    _build.counted(project_warm, plan)
+    _build.counted(apply, EPILOGUE)
+    return out, tau
+
+
+project_warm.launches = 0
+project_warm.designs = {}
+
+
 def apply(f: torch.Tensor, counts: torch.Tensor, eta: Scalar, tau: Scalar) -> torch.Tensor:
-    """f' = clip(f + eta * counts - tau, 0, 1), into a new tensor."""
+    """f' = clip(f + eta * counts - tau, 0, 1), into a new tensor.  On the
+    card f' is given f's offset modulo 16 bytes, so a view of f and counts
+    that starts mid-vector still takes the kernel's 16-byte body."""
     _check_catalog(f, counts)
     eta = as_scalar(eta, f.device)
     tau = as_scalar(tau, f.device)
@@ -189,19 +239,22 @@ def apply(f: torch.Tensor, counts: torch.Tensor, eta: Scalar, tau: Scalar) -> to
         return apply_ref(f, counts, eta, tau)
     for t, name in ((f, "f"), (counts, "counts"), (eta, "eta"), (tau, "tau")):
         _build.require(t, torch.float32, name, f.device)
-    out = torch.empty_like(f)
+    n = f.numel()
+    shift = f.data_ptr() % 16 // 4
+    out = torch.empty(n + shift, dtype=torch.float32, device=f.device)[shift:]
     _build.check(
         _apply_entry()(
-            f.data_ptr(), counts.data_ptr(), eta.data_ptr(), tau.data_ptr(),
-            f.numel(), out.data_ptr(), _build.stream_of(f),
+            f.data_ptr(), counts.data_ptr(), eta.data_ptr(), tau.data_ptr(), n,
+            out.data_ptr(), _build.sm_count(f.device.index), _build.stream_of(f),
         ),
         "apply",
     )
-    apply.launches += 1
+    _build.counted(apply, STANDALONE)
     return out
 
 
 apply.launches = 0
+apply.designs = {}
 
 
 def fused_ogb_update(

@@ -2,7 +2,7 @@
 
 Counterparts of ``repro.kernels.capped_simplex.kernel``'s ``mass_kernel``
 and ``apply_kernel``, and of the warm projection's whole threshold solve
-(``csrc/mass.cu``'s ``repro_project_warm``).  They compute
+and its epilogue (``csrc/mass.cu``'s ``repro_project_warm``).  They compute
 ``y = f + eta * counts`` with the same two roundings as the CUDA kernels,
 so ``apply`` agrees bit for bit and ``masses`` up to float32 summation
 order.
@@ -64,3 +64,19 @@ def project_warm_tau_ref(
         ok = (cnt > 0.0) & (t_newton >= lo) & (t_newton <= hi)
         t = torch.where(ok, t_newton, t_mid)
     return t
+
+
+def project_warm_ref(
+    f: torch.Tensor,
+    counts: torch.Tensor,
+    eta: torch.Tensor,
+    cap: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    tau0: torch.Tensor,
+    sweeps: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(f', tau): :func:`project_warm_tau_ref`'s tau and :func:`apply_ref`
+    at it."""
+    tau = project_warm_tau_ref(f, counts, eta, cap, lo, hi, tau0, sweeps)
+    return apply_ref(f, counts, eta, tau), tau

@@ -1,9 +1,10 @@
-// Building blocks of the persistent threshold solves, shared by
-// capped_simplex/csrc/mass.cu (the warm projection) and
-// prefix_tree/csrc/bucket_mass.cu (the bucket threshold solve).
+// Building blocks of the persistent kernels, shared by
+// capped_simplex/csrc/mass.cu (the warm projection),
+// prefix_tree/csrc/bucket_mass.cu (the bucket threshold solve) and
+// scatter_counts/csrc/histogram.cu (the id-slices histogram).
 //
-// A persistent solve is one launch whose blocks all stay resident for the
-// whole solve: each step of the solve reduces over every block, then every
+// A persistent kernel is one launch whose blocks all stay resident for the
+// whole call: each step of a solve reduces over every block, then every
 // block reads the same partials, so a barrier across the grid separates the
 // steps.  The launch is cooperative, so the runtime refuses it (and the C
 // entry point returns the error) unless every block fits on the card at once.
@@ -37,10 +38,12 @@ __device__ __forceinline__ unsigned warp_sum(unsigned v) {
 // Every block of the grid reaches this point before any goes on.
 __device__ __forceinline__ void grid_barrier() { cooperative_groups::this_grid().sync(); }
 
-// Launch `kernel` with all `blocks` resident; returns the launch's error.
-inline int launch(const void* kernel, int blocks, int threads, void** args, cudaStream_t s) {
+// Launch `kernel` with all `blocks` resident, each with `smem` bytes of
+// dynamic shared memory; returns the launch's error.
+inline int launch(const void* kernel, int blocks, int threads, void** args, cudaStream_t s,
+                  size_t smem = 0) {
   const cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3((unsigned)blocks),
-                                                    dim3((unsigned)threads), args, 0, s);
+                                                    dim3((unsigned)threads), args, smem, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -7,9 +7,11 @@ the card, run them with
 
 They cover the shapes chip_smoke.py does not: ragged catalog sizes, every
 K around the 8-threshold chunk, ids out of range, and run-to-run
-determinism, of the kernels and of whole ogb_tree replays; both persistent
-threshold solves (the warm projection and the bucket solve) on each side of
-their on-chip plans; and the attention kernels
+determinism, of the kernels and of whole ogb_tree replays; the histogram's
+two plans at their edges; the standalone apply at every length modulo 4 and
+on views that start mid-vector; both persistent threshold solves (the warm
+projection, with and without its f' epilogue, and the bucket solve) on each
+side of their on-chip plans; and the attention kernels
 at the served models' head shapes in bf16 and f32, and the smoke serving
 engine on the card against the same engine on the CPU.
 """
@@ -27,9 +29,15 @@ from repro_torch.kernels.capped_simplex.ops import (
     as_scalar,
     fused_ogb_update,
     masses,
+    project_warm,
     project_warm_tau,
 )
-from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref, project_warm_tau_ref
+from repro_torch.kernels.capped_simplex.ref import (
+    apply_ref,
+    masses_ref,
+    project_warm_ref,
+    project_warm_tau_ref,
+)
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_prefill.ops import flash_prefill
@@ -44,7 +52,7 @@ from repro_torch.kernels.prefix_tree.ref import (
     segment_sums_ref,
     solve_buckets_ref,
 )
-from repro_torch.kernels.scatter_counts.ops import histogram
+from repro_torch.kernels.scatter_counts.ops import TILE_BINS, design, histogram
 from repro_torch.kernels.scatter_counts.ref import histogram_ref
 
 pytestmark = pytest.mark.cuda
@@ -70,6 +78,31 @@ def test_histogram_matches_plain(card, n, b):
     assert torch.equal(histogram(ids, n), histogram_ref(ids, n))
 
 
+# (n, b): the chunk's and a re-anchor's shapes; n one past a tile and one
+# short of it, n past the id-slices window of 65 536 bins, B = 0; a slice
+# of more ids than a 16-bit counter holds (1.6e7 ids on 132 blocks: every
+# count stays below 2^24, where float32 counts are exact)
+HISTOGRAM_EDGES = [(1_000_000, 1000), (65536, 1_000_000), (TILE_BINS + 1, 3000),
+                   (3 * TILE_BINS - 1, 1000), (70_001, 1_000_000), (1, 0), (100_003, 0),
+                   (5, 1000), (65536, 16_000_000)]
+
+
+@pytest.mark.parametrize("spread", ["one bin", "skewed", "uniform"])
+@pytest.mark.parametrize("n,b", HISTOGRAM_EDGES)
+def test_histogram_plans_match_plain_at_their_edges(card, n, b, spread):
+    gen = torch.Generator().manual_seed(n + b)
+    ids = torch.randint(-3, n + 3, (b,), generator=gen, dtype=torch.int32)  # some out of range
+    if spread != "uniform":
+        hot = torch.rand(b, generator=gen) < (1.0 if spread == "one bin" else 0.95)
+        ids[hot] = n // 2
+    ids = ids.to(card)
+    reset_launch_counts()
+    got = histogram(ids, n)
+    assert torch.equal(got, histogram_ref(ids, n))
+    assert torch.equal(histogram(ids, n), got)
+    assert design_counts()["histogram"] == {design(b, n): 2}
+
+
 @pytest.mark.parametrize("k", [1, 7, 8, 12, 64, 65])
 @pytest.mark.parametrize("n", [1, 1000, 100_003])
 def test_masses_match_plain_and_repeat_bit_for_bit(card, n, k):
@@ -85,12 +118,29 @@ def test_masses_match_plain_and_repeat_bit_for_bit(card, n, k):
     assert torch.equal(again, mass) and torch.equal(again_cnt, cnt)
 
 
-@pytest.mark.parametrize("n", [1, 1000, 100_003])
+@pytest.mark.parametrize("n", [1, 2, 3, 1000, 100_001, 100_002, 100_003, 1_000_000])
 def test_apply_matches_plain_exactly(card, n):
     f, ids = _state(n, 500, 3, card)
     counts = histogram(ids, n)
     eta, tau = torch.tensor(0.3, device=card), torch.tensor(0.05, device=card)
+    reset_launch_counts()
     assert torch.equal(apply(f, counts, eta, tau), apply_ref(f, counts, eta, tau))
+    assert design_counts()["apply"] == {"standalone": 1}
+
+
+@pytest.mark.parametrize("f_at,c_at", [(1, 1), (2, 2), (3, 3), (1, 0), (0, 2)])
+@pytest.mark.parametrize("n", [5, 4097, 100_002])
+def test_apply_on_views_that_start_mid_vector(card, n, f_at, c_at):
+    """Views f[f_at:] and c[c_at:]: at one offset the kernel takes a scalar
+    head and the 16-byte body, at two offsets every item one at a time;
+    both bit for bit."""
+    f, ids = _state(n + 3, 500, 4, card)
+    counts = histogram(ids, n + 3)
+    fv, cv = f[f_at:f_at + n], counts[c_at:c_at + n]
+    eta, tau = torch.tensor(0.3, device=card), torch.tensor(0.05, device=card)
+    got = apply(fv, cv, eta, tau)
+    assert got.shape == (n,) and got.data_ptr() % 16 == fv.data_ptr() % 16
+    assert torch.equal(got, apply_ref(fv, cv, eta, tau))
 
 
 def test_fused_ogb_update_matches_cpu(card):
@@ -110,6 +160,9 @@ def test_run_on_the_card_matches_the_cpu_and_counts_launches(card):
     got = repro_torch.run(pd, trace, n, c, window=w)
     assert launch_counts() == {"histogram": 100, "mass": 100, "apply": 100, "segsum": 0,
                                "bucket_mass": 0, "flash_prefill": 0, "decode_attention": 0}
+    designs = design_counts()
+    assert designs["histogram"] == {"bin tiles": 100}
+    assert designs["apply"] == {"projection epilogue": 100}
     want = repro_torch.run(pd, trace, n, c, window=w, device="cpu")
     np.testing.assert_allclose(got.aux, want.aux, rtol=0, atol=1e-6)
     np.testing.assert_allclose(got.reward, want.reward, rtol=1e-5, atol=0)
@@ -173,12 +226,38 @@ def _held_warm(card, f, counts, eta, cap, lo, hi, tau0, sweeps):
     return design_counts()["mass"]
 
 
-@pytest.mark.parametrize("n", [1, 1000, 20_000, 1_000_000, 4_000_000])
+@pytest.mark.parametrize("n", [1, 1000, 20_000, 1_000_000, "edge", "past the edge", 4_000_000])
 def test_project_warm_tau_matches_plain_on_each_side_of_the_register_plan(card, n):
+    """tau alone, and with f' from the epilogue: the same tau bit for bit,
+    f' bit for bit apply's plain version at it.  The edge: one resident
+    block of 1024 threads an SM, 8 items of y each."""
+    edge = torch.cuda.get_device_properties(card).multi_processor_count * 1024 * 8
+    n = {"edge": edge, "past the edge": edge + 1}.get(n, n)
     f, counts, eta, cap, lo, hi = _warm_step(n, n, card)
     designs = _held_warm(card, f, counts, eta, cap, lo, hi, 0.3 * hi, 5)
-    where = "in registers" if n <= 1_000_000 else "re-read from L2"
+    where = "in registers" if n <= edge else "re-read from L2"
     assert designs == {f"persistent, y {where}": 2}
+    tau = project_warm_tau(f, counts, eta, cap, lo, hi, 0.3 * hi, 5)
+    reset_launch_counts()
+    got_f, got_tau = project_warm(f, counts, eta, cap, lo, hi, 0.3 * hi, 5)
+    assert torch.equal(got_tau, tau)
+    assert torch.equal(got_f, apply_ref(f, counts, eta, got_tau))
+    assert torch.equal(got_f, apply(f, counts, eta, got_tau))
+    assert launch_counts()["mass"] == 1 and launch_counts()["apply"] == 2
+    assert design_counts()["mass"] == {f"persistent, y {where}": 1}
+    assert design_counts()["apply"] == {"projection epilogue": 1, "standalone": 1}
+    plain_f, plain_tau = project_warm_ref(f, counts, eta, cap, lo, hi, 0.3 * hi, 5)
+    assert abs(float(got_tau) - float(plain_tau)) <= 1e-6
+    if torch.equal(got_tau, plain_tau):
+        assert torch.equal(got_f, plain_f)
+
+
+@pytest.mark.parametrize("sweeps", [0, 1, 25])
+def test_project_warm_epilogue_at_any_sweep_count(card, sweeps):
+    f, counts, eta, cap, lo, hi = _warm_step(20_000, sweeps, card)
+    got_f, got_tau = project_warm(f, counts, eta, cap, lo, hi, 0.5 * hi, sweeps)
+    assert torch.equal(got_tau, project_warm_tau(f, counts, eta, cap, lo, hi, 0.5 * hi, sweeps))
+    assert torch.equal(got_f, apply_ref(f, counts, eta, got_tau))
 
 
 @pytest.mark.parametrize("sweeps", [1, 5, 25])
@@ -226,8 +305,9 @@ def test_solve_buckets_equals_plain_bit_for_bit(card, v, iters):
 
 
 def test_persistent_solves_replay_in_a_cuda_graph(card):
-    """Both cooperative launches can be captured in a CUDA graph (the step
-    of a later replay loop) and replay to the eager results, bit for bit."""
+    """The cooperative launches (the projection with and without its
+    epilogue, the bucket solve) can be captured in a CUDA graph (the step of
+    a later replay loop) and replay to the eager results, bit for bit."""
     f, counts, eta, cap, lo, hi = _warm_step(1_000_000, 11, card)
     cnt, total = _buckets(65536, 11, card)
     bcap = as_scalar(0.4 * float(cnt.double().sum()), card)
@@ -235,6 +315,7 @@ def test_persistent_solves_replay_in_a_cuda_graph(card):
 
     def step():
         return (project_warm_tau(f, counts, eta, cap, lo, hi, 0.3 * hi, 5),
+                *project_warm(f, counts, eta, cap, lo, hi, 0.3 * hi, 5),
                 solve_buckets(cnt, total, bcap, blo, bhi, 30))
 
     eager = step()

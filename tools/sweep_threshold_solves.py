@@ -99,7 +99,7 @@ def main() -> int:
         return lambda: _build.check(ops._warm_entry()(
             f.data_ptr(), counts.data_ptr(), eta_t.data_ptr(), cap.data_ptr(), lo.data_ptr(),
             hi.data_ptr(), tau0.data_ptr(), smoke.N, sweeps, blocks, int(resident),
-            pmass.data_ptr(), pcnt.data_ptr(), tau.data_ptr(), stream), "project_warm_tau")
+            pmass.data_ptr(), pcnt.data_ptr(), tau.data_ptr(), None, stream), "project_warm_tau")
 
     sweep(torch, "project_warm_tau", warm_launch,
           [(sms, True, "y in registers [plan]"), (sms, False, "y re-read from L2"),
