@@ -25,7 +25,12 @@ script with a non-zero exit:
    projection, 5 sweeps from a mid-run tau, and ogb_tree's bucket solve, 30
    halvings over that histogram), cold and warm in L2, beside its
    whole-solve bound, its plain version and the earlier design (the K-way
-   kernel and PyTorch's scalar ops, a launch at a time);
+   kernel and PyTorch's scalar ops, a launch at a time); the tree's two
+   sums: the whole-tree build in one launch (1e6 leaves, and the 65 536
+   buckets) beside the per-level design it replaced, and the batched tree
+   update at a real chunk's three calls (recorded from that mid-run state)
+   and at a run of 2000 deltas under one node, each bit for bit its plain
+   version on the card and on the CPU;
 4. the dense main path: run(policy_def("ogb")) over zipf(0.8) with
    N = 1e6, T = 1e7, C = 50 000, window 1000, every kernel's launches
    counted, the histogram's all bin tiles and the clip's all in the
@@ -34,15 +39,18 @@ script with a non-zero exit:
 6. resume: 2000 chunks in two calls equal one call, bit for bit;
 7. where a chunk's time goes, from torch.profiler over 300 chunks;
 8. the lazy main path: run(policy_def("ogb_tree")) over the same trace,
-   launches, host syncs and re-anchors counted, its fractional hit ratio
-   held to the JAX reference's for this trace and eta;
+   launches, host syncs and re-anchors counted (3 tree builds at init and
+   a re-anchor, 3 tree updates and a bin-tiles histogram a chunk), its
+   fractional hit ratio held to the JAX reference's for this trace and eta;
 9. ogb_tree on the card against the CPU over 200 chunks, two runs and a
    resumed run bit for bit, and a re-anchor in every chunk (batch_hint=1:
    200 chunks on the card, 50 against the CPU), two id-slices histograms
    a re-anchor;
 10. Madow sampling (madow, madow_tree): 2000 chunks each, occupancy exactly
-   C in every chunk, the card against the CPU over 100 chunks;
-11. where an ogb_tree chunk's time goes, from torch.profiler over 300 chunks;
+   C in every chunk (madow_tree: one tree build a chunk), the card against
+   the CPU over 100 chunks;
+11. where an ogb_tree chunk's time goes, from torch.profiler over 300 chunks:
+   no PyTorch accumulate (indexing_backward_kernel*) left on it;
 12. the attention kernels against their plain versions, in bf16 and f32,
    each line naming the design that ran (bf16: wgmma+tma prefill and
    mma.sync+cp.async decode; f32: the CUDA-core designs): flash-decode at
@@ -113,6 +121,10 @@ REPLACES = {
     "mass": "src/repro/kernels/capped_simplex/kernel.py:59",
     "apply": "src/repro/kernels/capped_simplex/kernel.py:97",
     "segsum": "src/repro/kernels/prefix_tree/kernel.py:43",
+    # the tree's second sum: the reference computes it outside Pallas
+    # (src/repro/kernels/prefix_tree/ops.py:89, tree_update); it is row 4's
+    # redesign, beside the segsum levels of the build
+    "tree_update": "src/repro/kernels/prefix_tree/kernel.py:43",
     "bucket_mass": "src/repro/kernels/prefix_tree/kernel.py:69",
     "flash_prefill": "src/repro/kernels/flash_prefill/kernel.py:29",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:29",
@@ -122,21 +134,34 @@ SOURCES = {
     "mass": "src/repro_torch/kernels/capped_simplex/csrc/mass.cu",
     "apply": "src/repro_torch/kernels/capped_simplex/csrc/apply.cu",
     "segsum": "src/repro_torch/kernels/prefix_tree/csrc/segsum.cu",
+    "tree_update": "src/repro_torch/kernels/prefix_tree/csrc/tree_update.cu",
     "bucket_mass": "src/repro_torch/kernels/prefix_tree/csrc/bucket_mass.cu",
     "flash_prefill": "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
     "decode_attention": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
 }
-KERNELS = ("histogram", "mass", "apply", "segsum", "bucket_mass", "flash_prefill",
-           "decode_attention")
+KERNELS = ("histogram", "mass", "apply", "segsum", "tree_update", "bucket_mass",
+           "flash_prefill", "decode_attention")
 #: the one design of each kernel that has one (the others name theirs in
 #: their rows: the attention kernels by design(), the histogram, the clip
 #: and the two threshold solves by the launches of their main path)
-DESIGNS = {"segsum": "one warp a node, fixed-order shuffles"}
+DESIGNS = {
+    "segsum": "whole tree, one launch: a block a tile of 4096 leaves (levels 1-2 in shared "
+              "memory), the last block by atomic ticket the levels above; each node one warp, "
+              "fixed-order shuffles",
+    "tree_update": "a block a level: each node's first delta by atomicMin into an int32 scratch, "
+                   "then a warp a node sums its deltas 32 at a time in float64 (in any order where "
+                   "every partial sum is exact, checked on the card; else in input order) and "
+                   "rounds it once; no sort, untouched nodes unwritten",
+}
 #: the design of the standalone apply kernel, which phase 3 times (the dense
 #: main path's clip is the projection's epilogue)
 APPLY_STANDALONE = "standalone: 16-byte body, 2 float4 of f and c in flight a thread"
 DENSE_KERNELS = 21  # device kernels a dense chunk launches (phase 7)
 NO_ATTENTION = {"flash_prefill": 0, "decode_attention": 0}
+#: the port's kernels in the profiler's rows, by the names of their functions
+PORT_KERNEL_NAMES = ("tree_update_kernel", "tree_build_kernel", "bin_tiles_kernel",
+                     "solve_buckets_kernel", "project_warm_kernel")
+FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores, NVIDIA's data sheet
 
 
 class Failed(Exception):
@@ -261,18 +286,24 @@ def earlier_solve(torch, cnt, total, cap, lo, hi, iters):
     return call
 
 
-def device_kernels(torch, fn):
-    """Device kernels that one fn() call runs, from torch.profiler."""
+def device_kernels(torch, fn, tries=3):
+    """Device kernels that one fn() call runs, from torch.profiler: the most
+    that any of ``tries`` profiled calls shows.  The profiler now and then
+    drops a call's kernel records (PERF.md §7), which can only lower one
+    try's count; a kernel too many shows in every try."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == cuda and e.self_device_time_total > 0)
+    seen = 0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = max(seen, sum(e.count for e in prof.key_averages()
+                             if e.device_type == cuda and e.self_device_time_total > 0))
+    return seen
 
 
 def check_reanchor_histograms(torch, carry, flush, earlier):
@@ -512,8 +543,8 @@ def check_main_path(torch, trace, eta):
     launches = launch_counts()
     designs = design_counts()
     m = T // W
-    want = {"histogram": m, "mass": m, "apply": m, "segsum": 0, "bucket_mass": 0,
-            **NO_ATTENTION}
+    want = {"histogram": m, "mass": m, "apply": m, "segsum": 0, "tree_update": 0,
+            "bucket_mass": 0, **NO_ATTENTION}
     f = res.final_f.astype(np.float64)
     print(f"main path: hit_ratio {res.hit_ratio}, frac_hit_ratio {res.frac_hit_ratio}, "
           f"regret {res.regret}, opt_hits {res.opt_hits}, us_per_request "
@@ -574,7 +605,10 @@ def check_resume(torch, trace, eta):
 
 def breakdown(torch, trace, eta, kind="ogb"):
     """Phases 7 and 11: device busy share and kernel time by name over a
-    short run of policy ``kind``."""
+    short run of policy ``kind``; returns the numbers a chunk, and those of
+    the port's kernels by name.  ogb_tree's chunk must run no PyTorch
+    accumulate (its tree updates and request count are kernels of the
+    port)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import policy_def, run
@@ -599,6 +633,22 @@ def breakdown(torch, trace, eta, kind="ogb"):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / PROFILE_CHUNKS:8.2f} us/chunk "
               f"{e.count / PROFILE_CHUNKS:6.2f}/chunk  {e.key[:90]}")
+    ours = {}
+    for e in rows:
+        name = next((k for k in PORT_KERNEL_NAMES if k in e.key), None)
+        if name:
+            us, per = e.self_device_time_total / PROFILE_CHUNKS, e.count / PROFILE_CHUNKS
+            ours[name] = {"us_a_chunk": us, "launches_a_chunk": per}
+            print(f"  port kernel {name}: {us:.2f} us/chunk, {per:.2f} launches/chunk")
+    accumulate = [e.key for e in rows if "indexing_backward" in e.key]
+    if kind == "ogb_tree":
+        sorts = sum(e.self_device_time_total for e in rows if "RadixSort" in e.key)
+        print(f"  PyTorch's accumulate: {len(accumulate)} rows; radix sorts "
+              f"{sorts / PROFILE_CHUNKS:.2f} us/chunk")
+        need(not accumulate, f"ogb_tree still runs PyTorch's accumulate: {accumulate}")
+    return {"wall_us_a_chunk": wall_us, "busy_us_a_chunk": busy_us,
+            "device_kernels_a_chunk": launches, "idle_share": 1 - busy_us / wall_us,
+            "port_kernels": ours}
 
 
 def tree_state(trace, eta, chunks=1000):
@@ -757,12 +807,183 @@ def check_tree_kernels(torch, dev, carry, eta):
     return rows
 
 
+def per_level_build(torch, leaves, radix=64):
+    """The whole tree as the design it replaced built it: one
+    block_segment_sums launch a level, then a concatenation."""
+    from repro_torch.kernels.prefix_tree.kernel import block_segment_sums
+    from repro_torch.kernels.prefix_tree.ops import tree_sizes
+
+    parts, cur = [leaves], leaves
+    for size in tree_sizes(leaves.numel(), radix)[1:]:
+        cur = block_segment_sums(cur, size, radix)
+        parts.append(cur)
+    return torch.cat(parts)
+
+
+def record_chunk_updates(trace, carry, chunk=1000):
+    """The three tree updates of one real ogb_tree chunk, the one after
+    ``carry``'s: {tree: (tree before, n, radix, idx, delta)}."""
+    from repro_torch import policy_def, run
+    from repro_torch.cachesim import tree_engines
+
+    calls, real = [], tree_engines.tree_update_
+
+    def record(tree, n, radix, idx, delta):
+        calls.append((tree.clone(), n, radix, idx.clone(), delta.clone()))
+        return real(tree, n, radix, idx, delta)
+
+    tree_engines.tree_update_ = record
+    try:
+        run(policy_def("ogb_tree"), trace[chunk * W:(chunk + 1) * W], capacity=C, window=W,
+            carry=carry, track_opt=False)
+    finally:
+        tree_engines.tree_update_ = real
+    need(len(calls) == 3, f"an ogb_tree chunk made {len(calls)} tree updates, not 3")
+    return dict(zip(("ycnt", "ysum", "dcnt"), calls))
+
+
+def update_work(torch, n, radix, idx):
+    """What one update's data asks of the card: the deltas that add (idx >=
+    0), the nodes they touch, and the longest run of deltas under one node,
+    the chain of dependent float64 adds that no order but the input's may
+    shorten."""
+    from repro_torch.kernels.prefix_tree.ops import tree_offsets
+
+    node = idx[idx >= 0].long()
+    adds, touched, longest = int(node.numel()) * len(tree_offsets(n, radix)), 0, 0
+    for _ in tree_offsets(n, radix):
+        _, counts = torch.unique(node, return_counts=True)
+        touched += int(counts.numel())
+        longest = max(longest, int(counts.max()) if counts.numel() else 0)
+        node = node // radix
+    return {"deltas": int(idx.numel()), "adding": int((idx >= 0).sum()), "float64_adds": adds,
+            "touched_nodes": touched, "longest_run": longest}
+
+
+def check_tree_sums(torch, dev, carry, trace, one_level):
+    """Phase 3, the tree's two sums: the whole-tree build and the batched
+    tree update, against their plain versions (and the build against the
+    per-level design it replaced, bit for bit), then timings.  The update at
+    a real chunk's three calls and at a run of 2000 deltas under one node.
+    ``one_level`` is the one-level segsum kernel's row, kept in the build's."""
+    from repro_torch.kernels.prefix_tree.ops import (
+        tree_build,
+        tree_offsets,
+        tree_storage,
+        tree_update_,
+        update_order,
+    )
+    from repro_torch.kernels.prefix_tree.ref import tree_build_ref, tree_update_ref
+
+    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    gen = torch.Generator().manual_seed(6)
+    ints = torch.randint(0, 16, (N,), generator=gen).to(torch.float32).to(dev)  # sums < 2^24
+    f = torch.clamp(carry.y - carry.rho, 0.0, 1.0)
+    cnt, tot = carry.ycnt[:V], carry.ysum[:V]
+    builds = {}
+    for label, x, exact in (("1e6 leaves, integers", ints, True), ("1e6 leaves, f", f, False),
+                            ("65536 buckets, counts", cnt, True),
+                            ("65536 buckets, sums", tot, False)):
+        got, want = tree_build(x, 64), tree_build_ref(x, 64)
+        err = float((got.double() - want.double()).abs().max())
+        rel = err / max(1.0, float(want.abs().max()))
+        need(torch.equal(got, want) if exact else rel <= 1e-6,
+             f"tree_build {label}: |kernel - plain| {err}")
+        need(torch.equal(got, per_level_build(torch, x)),
+             f"tree_build {label}: not the per-level design's tree bit for bit")
+        need(torch.equal(tree_build(x, 64), got), f"tree_build {label}: two runs differ")
+        need(float(got.abs().sum()) > 0, f"tree_build {label}: an empty tree, a vacuous check")
+        kernels = device_kernels(torch, lambda x=x: tree_build(x, 64))
+        need(kernels == 1, f"tree_build {label}: {kernels} device kernels a call, not 1")
+        builds[label] = err
+        held = "exact" if exact else f"max |kernel - plain| {err:.3e} (relative {rel:.3e}, limit 1e-6)"
+        print(f"tree_build {label}: {held}, the per-level design's tree bit for bit, 1 device "
+              f"kernel a call, {tree_storage(x.numel(), 64)} nodes")
+    rows = {}
+    for key, x in (("segsum", f), ("buckets", tot)):
+        n = x.numel()
+        ms, warm = time_both(torch, f"tree_build over {n} leaves", lambda x=x: tree_build(x, 64),
+                             flush)
+        plain = timed_ms(torch, lambda x=x: tree_build_ref(x, 64), 20, flush)
+        lv, lv_warm = time_both(torch, f"per-level design over {n} leaves",
+                                lambda x=x: per_level_build(torch, x), flush)
+        storage = tree_storage(n, 64)
+        # the leaves read once, the tree written once; one add a node below the top
+        b, by = bound_ms(4 * n + 4 * storage, storage - 4)
+        print(f"tree_build {n} leaves: cold {ms * 1e3:.2f} us, warm {warm * 1e3:.2f} us (plain "
+              f"{plain * 1e3:.2f} us, per-level design {lv * 1e3:.2f} / {lv_warm * 1e3:.2f} us, "
+              f"bound {b * 1e3:.3f} us by {by})")
+        rows[key] = {"leaves": n, "ms": ms, "warm_ms": warm, "plain_ms": plain, "bound_ms": b,
+                     "bound_by": by, "library_ms": None,
+                     "max_abs_err": builds["1e6 leaves, f" if n == N else "65536 buckets, sums"],
+                     "per_level_ms": lv, "per_level_warm_ms": lv_warm}
+    segsum = {**rows["segsum"], "buckets": rows["buckets"],
+              "one_level": {**one_level, "design": "one level a launch (block_segment_sums)"}}
+
+    calls = record_chunk_updates(trace, carry)
+    tree, n, radix, idx, delta = calls["ysum"]
+    one = torch.full_like(idx, int(idx[idx >= 0][0]))  # every delta under one leaf
+    calls["one node"] = (tree, n, radix, one, delta)
+    # deltas over twelve decades, which the card adds in input order
+    wide = torch.randn(idx.numel(), generator=gen) * 10.0 ** (
+        torch.rand(idx.numel(), generator=gen) * 12 - 8)
+    calls["one node, wide deltas"] = (tree, n, radix, one, wide.to(dev))
+    updates = {}
+    for label, (tree, n, radix, idx, delta) in calls.items():
+        got = tree_update_(tree.clone(), n, radix, idx, delta)
+        need(torch.equal(got, tree_update_ref(tree.clone(), n, radix, idx, delta)),
+             f"tree_update {label} differs from its plain version on the card")
+        cpu = tree_update_ref(tree.to("cpu", copy=True), n, radix, idx.cpu(), delta.cpu())
+        need(torch.equal(got.cpu(), cpu), f"tree_update {label} differs from the CPU's")
+        need(torch.equal(tree_update_(tree.clone(), n, radix, idx, delta), got),
+             f"tree_update {label}: two runs differ")
+        work = tree.clone()
+        kernels = device_kernels(torch, lambda: tree_update_(work, n, radix, idx, delta))
+        need(kernels == 1, f"tree_update {label}: {kernels} device kernels a call, not 1")
+        stats = {**update_work(torch, n, radix, idx), "order": update_order(n, idx, delta)}
+        need(stats["adding"] > 0, f"tree_update {label}: no delta adds, a vacuous check")
+        ms, warm = time_both(torch, f"tree_update {label}",
+                             lambda: tree_update_(work, n, radix, idx, delta), flush)
+        plain_work = tree.clone()
+        plain = timed_ms(torch, lambda: tree_update_ref(plain_work, n, radix, idx, delta), 20,
+                         flush)
+        # the library call: PyTorch's float64 accumulate over the (node, delta)
+        # pairs the plain version forms, timed alone
+        ok, levels = idx >= 0, tree_offsets(n, radix)
+        node, nodes = torch.where(ok, idx, torch.zeros_like(idx)).long(), []
+        for off in levels:
+            nodes.append(off + node)
+            node = node // radix
+        nodes = torch.cat(nodes)
+        vals = torch.where(ok, delta, torch.zeros_like(delta)).double().repeat(len(levels))
+        acc = torch.zeros(tree.numel(), dtype=torch.float64, device=dev)
+        lib = timed_ms(torch, lambda: acc.index_put_((nodes,), vals, accumulate=True), 20, flush)
+        n_bytes = (idx.element_size() + 4) * idx.numel() + 8 * stats["touched_nodes"]
+        b, by = bound_ms(n_bytes, stats["float64_adds"], FP64_OPS_PER_S)
+        print(f"tree_update {label}: bit for bit the plain version on the card and on the CPU, "
+              f"1 device kernel a call; {stats}; cold {ms * 1e3:.2f} us, warm {warm * 1e3:.2f} us "
+              f"(plain {plain * 1e3:.2f} us, index_put_(accumulate=True) alone {lib * 1e3:.2f} "
+              f"us, bound {b * 1e3:.4f} us by {by}; its longest run, {stats['longest_run']} "
+              f"deltas, is as many dependent float64 adds in input order)")
+        updates[label] = {"ms": ms, "warm_ms": warm, "plain_ms": plain, "bound_ms": b,
+                          "bound_by": by, "library_ms": lib, "max_abs_err": 0.0, **stats}
+    del flush_buf
+    row = {**updates["ysum"], "tree": "ysum, a real chunk's",
+           "calls": {k: v for k, v in updates.items() if k != "ysum"}}
+    return {"segsum": segsum, "tree_update": row}
+
+
 def check_tree_main_path(trace, eta):
     """Phase 8: the lazy main path, every launch and host read counted."""
     import numpy as np
 
     from repro_torch import policy_def, run
     from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
+    from repro_torch.kernels.prefix_tree.ops import WHOLE_TREE
 
     pd = policy_def("ogb_tree")
     reset_launch_counts()
@@ -771,22 +992,28 @@ def check_tree_main_path(trace, eta):
     designs = design_counts()
     m = T // W
     reanchors, syncs = int(res.extras["reanchors"]), int(res.extras["host_syncs"])
-    # a re-anchor rebuilds the three trees (two segsum levels each) from
-    # leaves whose counts come from the histogram kernel
-    want = {"histogram": 2 * reanchors, "mass": 0, "apply": 0, "segsum": 6 * (1 + reanchors),
-            "bucket_mass": m, **NO_ATTENTION}
+    # the three trees are built at init and rebuilt at each re-anchor, one
+    # launch each, from leaves whose counts come from the histogram kernel
+    # (two id-slices launches); a chunk updates the three trees and counts
+    # its requests by lead lane (one bin-tiles histogram)
+    want = {"histogram": m + 2 * reanchors, "mass": 0, "apply": 0,
+            "segsum": 3 * (1 + reanchors), "tree_update": 3 * m, "bucket_mass": m,
+            **NO_ATTENTION}
     print(f"ogb_tree main path: hit_ratio {res.hit_ratio}, frac_hit_ratio {res.frac_hit_ratio} "
           f"(reference {REF_TREE_FRAC_HIT_RATIO}), regret {res.regret}, us_per_request "
           f"{res.us_per_request}, wall {res.wall_seconds} s, final rho {float(res.carry.rho)}, "
           f"mean occupancy {float(np.mean(res.occupancy))}, re-anchors {reanchors}, host syncs "
           f"{syncs}, launches {launches}")
     print(f"ogb_tree: {res.us_per_request} us a request at T={T} (at e3b81f4: "
-          f"{EARLIER_US_PER_REQUEST['ogb_tree']}); bucket_mass launches by design "
-          f"{designs['bucket_mass']}")
+          f"{EARLIER_US_PER_REQUEST['ogb_tree']}); launches by design: bucket_mass "
+          f"{designs['bucket_mass']}, segsum {designs['segsum']}, histogram "
+          f"{designs['histogram']}")
     need(res.extras["eta"] == eta, "ogb_tree main path resolved another eta")
     need(launches == want, f"ogb_tree launches {launches}, expected {want}")
-    need(designs.get("histogram", {}) == ({"id slices": 2 * reanchors} if reanchors else {}),
-         f"ogb_tree histogram designs {designs.get('histogram')}")
+    want_hist = {"bin tiles": m, **({"id slices": 2 * reanchors} if reanchors else {})}
+    need(designs["histogram"] == want_hist, f"ogb_tree histogram designs {designs['histogram']}")
+    need(designs["segsum"] == {WHOLE_TREE: 3 * (1 + reanchors)},
+         f"ogb_tree segsum designs {designs['segsum']}")
     need(np.all(np.isfinite(res.reward)) and np.all(np.isfinite(res.aux)), "non-finite output")
     need(abs(res.frac_hit_ratio - REF_TREE_FRAC_HIT_RATIO) <= 1e-4,
          f"ogb_tree fractional hit ratio {res.frac_hit_ratio} is not the reference's")
@@ -882,10 +1109,11 @@ def check_reanchor(torch, trace, eta):
     print(f"forced re-anchor, {REANCHOR_CHUNKS} chunks: re-anchors {n_re}, host syncs "
           f"{one.extras['host_syncs']:.0f}, {wall * 1e3 / REANCHOR_CHUNKS:.2f} ms a chunk, "
           f"launches {launches}, histogram launches by design {hist_designs}")
-    need(hist_designs == {"id slices": 2 * n_re},
+    need(hist_designs == {"bin tiles": REANCHOR_CHUNKS, "id slices": 2 * n_re},
          f"forced re-anchor histogram designs {hist_designs}")
     need(n_re == REANCHOR_CHUNKS, f"forced re-anchor fired {n_re} times")
-    want = {"histogram": 2 * n_re, "mass": 0, "apply": 0, "segsum": 6 * (1 + n_re),
+    want = {"histogram": REANCHOR_CHUNKS + 2 * n_re, "mass": 0, "apply": 0,
+            "segsum": 3 * (1 + n_re), "tree_update": 3 * REANCHOR_CHUNKS,
             "bucket_mass": REANCHOR_CHUNKS, **NO_ATTENTION}
     need(launches == want, f"forced re-anchor launches {launches}, expected {want}")
     _same_runs(torch, one, two, "forced re-anchor two runs")
@@ -913,8 +1141,9 @@ def check_madow(trace, eta):
               f"{res.frac_hit_ratio}, us_per_request {res.us_per_request}, occupancy "
               f"{res.occupancy.min()} .. {res.occupancy.max()}, launches {launches}")
         need(np.all(res.occupancy == C), f"{sample}: occupancy is not C in every chunk")
-        want_seg = 3 * MADOW_CHUNKS if sample == "madow_tree" else 0
+        want_seg = MADOW_CHUNKS if sample == "madow_tree" else 0  # one tree build a chunk
         need(launches["segsum"] == want_seg, f"{sample}: segsum launched {launches['segsum']}")
+        need(launches["tree_update"] == 0, f"{sample}: tree_update launched")
         part = trace[: MADOW_CPU_CHUNKS * W]
         card = run(pd, part, N, C, window=W, eta=eta)
         cpu = run(pd, part, N, C, window=W, eta=eta, device="cpu")
@@ -1418,6 +1647,7 @@ def main() -> int:
     carry = tree_state(trace, eta)
     rows = check_kernels(torch, dev, trace, eta, dense_tau(trace, eta), carry)
     rows.update(check_tree_kernels(torch, dev, carry, eta))
+    rows.update(check_tree_sums(torch, dev, carry, trace, rows.pop("segsum")))
     launches, designs = check_main_path(torch, trace, eta)
     check_card_against_cpu(trace, eta)
     check_resume(torch, trace, eta)
@@ -1427,7 +1657,7 @@ def main() -> int:
     check_tree_repeat_and_resume(torch, trace, eta)
     reanchor_histograms = check_reanchor(torch, trace, eta)
     madow_segsum = check_madow(trace, eta)
-    breakdown(torch, trace, eta, kind="ogb_tree")
+    tree_profile = breakdown(torch, trace, eta, kind="ogb_tree")
     attn_errs = check_attention_kernels(torch, dev)
     rows.update(time_attention_kernels(torch, dev, attn_errs))
     engine, prompts, first_out, serve_launches = serve_full_width(torch, dev)
@@ -1435,8 +1665,8 @@ def main() -> int:
     check_served_against_plain(torch, engine, prompts, first_out)
 
     # launches: the dense main path's for its kernels, the lazy main path's
-    # for the prefix-tree kernels (segsum also ran 3 a chunk on madow_tree)
-    launches.update({k: tree_launches[k] for k in ("segsum", "bucket_mass")})
+    # for the prefix-tree kernels (segsum also ran 1 a chunk on madow_tree)
+    launches.update({k: tree_launches[k] for k in ("segsum", "tree_update", "bucket_mass")})
     launches.update({k: serve_launches[k] for k in ("flash_prefill", "decode_attention")})
     # the redesigned kernels name the design their main path launched
     for name in ("mass", "histogram", "apply"):
@@ -1446,6 +1676,11 @@ def main() -> int:
     rows["bucket_mass"]["design"] = " + ".join(tree_designs["bucket_mass"])
     for name, design in DESIGNS.items():
         rows[name]["design"] = design
+    # the tree kernels in an ogb_tree chunk, and the chunk itself (phase 11)
+    for name, key in (("tree_update", "tree_update_kernel"), ("segsum", "tree_build_kernel")):
+        rows[name]["in_chunk"] = tree_profile["port_kernels"].get(key)
+    rows["tree_update"]["ogb_tree_chunk"] = {k: v for k, v in tree_profile.items()
+                                             if k != "port_kernels"}
     print(f"segsum launches: ogb_tree main path {launches['segsum']}, madow_tree "
           f"{madow_segsum} over {MADOW_CHUNKS} chunks")
     kernels = [

@@ -6,8 +6,8 @@ step inside one ``lax.scan``; here :func:`repro_torch.cachesim.api.run`
 calls it once per chunk from a Python loop.  Every catalog-sized pass of
 the step is a hand-written kernel on the card: the histogram, and the warm
 projection's Newton sweeps with the final clip in one launch (bisection:
-one mass pass a step, then the clip); ``madow_tree`` adds one segsum per
-tree level for its sample.
+one mass pass a step, then the clip); ``madow_tree`` adds one tree build
+(one launch) for its sample.
 """
 
 from __future__ import annotations

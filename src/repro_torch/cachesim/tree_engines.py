@@ -24,10 +24,13 @@ Two things differ from the reference, and neither changes what it computes:
   device's trigger and rho only when that bound could meet the trigger.
   It then re-anchors exactly when the reference would.
 
-Float scatter-adds go through ``index_put_(accumulate=True)``, which adds
-duplicates in a fixed order, so two runs on the card agree bit for bit; the
-re-anchor's leaf sums accumulate in float64 (:func:`_leaf_sums`) and its
-leaf counts go through the histogram kernel.
+Every sum of a chunk adds in a fixed order, so two runs on the card agree
+bit for bit, and with the CPU: a tree update sums each node's deltas in
+float64 in input order and rounds once (the ``tree_update`` kernel on the
+card), and the count of a chunk's requests by id goes through the
+histogram kernel, as a re-anchor's leaf counts do.  The re-anchor's leaf
+sums accumulate in float64 (:func:`_leaf_sums`, PyTorch's
+``index_put_(accumulate=True)``, which adds duplicates in a fixed order).
 The step updates the carry's tensors in place; :func:`start_run` gives
 :func:`repro_torch.cachesim.api.run` a private copy to update.
 """
@@ -142,7 +145,7 @@ def init_ogb_tree_carry(
     ``batch_hint`` sizes the value grid: headroom for ~2*OGB_TREE_GAIN
     chunks of worst-case rho growth (eta*B per chunk) between re-anchor
     passes.  The leaves are built on the host, as the reference builds
-    them; the three trees are built on the device (segsum)."""
+    them; the three trees are built on the device (one launch each)."""
     dev = resolve_device(device)
     n, v = int(catalog_size), int(buckets)
     span = 1.0 + 2.0 * OGB_TREE_GAIN * max(1.0, float(eta) * batch_hint)
@@ -256,16 +259,15 @@ def make_ogb_tree_chunk(v: int, radix: int, sample: str, iters: int = OGB_TREE_I
         scratch.scatter_reduce_(0, ids64, lanes, "amin")
         lead = scratch.index_select(0, ids64)  # each request's first lane of its id
         first = lead == lanes
-        lead = lead.to(torch.int64)
         scratch.index_fill_(0, ids64, _I32_MAX)  # restore
 
         # --- gradient step: upper-clip touched items, add eta per request ---
         # An id requested k times gets min(y, 1 + rho) + k * eta, formed in
         # float64 and rounded once (the reference adds eta k times in
         # float32, in an order the card's scatter would not keep); every
-        # lane of the id writes the same value.
-        k = torch.zeros(b, dtype=torch.float64, device=y.device).index_put_(
-            (lead,), torch.ones(b, dtype=torch.float64, device=y.device), accumulate=True)
+        # lane of the id writes the same value.  k counts the requests by
+        # lead lane: integers <= b, exact in the histogram's float32.
+        k = request_counts(lead, b).to(torch.float64)
         ylead = torch.minimum(yold, 1.0 + rho).to(torch.float64) + k * eta.to(torch.float64)
         ynew = ylead.to(torch.float32).index_select(0, lead)
         y.index_put_((ids64,), ynew)

@@ -3,11 +3,13 @@
 Each wrapper counts its launches in a plain integer attribute
 (``histogram.launches``, ``masses.launches``, ``project_warm_tau.launches``,
 ``project_warm.launches``, ``apply.launches``, ``block_segment_sums.launches``,
+``tree_build.launches``, ``tree_update_.launches``,
 ``bucket_masses.launches``, ``solve_buckets.launches``,
 ``flash_prefill.launches``, ``decode_attention.launches``), so a run can show
 that it went through the kernels.  :func:`launch_counts` reads them by
-kernel source (the warm projection counts as ``mass``, the bucket solve as
-``bucket_mass``); ``apply`` counts the clip's executions, so a
+kernel source (the warm projection counts as ``mass``, the whole-tree
+build as ``segsum``, the bucket solve as ``bucket_mass``); ``apply``
+counts the clip's executions, so a
 ``project_warm`` launch, whose epilogue is the clip, counts once as ``mass``
 and once as ``apply`` (design ``"projection epilogue"``).
 :func:`design_counts` reads the launches by design of the wrappers that
@@ -34,13 +36,15 @@ def _wrappers():
         bucket_masses,
         solve_buckets,
     )
+    from repro_torch.kernels.prefix_tree.ops import tree_build, tree_update_
     from repro_torch.kernels.scatter_counts.ops import histogram
 
     return {
         "histogram": (histogram,),
         "mass": (masses, project_warm_tau, project_warm),
         "apply": (apply,),
-        "segsum": (block_segment_sums,),
+        "segsum": (block_segment_sums, tree_build),
+        "tree_update": (tree_update_,),
         "bucket_mass": (bucket_masses, solve_buckets),
         "flash_prefill": (flash_prefill,),
         "decode_attention": (decode_attention,),

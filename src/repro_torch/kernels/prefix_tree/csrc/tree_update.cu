@@ -1,0 +1,227 @@
+// Batched point update of a packed radix tree: a float64 segmented sum.
+//
+// The reference's tree_update (src/repro/kernels/prefix_tree/ops.py) adds
+// each delta[q] to every node on the ancestor path of leaf idx[q] with one
+// scatter-add, outside Pallas; it is the tree's second sum beside the
+// segsum levels that src/repro/kernels/prefix_tree/kernel.py's
+// segsum_kernel builds.  The port's plain version (ref.py's
+// tree_update_ref) sums each node's deltas in float64, in input order, and
+// rounds each node once: node <- float32(float64(node) + sum_q delta[q]),
+// which is what index_put_(accumulate=True) computes on the CPU and, after
+// a stable sort, on the card.  This kernel computes the same, bit for bit,
+// with no sort.  The deltas of one call are few (2 B = 2000 in an ogb_tree
+// chunk) and land under few nodes (a few dozen buckets, and all of them
+// under one or two nodes of the top level), so a node's deltas are a long
+// run to be summed by many threads.
+//
+// One block of kThreads a level (blockIdx.y), in three steps:
+//  1. Each delta's node of the level; the first delta under each node
+//     (its head) by atomicMin of the delta's position into `first`, a
+//     scratch of one int32 a tree node that holds INT_MAX between calls (a
+//     warp's lanes under one node make one atomic, __match_any_sync); and
+//     whether the deltas' float64 sums are exact in any order (below).
+//  2. The heads, a window of kHeads positions at a time, into a list in
+//     shared memory.
+//  3. A warp a head: its 32 lanes read 32 consecutive deltas at a time,
+//     coalesced, and sum those under the head's node.  Lane 0 writes the
+//     node once and puts INT_MAX back into its `first`.  Nodes no delta
+//     reaches are not written.  Entries with idx < 0 (and ids past the
+//     leaves) add nothing.
+//
+// The order of the adds.  A node's float64 sum in input order is a chain of
+// dependent adds as long as its run of deltas (~1850 at the top of an
+// ogb_tree chunk's trees).  But where every partial sum is exact in
+// float64, every order gives the same bits: the deltas are float32, each a
+// multiple of the smallest ulp u among the nonzero ones, so a partial sum of
+// k of them is a multiple of u below k * max|delta|, and float64 holds every
+// multiple of u up to 2^53 u.  Step 1 tests that bound from the deltas'
+// exponents (no infinity or NaN, and count * max|delta| <= 2^53 u); then
+// each lane sums its own deltas and the warp adds the 32 sums by shuffles.
+// Otherwise the warp adds the deltas under the node one by one in input
+// order (a ballot of the 32, then their values by shuffle, in lane order).
+// Integer deltas (the count trees' +-1) always pass; float deltas pass
+// while their magnitudes span under 2^18 at 2000 deltas.
+//
+// Bound on an H100: the bytes, idx and delta read once and each touched node
+// read and written once (12-16 B a delta: ~0.01 us at 2000 deltas), are no
+// bound; the latency is: a few dependent trips to L2 and a walk of the
+// deltas 32 at a time (any order), or one chain of dependent adds as long
+// as a node's run (input order).  `first` makes two launches on one device
+// unsafe at once; the port launches on one stream.
+
+#include <climits>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kHeads = 8192;  // head positions a round of step 3 lists: 32 KB
+constexpr int kSteps = 4;     // 32-delta steps a walk loads before it adds
+constexpr int kMaxLevels = 64;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Offsets {
+  long long off[kMaxLevels];
+};
+
+// The node of delta p at shift sh, or -1 if it adds nothing.
+template <typename Index>
+__device__ __forceinline__ int node_of(const Index* __restrict__ idx, long long p, long long n,
+                                       int sh) {
+  const long long leaf = (long long)__ldg(idx + p);
+  return leaf >= 0 && leaf < n ? (int)(leaf >> sh) : -1;
+}
+
+// The deltas from q0 on under `node`, summed by the warp: any order (each
+// lane its own, then the 32 by shuffles) when exact, else input order.  All
+// lanes get the sum.
+template <bool kExact, typename Index>
+__device__ double walk(const Index* __restrict__ idx, const float* __restrict__ delta,
+                       long long q_count, long long n, int sh, int node, long long q0,
+                       int lane) {
+  double s = 0.0;
+  for (long long base = q0; base < q_count; base += 32 * kSteps) {
+    double v[kSteps];
+    bool under[kSteps];
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const long long p = base + 32 * u + lane;
+      under[u] = p < q_count && node_of(idx, p, n, sh) == node;
+      v[u] = under[u] ? (double)__ldg(delta + p) : 0.0;
+    }
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      if (kExact) {
+        s = __dadd_rn(s, v[u]);
+      } else {
+        unsigned bits = __ballot_sync(kFull, under[u]);  // in lane order
+        while (bits) {
+          const int j = __ffs(bits) - 1;
+          bits &= bits - 1;
+          s = __dadd_rn(s, __shfl_sync(kFull, v[u], j));
+        }
+      }
+    }
+  }
+  if (kExact) {
+    for (int o = 16; o > 0; o >>= 1) s = __dadd_rn(s, __shfl_xor_sync(kFull, s, o));
+  }
+  return s;
+}
+
+template <typename Index>
+__global__ void __launch_bounds__(kThreads)
+tree_update_kernel(float* __restrict__ tree, long long n, int shift, Offsets lv,
+                   const Index* __restrict__ idx, const float* __restrict__ delta,
+                   long long q_count, int* __restrict__ first) {
+  __shared__ int heads[kHeads];
+  __shared__ int n_heads, lo, hi;
+  __shared__ unsigned count;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sh = shift * (int)blockIdx.y;
+  int* my_first = first + lv.off[blockIdx.y];
+  float* level = tree + lv.off[blockIdx.y];
+  if (threadIdx.x == 0) {
+    lo = 255;
+    hi = 0;
+    count = 0;
+  }
+  __syncthreads();
+
+  // 1. heads by atomicMin; the deltas' exponents and count
+  int my_lo = 255, my_hi = 0;
+  unsigned my_count = 0;
+  for (long long q0 = 0; q0 < q_count; q0 += kThreads) {
+    const long long q = q0 + threadIdx.x;
+    int node = -1;
+    if (q < q_count) {
+      node = node_of(idx, q, n, sh);
+      if (node >= 0) {
+        const unsigned bits = __float_as_uint(__ldg(delta + q));
+        const int e = (int)((bits >> 23) & 0xffu);  // 255: infinity or NaN
+        ++my_count;
+        if ((bits & 0x7fffffffu) != 0) {
+          my_lo = min(my_lo, max(e, 1));  // a subnormal's ulp is the smallest normal's
+          my_hi = max(my_hi, e);
+        }
+      }
+    }
+    // lanes hold ascending positions: a group's first lane holds its least
+    const unsigned peers = __match_any_sync(kFull, node);
+    if (node >= 0 && lane == __ffs(peers) - 1) atomicMin(my_first + node, (int)q);
+  }
+  my_lo = __reduce_min_sync(kFull, my_lo);
+  my_hi = __reduce_max_sync(kFull, my_hi);
+  my_count = __reduce_add_sync(kFull, my_count);
+  if (lane == 0) {
+    atomicMin(&lo, my_lo);
+    atomicMax(&hi, my_hi);
+    atomicAdd(&count, my_count);
+  }
+  __syncthreads();
+  // max|delta| < 2^(hi - 126), u = 2^(lo - 150): exact while
+  // count * 2^(hi - 126) <= 2^53 * 2^(lo - 150)
+  const int log2_count = count > 1 ? 32 - __clz((int)(count - 1)) : 0;
+  const bool exact = hi < 255 && hi - lo <= 29 - log2_count;
+
+  for (long long w0 = 0; w0 < q_count; w0 += kHeads) {
+    // 2. this window's heads (their atomics are done: step 1 ended in a barrier)
+    if (threadIdx.x == 0) n_heads = 0;
+    __syncthreads();
+    const long long w1 = min(q_count, w0 + kHeads);
+    for (long long q = w0 + threadIdx.x; q < w1; q += kThreads) {
+      const int node = node_of(idx, q, n, sh);
+      if (node >= 0 && __ldcg(my_first + node) == (int)q) heads[atomicAdd(&n_heads, 1)] = (int)q;
+    }
+    __syncthreads();
+    // 3. a warp a head; a later window's deltas under the node read INT_MAX
+    // or the head's position from `first`, never their own
+    for (int h = warp; h < n_heads; h += kWarps) {
+      const long long q = heads[h];
+      const int node = node_of(idx, q, n, sh);
+      const double s = exact ? walk<true>(idx, delta, q_count, n, sh, node, q, lane)
+                             : walk<false>(idx, delta, q_count, n, sh, node, q, lane);
+      if (lane == 0) {
+        level[node] = __double2float_rn(__dadd_rn((double)level[node], s));
+        my_first[node] = INT_MAX;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+// Add delta[q] (float32) along the ancestor path of leaf idx[q] (int32 when
+// idx_bytes is 4, else int64) for q < q_count (below 2^31), in a tree of
+// `count` levels of `sizes` (leaves first, fewer than 2^31; radix 2^shift).
+// `first` holds an int32 a tree node, INT_MAX on entry, and is left so.
+extern "C" int repro_tree_update(void* tree, const long long* sizes, int count, int shift,
+                                 const void* idx, int idx_bytes, const void* delta,
+                                 long long q_count, void* first, void* stream) {
+  if (count < 1 || count > kMaxLevels || shift < 1 || q_count < 1 || q_count > INT_MAX ||
+      sizes[0] > INT_MAX || (idx_bytes != 4 && idx_bytes != 8)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Offsets lv{};
+  long long off = 0;
+  for (int l = 0; l < count; ++l) {
+    lv.off[l] = off;
+    off += sizes[l];
+  }
+  const dim3 grid(1, (unsigned)count);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* t = static_cast<float*>(tree);
+  const float* d = static_cast<const float*>(delta);
+  int* f = static_cast<int*>(first);
+  if (idx_bytes == 4) {
+    tree_update_kernel<int><<<grid, kThreads, 0, s>>>(t, sizes[0], shift, lv,
+                                                      static_cast<const int*>(idx), d, q_count, f);
+  } else {
+    tree_update_kernel<long long><<<grid, kThreads, 0, s>>>(
+        t, sizes[0], shift, lv, static_cast<const long long*>(idx), d, q_count, f);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,7 +1,9 @@
 """The prefix-tree block reductions: one tree level, and bucket masses.
 
 Counterpart of ``repro.kernels.prefix_tree.kernel``.  On a CUDA tensor
-:func:`block_segment_sums` launches ``csrc/segsum.cu``, and
+:func:`block_segment_sums` launches ``csrc/segsum.cu``'s one-level kernel
+(the trees themselves are built in one launch a tree by
+:func:`.ops.tree_build`), and
 :func:`bucket_masses` and :func:`solve_buckets` (``ogb_tree``'s whole
 threshold solve, one persistent launch) ``csrc/bucket_mass.cu``; on a CPU
 tensor each runs its plain version in :mod:`.ref`.  The thresholds stay on
@@ -25,6 +27,8 @@ from repro_torch.kernels.prefix_tree.ref import (
     solve_rounds,
 )
 
+#: the design :func:`block_segment_sums` counts its launches under
+ONE_LEVEL = "one level"
 #: buckets of one bucket-mass partials block; the grid is capped so that
 #: the finishing block sums at most this many partials
 _MASS_ITEMS_PER_BLOCK = 1024
@@ -80,11 +84,12 @@ def block_segment_sums(values: torch.Tensor, out_size: int, radix: int) -> torch
         ),
         "block_segment_sums",
     )
-    block_segment_sums.launches += 1
+    _build.counted(block_segment_sums, ONE_LEVEL)
     return out
 
 
 block_segment_sums.launches = 0
+block_segment_sums.designs = {}
 
 
 def bucket_masses(cnt: torch.Tensor, total: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:

@@ -6,48 +6,73 @@ over ``n`` leaves with branching factor ``radix`` (a power of two) is ONE
 flat tensor: level 0 is the leaves, level l+1 holds the per-group sums of
 level l, until a level fits in a single radix group.
 
-Every build level goes through :func:`.kernel.block_segment_sums` (the
-``segsum`` kernel on the card).  The batched point updates, prefix reads
-and the weighted selection are plain tensor code, as the reference computes
-them outside Pallas.  A point update sums its deltas per node in float64
-(``index_put_(accumulate=True)``, which adds duplicates in a fixed order on
-the card) and rounds each node once, so a float tree comes out the same on
-every run and on either device.
+The tree's two sums are hand-written kernels on the card.
+:func:`tree_build` writes the whole tree in one launch (``csrc/segsum.cu``,
+each level summed from the float32 level below as
+:func:`.kernel.block_segment_sums` sums one).  :func:`tree_update_` sums
+each touched node's deltas in float64, in input order, and rounds the node
+once (``csrc/tree_update.cu``), so a float tree comes out the same on
+every run and on either device.  On a CPU tensor both run their plain
+versions in :mod:`.ref`.  The prefix reads and the weighted selection are
+plain tensor code, as the reference computes them outside Pallas.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
 
 import torch
 
-from repro_torch.kernels.prefix_tree.kernel import block_segment_sums
+from repro_torch.kernels import _build
+from repro_torch.kernels.prefix_tree.ref import (
+    radix_shift,
+    tree_build_ref,
+    tree_offsets,
+    tree_sizes,
+    tree_storage,
+    tree_update_ref,
+)
+
+#: leaves a tree-build block owns at most (kTileLeaves of csrc/segsum.cu):
+#: the card's build takes a radix up to this
+TILE_LEAVES = 4096
+#: the design :func:`tree_build` counts its launches under
+WHOLE_TREE = "whole tree, one launch"
 
 
-def tree_sizes(n: int, radix: int) -> Tuple[int, ...]:
-    sizes = [int(n)]
-    while sizes[-1] > radix:
-        sizes.append(-(-sizes[-1] // radix))
-    return tuple(sizes)
+@functools.lru_cache(maxsize=None)
+def _tree_build_entry():
+    fn = _build.library("segsum").repro_tree_build
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def tree_offsets(n: int, radix: int) -> Tuple[int, ...]:
-    offs, off = [], 0
-    for s in tree_sizes(n, radix):
-        offs.append(off)
-        off += s
-    return tuple(offs)
+@functools.lru_cache(maxsize=None)
+def _tree_update_entry():
+    fn = _build.library("tree_update").repro_tree_update
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, i, i, p, i, p, ctypes.c_longlong, p, p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def tree_storage(n: int, radix: int) -> int:
-    return sum(tree_sizes(n, radix))
+@functools.lru_cache(maxsize=None)
+def _levels(n: int, radix: int):
+    """The level sizes of a tree over ``n`` leaves, as the C entry points
+    take them: (count, a C array of int64)."""
+    sizes = tree_sizes(n, radix)
+    return len(sizes), (ctypes.c_longlong * len(sizes))(*sizes)
 
 
-def _shift(radix: int) -> int:
-    s = radix.bit_length() - 1
-    if 1 << s != radix:
-        raise ValueError(f"radix must be a power of two, got {radix}")
-    return s
+@functools.lru_cache(maxsize=None)
+def first_scratch(device: torch.device, nodes: int) -> torch.Tensor:
+    """The card's update scratch for a tree of ``nodes`` nodes on
+    ``device``: one int32 a node (``first`` in ``csrc/tree_update.cu``),
+    INT_MAX between calls, as every call leaves it."""
+    return torch.full((nodes,), 2**31 - 1, dtype=torch.int32, device=device)
 
 
 def _lanes(radix: int, device: torch.device) -> torch.Tensor:
@@ -55,37 +80,98 @@ def _lanes(radix: int, device: torch.device) -> torch.Tensor:
 
 
 def tree_build(values: torch.Tensor, radix: int) -> torch.Tensor:
-    """Flat packed float32 tree from a leaf vector, one segsum per level."""
-    _shift(radix)
-    parts, cur = [values], values
-    for size in tree_sizes(values.shape[0], radix)[1:]:
-        cur = block_segment_sums(cur, size, radix)
-        parts.append(cur)
-    return torch.cat(parts)
+    """Flat packed float32 tree from a leaf vector; on the card one launch
+    writes the whole tree, leaves included."""
+    radix_shift(radix)
+    if values.device.type == "cpu":
+        return tree_build_ref(values, radix)
+    _build.require(values, torch.float32, "values")
+    if values.dim() != 1 or radix > TILE_LEAVES:
+        raise ValueError(f"the card builds a tree over 1-D leaves at radix <= {TILE_LEAVES}, "
+                         f"got shape {tuple(values.shape)} at radix {radix}")
+    n = values.shape[0]
+    tree = torch.empty(tree_storage(n, radix), dtype=torch.float32, device=values.device)
+    if n == 0:
+        return tree
+    count, sizes = _levels(n, radix)
+    _build.check(
+        _tree_build_entry()(values.data_ptr(), tree.data_ptr(), ctypes.addressof(sizes), count,
+                            radix, _build.stream_of(values)),
+        "tree_build",
+    )
+    _build.counted(tree_build, WHOLE_TREE)
+    return tree
+
+
+tree_build.launches = 0
+tree_build.designs = {}
 
 
 def tree_update_(tree: torch.Tensor, n: int, radix: int, idx: torch.Tensor,
                  delta: torch.Tensor) -> torch.Tensor:
     """Batched point update, in place: add ``delta[q]`` along the ancestor
-    path of leaf ``idx[q]``; entries with ``idx < 0`` add nothing.
+    path of leaf ``idx[q]`` (``idx`` < n); entries with ``idx < 0`` add
+    nothing.
 
-    The deltas of one call are summed per node in float64 and each node is
-    rounded once, so the result does not depend on the order of the adds:
-    the card and the CPU agree, where float32 adds of the same deltas in
-    the two devices' orders drift apart chunk by chunk.  (The reference adds
+    Each node's deltas are summed in float64 in input order and the node is
+    rounded once, so the result does not depend on the device: the card and
+    the CPU agree bit for bit, where float32 adds of the same deltas in the
+    two devices' orders drift apart chunk by chunk.  (The reference adds
     them one by one in float32; integer-valued trees come out the same.)
+    On the card one launch updates the touched nodes and writes no other.
     """
-    sh = _shift(radix)
-    ok = idx >= 0
-    node = torch.where(ok, idx, torch.zeros_like(idx)).to(torch.int64)
-    masked = torch.where(ok, delta, torch.zeros_like(delta)).to(torch.float64)
-    nodes = []
-    for off in tree_offsets(n, radix):
-        nodes.append(off + node)
-        node = node >> sh
-    acc = torch.zeros(tree.shape, dtype=torch.float64, device=tree.device)
-    acc.index_put_((torch.cat(nodes),), masked.repeat(len(nodes)), accumulate=True)
-    return tree.copy_(tree.to(torch.float64) + acc)
+    sh = radix_shift(radix)
+    if tree.device.type == "cpu":
+        return tree_update_ref(tree, n, radix, idx, delta)
+    dev = tree.device
+    _build.require(tree, torch.float32, "tree")
+    _build.require(delta, torch.float32, "delta", dev)
+    _build.require(idx, torch.int64 if idx.dtype == torch.int64 else torch.int32, "idx", dev)
+    if idx.shape != delta.shape:
+        raise ValueError(f"idx and delta must have one shape, got {tuple(idx.shape)} and "
+                         f"{tuple(delta.shape)}")
+    if tree.numel() != tree_storage(n, radix) or max(n, idx.numel()) >= 2**31:
+        raise ValueError(f"the card updates a tree over fewer than 2^31 leaves by fewer than "
+                         f"2^31 deltas; {n} leaves at radix {radix} make "
+                         f"{tree_storage(n, radix)} nodes, got {tree.numel()} and "
+                         f"{idx.numel()} deltas")
+    if idx.numel() == 0 or n == 0:
+        return tree
+    count, sizes = _levels(n, radix)
+    first = first_scratch(dev, tree.numel())
+    _build.check(
+        _tree_update_entry()(tree.data_ptr(), ctypes.addressof(sizes), count, sh, idx.data_ptr(),
+                             idx.element_size(), delta.data_ptr(), idx.numel(), first.data_ptr(),
+                             _build.stream_of(tree)),
+        "tree_update_",
+    )
+    tree_update_.launches += 1
+    return tree
+
+
+tree_update_.launches = 0
+
+EXACT_ANY_ORDER, INPUT_ORDER = "exact, any order", "input order"
+
+
+def update_order(n: int, idx: torch.Tensor, delta: torch.Tensor) -> str:
+    """The order in which the card's update adds a node's deltas, as the
+    kernel decides it on the device (``csrc/tree_update.cu``): in any order
+    when every float64 partial sum of the deltas that add is exact (finite,
+    and their count times the largest magnitude within 2^53 of the smallest
+    ulp), else in input order.  Both give the plain version's bits.  Reads
+    the tensors: for tests and measurements, not the replay."""
+    ok = (idx >= 0) & (idx < n)
+    bits = delta[ok].float().contiguous().view(torch.int32).cpu().numpy().astype("uint32")
+    field = (bits >> 23) & 0xFF
+    nonzero = (bits & 0x7FFFFFFF) != 0
+    if (field == 255).any():
+        return INPUT_ORDER
+    if not nonzero.any():
+        return EXACT_ANY_ORDER
+    lo, hi = int(max(field[nonzero].min(), 1)), int(field[nonzero].max())
+    log2_count = (int(ok.sum()) - 1).bit_length() if int(ok.sum()) > 1 else 0
+    return EXACT_ANY_ORDER if hi - lo <= 29 - log2_count else INPUT_ORDER
 
 
 def tree_update(tree: torch.Tensor, n: int, radix: int, idx: torch.Tensor,
@@ -106,7 +192,7 @@ def tree_prefix(tree: torch.Tensor, n: int, radix: int, idx: torch.Tensor) -> to
     left part.
     """
     sizes = tree_sizes(n, radix)
-    sh = _shift(radix)
+    sh = radix_shift(radix)
     lane = _lanes(radix, tree.device)
     ok = idx >= 0
     node = torch.where(ok, idx, torch.zeros_like(idx)).to(torch.int64)
@@ -134,7 +220,7 @@ def tree_select(tree: torch.Tensor, n: int, radix: int, targets: torch.Tensor) -
     strictly above ``targets`` (the Madow descent).  int64 leaf ids."""
     offs = tree_offsets(n, radix)
     sizes = tree_sizes(n, radix)
-    sh = _shift(radix)
+    sh = radix_shift(radix)
     lane = _lanes(radix, tree.device)
     node = torch.zeros(targets.shape, dtype=torch.int64, device=tree.device)
     rem = targets
@@ -155,7 +241,7 @@ def tree_select(tree: torch.Tensor, n: int, radix: int, targets: torch.Tensor) -
 def madow_sample_tree(f: torch.Tensor, u: torch.Tensor, capacity: int,
                       radix: int = 64) -> torch.Tensor:
     """Madow/systematic sample of ``capacity`` items by tree descent: a
-    tree build (one segsum per level) and O(C log N) selection.  Returns
+    tree build (one launch on the card) and O(C log N) selection.  Returns
     ascending int64 leaf ids (the targets ascend); distinct whenever all
     f <= 1."""
     tree = tree_build(f, radix)

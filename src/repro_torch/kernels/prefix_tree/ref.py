@@ -1,20 +1,27 @@
-"""Plain PyTorch versions of the prefix-tree block reductions.
+"""Plain PyTorch versions of the prefix-tree sums and block reductions.
 
 Counterparts of ``repro.kernels.prefix_tree.kernel``'s ``segsum_kernel``
-and ``bucket_mass_kernel``, and of ``ogb_tree``'s whole threshold solve
-over the buckets (``csrc/bucket_mass.cu``'s ``repro_solve_buckets``).  The
-wrappers in :mod:`.kernel` run these on a CPU tensor; on the card
-``chip_smoke.py`` and the ``cuda`` tests hold the CUDA kernels against
-them.  Each term is rounded as the kernels round it,
-so they differ only in summation order: not at all for integer values,
-and for the bucket masses, summed in float64 by both, only where a float64
-sum rounds to float32 on a tie.
+and ``bucket_mass_kernel``, of the reference's ``tree_build`` and
+``tree_update`` (``repro.kernels.prefix_tree.ops``), and of ``ogb_tree``'s
+whole threshold solve over the buckets (``csrc/bucket_mass.cu``'s
+``repro_solve_buckets``).  The wrappers in :mod:`.kernel` and :mod:`.ops`
+run these on a CPU tensor; on the card ``chip_smoke.py`` and the ``cuda``
+tests hold the CUDA kernels against them.  Each term is rounded as the
+kernels round it, so they differ only in summation order: not at all for
+integer values or for the tree update (both add a node's deltas in input
+order), and for the bucket masses, summed in float64 by both, only where a
+float64 sum rounds to float32 on a tie.
+
+The tree geometry lives here too: a tree over ``n`` leaves with branching
+factor ``radix`` is one flat tensor, level 0 the leaves and level l+1 the
+sums of ``radix`` consecutive nodes of level l, until a level fits in one
+group.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List
+from typing import List, Tuple
 
 import torch
 
@@ -23,12 +30,71 @@ import torch
 HALVINGS_PER_ROUND = 6
 
 
+def tree_sizes(n: int, radix: int) -> Tuple[int, ...]:
+    sizes = [int(n)]
+    while sizes[-1] > radix:
+        sizes.append(-(-sizes[-1] // radix))
+    return tuple(sizes)
+
+
+def tree_offsets(n: int, radix: int) -> Tuple[int, ...]:
+    offs, off = [], 0
+    for s in tree_sizes(n, radix):
+        offs.append(off)
+        off += s
+    return tuple(offs)
+
+
+def tree_storage(n: int, radix: int) -> int:
+    return sum(tree_sizes(n, radix))
+
+
+def radix_shift(radix: int) -> int:
+    """log2 of ``radix``, which must be a power of two."""
+    s = radix.bit_length() - 1
+    if s < 0 or 1 << s != radix:
+        raise ValueError(f"radix must be a power of two, got {radix}")
+    return s
+
+
 def segment_sums_ref(values: torch.Tensor, out_size: int, radix: int) -> torch.Tensor:
     """(out_size,) sums of each group of ``radix`` consecutive values, the
     last group zero-padded."""
     pad = out_size * radix - values.shape[0]
     padded = torch.nn.functional.pad(values, (0, pad))
     return padded.reshape(out_size, radix).sum(dim=1)
+
+
+def tree_build_ref(values: torch.Tensor, radix: int) -> torch.Tensor:
+    """The flat tree over the leaf vector ``values``: each level summed
+    from the one below, as it is stored (float32 from float32)."""
+    radix_shift(radix)
+    parts, cur = [values], values
+    for size in tree_sizes(values.shape[0], radix)[1:]:
+        cur = segment_sums_ref(cur, size, radix)
+        parts.append(cur)
+    return torch.cat(parts)
+
+
+def tree_update_ref(tree: torch.Tensor, n: int, radix: int, idx: torch.Tensor,
+                    delta: torch.Tensor) -> torch.Tensor:
+    """Batched point update, in place: add ``delta[q]`` along the ancestor
+    path of leaf ``idx[q]``; entries with ``idx < 0`` add nothing.
+
+    Each node's deltas are summed in float64 in input order (the order in
+    which ``index_put_(accumulate=True)`` adds duplicates, on the CPU and,
+    after its stable sort, on the card) and the node is rounded once."""
+    sh = radix_shift(radix)
+    ok = idx >= 0
+    node = torch.where(ok, idx, torch.zeros_like(idx)).to(torch.int64)
+    masked = torch.where(ok, delta, torch.zeros_like(delta)).to(torch.float64)
+    nodes = []
+    for off in tree_offsets(n, radix):
+        nodes.append(off + node)
+        node = node >> sh
+    acc = torch.zeros(tree.shape, dtype=torch.float64, device=tree.device)
+    acc.index_put_((torch.cat(nodes),), masked.repeat(len(nodes)), accumulate=True)
+    return tree.copy_(tree.to(torch.float64) + acc)
 
 
 def bucket_masses_ref(cnt: torch.Tensor, total: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:

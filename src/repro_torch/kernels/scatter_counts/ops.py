@@ -34,8 +34,10 @@ def design(b: int, n: int) -> str:
     its n / 2 words of paired 16-bit counters.  So the ids are sliced once
     there are more of them than half the bins: the chunk's gradient (1000
     ids over 1e6 items) takes bin tiles, a re-anchor's bucket ids (1e6 over
-    65 536 buckets) id slices."""
-    return ID_SLICES if 2 * b > n else BIN_TILES
+    65 536 buckets) id slices.  Bins that fit one tile take bin tiles
+    whatever the ids, one block and no cooperative launch over every SM:
+    ``ogb_tree``'s count of a chunk's requests by lead (1000 over 1000)."""
+    return ID_SLICES if 2 * b > n > TILE_BINS else BIN_TILES
 
 
 def histogram_plan(b: int, n: int, sms: int, slice_blocks_per_sm: int) -> dict:

@@ -7,7 +7,11 @@ the card, run them with
 
 They cover the shapes chip_smoke.py does not: ragged catalog sizes, every
 K around the 8-threshold chunk, ids out of range, and run-to-run
-determinism, of the kernels and of whole ogb_tree replays; the histogram's
+determinism, of the kernels and of whole ogb_tree replays (and ogb_tree on
+the card against the CPU, bit for bit); the whole-tree build at every
+radix its tiles plan for, and the batched tree update bit for bit at a
+chunk's shapes, a run of 2000 deltas under one node and in a CUDA graph;
+the histogram's
 two plans at their edges; the standalone apply at every length modulo 4 and
 on views that start mid-vector; both persistent threshold solves (the warm
 projection, with and without its f' epilogue, and the bucket solve) on each
@@ -22,6 +26,7 @@ import torch
 
 import repro_torch
 from repro_torch.cachesim.traces import zipf
+from repro_torch.cachesim.tree_engines import OGB_TREE_BUCKETS
 from repro_torch.jaxcache.fractional import warm_bracket_hi
 from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
 from repro_torch.kernels.capped_simplex.ops import (
@@ -47,10 +52,22 @@ from repro_torch.kernels.prefix_tree.kernel import (
     bucket_masses,
     solve_buckets,
 )
+from repro_torch.kernels.prefix_tree.ops import (
+    EXACT_ANY_ORDER,
+    INPUT_ORDER,
+    first_scratch,
+    tree_build,
+    tree_offsets,
+    tree_sizes,
+    tree_update_,
+    update_order,
+)
 from repro_torch.kernels.prefix_tree.ref import (
     bucket_masses_ref,
     segment_sums_ref,
     solve_buckets_ref,
+    tree_build_ref,
+    tree_update_ref,
 )
 from repro_torch.kernels.scatter_counts.ops import TILE_BINS, design, histogram
 from repro_torch.kernels.scatter_counts.ref import histogram_ref
@@ -159,7 +176,8 @@ def test_run_on_the_card_matches_the_cpu_and_counts_launches(card):
     reset_launch_counts()
     got = repro_torch.run(pd, trace, n, c, window=w)
     assert launch_counts() == {"histogram": 100, "mass": 100, "apply": 100, "segsum": 0,
-                               "bucket_mass": 0, "flash_prefill": 0, "decode_attention": 0}
+                               "tree_update": 0, "bucket_mass": 0, "flash_prefill": 0,
+                               "decode_attention": 0}
     designs = design_counts()
     assert designs["histogram"] == {"bin tiles": 100}
     assert designs["apply"] == {"projection epilogue": 100}
@@ -181,6 +199,152 @@ def test_segsum_matches_plain(card, n, radix):
     got = block_segment_sums(floats, out_size, radix)
     torch.testing.assert_close(got, segment_sums_ref(floats, out_size, radix), rtol=1e-6, atol=0)
     assert torch.equal(block_segment_sums(floats, out_size, radix), got)
+
+
+def _levels_by_segsum(leaves, radix):
+    """The tree as the per-level design built it: one block_segment_sums
+    launch a level, then a concatenation."""
+    parts, cur = [leaves], leaves
+    for size in tree_sizes(leaves.numel(), radix)[1:]:
+        cur = block_segment_sums(cur, size, radix)
+        parts.append(cur)
+    return torch.cat(parts)
+
+
+# (n, radix): the tiny trees; ogb_tree's 65 536 buckets and the catalog's 1e6
+# leaves at radix 64 (4096-leaf tiles, the last block summing the levels
+# above); ragged sizes; radices whose tiles hold 3, 4 or 12 levels, and one
+# whose tile is a single group; a tree of 2442 tiles
+TREE_SHAPES = [(1, 64), (64, 64), (65, 64), (4097, 64), (65536, 64), (1_000_000, 64),
+               (262_145, 64), (1000, 16), (5000, 8), (1000, 2), (70_001, 4096),
+               (10_000_019, 64)]
+
+
+@pytest.mark.parametrize("n,radix", TREE_SHAPES)
+def test_tree_build_matches_plain_in_one_launch(card, n, radix):
+    """Integer trees exact; float trees within 1e-6 relative of the plain
+    version, and bit for bit the per-level design's (each level summed from
+    the float32 level below, in the same order); two runs bit for bit."""
+    gen = torch.Generator().manual_seed(n + radix)
+    ints = torch.randint(0, 50, (n,), generator=gen).to(torch.float32).to(card)
+    if n * 49 >= 1 << 24:  # keep every sum below 2^24, where float32 counts are exact
+        ints = (ints > 47).to(torch.float32)
+    reset_launch_counts()
+    got = tree_build(ints, radix)
+    assert launch_counts()["segsum"] == 1
+    assert design_counts()["segsum"] == {"whole tree, one launch": 1}
+    assert torch.equal(got, tree_build_ref(ints, radix))
+    floats = torch.rand(n, generator=gen).to(card)
+    got = tree_build(floats, radix)
+    torch.testing.assert_close(got, tree_build_ref(floats, radix), rtol=1e-6, atol=0)
+    assert torch.equal(got, _levels_by_segsum(floats, radix))
+    assert torch.equal(tree_build(floats, radix), got)
+
+
+def _update_case(name, seed, card, kind="wide"):
+    """(tree, n, radix, idx, delta) of one update on the card.  Deltas:
+    "wide", float32 over twelve decades, which the card adds in input order;
+    "counts" (+-1) and "values" (0.05 to 2.5 of either sign), whose partial
+    sums are exact, which it adds in any order."""
+    gen = torch.Generator().manual_seed(seed)
+    n, radix, q = 65536, 64, 2000
+    if name == "chunk":  # an ogb_tree chunk: 2B moves over a few dozen buckets, some masked
+        idx = 30_000 + torch.randint(0, 30, (q,), generator=gen)
+        idx[torch.rand(q, generator=gen) < 0.2] = -1
+    elif name == "one node":  # a run of 2000 deltas under one leaf
+        idx = torch.full((q,), 40_000)
+    elif name == "spread":  # every delta its own leaf, nodes of every level shared
+        idx = torch.randperm(n, generator=gen)[:q]
+    elif name == "five levels":
+        n, radix, q = 5000, 8, 1500
+        idx = torch.randint(-2, n, (q,), generator=gen)
+    else:  # many deltas: the walk past a block's share
+        n, radix, q = 1_000_000, 64, 20_000
+        idx = torch.randint(-1, n, (q,), generator=gen)
+    sign = torch.randint(0, 2, (q,), generator=gen) * 2.0 - 1.0
+    delta = {"wide": torch.randn(q, generator=gen) * 10.0 ** (torch.rand(q, generator=gen) * 12 - 8),
+             "counts": sign,
+             "values": sign * (0.05 + 2.45 * torch.rand(q, generator=gen))}[kind]
+    tree = tree_build_ref(torch.rand(n, generator=gen) * 100, radix)
+    return tree.to(card), n, radix, idx.to(card), delta.to(card)
+
+
+@pytest.mark.parametrize("kind,order", [("wide", INPUT_ORDER), ("counts", EXACT_ANY_ORDER),
+                                        ("values", EXACT_ANY_ORDER)])
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("name", ["chunk", "one node", "spread", "five levels", "many"])
+def test_tree_update_equals_plain_bit_for_bit(card, name, index_dtype, kind, order):
+    """The kernel against the plain version on the card and on the CPU,
+    bit for bit, in either order of the adds; nodes no delta reaches
+    unchanged; two runs bit for bit."""
+    tree, n, radix, idx, delta = _update_case(name, len(name), card, kind)
+    idx = idx.to(index_dtype)
+    assert update_order(n, idx, delta) == order
+    reset_launch_counts()
+    got = tree_update_(tree.clone(), n, radix, idx, delta)
+    assert launch_counts()["tree_update"] == 1
+    want = tree_update_ref(tree.clone(), n, radix, idx, delta)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), tree_update_ref(tree.cpu(), n, radix, idx.cpu(), delta.cpu()))
+    assert not torch.equal(got, tree)
+    assert torch.equal(tree_update_(tree.clone(), n, radix, idx, delta), got)
+    assert bool((first_scratch(got.device, tree.numel()) == 2**31 - 1).all())  # left as found
+    touched = torch.zeros(tree.numel(), dtype=torch.bool, device=card)
+    ok = idx >= 0
+    node = idx[ok].long()
+    for off in tree_offsets(n, radix):
+        touched[off + node] = True
+        node = node // radix
+    assert torch.equal(got[~touched], tree[~touched])
+
+
+def test_tree_update_skips_empty_and_masked_calls(card):
+    tree, n, radix, idx, delta = _update_case("chunk", 1, card)
+    before = tree.clone()
+    reset_launch_counts()
+    tree_update_(tree, n, radix, idx[:0], delta[:0])
+    assert launch_counts()["tree_update"] == 0
+    tree_update_(tree, n, radix, torch.full_like(idx, -1), delta)
+    assert launch_counts()["tree_update"] == 1 and torch.equal(tree, before)
+
+
+@pytest.mark.parametrize("kind", ["wide", "counts"])
+def test_tree_update_replays_in_a_cuda_graph(card, kind):
+    """One update captured in a CUDA graph (the step of a later replay
+    loop) replays to the eager result, bit for bit."""
+    tree, n, radix, idx, delta = _update_case("chunk", 2, card, kind)
+    eager = tree_update_(tree.clone(), n, radix, idx, delta)
+    work = tree.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tree_update_(tree.clone(), n, radix, idx, delta)  # builds and loads the library
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tree_update_(work, n, radix, idx, delta)
+    work.copy_(tree)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(work, eager)
+
+
+@pytest.mark.parametrize("batch_hint,chunks", [(4096, 100), (1, 30)])
+def test_ogb_tree_on_the_card_equals_the_cpu_bit_for_bit(card, batch_hint, chunks):
+    """The replay on the card and on the CPU: every threshold step, every
+    hit and the state the solve reads (y, the count trees, the sum tree's
+    leaves) bit for bit, with and without a re-anchor in every chunk."""
+    n, c, w = 200_000, 10_000, 1000
+    trace = zipf(n, chunks * w, seed=5)
+    pd = repro_torch.policy_def("ogb_tree", batch_hint=batch_hint)
+    got = repro_torch.run(pd, trace, n, c, window=w, eta=0.05)
+    want = repro_torch.run(pd, trace, n, c, window=w, eta=0.05, device="cpu")
+    assert got.extras["reanchors"] == want.extras["reanchors"] == (chunks if batch_hint == 1 else 0)
+    np.testing.assert_array_equal(got.aux, want.aux)
+    np.testing.assert_array_equal(got.hits, want.hits)
+    for name in ("y", "ycnt", "dcnt"):
+        assert torch.equal(getattr(got.carry, name).cpu(), getattr(want.carry, name))
+    assert torch.equal(got.carry.ysum[:OGB_TREE_BUCKETS].cpu(), want.carry.ysum[:OGB_TREE_BUCKETS])
 
 
 @pytest.mark.parametrize("k", [1, 7, 8, 12, 63, 64, 65])
@@ -334,19 +498,24 @@ def test_persistent_solves_replay_in_a_cuda_graph(card):
 
 @pytest.mark.parametrize("batch_hint,chunks", [(4096, 200), (1, 50)])
 def test_ogb_tree_two_runs_equal_bit_for_bit(card, batch_hint, chunks):
-    """Two replays on the card agree bit for bit (index_put_ accumulates
+    """Two replays on the card agree bit for bit (every sum of a chunk adds
     in a fixed order); batch_hint=1 re-anchors every chunk here."""
     n, c, w = 200_000, 10_000, 1000
     trace = zipf(n, chunks * w, seed=3)
     pd = repro_torch.policy_def("ogb_tree", batch_hint=batch_hint)
     reset_launch_counts()
     one = repro_torch.run(pd, trace, n, c, window=w, eta=0.05)
-    counts = launch_counts()
+    counts, designs = launch_counts(), design_counts()
     two = repro_torch.run(pd, trace, n, c, window=w, eta=0.05)
     assert counts["bucket_mass"] == chunks
     reanchors = one.extras["reanchors"]
     assert (reanchors == chunks) if batch_hint == 1 else (reanchors == 0)
-    assert counts["segsum"] == 6 * (1 + reanchors)
+    # three trees built at init and at each re-anchor, one launch each;
+    # three tree updates and one request count (a histogram) a chunk
+    assert counts["segsum"] == 3 * (1 + reanchors)
+    assert designs["segsum"] == {"whole tree, one launch": 3 * (1 + reanchors)}
+    assert counts["tree_update"] == 3 * chunks
+    assert counts["histogram"] == chunks + 2 * reanchors
     for name in ("reward", "hits", "aux", "occupancy"):
         np.testing.assert_array_equal(getattr(one, name), getattr(two, name))
     for a, b in zip(one.carry.tensors(), two.carry.tensors()):

@@ -73,8 +73,13 @@ def test_design_picks_bin_tiles_for_the_chunk_and_id_slices_for_a_reanchor():
     assert sc_ops.design(1000, 1_000_000) == sc_ops.BIN_TILES
     assert sc_ops.design(1_000_000, 65536) == sc_ops.ID_SLICES
     assert sc_ops.design(0, 1) == sc_ops.BIN_TILES
+    # past one tile of bins, the ids are sliced once they outnumber half the bins
+    n = sc_ops.TILE_BINS + 2
+    assert sc_ops.design(n // 2, n) == sc_ops.BIN_TILES
+    assert sc_ops.design(n // 2 + 1, n) == sc_ops.ID_SLICES
+    # bins that fit one tile take one bin-tiles block whatever the ids
     assert sc_ops.design(500, 1000) == sc_ops.BIN_TILES
-    assert sc_ops.design(501, 1000) == sc_ops.ID_SLICES
+    assert sc_ops.design(501, 1000) == sc_ops.BIN_TILES
 
 
 def test_histogram_plan():
