@@ -75,7 +75,27 @@ script with a non-zero exit:
    the plain versions on the card: last-token logits and the first greedy
    token after prefill (beside a run with float64 prefill attention, the
    yardstick of how far rounding alone moves the logits), 8 teacher-forced
-   decode steps, and two generate calls on equal prompts.
+   decode steps, and two generate calls on equal prompts;
+16. the slot automaton (LRU, FIFO, LFU, FTPL) against its plain version:
+   each kind at C = 25, 250, 1000 and the design's largest (16 384), zipf
+   and adversarial ids (10 000 a case in 2 launches, from empty slots),
+   and padded carries; hits, stats and the whole carry bit for bit on the
+   card and against the CPU; a larger carry raises; its time a request,
+   cold, at each C, and at the quick scenarios' shape beside its bound and
+   its plain version on the card;
+17. every unsized scenario with a policy set (fig2_adversarial, fig7_ms_ex,
+   fig7_systor, fig8_cdn, fig8_twitter, real_like_cdn, real_like_twitter)
+   through run_scenario on the card: at mini every automaton, ARC and
+   OPT(static) row equal to the committed golden (tests/cachesim/golden,
+   read as data) and the OGB and OMD regrets within its tolerance; at quick
+   every row against the port's CPU run, made meanwhile in worker
+   processes (the automata exactly); one slot_automaton launch a chunk of
+   each automaton row, the OGB row's histogram, mass and apply and the OMD
+   row's histogram once a chunk;
+18. paper scale: fig2_adversarial at full (N = 1000, T = 1e6, C = 250,
+   every row, ARC on the host), held to the figure's claims; fig8_cdn at
+   full (N = 1e6, T = 2e7, C = 50 000, B = 1000) for OGB and OMD, OGB held
+   to a share of OPT(static).
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -128,6 +148,8 @@ REPLACES = {
     "bucket_mass": "src/repro/kernels/prefix_tree/kernel.py:69",
     "flash_prefill": "src/repro/kernels/flash_prefill/kernel.py:29",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:29",
+    # no Pallas kernel: the reference scans the automata's steps with lax.scan
+    "slot_automaton": "src/repro/cachesim/engines.py:160",
 }
 SOURCES = {
     "histogram": "src/repro_torch/kernels/scatter_counts/csrc/histogram.cu",
@@ -138,9 +160,10 @@ SOURCES = {
     "bucket_mass": "src/repro_torch/kernels/prefix_tree/csrc/bucket_mass.cu",
     "flash_prefill": "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
     "decode_attention": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+    "slot_automaton": "src/repro_torch/kernels/slot_automaton/csrc/slot_automaton.cu",
 }
 KERNELS = ("histogram", "mass", "apply", "segsum", "tree_update", "bucket_mass",
-           "flash_prefill", "decode_attention")
+           "flash_prefill", "decode_attention", "slot_automaton")
 #: the one design of each kernel that has one (the others name theirs in
 #: their rows: the attention kernels by design(), the histogram, the clip
 #: and the two threshold solves by the launches of their main path)
@@ -152,16 +175,39 @@ DESIGNS = {
                    "then a warp a node sums its deltas 32 at a time in float64 (in any order where "
                    "every partial sum is exact, checked on the card; else in input order) and "
                    "rounds it once; no sort, untouched nodes unwritten",
+    "slot_automaton": "one block a chunk: the slots spread over its threads in shared memory "
+                      "beside their eviction keys, the requests in order, one block-wide argmin "
+                      "over (key, slot) a request (redux.sync, one __syncthreads; none on one "
+                      "warp); counts a tile of requests at a time",
 }
 #: the design of the standalone apply kernel, which phase 3 times (the dense
 #: main path's clip is the projection's epilogue)
 APPLY_STANDALONE = "standalone: 16-byte body, 2 float4 of f and c in flight a thread"
 DENSE_KERNELS = 21  # device kernels a dense chunk launches (phase 7)
-NO_ATTENTION = {"flash_prefill": 0, "decode_attention": 0}
+#: kernels off the replay paths: serving's attention, the scenario path's automaton
+OFF_PATH = {"flash_prefill": 0, "decode_attention": 0, "slot_automaton": 0}
 #: the port's kernels in the profiler's rows, by the names of their functions
 PORT_KERNEL_NAMES = ("tree_update_kernel", "tree_build_kernel", "bin_tiles_kernel",
                      "solve_buckets_kernel", "project_warm_kernel")
 FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores, NVIDIA's data sheet
+AUTOMATA = ("lru", "fifo", "lfu", "ftpl")
+#: phase 16's capacities (and the design's largest), ids a case and launches
+AUTOMATON_CS, AUTOMATON_IDS, AUTOMATON_CHUNKS = (25, 250, 1000), 10_000, 2
+#: the quick scenarios' shape: N = 20 000, C = 1000, a window of T / 20
+QUICK_N, QUICK_C, QUICK_WINDOW = 20_000, 1000, 10_000
+#: the seven unsized scenarios with a policy set, and their device rows
+SCENARIO_NAMES = ("fig2_adversarial", "fig7_ms_ex", "fig7_systor", "fig8_cdn", "fig8_twitter",
+                  "real_like_cdn", "real_like_twitter")
+DEVICE_POLICIES = ("ogb", "omd", "ftpl", "lru", "lfu", "fifo")
+FRACTIONAL_ROWS = ("OGB", "OMD")
+#: tests/cachesim/test_golden.py's tolerances
+GOLDEN_EXACT, GOLDEN_FLOAT = 1e-12, 5e-3
+#: card against CPU at quick, OGB and OMD: Poisson hits flip where f lies
+#: within rounding of p (at most 1 in 1000 requests), and the fractional
+#: reward sums float32 f's in another order (1e-4 relative)
+QUICK_HIT_TOL, QUICK_FRAC_TOL = 1e-3, 1e-4
+#: fig8_cdn at full: OGB's hit ratio at least this share of OPT(static)'s
+FIG8_OGB_FLOOR = 0.85
 
 
 class Failed(Exception):
@@ -286,18 +332,22 @@ def earlier_solve(torch, cnt, total, cap, lo, hi, iters):
     return call
 
 
-def device_kernels(torch, fn, tries=3):
+def device_kernels(torch, fn, tries=3, most_tries=10):
     """Device kernels that one fn() call runs, from torch.profiler: the most
-    that any of ``tries`` profiled calls shows.  The profiler now and then
-    drops a call's kernel records (PERF.md §7), which can only lower one
-    try's count; a kernel too many shows in every try."""
+    that any of ``tries`` profiled calls shows, trying on (up to
+    ``most_tries``) while every try has shown none.  The profiler now and
+    then drops a call's kernel records (PERF.md §7; three tries in a row
+    once), which can only lower one try's count; a kernel too many shows in
+    every try."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     seen = 0
-    for _ in range(tries):
+    for attempt in range(most_tries):
+        if attempt >= tries and seen:
+            break
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -544,7 +594,7 @@ def check_main_path(torch, trace, eta):
     designs = design_counts()
     m = T // W
     want = {"histogram": m, "mass": m, "apply": m, "segsum": 0, "tree_update": 0,
-            "bucket_mass": 0, **NO_ATTENTION}
+            "bucket_mass": 0, **OFF_PATH}
     f = res.final_f.astype(np.float64)
     print(f"main path: hit_ratio {res.hit_ratio}, frac_hit_ratio {res.frac_hit_ratio}, "
           f"regret {res.regret}, opt_hits {res.opt_hits}, us_per_request "
@@ -998,7 +1048,7 @@ def check_tree_main_path(trace, eta):
     # its requests by lead lane (one bin-tiles histogram)
     want = {"histogram": m + 2 * reanchors, "mass": 0, "apply": 0,
             "segsum": 3 * (1 + reanchors), "tree_update": 3 * m, "bucket_mass": m,
-            **NO_ATTENTION}
+            **OFF_PATH}
     print(f"ogb_tree main path: hit_ratio {res.hit_ratio}, frac_hit_ratio {res.frac_hit_ratio} "
           f"(reference {REF_TREE_FRAC_HIT_RATIO}), regret {res.regret}, us_per_request "
           f"{res.us_per_request}, wall {res.wall_seconds} s, final rho {float(res.carry.rho)}, "
@@ -1114,7 +1164,7 @@ def check_reanchor(torch, trace, eta):
     need(n_re == REANCHOR_CHUNKS, f"forced re-anchor fired {n_re} times")
     want = {"histogram": REANCHOR_CHUNKS + 2 * n_re, "mass": 0, "apply": 0,
             "segsum": 3 * (1 + n_re), "tree_update": 3 * REANCHOR_CHUNKS,
-            "bucket_mass": REANCHOR_CHUNKS, **NO_ATTENTION}
+            "bucket_mass": REANCHOR_CHUNKS, **OFF_PATH}
     need(launches == want, f"forced re-anchor launches {launches}, expected {want}")
     _same_runs(torch, one, two, "forced re-anchor two runs")
     short = part[: REANCHOR_CPU_CHUNKS * W]
@@ -1609,6 +1659,261 @@ def check_served_against_plain(torch, engine, prompts, first_out):
     print(f"two generate calls on equal prompts: equal tokens ({again.size})")
 
 
+# -- the scenario path (phases 16-18) ---------------------------------------
+
+def cpu_quick_rows(name):
+    """Phase 17's CPU side, in a worker process: ``run_scenario`` at quick
+    on the CPU (every kernel's plain version), the device rows only."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.cachesim.scenarios import run_scenario
+
+    return run_scenario(name, "quick", policies=DEVICE_POLICIES, device="cpu").rows
+
+
+def start_cpu_quick():
+    """Start phase 17's CPU runs, one worker process a scenario (spawned:
+    no CUDA in them), so that they overlap the card's phases 16-17."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(SCENARIO_NAMES), mp_context=multiprocessing.get_context("spawn"))
+    return pool, {name: pool.submit(cpu_quick_rows, name) for name in SCENARIO_NAMES}
+
+
+def automaton_case(kind, n, c, n_slots, trace, dev):
+    """The initial carry (empty slots; FTPL its noise's top C) of one case,
+    on the CPU and on ``dev``."""
+    from repro_torch.cachesim.engines import init_engine_carry
+
+    cpu = init_engine_carry(kind, n, c, n_slots=n_slots, horizon=len(trace), device="cpu")
+    return cpu, type(cpu)(*(x.to(dev, copy=True) for x in cpu))
+
+
+def run_automaton(fn, kind, carry, ids, chunks):
+    """``chunks`` launches of ``fn`` (the wrapper or its plain version) over
+    ``ids``; the chunks' hits and stats."""
+    from repro_torch.cachesim.engines import automaton_args
+
+    out = []
+    for part in ids.chunk(chunks):
+        hits, stats = fn(kind, *automaton_args(kind, carry), part)
+        out.append((int(hits), float(stats[0]), float(stats[1]), float(stats[2])))
+    return out
+
+
+def automaton_bytes(kind, k, n, w):
+    """Bytes one chunk must move: the ids read, the slots and their stamps
+    or ticks read and written, the counts (lfu, ftpl) read and written and
+    the noise (ftpl) read once, the clock and three outputs."""
+    counted = kind in ("lfu", "ftpl")
+    return (4 * w + 2 * 4 * k * (1 + (kind != "ftpl")) + 2 * 4 * n * counted
+            + 4 * n * (kind == "ftpl") + 8 + 16)
+
+
+def check_slot_automaton(torch, dev):
+    """Phase 16: the slot automaton against its plain version, bit for bit,
+    on the card and against the CPU; then its time a request, cold."""
+    from repro_torch.cachesim.engines import automaton_args
+    from repro_torch.cachesim.traces import adversarial, zipf
+    from repro_torch.kernels.slot_automaton.ops import MAX_SLOTS, plan, slot_automaton
+    from repro_torch.kernels.slot_automaton.ref import slot_automaton_ref
+
+    cases = []
+    for kind in AUTOMATA:
+        for c in AUTOMATON_CS + (MAX_SLOTS,):
+            n = max(4 * c, 2000)
+            cases.append((kind, c, None, "zipf", zipf(n, AUTOMATON_IDS, alpha=0.9, seed=c)))
+            cases.append((kind, c, None, "adversarial", adversarial(4 * c, AUTOMATON_IDS, seed=c)))
+        for c in (250, 1000):  # padded: n_slots > C, the inactive slots never touched
+            cases.append((kind, c, c + 37, "zipf", zipf(4 * c, AUTOMATON_IDS, alpha=0.9, seed=7)))
+    n_hits = 0
+    for kind, c, n_slots, name, trace in cases:
+        n = int(trace.max()) + 1
+        cpu, card = automaton_case(kind, n, c, n_slots, trace, dev)
+        _, plain = automaton_case(kind, n, c, n_slots, trace, dev)
+        ids = torch.from_numpy(trace.astype("int32"))
+        got = run_automaton(slot_automaton, kind, card, ids.to(dev), AUTOMATON_CHUNKS)
+        want = run_automaton(slot_automaton_ref, kind, plain, ids.to(dev), AUTOMATON_CHUNKS)
+        on_cpu = run_automaton(slot_automaton, kind, cpu, ids, AUTOMATON_CHUNKS)
+        label = f"slot_automaton {kind} C={c} n_slots={n_slots or c} {name}"
+        need(got == want == on_cpu, f"{label}: hits or stats differ: {got} {want} {on_cpu}")
+        for field, a, b, h in zip(card._fields, card, plain, cpu):
+            need(torch.equal(a, b) and torch.equal(a.cpu(), h), f"{label}: carry {field} differs")
+        if n_slots:
+            need(bool((card.slots[c:] == -2).all()), f"{label}: an inactive slot was written")
+        n_hits += sum(h for h, *_ in got)
+    print(f"slot_automaton: {len(cases)} cases (4 kinds x C in {AUTOMATON_CS + (MAX_SLOTS,)}, "
+          f"zipf and adversarial, and padded carries), {AUTOMATON_IDS} ids in "
+          f"{AUTOMATON_CHUNKS} launches each from empty slots: hits, stats and the whole carry "
+          f"bit for bit against the plain version on the card and on the CPU ({n_hits} hits)")
+    too_big = automaton_case("lru", 2 * MAX_SLOTS, MAX_SLOTS + 1, None, [0], dev)[1]
+    try:
+        slot_automaton("lru", too_big.slots, too_big.stamps, None, None, too_big.t,
+                       torch.zeros(4, dtype=torch.int32, device=dev))
+    except ValueError as exc:
+        need("tree automata" in str(exc), f"the size limit's message: {exc}")
+        print(f"C = {MAX_SLOTS + 1} on the card raises: {exc}")
+    else:
+        raise Failed(f"slot_automaton took {MAX_SLOTS + 1} slots")
+
+    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    rows, by_c = {}, {}
+    w = QUICK_WINDOW
+    for kind in AUTOMATA:
+        for c in AUTOMATON_CS + (MAX_SLOTS,):
+            n = QUICK_N if c <= 1000 else 4 * MAX_SLOTS
+            trace = zipf(n, w, alpha=0.9, seed=5)
+            _, card = automaton_case(kind, n, c, None, trace, dev)
+            ids = torch.from_numpy(trace.astype("int32")).to(dev)
+            args = (kind, *automaton_args(kind, card), ids)
+            ms = timed_ms(torch, lambda: slot_automaton(*args), 5, flush)
+            b, by = bound_ms(automaton_bytes(kind, c, n, w), 0)
+            by_c.setdefault(kind, {})[c] = ms * 1e3 / w
+            if c != QUICK_C:
+                continue
+            warm_ms = timed_ms(torch, lambda: slot_automaton(*args), 5)
+            _, fresh = automaton_case(kind, n, c, None, trace, dev)
+            plain_args = (kind, *automaton_args(kind, fresh), ids)
+            plain_ms = timed_ms(torch, lambda: slot_automaton_ref(*plain_args), 1, flush)
+            rows[kind] = {"ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": b,
+                          "bound_by": by, "us_per_request": ms * 1e3 / w,
+                          "plain_us_per_request": plain_ms * 1e3 / w, "plan": plan(c)}
+            print(f"slot_automaton {kind}, quick's shape (C={c}, N={n}, window {w}): cold "
+                  f"{ms * 1e3:.2f} us ({ms * 1e3 / w:.4f} us a request), warm "
+                  f"{warm_ms * 1e3:.2f} us; plain on the card {plain_ms * 1e3:.2f} us "
+                  f"({plain_ms * 1e3 / w:.3f} us a request); bound {b * 1e3:.4f} us by {by}; "
+                  f"plan {plan(c)}")
+    for kind, per in by_c.items():
+        print(f"slot_automaton {kind}: us a request, cold, at C = "
+              + ", ".join(f"{c}: {us:.4f}" for c, us in per.items()))
+    main = rows["lfu"]
+    return {"ms": main["ms"], "warm_ms": main["warm_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+            "max_abs_err": 0.0, "timed": f"lfu at quick's shape: C={QUICK_C}, N={QUICK_N}, "
+            f"window {w}", "by_kind": rows, "us_per_request_by_c": by_c}
+
+
+def _golden_rows(name):
+    return json.loads((ROOT / "tests" / "cachesim" / "golden" / f"{name}.json").read_text())
+
+
+def _scenario_launches(name, scale, want_launches=True):
+    """run_scenario on the card with every launch counted; checks one
+    slot_automaton launch a chunk of each automaton row, and the OGB and
+    OMD rows' histogram, mass and apply launches."""
+    from repro_torch.cachesim.scenarios import get_scenario, run_scenario
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    sc = get_scenario(name)
+    n, t, c = sc.dims(scale)
+    w, batch = max(t // 20, 1), min(sc.batch, max(t // 20, 1))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_scenario(name, scale, device="cuda")
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    chunks = t // batch
+    want = {k: 0 for k in got}
+    want.update({"slot_automaton": 4 * (t // w), "histogram": 2 * chunks, "mass": chunks,
+                 "apply": chunks})
+    need(got == want, f"{name} {scale}: launches {got}, expected {want}")
+    return res, got, wall
+
+
+def check_scenarios(torch, cpu_futures):
+    """Phase 17: every unsized scenario with a policy set through
+    run_scenario on the card: at mini against the committed goldens, at
+    quick against the port's CPU run (phase 17's workers)."""
+    total = {}
+    for name in SCENARIO_NAMES:
+        res, _, wall = _scenario_launches(name, "mini")
+        golden = _golden_rows(name)
+        need(res.rows.keys() == golden["rows"].keys(), f"{name} mini: rows {sorted(res.rows)}")
+        for policy, entry in golden["rows"].items():
+            for metric, want in entry.items():
+                got = round(res.rows[policy][metric], 10 if metric == "hit_ratio" else 6)
+                if metric == "hit_ratio" and policy in FRACTIONAL_ROWS:
+                    continue  # the Poisson p is the port's own (CPU tests: the reference's)
+                tol = (GOLDEN_EXACT if metric == "hit_ratio"
+                       else max(GOLDEN_FLOAT * golden["T"], abs(want) * 5e-3))
+                need(abs(got - want) <= tol, f"{name} mini {policy} {metric}: {got} != {want}")
+        print(f"{name} mini on the card: {len(golden['rows'])} rows against the golden (automata, "
+              f"ARC, OPT exact; OGB/OMD regret within tolerance) in {wall:.2f} s")
+    for name in SCENARIO_NAMES:
+        res, got, wall = _scenario_launches(name, "quick")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        cpu = cpu_futures[name].result(timeout=900)
+        for policy, row in cpu.items():
+            card = res.rows[policy]
+            if policy in FRACTIONAL_ROWS:
+                dh = abs(card["hit_ratio"] - row["hit_ratio"])
+                df = abs(card["frac_hit_ratio"] - row["frac_hit_ratio"]) / row["frac_hit_ratio"]
+                need(dh <= QUICK_HIT_TOL and df <= QUICK_FRAC_TOL,
+                     f"{name} quick {policy}: card vs CPU hit ratio {dh}, frac rel {df}")
+            else:
+                need(card["hit_ratio"] == row["hit_ratio"],
+                     f"{name} quick {policy}: card {card['hit_ratio']} != CPU {row['hit_ratio']}")
+        line = ", ".join(f"{p} {r['hit_ratio']:.4f}" for p, r in sorted(res.rows.items()))
+        us = ", ".join(f"{p} {r['us_per_request']:.4f}" for p, r in sorted(res.rows.items())
+                       if "us_per_request" in r)
+        print(f"{name} quick on the card ({wall:.2f} s): {line}; us a request: {us}; "
+              f"equal to the CPU run (automata exactly; OGB/OMD hit ratio within "
+              f"{QUICK_HIT_TOL}, fractional within {QUICK_FRAC_TOL} relative)")
+    print(f"quick scenarios' launches: {total}")
+    return total
+
+
+def check_paper_scale(torch):
+    """Phase 18: fig2_adversarial at full (every row, ARC too) and
+    fig8_cdn at full for OGB and OMD."""
+    from repro_torch.cachesim.scenarios import get_scenario, run_scenario
+
+    sc = get_scenario("fig2_adversarial")
+    n, t, c = sc.dims("full")
+    t0 = time.perf_counter()
+    res = run_scenario("fig2_adversarial", "full", device="cuda")
+    opt = c / n
+    print(f"fig2_adversarial full (N={n}, T={t}, C={c}), {time.perf_counter() - t0:.2f} s: "
+          + ", ".join(f"{p} hit {r['hit_ratio']:.4f}" + (f" ({r['us_per_request']:.4f} us/req)"
+                                                       if "us_per_request" in r else "")
+                      for p, r in sorted(res.rows.items())))
+    need(res.skipped == (), f"fig2 full skipped {res.skipped}")
+    for p in ("OGB", "OMD"):
+        need(res.rows[p]["hit_ratio"] > 0.7 * opt, f"fig2 full: {p} not above 0.7 C/N")
+    for p in ("LRU", "LFU"):
+        need(res.rows[p]["hit_ratio"] < 0.2 * opt, f"fig2 full: {p} not below 0.2 C/N")
+    print(f"fig2 claims (benchmarks/fig2_adversarial.py): OGB and OMD above 0.7 C/N = "
+          f"{0.7 * opt:.4f}, LRU and LFU below 0.2 C/N = {0.2 * opt:.4f}: met")
+
+    sc = get_scenario("fig8_cdn")
+    n, t, c = sc.dims("full")
+    t0 = time.perf_counter()
+    trace = sc.make_trace("full")
+    print(f"fig8_cdn full: trace N={n} T={t} in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    res = run_scenario("fig8_cdn", "full", policies=("ogb", "omd"), trace=trace, device="cuda")
+    opt = res.rows["OPT(static)"]["hit_ratio"]
+    for p in ("OGB", "OMD"):
+        r = res.rows[p]
+        print(f"fig8_cdn full {p}: hit ratio {r['hit_ratio']}, fractional {r['frac_hit_ratio']}, "
+              f"regret {r['regret']}, {r['us_per_request']} us a request")
+        need(math.isfinite(r["regret"]) and 0.0 < r["hit_ratio"] < 1.0, f"fig8 full {p}: {r}")
+    need(res.rows["OGB"]["hit_ratio"] >= FIG8_OGB_FLOOR * opt,
+         f"fig8 full: OGB {res.rows['OGB']['hit_ratio']} below {FIG8_OGB_FLOOR} OPT(static) {opt}")
+    print(f"fig8_cdn full: OPT(static) {opt}; OGB at least {FIG8_OGB_FLOOR} of it: met "
+          f"({time.perf_counter() - t0:.2f} s); the automata at C = {c} wait for the tree "
+          f"automata (ROADMAP.md item 5: the slot kernel holds at most 16384 slots)")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -1663,11 +1968,24 @@ def main() -> int:
     engine, prompts, first_out, serve_launches = serve_full_width(torch, dev)
     serve_breakdown(torch, engine, prompts)
     check_served_against_plain(torch, engine, prompts, first_out)
+    del engine
+
+    t_scenarios = time.perf_counter()
+    pool, cpu_futures = start_cpu_quick()
+    try:
+        rows["slot_automaton"] = check_slot_automaton(torch, dev)
+        scenario_launches = check_scenarios(torch, cpu_futures)
+        check_paper_scale(torch)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    print(f"scenario phases 16-18: {time.perf_counter() - t_scenarios:.2f} s")
 
     # launches: the dense main path's for its kernels, the lazy main path's
     # for the prefix-tree kernels (segsum also ran 1 a chunk on madow_tree)
     launches.update({k: tree_launches[k] for k in ("segsum", "tree_update", "bucket_mass")})
     launches.update({k: serve_launches[k] for k in ("flash_prefill", "decode_attention")})
+    # the slot automaton's: the seven quick scenarios on the card (phase 17)
+    launches["slot_automaton"] = scenario_launches["slot_automaton"]
     # the redesigned kernels name the design their main path launched
     for name in ("mass", "histogram", "apply"):
         rows[name]["design"] = " + ".join(designs[name])

@@ -1,11 +1,19 @@
-"""The policy protocol and the replay loop, for the OGB policy.
+"""The policy protocol and the replay loop.
 
 Counterpart of ``repro.cachesim.api``: a :class:`PolicyDef` is an
 ``(init, step)`` pair whose carry holds the policy state and its parameters
 (eta, capacity, sampling randomness) as tensors, and :func:`run` replays a
-trace through it.  Ported so far: ``policy_def("ogb")`` with Poisson,
-Madow (``madow``, ``madow_tree``) or no sampling, and the lazy bucketized
-``policy_def("ogb_tree")``.
+trace through it.  Registered kinds (:func:`policy_def_kinds`):
+
+* ``ogb`` with Poisson, Madow (``madow``, ``madow_tree``) or no sampling,
+  and the lazy bucketized ``ogb_tree``;
+* ``omd``, negative-entropy mirror descent (:mod:`.engines`);
+* the slot automata ``lru``, ``fifo``, ``lfu`` and ``ftpl``, one launch of
+  the slot-automaton kernel a chunk.  The reference defaults ``lru``,
+  ``lfu`` and ``ftpl`` to its O(log) tree automata (``impl="tree"``), whose
+  hit sequences are bit-identical to the dense ones; until the port has
+  them (ROADMAP.md §1 item 5) these kinds resolve to the dense automaton,
+  and ``impl="tree"`` raises ``NotImplementedError``.
 
 The reference's ``lax.scan`` becomes a Python loop over chunks on the
 device.  Per-chunk outputs go into preallocated device tensors, and
@@ -24,21 +32,25 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.cachesim import engines as _engines
 from repro_torch.cachesim import tree_engines as _tree
 from repro_torch.cachesim.replay import MADOW_SAMPLES, _make_ogb_step, sampling_keys
 from repro_torch.cachesim.tree_engines import OGBTreeCarry
 from repro_torch.cachesim.results import RunResult
 from repro_torch.core.ogb import theoretical_eta
+from repro_torch.core.omd import theoretical_eta_omd
 from repro_torch.core.regret import best_static_hits
 from repro_torch.jaxcache.fractional import DEFAULT_BISECT_ITERS, DEFAULT_WARM_SWEEPS
 
 __all__ = [
     "OGBCarry",
     "OGBTreeCarry",
+    "OMDApiCarry",
     "PolicyDef",
     "StepOut",
     "carry_from_numpy",
     "policy_def",
+    "policy_def_kinds",
     "run",
 ]
 
@@ -46,8 +58,9 @@ __all__ = [
 class StepOut(NamedTuple):
     """Per-chunk observables of a policy step, 0-d tensors on the device.
 
-    ``reward`` is the pre-update fractional reward (OCO order); ``aux`` is
-    the projection threshold tau."""
+    ``reward`` is the pre-update fractional reward (OCO order), the hits
+    for the automata; ``aux`` is the projection threshold (tau for OGB,
+    lambda for OMD, 0 for the automata)."""
 
     reward: torch.Tensor  # () float32
     hits: torch.Tensor  # () int32
@@ -67,9 +80,33 @@ class OGBCarry(NamedTuple):
     t: torch.Tensor  # () int32 chunk counter
 
     @property
-    def catalog(self) -> torch.Tensor:
-        """The (N,) per-item state, for the catalog size and device."""
-        return self.f
+    def device(self) -> torch.device:
+        return self.f.device
+
+    @property
+    def catalog_size(self) -> int:
+        return self.f.shape[0]
+
+
+class OMDApiCarry(NamedTuple):
+    """OMD log-weight state with its parameters, all tensors on one device."""
+
+    f: torch.Tensor  # (N,) float32 fractional state
+    w: torch.Tensor  # (N,) float32 log-weights (renormalized every chunk)
+    lam: torch.Tensor  # () float32 last KL-projection threshold
+    eta: torch.Tensor  # () float32
+    cap: torch.Tensor  # () float32
+    p: torch.Tensor  # (N,) permanent random numbers (poisson) or (0,)
+    u_key: torch.Tensor  # () int64 key of the per-chunk Madow offsets
+    t: torch.Tensor  # () int32 chunk counter
+
+    @property
+    def device(self) -> torch.device:
+        return self.f.device
+
+    @property
+    def catalog_size(self) -> int:
+        return self.f.shape[0]
 
 
 @dataclass(frozen=True)
@@ -80,8 +117,10 @@ class PolicyDef:
     ``step(carry, ids) -> (carry, StepOut)``.  ``default_eta`` resolves
     ``eta=None`` at :func:`run` time from ``(catalog_size, capacity,
     horizon, window)``.  ``start(carry) -> carry``, where given, prepares
-    the carry a run starts from (``ogb_tree``: a private copy, since its
-    step updates in place, and the host's re-anchor bound).
+    the carry a run starts from (a private copy where the step updates in
+    place: ``ogb_tree``, with the host's re-anchor bound, and the
+    automata).  ``fractional`` policies are scored by their fractional
+    reward (regret); ``trace_driven`` steps take request-id chunks.
     """
 
     kind: str
@@ -90,6 +129,8 @@ class PolicyDef:
     step: Callable[[Any, torch.Tensor], Tuple[Any, StepOut]]
     default_eta: Optional[Callable[[int, int, int, int], float]] = None
     start: Optional[Callable[[Any], Any]] = None
+    fractional: bool = False
+    trace_driven: bool = True
 
 
 _GOLDEN64 = 0x9E3779B97F4A7C15
@@ -129,8 +170,9 @@ def _ogb_def(
     raw = _make_ogb_step(sample, projection, sweeps, iters, madow_capacity)
     madow = sample in MADOW_SAMPLES
 
-    def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, device=None):
-        del horizon  # eta is resolved by run(); kept for the reference's signature
+    def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
+             device=None):
+        del horizon, n_slots  # eta is resolved by run(); kept for the reference's signature
         if eta is None:
             raise ValueError("ogb init needs eta (run() resolves eta=None)")
         if madow and int(madow_capacity) != int(capacity):
@@ -167,6 +209,7 @@ def _ogb_def(
         step=step,
         # Theorem 3.1 tuning at B=1, as the reference's default
         default_eta=lambda N, C, T, W: theoretical_eta(C, N, T, 1),
+        fractional=True,
     )
 
 
@@ -191,8 +234,9 @@ def _ogb_tree_def(
             "use policy_def('ogb', sample='madow_tree', ...) for Madow"
         )
 
-    def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, device=None):
-        del horizon  # eta is resolved by run(); kept for the reference's signature
+    def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
+             device=None):
+        del horizon, n_slots  # eta is resolved by run(); kept for the reference's signature
         if eta is None:
             raise ValueError("ogb_tree init needs eta (run() resolves eta=None)")
         return _tree.init_ogb_tree_carry(
@@ -212,10 +256,111 @@ def _ogb_tree_def(
         step=step,
         default_eta=lambda N, C, T, W: theoretical_eta(C, N, T, 1),
         start=_tree.start_run,
+        fractional=True,
     )
 
 
-_POLICY_DEFS = {"ogb": _ogb_def, "ogb_tree": _ogb_tree_def}
+def _omd_def(
+    sample: str = "poisson",
+    sweeps: int = _engines.DEFAULT_OMD_SWEEPS,
+    madow_capacity: Optional[int] = None,
+) -> PolicyDef:
+    """Online mirror descent (Si Salem et al.): the log-weight step through
+    the histogram kernel and the KL projection's safeguarded Newton sweeps
+    in PyTorch (:func:`repro_torch.cachesim.engines._make_omd_step`)."""
+    raw = _engines._make_omd_step(sample, sweeps, madow_capacity)
+    madow = sample in MADOW_SAMPLES
+
+    def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
+             device=None):
+        del horizon, n_slots  # eta is resolved by run(); kept for the reference's signature
+        if eta is None:
+            raise ValueError("omd init needs eta (run() resolves eta=None)")
+        if madow and int(madow_capacity) != int(capacity):
+            raise ValueError(
+                f"madow needs a static capacity: policy_def('omd', "
+                f"sample={sample!r}, madow_capacity={capacity}) "
+                f"(got {madow_capacity})"
+            )
+        dev = resolve_device(device)
+        p, u_key = sampling_keys(seed, catalog_size, sample, dev)
+        f, w, lam = _engines.init_omd_carry(catalog_size, capacity, dev)
+        return OMDApiCarry(
+            f=f, w=w, lam=lam,
+            eta=torch.tensor(float(eta), dtype=torch.float32, device=dev),
+            cap=torch.tensor(float(capacity), dtype=torch.float32, device=dev),
+            p=p, u_key=u_key, t=torch.zeros((), dtype=torch.int32, device=dev),
+        )
+
+    def step(carry, ids):
+        u = _chunk_u(carry.u_key, carry.t) if madow else None
+        state = _engines.OMDCarry(carry.f, carry.w, carry.lam)
+        (f, w, lam), (reward, hits, lam_o, occ) = raw(carry.eta, carry.p, carry.cap, state,
+                                                      ids, u)
+        carry = carry._replace(f=f, w=w, lam=lam, t=carry.t + 1)
+        return carry, StepOut(reward, hits, lam_o, occ)
+
+    return PolicyDef(
+        kind="omd",
+        name="OMD",
+        init=init,
+        step=step,
+        # Si Salem et al. tuning at the replay batch size, as the reference
+        default_eta=lambda N, C, T, W: theoretical_eta_omd(C, N, T, W),
+        fractional=True,
+    )
+
+
+def _private_copy(carry):
+    """A copy of an automaton's carry for a run to update in place."""
+    return type(carry)(*(x.clone() for x in carry))
+
+
+def _automaton_def(kind: str, zeta: Optional[float] = None,
+                   impl: Optional[str] = None) -> PolicyDef:
+    """A slot automaton: one launch of the slot-automaton kernel a chunk,
+    which updates the carry in place (a run starts from a private copy).
+
+    ``impl`` is the reference's switch between its tree automata (its
+    default for lru, lfu and ftpl) and the dense slot automaton; both give
+    bit-identical hit sequences.  The port has the dense one only, so
+    ``impl=None`` and ``"dense"`` run it and ``"tree"`` raises until the
+    tree automata land (ROADMAP.md §1 item 5)."""
+    if impl == "tree":
+        raise NotImplementedError(
+            f"policy_def({kind!r}, impl='tree'): the tree automata are not ported yet "
+            "(ROADMAP.md §1 item 5); impl='dense' gives the same hits"
+        )
+    if impl not in (None, "dense"):
+        raise ValueError(f"unknown automaton impl {impl!r}")
+    def_zeta = zeta
+
+    def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
+             zeta=None, device=None):
+        del eta  # the automata have no learning rate
+        return _engines.init_engine_carry(
+            kind, catalog_size, capacity, n_slots=n_slots, seed=seed,
+            zeta=zeta if zeta is not None else def_zeta, horizon=horizon, device=device,
+        )
+
+    def step(carry, ids):
+        carry, (hits, stats) = _engines.automaton_chunk(kind, carry, ids)
+        return carry, StepOut(stats[0], hits, stats[1], stats[2])
+
+    return PolicyDef(kind=kind, name=kind.upper(), init=init, step=step, start=_private_copy)
+
+
+_POLICY_DEFS = {
+    "ogb": _ogb_def,
+    "ogb_tree": _ogb_tree_def,
+    "omd": _omd_def,
+    **{k: functools.partial(_automaton_def, k) for k in _engines.ENGINE_KINDS},
+}
+
+
+def policy_def_kinds() -> tuple:
+    """All registered kind strings."""
+    return tuple(_POLICY_DEFS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -230,7 +375,11 @@ def policy_def(kind: str, **options) -> PolicyDef:
     projection="warm"|"bisect", sweeps=5, iters=50, madow_capacity=C)``
     (the Madow modes need ``madow_capacity``, the run's capacity);
     ``policy_def("ogb_tree", sample="poisson"|"none", buckets=65536,
-    radix=64, iters=30, batch_hint=4096)``.
+    radix=64, iters=30, batch_hint=4096)``;
+    ``policy_def("omd", sample=..., sweeps=10, madow_capacity=C)``;
+    ``policy_def(k, impl=None|"dense")`` for the automata k in ``lru``,
+    ``fifo``, ``lfu`` and ``ftpl`` (``ftpl`` also takes ``zeta``; by default
+    it is tuned to the run's horizon).
     """
     kind = kind.lower()
     if kind not in _POLICY_DEFS:
@@ -244,11 +393,12 @@ def carry_from_numpy(d: Mapping[str, np.ndarray], device: DeviceLike = None):
     """A carry from the reference's carry leaves as numpy arrays.
 
     Leaves ``y, rho, ..., dcnt`` (the reference's ``OGBTreeCarry``) give an
-    :class:`OGBTreeCarry`; leaves ``f, tau, eta, cap, p, u_key, t`` (its
-    ``OGBCarry``) an :class:`OGBCarry`, with the (2,) uint32 Madow key data
-    packed into the port's int64 key.  This is how a run is started from
-    the reference's own Poisson ``p``, whose random stream PyTorch cannot
-    reproduce.
+    :class:`OGBTreeCarry`; leaves ``f, w, lam, eta, cap, p, u_key, t`` (its
+    ``OMDApiCarry``) an :class:`OMDApiCarry`; leaves ``f, tau, eta, cap, p,
+    u_key, t`` (its ``OGBCarry``) an :class:`OGBCarry`; the (2,) uint32
+    Madow key data is packed into the port's int64 key.  This is how a run
+    is started from the reference's own Poisson ``p``, whose random stream
+    PyTorch cannot reproduce.
     """
     dev = resolve_device(device)
 
@@ -270,13 +420,25 @@ def carry_from_numpy(d: Mapping[str, np.ndarray], device: DeviceLike = None):
         )
     words = np.asarray(d.get("u_key", np.zeros(2, np.uint32)), np.uint64).reshape(-1)
     key = int((words[0] << np.uint64(32)) | words[-1]) if words.size else 0
+    u_key = torch.tensor(_i64(key), dtype=torch.int64, device=dev)
+    if "lam" in d:
+        return OMDApiCarry(
+            f=put("f", torch.float32),
+            w=put("w", torch.float32),
+            lam=put("lam", torch.float32).reshape(()),
+            eta=put("eta", torch.float32).reshape(()),
+            cap=put("cap", torch.float32).reshape(()),
+            p=put("p", torch.float32),
+            u_key=u_key,
+            t=put("t", torch.int32).reshape(()),
+        )
     return OGBCarry(
         f=put("f", torch.float32),
         tau=put("tau", torch.float32).reshape(()),
         eta=put("eta", torch.float32).reshape(()),
         cap=put("cap", torch.float32).reshape(()),
         p=put("p", torch.float32),
-        u_key=torch.tensor(_i64(key), dtype=torch.int64, device=dev),
+        u_key=u_key,
         t=put("t", torch.int32).reshape(()),
     )
 
@@ -292,6 +454,7 @@ def run(
     seed: int = 0,
     eta: Optional[float] = None,
     horizon: Optional[int] = None,
+    n_slots: Optional[int] = None,
     track_opt: bool = True,
     keep_carry: bool = True,
     device: DeviceLike = None,
@@ -299,9 +462,14 @@ def run(
     """Replay a trace through one policy, chunk by chunk on the device.
 
     The trace is cut into ``T // window`` chunks of ``window`` requests (a
-    trailing partial chunk is dropped); ``window`` is the OGB update batch
-    B.  ``eta=None`` resolves through ``pd.default_eta`` for the replayed
-    horizon.  ``device=None`` is the CUDA card, and raises without one;
+    trailing partial chunk is dropped); ``window`` is the OGB/OMD update
+    batch B and the automata's hit-accounting granularity.  ``eta=None``
+    resolves through ``pd.default_eta`` for the replayed horizon;
+    ``horizon`` (default: the replayed length) tunes FTPL's noise;
+    ``n_slots`` > capacity pads an automaton's slots with inactive ones.
+    Trace ids must lie in ``[0, N)``; LRU and FIFO carries hold no catalog
+    size, so a resumed run of theirs checks against ``catalog_size`` where
+    given, else only that ids are not negative.  ``device=None`` is the CUDA card, and raises without one;
     ``device="cpu"`` runs the kernels' plain versions.  For ``ogb_tree``
     the result's ``extras`` holds ``host_syncs`` (steps that read the
     device to decide a re-anchor) and ``reanchors``.
@@ -331,24 +499,25 @@ def run(
             seed=seed,
             eta=eta,
             horizon=int(horizon) if horizon is not None else t_used,
+            n_slots=n_slots,
             device=dev,
         )
         if eta is not None:
             extras["eta"] = float(eta)
-    elif eta is not None or horizon is not None or seed != 0:
+    elif eta is not None or horizon is not None or n_slots is not None or seed != 0:
         # a resumed run takes every policy parameter from the carry; a
         # silently ignored eta or seed would mislabel the result
         raise ValueError(
             "run(carry=...) resumes with the carry's parameters; do not pass "
-            "seed/eta/horizon alongside a carry"
+            "seed/eta/horizon/n_slots alongside a carry"
         )
-    elif carry.catalog.device != dev:
-        raise ValueError(f"carry is on {carry.catalog.device}, run was asked for {dev}")
+    elif carry.device != dev:
+        raise ValueError(f"carry is on {carry.device}, run was asked for {dev}")
     if pd.start is not None:
         carry = pd.start(carry)
-    n = carry.catalog.shape[0]
+    n = carry.catalog_size if carry.catalog_size is not None else catalog_size
     lo, hi = int(trace_used.min()), int(trace_used.max())
-    if lo < 0 or hi >= n:
+    if lo < 0 or (n is not None and hi >= n):
         raise ValueError(f"trace ids must lie in [0, {n}), got [{lo}, {hi}]")
     chunks = torch.from_numpy(trace_used.astype(np.int32).reshape(m, window)).to(dev)
 

@@ -100,9 +100,12 @@ class OGBTreeCarry(NamedTuple):
     host: Optional[TreeHost] = None
 
     @property
-    def catalog(self) -> torch.Tensor:
-        """The (N,) per-item state, for the catalog size and device."""
-        return self.y
+    def device(self) -> torch.device:
+        return self.y.device
+
+    @property
+    def catalog_size(self) -> int:
+        return self.y.shape[0]
 
     def tensors(self) -> tuple:
         """The tensor leaves, without the host-side bound."""

@@ -1,13 +1,20 @@
-"""Host caching policies of the serving path, copied from ``repro.core.policies``.
+"""Host caching policies, copied from ``repro.core.policies``.
 
-Each exposes the simulator interface ``request(i) -> hit``, ``contains(i)``,
-``occupancy()`` and ``batch_end()``.  The port carries the paper's OGB and
-LRU; the other kinds of ``repro``'s registry are not ported yet.
+LRU, FIFO, LFU and ARC (Megiddo & Modha 2003), and the paper's OGB and FTPL
+by lazy loaders.  Each exposes the simulator interface ``request(i) -> hit``,
+``contains(i)``, ``occupancy()`` and ``batch_end()``.  The serving path's page
+pool decides with OGB or LRU; ARC is the scenario harness's host oracle
+(:func:`repro_torch.cachesim.simulator.simulate`); LRU, FIFO, LFU and FTPL
+are the oracles the tests hold the slot automata against.  ``gds`` and the
+classic OGB/OMD oracles wait for the sized slice.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
+from typing import Dict
+
+from .treap import make_store
 
 
 class _Base:
@@ -53,16 +60,175 @@ class LRU(_Base):
         return self._account(hit)
 
 
+class FIFO(_Base):
+    name = "FIFO"
+    __slots__ = ("_od",)
+
+    def __init__(self, catalog_size: int, capacity: int, **kw):
+        super().__init__(catalog_size, capacity)
+        self._od: "OrderedDict[int, None]" = OrderedDict()
+
+    def contains(self, i: int) -> bool:
+        return i in self._od
+
+    def occupancy(self) -> int:
+        return len(self._od)
+
+    def request(self, i: int) -> bool:
+        hit = i in self._od
+        if not hit:
+            if len(self._od) >= self.C:
+                self._od.popitem(last=False)
+            self._od[i] = None
+        return self._account(hit)
+
+
+class LFU(_Base):
+    """In-cache LFU with LRU tie-break (perfect-LFU counters kept for all items)."""
+
+    name = "LFU"
+    __slots__ = ("_freq", "_cached", "_order", "_tick")
+
+    def __init__(self, catalog_size: int, capacity: int, **kw):
+        super().__init__(catalog_size, capacity)
+        self._freq: Dict[int, int] = {}
+        self._cached: Dict[int, tuple] = {}  # item -> (freq, tick) key in order
+        self._order = make_store("sorted")
+        self._tick = 0
+
+    def contains(self, i: int) -> bool:
+        return i in self._cached
+
+    def occupancy(self) -> int:
+        return len(self._cached)
+
+    def request(self, i: int) -> bool:
+        self._tick += 1
+        f = self._freq.get(i, 0) + 1
+        self._freq[i] = f
+        hit = i in self._cached
+        if hit:
+            old = self._cached[i]
+            self._order.remove(old, i)
+            key = (f, self._tick)
+            self._order.insert(key, i)
+            self._cached[i] = key
+        else:
+            if len(self._cached) >= self.C:
+                # evict min (freq, tick): least frequent, oldest among ties
+                mk, mi = self._order.min()
+                # admit only if the newcomer's frequency beats the victim's
+                if f >= mk[0]:
+                    self._order.pop_min()
+                    del self._cached[mi]
+                    key = (f, self._tick)
+                    self._order.insert(key, i)
+                    self._cached[i] = key
+            else:
+                key = (f, self._tick)
+                self._order.insert(key, i)
+                self._cached[i] = key
+        return self._account(hit)
+
+
+class ARC(_Base):
+    """Adaptive Replacement Cache (Megiddo & Modha, FAST'03) — exact."""
+
+    name = "ARC"
+    __slots__ = ("p", "t1", "t2", "b1", "b2")
+
+    def __init__(self, catalog_size: int, capacity: int, **kw):
+        super().__init__(catalog_size, capacity)
+        self.p = 0.0
+        self.t1: "OrderedDict[int, None]" = OrderedDict()  # recent, seen once
+        self.t2: "OrderedDict[int, None]" = OrderedDict()  # frequent
+        self.b1: "OrderedDict[int, None]" = OrderedDict()  # ghost of t1
+        self.b2: "OrderedDict[int, None]" = OrderedDict()  # ghost of t2
+
+    def contains(self, i: int) -> bool:
+        return i in self.t1 or i in self.t2
+
+    def occupancy(self) -> int:
+        return len(self.t1) + len(self.t2)
+
+    def _replace(self, in_b2: bool) -> None:
+        if self.t1 and (
+            len(self.t1) > self.p or (in_b2 and len(self.t1) == int(self.p))
+        ):
+            old, _ = self.t1.popitem(last=False)
+            self.b1[old] = None
+        elif self.t2:
+            old, _ = self.t2.popitem(last=False)
+            self.b2[old] = None
+        elif self.t1:
+            old, _ = self.t1.popitem(last=False)
+            self.b1[old] = None
+
+    def request(self, i: int) -> bool:
+        C = self.C
+        if i in self.t1 or i in self.t2:  # case I: hit
+            if i in self.t1:
+                del self.t1[i]
+            else:
+                del self.t2[i]
+            self.t2[i] = None
+            return self._account(True)
+        if i in self.b1:  # case II: ghost hit in b1
+            self.p = min(float(C), self.p + max(len(self.b2) / max(len(self.b1), 1), 1.0))
+            self._replace(False)
+            del self.b1[i]
+            self.t2[i] = None
+            return self._account(False)
+        if i in self.b2:  # case III: ghost hit in b2
+            self.p = max(0.0, self.p - max(len(self.b1) / max(len(self.b2), 1), 1.0))
+            self._replace(True)
+            del self.b2[i]
+            self.t2[i] = None
+            return self._account(False)
+        # case IV: full miss
+        if len(self.t1) + len(self.b1) == C:
+            if len(self.t1) < C:
+                self.b1.popitem(last=False)
+                self._replace(False)
+            else:
+                self.t1.popitem(last=False)
+        elif len(self.t1) + len(self.b1) < C:
+            total = len(self.t1) + len(self.t2) + len(self.b1) + len(self.b2)
+            if total >= C:
+                if total == 2 * C:
+                    self.b2.popitem(last=False)
+                self._replace(False)
+        self.t1[i] = None
+        return self._account(False)
+
+
 def _load_ogb(catalog_size, capacity, **kw):
     from .ogb import OGB
 
     return OGB(catalog_size, capacity, **kw)
 
 
+def _load_ftpl(catalog_size, capacity, **kw):
+    from .ftpl import FTPL
+
+    return FTPL(catalog_size, capacity, **kw)
+
+
+#: the host policy registry: callables ``(catalog_size, capacity, **kw) ->
+#: policy``; the gradient and perturbed policies are lazy loaders
 POLICY_REGISTRY = {
     "lru": LRU,
+    "fifo": FIFO,
+    "lfu": LFU,
+    "arc": ARC,
     "ogb": _load_ogb,
+    "ftpl": _load_ftpl,
 }
+
+
+def policy_kinds() -> tuple:
+    """All registered kind strings (host-side per-request policies)."""
+    return tuple(POLICY_REGISTRY)
 
 
 def make_policy(kind: str, catalog_size: int, capacity: int, **kw):

@@ -5,7 +5,8 @@ Each wrapper counts its launches in a plain integer attribute
 ``project_warm.launches``, ``apply.launches``, ``block_segment_sums.launches``,
 ``tree_build.launches``, ``tree_update_.launches``,
 ``bucket_masses.launches``, ``solve_buckets.launches``,
-``flash_prefill.launches``, ``decode_attention.launches``), so a run can show
+``flash_prefill.launches``, ``decode_attention.launches``,
+``slot_automaton.launches``), so a run can show
 that it went through the kernels.  :func:`launch_counts` reads them by
 kernel source (the warm projection counts as ``mass``, the whole-tree
 build as ``segsum``, the bucket solve as ``bucket_mass``); ``apply``
@@ -38,6 +39,7 @@ def _wrappers():
     )
     from repro_torch.kernels.prefix_tree.ops import tree_build, tree_update_
     from repro_torch.kernels.scatter_counts.ops import histogram
+    from repro_torch.kernels.slot_automaton.ops import slot_automaton
 
     return {
         "histogram": (histogram,),
@@ -48,6 +50,7 @@ def _wrappers():
         "bucket_mass": (bucket_masses, solve_buckets),
         "flash_prefill": (flash_prefill,),
         "decode_attention": (decode_attention,),
+        "slot_automaton": (slot_automaton,),
     }
 
 

@@ -17,7 +17,10 @@ on views that start mid-vector; both persistent threshold solves (the warm
 projection, with and without its f' epilogue, and the bucket solve) on each
 side of their on-chip plans; and the attention kernels
 at the served models' head shapes in bf16 and f32, and the smoke serving
-engine on the card against the same engine on the CPU.
+engine on the card against the same engine on the CPU; the slot automaton
+in every plan (one warp to 32 warps, 1 to 16 slots a thread, padded
+carries) bit for bit against its plain version, its size limit, the
+scenario path's launches and OMD on the card against the CPU.
 """
 
 import numpy as np
@@ -177,7 +180,7 @@ def test_run_on_the_card_matches_the_cpu_and_counts_launches(card):
     got = repro_torch.run(pd, trace, n, c, window=w)
     assert launch_counts() == {"histogram": 100, "mass": 100, "apply": 100, "segsum": 0,
                                "tree_update": 0, "bucket_mass": 0, "flash_prefill": 0,
-                               "decode_attention": 0}
+                               "decode_attention": 0, "slot_automaton": 0}
     designs = design_counts()
     assert designs["histogram"] == {"bin tiles": 100}
     assert designs["apply"] == {"projection epilogue": 100}
@@ -692,3 +695,98 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# -- the scenario path: the slot automaton, OMD, run_scenario ---------------
+
+AUTOMATA = ("lru", "fifo", "lfu", "ftpl")
+
+
+@pytest.mark.parametrize("c,n_slots", [(1, None), (25, None), (31, 33), (250, None),
+                                       (1000, 1100), (4097, None), (16384, None)])
+@pytest.mark.parametrize("kind", AUTOMATA)
+def test_slot_automaton_matches_plain_bit_for_bit(card, kind, c, n_slots):
+    """Every plan (one warp to 32 warps, 1 to 16 slots a thread) and padded
+    carries: hits, stats and the whole carry, chunk by chunk, equal to the
+    plain version's on the CPU; a zipf trace over 4C items, then a round
+    robin over them (every request a miss once the cache is full)."""
+    from repro_torch.cachesim.engines import automaton_args, init_engine_carry
+    from repro_torch.cachesim.traces import adversarial
+    from repro_torch.kernels.slot_automaton.ops import slot_automaton
+
+    n = max(4 * c, 64)
+    trace = np.concatenate([zipf(n, 3000, alpha=0.9, seed=c), adversarial(n, 1500, seed=c)])
+    cpu = init_engine_carry(kind, n, c, n_slots=n_slots, horizon=len(trace), device="cpu")
+    dev = type(cpu)(*(x.to(card) for x in cpu))
+    launches = slot_automaton.launches
+    for part in np.array_split(trace.astype(np.int32), 3):
+        ids = torch.from_numpy(part)
+        want = slot_automaton(kind, *automaton_args(kind, cpu), ids)
+        got = slot_automaton(kind, *automaton_args(kind, dev), ids.to(card))
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+        for name, a, b in zip(cpu._fields, dev, cpu):
+            assert torch.equal(a.cpu(), b), name
+    assert slot_automaton.launches == launches + 3
+    if n_slots:
+        assert bool((dev.slots[c:] == -2).all())
+
+
+@pytest.mark.parametrize("kind", AUTOMATA)
+def test_slot_automaton_plain_version_on_the_card(card, kind):
+    from repro_torch.cachesim.engines import automaton_args, init_engine_carry
+    from repro_torch.kernels.slot_automaton.ops import slot_automaton
+    from repro_torch.kernels.slot_automaton.ref import slot_automaton_ref
+
+    trace = torch.from_numpy(zipf(900, 1500, alpha=0.9, seed=3).astype(np.int32)).to(card)
+    a = init_engine_carry(kind, 900, 120, n_slots=130, horizon=1500, device=card)
+    b = type(a)(*(x.clone() for x in a))
+    got = slot_automaton(kind, *automaton_args(kind, a), trace)
+    want = slot_automaton_ref(kind, *automaton_args(kind, b), trace)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_slot_automaton_raises_past_its_capacity(card):
+    from repro_torch.cachesim.engines import automaton_args, init_engine_carry
+    from repro_torch.kernels.slot_automaton.ops import MAX_SLOTS, slot_automaton
+
+    big = init_engine_carry("lfu", 4 * MAX_SLOTS, MAX_SLOTS + 1, device=card)
+    ids = torch.zeros(8, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="tree automata"):
+        slot_automaton("lfu", *automaton_args("lfu", big), ids)
+    with pytest.raises(ValueError, match="tree automata"):
+        repro_torch.run(repro_torch.policy_def("lru"), np.zeros(20, np.int64), 10,
+                        MAX_SLOTS + 1, window=10)
+
+
+def test_run_scenario_launches_one_automaton_kernel_a_chunk(card):
+    """fig8_cdn at mini on the card: one slot_automaton launch a chunk of
+    each automaton row (20 chunks each), the OGB row's histogram, mass and
+    apply once a chunk and OMD's histogram once a chunk; every row equal to
+    the CPU run (automata exactly)."""
+    from repro_torch.cachesim.scenarios import run_scenario
+
+    reset_launch_counts()
+    res = run_scenario("fig8_cdn", "mini")
+    chunks = res.T // 1000
+    counts = launch_counts()
+    assert counts["slot_automaton"] == 4 * 20
+    assert (counts["histogram"], counts["mass"], counts["apply"]) == (2 * chunks, chunks, chunks)
+    cpu = run_scenario("fig8_cdn", "mini", device="cpu")
+    for row in ("LRU", "FIFO", "LFU", "FTPL", "ARC", "OPT(static)"):
+        assert res.rows[row]["hit_ratio"] == cpu.rows[row]["hit_ratio"], row
+    for row in ("OGB", "OMD"):
+        assert res.rows[row]["frac_hit_ratio"] == pytest.approx(cpu.rows[row]["frac_hit_ratio"],
+                                                                rel=1e-4)
+
+
+def test_omd_on_the_card_matches_the_cpu(card):
+    n, c, w = 20_000, 1000, 1000
+    trace = zipf(n, 100 * w, alpha=0.9, seed=8)
+    pd = repro_torch.policy_def("omd")
+    got = repro_torch.run(pd, trace, n, c, window=w)
+    want = repro_torch.run(pd, trace, n, c, window=w, device="cpu")
+    np.testing.assert_allclose(got.aux, want.aux, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got.reward, want.reward, rtol=1e-4)
+    np.testing.assert_allclose(got.final_f, want.final_f, rtol=0, atol=1e-5)
+    assert abs(int(got.hits.sum()) - int(want.hits.sum())) <= len(trace) // 1000
