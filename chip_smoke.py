@@ -189,6 +189,8 @@ OFF_PATH = {"flash_prefill": 0, "decode_attention": 0, "slot_automaton": 0}
 #: the port's kernels in the profiler's rows, by the names of their functions
 PORT_KERNEL_NAMES = ("tree_update_kernel", "tree_build_kernel", "bin_tiles_kernel",
                      "solve_buckets_kernel", "project_warm_kernel")
+#: device_kernels: profiled calls, and the most while every one shows none
+PROFILE_TRIES, PROFILE_MOST_TRIES = 3, 10
 FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores, NVIDIA's data sheet
 AUTOMATA = ("lru", "fifo", "lfu", "ftpl")
 #: phase 16's capacities (and the design's largest), ids a case and launches
@@ -235,18 +237,24 @@ def bound_ms(n_bytes, n_ops, ops_per_s=FP32_OPS_PER_S):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def timed_ms(torch, fn, reps, flush=None, hold=HOLD_CYCLES):
+def timed_ms(torch, fn, reps, flush=None, hold=HOLD_CYCLES, reset=None):
     """Mean device time of one fn() call, by CUDA events around each call.
 
     Before each call the device is held busy (torch.cuda._sleep, ``hold``
     cycles) until the host has enqueued the whole call, so the events time
     the device and not the host's launch overhead.  Cold (L2 flushed before
     each call) when ``flush`` is given, else warm in L2 from the previous
-    call."""
+    call.  ``reset``, when given, runs before each call outside the events
+    (and before the flush): a call that updates its inputs in place then
+    runs on the same inputs every time."""
+    if reset is not None:
+        reset()
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
+        if reset is not None:
+            reset()
         if flush is not None:
             flush()
         torch.cuda._sleep(hold)
@@ -332,11 +340,11 @@ def earlier_solve(torch, cnt, total, cap, lo, hi, iters):
     return call
 
 
-def device_kernels(torch, fn, tries=3, most_tries=10):
+def device_kernels(torch, fn):
     """Device kernels that one fn() call runs, from torch.profiler: the most
-    that any of ``tries`` profiled calls shows, trying on (up to
-    ``most_tries``) while every try has shown none.  The profiler now and
-    then drops a call's kernel records (PERF.md §7; three tries in a row
+    that any of PROFILE_TRIES profiled calls shows, trying on (up to
+    PROFILE_MOST_TRIES) while every try has shown none.  The profiler now
+    and then drops a call's kernel records (PERF.md §7; three tries in a row
     once), which can only lower one try's count; a kernel too many shows in
     every try."""
     from torch.profiler import ProfilerActivity, profile
@@ -345,8 +353,8 @@ def device_kernels(torch, fn, tries=3, most_tries=10):
     torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     seen = 0
-    for attempt in range(most_tries):
-        if attempt >= tries and seen:
+    for attempt in range(PROFILE_MOST_TRIES):
+        if attempt >= PROFILE_TRIES and seen:
             break
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
@@ -1693,30 +1701,70 @@ def automaton_case(kind, n, c, n_slots, trace, dev):
     return cpu, type(cpu)(*(x.to(dev, copy=True) for x in cpu))
 
 
-def run_automaton(fn, kind, carry, ids, chunks):
-    """``chunks`` launches of ``fn`` (the wrapper or its plain version) over
-    ``ids``; the chunks' hits and stats."""
+def automaton_trace(name, c, seed):
+    """A phase-16 case's ids: a round robin of C distinct items over 4C,
+    which fills every slot from empty, then AUTOMATON_IDS of the named
+    trace (zipf over max(4C, 2000) items, or a round robin over 4C), so
+    that every kind evicts at every C."""
+    import numpy as np
+
+    from repro_torch.cachesim.traces import adversarial, zipf
+
+    body = (zipf(max(4 * c, 2000), AUTOMATON_IDS, alpha=0.9, seed=seed) if name == "zipf"
+            else adversarial(4 * c, AUTOMATON_IDS, seed=seed))
+    return np.concatenate([adversarial(4 * c, c, seed=seed + 1), body])
+
+
+def run_automaton(fn, kind, carry, ids, fill, chunks):
+    """Launches of ``fn`` (the wrapper or its plain version) over ``ids``:
+    the first ``fill`` ids in one, the rest in ``chunks``; the launches'
+    hits and stats, and the evictions seen (items in the slots before a
+    launch and not after it, summed over the launches)."""
     from repro_torch.cachesim.engines import automaton_args
 
-    out = []
-    for part in ids.chunk(chunks):
+    out, evicted = [], 0
+    for part in (ids[:fill], *ids[fill:].chunk(chunks)):
+        before = set(carry.slots.tolist())
         hits, stats = fn(kind, *automaton_args(kind, carry), part)
         out.append((int(hits), float(stats[0]), float(stats[1]), float(stats[2])))
-    return out
+        evicted += len(before - set(carry.slots.tolist()) - {-1, -2})
+    return out, evicted
 
 
-def automaton_bytes(kind, k, n, w):
-    """Bytes one chunk must move: the ids read, the slots and their stamps
-    or ticks read and written, the counts (lfu, ftpl) read and written and
-    the noise (ftpl) read once, the clock and three outputs."""
-    counted = kind in ("lfu", "ftpl")
-    return (4 * w + 2 * 4 * k * (1 + (kind != "ftpl")) + 2 * 4 * n * counted
-            + 4 * n * (kind == "ftpl") + 8 + 16)
+def automaton_bytes(torch, kind, slots, ids):
+    """Bytes one chunk must move, from its inputs: the ids read; the slots
+    and their stamps or ticks (not ftpl) read and written; the counts (lfu,
+    ftpl) of the slots' items and of the requested ids read once and of the
+    requested ids written once; the noise (ftpl) of the same items read
+    once; the clock (not ftpl) read and written, and the three outputs."""
+    keyed = kind != "ftpl"
+    n_bytes = 4 * ids.numel() + 2 * 4 * slots.numel() * (1 + keyed) + 8 * keyed + 16
+    if kind in ("lfu", "ftpl"):
+        requested = torch.unique(ids)
+        touched = torch.unique(torch.cat([requested, slots[slots >= 0]])).numel()
+        n_bytes += 4 * touched * (1 + (kind == "ftpl")) + 4 * requested.numel()
+    return n_bytes
+
+
+def max_abs_diff(torch, got, want):
+    """The largest |got - want| over pairs of tensors of one shape (a pair
+    of equal values, infinities too, counts 0)."""
+    err = 0.0
+    for a, b in zip(got, want):
+        need(a.shape == b.shape, f"shapes {tuple(a.shape)} and {tuple(b.shape)}")
+        d = (a.double() - b.double()).abs()
+        if d.numel():
+            err = max(err, float(torch.where(a == b, torch.zeros_like(d), d).max()))
+    return err
 
 
 def check_slot_automaton(torch, dev):
     """Phase 16: the slot automaton against its plain version, bit for bit,
-    on the card and against the CPU; then its time a request, cold."""
+    on the card and against the CPU, every case filling its slots and
+    every kind evicting at every C; then its time a request, cold, in the steady state: from a
+    full carry, the timed chunk first held against the plain version."""
+    import numpy as np
+
     from repro_torch.cachesim.engines import automaton_args
     from repro_torch.cachesim.traces import adversarial, zipf
     from repro_torch.kernels.slot_automaton.ops import MAX_SLOTS, plan, slot_automaton
@@ -1725,20 +1773,21 @@ def check_slot_automaton(torch, dev):
     cases = []
     for kind in AUTOMATA:
         for c in AUTOMATON_CS + (MAX_SLOTS,):
-            n = max(4 * c, 2000)
-            cases.append((kind, c, None, "zipf", zipf(n, AUTOMATON_IDS, alpha=0.9, seed=c)))
-            cases.append((kind, c, None, "adversarial", adversarial(4 * c, AUTOMATON_IDS, seed=c)))
+            cases.append((kind, c, None, "zipf", automaton_trace("zipf", c, c)))
+            cases.append((kind, c, None, "adversarial", automaton_trace("adversarial", c, c)))
         for c in (250, 1000):  # padded: n_slots > C, the inactive slots never touched
-            cases.append((kind, c, c + 37, "zipf", zipf(4 * c, AUTOMATON_IDS, alpha=0.9, seed=7)))
-    n_hits = 0
+            cases.append((kind, c, c + 37, "zipf", automaton_trace("zipf", c, 7)))
+    n_hits, evictions = 0, {}
     for kind, c, n_slots, name, trace in cases:
         n = int(trace.max()) + 1
         cpu, card = automaton_case(kind, n, c, n_slots, trace, dev)
         _, plain = automaton_case(kind, n, c, n_slots, trace, dev)
         ids = torch.from_numpy(trace.astype("int32"))
-        got = run_automaton(slot_automaton, kind, card, ids.to(dev), AUTOMATON_CHUNKS)
-        want = run_automaton(slot_automaton_ref, kind, plain, ids.to(dev), AUTOMATON_CHUNKS)
-        on_cpu = run_automaton(slot_automaton, kind, cpu, ids, AUTOMATON_CHUNKS)
+        runs = [run_automaton(fn, kind, carry, x, c, AUTOMATON_CHUNKS)
+                for fn, carry, x in ((slot_automaton, card, ids.to(dev)),
+                                     (slot_automaton_ref, plain, ids.to(dev)),
+                                     (slot_automaton, cpu, ids))]
+        (got, evicted), (want, _), (on_cpu, _) = runs
         label = f"slot_automaton {kind} C={c} n_slots={n_slots or c} {name}"
         need(got == want == on_cpu, f"{label}: hits or stats differ: {got} {want} {on_cpu}")
         for field, a, b, h in zip(card._fields, card, plain, cpu):
@@ -1746,10 +1795,15 @@ def check_slot_automaton(torch, dev):
         if n_slots:
             need(bool((card.slots[c:] == -2).all()), f"{label}: an inactive slot was written")
         n_hits += sum(h for h, *_ in got)
+        evictions[kind, c] = evictions.get((kind, c), 0) + evicted
+    for (kind, c), evicted in evictions.items():
+        need(evicted > 0, f"slot_automaton {kind} C={c}: no case evicted a slot")
     print(f"slot_automaton: {len(cases)} cases (4 kinds x C in {AUTOMATON_CS + (MAX_SLOTS,)}, "
-          f"zipf and adversarial, and padded carries), {AUTOMATON_IDS} ids in "
-          f"{AUTOMATON_CHUNKS} launches each from empty slots: hits, stats and the whole carry "
-          f"bit for bit against the plain version on the card and on the CPU ({n_hits} hits)")
+          f"zipf and adversarial, and padded carries), a launch of C distinct ids filling the "
+          f"slots from empty, then {AUTOMATON_IDS} ids in {AUTOMATON_CHUNKS}: hits, stats "
+          f"and the whole carry bit for bit against the plain version on the card and on the "
+          f"CPU ({n_hits} hits); every kind evicts at every C (at least "
+          f"{min(evictions.values())} evictions between launches)")
     too_big = automaton_case("lru", 2 * MAX_SLOTS, MAX_SLOTS + 1, None, [0], dev)[1]
     try:
         slot_automaton("lru", too_big.slots, too_big.stamps, None, None, too_big.t,
@@ -1765,40 +1819,69 @@ def check_slot_automaton(torch, dev):
     def flush():
         flush_buf.zero_()
 
-    rows, by_c = {}, {}
+    def restorer(carry, start):
+        def reset():
+            for x, x0 in zip(carry, start):
+                x.copy_(x0)
+        return reset
+
+    rows, by_c, bounds, timed_evictions, err = {}, {}, {}, {}, 0.0
     w = QUICK_WINDOW
     for kind in AUTOMATA:
         for c in AUTOMATON_CS + (MAX_SLOTS,):
             n = QUICK_N if c <= 1000 else 4 * MAX_SLOTS
-            trace = zipf(n, w, alpha=0.9, seed=5)
+            trace = np.concatenate([adversarial(n, c, seed=5), zipf(n, 2 * w, alpha=0.9, seed=5)])
             _, card = automaton_case(kind, n, c, None, trace, dev)
-            ids = torch.from_numpy(trace.astype("int32")).to(dev)
+            # the steady state: C distinct ids fill the slots, a chunk runs on
+            slot_automaton(kind, *automaton_args(kind, card),
+                           torch.from_numpy(trace[:c + w].astype("int32")).to(dev))
+            ids = torch.from_numpy(trace[c + w:].astype("int32")).to(dev)
+            start = type(card)(*(x.clone() for x in card))
+            plain = type(card)(*(x.clone() for x in card))
+            got = slot_automaton(kind, *automaton_args(kind, card), ids)
+            want = slot_automaton_ref(kind, *automaton_args(kind, plain), ids)
+            case_err = max_abs_diff(torch, (*got, *card), (*want, *plain))
+            label = f"slot_automaton {kind} C={c} N={n}, the timed chunk"
+            need(case_err == 0, f"{label}: differs from the plain version by {case_err}")
+            evicted = len(set(start.slots.tolist()) - set(card.slots.tolist()))
+            need(evicted > 0, f"{label}: no slot was evicted")
+            err = max(err, case_err)
+            reset = restorer(card, start)
             args = (kind, *automaton_args(kind, card), ids)
-            ms = timed_ms(torch, lambda: slot_automaton(*args), 5, flush)
-            b, by = bound_ms(automaton_bytes(kind, c, n, w), 0)
+            ms = timed_ms(torch, lambda: slot_automaton(*args), 5, flush, reset=reset)
+            b, by = bound_ms(automaton_bytes(torch, kind, start.slots, ids), 0)
             by_c.setdefault(kind, {})[c] = ms * 1e3 / w
+            bounds.setdefault(kind, {})[c] = b * 1e3
+            timed_evictions.setdefault(kind, {})[c] = evicted
             if c != QUICK_C:
                 continue
-            warm_ms = timed_ms(torch, lambda: slot_automaton(*args), 5)
-            _, fresh = automaton_case(kind, n, c, None, trace, dev)
-            plain_args = (kind, *automaton_args(kind, fresh), ids)
-            plain_ms = timed_ms(torch, lambda: slot_automaton_ref(*plain_args), 1, flush)
+            warm_ms = timed_ms(torch, lambda: slot_automaton(*args), 5, reset=reset)
+            plain_args = (kind, *automaton_args(kind, plain), ids)
+            plain_ms = timed_ms(torch, lambda: slot_automaton_ref(*plain_args), 1, flush,
+                                reset=restorer(plain, start))
             rows[kind] = {"ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": b,
-                          "bound_by": by, "us_per_request": ms * 1e3 / w,
-                          "plain_us_per_request": plain_ms * 1e3 / w, "plan": plan(c)}
-            print(f"slot_automaton {kind}, quick's shape (C={c}, N={n}, window {w}): cold "
-                  f"{ms * 1e3:.2f} us ({ms * 1e3 / w:.4f} us a request), warm "
-                  f"{warm_ms * 1e3:.2f} us; plain on the card {plain_ms * 1e3:.2f} us "
-                  f"({plain_ms * 1e3 / w:.3f} us a request); bound {b * 1e3:.4f} us by {by}; "
-                  f"plan {plan(c)}")
+                          "bound_by": by, "max_abs_err": case_err,
+                          "us_per_request": ms * 1e3 / w,
+                          "plain_us_per_request": plain_ms * 1e3 / w, "plan": plan(c),
+                          "hits": int(got[0]), "evicted": evicted}
+            print(f"slot_automaton {kind}, quick's shape (C={c}, N={n}, window {w}, from a "
+                  f"full carry, {int(got[0])} hits, {evicted} evicted): cold {ms * 1e3:.2f} us "
+                  f"({ms * 1e3 / w:.4f} us a request), warm {warm_ms * 1e3:.2f} us; plain on "
+                  f"the card {plain_ms * 1e3:.2f} us ({plain_ms * 1e3 / w:.3f} us a request); "
+                  f"bound {b * 1e3:.4f} us by {by}; max abs err {case_err}; plan {plan(c)}")
     for kind, per in by_c.items():
-        print(f"slot_automaton {kind}: us a request, cold, at C = "
-              + ", ".join(f"{c}: {us:.4f}" for c, us in per.items()))
+        print(f"slot_automaton {kind}: us a request, cold, from a full carry, at C = "
+              + ", ".join(f"{c}: {us:.4f}" for c, us in per.items())
+              + "; bound (us a chunk) "
+              + ", ".join(f"{c}: {us:.4f}" for c, us in bounds[kind].items())
+              + f"; evictions in the timed chunk {timed_evictions[kind]}")
     main = rows["lfu"]
     return {"ms": main["ms"], "warm_ms": main["warm_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
-            "max_abs_err": 0.0, "timed": f"lfu at quick's shape: C={QUICK_C}, N={QUICK_N}, "
-            f"window {w}", "by_kind": rows, "us_per_request_by_c": by_c}
+            "max_abs_err": main["max_abs_err"], "max_abs_err_all_timed": err,
+            "timed": f"lfu at quick's shape from a full carry: C={QUICK_C}, N={QUICK_N}, "
+            f"window {w}", "by_kind": rows, "us_per_request_by_c": by_c,
+            "bound_us_by_c": bounds, "evictions_by_c": timed_evictions}
 
 
 def _golden_rows(name):

@@ -708,25 +708,30 @@ AUTOMATA = ("lru", "fifo", "lfu", "ftpl")
 def test_slot_automaton_matches_plain_bit_for_bit(card, kind, c, n_slots):
     """Every plan (one warp to 32 warps, 1 to 16 slots a thread) and padded
     carries: hits, stats and the whole carry, chunk by chunk, equal to the
-    plain version's on the CPU; a zipf trace over 4C items, then a round
-    robin over them (every request a miss once the cache is full)."""
+    plain version's on the CPU; a zipf trace over 4C items, a round robin
+    over them (C + 1500 distinct ids: the slots fill and every request past
+    them misses), then zipf again, so that every kind evicts at every C."""
     from repro_torch.cachesim.engines import automaton_args, init_engine_carry
     from repro_torch.cachesim.traces import adversarial
     from repro_torch.kernels.slot_automaton.ops import slot_automaton
 
     n = max(4 * c, 64)
-    trace = np.concatenate([zipf(n, 3000, alpha=0.9, seed=c), adversarial(n, 1500, seed=c)])
+    trace = np.concatenate([zipf(n, 3000, alpha=0.9, seed=c), adversarial(n, c + 1500, seed=c),
+                            zipf(n, 1500, alpha=0.9, seed=c + 1)])
     cpu = init_engine_carry(kind, n, c, n_slots=n_slots, horizon=len(trace), device="cpu")
     dev = type(cpu)(*(x.to(card) for x in cpu))
-    launches = slot_automaton.launches
+    launches, evicted = slot_automaton.launches, 0
     for part in np.array_split(trace.astype(np.int32), 3):
         ids = torch.from_numpy(part)
+        before = set(cpu.slots.tolist())
         want = slot_automaton(kind, *automaton_args(kind, cpu), ids)
         got = slot_automaton(kind, *automaton_args(kind, dev), ids.to(card))
         assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
         for name, a, b in zip(cpu._fields, dev, cpu):
             assert torch.equal(a.cpu(), b), name
+        evicted += len(before - set(cpu.slots.tolist()) - {-1, -2})
     assert slot_automaton.launches == launches + 3
+    assert evicted > 0 or (kind, c) == ("lfu", 1)  # one slot: LFU keeps the most requested
     if n_slots:
         assert bool((dev.slots[c:] == -2).all())
 
