@@ -76,7 +76,7 @@ script with a non-zero exit:
    token after prefill (beside a run with float64 prefill attention, the
    yardstick of how far rounding alone moves the logits), 8 teacher-forced
    decode steps, and two generate calls on equal prompts;
-16. the slot automaton (LRU, FIFO, LFU, FTPL) against its plain version:
+16. the slot automaton (LRU, FIFO, LFU, FTPL; impl="dense") against its plain version:
    each kind at C = 25, 250, 1000 and the design's largest (16 384), zipf
    and adversarial ids (10 000 a case in 2 launches, from empty slots),
    and padded carries; hits, stats and the whole carry bit for bit on the
@@ -89,13 +89,30 @@ script with a non-zero exit:
    OPT(static) row equal to the committed golden (tests/cachesim/golden,
    read as data) and the OGB and OMD regrets within its tolerance; at quick
    every row against the port's CPU run, made meanwhile in worker
-   processes (the automata exactly); one slot_automaton launch a chunk of
-   each automaton row, the OGB row's histogram, mass and apply and the OMD
-   row's histogram once a chunk;
+   processes (the automata exactly), and the LRU, LFU and FTPL rows (the
+   tree automata, their default) equal to the dense slot kernel's runs of
+   the same trace; a launch a chunk of each automaton row (slot_automaton
+   for FIFO, tree_lru for LRU, minpair_automaton for LFU and FTPL; the
+   LRU's possible ring compactions a compaction launch and an int32 tree
+   build each), the OGB row's histogram, mass and apply and the OMD row's
+   histogram once a chunk;
 18. paper scale: fig2_adversarial at full (N = 1000, T = 1e6, C = 250,
    every row, ARC on the host), held to the figure's claims; fig8_cdn at
-   full (N = 1e6, T = 2e7, C = 50 000, B = 1000) for OGB and OMD, OGB held
-   to a share of OPT(static).
+   full (N = 1e6, T = 2e7, C = 50 000, B = 1000, a window of 1e6) for OGB,
+   OMD and the tree LRU, LFU and FTPL, OGB held to a share of OPT(static)
+   and above LRU (Fig. 8-left), each row's hit ratio and us a request
+   printed, every tree kernel launched, three chunks of each automaton row
+   run again under torch's sync debug mode "error" (no read of the device
+   in a chunk), and FIFO at C = 50 000 raising (no tree form; past the slot
+   kernel's 16 384);
+19. the tree automata's kernels against their plain versions on the card,
+   bit for bit and against the CPU: tree_lru and minpair_automaton (LFU,
+   FTPL) at C = 23, 1000, 16 384 and 50 000 from empty slots, every case
+   evicting, a forced ring compaction and padded slots; the int32 tree
+   build at 262 144 and 2^21 leaves; each kernel's time cold from a full
+   carry at quick's shape (C = 1000, N = 20 000, a 10 000-request chunk)
+   and fig8_cdn full's (C = 50 000, N = 1e6, a 1e6-request chunk) beside
+   its bound and its plain version on the card, and a ring compaction's.
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -150,6 +167,8 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:29",
     # no Pallas kernel: the reference scans the automata's steps with lax.scan
     "slot_automaton": "src/repro/cachesim/engines.py:160",
+    "tree_lru": "src/repro/cachesim/tree_engines.py:151",
+    "minpair_automaton": "src/repro/cachesim/tree_engines.py:375",
 }
 SOURCES = {
     "histogram": "src/repro_torch/kernels/scatter_counts/csrc/histogram.cu",
@@ -161,9 +180,12 @@ SOURCES = {
     "flash_prefill": "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill.cu",
     "decode_attention": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
     "slot_automaton": "src/repro_torch/kernels/slot_automaton/csrc/slot_automaton.cu",
+    "tree_lru": "src/repro_torch/kernels/tree_lru/csrc/tree_lru.cu",
+    "minpair_automaton": "src/repro_torch/kernels/minpair_automaton/csrc/minpair_automaton.cu",
 }
 KERNELS = ("histogram", "mass", "apply", "segsum", "tree_update", "bucket_mass",
-           "flash_prefill", "decode_attention", "slot_automaton")
+           "flash_prefill", "decode_attention", "slot_automaton", "tree_lru",
+           "minpair_automaton")
 #: the one design of each kernel that has one (the others name theirs in
 #: their rows: the attention kernels by design(), the histogram, the clip
 #: and the two threshold solves by the launches of their main path)
@@ -179,13 +201,26 @@ DESIGNS = {
                       "beside their eviction keys, the requests in order, one block-wide argmin "
                       "over (key, slot) a request (redux.sync, one __syncthreads; none on one "
                       "warp); counts a tile of requests at a time",
+    "tree_lru": "one block a chunk, a thread a request of a 256-request sub-chunk: previous "
+                "request by a scan of the sub-chunk's ids in shared memory or last[j], reuse "
+                "distance = the tree's marks after it (total less an unrolled prefix read "
+                "through L2) + the sub-chunk's dominance term; marks moved once an item by "
+                "integer atomics; a possible ring compaction a grid launch (ranks by prefix "
+                "count) and an int32 tree build",
+    "minpair_automaton": "one warp a chunk, the requests in order, a tile of 32 read at once "
+                         "(counts by rank in the tile, imap kept current by broadcast); root "
+                         "and argmin by warp-wide lexicographic reductions (redux.sync) over "
+                         "64 children a level, levels above the leaves in shared memory, "
+                         "leaves and slots in L2; ancestors recomputed up to the first "
+                         "unchanged node",
 }
 #: the design of the standalone apply kernel, which phase 3 times (the dense
 #: main path's clip is the projection's epilogue)
 APPLY_STANDALONE = "standalone: 16-byte body, 2 float4 of f and c in flight a thread"
 DENSE_KERNELS = 21  # device kernels a dense chunk launches (phase 7)
-#: kernels off the replay paths: serving's attention, the scenario path's automaton
-OFF_PATH = {"flash_prefill": 0, "decode_attention": 0, "slot_automaton": 0}
+#: kernels off the replay paths: serving's attention, the scenario path's automata
+OFF_PATH = {"flash_prefill": 0, "decode_attention": 0, "slot_automaton": 0, "tree_lru": 0,
+            "minpair_automaton": 0}
 #: the port's kernels in the profiler's rows, by the names of their functions
 PORT_KERNEL_NAMES = ("tree_update_kernel", "tree_build_kernel", "bin_tiles_kernel",
                      "solve_buckets_kernel", "project_warm_kernel")
@@ -210,6 +245,17 @@ GOLDEN_EXACT, GOLDEN_FLOAT = 1e-12, 5e-3
 QUICK_HIT_TOL, QUICK_FRAC_TOL = 1e-3, 1e-4
 #: fig8_cdn at full: OGB's hit ratio at least this share of OPT(static)'s
 FIG8_OGB_FLOOR = 0.85
+#: fig8_cdn at full: the rows, and the automaton rows' chunks run again under
+#: torch's sync debug mode "error"
+FIG8_POLICIES, FIG8_SYNC_CHUNKS = ("ogb", "omd", "lru", "lfu", "ftpl"), 3
+TREE_AUTOMATA = ("lru", "lfu", "ftpl")
+#: phase 19's capacities, ids a case after the fill, and the two timed shapes
+#: (C: catalog, chunk): quick's and fig8_cdn full's
+TREE_CS, TREE_IDS = (23, 1000, 16384, 50000), 20_000
+TREE_TIMED = {1000: (20_000, 10_000), 50000: (1_000_000, 1_000_000)}
+#: the int32 tree build's timed leaves: a ring of C = 50 000 (ring_size), and
+#: fig8_cdn full's ring (a window of 1e6)
+INT32_BUILD_LEAVES = (262_144, 2_097_152)
 
 
 class Failed(Exception):
@@ -1888,27 +1934,63 @@ def _golden_rows(name):
     return json.loads((ROOT / "tests" / "cachesim" / "golden" / f"{name}.json").read_text())
 
 
-def _scenario_launches(name, scale, want_launches=True):
+def lru_compactions(m, cap, window, chunks):
+    """The ring compactions the tree LRU launches over ``chunks`` chunks
+    from an empty carry: one where the host's upper bound on pos leaves no
+    room for the chunk (tree_engines.lru_bounds)."""
+    from repro_torch.cachesim.tree_engines import LRUHost, lru_bounds
+
+    host, n = LRUHost(pos_lo=0, pos_hi=0, cap=cap), 0
+    for _ in range(chunks):
+        n += host.pos_hi + window > m
+        lo, hi = lru_bounds(host, window, m)
+        host = host._replace(pos_lo=lo, pos_hi=hi)
+    return n
+
+
+def _scenario_launches(name, scale, policies=None, trace=None):
     """run_scenario on the card with every launch counted; checks one
-    slot_automaton launch a chunk of each automaton row, and the OGB and
-    OMD rows' histogram, mass and apply launches."""
+    launch a chunk of each automaton row (slot_automaton for FIFO, tree_lru
+    for LRU, minpair_automaton for LFU and FTPL), the LRU's possible ring
+    compactions (a compaction launch and an int32 tree build each), and the
+    OGB and OMD rows' histogram, mass and apply launches."""
     from repro_torch.cachesim.scenarios import get_scenario, run_scenario
+    from repro_torch.cachesim.tree_engines import ring_for_window
     from repro_torch.kernels import launch_counts, reset_launch_counts
 
     sc = get_scenario(name)
     n, t, c = sc.dims(scale)
     w, batch = max(t // 20, 1), min(sc.batch, max(t // 20, 1))
+    kinds = policies if policies is not None else sc.policies
     reset_launch_counts()
     t0 = time.perf_counter()
-    res = run_scenario(name, scale, device="cuda")
+    res = run_scenario(name, scale, policies=policies, trace=trace, device="cuda")
     wall = time.perf_counter() - t0
     got = launch_counts()
-    chunks = t // batch
+    chunks, rows = t // batch, t // w
+    comp = lru_compactions(ring_for_window(c, w), c, w, rows) if "lru" in kinds else 0
     want = {k: 0 for k in got}
-    want.update({"slot_automaton": 4 * (t // w), "histogram": 2 * chunks, "mass": chunks,
-                 "apply": chunks})
+    want.update({"slot_automaton": rows * ("fifo" in kinds),
+                 "tree_lru": (rows + comp) * ("lru" in kinds),
+                 "minpair_automaton": rows * (("lfu" in kinds) + ("ftpl" in kinds)),
+                 "segsum": comp, "histogram": chunks * (("ogb" in kinds) + ("omd" in kinds)),
+                 "mass": chunks * ("ogb" in kinds), "apply": chunks * ("ogb" in kinds)})
     need(got == want, f"{name} {scale}: launches {got}, expected {want}")
     return res, got, wall
+
+
+def dense_rows(name):
+    """The LRU, LFU and FTPL rows of a scenario at quick through the dense
+    slot kernel (impl="dense") on the card, as run_scenario runs them."""
+    from repro_torch import policy_def, run
+    from repro_torch.cachesim.scenarios import get_scenario
+
+    sc = get_scenario(name)
+    n, t, c = sc.dims("quick")
+    trace = sc.make_trace("quick")
+    return {k.upper(): run(policy_def(k, impl="dense"), trace, n, c, window=max(t // 20, 1),
+                           seed=0, horizon=t, track_opt=False, keep_carry=False).hit_ratio
+            for k in TREE_AUTOMATA}
 
 
 def check_scenarios(torch, cpu_futures):
@@ -1945,19 +2027,25 @@ def check_scenarios(torch, cpu_futures):
             else:
                 need(card["hit_ratio"] == row["hit_ratio"],
                      f"{name} quick {policy}: card {card['hit_ratio']} != CPU {row['hit_ratio']}")
+        dense = dense_rows(name)
+        for policy, hit_ratio in dense.items():
+            need(res.rows[policy]["hit_ratio"] == hit_ratio,
+                 f"{name} quick {policy}: tree {res.rows[policy]['hit_ratio']} != dense "
+                 f"{hit_ratio}")
         line = ", ".join(f"{p} {r['hit_ratio']:.4f}" for p, r in sorted(res.rows.items()))
         us = ", ".join(f"{p} {r['us_per_request']:.4f}" for p, r in sorted(res.rows.items())
                        if "us_per_request" in r)
         print(f"{name} quick on the card ({wall:.2f} s): {line}; us a request: {us}; "
               f"equal to the CPU run (automata exactly; OGB/OMD hit ratio within "
-              f"{QUICK_HIT_TOL}, fractional within {QUICK_FRAC_TOL} relative)")
+              f"{QUICK_HIT_TOL}, fractional within {QUICK_FRAC_TOL} relative); the tree "
+              f"rows LRU, LFU, FTPL equal to the dense slot kernel's")
     print(f"quick scenarios' launches: {total}")
     return total
 
 
 def check_paper_scale(torch):
     """Phase 18: fig2_adversarial at full (every row, ARC too) and
-    fig8_cdn at full for OGB and OMD."""
+    fig8_cdn at full for OGB, OMD and the tree LRU, LFU and FTPL."""
     from repro_torch.cachesim.scenarios import get_scenario, run_scenario
 
     sc = get_scenario("fig2_adversarial")
@@ -1982,19 +2070,286 @@ def check_paper_scale(torch):
     t0 = time.perf_counter()
     trace = sc.make_trace("full")
     print(f"fig8_cdn full: trace N={n} T={t} in {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    res = run_scenario("fig8_cdn", "full", policies=("ogb", "omd"), trace=trace, device="cuda")
+    res, launches, wall = _scenario_launches("fig8_cdn", "full", FIG8_POLICIES, trace)
     opt = res.rows["OPT(static)"]["hit_ratio"]
+    for p, r in res.rows.items():
+        print(f"fig8_cdn full {p}: hit ratio {r['hit_ratio']}"
+              + "".join(f", {k} {r[k]}" for k in ("frac_hit_ratio", "regret", "us_per_request")
+                        if k in r) + (" us a request" if "us_per_request" in r else ""))
     for p in ("OGB", "OMD"):
         r = res.rows[p]
-        print(f"fig8_cdn full {p}: hit ratio {r['hit_ratio']}, fractional {r['frac_hit_ratio']}, "
-              f"regret {r['regret']}, {r['us_per_request']} us a request")
         need(math.isfinite(r["regret"]) and 0.0 < r["hit_ratio"] < 1.0, f"fig8 full {p}: {r}")
+    for p in ("LRU", "LFU", "FTPL"):
+        need(0.0 < res.rows[p]["hit_ratio"] < 1.0, f"fig8 full {p}: {res.rows[p]}")
     need(res.rows["OGB"]["hit_ratio"] >= FIG8_OGB_FLOOR * opt,
          f"fig8 full: OGB {res.rows['OGB']['hit_ratio']} below {FIG8_OGB_FLOOR} OPT(static) {opt}")
-    print(f"fig8_cdn full: OPT(static) {opt}; OGB at least {FIG8_OGB_FLOOR} of it: met "
-          f"({time.perf_counter() - t0:.2f} s); the automata at C = {c} wait for the tree "
-          f"automata (ROADMAP.md item 5: the slot kernel holds at most 16384 slots)")
+    need(res.rows["OGB"]["hit_ratio"] > res.rows["LRU"]["hit_ratio"],
+         f"fig8 full: OGB {res.rows['OGB']['hit_ratio']} not above LRU "
+         f"{res.rows['LRU']['hit_ratio']} (benchmarks/fig7_8_traces.py:57)")
+    need(min(launches[k] for k in ("tree_lru", "minpair_automaton", "segsum")) > 0,
+         f"fig8 full: a tree kernel was not launched: {launches}")
+    print(f"fig8_cdn full: OPT(static) {opt}; OGB at least {FIG8_OGB_FLOOR} of it and above LRU "
+          f"(Fig. 8-left, benchmarks/fig7_8_traces.py:57): met ({wall:.2f} s); launches "
+          f"{launches} (segsum: int32 tree builds, one a ring compaction)")
+    check_no_host_reads(torch, trace, n, c, max(t // 20, 1))
+    try:
+        run_scenario("fig8_cdn", "full", policies=("fifo",), trace=trace, include_opt=False,
+                     device="cuda")
+    except ValueError as exc:
+        need("no tree form" in str(exc) and "ROADMAP" in str(exc), f"FIFO's message: {exc}")
+        print(f"fig8_cdn full FIFO at C = {c} raises: {exc}")
+    else:
+        raise Failed(f"FIFO ran at C = {c} on the slot kernel")
+    return launches
+
+
+def check_no_host_reads(torch, trace, n, c, window):
+    """Phase 18: FIG8_SYNC_CHUNKS chunks of each automaton row of fig8_cdn
+    full, from a started run, under torch's sync debug mode "error": a read
+    of the device (or a blocking copy to it) in a chunk raises."""
+    from repro_torch import policy_def
+    from repro_torch.cachesim.tree_engines import ring_for_window
+
+    chunks = torch.from_numpy(trace[:FIG8_SYNC_CHUNKS * window].astype("int32")).to(
+        "cuda").reshape(FIG8_SYNC_CHUNKS, window)
+    for kind in TREE_AUTOMATA:
+        pd = policy_def(kind)
+        ring = {"ring": ring_for_window(c, window)} if kind == "lru" else {}
+        carry = pd.start(pd.init(n, c, horizon=len(trace), **ring))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(FIG8_SYNC_CHUNKS):
+                carry, out = pd.step(carry, chunks[i])
+        except RuntimeError as exc:
+            raise Failed(f"fig8 full {kind}: a chunk read the device: {exc}") from exc
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    print(f"fig8_cdn full: {FIG8_SYNC_CHUNKS} chunks of {window} requests of each of LRU, LFU, "
+          f"FTPL under sync debug mode 'error': 0 host reads in a chunk")
+
+
+# -- the tree automata's kernels (phase 19) ------------------------------------
+
+def tree_plain(kind, carry, ids):
+    """One chunk of a tree automaton through its plain version, on the
+    carry's device (the LRU's ring compaction decided from pos)."""
+    from repro_torch.kernels.minpair_automaton.ref import minpair_automaton_ref
+    from repro_torch.kernels.prefix_tree.ops import leaves_for_storage
+    from repro_torch.kernels.tree_lru.ref import tree_lru_ref
+
+    if kind == "lru":
+        m = leaves_for_storage(carry.tree.numel(), 16)
+        return tree_lru_ref(carry.tree, carry.last, carry.pos, carry.nseen, carry.cap, ids, m)
+    lfu = kind == "lfu"
+    return minpair_automaton_ref(kind, carry.imap, carry.counts, None if lfu else carry.noise,
+                                 carry.slots, carry.tree_hi, carry.tree_lo,
+                                 carry.t if lfu else None, ids)
+
+
+def tree_tensors(carry):
+    """A tree automaton's carry leaves that are tensors (the LRU's host
+    bound is not)."""
+    return [x for x in carry if hasattr(x, "device")]
+
+
+def tree_copy(carry, dev):
+    """The carry's tensors on ``dev``, copied (an LRU's host bound dropped:
+    the card's first step reads it)."""
+    return type(carry)(*(x.to(dev, copy=True) for x in tree_tensors(carry)))
+
+
+def tree_case_trace(c, seed):
+    """Phase 19's ids of one case: a round robin of C distinct ids over 4C
+    items (filling every slot from empty), then TREE_IDS of zipf and a round
+    robin over them, so that every kind evicts."""
+    import numpy as np
+
+    from repro_torch.cachesim.traces import adversarial, zipf
+
+    n = max(4 * c, 2000)
+    return n, np.concatenate([adversarial(n, c, seed=seed + 1),
+                              zipf(n, TREE_IDS // 2, alpha=0.9, seed=seed),
+                              adversarial(n, TREE_IDS // 2, seed=seed)]).astype("int32")
+
+
+def tree_bytes(torch, kind, before, after, ids):
+    """Bytes one chunk must move, from its inputs and what it changed: the
+    ids read; each distinct requested item's last (LRU) or imap entry and
+    count (LFU, FTPL; FTPL also its noise) read once; each changed carry
+    entry written (last, imap, counts, slots); each changed tree node read
+    and written (4 bytes a tree, 2 trees for LFU and FTPL)."""
+    distinct = torch.unique(ids).numel()
+    n_bytes = 4 * ids.numel() + 4 * distinct * (1 if kind == "lru" else 2 + (kind == "ftpl"))
+    names = ("last",) if kind == "lru" else ("imap", "counts", "slots")
+    for name in names:
+        n_bytes += 4 * int((getattr(before, name) != getattr(after, name)).sum())
+    trees = ("tree",) if kind == "lru" else ("tree_hi", "tree_lo")
+    changed = sum((getattr(before, t) != getattr(after, t)) for t in trees)
+    return n_bytes + 8 * len(trees) * int((changed > 0).sum())
+
+
+def check_tree_automata(torch, dev):
+    """Phase 19: tree_lru and minpair_automaton against their plain versions,
+    bit for bit, on the card and against the CPU, every case evicting; the
+    int32 tree build; then each kernel's time cold from a full carry."""
+    import numpy as np
+
+    from repro_torch.cachesim import tree_engines as tt
+    from repro_torch.cachesim.traces import adversarial, zipf
+    from repro_torch.kernels.prefix_tree.ops import leaves_for_storage, tree_build, tree_storage
+    from repro_torch.kernels.prefix_tree.ref import tree_build_ref
+    from repro_torch.kernels.tree_lru.ops import ring_compaction, tree_lru
+
+    cases = [(kind, c, None, None) for kind in TREE_AUTOMATA for c in TREE_CS]
+    cases += [(kind, c, c + 37, None) for kind in ("lfu", "ftpl") for c in (23, 1000)]
+    cases += [("lru", c, None, ring) for c, ring in ((23, 256), (1000, 4096))]
+    err, n_hits = 0.0, 0
+    for kind, c, n_slots, ring in cases:
+        n, trace = tree_case_trace(c, c)
+        window = min(TREE_IDS // 2, tt.max_window(ring)) if ring else TREE_IDS // 2
+        cpu = tt.init_tree_engine_carry(kind, n, c, n_slots=n_slots, ring=ring,
+                                        horizon=len(trace), device="cpu")
+        card, plain = tree_copy(cpu, dev), tree_copy(cpu, dev)
+        ids = torch.from_numpy(trace)
+        parts = [ids[:c]] + list(ids[c:].split(window))
+        evicted, misses = 0, 0
+        for part in parts:
+            before = set(cpu.slots.tolist()) if kind != "lru" else set()
+            card, got = tt.tree_chunk(kind, card, part.to(dev))
+            want = tree_plain(kind, plain, part.to(dev))
+            cpu, on_cpu = tt.tree_chunk(kind, cpu, part)
+            case_err = max_abs_diff(torch, (*got, *tree_tensors(card)),
+                                    (*want, *tree_tensors(plain)))
+            label = f"{kind} C={c} n_slots={n_slots or c} ring={ring}"
+            need(case_err == 0, f"{label}: card differs from the plain version by {case_err}")
+            for a, h in zip((*got, *tree_tensors(card)), (*on_cpu, *tree_tensors(cpu))):
+                need(torch.equal(a.cpu(), h), f"{label}: card differs from the CPU")
+            err = max(err, case_err)
+            n_hits += int(got[0])
+            misses += part.numel() - int(got[0])
+            if kind != "lru":
+                evicted += len(before - set(cpu.slots.tolist()) - {-1, -2})
+        if kind == "lru":
+            evicted = misses - int(cpu.nseen.clamp(max=c))  # misses past a full cache
+        need(evicted > 0, f"{kind} C={c}: no eviction")
+        if n_slots:
+            need(bool((card.slots[c:] == -2).all()), f"{kind} C={c}: an inactive slot written")
+    print(f"tree automata: {len(cases)} cases (LRU, LFU, FTPL at C in {TREE_CS}, padded LFU "
+          f"and FTPL, LRU with a ring of 4C: forced compactions), C distinct ids filling the "
+          f"slots, then {TREE_IDS} ids: hits, stats and every carry leaf bit for bit against "
+          f"the plain version on the card and the CPU ({n_hits} hits, max abs err {err}); "
+          f"every case evicts")
+
+    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    build = {}
+    for m in INT32_BUILD_LEAVES:
+        leaves = (torch.rand(m, device=dev) < 0.3).to(torch.int32)
+        got = tree_build(leaves, 16)
+        want = tree_build_ref(leaves, 16)
+        e = max_abs_diff(torch, (got,), (want,))
+        need(e == 0 and torch.equal(got.cpu(), tree_build_ref(leaves.cpu(), 16)),
+             f"int32 tree build at {m} leaves differs by {e}")
+        out = torch.empty_like(got)
+        ms = timed_ms(torch, lambda: tree_build(leaves, 16, out=out), 20, flush)
+        plain_ms = timed_ms(torch, lambda: tree_build_ref(leaves, 16), 5, flush)
+        b, by = bound_ms(4 * m + 4 * tree_storage(m, 16), tree_storage(m, 16) - m)
+        build[m] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                    "max_abs_err": e}
+        print(f"int32 tree build, {m} leaves at radix 16: cold {ms * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.2f} us, bound {b * 1e3:.4f} us by {by}, max abs err {e}")
+
+    timed, compaction = {}, {}
+    for c, (n, w) in TREE_TIMED.items():
+        fill = np.concatenate([adversarial(n, c, seed=9), zipf(n, w, alpha=0.9, seed=9)])
+        chunk = torch.from_numpy(zipf(n, w, alpha=0.9, seed=10).astype("int32")).to(dev)
+        for kind in TREE_AUTOMATA:
+            ring = {"ring": tt.ring_for_window(c, w)} if kind == "lru" else {}
+            card = tt.start_tree_run(tt.init_tree_engine_carry(
+                kind, n, c, horizon=len(fill) + w, device=dev, **ring))
+            card, _ = tt.tree_chunk(kind, card, torch.from_numpy(fill.astype("int32")).to(dev))
+            start = tt.start_tree_run(card)
+            plain = tt.start_tree_run(card)
+            t0 = time.perf_counter()
+            want = tree_plain(kind, plain, chunk)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            if kind == "lru":
+                m = leaves_for_storage(card.tree.numel(), 16)
+                need(int(card.pos) + w <= m, "the timed LRU chunk would compact")
+                args = (card.tree, card.last, card.pos, card.nseen, card.cap, chunk, m)
+
+                def kern():
+                    return tree_lru(*args, compact=False)
+            else:
+                def kern(kind=kind, card=card):
+                    return tt.tree_chunk(kind, card, chunk)[1]
+            got = kern()
+            case_err = max_abs_diff(torch, (*got, *tree_tensors(card)),
+                                    (*want, *tree_tensors(plain)))
+            label = f"{kind} C={c} N={n}, the timed chunk of {w}"
+            need(case_err == 0, f"{label}: differs from the plain version by {case_err}")
+            if kind == "lru":
+                evicted = w - int(got[0])  # the cache is full: every miss evicts
+            else:
+                evicted = len(set(start.slots.tolist()) - set(card.slots.tolist()))
+            need(evicted > 0, f"{label}: no eviction")
+            n_bytes = tree_bytes(torch, kind, start, card, chunk)
+            err = max(err, case_err)
+
+            def reset(card=card, start=start):
+                for x, x0 in zip(tree_tensors(card), tree_tensors(start)):
+                    x.copy_(x0)
+
+            ms = timed_ms(torch, kern, 2 if w > 100_000 else 5, flush, reset=reset)
+            b, by = bound_ms(n_bytes, 0)
+            timed[kind, c] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                              "max_abs_err": case_err, "us_per_request": ms * 1e3 / w,
+                              "plain_us_per_request": plain_ms * 1e3 / w, "window": w, "N": n,
+                              "hits": int(got[0]), "evicted": evicted}
+            print(f"{kind} C={c} N={n}, a {w}-request chunk from a full carry ({int(got[0])} "
+                  f"hits, {evicted} evicted): cold {ms:.4f} ms ({ms * 1e3 / w:.5f} us a "
+                  f"request); plain on the card {plain_ms:.2f} ms ({plain_ms * 1e3 / w:.4f} us a "
+                  f"request); bound {b * 1e3:.4f} us by {by} ({n_bytes} bytes); max abs err "
+                  f"{case_err}")
+            if kind == "lru":
+                # a due compaction at this shape: pos pushed past m - w
+                card.pos.fill_(m - w + 1)
+                saved = [x.clone() for x in tree_tensors(card)]
+
+                def compact(card=card, m=m):
+                    ring_compaction(card.tree, card.last, card.pos, card.cap, w, m)
+
+                def restore(card=card, saved=saved):
+                    for x, x0 in zip(tree_tensors(card), saved):
+                        x.copy_(x0)
+
+                cms = timed_ms(torch, compact, 5, flush, reset=restore)
+                compaction[c] = cms
+                print(f"  a ring compaction at C={c} (ring {m}, N={n}): cold {cms * 1e3:.2f} us "
+                      f"(the grid launch and the int32 tree build)")
+    print(f"phase 19 max abs err over every case and timed chunk: {err}")
+    rows = {}
+    chains = {"tree_lru": "a chain of dependent 256-request sub-chunks",
+              "minpair_automaton": "a chain of dependent requests, each a few warp-wide "
+                                   "reductions and a group of leaves read from L2"}
+    for name, kinds in (("tree_lru", ("lru",)), ("minpair_automaton", ("lfu", "ftpl"))):
+        main = timed[kinds[0], 50000]
+        rows[name] = {
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "bound_note": f"latency-bound: {chains[name]}",
+            "library_ms": None, "max_abs_err": err,
+            "timed": f"{kinds[0]} at fig8_cdn full's shape from a full carry: C=50000, "
+                     f"N={TREE_TIMED[50000][0]}, a chunk of {TREE_TIMED[50000][1]}",
+            "by_case": {f"{k} C={c}": timed[k, c] for k in kinds for c in TREE_TIMED},
+        }
+    rows["tree_lru"]["compaction_ms"] = compaction
+    return rows, build
 
 
 def main() -> int:
@@ -2058,17 +2413,29 @@ def main() -> int:
     try:
         rows["slot_automaton"] = check_slot_automaton(torch, dev)
         scenario_launches = check_scenarios(torch, cpu_futures)
-        check_paper_scale(torch)
+        fig8_launches = check_paper_scale(torch)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     print(f"scenario phases 16-18: {time.perf_counter() - t_scenarios:.2f} s")
+    t_tree = time.perf_counter()
+    tree_rows, int32_build = check_tree_automata(torch, dev)
+    rows.update(tree_rows)
+    print(f"tree automata phase 19: {time.perf_counter() - t_tree:.2f} s")
 
     # launches: the dense main path's for its kernels, the lazy main path's
     # for the prefix-tree kernels (segsum also ran 1 a chunk on madow_tree)
     launches.update({k: tree_launches[k] for k in ("segsum", "tree_update", "bucket_mass")})
     launches.update({k: serve_launches[k] for k in ("flash_prefill", "decode_attention")})
-    # the slot automaton's: the seven quick scenarios on the card (phase 17)
-    launches["slot_automaton"] = scenario_launches["slot_automaton"]
+    # the automata's: the seven quick scenarios on the card (phase 17); the
+    # tree kernels' on fig8_cdn full beside them (phase 18)
+    for name in ("slot_automaton", "tree_lru", "minpair_automaton"):
+        launches[name] = scenario_launches[name]
+    for name in ("tree_lru", "minpair_automaton"):
+        rows[name]["launches_fig8_full"] = fig8_launches[name]
+    # the int32 tree build: a ring compaction's, launched on the scenario paths
+    rows["segsum"]["int32"] = {"by_leaves": int32_build,
+                               "launches_quick": scenario_launches["segsum"],
+                               "launches_fig8_full": fig8_launches["segsum"]}
     # the redesigned kernels name the design their main path launched
     for name in ("mass", "histogram", "apply"):
         rows[name]["design"] = " + ".join(designs[name])

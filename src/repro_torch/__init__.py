@@ -11,8 +11,9 @@ path, ``serve.engine.ServeEngine`` behind an OGB page pool
 (``serve.kvcache.PagedKVPool``), with its launcher
 ``python -m repro_torch.launch.serve``.  The gradient histogram, every
 capped-simplex catalog pass, every prefix-tree level, the bucket-mass
-threshold solve, a slot automaton's chunk, causal prefill attention and
-one-token decode attention are hand-written CUDA kernels
+threshold solve, a chunk of each automaton (the tree LRU, LFU and FTPL,
+the default for those kinds, and the slot automaton), causal prefill
+attention and one-token decode attention are hand-written CUDA kernels
 (``repro_torch.kernels``)::
 
     from repro_torch import policy_def, run

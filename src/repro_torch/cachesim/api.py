@@ -8,17 +8,19 @@ trace through it.  Registered kinds (:func:`policy_def_kinds`):
 * ``ogb`` with Poisson, Madow (``madow``, ``madow_tree``) or no sampling,
   and the lazy bucketized ``ogb_tree``;
 * ``omd``, negative-entropy mirror descent (:mod:`.engines`);
-* the slot automata ``lru``, ``fifo``, ``lfu`` and ``ftpl``, one launch of
-  the slot-automaton kernel a chunk.  The reference defaults ``lru``,
-  ``lfu`` and ``ftpl`` to its O(log) tree automata (``impl="tree"``), whose
-  hit sequences are bit-identical to the dense ones; until the port has
-  them (ROADMAP.md §1 item 5) these kinds resolve to the dense automaton,
-  and ``impl="tree"`` raises ``NotImplementedError``.
+* the automata ``lru``, ``fifo``, ``lfu`` and ``ftpl``.  As in the
+  reference, ``lru``, ``lfu`` and ``ftpl`` default to the O(log) tree
+  automata (``impl="tree"``: one ``tree_lru`` or ``minpair_automaton``
+  launch a chunk, :mod:`.tree_engines`), and ``impl="dense"`` runs the slot
+  automaton (one ``slot_automaton`` launch a chunk, at most 16 384 slots),
+  the differential oracle; both give bit-identical hit sequences.  FIFO has
+  no tree form and always runs dense.
 
 The reference's ``lax.scan`` becomes a Python loop over chunks on the
 device.  Per-chunk outputs go into preallocated device tensors, and
 :func:`run` synchronises once at the end; the only reads inside the loop are
-``ogb_tree``'s re-anchor checks, one every few dozen chunks at most.
+``ogb_tree``'s re-anchor checks, one every few dozen chunks at most (the
+tree LRU decides its ring compactions on the device).
 """
 
 from __future__ import annotations
@@ -35,7 +37,12 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.cachesim import engines as _engines
 from repro_torch.cachesim import tree_engines as _tree
 from repro_torch.cachesim.replay import MADOW_SAMPLES, _make_ogb_step, sampling_keys
-from repro_torch.cachesim.tree_engines import OGBTreeCarry
+from repro_torch.cachesim.tree_engines import (
+    OGBTreeCarry,
+    TreeFTPLCarry,
+    TreeLFUCarry,
+    TreeLRUCarry,
+)
 from repro_torch.cachesim.results import RunResult
 from repro_torch.core.ogb import theoretical_eta
 from repro_torch.core.omd import theoretical_eta_omd
@@ -48,6 +55,9 @@ __all__ = [
     "OMDApiCarry",
     "PolicyDef",
     "StepOut",
+    "TreeFTPLCarry",
+    "TreeLFUCarry",
+    "TreeLRUCarry",
     "carry_from_numpy",
     "policy_def",
     "policy_def_kinds",
@@ -318,22 +328,42 @@ def _private_copy(carry):
 
 def _automaton_def(kind: str, zeta: Optional[float] = None,
                    impl: Optional[str] = None) -> PolicyDef:
-    """A slot automaton: one launch of the slot-automaton kernel a chunk,
-    which updates the carry in place (a run starts from a private copy).
+    """An automaton whose step updates the carry in place (a run starts
+    from a private copy).
 
-    ``impl`` is the reference's switch between its tree automata (its
-    default for lru, lfu and ftpl) and the dense slot automaton; both give
-    bit-identical hit sequences.  The port has the dense one only, so
-    ``impl=None`` and ``"dense"`` run it and ``"tree"`` raises until the
-    tree automata land (ROADMAP.md §1 item 5)."""
-    if impl == "tree":
-        raise NotImplementedError(
-            f"policy_def({kind!r}, impl='tree'): the tree automata are not ported yet "
-            "(ROADMAP.md §1 item 5); impl='dense' gives the same hits"
-        )
-    if impl not in (None, "dense"):
-        raise ValueError(f"unknown automaton impl {impl!r}")
+    ``impl`` selects the engine, as in the reference: ``"tree"`` (the
+    default for lru, lfu and ftpl) runs the tree automata of
+    :mod:`.tree_engines`, one ``tree_lru`` or ``minpair_automaton`` launch a
+    chunk; ``"dense"`` (the default for fifo, which has no tree form) the
+    slot automaton, one ``slot_automaton`` launch a chunk, at most 16 384
+    slots on the card.  Both give bit-identical hit sequences; only the
+    carry differs.  The tree init also takes ``ring=``, the LRU ring's
+    positions (a power of two >= 4 * n_slots)."""
     def_zeta = zeta
+    if impl is None:
+        impl = "tree" if kind in _tree.TREE_ENGINE_KINDS else "dense"
+    if impl == "tree":
+        if kind not in _tree.TREE_ENGINE_KINDS:
+            raise ValueError(f"no tree engine for kind {kind!r} (have "
+                             f"{_tree.TREE_ENGINE_KINDS}); it runs dense")
+
+        def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
+                 zeta=None, ring=None, device=None):
+            del eta  # the automata have no learning rate
+            return _tree.init_tree_engine_carry(
+                kind, catalog_size, capacity, n_slots=n_slots, seed=seed,
+                zeta=zeta if zeta is not None else def_zeta, horizon=horizon, ring=ring,
+                device=device,
+            )
+
+        def step(carry, ids):
+            carry, (hits, stats) = _tree.tree_chunk(kind, carry, ids)
+            return carry, StepOut(stats[0], hits, stats[1], stats[2])
+
+        return PolicyDef(kind=kind, name=kind.upper(), init=init, step=step,
+                         start=_tree.start_tree_run)
+    if impl != "dense":
+        raise ValueError(f"unknown automaton impl {impl!r}")
 
     def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
              zeta=None, device=None):
@@ -377,9 +407,12 @@ def policy_def(kind: str, **options) -> PolicyDef:
     ``policy_def("ogb_tree", sample="poisson"|"none", buckets=65536,
     radix=64, iters=30, batch_hint=4096)``;
     ``policy_def("omd", sample=..., sweeps=10, madow_capacity=C)``;
-    ``policy_def(k, impl=None|"dense")`` for the automata k in ``lru``,
-    ``fifo``, ``lfu`` and ``ftpl`` (``ftpl`` also takes ``zeta``; by default
-    it is tuned to the run's horizon).
+    ``policy_def(k, impl=None|"tree"|"dense")`` for the automata k in
+    ``lru``, ``fifo``, ``lfu`` and ``ftpl``: ``impl=None`` is ``"tree"`` for
+    ``lru``, ``lfu`` and ``ftpl`` (the tree automata, as in the reference)
+    and ``"dense"`` for ``fifo``, which has no tree form (``"tree"`` raises
+    ``ValueError``); ``ftpl`` also takes ``zeta`` (by default it is tuned to
+    the run's horizon).
     """
     kind = kind.lower()
     if kind not in _POLICY_DEFS:
@@ -392,6 +425,10 @@ def policy_def(kind: str, **options) -> PolicyDef:
 def carry_from_numpy(d: Mapping[str, np.ndarray], device: DeviceLike = None):
     """A carry from the reference's carry leaves as numpy arrays.
 
+    Leaves ``tree, last, pos, nseen, cap`` (the reference's
+    ``TreeLRUCarry``) give a :class:`TreeLRUCarry`; leaves ``imap, counts,
+    slots, tree_hi, tree_lo`` with ``t`` (``TreeLFUCarry``) or ``noise``
+    (``TreeFTPLCarry``) the tree LFU's or FTPL's carry, FTPL's noise with it.
     Leaves ``y, rho, ..., dcnt`` (the reference's ``OGBTreeCarry``) give an
     :class:`OGBTreeCarry`; leaves ``f, w, lam, eta, cap, p, u_key, t`` (its
     ``OMDApiCarry``) an :class:`OMDApiCarry`; leaves ``f, tau, eta, cap, p,
@@ -405,6 +442,18 @@ def carry_from_numpy(d: Mapping[str, np.ndarray], device: DeviceLike = None):
     def put(name, dtype):
         return torch.tensor(np.asarray(d[name]), dtype=dtype, device=dev)
 
+    def scalar(name):
+        return put(name, torch.int32).reshape(())
+
+    if "last" in d:
+        return TreeLRUCarry(tree=put("tree", torch.int32), last=put("last", torch.int32),
+                            pos=scalar("pos"), nseen=scalar("nseen"), cap=scalar("cap"))
+    if "tree_hi" in d:
+        common = {k: put(k, torch.int32) for k in ("imap", "counts", "slots", "tree_hi",
+                                                   "tree_lo")}
+        if "noise" in d:
+            return TreeFTPLCarry(noise=put("noise", torch.float32), **common)
+        return TreeLFUCarry(t=scalar("t"), **common)
     if "y" in d:
         return OGBTreeCarry(
             y=put("y", torch.float32),
@@ -458,6 +507,7 @@ def run(
     track_opt: bool = True,
     keep_carry: bool = True,
     device: DeviceLike = None,
+    **init_kw,
 ) -> RunResult:
     """Replay a trace through one policy, chunk by chunk on the device.
 
@@ -466,13 +516,15 @@ def run(
     batch B and the automata's hit-accounting granularity.  ``eta=None``
     resolves through ``pd.default_eta`` for the replayed horizon;
     ``horizon`` (default: the replayed length) tunes FTPL's noise;
-    ``n_slots`` > capacity pads an automaton's slots with inactive ones.
+    ``n_slots`` > capacity pads an automaton's slots with inactive ones;
+    other keywords go to ``pd.init`` (the tree LRU's ``ring=``).
     Trace ids must lie in ``[0, N)``; LRU and FIFO carries hold no catalog
     size, so a resumed run of theirs checks against ``catalog_size`` where
     given, else only that ids are not negative.  ``device=None`` is the CUDA card, and raises without one;
     ``device="cpu"`` runs the kernels' plain versions.  For ``ogb_tree``
     the result's ``extras`` holds ``host_syncs`` (steps that read the
-    device to decide a re-anchor) and ``reanchors``.
+    device to decide a re-anchor) and ``reanchors``; for the tree LRU on
+    the card ``host_syncs`` (steps that read the device: 0 in a run).
 
     **Streaming contract:** pass ``carry=result.carry`` to resume where a
     previous call stopped: two chunked runs replay the same dynamics as one
@@ -501,15 +553,17 @@ def run(
             horizon=int(horizon) if horizon is not None else t_used,
             n_slots=n_slots,
             device=dev,
+            **init_kw,
         )
         if eta is not None:
             extras["eta"] = float(eta)
-    elif eta is not None or horizon is not None or n_slots is not None or seed != 0:
+    elif (eta is not None or horizon is not None or n_slots is not None or seed != 0
+          or init_kw):
         # a resumed run takes every policy parameter from the carry; a
         # silently ignored eta or seed would mislabel the result
         raise ValueError(
             "run(carry=...) resumes with the carry's parameters; do not pass "
-            "seed/eta/horizon/n_slots alongside a carry"
+            "seed/eta/horizon/n_slots or init keywords alongside a carry"
         )
     elif carry.device != dev:
         raise ValueError(f"carry is on {carry.device}, run was asked for {dev}")
@@ -538,6 +592,8 @@ def run(
     if isinstance(carry, OGBTreeCarry):
         extras["host_syncs"] = float(carry.host.syncs)
         extras["reanchors"] = float(carry.host.reanchors)
+    if isinstance(carry, TreeLRUCarry) and carry.host is not None:
+        extras["host_syncs"] = float(carry.host.syncs)
     opt = (
         float(best_static_hits(trace_used, int(capacity)))
         if (track_opt and capacity is not None)

@@ -9,15 +9,22 @@ trace sizes).
 :func:`run_scenario` drives a scenario's policy set through the one
 execution layer (:func:`repro_torch.cachesim.api.run`) on the device:
 ``ogb``/``omd`` (fractional, replayed at the scenario batch size) and the
-slot automata ``lru``/``fifo``/``lfu``/``ftpl`` (replayed at the metric
-window).  ``arc`` has no device engine, in the reference as here: it is the
+automata (replayed at the metric window): ``lru``/``lfu``/``ftpl`` on their
+default tree engines, as in the reference, and ``fifo`` on the slot
+automaton.  The tree LRU's ring is the reference's default unless a chunk
+of ``window`` requests does not fit it: at ``full`` (a window of T/20 =
+1e6 requests) the reference's default ring (262 144 positions at C =
+50 000) raises, so the ring is doubled until the window fits; a ring's
+size does not change the hits.  ``arc`` has no device engine, in the reference as here: it is the
 host oracle, :func:`repro_torch.core.policies.make_policy` driven by
 :func:`repro_torch.cachesim.simulator.simulate` on the host, included only
 when the trace is short enough (``HOST_POLICY_MAX_T``).
 
 Not yet ported: the sized scenarios (``sized=True``: ``ogb_sized`` and
 ``gds``, ROADMAP.md §1 item 5) raise, and the edge-fleet scenarios wait for
-the fleet's slice.
+the fleet's slice.  FIFO at C > 16 384 (fig8_cdn and the other paper-scale
+scenarios at ``full``) raises on the card: it has no tree form and the slot
+kernel holds at most 16 384 slots (ROADMAP.md §1 item 5).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.cachesim import api
+from repro_torch.cachesim.tree_engines import ring_for_window
 from repro_torch.cachesim.simulator import simulate
 from repro_torch.cachesim.traces import make_trace
 from repro_torch.core.policies import make_policy
@@ -329,8 +337,9 @@ def run_scenario(
                 "regret": _opt() - float(m.reward.sum()),
             }
         elif pd is not None:
+            ring = {"ring": ring_for_window(c, w)} if kind == "lru" else {}
             r = api.run(pd, trace, n, c, window=w, seed=seed, horizon=t, track_opt=False,
-                        keep_carry=False, device=dev)
+                        keep_carry=False, device=dev, **ring)
             res.rows[r.name] = {"hit_ratio": r.hit_ratio, "us_per_request": r.us_per_request}
         else:  # host-side oracle policies (arc, ...)
             if not include_host:

@@ -6,10 +6,12 @@ Each wrapper counts its launches in a plain integer attribute
 ``tree_build.launches``, ``tree_update_.launches``,
 ``bucket_masses.launches``, ``solve_buckets.launches``,
 ``flash_prefill.launches``, ``decode_attention.launches``,
-``slot_automaton.launches``), so a run can show
-that it went through the kernels.  :func:`launch_counts` reads them by
+``slot_automaton.launches``, ``tree_lru.launches``,
+``ring_compaction.launches``, ``minpair_automaton.launches``), so a run
+can show that it went through the kernels.  :func:`launch_counts` reads them by
 kernel source (the warm projection counts as ``mass``, the whole-tree
-build as ``segsum``, the bucket solve as ``bucket_mass``); ``apply``
+build as ``segsum``, the bucket solve as ``bucket_mass``, a ring
+compaction as ``tree_lru``); ``apply``
 counts the clip's executions, so a
 ``project_warm`` launch, whose epilogue is the clip, counts once as ``mass``
 and once as ``apply`` (design ``"projection epilogue"``).
@@ -39,7 +41,9 @@ def _wrappers():
     )
     from repro_torch.kernels.prefix_tree.ops import tree_build, tree_update_
     from repro_torch.kernels.scatter_counts.ops import histogram
+    from repro_torch.kernels.minpair_automaton.ops import minpair_automaton
     from repro_torch.kernels.slot_automaton.ops import slot_automaton
+    from repro_torch.kernels.tree_lru.ops import ring_compaction, tree_lru
 
     return {
         "histogram": (histogram,),
@@ -51,6 +55,8 @@ def _wrappers():
         "flash_prefill": (flash_prefill,),
         "decode_attention": (decode_attention,),
         "slot_automaton": (slot_automaton,),
+        "tree_lru": (tree_lru, ring_compaction),
+        "minpair_automaton": (minpair_automaton,),
     }
 
 

@@ -12,6 +12,9 @@ integer values or for the tree update (both add a node's deltas in input
 order), and for the bucket masses, summed in float64 by both, only where a
 float64 sum rounds to float32 on a tie.
 
+:func:`stack_distance_hits_ref` is the tree LRU's oracle: LRU's hits
+by the definition, one reuse distance at a time.
+
 The tree geometry lives here too: a tree over ``n`` leaves with branching
 factor ``radix`` is one flat tensor, level 0 the leaves and level l+1 the
 sums of ``radix`` consecutive nodes of level l, until a level fits in one
@@ -23,6 +26,7 @@ from __future__ import annotations
 import functools
 from typing import List, Tuple
 
+import numpy as np
 import torch
 
 #: bisection halvings of the bracket that one round of the threshold solve
@@ -62,12 +66,13 @@ def segment_sums_ref(values: torch.Tensor, out_size: int, radix: int) -> torch.T
     last group zero-padded."""
     pad = out_size * radix - values.shape[0]
     padded = torch.nn.functional.pad(values, (0, pad))
-    return padded.reshape(out_size, radix).sum(dim=1)
+    return padded.reshape(out_size, radix).sum(dim=1, dtype=values.dtype)
 
 
 def tree_build_ref(values: torch.Tensor, radix: int) -> torch.Tensor:
     """The flat tree over the leaf vector ``values``: each level summed
-    from the one below, as it is stored (float32 from float32)."""
+    from the one below, as it is stored (float32 from float32, int32 from
+    int32)."""
     radix_shift(radix)
     parts, cur = [values], values
     for size in tree_sizes(values.shape[0], radix)[1:]:
@@ -83,18 +88,38 @@ def tree_update_ref(tree: torch.Tensor, n: int, radix: int, idx: torch.Tensor,
 
     Each node's deltas are summed in float64 in input order (the order in
     which ``index_put_(accumulate=True)`` adds duplicates, on the CPU and,
-    after its stable sort, on the card) and the node is rounded once."""
+    after its stable sort, on the card) and the node is rounded once.  An
+    integer tree adds its deltas in place, exact in any order."""
     sh = radix_shift(radix)
     ok = idx >= 0
     node = torch.where(ok, idx, torch.zeros_like(idx)).to(torch.int64)
-    masked = torch.where(ok, delta, torch.zeros_like(delta)).to(torch.float64)
     nodes = []
     for off in tree_offsets(n, radix):
         nodes.append(off + node)
         node = node >> sh
+    if not tree.dtype.is_floating_point:
+        masked = torch.where(ok, delta, torch.zeros_like(delta)).to(tree.dtype)
+        return tree.index_add_(0, torch.cat(nodes), masked.repeat(len(nodes)))
+    masked = torch.where(ok, delta, torch.zeros_like(delta)).to(torch.float64)
     acc = torch.zeros(tree.shape, dtype=torch.float64, device=tree.device)
     acc.index_put_((torch.cat(nodes),), masked.repeat(len(nodes)), accumulate=True)
     return tree.copy_(tree.to(torch.float64) + acc)
+
+
+def stack_distance_hits_ref(trace, capacity: int) -> np.ndarray:
+    """Exact LRU hit sequence by reuse (stack) distances: a request hits iff
+    the number of distinct items since its previous occurrence is at most
+    ``capacity - 1``.  O(T * window), numpy: the oracle of the tree LRU
+    (reference: ``repro.kernels.prefix_tree.ref.stack_distance_hits_ref``)."""
+    trace = np.asarray(trace)
+    last = {}
+    hits = np.zeros(len(trace), bool)
+    for i, j in enumerate(trace):
+        j = int(j)
+        if j in last:
+            hits[i] = len(set(trace[last[j] + 1: i].tolist())) <= capacity - 1
+        last[j] = i
+    return hits
 
 
 def bucket_masses_ref(cnt: torch.Tensor, total: torch.Tensor, taus: torch.Tensor) -> torch.Tensor:

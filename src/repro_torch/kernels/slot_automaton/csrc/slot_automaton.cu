@@ -48,7 +48,8 @@
 // `window` dependent block-wide reductions, each two or three redux.sync
 // (twice with more than one warp) and one __syncthreads (none with a single
 // warp).  The design holds at most kMaxSlots slots (shared memory); larger
-// capacities wait for the tree automata.
+// capacities run on the tree automata (LRU, LFU, FTPL) or wait for this
+// kernel's redesign (FIFO).
 
 #include <climits>
 #include <math.h>

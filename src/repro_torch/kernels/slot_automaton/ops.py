@@ -10,8 +10,10 @@ one block-wide argmin a request.  On a CPU tensor it runs the plain version
 in :mod:`.ref`.  Either way the carry's tensors are updated in place.
 
 The design holds at most :data:`MAX_SLOTS` slots (the keys live in one
-block's shared memory); a larger CUDA carry raises.  Larger caches wait for
-the tree automata (``ROADMAP.md`` §1 item 5).
+block's shared memory); a larger CUDA carry raises.  LRU, LFU and FTPL run
+larger caches on their tree automata (their default engine); FIFO, which
+has no tree form, waits for the slot kernel's redesign (``ROADMAP.md`` §1
+item 5, §2).
 """
 
 from __future__ import annotations
@@ -41,7 +43,9 @@ def plan(n_slots: int) -> dict:
     if not 1 <= n_slots <= MAX_SLOTS:
         raise ValueError(
             f"the slot-automaton kernel holds 1 to {MAX_SLOTS} slots, got {n_slots}; "
-            "larger caches wait for the tree automata (ROADMAP.md §1 item 5)"
+            "lru, lfu and ftpl run larger caches on their tree automata (impl='tree', "
+            "their default), and fifo, which has no tree form, waits for the slot "
+            "kernel's redesign (ROADMAP.md §1 item 5, §2)"
         )
     threads = 32 * min(32, -(-n_slots // (32 * SLOTS_A_THREAD)))
     need = -(-n_slots // threads)

@@ -20,7 +20,11 @@ at the served models' head shapes in bf16 and f32, and the smoke serving
 engine on the card against the same engine on the CPU; the slot automaton
 in every plan (one warp to 32 warps, 1 to 16 slots a thread, padded
 carries) bit for bit against its plain version, its size limit, the
-scenario path's launches and OMD on the card against the CPU.
+scenario path's launches and OMD on the card against the CPU; the tree
+automata's two kernels (``tree_lru``, with forced ring compactions, and
+``minpair_automaton`` for LFU and FTPL, with padded slots) bit for bit
+against their plain versions at C = 23 to 50 000, every case evicting, the
+int32 tree build, and tree runs on the card with no host read in a chunk.
 """
 
 import numpy as np
@@ -180,7 +184,8 @@ def test_run_on_the_card_matches_the_cpu_and_counts_launches(card):
     got = repro_torch.run(pd, trace, n, c, window=w)
     assert launch_counts() == {"histogram": 100, "mass": 100, "apply": 100, "segsum": 0,
                                "tree_update": 0, "bucket_mass": 0, "flash_prefill": 0,
-                               "decode_attention": 0, "slot_automaton": 0}
+                               "decode_attention": 0, "slot_automaton": 0, "tree_lru": 0,
+                               "minpair_automaton": 0}
     designs = design_counts()
     assert designs["histogram"] == {"bin tiles": 100}
     assert designs["apply"] == {"projection epilogue": 100}
@@ -760,13 +765,14 @@ def test_slot_automaton_raises_past_its_capacity(card):
     with pytest.raises(ValueError, match="tree automata"):
         slot_automaton("lfu", *automaton_args("lfu", big), ids)
     with pytest.raises(ValueError, match="tree automata"):
-        repro_torch.run(repro_torch.policy_def("lru"), np.zeros(20, np.int64), 10,
+        repro_torch.run(repro_torch.policy_def("lru", impl="dense"), np.zeros(20, np.int64), 10,
                         MAX_SLOTS + 1, window=10)
 
 
 def test_run_scenario_launches_one_automaton_kernel_a_chunk(card):
-    """fig8_cdn at mini on the card: one slot_automaton launch a chunk of
-    each automaton row (20 chunks each), the OGB row's histogram, mass and
+    """fig8_cdn at mini on the card: one launch a chunk of each automaton row
+    (20 chunks each): slot_automaton for FIFO, tree_lru for LRU,
+    minpair_automaton for LFU and FTPL; the OGB row's histogram, mass and
     apply once a chunk and OMD's histogram once a chunk; every row equal to
     the CPU run (automata exactly)."""
     from repro_torch.cachesim.scenarios import run_scenario
@@ -775,7 +781,8 @@ def test_run_scenario_launches_one_automaton_kernel_a_chunk(card):
     res = run_scenario("fig8_cdn", "mini")
     chunks = res.T // 1000
     counts = launch_counts()
-    assert counts["slot_automaton"] == 4 * 20
+    assert counts["slot_automaton"] == 20
+    assert (counts["tree_lru"], counts["minpair_automaton"], counts["segsum"]) == (20, 40, 0)
     assert (counts["histogram"], counts["mass"], counts["apply"]) == (2 * chunks, chunks, chunks)
     cpu = run_scenario("fig8_cdn", "mini", device="cpu")
     for row in ("LRU", "FIFO", "LFU", "FTPL", "ARC", "OPT(static)"):
@@ -795,3 +802,150 @@ def test_omd_on_the_card_matches_the_cpu(card):
     np.testing.assert_allclose(got.reward, want.reward, rtol=1e-4)
     np.testing.assert_allclose(got.final_f, want.final_f, rtol=0, atol=1e-5)
     assert abs(int(got.hits.sum()) - int(want.hits.sum())) <= len(trace) // 1000
+
+
+# -- the tree automata: tree_lru, minpair_automaton, the int32 tree build ----
+
+TREE_CS = (23, 1000, 16384, 50000)
+
+
+def _evicting_trace(c, seed):
+    """zipf over 4C items, a round robin of C + 1500 distinct items (the
+    slots fill and every request past them misses), zipf again."""
+    from repro_torch.cachesim.traces import adversarial
+
+    n = max(4 * c, 64)
+    return n, np.concatenate([zipf(n, 3000, alpha=0.9, seed=c),
+                              adversarial(n, c + 1500, seed=c),
+                              zipf(n, 1500, alpha=0.9, seed=c + 1)]).astype(np.int32)
+
+
+def _tree_case(kind, c, n_slots=None, ring=None, window=None, seed=0):
+    """One tree automaton from the same initial carry on the CPU and the
+    card, chunk by chunk: hits, stats, per-request flags and every carry
+    leaf equal; returns the items evicted between chunks and the card's
+    carry."""
+    from repro_torch.cachesim import tree_engines as ttree
+
+    n, trace = _evicting_trace(c, seed)
+    cpu = ttree.init_tree_engine_carry(kind, n, c, n_slots=n_slots, ring=ring, seed=seed,
+                                       horizon=len(trace), device="cpu")
+    tensors = [x for x in cpu if isinstance(x, torch.Tensor)]
+    dev = type(cpu)(*(x.to("cuda") for x in tensors))
+    parts = (np.array_split(trace, 3) if window is None
+             else [trace[i:i + window] for i in range(0, len(trace) - window + 1, window)])
+    evicted = 0
+    for part in parts:
+        ids = torch.from_numpy(np.ascontiguousarray(part))
+        before = set(cpu.slots.tolist()) if kind != "lru" else set()
+        fc = torch.empty(ids.shape, dtype=torch.bool)
+        fd = torch.empty(ids.shape, dtype=torch.bool, device="cuda")
+        cpu, (h_cpu, s_cpu) = ttree.tree_chunk(kind, cpu, ids, fc)
+        dev, (h_dev, s_dev) = ttree.tree_chunk(kind, dev, ids.to("cuda"), fd)
+        assert int(h_dev) == int(h_cpu) and torch.equal(s_dev.cpu(), s_cpu)
+        assert torch.equal(fd.cpu(), fc)
+        for name in cpu._fields:
+            a, b = getattr(dev, name), getattr(cpu, name)
+            if isinstance(b, torch.Tensor):
+                assert torch.equal(a.cpu(), b), name
+        if kind != "lru":
+            evicted += len(before - set(cpu.slots.tolist()) - {-1, -2})
+        else:
+            evicted += int(ids.numel()) - int(h_cpu)  # misses past a full cache evict
+    return evicted, dev
+
+
+@pytest.mark.parametrize("c", TREE_CS)
+def test_tree_lru_matches_plain_bit_for_bit(card, c):
+    reset_launch_counts()
+    evicted, carry = _tree_case("lru", c)
+    assert evicted > c and launch_counts()["tree_lru"] == 3
+    assert carry.host.syncs == 1  # the bound read once, at the first chunk
+
+
+@pytest.mark.parametrize("c,ring,window", [(23, 256, 150), (40, 256, 176), (1000, 4096, 3000)])
+def test_tree_lru_forced_compactions_match_plain(card, c, ring, window):
+    """A ring barely above 4C: a compaction every few chunks, decided on the
+    card, each one compaction launch and one int32 tree build; where the
+    host's bound launches one that is not due, the carry is unchanged."""
+    from repro_torch.kernels.tree_lru.ops import CHUNK, COMPACTION
+
+    reset_launch_counts()
+    _tree_case("lru", c, ring=ring, window=window)
+    counts, designs = launch_counts(), design_counts()["tree_lru"]
+    assert designs[COMPACTION] == counts["segsum"] >= 1
+    assert counts["tree_lru"] == designs[COMPACTION] + designs[CHUNK]
+
+
+@pytest.mark.parametrize("c,n_slots", [(c, None) for c in TREE_CS] + [(23, 90), (1000, 1100)])
+@pytest.mark.parametrize("kind", ["lfu", "ftpl"])
+def test_minpair_automaton_matches_plain_bit_for_bit(card, kind, c, n_slots):
+    """Every tree depth (one level at C = 23, two at 1000, three at 16 384
+    and 50 000) and padded slots: hits, flags, stats and the whole carry,
+    chunk by chunk, equal to the plain version's on the CPU."""
+    reset_launch_counts()
+    evicted, carry = _tree_case(kind, c, n_slots=n_slots, seed=3)
+    assert evicted > 0 and launch_counts()["minpair_automaton"] == 3
+    if n_slots:
+        assert bool((carry.slots[c:] == -2).all())
+
+
+@pytest.mark.parametrize("kind", ["lru", "lfu", "ftpl"])
+@pytest.mark.parametrize("window", [1, 16, 250])
+def test_tree_automata_at_small_windows_match_plain(card, kind, window):
+    """A chunk of one request, of 16 (less than a tile or a sub-chunk) and
+    of 250, over a trace whose ids repeat within a chunk."""
+    _tree_case(kind, 23, window=window, seed=5)
+
+
+@pytest.mark.parametrize("n", [16, 4097, 65536, 262144, 2**21])
+def test_int32_tree_build_matches_plain(card, n):
+    gen = torch.Generator().manual_seed(n)
+    leaves = torch.randint(0, 2, (n,), generator=gen, dtype=torch.int32).to(card)
+    reset_launch_counts()
+    got = tree_build(leaves, 16)
+    assert launch_counts()["segsum"] == 1 and got.dtype == torch.int32
+    assert torch.equal(got, tree_build_ref(leaves, 16))
+    out = torch.full_like(got, -7)
+    assert tree_build(leaves, 16, out=out) is out and torch.equal(out, got)
+
+
+@pytest.mark.parametrize("kind", ["lru", "lfu", "ftpl"])
+def test_tree_runs_read_nothing_on_the_host_in_a_chunk(card, kind):
+    """Steps of a started run under torch's sync debug mode "error": a read
+    of the device, or a copy to it, inside a chunk raises.  Hits equal the
+    dense automaton's."""
+    trace = zipf(20_000, 80_000, alpha=0.9, seed=2).astype(np.int32)
+    pd = repro_torch.policy_def(kind)
+    carry = pd.start(pd.init(20_000, 1000, horizon=len(trace)))
+    chunks = torch.from_numpy(trace.reshape(8, 10_000)).to(card)
+    hits = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:  # the LRU's 7th chunk runs past its ring of 65 536: a compaction
+        for i in range(8):
+            carry, out = pd.step(carry, chunks[i])
+            hits.append(out.hits)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    dense = repro_torch.run(repro_torch.policy_def(kind, impl="dense"), trace, 20_000, 1000,
+                            window=10_000)
+    assert [int(h) for h in hits] == dense.hits.tolist()
+
+
+def test_tree_runs_equal_dense_runs_on_the_card(card):
+    from repro_torch.cachesim.traces import bursty
+
+    trace = bursty(20_000, 200_000, seed=6)
+    for kind in ("lru", "lfu", "ftpl"):
+        reset_launch_counts()
+        tree = repro_torch.run(repro_torch.policy_def(kind), trace, 20_000, 1000, window=10_000)
+        counts = launch_counts()
+        assert counts["slot_automaton"] == 0
+        assert counts["tree_lru" if kind == "lru" else "minpair_automaton"] >= 20
+        dense = repro_torch.run(repro_torch.policy_def(kind, impl="dense"), trace, 20_000, 1000,
+                                window=10_000)
+        np.testing.assert_array_equal(tree.hits, dense.hits)
+        np.testing.assert_array_equal(tree.occupancy, dense.occupancy)
+        if kind == "lru":
+            assert tree.extras["host_syncs"] == 0

@@ -1,7 +1,8 @@
 """The comparison baselines: repro_torch's engines against repro's.
 
-* The slot automata (LRU, FIFO, LFU, FTPL): the port's plain version (what
-  the slot-automaton kernel runs on the CPU) against the reference's
+* The slot automata (LRU, FIFO, LFU, FTPL; ``impl="dense"``): the port's
+  plain version (what the slot-automaton kernel runs on the CPU) against the
+  reference's
   ``make_engine_fn(kind)`` from the same carry, chunk hits, occupancy and
   the final carry bit for bit, with padded carries and with LFU and FTPL
   ties.
@@ -49,9 +50,10 @@ def _leaves(carry):
 
 
 def _port_run(kind, leaves, trace, window, **pd_kw):
-    """The port's automaton from the reference's carry leaves, through run."""
+    """The port's dense automaton from the reference's carry leaves, through run."""
     carry = type(teng.init_engine_carry(kind, N, 2, horizon=T, device="cpu"))(
         **{k: torch.from_numpy(v.copy()) for k, v in leaves.items()})
+    pd_kw.setdefault("impl", "dense")
     return repro_torch.run(repro_torch.policy_def(kind, **pd_kw), trace, capacity=None,
                            window=window, carry=carry, device="cpu")
 
@@ -116,7 +118,7 @@ def test_ftpl_ties_go_to_the_smallest_item(trace):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_automaton_run_resumes_and_leaves_its_carry(kind):
-    pd = repro_torch.policy_def(kind)
+    pd = repro_torch.policy_def(kind, impl="dense")
     tr = TRACES["zipf"]
     whole = repro_torch.run(pd, tr, N, 30, window=W, horizon=T, device="cpu")
     first = repro_torch.run(pd, tr[: T // 2], N, 30, window=W, horizon=T, device="cpu")
@@ -129,14 +131,26 @@ def test_automaton_run_resumes_and_leaves_its_carry(kind):
 
 
 def test_policy_defs_registered_and_tree_impl_not_yet():
+    """impl=None is the tree automaton for lru, lfu and ftpl (as in the
+    reference) and the dense one for fifo, which has no tree form."""
+    from repro_torch.cachesim import tree_engines as ttree
+
     assert set(repro_torch.policy_def_kinds()) == {"ogb", "ogb_tree", "omd", "lru", "fifo",
                                                    "lfu", "ftpl"}
     assert repro_torch.policy_def("lru") is repro_torch.policy_def("lru")  # memoized
     assert repro_torch.policy_def("lfu", impl="dense").name == "LFU"
     assert repro_torch.policy_def("omd").fractional
-    for kind in ("lru", "lfu", "ftpl"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            repro_torch.policy_def(kind, impl="tree")
+    tree_carries = {"lru": ttree.TreeLRUCarry, "lfu": ttree.TreeLFUCarry,
+                    "ftpl": ttree.TreeFTPLCarry}
+    for kind, carry_type in tree_carries.items():
+        for impl in (None, "tree"):
+            carry = repro_torch.policy_def(kind, impl=impl).init(N, 5, horizon=T, device="cpu")
+            assert isinstance(carry, carry_type), (kind, impl)
+        dense = repro_torch.policy_def(kind, impl="dense").init(N, 5, horizon=T, device="cpu")
+        assert not isinstance(dense, carry_type)
+    assert isinstance(repro_torch.policy_def("fifo").init(N, 5, device="cpu"), teng.SlotCarry)
+    with pytest.raises(ValueError, match="no tree engine"):
+        repro_torch.policy_def("fifo", impl="tree")
     with pytest.raises(ValueError):
         repro_torch.policy_def("fifo", impl="other")
     with pytest.raises(ValueError, match="ids"):
