@@ -91,7 +91,7 @@ script with a non-zero exit:
    every row against the port's CPU run, made meanwhile in worker
    processes (the automata exactly), and the LRU, LFU and FTPL rows (the
    tree automata, their default) equal to the dense slot kernel's runs of
-   the same trace; a launch a chunk of each automaton row (slot_automaton
+   the same trace; a launch a chunk of each automaton row (fifo_queue
    for FIFO, tree_lru for LRU, minpair_automaton for LFU and FTPL; the
    LRU's possible ring compactions a compaction launch and an int32 tree
    build each), the OGB row's histogram, mass and apply and the OMD row's
@@ -99,12 +99,12 @@ script with a non-zero exit:
 18. paper scale: fig2_adversarial at full (N = 1000, T = 1e6, C = 250,
    every row, ARC on the host), held to the figure's claims; fig8_cdn at
    full (N = 1e6, T = 2e7, C = 50 000, B = 1000, a window of 1e6) for OGB,
-   OMD and the tree LRU, LFU and FTPL, OGB held to a share of OPT(static)
-   and above LRU (Fig. 8-left), each row's hit ratio and us a request
-   printed, every tree kernel launched, three chunks of each automaton row
-   run again under torch's sync debug mode "error" (no read of the device
-   in a chunk), and FIFO at C = 50 000 raising (no tree form; past the slot
-   kernel's 16 384);
+   OMD, the tree LRU, LFU and FTPL and FIFO (the FIFO queue, past the slot
+   kernel's 16 384 slots), OGB held to a share of OPT(static) and above
+   LRU (Fig. 8-left), each row's hit ratio and us a request printed, every
+   tree kernel and the FIFO queue launched, three chunks of each automaton
+   row run again under torch's sync debug mode "error" (no read of the
+   device in a chunk);
 19. the tree automata's kernels against their plain versions on the card,
    bit for bit and against the CPU: tree_lru and minpair_automaton (LFU,
    FTPL) at C = 23, 1000, 16 384 and 50 000 from empty slots, every case
@@ -112,7 +112,26 @@ script with a non-zero exit:
    build at 262 144 and 2^21 leaves; each kernel's time cold from a full
    carry at quick's shape (C = 1000, N = 20 000, a 10 000-request chunk)
    and fig8_cdn full's (C = 50 000, N = 1e6, a 1e6-request chunk) beside
-   its bound and its plain version on the card, and a ring compaction's.
+   its bound and its plain version on the card, and a ring compaction's;
+20. the sized axis's kernels against their plain versions, bit for bit on
+   the card and against the CPU: the FIFO queue at C = 25, 1000, 16 384 and
+   50 000 and padded, every case evicting; minpair_automaton's GDS mode at
+   C = 23, 1000, 16 384 and 50 000 with dyadic costs and padded; the
+   stacked tree update and the sized solve at a sized_cdn full chunk
+   recorded from a mid-run state (the update also as 4 one-tree launches,
+   the design it replaces), and the int32 tree update; each timed cold
+   beside its bound and its plain version;
+21. the sized scenario: sized_cdn at mini on the card against the golden
+   (GDS, LRU, LFU, FTPL and OPT(static) hit and byte hit ratios exactly,
+   OGB_sized_tree's byte regret within its tolerance), at quick against
+   the port's CPU run (a worker process started with phase 17's), and at
+   full (N = 1e6, T = 2e7, C = 50 000, a byte budget of 1 062 500, every
+   row), each row's hit ratio, byte hit ratio and us a request printed and
+   whether byte and object hit ratio rank the policies differently; a
+   launch a chunk of each automaton row (GDS, LFU and FTPL one
+   minpair_automaton each), three stacked tree updates, one sized solve
+   and one histogram a chunk of OGB_sized_tree, and three chunks of the
+   GDS row and of OGB_sized_tree under sync debug mode "error".
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -169,6 +188,7 @@ REPLACES = {
     "slot_automaton": "src/repro/cachesim/engines.py:160",
     "tree_lru": "src/repro/cachesim/tree_engines.py:151",
     "minpair_automaton": "src/repro/cachesim/tree_engines.py:375",
+    "fifo_queue": "src/repro/cachesim/engines.py:172",
 }
 SOURCES = {
     "histogram": "src/repro_torch/kernels/scatter_counts/csrc/histogram.cu",
@@ -182,10 +202,11 @@ SOURCES = {
     "slot_automaton": "src/repro_torch/kernels/slot_automaton/csrc/slot_automaton.cu",
     "tree_lru": "src/repro_torch/kernels/tree_lru/csrc/tree_lru.cu",
     "minpair_automaton": "src/repro_torch/kernels/minpair_automaton/csrc/minpair_automaton.cu",
+    "fifo_queue": "src/repro_torch/kernels/fifo_queue/csrc/fifo_queue.cu",
 }
 KERNELS = ("histogram", "mass", "apply", "segsum", "tree_update", "bucket_mass",
            "flash_prefill", "decode_attention", "slot_automaton", "tree_lru",
-           "minpair_automaton")
+           "minpair_automaton", "fifo_queue")
 #: the one design of each kernel that has one (the others name theirs in
 #: their rows: the attention kernels by design(), the histogram, the clip
 #: and the two threshold solves by the launches of their main path)
@@ -213,6 +234,9 @@ DESIGNS = {
                          "64 children a level, levels above the leaves in shared memory, "
                          "leaves and slots in L2; ancestors recomputed up to the first "
                          "unchanged node",
+    "fifo_queue": "one warp a chunk: the victims in the order a run derives once from the "
+                  "carry, a tile of 32 requests and their 32 possible victims read at once, "
+                  "imap kept current by broadcast",
 }
 #: the design of the standalone apply kernel, which phase 3 times (the dense
 #: main path's clip is the projection's epilogue)
@@ -220,7 +244,7 @@ APPLY_STANDALONE = "standalone: 16-byte body, 2 float4 of f and c in flight a th
 DENSE_KERNELS = 21  # device kernels a dense chunk launches (phase 7)
 #: kernels off the replay paths: serving's attention, the scenario path's automata
 OFF_PATH = {"flash_prefill": 0, "decode_attention": 0, "slot_automaton": 0, "tree_lru": 0,
-            "minpair_automaton": 0}
+            "minpair_automaton": 0, "fifo_queue": 0}
 #: the port's kernels in the profiler's rows, by the names of their functions
 PORT_KERNEL_NAMES = ("tree_update_kernel", "tree_build_kernel", "bin_tiles_kernel",
                      "solve_buckets_kernel", "project_warm_kernel")
@@ -247,7 +271,7 @@ QUICK_HIT_TOL, QUICK_FRAC_TOL = 1e-3, 1e-4
 FIG8_OGB_FLOOR = 0.85
 #: fig8_cdn at full: the rows, and the automaton rows' chunks run again under
 #: torch's sync debug mode "error"
-FIG8_POLICIES, FIG8_SYNC_CHUNKS = ("ogb", "omd", "lru", "lfu", "ftpl"), 3
+FIG8_POLICIES, FIG8_SYNC_CHUNKS = ("ogb", "omd", "lru", "lfu", "ftpl", "fifo"), 3
 TREE_AUTOMATA = ("lru", "lfu", "ftpl")
 #: phase 19's capacities, ids a case after the fill, and the two timed shapes
 #: (C: catalog, chunk): quick's and fig8_cdn full's
@@ -256,6 +280,13 @@ TREE_TIMED = {1000: (20_000, 10_000), 50000: (1_000_000, 1_000_000)}
 #: the int32 tree build's timed leaves: a ring of C = 50 000 (ring_size), and
 #: fig8_cdn full's ring (a window of 1e6)
 INT32_BUILD_LEAVES = (262_144, 2_097_152)
+#: phase 20's capacities of the FIFO queue (from one warp's lanes past the
+#: slot kernel's 16 384) and of the GDS mode
+FIFO_CS = (25, 1000, 16384, 50000)
+#: the sized scenario, and the chunks of its full run before the state that
+#: phase 20 records a chunk of
+SIZED = "sized_cdn"
+SIZED_RECORD_CHUNKS = 200
 
 
 class Failed(Exception):
@@ -1716,26 +1747,29 @@ def check_served_against_plain(torch, engine, prompts, first_out):
 # -- the scenario path (phases 16-18) ---------------------------------------
 
 def cpu_quick_rows(name):
-    """Phase 17's CPU side, in a worker process: ``run_scenario`` at quick
-    on the CPU (every kernel's plain version), the device rows only."""
+    """Phase 17's and 21's CPU side, in a worker process: ``run_scenario``
+    at quick on the CPU (every kernel's plain version), the device rows only
+    (the sized scenario's are all device rows)."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
 
     torch.set_num_threads(1)
     from repro_torch.cachesim.scenarios import run_scenario
 
-    return run_scenario(name, "quick", policies=DEVICE_POLICIES, device="cpu").rows
+    policies = None if name == SIZED else DEVICE_POLICIES
+    return run_scenario(name, "quick", policies=policies, device="cpu").rows
 
 
 def start_cpu_quick():
-    """Start phase 17's CPU runs, one worker process a scenario (spawned:
-    no CUDA in them), so that they overlap the card's phases 16-17."""
+    """Start phase 17's and 21's CPU runs, one worker process a scenario
+    (spawned: no CUDA in them), so that they overlap the card's phases."""
     import concurrent.futures
     import multiprocessing
 
+    names = SCENARIO_NAMES + (SIZED,)
     pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=len(SCENARIO_NAMES), mp_context=multiprocessing.get_context("spawn"))
-    return pool, {name: pool.submit(cpu_quick_rows, name) for name in SCENARIO_NAMES}
+        max_workers=len(names), mp_context=multiprocessing.get_context("spawn"))
+    return pool, {name: pool.submit(cpu_quick_rows, name) for name in names}
 
 
 def automaton_case(kind, n, c, n_slots, trace, dev):
@@ -1950,13 +1984,17 @@ def lru_compactions(m, cap, window, chunks):
 
 def _scenario_launches(name, scale, policies=None, trace=None):
     """run_scenario on the card with every launch counted; checks one
-    launch a chunk of each automaton row (slot_automaton for FIFO, tree_lru
-    for LRU, minpair_automaton for LFU and FTPL), the LRU's possible ring
-    compactions (a compaction launch and an int32 tree build each), and the
-    OGB and OMD rows' histogram, mass and apply launches."""
+    launch a chunk of each automaton row (fifo_queue for FIFO, tree_lru
+    for LRU, minpair_automaton for LFU, FTPL and GDS), the LRU's possible
+    ring compactions (a compaction launch and an int32 tree build each), the
+    OGB and OMD rows' histogram, mass and apply launches, and OGB_sized's
+    three stacked tree updates, sized solve and histogram a chunk (and its
+    3K tree builds at init)."""
     from repro_torch.cachesim.scenarios import get_scenario, run_scenario
     from repro_torch.cachesim.tree_engines import ring_for_window
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
+    from repro_torch.kernels.minpair_automaton.ops import DESIGN_GDS
+    from repro_torch.kernels.prefix_tree.kernel import SIZED_DESIGN
 
     sc = get_scenario(name)
     n, t, c = sc.dims(scale)
@@ -1969,13 +2007,22 @@ def _scenario_launches(name, scale, policies=None, trace=None):
     got = launch_counts()
     chunks, rows = t // batch, t // w
     comp = lru_compactions(ring_for_window(c, w), c, w, rows) if "lru" in kinds else 0
+    sized = "ogb_sized" in kinds
+    classes = len(set(sc.make_sizes(scale).tolist())) if sized else 0
     want = {k: 0 for k in got}
-    want.update({"slot_automaton": rows * ("fifo" in kinds),
+    want.update({"fifo_queue": rows * ("fifo" in kinds),
                  "tree_lru": (rows + comp) * ("lru" in kinds),
-                 "minpair_automaton": rows * (("lfu" in kinds) + ("ftpl" in kinds)),
-                 "segsum": comp, "histogram": chunks * (("ogb" in kinds) + ("omd" in kinds)),
-                 "mass": chunks * ("ogb" in kinds), "apply": chunks * ("ogb" in kinds)})
+                 "minpair_automaton": rows * (("lfu" in kinds) + ("ftpl" in kinds)
+                                              + ("gds" in kinds)),
+                 "segsum": comp + 3 * classes,
+                 "histogram": chunks * (("ogb" in kinds) + ("omd" in kinds) + sized),
+                 "mass": chunks * ("ogb" in kinds), "apply": chunks * ("ogb" in kinds),
+                 "tree_update": 3 * chunks * sized, "bucket_mass": chunks * sized})
     need(got == want, f"{name} {scale}: launches {got}, expected {want}")
+    designs = design_counts()
+    need(designs.get("minpair_automaton", {}).get(DESIGN_GDS, 0) == rows * ("gds" in kinds)
+         and designs.get("bucket_mass", {}).get(SIZED_DESIGN, 0) == chunks * sized,
+         f"{name} {scale}: the GDS mode or the sized solve did not run once a chunk: {designs}")
     return res, got, wall
 
 
@@ -2086,48 +2133,42 @@ def check_paper_scale(torch):
     need(res.rows["OGB"]["hit_ratio"] > res.rows["LRU"]["hit_ratio"],
          f"fig8 full: OGB {res.rows['OGB']['hit_ratio']} not above LRU "
          f"{res.rows['LRU']['hit_ratio']} (benchmarks/fig7_8_traces.py:57)")
-    need(min(launches[k] for k in ("tree_lru", "minpair_automaton", "segsum")) > 0,
-         f"fig8 full: a tree kernel was not launched: {launches}")
+    need(min(launches[k] for k in ("tree_lru", "minpair_automaton", "segsum", "fifo_queue")) > 0,
+         f"fig8 full: a tree kernel or the FIFO queue was not launched: {launches}")
+    need(0.0 < res.rows["FIFO"]["hit_ratio"] < opt, f"fig8 full FIFO: {res.rows['FIFO']}")
     print(f"fig8_cdn full: OPT(static) {opt}; OGB at least {FIG8_OGB_FLOOR} of it and above LRU "
           f"(Fig. 8-left, benchmarks/fig7_8_traces.py:57): met ({wall:.2f} s); launches "
           f"{launches} (segsum: int32 tree builds, one a ring compaction)")
-    check_no_host_reads(torch, trace, n, c, max(t // 20, 1))
-    try:
-        run_scenario("fig8_cdn", "full", policies=("fifo",), trace=trace, include_opt=False,
-                     device="cuda")
-    except ValueError as exc:
-        need("no tree form" in str(exc) and "ROADMAP" in str(exc), f"FIFO's message: {exc}")
-        print(f"fig8_cdn full FIFO at C = {c} raises: {exc}")
-    else:
-        raise Failed(f"FIFO ran at C = {c} on the slot kernel")
+    check_no_host_reads(torch, trace, n, c, max(t // 20, 1), TREE_AUTOMATA + ("fifo",))
     return launches
 
 
-def check_no_host_reads(torch, trace, n, c, window):
-    """Phase 18: FIG8_SYNC_CHUNKS chunks of each automaton row of fig8_cdn
-    full, from a started run, under torch's sync debug mode "error": a read
-    of the device (or a blocking copy to it) in a chunk raises."""
+def check_no_host_reads(torch, trace, n, c, window, kinds, label="fig8 full", **init_kw):
+    """Phases 18 and 21: FIG8_SYNC_CHUNKS chunks of each of ``kinds``, from a
+    started run, under torch's sync debug mode "error": a read of the device
+    (or a blocking copy to it) in a chunk raises."""
     from repro_torch import policy_def
     from repro_torch.cachesim.tree_engines import ring_for_window
 
     chunks = torch.from_numpy(trace[:FIG8_SYNC_CHUNKS * window].astype("int32")).to(
         "cuda").reshape(FIG8_SYNC_CHUNKS, window)
-    for kind in TREE_AUTOMATA:
+    for kind in kinds:
         pd = policy_def(kind)
         ring = {"ring": ring_for_window(c, window)} if kind == "lru" else {}
-        carry = pd.start(pd.init(n, c, horizon=len(trace), **ring))
+        carry = pd.start(pd.init(n, c, horizon=len(trace), **ring, **init_kw), n)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             for i in range(FIG8_SYNC_CHUNKS):
                 carry, out = pd.step(carry, chunks[i])
         except RuntimeError as exc:
-            raise Failed(f"fig8 full {kind}: a chunk read the device: {exc}") from exc
+            raise Failed(f"{label} {kind}: a chunk read the device: {exc}") from exc
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-    print(f"fig8_cdn full: {FIG8_SYNC_CHUNKS} chunks of {window} requests of each of LRU, LFU, "
-          f"FTPL under sync debug mode 'error': 0 host reads in a chunk")
+    print(f"{label}: {FIG8_SYNC_CHUNKS} chunks of {window} requests of each of "
+          f"{', '.join(k.upper() for k in kinds)} under sync debug mode 'error': 0 host reads in "
+          f"a chunk")
 
 
 # -- the tree automata's kernels (phase 19) ------------------------------------
@@ -2352,6 +2393,387 @@ def check_tree_automata(torch, dev):
     return rows, build
 
 
+# -- the sized axis's kernels (phase 20) and the sized scenario (phase 21) ------
+
+def fifo_tensors(carry):
+    """A FIFO run carry's tensors: the carry's and its queue's."""
+    return (*carry[:3], *carry.queue)
+
+
+def fifo_copy(carry, dev):
+    from repro_torch.cachesim.engines import FIFORunCarry
+    from repro_torch.kernels.fifo_queue.ref import FIFOQueue
+
+    return FIFORunCarry(*(x.to(dev, copy=True) for x in carry[:3]),
+                        FIFOQueue(*(x.to(dev, copy=True) for x in carry.queue)))
+
+
+def fifo_bytes(torch, ids, hits):
+    """Bytes one FIFO chunk must move: the ids read, each distinct requested
+    item's imap entry read once, and for each miss the victim's order entry
+    and slot read and its slot, stamp and two imap entries written; the
+    clock, head and occupancy read and written, and the three outputs."""
+    misses = ids.numel() - hits
+    return 4 * ids.numel() + 4 * torch.unique(ids).numel() + 24 * misses + 24 + 16
+
+
+def gds_copy(carry, dev):
+    return type(carry)(*(x.to(dev, copy=True) for x in carry))
+
+
+def gds_bytes(torch, before, after, ids):
+    """Bytes one GDS chunk must move: the ids read, each distinct requested
+    item's imap and cost/size read once, each changed imap, slot and H entry
+    written, each changed tree node read and written (two trees)."""
+    n_bytes = 4 * ids.numel() + 8 * torch.unique(ids).numel() + 8
+    for name in ("imap", "slots", "hval"):
+        n_bytes += 4 * int((getattr(before, name) != getattr(after, name)).sum())
+    changed = (before.tree_hi != after.tree_hi) | (before.tree_lo != after.tree_lo)
+    return n_bytes + 16 * int(changed.sum())
+
+
+def sized_state(torch):
+    """A mid-run OGB_sized_tree carry at sized_cdn full's shape (N = 1e6,
+    C = 50 000, its byte budget and sizes) after SIZED_RECORD_CHUNKS chunks
+    of zipf(0.9) on the card, and the three stacked tree updates and the
+    sized solve of the next chunk, recorded (inputs cloned before each)."""
+    from repro_torch import policy_def, run
+    from repro_torch.cachesim import tree_engines as tt
+    from repro_torch.cachesim.scenarios import get_scenario
+    from repro_torch.cachesim.traces import zipf
+
+    sc = get_scenario(SIZED)
+    n, _, c = sc.dims("full")
+    sizes, cap = sc.make_sizes("full"), sc.byte_capacity("full")
+    trace = zipf(n, (SIZED_RECORD_CHUNKS + 1) * 1000, alpha=0.9, seed=sc.trace_seed)
+    pd = policy_def("ogb_sized")
+    res = run(pd, trace[:SIZED_RECORD_CHUNKS * 1000], n, cap, window=1000, sizes=sizes,
+              horizon=sc.dims("full")[1])
+    carry = res.carry
+    calls = {"update": [], "solve": []}
+    update, solve = tt.stacked_tree_update_, tt.solve_sized
+
+    def spy_update(trees, v, radix, rows, idx, delta):
+        calls["update"].append((trees.clone(), v, radix, rows.clone(), idx.clone(), delta.clone()))
+        return update(trees, v, radix, rows, idx, delta)
+
+    def spy_solve(ycnt, ysum, v, s_, cap_, lo, hi, iters):
+        calls["solve"].append((ycnt.clone(), ysum.clone(), v, s_.clone(), cap_.clone(), lo.clone(),
+                               hi.clone(), iters))
+        return solve(ycnt, ysum, v, s_, cap_, lo, hi, iters)
+
+    tt.stacked_tree_update_, tt.solve_sized = spy_update, spy_solve
+    try:
+        ids = torch.from_numpy(trace[SIZED_RECORD_CHUNKS * 1000:].astype("int32")).to("cuda")
+        pd.step(carry, ids)
+    finally:
+        tt.stacked_tree_update_, tt.solve_sized = update, solve
+    need(len(calls["update"]) == 3 and len(calls["solve"]) == 1,
+         f"a sized chunk made {len(calls['update'])} tree updates and {len(calls['solve'])} solves")
+    return calls
+
+
+def check_sized_kernels(torch, dev):
+    """Phase 20: the FIFO queue, the GDS mode, the stacked tree update (and
+    the int32 one) and the sized solve against their plain versions, bit for
+    bit on the card and against the CPU; their times cold beside their
+    bounds and plain versions."""
+    import numpy as np
+
+    from repro_torch.cachesim import engines as teng
+    from repro_torch.cachesim import tree_engines as tt
+    from repro_torch.cachesim.traces import adversarial, zipf
+    from repro_torch.kernels.fifo_queue.ops import fifo_queue
+    from repro_torch.kernels.fifo_queue.ref import fifo_queue_ref
+    from repro_torch.kernels.minpair_automaton.ref import gds_automaton_ref
+    from repro_torch.kernels.prefix_tree.kernel import solve_sized
+    from repro_torch.kernels.prefix_tree.ops import stacked_tree_update_, tree_update_
+    from repro_torch.kernels.prefix_tree.ref import (
+        sized_groups,
+        solve_sized_ref,
+        stacked_tree_update_ref,
+        tree_build_ref,
+        tree_update_ref,
+    )
+
+    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    def restorer(dst, src):
+        def reset():
+            for x, x0 in zip(dst, src):
+                x.copy_(x0)
+        return reset
+
+    rng = np.random.default_rng(20)
+    rows, err = {}, 0.0
+    # (a) the FIFO queue and (b) GDS: every case bit for bit, every case evicting
+    n_cases = 0
+    for kind in ("fifo", "gds"):
+        cases = [(c, None) for c in (FIFO_CS if kind == "fifo" else TREE_CS)]
+        cases += [(1000, 1037)] if kind == "fifo" else [(23, 60), (1000, 1037)]
+        for c, n_slots in cases:
+            n, trace = tree_case_trace(c, c)
+            if kind == "fifo":
+                cpu = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, n_slots=n_slots,
+                                                                 device="cpu"), n)
+                copy, tensors = fifo_copy, fifo_tensors
+            else:
+                sizes = np.asarray([1.0, 4.0, 16.0, 64.0])[rng.integers(0, 4, n)]
+                costs = np.asarray([0.5, 1.0, 2.0, 4.0])[rng.integers(0, 4, n)]
+                cpu = tt.init_tree_gds_carry(n, c, n_slots, sizes=sizes, costs=costs,
+                                             device="cpu")
+                copy, tensors = gds_copy, tuple
+            card, plain = copy(cpu, dev), copy(cpu, dev)
+            ids = torch.from_numpy(trace)
+            evicted = 0
+            for part in [ids[:c]] + list(ids[c:].split(TREE_IDS // 2)):
+                before = set(cpu.slots.tolist())
+                if kind == "fifo":
+                    got = fifo_queue(card.slots, card.stamps, card.t, card.queue, part.to(dev))
+                    want = fifo_queue_ref(plain.slots, plain.stamps, plain.t, plain.queue,
+                                          part.to(dev))
+                    on_cpu = fifo_queue(cpu.slots, cpu.stamps, cpu.t, cpu.queue, part)
+                else:
+                    card, got = tt.tree_chunk("gds", card, part.to(dev))
+                    want = gds_automaton_ref(plain.imap, plain.prio, plain.hval, plain.L,
+                                             plain.slots, plain.tree_hi, plain.tree_lo,
+                                             part.to(dev))
+                    cpu, on_cpu = tt.tree_chunk("gds", cpu, part)
+                e = max_abs_diff(torch, (*got, *tensors(card)), (*want, *tensors(plain)))
+                label = f"{kind} C={c} n_slots={n_slots or c}"
+                need(e == 0, f"{label}: card differs from the plain version by {e}")
+                for a, h in zip((*got, *tensors(card)), (*on_cpu, *tensors(cpu))):
+                    need(torch.equal(a.cpu(), h), f"{label}: card differs from the CPU")
+                evicted += len(before - set(cpu.slots.tolist()) - {-1, -2})
+            need(evicted > 0, f"{kind} C={c}: no eviction")
+            if n_slots:
+                need(bool((card.slots[c:] == -2).all()), f"{kind} C={c}: an inactive slot written")
+            n_cases += 1
+    print(f"fifo_queue and minpair_automaton's GDS mode: {n_cases} cases (FIFO at C in "
+          f"{FIFO_CS}, GDS at C in {TREE_CS} with dyadic sizes and costs, and padded slots), C "
+          f"distinct ids filling the slots, then {TREE_IDS} ids: hits, stats and every carry "
+          f"leaf (FIFO: and the run's queue) bit for bit against the plain version on the card "
+          f"and the CPU; every case evicts")
+
+    for kind in ("fifo", "gds"):
+        timed = {}
+        for c, (n, w) in TREE_TIMED.items():
+            fill = np.concatenate([adversarial(n, c, seed=9), zipf(n, w, alpha=0.9, seed=9)])
+            chunk = torch.from_numpy(zipf(n, w, alpha=0.9, seed=10).astype("int32")).to(dev)
+            if kind == "fifo":
+                card = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, device=dev), n)
+                fifo_queue(card.slots, card.stamps, card.t, card.queue,
+                           torch.from_numpy(fill.astype("int32")).to(dev))
+                tensors, copy = fifo_tensors, fifo_copy
+            else:
+                sizes = np.asarray([1.0, 4.0, 16.0, 64.0])[np.minimum(np.arange(n) * 4 // n, 3)]
+                card = tt.init_tree_gds_carry(n, c, sizes=sizes, device=dev)
+                tt.tree_chunk("gds", card, torch.from_numpy(fill.astype("int32")).to(dev))
+                tensors, copy = tuple, gds_copy
+            start, plain = copy(card, dev), copy(card, dev)
+            t0 = time.perf_counter()
+            if kind == "fifo":
+                want = fifo_queue_ref(plain.slots, plain.stamps, plain.t, plain.queue, chunk)
+            else:
+                want = gds_automaton_ref(plain.imap, plain.prio, plain.hval, plain.L, plain.slots,
+                                         plain.tree_hi, plain.tree_lo, chunk)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+
+            def kern(card=card, kind=kind):
+                if kind == "fifo":
+                    return fifo_queue(card.slots, card.stamps, card.t, card.queue, chunk)
+                return tt.tree_chunk("gds", card, chunk)[1]
+
+            got = kern()
+            e = max_abs_diff(torch, (*got, *tensors(card)), (*want, *tensors(plain)))
+            need(e == 0, f"{kind} C={c}, the timed chunk: differs from the plain version by {e}")
+            err = max(err, e)
+            hits = int(got[0])
+            n_bytes = (fifo_bytes(torch, chunk, hits) if kind == "fifo"
+                       else gds_bytes(torch, start, card, chunk))
+            ms = timed_ms(torch, kern, 2 if w > 100_000 else 5, flush,
+                          reset=restorer(tensors(card), tensors(start)))
+            b, by = bound_ms(n_bytes, 0)
+            timed[c] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                        "max_abs_err": e, "us_per_request": ms * 1e3 / w,
+                        "plain_us_per_request": plain_ms * 1e3 / w, "window": w, "N": n,
+                        "hits": hits}
+            print(f"{kind} C={c} N={n}, a {w}-request chunk from a full carry ({hits} hits): "
+                  f"cold {ms:.4f} ms ({ms * 1e3 / w:.5f} us a request); plain on the card "
+                  f"{plain_ms:.2f} ms ({plain_ms * 1e3 / w:.4f} us a request); bound "
+                  f"{b * 1e3:.4f} us by {by} ({n_bytes} bytes); max abs err {e}")
+        main = timed[50000]
+        rows["fifo_queue" if kind == "fifo" else "gds"] = {
+            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None, "max_abs_err": err,
+            "bound_note": "latency-bound: a chain of dependent requests on one warp",
+            "timed": f"{kind} at fig8_cdn full's shape from a full carry: C=50000, "
+                     f"N={TREE_TIMED[50000][0]}, a chunk of {TREE_TIMED[50000][1]}",
+            "by_c": timed}
+
+    # (c) the stacked tree update and (d) the sized solve at a recorded chunk
+    calls = sized_state(torch)
+    upd, upd_k, upd_err = [], [], 0.0
+    for trees0, v, radix, rws, idx, delta in calls["update"]:
+        out = trees0.clone()
+        got = stacked_tree_update_(out, v, radix, rws, idx, delta)
+        want = stacked_tree_update_ref(trees0.clone(), v, radix, rws, idx, delta)
+        on_cpu = stacked_tree_update_ref(trees0.cpu(), v, radix, rws.cpu(), idx.cpu(), delta.cpu())
+        e = max_abs_diff(torch, (got,), (want,))
+        need(e == 0 and torch.equal(got.cpu(), on_cpu),
+             f"stacked tree update differs from the plain version by {e}")
+        per_row = trees0.clone()
+        for k in range(per_row.shape[0]):
+            tree_update_(per_row[k], v, radix, torch.where(rws == k, idx, -1), delta)
+        need(torch.equal(per_row, got), "K one-tree updates differ from the stacked update")
+        reset = restorer((out,), (trees0,))
+        ms = timed_ms(torch, lambda: stacked_tree_update_(out, v, radix, rws, idx, delta), 20,
+                      flush, reset=reset)
+
+        def per_class(out=out, v=v, radix=radix, rws=rws, idx=idx, delta=delta):
+            for k in range(out.shape[0]):
+                tree_update_(out[k], v, radix, torch.where(rws == k, idx, -1), delta)
+
+        k_ms = timed_ms(torch, per_class, 20, flush, reset=reset)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            stacked_tree_update_ref(trees0.clone(), v, radix, rws, idx, delta)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3 / 5
+        touched = int((got != trees0).sum())
+        b, by = bound_ms(20 * idx.numel() + 8 * touched, 0)
+        upd.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                    "per_class_launches_ms": k_ms, "deltas": idx.numel(),
+                    "touched_nodes": touched})
+        upd_err = max(upd_err, e)
+        print(f"stacked tree update, a recorded sized_cdn full chunk ({idx.numel()} deltas over "
+              f"{trees0.shape[0]} trees, {touched} nodes changed): cold {ms * 1e3:.2f} us; "
+              f"{trees0.shape[0]} one-tree launches {k_ms * 1e3:.2f} us; plain on the card "
+              f"{plain_ms * 1e3:.2f} us; bound {b * 1e3:.4f} us by {by}; bit for bit")
+    ycnt, ysum, v, s_, cap_, lo, hi, iters = calls["solve"][0]
+    got = solve_sized(ycnt, ysum, v, s_, cap_, lo, hi, iters)
+    want = solve_sized_ref(ycnt[:, :v], ysum[:, :v], s_, cap_, lo, hi, iters)
+    on_cpu = solve_sized_ref(ycnt[:, :v].cpu(), ysum[:, :v].cpu(), s_.cpu(), cap_.cpu(),
+                             lo.cpu(), hi.cpu(), iters)
+    solve_err = max(abs(float(got) - float(want)), abs(float(got) - float(on_cpu)))
+    need(solve_err <= 1e-6 * max(1.0, abs(float(want))),
+         f"the sized solve differs from its plain version by {solve_err}")
+    ms = timed_ms(torch, lambda: solve_sized(ycnt, ysum, v, s_, cap_, lo, hi, iters), 20, flush)
+    t0 = time.perf_counter()
+    solve_sized_ref(ycnt[:, :v], ysum[:, :v], s_, cap_, lo, hi, iters)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    groups = sized_groups(ycnt[:, :v]).shape[0]
+    kk = ycnt.shape[0]
+    b, by = bound_ms(4 * kk * (v // 64) + 8 * 64 * groups, 6 * iters * 64 * groups)
+    rows["solve_sized"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                           "max_abs_err": solve_err, "bit_for_bit": solve_err == 0.0,
+                           "groups": groups, "classes": kk, "iters": iters, "library_ms": None}
+    print(f"sized solve, the recorded chunk ({kk} classes, {groups} groups of 64 buckets holding "
+          f"an item, {iters} Newton steps): cold {ms * 1e3:.2f} us; plain on the card "
+          f"{plain_ms:.2f} ms; bound {b * 1e3:.4f} us by {by}; |card - plain| {solve_err} (card "
+          f"and CPU plain versions: {float(want)} and {float(on_cpu)})")
+    rows["stacked_update"] = {**upd[0], "calls": upd, "max_abs_err": upd_err, "library_ms": None}
+
+    # the int32 tree update at a C = 50 000 ring's shape (262 144 leaves,
+    # radix 16), 2000 deltas scattered over it: no path launches it
+    m = INT32_BUILD_LEAVES[0]
+    tree = tree_build_ref(torch.randint(0, 2, (m,), dtype=torch.int32, device=dev), 16)
+    idx = torch.randint(-1, m, (2000,), device=dev)
+    delta = torch.randint(-1, 2, (2000,), dtype=torch.int32, device=dev)
+    got = tree_update_(tree.clone(), m, 16, idx, delta)
+    need(torch.equal(got, tree_update_ref(tree.clone(), m, 16, idx, delta)) and
+         torch.equal(got.cpu(), tree_update_ref(tree.cpu(), m, 16, idx.cpu(), delta.cpu())),
+         "the int32 tree update differs from its plain version")
+    out = tree.clone()
+    ms = timed_ms(torch, lambda: tree_update_(out, m, 16, idx, delta), 20, flush,
+                  reset=restorer((out,), (tree,)))
+    rows["int32_update"] = {"ms": ms, "deltas": idx.numel(), "leaves": m}
+    print(f"int32 tree update, {idx.numel()} deltas scattered over {m} leaves at radix 16: cold "
+          f"{ms * 1e3:.2f} us, bit for bit")
+    return rows
+
+
+def check_sized_scenario(torch, cpu_future):
+    """Phase 21: sized_cdn at mini against the golden, at quick against the
+    CPU, at full with every row."""
+    from repro_torch.cachesim.scenarios import get_scenario
+
+    sc = get_scenario(SIZED)
+    res, _, wall = _scenario_launches(SIZED, "mini")
+    golden = _golden_rows(SIZED)
+    need(res.rows.keys() == golden["rows"].keys(), f"{SIZED} mini: rows {sorted(res.rows)}")
+    for policy, entry in golden["rows"].items():
+        for metric, want in entry.items():
+            if policy == "OGB_sized_tree" and metric != "byte_regret":
+                continue  # the Poisson p is the port's own (CPU tests: the reference's)
+            got = round(res.rows[policy][metric], 10)
+            tol = (GOLDEN_EXACT if metric in ("hit_ratio", "byte_hit_ratio")
+                   else max(GOLDEN_FLOAT * golden["T"], abs(want) * 5e-3))
+            need(abs(got - want) <= tol, f"{SIZED} mini {policy} {metric}: {got} != {want}")
+    print(f"{SIZED} mini on the card ({wall:.2f} s): GDS, LRU, LFU, FTPL and OPT(static) hit and "
+          f"byte hit ratios equal to the golden, OGB_sized_tree's byte regret "
+          f"{res.rows['OGB_sized_tree']['byte_regret']} (golden "
+          f"{golden['rows']['OGB_sized_tree']['byte_regret']})")
+
+    res, got, wall = _scenario_launches(SIZED, "quick")
+    cpu = cpu_future.result(timeout=900)
+    need(res.rows.keys() == cpu.keys(), f"{SIZED} quick: rows {sorted(res.rows)}")
+    for policy, row in cpu.items():
+        card = res.rows[policy]
+        if policy == "OGB_sized_tree":
+            for metric in ("hit_ratio", "byte_hit_ratio"):
+                need(abs(card[metric] - row[metric]) <= QUICK_HIT_TOL,
+                     f"{SIZED} quick {policy} {metric}: card {card[metric]} CPU {row[metric]}")
+            need(abs(card["byte_regret"] - row["byte_regret"]) <= 1e-4 * abs(row["byte_regret"]),
+                 f"{SIZED} quick {policy} byte regret: card {card['byte_regret']} CPU "
+                 f"{row['byte_regret']}")
+        else:
+            for metric in ("hit_ratio", "byte_hit_ratio"):
+                need(card[metric] == row[metric],
+                     f"{SIZED} quick {policy} {metric}: card {card[metric]} != CPU {row[metric]}")
+    print(f"{SIZED} quick on the card ({wall:.2f} s): "
+          + ", ".join(f"{p} {r['hit_ratio']:.4f}/{r['byte_hit_ratio']:.4f}"
+                      for p, r in sorted(res.rows.items()))
+          + f" (hit/byte hit); equal to the CPU run (automata and OPT exactly, OGB_sized_tree "
+          f"within {QUICK_HIT_TOL}); launches {got}")
+
+    n, t, c = sc.dims("full")
+    t0 = time.perf_counter()
+    trace = sc.make_trace("full")
+    sizes, cap = sc.make_sizes("full"), sc.byte_capacity("full")
+    print(f"{SIZED} full: trace N={n} T={t} in {time.perf_counter() - t0:.2f} s, C={c}, byte "
+          f"budget {cap}, sizes {sorted(set(sizes.tolist()))}")
+    res, launches, wall = _scenario_launches(SIZED, "full", trace=trace)
+    card = nvidia_smi_line()
+    for p, r in sorted(res.rows.items()):
+        print(f"{SIZED} full {p}: hit ratio {r['hit_ratio']}, byte hit ratio {r['byte_hit_ratio']}"
+              + "".join(f", {k} {r[k]}" for k in ("frac_hit_ratio", "byte_regret",
+                                                  "us_per_request") if k in r)
+              + (" us a request" if "us_per_request" in r else "") + f" [{card}]")
+    for p, r in res.rows.items():
+        need(0.0 < r["hit_ratio"] < 1.0 and 0.0 < r["byte_hit_ratio"] < 1.0,
+             f"{SIZED} full {p}: {r}")
+    need(math.isfinite(res.rows["OGB_sized_tree"]["byte_regret"]), f"{SIZED} full OGB_sized_tree")
+    pols = [p for p in res.rows if p != "OPT(static)"]
+    by_obj = sorted(pols, key=lambda p: -res.rows[p]["hit_ratio"])
+    by_byte = sorted(pols, key=lambda p: -res.rows[p]["byte_hit_ratio"])
+    flip = by_obj != by_byte and by_obj[0] != by_byte[0]
+    print(f"{SIZED} full ({wall:.2f} s): by object hit ratio {by_obj}, by byte hit ratio "
+          f"{by_byte}: the ranking flip (byte winner not the object winner) "
+          f"{'holds' if flip else 'does not hold'}; launches {launches}")
+    w = max(t // 20, 1)
+    check_no_host_reads(torch, trace, n, c, w, ("gds",), label=f"{SIZED} full", sizes=sizes)
+    check_no_host_reads(torch, trace, n, cap, 1000, ("ogb_sized",), label=f"{SIZED} full",
+                        sizes=sizes)
+    return launches, {p: {k: r[k] for k in ("hit_ratio", "byte_hit_ratio", "us_per_request")
+                          if k in r} for p, r in res.rows.items()}, flip
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -2414,13 +2836,19 @@ def main() -> int:
         rows["slot_automaton"] = check_slot_automaton(torch, dev)
         scenario_launches = check_scenarios(torch, cpu_futures)
         fig8_launches = check_paper_scale(torch)
+        print(f"scenario phases 16-18: {time.perf_counter() - t_scenarios:.2f} s")
+        t_tree = time.perf_counter()
+        tree_rows, int32_build = check_tree_automata(torch, dev)
+        rows.update(tree_rows)
+        print(f"tree automata phase 19: {time.perf_counter() - t_tree:.2f} s")
+        t_sized = time.perf_counter()
+        sized_rows = check_sized_kernels(torch, dev)
+        print(f"sized kernels phase 20: {time.perf_counter() - t_sized:.2f} s")
+        t_sized = time.perf_counter()
+        sized_launches, sized_full, sized_flip = check_sized_scenario(torch, cpu_futures[SIZED])
+        print(f"sized scenario phase 21: {time.perf_counter() - t_sized:.2f} s")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
-    print(f"scenario phases 16-18: {time.perf_counter() - t_scenarios:.2f} s")
-    t_tree = time.perf_counter()
-    tree_rows, int32_build = check_tree_automata(torch, dev)
-    rows.update(tree_rows)
-    print(f"tree automata phase 19: {time.perf_counter() - t_tree:.2f} s")
 
     # launches: the dense main path's for its kernels, the lazy main path's
     # for the prefix-tree kernels (segsum also ran 1 a chunk on madow_tree)
@@ -2428,10 +2856,23 @@ def main() -> int:
     launches.update({k: serve_launches[k] for k in ("flash_prefill", "decode_attention")})
     # the automata's: the seven quick scenarios on the card (phase 17); the
     # tree kernels' on fig8_cdn full beside them (phase 18)
-    for name in ("slot_automaton", "tree_lru", "minpair_automaton"):
+    for name in ("slot_automaton", "tree_lru", "minpair_automaton", "fifo_queue"):
         launches[name] = scenario_launches[name]
-    for name in ("tree_lru", "minpair_automaton"):
+    for name in ("tree_lru", "minpair_automaton", "fifo_queue"):
+        rows.setdefault(name, {})
+    rows["fifo_queue"].update(sized_rows["fifo_queue"])
+    for name in ("tree_lru", "minpair_automaton", "fifo_queue"):
         rows[name]["launches_fig8_full"] = fig8_launches[name]
+    # the sized scenario at full, this slice's path: its launches beside
+    # each kernel it runs, and the new modes' own measurements
+    for name in ("tree_lru", "minpair_automaton", "tree_update", "bucket_mass", "histogram",
+                 "segsum"):
+        rows[name]["launches_sized_cdn_full"] = sized_launches[name]
+    rows["minpair_automaton"]["gds"] = sized_rows["gds"]
+    rows["tree_update"]["stacked"] = sized_rows["stacked_update"]
+    rows["tree_update"]["int32"] = sized_rows["int32_update"]
+    rows["bucket_mass"]["sized"] = sized_rows["solve_sized"]
+    rows["sized_cdn_full"] = {"rows": sized_full, "ranking_flip": sized_flip}
     # the int32 tree build: a ring compaction's, launched on the scenario paths
     rows["segsum"]["int32"] = {"by_leaves": int32_build,
                                "launches_quick": scenario_launches["segsum"],
@@ -2456,7 +2897,7 @@ def main() -> int:
          "launches": launches[name], **rows[name]}
         for name in KERNELS
     ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "sized_cdn_full": rows["sized_cdn_full"]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

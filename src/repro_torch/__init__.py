@@ -4,15 +4,18 @@ The counterpart of ``repro`` for an NVIDIA H100, one slice at a time.
 Ported so far: ``policy_def("ogb")`` replayed by ``run``, with Poisson,
 Madow (``sample="madow"`` or ``"madow_tree"``) or no sampling, the lazy
 bucketized ``policy_def("ogb_tree")``, the paper's baselines ``omd``,
-``lru``, ``fifo``, ``lfu`` and ``ftpl``, and the scenario harness
-``cachesim.scenarios.run_scenario`` over the paper's comparison scenarios
-(Figs. 2, 7, 8; ARC as its host oracle); and the dense model family's serving
+``lru``, ``fifo``, ``lfu`` and ``ftpl``, the sized axis (``gds``,
+``ogb_sized``, byte hit ratios with ``run(..., sizes=)``), and the
+scenario harness ``cachesim.scenarios.run_scenario`` over the paper's
+comparison scenarios (Figs. 2, 7, 8, and ``sized_cdn``; ARC as its host
+oracle); and the dense model family's serving
 path, ``serve.engine.ServeEngine`` behind an OGB page pool
 (``serve.kvcache.PagedKVPool``), with its launcher
 ``python -m repro_torch.launch.serve``.  The gradient histogram, every
 capped-simplex catalog pass, every prefix-tree level, the bucket-mass
-threshold solve, a chunk of each automaton (the tree LRU, LFU and FTPL,
-the default for those kinds, and the slot automaton), causal prefill
+threshold solve, the sized solve, a chunk of each automaton (the tree
+LRU, LFU, FTPL and GDS, the default for those kinds, the FIFO queue and
+the slot automaton), causal prefill
 attention and one-token decode attention are hand-written CUDA kernels
 (``repro_torch.kernels``)::
 

@@ -14,7 +14,14 @@ trace through it.  Registered kinds (:func:`policy_def_kinds`):
   launch a chunk, :mod:`.tree_engines`), and ``impl="dense"`` runs the slot
   automaton (one ``slot_automaton`` launch a chunk, at most 16 384 slots),
   the differential oracle; both give bit-identical hit sequences.  FIFO has
-  no tree form and always runs dense.
+  no tree form and runs dense, at any capacity: one ``fifo_queue`` launch a
+  chunk over the order its victims take (:func:`.engines.start_fifo_run`);
+* the sized axis: ``gds`` (GreedyDual-Size on the min-pair trees, one
+  ``minpair_automaton`` launch a chunk) and ``ogb_sized`` (the paper's §8
+  size-aware OGB: ``flavor="tree"``, K stacked bucket trees, or the dense
+  ``flavor="scan"``).  ``run(..., sizes=)`` gives every automaton byte
+  accounting (``RunResult.byte_hits``, ``byte_hit_ratio``); the unit
+  policies reject ``sizes``/``costs``, as in the reference.
 
 The reference's ``lax.scan`` becomes a Python loop over chunks on the
 device.  Per-chunk outputs go into preallocated device tensors, and
@@ -39,7 +46,9 @@ from repro_torch.cachesim import tree_engines as _tree
 from repro_torch.cachesim.replay import MADOW_SAMPLES, _make_ogb_step, sampling_keys
 from repro_torch.cachesim.tree_engines import (
     OGBTreeCarry,
+    SizedOGBTreeCarry,
     TreeFTPLCarry,
+    TreeGDSCarry,
     TreeLFUCarry,
     TreeLRUCarry,
 )
@@ -48,14 +57,19 @@ from repro_torch.core.ogb import theoretical_eta
 from repro_torch.core.omd import theoretical_eta_omd
 from repro_torch.core.regret import best_static_hits
 from repro_torch.jaxcache.fractional import DEFAULT_BISECT_ITERS, DEFAULT_WARM_SWEEPS
+from repro_torch.kernels.capped_simplex.ops import weighted_simplex_project
 
 __all__ = [
     "OGBCarry",
     "OGBTreeCarry",
     "OMDApiCarry",
     "PolicyDef",
+    "SizedAutomatonCarry",
+    "SizedOGBScanCarry",
+    "SizedOGBTreeCarry",
     "StepOut",
     "TreeFTPLCarry",
+    "TreeGDSCarry",
     "TreeLFUCarry",
     "TreeLRUCarry",
     "carry_from_numpy",
@@ -70,12 +84,15 @@ class StepOut(NamedTuple):
 
     ``reward`` is the pre-update fractional reward (OCO order), the hits
     for the automata; ``aux`` is the projection threshold (tau for OGB,
-    lambda for OMD, 0 for the automata)."""
+    lambda for OMD, 0 for the automata).  ``byte_hits`` is the bytes the
+    chunk's hits served (sized runs; None otherwise), summed in float64:
+    exact for integer sizes up to 2^53 bytes a chunk."""
 
     reward: torch.Tensor  # () float32
     hits: torch.Tensor  # () int32
     aux: torch.Tensor  # () float32
     occupancy: torch.Tensor  # () float32
+    byte_hits: Optional[torch.Tensor] = None  # () float64 for sized runs
 
 
 class OGBCarry(NamedTuple):
@@ -119,6 +136,63 @@ class OMDApiCarry(NamedTuple):
         return self.f.shape[0]
 
 
+class SizedAutomatonCarry(NamedTuple):
+    """An automaton's carry with per-item byte sizes.  The automaton is
+    size-blind (the same decisions and hits as without sizes); the sizes
+    weight its hits, so its steps report ``byte_hits``."""
+
+    inner: Any  # the automaton's own carry (tree, dense or FIFO)
+    szs: torch.Tensor  # (N,) float32 sizes (bytes)
+
+    @property
+    def device(self) -> torch.device:
+        return self.szs.device
+
+    @property
+    def catalog_size(self) -> int:
+        return self.szs.shape[0]
+
+
+class SizedOGBScanCarry(NamedTuple):
+    """Dense (scan-flavor) sized OGB: exact per-item sizes and an O(N)
+    weighted projection a chunk, the differential oracle of the tree
+    flavor.  Sizes and costs are normalized by their mean (``sref``), and
+    byte outputs scaled back by it."""
+
+    f: torch.Tensor  # (N,) float32 projected fractional state
+    tau: torch.Tensor  # () float32 last weighted-projection threshold
+    eta: torch.Tensor  # () float32
+    cap: torch.Tensor  # () float32 capacity in normalized bytes
+    s: torch.Tensor  # (N,) float32 normalized sizes
+    wts: torch.Tensor  # (N,) float32 normalized gradient weights (costs)
+    sref: torch.Tensor  # () float32 bytes a normalized size unit
+    p: torch.Tensor  # (N,) float32 permanent random numbers, or (0,)
+    t: torch.Tensor  # () int32 chunk counter
+
+    @property
+    def device(self) -> torch.device:
+        return self.f.device
+
+    @property
+    def catalog_size(self) -> int:
+        return self.f.shape[0]
+
+
+def _sizes_tensor(sizes, catalog_size: int, dev: torch.device) -> torch.Tensor:
+    s = np.asarray(sizes, np.float32)
+    if s.shape != (int(catalog_size),):
+        raise ValueError(f"sizes must be a ({catalog_size},) array, got {s.shape}")
+    if not (np.all(np.isfinite(s)) and float(s.min()) > 0.0):
+        raise ValueError("sizes must be finite and > 0")
+    return torch.from_numpy(s).to(dev)
+
+
+def _unit_only(kind: str, sizes, costs) -> None:
+    if sizes is not None or costs is not None:
+        raise ValueError(f"{kind} is unit-size; use policy_def('ogb_sized') for per-item "
+                         "sizes/costs")
+
+
 @dataclass(frozen=True)
 class PolicyDef:
     """An ``(init, step)`` caching policy.
@@ -126,11 +200,14 @@ class PolicyDef:
     ``init(catalog_size, capacity, *, seed, eta, horizon, device) -> carry``;
     ``step(carry, ids) -> (carry, StepOut)``.  ``default_eta`` resolves
     ``eta=None`` at :func:`run` time from ``(catalog_size, capacity,
-    horizon, window)``.  ``start(carry) -> carry``, where given, prepares
-    the carry a run starts from (a private copy where the step updates in
-    place: ``ogb_tree``, with the host's re-anchor bound, and the
-    automata).  ``fractional`` policies are scored by their fractional
-    reward (regret); ``trace_driven`` steps take request-id chunks.
+    horizon, window)``.  ``start(carry, id_bound) -> carry``, where given,
+    prepares the carry a run starts from (a private copy where the step
+    updates in place, with what the run derives from it: ``ogb_tree``'s and
+    ``ogb_sized``'s host bounds, FIFO's queue over ids below ``id_bound``),
+    and ``finish(carry) -> carry`` turns the run's carry back into the
+    policy's own (FIFO).  ``fractional`` policies are scored by their
+    fractional reward (regret); ``trace_driven`` steps take request-id
+    chunks.
     """
 
     kind: str
@@ -138,7 +215,8 @@ class PolicyDef:
     init: Callable[..., Any]
     step: Callable[[Any, torch.Tensor], Tuple[Any, StepOut]]
     default_eta: Optional[Callable[[int, int, int, int], float]] = None
-    start: Optional[Callable[[Any], Any]] = None
+    start: Optional[Callable[..., Any]] = None
+    finish: Optional[Callable[[Any], Any]] = None
     fractional: bool = False
     trace_driven: bool = True
 
@@ -181,8 +259,9 @@ def _ogb_def(
     madow = sample in MADOW_SAMPLES
 
     def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
-             device=None):
+             sizes=None, costs=None, device=None):
         del horizon, n_slots  # eta is resolved by run(); kept for the reference's signature
+        _unit_only("ogb", sizes, costs)
         if eta is None:
             raise ValueError("ogb init needs eta (run() resolves eta=None)")
         if madow and int(madow_capacity) != int(capacity):
@@ -245,8 +324,9 @@ def _ogb_tree_def(
         )
 
     def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
-             device=None):
+             sizes=None, costs=None, device=None):
         del horizon, n_slots  # eta is resolved by run(); kept for the reference's signature
+        _unit_only("ogb_tree", sizes, costs)
         if eta is None:
             raise ValueError("ogb_tree init needs eta (run() resolves eta=None)")
         return _tree.init_ogb_tree_carry(
@@ -282,8 +362,9 @@ def _omd_def(
     madow = sample in MADOW_SAMPLES
 
     def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
-             device=None):
+             sizes=None, costs=None, device=None):
         del horizon, n_slots  # eta is resolved by run(); kept for the reference's signature
+        _unit_only("omd", sizes, costs)
         if eta is None:
             raise ValueError("omd init needs eta (run() resolves eta=None)")
         if madow and int(madow_capacity) != int(capacity):
@@ -321,9 +402,46 @@ def _omd_def(
     )
 
 
-def _private_copy(carry):
+def _private_copy(carry, id_bound=None):
     """A copy of an automaton's carry for a run to update in place."""
+    del id_bound
     return type(carry)(*(x.clone() for x in carry))
+
+
+def _reject_costs(kind: str, costs) -> None:
+    if costs is not None:
+        raise ValueError(f"{kind} has no miss-cost model (costs= unsupported); use "
+                         "policy_def('gds') or policy_def('ogb_sized')")
+
+
+def _sized_hooks(start, step, finish):
+    """``(start, step, finish)`` of an automaton that also takes a
+    :class:`SizedAutomatonCarry`: its own hooks on the inner carry, and a
+    sized step that weights each hit by the requested item's bytes.  ``step``
+    is ``(carry, ids, flags) -> (carry, (hits, stats))``."""
+
+    def sized_start(carry, id_bound=None):
+        if isinstance(carry, SizedAutomatonCarry):
+            return SizedAutomatonCarry(start(carry.inner, id_bound), carry.szs)
+        return start(carry, id_bound)
+
+    def sized_step(carry, ids):
+        if not isinstance(carry, SizedAutomatonCarry):
+            carry, (hits, stats) = step(carry, ids, None)
+            return carry, StepOut(stats[0], hits, stats[1], stats[2])
+        flags = torch.empty(ids.shape, dtype=torch.bool, device=ids.device)
+        inner, (hits, stats) = step(carry.inner, ids, flags)
+        szs = carry.szs.index_select(0, ids.to(torch.int64))
+        byte_hits = torch.where(flags, szs, torch.zeros_like(szs)).sum(dtype=torch.float64)
+        return (SizedAutomatonCarry(inner, carry.szs),
+                StepOut(stats[0], hits, stats[1], stats[2], byte_hits))
+
+    def sized_finish(carry):
+        if isinstance(carry, SizedAutomatonCarry):
+            return SizedAutomatonCarry(finish(carry.inner), carry.szs)
+        return finish(carry)
+
+    return sized_start, sized_step, sized_finish if finish is not None else None
 
 
 def _automaton_def(kind: str, zeta: Optional[float] = None,
@@ -334,11 +452,18 @@ def _automaton_def(kind: str, zeta: Optional[float] = None,
     ``impl`` selects the engine, as in the reference: ``"tree"`` (the
     default for lru, lfu and ftpl) runs the tree automata of
     :mod:`.tree_engines`, one ``tree_lru`` or ``minpair_automaton`` launch a
-    chunk; ``"dense"`` (the default for fifo, which has no tree form) the
+    chunk; ``"dense"`` (the only engine of fifo, which has no tree form) the
     slot automaton, one ``slot_automaton`` launch a chunk, at most 16 384
-    slots on the card.  Both give bit-identical hit sequences; only the
-    carry differs.  The tree init also takes ``ring=``, the LRU ring's
-    positions (a power of two >= 4 * n_slots)."""
+    slots on the card, and for fifo the FIFO queue, one ``fifo_queue``
+    launch a chunk at any capacity.  Both give bit-identical hit sequences;
+    only the carry differs.  The tree init also takes ``ring=``, the LRU
+    ring's positions (a power of two >= 4 * n_slots).
+
+    ``init(..., sizes=)`` wraps the carry in a :class:`SizedAutomatonCarry`:
+    the same decisions, each hit also weighted by the requested item's
+    bytes.  ``costs=`` raises: these automata have no cost model (``gds``
+    has).  Sized runs take the tree automata or fifo; the dense slot
+    kernel does not report each request's hit."""
     def_zeta = zeta
     if impl is None:
         impl = "tree" if kind in _tree.TREE_ENGINE_KINDS else "dense"
@@ -348,30 +473,46 @@ def _automaton_def(kind: str, zeta: Optional[float] = None,
                              f"{_tree.TREE_ENGINE_KINDS}); it runs dense")
 
         def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
-                 zeta=None, ring=None, device=None):
+                 zeta=None, ring=None, sizes=None, costs=None, device=None):
             del eta  # the automata have no learning rate
-            return _tree.init_tree_engine_carry(
+            _reject_costs(kind, costs)
+            inner = _tree.init_tree_engine_carry(
                 kind, catalog_size, capacity, n_slots=n_slots, seed=seed,
                 zeta=zeta if zeta is not None else def_zeta, horizon=horizon, ring=ring,
                 device=device,
             )
+            if sizes is None:
+                return inner
+            return SizedAutomatonCarry(inner, _sizes_tensor(sizes, catalog_size, inner.device))
 
-        def step(carry, ids):
-            carry, (hits, stats) = _tree.tree_chunk(kind, carry, ids)
-            return carry, StepOut(stats[0], hits, stats[1], stats[2])
-
-        return PolicyDef(kind=kind, name=kind.upper(), init=init, step=step,
-                         start=_tree.start_tree_run)
+        start, step, _ = _sized_hooks(_tree.start_tree_run,
+                                      lambda c, ids, fl: _tree.tree_chunk(kind, c, ids, fl), None)
+        return PolicyDef(kind=kind, name=kind.upper(), init=init, step=step, start=start)
     if impl != "dense":
         raise ValueError(f"unknown automaton impl {impl!r}")
+    fifo = kind == "fifo"
 
     def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
-             zeta=None, device=None):
+             zeta=None, sizes=None, costs=None, device=None):
         del eta  # the automata have no learning rate
-        return _engines.init_engine_carry(
+        _reject_costs(kind, costs)
+        inner = _engines.init_engine_carry(
             kind, catalog_size, capacity, n_slots=n_slots, seed=seed,
             zeta=zeta if zeta is not None else def_zeta, horizon=horizon, device=device,
         )
+        if sizes is None:
+            return inner
+        if not fifo:
+            raise NotImplementedError(
+                f"sized runs of {kind} take its tree automaton (impl='tree'): the dense slot "
+                "kernel does not report each request's hit")
+        return SizedAutomatonCarry(inner, _sizes_tensor(sizes, catalog_size, inner.device))
+
+    if fifo:
+        start, step, finish = _sized_hooks(_engines.start_fifo_run, _engines.fifo_chunk,
+                                           _engines.finish_fifo_run)
+        return PolicyDef(kind=kind, name=kind.upper(), init=init, step=step, start=start,
+                         finish=finish)
 
     def step(carry, ids):
         carry, (hits, stats) = _engines.automaton_chunk(kind, carry, ids)
@@ -380,10 +521,149 @@ def _automaton_def(kind: str, zeta: Optional[float] = None,
     return PolicyDef(kind=kind, name=kind.upper(), init=init, step=step, start=_private_copy)
 
 
+def _gds_def() -> PolicyDef:
+    """GreedyDual-Size, the size/cost-aware automaton baseline, on the
+    min-pair trees (one ``minpair_automaton`` launch a chunk): keys H_i =
+    L + cost_i / size_i, held against the host ``core.policies.GDS``.
+    Unit sizes and costs make it LRU with aging.  It always reports
+    ``byte_hits`` (the hits, where every size is 1)."""
+
+    def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
+             sizes=None, costs=None, device=None):
+        del seed, eta, horizon  # GDS has no randomness and no learning rate
+        return _tree.init_tree_gds_carry(int(catalog_size), int(capacity), n_slots,
+                                         sizes=sizes, costs=costs, device=device)
+
+    def step(carry, ids):
+        flags = torch.empty(ids.shape, dtype=torch.bool, device=ids.device)
+        carry, (hits, stats) = _tree.tree_chunk("gds", carry, ids, flags)
+        szs = carry.szs.index_select(0, ids.to(torch.int64))
+        byte_hits = torch.where(flags, szs, torch.zeros_like(szs)).sum(dtype=torch.float64)
+        return carry, StepOut(stats[0], hits, stats[1], stats[2], byte_hits)
+
+    return PolicyDef(kind="gds", name="GDS", init=init, step=step, start=_private_copy)
+
+
+def _ogb_sized_def(
+    flavor: str = "tree",
+    sample: str = "poisson",
+    classes: int = _tree.SIZED_OGB_CLASSES,
+    buckets: int = _tree.OGB_TREE_BUCKETS,
+    radix: int = _tree.OGB_TREE_RADIX,
+    iters: int = _tree.OGB_TREE_ITERS,
+    proj_iters: int = DEFAULT_BISECT_ITERS,
+    batch_hint: int = 4096,
+) -> PolicyDef:
+    """Size-aware OGB over the knapsack-relaxed feasible set (paper §8).
+
+    ``flavor="tree"`` is the per-size-class lazy bucketized form, O(K * B log
+    V) a chunk (:func:`.tree_engines.make_sized_ogb_tree_chunk`: three
+    stacked ``tree_update`` launches and one ``solve_sized`` launch);
+    ``flavor="scan"`` the dense O(N) form with exact per-item sizes and a
+    full weighted bisection projection, its differential oracle.  ``init``
+    needs per-item ``sizes`` (``run(..., sizes=...)``); ``costs`` default to
+    the sizes (byte-weighted rewards).  ``eta=None`` resolves to the
+    Theorem 3.1 rate at the capacity in mean-object units."""
+    if flavor not in ("tree", "scan"):
+        raise ValueError(f"ogb_sized flavor must be 'tree'|'scan': {flavor!r}")
+    if sample not in ("poisson", "none"):
+        raise ValueError(f"ogb_sized supports sample='poisson'|'none' (got {sample!r})")
+
+    def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
+             sizes=None, costs=None, device=None):
+        del n_slots
+        if sizes is None:
+            raise ValueError("ogb_sized init needs per-item sizes: run(..., sizes=...)")
+        n = int(catalog_size)
+        s64 = np.asarray(sizes, np.float64)
+        if s64.shape != (n,):
+            raise ValueError(f"sizes must be a ({n},) array: {s64.shape}")
+        if eta is None:
+            # Theorem 3.1 tuning with the capacity in mean-object units
+            c_eq = float(capacity) / float(np.mean(s64))
+            eta = theoretical_eta(c_eq, n, int(horizon or 1), 1)
+        if flavor == "tree":
+            return _tree.init_sized_ogb_tree_carry(
+                n, float(capacity), sizes=s64, costs=costs, eta=float(eta), seed=seed,
+                sample=sample, classes=classes, buckets=buckets, radix=radix,
+                batch_hint=batch_hint, device=device,
+            )
+        # scan flavor: exact sizes, the same mean-size normalization
+        if not (np.all(np.isfinite(s64)) and float(s64.min()) > 0.0):
+            raise ValueError("sizes must be finite and > 0")
+        sref = float(np.mean(s64))
+        s_n = s64 / sref
+        if costs is None:
+            w = s_n.copy()
+        else:
+            w = np.asarray(costs, np.float64) / sref
+            if w.shape != (n,):
+                raise ValueError(f"costs must be a ({n},) array")
+            if not (np.all(np.isfinite(w)) and w.min() > 0.0):
+                raise ValueError("costs must be finite and > 0")
+        cap_n = float(capacity) / sref
+        total_s = float(np.sum(s_n))
+        if cap_n >= total_s:
+            raise ValueError(f"capacity {capacity} holds the whole catalog; caching is trivial")
+        dev = resolve_device(device)
+        p, _u_key = sampling_keys(seed, n, sample, dev)
+
+        def put(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+        return SizedOGBScanCarry(
+            f=torch.full((n,), cap_n / total_s, dtype=torch.float32, device=dev),
+            tau=torch.zeros((), dtype=torch.float32, device=dev),
+            eta=torch.tensor(float(eta), dtype=torch.float32, device=dev),
+            cap=torch.tensor(cap_n, dtype=torch.float32, device=dev),
+            s=put(s_n), wts=put(w),
+            sref=torch.tensor(sref, dtype=torch.float32, device=dev),
+            p=p, t=torch.zeros((), dtype=torch.int32, device=dev),
+        )
+
+    if flavor == "tree":
+
+        def step(carry, ids):
+            chunk = _tree.make_sized_ogb_tree_chunk(buckets, radix, sample, iters)
+            carry, (reward, hits, byte_hits, drho, occ) = chunk(carry, ids)
+            return carry, StepOut(reward * carry.sref, hits, drho, occ, byte_hits)
+
+        start = _tree.start_sized_run
+    else:
+
+        def step(carry, ids):
+            ids64 = ids.to(torch.int64)
+            f, s, wts, p, sref = carry.f, carry.s, carry.wts, carry.p, carry.sref
+            sj, wj, fi = s[ids64], wts[ids64], f[ids64]
+            reward = (wj * fi).sum()  # pre-update (OCO order)
+            if sample == "poisson":
+                hflag = fi >= p[ids64]
+                hits = hflag.sum(dtype=torch.int32)
+                byte_hits = torch.where(hflag, sj, torch.zeros_like(sj)).sum(
+                    dtype=torch.float64) * sref.to(torch.float64)
+                occ = torch.where(f >= p, s, torch.zeros_like(s)).sum() * sref
+            else:
+                hits = torch.zeros((), dtype=torch.int32, device=f.device)
+                byte_hits = torch.zeros((), dtype=torch.float64, device=f.device)
+                occ = carry.cap * sref
+            # the step eta * w once a request, in float64 and rounded once
+            y = f.to(torch.float64).index_add(0, ids64, (carry.eta * wj).to(torch.float64))
+            f_new, tau = weighted_simplex_project(y.to(torch.float32), s, carry.cap, proj_iters)
+            carry = carry._replace(f=f_new, tau=tau, t=carry.t + 1)
+            return carry, StepOut(reward * sref, hits, tau, occ, byte_hits)
+
+        start = None
+
+    return PolicyDef(kind="ogb_sized", name=f"OGB_sized_{flavor}", init=init, step=step,
+                     start=start, fractional=True)
+
+
 _POLICY_DEFS = {
     "ogb": _ogb_def,
     "ogb_tree": _ogb_tree_def,
     "omd": _omd_def,
+    "gds": _gds_def,
+    "ogb_sized": _ogb_sized_def,
     **{k: functools.partial(_automaton_def, k) for k in _engines.ENGINE_KINDS},
 }
 
@@ -412,7 +692,9 @@ def policy_def(kind: str, **options) -> PolicyDef:
     ``lru``, ``lfu`` and ``ftpl`` (the tree automata, as in the reference)
     and ``"dense"`` for ``fifo``, which has no tree form (``"tree"`` raises
     ``ValueError``); ``ftpl`` also takes ``zeta`` (by default it is tuned to
-    the run's horizon).
+    the run's horizon); ``policy_def("gds")``; ``policy_def("ogb_sized",
+    flavor="tree"|"scan", sample="poisson"|"none", classes=16,
+    buckets=65536, radix=64, iters=30, proj_iters=50, batch_hint=4096)``.
     """
     kind = kind.lower()
     if kind not in _POLICY_DEFS:
@@ -428,9 +710,15 @@ def carry_from_numpy(d: Mapping[str, np.ndarray], device: DeviceLike = None):
     Leaves ``tree, last, pos, nseen, cap`` (the reference's
     ``TreeLRUCarry``) give a :class:`TreeLRUCarry`; leaves ``imap, counts,
     slots, tree_hi, tree_lo`` with ``t`` (``TreeLFUCarry``) or ``noise``
-    (``TreeFTPLCarry``) the tree LFU's or FTPL's carry, FTPL's noise with it.
-    Leaves ``y, rho, ..., dcnt`` (the reference's ``OGBTreeCarry``) give an
-    :class:`OGBTreeCarry`; leaves ``f, w, lam, eta, cap, p, u_key, t`` (its
+    (``TreeFTPLCarry``) the tree LFU's or FTPL's carry, FTPL's noise with it;
+    leaves ``imap, hval, L, prio, szs, slots, tree_hi, tree_lo``
+    (``TreeGDSCarry``) a :class:`TreeGDSCarry`; ``inner, szs``
+    (``SizedAutomatonCarry``, ``inner`` the automaton's own leaves or
+    NamedTuple) a :class:`SizedAutomatonCarry`.  Leaves ``y, rho, ...,
+    dcnt`` with ``cls`` (``SizedOGBTreeCarry``) give a
+    :class:`SizedOGBTreeCarry`, without it (``OGBTreeCarry``) an
+    :class:`OGBTreeCarry`; leaves ``f, tau, eta, cap, s, wts, sref, p, t``
+    (``SizedOGBScanCarry``) a :class:`SizedOGBScanCarry`; leaves ``f, w, lam, eta, cap, p, u_key, t`` (its
     ``OMDApiCarry``) an :class:`OMDApiCarry`; leaves ``f, tau, eta, cap, p,
     u_key, t`` (its ``OGBCarry``) an :class:`OGBCarry`; the (2,) uint32
     Madow key data is packed into the port's int64 key.  This is how a run
@@ -445,6 +733,30 @@ def carry_from_numpy(d: Mapping[str, np.ndarray], device: DeviceLike = None):
     def scalar(name):
         return put(name, torch.int32).reshape(())
 
+    def f32(name):
+        return put(name, torch.float32)
+
+    if "inner" in d:
+        inner = d["inner"]
+        inner = inner._asdict() if hasattr(inner, "_asdict") else inner
+        return SizedAutomatonCarry(carry_from_numpy(inner, dev), f32("szs"))
+    if "hval" in d:
+        return TreeGDSCarry(
+            imap=put("imap", torch.int32), hval=f32("hval"), L=f32("L").reshape(()),
+            prio=f32("prio"), szs=f32("szs"), slots=put("slots", torch.int32),
+            tree_hi=put("tree_hi", torch.int32), tree_lo=put("tree_lo", torch.int32))
+    if "cls" in d:
+        return SizedOGBTreeCarry(
+            y=f32("y"), rho=f32("rho").reshape(()), eta=f32("eta").reshape(()),
+            cap=f32("cap").reshape(()), cls=put("cls", torch.int32), s=f32("s"),
+            wts=f32("wts"), sref=f32("sref").reshape(()), wmax=f32("wmax").reshape(()),
+            p=f32("p"), wb=f32("wb").reshape(()), scratch=put("scratch", torch.int32),
+            ycnt=f32("ycnt"), ysum=f32("ysum"), dcnt=f32("dcnt"))
+    if "wts" in d:
+        return SizedOGBScanCarry(
+            f=f32("f"), tau=f32("tau").reshape(()), eta=f32("eta").reshape(()),
+            cap=f32("cap").reshape(()), s=f32("s"), wts=f32("wts"),
+            sref=f32("sref").reshape(()), p=f32("p"), t=scalar("t"))
     if "last" in d:
         return TreeLRUCarry(tree=put("tree", torch.int32), last=put("last", torch.int32),
                             pos=scalar("pos"), nseen=scalar("nseen"), cap=scalar("cap"))
@@ -504,6 +816,8 @@ def run(
     eta: Optional[float] = None,
     horizon: Optional[int] = None,
     n_slots: Optional[int] = None,
+    sizes: Optional[np.ndarray] = None,
+    costs: Optional[np.ndarray] = None,
     track_opt: bool = True,
     keep_carry: bool = True,
     device: DeviceLike = None,
@@ -526,6 +840,14 @@ def run(
     device to decide a re-anchor) and ``reanchors``; for the tree LRU on
     the card ``host_syncs`` (steps that read the device: 0 in a run).
 
+    **Sized runs:** ``sizes`` (bytes, one an item) shape the decisions of
+    the sized policies (``ogb_sized``, ``gds``), give every automaton byte
+    accounting, and give the result ``byte_hits`` and ``bytes_total``, so
+    ``byte_hit_ratio`` is the bytes served from cache over the bytes
+    requested; ``costs`` are the items' miss costs (default: the sizes).
+    A resumed run takes the policy's sizes from its carry, and ``sizes``
+    there only drives ``bytes_total``.
+
     **Streaming contract:** pass ``carry=result.carry`` to resume where a
     previous call stopped: two chunked runs replay the same dynamics as one
     run, bit for bit.  A resumed run takes every policy parameter from the
@@ -545,6 +867,11 @@ def run(
             raise ValueError("run() needs catalog_size and capacity (or carry=)")
         if eta is None and pd.default_eta is not None:
             eta = pd.default_eta(int(catalog_size), int(capacity), t_used, window)
+        sized_kw = {}
+        if sizes is not None:
+            sized_kw["sizes"] = np.asarray(sizes)
+        if costs is not None:
+            sized_kw["costs"] = np.asarray(costs)
         carry = pd.init(
             int(catalog_size),
             int(capacity),
@@ -553,32 +880,35 @@ def run(
             horizon=int(horizon) if horizon is not None else t_used,
             n_slots=n_slots,
             device=dev,
+            **sized_kw,
             **init_kw,
         )
         if eta is not None:
             extras["eta"] = float(eta)
     elif (eta is not None or horizon is not None or n_slots is not None or seed != 0
-          or init_kw):
+          or costs is not None or init_kw):
         # a resumed run takes every policy parameter from the carry; a
-        # silently ignored eta or seed would mislabel the result
+        # silently ignored eta or seed would mislabel the result (sizes= is
+        # allowed: it only drives the byte total)
         raise ValueError(
             "run(carry=...) resumes with the carry's parameters; do not pass "
-            "seed/eta/horizon/n_slots or init keywords alongside a carry"
+            "seed/eta/horizon/n_slots/costs or init keywords alongside a carry"
         )
     elif carry.device != dev:
         raise ValueError(f"carry is on {carry.device}, run was asked for {dev}")
-    if pd.start is not None:
-        carry = pd.start(carry)
     n = carry.catalog_size if carry.catalog_size is not None else catalog_size
     lo, hi = int(trace_used.min()), int(trace_used.max())
     if lo < 0 or (n is not None and hi >= n):
         raise ValueError(f"trace ids must lie in [0, {n}), got [{lo}, {hi}]")
+    if pd.start is not None:
+        carry = pd.start(carry, int(n) if n is not None else hi + 1)
     chunks = torch.from_numpy(trace_used.astype(np.int32).reshape(m, window)).to(dev)
 
     reward = torch.empty(m, dtype=torch.float32, device=dev)
     hits = torch.empty(m, dtype=torch.int32, device=dev)
     aux = torch.empty(m, dtype=torch.float32, device=dev)
     occupancy = torch.empty(m, dtype=torch.float32, device=dev)
+    byte_hits = None
     _sync(dev)
     t0 = time.perf_counter()
     for i in range(m):
@@ -587,9 +917,15 @@ def run(
         hits[i] = out.hits
         aux[i] = out.aux
         occupancy[i] = out.occupancy
+        if out.byte_hits is not None:
+            if byte_hits is None:
+                byte_hits = torch.empty(m, dtype=torch.float64, device=dev)
+            byte_hits[i] = out.byte_hits
     _sync(dev)
     wall = time.perf_counter() - t0
-    if isinstance(carry, OGBTreeCarry):
+    if pd.finish is not None:
+        carry = pd.finish(carry)
+    if isinstance(carry, (OGBTreeCarry, SizedOGBTreeCarry)):
         extras["host_syncs"] = float(carry.host.syncs)
         extras["reanchors"] = float(carry.host.reanchors)
     if isinstance(carry, TreeLRUCarry) and carry.host is not None:
@@ -613,6 +949,9 @@ def run(
         carry=carry if keep_carry else None,
         wall_seconds=wall,
         extras=extras,
+        byte_hits=byte_hits.cpu().numpy() if byte_hits is not None else None,
+        bytes_total=(float(np.sum(np.asarray(sizes, np.float64)[trace_used]))
+                     if sizes is not None else 0.0),
     )
 
 

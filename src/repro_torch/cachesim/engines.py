@@ -17,7 +17,12 @@ An automaton's chunk is one launch of the slot-automaton kernel
 (:func:`repro_torch.kernels.slot_automaton.ops.slot_automaton`), which
 updates the carry in place; its plain version, the reference's
 per-request steps, is :mod:`repro_torch.kernels.slot_automaton.ref`
-(``_lru_step`` ... ``_ftpl_step``, re-exported here).  OMD is plain PyTorch
+(``_lru_step`` ... ``_ftpl_step``, re-exported here).  FIFO runs at any
+capacity on a kernel of its own
+(:func:`repro_torch.kernels.fifo_queue.ops.fifo_queue`): its victims walk
+the active slots in an order that a run derives once from the carry
+(:func:`start_fifo_run`, a :class:`FIFORunCarry`), so a request is O(1);
+the carry's leaves stay the reference's, bit for bit.  OMD is plain PyTorch
 around the port's histogram kernel: the gradient counts are one histogram
 launch, the projection's 10 sweeps PyTorch ops on the device.
 
@@ -37,6 +42,8 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.cachesim.replay import _check_sample, MADOW_SAMPLES, sample_chunk_metrics
 from repro_torch.core.ftpl import ftpl_initial_top_c, ftpl_noise, theoretical_zeta
 from repro_torch.jaxcache.fractional import request_counts, warm_bracket_hi
+from repro_torch.kernels.fifo_queue.ops import fifo_queue
+from repro_torch.kernels.fifo_queue.ref import FIFOQueue, derive_queue
 from repro_torch.kernels.slot_automaton.ops import slot_automaton
 from repro_torch.kernels.slot_automaton.ref import (  # noqa: F401  (the plain steps)
     I32_MAX,
@@ -182,6 +189,46 @@ def automaton_chunk(kind: str, carry, ids: torch.Tensor):
     Returns ``(carry, (hits, stats))``, stats the (3,) float32 (reward,
     aux, occupancy)."""
     return carry, slot_automaton(kind, *automaton_args(kind, carry), ids)
+
+
+class FIFORunCarry(NamedTuple):
+    """A FIFO carry during a run: the reference's leaves and the queue the
+    run derived from them (:func:`start_fifo_run`)."""
+
+    slots: torch.Tensor  # (K,) int32 item ids (-1 empty, -2 inactive)
+    stamps: torch.Tensor  # (K,) int32 insertion clock; empty -1, inactive INT32_MAX
+    t: torch.Tensor  # () int32 request clock
+    queue: FIFOQueue
+
+    @property
+    def device(self) -> torch.device:
+        return self.slots.device
+
+    @property
+    def catalog_size(self) -> Optional[int]:
+        return None
+
+
+def start_fifo_run(carry: SlotCarry, id_bound: Optional[int] = None) -> FIFORunCarry:
+    """A private copy of a FIFO carry with its queue derived for items in
+    [0, id_bound): the run's one pass over the slots (and one read of the
+    device, for the largest item they hold)."""
+    if id_bound is None:
+        raise ValueError("a FIFO run needs id_bound, a bound on the ids it will see")
+    slots, stamps, t = (x.clone() for x in carry[:3])
+    return FIFORunCarry(slots, stamps, t, derive_queue(slots, stamps, id_bound))
+
+
+def finish_fifo_run(carry: FIFORunCarry) -> SlotCarry:
+    """The reference's carry at the end of a run."""
+    return SlotCarry(carry.slots, carry.stamps, carry.t)
+
+
+def fifo_chunk(carry: FIFORunCarry, ids: torch.Tensor, flags: Optional[torch.Tensor] = None):
+    """One FIFO chunk: one ``fifo_queue`` launch on the card (the plain
+    version on the CPU), the carry updated in place.  Returns ``(carry,
+    (hits, stats))``; ``flags`` where given gets each request's hit."""
+    return carry, fifo_queue(carry.slots, carry.stamps, carry.t, carry.queue, ids, flags)
 
 
 def _occ_slots(carry) -> torch.Tensor:

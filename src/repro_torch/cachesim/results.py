@@ -1,7 +1,7 @@
 """Host-side result of one replay, copied from ``repro.cachesim.results``.
 
-Only what the unit-size OGB replay fills in: ``RunResult`` and the
-``HitStatsMixin`` ratios.  The per-chunk arrays are numpy on the host; the
+What a replay fills in: ``RunResult`` and the ``HitStatsMixin`` ratios,
+byte hits for sized runs among them.  The per-chunk arrays are numpy on the host; the
 carry stays on the device it ran on.
 """
 
@@ -19,6 +19,16 @@ class HitStatsMixin:
     @property
     def hit_ratio(self) -> float:
         return float(np.sum(self.hits)) / max(self.T, 1)
+
+    @property
+    def byte_hit_ratio(self) -> float:
+        """Bytes served from cache over bytes requested (sized runs); the
+        object hit ratio for an unsized run (every object one byte)."""
+        bh = getattr(self, "byte_hits", None)
+        bt = float(getattr(self, "bytes_total", 0.0) or 0.0)
+        if bh is None or bt <= 0.0:
+            return self.hit_ratio
+        return float(np.sum(bh)) / bt
 
     @property
     def us_per_request(self) -> float:
@@ -47,6 +57,8 @@ class RunResult(HitStatsMixin):
     carry: Any = None  # final carry (resumable)
     wall_seconds: float = 0.0
     extras: Dict[str, float] = field(default_factory=dict)
+    byte_hits: Optional[np.ndarray] = None  # (M,) per-chunk byte hits, float64 (sized)
+    bytes_total: float = 0.0  # bytes requested (sized runs, else 0)
 
     @property
     def final_f(self) -> Optional[np.ndarray]:

@@ -20,11 +20,13 @@ host oracle, :func:`repro_torch.core.policies.make_policy` driven by
 :func:`repro_torch.cachesim.simulator.simulate` on the host, included only
 when the trace is short enough (``HOST_POLICY_MAX_T``).
 
-Not yet ported: the sized scenarios (``sized=True``: ``ogb_sized`` and
-``gds``, ROADMAP.md §1 item 5) raise, and the edge-fleet scenarios wait for
-the fleet's slice.  FIFO at C > 16 384 (fig8_cdn and the other paper-scale
-scenarios at ``full``) raises on the card: it has no tree form and the slot
-kernel holds at most 16 384 slots (ROADMAP.md §1 item 5).
+The sized scenario (``sized_cdn``: per-item sizes from ``SIZE_SLABS`` by
+popularity quartile) runs ``ogb_sized`` at the byte budget
+(:meth:`Scenario.byte_capacity`), ``gds`` and the automata at C slots with
+byte accounting, and adds each row's ``byte_hit_ratio`` (``byte_regret``
+for ``ogb_sized``, against the fractional byte-optimal static allocation,
+:func:`best_static_byte_hits`).  The edge-fleet scenarios wait for the
+fleet's slice.
 """
 
 from __future__ import annotations
@@ -48,6 +50,10 @@ HOST_POLICY_MAX_T = 1_000_000
 #: the standard comparison set (paper Figs. 2, 7, 8)
 COMPARISON_POLICIES = ("ogb", "omd", "ftpl", "lru", "lfu", "fifo", "arc")
 
+#: the sized scenarios' object sizes (bytes): dyadic slab classes, so every
+#: byte sum is exact
+SIZE_SLABS = (1.0, 4.0, 16.0, 64.0)
+
 @dataclass(frozen=True)
 class Scenario:
     """One named experiment configuration.
@@ -67,7 +73,7 @@ class Scenario:
     trace_kw: Tuple[Tuple[str, Any], ...] = ()
     trace_seed: int = 0
     batch: int = 1000  # OGB / OMD update batch
-    sized: bool = False  # heterogeneous object sizes (ROADMAP.md §1 item 5)
+    sized: bool = False  # heterogeneous object sizes (see make_sizes)
 
     def dims(self, scale: str = "quick") -> Tuple[int, int, int]:
         """(N, T, C) at the given scale ("mini", "quick" or "full").
@@ -89,6 +95,30 @@ class Scenario:
             k: (v(n, t) if callable(v) else v) for k, v in self.trace_kw
         }
         return make_trace(self.trace, n, t, seed=self.trace_seed, **kw)
+
+    def make_sizes(self, scale: str = "quick") -> Optional[np.ndarray]:
+        """Per-item sizes for a sized scenario (None otherwise): the
+        ``SIZE_SLABS`` by popularity-rank quartile, anti-correlated with
+        popularity.  The zipf families emit ids in popularity order (id 0
+        hottest), so the hot head gets the small slab and the long tail the
+        large one: the CDN-like regime where object hits (cache the small
+        hot head) and byte hits (spend bytes on the heavy tail) disagree."""
+        if not self.sized:
+            return None
+        n, _, _ = self.dims(scale)
+        k = len(SIZE_SLABS)
+        slab = np.minimum((np.arange(n) * k) // n, k - 1)
+        return np.asarray(SIZE_SLABS, np.float64)[slab]
+
+    def byte_capacity(self, scale: str = "quick") -> Optional[int]:
+        """Byte budget of the byte-capacity policies (``ogb_sized``): the slot
+        policies hold C objects, so C * mean(sizes) is the bytes of the same
+        slot count under a uniform object mix."""
+        sizes = self.make_sizes(scale)
+        if sizes is None:
+            return None
+        _, _, c = self.dims(scale)
+        return max(int(round(c * float(sizes.mean()))), 1)
 
 
 SCENARIOS: Dict[str, Scenario] = {
@@ -259,6 +289,9 @@ class ScenarioResult:
     def hit_ratio(self, policy: str) -> float:
         return self.rows[policy]["hit_ratio"]
 
+    def byte_hit_ratio(self, policy: str) -> float:
+        return self.rows[policy]["byte_hit_ratio"]
+
     def to_json(self) -> Dict:
         return {
             "scenario": self.scenario,
@@ -292,11 +325,6 @@ def run_scenario(
     ``include_opt=False`` to skip the host-side OPT(static) row.
     """
     sc = get_scenario(name)
-    if sc.sized:
-        raise NotImplementedError(
-            f"scenario {name!r} is sized: ogb_sized, gds and byte accounting are not "
-            "ported yet (ROADMAP.md §1 item 5)"
-        )
     dev = resolve_device(device)
     n, t, c = sc.dims(scale)
     if trace is None:
@@ -305,6 +333,8 @@ def run_scenario(
     batch = min(sc.batch, max(t // 20, 1))
     if include_host is None:
         include_host = t <= HOST_POLICY_MAX_T
+    sizes = sc.make_sizes(scale)
+    cap_bytes = sc.byte_capacity(scale)
 
     res = ScenarioResult(scenario=name, scale=scale, N=n, T=t, C=c, window=w)
     skipped = []
@@ -325,29 +355,71 @@ def run_scenario(
         pd = api.policy_def(kind)
         return pd if pd.trace_driven else None
 
+    sized_kw = {} if sizes is None else {"sizes": sizes}
     for kind in policies if policies is not None else sc.policies:
         pd = _engine_def(kind)
         if pd is not None and pd.fractional:
-            m = api.run(pd, trace, n, c, window=batch, seed=seed, track_opt=False,
-                        keep_carry=False, device=dev)
-            res.rows[m.name] = {
+            # the byte-capacity policy (ogb_sized) takes the byte budget, the
+            # unit-size ones the slot count
+            cap = cap_bytes if (sizes is not None and kind == "ogb_sized") else c
+            m = api.run(pd, trace, n, cap, window=batch, seed=seed, track_opt=False,
+                        keep_carry=False, device=dev,
+                        **(sized_kw if kind == "ogb_sized" else {}))
+            row = {
                 "hit_ratio": m.hit_ratio,
                 "frac_hit_ratio": m.frac_hit_ratio,
                 "us_per_request": m.us_per_request,
-                "regret": _opt() - float(m.reward.sum()),
             }
+            if sizes is None:
+                row["regret"] = _opt() - float(m.reward.sum())
+            else:
+                # the sized reward is in bytes: regret against the fractional
+                # byte-optimal static allocation
+                row["byte_hit_ratio"] = m.byte_hit_ratio
+                row["byte_regret"] = best_static_byte_hits(
+                    np.asarray(trace[:t_opt]), sizes, float(cap_bytes)) - float(m.reward.sum())
+            res.rows[m.name] = row
         elif pd is not None:
             ring = {"ring": ring_for_window(c, w)} if kind == "lru" else {}
             r = api.run(pd, trace, n, c, window=w, seed=seed, horizon=t, track_opt=False,
-                        keep_carry=False, device=dev, **ring)
+                        keep_carry=False, device=dev, **ring, **sized_kw)
             res.rows[r.name] = {"hit_ratio": r.hit_ratio, "us_per_request": r.us_per_request}
+            if sizes is not None:
+                res.rows[r.name]["byte_hit_ratio"] = r.byte_hit_ratio
         else:  # host-side oracle policies (arc, ...)
             if not include_host:
                 skipped.append(kind)
                 continue
-            sr = simulate(make_policy(kind, n, c), trace, window=w, record_cum=False)
+            sr = simulate(make_policy(kind, n, c, **sized_kw), trace, window=w,
+                          record_cum=False)
             res.rows[sr.name] = {"hit_ratio": sr.hit_ratio, "us_per_request": sr.us_per_request}
     if include_opt:
         res.rows["OPT(static)"] = {"hit_ratio": _opt() / max(t_opt, 1)}
+        if sizes is not None:
+            tr_opt = np.asarray(trace[:t_opt])
+            req_bytes = float(np.sum(sizes[tr_opt]))
+            res.rows["OPT(static)"]["byte_hit_ratio"] = (
+                best_static_byte_hits(tr_opt, sizes, float(cap_bytes)) / max(req_bytes, 1.0))
     res.skipped = tuple(skipped)
     return res
+
+
+def best_static_byte_hits(trace: np.ndarray, sizes: np.ndarray, cap_bytes: float) -> float:
+    """The fractional byte-optimal static allocation's byte hits (hindsight).
+
+    Maximize sum_i count_i * s_i * f_i subject to sum_i s_i * f_i <=
+    cap_bytes, f in [0, 1]: every objective coefficient is count_i a byte
+    allocated, so the greedy fill in request-count order (the last item
+    fractional) is exact; the byte-weighted
+    :func:`repro_torch.core.regret.best_static_hits`."""
+    sizes = np.asarray(sizes, np.float64)
+    cnt = np.bincount(np.asarray(trace), minlength=len(sizes)).astype(np.float64)
+    order = np.argsort(-cnt, kind="stable")
+    s_o, c_o = sizes[order], cnt[order]
+    cum = np.cumsum(s_o)
+    k = int(np.searchsorted(cum, cap_bytes, side="right"))
+    byte_hits = float(np.sum(c_o[:k] * s_o[:k]))
+    if k < len(s_o):
+        rem = cap_bytes - (float(cum[k - 1]) if k else 0.0)
+        byte_hits += float(c_o[k]) * max(rem, 0.0)
+    return byte_hits

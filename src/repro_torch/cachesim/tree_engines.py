@@ -17,13 +17,22 @@ dense slot automata's bit for bit:
   (hi, lo) min-tree over slots (:class:`TreeLFUCarry`,
   :class:`TreeFTPLCarry`); a chunk is one ``minpair_automaton`` launch
   (:mod:`repro_torch.kernels.minpair_automaton`).
+* **tree GDS** -- GreedyDual-Size on the same min-pair trees, keyed (sortable
+  H, item id) with H = L + cost/size in float32 (:class:`TreeGDSCarry`); a
+  chunk is one ``minpair_automaton`` launch in its GDS mode.
 
 The carries have the reference's leaves, dtypes and meanings (-1 out, -2
 inactive, index N of ``last``/``imap`` scratch), so ``carry_from_numpy``
 carries state across.  Each step updates its carry in place;
-:func:`start_tree_run` gives ``api.run`` a private copy.  GDS, the sized
-automata and FIFO past the slot kernel's size are not ported yet
-(ROADMAP.md §1 item 5).
+:func:`start_tree_run` gives ``api.run`` a private copy.
+
+**Sized lazy OGB** (``SIZED_OGB_CLASSES``, :class:`SizedOGBTreeCarry`,
+``init_sized_ogb_tree_carry`` and ``make_sized_ogb_tree_chunk``): the same
+lazy bucketized OGB over K size classes, the projection onto
+{f : sum_i s_i f_i = C} solved for one base multiplier rho with class k's
+items at f = clip(y - s_k * rho, 0, 1), over K stacked bucket trees.  A
+chunk's three tree updates are one stacked ``tree_update`` launch each, and
+its solve one ``solve_sized`` launch (``bucket_mass``).
 
 **Lazy bucketized OGB** (``OGB_TREE_*``, ``OGBTreeCarry``, ``_ogb_bucket``,
 ``init_ogb_tree_carry`` and ``make_ogb_tree_chunk``): per-chunk work that
@@ -72,13 +81,14 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.cachesim.replay import sampling_keys
 from repro_torch.core.ftpl import ftpl_initial_top_c, ftpl_noise, theoretical_zeta
 from repro_torch.jaxcache.fractional import request_counts
-from repro_torch.kernels.minpair_automaton.ops import minpair_automaton
-from repro_torch.kernels.prefix_tree.kernel import solve_buckets
+from repro_torch.kernels.minpair_automaton.ops import gds_automaton, minpair_automaton
+from repro_torch.kernels.prefix_tree.kernel import solve_buckets, solve_sized
 from repro_torch.kernels.prefix_tree.ops import (
     I32_MAX,
     leaves_for_storage,
     minpair_build,
     sortable_f32,
+    stacked_tree_update_,
     tree_build,
     tree_prefix,
     tree_storage,
@@ -163,9 +173,10 @@ def _read_host(carry: OGBTreeCarry) -> TreeHost:
     return TreeHost(rho_hi=rho, eta=eta, w=w)
 
 
-def start_run(carry: OGBTreeCarry) -> OGBTreeCarry:
+def start_run(carry: OGBTreeCarry, id_bound: Optional[int] = None) -> OGBTreeCarry:
     """A private copy of ``carry`` for a run to update in place, with the
     host's bound read afresh (one read of the device)."""
+    del id_bound
     fresh = OGBTreeCarry(*(t.clone() for t in carry.tensors()))
     return fresh._replace(host=_read_host(fresh))
 
@@ -571,10 +582,11 @@ def _read_lru_host(carry: TreeLRUCarry, syncs: int = 0) -> LRUHost:
     return LRUHost(pos_lo=int(pos), pos_hi=int(pos), cap=int(cap), syncs=syncs)
 
 
-def start_tree_run(carry):
+def start_tree_run(carry, id_bound: Optional[int] = None):
     """A private copy of a tree automaton's carry for a run to update in
     place; an LRU carry on the card also gets its host bound read afresh
     (one read of the device, before the first chunk)."""
+    del id_bound
     if isinstance(carry, TreeLRUCarry):
         fresh = TreeLRUCarry(*(t.clone() for t in carry.tensors()))
         host = _read_lru_host(fresh) if fresh.device.type == "cuda" else None
@@ -611,9 +623,10 @@ def lru_bounds(host: LRUHost, window: int, m: int) -> Tuple[int, int]:
 
 
 def tree_chunk(kind: str, carry, ids: torch.Tensor, flags: Optional[torch.Tensor] = None):
-    """One chunk of tree automaton ``kind``, the carry updated in place: one
-    ``tree_lru`` or ``minpair_automaton`` launch on the card (the LRU's
-    possible compaction adds two), the plain version on the CPU.  Returns
+    """One chunk of tree automaton ``kind`` (or ``"gds"``), the carry
+    updated in place: one ``tree_lru`` or ``minpair_automaton`` launch on
+    the card (the LRU's possible compaction adds two), the plain version on
+    the CPU.  Returns
     ``(carry, (hits, stats))``, stats the (3,) float32 (reward, aux,
     occupancy); ``flags``, a (window,) bool tensor where given, gets each
     request's hit."""
@@ -626,7 +639,10 @@ def tree_chunk(kind: str, carry, ids: torch.Tensor, flags: Optional[torch.Tensor
         return carry, minpair_automaton("ftpl", carry.imap, carry.counts, carry.noise,
                                         carry.slots, carry.tree_hi, carry.tree_lo, None, ids,
                                         flags)
-    raise ValueError(f"unknown tree engine kind {kind!r} (have {TREE_ENGINE_KINDS})")
+    if kind == "gds":
+        return carry, gds_automaton(carry.imap, carry.prio, carry.hval, carry.L, carry.slots,
+                                    carry.tree_hi, carry.tree_lo, ids, flags)
+    raise ValueError(f"unknown tree engine kind {kind!r} (have {TREE_ENGINE_KINDS}, gds)")
 
 
 def make_tree_chunk(kind: str, carry, return_flags: bool = False):
@@ -634,8 +650,8 @@ def make_tree_chunk(kind: str, carry, return_flags: bool = False):
     given carry, the reference's: ``hits`` the () int32 count, or with
     ``return_flags`` the (window,) bool per-request flags; occupancy a ()
     float32 tensor."""
-    if kind not in TREE_ENGINE_KINDS:
-        raise ValueError(f"unknown tree engine kind {kind!r} (have {TREE_ENGINE_KINDS})")
+    if kind not in TREE_ENGINE_KINDS + ("gds",):
+        raise ValueError(f"unknown tree engine kind {kind!r} (have {TREE_ENGINE_KINDS}, gds)")
     del carry  # the geometry comes from the carry each chunk is given
 
     def chunk(c, ids):
@@ -643,5 +659,401 @@ def make_tree_chunk(kind: str, carry, return_flags: bool = False):
             else None
         c, (hits, stats) = tree_chunk(kind, c, ids, flags)
         return c, (flags if return_flags else hits, stats[2])
+
+    return chunk
+
+
+# ---------------------------------------------------------------------------
+# tree GDS: GreedyDual-Size on the min-pair eviction trees
+# ---------------------------------------------------------------------------
+class TreeGDSCarry(NamedTuple):
+    """GreedyDual-Size (Cao & Irani 1997) state, the reference's leaves.
+
+    A resident item's priority is H = L + cost/size, L the global inflation
+    value (the last evicted item's H), so small or costly objects stay
+    longer.  The victim search is the LFU's min-pair tree with (sortable H,
+    item id) keys, the id breaking ties as the host oracle's sorted store
+    does.  Capacity counts slots, as the host ``GDS`` does; sizes shape the
+    priorities and the byte accounting."""
+
+    imap: torch.Tensor  # (N+1,) int32 item -> slot (-1 out; N is scratch)
+    hval: torch.Tensor  # (K,) float32 slot -> its H
+    L: torch.Tensor  # () float32 inflation value
+    prio: torch.Tensor  # (N,) float32 cost / size a item
+    szs: torch.Tensor  # (N,) float32 sizes (byte accounting; 1 = unit)
+    slots: torch.Tensor  # (K,) int32 slot -> item (-1 empty, -2 inactive)
+    tree_hi: torch.Tensor  # (TOT,) int32 min-tree over sortable H
+    tree_lo: torch.Tensor  # (TOT,) int32 min-tree over the slots' item ids
+
+    @property
+    def device(self) -> torch.device:
+        return self.slots.device
+
+    @property
+    def catalog_size(self) -> int:
+        return self.prio.shape[0]
+
+
+def init_tree_gds_carry(catalog_size: int, capacity: int, n_slots: Optional[int] = None, *,
+                        sizes: Optional[np.ndarray] = None, costs: Optional[np.ndarray] = None,
+                        device: DeviceLike = None) -> TreeGDSCarry:
+    """Empty slots (keys (-1, -1), below every real H) and L = 0; ``sizes``
+    and ``costs`` default to 1, and ``prio`` is their float32 quotient."""
+    dev = resolve_device(device)
+    n = int(catalog_size)
+    k, c = int(n_slots) if n_slots else int(capacity), int(capacity)
+    s = np.ones(n, np.float32) if sizes is None else np.asarray(sizes, np.float32)
+    w = np.ones(n, np.float32) if costs is None else np.asarray(costs, np.float32)
+    if s.shape != (n,) or w.shape != (n,):
+        raise ValueError(f"sizes/costs must be ({n},) arrays")
+    if not (np.all(np.isfinite(s)) and s.min() > 0.0):
+        raise ValueError("gds sizes must be finite and > 0")
+    if not (np.all(np.isfinite(w)) and w.min() > 0.0):
+        raise ValueError("gds costs must be finite and > 0")
+    hi = np.full(k, I32_MAX, np.int32)
+    lo = np.full(k, I32_MAX, np.int32)
+    hi[:c] = -1  # empty slots sort below any real H (sortable(H > 0) > 0)
+    lo[:c] = -1
+    slots = np.full(k, -2, np.int32)
+    slots[:c] = -1
+    th, tl = _slot_trees(hi, lo, dev)
+    return TreeGDSCarry(
+        imap=torch.full((n + 1,), -1, dtype=torch.int32, device=dev),
+        hval=torch.zeros(k, dtype=torch.float32, device=dev),
+        L=torch.zeros((), dtype=torch.float32, device=dev),
+        prio=torch.from_numpy(w / s).to(dev),
+        szs=torch.from_numpy(s).to(dev),
+        slots=torch.from_numpy(slots).to(dev),
+        tree_hi=th,
+        tree_lo=tl,
+    )
+
+
+# ---------------------------------------------------------------------------
+# sized lazy OGB: per-size-class bucket trees, O(K * B log V) per chunk
+# ---------------------------------------------------------------------------
+#: default number of size (slab) classes the sized tree quantizes to
+SIZED_OGB_CLASSES = 16
+
+
+class SizedTreeHost(NamedTuple):
+    """What the host knows of a :class:`SizedOGBTreeCarry` without reading
+    it: an upper bound on rho, the carry's float32 eta, base bucket width,
+    largest gradient weight and class sizes as Python floats, and ``rmax``,
+    the largest cost / size over the items (a chunk of B requests raises
+    rho by at most eta * B * rmax).  ``syncs`` and ``reanchors`` count the
+    steps that read the device and the re-anchor passes since the run
+    started."""
+
+    rho_hi: float
+    eta: float
+    wb: float
+    wmax: float
+    rmax: float
+    s: Tuple[float, ...]
+    syncs: int = 0
+    reanchors: int = 0
+
+
+class SizedOGBTreeCarry(NamedTuple):
+    """Lazy weighted OGB over K size classes (paper §8), the reference's
+    fifteen leaves; ``host`` is the host's bound on rho (None until
+    :func:`start_sized_run` or the first step sets it).
+
+    The projection onto {f : sum_i s_i f_i = C} is f_i = clip(y_i - s_k *
+    rho, 0, 1) for item i of class k, so each class keeps its own bucket
+    histogram of y, at width w_k = s_k * wb (one rho resolution for every
+    class).  Sizes and costs are normalized by the mean slab size ``sref``:
+    uniform sizes give the unit ``ogb_tree`` dynamics at the same eta, and
+    byte outputs are scaled back by ``sref``."""
+
+    y: torch.Tensor  # (N,) float32 accumulated values
+    rho: torch.Tensor  # () float32 cumulative base multiplier
+    eta: torch.Tensor  # () float32
+    cap: torch.Tensor  # () float32 capacity in normalized bytes
+    cls: torch.Tensor  # (N,) int32 item -> size class
+    s: torch.Tensor  # (K,) float32 normalized class sizes
+    wts: torch.Tensor  # (N,) float32 normalized gradient weights (costs)
+    sref: torch.Tensor  # () float32 bytes a normalized size unit
+    wmax: torch.Tensor  # () float32 largest gradient weight
+    p: torch.Tensor  # (N,) float32 permanent random numbers, or (0,)
+    wb: torch.Tensor  # () float32 base bucket width (class k: s_k * wb)
+    scratch: torch.Tensor  # (N,) int32 first-occurrence dedup scratch
+    ycnt: torch.Tensor  # (K, TOT) float32 bucket-count trees
+    ysum: torch.Tensor  # (K, TOT) float32 bucket-sum trees
+    dcnt: torch.Tensor  # (K, TOT) float32 trees over y - p, or (0, TOT)
+    host: Optional[SizedTreeHost] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.y.device
+
+    @property
+    def catalog_size(self) -> int:
+        return self.y.shape[0]
+
+    def tensors(self) -> tuple:
+        """The tensor leaves, without the host-side bound."""
+        return tuple(self)[:-1]
+
+
+def _read_sized_host(carry: SizedOGBTreeCarry, syncs: int = 0) -> SizedTreeHost:
+    """The host's view of a sized carry, from one read of the device."""
+    rmax = (carry.wts / carry.s.index_select(0, carry.cls.to(torch.int64))).max()
+    vals = torch.cat([torch.stack([carry.rho, carry.eta, carry.wb, carry.wmax, rmax]),
+                      carry.s]).tolist()
+    rho, eta, wb, wmax, rmax = vals[:5]
+    return SizedTreeHost(rho_hi=rho, eta=eta, wb=wb, wmax=wmax, rmax=rmax,
+                         s=tuple(vals[5:]), syncs=syncs)
+
+
+def start_sized_run(carry: SizedOGBTreeCarry, id_bound: Optional[int] = None):
+    """A private copy of ``carry`` for a run to update in place, with the
+    host's bound read afresh (one read of the device)."""
+    del id_bound
+    fresh = SizedOGBTreeCarry(*(t.clone() for t in carry.tensors()))
+    return fresh._replace(host=_read_sized_host(fresh))
+
+
+def _build_rows(leaves: torch.Tensor, radix: int) -> torch.Tensor:
+    """(K, TOT) trees from (K, V) float32 leaves: one tree build a class."""
+    kk, v = leaves.shape
+    out = torch.empty((kk, tree_storage(v, radix)), dtype=torch.float32, device=leaves.device)
+    for k in range(kk):
+        tree_build(leaves[k].contiguous(), radix, out=out[k])
+    return out
+
+
+def init_sized_ogb_tree_carry(
+    catalog_size: int,
+    capacity: float,
+    *,
+    sizes: np.ndarray,
+    costs: Optional[np.ndarray] = None,
+    eta: float,
+    seed: int = 0,
+    sample: str = "poisson",
+    classes: int = SIZED_OGB_CLASSES,
+    buckets: int = OGB_TREE_BUCKETS,
+    radix: int = OGB_TREE_RADIX,
+    batch_hint: int = 4096,
+    device: DeviceLike = None,
+) -> SizedOGBTreeCarry:
+    """Initial carry at the uniform feasible state f = C / sum_i s_i.
+
+    ``sizes`` (bytes) are quantized to at most ``classes`` slab sizes (exact
+    where there are that few distinct sizes: :func:`repro_torch.core.
+    ogb_sized.size_classes`); ``costs`` default to the quantized sizes, the
+    byte-weighted rewards w_i = s_i.  The host constants are formed in
+    float64 and cast once, in the reference's order, so the bucket indices
+    are its; the trees are built on the device, one launch a class."""
+    from repro_torch.core.ogb_sized import size_classes
+
+    dev = resolve_device(device)
+    n, v = int(catalog_size), int(buckets)
+    s_cls, cls = size_classes(sizes, classes)  # validates sizes > 0
+    if not np.isfinite(capacity) or capacity <= 0:
+        raise ValueError(f"capacity must be finite and > 0: {capacity!r}")
+    sref = float(np.mean(s_cls[cls]))
+    s_n = (s_cls / sref).astype(np.float64)  # normalized class sizes
+    sq = s_n[cls]  # (N,) normalized per-item size
+    if costs is None:
+        w = sq.copy()
+    else:
+        w = np.asarray(costs, np.float64) / sref
+        if w.shape != (n,):
+            raise ValueError(f"costs must be a ({n},) array")
+        if not (np.all(np.isfinite(w)) and w.min() > 0.0):
+            raise ValueError("costs must be finite and > 0")
+    cap_n = float(capacity) / sref
+    total_s = float(np.sum(sq))
+    if cap_n >= total_s:
+        raise ValueError(
+            f"capacity {capacity} holds the whole catalog ({sref * total_s:.0f} bytes); "
+            "caching is trivial"
+        )
+    f0 = cap_n / total_s  # uniform feasible: sum_i s_i * f0 = cap_n
+    wmax = float(np.max(w))
+    smin = float(np.min(s_n))
+    # base grid width: class-k grids span s_k * wb * v, sized so that the
+    # smallest class clears ~2*GAIN chunks of worst-case rho growth
+    wb = (2.0 / smin + 2.0 * OGB_TREE_GAIN * max(1.0, float(eta) * batch_hint * wmax)) / v
+    p, _u_key = sampling_keys(seed, n, sample, dev)
+    kk = len(s_n)
+    w_k = s_n * wb  # per-class bucket widths
+    by = np.clip(np.floor((f0 + 1.0) / w_k[cls]), 0, v - 1).astype(np.int64)
+    flatb = cls.astype(np.int64) * v + by
+    cnt_leaf = np.bincount(flatb, minlength=kk * v).reshape(kk, v)
+    sum_leaf = (cnt_leaf * f0).astype(np.float32)
+
+    def build(leaf):
+        return _build_rows(torch.from_numpy(np.ascontiguousarray(leaf, np.float32)).to(dev),
+                           radix)
+
+    if sample == "poisson":
+        d0 = f0 - p.cpu().numpy().astype(np.float64)
+        db = np.clip(np.floor((d0 + 1.0) / w_k[cls]), 0, v - 1).astype(np.int64)
+        dl = np.bincount(cls.astype(np.int64) * v + db, minlength=kk * v).reshape(kk, v)
+        dcnt = build(dl)
+    else:
+        dcnt = torch.zeros((0, tree_storage(v, radix)), dtype=torch.float32, device=dev)
+    s32 = s_n.astype(np.float32)
+    return SizedOGBTreeCarry(
+        y=torch.full((n,), f0, dtype=torch.float32, device=dev),
+        rho=torch.zeros((), dtype=torch.float32, device=dev),
+        eta=torch.tensor(float(eta), dtype=torch.float32, device=dev),
+        cap=torch.tensor(cap_n, dtype=torch.float32, device=dev),
+        cls=torch.from_numpy(cls.astype(np.int32)).to(dev),
+        s=torch.from_numpy(s32).to(dev),
+        wts=torch.from_numpy(w.astype(np.float32)).to(dev),
+        sref=torch.tensor(sref, dtype=torch.float32, device=dev),
+        wmax=torch.tensor(wmax, dtype=torch.float32, device=dev),
+        p=p,
+        wb=torch.tensor(wb, dtype=torch.float32, device=dev),
+        scratch=torch.full((n,), _I32_MAX, dtype=torch.int32, device=dev),
+        ycnt=build(cnt_leaf),
+        ysum=build(sum_leaf),
+        dcnt=dcnt,
+        host=SizedTreeHost(
+            rho_hi=0.0, eta=float(np.float32(eta)), wb=float(np.float32(wb)),
+            wmax=float(np.float32(wmax)),
+            rmax=float(np.max(w.astype(np.float32) / s32[cls])),
+            s=tuple(float(x) for x in s32)),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def make_sized_ogb_tree_chunk(v: int, radix: int, sample: str, iters: int = OGB_TREE_ITERS):
+    """Per-chunk sized lazy OGB step ``(carry, ids) -> (carry, (reward,
+    hits, byte_hits, drho, occ_bytes))``, the carry's tensors updated in
+    place; ``byte_hits`` a () float64 tensor.
+
+    The scalar solve finds the base multiplier rho with
+    sum_k s_k * m_k(s_k * rho) = C, m_k class k's bucket mass, by
+    warm-bracketed safeguarded Newton on [rho, wb * v] (:func:`~repro_torch.
+    kernels.prefix_tree.kernel.solve_sized`).  As in the port's
+    ``ogb_tree``, each tree update and each re-anchor leaf is summed in
+    float64 and rounded once, and an id requested k times in a chunk gets
+    ``min(y, 1 + s * rho) + k * eta * w`` rounded once; the host decides a
+    re-anchor from its bound on rho, reading the device only where the bound
+    could reach the trigger."""
+    poisson = sample == "poisson"
+
+    def reanchor(carry, rho_new):
+        kk = carry.s.shape[0]
+        cls64 = carry.cls.to(torch.int64)
+        w_k = carry.s * carry.wb
+        y = torch.clamp(carry.y - carry.s.index_select(0, cls64) * rho_new, 0.0, 1.0)
+        wcl = w_k.index_select(0, cls64)
+        flat = cls64 * v + _ogb_bucket(y, wcl, v)
+        # counts are integers: the histogram kernel's atomic adds are exact
+        ycnt = _build_rows(request_counts(flat.to(torch.int32), kk * v).reshape(kk, v), radix)
+        ysum = _build_rows(_leaf_sums(flat, y, kk * v).reshape(kk, v), radix)
+        dcnt = carry.dcnt
+        if poisson:
+            flat_d = cls64 * v + _ogb_bucket(y - carry.p, wcl, v)
+            dcnt = _build_rows(request_counts(flat_d.to(torch.int32), kk * v).reshape(kk, v),
+                               radix)
+        return carry._replace(y=y, rho=torch.zeros_like(rho_new), ycnt=ycnt, ysum=ysum,
+                              dcnt=dcnt)
+
+    def could_trigger(host: SizedTreeHost, bound: float, b: int) -> bool:
+        for sk in host.s:
+            wk = sk * host.wb
+            lhs = (1.0 + sk * bound + host.eta * host.wmax * b) * (1.0 + _SLACK)
+            if lhs >= (wk * v - 1.0 - wk) * (1.0 - _SLACK):
+                return True
+        return False
+
+    def chunk(carry: SizedOGBTreeCarry, ids: torch.Tensor):
+        b = ids.shape[0]
+        host = carry.host if carry.host is not None else _read_sized_host(carry, syncs=1)
+        y, rho, eta, cap = carry.y, carry.rho, carry.eta, carry.cap
+        s, wts, sref, p, wb = carry.s, carry.wts, carry.sref, carry.p, carry.wb
+        ycnt, ysum, dcnt = carry.ycnt, carry.ysum, carry.dcnt
+        dev = y.device
+        ids64 = ids.to(torch.int64)
+        lanes = torch.arange(b, dtype=torch.int32, device=dev)
+        w_k = s * wb  # (K,) per-class bucket widths
+
+        cj = carry.cls.index_select(0, ids64).to(torch.int64)
+        sj = s.index_select(0, cj)
+        wj = wts.index_select(0, ids64)
+
+        # --- metrics at the pre-update state (OCO order) ---
+        yold = y.index_select(0, ids64)
+        fi = torch.clamp(yold - sj * rho, 0.0, 1.0)
+        reward = (wj * fi).sum()
+        if poisson:
+            pi = p.index_select(0, ids64)
+            hflag = fi >= pi
+            hits = hflag.sum(dtype=torch.int32)
+            # each hit's normalized size, summed exactly, then in bytes
+            byte_hits = torch.where(hflag, sj, torch.zeros_like(sj)).sum(
+                dtype=torch.float64) * sref.to(torch.float64)
+            # byte occupancy: each class's count of y - p above its
+            # threshold's bucket, weighted by the class's bytes
+            q = _ogb_bucket(s * rho, w_k, v)
+            above = torch.arange(v, device=dev)[None, :] > q[:, None]
+            per_class = torch.where(above, dcnt[:, :v], torch.zeros_like(dcnt[:, :v])).sum(dim=1)
+            occ = (s * per_class).sum() * sref
+        else:
+            hits = torch.zeros((), dtype=torch.int32, device=dev)
+            byte_hits = torch.zeros((), dtype=torch.float64, device=dev)
+            occ = cap * sref
+
+        # --- first occurrence of each id (dedup without sorting) ---
+        scratch = carry.scratch
+        scratch.scatter_reduce_(0, ids64, lanes, "amin")
+        lead = scratch.index_select(0, ids64)
+        first = lead == lanes
+        scratch.index_fill_(0, ids64, _I32_MAX)
+
+        # --- gradient step: upper-clip touched items, add eta * w per request ---
+        k = request_counts(lead, b).to(torch.float64)
+        step = (eta * wj).to(torch.float64)
+        ylead = torch.minimum(yold, 1.0 + sj * rho).to(torch.float64) + k * step
+        ynew = ylead.to(torch.float32).index_select(0, lead)
+        y.index_put_((ids64,), ynew)
+
+        # --- move touched items between their class buckets ---
+        wvj = w_k.index_select(0, cj)
+        none = torch.full_like(ids64, -1)
+        bo = torch.where(first, _ogb_bucket(yold, wvj, v), none)
+        bn = torch.where(first, _ogb_bucket(ynew, wvj, v), none)
+        rows2 = torch.cat([cj, cj])
+        didx = torch.cat([bo, bn])
+        ones = torch.ones(b, dtype=torch.float32, device=dev)
+        zero = torch.zeros_like(ones)
+        stacked_tree_update_(ycnt, v, radix, rows2, didx, torch.cat([-ones, ones]))
+        stacked_tree_update_(ysum, v, radix, rows2, didx,
+                             torch.cat([torch.where(first, -yold, zero),
+                                        torch.where(first, ynew, zero)]))
+        if poisson:
+            do = torch.where(first, _ogb_bucket(yold - pi, wvj, v), none)
+            dn = torch.where(first, _ogb_bucket(ynew - pi, wvj, v), none)
+            stacked_tree_update_(dcnt, v, radix, rows2, torch.cat([do, dn]),
+                                 torch.cat([-ones, ones]))
+
+        # --- threshold solve: safeguarded Newton on rho over [rho, wb * v] ---
+        rho_new = solve_sized(ycnt, ysum, v, s, cap, rho, wb * float(v), iters)
+        out = (reward, hits, byte_hits, rho_new - rho, occ)
+
+        # --- re-anchor when any class could outgrow its value grid ---
+        # rho_new - rho <= eta * B * max(cost/size), and the bucket
+        # quantization moves the root by about a bucket width wb
+        bound = (host.rho_hi + host.eta * b * host.rmax + 4.0 * host.wb) * (1.0 + _SLACK) \
+            + _SLACK
+        if not could_trigger(host, bound, b):
+            return carry._replace(rho=rho_new, host=host._replace(rho_hi=bound)), out
+        trigger = (1.0 + s * rho_new + eta * carry.wmax * float(b)
+                   >= w_k * float(v) - 1.0 - w_k).any()
+        fire, rho_now = torch.stack([trigger.to(torch.float32), rho_new]).tolist()
+        host = host._replace(syncs=host.syncs + 1)
+        if fire:
+            carry = reanchor(carry, rho_new)
+            return carry._replace(host=host._replace(rho_hi=0.0,
+                                                     reanchors=host.reanchors + 1)), out
+        return carry._replace(rho=rho_new, host=host._replace(rho_hi=rho_now)), out
 
     return chunk

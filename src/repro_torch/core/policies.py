@@ -1,18 +1,21 @@
 """Host caching policies, copied from ``repro.core.policies``.
 
-LRU, FIFO, LFU and ARC (Megiddo & Modha 2003), and the paper's OGB and FTPL
-by lazy loaders.  Each exposes the simulator interface ``request(i) -> hit``,
+LRU, FIFO, LFU, GreedyDual-Size (Cao & Irani 1997) and ARC (Megiddo &
+Modha 2003), and the paper's OGB and FTPL by lazy loaders.  Each exposes the simulator interface ``request(i) -> hit``,
 ``contains(i)``, ``occupancy()`` and ``batch_end()``.  The serving path's page
 pool decides with OGB or LRU; ARC is the scenario harness's host oracle
 (:func:`repro_torch.cachesim.simulator.simulate`); LRU, FIFO, LFU and FTPL
-are the oracles the tests hold the slot automata against.  ``gds`` and the
-classic OGB/OMD oracles wait for the sized slice.
+are the oracles the tests hold the slot automata against, and GDS the
+tree GDS's (``cachesim.tree_engines``).  The classic OGB/OMD oracles are
+not ported yet (ROADMAP.md §1 item 2).
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
 from typing import Dict
+
+import numpy as np
 
 from .treap import make_store
 
@@ -131,6 +134,54 @@ class LFU(_Base):
         return self._account(hit)
 
 
+class GDS(_Base):
+    """Greedy-Dual-Size: H_i = L + cost_i / size_i, the least H evicted and
+    L raised to it.  Unit sizes and costs make it LRU with aging; per-item
+    ``sizes``/``costs`` arrays give the heterogeneous setting.  This is the
+    host oracle the tree GDS is held against, so equal H break by the
+    sorted store's smallest item id, as on the device's min-pair tree."""
+
+    name = "GDS"
+    __slots__ = ("_L", "_cost", "_prio", "_h", "_order")
+
+    def __init__(self, catalog_size: int, capacity: int, cost: float = 1.0, sizes=None,
+                 costs=None, **kw):
+        super().__init__(catalog_size, capacity)
+        self._L = 0.0
+        n = int(catalog_size)
+        s = np.ones(n) if sizes is None else np.asarray(sizes, np.float64)
+        w = np.full(n, float(cost)) if costs is None else np.asarray(costs, np.float64)
+        if s.shape != (n,) or w.shape != (n,):
+            raise ValueError(f"sizes/costs must be ({n},) arrays")
+        if not (np.all(np.isfinite(s)) and float(s.min()) > 0.0):
+            raise ValueError("GDS sizes must be finite and > 0")
+        if not (np.all(np.isfinite(w)) and float(w.min()) > 0.0):
+            raise ValueError("GDS costs must be finite and > 0")
+        self._cost = cost
+        self._prio = w / s
+        self._h: Dict[int, float] = {}
+        self._order = make_store("sorted")
+
+    def contains(self, i: int) -> bool:
+        return i in self._h
+
+    def occupancy(self) -> int:
+        return len(self._h)
+
+    def request(self, i: int) -> bool:
+        hit = i in self._h
+        if hit:
+            self._order.remove(self._h[i], i)
+        elif len(self._h) >= self.C:
+            hmin, imin = self._order.pop_min()
+            self._L = hmin
+            del self._h[imin]
+        h = self._L + float(self._prio[i])
+        self._h[i] = h
+        self._order.insert(h, i)
+        return self._account(hit)
+
+
 class ARC(_Base):
     """Adaptive Replacement Cache (Megiddo & Modha, FAST'03) — exact."""
 
@@ -220,6 +271,7 @@ POLICY_REGISTRY = {
     "lru": LRU,
     "fifo": FIFO,
     "lfu": LFU,
+    "gds": GDS,
     "arc": ARC,
     "ogb": _load_ogb,
     "ftpl": _load_ftpl,

@@ -5,13 +5,15 @@ Each wrapper counts its launches in a plain integer attribute
 ``project_warm.launches``, ``apply.launches``, ``block_segment_sums.launches``,
 ``tree_build.launches``, ``tree_update_.launches``,
 ``bucket_masses.launches``, ``solve_buckets.launches``,
-``flash_prefill.launches``, ``decode_attention.launches``,
-``slot_automaton.launches``, ``tree_lru.launches``,
+``solve_sized.launches``, ``flash_prefill.launches``,
+``decode_attention.launches``, ``slot_automaton.launches``,
+``fifo_queue.launches``, ``tree_lru.launches``,
 ``ring_compaction.launches``, ``minpair_automaton.launches``), so a run
 can show that it went through the kernels.  :func:`launch_counts` reads them by
 kernel source (the warm projection counts as ``mass``, the whole-tree
-build as ``segsum``, the bucket solve as ``bucket_mass``, a ring
-compaction as ``tree_lru``); ``apply``
+build as ``segsum``, the bucket and sized solves as ``bucket_mass``, a
+stacked tree update as ``tree_update``, a ring compaction as ``tree_lru``,
+a GDS chunk as ``minpair_automaton``); ``apply``
 counts the clip's executions, so a
 ``project_warm`` launch, whose epilogue is the clip, counts once as ``mass``
 and once as ``apply`` (design ``"projection epilogue"``).
@@ -34,10 +36,12 @@ def _wrappers():
     )
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.fifo_queue.ops import fifo_queue
     from repro_torch.kernels.prefix_tree.kernel import (
         block_segment_sums,
         bucket_masses,
         solve_buckets,
+        solve_sized,
     )
     from repro_torch.kernels.prefix_tree.ops import tree_build, tree_update_
     from repro_torch.kernels.scatter_counts.ops import histogram
@@ -51,10 +55,11 @@ def _wrappers():
         "apply": (apply,),
         "segsum": (block_segment_sums, tree_build),
         "tree_update": (tree_update_,),
-        "bucket_mass": (bucket_masses, solve_buckets),
+        "bucket_mass": (bucket_masses, solve_buckets, solve_sized),
         "flash_prefill": (flash_prefill,),
         "decode_attention": (decode_attention,),
         "slot_automaton": (slot_automaton,),
+        "fifo_queue": (fifo_queue,),
         "tree_lru": (tree_lru, ring_compaction),
         "minpair_automaton": (minpair_automaton,),
     }

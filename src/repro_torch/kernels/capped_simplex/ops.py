@@ -309,3 +309,88 @@ def fused_ogb_update(
     )
     out = apply(f, counts, eta, tau)
     return (out, tau) if return_tau else out
+
+
+# -- the weighted (knapsack) capped simplex -----------------------------------
+#
+# Sized objects (core/ogb_sized.py, paper §8): the feasible set becomes
+# F_s = {f in [0,1]^N : sum_i s_i f_i = C} and the Euclidean projection is
+# f_i = clip(y_i - s_i * tau, 0, 1), tau the root of the weighted mass
+# g(tau) = sum_i s_i clip(y_i - s_i tau, 0, 1) = C: non-increasing and
+# piecewise linear with slope -sum_{interior} s_i^2.  As in the reference
+# (repro.kernels.capped_simplex.ops), these are plain tensor sweeps, not
+# kernels: they are the scan flavor of ``ogb_sized``, the differential
+# oracle of the tree flavor, whose per-chunk solve is the card's
+# (prefix_tree.kernel.solve_sized).
+
+
+def _weighted_mass(y: torch.Tensor, s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    # summed as masses_ref sums a (1, N) row, so that sizes == 1 gives the
+    # unit path's bits
+    return (s * torch.clamp(y - s * t, 0.0, 1.0))[None, :].sum(dim=1)[0]
+
+
+def weighted_simplex_project(
+    y: torch.Tensor,
+    sizes: torch.Tensor,
+    capacity: Scalar,
+    iters: int = 50,
+    lo: Optional[Scalar] = None,
+    hi: Optional[Scalar] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bisection projection of ``y`` onto F_s; returns (f, tau).
+
+    Step for step the unit bisection
+    (:func:`repro_torch.jaxcache.fractional.capped_simplex_project`): the
+    cold bracket [min((y - 1) / s), max(y / s)] and midpoint bisection on
+    ``mass >= C``, so ``sizes == 1`` gives its bits on the CPU.  Sizes
+    must be > 0 (the callers check them on the host)."""
+    dev = y.device
+    s = sizes.to(y.dtype)
+    cap = as_scalar(capacity, dev)
+    lo = torch.min((y - 1.0) / s) if lo is None else as_scalar(lo, dev)
+    hi = torch.max(y / s) if hi is None else as_scalar(hi, dev)
+    lo, hi = lo.to(torch.float32), hi.to(torch.float32)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        too_much = _weighted_mass(y, s, mid) >= cap
+        lo, hi = torch.where(too_much, mid, lo), torch.where(too_much, hi, mid)
+    tau = 0.5 * (lo + hi)
+    return torch.clamp(y - s * tau, 0.0, 1.0), tau
+
+
+def weighted_simplex_project_warm(
+    y: torch.Tensor,
+    sizes: torch.Tensor,
+    capacity: Scalar,
+    lo: Scalar,
+    hi: Scalar,
+    tau0: Scalar,
+    sweeps: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Warm-bracketed safeguarded Newton on the weighted mass; returns (f, tau).
+
+    Each sweep evaluates g(t) and its slope in one pass, shrinks the
+    bracket by the sign of g(t) - C and takes the Newton point where the
+    slope is positive and the point lies in the bracket, else the midpoint.
+    Needs g(lo) >= C >= g(hi).  The safeguard is the reference's, which
+    accepts a Newton point equal to an end of the bracket (ROADMAP.md §3:
+    on some instances the iterate alternates between the two ends)."""
+    dev = y.device
+    cap = as_scalar(capacity, dev)
+    s = sizes.to(y.dtype)
+    lo, hi = as_scalar(lo, dev), as_scalar(hi, dev)
+    t = torch.clamp(as_scalar(tau0, dev), lo, hi)
+    for _ in range(sweeps):
+        clipped = torch.clamp(y - s * t, 0.0, 1.0)
+        interior = (clipped > 0.0) & (clipped < 1.0)
+        mass = (s * clipped).sum()
+        slope = torch.where(interior, s * s, torch.zeros_like(s)).sum()
+        too_much = mass >= cap
+        lo = torch.where(too_much, t, lo)
+        hi = torch.where(too_much, hi, t)
+        t_newton = t + (mass - cap) / torch.clamp(slope, min=1e-12)
+        t_mid = 0.5 * (lo + hi)
+        ok = (slope > 0.0) & (t_newton >= lo) & (t_newton <= hi)
+        t = torch.where(ok, t_newton, t_mid)
+    return torch.clamp(y - s * t, 0.0, 1.0), t

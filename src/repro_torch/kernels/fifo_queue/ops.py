@@ -1,0 +1,87 @@
+"""FIFO at any capacity: a chunk of requests a launch.
+
+The reference runs FIFO as ``lax.scan`` over its per-request step
+(``repro.cachesim.engines._fifo_step``, a compare and an argmin over every
+slot); no Pallas kernel is involved.  Its victims walk the active slots in
+one order fixed at the start of a run (:mod:`.ref`), so a request is O(1)
+given that order and an item -> slot map, derived once a run
+(:func:`~.ref.derive_queue`).  On a CUDA tensor :func:`fifo_queue`
+launches ``csrc/fifo_queue.cu`` once for the whole chunk: one warp, the
+requests in order, a tile of 32 read at once.  On a CPU tensor it runs the
+plain version, :func:`~.ref.fifo_queue_ref`.  Either way the carry and the
+derived state are updated in place.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.fifo_queue.ref import FIFOQueue, fifo_queue_ref
+
+#: the design the wrapper counts its launches under
+DESIGN = ("one warp a chunk: the victims in the run's fixed order, a tile of 32 requests "
+          "and their 32 possible victims read at once, imap kept current by broadcast")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = _build.library("fifo_queue").repro_fifo_queue
+    i, p = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [i, p, p, p, p, p, i, p, p, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fifo_queue(
+    slots: torch.Tensor,
+    stamps: torch.Tensor,
+    t: torch.Tensor,
+    queue: FIFOQueue,
+    ids: torch.Tensor,
+    flags: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One FIFO chunk over int32 ``ids`` (each below ``queue.imap``'s
+    length), in place: ``slots`` and ``stamps`` (K,) int32, the () int32
+    clock ``t`` and the run's :class:`~.ref.FIFOQueue`.
+
+    Returns ``(hits, stats)``: the () int32 hit count and the (3,) float32
+    (reward, aux, occupancy); ``flags``, a (window,) bool tensor where given,
+    gets each request's hit."""
+    if slots.device.type == "cpu":
+        return fifo_queue_ref(slots, stamps, t, queue, ids, flags)
+    dev = slots.device
+    for name, x in (("slots", slots), ("stamps", stamps), ("t", t), ("order", queue.order),
+                    ("head", queue.head), ("imap", queue.imap), ("occ", queue.occ),
+                    ("ids", ids)):
+        _build.require(x, torch.int32, name, dev)
+    if ids.dim() != 1 or ids.numel() < 1:
+        raise ValueError(f"ids must be a non-empty 1-D tensor, got shape {tuple(ids.shape)}")
+    if stamps.shape != slots.shape or t.dim() != 0 or queue.order.numel() < 1:
+        raise ValueError("stamps must match slots, t must be 0-d and the queue non-empty")
+    if flags is not None:
+        _build.require(flags, torch.bool, "flags", dev)
+        if flags.shape != ids.shape:
+            raise ValueError("flags must match ids")
+    hits = torch.empty((), dtype=torch.int32, device=dev)
+    stats = torch.empty(3, dtype=torch.float32, device=dev)
+    _build.check(
+        _entry()(
+            ids.numel(), ids.data_ptr(), slots.data_ptr(), stamps.data_ptr(), t.data_ptr(),
+            queue.order.data_ptr(), queue.order.numel(), queue.head.data_ptr(),
+            queue.imap.data_ptr(), queue.occ.data_ptr(),
+            flags.data_ptr() if flags is not None else None, hits.data_ptr(), stats.data_ptr(),
+            _build.stream_of(slots),
+        ),
+        "fifo_queue",
+    )
+    _build.counted(fifo_queue, DESIGN)
+    return hits, stats
+
+
+fifo_queue.launches = 0
+fifo_queue.designs = {}

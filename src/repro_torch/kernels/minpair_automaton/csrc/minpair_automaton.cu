@@ -1,17 +1,22 @@
-// The tree LFU and FTPL: one chunk of requests, in order, in one launch.
+// The tree LFU, FTPL and GDS: one chunk of requests, in order, in one launch.
 //
 // The reference has no Pallas kernel here: it scans each automaton's
 // per-request step over the chunk with lax.scan
 // (src/repro/cachesim/tree_engines.py: make_lfu_tree_chunk,
-// make_ftpl_tree_chunk), its victim search a lexicographic (hi, lo) min-tree
-// over the slots at radix 64 (src/repro/kernels/prefix_tree/ops.py,
-// minpair_*).  The port's plain version is ../ref.py's minpair_automaton_ref.
+// make_ftpl_tree_chunk, make_gds_tree_chunk), its victim search a
+// lexicographic (hi, lo) min-tree over the slots at radix 64
+// (src/repro/kernels/prefix_tree/ops.py, minpair_*).  The port's plain
+// versions are ../ref.py's minpair_automaton_ref and gds_automaton_ref.
 // This kernel computes the same, bit for bit: the hits, and the carry (imap,
-// its scratch entry imap[N], counts, slots, both trees, LFU's clock).
+// its scratch entry imap[N], counts, slots, both trees, LFU's clock; GDS's
+// slot priorities and inflation value).
 //
 // A slot's key is (frequency, tick) for LFU, empty slots (-1, -1); for FTPL
 // (sortable score, item id), the score float32(count) + noise, one float32
-// add (__fadd_rn: no contraction); inactive slots (INT32_MAX, INT32_MAX).  A
+// add (__fadd_rn: no contraction); for GDS (sortable H, item id), empty slots
+// (-1, -1), H = L + cost/size (one float32 add, __fadd_rn) with L the
+// inflation value, raised to a real victim's H before the newcomer is keyed;
+// inactive slots (INT32_MAX, INT32_MAX).  A
 // tree node holds the least pair of its 64 children; the root is the least
 // pair of the top level, and the argmin leaf is found by descending to the
 // first child that holds its parent's pair (the first index wins ties, as
@@ -37,7 +42,9 @@
 //     the least hi, over the index among the least pairs), the last over the
 //     leaves and their slots read from L2;
 //  2. LFU admits when hit or f >= root hi, FTPL swaps when it misses and its
-//     hi is strictly above the root's;
+//     hi is strictly above the root's; GDS always writes: a hit refreshes its
+//     H from the current L, a miss evicts the argmin (L takes its H if it
+//     held an item) and keys the newcomer;
 //  3. the leaf is written, and its ancestors are recomputed from their
 //     groups with the new child substituted, stopping where a node keeps
 //     its pair; slots and imap take the newcomer and drop the evicted item.
@@ -54,7 +61,7 @@
 
 namespace {
 
-constexpr int kLFU = 0, kFTPL = 1;
+constexpr int kLFU = 0, kFTPL = 1, kGDS = 2;
 constexpr int kShift = 6;  // radix 64
 constexpr int kRadix = 1 << kShift;
 constexpr int kThreads = 256;  // the bulk copies; one warp runs the automaton
@@ -146,7 +153,8 @@ template <int KIND>
 __device__ void run_warp(int* __restrict__ imap, int* __restrict__ counts,
                          const float* __restrict__ noise, int* __restrict__ slots,
                          int* __restrict__ th, int* __restrict__ tl, int* s_hi, int* s_lo,
-                         int* __restrict__ tclock, const int* __restrict__ ids, int window,
+                         int* __restrict__ tclock, float* __restrict__ hval,
+                         float* __restrict__ lval, const int* __restrict__ ids, int window,
                          int n_items, const Levels& lv, unsigned char* __restrict__ flags,
                          int* __restrict__ hits_out) {
   const int lane = threadIdx.x;
@@ -154,23 +162,31 @@ __device__ void run_warp(int* __restrict__ imap, int* __restrict__ counts,
   const int k_slots = lv.size[0];
   const long long up = lv.count > 1 ? lv.off[1] : 0;  // shared node x is tree node up + x
   const int t0 = KIND == kLFU ? *tclock : 0;
+  float L = KIND == kGDS ? *lval : 0.0f;  // GDS: the inflation value, warp-uniform
   int hits = 0, scratch = -1;
 
   for (int base = 0; base < window; base += 32) {
     const int n = min(32, window - base);
     int j = -1, mine = -1, f = 0, key = 0;
+    float prio = 0.0f;  // GDS: the request's cost / size (`noise` holds them)
     if (lane < n) {
       j = __ldg(ids + base + lane);
       mine = __ldcg(imap + j);
-      f = __ldcg(counts + j);
+      if (KIND == kGDS) {
+        prio = __ldg(noise + j);
+      } else {
+        f = __ldcg(counts + j);
+      }
     }
     int rank = 0;
     bool final = true;
-    for (int s = 0; s < n; ++s) {
-      const int js = __shfl_sync(kFull, j, s);
-      if (js == j) {
-        rank += s < lane;
-        final &= s <= lane;
+    if (KIND != kGDS) {  // GDS keeps no counts
+      for (int s = 0; s < n; ++s) {
+        const int js = __shfl_sync(kFull, j, s);
+        if (js == j) {
+          rank += s < lane;
+          final &= s <= lane;
+        }
       }
     }
     f += rank + 1;
@@ -180,7 +196,7 @@ __device__ void run_warp(int* __restrict__ imap, int* __restrict__ counts,
       const int jq = __shfl_sync(kFull, j, q);
       const int fq = __shfl_sync(kFull, f, q);
       const int slot = __shfl_sync(kFull, mine, q);
-      const int nh = KIND == kLFU ? fq : __shfl_sync(kFull, key, q);
+      int nh = KIND == kLFU ? fq : __shfl_sync(kFull, key, q);
       const int nl = KIND == kLFU ? t0 + base + q : jq;
       const bool hit = slot >= 0;
       hits += hit;
@@ -205,8 +221,20 @@ __device__ void run_warp(int* __restrict__ imap, int* __restrict__ counts,
         }
         idx = node;
         leaves = g;
-        write = KIND == kLFU ? nh >= root.h : nh > root.h;
-        if (write) {
+        write = KIND == kGDS || (KIND == kLFU ? nh >= root.h : nh > root.h);
+        if (KIND == kGDS) {
+          // evict first: L takes the H of a real victim, then the newcomer
+          // is keyed off it; an empty slot's fill leaves L as it is
+          const int old = slot_of(leaves, idx);
+          if (old >= 0) L = __ldcg(hval + idx);
+          if (lane == 0) {
+            if (old >= 0) imap[old] = -1;
+            imap[jq] = idx;
+            slots[idx] = jq;
+          }
+          if (old >= 0 && j == old) mine = -1;
+          if (j == jq) mine = idx;
+        } else if (write) {
           const int old = slot_of(leaves, idx);
           if (lane == 0) {
             if (old >= 0) imap[old] = -1;
@@ -220,8 +248,13 @@ __device__ void run_warp(int* __restrict__ imap, int* __restrict__ counts,
           scratch = idx;
         }
       } else {
-        scratch = KIND == kLFU ? -1 : idx;
+        scratch = KIND == kFTPL ? idx : -1;
         leaves = load_group<true>(th, tl, slots, idx & ~(kRadix - 1), k_slots, lane);
+      }
+      if (KIND == kGDS) {  // a hit or a miss: H = L + cost/size of the request
+        const float h = __fadd_rn(L, __shfl_sync(kFull, prio, q));
+        nh = sortable(h);
+        if (lane == 0) hval[idx] = h;
       }
       if (write) {
         if (lane == 0) {
@@ -250,12 +283,16 @@ __device__ void run_warp(int* __restrict__ imap, int* __restrict__ counts,
       }
       __syncwarp();
     }
-    if (lane < n && final) counts[j] = f;
+    if (KIND != kGDS && lane < n && final) counts[j] = f;
     __syncwarp();
   }
   if (lane == 0) {
-    imap[n_items] = scratch;
+    // GDS writes -1 into the scratch entry at every request that evicts
+    // nothing, and first of all at the chunk's start (the reference's
+    // pending write): so -1 after every chunk
+    imap[n_items] = KIND == kGDS ? -1 : scratch;
     if (KIND == kLFU) *tclock = t0 + window;
+    if (KIND == kGDS) *lval = L;
     *hits_out = hits;
   }
 }
@@ -264,9 +301,10 @@ template <int KIND>
 __global__ void __launch_bounds__(kThreads)
     minpair_kernel(int* __restrict__ imap, int* __restrict__ counts,
                    const float* __restrict__ noise, int* __restrict__ slots, int* __restrict__ th,
-                   int* __restrict__ tl, int* __restrict__ tclock, const int* __restrict__ ids,
-                   int window, int n_items, Levels lv, unsigned char* __restrict__ flags,
-                   int* __restrict__ hits_out, float* __restrict__ stats) {
+                   int* __restrict__ tl, int* __restrict__ tclock, float* __restrict__ hval,
+                   float* __restrict__ lval, const int* __restrict__ ids, int window, int n_items,
+                   Levels lv, unsigned char* __restrict__ flags, int* __restrict__ hits_out,
+                   float* __restrict__ stats) {
   extern __shared__ int smem[];
   __shared__ int s_occ;
   const long long up = lv.count > 1 ? lv.off[1] : 0;
@@ -280,8 +318,8 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) s_occ = 0;
   __syncthreads();
   if (threadIdx.x < 32) {
-    run_warp<KIND>(imap, counts, noise, slots, th, tl, s_hi, s_lo, tclock, ids, window, n_items,
-                   lv, flags, hits_out);
+    run_warp<KIND>(imap, counts, noise, slots, th, tl, s_hi, s_lo, tclock, hval, lval, ids,
+                   window, n_items, lv, flags, hits_out);
   }
   __syncthreads();
   for (int x = threadIdx.x; x < upper; x += blockDim.x) {
@@ -303,8 +341,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int KIND>
 int launch(int window, const int* ids, int n_items, const Levels& lv, int* imap, int* counts,
-           const float* noise, int* slots, int* th, int* tl, int* t, unsigned char* flags,
-           int* hits, float* stats, cudaStream_t stream) {
+           const float* noise, int* slots, int* th, int* tl, int* t, float* hval, float* lval,
+           unsigned char* flags, int* hits, float* stats, cudaStream_t stream) {
   const long long up = lv.count > 1 ? lv.off[1] : 0;
   const long long upper = lv.count > 1 ? lv.off[lv.count - 1] + lv.size[lv.count - 1] - up : 0;
   const size_t smem = (size_t)(2 * upper) * sizeof(int);
@@ -313,22 +351,25 @@ int launch(int window, const int* ids, int n_items, const Levels& lv, int* imap,
         minpair_kernel<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  minpair_kernel<KIND><<<1, kThreads, smem, stream>>>(imap, counts, noise, slots, th, tl, t, ids,
-                                                      window, n_items, lv, flags, hits, stats);
+  minpair_kernel<KIND><<<1, kThreads, smem, stream>>>(imap, counts, noise, slots, th, tl, t, hval,
+                                                      lval, ids, window, n_items, lv, flags, hits,
+                                                      stats);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // kind: 0 lfu (t its int32 clock, noise null), 1 ftpl (noise (N,) float32,
-// t null).  sizes: the min-tree's `count` level sizes, leaves first (the
-// slot count).  imap holds N + 1 entries, counts N.  flags: null, or one byte
-// a request.  hits: one int32; stats: three float32 (reward, aux, occupancy).
+// t null), 2 gds (noise the (N,) float32 cost / size, counts and t null, hval
+// the (K,) float32 slot priorities, lval the () float32 inflation value).
+// sizes: the min-tree's `count` level sizes, leaves first (the slot count).
+// imap holds N + 1 entries, counts N.  flags: null, or one byte a request.
+// hits: one int32; stats: three float32 (reward, aux, occupancy).
 extern "C" int repro_minpair_automaton(int kind, int window, const void* ids, int n_items,
                                        int count, const long long* sizes, void* imap,
                                        void* counts, const void* noise, void* slots, void* th,
-                                       void* tl, void* t, void* flags, void* hits, void* stats,
-                                       void* stream) {
+                                       void* tl, void* t, void* hval, void* lval, void* flags,
+                                       void* hits, void* stats, void* stream) {
   if (count < 1 || count > kMaxLevels || window < 1 || n_items < 1 || sizes[0] < 1 ||
       sizes[count - 1] > kRadix) {
     return (int)cudaErrorInvalidValue;
@@ -350,14 +391,19 @@ extern "C" int repro_minpair_automaton(int kind, int window, const void* ids, in
   int* h = static_cast<int*>(th);
   int* l = static_cast<int*>(tl);
   int* tc = static_cast<int*>(t);
+  float* hv = static_cast<float*>(hval);
+  float* lv_ = static_cast<float*>(lval);
   unsigned char* fl = static_cast<unsigned char*>(flags);
   int* ho = static_cast<int*>(hits);
   float* st = static_cast<float*>(stats);
   switch (kind) {
     case kLFU:
-      return launch<kLFU>(window, id, n_items, lv, im, c, nz, sl, h, l, tc, fl, ho, st, s);
+      return launch<kLFU>(window, id, n_items, lv, im, c, nz, sl, h, l, tc, hv, lv_, fl, ho, st, s);
     case kFTPL:
-      return launch<kFTPL>(window, id, n_items, lv, im, c, nz, sl, h, l, tc, fl, ho, st, s);
+      return launch<kFTPL>(window, id, n_items, lv, im, c, nz, sl, h, l, tc, hv, lv_, fl, ho, st,
+                           s);
+    case kGDS:
+      return launch<kGDS>(window, id, n_items, lv, im, c, nz, sl, h, l, tc, hv, lv_, fl, ho, st, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,12 +1,13 @@
-"""The tree LFU and FTPL: a chunk of requests a launch, on min-pair trees.
+"""The tree LFU, FTPL and GDS: a chunk of requests a launch, on min-pair trees.
 
 The reference runs these automata as ``lax.scan`` over requests
-(``repro.cachesim.tree_engines.make_lfu_tree_chunk`` and
-``make_ftpl_tree_chunk``); no Pallas kernel is involved.  On a CUDA tensor
-:func:`minpair_automaton` launches ``csrc/minpair_automaton.cu`` once for
-the whole chunk: one warp walks the requests in order over the slots'
+(``repro.cachesim.tree_engines.make_lfu_tree_chunk``,
+``make_ftpl_tree_chunk`` and ``make_gds_tree_chunk``); no Pallas kernel is
+involved.  On a CUDA tensor :func:`minpair_automaton` (LFU, FTPL) and
+:func:`gds_automaton` launch ``csrc/minpair_automaton.cu`` once for the
+whole chunk, both counted as ``minpair_automaton`` launches: one warp walks the requests in order over the slots'
 radix-64 (hi, lo) min-tree, the levels above the leaves in shared memory
-and the leaves in global memory (L2).  On a CPU tensor it runs the plain
+and the leaves in global memory (L2).  On a CPU tensor each runs its plain
 version in :mod:`.ref`.  Either way the carry's tensors are updated in
 place.
 
@@ -25,7 +26,12 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.minpair_automaton.ref import KINDS, SLOT_RADIX, minpair_automaton_ref
+from repro_torch.kernels.minpair_automaton.ref import (
+    KINDS,
+    SLOT_RADIX,
+    gds_automaton_ref,
+    minpair_automaton_ref,
+)
 from repro_torch.kernels.prefix_tree.ref import tree_sizes, tree_storage
 
 #: the min-tree nodes above the leaves that one block's shared memory holds
@@ -34,13 +40,17 @@ MAX_UPPER_NODES = 28_000
 #: the design the wrapper counts its launches under
 DESIGN = ("one warp a chunk: the requests in order, root and argmin by warp-wide "
           "lexicographic reductions (redux.sync), upper levels in shared memory, leaves in L2")
+#: the design GDS's launches count under (the same kernel, its GDS mode)
+DESIGN_GDS = "GDS mode: " + DESIGN
+#: the kernel's ``kind`` argument of GDS (after KINDS)
+_GDS = len(KINDS)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.library("minpair_automaton").repro_minpair_automaton
     i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, i, p, i, i, p, p, p, p, p, p, p, p, p, p, p, p]
+    fn.argtypes = [i, i, p, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -93,7 +103,14 @@ def minpair_automaton(
         _build.require(noise, torch.float32, "noise", dev)
         if noise.shape != counts.shape:
             raise ValueError("noise must match counts")
-    k, n = slots.numel(), counts.numel()
+    n = counts.numel()
+    return _launch(KINDS.index(kind), DESIGN, ids, n, imap, counts, None if lfu else noise, slots,
+                   tree_hi, tree_lo, t if lfu else None, None, None, flags)
+
+
+def _check_slots(imap, slots, tree_hi, tree_lo, ids, n, flags):
+    dev = slots.device
+    k = slots.numel()
     if ids.dim() != 1 or ids.numel() < 1:
         raise ValueError(f"ids must be a non-empty 1-D tensor, got shape {tuple(ids.shape)}")
     if imap.numel() != n + 1 or tree_hi.shape != (tree_storage(k, SLOT_RADIX),) or \
@@ -107,25 +124,64 @@ def minpair_automaton(
         _build.require(flags, torch.bool, "flags", dev)
         if flags.shape != ids.shape:
             raise ValueError("flags must match ids")
+
+
+def _launch(kind, design, ids, n, imap, counts, noise, slots, tree_hi, tree_lo, t, hval, lval,
+            flags):
+    dev = slots.device
+    _check_slots(imap, slots, tree_hi, tree_lo, ids, n, flags)
     hits = torch.empty((), dtype=torch.int32, device=dev)
     stats = torch.empty(3, dtype=torch.float32, device=dev)
-    count, sizes = _levels(k)
+    count, sizes = _levels(slots.numel())
 
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
     _build.check(
         _entry()(
-            KINDS.index(kind), ids.numel(), ptr(ids), n, count, ctypes.addressof(sizes),
-            imap.data_ptr(), counts.data_ptr(), ptr(None if lfu else noise), slots.data_ptr(),
-            tree_hi.data_ptr(), tree_lo.data_ptr(), ptr(t if lfu else None), ptr(flags),
-            hits.data_ptr(), stats.data_ptr(), _build.stream_of(slots),
+            kind, ids.numel(), ptr(ids), n, count, ctypes.addressof(sizes), imap.data_ptr(),
+            ptr(counts), ptr(noise), slots.data_ptr(), tree_hi.data_ptr(), tree_lo.data_ptr(),
+            ptr(t), ptr(hval), ptr(lval), ptr(flags), hits.data_ptr(), stats.data_ptr(),
+            _build.stream_of(slots),
         ),
         "minpair_automaton",
     )
-    _build.counted(minpair_automaton, DESIGN)
+    _build.counted(minpair_automaton, design)
     return hits, stats
 
 
 minpair_automaton.launches = 0
 minpair_automaton.designs = {}
+
+
+def gds_automaton(
+    imap: torch.Tensor,
+    prio: torch.Tensor,
+    hval: torch.Tensor,
+    lval: torch.Tensor,
+    slots: torch.Tensor,
+    tree_hi: torch.Tensor,
+    tree_lo: torch.Tensor,
+    ids: torch.Tensor,
+    flags: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the tree GDS over int32 ``ids`` in [0, N), in place:
+    ``imap`` (N+1,) int32, ``prio`` (N,) float32 cost/size, ``hval`` (K,)
+    float32 the slots' H, ``lval`` the () float32 inflation value,
+    ``slots`` (K,) int32 and the two (tree_storage(K, 64),) int32 min-trees.
+    One ``minpair_automaton`` launch on the card (design
+    :data:`DESIGN_GDS`), the plain version on the CPU.
+
+    Returns ``(hits, stats)`` as :func:`minpair_automaton` does."""
+    if slots.device.type == "cpu":
+        return gds_automaton_ref(imap, prio, hval, lval, slots, tree_hi, tree_lo, ids, flags)
+    dev = slots.device
+    for name, x in (("slots", slots), ("imap", imap), ("tree_hi", tree_hi),
+                    ("tree_lo", tree_lo), ("ids", ids)):
+        _build.require(x, torch.int32, name, dev)
+    for name, x in (("prio", prio), ("hval", hval), ("lval", lval)):
+        _build.require(x, torch.float32, name, dev)
+    if hval.shape != slots.shape or lval.dim() != 0:
+        raise ValueError("hval must match slots and lval must be 0-d")
+    return _launch(_GDS, DESIGN_GDS, ids, prio.numel(), imap, None, prio, slots, tree_hi,
+                   tree_lo, None, hval, lval, flags)

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the tree LFU and FTPL: a chunk of requests.
+"""Plain PyTorch version of the tree LFU, FTPL and GDS: a chunk of requests.
 
 Counterparts of ``repro.cachesim.tree_engines.make_lfu_tree_chunk`` and
 ``make_ftpl_tree_chunk``, which the reference scans over a chunk with
@@ -28,6 +28,15 @@ wrote ``imap[j]`` without evicting another item, the slot index where it
 wrote no ``imap`` entry (a miss that stays out; an FTPL hit), unchanged
 where it evicted one.  The carry is compared bit for bit, so this follows.
 
+**GDS** (:func:`gds_automaton_ref`, the counterpart of the reference's
+``make_gds_tree_chunk``) keys a slot (sortable H, item id), H = L + cost/size
+in float32 (``prio`` holds cost/size, one float32 a item), empty slots
+(-1, -1).  Every request writes: a hit refreshes its H from the current L;
+a miss takes the argmin, and where that slot held an item, L becomes its H
+and the item leaves ``imap``; then the newcomer is keyed off L.  Its
+``imap[N]`` is -1 after every chunk: the reference's first pending write
+puts -1 there and no later write puts anything else.
+
 The victim search runs on a heap of (hi, lo, slot) with stale entries
 skipped, and the tree is rebuilt from the slots' keys at the end of the
 chunk (the min-tree is a function of its leaves).  It reads the carry on
@@ -41,6 +50,7 @@ from __future__ import annotations
 import heapq
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.prefix_tree.ops import minpair_build, sortable_f32
@@ -128,5 +138,73 @@ def minpair_automaton_ref(
     if flags is not None:
         flags.copy_(torch.tensor(hit_flags, dtype=torch.bool))
     occ = sum(s >= 0 for s in sl)
+    return (torch.tensor(n_hits, dtype=torch.int32, device=dev),
+            torch.tensor([n_hits, 0.0, occ], dtype=torch.float32, device=dev))
+
+
+def _sortable(h: np.float32) -> int:
+    """sortable_f32 of one float32."""
+    b = int(np.asarray(h + np.float32(0.0), np.float32).view(np.int32))
+    return b ^ 0x7FFFFFFF if b < 0 else b
+
+
+def gds_automaton_ref(
+    imap: torch.Tensor,
+    prio: torch.Tensor,
+    hval: torch.Tensor,
+    lval: torch.Tensor,
+    slots: torch.Tensor,
+    tree_hi: torch.Tensor,
+    tree_lo: torch.Tensor,
+    ids: torch.Tensor,
+    flags: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the tree GDS over int32 ``ids``, in place: ``imap``
+    (N+1,) int32, ``prio`` (N,) float32 cost/size, ``hval`` (K,) float32 the
+    slots' H, ``lval`` the () float32 inflation value L, ``slots`` (K,) int32
+    and the two radix-64 min-trees.
+
+    Returns ``(hits, stats)`` as :func:`minpair_automaton_ref` does."""
+    k_slots, n = slots.numel(), prio.numel()
+    im = imap.cpu().numpy().copy()
+    pr = prio.cpu().numpy()
+    hv = hval.cpu().numpy().copy()
+    big_l = np.float32(lval.cpu().numpy())
+    hi, lo, sl = tree_hi[:k_slots].tolist(), tree_lo[:k_slots].tolist(), slots.tolist()
+    heap = [(hi[k], lo[k], k) for k in range(k_slots)]
+    heapq.heapify(heap)
+    hit_flags = []
+    for j in ids.tolist():
+        idx = int(im[j])
+        hit = idx >= 0
+        hit_flags.append(hit)
+        if not hit:
+            while (heap[0][0], heap[0][1]) != (hi[heap[0][2]], lo[heap[0][2]]):
+                heapq.heappop(heap)
+            idx = heap[0][2]
+            old = sl[idx]
+            if old >= 0:  # evict first: L takes the victim's H
+                big_l = hv[idx]
+                im[old] = -1
+            im[j] = idx
+            sl[idx] = j
+        h = np.float32(big_l + pr[j])  # one float32 add
+        hv[idx] = h
+        hi[idx], lo[idx] = _sortable(h), j
+        heapq.heappush(heap, (hi[idx], j, idx))
+    im[n] = -1
+    imap.copy_(torch.from_numpy(im))
+    hval.copy_(torch.from_numpy(hv))
+    lval.fill_(float(big_l))
+    slots.copy_(torch.tensor(sl, dtype=torch.int32))
+    th, tl = minpair_build(torch.tensor(hi, dtype=torch.int32),
+                           torch.tensor(lo, dtype=torch.int32), SLOT_RADIX)
+    tree_hi.copy_(th)
+    tree_lo.copy_(tl)
+    n_hits = sum(hit_flags)
+    if flags is not None:
+        flags.copy_(torch.tensor(hit_flags, dtype=torch.bool))
+    occ = sum(x >= 0 for x in sl)
+    dev = slots.device
     return (torch.tensor(n_hits, dtype=torch.int32, device=dev),
             torch.tensor([n_hits, 0.0, occ], dtype=torch.float32, device=dev))

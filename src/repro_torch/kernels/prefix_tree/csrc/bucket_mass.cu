@@ -63,6 +63,8 @@
 // non-empty, the 0.26 MB of counts (0.078 us): bytes; were every bucket
 // non-empty, 104 M operations (1.55 us): operations.
 
+#include <climits>
+
 #include <cuda_runtime.h>
 
 #include "../../csrc/persistent.cuh"
@@ -309,4 +311,217 @@ extern "C" int repro_solve_buckets(const void* cnt, const void* total, const voi
   void* args[] = {&cnt, &total, &cap, &lo, &hi, &v, &iters, &pmass, &lo_out};
   return persistent::launch(solve_kernel(on_chip), blocks, kSolveThreads, args,
                             static_cast<cudaStream_t>(stream));
+}
+
+// ---------------------------------------------------------------------------
+// The sized OGB's threshold solve: K size classes, Newton on rho, one launch.
+//
+// The reference solves sum_k s_k * m_k(s_k * rho) = C, m_k class k's
+// bucket mass at its own threshold t_k = s_k * rho, by `iters` (30)
+// safeguarded Newton steps, each reading 2 prefix sums a class
+// (src/repro/cachesim/tree_engines.py: make_sized_ogb_tree_chunk, the
+// per-class form of bucket_mass_kernel's mass).  The plain version is
+// ../ref.py's solve_sized_ref; this computes the same, sum for sum.
+//
+// One block.  Class k's buckets are the leaves of row k of the stacked
+// count and sum trees (row_stride nodes apart); the tree's first level above
+// the leaves holds each group of 64 buckets' count, so the groups that hold
+// an item are found from it, in (class, group) order, by one ordered
+// compaction, and the first kCacheGroups of them keep their 64 (count, mean)
+// pairs in shared memory (the rest are re-read from L2 each step, the same
+// values).  Then per step:
+//  1. warp w takes the groups w, w + 32, ...: lane l the buckets l and l + 32,
+//     each term cnt * clip(mean - t_k, 0, 1) and its interior count in
+//     float64, the warp's sum by an xor butterfly, added in order to the
+//     warp's running sum of the class, flushed where the class changes;
+//  2. a warp a class sums the 32 warps' sums by a butterfly; thread 0 adds
+//     the classes in order (s_k * m_k and float32(s_k^2) * i_k in float64),
+//     rounds once to float32 and takes the Newton step, the midpoint where
+//     the point is not strictly inside the bracket, as the reference does.
+// Every float op is the plain version's, rounded as it rounds (__fmul_rn,
+// __fsub_rn, __fdiv_rn, __dadd_rn, __dmul_rn: no contraction), so the
+// iterate is its bit for bit.
+// Bound: the counts of the groups that hold an item, and their sums, read
+// once, and 5 operations a bucket a step over them; latency-bound at a
+// mid-run histogram (a few hundred groups): two __syncthreads a step.
+
+namespace {
+
+constexpr int kSizedThreads = 1024;
+constexpr int kSizedWarps = kSizedThreads / 32;
+constexpr int kSizedMaxClasses = 32;
+constexpr int kGroup = 64;
+constexpr int kCacheGroups = 192;  // groups whose pairs stay in shared memory: 96 KB
+
+struct SizedShared {
+  float2 pairs[kCacheGroups * kGroup];          // (count, mean)
+  double part[2][kSizedMaxClasses][kSizedWarps];  // the warps' sums by class
+  int warp_kept[kSizedWarps];
+  int n_groups;
+  float t, lo, hi;
+};
+
+__device__ __forceinline__ float2 bucket(const float* cnt, const float* total, long long at) {
+  const float c = __ldg(cnt + at);
+  return make_float2(c, bucket_mean(c, __ldg(total + at)));
+}
+
+__global__ void __launch_bounds__(kSizedThreads, 1)
+solve_sized_kernel(const float* __restrict__ cnt, const float* __restrict__ total,
+                   long long row_stride, long long v, int classes, const float* __restrict__ s,
+                   const float* __restrict__ cap_p, const float* __restrict__ lo_p,
+                   const float* __restrict__ hi_p, int iters, int* __restrict__ groups,
+                   float* __restrict__ t_out) {
+  extern __shared__ unsigned char smem_raw[];
+  SizedShared& sh = *reinterpret_cast<SizedShared*>(smem_raw);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long per_class = v / kGroup;  // groups a class: the first level's nodes
+  const long long total_groups = per_class * classes;
+  // the groups that hold an item, in (class, group) order, into `groups`
+  int kept = 0;
+  for (long long i0 = 0; i0 < total_groups; i0 += kSizedThreads) {
+    const long long i = i0 + threadIdx.x;
+    bool keep = false;
+    if (i < total_groups) {
+      const long long k = i / per_class;
+      keep = __ldg(cnt + k * row_stride + v + (i - k * per_class)) != 0.0f;
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) sh.warp_kept[warp] = __popc(ballot);
+    __syncthreads();
+    int at = kept + __popc(ballot & ((1u << lane) - 1u));
+    for (int w = 0; w < kSizedWarps; ++w) {
+      at += w < warp ? sh.warp_kept[w] : 0;
+      kept += sh.warp_kept[w];
+    }
+    if (keep) groups[at] = (int)i;
+    __syncthreads();
+  }
+  const int n_groups = kept;
+  __syncthreads();  // the list is in global memory: read it below through L2 (__ldcg)
+  for (int e = threadIdx.x; e < min(n_groups, kCacheGroups) * kGroup; e += kSizedThreads) {
+    const int i = __ldcg(groups + e / kGroup);
+    const long long k = i / per_class;
+    sh.pairs[e] = bucket(cnt, total, k * row_stride + (i - k * per_class) * kGroup + e % kGroup);
+  }
+  for (int e = threadIdx.x; e < 2 * kSizedMaxClasses * kSizedWarps; e += kSizedThreads) {
+    (&sh.part[0][0][0])[e] = 0.0;
+  }
+  if (threadIdx.x == 0) {
+    sh.lo = *lo_p;
+    sh.hi = *hi_p;
+    sh.t = sh.lo;
+  }
+  __syncthreads();
+  const float cap = *cap_p;
+  for (int it = 0; it < iters; ++it) {
+    const float t = sh.t;
+    // 1. the groups, a warp at a time, in order within the warp
+    double acc_m = 0.0, acc_i = 0.0;
+    int cls = -1;
+    for (int g = warp; g < n_groups; g += kSizedWarps) {
+      const int i = __ldcg(groups + g);
+      const int k = (int)(i / per_class);
+      if (k != cls) {
+        if (cls >= 0 && lane == 0) {
+          sh.part[0][cls][warp] = acc_m;
+          sh.part[1][cls][warp] = acc_i;
+        }
+        cls = k;
+        acc_m = acc_i = 0.0;
+      }
+      const float tk = __fmul_rn(__ldg(s + k), t);
+      double m2 = 0.0, i2 = 0.0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int leaf = lane + 32 * h;
+        float2 b;
+        if (g < kCacheGroups) {
+          b = sh.pairs[g * kGroup + leaf];
+        } else {
+          b = bucket(cnt, total, (long long)k * row_stride + (i - (long long)k * per_class) *
+                                                                 kGroup + leaf);
+        }
+        const float z = fminf(fmaxf(__fsub_rn(b.y, tk), 0.0f), 1.0f);
+        m2 = __dadd_rn(m2, (double)__fmul_rn(b.x, z));
+        i2 = __dadd_rn(i2, z > 0.0f && z < 1.0f ? (double)b.x : 0.0);
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        m2 = __dadd_rn(m2, __shfl_xor_sync(0xffffffffu, m2, o));
+        i2 = __dadd_rn(i2, __shfl_xor_sync(0xffffffffu, i2, o));
+      }
+      acc_m = __dadd_rn(acc_m, m2);
+      acc_i = __dadd_rn(acc_i, i2);
+    }
+    if (cls >= 0 && lane == 0) {
+      sh.part[0][cls][warp] = acc_m;
+      sh.part[1][cls][warp] = acc_i;
+    }
+    __syncthreads();
+    // 2. a warp a class and sum; thread 0 the step
+    if (warp < classes) {
+      double m = sh.part[0][warp][lane], n_in = sh.part[1][warp][lane];
+      sh.part[0][warp][lane] = 0.0;
+      sh.part[1][warp][lane] = 0.0;
+      for (int o = 16; o > 0; o >>= 1) {
+        m = __dadd_rn(m, __shfl_xor_sync(0xffffffffu, m, o));
+        n_in = __dadd_rn(n_in, __shfl_xor_sync(0xffffffffu, n_in, o));
+      }
+      if (lane == 0) {
+        sh.part[0][warp][0] = m;  // read by thread 0 after the warps of the classes
+        sh.part[1][warp][0] = n_in;
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      double mass = 0.0, slope = 0.0;
+      for (int k = 0; k < classes; ++k) {
+        const float sk = __ldg(s + k);
+        mass = __dadd_rn(mass, __dmul_rn((double)sk, sh.part[0][k][0]));
+        slope = __dadd_rn(slope, __dmul_rn((double)__fmul_rn(sk, sk), sh.part[1][k][0]));
+        sh.part[0][k][0] = 0.0;
+        sh.part[1][k][0] = 0.0;
+      }
+      const float m32 = __double2float_rn(mass), s32 = __double2float_rn(slope);
+      float lo = sh.lo, hi = sh.hi;
+      const bool too_much = m32 >= cap;
+      lo = too_much ? t : lo;
+      hi = too_much ? hi : t;
+      const float t_newton = __fadd_rn(t, __fdiv_rn(__fsub_rn(m32, cap), fmaxf(s32, 1e-12f)));
+      const float t_mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+      const bool ok = s32 > 0.0f && t_newton > lo && t_newton < hi;
+      sh.lo = lo;
+      sh.hi = hi;
+      sh.t = ok ? t_newton : t_mid;
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *t_out = sh.t;
+}
+
+}  // namespace
+
+// cnt and total: `classes` stacked trees, row_stride nodes apart, each with
+// v leaves (a multiple of 64) and, right after them, the level of the sums
+// of each 64 (a radix-64 tree).  s: (classes,) float32 class sizes; cap, lo,
+// hi: () float32.  groups: scratch of classes * v / 64 int32.  t_out: ()
+// float32, the last iterate.
+extern "C" int repro_solve_sized(const void* cnt, const void* total, long long row_stride,
+                                 long long v, int classes, const void* s, const void* cap,
+                                 const void* lo, const void* hi, int iters, void* groups,
+                                 void* t_out, void* stream) {
+  if (classes < 1 || classes > kSizedMaxClasses || v < kGroup || v % kGroup || iters < 0 ||
+      row_stride < v + v / kGroup || (long long)classes * (v / kGroup) > INT_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = sizeof(SizedShared);
+  const cudaError_t e = cudaFuncSetAttribute(
+      solve_sized_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  solve_sized_kernel<<<1, kSizedThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cnt), static_cast<const float*>(total), row_stride, v, classes,
+      static_cast<const float*>(s), static_cast<const float*>(cap), static_cast<const float*>(lo),
+      static_cast<const float*>(hi), iters, static_cast<int*>(groups),
+      static_cast<float*>(t_out));
+  return (int)cudaGetLastError();
 }

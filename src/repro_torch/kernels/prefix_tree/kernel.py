@@ -4,9 +4,11 @@ Counterpart of ``repro.kernels.prefix_tree.kernel``.  On a CUDA tensor
 :func:`block_segment_sums` launches ``csrc/segsum.cu``'s one-level kernel
 (the trees themselves are built in one launch a tree by
 :func:`.ops.tree_build`), and
-:func:`bucket_masses` and :func:`solve_buckets` (``ogb_tree``'s whole
-threshold solve, one persistent launch) ``csrc/bucket_mass.cu``; on a CPU
-tensor each runs its plain version in :mod:`.ref`.  The thresholds stay on
+:func:`bucket_masses`, :func:`solve_buckets` (``ogb_tree``'s whole
+threshold solve, one persistent launch) and :func:`solve_sized` (the sized
+OGB's Newton solve over its size classes, one launch)
+``csrc/bucket_mass.cu``; on a CPU tensor each runs its plain version in
+:mod:`.ref`.  The thresholds stay on
 the device and the kernels read them by pointer, so no call waits on the
 host.
 """
@@ -21,10 +23,13 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.capped_simplex.ops import Scalar, as_scalar
 from repro_torch.kernels.prefix_tree.ref import (
+    SIZED_GROUP,
     bucket_masses_ref,
     segment_sums_ref,
     solve_buckets_ref,
     solve_rounds,
+    solve_sized_ref,
+    tree_storage,
 )
 
 #: the design :func:`block_segment_sums` counts its launches under
@@ -183,3 +188,62 @@ def solve_buckets(cnt: torch.Tensor, total: torch.Tensor, cap: Scalar, lo: Scala
 
 solve_buckets.launches = 0
 solve_buckets.designs = {}
+
+
+#: the design :func:`solve_sized` counts its launches under
+SIZED_DESIGN = ("one block: the groups of 64 buckets that hold an item from the trees' first "
+                "level, their (count, mean) in shared memory; a step: a warp a group, a warp a "
+                "class, Newton by one thread")
+#: the most size classes one launch takes (kSizedMaxClasses)
+SIZED_MAX_CLASSES = 32
+
+
+@functools.lru_cache(maxsize=None)
+def _sized_entry():
+    fn = _build.library("bucket_mass").repro_solve_sized
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, p, ll, ll, i, p, p, p, p, i, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def solve_sized(ycnt: torch.Tensor, ysum: torch.Tensor, v: int, s: torch.Tensor, cap: Scalar,
+                lo: Scalar, hi: Scalar, iters: int) -> torch.Tensor:
+    """The sized OGB's threshold: ``iters`` safeguarded Newton steps on the
+    base multiplier from ``lo`` in [lo, hi] over K classes' stacked radix-64
+    count and sum trees (``ycnt``, ``ysum``: (K, tree_storage(v, 64))
+    float32; ``s`` the (K,) float32 class sizes), as
+    :func:`.ref.solve_sized_ref` takes them over the trees' leaves; a 0-d
+    float32 tensor.  On the card one launch, which finds the buckets that
+    hold an item from the trees' first level."""
+    kk = s.numel()
+    if ycnt.dim() != 2 or ycnt.shape != ysum.shape or ycnt.shape[0] != kk or \
+            ycnt.shape[1] != tree_storage(v, SIZED_GROUP) or v <= SIZED_GROUP or v % SIZED_GROUP:
+        raise ValueError(f"ycnt and ysum must be (K, {tree_storage(v, SIZED_GROUP)}) radix-64 "
+                         f"trees over v > 64 leaves (a multiple of 64), K = {kk}; got "
+                         f"{tuple(ycnt.shape)} and {tuple(ysum.shape)}")
+    dev = ycnt.device
+    cap, lo, hi = (as_scalar(x, dev) for x in (cap, lo, hi))
+    if dev.type == "cpu":
+        return solve_sized_ref(ycnt[:, :v], ysum[:, :v], s, cap, lo, hi, iters)
+    for t, name in ((ycnt, "ycnt"), (ysum, "ysum"), (s, "s"), (cap, "cap"), (lo, "lo"),
+                    (hi, "hi")):
+        _build.require(t, torch.float32, name, dev)
+    if kk > SIZED_MAX_CLASSES:
+        raise ValueError(f"the sized solve takes at most {SIZED_MAX_CLASSES} classes, got {kk}")
+    groups = torch.empty(kk * (v // SIZED_GROUP), dtype=torch.int32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    _build.check(
+        _sized_entry()(
+            ycnt.data_ptr(), ysum.data_ptr(), ycnt.shape[1], v, kk, s.data_ptr(),
+            cap.data_ptr(), lo.data_ptr(), hi.data_ptr(), iters, groups.data_ptr(),
+            out.data_ptr(), _build.stream_of(ycnt),
+        ),
+        "solve_sized",
+    )
+    _build.counted(solve_sized, SIZED_DESIGN)
+    return out
+
+
+solve_sized.launches = 0
+solve_sized.designs = {}

@@ -14,8 +14,9 @@ each level summed from the level below as
 :func:`tree_update_` sums each touched node's deltas of a float32 tree in
 float64, in input order, and rounds the node once (``csrc/tree_update.cu``),
 so a float tree comes out the same on every run and on either device; an
-int32 tree's update is plain PyTorch on the CPU (the tree LRU updates its
-tree inside its own kernel on the card).  On a CPU tensor both run their
+int32 tree's deltas add exactly, in any order.  :func:`stacked_tree_update_`
+updates K trees of one shape, stacked in a (K, TOT) tensor, in the same one
+launch (the sized OGB's per-class trees).  On a CPU tensor both run their
 plain versions in :mod:`.ref`.  The prefix reads, the weighted selection
 and the min-pair trees are plain tensor code, as the reference computes
 them outside Pallas; the tree automata's kernels walk the min-pair trees on
@@ -33,6 +34,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.prefix_tree.ref import (
     radix_shift,
+    stacked_tree_update_ref,
     tree_build_ref,
     tree_offsets,
     tree_sizes,
@@ -65,8 +67,8 @@ def _tree_build_entry(dtype: torch.dtype = torch.float32):
 @functools.lru_cache(maxsize=None)
 def _tree_update_entry():
     fn = _build.library("tree_update").repro_tree_update
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, i, p, i, p, ctypes.c_longlong, p, p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, i, p, i, i, p, p, i, i, ll, p, ll, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -155,44 +157,73 @@ def tree_update_(tree: torch.Tensor, n: int, radix: int, idx: torch.Tensor,
     the CPU agree bit for bit, where float32 adds of the same deltas in the
     two devices' orders drift apart chunk by chunk.  (The reference adds
     them one by one in float32; integer-valued trees come out the same.)
-    On the card one launch updates the touched nodes and writes no other.
-    An int32 tree (the tree LRU's counts) adds its int32 deltas exactly, on
-    the CPU; on the card the tree LRU's kernel updates its own tree, and
-    this raises.
+    An int32 tree adds its int32 deltas, exact in any order.  On the card
+    one launch updates the touched nodes and writes no other.
     """
-    sh = radix_shift(radix)
+    radix_shift(radix)
     if tree.device.type == "cpu":
         return tree_update_ref(tree, n, radix, idx, delta)
-    dev = tree.device
-    if tree.dtype == torch.int32:
-        raise TypeError("the card's tree update sums float32 trees; an int32 tree is updated "
-                        "inside the tree LRU's kernel (kernels/tree_lru)")
-    _build.require(tree, torch.float32, "tree")
-    _build.require(delta, torch.float32, "delta", dev)
-    _build.require(idx, torch.int64 if idx.dtype == torch.int64 else torch.int32, "idx", dev)
-    if idx.shape != delta.shape:
-        raise ValueError(f"idx and delta must have one shape, got {tuple(idx.shape)} and "
-                         f"{tuple(delta.shape)}")
-    if tree.numel() != tree_storage(n, radix) or max(n, idx.numel()) >= 2**31:
-        raise ValueError(f"the card updates a tree over fewer than 2^31 leaves by fewer than "
-                         f"2^31 deltas; {n} leaves at radix {radix} make "
-                         f"{tree_storage(n, radix)} nodes, got {tree.numel()} and "
-                         f"{idx.numel()} deltas")
-    if idx.numel() == 0 or n == 0:
-        return tree
-    count, sizes = _levels(n, radix)
-    first = first_scratch(dev, tree.numel())
-    _build.check(
-        _tree_update_entry()(tree.data_ptr(), ctypes.addressof(sizes), count, sh, idx.data_ptr(),
-                             idx.element_size(), delta.data_ptr(), idx.numel(), first.data_ptr(),
-                             _build.stream_of(tree)),
-        "tree_update_",
-    )
-    tree_update_.launches += 1
+    if tree.numel() != tree_storage(n, radix):
+        raise ValueError(f"{n} leaves at radix {radix} make {tree_storage(n, radix)} nodes, "
+                         f"got {tree.numel()}")
+    _launch_update(tree, n, radix, None, idx, delta, 1, tree.numel())
     return tree
 
 
 tree_update_.launches = 0
+
+
+def stacked_tree_update_(trees: torch.Tensor, n: int, radix: int, rows: torch.Tensor,
+                         idx: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Batched point update of K stacked float32 trees of one shape, a
+    (K, tree_storage(n, radix)) tensor, in place: add ``delta[q]`` along
+    the path of leaf ``idx[q]`` in tree ``rows[q]``; entries with
+    ``idx < 0`` add nothing.  Each node's deltas summed in float64 in input
+    order and rounded once, as :func:`tree_update_` does; on the card one
+    launch updates every tree.  (The reference's ``_stacked_tree_update``
+    is one float32 scatter-add.)"""
+    radix_shift(radix)
+    if trees.dim() != 2 or trees.shape[1] != tree_storage(n, radix):
+        raise ValueError(f"trees must be (K, {tree_storage(n, radix)}), got "
+                         f"{tuple(trees.shape)}")
+    if rows.shape != idx.shape:
+        raise ValueError(f"rows and idx must have one shape, got {tuple(rows.shape)} and "
+                         f"{tuple(idx.shape)}")
+    if trees.device.type == "cpu":
+        return stacked_tree_update_ref(trees, n, radix, rows, idx, delta)
+    _build.require(rows, idx.dtype, "rows", trees.device)
+    _launch_update(trees, n, radix, rows, idx, delta, trees.shape[0], trees.shape[1])
+    return trees
+
+
+def _launch_update(tree, n, radix, rows, idx, delta, n_rows, row_stride):
+    """One ``csrc/tree_update.cu`` launch over ``n_rows`` trees (``rows``
+    None: one), counted as a ``tree_update_`` launch."""
+    dev = tree.device
+    if tree.dtype not in (torch.float32, torch.int32):
+        raise TypeError(f"the card's tree update takes float32 or int32 trees, got {tree.dtype}")
+    _build.require(tree, tree.dtype, "tree")
+    _build.require(delta, tree.dtype, "delta", dev)
+    _build.require(idx, torch.int64 if idx.dtype == torch.int64 else torch.int32, "idx", dev)
+    if idx.shape != delta.shape:
+        raise ValueError(f"idx and delta must have one shape, got {tuple(idx.shape)} and "
+                         f"{tuple(delta.shape)}")
+    if max(n * n_rows, idx.numel()) >= 2**31:
+        raise ValueError(f"the card updates fewer than 2^31 leaves by fewer than 2^31 deltas; "
+                         f"got {n_rows} trees of {n} leaves and {idx.numel()} deltas")
+    if idx.numel() == 0 or n == 0:
+        return
+    count, sizes = _levels(n, radix)
+    first = first_scratch(dev, tree.numel())
+    _build.check(
+        _tree_update_entry()(tree.data_ptr(), int(tree.dtype == torch.int32),
+                             ctypes.addressof(sizes), count, radix_shift(radix), idx.data_ptr(),
+                             rows.data_ptr() if rows is not None else None, idx.element_size(),
+                             n_rows, row_stride, delta.data_ptr(), idx.numel(), first.data_ptr(),
+                             _build.stream_of(tree)),
+        "tree_update_",
+    )
+    tree_update_.launches += 1
 
 EXACT_ANY_ORDER, INPUT_ORDER = "exact, any order", "input order"
 

@@ -106,6 +106,30 @@ def tree_update_ref(tree: torch.Tensor, n: int, radix: int, idx: torch.Tensor,
     return tree.copy_(tree.to(torch.float64) + acc)
 
 
+def stacked_tree_update_ref(trees: torch.Tensor, n: int, radix: int, rows: torch.Tensor,
+                            idx: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """K stacked float32 trees of one shape, (K, TOT), updated in place:
+    ``delta[q]`` along the path of leaf ``idx[q]`` in tree ``rows[q]``
+    (entries with ``idx < 0`` or a row out of range add nothing), each
+    node's deltas summed in float64 in input order and rounded once, as
+    :func:`tree_update_ref` sums one tree's."""
+    sh = radix_shift(radix)
+    kk, tot = trees.shape
+    ok = (idx >= 0) & (idx < n) & (rows >= 0) & (rows < kk)
+    node = torch.where(ok, idx, torch.zeros_like(idx)).to(torch.int64)
+    base = torch.where(ok, rows, torch.zeros_like(rows)).to(torch.int64) * tot
+    nodes = []
+    for off in tree_offsets(n, radix):
+        nodes.append(base + off + node)
+        node = node >> sh
+    masked = torch.where(ok, delta, torch.zeros_like(delta)).to(torch.float64)
+    flat = trees.view(-1)
+    acc = torch.zeros(flat.shape, dtype=torch.float64, device=trees.device)
+    acc.index_put_((torch.cat(nodes),), masked.repeat(len(nodes)), accumulate=True)
+    flat.copy_(flat.to(torch.float64) + acc)
+    return trees
+
+
 def stack_distance_hits_ref(trace, capacity: int) -> np.ndarray:
     """Exact LRU hit sequence by reuse (stack) distances: a request hits iff
     the number of distinct items since its previous occurrence is at most
@@ -171,3 +195,102 @@ def solve_buckets_ref(cnt: torch.Tensor, total: torch.Tensor, cap: torch.Tensor,
         grid = torch.cat([lo.reshape(1), taus, hi.reshape(1)])
         lo, hi = grid.index_select(0, torch.cat([c, c + 1])).unbind()
     return lo
+
+
+#: leaves a group of the sized solve (the count trees' radix), and the
+#: warps of its block, which take the groups in turn
+SIZED_GROUP, SIZED_WARPS = 64, 32
+
+
+def _butterfly(v: torch.Tensor) -> torch.Tensor:
+    """A warp's xor-butterfly sum over the last axis (32 lanes), as every
+    lane ends it: lane 0's value."""
+    lane = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lane ^ o]
+    return v[..., 0]
+
+
+def sized_groups(cnt: torch.Tensor) -> torch.Tensor:
+    """The (class, group) pairs of the sized solve, in order: the groups of
+    SIZED_GROUP leaves of each class's (V,) counts that hold an item, as
+    int64 (G, 2)."""
+    kk, v = cnt.shape
+    busy = (cnt.reshape(kk, v // SIZED_GROUP, SIZED_GROUP) != 0).any(dim=2)
+    return torch.nonzero(busy)
+
+
+def solve_sized_ref(cnt: torch.Tensor, total: torch.Tensor, s: torch.Tensor, cap: torch.Tensor,
+                    lo: torch.Tensor, hi: torch.Tensor, iters: int) -> torch.Tensor:
+    """The sized OGB's threshold solve over K classes' (V,) bucket counts and
+    sums (``cnt``, ``total``: (K, V) float32, V a multiple of 64): ``iters``
+    safeguarded Newton steps on the base multiplier rho from ``lo``, in the
+    bracket [lo, hi], as the reference's ``make_sized_ogb_tree_chunk``
+    takes them; returns the last iterate, a 0-d float32 tensor.
+
+    Class k's mass at rho is its buckets' mean-clip mass at t_k = s_k * rho,
+    sum_b cnt_b * clip(mean_b - t_k, 0, 1), and its interior count the
+    buckets' counts whose clip lies strictly inside (0, 1): in exact
+    arithmetic the reference's (its buckets above t_k + 1 whole, the ones
+    between linear, the two boundary buckets mean-clipped).  The mass is
+    sum_k s_k m_k and the slope sum_k s_k^2 i_k; a Newton point strictly
+    inside the bracket is taken, else the midpoint.
+
+    The sums are the card's (``csrc/bucket_mass.cu``'s
+    ``repro_solve_sized``), order for order: float32 terms in float64, a
+    group of 64 buckets as a warp sums it (lane l: buckets l and l + 32,
+    then an xor butterfly), the groups of a class in turn by 32 warps (warp
+    w the groups g = w mod 32, in order) and the warps' sums by a butterfly;
+    then the classes in order, rounded once to float32."""
+    kk, v = cnt.shape
+    groups = sized_groups(cnt)
+    k_of, g_of = groups[:, 0], groups[:, 1]
+    leaf = (g_of[:, None] * SIZED_GROUP + torch.arange(SIZED_GROUP, device=cnt.device))
+    c = cnt[k_of[:, None], leaf]
+    tot = total[k_of[:, None], leaf]
+    mean = torch.where(c > 0, tot / torch.clamp(c, min=1.0), torch.zeros_like(tot))
+    # warp w's groups of class k, in order: (K, 32, R), -1 past the end
+    g_idx = torch.arange(groups.shape[0], device=cnt.device)
+    warp = g_idx % SIZED_WARPS
+    rounds = 1
+    slots = {}
+    for g, (k, w) in enumerate(zip(k_of.tolist(), warp.tolist())):
+        slots.setdefault((k, w), []).append(g)
+        rounds = max(rounds, len(slots[k, w]))
+    order = torch.full((kk, SIZED_WARPS, rounds), -1, dtype=torch.int64)
+    for (k, w), gs in slots.items():
+        order[k, w, :len(gs)] = torch.tensor(gs)
+    order = order.to(cnt.device)
+    valid = order >= 0
+    pick = torch.clamp(order, min=0)
+    s64 = s.to(torch.float64)
+    ss64 = (s * s).to(torch.float64)
+    t = lo
+    for _ in range(iters):
+        tk = (s * t)[k_of]
+        z = torch.clamp(mean - tk[:, None], 0.0, 1.0)
+        term = (c * z).to(torch.float64)
+        inner = torch.where((z > 0.0) & (z < 1.0), c, torch.zeros_like(c)).to(torch.float64)
+        sums = []
+        for x in (term, inner):
+            per_group = _butterfly(x[:, :32] + x[:, 32:])
+            acc = torch.zeros((kk, SIZED_WARPS), dtype=torch.float64, device=cnt.device)
+            for r in range(rounds):
+                acc = acc + torch.where(valid[..., r], per_group[pick[..., r]],
+                                        torch.zeros_like(acc))
+            sums.append(_butterfly(acc))
+        m_k, i_k = sums
+        mass = torch.zeros((), dtype=torch.float64, device=cnt.device)
+        slope = torch.zeros((), dtype=torch.float64, device=cnt.device)
+        for k in range(kk):
+            mass = mass + s64[k] * m_k[k]
+            slope = slope + ss64[k] * i_k[k]
+        mass, slope = mass.to(torch.float32), slope.to(torch.float32)
+        too_much = mass >= cap
+        lo = torch.where(too_much, t, lo)
+        hi = torch.where(too_much, hi, t)
+        t_newton = t + (mass - cap) / torch.clamp(slope, min=1e-12)
+        t_mid = 0.5 * (lo + hi)
+        ok = (slope > 0.0) & (t_newton > lo) & (t_newton < hi)
+        t = torch.where(ok, t_newton, t_mid)
+    return t

@@ -10,10 +10,11 @@ one block-wide argmin a request.  On a CPU tensor it runs the plain version
 in :mod:`.ref`.  Either way the carry's tensors are updated in place.
 
 The design holds at most :data:`MAX_SLOTS` slots (the keys live in one
-block's shared memory); a larger CUDA carry raises.  LRU, LFU and FTPL run
-larger caches on their tree automata (their default engine); FIFO, which
-has no tree form, waits for the slot kernel's redesign (``ROADMAP.md`` §1
-item 5, §2).
+block's shared memory); a larger CUDA carry raises.  It is the
+``impl="dense"`` engine of LRU, LFU and FTPL, which run larger caches on
+their tree automata (their default engine); ``policy_def("fifo")`` runs
+on the FIFO queue (:mod:`repro_torch.kernels.fifo_queue`) at any size, and
+this kernel's FIFO is its oracle on the card.
 """
 
 from __future__ import annotations
@@ -44,8 +45,7 @@ def plan(n_slots: int) -> dict:
         raise ValueError(
             f"the slot-automaton kernel holds 1 to {MAX_SLOTS} slots, got {n_slots}; "
             "lru, lfu and ftpl run larger caches on their tree automata (impl='tree', "
-            "their default), and fifo, which has no tree form, waits for the slot "
-            "kernel's redesign (ROADMAP.md §1 item 5, §2)"
+            "their default), and fifo on the FIFO queue (policy_def('fifo'))"
         )
     threads = 32 * min(32, -(-n_slots // (32 * SLOTS_A_THREAD)))
     need = -(-n_slots // threads)

@@ -108,7 +108,7 @@ def test_unported_options_and_bad_input_raise(trace):
     with pytest.raises(ValueError, match="madow"):
         repro_torch.policy_def("ogb_tree", sample="madow")
     with pytest.raises(KeyError, match="ported so far"):
-        repro_torch.policy_def("gds")
+        repro_torch.policy_def("ogb_grad")
     with pytest.raises(ValueError, match="trace ids"):
         repro_torch.run(repro_torch.policy_def("ogb"), trace, 100, 10, window=W, device="cpu")
 

@@ -24,7 +24,12 @@ scenario path's launches and OMD on the card against the CPU; the tree
 automata's two kernels (``tree_lru``, with forced ring compactions, and
 ``minpair_automaton`` for LFU and FTPL, with padded slots) bit for bit
 against their plain versions at C = 23 to 50 000, every case evicting, the
-int32 tree build, and tree runs on the card with no host read in a chunk.
+int32 tree build, and tree runs on the card with no host read in a chunk;
+the sized axis's kernels: the FIFO queue at C = 25 to 50 000 and the GDS
+mode of ``minpair_automaton`` bit for bit against their plain versions,
+the stacked and the int32 tree updates, the sized solve (also past its
+shared memory), ``ogb_sized`` and ``sized_cdn`` mini on the card against
+the CPU, and sized runs with no host read in a chunk.
 """
 
 import numpy as np
@@ -184,8 +189,8 @@ def test_run_on_the_card_matches_the_cpu_and_counts_launches(card):
     got = repro_torch.run(pd, trace, n, c, window=w)
     assert launch_counts() == {"histogram": 100, "mass": 100, "apply": 100, "segsum": 0,
                                "tree_update": 0, "bucket_mass": 0, "flash_prefill": 0,
-                               "decode_attention": 0, "slot_automaton": 0, "tree_lru": 0,
-                               "minpair_automaton": 0}
+                               "decode_attention": 0, "slot_automaton": 0, "fifo_queue": 0,
+                               "tree_lru": 0, "minpair_automaton": 0}
     designs = design_counts()
     assert designs["histogram"] == {"bin tiles": 100}
     assert designs["apply"] == {"projection epilogue": 100}
@@ -771,7 +776,7 @@ def test_slot_automaton_raises_past_its_capacity(card):
 
 def test_run_scenario_launches_one_automaton_kernel_a_chunk(card):
     """fig8_cdn at mini on the card: one launch a chunk of each automaton row
-    (20 chunks each): slot_automaton for FIFO, tree_lru for LRU,
+    (20 chunks each): fifo_queue for FIFO, tree_lru for LRU,
     minpair_automaton for LFU and FTPL; the OGB row's histogram, mass and
     apply once a chunk and OMD's histogram once a chunk; every row equal to
     the CPU run (automata exactly)."""
@@ -781,7 +786,7 @@ def test_run_scenario_launches_one_automaton_kernel_a_chunk(card):
     res = run_scenario("fig8_cdn", "mini")
     chunks = res.T // 1000
     counts = launch_counts()
-    assert counts["slot_automaton"] == 20
+    assert (counts["fifo_queue"], counts["slot_automaton"]) == (20, 0)
     assert (counts["tree_lru"], counts["minpair_automaton"], counts["segsum"]) == (20, 40, 0)
     assert (counts["histogram"], counts["mass"], counts["apply"]) == (2 * chunks, chunks, chunks)
     cpu = run_scenario("fig8_cdn", "mini", device="cpu")
@@ -949,3 +954,223 @@ def test_tree_runs_equal_dense_runs_on_the_card(card):
         np.testing.assert_array_equal(tree.occupancy, dense.occupancy)
         if kind == "lru":
             assert tree.extras["host_syncs"] == 0
+
+
+# -- the sized axis and FIFO at any capacity: fifo_queue, the GDS mode of
+# minpair_automaton, the stacked and int32 tree updates, solve_sized --------
+
+FIFO_CS = (25, 1000, 16384, 50000)
+
+
+@pytest.mark.parametrize("c,n_slots", [(c, None) for c in FIFO_CS] + [(31, 40), (1000, 1100)])
+def test_fifo_queue_matches_plain_bit_for_bit(card, c, n_slots):
+    """Every capacity (fewer slots than a warp's 32 lanes, and past the slot
+    kernel's 16 384), padded slots: hits, flags, stats, the carry and the
+    run's queue chunk by chunk equal to the plain version's on the CPU."""
+    from repro_torch.cachesim import engines as teng
+    from repro_torch.kernels.fifo_queue.ops import fifo_queue
+
+    n, trace = _evicting_trace(c, 4)
+    cpu = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, n_slots=n_slots,
+                                                     device="cpu"), n)
+    dev = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, n_slots=n_slots,
+                                                     device=card), n)
+    reset_launch_counts()
+    for part in np.array_split(trace, 4):
+        ids = torch.from_numpy(np.ascontiguousarray(part))
+        fc = torch.empty(ids.shape, dtype=torch.bool)
+        fd = torch.empty(ids.shape, dtype=torch.bool, device=card)
+        hc, sc = fifo_queue(cpu.slots, cpu.stamps, cpu.t, cpu.queue, ids, fc)
+        hd, sd = fifo_queue(dev.slots, dev.stamps, dev.t, dev.queue, ids.to(card), fd)
+        assert int(hd) == int(hc) and torch.equal(sd.cpu(), sc) and torch.equal(fd.cpu(), fc)
+        for a, b in zip((*dev[:3], *dev.queue), (*cpu[:3], *cpu.queue)):
+            assert torch.equal(a.cpu(), b)
+    assert launch_counts()["fifo_queue"] == 4
+    if n_slots:
+        assert bool((dev.slots[c:] == -2).all())
+
+
+def test_fifo_at_50000_slots_runs_as_the_cpu(card):
+    trace = zipf(1_000_000, 400_000, alpha=0.9, seed=3)
+    pd = repro_torch.policy_def("fifo")
+    reset_launch_counts()
+    got = repro_torch.run(pd, trace, 1_000_000, 50_000, window=100_000)
+    assert launch_counts()["fifo_queue"] == 4
+    want = repro_torch.run(pd, trace, 1_000_000, 50_000, window=100_000, device="cpu")
+    np.testing.assert_array_equal(got.hits, want.hits)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got.carry, want.carry))
+
+
+@pytest.mark.parametrize("c,n_slots", [(c, None) for c in TREE_CS] + [(23, 90), (1000, 1100)])
+@pytest.mark.parametrize("costs", ["unit", "dyadic"])
+def test_gds_automaton_matches_plain_bit_for_bit(card, c, n_slots, costs):
+    from repro_torch.cachesim import tree_engines as ttree
+    from repro_torch.kernels.minpair_automaton.ops import DESIGN_GDS
+
+    n, trace = _evicting_trace(c, 6)
+    rng = np.random.default_rng(c)
+    sizes = np.asarray([1.0, 4.0, 16.0, 64.0])[rng.integers(0, 4, n)]
+    w = None if costs == "unit" else np.asarray([0.5, 1.0, 2.0, 4.0])[rng.integers(0, 4, n)]
+    cpu = ttree.init_tree_gds_carry(n, c, n_slots, sizes=sizes, costs=w, device="cpu")
+    dev = type(cpu)(*(x.to(card) for x in cpu))
+    reset_launch_counts()
+    for part in np.array_split(trace, 3):
+        ids = torch.from_numpy(np.ascontiguousarray(part))
+        fc = torch.empty(ids.shape, dtype=torch.bool)
+        fd = torch.empty(ids.shape, dtype=torch.bool, device=card)
+        cpu, (hc, sc) = ttree.tree_chunk("gds", cpu, ids, fc)
+        dev, (hd, sd) = ttree.tree_chunk("gds", dev, ids.to(card), fd)
+        assert int(hd) == int(hc) and torch.equal(sd.cpu(), sc) and torch.equal(fd.cpu(), fc)
+        for name, a, b in zip(cpu._fields, dev, cpu):
+            assert torch.equal(a.cpu(), b), name
+    assert design_counts()["minpair_automaton"] == {DESIGN_GDS: 3}
+    assert float(dev.L) > 0.0  # it evicted
+
+
+@pytest.mark.parametrize("deltas", ["counts", "values"])
+@pytest.mark.parametrize("rows_dtype", [torch.int64, torch.int32])
+def test_stacked_tree_update_matches_plain(card, deltas, rows_dtype):
+    """A sized chunk's shape (4 classes of 65 536 buckets, 2000 deltas, a
+    quarter of them skipped) and a run of 2000 deltas under one node: one
+    launch, bit for bit the plain version on the card and the CPU."""
+    from repro_torch.kernels.prefix_tree.ops import stacked_tree_update_, tree_storage
+    from repro_torch.kernels.prefix_tree.ref import stacked_tree_update_ref
+
+    gen = torch.Generator().manual_seed(7)
+    kk, v, q = 4, OGB_TREE_BUCKETS, 2000
+    base = torch.rand((kk, tree_storage(v, 64)), generator=gen) * 50
+    for hot in (False, True):
+        rows = torch.randint(0, kk, (q,), generator=gen).to(rows_dtype)
+        idx = (torch.full((q,), 777) if hot else torch.randint(0, v, (q,), generator=gen))
+        idx = torch.where(torch.rand(q, generator=gen) < 0.25, -1, idx).to(rows_dtype)
+        delta = (torch.randint(0, 2, (q,), generator=gen) * 2 - 1).float() if deltas == "counts" \
+            else torch.rand(q, generator=gen) - 0.5
+        want = stacked_tree_update_ref(base.clone(), v, 64, rows, idx, delta)
+        reset_launch_counts()
+        got = stacked_tree_update_(base.to(card), v, 64, rows.to(card), idx.to(card),
+                                   delta.to(card))
+        assert launch_counts()["tree_update"] == 1
+        assert torch.equal(got.cpu(), want)
+        plain = stacked_tree_update_ref(base.to(card), v, 64, rows.to(card), idx.to(card),
+                                        delta.to(card))
+        assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("n,radix", [(262_144, 16), (65536, 64), (100, 16)])
+def test_int32_tree_update_matches_plain(card, n, radix):
+    gen = torch.Generator().manual_seed(n)
+    tree = tree_build_ref(torch.randint(0, 5, (n,), generator=gen, dtype=torch.int32), radix)
+    idx = torch.randint(-3, n, (5000,), generator=gen)
+    delta = torch.randint(-3, 4, (5000,), generator=gen, dtype=torch.int32)
+    want = tree_update_ref(tree.clone(), n, radix, idx, delta)
+    reset_launch_counts()
+    got = tree_update_(tree.to(card), n, radix, idx.to(card), delta.to(card))
+    assert launch_counts()["tree_update"] == 1 and torch.equal(got.cpu(), want)
+
+
+def _sized_state(card, chunks, n=200_000, c=10_000, batch=1000):
+    """A sized carry after ``chunks`` chunks of zipf on the CPU, and the
+    same carry on the card."""
+    from repro_torch.cachesim.scenarios import SIZE_SLABS
+
+    sizes = np.asarray(SIZE_SLABS)[np.minimum(np.arange(n) * 4 // n, 3)]
+    cap = int(round(c * float(sizes.mean())))
+    trace = zipf(n, chunks * batch, alpha=0.9, seed=11)
+    pd = repro_torch.policy_def("ogb_sized")
+    res = repro_torch.run(pd, trace, n, cap, window=batch, sizes=sizes, device="cpu")
+    cpu = res.carry
+    return cpu, type(cpu)(*(x.to(card) for x in cpu.tensors())), sizes, cap
+
+
+def test_solve_sized_matches_plain(card):
+    """The sized solve at a mid-run state and with more busy groups than
+    its shared memory holds (every bucket of every class non-empty): the
+    card's iterate equal to the plain version's on the card and the CPU."""
+    from repro_torch.kernels.prefix_tree.kernel import solve_sized
+    from repro_torch.kernels.prefix_tree.ref import solve_sized_ref
+    from repro_torch.kernels.prefix_tree.ops import tree_build
+
+    cpu, dev, _, _ = _sized_state(card, 30)
+    v = OGB_TREE_BUCKETS
+    hi = dev.wb * float(v)
+    reset_launch_counts()
+    got = solve_sized(dev.ycnt, dev.ysum, v, dev.s, dev.cap, dev.rho, hi, 30)
+    assert launch_counts()["bucket_mass"] == 1
+    want = solve_sized_ref(cpu.ycnt[:, :v], cpu.ysum[:, :v], cpu.s, cpu.cap, cpu.rho, hi.cpu(), 30)
+    assert torch.equal(got.cpu(), want)
+    gen = torch.Generator().manual_seed(3)
+    cnt = torch.randint(1, 5, (4, v), generator=gen).float()
+    tot = cnt * torch.rand((4, v), generator=gen) * 3
+    ycnt = torch.stack([tree_build(x, 64) for x in cnt]).to(card)
+    ysum = torch.stack([tree_build(x, 64) for x in tot]).to(card)
+    s = dev.s
+    cap = torch.tensor(float(cnt.sum()) * 0.2, device=card)
+    lo, hi = torch.zeros((), device=card), torch.tensor(50.0, device=card)
+    got = solve_sized(ycnt, ysum, v, s, cap, lo, hi, 30)
+    want = solve_sized_ref(cnt, tot, s.cpu(), cap.cpu(), lo.cpu(), hi.cpu(), 30)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_ogb_sized_on_the_card_matches_the_cpu(card):
+    """200 chunks of a sized run on the card: each chunk's hits, byte hits
+    and step of rho equal to the CPU's, its reward and occupancy within
+    float32 summation order (1e-6 relative); three stacked tree updates and
+    one sized solve a chunk, and at most one read of the device in 20
+    chunks."""
+    from repro_torch.cachesim.scenarios import SIZE_SLABS
+
+    n, c = 200_000, 10_000
+    sizes = np.asarray(SIZE_SLABS)[np.minimum(np.arange(n) * 4 // n, 3)]
+    cap = int(round(c * float(sizes.mean())))
+    trace = zipf(n, 200_000, alpha=0.9, seed=12)
+    pd = repro_torch.policy_def("ogb_sized")
+    reset_launch_counts()
+    got = repro_torch.run(pd, trace, n, cap, window=1000, sizes=sizes)
+    counts = launch_counts()
+    assert counts["tree_update"] == 600 and counts["bucket_mass"] == 200
+    want = repro_torch.run(pd, trace, n, cap, window=1000, sizes=sizes, device="cpu")
+    for field in ("hits", "aux", "byte_hits"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field), err_msg=field)
+    np.testing.assert_allclose(got.reward, want.reward, rtol=1e-6)
+    np.testing.assert_allclose(got.occupancy, want.occupancy, rtol=1e-6)
+    assert got.extras["host_syncs"] <= 200 // 20
+
+
+@pytest.mark.parametrize("kind", ["gds", "fifo", "ogb_sized"])
+def test_sized_runs_read_nothing_on_the_host_in_a_chunk(card, kind):
+    """Steps of a started sized run under torch's sync debug mode "error"."""
+    from repro_torch.cachesim.scenarios import SIZE_SLABS
+
+    n, c = 20_000, 1000
+    sizes = np.asarray(SIZE_SLABS)[np.minimum(np.arange(n) * 4 // n, 3)]
+    trace = zipf(n, 40_000, alpha=0.9, seed=2).astype(np.int32)
+    pd = repro_torch.policy_def(kind)
+    cap = int(round(c * float(sizes.mean()))) if kind == "ogb_sized" else c
+    carry = pd.start(pd.init(n, cap, horizon=len(trace), sizes=sizes), n)
+    chunks = torch.from_numpy(trace.reshape(40, 1000)).to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(40):
+            carry, out = pd.step(carry, chunks[i])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.byte_hits is not None
+
+
+def test_sized_cdn_mini_on_the_card_matches_the_cpu(card):
+    from repro_torch.cachesim.scenarios import run_scenario
+
+    reset_launch_counts()
+    res = run_scenario("sized_cdn", "mini")
+    counts = launch_counts()
+    assert counts["minpair_automaton"] == 3 * 20 and counts["tree_lru"] == 20
+    assert counts["bucket_mass"] == 20 and counts["tree_update"] == 60
+    cpu = run_scenario("sized_cdn", "mini", device="cpu")
+    for row in ("LRU", "LFU", "FTPL", "GDS", "OPT(static)"):
+        assert res.rows[row]["hit_ratio"] == cpu.rows[row]["hit_ratio"], row
+        assert res.rows[row]["byte_hit_ratio"] == cpu.rows[row]["byte_hit_ratio"], row
+    ogb, ogb_cpu = res.rows["OGB_sized_tree"], cpu.rows["OGB_sized_tree"]
+    assert (ogb["hit_ratio"], ogb["byte_hit_ratio"]) == (ogb_cpu["hit_ratio"],
+                                                         ogb_cpu["byte_hit_ratio"])
+    assert ogb["byte_regret"] == pytest.approx(ogb_cpu["byte_regret"], rel=1e-6)

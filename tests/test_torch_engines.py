@@ -136,7 +136,7 @@ def test_policy_defs_registered_and_tree_impl_not_yet():
     from repro_torch.cachesim import tree_engines as ttree
 
     assert set(repro_torch.policy_def_kinds()) == {"ogb", "ogb_tree", "omd", "lru", "fifo",
-                                                   "lfu", "ftpl"}
+                                                   "lfu", "ftpl", "gds", "ogb_sized"}
     assert repro_torch.policy_def("lru") is repro_torch.policy_def("lru")  # memoized
     assert repro_torch.policy_def("lfu", impl="dense").name == "LFU"
     assert repro_torch.policy_def("omd").fractional
@@ -185,9 +185,10 @@ def test_host_policies_match_reference(kind, trace):
 
 
 def test_host_registry():
-    assert set(policy_kinds()) == {"lru", "fifo", "lfu", "arc", "ogb", "ftpl"}
+    assert set(policy_kinds()) == {"lru", "fifo", "lfu", "gds", "arc", "ogb", "ftpl"}
+    assert make_policy("gds", N, 4).name == "GDS"
     with pytest.raises(ValueError):
-        make_policy("gds", N, 4)
+        make_policy("no_such_policy", N, 4)
     res = tsimulate(make_policy("arc", N, 40), TRACES["zipf"], window=700, occupancy_every=1000)
     assert len(res.occupancy) == T // 1000 and max(res.occupancy) <= 40
 

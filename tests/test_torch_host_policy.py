@@ -66,7 +66,7 @@ def test_make_policy_and_page_keys():
     pol = make_policy("ogb", 1 << 12, 8, horizon=100, batch_size=4)
     assert isinstance(pol, OGB) and pol.eta == theoretical_eta(8, 1 << 12, 100, 4)
     assert isinstance(make_policy("LRU", 10, 2), LRU)
-    for kind in ("gds", "nope"):  # not ported / unknown
+    for kind in ("ogb_cl", "nope"):  # not ported / unknown
         with pytest.raises(ValueError, match="unknown policy"):
             make_policy(kind, 10, 2)
     toks = list(np.random.default_rng(3).integers(0, 1000, 37).astype(np.int32))

@@ -103,8 +103,6 @@ def test_fractional_hit_ratio_from_the_reference_p(name, kind):
 
 
 def test_run_scenario_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tscen.run_scenario("sized_cdn", "mini", device="cpu")
     with pytest.raises(KeyError):
         tscen.get_scenario("no_such_scenario")
     with pytest.raises(ValueError):
