@@ -108,15 +108,19 @@ script with a non-zero exit:
 19. the tree automata's kernels against their plain versions on the card,
    bit for bit and against the CPU: tree_lru and minpair_automaton (LFU,
    FTPL) at C = 23, 1000, 16 384 and 50 000 from empty slots, every case
-   evicting, a forced ring compaction and padded slots; the int32 tree
+   evicting, a forced ring compaction and padded slots, the min-pair kernel
+   also at its radix's edges (C = 64, 65, 4097) and with 1.3 million slots
+   (its least-leaf pointers in L2: both plans launched); the int32 tree
    build at 262 144 and 2^21 leaves; each kernel's time cold from a full
    carry at quick's shape (C = 1000, N = 20 000, a 10 000-request chunk)
    and fig8_cdn full's (C = 50 000, N = 1e6, a 1e6-request chunk) beside
-   its bound and its plain version on the card, and a ring compaction's;
+   its bound, its plain version on the card and its earlier design, in
+   turns (tools/time_automaton_designs.py), and a ring compaction's;
 20. the sized axis's kernels against their plain versions, bit for bit on
    the card and against the CPU: the FIFO queue at C = 25, 1000, 16 384 and
    50 000 and padded, every case evicting; minpair_automaton's GDS mode at
-   C = 23, 1000, 16 384 and 50 000 with dyadic costs and padded; the
+   C = 23, 1000, 16 384, 50 000, 64, 65 and 4097 with dyadic costs, padded
+   and with its pointers in L2 (timed beside its earlier design); the
    stacked tree update and the sized solve at a sized_cdn full chunk
    recorded from a mid-run state (the update also as 4 one-tree launches,
    the design it replaces), and the int32 tree update; each timed cold
@@ -209,7 +213,8 @@ KERNELS = ("histogram", "mass", "apply", "segsum", "tree_update", "bucket_mass",
            "minpair_automaton", "fifo_queue")
 #: the one design of each kernel that has one (the others name theirs in
 #: their rows: the attention kernels by design(), the histogram, the clip
-#: and the two threshold solves by the launches of their main path)
+#: and the two threshold solves by the launches of their main path, the
+#: tree automata's kernels by their packages' design names, phase 19)
 DESIGNS = {
     "segsum": "whole tree, one launch: a block a tile of 4096 leaves (levels 1-2 in shared "
               "memory), the last block by atomic ticket the levels above; each node one warp, "
@@ -222,18 +227,6 @@ DESIGNS = {
                       "beside their eviction keys, the requests in order, one block-wide argmin "
                       "over (key, slot) a request (redux.sync, one __syncthreads; none on one "
                       "warp); counts a tile of requests at a time",
-    "tree_lru": "one block a chunk, a thread a request of a 256-request sub-chunk: previous "
-                "request by a scan of the sub-chunk's ids in shared memory or last[j], reuse "
-                "distance = the tree's marks after it (total less an unrolled prefix read "
-                "through L2) + the sub-chunk's dominance term; marks moved once an item by "
-                "integer atomics; a possible ring compaction a grid launch (ranks by prefix "
-                "count) and an int32 tree build",
-    "minpair_automaton": "one warp a chunk, the requests in order, a tile of 32 read at once "
-                         "(counts by rank in the tile, imap kept current by broadcast); root "
-                         "and argmin by warp-wide lexicographic reductions (redux.sync) over "
-                         "64 children a level, levels above the leaves in shared memory, "
-                         "leaves and slots in L2; ancestors recomputed up to the first "
-                         "unchanged node",
     "fifo_queue": "one warp a chunk: the victims in the order a run derives once from the "
                   "carry, a tile of 32 requests and their 32 possible victims read at once, "
                   "imap kept current by broadcast",
@@ -276,6 +269,10 @@ TREE_AUTOMATA = ("lru", "lfu", "ftpl")
 #: phase 19's capacities, ids a case after the fill, and the two timed shapes
 #: (C: catalog, chunk): quick's and fig8_cdn full's
 TREE_CS, TREE_IDS = (23, 1000, 16384, 50000), 20_000
+#: the min-pair kernel's capacities at its radix's edges (one level; two of
+#: 2; three, the top of 2), and padded slots past its shared-memory
+#: pointers (its L2 plan: 20 636 nodes above the leaves)
+MINPAIR_EDGE_CS, MINPAIR_L2_SLOTS = (64, 65, 4097), 1_300_000
 TREE_TIMED = {1000: (20_000, 10_000), 50000: (1_000_000, 1_000_000)}
 #: the int32 tree build's timed leaves: a ring of C = 50 000 (ring_size), and
 #: fig8_cdn full's ring (a window of 1e6)
@@ -2235,18 +2232,21 @@ def check_tree_automata(torch, dev):
     """Phase 19: tree_lru and minpair_automaton against their plain versions,
     bit for bit, on the card and against the CPU, every case evicting; the
     int32 tree build; then each kernel's time cold from a full carry."""
-    import numpy as np
-
     from repro_torch.cachesim import tree_engines as tt
-    from repro_torch.cachesim.traces import adversarial, zipf
+    from repro_torch.kernels import design_counts, reset_launch_counts
+    from repro_torch.kernels.minpair_automaton.ops import DESIGN, DESIGN_L2
     from repro_torch.kernels.prefix_tree.ops import leaves_for_storage, tree_build, tree_storage
     from repro_torch.kernels.prefix_tree.ref import tree_build_ref
-    from repro_torch.kernels.tree_lru.ops import ring_compaction, tree_lru
+    from repro_torch.kernels.tree_lru.ops import CHUNK, ring_compaction
+    from tools.time_automaton_designs import EARLIER_DESIGNS, time_designs, timed_start
 
     cases = [(kind, c, None, None) for kind in TREE_AUTOMATA for c in TREE_CS]
     cases += [(kind, c, c + 37, None) for kind in ("lfu", "ftpl") for c in (23, 1000)]
     cases += [("lru", c, None, ring) for c, ring in ((23, 256), (1000, 4096))]
+    cases += [(kind, c, None, None) for kind in ("lfu", "ftpl") for c in MINPAIR_EDGE_CS]
+    cases += [(kind, 1000, MINPAIR_L2_SLOTS, None) for kind in ("lfu", "ftpl")]
     err, n_hits = 0.0, 0
+    reset_launch_counts()
     for kind, c, n_slots, ring in cases:
         n, trace = tree_case_trace(c, c)
         window = min(TREE_IDS // 2, tt.max_window(ring)) if ring else TREE_IDS // 2
@@ -2277,11 +2277,15 @@ def check_tree_automata(torch, dev):
         need(evicted > 0, f"{kind} C={c}: no eviction")
         if n_slots:
             need(bool((card.slots[c:] == -2).all()), f"{kind} C={c}: an inactive slot written")
+    plans = design_counts()["minpair_automaton"]
+    need(set(plans) == {DESIGN, DESIGN_L2} and plans[DESIGN_L2] > 0,
+         f"the min-pair kernel's plans: {plans}")
     print(f"tree automata: {len(cases)} cases (LRU, LFU, FTPL at C in {TREE_CS}, padded LFU "
-          f"and FTPL, LRU with a ring of 4C: forced compactions), C distinct ids filling the "
-          f"slots, then {TREE_IDS} ids: hits, stats and every carry leaf bit for bit against "
-          f"the plain version on the card and the CPU ({n_hits} hits, max abs err {err}); "
-          f"every case evicts")
+          f"and FTPL, LRU with a ring of 4C: forced compactions; LFU and FTPL at C in "
+          f"{MINPAIR_EDGE_CS} and with {MINPAIR_L2_SLOTS} slots, its pointers in L2), C "
+          f"distinct ids filling the slots, then {TREE_IDS} ids: hits, stats and every carry "
+          f"leaf bit for bit against the plain version on the card and the CPU ({n_hits} "
+          f"hits, max abs err {err}); every case evicts; min-pair launches by plan {plans}")
 
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
 
@@ -2305,91 +2309,49 @@ def check_tree_automata(torch, dev):
         print(f"int32 tree build, {m} leaves at radix 16: cold {ms * 1e3:.2f} us, plain "
               f"{plain_ms * 1e3:.2f} us, bound {b * 1e3:.4f} us by {by}, max abs err {e}")
 
-    timed, compaction = {}, {}
+    # each kernel and its earlier design, cold, from a full carry at both
+    # timed shapes (tools/time_automaton_designs.py), then a due compaction
+    timed = time_designs(torch, dev, TREE_AUTOMATA, flush)
+    err = max([err] + [row["max_abs_err"] for row in timed.values()])
+    compaction = {}
     for c, (n, w) in TREE_TIMED.items():
-        fill = np.concatenate([adversarial(n, c, seed=9), zipf(n, w, alpha=0.9, seed=9)])
-        chunk = torch.from_numpy(zipf(n, w, alpha=0.9, seed=10).astype("int32")).to(dev)
-        for kind in TREE_AUTOMATA:
-            ring = {"ring": tt.ring_for_window(c, w)} if kind == "lru" else {}
-            card = tt.start_tree_run(tt.init_tree_engine_carry(
-                kind, n, c, horizon=len(fill) + w, device=dev, **ring))
-            card, _ = tt.tree_chunk(kind, card, torch.from_numpy(fill.astype("int32")).to(dev))
-            start = tt.start_tree_run(card)
-            plain = tt.start_tree_run(card)
-            t0 = time.perf_counter()
-            want = tree_plain(kind, plain, chunk)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            if kind == "lru":
-                m = leaves_for_storage(card.tree.numel(), 16)
-                need(int(card.pos) + w <= m, "the timed LRU chunk would compact")
-                args = (card.tree, card.last, card.pos, card.nseen, card.cap, chunk, m)
+        card, _ = timed_start(torch, "lru", c, n, w, dev)
+        m = leaves_for_storage(card.tree.numel(), 16)
+        card.pos.fill_(m - w + 1)  # a due compaction at this shape
+        saved = [x.clone() for x in tree_tensors(card)]
 
-                def kern():
-                    return tree_lru(*args, compact=False)
-            else:
-                def kern(kind=kind, card=card):
-                    return tt.tree_chunk(kind, card, chunk)[1]
-            got = kern()
-            case_err = max_abs_diff(torch, (*got, *tree_tensors(card)),
-                                    (*want, *tree_tensors(plain)))
-            label = f"{kind} C={c} N={n}, the timed chunk of {w}"
-            need(case_err == 0, f"{label}: differs from the plain version by {case_err}")
-            if kind == "lru":
-                evicted = w - int(got[0])  # the cache is full: every miss evicts
-            else:
-                evicted = len(set(start.slots.tolist()) - set(card.slots.tolist()))
-            need(evicted > 0, f"{label}: no eviction")
-            n_bytes = tree_bytes(torch, kind, start, card, chunk)
-            err = max(err, case_err)
+        def compact(card=card, m=m, w=w):
+            ring_compaction(card.tree, card.last, card.pos, card.cap, w, m)
 
-            def reset(card=card, start=start):
-                for x, x0 in zip(tree_tensors(card), tree_tensors(start)):
-                    x.copy_(x0)
+        def restore(card=card, saved=saved):
+            for x, x0 in zip(tree_tensors(card), saved):
+                x.copy_(x0)
 
-            ms = timed_ms(torch, kern, 2 if w > 100_000 else 5, flush, reset=reset)
-            b, by = bound_ms(n_bytes, 0)
-            timed[kind, c] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                              "max_abs_err": case_err, "us_per_request": ms * 1e3 / w,
-                              "plain_us_per_request": plain_ms * 1e3 / w, "window": w, "N": n,
-                              "hits": int(got[0]), "evicted": evicted}
-            print(f"{kind} C={c} N={n}, a {w}-request chunk from a full carry ({int(got[0])} "
-                  f"hits, {evicted} evicted): cold {ms:.4f} ms ({ms * 1e3 / w:.5f} us a "
-                  f"request); plain on the card {plain_ms:.2f} ms ({plain_ms * 1e3 / w:.4f} us a "
-                  f"request); bound {b * 1e3:.4f} us by {by} ({n_bytes} bytes); max abs err "
-                  f"{case_err}")
-            if kind == "lru":
-                # a due compaction at this shape: pos pushed past m - w
-                card.pos.fill_(m - w + 1)
-                saved = [x.clone() for x in tree_tensors(card)]
-
-                def compact(card=card, m=m):
-                    ring_compaction(card.tree, card.last, card.pos, card.cap, w, m)
-
-                def restore(card=card, saved=saved):
-                    for x, x0 in zip(tree_tensors(card), saved):
-                        x.copy_(x0)
-
-                cms = timed_ms(torch, compact, 5, flush, reset=restore)
-                compaction[c] = cms
-                print(f"  a ring compaction at C={c} (ring {m}, N={n}): cold {cms * 1e3:.2f} us "
-                      f"(the grid launch and the int32 tree build)")
+        cms = timed_ms(torch, compact, 5, flush, reset=restore)
+        compaction[c] = cms
+        print(f"  a ring compaction at C={c} (ring {m}, N={n}): cold {cms * 1e3:.2f} us "
+              f"(the grid launch and the int32 tree build)")
     print(f"phase 19 max abs err over every case and timed chunk: {err}")
     rows = {}
     chains = {"tree_lru": "a chain of dependent 256-request sub-chunks",
-              "minpair_automaton": "a chain of dependent requests, each a few warp-wide "
-                                   "reductions and a group of leaves read from L2"}
+              "minpair_automaton": "a chain of dependent events (admitted misses, hits on "
+                                   "their group's least leaf), each ~3 warp-wide reductions "
+                                   "a level, between segments of requests applied at once"}
     for name, kinds in (("tree_lru", ("lru",)), ("minpair_automaton", ("lfu", "ftpl"))):
         main = timed[kinds[0], 50000]
         rows[name] = {
-            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "bound_note": f"latency-bound: {chains[name]}",
-            "library_ms": None, "max_abs_err": err,
+            "ms": main["ms"], "earlier_ms": main["earlier_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "bound_note": f"latency-bound: {chains[name]}", "library_ms": None,
+            "max_abs_err": err, "earlier_design": EARLIER_DESIGNS[name],
             "timed": f"{kinds[0]} at fig8_cdn full's shape from a full carry: C=50000, "
                      f"N={TREE_TIMED[50000][0]}, a chunk of {TREE_TIMED[50000][1]}",
             "by_case": {f"{k} C={c}": timed[k, c] for k in kinds for c in TREE_TIMED},
         }
     rows["tree_lru"]["compaction_ms"] = compaction
+    rows["tree_lru"]["design"] = CHUNK
+    rows["minpair_automaton"]["design"] = DESIGN
+    rows["minpair_automaton"]["plans_phase19"] = plans
     return rows, build
 
 
@@ -2485,6 +2447,7 @@ def check_sized_kernels(torch, dev):
     from repro_torch.cachesim.traces import adversarial, zipf
     from repro_torch.kernels.fifo_queue.ops import fifo_queue
     from repro_torch.kernels.fifo_queue.ref import fifo_queue_ref
+    from repro_torch.kernels.minpair_automaton.ops import DESIGN_GDS
     from repro_torch.kernels.minpair_automaton.ref import gds_automaton_ref
     from repro_torch.kernels.prefix_tree.kernel import solve_sized
     from repro_torch.kernels.prefix_tree.ops import stacked_tree_update_, tree_update_
@@ -2495,6 +2458,7 @@ def check_sized_kernels(torch, dev):
         tree_build_ref,
         tree_update_ref,
     )
+    from tools.time_automaton_designs import EARLIER_DESIGNS, time_designs
 
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
 
@@ -2514,6 +2478,8 @@ def check_sized_kernels(torch, dev):
     for kind in ("fifo", "gds"):
         cases = [(c, None) for c in (FIFO_CS if kind == "fifo" else TREE_CS)]
         cases += [(1000, 1037)] if kind == "fifo" else [(23, 60), (1000, 1037)]
+        if kind == "gds":
+            cases += [(c, None) for c in MINPAIR_EDGE_CS] + [(1000, MINPAIR_L2_SLOTS)]
         for c, n_slots in cases:
             n, trace = tree_case_trace(c, c)
             if kind == "fifo":
@@ -2553,67 +2519,60 @@ def check_sized_kernels(torch, dev):
                 need(bool((card.slots[c:] == -2).all()), f"{kind} C={c}: an inactive slot written")
             n_cases += 1
     print(f"fifo_queue and minpair_automaton's GDS mode: {n_cases} cases (FIFO at C in "
-          f"{FIFO_CS}, GDS at C in {TREE_CS} with dyadic sizes and costs, and padded slots), C "
+          f"{FIFO_CS}, GDS at C in {TREE_CS + MINPAIR_EDGE_CS} with dyadic sizes and costs, "
+          f"padded slots, and {MINPAIR_L2_SLOTS} slots: its pointers in L2), C "
           f"distinct ids filling the slots, then {TREE_IDS} ids: hits, stats and every carry "
           f"leaf (FIFO: and the run's queue) bit for bit against the plain version on the card "
           f"and the CPU; every case evicts")
 
-    for kind in ("fifo", "gds"):
-        timed = {}
-        for c, (n, w) in TREE_TIMED.items():
-            fill = np.concatenate([adversarial(n, c, seed=9), zipf(n, w, alpha=0.9, seed=9)])
-            chunk = torch.from_numpy(zipf(n, w, alpha=0.9, seed=10).astype("int32")).to(dev)
-            if kind == "fifo":
-                card = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, device=dev), n)
-                fifo_queue(card.slots, card.stamps, card.t, card.queue,
-                           torch.from_numpy(fill.astype("int32")).to(dev))
-                tensors, copy = fifo_tensors, fifo_copy
-            else:
-                sizes = np.asarray([1.0, 4.0, 16.0, 64.0])[np.minimum(np.arange(n) * 4 // n, 3)]
-                card = tt.init_tree_gds_carry(n, c, sizes=sizes, device=dev)
-                tt.tree_chunk("gds", card, torch.from_numpy(fill.astype("int32")).to(dev))
-                tensors, copy = tuple, gds_copy
-            start, plain = copy(card, dev), copy(card, dev)
-            t0 = time.perf_counter()
-            if kind == "fifo":
-                want = fifo_queue_ref(plain.slots, plain.stamps, plain.t, plain.queue, chunk)
-            else:
-                want = gds_automaton_ref(plain.imap, plain.prio, plain.hval, plain.L, plain.slots,
-                                         plain.tree_hi, plain.tree_lo, chunk)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
+    # the FIFO queue's time, and the GDS mode's beside its earlier design
+    # (tools/time_automaton_designs.py), cold from a full carry
+    timed = {}
+    for c, (n, w) in TREE_TIMED.items():
+        fill = np.concatenate([adversarial(n, c, seed=9), zipf(n, w, alpha=0.9, seed=9)])
+        chunk = torch.from_numpy(zipf(n, w, alpha=0.9, seed=10).astype("int32")).to(dev)
+        card = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, device=dev), n)
+        fifo_queue(card.slots, card.stamps, card.t, card.queue,
+                   torch.from_numpy(fill.astype("int32")).to(dev))
+        start, plain = fifo_copy(card, dev), fifo_copy(card, dev)
+        t0 = time.perf_counter()
+        want = fifo_queue_ref(plain.slots, plain.stamps, plain.t, plain.queue, chunk)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
 
-            def kern(card=card, kind=kind):
-                if kind == "fifo":
-                    return fifo_queue(card.slots, card.stamps, card.t, card.queue, chunk)
-                return tt.tree_chunk("gds", card, chunk)[1]
+        def kern(card=card):
+            return fifo_queue(card.slots, card.stamps, card.t, card.queue, chunk)
 
-            got = kern()
-            e = max_abs_diff(torch, (*got, *tensors(card)), (*want, *tensors(plain)))
-            need(e == 0, f"{kind} C={c}, the timed chunk: differs from the plain version by {e}")
-            err = max(err, e)
-            hits = int(got[0])
-            n_bytes = (fifo_bytes(torch, chunk, hits) if kind == "fifo"
-                       else gds_bytes(torch, start, card, chunk))
-            ms = timed_ms(torch, kern, 2 if w > 100_000 else 5, flush,
-                          reset=restorer(tensors(card), tensors(start)))
-            b, by = bound_ms(n_bytes, 0)
-            timed[c] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                        "max_abs_err": e, "us_per_request": ms * 1e3 / w,
-                        "plain_us_per_request": plain_ms * 1e3 / w, "window": w, "N": n,
-                        "hits": hits}
-            print(f"{kind} C={c} N={n}, a {w}-request chunk from a full carry ({hits} hits): "
-                  f"cold {ms:.4f} ms ({ms * 1e3 / w:.5f} us a request); plain on the card "
-                  f"{plain_ms:.2f} ms ({plain_ms * 1e3 / w:.4f} us a request); bound "
-                  f"{b * 1e3:.4f} us by {by} ({n_bytes} bytes); max abs err {e}")
-        main = timed[50000]
+        got = kern()
+        e = max_abs_diff(torch, (*got, *fifo_tensors(card)), (*want, *fifo_tensors(plain)))
+        need(e == 0, f"fifo C={c}, the timed chunk: differs from the plain version by {e}")
+        err = max(err, e)
+        hits = int(got[0])
+        n_bytes = fifo_bytes(torch, chunk, hits)
+        ms = timed_ms(torch, kern, 2 if w > 100_000 else 5, flush,
+                      reset=restorer(fifo_tensors(card), fifo_tensors(start)))
+        b, by = bound_ms(n_bytes, 0)
+        timed[c] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                    "max_abs_err": e, "us_per_request": ms * 1e3 / w,
+                    "plain_us_per_request": plain_ms * 1e3 / w, "window": w, "N": n,
+                    "hits": hits}
+        print(f"fifo C={c} N={n}, a {w}-request chunk from a full carry ({hits} hits): "
+              f"cold {ms:.4f} ms ({ms * 1e3 / w:.5f} us a request); plain on the card "
+              f"{plain_ms:.2f} ms ({plain_ms * 1e3 / w:.4f} us a request); bound "
+              f"{b * 1e3:.4f} us by {by} ({n_bytes} bytes); max abs err {e}")
+    gds = {c: row for (_, c), row in time_designs(torch, dev, ("gds",), flush).items()}
+    for kind, by_c in (("fifo", timed), ("gds", gds)):
+        main = by_c[50000]
         rows["fifo_queue" if kind == "fifo" else "gds"] = {
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None, "max_abs_err": err,
+            "bound_by": main["bound_by"], "library_ms": None,
+            "max_abs_err": max([err] + [row["max_abs_err"] for row in by_c.values()]),
             "bound_note": "latency-bound: a chain of dependent requests on one warp",
             "timed": f"{kind} at fig8_cdn full's shape from a full carry: C=50000, "
                      f"N={TREE_TIMED[50000][0]}, a chunk of {TREE_TIMED[50000][1]}",
-            "by_c": timed}
+            "by_c": by_c}
+    rows["gds"].update(earlier_ms=gds[50000]["earlier_ms"], design=DESIGN_GDS,
+                       earlier_design=EARLIER_DESIGNS["minpair_automaton"])
 
     # (c) the stacked tree update and (d) the sized solve at a recorded chunk
     calls = sized_state(torch)

@@ -7,14 +7,17 @@ involved.  On a CUDA tensor :func:`minpair_automaton` (LFU, FTPL) and
 :func:`gds_automaton` launch ``csrc/minpair_automaton.cu`` once for the
 whole chunk, both counted as ``minpair_automaton`` launches: one warp walks the requests in order over the slots'
 radix-64 (hi, lo) min-tree, the levels above the leaves in shared memory
-and the leaves in global memory (L2).  On a CPU tensor each runs its plain
-version in :mod:`.ref`.  Either way the carry's tensors are updated in
-place.
+beside each node's least leaf (the kernel's own pointers, built at the
+chunk's start), the leaves in global memory (L2).  On a CPU tensor each
+runs its plain version in :mod:`.ref`.  Either way the carry's tensors are
+updated in place.
 
 The kernel takes any slot count K (the tree's leaves), ``n_slots`` above
 the capacity padded with inactive slots, as long as the levels above the
 leaves fit in one block's shared memory (:data:`MAX_UPPER_NODES`: K up to
-about 1.6 million).
+about 1.7 million).  :func:`design` picks the plan by K: the pointers in
+shared memory beside the pairs up to :data:`SHARED_POINTER_NODES` nodes
+above the leaves, past that in a global scratch.
 """
 
 from __future__ import annotations
@@ -37,11 +40,20 @@ from repro_torch.kernels.prefix_tree.ref import tree_sizes, tree_storage
 #: the min-tree nodes above the leaves that one block's shared memory holds
 #: (8 bytes each, within the 227 KB a block can use)
 MAX_UPPER_NODES = 28_000
-#: the design the wrapper counts its launches under
-DESIGN = ("one warp a chunk: the requests in order, root and argmin by warp-wide "
-          "lexicographic reductions (redux.sync), upper levels in shared memory, leaves in L2")
-#: the design GDS's launches count under (the same kernel, its GDS mode)
+#: the nodes above the leaves whose least-leaf pointers fit in shared memory
+#: beside their pairs (12 bytes each; the kernel's kSharedPointerNodes)
+SHARED_POINTER_NODES = 19_000
+#: the designs the wrapper counts its launches under: the least-leaf
+#: pointers in shared memory, and past SHARED_POINTER_NODES in L2
+DESIGN = ("one warp a chunk: least-leaf pointers beside the upper levels in shared memory; "
+          "a miss takes the root's pointer, the requests that change no node (hits off their "
+          "group's least leaf, refused admissions) applied a segment of a tile at once "
+          "between events, the root's leaf group in registers; leaves in L2")
+DESIGN_L2 = DESIGN.replace("beside the upper levels in shared memory",
+                           "in L2, the upper levels' pairs in shared memory")
+#: the designs GDS's launches count under (the same kernel, its GDS mode)
 DESIGN_GDS = "GDS mode: " + DESIGN
+DESIGN_GDS_L2 = "GDS mode: " + DESIGN_L2
 #: the kernel's ``kind`` argument of GDS (after KINDS)
 _GDS = len(KINDS)
 
@@ -50,9 +62,26 @@ _GDS = len(KINDS)
 def _entry():
     fn = _build.library("minpair_automaton").repro_minpair_automaton
     i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, i, p, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p]
+    fn.argtypes = [i, i, p, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def design(k: int, gds: bool = False) -> str:
+    """The plan a chunk over ``k`` slots launches: the least-leaf pointers
+    in shared memory up to :data:`SHARED_POINTER_NODES` nodes above the
+    leaves, else in a global scratch (L2)."""
+    shared = upper_nodes(k) <= SHARED_POINTER_NODES
+    if gds:
+        return DESIGN_GDS if shared else DESIGN_GDS_L2
+    return DESIGN if shared else DESIGN_L2
+
+
+@functools.lru_cache(maxsize=None)
+def _pointer_scratch(device: torch.device, upper: int) -> torch.Tensor:
+    """The L2 plan's least-leaf pointers, one int32 a node above the leaves
+    (the kernel's own: built at each chunk's start, not part of the carry)."""
+    return torch.empty(upper, dtype=torch.int32, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,7 +133,7 @@ def minpair_automaton(
         if noise.shape != counts.shape:
             raise ValueError("noise must match counts")
     n = counts.numel()
-    return _launch(KINDS.index(kind), DESIGN, ids, n, imap, counts, None if lfu else noise, slots,
+    return _launch(KINDS.index(kind), False, ids, n, imap, counts, None if lfu else noise, slots,
                    tree_hi, tree_lo, t if lfu else None, None, None, flags)
 
 
@@ -126,27 +155,31 @@ def _check_slots(imap, slots, tree_hi, tree_lo, ids, n, flags):
             raise ValueError("flags must match ids")
 
 
-def _launch(kind, design, ids, n, imap, counts, noise, slots, tree_hi, tree_lo, t, hval, lval,
+def _launch(kind, gds, ids, n, imap, counts, noise, slots, tree_hi, tree_lo, t, hval, lval,
             flags):
     dev = slots.device
     _check_slots(imap, slots, tree_hi, tree_lo, ids, n, flags)
     hits = torch.empty((), dtype=torch.int32, device=dev)
     stats = torch.empty(3, dtype=torch.float32, device=dev)
-    count, sizes = _levels(slots.numel())
+    k = slots.numel()
+    count, sizes = _levels(k)
+    plan = design(k, gds)
+    upper = upper_nodes(k)
+    pointers = None if upper <= SHARED_POINTER_NODES else _pointer_scratch(dev, upper)
 
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
     _build.check(
         _entry()(
-            kind, ids.numel(), ptr(ids), n, count, ctypes.addressof(sizes), imap.data_ptr(),
-            ptr(counts), ptr(noise), slots.data_ptr(), tree_hi.data_ptr(), tree_lo.data_ptr(),
-            ptr(t), ptr(hval), ptr(lval), ptr(flags), hits.data_ptr(), stats.data_ptr(),
-            _build.stream_of(slots),
+            kind, ids.numel(), ptr(ids), n, count, ctypes.addressof(sizes), ptr(pointers),
+            imap.data_ptr(), ptr(counts), ptr(noise), slots.data_ptr(), tree_hi.data_ptr(),
+            tree_lo.data_ptr(), ptr(t), ptr(hval), ptr(lval), ptr(flags), hits.data_ptr(),
+            stats.data_ptr(), _build.stream_of(slots),
         ),
         "minpair_automaton",
     )
-    _build.counted(minpair_automaton, design)
+    _build.counted(minpair_automaton, plan)
     return hits, stats
 
 
@@ -170,7 +203,8 @@ def gds_automaton(
     float32 the slots' H, ``lval`` the () float32 inflation value,
     ``slots`` (K,) int32 and the two (tree_storage(K, 64),) int32 min-trees.
     One ``minpair_automaton`` launch on the card (design
-    :data:`DESIGN_GDS`), the plain version on the CPU.
+    :data:`DESIGN_GDS`, past :data:`SHARED_POINTER_NODES` nodes above the
+    leaves :data:`DESIGN_GDS_L2`), the plain version on the CPU.
 
     Returns ``(hits, stats)`` as :func:`minpair_automaton` does."""
     if slots.device.type == "cpu":
@@ -183,5 +217,5 @@ def gds_automaton(
         _build.require(x, torch.float32, name, dev)
     if hval.shape != slots.shape or lval.dim() != 0:
         raise ValueError("hval must match slots and lval must be 0-d")
-    return _launch(_GDS, DESIGN_GDS, ids, prio.numel(), imap, None, prio, slots, tree_hi,
+    return _launch(_GDS, True, ids, prio.numel(), imap, None, prio, slots, tree_hi,
                    tree_lo, None, hval, lval, flags)

@@ -142,6 +142,43 @@ def minpair_automaton_ref(
             torch.tensor([n_hits, 0.0, occ], dtype=torch.float32, device=dev))
 
 
+def least_leaves(tree_hi: torch.Tensor, tree_lo: torch.Tensor, k_slots: int):
+    """Every node's least leaf: the first leaf that holds the node's pair,
+    the pointers the kernel keeps beside the levels above the leaves (a
+    leaf's own is its index).  Returns ``(pointers, root)``: the int64
+    pointers of the ``(tree_storage(k_slots, 64),)`` trees' nodes, and the
+    root's (the least pair of the top level; its first leaf)."""
+    from repro_torch.kernels.prefix_tree.ref import tree_offsets, tree_sizes
+
+    offs, sizes = tree_offsets(k_slots, SLOT_RADIX), tree_sizes(k_slots, SLOT_RADIX)
+    hi, lo = tree_hi.cpu().long(), tree_lo.cpu().long()
+    key = (hi << 32) + (lo + 2**31)  # the lexicographic order of (hi, lo), int32 each
+    ptr = torch.arange(k_slots, dtype=torch.int64)
+    parts = [ptr]
+    for off, below, size in zip(offs[1:], offs, sizes[1:]):
+        n_below = ptr.numel()
+        pad = size * SLOT_RADIX - n_below
+        child = torch.nn.functional.pad(key[below:below + n_below], (0, pad),
+                                        value=torch.iinfo(torch.int64).max).view(size, SLOT_RADIX)
+        cptr = torch.nn.functional.pad(ptr, (0, pad), value=torch.iinfo(torch.int64).max)
+        cptr = cptr.view(size, SLOT_RADIX)
+        held = child == key[off:off + size, None]
+        ptr = torch.where(held, cptr, torch.iinfo(torch.int64).max).min(dim=1).values
+        parts.append(ptr)
+    top_key = key[offs[-1]:offs[-1] + sizes[-1]]
+    first = int(torch.nonzero(top_key == top_key.min())[0])
+    return torch.cat(parts), int(ptr[first])
+
+
+def unsortable_f32(b: torch.Tensor) -> torch.Tensor:
+    """The float32 whose ``sortable_f32`` is the int32 ``b``: x + 0.0 for
+    the x that gave it, so every x but -0.0 and NaN (whose payload the add
+    may change) comes back bit for bit.  The kernel's GDS mode takes an
+    evicted slot's H this way from the root's hi."""
+    b = b.to(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b).view(torch.float32)
+
+
 def _sortable(h: np.float32) -> int:
     """sortable_f32 of one float32."""
     b = int(np.asarray(h + np.float32(0.0), np.float32).view(np.int32))

@@ -14,17 +14,31 @@
 // after a chunk, so the blocking here is the kernel's own:
 //
 // * repro_tree_lru_chunk: one block of 256 threads, a thread a request of a
-//   256-request sub-chunk, the sub-chunks in order.  A thread finds its
-//   request's previous one in the sub-chunk (a scan of the sub-chunk's ids
-//   in shared memory) or else reads last[j]; its reuse distance is the tree's
-//   marks after that position (the tree's total less a prefix count: a
-//   node's left siblings, level by level) plus the dominance term: the
+//   256-request sub-chunk, the sub-chunks in order (the next one's ids in
+//   flight meanwhile).  A thread finds its request's previous one in the
+//   sub-chunk, and whether it is its item's last there, from a shared hash
+//   table of the sub-chunk's ids, each slot an id and a 256-bit mask of
+//   the positions that request it (a warp's equal ids inserted once, by
+//   __match_any_sync); else it reads last[j].  Its reuse distance is the
+//   tree's marks after that position (the tree's total less a prefix count:
+//   a node's left siblings, level by level) plus the dominance term: the
 //   requests of the sub-chunk between the two whose own previous request
 //   lies at or before it (each a distinct item not yet counted), counted in
-//   shared memory.  After a barrier each item's mark moves once: the first
-//   request of an item removes its old mark, the last inserts one at its
-//   position, by integer atomicAdd along the leaf's path, exact in any
-//   order; the tree's total is kept in a register.
+//   shared memory four at a time.  After a barrier each item's mark moves
+//   once: the first request of an item removes its old mark, the last
+//   inserts one at its position, by integer atomicAdd along the leaf's
+//   path, exact in any order; the tree's total is kept in a register.
+//   Where the tree lives: the levels from the lowest one that fits (level 1
+//   where all above the leaves fit in 204 KB, as at a ring of 2^18; level 2
+//   at 2^21) sit in shared memory for the whole chunk, each padded to 16
+//   ints, and are written back at its end; their path adds are shared
+//   atomics.  The levels below stay in global memory (L2), read a sibling
+//   group at a time in 16-byte loads (four for 16 children, those past the
+//   node not issued).  A prefix count so issues at most 4 loads a level to
+//   L2, on at most 2 levels: one SM's requests to L2 serialise, and scalar
+//   loads of 16 children on every level would be ~96 a thread.  The table
+//   costs each thread a probe and 8 words, where a scan of the sub-chunk's
+//   256 ids would cost 256 compares.
 // * repro_tree_lru_compact: the ring compaction a chunk may need, when
 //   pos + window > m, decided on the device: a grid over the catalog and the
 //   ring.  Where it is due, each marked item's new position is its rank
@@ -38,10 +52,12 @@
 // Bound on an H100: bytes, the ids read and each distinct item's last read
 // and written, and the tree nodes on the marks' paths, take a few
 // microseconds at a 1e6-request chunk; the chunk kernel is latency-bound, a
-// chain of dependent sub-chunks, each a shared-memory scan of 256 ids, a
-// prefix read of ~5 levels through L2 and a path of atomics.
+// chain of dependent sub-chunks, each a hash table of 256 ids, a prefix
+// read of the leaf group (and at 2^21 a level-1 group) through L2 and
+// shared memory above, the dominance loop and a path of atomics.
 
 #include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -52,18 +68,62 @@ constexpr int kRadix = 1 << kShift;
 constexpr int kThreads = 256;  // a sub-chunk: one thread a request
 constexpr int kMaxLevels = 8;  // a ring below 2^30 positions
 constexpr int kCompactThreads = 256;
+// the sub-chunk's hash table of ids: 512 slots for at most 256 ids
+constexpr int kTableShift = 9;
+constexpr int kTable = 1 << kTableShift;
+constexpr unsigned kFull = 0xffffffffu;
+// the ints of tree levels the chunk keeps in shared memory (204 KB, beside
+// its ~20 KB of static shared memory within the 227 KB a block can use)
+constexpr int kSharedInts = 51 * 1024;
 
+// The ring's tree: level l at off[l] in global memory; levels s0 and above
+// also at soff[l] in shared memory (each padded to 16 ints), sints ints in
+// all; bit l of vec set where global level l takes 16-byte loads (aligned,
+// and whole quads: no load past the tree's end).
 struct Ring {
   long long off[kMaxLevels];
   int size[kMaxLevels];
+  int soff[kMaxLevels];
   int count;
+  int s0;
+  int sints;
+  unsigned vec;
 };
+
+// Children grp .. last (last - grp + 1 <= 16 of them) of one level summed,
+// in 16-byte loads (scalars where the level is not 16-byte aligned), those
+// past last not issued.  Global reads go through L2 (__ldcg), where the
+// block's atomics land.
+template <bool kGlobal>
+__device__ __forceinline__ int group_sum(const int* lev, int grp, int last, bool vec) {
+  const int n = last - grp + 1;
+  int acc = 0;
+#pragma unroll
+  for (int qd = 0; qd < kRadix / 4; ++qd) {
+    const int rest = n - 4 * qd;
+    if (rest > 0) {
+      const int* at = lev + grp + 4 * qd;
+      int4 v;
+      if (!kGlobal || vec) {
+        v = kGlobal ? __ldcg(reinterpret_cast<const int4*>(at))
+                    : *reinterpret_cast<const int4*>(at);
+      } else {  // global levels only: shared levels are padded and aligned
+        v.x = __ldcg(at);
+        v.y = rest > 1 ? __ldcg(at + 1) : 0;
+        v.z = rest > 2 ? __ldcg(at + 2) : 0;
+        v.w = rest > 3 ? __ldcg(at + 3) : 0;
+      }
+      acc += v.x + (rest > 1 ? v.y : 0) + (rest > 2 ? v.z : 0) + (rest > 3 ? v.w : 0);
+    }
+  }
+  return acc;
+}
 
 // Marks at positions [0, p], p >= 0: at the leaves the group's children up
 // to p, above each node's left siblings.  The reads of every level are
-// independent (predicated and unrolled, all in flight at once); __ldcg reads
-// them from L2, where the block's atomics land.
-__device__ __forceinline__ int prefix_count(const int* __restrict__ tree, const Ring& r, int p) {
+// independent (predicated and unrolled, all in flight at once).
+__device__ __forceinline__ int prefix_count(const int* __restrict__ tree, const int* s_tree,
+                                            const Ring& r, int p) {
   int acc = 0;
 #pragma unroll
   for (int l = 0; l < kMaxLevels; ++l) {
@@ -71,10 +131,9 @@ __device__ __forceinline__ int prefix_count(const int* __restrict__ tree, const 
       const int node = p >> (kShift * l);
       const int grp = node & ~(kRadix - 1);
       const int last = l == 0 ? node : node - 1;
-      const int* lev = tree + r.off[l];
-#pragma unroll
-      for (int k = 0; k < kRadix; ++k) {
-        if (grp + k <= last) acc += __ldcg(lev + grp + k);
+      if (last >= grp) {
+        acc += l < r.s0 ? group_sum<true>(tree + r.off[l], grp, last, (r.vec >> l) & 1u)
+                        : group_sum<false>(s_tree + r.soff[l], grp, last, true);
       }
     }
   }
@@ -82,19 +141,26 @@ __device__ __forceinline__ int prefix_count(const int* __restrict__ tree, const 
 }
 
 // Adds delta to the leaf at position q and to each of its ancestors.
-__device__ __forceinline__ void add_path(int* __restrict__ tree, const Ring& r, int q,
-                                         int delta) {
+__device__ __forceinline__ void add_path(int* __restrict__ tree, int* s_tree, const Ring& r,
+                                         int q, int delta) {
   for (int l = 0; l < r.count; ++l) {
-    atomicAdd(tree + r.off[l] + q, delta);
+    if (l < r.s0) {
+      atomicAdd(tree + r.off[l] + q, delta);
+    } else {
+      atomicAdd(s_tree + r.soff[l] + q, delta);
+    }
     q >>= kShift;
   }
 }
 
 // The marks in the tree: the sum of its top level (at most 16 nodes).
-__device__ __forceinline__ int total_marks(const int* __restrict__ tree, const Ring& r) {
+__device__ __forceinline__ int total_marks(const int* __restrict__ tree, const int* s_tree,
+                                           const Ring& r) {
   const int top = r.count - 1;
   int total = 0;
-  for (int k = 0; k < r.size[top]; ++k) total += __ldcg(tree + r.off[top] + k);
+  for (int k = 0; k < r.size[top]; ++k) {
+    total += top < r.s0 ? __ldcg(tree + r.off[top] + k) : s_tree[r.soff[top] + k];
+  }
   return total;
 }
 
@@ -104,7 +170,7 @@ __global__ void __launch_bounds__(kCompactThreads)
                    int n_items, int* __restrict__ scratch) {
   const int m = r.size[0];
   const bool due = (long long)*pos + window > m;
-  const int nmarks = total_marks(tree, r);
+  const int nmarks = total_marks(tree, nullptr, r);  // r.s0 == r.count: all in global memory
   const int kept = min(nmarks, *cap);
   const int dropped = nmarks - kept;
   const int span = max(n_items, m);
@@ -112,7 +178,7 @@ __global__ void __launch_bounds__(kCompactThreads)
     if (due && t < n_items) {
       const int q = last[t];
       if (q >= 0) {
-        const int rank = prefix_count(tree, r, q) - 1 - dropped;
+        const int rank = prefix_count(tree, nullptr, r, q) - 1 - dropped;
         last[t] = rank >= 0 ? rank : -1;
       }
     }
@@ -124,14 +190,44 @@ __global__ void __launch_bounds__(kCompactThreads)
   }
 }
 
+// The sub-chunk's ids in a shared hash table (kTable slots, open
+// addressing): each distinct id's slot holds the id and a 256-bit mask of
+// the positions that request it.  A warp's equal ids (__match_any_sync)
+// are inserted once, by their first lane, with the warp's mask.
+struct Table {
+  int key[kTable];      // -1: empty
+  unsigned bits[kTable][kThreads / 32];
+};
+
+// Inserts the thread's id j (>= 0; -1 inserts nothing) with its warp's
+// peers; returns the id's slot in every thread that has one.
+__device__ __forceinline__ int table_insert(Table& t, int j) {
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(kFull, j);
+  const int leader = __ffs(peers) - 1;
+  int slot = -1;
+  if (lane == leader && j >= 0) {
+    slot = (int)(((unsigned)j * 0x9E3779B1u) >> (32 - kTableShift));
+    for (;;) {
+      const int held = atomicCAS(&t.key[slot], -1, j);
+      if (held == -1 || held == j) break;
+      slot = (slot + 1) & (kTable - 1);
+    }
+    atomicOr(&t.bits[slot][threadIdx.x >> 5], peers);
+  }
+  return __shfl_sync(kFull, slot, leader);
+}
+
 __global__ void __launch_bounds__(kThreads)
     tree_lru_kernel(int* __restrict__ tree, int* __restrict__ last, int* __restrict__ pos,
                     int* __restrict__ nseen, const int* __restrict__ cap,
                     const int* __restrict__ ids, int window, Ring r,
                     const int* __restrict__ state, unsigned char* __restrict__ flags,
                     int* __restrict__ hits_out, float* __restrict__ stats) {
-  __shared__ int s_ids[kThreads];
-  __shared__ int s_prev[kThreads];
+  extern __shared__ int4 smem4[];
+  int* s_tree = reinterpret_cast<int*>(smem4);  // levels s0 and above
+  __shared__ __align__(16) Table s_table;
+  __shared__ __align__(16) int s_prev[kThreads];
   __shared__ int s_moved[2];  // marks inserted, marks removed, this sub-chunk
   __shared__ int s_count[2];  // hits, requests that found no mark
   const int tid = threadIdx.x;
@@ -147,38 +243,67 @@ __global__ void __launch_bounds__(kThreads)
     }
     return;
   }
-  int total = total_marks(tree, r);
-  int hits = 0, unseen = 0;
+  for (int l = r.s0; l < r.count; ++l) {
+    for (int x = tid; x < r.size[l]; x += kThreads) {
+      s_tree[r.soff[l] + x] = __ldcg(tree + r.off[l] + x);
+    }
+  }
+  for (int x = tid; x < kTable; x += kThreads) {
+    s_table.key[x] = -1;
+    for (int w = 0; w < kThreads / 32; ++w) s_table.bits[x][w] = 0u;
+  }
   if (tid < 2) s_count[tid] = 0;
+  __syncthreads();
+  int total = total_marks(tree, s_tree, r);
+  int hits = 0, unseen = 0;
+  int jn = tid < window ? __ldg(ids + tid) : -1;
 
   for (int base = 0; base < window; base += kThreads) {
     const int n = min(kThreads, window - base);
     const int at = p0 + base;  // the sub-chunk's first position
-    const int j = tid < n ? __ldg(ids + base + tid) : -1;
-    s_ids[tid] = j;
+    const int j = tid < n ? jn : -1;
+    if (base + kThreads + tid < window) jn = __ldg(ids + base + kThreads + tid);  // the next's
+    const int lastg = j >= 0 ? __ldcg(last + j) : -1;
+    const int slot = table_insert(s_table, j);
     __syncthreads();
-    int prev_in = -1, lastg = -1, prevp = -1;
+    if (tid < 2) s_moved[tid] = 0;
+    // the request's previous one in the sub-chunk (the highest position
+    // below it that requests j), and whether it is j's last
+    int prev_in = -1, prevp = -1;
     bool final = true;
-    if (tid < n) {
-      for (int k = 0; k < n; ++k) {
-        if (s_ids[k] == j) {
-          if (k < tid) prev_in = k;
-          final &= k <= tid;
+    if (j >= 0) {
+      const int w0 = tid >> 5;
+      const unsigned below = (1u << (tid & 31)) - 1u;
+      for (int w = kThreads / 32 - 1; w >= 0; --w) {
+        unsigned b = s_table.bits[slot][w];
+        if (w > w0) {
+          final &= b == 0u;
+        } else {
+          if (w == w0) {
+            final &= (b & ~below & ~(below + 1u)) == 0u;
+            b &= below;
+          }
+          if (prev_in < 0 && b != 0u) prev_in = 32 * w + 31 - __clz(b);
         }
       }
-      lastg = __ldcg(last + j);
       prevp = prev_in >= 0 ? at + prev_in : lastg;
       s_prev[tid] = prevp;
     }
-    if (tid < 2) s_moved[tid] = 0;
     __syncthreads();
-    if (tid < n) {
+    if (j >= 0) {
       bool hit = false;
       if (prevp >= 0) {
         // marks after prevp before the sub-chunk, then the sub-chunk's
-        // requests between the two whose previous request is at or before it
-        int d = prevp >= at ? 0 : total - prefix_count(tree, r, prevp);
-        for (int k = max(prevp - at + 1, 0); k < tid; ++k) d += s_prev[k] <= prevp;
+        // requests between the two whose previous request is at or before
+        // it, read four at a time
+        int d = prevp >= at ? 0 : total - prefix_count(tree, s_tree, r, prevp);
+        const int k0 = max(prevp - at + 1, 0);
+        for (int k = k0 & ~3; k < tid; k += 4) {
+          const int4 v = *reinterpret_cast<const int4*>(s_prev + k);
+          d += (k >= k0 && v.x <= prevp) + (k + 1 >= k0 && k + 1 < tid && v.y <= prevp) +
+               (k + 2 >= k0 && k + 2 < tid && v.z <= prevp) +
+               (k + 3 >= k0 && k + 3 < tid && v.w <= prevp);
+        }
         hit = d <= c - 1;
       } else {
         ++unseen;
@@ -186,17 +311,24 @@ __global__ void __launch_bounds__(kThreads)
       hits += hit;
       if (flags != nullptr) flags[base + tid] = hit;
     }
-    __syncthreads();  // every read of the tree and of last is done
-    if (tid < n) {
-      if (lastg >= 0 && prev_in < 0) {
-        add_path(tree, r, lastg, -1);
-        atomicAdd(&s_moved[1], 1);
-      }
+    __syncthreads();  // every read of the tree, of last and of the table is done
+    const bool drop = lastg >= 0 && prev_in < 0;
+    if (j >= 0) {
+      if (drop) add_path(tree, s_tree, r, lastg, -1);
       if (final) {
-        add_path(tree, r, at + tid, 1);
+        add_path(tree, s_tree, r, at + tid, 1);
         last[j] = at + tid;
-        atomicAdd(&s_moved[0], 1);
       }
+      if (prev_in < 0) {  // the sub-chunk's first request of j empties its slot
+        s_table.key[slot] = -1;
+        for (int w = 0; w < kThreads / 32; ++w) s_table.bits[slot][w] = 0u;
+      }
+    }
+    const unsigned ins = __ballot_sync(kFull, j >= 0 && final);
+    const unsigned del = __ballot_sync(kFull, j >= 0 && drop);
+    if ((tid & 31) == 0) {
+      atomicAdd(&s_moved[0], __popc(ins));
+      atomicAdd(&s_moved[1], __popc(del));
     }
     __syncthreads();
     total += s_moved[0] - s_moved[1];
@@ -205,6 +337,9 @@ __global__ void __launch_bounds__(kThreads)
   atomicAdd(&s_count[0], hits);
   atomicAdd(&s_count[1], unseen);
   __syncthreads();
+  for (int l = r.s0; l < r.count; ++l) {
+    for (int x = tid; x < r.size[l]; x += kThreads) tree[r.off[l] + x] = s_tree[r.soff[l] + x];
+  }
   if (tid == 0) {
     const int seen = seen0 + s_count[1];
     *pos = p0 + window;
@@ -216,7 +351,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-bool ring_of(const long long* sizes, int count, Ring& r) {
+// The ring's levels; with `shared`, the lowest level from 1 up from which
+// all fit in kSharedInts goes to shared memory with those above (none if
+// none fits, or with one level).
+bool ring_of(const long long* sizes, int count, const void* tree, bool shared, Ring& r) {
   if (count < 1 || count > kMaxLevels || sizes[0] < kRadix || sizes[0] >= (1LL << 30)) {
     return false;
   }
@@ -227,6 +365,26 @@ bool ring_of(const long long* sizes, int count, Ring& r) {
     off += sizes[l];
   }
   r.count = count;
+  r.s0 = count;
+  r.sints = 0;
+  for (int s = 1; shared && s < count; ++s) {
+    int ints = 0;
+    for (int l = s; l < count; ++l) ints += (r.size[l] + kRadix - 1) & ~(kRadix - 1);
+    if (ints <= kSharedInts) {
+      r.s0 = s;
+      r.sints = ints;
+      break;
+    }
+  }
+  for (int l = r.s0, at = 0; l < count; ++l) {
+    r.soff[l] = at;
+    at += (r.size[l] + kRadix - 1) & ~(kRadix - 1);
+  }
+  r.vec = 0;
+  const bool aligned = (reinterpret_cast<uintptr_t>(tree) & 15) == 0;
+  for (int l = 0; l < r.s0; ++l) {
+    if (aligned && r.off[l] % 4 == 0 && r.size[l] % 4 == 0) r.vec |= 1u << l;
+  }
   return true;
 }
 
@@ -239,7 +397,9 @@ extern "C" int repro_tree_lru_compact(const void* tree, void* last, const void* 
                                       const void* cap, int window, const long long* sizes,
                                       int count, int n_items, void* scratch, void* stream) {
   Ring r{};
-  if (!ring_of(sizes, count, r) || window < 1 || n_items < 1) return (int)cudaErrorInvalidValue;
+  if (!ring_of(sizes, count, tree, false, r) || window < 1 || n_items < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int span = n_items > r.size[0] ? n_items : r.size[0];
   int blocks = (span + kCompactThreads - 1) / kCompactThreads;
   if (blocks > 4096) blocks = 4096;
@@ -257,8 +417,14 @@ extern "C" int repro_tree_lru_chunk(void* tree, void* last, void* pos, void* nse
                                     const long long* sizes, int count, const void* state,
                                     void* flags, void* hits, void* stats, void* stream) {
   Ring r{};
-  if (!ring_of(sizes, count, r) || window < 1) return (int)cudaErrorInvalidValue;
-  tree_lru_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (!ring_of(sizes, count, tree, true, r) || window < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)r.sints * sizeof(int);
+  if (smem > 0) {  // beside ~20 KB of static shared memory: past 48 KB in all
+    const cudaError_t e = cudaFuncSetAttribute(
+        tree_lru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  tree_lru_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(tree), static_cast<int*>(last), static_cast<int*>(pos),
       static_cast<int*>(nseen), static_cast<const int*>(cap), static_cast<const int*>(ids),
       window, r, static_cast<const int*>(state), static_cast<unsigned char*>(flags),

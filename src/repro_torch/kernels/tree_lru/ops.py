@@ -4,7 +4,8 @@ The reference runs the tree LRU as ``lax.scan`` over sub-chunks
 (``repro.cachesim.tree_engines.make_lru_tree_chunk``); no Pallas kernel is
 involved.  On a CUDA tensor :func:`tree_lru` launches ``csrc/tree_lru.cu``
 once for the whole chunk (one block, a thread a request of a sub-chunk, the
-sub-chunks in order, the ring's count tree updated by integer atomics); on
+sub-chunks in order, the ring's count tree updated by integer atomics, its
+levels from 1 or 2 up in shared memory for the chunk); on
 a CPU tensor it runs the plain version in :mod:`.ref`.  Either way the
 carry's tensors are updated in place.
 
@@ -33,7 +34,9 @@ from repro_torch.kernels.prefix_tree.ref import tree_sizes, tree_storage
 from repro_torch.kernels.tree_lru.ref import RING_RADIX, check_window, tree_lru_ref
 
 #: the designs each wrapper counts its launches under
-CHUNK, COMPACTION = "chunk: one block, a thread a request of a 256-request sub-chunk", "compaction"
+CHUNK = ("chunk: one block, a thread a request of a 256-request sub-chunk; the ring's upper "
+         "levels in shared memory, the levels below read in 16-byte sibling groups from L2")
+COMPACTION = "compaction"
 
 
 @functools.lru_cache(maxsize=None)

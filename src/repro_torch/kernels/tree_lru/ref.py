@@ -36,10 +36,17 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.prefix_tree.ref import tree_build_ref, tree_update_ref
+from repro_torch.kernels.prefix_tree.ref import (
+    tree_build_ref,
+    tree_offsets,
+    tree_sizes,
+    tree_update_ref,
+)
 
 #: radix of the ring's count tree
 RING_RADIX = 16
+#: requests a sub-chunk of the kernel (a thread each)
+SUBCHUNK = 256
 
 
 def max_window(m: int) -> int:
@@ -121,6 +128,92 @@ def tree_lru_ref(tree: torch.Tensor, last: torch.Tensor, pos: torch.Tensor,
                     torch.from_numpy(delta).to(dev))
     pos.fill_(p0 + window)
     nseen.add_(int((~moved).sum()))
+    n_hits = int(hit.sum())
+    if flags is not None:
+        flags.copy_(torch.from_numpy(hit))
+    occ = min(int(nseen), c)
+    return (torch.tensor(n_hits, dtype=torch.int32, device=dev),
+            torch.tensor([n_hits, 0.0, occ], dtype=torch.float32, device=dev))
+
+
+def _prefix(tree: np.ndarray, offs, p: int) -> int:
+    """Marks at positions [0, p]: at the leaves the group's children up to
+    p, above each node's left siblings (the kernel's prefix count)."""
+    acc = 0
+    for lvl, off in enumerate(offs):
+        node = p >> (4 * lvl)
+        grp = node & ~(RING_RADIX - 1)
+        last = node if lvl == 0 else node - 1
+        acc += int(tree[off + grp:off + last + 1].sum())
+    return acc
+
+
+def tree_lru_blocked_ref(tree: torch.Tensor, last: torch.Tensor, pos: torch.Tensor,
+                         nseen: torch.Tensor, cap: torch.Tensor, ids: torch.Tensor, m: int,
+                         flags: Optional[torch.Tensor] = None,
+                         sub: int = SUBCHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the tree LRU computed as the kernel does, in place.
+
+    The chunk goes in sub-chunks of ``sub`` requests.  A request finds its
+    previous one in the sub-chunk from a table of the sub-chunk's ids, each
+    a mask of the positions that request it (the highest position below the
+    request's; the request is its item's last where none is above), else
+    from ``last``; its reuse distance is the tree's marks after that
+    position (the total less a prefix count) plus the dominance term, the
+    requests of the sub-chunk between the two whose own previous request
+    lies at or before it; then each item's mark moves once.  The carry and
+    the hits are :func:`tree_lru_ref`'s; returns ``(hits, stats)`` as it
+    does."""
+    window = ids.numel()
+    check_window(window, m)
+    if int(pos) + window > m:
+        compact_ref(tree, last, pos, cap, m)
+    p0, c = int(pos), int(cap)
+    host = last.cpu()
+    lnp = host.numpy()
+    offs, sizes = tree_offsets(m, RING_RADIX), tree_sizes(m, RING_RADIX)
+    tr = tree.cpu().numpy().astype(np.int64)
+    total = int(tr[offs[-1]:offs[-1] + sizes[-1]].sum())
+    req = ids.cpu().numpy().astype(np.int64)
+    hit = np.zeros(window, dtype=bool)
+    unseen = 0
+
+    def add_path(q, delta):
+        for off in offs:
+            tr[off + q] += delta
+            q >>= 4
+
+    for base in range(0, window, sub):
+        js = req[base:base + sub].tolist()
+        at = p0 + base
+        table = {}
+        for t, j in enumerate(js):
+            table[j] = table.get(j, 0) | (1 << t)
+        prev_in = [(table[j] & ((1 << t) - 1)).bit_length() - 1 for t, j in enumerate(js)]
+        final = [table[j] >> (t + 1) == 0 for t, j in enumerate(js)]
+        lastg = [int(lnp[j]) for j in js]
+        prevp = np.asarray([at + pi if pi >= 0 else lg for pi, lg in zip(prev_in, lastg)])
+        for t, pp in enumerate(prevp.tolist()):
+            if pp < 0:
+                unseen += 1
+                continue
+            d = 0 if pp >= at else total - _prefix(tr, offs, pp)
+            d += int(np.count_nonzero(prevp[max(pp - at + 1, 0):t] <= pp))
+            hit[base + t] = d <= c - 1
+        for t, j in enumerate(js):
+            if lastg[t] >= 0 and prev_in[t] < 0:
+                add_path(lastg[t], -1)
+                total -= 1
+            if final[t]:
+                add_path(at + t, 1)
+                lnp[j] = at + t
+                total += 1
+    if host is not last:
+        last.copy_(host)
+    dev = tree.device
+    tree.copy_(torch.from_numpy(tr.astype(np.int32)))
+    pos.fill_(p0 + window)
+    nseen.add_(unseen)
     n_hits = int(hit.sum())
     if flags is not None:
         flags.copy_(torch.from_numpy(hit))

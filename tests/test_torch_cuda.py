@@ -1174,3 +1174,132 @@ def test_sized_cdn_mini_on_the_card_matches_the_cpu(card):
     assert (ogb["hit_ratio"], ogb["byte_hit_ratio"]) == (ogb_cpu["hit_ratio"],
                                                          ogb_cpu["byte_hit_ratio"])
     assert ogb["byte_regret"] == pytest.approx(ogb_cpu["byte_regret"], rel=1e-6)
+
+
+# -- the redesigned automaton kernels: the min-pair kernel's two plans (its
+# least-leaf pointers in shared memory or in L2) and the tree LRU's shared
+# levels ----------------------------------------------------------------------
+
+#: slots whose least-leaf pointers no longer fit in shared memory (20 636
+#: nodes above the leaves): the min-pair kernel's L2 plan
+L2_SLOTS = 1_300_000
+
+
+def _minpair_carry(kind, n, c, n_slots=None, seed=0):
+    from repro_torch.cachesim import tree_engines as ttree
+
+    if kind == "gds":
+        rng = np.random.default_rng(seed)
+        sizes = np.asarray([1.0, 4.0, 16.0, 64.0])[rng.integers(0, 4, n)]
+        costs = np.asarray([0.5, 1.0, 2.0, 4.0])[rng.integers(0, 4, n)]
+        return ttree.init_tree_gds_carry(n, c, n_slots, sizes=sizes, costs=costs, device="cpu")
+    return ttree.init_tree_engine_carry(kind, n, c, n_slots=n_slots, seed=seed,
+                                        horizon=10**6, device="cpu")
+
+
+def _minpair_case(kind, cpu, trace, parts, card):
+    """One min-pair automaton from ``cpu``'s carry on the CPU and the card,
+    chunk by chunk: hits, flags, stats and every carry leaf equal."""
+    from repro_torch.cachesim import tree_engines as ttree
+
+    dev = type(cpu)(*(x.to(card) for x in cpu))
+    for part in np.array_split(trace, parts):
+        ids = torch.from_numpy(np.ascontiguousarray(part))
+        fc = torch.empty(ids.shape, dtype=torch.bool)
+        fd = torch.empty(ids.shape, dtype=torch.bool, device=card)
+        cpu, (hc, sc) = ttree.tree_chunk(kind, cpu, ids, fc)
+        dev, (hd, sd) = ttree.tree_chunk(kind, dev, ids.to(card), fd)
+        assert int(hd) == int(hc) and torch.equal(sd.cpu(), sc) and torch.equal(fd.cpu(), fc)
+        for name, a, b in zip(cpu._fields, dev, cpu):
+            assert torch.equal(a.cpu(), b), name
+    return dev
+
+
+@pytest.mark.parametrize("c,n_slots", [(64, None), (65, None), (4097, None), (65, 130),
+                                       (4097, 4200)])
+@pytest.mark.parametrize("kind", ["lfu", "ftpl", "gds"])
+def test_minpair_at_its_radix_edges_matches_plain(card, kind, c, n_slots):
+    """One level of 64 leaves, two levels from 65 (a top of 2 nodes), three
+    from 4097 (a top of 2), and padded slots past each edge."""
+    from repro_torch.kernels.minpair_automaton.ops import DESIGN, DESIGN_GDS
+
+    n, trace = _evicting_trace(c, 11)
+    reset_launch_counts()
+    dev = _minpair_case(kind, _minpair_carry(kind, n, c, n_slots, seed=c), trace, 3, card)
+    want = DESIGN_GDS if kind == "gds" else DESIGN
+    assert design_counts()["minpair_automaton"] == {want: 3}
+    if n_slots:
+        assert bool((dev.slots[c:] == -2).all())
+
+
+@pytest.mark.parametrize("c", [100, 5000])
+@pytest.mark.parametrize("kind", ["lfu", "ftpl", "gds"])
+def test_minpair_hits_on_their_groups_least_leaf_match_plain(card, kind, c):
+    """C distinct items, then the same items over and over in the same order:
+    every request hits, and for LFU (equal counts, the oldest tick least)
+    each hit is on the least leaf of its group and of the tree, the path
+    that recomputes the nodes above the leaf."""
+    n = 4 * c
+    fill = np.random.default_rng(c).permutation(n)[:c].astype(np.int32)
+    trace = np.concatenate([fill] * 6)
+    dev = _minpair_case(kind, _minpair_carry(kind, n, c, seed=c), trace, 4, card)
+    assert int((dev.slots >= 0).sum()) == c
+
+
+def test_gds_misses_that_lower_the_pair_match_plain(card):
+    """Unit costs and sizes over an L of 1e8, where L + 1 rounds to L: every
+    key has the same H, so the id orders them, and a newcomer of a smaller
+    id than its victim takes a pair below the victim's.  Decreasing ids
+    make every miss do so."""
+    from repro_torch.cachesim import tree_engines as ttree
+
+    n, c = 3000, 300
+    cpu = ttree.init_tree_gds_carry(n, c, device="cpu")
+    cpu.L.fill_(1e8)
+    trace = np.concatenate([np.arange(n - 1, -1, -1)] * 2).astype(np.int32)
+    dev = _minpair_case("gds", cpu, trace, 4, card)
+    assert float(dev.L) == 1e8 and int((dev.slots >= 0).sum()) == c
+
+
+@pytest.mark.parametrize("kind", ["lfu", "ftpl", "gds"])
+def test_minpair_pointers_in_l2_match_plain(card, kind):
+    """Slots padded past the shared-memory pointers: the L2 plan."""
+    from repro_torch.kernels.minpair_automaton.ops import DESIGN_GDS_L2, DESIGN_L2, design
+
+    c = 1000
+    assert design(L2_SLOTS, kind == "gds") == (DESIGN_GDS_L2 if kind == "gds" else DESIGN_L2)
+    n, trace = _evicting_trace(c, 12)
+    reset_launch_counts()
+    dev = _minpair_case(kind, _minpair_carry(kind, n, c, L2_SLOTS, seed=1), trace, 3, card)
+    assert design_counts()["minpair_automaton"] == {design(L2_SLOTS, kind == "gds"): 3}
+    assert bool((dev.slots[c:] == -2).all())
+
+
+@pytest.mark.parametrize("ring", [2**12, 2**18, 2**21])
+def test_tree_lru_rings_with_forced_compactions_match_plain(card, ring):
+    """The ring's levels from 1 (2^12, 2^18) or 2 (2^21) up in shared
+    memory: chunk by chunk from a position near the ring's end, so the first
+    chunk compacts (and, at 2^12, every other), against the plain version on
+    the CPU."""
+    from repro_torch.cachesim import tree_engines as ttree
+    from repro_torch.kernels.tree_lru.ops import CHUNK, COMPACTION, tree_lru
+
+    c, window = (300, 1000) if ring == 2**12 else (5000, 20_000)
+    n = 8 * c
+    trace = zipf(n, 4 * window, alpha=0.8, seed=ring % 97).astype(np.int32)
+    cpu = ttree.init_tree_engine_carry("lru", n, c, ring=ring, device="cpu")
+    ttree.tree_chunk("lru", cpu, torch.from_numpy(trace[:window]))
+    cpu.pos.fill_(ring - window // 2)  # the next chunk must compact
+    dev = [x.to(card) for x in cpu.tensors()]
+    reset_launch_counts()
+    for i in range(1, 4):
+        ids = torch.from_numpy(trace[i * window:(i + 1) * window])
+        fc = torch.empty(window, dtype=torch.bool)
+        fd = torch.empty(window, dtype=torch.bool, device=card)
+        hc, sc = tree_lru(*cpu.tensors()[:5], ids, ring, flags=fc)
+        hd, sd = tree_lru(*dev[:5], ids.to(card), ring, flags=fd)
+        assert int(hd) == int(hc) and torch.equal(sd.cpu(), sc) and torch.equal(fd.cpu(), fc)
+        for a, b in zip(dev, cpu.tensors()):
+            assert torch.equal(a.cpu(), b)
+    designs = design_counts()["tree_lru"]
+    assert designs[CHUNK] == 3 and designs[COMPACTION] == 3
