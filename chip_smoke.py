@@ -101,8 +101,9 @@ script with a non-zero exit:
    full (N = 1e6, T = 2e7, C = 50 000, B = 1000, a window of 1e6) for OGB,
    OMD, the tree LRU, LFU and FTPL and FIFO (the FIFO queue, past the slot
    kernel's 16 384 slots), OGB held to a share of OPT(static) and above
-   LRU (Fig. 8-left), each row's hit ratio and us a request printed, every
-   tree kernel and the FIFO queue launched, three chunks of each automaton
+   LRU (Fig. 8-left), FIFO's hits the recorded ones, each row's hit
+   ratio and us a request printed, every tree kernel and the FIFO queue
+   launched, three chunks of each automaton
    row run again under torch's sync debug mode "error" (no read of the
    device in a chunk);
 19. the tree automata's kernels against their plain versions on the card,
@@ -118,13 +119,19 @@ script with a non-zero exit:
    turns (tools/time_automaton_designs.py), and a ring compaction's;
 20. the sized axis's kernels against their plain versions, bit for bit on
    the card and against the CPU: the FIFO queue at C = 25, 1000, 16 384 and
-   50 000 and padded, every case evicting; minpair_automaton's GDS mode at
+   50 000 and padded, and on churn traces (tiles that evict items they
+   request again) at C = 31, 32, 1000 and 50 000 and padded, every case
+   evicting and both its plans launched; minpair_automaton's GDS mode at
    C = 23, 1000, 16 384, 50 000, 64, 65 and 4097 with dyadic costs, padded
-   and with its pointers in L2 (timed beside its earlier design); the
-   stacked tree update and the sized solve at a sized_cdn full chunk
-   recorded from a mid-run state (the update also as 4 one-tree launches,
-   the design it replaces), and the int32 tree update; each timed cold
-   beside its bound and its plain version;
+   and with its pointers in L2; the FIFO queue and the GDS mode timed
+   beside their earlier designs, in turns (tools/time_automaton_designs.py);
+   the stacked tree update at a sized_cdn full chunk recorded from a
+   mid-run state (also as 4 one-tree launches, the design it replaces);
+   the sized solve at that chunk and at built instances with G = 1, 6, 32,
+   33 and 200 groups of buckets holding an item, both its plans counted,
+   beside its earlier design in turns and at 0, 1 and 30 steps
+   (tools/sweep_threshold_solves.py); and the int32 tree update; each
+   timed cold beside its bound and its plain version;
 21. the sized scenario: sized_cdn at mini on the card against the golden
    (GDS, LRU, LFU, FTPL and OPT(static) hit and byte hit ratios exactly,
    OGB_sized_tree's byte regret within its tolerance), at quick against
@@ -135,7 +142,9 @@ script with a non-zero exit:
    launch a chunk of each automaton row (GDS, LFU and FTPL one
    minpair_automaton each), three stacked tree updates, one sized solve
    and one histogram a chunk of OGB_sized_tree, and three chunks of the
-   GDS row and of OGB_sized_tree under sync debug mode "error".
+   GDS row and of OGB_sized_tree under sync debug mode "error"; every
+   full row's hit and byte hit ratio the recorded ones, and the G the
+   sized solve met over the full run (its plans' device tally).
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -214,7 +223,8 @@ KERNELS = ("histogram", "mass", "apply", "segsum", "tree_update", "bucket_mass",
 #: the one design of each kernel that has one (the others name theirs in
 #: their rows: the attention kernels by design(), the histogram, the clip
 #: and the two threshold solves by the launches of their main path, the
-#: tree automata's kernels by their packages' design names, phase 19)
+#: tree automata's kernels by their packages' design names, phase 19, and
+#: the FIFO queue its two plans', phase 20)
 DESIGNS = {
     "segsum": "whole tree, one launch: a block a tile of 4096 leaves (levels 1-2 in shared "
               "memory), the last block by atomic ticket the levels above; each node one warp, "
@@ -227,9 +237,6 @@ DESIGNS = {
                       "beside their eviction keys, the requests in order, one block-wide argmin "
                       "over (key, slot) a request (redux.sync, one __syncthreads; none on one "
                       "warp); counts a tile of requests at a time",
-    "fifo_queue": "one warp a chunk: the victims in the order a run derives once from the "
-                  "carry, a tile of 32 requests and their 32 possible victims read at once, "
-                  "imap kept current by broadcast",
 }
 #: the design of the standalone apply kernel, which phase 3 times (the dense
 #: main path's clip is the projection's epilogue)
@@ -280,6 +287,25 @@ INT32_BUILD_LEAVES = (262_144, 2_097_152)
 #: phase 20's capacities of the FIFO queue (from one warp's lanes past the
 #: slot kernel's 16 384) and of the GDS mode
 FIFO_CS = (25, 1000, 16384, 50000)
+#: phase 20's FIFO cases on churn traces (requests that keep the queue's
+#: oldest items in play): each side of the tile plan's 32 active slots,
+#: padded slots, quick's C (a one-warp tile), 5000 (two warps) and fig8_cdn
+#: full's (eight); requests after the fill
+FIFO_CHURN_CASES, FIFO_CHURN_IDS = ((31, None), (32, None), (31, 40), (32, 40), (1000, None),
+                                    (5000, None), (50000, None)), 20_000
+#: fig8_cdn full's FIFO hits (hit ratio 0.51661145 of 2e7), as the earlier
+#: designs of the FIFO queue gave them
+FIG8_FIFO_HITS = 10_332_229
+#: sized_cdn full's rows as the earlier designs printed them (hit ratio, byte hit
+#: ratio): the kernels on its path are bit for bit their plain versions
+SIZED_FULL_ROWS = {
+    "OGB_sized_tree": (0.47094605, 0.1526340598879972),
+    "GDS": (0.5871178, 0.13628431225493215),
+    "LRU": (0.553772, 0.13982521164859485),
+    "LFU": (0.65334045, 0.15042566423160866),
+    "FTPL": (0.63125105, 0.15018568524726408),
+    "OPT(static)": (0.6621757, 0.274805157402888),
+}
 #: the sized scenario, and the chunks of its full run before the state that
 #: phase 20 records a chunk of
 SIZED = "sized_cdn"
@@ -2133,6 +2159,8 @@ def check_paper_scale(torch):
     need(min(launches[k] for k in ("tree_lru", "minpair_automaton", "segsum", "fifo_queue")) > 0,
          f"fig8 full: a tree kernel or the FIFO queue was not launched: {launches}")
     need(0.0 < res.rows["FIFO"]["hit_ratio"] < opt, f"fig8 full FIFO: {res.rows['FIFO']}")
+    need(round(res.rows["FIFO"]["hit_ratio"] * t) == FIG8_FIFO_HITS,
+         f"fig8 full FIFO: {res.rows['FIFO']['hit_ratio']} is not {FIG8_FIFO_HITS} hits of {t}")
     print(f"fig8_cdn full: OPT(static) {opt}; OGB at least {FIG8_OGB_FLOOR} of it and above LRU "
           f"(Fig. 8-left, benchmarks/fig7_8_traces.py:57): met ({wall:.2f} s); launches "
           f"{launches} (segsum: int32 tree builds, one a ring compaction)")
@@ -2372,11 +2400,32 @@ def fifo_copy(carry, dev):
 
 def fifo_bytes(torch, ids, hits):
     """Bytes one FIFO chunk must move: the ids read, each distinct requested
-    item's imap entry read once, and for each miss the victim's order entry
-    and slot read and its slot, stamp and two imap entries written; the
-    clock, head and occupancy read and written, and the three outputs."""
+    item's ticket read once, and for each miss the victim's order entry
+    read and its slot, stamp and the item's ticket written; the clock,
+    head, misses and occupancy read and written, and the three outputs."""
     misses = ids.numel() - hits
-    return 4 * ids.numel() + 4 * torch.unique(ids).numel() + 24 * misses + 24 + 16
+    return 4 * ids.numel() + 4 * torch.unique(ids).numel() + 16 * misses + 32 + 16
+
+
+def fifo_churn_trace(n, c, length, seed):
+    """C distinct ids (admitted in order), then ``length`` requests that keep
+    the queue's oldest items in play: new ids, ids admitted about C misses
+    ago (at the queue's head, or just evicted) and repeats of the last few;
+    a tile then evicts items that it requests again."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    u = rng.random(length)
+    out, nxt = list(range(c)), c
+    for x in u:
+        if x < 0.4:
+            out.append(nxt % n)
+            nxt += 1
+        elif x < 0.75:
+            out.append(int(rng.integers(max(0, nxt - c - 40), max(1, nxt - c + 40))) % n)
+        else:
+            out.append(out[-1 - int(rng.integers(0, 8))])
+    return np.asarray(out, dtype="int32")
 
 
 def gds_copy(carry, dev):
@@ -2444,20 +2493,22 @@ def check_sized_kernels(torch, dev):
 
     from repro_torch.cachesim import engines as teng
     from repro_torch.cachesim import tree_engines as tt
-    from repro_torch.cachesim.traces import adversarial, zipf
+    from repro_torch.kernels import design_counts
+    from repro_torch.kernels.fifo_queue.ops import DESIGN as FIFO_TILE
+    from repro_torch.kernels.fifo_queue.ops import DESIGN_CHAIN as FIFO_CHAIN
     from repro_torch.kernels.fifo_queue.ops import fifo_queue
     from repro_torch.kernels.fifo_queue.ref import fifo_queue_ref
     from repro_torch.kernels.minpair_automaton.ops import DESIGN_GDS
     from repro_torch.kernels.minpair_automaton.ref import gds_automaton_ref
-    from repro_torch.kernels.prefix_tree.kernel import solve_sized
+    from repro_torch.kernels.prefix_tree.kernel import SIZED_DESIGN, read_sized_tally
     from repro_torch.kernels.prefix_tree.ops import stacked_tree_update_, tree_update_
     from repro_torch.kernels.prefix_tree.ref import (
-        sized_groups,
         solve_sized_ref,
         stacked_tree_update_ref,
         tree_build_ref,
         tree_update_ref,
     )
+    from tools.sweep_threshold_solves import EARLIER_SIZED_DESIGN, time_sized
     from tools.time_automaton_designs import EARLIER_DESIGNS, time_designs
 
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
@@ -2472,16 +2523,24 @@ def check_sized_kernels(torch, dev):
         return reset
 
     rng = np.random.default_rng(20)
-    rows, err = {}, 0.0
+    rows = {}
     # (a) the FIFO queue and (b) GDS: every case bit for bit, every case evicting
     n_cases = 0
+    fifo_before = dict(design_counts().get("fifo_queue", {}))
     for kind in ("fifo", "gds"):
-        cases = [(c, None) for c in (FIFO_CS if kind == "fifo" else TREE_CS)]
-        cases += [(1000, 1037)] if kind == "fifo" else [(23, 60), (1000, 1037)]
-        if kind == "gds":
-            cases += [(c, None) for c in MINPAIR_EDGE_CS] + [(1000, MINPAIR_L2_SLOTS)]
-        for c, n_slots in cases:
-            n, trace = tree_case_trace(c, c)
+        cases = [(c, None, False) for c in (FIFO_CS if kind == "fifo" else TREE_CS)]
+        cases += [(1000, 1037, False)] if kind == "fifo" else [(23, 60, False),
+                                                               (1000, 1037, False)]
+        if kind == "fifo":
+            cases += [(c, n_slots, True) for c, n_slots in FIFO_CHURN_CASES]
+        else:
+            cases += [(c, None, False) for c in MINPAIR_EDGE_CS] + [(1000, MINPAIR_L2_SLOTS, False)]
+        for c, n_slots, churn in cases:
+            if churn:
+                n = max(4 * c, 2000)
+                trace = fifo_churn_trace(n, c, FIFO_CHURN_IDS, c)
+            else:
+                n, trace = tree_case_trace(c, c)
             if kind == "fifo":
                 cpu = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, n_slots=n_slots,
                                                                  device="cpu"), n)
@@ -2509,7 +2568,7 @@ def check_sized_kernels(torch, dev):
                                              part.to(dev))
                     cpu, on_cpu = tt.tree_chunk("gds", cpu, part)
                 e = max_abs_diff(torch, (*got, *tensors(card)), (*want, *tensors(plain)))
-                label = f"{kind} C={c} n_slots={n_slots or c}"
+                label = f"{kind} C={c} n_slots={n_slots or c}{' churn' if churn else ''}"
                 need(e == 0, f"{label}: card differs from the plain version by {e}")
                 for a, h in zip((*got, *tensors(card)), (*on_cpu, *tensors(cpu))):
                     need(torch.equal(a.cpu(), h), f"{label}: card differs from the CPU")
@@ -2518,61 +2577,44 @@ def check_sized_kernels(torch, dev):
             if n_slots:
                 need(bool((card.slots[c:] == -2).all()), f"{kind} C={c}: an inactive slot written")
             n_cases += 1
+    fifo_plans = {d: n - fifo_before.get(d, 0)
+                  for d, n in design_counts().get("fifo_queue", {}).items()}
+    need(fifo_plans.get(FIFO_TILE, 0) > 0 and fifo_plans.get(FIFO_CHAIN, 0) > 0,
+         f"the FIFO cases did not launch both plans: {fifo_plans}")
     print(f"fifo_queue and minpair_automaton's GDS mode: {n_cases} cases (FIFO at C in "
-          f"{FIFO_CS}, GDS at C in {TREE_CS + MINPAIR_EDGE_CS} with dyadic sizes and costs, "
-          f"padded slots, and {MINPAIR_L2_SLOTS} slots: its pointers in L2), C "
-          f"distinct ids filling the slots, then {TREE_IDS} ids: hits, stats and every carry "
-          f"leaf (FIFO: and the run's queue) bit for bit against the plain version on the card "
-          f"and the CPU; every case evicts")
+          f"{FIFO_CS} and, on churn traces, {FIFO_CHURN_CASES}; GDS at C in "
+          f"{TREE_CS + MINPAIR_EDGE_CS} with dyadic sizes and costs, padded slots, and "
+          f"{MINPAIR_L2_SLOTS} slots: its pointers in L2), C distinct ids filling the slots, "
+          f"then {TREE_IDS} ids: hits, stats and every carry leaf (FIFO: and the run's queue) "
+          f"bit for bit against the plain version on the card and the CPU; every case evicts; "
+          f"FIFO launches by plan: tile {fifo_plans.get(FIFO_TILE, 0)}, chain "
+          f"{fifo_plans.get(FIFO_CHAIN, 0)}")
 
-    # the FIFO queue's time, and the GDS mode's beside its earlier design
-    # (tools/time_automaton_designs.py), cold from a full carry
-    timed = {}
-    for c, (n, w) in TREE_TIMED.items():
-        fill = np.concatenate([adversarial(n, c, seed=9), zipf(n, w, alpha=0.9, seed=9)])
-        chunk = torch.from_numpy(zipf(n, w, alpha=0.9, seed=10).astype("int32")).to(dev)
-        card = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, device=dev), n)
-        fifo_queue(card.slots, card.stamps, card.t, card.queue,
-                   torch.from_numpy(fill.astype("int32")).to(dev))
-        start, plain = fifo_copy(card, dev), fifo_copy(card, dev)
-        t0 = time.perf_counter()
-        want = fifo_queue_ref(plain.slots, plain.stamps, plain.t, plain.queue, chunk)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-
-        def kern(card=card):
-            return fifo_queue(card.slots, card.stamps, card.t, card.queue, chunk)
-
-        got = kern()
-        e = max_abs_diff(torch, (*got, *fifo_tensors(card)), (*want, *fifo_tensors(plain)))
-        need(e == 0, f"fifo C={c}, the timed chunk: differs from the plain version by {e}")
-        err = max(err, e)
-        hits = int(got[0])
-        n_bytes = fifo_bytes(torch, chunk, hits)
-        ms = timed_ms(torch, kern, 2 if w > 100_000 else 5, flush,
-                      reset=restorer(fifo_tensors(card), fifo_tensors(start)))
-        b, by = bound_ms(n_bytes, 0)
-        timed[c] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                    "max_abs_err": e, "us_per_request": ms * 1e3 / w,
-                    "plain_us_per_request": plain_ms * 1e3 / w, "window": w, "N": n,
-                    "hits": hits}
-        print(f"fifo C={c} N={n}, a {w}-request chunk from a full carry ({hits} hits): "
-              f"cold {ms:.4f} ms ({ms * 1e3 / w:.5f} us a request); plain on the card "
-              f"{plain_ms:.2f} ms ({plain_ms * 1e3 / w:.4f} us a request); bound "
-              f"{b * 1e3:.4f} us by {by} ({n_bytes} bytes); max abs err {e}")
-    gds = {c: row for (_, c), row in time_designs(torch, dev, ("gds",), flush).items()}
-    for kind, by_c in (("fifo", timed), ("gds", gds)):
+    # the FIFO queue and the GDS mode beside their earlier designs
+    # (tools/time_automaton_designs.py), cold from a full carry, in turns
+    timed = time_designs(torch, dev, ("fifo", "gds"), flush)
+    notes = {"fifo": "latency-bound: a round of shared atomics and four block barriers a tile "
+                     "of up to 1024 requests, the loads a tile ahead",
+             "gds": "latency-bound: a chain of dependent requests on one warp"}
+    for kind, name in (("fifo", "fifo_queue"), ("gds", "gds")):
+        by_c = {c: row for (k, c), row in timed.items() if k == kind}
         main = by_c[50000]
-        rows["fifo_queue" if kind == "fifo" else "gds"] = {
-            "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
-            "max_abs_err": max([err] + [row["max_abs_err"] for row in by_c.values()]),
-            "bound_note": "latency-bound: a chain of dependent requests on one warp",
+        rows[name] = {
+            "ms": main["ms"], "earlier_ms": main["earlier_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+            "max_abs_err": max(row["max_abs_err"] for row in by_c.values()),
+            "bound_note": notes[kind],
             "timed": f"{kind} at fig8_cdn full's shape from a full carry: C=50000, "
                      f"N={TREE_TIMED[50000][0]}, a chunk of {TREE_TIMED[50000][1]}",
             "by_c": by_c}
-    rows["gds"].update(earlier_ms=gds[50000]["earlier_ms"], design=DESIGN_GDS,
-                       earlier_design=EARLIER_DESIGNS["minpair_automaton"])
+    card = nvidia_smi_line()
+    print("fifo_queue beside its earlier design, cold from a full carry: "
+          + "; ".join(f"C={c} {row['ms']:.4f} ms (earlier {row['earlier_ms']:.4f})"
+                      for (k, c), row in timed.items() if k == "fifo") + f" [{card}]")
+    rows["gds"].update(design=DESIGN_GDS, earlier_design=EARLIER_DESIGNS["minpair_automaton"])
+    rows["fifo_queue"].update(design=FIFO_TILE, chain_design=FIFO_CHAIN,
+                              earlier_design=EARLIER_DESIGNS["fifo_queue"],
+                              launches_by_plan_phase20=fifo_plans)
 
     # (c) the stacked tree update and (d) the sized solve at a recorded chunk
     calls = sized_state(torch)
@@ -2613,29 +2655,34 @@ def check_sized_kernels(torch, dev):
               f"{trees0.shape[0]} trees, {touched} nodes changed): cold {ms * 1e3:.2f} us; "
               f"{trees0.shape[0]} one-tree launches {k_ms * 1e3:.2f} us; plain on the card "
               f"{plain_ms * 1e3:.2f} us; bound {b * 1e3:.4f} us by {by}; bit for bit")
+    # the sized solve at the recorded chunk and at built G, beside its
+    # earlier design (tools/sweep_threshold_solves.py)
     ycnt, ysum, v, s_, cap_, lo, hi, iters = calls["solve"][0]
-    got = solve_sized(ycnt, ysum, v, s_, cap_, lo, hi, iters)
-    want = solve_sized_ref(ycnt[:, :v], ysum[:, :v], s_, cap_, lo, hi, iters)
-    on_cpu = solve_sized_ref(ycnt[:, :v].cpu(), ysum[:, :v].cpu(), s_.cpu(), cap_.cpu(),
-                             lo.cpu(), hi.cpu(), iters)
-    solve_err = max(abs(float(got) - float(want)), abs(float(got) - float(on_cpu)))
-    need(solve_err <= 1e-6 * max(1.0, abs(float(want))),
-         f"the sized solve differs from its plain version by {solve_err}")
-    ms = timed_ms(torch, lambda: solve_sized(ycnt, ysum, v, s_, cap_, lo, hi, iters), 20, flush)
+    tally = read_sized_tally(dev)
+    sized = time_sized(torch, dev, flush, calls["solve"][0])
+    after = read_sized_tally(dev)
+    plans = {p: after[p] - tally[p] for p in ("few groups", "block")}
+    need(min(plans.values()) > 0, f"the sized solve's cases did not take both plans: {plans}")
     t0 = time.perf_counter()
     solve_sized_ref(ycnt[:, :v], ysum[:, :v], s_, cap_, lo, hi, iters)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    groups = sized_groups(ycnt[:, :v]).shape[0]
-    kk = ycnt.shape[0]
-    b, by = bound_ms(4 * kk * (v // 64) + 8 * 64 * groups, 6 * iters * 64 * groups)
-    rows["solve_sized"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                           "max_abs_err": solve_err, "bit_for_bit": solve_err == 0.0,
-                           "groups": groups, "classes": kk, "iters": iters, "library_ms": None}
-    print(f"sized solve, the recorded chunk ({kk} classes, {groups} groups of 64 buckets holding "
-          f"an item, {iters} Newton steps): cold {ms * 1e3:.2f} us; plain on the card "
-          f"{plain_ms:.2f} ms; bound {b * 1e3:.4f} us by {by}; |card - plain| {solve_err} (card "
-          f"and CPU plain versions: {float(want)} and {float(on_cpu)})")
+    main = sized["recorded sized_cdn full chunk"]
+    rows["solve_sized"] = {"ms": main["ms"], "earlier_ms": main["earlier_ms"],
+                           "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
+                           "bound_by": main["bound_by"], "max_abs_err": 0.0, "bit_for_bit": True,
+                           "groups": main["groups"], "classes": main["classes"],
+                           "iters": iters, "plan": main["plan"],
+                           "us_by_steps": main["us_by_steps"], "library_ms": None,
+                           "design": SIZED_DESIGN, "earlier_design": EARLIER_SIZED_DESIGN,
+                           "launches_by_plan_phase20": plans,
+                           "by_case": {k: {x: y for x, y in r.items() if x != "runs_ms"}
+                                       for k, r in sized.items()}}
+    print(f"sized solve, the recorded chunk: {main['ms'] * 1e3:.2f} us (earlier design "
+          f"{main['earlier_ms'] * 1e3:.2f}; 0, 1 and 30 steps "
+          + ", ".join(f"{v:.2f}" for v in main["us_by_steps"]["current"].values())
+          + f" us); plain on the card {plain_ms:.2f} ms; both plans launched over the cases "
+          f"({plans}) [{nvidia_smi_line()}]")
     rows["stacked_update"] = {**upd[0], "calls": upd, "max_abs_err": upd_err, "library_ms": None}
 
     # the int32 tree update at a C = 50 000 ring's shape (262 144 leaves,
@@ -2661,6 +2708,7 @@ def check_sized_scenario(torch, cpu_future):
     """Phase 21: sized_cdn at mini against the golden, at quick against the
     CPU, at full with every row."""
     from repro_torch.cachesim.scenarios import get_scenario
+    from repro_torch.kernels.prefix_tree.kernel import read_sized_tally, reset_sized_tally
 
     sc = get_scenario(SIZED)
     res, _, wall = _scenario_launches(SIZED, "mini")
@@ -2707,7 +2755,10 @@ def check_sized_scenario(torch, cpu_future):
     sizes, cap = sc.make_sizes("full"), sc.byte_capacity("full")
     print(f"{SIZED} full: trace N={n} T={t} in {time.perf_counter() - t0:.2f} s, C={c}, byte "
           f"budget {cap}, sizes {sorted(set(sizes.tolist()))}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    reset_sized_tally(dev)
     res, launches, wall = _scenario_launches(SIZED, "full", trace=trace)
+    groups = sized_groups_seen(read_sized_tally(dev), launches["bucket_mass"])
     card = nvidia_smi_line()
     for p, r in sorted(res.rows.items()):
         print(f"{SIZED} full {p}: hit ratio {r['hit_ratio']}, byte hit ratio {r['byte_hit_ratio']}"
@@ -2717,6 +2768,13 @@ def check_sized_scenario(torch, cpu_future):
     for p, r in res.rows.items():
         need(0.0 < r["hit_ratio"] < 1.0 and 0.0 < r["byte_hit_ratio"] < 1.0,
              f"{SIZED} full {p}: {r}")
+        need((r["hit_ratio"], r["byte_hit_ratio"]) == SIZED_FULL_ROWS[p],
+             f"{SIZED} full {p}: hit and byte hit ratio {r['hit_ratio']}, {r['byte_hit_ratio']} "
+             f"are not the recorded {SIZED_FULL_ROWS[p]}")
+    print(f"{SIZED} full: every row's hit and byte hit ratio the recorded ones; the sized "
+          f"solve's {launches['bucket_mass']} launches met G (groups of 64 buckets holding an "
+          f"item) max {groups['max']}, median {groups['median']}: few-groups plan "
+          f"{groups['few groups']}, block plan {groups['block']}")
     need(math.isfinite(res.rows["OGB_sized_tree"]["byte_regret"]), f"{SIZED} full OGB_sized_tree")
     pols = [p for p in res.rows if p != "OPT(static)"]
     by_obj = sorted(pols, key=lambda p: -res.rows[p]["hit_ratio"])
@@ -2730,7 +2788,21 @@ def check_sized_scenario(torch, cpu_future):
     check_no_host_reads(torch, trace, n, cap, 1000, ("ogb_sized",), label=f"{SIZED} full",
                         sizes=sizes)
     return launches, {p: {k: r[k] for k in ("hit_ratio", "byte_hit_ratio", "us_per_request")
-                          if k in r} for p, r in res.rows.items()}, flip
+                          if k in r} for p, r in res.rows.items()}, flip, groups
+
+
+def sized_groups_seen(tally, launches):
+    """The sized solve's tally over a run of ``launches`` solves: its plans'
+    launches and the largest and the median G they met."""
+    need(tally["few groups"] + tally["block"] == launches,
+         f"the sized solve's tally {tally} does not count the run's {launches} launches")
+    seen, at, median = sorted(tally["groups"].items()), 0, None
+    for g, n in seen:
+        at += n
+        if median is None and 2 * at >= launches:
+            median = g
+    return {"few groups": tally["few groups"], "block": tally["block"], "max": seen[-1][0],
+            "median": median, "by_groups": dict(seen)}
 
 
 def main() -> int:
@@ -2751,6 +2823,7 @@ def main() -> int:
 
     dev = torch.device("cuda", torch.cuda.current_device())
     card = nvidia_smi_line()
+    t_main = time.perf_counter()
     print(f"python {platform.python_version()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, numpy {np.__version__}")
     print(f"card: {card}")
@@ -2804,7 +2877,8 @@ def main() -> int:
         sized_rows = check_sized_kernels(torch, dev)
         print(f"sized kernels phase 20: {time.perf_counter() - t_sized:.2f} s")
         t_sized = time.perf_counter()
-        sized_launches, sized_full, sized_flip = check_sized_scenario(torch, cpu_futures[SIZED])
+        sized_launches, sized_full, sized_flip, sized_groups = check_sized_scenario(
+            torch, cpu_futures[SIZED])
         print(f"sized scenario phase 21: {time.perf_counter() - t_sized:.2f} s")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
@@ -2831,6 +2905,7 @@ def main() -> int:
     rows["tree_update"]["stacked"] = sized_rows["stacked_update"]
     rows["tree_update"]["int32"] = sized_rows["int32_update"]
     rows["bucket_mass"]["sized"] = sized_rows["solve_sized"]
+    rows["bucket_mass"]["sized"]["sized_cdn_full_groups"] = sized_groups
     rows["sized_cdn_full"] = {"rows": sized_full, "ranking_flip": sized_flip}
     # the int32 tree build: a ring compaction's, launched on the scenario paths
     rows["segsum"]["int32"] = {"by_leaves": int32_build,
@@ -2856,6 +2931,7 @@ def main() -> int:
          "launches": launches[name], **rows[name]}
         for name in KERNELS
     ]
+    print(f"chip_smoke.py: every phase in {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels, "sized_cdn_full": rows["sized_cdn_full"]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

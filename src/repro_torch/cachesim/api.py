@@ -58,6 +58,7 @@ from repro_torch.core.omd import theoretical_eta_omd
 from repro_torch.core.regret import best_static_hits
 from repro_torch.jaxcache.fractional import DEFAULT_BISECT_ITERS, DEFAULT_WARM_SWEEPS
 from repro_torch.kernels.capped_simplex.ops import weighted_simplex_project
+from repro_torch.kernels.fifo_queue.ref import MAX_REQUESTS as FIFO_MAX_REQUESTS
 
 __all__ = [
     "OGBCarry",
@@ -900,6 +901,9 @@ def run(
     lo, hi = int(trace_used.min()), int(trace_used.max())
     if lo < 0 or (n is not None and hi >= n):
         raise ValueError(f"trace ids must lie in [0, {n}), got [{lo}, {hi}]")
+    if pd.kind == "fifo" and t_used > FIFO_MAX_REQUESTS:
+        raise ValueError(f"a FIFO run serves at most {FIFO_MAX_REQUESTS} requests (its queue's "
+                         f"int32 admission tickets), got {t_used}")
     if pd.start is not None:
         carry = pd.start(carry, int(n) if n is not None else hi + 1)
     chunks = torch.from_numpy(trace_used.astype(np.int32).reshape(m, window)).to(dev)

@@ -4,12 +4,14 @@ The reference runs FIFO as ``lax.scan`` over its per-request step
 (``repro.cachesim.engines._fifo_step``, a compare and an argmin over every
 slot); no Pallas kernel is involved.  Its victims walk the active slots in
 one order fixed at the start of a run (:mod:`.ref`), so a request is O(1)
-given that order and an item -> slot map, derived once a run
+given that order and each item's admission ticket, derived once a run
 (:func:`~.ref.derive_queue`).  On a CUDA tensor :func:`fifo_queue`
-launches ``csrc/fifo_queue.cu`` once for the whole chunk: one warp, the
-requests in order, a tile of 32 read at once.  On a CPU tensor it runs the
-plain version, :func:`~.ref.fifo_queue_ref`.  Either way the carry and the
-derived state are updated in place.
+launches ``csrc/fifo_queue.cu`` once for the whole chunk, in one of two
+plans by the active slots (:func:`design`): from TILE_MIN_SLOTS a block
+resolves a tile of 32 to 1024 requests at once (:func:`tile_requests`),
+below it one warp takes the requests in order.  On a CPU tensor it runs
+the plain version, :func:`~.ref.fifo_queue_ref`.  Either way the carry and
+the derived state are updated in place.
 """
 
 from __future__ import annotations
@@ -23,16 +25,37 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fifo_queue.ref import FIFOQueue, fifo_queue_ref
 
-#: the design the wrapper counts its launches under
-DESIGN = ("one warp a chunk: the victims in the run's fixed order, a tile of 32 requests "
-          "and their 32 possible victims read at once, imap kept current by broadcast")
+#: the active slots from which a chunk runs the tile plan (kTileMinSlots):
+#: below it a tile may evict what it admits
+TILE_MIN_SLOTS = 32
+#: the most warps of a tile (kTileWarps), and the active slots a warp of it
+#: (kSlotsPerWarp): a tile is 32 requests a warp, at most A / 32
+TILE_WARPS, SLOTS_PER_WARP = 32, 1024
+#: the designs the wrapper counts its launches under, by plan
+DESIGN = ("tile: one block a chunk, admission tickets; a tile of 32 to 1024 requests (a "
+          "thread each, a warp a 1024 active slots) resolved at once: first occurrences by "
+          "a shared hash of the tile's ids, ranks by __ballot_sync and a warp scan, the "
+          "requests an eviction of the tile may reach settled in order by one warp; the next "
+          "tile's tickets and victims loaded a tile ahead, its tickets patched from the hash")
+DESIGN_CHAIN = ("chain: one warp a chunk, admission tickets; the requests in order, each "
+                "ticket broadcast from its lane")
+
+
+def design(active: int) -> str:
+    """The plan a chunk over ``active`` active slots runs."""
+    return DESIGN if active >= TILE_MIN_SLOTS else DESIGN_CHAIN
+
+
+def tile_requests(active: int) -> int:
+    """The requests of one tile of the tile plan over ``active`` slots."""
+    return 32 * min(TILE_WARPS, max(1, active // SLOTS_PER_WARP))
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.library("fifo_queue").repro_fifo_queue
     i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, p, p, p, p, p, i, p, p, p, p, p, p, p]
+    fn.argtypes = [i, p, p, p, p, p, i, p, p, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -46,8 +69,9 @@ def fifo_queue(
     flags: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One FIFO chunk over int32 ``ids`` (each below ``queue.imap``'s
-    length), in place: ``slots`` and ``stamps`` (K,) int32, the () int32
-    clock ``t`` and the run's :class:`~.ref.FIFOQueue`.
+    length; at most :data:`~.ref.MAX_REQUESTS` since the queue was derived),
+    in place: ``slots`` and ``stamps`` (K,) int32, the () int32 clock ``t``
+    and the run's :class:`~.ref.FIFOQueue`.
 
     Returns ``(hits, stats)``: the () int32 hit count and the (3,) float32
     (reward, aux, occupancy); ``flags``, a (window,) bool tensor where given,
@@ -57,7 +81,7 @@ def fifo_queue(
     dev = slots.device
     for name, x in (("slots", slots), ("stamps", stamps), ("t", t), ("order", queue.order),
                     ("head", queue.head), ("imap", queue.imap), ("occ", queue.occ),
-                    ("ids", ids)):
+                    ("misses", queue.misses), ("ids", ids)):
         _build.require(x, torch.int32, name, dev)
     if ids.dim() != 1 or ids.numel() < 1:
         raise ValueError(f"ids must be a non-empty 1-D tensor, got shape {tuple(ids.shape)}")
@@ -73,13 +97,13 @@ def fifo_queue(
         _entry()(
             ids.numel(), ids.data_ptr(), slots.data_ptr(), stamps.data_ptr(), t.data_ptr(),
             queue.order.data_ptr(), queue.order.numel(), queue.head.data_ptr(),
-            queue.imap.data_ptr(), queue.occ.data_ptr(),
+            queue.misses.data_ptr(), queue.imap.data_ptr(), queue.occ.data_ptr(),
             flags.data_ptr() if flags is not None else None, hits.data_ptr(), stats.data_ptr(),
             _build.stream_of(slots),
         ),
         "fifo_queue",
     )
-    _build.counted(fifo_queue, DESIGN)
+    _build.counted(fifo_queue, design(queue.order.numel()))
     return hits, stats
 
 

@@ -12,13 +12,27 @@ So a miss only ever takes the head of the active slots ordered by (stamp,
 index), the empty ones first, and moves it to the tail: the victims walk
 that order round and round.  A run derives, once, the state that makes a
 request O(1) (:func:`derive_queue`): the order (``order``, the active slots
-by (stamp, index)), the position of its head (``head``), an item -> slot map
-(``imap``, -1 where the item is not held) and the slots that hold an item
-(``occ``).  A chunk then is, per request: ``imap[j] >= 0`` is a hit; a miss
-takes ``v = order[head]``, drops the item it held from ``imap``, writes j
-and the clock into slot v, and advances ``head`` by one, modulo the active
-slots.  The carry's ``slots``, ``stamps`` and ``t`` are the reference's,
-bit for bit, after every chunk.
+by (stamp, index)), the position of its head (``head``), each item's
+admission ticket (``imap``), the slots that hold an item (``occ``) and the
+misses since the queue was derived (``misses``).
+
+Admission tickets.  Number the misses after the derivation 0, 1, 2, ...:
+the g-th takes ``order[g mod A]`` (A the active slots), so the item it
+admits is evicted by miss g + A.  An item's ticket is the number of the
+miss that admitted it; an item held at the derivation, at position p of
+the order, gets p - A (miss p evicts it), and an item not held
+TICKET_NONE, below every ticket.  After M misses item j is held iff
+``M - A <= imap[j]``.  A chunk then is, per request: that test; a hit
+changes nothing; a miss takes ``v = order[head]``, writes j and the clock
+into slot v and M into ``imap[j]``, and advances ``head`` (M mod A) and M.
+Nothing of the evicted item is read or written: its ticket falls behind by
+itself.  The empty slots come first in the order (stamp -1, below every
+written stamp), so the occupancy is ``min(A, occ + misses)``.
+
+Tickets and M are int32, and M grows by at most one a request: a queue
+serves MAX_REQUESTS requests after its derivation (a run derives it anew
+and raises for a longer trace).  The carry's ``slots``, ``stamps`` and
+``t`` are the reference's, bit for bit, after every chunk.
 """
 
 from __future__ import annotations
@@ -29,15 +43,20 @@ import numpy as np
 import torch
 
 I32_MAX = 2**31 - 1
+#: the ticket of an item not held: below every ticket (M - A >= -A)
+TICKET_NONE = -2**31
+#: requests a queue serves after its derivation before M could overflow
+MAX_REQUESTS = I32_MAX
 
 
 class FIFOQueue(NamedTuple):
     """What a run derives from a FIFO carry, on the carry's device."""
 
     order: torch.Tensor  # (A,) int32 the active slots by (stamp, index)
-    head: torch.Tensor  # () int32 position in ``order`` of the next victim
-    imap: torch.Tensor  # (M,) int32 item -> slot (-1 where not held), M > every id
+    head: torch.Tensor  # () int32 position in ``order`` of the next victim: misses mod A
+    imap: torch.Tensor  # (M,) int32 item -> admission ticket, M > every id
     occ: torch.Tensor  # () int32 slots that hold an item
+    misses: torch.Tensor  # () int32 misses since the derivation
 
 
 def derive_queue(slots: torch.Tensor, stamps: torch.Tensor, id_bound: int) -> FIFOQueue:
@@ -50,14 +69,22 @@ def derive_queue(slots: torch.Tensor, stamps: torch.Tensor, id_bound: int) -> FI
     # a stable sort by stamp keeps the index order among equal stamps
     by_stamp = torch.argsort(stamps.index_select(0, active).to(torch.int64), stable=True)
     order = active.index_select(0, by_stamp).to(torch.int32)
-    held = torch.nonzero(slots >= 0).reshape(-1)
-    items = slots.index_select(0, held).to(torch.int64)
-    bound = max(int(id_bound), int(items.max()) + 1 if items.numel() else 0)
-    imap = torch.full((bound,), -1, dtype=torch.int32, device=dev)
-    imap.index_put_((items,), held.to(torch.int32))
-    return FIFOQueue(order=order, head=torch.zeros((), dtype=torch.int32, device=dev),
-                     imap=imap,
-                     occ=torch.full((), held.numel(), dtype=torch.int32, device=dev))
+    a = order.numel()
+    at = torch.nonzero(slots.index_select(0, order) >= 0).reshape(-1)  # held, by position
+    items = slots.index_select(0, order.index_select(0, at)).to(torch.int64)
+    bound = int(id_bound)
+    if at.numel():
+        top, first = torch.stack([items.max(), at[0]]).tolist()
+        if first != a - at.numel():
+            raise ValueError("a FIFO carry's empty slots must come first in its order (an "
+                             "empty slot's stamp -1 below every held slot's)")
+        bound = max(bound, top + 1)
+    imap = torch.full((bound,), TICKET_NONE, dtype=torch.int32, device=dev)
+    imap.index_put_((items,), (at - a).to(torch.int32))
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    return FIFOQueue(order=order, head=zero, imap=imap,
+                     occ=torch.full((), at.numel(), dtype=torch.int32, device=dev),
+                     misses=zero.clone())
 
 
 def fifo_queue_ref(
@@ -78,28 +105,27 @@ def fifo_queue_ref(
     st = stamps.cpu().numpy().copy()
     order = queue.order.cpu().numpy()
     im = queue.imap.cpu().numpy().copy()
-    head, occ, t0 = int(queue.head), int(queue.occ), int(t)
+    head, occ, m0, t0 = int(queue.head), int(queue.occ), int(queue.misses), int(t)
     a = order.shape[0]
+    m = m0
     hit_flags = np.zeros(ids.numel(), bool)
     for r, j in enumerate(ids.cpu().numpy().tolist()):
-        if im[j] >= 0:
+        if m - a <= im[j]:
             hit_flags[r] = True
             continue
         v = order[head]
         head = head + 1 if head + 1 < a else 0
-        old = sl[v]
-        if old >= 0:
-            im[old] = -1
-        else:
-            occ += 1
-        im[j] = v
+        im[j] = m
         sl[v] = j
         st[v] = t0 + r
+        m += 1
+    occ = min(a, occ + m - m0)
     slots.copy_(torch.from_numpy(sl))
     stamps.copy_(torch.from_numpy(st))
     queue.imap.copy_(torch.from_numpy(im))
     queue.head.fill_(head)
     queue.occ.fill_(occ)
+    queue.misses.fill_(m)
     t.fill_(t0 + ids.numel())
     n_hits = int(hit_flags.sum())
     if flags is not None:

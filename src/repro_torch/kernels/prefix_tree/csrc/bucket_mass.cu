@@ -327,23 +327,43 @@ extern "C" int repro_solve_buckets(const void* cnt, const void* total, const voi
 // count and sum trees (row_stride nodes apart); the tree's first level above
 // the leaves holds each group of 64 buckets' count, so the groups that hold
 // an item are found from it, in (class, group) order, by one ordered
-// compaction, and the first kCacheGroups of them keep their 64 (count, mean)
-// pairs in shared memory (the rest are re-read from L2 each step, the same
-// values).  Then per step:
-//  1. warp w takes the groups w, w + 32, ...: lane l the buckets l and l + 32,
-//     each term cnt * clip(mean - t_k, 0, 1) and its interior count in
-//     float64, the warp's sum by an xor butterfly, added in order to the
-//     warp's running sum of the class, flushed where the class changes;
-//  2. a warp a class sums the 32 warps' sums by a butterfly; thread 0 adds
-//     the classes in order (s_k * m_k and float32(s_k^2) * i_k in float64),
-//     rounds once to float32 and takes the Newton step, the midpoint where
-//     the point is not strictly inside the bracket, as the reference does.
+// compaction over the block, and the first kCacheGroups of them keep their
+// 64 (count, mean) pairs in shared memory (the rest are re-read from L2
+// each step, the same values).  Then the steps, in one of two plans by the
+// number G of those groups, decided on the card:
+//  * block plan (G > 32), per step:
+//    1. warp w takes the groups w, w + 32, ...: lane l the buckets l and
+//       l + 32, each term cnt * clip(mean - t_k, 0, 1) and its interior
+//       count in float64, the warp's sum by an xor butterfly, added in order
+//       to the warp's running sum of the class, flushed where the class
+//       changes;
+//    2. a warp a class sums the 32 warps' sums by a butterfly; thread 0
+//       adds the classes in order (s_k * m_k and float32(s_k^2) * i_k in
+//       float64), rounds once to float32 and takes the Newton step, the
+//       midpoint where the point is not strictly inside the bracket, as the
+//       reference does.
+//  * few-groups plan (G <= 32; a mid-run histogram has a few groups): the
+//    block keeps W = max(G, K) warps and the others leave; two barriers a
+//    step among those W warps alone (a named barrier), none by the block:
+//    warp g sums group g as the block plan's warp g does (lane l the
+//    buckets l and l + 32, an xor butterfly) and lane 0 writes it; then
+//    warp k sums class k over the groups' sums, lane g holding group g's
+//    (0 where its group is of another class), by a butterfly, as the block
+//    plan's warp k sums its warps' sums; then every thread adds the classes
+//    in order and takes the same Newton step.  With G <= 32 the block
+//    plan's warp w holds group w alone (0 + x is exact), so both plans add
+//    in the same order.
 // Every float op is the plain version's, rounded as it rounds (__fmul_rn,
 // __fsub_rn, __fdiv_rn, __dadd_rn, __dmul_rn: no contraction), so the
-// iterate is its bit for bit.
+// iterate is its bit for bit in either plan.  `tally`, where given, counts
+// the launches of each plan and the G they met (read off the hot path).
+// The prologue reads the trees' first level four groups a thread at once,
+// compacts them by one block scan a pass, and keeps the group list and the
+// class sizes in shared memory for the steps.
 // Bound: the counts of the groups that hold an item, and their sums, read
 // once, and 5 operations a bucket a step over them; latency-bound at a
-// mid-run histogram (a few hundred groups): two __syncthreads a step.
+// mid-run histogram (a few groups): the block plan's three __syncthreads a
+// step, the few-groups plan's two barriers and two dependent butterflies.
 
 namespace {
 
@@ -352,10 +372,15 @@ constexpr int kSizedWarps = kSizedThreads / 32;
 constexpr int kSizedMaxClasses = 32;
 constexpr int kGroup = 64;
 constexpr int kCacheGroups = 192;  // groups whose pairs stay in shared memory: 96 KB
+constexpr int kTallyBins = 256;    // tally: [few-groups launches, block launches, G bins]
 
 struct SizedShared {
   float2 pairs[kCacheGroups * kGroup];          // (count, mean)
   double part[2][kSizedMaxClasses][kSizedWarps];  // the warps' sums by class
+  double gsum[2][2][kSizedWarps];     // few groups, by step parity: (mass, interior) a group
+  double csum[2][2][kSizedMaxClasses];  // and a class
+  int list[kCacheGroups];             // the first groups that hold an item
+  float sk[kSizedMaxClasses];         // the class sizes
   int warp_kept[kSizedWarps];
   int n_groups;
   float t, lo, hi;
@@ -366,61 +391,172 @@ __device__ __forceinline__ float2 bucket(const float* cnt, const float* total, l
   return make_float2(c, bucket_mean(c, __ldg(total + at)));
 }
 
+__device__ __forceinline__ void warp_sum2(double& a, double& b) {
+  for (int o = 16; o > 0; o >>= 1) {
+    a = __dadd_rn(a, __shfl_xor_sync(0xffffffffu, a, o));
+    b = __dadd_rn(b, __shfl_xor_sync(0xffffffffu, b, o));
+  }
+}
+
+// The few-groups plan's steps (G <= 32 groups, every pair in shared memory),
+// run by the block's first `threads` threads, W = threads / 32 >= max(G, K)
+// warps, which sync by named barrier 1.  Returns the last iterate.
+__device__ float sized_few_groups(SizedShared& sh, long long per_class, int classes, float cap,
+                                  float lo, float hi, int iters, int threads) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_groups = sh.n_groups;
+  const int my_cls = warp < n_groups ? (int)(sh.list[warp] / per_class) : -1;
+  const int lane_cls = lane < n_groups ? (int)(sh.list[lane] / per_class) : -1;
+  const float s_mine = my_cls >= 0 ? sh.sk[my_cls] : 0.0f;
+  float2 b[2];
+  if (warp < n_groups) {
+    b[0] = sh.pairs[warp * kGroup + lane];
+    b[1] = sh.pairs[warp * kGroup + lane + 32];
+  }
+  float t = lo;
+  for (int it = 0; it < iters; ++it) {
+    const int p = it & 1;
+    // 1. warp g: group g's sums, as the block plan's warp g takes them
+    if (warp < n_groups) {
+      const float tk = __fmul_rn(s_mine, t);
+      double m2 = 0.0, i2 = 0.0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float z = fminf(fmaxf(__fsub_rn(b[h].y, tk), 0.0f), 1.0f);
+        m2 = __dadd_rn(m2, (double)__fmul_rn(b[h].x, z));
+        i2 = __dadd_rn(i2, z > 0.0f && z < 1.0f ? (double)b[h].x : 0.0);
+      }
+      warp_sum2(m2, i2);
+      if (lane == 0) {
+        sh.gsum[p][0][warp] = __dadd_rn(0.0, m2);
+        sh.gsum[p][1][warp] = __dadd_rn(0.0, i2);
+      }
+    }
+    asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+    // 2. warp k: class k's sums over the groups, lane g holding group g's
+    if (warp < classes) {
+      double m = lane_cls == warp ? sh.gsum[p][0][lane] : 0.0;
+      double n_in = lane_cls == warp ? sh.gsum[p][1][lane] : 0.0;
+      warp_sum2(m, n_in);
+      if (lane == 0) {
+        sh.csum[p][0][warp] = m;
+        sh.csum[p][1][warp] = n_in;
+      }
+    }
+    asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+    // 3. every thread: the classes in order, then the Newton step
+    double mass = 0.0, slope = 0.0;
+    for (int k = 0; k < classes; ++k) {
+      const float sk = sh.sk[k];
+      mass = __dadd_rn(mass, __dmul_rn((double)sk, sh.csum[p][0][k]));
+      slope = __dadd_rn(slope, __dmul_rn((double)__fmul_rn(sk, sk), sh.csum[p][1][k]));
+    }
+    const float m32 = __double2float_rn(mass), s32 = __double2float_rn(slope);
+    const bool too_much = m32 >= cap;
+    lo = too_much ? t : lo;
+    hi = too_much ? hi : t;
+    const float t_newton = __fadd_rn(t, __fdiv_rn(__fsub_rn(m32, cap), fmaxf(s32, 1e-12f)));
+    const float t_mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+    const bool ok = s32 > 0.0f && t_newton > lo && t_newton < hi;
+    t = ok ? t_newton : t_mid;
+  }
+  return t;
+}
+
 __global__ void __launch_bounds__(kSizedThreads, 1)
 solve_sized_kernel(const float* __restrict__ cnt, const float* __restrict__ total,
                    long long row_stride, long long v, int classes, const float* __restrict__ s,
                    const float* __restrict__ cap_p, const float* __restrict__ lo_p,
                    const float* __restrict__ hi_p, int iters, int* __restrict__ groups,
-                   float* __restrict__ t_out) {
+                   float* __restrict__ t_out, int* __restrict__ tally) {
   extern __shared__ unsigned char smem_raw[];
   SizedShared& sh = *reinterpret_cast<SizedShared*>(smem_raw);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // the scalars, in flight beside the first level's reads
+  const float cap = __ldg(cap_p), lo0 = __ldg(lo_p), hi0 = __ldg(hi_p);
+  const float s_mine = threadIdx.x < classes ? __ldg(s + threadIdx.x) : 0.0f;
   const long long per_class = v / kGroup;  // groups a class: the first level's nodes
   const long long total_groups = per_class * classes;
   // the groups that hold an item, in (class, group) order, into `groups`
+  // (and the first kCacheGroups into shared memory): a thread four
+  // consecutive groups of the first level a pass, one block scan a pass
   int kept = 0;
-  for (long long i0 = 0; i0 < total_groups; i0 += kSizedThreads) {
-    const long long i = i0 + threadIdx.x;
-    bool keep = false;
-    if (i < total_groups) {
-      const long long k = i / per_class;
-      keep = __ldg(cnt + k * row_stride + v + (i - k * per_class)) != 0.0f;
+  for (long long i0 = 0; i0 < total_groups; i0 += 4 * kSizedThreads) {
+    const long long first = i0 + 4LL * threadIdx.x;
+    bool keep[4];
+    int mine = 0;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const long long i = first + r;
+      keep[r] = false;
+      if (i < total_groups) {
+        const long long k = i / per_class;
+        keep[r] = __ldg(cnt + k * row_stride + v + (i - k * per_class)) != 0.0f;
+      }
+      mine += keep[r];
     }
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) sh.warp_kept[warp] = __popc(ballot);
-    __syncthreads();
-    int at = kept + __popc(ballot & ((1u << lane) - 1u));
-    for (int w = 0; w < kSizedWarps; ++w) {
-      at += w < warp ? sh.warp_kept[w] : 0;
-      kept += sh.warp_kept[w];
+    int incl = mine;  // the warp's inclusive scan
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, incl, o);
+      incl += lane >= o ? x : 0;
     }
-    if (keep) groups[at] = (int)i;
+    if (lane == 31) sh.warp_kept[warp] = incl;
     __syncthreads();
+    const int warp_total = sh.warp_kept[lane];  // kSizedWarps == 32: a lane a warp
+    int wincl = warp_total;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(0xffffffffu, wincl, o);
+      wincl += lane >= o ? x : 0;
+    }
+    int at = kept + __shfl_sync(0xffffffffu, wincl - warp_total, warp) + incl - mine;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if (keep[r]) {
+        groups[at] = (int)(first + r);
+        if (at < kCacheGroups) sh.list[at] = (int)(first + r);
+        ++at;
+      }
+    }
+    kept += __shfl_sync(0xffffffffu, wincl, 31);
+    __syncthreads();  // warp_kept is the next pass's
   }
   const int n_groups = kept;
-  __syncthreads();  // the list is in global memory: read it below through L2 (__ldcg)
   for (int e = threadIdx.x; e < min(n_groups, kCacheGroups) * kGroup; e += kSizedThreads) {
-    const int i = __ldcg(groups + e / kGroup);
+    const int i = sh.list[e / kGroup];
     const long long k = i / per_class;
     sh.pairs[e] = bucket(cnt, total, k * row_stride + (i - k * per_class) * kGroup + e % kGroup);
   }
   for (int e = threadIdx.x; e < 2 * kSizedMaxClasses * kSizedWarps; e += kSizedThreads) {
     (&sh.part[0][0][0])[e] = 0.0;
   }
+  if (threadIdx.x < classes) sh.sk[threadIdx.x] = s_mine;
   if (threadIdx.x == 0) {
-    sh.lo = *lo_p;
-    sh.hi = *hi_p;
-    sh.t = sh.lo;
+    sh.lo = lo0;
+    sh.hi = hi0;
+    sh.t = lo0;
+    sh.n_groups = n_groups;
+    if (tally != nullptr) {
+      atomicAdd(tally + (n_groups <= kSizedWarps ? 0 : 1), 1);
+      atomicAdd(tally + 2 + min(n_groups, kTallyBins - 1), 1);
+    }
   }
   __syncthreads();
-  const float cap = *cap_p;
+  if (n_groups <= kSizedWarps) {  // the few-groups plan: no block barrier from here
+    const int warps = max(max(n_groups, classes), 1);
+    if (warp < warps) {
+      const float t = sized_few_groups(sh, per_class, classes, cap, sh.lo, sh.hi, iters,
+                                       32 * warps);
+      if (threadIdx.x == 0) *t_out = t;
+    }
+    return;
+  }
   for (int it = 0; it < iters; ++it) {
     const float t = sh.t;
     // 1. the groups, a warp at a time, in order within the warp
     double acc_m = 0.0, acc_i = 0.0;
     int cls = -1;
     for (int g = warp; g < n_groups; g += kSizedWarps) {
-      const int i = __ldcg(groups + g);
+      const int i = g < kCacheGroups ? sh.list[g] : __ldcg(groups + g);
       const int k = (int)(i / per_class);
       if (k != cls) {
         if (cls >= 0 && lane == 0) {
@@ -505,11 +641,13 @@ solve_sized_kernel(const float* __restrict__ cnt, const float* __restrict__ tota
 // v leaves (a multiple of 64) and, right after them, the level of the sums
 // of each 64 (a radix-64 tree).  s: (classes,) float32 class sizes; cap, lo,
 // hi: () float32.  groups: scratch of classes * v / 64 int32.  t_out: ()
-// float32, the last iterate.
+// float32, the last iterate.  tally: null, or 2 + kTallyBins int32 counters:
+// the launches of the few-groups and the block plan, then the launches by G
+// (the last bin G >= kTallyBins - 1).
 extern "C" int repro_solve_sized(const void* cnt, const void* total, long long row_stride,
                                  long long v, int classes, const void* s, const void* cap,
                                  const void* lo, const void* hi, int iters, void* groups,
-                                 void* t_out, void* stream) {
+                                 void* t_out, void* tally, void* stream) {
   if (classes < 1 || classes > kSizedMaxClasses || v < kGroup || v % kGroup || iters < 0 ||
       row_stride < v + v / kGroup || (long long)classes * (v / kGroup) > INT_MAX) {
     return (int)cudaErrorInvalidValue;
@@ -522,6 +660,6 @@ extern "C" int repro_solve_sized(const void* cnt, const void* total, long long r
       static_cast<const float*>(cnt), static_cast<const float*>(total), row_stride, v, classes,
       static_cast<const float*>(s), static_cast<const float*>(cap), static_cast<const float*>(lo),
       static_cast<const float*>(hi), iters, static_cast<int*>(groups),
-      static_cast<float*>(t_out));
+      static_cast<float*>(t_out), static_cast<int*>(tally));
   return (int)cudaGetLastError();
 }

@@ -190,19 +190,50 @@ solve_buckets.launches = 0
 solve_buckets.designs = {}
 
 
-#: the design :func:`solve_sized` counts its launches under
+#: the design :func:`solve_sized` counts its launches under; the card picks
+#: the plan by G, the groups of 64 buckets that hold an item
 SIZED_DESIGN = ("one block: the groups of 64 buckets that hold an item from the trees' first "
-                "level, their (count, mean) in shared memory; a step: a warp a group, a warp a "
-                "class, Newton by one thread")
+                "level, their (count, mean) in shared memory; to 32 groups a step is a warp a "
+                "group and a warp a class among max(G, K) warps on a named barrier, Newton by "
+                "every thread; past 32 a warp a group, a warp a class, Newton by one thread, "
+                "three block barriers")
 #: the most size classes one launch takes (kSizedMaxClasses)
 SIZED_MAX_CLASSES = 32
+#: the most groups the few-groups plan takes, and the tally's bins of G
+#: (kSizedWarps, kTallyBins; the last bin counts G >= SIZED_TALLY_BINS - 1)
+SIZED_FEW_GROUPS, SIZED_TALLY_BINS = 32, 256
+_sized_tallies = {}
+
+
+def sized_tally(device: torch.device) -> torch.Tensor:
+    """The device's counters of :func:`solve_sized` launches, which the
+    kernel adds to: (2 + SIZED_TALLY_BINS,) int32, the few-groups and the
+    block plan's launches, then the launches by G.  Zero when first asked
+    for; read it off the hot path (:func:`read_sized_tally`)."""
+    key = (device.type, device.index)
+    if key not in _sized_tallies:
+        _sized_tallies[key] = torch.zeros(2 + SIZED_TALLY_BINS, dtype=torch.int32, device=device)
+    return _sized_tallies[key]
+
+
+def read_sized_tally(device: torch.device) -> dict:
+    """The device's tally, read on the host: ``{"few groups": n, "block": n,
+    "groups": {G: launches}}`` (G = SIZED_TALLY_BINS - 1 standing for that
+    many or more)."""
+    counts = sized_tally(device).tolist()
+    return {"few groups": counts[0], "block": counts[1],
+            "groups": {g: n for g, n in enumerate(counts[2:]) if n}}
+
+
+def reset_sized_tally(device: torch.device) -> None:
+    sized_tally(device).zero_()
 
 
 @functools.lru_cache(maxsize=None)
 def _sized_entry():
     fn = _build.library("bucket_mass").repro_solve_sized
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [p, p, ll, ll, i, p, p, p, p, i, p, p, p]
+    fn.argtypes = [p, p, ll, ll, i, p, p, p, p, i, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -215,7 +246,8 @@ def solve_sized(ycnt: torch.Tensor, ysum: torch.Tensor, v: int, s: torch.Tensor,
     float32; ``s`` the (K,) float32 class sizes), as
     :func:`.ref.solve_sized_ref` takes them over the trees' leaves; a 0-d
     float32 tensor.  On the card one launch, which finds the buckets that
-    hold an item from the trees' first level."""
+    hold an item from the trees' first level and picks its plan by how many
+    groups of them there are (:func:`sized_tally` counts each)."""
     kk = s.numel()
     if ycnt.dim() != 2 or ycnt.shape != ysum.shape or ycnt.shape[0] != kk or \
             ycnt.shape[1] != tree_storage(v, SIZED_GROUP) or v <= SIZED_GROUP or v % SIZED_GROUP:
@@ -237,7 +269,7 @@ def solve_sized(ycnt: torch.Tensor, ysum: torch.Tensor, v: int, s: torch.Tensor,
         _sized_entry()(
             ycnt.data_ptr(), ysum.data_ptr(), ycnt.shape[1], v, kk, s.data_ptr(),
             cap.data_ptr(), lo.data_ptr(), hi.data_ptr(), iters, groups.data_ptr(),
-            out.data_ptr(), _build.stream_of(ycnt),
+            out.data_ptr(), sized_tally(dev).data_ptr(), _build.stream_of(ycnt),
         ),
         "solve_sized",
     )

@@ -220,6 +220,58 @@ def sized_groups(cnt: torch.Tensor) -> torch.Tensor:
     return torch.nonzero(busy)
 
 
+def _sized_prep(cnt: torch.Tensor, total: torch.Tensor):
+    """The busy groups' counts and means, and the block plan's order of
+    them: warp w's groups of class k, in order, (K, 32, R), -1 past the end."""
+    kk, v = cnt.shape
+    groups = sized_groups(cnt)
+    k_of, g_of = groups[:, 0], groups[:, 1]
+    leaf = (g_of[:, None] * SIZED_GROUP + torch.arange(SIZED_GROUP, device=cnt.device))
+    c = cnt[k_of[:, None], leaf]
+    tot = total[k_of[:, None], leaf]
+    mean = torch.where(c > 0, tot / torch.clamp(c, min=1.0), torch.zeros_like(tot))
+    g_idx = torch.arange(groups.shape[0], device=cnt.device)
+    warp = g_idx % SIZED_WARPS
+    rounds = 1
+    slots = {}
+    for g, (k, w) in enumerate(zip(k_of.tolist(), warp.tolist())):
+        slots.setdefault((k, w), []).append(g)
+        rounds = max(rounds, len(slots[k, w]))
+    order = torch.full((kk, SIZED_WARPS, rounds), -1, dtype=torch.int64)
+    for (k, w), gs in slots.items():
+        order[k, w, :len(gs)] = torch.tensor(gs)
+    order = order.to(cnt.device)
+    return kk, k_of, c, mean, order
+
+
+def _sized_sums(prep, s: torch.Tensor, t: torch.Tensor):
+    """Each class's mass and interior count at base multiplier t, float64
+    (K,) each, summed in the card's order."""
+    kk, k_of, c, mean, order = prep
+    valid = order >= 0
+    pick = torch.clamp(order, min=0)
+    tk = (s * t)[k_of]
+    z = torch.clamp(mean - tk[:, None], 0.0, 1.0)
+    term = (c * z).to(torch.float64)
+    inner = torch.where((z > 0.0) & (z < 1.0), c, torch.zeros_like(c)).to(torch.float64)
+    sums = []
+    for x in (term, inner):
+        per_group = _butterfly(x[:, :32] + x[:, 32:])
+        acc = torch.zeros((kk, SIZED_WARPS), dtype=torch.float64, device=c.device)
+        for r in range(order.shape[2]):
+            acc = acc + torch.where(valid[..., r], per_group[pick[..., r]], torch.zeros_like(acc))
+        sums.append(_butterfly(acc))
+    return sums[0], sums[1]
+
+
+def sized_class_sums(cnt: torch.Tensor, total: torch.Tensor, s: torch.Tensor,
+                     t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`solve_sized_ref`'s float64 sums at one base multiplier ``t``:
+    each class's mass m_k and interior count i_k, (K,) each, in the order
+    the card adds them."""
+    return _sized_sums(_sized_prep(cnt, total), s, t)
+
+
 def solve_sized_ref(cnt: torch.Tensor, total: torch.Tensor, s: torch.Tensor, cap: torch.Tensor,
                     lo: torch.Tensor, hi: torch.Tensor, iters: int) -> torch.Tensor:
     """The sized OGB's threshold solve over K classes' (V,) bucket counts and
@@ -242,44 +294,13 @@ def solve_sized_ref(cnt: torch.Tensor, total: torch.Tensor, s: torch.Tensor, cap
     then an xor butterfly), the groups of a class in turn by 32 warps (warp
     w the groups g = w mod 32, in order) and the warps' sums by a butterfly;
     then the classes in order, rounded once to float32."""
-    kk, v = cnt.shape
-    groups = sized_groups(cnt)
-    k_of, g_of = groups[:, 0], groups[:, 1]
-    leaf = (g_of[:, None] * SIZED_GROUP + torch.arange(SIZED_GROUP, device=cnt.device))
-    c = cnt[k_of[:, None], leaf]
-    tot = total[k_of[:, None], leaf]
-    mean = torch.where(c > 0, tot / torch.clamp(c, min=1.0), torch.zeros_like(tot))
-    # warp w's groups of class k, in order: (K, 32, R), -1 past the end
-    g_idx = torch.arange(groups.shape[0], device=cnt.device)
-    warp = g_idx % SIZED_WARPS
-    rounds = 1
-    slots = {}
-    for g, (k, w) in enumerate(zip(k_of.tolist(), warp.tolist())):
-        slots.setdefault((k, w), []).append(g)
-        rounds = max(rounds, len(slots[k, w]))
-    order = torch.full((kk, SIZED_WARPS, rounds), -1, dtype=torch.int64)
-    for (k, w), gs in slots.items():
-        order[k, w, :len(gs)] = torch.tensor(gs)
-    order = order.to(cnt.device)
-    valid = order >= 0
-    pick = torch.clamp(order, min=0)
+    prep = _sized_prep(cnt, total)
+    kk = prep[0]
     s64 = s.to(torch.float64)
     ss64 = (s * s).to(torch.float64)
     t = lo
     for _ in range(iters):
-        tk = (s * t)[k_of]
-        z = torch.clamp(mean - tk[:, None], 0.0, 1.0)
-        term = (c * z).to(torch.float64)
-        inner = torch.where((z > 0.0) & (z < 1.0), c, torch.zeros_like(c)).to(torch.float64)
-        sums = []
-        for x in (term, inner):
-            per_group = _butterfly(x[:, :32] + x[:, 32:])
-            acc = torch.zeros((kk, SIZED_WARPS), dtype=torch.float64, device=cnt.device)
-            for r in range(rounds):
-                acc = acc + torch.where(valid[..., r], per_group[pick[..., r]],
-                                        torch.zeros_like(acc))
-            sums.append(_butterfly(acc))
-        m_k, i_k = sums
+        m_k, i_k = _sized_sums(prep, s, t)
         mass = torch.zeros((), dtype=torch.float64, device=cnt.device)
         slope = torch.zeros((), dtype=torch.float64, device=cnt.device)
         for k in range(kk):

@@ -25,11 +25,14 @@ automata's two kernels (``tree_lru``, with forced ring compactions, and
 ``minpair_automaton`` for LFU and FTPL, with padded slots) bit for bit
 against their plain versions at C = 23 to 50 000, every case evicting, the
 int32 tree build, and tree runs on the card with no host read in a chunk;
-the sized axis's kernels: the FIFO queue at C = 25 to 50 000 and the GDS
-mode of ``minpair_automaton`` bit for bit against their plain versions,
-the stacked and the int32 tree updates, the sized solve (also past its
-shared memory), ``ogb_sized`` and ``sized_cdn`` mini on the card against
-the CPU, and sized runs with no host read in a chunk.
+the sized axis's kernels: the FIFO queue at C = 25 to 50 000 in both its
+plans (each side of 32 active slots, padded slots, and churn traces whose
+tiles evict what they request again) and the GDS mode of
+``minpair_automaton`` bit for bit against their plain versions, the
+stacked and the int32 tree updates, the sized solve in both its plans
+(also past its shared memory) with their tally, ``ogb_sized`` and
+``sized_cdn`` mini on the card against the CPU, and sized runs with no host
+read in a chunk.
 """
 
 import numpy as np
@@ -962,15 +965,25 @@ def test_tree_runs_equal_dense_runs_on_the_card(card):
 FIFO_CS = (25, 1000, 16384, 50000)
 
 
-@pytest.mark.parametrize("c,n_slots", [(c, None) for c in FIFO_CS] + [(31, 40), (1000, 1100)])
-def test_fifo_queue_matches_plain_bit_for_bit(card, c, n_slots):
-    """Every capacity (fewer slots than a warp's 32 lanes, and past the slot
-    kernel's 16 384), padded slots: hits, flags, stats, the carry and the
-    run's queue chunk by chunk equal to the plain version's on the CPU."""
+@pytest.mark.parametrize("churn", [False, True], ids=["evicting", "churn"])
+@pytest.mark.parametrize("c,n_slots", [(c, None) for c in FIFO_CS] + [(31, 40), (1000, 1100),
+                                                                        (31, None), (32, None),
+                                                                        (33, None), (32, 40),
+                                                                        (5000, None)])
+def test_fifo_queue_matches_plain_bit_for_bit(card, c, n_slots, churn):
+    """Every capacity (fewer slots than a warp's 32 lanes, each side of the
+    tile plan's 32, past the slot kernel's 16 384), padded slots, and churn
+    traces whose tiles evict items they request again: hits, flags, stats,
+    the carry and the run's queue chunk by chunk equal to the plain
+    version's on the CPU, in the plan the active slots pick."""
     from repro_torch.cachesim import engines as teng
-    from repro_torch.kernels.fifo_queue.ops import fifo_queue
+    from repro_torch.kernels.fifo_queue.ops import design, fifo_queue
 
-    n, trace = _evicting_trace(c, 4)
+    if churn:
+        n = max(4 * c, 2000)
+        trace = _churn_trace(n, c, 20_000, c)
+    else:
+        n, trace = _evicting_trace(c, 4)
     cpu = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, n_slots=n_slots,
                                                      device="cpu"), n)
     dev = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, n_slots=n_slots,
@@ -986,8 +999,52 @@ def test_fifo_queue_matches_plain_bit_for_bit(card, c, n_slots):
         for a, b in zip((*dev[:3], *dev.queue), (*cpu[:3], *cpu.queue)):
             assert torch.equal(a.cpu(), b)
     assert launch_counts()["fifo_queue"] == 4
+    assert design_counts()["fifo_queue"] == {design(c): 4}
     if n_slots:
         assert bool((dev.slots[c:] == -2).all())
+
+
+@pytest.mark.parametrize("hit", [False, True], ids=["evicted", "outlives"])
+@pytest.mark.parametrize("c", [32, 6000, 40000])
+def test_fifo_tile_settles_the_last_request_at_the_edge_of_its_life(card, c, hit):
+    """C slots filled in order, then a tile of S - 1 new ids (S the tile's
+    requests) and one request of item S - 2 (the tile's last miss evicts it
+    first) or S - 1 (it outlives the tile): the card as the CPU."""
+    from repro_torch.cachesim import engines as teng
+    from repro_torch.kernels.fifo_queue.ops import fifo_queue, tile_requests
+
+    size = tile_requests(c)
+    n = c + size
+    item = size - 1 if hit else size - 2
+    cpu = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, device="cpu"), n)
+    dev = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, device=card), n)
+    for part in (np.arange(c), np.concatenate([c + np.arange(size - 1), [item]])):
+        ids = torch.from_numpy(part.astype(np.int32))
+        fc = torch.empty(ids.shape, dtype=torch.bool)
+        fd = torch.empty(ids.shape, dtype=torch.bool, device=card)
+        hc, _ = fifo_queue(cpu.slots, cpu.stamps, cpu.t, cpu.queue, ids, fc)
+        hd, _ = fifo_queue(dev.slots, dev.stamps, dev.t, dev.queue, ids.to(card), fd)
+        assert int(hd) == int(hc) and torch.equal(fd.cpu(), fc)
+        for a, b in zip((*dev[:3], *dev.queue), (*cpu[:3], *cpu.queue)):
+            assert torch.equal(a.cpu(), b)
+    assert bool(fc[-1]) == hit
+
+
+def _churn_trace(n, c, length, seed):
+    """C distinct ids, then new ids, ids admitted about C misses ago and
+    repeats of the last few: FIFO's oldest items stay in play."""
+    rng = np.random.default_rng(seed)
+    out, nxt = list(range(c)), c
+    for _ in range(length):
+        u = rng.random()
+        if u < 0.4:
+            out.append(nxt % n)
+            nxt += 1
+        elif u < 0.75:
+            out.append(int(rng.integers(max(0, nxt - c - 40), max(1, nxt - c + 40))) % n)
+        else:
+            out.append(out[-1 - int(rng.integers(0, 8))])
+    return np.asarray(out, np.int32)
 
 
 def test_fifo_at_50000_slots_runs_as_the_cpu(card):
@@ -1109,6 +1166,49 @@ def test_solve_sized_matches_plain(card):
     got = solve_sized(ycnt, ysum, v, s, cap, lo, hi, 30)
     want = solve_sized_ref(cnt, tot, s.cpu(), cap.cpu(), lo.cpu(), hi.cpu(), 30)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("groups", [1, 6, 31, 32, 33, 200])
+def test_solve_sized_plans_at_their_edges(card, groups):
+    """Built instances with G groups of 64 buckets that hold an item (4
+    classes of 65 536 buckets): the card's iterate at 0, 1 and 30 steps
+    equal to the plain version's on the card and the CPU, in the plan G
+    picks (a warp a group to 32 groups, the block past them), as its tally
+    counts it."""
+    from repro_torch.kernels.prefix_tree.kernel import (
+        SIZED_FEW_GROUPS,
+        read_sized_tally,
+        solve_sized,
+    )
+    from repro_torch.kernels.prefix_tree.ref import sized_groups, solve_sized_ref
+
+    v, kk = OGB_TREE_BUCKETS, 4
+    gen = torch.Generator().manual_seed(groups)
+    cnt = torch.zeros(kk, v)
+    for p in torch.randperm(kk * (v // 64), generator=gen)[:groups].tolist():
+        k, g = divmod(p, v // 64)
+        c = torch.randint(0, 6, (64,), generator=gen).float()
+        c[int(torch.randint(0, 64, (1,), generator=gen))] += 1.0
+        cnt[k, g * 64:(g + 1) * 64] = c * 2.0 ** torch.randint(0, 40, (64,), generator=gen)
+    tot = cnt * torch.rand((kk, v), generator=gen) * 3
+    assert sized_groups(cnt).shape[0] == groups
+    s = torch.tensor([1.0, 4.0, 16.0, 64.0])
+    cap = torch.tensor(0.3 * float((cnt * s[:, None]).sum()))
+    lo, hi = torch.tensor(0.0), torch.tensor(0.25)
+    ycnt = torch.stack([tree_build(x, 64) for x in cnt]).to(card)
+    ysum = torch.stack([tree_build(x, 64) for x in tot]).to(card)
+    plan = "few groups" if groups <= SIZED_FEW_GROUPS else "block"
+    for iters in (0, 1, 30):
+        before = read_sized_tally(ycnt.device)
+        got = solve_sized(ycnt, ysum, v, s.to(card), cap.to(card), lo.to(card), hi.to(card),
+                          iters)
+        after = read_sized_tally(ycnt.device)
+        assert after[plan] == before[plan] + 1
+        assert after["groups"].get(groups, 0) == before["groups"].get(groups, 0) + 1
+        want = solve_sized_ref(cnt, tot, s, cap, lo, hi, iters)
+        plain = solve_sized_ref(ycnt[:, :v], ysum[:, :v], s.to(card), cap.to(card), lo.to(card),
+                                hi.to(card), iters)
+        assert torch.equal(got.cpu(), want) and torch.equal(got, plain)
 
 
 def test_ogb_sized_on_the_card_matches_the_cpu(card):

@@ -17,9 +17,10 @@ import torch
 
 from repro.cachesim import engines as jeng
 import repro_torch
+import repro_torch.core.policies
 from repro_torch.cachesim import engines as teng
 from repro_torch.cachesim import traces as ttraces
-from repro_torch.kernels.fifo_queue.ref import derive_queue, fifo_queue_ref
+from repro_torch.kernels.fifo_queue.ref import TICKET_NONE, derive_queue, fifo_queue_ref
 from repro_torch.kernels.slot_automaton.ops import MAX_SLOTS
 
 
@@ -78,7 +79,9 @@ def test_queue_order_is_the_reference_victim_order():
     stamps = torch.tensor([-1, 5, 2, -1, 5, 2**31 - 1, 2**31 - 1], dtype=torch.int32)
     q = derive_queue(slots, stamps, 12)
     assert q.order.tolist() == [0, 3, 2, 1, 4] and int(q.head) == 0 and int(q.occ) == 3
-    assert q.imap.tolist()[:10] == [-1, -1, -1, 2, -1, -1, -1, 1, -1, 4]
+    # admission tickets: position p of the order less the 5 active slots
+    none = TICKET_NONE
+    assert q.imap.tolist()[:10] == [none, none, none, -3, none, none, none, -2, none, -1]
     t = torch.tensor(6, dtype=torch.int32)
     flags = torch.empty(6, dtype=torch.bool)
     hits, stats = fifo_queue_ref(slots, stamps, t, q, torch.tensor([3, 10, 11, 1, 2, 4],

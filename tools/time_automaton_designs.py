@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The tree automata's kernels against the designs they replaced, on one card.
+"""The automata's kernels against the designs they replaced, on one card.
 
     python3 tools/time_automaton_designs.py
 
@@ -9,18 +9,21 @@ by warp-wide reductions at every miss, and every hit's leaf group reloaded
 from L2) and of ``tree_lru`` (every level of the ring's tree in L2, read a
 child at a time), kept here as text and not in the package (the package's
 ``csrc/minpair_automaton.cu`` and ``csrc/tree_lru.cu`` before their
-redesign), are compiled with nvcc into ``build/`` and timed beside the
-package's kernels at chip_smoke.py's timed shapes (``TREE_TIMED``): a chunk
-from a full carry at quick's shape (C = 1000, N = 20 000, 10 000 requests)
-and at fig8_cdn full's (C = 50 000, N = 1e6, 1e6 requests), for LRU, LFU,
-FTPL and GDS (dyadic sizes by popularity quartile, unit costs).
+redesign), and of ``fifo_queue`` (one warp, a chain of 32 request steps a
+tile, an item -> slot map kept current by broadcast: the package's
+``csrc/fifo_queue.cu`` before its tile plan and admission tickets), are
+compiled with nvcc into ``build/`` and timed beside the package's kernels
+at chip_smoke.py's timed shapes (``TREE_TIMED``): a chunk from a full carry
+at quick's shape (C = 1000, N = 20 000, 10 000 requests) and at fig8_cdn
+full's (C = 50 000, N = 1e6, 1e6 requests), for LRU, LFU, FTPL, GDS
+(dyadic sizes by popularity quartile, unit costs) and FIFO.
 
 Cold (L2 flushed before each call), in the order earlier, current,
 current, earlier; both designs are held to the plain version exactly (the
 hits, the stats and every carry leaf).  It prints the card and its power
 limit first, a line a case, and a JSON line of every time last.
-chip_smoke.py's phases 19 (LRU, LFU, FTPL) and 20 (GDS) time the kernels
-through :func:`time_designs`.
+chip_smoke.py's phases 19 (LRU, LFU, FTPL) and 20 (GDS, FIFO) time the
+kernels through :func:`time_designs`.
 """
 
 from __future__ import annotations
@@ -49,7 +52,131 @@ EARLIER_DESIGNS = {
     "tree_lru": "one block a chunk, a thread a request of a 256-request sub-chunk: previous "
                 "request by a scan of the sub-chunk's 256 ids; every level of the ring's tree "
                 "in L2, a prefix read a child at a time (up to 16 scalar loads a level)",
+    "fifo_queue": "one warp a chunk: a tile of 32 requests and their 32 possible victims read "
+                  "at once, then a chain of 32 request steps (a broadcast shuffle a request; a "
+                  "miss three more and lane 0's four stores), an item -> slot map kept current "
+                  "by broadcast",
 }
+#: ``csrc/fifo_queue.cu`` before its tile plan and admission tickets
+EARLIER_FIFO = r"""// FIFO at any capacity: one chunk of requests, in order, in one launch.
+//
+// The reference has no Pallas kernel here: it scans FIFO's per-request step
+// over the chunk with lax.scan (src/repro/cachesim/engines.py: _fifo_step),
+// each step a compare over every slot and an argmin over their stamps.  The
+// port's plain version is ../ref.py's fifo_queue_ref; this kernel computes
+// the same, bit for bit: the hits, the flags, and the carry (slots, stamps,
+// the clock t) with the run's derived state (head, imap, occupancy).
+//
+// FIFO never refreshes a stamp and a miss writes the clock, above every
+// stamp, into the slot of the least (stamp, index): so the victims walk the
+// active slots in one fixed order (`order`, derived once a run), and a miss
+// takes order[head] and advances head.  A request is then O(1): one imap
+// read to find a hit, and on a miss the victim's slot and the item it held.
+//
+// One warp walks the requests in tiles of 32.  At the start of a tile each
+// lane loads one request's id and imap entry, and the victim a miss would
+// take were it the lane-th miss of the tile (order[head + lane] and the item
+// its slot holds), so the tile's reads are in flight together.  Then per
+// request, every lane in step: the request's imap entry is broadcast from
+// its lane; a hit changes nothing; the k-th miss of the tile takes lane k's
+// victim, and lane 0 writes slots, stamps and imap.  Each write is broadcast
+// so that the lanes keep their entries current: a lane whose id was evicted
+// reads -1, a lane whose id was admitted the slot, and a later victim that
+// is the same slot (fewer than 32 active slots) the item just written.
+//
+// Bound on an H100: the bytes (the ids, the requested imap entries, and each
+// miss's order, slot and stamp entries and two imap writes) take well under
+// a microsecond at a 10 000-request chunk; the kernel is latency-bound: per
+// tile two trips to L2 (ids then imap; order then slots), then a chain of
+// warp shuffles a request.
+
+#include <climits>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+__global__ void __launch_bounds__(32)
+    fifo_queue_kernel(int* __restrict__ slots, int* __restrict__ stamps, int* __restrict__ tclock,
+                      const int* __restrict__ order, int active, int* __restrict__ head_p,
+                      int* __restrict__ imap, int* __restrict__ occ_p,
+                      const int* __restrict__ ids, int window, unsigned char* __restrict__ flags,
+                      int* __restrict__ hits_out, float* __restrict__ stats) {
+  const int lane = threadIdx.x;
+  const int t0 = *tclock;
+  int head = *head_p, occ = *occ_p, hits = 0;
+  for (int base = 0; base < window; base += 32) {
+    const int n = min(32, window - base);
+    int j = -1, mine = -1;
+    if (lane < n) {
+      j = __ldg(ids + base + lane);
+      mine = __ldcg(imap + j);
+    }
+    // the victim of the tile's lane-th miss, and the item its slot holds
+    int pos = head + lane;
+    pos = pos < active ? pos : pos % active;
+    const int victim = __ldg(order + pos);
+    int held = __ldcg(slots + victim);
+    int misses = 0;
+    for (int q = 0; q < n; ++q) {
+      const int slot = __shfl_sync(kFull, mine, q);
+      const bool hit = slot >= 0;
+      if (flags != nullptr && lane == 0) flags[base + q] = hit;
+      if (hit) {
+        ++hits;
+        continue;
+      }
+      const int jq = __shfl_sync(kFull, j, q);
+      const int v = __shfl_sync(kFull, victim, misses);
+      const int old = __shfl_sync(kFull, held, misses);
+      if (lane == 0) {
+        if (old >= 0) imap[old] = -1;
+        imap[jq] = v;
+        slots[v] = jq;
+        stamps[v] = t0 + base + q;
+      }
+      if (old >= 0 && j == old) mine = -1;
+      if (j == jq) mine = v;
+      if (victim == v) held = jq;
+      occ += old < 0;
+      ++misses;
+    }
+    head += misses;
+    head = head < active ? head : head % active;
+    __syncwarp();  // the tile's writes are seen by the next tile's reads
+  }
+  if (lane == 0) {
+    *head_p = head;
+    *occ_p = occ;
+    *tclock = t0 + window;
+    *hits_out = hits;
+    stats[0] = (float)hits;  // reward: an automaton's reward is its hits
+    stats[1] = 0.0f;         // aux: no threshold
+    stats[2] = (float)occ;
+  }
+}
+
+}  // namespace
+
+// slots and stamps: the carry's (K,) int32; tclock its () int32 clock.
+// order: the `active` slots by (stamp, index); head, occ: () int32; imap:
+// one int32 an item (-1 where not held), covering every id.  flags: null,
+// or one byte a request.  hits: one int32; stats: three float32.
+extern "C" int repro_fifo_queue(int window, const void* ids, void* slots, void* stamps,
+                                void* tclock, const void* order, int active, void* head,
+                                void* imap, void* occ, void* flags, void* hits, void* stats,
+                                void* stream) {
+  if (window < 1 || active < 1) return (int)cudaErrorInvalidValue;
+  fifo_queue_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int*>(slots), static_cast<int*>(stamps), static_cast<int*>(tclock),
+      static_cast<const int*>(order), active, static_cast<int*>(head), static_cast<int*>(imap),
+      static_cast<int*>(occ), static_cast<const int*>(ids), window,
+      static_cast<unsigned char*>(flags), static_cast<int*>(hits), static_cast<float*>(stats));
+  return (int)cudaGetLastError();
+}
+"""
 #: ``csrc/minpair_automaton.cu`` before its redesign
 EARLIER_MINPAIR = r"""// The tree LFU, FTPL and GDS: one chunk of requests, in order, in one launch.
 //
@@ -735,15 +862,17 @@ extern "C" int repro_tree_lru_chunk(void* tree, void* last, void* pos, void* nse
 
 @functools.lru_cache(maxsize=None)
 def earlier_libraries():
-    """Build the two earlier sources with the package's nvcc flags (in
-    parallel); returns their entry points ``(minpair, tree_lru_chunk)``."""
+    """Build the three earlier sources with the package's nvcc flags (in
+    parallel); returns their entry points ``(minpair, tree_lru_chunk,
+    fifo_queue)``."""
     from repro_torch.kernels import _build
 
     out_dir = _build.BUILD_DIR / "earlier"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for name, text in (("minpair_automaton_earlier", EARLIER_MINPAIR),
-                       ("tree_lru_earlier", EARLIER_TREE_LRU)):
+                       ("tree_lru_earlier", EARLIER_TREE_LRU),
+                       ("fifo_queue_earlier", EARLIER_FIFO)):
         src, lib = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
         src.write_text(text)
         procs.append((subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
@@ -762,7 +891,46 @@ def earlier_libraries():
     chunk = libs[1].repro_tree_lru_chunk
     chunk.argtypes = [p, p, p, p, p, p, i, p, i, p, p, p, p, p]
     chunk.restype = ctypes.c_int
-    return minpair, chunk
+    fifo = libs[2].repro_fifo_queue
+    fifo.argtypes = [i, p, p, p, p, p, i, p, p, p, p, p, p, p]
+    fifo.restype = ctypes.c_int
+    return minpair, chunk, fifo
+
+
+def earlier_fifo_queue(carry, id_bound):
+    """The earlier FIFO design's queue of a carry: the order, its head (0),
+    an item -> slot map (-1 where not held) and the occupancy."""
+    import torch
+
+    slots, stamps = carry.slots, carry.stamps
+    active = torch.nonzero(slots != -2).reshape(-1)
+    by_stamp = torch.argsort(stamps.index_select(0, active).to(torch.int64), stable=True)
+    order = active.index_select(0, by_stamp).to(torch.int32)
+    held = torch.nonzero(slots >= 0).reshape(-1)
+    imap = torch.full((id_bound,), -1, dtype=torch.int32, device=slots.device)
+    imap.index_put_((slots.index_select(0, held).to(torch.int64),), held.to(torch.int32))
+    zero = torch.zeros((), dtype=torch.int32, device=slots.device)
+    return [order, zero, imap, zero + held.numel()]
+
+
+def earlier_fifo_chunk(carry, queue, ids):
+    """One FIFO chunk through the earlier design: the carry's slots, stamps
+    and clock and ``queue`` (:func:`earlier_fifo_queue`) in place."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    fifo = earlier_libraries()[2]
+    dev = ids.device
+    hits = torch.empty((), dtype=torch.int32, device=dev)
+    stats = torch.empty(3, dtype=torch.float32, device=dev)
+    order, head, imap, occ = queue
+    _build.check(fifo(ids.numel(), ids.data_ptr(), carry.slots.data_ptr(),
+                      carry.stamps.data_ptr(), carry.t.data_ptr(), order.data_ptr(),
+                      order.numel(), head.data_ptr(), imap.data_ptr(), occ.data_ptr(), None,
+                      hits.data_ptr(), stats.data_ptr(), _build.stream_of(ids)),
+                 "earlier fifo chunk")
+    return hits, stats
 
 
 def earlier_chunk(kind, carry, ids):
@@ -776,7 +944,7 @@ def earlier_chunk(kind, carry, ids):
     from repro_torch.kernels.prefix_tree.ops import leaves_for_storage
     from repro_torch.kernels.tree_lru.ops import _ring
 
-    minpair, chunk = earlier_libraries()
+    minpair, chunk, _ = earlier_libraries()
     dev = ids.device
     hits = torch.empty((), dtype=torch.int32, device=dev)
     stats = torch.empty(3, dtype=torch.float32, device=dev)
@@ -817,6 +985,12 @@ def timed_start(torch, kind, c, n, w, dev):
     fill = np.concatenate([adversarial(n, c, seed=9), zipf(n, w, alpha=0.9, seed=9)])
     chunk = torch.from_numpy(zipf(n, w, alpha=0.9, seed=10).astype("int32")).to(dev)
     fill = torch.from_numpy(fill.astype("int32")).to(dev)
+    if kind == "fifo":
+        from repro_torch.cachesim import engines as teng
+
+        card = teng.start_fifo_run(teng.init_engine_carry("fifo", n, c, device=dev), n)
+        teng.fifo_chunk(card, fill)
+        return card, chunk
     if kind == "gds":
         sizes = np.asarray([1.0, 4.0, 16.0, 64.0])[np.minimum(np.arange(n) * 4 // n, 3)]
         card = tt.init_tree_gds_carry(n, c, sizes=sizes, device=dev)
@@ -831,8 +1005,11 @@ def timed_start(torch, kind, c, n, w, dev):
 
 
 def _plain(kind, carry, ids):
+    from repro_torch.kernels.fifo_queue.ref import fifo_queue_ref
     from repro_torch.kernels.minpair_automaton.ref import gds_automaton_ref
 
+    if kind == "fifo":
+        return fifo_queue_ref(carry.slots, carry.stamps, carry.t, carry.queue, ids)
     if kind == "gds":
         return gds_automaton_ref(carry.imap, carry.prio, carry.hval, carry.L, carry.slots,
                                  carry.tree_hi, carry.tree_lo, ids)
@@ -841,9 +1018,11 @@ def _plain(kind, carry, ids):
 
 def time_designs(torch, dev, kinds, flush):
     """Each kind at each of chip_smoke.py's TREE_TIMED shapes: the plain
-    version's result and time, both designs held to it exactly, then both
-    timed cold in the order earlier, current, current, earlier.  Returns
-    ``{(kind, c): row}``."""
+    version's result and time, both designs held to it exactly (FIFO's
+    earlier design on its own queue: the hits, stats and the carry), then
+    both timed cold in the order earlier, current, current, earlier.
+    Returns ``{(kind, c): row}``."""
+    from repro_torch.cachesim import engines as teng
     from repro_torch.cachesim import tree_engines as tt
     from repro_torch.kernels.prefix_tree.ops import leaves_for_storage
     from repro_torch.kernels.tree_lru.ops import tree_lru
@@ -851,9 +1030,16 @@ def time_designs(torch, dev, kinds, flush):
     rows = {}
     for c, (n, w) in smoke.TREE_TIMED.items():
         for kind in kinds:
+            fifo = kind == "fifo"
+            tensors = smoke.fifo_tensors if fifo else smoke.tree_tensors
             card, chunk = timed_start(torch, kind, c, n, w, dev)
-            start = type(card)(*(x.clone() for x in smoke.tree_tensors(card)))
-            plain = type(card)(*(x.clone() for x in smoke.tree_tensors(card)))
+            if fifo:
+                start, plain = smoke.fifo_copy(card, dev), smoke.fifo_copy(card, dev)
+                old_queue = earlier_fifo_queue(card, n)
+                old_start = [x.clone() for x in old_queue]
+            else:
+                start = type(card)(*(x.clone() for x in tensors(card)))
+                plain = type(card)(*(x.clone() for x in tensors(card)))
             t0 = time.perf_counter()
             want = _plain(kind, plain, chunk)
             torch.cuda.synchronize()
@@ -865,35 +1051,52 @@ def time_designs(torch, dev, kinds, flush):
                 def current(card=card, m=m):
                     return tree_lru(card.tree, card.last, card.pos, card.nseen, card.cap, chunk,
                                     m, compact=False)
+            elif fifo:
+                def current(card=card):
+                    return teng.fifo_chunk(card, chunk)[1]
             else:
                 def current(card=card, kind=kind):
                     return tt.tree_chunk(kind, card, chunk)[1]
 
-            def earlier(card=card, kind=kind):
-                return earlier_chunk(kind, card, chunk)
+            if fifo:
+                def earlier(card=card, old_queue=old_queue):
+                    return earlier_fifo_chunk(card, old_queue, chunk)
+            else:
+                def earlier(card=card, kind=kind):
+                    return earlier_chunk(kind, card, chunk)
 
-            def reset(card=card):
-                for x, x0 in zip(smoke.tree_tensors(card), smoke.tree_tensors(start)):
+            def reset(card=card, tensors=tensors, start=start):
+                for x, x0 in zip(tensors(card), tensors(start)):
                     x.copy_(x0)
+                if fifo:
+                    for x, x0 in zip(old_queue, old_start):
+                        x.copy_(x0)
 
             label = f"{kind} C={c} N={n}, a {w}-request chunk from a full carry"
             err = 0.0
             for name, fn in (("earlier", earlier), ("current", current)):
                 reset()
                 got = fn()
-                e = smoke.max_abs_diff(torch, (*got, *smoke.tree_tensors(card)),
-                                       (*want, *smoke.tree_tensors(plain)))
+                if fifo and name == "earlier":  # its queue is its own
+                    mine, theirs = card[:3], plain[:3]
+                else:
+                    mine, theirs = tensors(card), tensors(plain)
+                e = smoke.max_abs_diff(torch, (*got, *mine), (*want, *theirs))
                 smoke.need(e == 0, f"{label}: the {name} design differs from the plain version "
                                    f"by {e}")
                 err = max(err, e)
             hits = int(want[0])
-            if kind == "lru":
+            if kind in ("lru", "fifo"):
                 evicted = w - hits  # the cache is full: every miss evicts
             else:
                 evicted = len(set(start.slots.tolist()) - set(plain.slots.tolist()))
             smoke.need(evicted > 0, f"{label}: no eviction")
-            n_bytes = (smoke.gds_bytes(torch, start, plain, chunk) if kind == "gds"
-                       else smoke.tree_bytes(torch, kind, start, plain, chunk))
+            if fifo:
+                n_bytes = smoke.fifo_bytes(torch, chunk, hits)
+            elif kind == "gds":
+                n_bytes = smoke.gds_bytes(torch, start, plain, chunk)
+            else:
+                n_bytes = smoke.tree_bytes(torch, kind, start, plain, chunk)
             bound, by = smoke.bound_ms(n_bytes, 0)
             runs = {"earlier": [], "current": []}
             for name in ("earlier", "current", "current", "earlier"):
@@ -933,7 +1136,7 @@ def main() -> int:
     def flush():
         flush_buf.zero_()
 
-    rows = time_designs(torch, dev, ("lru", "lfu", "ftpl", "gds"), flush)
+    rows = time_designs(torch, dev, ("lru", "lfu", "ftpl", "gds", "fifo"), flush)
     print(json.dumps({"automaton_designs": [
         {k: v for k, v in row.items() if k != "runs_ms"} | {"kind": kind, "runs_ms": row["runs_ms"]}
         for (kind, _), row in rows.items()]}))
