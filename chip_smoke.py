@@ -29,8 +29,9 @@ script with a non-zero exit:
    sums: the whole-tree build in one launch (1e6 leaves, and the 65 536
    buckets) beside the per-level design it replaced, and the batched tree
    update at a real chunk's three calls (recorded from that mid-run state)
-   and at a run of 2000 deltas under one node, each bit for bit its plain
-   version on the card and on the CPU;
+   and at a run of 2000 deltas under one node (in either order of the
+   adds), each bit for bit its plain version on the card and on the CPU,
+   and timed beside its earlier plan in turns (tools/time_tree_updates.py);
 4. the dense main path: run(policy_def("ogb")) over zipf(0.8) with
    N = 1e6, T = 1e7, C = 50 000, window 1000, every kernel's launches
    counted, the histogram's all bin tiles and the clip's all in the
@@ -125,13 +126,16 @@ script with a non-zero exit:
    C = 23, 1000, 16 384, 50 000, 64, 65 and 4097 with dyadic costs, padded
    and with its pointers in L2; the FIFO queue and the GDS mode timed
    beside their earlier designs, in turns (tools/time_automaton_designs.py);
-   the stacked tree update at a sized_cdn full chunk recorded from a
-   mid-run state (also as 4 one-tree launches, the design it replaces);
+   the stacked tree update at a sized_cdn full chunk's three calls
+   recorded from a mid-run state (each also as 4 one-tree launches), at a
+   stacked call in input order and the int32 tree update over a ring's
+   262 144 leaves, beside its earlier plan in turns, with each call's order
+   of the adds, nodes a level and changed nodes (tools/time_tree_updates.py);
    the sized solve at that chunk and at built instances with G = 1, 6, 32,
    33 and 200 groups of buckets holding an item, both its plans counted,
    beside its earlier design in turns and at 0, 1 and 30 steps
-   (tools/sweep_threshold_solves.py); and the int32 tree update; each
-   timed cold beside its bound and its plain version;
+   (tools/sweep_threshold_solves.py); each timed cold beside its bound, its
+   plain version and a library call where one computes the same;
 21. the sized scenario: sized_cdn at mini on the card against the golden
    (GDS, LRU, LFU, FTPL and OPT(static) hit and byte hit ratios exactly,
    OGB_sized_tree's byte regret within its tolerance), at quick against
@@ -144,7 +148,10 @@ script with a non-zero exit:
    and one histogram a chunk of OGB_sized_tree, and three chunks of the
    GDS row and of OGB_sized_tree under sync debug mode "error"; every
    full row's hit and byte hit ratio the recorded ones, and the G the
-   sized solve met over the full run (its plans' device tally).
+   sized solve met over the full run (its plans' device tally); and where
+   an OGB_sized_tree chunk's time goes at full, from torch.profiler over
+   200 chunks of a started run: device kernels, busy and wall us and idle
+   share a chunk, and the three stacked updates' time in it.
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -229,10 +236,6 @@ DESIGNS = {
     "segsum": "whole tree, one launch: a block a tile of 4096 leaves (levels 1-2 in shared "
               "memory), the last block by atomic ticket the levels above; each node one warp, "
               "fixed-order shuffles",
-    "tree_update": "a block a level: each node's first delta by atomicMin into an int32 scratch, "
-                   "then a warp a node sums its deltas 32 at a time in float64 (in any order where "
-                   "every partial sum is exact, checked on the card; else in input order) and "
-                   "rounds it once; no sort, untouched nodes unwritten",
     "slot_automaton": "one block a chunk: the slots spread over its threads in shared memory "
                       "beside their eviction keys, the requests in order, one block-wide argmin "
                       "over (key, slot) a request (redux.sync, one __syncthreads; none on one "
@@ -247,7 +250,7 @@ OFF_PATH = {"flash_prefill": 0, "decode_attention": 0, "slot_automaton": 0, "tre
             "minpair_automaton": 0, "fifo_queue": 0}
 #: the port's kernels in the profiler's rows, by the names of their functions
 PORT_KERNEL_NAMES = ("tree_update_kernel", "tree_build_kernel", "bin_tiles_kernel",
-                     "solve_buckets_kernel", "project_warm_kernel")
+                     "solve_buckets_kernel", "project_warm_kernel", "solve_sized_kernel")
 #: device_kernels: profiled calls, and the most while every one shows none
 PROFILE_TRIES, PROFILE_MOST_TRIES = 3, 10
 FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores, NVIDIA's data sheet
@@ -310,6 +313,9 @@ SIZED_FULL_ROWS = {
 #: phase 20 records a chunk of
 SIZED = "sized_cdn"
 SIZED_RECORD_CHUNKS = 200
+#: phase 21's OGB_sized_tree chunks timed, and as many profiled, after
+#: SIZED_RECORD_CHUNKS
+SIZED_PROFILE_CHUNKS = 200
 
 
 class Failed(Exception):
@@ -776,37 +782,50 @@ def breakdown(torch, trace, eta, kind="ogb"):
     plain = run(pd, part, N, C, window=W, eta=eta)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled = run(pd, part, N, C, window=W, eta=eta)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in rows) / PROFILE_CHUNKS
-    launches = sum(e.count for e in rows) / PROFILE_CHUNKS
-    wall_us = plain.wall_seconds * 1e6 / PROFILE_CHUNKS
-    prof_wall_us = profiled.wall_seconds * 1e6 / PROFILE_CHUNKS
-    need(busy_us > 0, "breakdown: the profiler saw no device time")
     expected = f" (expected {DENSE_KERNELS})" if kind == "ogb" else ""
-    print(f"breakdown {kind}, {PROFILE_CHUNKS} chunks: wall {wall_us:.1f} us/chunk "
-          f"(profiled {prof_wall_us:.1f}), device busy {busy_us:.1f} us/chunk, "
-          f"{launches:.1f} device kernels/chunk{expected}, device idle share "
-          f"{1 - busy_us / wall_us:.3f} (profiled {1 - busy_us / prof_wall_us:.3f})")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / PROFILE_CHUNKS:8.2f} us/chunk "
-              f"{e.count / PROFILE_CHUNKS:6.2f}/chunk  {e.key[:90]}")
-    ours = {}
-    for e in rows:
-        name = next((k for k in PORT_KERNEL_NAMES if k in e.key), None)
-        if name:
-            us, per = e.self_device_time_total / PROFILE_CHUNKS, e.count / PROFILE_CHUNKS
-            ours[name] = {"us_a_chunk": us, "launches_a_chunk": per}
-            print(f"  port kernel {name}: {us:.2f} us/chunk, {per:.2f} launches/chunk")
+    rows, out = profiled_chunks(torch, prof, PROFILE_CHUNKS, f"breakdown {kind}{expected}",
+                                plain.wall_seconds, profiled.wall_seconds)
     accumulate = [e.key for e in rows if "indexing_backward" in e.key]
     if kind == "ogb_tree":
         sorts = sum(e.self_device_time_total for e in rows if "RadixSort" in e.key)
         print(f"  PyTorch's accumulate: {len(accumulate)} rows; radix sorts "
               f"{sorts / PROFILE_CHUNKS:.2f} us/chunk")
         need(not accumulate, f"ogb_tree still runs PyTorch's accumulate: {accumulate}")
-    return {"wall_us_a_chunk": wall_us, "busy_us_a_chunk": busy_us,
-            "device_kernels_a_chunk": launches, "idle_share": 1 - busy_us / wall_us,
-            "port_kernels": ours}
+    return out
+
+
+def profiled_chunks(torch, prof, chunks, label, wall_s, profiled_wall_s):
+    """Phases 7, 11 and 21: a profiled run of ``chunks`` chunks, a chunk at
+    a time: device busy us and kernels, wall us (of the same run
+    unprofiled, ``wall_s``) and idle share, the top kernels and the port's
+    kernels by name, printed.  Returns (the profiler's device rows, the
+    numbers)."""
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in rows) / chunks
+    launches = sum(e.count for e in rows) / chunks
+    wall_us, prof_wall_us = wall_s * 1e6 / chunks, profiled_wall_s * 1e6 / chunks
+    need(busy_us > 0, f"{label}: the profiler saw no device time")
+    print(f"{label}, {chunks} chunks: wall {wall_us:.1f} us/chunk (profiled {prof_wall_us:.1f}), "
+          f"device busy {busy_us:.1f} us/chunk, {launches:.1f} device kernels/chunk, device idle "
+          f"share {1 - busy_us / wall_us:.3f} (profiled {1 - busy_us / prof_wall_us:.3f})")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / chunks:8.2f} us/chunk "
+              f"{e.count / chunks:6.2f}/chunk  {e.key[:90]}")
+    ours = {}
+    for e in rows:
+        name = next((k for k in PORT_KERNEL_NAMES if k in e.key), None)
+        if name:
+            us, per = e.self_device_time_total / chunks, e.count / chunks
+            mine = ours.setdefault(name, {"us_a_chunk": 0.0, "launches_a_chunk": 0.0})
+            mine["us_a_chunk"] += us
+            mine["launches_a_chunk"] += per
+    for name, r in ours.items():
+        print(f"  port kernel {name}: {r['us_a_chunk']:.2f} us/chunk, "
+              f"{r['launches_a_chunk']:.2f} launches/chunk")
+    return rows, {"wall_us_a_chunk": wall_us, "busy_us_a_chunk": busy_us,
+                  "device_kernels_a_chunk": launches, "idle_share": 1 - busy_us / wall_us,
+                  "port_kernels": ours}
 
 
 def tree_state(trace, eta, chunks=1000):
@@ -1000,38 +1019,15 @@ def record_chunk_updates(trace, carry, chunk=1000):
     return dict(zip(("ycnt", "ysum", "dcnt"), calls))
 
 
-def update_work(torch, n, radix, idx):
-    """What one update's data asks of the card: the deltas that add (idx >=
-    0), the nodes they touch, and the longest run of deltas under one node,
-    the chain of dependent float64 adds that no order but the input's may
-    shorten."""
-    from repro_torch.kernels.prefix_tree.ops import tree_offsets
-
-    node = idx[idx >= 0].long()
-    adds, touched, longest = int(node.numel()) * len(tree_offsets(n, radix)), 0, 0
-    for _ in tree_offsets(n, radix):
-        _, counts = torch.unique(node, return_counts=True)
-        touched += int(counts.numel())
-        longest = max(longest, int(counts.max()) if counts.numel() else 0)
-        node = node // radix
-    return {"deltas": int(idx.numel()), "adding": int((idx >= 0).sum()), "float64_adds": adds,
-            "touched_nodes": touched, "longest_run": longest}
-
-
 def check_tree_sums(torch, dev, carry, trace, one_level):
     """Phase 3, the tree's two sums: the whole-tree build and the batched
     tree update, against their plain versions (and the build against the
     per-level design it replaced, bit for bit), then timings.  The update at
     a real chunk's three calls and at a run of 2000 deltas under one node.
     ``one_level`` is the one-level segsum kernel's row, kept in the build's."""
-    from repro_torch.kernels.prefix_tree.ops import (
-        tree_build,
-        tree_offsets,
-        tree_storage,
-        tree_update_,
-        update_order,
-    )
+    from repro_torch.kernels.prefix_tree.ops import tree_build, tree_storage, tree_update_
     from repro_torch.kernels.prefix_tree.ref import tree_build_ref, tree_update_ref
+    from tools.time_tree_updates import EARLIER_DESIGN, ogb_tree_cases, time_updates
 
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
 
@@ -1082,56 +1078,32 @@ def check_tree_sums(torch, dev, carry, trace, one_level):
     segsum = {**rows["segsum"], "buckets": rows["buckets"],
               "one_level": {**one_level, "design": "one level a launch (block_segment_sums)"}}
 
-    calls = record_chunk_updates(trace, carry)
-    tree, n, radix, idx, delta = calls["ysum"]
-    one = torch.full_like(idx, int(idx[idx >= 0][0]))  # every delta under one leaf
-    calls["one node"] = (tree, n, radix, one, delta)
-    # deltas over twelve decades, which the card adds in input order
-    wide = torch.randn(idx.numel(), generator=gen) * 10.0 ** (
-        torch.rand(idx.numel(), generator=gen) * 12 - 8)
-    calls["one node, wide deltas"] = (tree, n, radix, one, wide.to(dev))
-    updates = {}
-    for label, (tree, n, radix, idx, delta) in calls.items():
+    # the update at a real chunk's three calls, a run of 2000 under one node
+    # and the same in input order: its checks, then beside its earlier plan
+    # (tools/time_tree_updates.py: bit for bit, timed in turns)
+    cases = ogb_tree_cases(torch, dev, record_chunk_updates(trace, carry))
+    for label, (tree, n, radix, _, idx, delta) in cases.items():
         got = tree_update_(tree.clone(), n, radix, idx, delta)
         need(torch.equal(got, tree_update_ref(tree.clone(), n, radix, idx, delta)),
              f"tree_update {label} differs from its plain version on the card")
         cpu = tree_update_ref(tree.to("cpu", copy=True), n, radix, idx.cpu(), delta.cpu())
         need(torch.equal(got.cpu(), cpu), f"tree_update {label} differs from the CPU's")
-        need(torch.equal(tree_update_(tree.clone(), n, radix, idx, delta), got),
-             f"tree_update {label}: two runs differ")
         work = tree.clone()
         kernels = device_kernels(torch, lambda: tree_update_(work, n, radix, idx, delta))
         need(kernels == 1, f"tree_update {label}: {kernels} device kernels a call, not 1")
-        stats = {**update_work(torch, n, radix, idx), "order": update_order(n, idx, delta)}
-        need(stats["adding"] > 0, f"tree_update {label}: no delta adds, a vacuous check")
-        ms, warm = time_both(torch, f"tree_update {label}",
-                             lambda: tree_update_(work, n, radix, idx, delta), flush)
-        plain_work = tree.clone()
-        plain = timed_ms(torch, lambda: tree_update_ref(plain_work, n, radix, idx, delta), 20,
-                         flush)
-        # the library call: PyTorch's float64 accumulate over the (node, delta)
-        # pairs the plain version forms, timed alone
-        ok, levels = idx >= 0, tree_offsets(n, radix)
-        node, nodes = torch.where(ok, idx, torch.zeros_like(idx)).long(), []
-        for off in levels:
-            nodes.append(off + node)
-            node = node // radix
-        nodes = torch.cat(nodes)
-        vals = torch.where(ok, delta, torch.zeros_like(delta)).double().repeat(len(levels))
-        acc = torch.zeros(tree.numel(), dtype=torch.float64, device=dev)
-        lib = timed_ms(torch, lambda: acc.index_put_((nodes,), vals, accumulate=True), 20, flush)
-        n_bytes = (idx.element_size() + 4) * idx.numel() + 8 * stats["touched_nodes"]
-        b, by = bound_ms(n_bytes, stats["float64_adds"], FP64_OPS_PER_S)
-        print(f"tree_update {label}: bit for bit the plain version on the card and on the CPU, "
-              f"1 device kernel a call; {stats}; cold {ms * 1e3:.2f} us, warm {warm * 1e3:.2f} us "
-              f"(plain {plain * 1e3:.2f} us, index_put_(accumulate=True) alone {lib * 1e3:.2f} "
-              f"us, bound {b * 1e3:.4f} us by {by}; its longest run, {stats['longest_run']} "
-              f"deltas, is as many dependent float64 adds in input order)")
-        updates[label] = {"ms": ms, "warm_ms": warm, "plain_ms": plain, "bound_ms": b,
-                          "bound_by": by, "library_ms": lib, "max_abs_err": 0.0, **stats}
+    updates = time_updates(torch, dev, flush, cases)
+    slower = [k for k, r in updates.items() if r["ms"] > r["earlier_ms"]]
+    print(f"tree_update, the one-tree path: every case bit for bit the plain version on the card "
+          f"and the CPU, 1 device kernel a call; cold against the earlier plan: "
+          + ", ".join(f"{k} {r['ms'] * 1e3:.2f} ({r['earlier_ms'] * 1e3:.2f})"
+                      for k, r in updates.items())
+          + f" us; slower than the earlier plan at {slower or 'no case'}")
     del flush_buf
-    row = {**updates["ysum"], "tree": "ysum, a real chunk's",
-           "calls": {k: v for k, v in updates.items() if k != "ysum"}}
+    row = {**updates["ogb_tree ysum"], "tree": "ysum, a real chunk's",
+           "calls": {k: {x: y for x, y in v.items() if x != "runs_ms"}
+                     for k, v in updates.items() if k != "ogb_tree ysum"},
+           "earlier_design": EARLIER_DESIGN}
+    row.pop("runs_ms")
     return {"segsum": segsum, "tree_update": row}
 
 
@@ -1141,7 +1113,7 @@ def check_tree_main_path(trace, eta):
 
     from repro_torch import policy_def, run
     from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
-    from repro_torch.kernels.prefix_tree.ops import WHOLE_TREE
+    from repro_torch.kernels.prefix_tree.ops import UPDATE_DESIGN, WHOLE_TREE
 
     pd = policy_def("ogb_tree")
     reset_launch_counts()
@@ -1172,6 +1144,8 @@ def check_tree_main_path(trace, eta):
     need(designs["histogram"] == want_hist, f"ogb_tree histogram designs {designs['histogram']}")
     need(designs["segsum"] == {WHOLE_TREE: 3 * (1 + reanchors)},
          f"ogb_tree segsum designs {designs['segsum']}")
+    need(designs["tree_update"] == {UPDATE_DESIGN: 3 * m},
+         f"ogb_tree tree_update designs {designs['tree_update']}")
     need(np.all(np.isfinite(res.reward)) and np.all(np.isfinite(res.aux)), "non-finite output")
     need(abs(res.frac_hit_ratio - REF_TREE_FRAC_HIT_RATIO) <= 1e-4,
          f"ogb_tree fractional hit ratio {res.frac_hit_ratio} is not the reference's")
@@ -2502,14 +2476,10 @@ def check_sized_kernels(torch, dev):
     from repro_torch.kernels.minpair_automaton.ref import gds_automaton_ref
     from repro_torch.kernels.prefix_tree.kernel import SIZED_DESIGN, read_sized_tally
     from repro_torch.kernels.prefix_tree.ops import stacked_tree_update_, tree_update_
-    from repro_torch.kernels.prefix_tree.ref import (
-        solve_sized_ref,
-        stacked_tree_update_ref,
-        tree_build_ref,
-        tree_update_ref,
-    )
+    from repro_torch.kernels.prefix_tree.ref import solve_sized_ref
     from tools.sweep_threshold_solves import EARLIER_SIZED_DESIGN, time_sized
     from tools.time_automaton_designs import EARLIER_DESIGNS, time_designs
+    from tools.time_tree_updates import sized_cases, time_updates
 
     flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
 
@@ -2616,45 +2586,24 @@ def check_sized_kernels(torch, dev):
                               earlier_design=EARLIER_DESIGNS["fifo_queue"],
                               launches_by_plan_phase20=fifo_plans)
 
-    # (c) the stacked tree update and (d) the sized solve at a recorded chunk
+    # (c) the stacked tree update at the recorded chunk's three calls (also
+    # as K one-tree launches), the int32 update and a stacked call in input
+    # order, beside the earlier plan (tools/time_tree_updates.py: bit for
+    # bit on the card and the CPU, timed in turns); (d) the sized solve
     calls = sized_state(torch)
-    upd, upd_k, upd_err = [], [], 0.0
     for trees0, v, radix, rws, idx, delta in calls["update"]:
-        out = trees0.clone()
-        got = stacked_tree_update_(out, v, radix, rws, idx, delta)
-        want = stacked_tree_update_ref(trees0.clone(), v, radix, rws, idx, delta)
-        on_cpu = stacked_tree_update_ref(trees0.cpu(), v, radix, rws.cpu(), idx.cpu(), delta.cpu())
-        e = max_abs_diff(torch, (got,), (want,))
-        need(e == 0 and torch.equal(got.cpu(), on_cpu),
-             f"stacked tree update differs from the plain version by {e}")
+        got = stacked_tree_update_(trees0.clone(), v, radix, rws, idx, delta)
         per_row = trees0.clone()
         for k in range(per_row.shape[0]):
             tree_update_(per_row[k], v, radix, torch.where(rws == k, idx, -1), delta)
         need(torch.equal(per_row, got), "K one-tree updates differ from the stacked update")
-        reset = restorer((out,), (trees0,))
-        ms = timed_ms(torch, lambda: stacked_tree_update_(out, v, radix, rws, idx, delta), 20,
-                      flush, reset=reset)
-
-        def per_class(out=out, v=v, radix=radix, rws=rws, idx=idx, delta=delta):
-            for k in range(out.shape[0]):
-                tree_update_(out[k], v, radix, torch.where(rws == k, idx, -1), delta)
-
-        k_ms = timed_ms(torch, per_class, 20, flush, reset=reset)
-        t0 = time.perf_counter()
-        for _ in range(5):
-            stacked_tree_update_ref(trees0.clone(), v, radix, rws, idx, delta)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3 / 5
-        touched = int((got != trees0).sum())
-        b, by = bound_ms(20 * idx.numel() + 8 * touched, 0)
-        upd.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                    "per_class_launches_ms": k_ms, "deltas": idx.numel(),
-                    "touched_nodes": touched})
-        upd_err = max(upd_err, e)
-        print(f"stacked tree update, a recorded sized_cdn full chunk ({idx.numel()} deltas over "
-              f"{trees0.shape[0]} trees, {touched} nodes changed): cold {ms * 1e3:.2f} us; "
-              f"{trees0.shape[0]} one-tree launches {k_ms * 1e3:.2f} us; plain on the card "
-              f"{plain_ms * 1e3:.2f} us; bound {b * 1e3:.4f} us by {by}; bit for bit")
+    updates = {k: {x: y for x, y in r.items() if x != "runs_ms"}
+               for k, r in time_updates(torch, dev, flush,
+                                        sized_cases(torch, dev, calls["update"])).items()}
+    print(f"stacked and int32 tree updates, cold against the earlier plan: "
+          + ", ".join(f"{k} {r['ms'] * 1e3:.2f} ({r['earlier_ms'] * 1e3:.2f})"
+                      for k, r in updates.items()) + f" us; each call's K one-tree launches equal "
+          f"to its stacked launch [{nvidia_smi_line()}]")
     # the sized solve at the recorded chunk and at built G, beside its
     # earlier design (tools/sweep_threshold_solves.py)
     ycnt, ysum, v, s_, cap_, lo, hi, iters = calls["solve"][0]
@@ -2683,24 +2632,9 @@ def check_sized_kernels(torch, dev):
           + ", ".join(f"{v:.2f}" for v in main["us_by_steps"]["current"].values())
           + f" us); plain on the card {plain_ms:.2f} ms; both plans launched over the cases "
           f"({plans}) [{nvidia_smi_line()}]")
-    rows["stacked_update"] = {**upd[0], "calls": upd, "max_abs_err": upd_err, "library_ms": None}
-
-    # the int32 tree update at a C = 50 000 ring's shape (262 144 leaves,
-    # radix 16), 2000 deltas scattered over it: no path launches it
-    m = INT32_BUILD_LEAVES[0]
-    tree = tree_build_ref(torch.randint(0, 2, (m,), dtype=torch.int32, device=dev), 16)
-    idx = torch.randint(-1, m, (2000,), device=dev)
-    delta = torch.randint(-1, 2, (2000,), dtype=torch.int32, device=dev)
-    got = tree_update_(tree.clone(), m, 16, idx, delta)
-    need(torch.equal(got, tree_update_ref(tree.clone(), m, 16, idx, delta)) and
-         torch.equal(got.cpu(), tree_update_ref(tree.cpu(), m, 16, idx.cpu(), delta.cpu())),
-         "the int32 tree update differs from its plain version")
-    out = tree.clone()
-    ms = timed_ms(torch, lambda: tree_update_(out, m, 16, idx, delta), 20, flush,
-                  reset=restorer((out,), (tree,)))
-    rows["int32_update"] = {"ms": ms, "deltas": idx.numel(), "leaves": m}
-    print(f"int32 tree update, {idx.numel()} deltas scattered over {m} leaves at radix 16: cold "
-          f"{ms * 1e3:.2f} us, bit for bit")
+    int32 = updates.pop("int32, scattered")
+    rows["stacked_update"] = {**updates["sized_cdn full ycnt"], "calls": updates}
+    rows["int32_update"] = int32
     return rows
 
 
@@ -2787,8 +2721,48 @@ def check_sized_scenario(torch, cpu_future):
     check_no_host_reads(torch, trace, n, c, w, ("gds",), label=f"{SIZED} full", sizes=sizes)
     check_no_host_reads(torch, trace, n, cap, 1000, ("ogb_sized",), label=f"{SIZED} full",
                         sizes=sizes)
+    chunk = sized_breakdown(torch, trace, n, cap, sizes, t)
     return launches, {p: {k: r[k] for k in ("hit_ratio", "byte_hit_ratio", "us_per_request")
-                          if k in r} for p, r in res.rows.items()}, flip, groups
+                          if k in r} for p, r in res.rows.items()}, flip, groups, chunk
+
+
+def sized_breakdown(torch, trace, n, cap, sizes, horizon):
+    """Phase 21: where an OGB_sized_tree chunk's time goes at sized_cdn
+    full, from torch.profiler: a started run takes SIZED_RECORD_CHUNKS
+    chunks, then SIZED_PROFILE_CHUNKS timed on the host clock and as many
+    more profiled; device kernels a chunk, busy and wall us, idle share, and
+    the three stacked tree updates' time in the chunk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import policy_def
+
+    pd = policy_def("ogb_sized")
+    k = SIZED_PROFILE_CHUNKS
+    chunks = torch.from_numpy(trace[:(SIZED_RECORD_CHUNKS + 2 * k) * 1000].astype("int32")).to(
+        "cuda").reshape(-1, 1000)
+    carry = pd.start(pd.init(n, cap, horizon=horizon, sizes=sizes), n)
+
+    def drive(first):
+        nonlocal carry
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(first, first + k):
+            carry, _ = pd.step(carry, chunks[i])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for i in range(SIZED_RECORD_CHUNKS):
+        carry, _ = pd.step(carry, chunks[i])
+    wall = drive(SIZED_RECORD_CHUNKS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = drive(SIZED_RECORD_CHUNKS + k)
+    _, out = profiled_chunks(torch, prof, k, f"{SIZED} full OGB_sized_tree chunk", wall, profiled)
+    updates = out["port_kernels"].get("tree_update_kernel", {})
+    need(updates.get("launches_a_chunk", 0) > 0, "the profiler saw no tree update in the chunk")
+    print(f"{SIZED} full OGB_sized_tree: the three stacked tree updates "
+          f"{updates['us_a_chunk']:.2f} us a chunk in {updates['launches_a_chunk']:.2f} launches "
+          f"[{nvidia_smi_line()}]")
+    return out
 
 
 def sized_groups_seen(tally, launches):
@@ -2877,7 +2851,7 @@ def main() -> int:
         sized_rows = check_sized_kernels(torch, dev)
         print(f"sized kernels phase 20: {time.perf_counter() - t_sized:.2f} s")
         t_sized = time.perf_counter()
-        sized_launches, sized_full, sized_flip, sized_groups = check_sized_scenario(
+        sized_launches, sized_full, sized_flip, sized_groups, sized_chunk = check_sized_scenario(
             torch, cpu_futures[SIZED])
         print(f"sized scenario phase 21: {time.perf_counter() - t_sized:.2f} s")
     finally:
@@ -2906,7 +2880,10 @@ def main() -> int:
     rows["tree_update"]["int32"] = sized_rows["int32_update"]
     rows["bucket_mass"]["sized"] = sized_rows["solve_sized"]
     rows["bucket_mass"]["sized"]["sized_cdn_full_groups"] = sized_groups
-    rows["sized_cdn_full"] = {"rows": sized_full, "ranking_flip": sized_flip}
+    rows["sized_cdn_full"] = {"rows": sized_full, "ranking_flip": sized_flip,
+                              "ogb_sized_tree_chunk": sized_chunk}
+    rows["tree_update"]["stacked"]["in_chunk"] = sized_chunk["port_kernels"].get(
+        "tree_update_kernel")
     # the int32 tree build: a ring compaction's, launched on the scenario paths
     rows["segsum"]["int32"] = {"by_leaves": int32_build,
                                "launches_quick": scenario_launches["segsum"],
@@ -2917,6 +2894,7 @@ def main() -> int:
     # the re-anchor's histograms: their launches in phase 9's forced re-anchors
     rows["histogram"]["reanchor"]["launches_by_design"] = reanchor_histograms
     rows["bucket_mass"]["design"] = " + ".join(tree_designs["bucket_mass"])
+    rows["tree_update"]["design"] = " + ".join(tree_designs["tree_update"])
     for name, design in DESIGNS.items():
         rows[name]["design"] = design
     # the tree kernels in an ogb_tree chunk, and the chunk itself (phase 11)

@@ -12,11 +12,13 @@ The tree's two sums are hand-written kernels on the card.
 each level summed from the level below as
 :func:`.kernel.block_segment_sums` sums one; float32 or int32).
 :func:`tree_update_` sums each touched node's deltas of a float32 tree in
-float64, in input order, and rounds the node once (``csrc/tree_update.cu``),
-so a float tree comes out the same on every run and on either device; an
-int32 tree's deltas add exactly, in any order.  :func:`stacked_tree_update_`
-updates K trees of one shape, stacked in a (K, TOT) tensor, in the same one
-launch (the sized OGB's per-class trees).  On a CPU tensor both run their
+float64, in input order, and rounds the node once (``csrc/tree_update.cu``:
+a level's blocks, split by node, sort the call's deltas into runs by node
+in shared memory and sum each run alone), so a float tree comes out the
+same on every run and on either device; an int32 tree's deltas add
+exactly, in any order.  :func:`stacked_tree_update_` updates K trees of
+one shape, stacked in a (K, TOT) tensor, in the same one launch (the
+sized OGB's per-class trees).  On a CPU tensor both run their
 plain versions in :mod:`.ref`.  The prefix reads, the weighted selection
 and the min-pair trees are plain tensor code, as the reference computes
 them outside Pallas; the tree automata's kernels walk the min-pair trees on
@@ -49,6 +51,20 @@ TILE_LEAVES = 4096
 WHOLE_TREE = "whole tree, one launch"
 
 
+#: the most deltas one card update takes (kMaxDeltas of csrc/tree_update.cu)
+MAX_UPDATE_DELTAS = 2**29
+#: the most deltas an update stages in shared memory (kOnChipDeltas): past
+#: them its workspace is a global buffer (:func:`update_work_bytes`)
+ON_CHIP_DELTAS = 4096
+#: the update's plan, by where its workspace lies: the designs
+#: :func:`tree_update_` counts its launches under
+UPDATE_DESIGN = ("hashed runs: 1-8 blocks a level (a block a 512 of its possible nodes) stage "
+                 "the deltas in shared memory, hash their nodes, sort them into runs by node "
+                 "and sum each run alone, a warp a long run where any order is exact, else a "
+                 "thread in input order")
+UPDATE_DESIGN_L2 = UPDATE_DESIGN.replace("in shared memory", "in a global workspace")
+
+
 #: the largest int32 value: the key of padding and inactive min-pair nodes
 I32_MAX = 2**31 - 1
 #: the tree dtypes the card's build takes, and their C entry points
@@ -74,19 +90,23 @@ def _tree_update_entry():
 
 
 @functools.lru_cache(maxsize=None)
+def update_work_bytes(deltas: int, n: int, radix: int, n_rows: int) -> int:
+    """Bytes of global workspace the card's update of ``deltas`` deltas over
+    ``n_rows`` trees of ``n`` leaves takes (``csrc/tree_update.cu``): 0
+    where it stages the call in shared memory, as every chunk's call does."""
+    fn = _build.library("tree_update").repro_tree_update_work_bytes
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    count, sizes = _levels(n, radix)
+    return int(fn(deltas, ctypes.addressof(sizes), count, n_rows))
+
+
+@functools.lru_cache(maxsize=None)
 def _levels(n: int, radix: int):
     """The level sizes of a tree over ``n`` leaves, as the C entry points
     take them: (count, a C array of int64)."""
     sizes = tree_sizes(n, radix)
     return len(sizes), (ctypes.c_longlong * len(sizes))(*sizes)
-
-
-@functools.lru_cache(maxsize=None)
-def first_scratch(device: torch.device, nodes: int) -> torch.Tensor:
-    """The card's update scratch for a tree of ``nodes`` nodes on
-    ``device``: one int32 a node (``first`` in ``csrc/tree_update.cu``),
-    INT_MAX between calls, as every call leaves it."""
-    return torch.full((nodes,), 2**31 - 1, dtype=torch.int32, device=device)
 
 
 def _lanes(radix: int, device: torch.device) -> torch.Tensor:
@@ -171,6 +191,7 @@ def tree_update_(tree: torch.Tensor, n: int, radix: int, idx: torch.Tensor,
 
 
 tree_update_.launches = 0
+tree_update_.designs = {}
 
 
 def stacked_tree_update_(trees: torch.Tensor, n: int, radix: int, rows: torch.Tensor,
@@ -208,34 +229,45 @@ def _launch_update(tree, n, radix, rows, idx, delta, n_rows, row_stride):
     if idx.shape != delta.shape:
         raise ValueError(f"idx and delta must have one shape, got {tuple(idx.shape)} and "
                          f"{tuple(delta.shape)}")
-    if max(n * n_rows, idx.numel()) >= 2**31:
-        raise ValueError(f"the card updates fewer than 2^31 leaves by fewer than 2^31 deltas; "
-                         f"got {n_rows} trees of {n} leaves and {idx.numel()} deltas")
+    if n * n_rows >= 2**31 or idx.numel() > MAX_UPDATE_DELTAS:
+        raise ValueError(f"the card updates fewer than 2^31 leaves by at most "
+                         f"{MAX_UPDATE_DELTAS} deltas; got {n_rows} trees of {n} leaves and "
+                         f"{idx.numel()} deltas")
     if idx.numel() == 0 or n == 0:
         return
     count, sizes = _levels(n, radix)
-    first = first_scratch(dev, tree.numel())
+    work_bytes = update_work_bytes(idx.numel(), n, radix, n_rows)
+    work = torch.empty(work_bytes, dtype=torch.uint8, device=dev) if work_bytes else None
     _build.check(
         _tree_update_entry()(tree.data_ptr(), int(tree.dtype == torch.int32),
                              ctypes.addressof(sizes), count, radix_shift(radix), idx.data_ptr(),
                              rows.data_ptr() if rows is not None else None, idx.element_size(),
-                             n_rows, row_stride, delta.data_ptr(), idx.numel(), first.data_ptr(),
+                             n_rows, row_stride, delta.data_ptr(), idx.numel(),
+                             work.data_ptr() if work is not None else None,
                              _build.stream_of(tree)),
         "tree_update_",
     )
-    tree_update_.launches += 1
+    _build.counted(tree_update_, UPDATE_DESIGN if work is None else UPDATE_DESIGN_L2)
+
 
 EXACT_ANY_ORDER, INPUT_ORDER = "exact, any order", "input order"
 
 
-def update_order(n: int, idx: torch.Tensor, delta: torch.Tensor) -> str:
+def update_order(n: int, idx: torch.Tensor, delta: torch.Tensor,
+                 rows: Optional[torch.Tensor] = None, n_rows: int = 1) -> str:
     """The order in which the card's update adds a node's deltas, as the
-    kernel decides it on the device (``csrc/tree_update.cu``): in any order
-    when every float64 partial sum of the deltas that add is exact (finite,
-    and their count times the largest magnitude within 2^53 of the smallest
-    ulp), else in input order.  Both give the plain version's bits.  Reads
-    the tensors: for tests and measurements, not the replay."""
+    kernel decides it on the device (``csrc/tree_update.cu``), for the
+    whole call: in any order when every float64 partial sum of the deltas
+    that add (a leaf in [0, n) and, with ``rows``, a row in [0, n_rows)) is
+    exact (finite, and their count times the largest magnitude within 2^53
+    of the smallest ulp), else in input order; int32 deltas always in any
+    order.  Both give the plain version's bits.  Reads the tensors: for
+    tests and measurements, not the replay."""
+    if not delta.dtype.is_floating_point:
+        return EXACT_ANY_ORDER
     ok = (idx >= 0) & (idx < n)
+    if rows is not None:
+        ok &= (rows >= 0) & (rows < n_rows)
     bits = delta[ok].float().contiguous().view(torch.int32).cpu().numpy().astype("uint32")
     field = (bits >> 23) & 0xFF
     nonzero = (bits & 0x7FFFFFFF) != 0

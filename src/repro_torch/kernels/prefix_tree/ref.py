@@ -87,9 +87,12 @@ def tree_update_ref(tree: torch.Tensor, n: int, radix: int, idx: torch.Tensor,
     path of leaf ``idx[q]``; entries with ``idx < 0`` add nothing.
 
     Each node's deltas are summed in float64 in input order (the order in
-    which ``index_put_(accumulate=True)`` adds duplicates, on the CPU and,
-    after its stable sort, on the card) and the node is rounded once.  An
-    integer tree adds its deltas in place, exact in any order."""
+    which ``index_put_(accumulate=True)`` adds duplicates on the CPU) and
+    the node is rounded once.  On the card PyTorch's accumulate sums a long
+    run of one index across a warp, so there this plain version gives the
+    CPU's bits only where the order of the adds does not show (the card's
+    kernel keeps input order: ``csrc/tree_update.cu``).  An integer tree
+    adds its deltas in place, exact in any order."""
     sh = radix_shift(radix)
     ok = idx >= 0
     node = torch.where(ok, idx, torch.zeros_like(idx)).to(torch.int64)

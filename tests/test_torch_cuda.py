@@ -29,7 +29,11 @@ the sized axis's kernels: the FIFO queue at C = 25 to 50 000 in both its
 plans (each side of 32 active slots, padded slots, and churn traces whose
 tiles evict what they request again) and the GDS mode of
 ``minpair_automaton`` bit for bit against their plain versions, the
-stacked and the int32 tree updates, the sized solve in both its plans
+stacked and the int32 tree updates (the sorted-runs plan at a sized
+chunk's shape, a run of 2000 under one node, 2000 int32 deltas scattered
+past the int32 wrap, +-1e8 cancelling in input order, NaN and infinity,
+rows and ids out of range, the exactness edge, past the shared workspace,
+and replayed in a CUDA graph), the sized solve in both its plans
 (also past its shared memory) with their tally, ``ogb_sized`` and
 ``sized_cdn`` mini on the card against the CPU, and sized runs with no host
 read in a chunk.
@@ -70,10 +74,14 @@ from repro_torch.kernels.prefix_tree.kernel import (
 from repro_torch.kernels.prefix_tree.ops import (
     EXACT_ANY_ORDER,
     INPUT_ORDER,
-    first_scratch,
+    ON_CHIP_DELTAS,
+    UPDATE_DESIGN,
+    UPDATE_DESIGN_L2,
+    stacked_tree_update_,
     tree_build,
     tree_offsets,
     tree_sizes,
+    tree_storage,
     tree_update_,
     update_order,
 )
@@ -81,6 +89,7 @@ from repro_torch.kernels.prefix_tree.ref import (
     bucket_masses_ref,
     segment_sums_ref,
     solve_buckets_ref,
+    stacked_tree_update_ref,
     tree_build_ref,
     tree_update_ref,
 )
@@ -299,12 +308,14 @@ def test_tree_update_equals_plain_bit_for_bit(card, name, index_dtype, kind, ord
     reset_launch_counts()
     got = tree_update_(tree.clone(), n, radix, idx, delta)
     assert launch_counts()["tree_update"] == 1
+    # the workspace in shared memory, or past ON_CHIP_DELTAS in a global buffer
+    assert design_counts()["tree_update"] == {
+        UPDATE_DESIGN if idx.numel() <= ON_CHIP_DELTAS else UPDATE_DESIGN_L2: 1}
     want = tree_update_ref(tree.clone(), n, radix, idx, delta)
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), tree_update_ref(tree.cpu(), n, radix, idx.cpu(), delta.cpu()))
     assert not torch.equal(got, tree)
     assert torch.equal(tree_update_(tree.clone(), n, radix, idx, delta), got)
-    assert bool((first_scratch(got.device, tree.numel()) == 2**31 - 1).all())  # left as found
     touched = torch.zeros(tree.numel(), dtype=torch.bool, device=card)
     ok = idx >= 0
     node = idx[ok].long()
@@ -1123,6 +1134,157 @@ def test_int32_tree_update_matches_plain(card, n, radix):
     reset_launch_counts()
     got = tree_update_(tree.to(card), n, radix, idx.to(card), delta.to(card))
     assert launch_counts()["tree_update"] == 1 and torch.equal(got.cpu(), want)
+
+
+def _plan_case(name, seed, index_dtype):
+    """(trees, n, radix, rows or None, idx, delta) on the CPU: the cases the
+    hashed-runs plan is held to (tests/test_torch_tree_update_design.py
+    emulates it on the same kinds)."""
+    gen = torch.Generator().manual_seed(seed)
+    kk, v, q = 4, OGB_TREE_BUCKETS, 2000
+    base = torch.rand((kk, tree_storage(v, 64)), generator=gen) * 50
+    rows = torch.randint(0, kk, (q,), generator=gen)
+    masked = torch.rand(q, generator=gen) < 0.25
+    sign = torch.randint(0, 2, (q,), generator=gen) * 2.0 - 1.0
+    if name == "sized counts":  # a sized chunk's bucket moves, a quarter skipped
+        idx = torch.where(masked, -1, torch.randint(0, 400, (q,), generator=gen) * 97)
+        case = (base, v, 64, rows, idx, sign)
+    elif name == "sized values":
+        idx = torch.where(masked, -1, torch.randint(0, 400, (q,), generator=gen) * 97)
+        case = (base, v, 64, rows, idx, sign * 3 * torch.rand(q, generator=gen))
+    elif name == "one node":  # a run of 2000 under one leaf of one tree
+        case = (base, v, 64, torch.full((q,), 2), torch.full((q,), 40_000),
+                torch.rand(q, generator=gen) * 4 - 2)
+    elif name == "twelve decades":  # input order: +-1e8 cancelling around small deltas
+        where = torch.randint(0, 16, (q // 4,), generator=gen)
+        small = torch.randn(q // 2, generator=gen) * 10.0 ** (
+            torch.rand(q // 2, generator=gen) * 12 - 14)
+        big = torch.full((q // 4,), 1e8)
+        delta = torch.stack([big, small[:q // 4], -big, small[q // 4:]], 1).reshape(-1)
+        case = (torch.zeros_like(base), v, 64, (where % kk).repeat_interleave(4),
+                ((where // kk) * 4099).repeat_interleave(4), delta)
+    elif name == "nan and infinity":
+        delta = torch.rand(q, generator=gen) * 2 - 1
+        delta[[5, 900]] = float("nan")
+        delta[[77, 1500]] = torch.tensor([float("inf"), -float("inf")])
+        case = (base, v, 64, rows, torch.randint(0, 2000, (q,), generator=gen) * 31, delta)
+    elif name == "out of range":  # ids past the leaves, rows past the trees
+        idx = torch.randint(-5, v + 5, (q,), generator=gen)
+        idx[:40] = v + torch.arange(40)
+        case = (base, v, 64, torch.randint(-2, kk + 2, (q,), generator=gen), idx,
+                torch.rand(q, generator=gen) * 4 - 2)
+    elif name == "exactness edge":  # magnitudes over 2^(29 - log2 2000): any order
+        field = torch.randint(90, 90 + 29 - 11 + 1, (q,), generator=gen)
+        field[:2] = torch.tensor([90, 90 + 29 - 11])
+        bits = (field << 23) | 0x7FFFFF
+        delta = bits.to(torch.int32).view(torch.float32) * sign
+        case = (base, v, 64, rows, torch.full((q,), 1234), delta)
+    elif name == "past the shared workspace":  # ON_CHIP_DELTAS + 1 deltas: a global one
+        q = ON_CHIP_DELTAS + 1
+        case = (base, v, 64, torch.randint(0, kk, (q,), generator=gen),
+                torch.randint(-1, v, (q,), generator=gen),
+                torch.randint(0, 2, (q,), generator=gen) * 2.0 - 1.0)
+    else:  # int32: 2000 deltas scattered over a ring's 262 144 leaves, nodes near the wrap
+        m = 262_144
+        tree = tree_build_ref(torch.randint(0, 2, (m,), dtype=torch.int32, generator=gen), 16)
+        tree[m:] = 2**31 - 20
+        case = (tree, m, 16, None, torch.randint(-1, m, (q,), generator=gen),
+                torch.randint(-9, 10, (q,), dtype=torch.int32, generator=gen))
+    trees, n, radix, rws, idx, delta = case
+    return (trees, n, radix, None if rws is None else rws.to(index_dtype), idx.to(index_dtype),
+            delta.to(trees.dtype))
+
+
+def _same_bits_or_nan(a, b):
+    """Equal, NaN where NaN (a NaN's payload is the device's own)."""
+    nan = torch.isnan(a) if a.is_floating_point() else torch.zeros_like(a, dtype=torch.bool)
+    return torch.equal(nan, torch.isnan(b) if b.is_floating_point() else nan) and \
+        torch.equal(a[~nan], b[~nan])
+
+
+PLAN_CASES = ["sized counts", "sized values", "one node", "twelve decades", "nan and infinity",
+              "out of range", "exactness edge", "past the shared workspace", "int32 scattered"]
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("name", PLAN_CASES)
+def test_the_hashed_runs_plan_equals_plain_bit_for_bit(card, name, index_dtype):
+    """Each case in one launch, bit for bit the plain version on the card
+    and on the CPU, in the order of the adds update_order names; two runs
+    bit for bit; nodes no delta reaches unwritten."""
+    trees, n, radix, rows, idx, delta = _plan_case(name, PLAN_CASES.index(name), index_dtype)
+    want = (tree_update_ref(trees.clone(), n, radix, idx, delta) if rows is None else
+            stacked_tree_update_ref(trees.clone(), n, radix, rows, idx, delta))
+    args = [t.to(card) for t in (idx, delta)]
+    if rows is not None:
+        args.insert(0, rows.to(card))
+    expected = INPUT_ORDER if name in ("twelve decades", "nan and infinity") else EXACT_ANY_ORDER
+    assert update_order(n, idx, delta, rows, trees.shape[0] if rows is not None else 1) == expected
+
+    def launch():
+        out = trees.to(card)
+        if rows is None:
+            return tree_update_(out, n, radix, *args)
+        return stacked_tree_update_(out, n, radix, *args)
+
+    reset_launch_counts()
+    got = launch()
+    assert launch_counts()["tree_update"] == 1
+    assert design_counts()["tree_update"] == {
+        UPDATE_DESIGN if idx.numel() <= ON_CHIP_DELTAS else UPDATE_DESIGN_L2: 1}
+    assert _same_bits_or_nan(got.cpu(), want)
+    plain = (tree_update_ref(trees.to(card), n, radix, *args) if rows is None else
+             stacked_tree_update_ref(trees.to(card), n, radix, *args))
+    # PyTorch's accumulate on the card sums a long run of one index across a
+    # warp, not in input order: where the deltas cancel (+-1e8) the plain
+    # version on the card is not the CPU's, and the kernel is held to the CPU
+    if name != "twelve decades":
+        assert _same_bits_or_nan(got, plain)
+    assert _same_bits_or_nan(launch(), got)
+    reached = torch.zeros(trees.numel(), dtype=torch.bool)
+    ok = (idx >= 0) & (idx < n)
+    base = torch.zeros_like(idx, dtype=torch.int64)
+    if rows is not None:
+        ok &= (rows >= 0) & (rows < trees.shape[0])
+        base = rows.long() * trees.shape[1]
+    node = idx.long()
+    for off in tree_offsets(n, radix):
+        reached[(base + off + node)[ok]] = True
+        node = node // radix
+    assert torch.equal(got.cpu().view(-1)[~reached], trees.view(-1)[~reached])
+    if name == "int32 scattered":
+        assert bool((got.cpu()[n:] < 0).any())  # a node wrapped past 2^31 - 1
+
+
+@pytest.mark.parametrize("name", ["sized counts", "twelve decades", "int32 scattered"])
+def test_the_hashed_runs_plan_replays_in_a_cuda_graph(card, name):
+    """A stacked (and an int32) update captured in a CUDA graph replays to
+    the eager result, bit for bit: the plan keeps no scratch between calls."""
+    trees, n, radix, rows, idx, delta = _plan_case(name, 3, torch.int64)
+    args = [t.to(card) for t in (idx, delta)]
+    if rows is not None:
+        args.insert(0, rows.to(card))
+
+    def launch(out):
+        if rows is None:
+            return tree_update_(out, n, radix, *args)
+        return stacked_tree_update_(out, n, radix, *args)
+
+    eager = launch(trees.to(card))
+    work = trees.to(card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(trees.to(card))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch(work)
+    for _ in range(2):
+        work.copy_(trees.to(card))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(work, eager)
 
 
 def _sized_state(card, chunks, n=200_000, c=10_000, batch=1000):
