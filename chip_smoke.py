@@ -151,7 +151,23 @@ script with a non-zero exit:
    sized solve met over the full run (its plans' device tally); and where
    an OGB_sized_tree chunk's time goes at full, from torch.profiler over
    200 chunks of a started run: device kernels, busy and wall us and idle
-   share a chunk, and the three stacked updates' time in it.
+   share a chunk, and the three stacked updates' time in it;
+22. the sweep: repro_torch.sweep over a grid of combos, each chunk one
+   launch of each kernel for the whole grid.  Dense ogb (Poisson) over the
+   main trace's first 2e6 requests, capacities 12 500, 25 000 and 50 000,
+   etas None (Theorem 3.1's at each capacity) and 0.5 and 2 times Theorem
+   3.1's at 50 000, seeds 0 and 1: 18 combos, one histogram and one warm
+   projection a chunk for all, and the 18 single runs one after another,
+   every row's final f and tau bit for bit its single run's and its hits
+   equal; the tree LRU, LFU and FTPL (seeds 0 and 1) and FIFO over fig8_cdn
+   full's first 1e7 requests at capacities 6 250 to 50 000 padded to 50 000
+   slots, a launch a chunk for each kind (FIFO at most one a plan), every
+   row's hits and final carry bit for bit its single run's; each part's
+   wall time beside the single runs' sum and us a request a row; the warm
+   solve at one row beside its one-row design in turns, and at 1, 4 and 18
+   rows beside as many one-row launches (tools/time_warm_solves.py); the
+   tree LRU, LFU and FIFO grids' chunks at 4 combos cold beside 4
+   one-combo launches, each bit for bit them.
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -316,6 +332,15 @@ SIZED_RECORD_CHUNKS = 200
 #: phase 21's OGB_sized_tree chunks timed, and as many profiled, after
 #: SIZED_RECORD_CHUNKS
 SIZED_PROFILE_CHUNKS = 200
+#: phase 22, the sweep: dense ogb over the main trace's first SWEEP_T
+#: requests at these capacities, etas (Theorem 3.1's at each capacity, and
+#: these multiples of its value at C) and seeds; the automata over fig8_cdn
+#: full's first SWEEP_AUTOMATA_T requests at theirs, at the largest's slots
+SWEEP_T, SWEEP_CS, SWEEP_ETA_SCALES, SWEEP_SEEDS = 2_000_000, (12_500, 25_000, 50_000), \
+    (0.5, 2.0), (0, 1)
+SWEEP_AUTOMATA_T, SWEEP_AUTOMATA_CS = 10_000_000, (6_250, 12_500, 25_000, 50_000)
+#: the automata's grids timed chunk by chunk beside their one-combo launches
+SWEEP_TIMED_ROWS = 4
 
 
 class Failed(Exception):
@@ -2779,11 +2804,260 @@ def sized_groups_seen(tally, launches):
             "median": median, "by_groups": dict(seen)}
 
 
+# -- the sweep (phase 22) --------------------------------------------------------
+
+def _carry_tensors(carry):
+    """A carry's tensor leaves, nested carries and queues included."""
+    if hasattr(carry, "device") and hasattr(carry, "dtype"):
+        return [carry]
+    if isinstance(carry, (tuple, list)):
+        return [t for x in carry for t in _carry_tensors(x)]
+    return []
+
+
+def _same_carry(torch, a, b):
+    ta, tb = _carry_tensors(a), _carry_tensors(b)
+    return len(ta) == len(tb) > 0 and all(torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+def sweep_dense(torch, trace):
+    """Phase 22, dense ogb: the 18-combo grid, then its single runs."""
+    from repro_torch import policy_def, run, sweep
+    from repro_torch.core.ogb import theoretical_eta
+    from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
+
+    trace = trace[:SWEEP_T]
+    chunks = SWEEP_T // W
+    eta_c = theoretical_eta(C, N, SWEEP_T, 1)
+    etas = (None,) + tuple(k * eta_c for k in SWEEP_ETA_SCALES)
+    pd = policy_def("ogb")
+    reset_launch_counts()
+    res = sweep(pd, trace, N, SWEEP_CS, etas=etas, seeds=SWEEP_SEEDS, window=W, track_opt=False)
+    launches, designs = launch_counts(), design_counts()
+    rows = len(res.combos)
+    need(rows == len(SWEEP_CS) * len(etas) * len(SWEEP_SEEDS) and pd.batched is not None,
+         f"dense sweep: {rows} combos, a grid form {pd.batched is not None}")
+    need(launches["histogram"] == chunks and launches["mass"] == chunks,
+         f"dense sweep: {launches['histogram']} histograms and {launches['mass']} warm solves "
+         f"over {chunks} chunks, not one each a chunk")
+    singles_s = 0.0
+    for r, combo in enumerate(res.combos):
+        one = run(pd, trace, N, combo["capacity"], window=W, seed=combo["seed"],
+                  eta=combo["eta"], track_opt=False)
+        singles_s += one.wall_seconds
+        need(torch.equal(one.carry.f, res.carries[r].f)
+             and torch.equal(one.carry.tau, res.carries[r].tau),
+             f"dense sweep row {r} {combo}: final f or tau differs from its single run")
+        need((one.hits == res.hits[r]).all(), f"dense sweep row {r}: hits differ")
+        rel = max(float(abs(one.reward - res.reward[r]).max() / abs(one.reward).max()),
+                  float(abs(one.occupancy - res.occupancy[r]).max() / abs(one.occupancy).max()))
+        need(rel <= 1e-5, f"dense sweep row {r}: reward or occupancy {rel} apart")
+    us = 1e6 * res.wall_seconds / (SWEEP_T * rows)
+    print(f"sweep dense ogb: {rows} combos (C {SWEEP_CS}, eta None and "
+          f"{', '.join(f'{e:.6f}' for e in etas[1:])}, seeds {SWEEP_SEEDS}) over {SWEEP_T} "
+          f"requests: {res.wall_seconds:.3f} s ({us:.4f} us a request a row); the {rows} single "
+          f"runs {singles_s:.3f} s ({singles_s / res.wall_seconds:.2f}x); launches a chunk for "
+          f"the grid: histogram {launches['histogram'] / chunks:g}, warm solve "
+          f"{launches['mass'] / chunks:g} ({designs.get('mass', {})}); every row's f and tau bit for bit "
+          f"its single run's, hits equal")
+    return res, {"combos": rows, "requests": SWEEP_T, "wall_s": res.wall_seconds,
+                 "singles_wall_s": singles_s, "us_per_request_row": us,
+                 "launches": {"histogram": launches["histogram"], "mass": launches["mass"]},
+                 "chunks": chunks, "design": designs.get("mass", {})}
+
+
+def sweep_automata(torch, trace, n):
+    """Phase 22, the automata: each kind's grid, then its single runs."""
+    from repro_torch import policy_def, run, sweep
+    from repro_torch.cachesim.tree_engines import ring_for_window
+    from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
+    from repro_torch.kernels.tree_lru.ops import CHUNK
+
+    window = 1_000_000
+    trace = trace[:SWEEP_AUTOMATA_T]
+    chunks = SWEEP_AUTOMATA_T // window
+    slots = max(SWEEP_AUTOMATA_CS)
+    out, grids = {}, {}
+    for kind in ("lru", "lfu", "ftpl", "fifo"):
+        pd = policy_def(kind)
+        seeds = SWEEP_SEEDS if kind != "fifo" else (0,)
+        kw = {"ring": ring_for_window(slots, window)} if kind == "lru" else {}
+        reset_launch_counts()
+        res = sweep(pd, trace, n, SWEEP_AUTOMATA_CS, seeds=seeds, window=window,
+                    track_opt=False, **kw)
+        launches, designs = launch_counts(), design_counts()
+        name = {"lru": "tree_lru", "fifo": "fifo_queue"}.get(kind, "minpair_automaton")
+        by_design = designs.get(name, {})
+        if kind == "lru":
+            grid_launches = by_design.get(CHUNK, 0)
+        elif kind == "fifo":
+            grid_launches = max(by_design.values(), default=0)
+        else:
+            grid_launches = launches[name]
+        need(pd.batched is not None and grid_launches == chunks,
+             f"{kind} sweep: {by_design or launches[name]} over {chunks} chunks, not one a chunk"
+             + (" a plan" if kind == "fifo" else ""))
+        singles_s = 0.0
+        for r, combo in enumerate(res.combos):
+            one = run(pd, trace, n, combo["capacity"], window=window, seed=combo["seed"],
+                      n_slots=slots, track_opt=False, **kw)
+            singles_s += one.wall_seconds
+            need((one.hits == res.hits[r]).all() and _same_carry(torch, one.carry,
+                                                                  res.carries[r]),
+                 f"{kind} sweep row {r} {combo}: hits or final carry differ from its single run")
+        rows = len(res.combos)
+        us = 1e6 * res.wall_seconds / (SWEEP_AUTOMATA_T * rows)
+        print(f"sweep {kind}: {rows} combos (C {SWEEP_AUTOMATA_CS} at {slots} slots, seeds "
+              f"{seeds}) over {SWEEP_AUTOMATA_T} requests of fig8_cdn full, a window of "
+              f"{window}: {res.wall_seconds:.3f} s ({us:.5f} us a request a row); the {rows} "
+              f"single runs {singles_s:.3f} s ({singles_s / res.wall_seconds:.2f}x); "
+              f"{name} launches {by_design or launches[name]} over {chunks} chunks"
+              + (f", {launches['segsum']} ring compactions' tree builds" if kind == "lru" else "")
+              + "; every row's hits and final carry bit for bit its single run's")
+        out[kind] = {"combos": rows, "requests": SWEEP_AUTOMATA_T, "wall_s": res.wall_seconds,
+                     "singles_wall_s": singles_s, "us_per_request_row": us,
+                     "launches": launches[name], "chunks": chunks,
+                     "by_design": dict(by_design)}
+        grids[kind] = res.carries[:SWEEP_TIMED_ROWS] if kind != "fifo" else None
+    return out, grids
+
+
+def time_automaton_grids(torch, dev, trace, n, carries, flush):
+    """Phase 22: a chunk of the tree LRU, LFU and FIFO grids at
+    SWEEP_TIMED_ROWS combos, from the sweep's final carries, cold, beside as
+    many one-combo launches on the same carries, each row bit for bit its
+    one-combo launch, and the bound (each row's bytes, summed)."""
+    from repro_torch.cachesim import engines as te
+    from repro_torch.cachesim import tree_engines as tt
+    from repro_torch.cachesim.tree_engines import ring_for_window
+    from repro_torch import policy_def
+
+    window = 1_000_000
+    ids = torch.from_numpy(trace[SWEEP_AUTOMATA_T:SWEEP_AUTOMATA_T + window].astype("int32")).to(dev)
+    out = {}
+    for kind in ("lru", "lfu", "fifo"):
+        if kind == "fifo":
+            pd = policy_def("fifo")
+            rows = [pd.init(n, c, n_slots=max(SWEEP_AUTOMATA_CS)) for c in SWEEP_AUTOMATA_CS]
+            fill = torch.from_numpy(trace[:window].astype("int32")).to(dev)
+            grid = te.start_fifo_grid(rows, n)
+            te.fifo_grid_chunk(grid, fill)
+            singles = [te.FIFORunCarry(grid.slots[r].clone(), grid.stamps[r].clone(),
+                                       grid.t[r].clone(),
+                                       te.FIFOQueue(grid.queue.order[r, :grid.active[r]].clone(),
+                                                    grid.queue.head[r].clone(),
+                                                    grid.queue.imap[r].clone(),
+                                                    grid.queue.occ[r].clone(),
+                                                    grid.queue.misses[r].clone()))
+                       for r in range(len(rows))]
+            step_grid = lambda g: te.fifo_grid_chunk(g, ids)  # noqa: E731
+            step_one = lambda c: te.fifo_chunk(c, ids)  # noqa: E731
+            tensors = lambda c: [*c[:3], *c.queue]  # noqa: E731
+        else:
+            rows = [tt.start_tree_run(c) for c in carries[kind][:SWEEP_TIMED_ROWS]]
+            grid = tt.grid_start(rows)
+            singles = [tt.start_tree_run(c) for c in rows]
+            step_grid = (lambda g: tt.grid_lru_chunk(g, ids)) if kind == "lru" else \
+                (lambda g, k=kind: tt.tree_chunk(k, g, ids))
+            step_one = lambda c, k=kind: tt.tree_chunk(k, c, ids)  # noqa: E731
+            tensors = lambda c: [x for x in c if hasattr(x, "dtype")]  # noqa: E731
+        grid_saved = [x.clone() for x in _carry_tensors(grid)]
+        one_saved = [[x.clone() for x in tensors(c)] for c in singles]
+
+        def reset_grid(grid=grid, saved=grid_saved):
+            for x, y in zip(_carry_tensors(grid), saved):
+                x.copy_(y)
+
+        def reset_ones(singles=singles, saved=one_saved, tensors=tensors):
+            for c, ys in zip(singles, saved):
+                for x, y in zip(tensors(c), ys):
+                    x.copy_(y)
+
+        firsts = list(singles)  # each combo's carry object before the chunk (its host bound)
+        state = {"grid": grid, "ones": list(singles)}
+
+        def call_grid():
+            state["grid"], _ = step_grid(state["grid"])
+
+        def call_ones():
+            for i, c in enumerate(state["ones"]):
+                state["ones"][i], _ = step_one(c)
+
+        reset_grid(), reset_ones()
+        g_grid, (g_hits, _) = step_grid(grid)
+        hits = []
+        for i, c in enumerate(singles):
+            singles[i], (h, _) = step_one(c)
+            hits.append(int(h))
+        need(g_hits.tolist() == hits, f"{kind} grid chunk: hits {g_hits.tolist()} against {hits}")
+        if kind == "fifo":
+            split = [(grid.slots[r], grid.stamps[r], grid.t[r]) for r in range(len(rows))]
+            same = all(torch.equal(a, b) for r, c in enumerate(singles)
+                       for a, b in zip(split[r], c[:3]))
+            n_bytes = sum(fifo_bytes(torch, ids, h) for h in hits)
+        else:
+            after = tt.grid_split(g_grid)
+            same = all(_same_carry(torch, a, b) for a, b in zip(after, singles))
+            n_bytes = 0
+            for r, c in enumerate(singles):
+                n_bytes += tree_bytes(torch, kind, type(c)(*one_saved[r]), after[r], ids)
+        need(same, f"{kind} grid chunk: a row's carry differs from its one-combo launch")
+        ms = timed_ms(torch, call_grid, 5, flush, reset=lambda: (reset_grid(),
+                                                                 state.update(grid=grid)))
+        ones_ms = timed_ms(torch, call_ones, 5, flush,
+                           reset=lambda: (reset_ones(firsts), state.update(ones=list(firsts))))
+        bound, by = bound_ms(n_bytes, 0)
+        print(f"{kind} grid chunk, {len(rows)} combos (C {SWEEP_AUTOMATA_CS[:len(rows)]}) x "
+              f"{window} requests, cold from the sweep's state: one launch {ms:.3f} ms, "
+              f"{len(rows)} one-combo launches {ones_ms:.3f} ms ({ones_ms / ms:.2f}x); bit for "
+              f"bit them; bound {bound * 1e3:.3f} us by {by}")
+        out[kind] = {"rows": len(rows), "ms": ms, "singles_ms": ones_ms, "bound_ms": bound,
+                     "bound_by": by, "hits": hits, "library_ms": None}
+    return out
+
+
+def check_sweep(torch, dev, trace):
+    """Phase 22: the sweep, dense and automata, and its kernels' times."""
+    import time_warm_solves as tws
+
+    from repro_torch.cachesim.scenarios import get_scenario
+
+    t0 = time.perf_counter()
+    print(f"sweep phase 22 on {nvidia_smi_line()}: each part's wall time beside its single runs'")
+    dense, dense_row = sweep_dense(torch, trace)
+    sc = get_scenario("fig8_cdn")
+    n, _t, _c = sc.dims("full")
+    fig8 = sc.make_trace("full")
+    automata, carries = sweep_automata(torch, fig8, n)
+    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)  # 256 MB > L2
+
+    def flush():
+        flush_buf.zero_()
+
+    # the warm solve over the dense grid's final states and the next chunk
+    from repro_torch.jaxcache.fractional import warm_bracket_hi
+    from repro_torch.kernels.scatter_counts.ops import histogram
+
+    f = torch.stack([c.f for c in dense.carries])
+    eta = torch.stack([c.eta for c in dense.carries])
+    ids = torch.from_numpy(trace[SWEEP_T:SWEEP_T + W].astype("int32")).to(dev)
+    rows = (f, histogram(ids, N), eta, torch.stack([c.cap for c in dense.carries]),
+            torch.zeros_like(eta), warm_bracket_hi(eta * float(W)),
+            torch.stack([c.tau for c in dense.carries]))
+    solves = tws.time_solves(torch, dev, flush, rows)
+    del dense, f, rows
+    grids = time_automaton_grids(torch, dev, fig8, n, carries, flush)
+    print(f"sweep phase 22: {time.perf_counter() - t0:.2f} s")
+    return {"dense": dense_row, "automata": automata, "warm_solve": solves,
+            "automaton_grids": grids}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tools"))
     import torch
 
     if not torch.cuda.is_available():
@@ -2856,6 +3130,7 @@ def main() -> int:
         print(f"sized scenario phase 21: {time.perf_counter() - t_sized:.2f} s")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+    swept = check_sweep(torch, dev, trace)
 
     # launches: the dense main path's for its kernels, the lazy main path's
     # for the prefix-tree kernels (segsum also ran 1 a chunk on madow_tree)
@@ -2902,6 +3177,22 @@ def main() -> int:
         rows[name]["in_chunk"] = tree_profile["port_kernels"].get(key)
     rows["tree_update"]["ogb_tree_chunk"] = {k: v for k, v in tree_profile.items()
                                              if k != "port_kernels"}
+    # the sweep's grid forms (phase 22): the warm solve over R rows (its f'
+    # epilogue the clip), the automata's grids, their launches in the sweep
+    rows["mass"]["batched"] = {"launches_sweep": swept["dense"]["launches"]["mass"],
+                               "chunks": swept["dense"]["chunks"],
+                               **swept["warm_solve"]}
+    rows["apply"]["batched"] = {"launches_sweep": swept["dense"]["launches"]["mass"],
+                                "in": "the batched warm solve's epilogue (rows_R.with_epilogue "
+                                      "of mass)"}
+    rows["histogram"]["sweep_launches"] = swept["dense"]["launches"]["histogram"]
+    for kind, name in (("lru", "tree_lru"), ("lfu", "minpair_automaton"),
+                       ("fifo", "fifo_queue")):
+        rows[name]["batched"] = {**swept["automaton_grids"][kind],
+                                 "launches_sweep": swept["automata"][kind]["launches"],
+                                 "chunks": swept["automata"][kind]["chunks"]}
+    rows["minpair_automaton"]["batched"]["launches_sweep_ftpl"] = \
+        swept["automata"]["ftpl"]["launches"]
     print(f"segsum launches: ogb_tree main path {launches['segsum']}, madow_tree "
           f"{madow_segsum} over {MADOW_CHUNKS} chunks")
     kernels = [
@@ -2910,7 +3201,8 @@ def main() -> int:
         for name in KERNELS
     ]
     print(f"chip_smoke.py: every phase in {time.perf_counter() - t_main:.1f} s")
-    print(json.dumps({"kernels": kernels, "sized_cdn_full": rows["sized_cdn_full"]}))
+    print(json.dumps({"kernels": kernels, "sized_cdn_full": rows["sized_cdn_full"],
+                      "sweep": {"dense": swept["dense"], "automata": swept["automata"]}}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,11 @@ Ported so far: ``policy_def("ogb")`` replayed by ``run``, with Poisson,
 Madow (``sample="madow"`` or ``"madow_tree"``) or no sampling, the lazy
 bucketized ``policy_def("ogb_tree")``, the paper's baselines ``omd``,
 ``lru``, ``fifo``, ``lfu`` and ``ftpl``, the sized axis (``gds``,
-``ogb_sized``, byte hit ratios with ``run(..., sizes=)``), and the
-scenario harness ``cachesim.scenarios.run_scenario`` over the paper's
+``ogb_sized``, byte hit ratios with ``run(..., sizes=)``), parameter
+sweeps (``sweep``, a grid of combos in one launch a chunk where the kind
+has a grid form; ``register_policy_def`` adds a kind), the classic host
+baselines ``ogb_cl`` and ``omd_cl`` (``core.policies.make_policy``), and
+the scenario harness ``cachesim.scenarios.run_scenario`` over the paper's
 comparison scenarios (Figs. 2, 7, 8, and ``sized_cdn``; ARC as its host
 oracle); and the dense model family's serving
 path, ``serve.engine.ServeEngine`` behind an OGB page pool
@@ -24,6 +27,11 @@ attention and one-token decode attention are hand-written CUDA kernels
     result = run(policy_def("ogb"), trace, catalog_size, capacity, window=1000)
     lazy = run(policy_def("ogb_tree"), trace, catalog_size, capacity, window=1000)
     lru = run(policy_def("lru"), trace, catalog_size, capacity, window=10_000)
+
+    # a (seeds x etas x capacities) grid, one launch a chunk for all combos
+    grid = sweep(policy_def("ogb"), trace, catalog_size, [12_500, 25_000, 50_000],
+                 etas=[None, 0.05], seeds=[0, 1])
+    grid.hit_ratios[grid.row(capacity=25_000, seed=1)]
 
     from repro_torch.cachesim.scenarios import run_scenario
 
@@ -52,10 +60,13 @@ from repro_torch.cachesim.api import (
     OMDApiCarry,
     PolicyDef,
     StepOut,
+    SweepResult,
     carry_from_numpy,
     policy_def,
     policy_def_kinds,
+    register_policy_def,
     run,
+    sweep,
 )
 
 __all__ = [
@@ -64,8 +75,11 @@ __all__ = [
     "OMDApiCarry",
     "PolicyDef",
     "StepOut",
+    "SweepResult",
     "carry_from_numpy",
     "policy_def",
     "policy_def_kinds",
+    "register_policy_def",
     "run",
+    "sweep",
 ]

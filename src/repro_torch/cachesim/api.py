@@ -23,6 +23,16 @@ trace through it.  Registered kinds (:func:`policy_def_kinds`):
   accounting (``RunResult.byte_hits``, ``byte_hit_ratio``); the unit
   policies reject ``sizes``/``costs``, as in the reference.
 
+:func:`sweep` replays a (seeds x etas x capacities) grid of combos over
+one trace.  Where a kind has a grid form (``PolicyDef.batched``: dense
+``ogb`` with Poisson or no sampling and the warm projection, the tree
+``lru``, ``lfu`` and ``ftpl``, and ``fifo``) the combos' carries are stacked
+and each chunk is one launch for the whole grid of each kernel it runs (the
+histogram and the warm projection; ``tree_lru``; ``minpair_automaton``;
+``fifo_queue`` a plan), each row bit for bit the combo's own run; other
+kinds run their combos one after another.  :func:`register_policy_def`
+adds a kind.
+
 The reference's ``lax.scan`` becomes a Python loop over chunks on the
 device.  Per-chunk outputs go into preallocated device tensors, and
 :func:`run` synchronises once at the end; the only reads inside the loop are
@@ -35,7 +45,7 @@ from __future__ import annotations
 import functools
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,7 +53,12 @@ import torch
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.cachesim import engines as _engines
 from repro_torch.cachesim import tree_engines as _tree
-from repro_torch.cachesim.replay import MADOW_SAMPLES, _make_ogb_step, sampling_keys
+from repro_torch.cachesim.replay import (
+    MADOW_SAMPLES,
+    _make_ogb_step,
+    opt_hits_by_combo,
+    sampling_keys,
+)
 from repro_torch.cachesim.tree_engines import (
     OGBTreeCarry,
     SizedOGBTreeCarry,
@@ -52,7 +67,7 @@ from repro_torch.cachesim.tree_engines import (
     TreeLFUCarry,
     TreeLRUCarry,
 )
-from repro_torch.cachesim.results import RunResult
+from repro_torch.cachesim.results import RunResult, SweepResult
 from repro_torch.core.ogb import theoretical_eta
 from repro_torch.core.omd import theoretical_eta_omd
 from repro_torch.core.regret import best_static_hits
@@ -61,6 +76,7 @@ from repro_torch.kernels.capped_simplex.ops import weighted_simplex_project
 from repro_torch.kernels.fifo_queue.ref import MAX_REQUESTS as FIFO_MAX_REQUESTS
 
 __all__ = [
+    "Batched",
     "OGBCarry",
     "OGBTreeCarry",
     "OMDApiCarry",
@@ -69,6 +85,7 @@ __all__ = [
     "SizedOGBScanCarry",
     "SizedOGBTreeCarry",
     "StepOut",
+    "SweepResult",
     "TreeFTPLCarry",
     "TreeGDSCarry",
     "TreeLFUCarry",
@@ -76,7 +93,9 @@ __all__ = [
     "carry_from_numpy",
     "policy_def",
     "policy_def_kinds",
+    "register_policy_def",
     "run",
+    "sweep",
 ]
 
 
@@ -194,6 +213,22 @@ def _unit_only(kind: str, sizes, costs) -> None:
                          "sizes/costs")
 
 
+class Batched(NamedTuple):
+    """A kind's grid form: how :func:`sweep` steps all its combos at once.
+
+    ``start(carries, id_bound) -> grid`` stacks the combos' initial carries
+    a row a combo (a private copy, with what a run derives from them);
+    ``split(grid) -> list`` gives each combo's final carry, of the kind's
+    own type, as :func:`run` would have returned it.  The kind's own
+    ``step`` takes one chunk for every combo of the grid, each StepOut leaf
+    (R,); ``step``, where given, replaces it for the grid (the LRU's host
+    bounds a combo, FIFO's active slots a combo)."""
+
+    start: Callable[..., Any]
+    split: Callable[[Any], list]
+    step: Optional[Callable[[Any, torch.Tensor], Tuple[Any, StepOut]]] = None
+
+
 @dataclass(frozen=True)
 class PolicyDef:
     """An ``(init, step)`` caching policy.
@@ -208,7 +243,9 @@ class PolicyDef:
     and ``finish(carry) -> carry`` turns the run's carry back into the
     policy's own (FIFO).  ``fractional`` policies are scored by their
     fractional reward (regret); ``trace_driven`` steps take request-id
-    chunks.
+    chunks.  ``batched``, where given, is the kind's grid form
+    (:class:`Batched`); :func:`sweep` runs the combos of a kind without one
+    one after another.
     """
 
     kind: str
@@ -220,6 +257,18 @@ class PolicyDef:
     finish: Optional[Callable[[Any], Any]] = None
     fractional: bool = False
     trace_driven: bool = True
+    batched: Optional[Batched] = None
+
+
+def _stack_rows(carries, id_bound=None):
+    """The combos' carries stacked a row a combo (every leaf a new tensor)."""
+    del id_bound
+    return type(carries[0])(*(torch.stack(leaves) for leaves in zip(*carries)))
+
+
+def _split_rows(grid) -> list:
+    """Each combo's carry of a grid stacked by :func:`_stack_rows` (views)."""
+    return [type(grid)(*(x[r] for x in grid)) for r in range(grid[0].shape[0])]
 
 
 _GOLDEN64 = 0x9E3779B97F4A7C15
@@ -292,6 +341,13 @@ def _ogb_def(
         carry = carry._replace(f=f, tau=tau, t=carry.t + 1)
         return carry, StepOut(reward, hits, tau_o, occ)
 
+    # the grid form: the same step over (R, N) f and p, one histogram and
+    # one warm-projection launch a chunk for every combo (Madow's static
+    # capacity and the bisection run combo by combo)
+    grid = None
+    if not madow and projection == "warm":
+        grid = Batched(start=_stack_rows, split=_split_rows)
+
     return PolicyDef(
         kind="ogb",
         name="OGB",
@@ -300,6 +356,7 @@ def _ogb_def(
         # Theorem 3.1 tuning at B=1, as the reference's default
         default_eta=lambda N, C, T, W: theoretical_eta(C, N, T, 1),
         fractional=True,
+        batched=grid,
     )
 
 
@@ -415,34 +472,66 @@ def _reject_costs(kind: str, costs) -> None:
                          "policy_def('gds') or policy_def('ogb_sized')")
 
 
+def _sized_step(step):
+    """The :class:`StepOut` step of an automaton whose ``step`` is
+    ``(carry, ids, flags) -> (carry, (hits, stats))``, for one combo or a
+    grid's (each leaf then (R,)): a :class:`SizedAutomatonCarry` also
+    weights each hit by the requested item's bytes."""
+
+    def sized_step(carry, ids):
+        if not isinstance(carry, SizedAutomatonCarry):
+            carry, (hits, stats) = step(carry, ids, None)
+            return carry, StepOut(stats[..., 0], hits, stats[..., 1], stats[..., 2])
+        # the inner carry leads with a tensor of one combo's (X,), a grid's (R, X)
+        flags = torch.empty(tuple(carry.inner[0].shape[:-1]) + tuple(ids.shape),
+                            dtype=torch.bool, device=ids.device)
+        inner, (hits, stats) = step(carry.inner, ids, flags)
+        szs = carry.szs.index_select(0, ids.to(torch.int64))
+        byte_hits = torch.where(flags, szs, torch.zeros_like(szs)).sum(dim=-1,
+                                                                       dtype=torch.float64)
+        return (SizedAutomatonCarry(inner, carry.szs),
+                StepOut(stats[..., 0], hits, stats[..., 1], stats[..., 2], byte_hits))
+
+    return sized_step
+
+
 def _sized_hooks(start, step, finish):
     """``(start, step, finish)`` of an automaton that also takes a
-    :class:`SizedAutomatonCarry`: its own hooks on the inner carry, and a
-    sized step that weights each hit by the requested item's bytes.  ``step``
-    is ``(carry, ids, flags) -> (carry, (hits, stats))``."""
+    :class:`SizedAutomatonCarry`: its own hooks on the inner carry, and
+    :func:`_sized_step` of ``step``."""
 
     def sized_start(carry, id_bound=None):
         if isinstance(carry, SizedAutomatonCarry):
             return SizedAutomatonCarry(start(carry.inner, id_bound), carry.szs)
         return start(carry, id_bound)
 
-    def sized_step(carry, ids):
-        if not isinstance(carry, SizedAutomatonCarry):
-            carry, (hits, stats) = step(carry, ids, None)
-            return carry, StepOut(stats[0], hits, stats[1], stats[2])
-        flags = torch.empty(ids.shape, dtype=torch.bool, device=ids.device)
-        inner, (hits, stats) = step(carry.inner, ids, flags)
-        szs = carry.szs.index_select(0, ids.to(torch.int64))
-        byte_hits = torch.where(flags, szs, torch.zeros_like(szs)).sum(dtype=torch.float64)
-        return (SizedAutomatonCarry(inner, carry.szs),
-                StepOut(stats[0], hits, stats[1], stats[2], byte_hits))
-
     def sized_finish(carry):
         if isinstance(carry, SizedAutomatonCarry):
             return SizedAutomatonCarry(finish(carry.inner), carry.szs)
         return finish(carry)
 
-    return sized_start, sized_step, sized_finish if finish is not None else None
+    return sized_start, _sized_step(step), sized_finish if finish is not None else None
+
+
+def _sized_grid(start, split, step=None) -> Batched:
+    """The grid form of an automaton that also takes
+    :class:`SizedAutomatonCarry` combos (one ``sizes`` for all): the inner
+    grid's ``start`` and ``split``, and :func:`_sized_step` of ``step``
+    where the grid needs its own."""
+
+    def grid_start(carries, id_bound=None):
+        if isinstance(carries[0], SizedAutomatonCarry):
+            return SizedAutomatonCarry(start([c.inner for c in carries], id_bound),
+                                       carries[0].szs)
+        return start(carries, id_bound)
+
+    def grid_split(grid):
+        if isinstance(grid, SizedAutomatonCarry):
+            return [SizedAutomatonCarry(c, grid.szs) for c in split(grid.inner)]
+        return split(grid)
+
+    return Batched(start=grid_start, split=grid_split,
+                   step=_sized_step(step) if step is not None else None)
 
 
 def _automaton_def(kind: str, zeta: Optional[float] = None,
@@ -488,7 +577,10 @@ def _automaton_def(kind: str, zeta: Optional[float] = None,
 
         start, step, _ = _sized_hooks(_tree.start_tree_run,
                                       lambda c, ids, fl: _tree.tree_chunk(kind, c, ids, fl), None)
-        return PolicyDef(kind=kind, name=kind.upper(), init=init, step=step, start=start)
+        grid = _sized_grid(_tree.grid_start, _tree.grid_split,
+                           _tree.grid_lru_chunk if kind == "lru" else None)
+        return PolicyDef(kind=kind, name=kind.upper(), init=init, step=step, start=start,
+                         batched=grid)
     if impl != "dense":
         raise ValueError(f"unknown automaton impl {impl!r}")
     fifo = kind == "fifo"
@@ -512,8 +604,10 @@ def _automaton_def(kind: str, zeta: Optional[float] = None,
     if fifo:
         start, step, finish = _sized_hooks(_engines.start_fifo_run, _engines.fifo_chunk,
                                            _engines.finish_fifo_run)
+        grid = _sized_grid(_engines.start_fifo_grid, _engines.split_fifo_grid,
+                           _engines.fifo_grid_chunk)
         return PolicyDef(kind=kind, name=kind.upper(), init=init, step=step, start=start,
-                         finish=finish)
+                         finish=finish, batched=grid)
 
     def step(carry, ids):
         carry, (hits, stats) = _engines.automaton_chunk(kind, carry, ids)
@@ -667,6 +761,17 @@ _POLICY_DEFS = {
     "ogb_sized": _ogb_sized_def,
     **{k: functools.partial(_automaton_def, k) for k in _engines.ENGINE_KINDS},
 }
+
+
+def register_policy_def(kind: str, factory: Callable[..., PolicyDef]) -> None:
+    """Register a :class:`PolicyDef` factory under a kind string.
+
+    ``factory(**static_options) -> PolicyDef``; static options are those
+    that change the step (sample mode, projection flavor, sweep counts), as
+    opposed to per-combo parameters, which belong in the carry.  A kind
+    registered again replaces the earlier factory."""
+    _POLICY_DEFS[kind.lower()] = factory
+    _cached_def.cache_clear()
 
 
 def policy_def_kinds() -> tuple:
@@ -907,24 +1012,9 @@ def run(
     if pd.start is not None:
         carry = pd.start(carry, int(n) if n is not None else hi + 1)
     chunks = torch.from_numpy(trace_used.astype(np.int32).reshape(m, window)).to(dev)
-
-    reward = torch.empty(m, dtype=torch.float32, device=dev)
-    hits = torch.empty(m, dtype=torch.int32, device=dev)
-    aux = torch.empty(m, dtype=torch.float32, device=dev)
-    occupancy = torch.empty(m, dtype=torch.float32, device=dev)
-    byte_hits = None
     _sync(dev)
     t0 = time.perf_counter()
-    for i in range(m):
-        carry, out = pd.step(carry, chunks[i])
-        reward[i] = out.reward
-        hits[i] = out.hits
-        aux[i] = out.aux
-        occupancy[i] = out.occupancy
-        if out.byte_hits is not None:
-            if byte_hits is None:
-                byte_hits = torch.empty(m, dtype=torch.float64, device=dev)
-            byte_hits[i] = out.byte_hits
+    carry, (reward, hits, aux, occupancy, byte_hits) = _replay(pd.step, carry, chunks)
     _sync(dev)
     wall = time.perf_counter() - t0
     if pd.finish is not None:
@@ -954,9 +1044,148 @@ def run(
         wall_seconds=wall,
         extras=extras,
         byte_hits=byte_hits.cpu().numpy() if byte_hits is not None else None,
-        bytes_total=(float(np.sum(np.asarray(sizes, np.float64)[trace_used]))
-                     if sizes is not None else 0.0),
+        bytes_total=_bytes_total(sizes, trace_used),
     )
+
+
+def sweep(
+    pd: PolicyDef,
+    trace: np.ndarray,
+    catalog_size: int,
+    capacities: Sequence[int],
+    *,
+    etas: Sequence[Optional[float]] = (None,),
+    seeds: Sequence[int] = (0,),
+    window: int = 1000,
+    horizon: Optional[int] = None,
+    sizes: Optional[np.ndarray] = None,
+    costs: Optional[np.ndarray] = None,
+    track_opt: bool = True,
+    device: DeviceLike = None,
+    **init_kw,
+) -> SweepResult:
+    """Replay one trace through a (seeds x etas x capacities) grid of combos.
+
+    The combos go in seed, eta, capacity order (``SweepResult.combos``).
+    One carry a combo is built by ``pd.init``, the automata padded to
+    ``n_slots = max(capacities)`` slots; ``eta=None`` resolves through
+    ``pd.default_eta`` at each combo's capacity, so a default-tuned row is
+    the default-tuned :func:`run`.  Where the kind has a grid form
+    (``pd.batched``) the carries are stacked and each chunk is one launch
+    for the whole grid of each kernel it runs: dense ``ogb`` (Poisson or no
+    sampling, warm projection) one histogram and one warm projection, the
+    tree ``lru`` one ``tree_lru`` (and each combo's possible ring
+    compaction), ``lfu`` and ``ftpl`` one ``minpair_automaton``, ``fifo``
+    one ``fifo_queue`` a plan; each row is bit for bit the combo's own run
+    (f and tau, hits and carries; reward and occupancy sum another axis).
+    Other kinds (``omd``, ``ogb_tree``, ``ogb_sized``, ``gds``, the Madow
+    modes, the bisection, ``impl="dense"`` automata) run their combos one
+    after another, each exactly as :func:`run` would.  Hindsight OPT is
+    computed on the host once a capacity.
+
+    ``device=None`` is the CUDA card, and raises without one;
+    ``device="cpu"`` runs the kernels' plain versions.
+    """
+    dev = resolve_device(device)
+    trace = np.asarray(trace)
+    m = len(trace) // window
+    if m == 0:
+        raise ValueError(f"trace shorter than one window ({len(trace)} < {window})")
+    if not len(capacities) or not len(etas) or not len(seeds):
+        raise ValueError("sweep needs at least one capacity, eta and seed")
+    t_used = m * window
+    trace_used = trace[:t_used]
+    n = int(catalog_size)
+    lo, hi = int(trace_used.min()), int(trace_used.max())
+    if lo < 0 or hi >= n:
+        raise ValueError(f"trace ids must lie in [0, {n}), got [{lo}, {hi}]")
+    if pd.kind == "fifo" and t_used > FIFO_MAX_REQUESTS:
+        raise ValueError(f"a FIFO run serves at most {FIFO_MAX_REQUESTS} requests (its queue's "
+                         f"int32 admission tickets), got {t_used}")
+    horizon = t_used if horizon is None else int(horizon)
+    n_slots = int(max(capacities))
+    sized_kw = {}
+    if sizes is not None:
+        sized_kw["sizes"] = np.asarray(sizes)
+    if costs is not None:
+        sized_kw["costs"] = np.asarray(costs)
+    combos, carries = [], []
+    for s in seeds:
+        for eta in etas:
+            for c in capacities:
+                e = eta
+                if e is None and pd.default_eta is not None:
+                    e = pd.default_eta(n, int(c), t_used, window)
+                combo = {"capacity": int(c), "seed": int(s)}
+                if pd.fractional and e is not None:
+                    # ogb_sized resolves eta=None inside init (it needs the
+                    # sizes); its default-tuned combos omit the key
+                    combo["eta"] = float(e)
+                combos.append(combo)
+                carries.append(pd.init(n, int(c), seed=int(s), eta=e, horizon=horizon,
+                                       n_slots=n_slots, device=dev, **sized_kw, **init_kw))
+    chunks = torch.from_numpy(trace_used.astype(np.int32).reshape(m, window)).to(dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    if pd.batched is not None:
+        grid = pd.batched.start(carries, n)
+        del carries
+        grid, outs = _replay(pd.batched.step or pd.step, grid, chunks)
+        finals = pd.batched.split(grid)
+    else:
+        finals, rows = [], []
+        for carry in carries:
+            if pd.start is not None:
+                carry = pd.start(carry, n)
+            carry, out = _replay(pd.step, carry, chunks)
+            finals.append(pd.finish(carry) if pd.finish is not None else carry)
+            rows.append(out)
+        outs = tuple(torch.stack(parts) if parts[0] is not None else None
+                     for parts in zip(*rows))
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    reward, hits, aux, occupancy, byte_hits = outs
+    return SweepResult(
+        kind=pd.kind,
+        combos=combos,
+        T=t_used,
+        window=window,
+        reward=reward.cpu().numpy().astype(np.float64),
+        hits=hits.cpu().numpy().astype(np.int64),
+        aux=aux.cpu().numpy().astype(np.float64),
+        occupancy=occupancy.cpu().numpy().astype(np.float64),
+        opt_hits=(opt_hits_by_combo(trace_used, combos) if track_opt
+                  else np.zeros(len(combos))),
+        wall_seconds=wall,
+        byte_hits=byte_hits.cpu().numpy() if byte_hits is not None else None,
+        bytes_total=_bytes_total(sizes, trace_used),
+        carries=finals,
+    )
+
+
+def _bytes_total(sizes, trace_used) -> float:
+    return float(np.sum(np.asarray(sizes, np.float64)[trace_used])) if sizes is not None else 0.0
+
+
+def _replay(step, carry, chunks: torch.Tensor):
+    """Every chunk of ``chunks`` (M, window) through ``step``, in order:
+    ``(carry, (reward, hits, aux, occupancy, byte_hits))``, each output a
+    device tensor with the chunks on its last axis (a grid's (R, M)),
+    byte_hits None where the step reports none.  Nothing is read on the
+    host."""
+    m, dev = chunks.shape[0], chunks.device
+    outs = None
+    for i in range(m):
+        carry, out = step(carry, chunks[i])
+        if outs is None:
+            lead = tuple(out.hits.shape)
+            outs = [torch.empty(lead + (m,), dtype=dt, device=dev)
+                    for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
+            if out.byte_hits is not None:
+                outs.append(torch.empty(lead + (m,), dtype=torch.float64, device=dev))
+        for buf, x in zip(outs, out):
+            buf[..., i] = x
+    return carry, (*outs[:4], outs[4] if len(outs) > 4 else None)
 
 
 def _sync(dev: torch.device) -> None:

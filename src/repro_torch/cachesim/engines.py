@@ -43,7 +43,7 @@ from repro_torch.cachesim.replay import _check_sample, MADOW_SAMPLES, sample_chu
 from repro_torch.core.ftpl import ftpl_initial_top_c, ftpl_noise, theoretical_zeta
 from repro_torch.jaxcache.fractional import request_counts, warm_bracket_hi
 from repro_torch.kernels.fifo_queue.ops import fifo_queue
-from repro_torch.kernels.fifo_queue.ref import FIFOQueue, derive_queue
+from repro_torch.kernels.fifo_queue.ref import TICKET_NONE, FIFOQueue, derive_queue
 from repro_torch.kernels.slot_automaton.ops import slot_automaton
 from repro_torch.kernels.slot_automaton.ref import (  # noqa: F401  (the plain steps)
     I32_MAX,
@@ -229,6 +229,53 @@ def fifo_chunk(carry: FIFORunCarry, ids: torch.Tensor, flags: Optional[torch.Ten
     version on the CPU), the carry updated in place.  Returns ``(carry,
     (hits, stats))``; ``flags`` where given gets each request's hit."""
     return carry, fifo_queue(carry.slots, carry.stamps, carry.t, carry.queue, ids, flags)
+
+
+class FIFOGridCarry(NamedTuple):
+    """A sweep's FIFO combos during a run, stacked a row a combo: the
+    carries' leaves, each combo's queue (``order`` padded to the slot count,
+    ``imap`` to the longest), and each combo's active slots."""
+
+    slots: torch.Tensor  # (R, K) int32
+    stamps: torch.Tensor  # (R, K) int32
+    t: torch.Tensor  # (R,) int32
+    queue: FIFOQueue  # order (R, K), imap (R, M), head, occ, misses (R,)
+    active: tuple  # (R,) ints: the combos' active slots
+
+
+def start_fifo_grid(carries, id_bound: Optional[int] = None) -> FIFOGridCarry:
+    """The FIFO combos of a grid (one slot count) stacked, each with its
+    queue derived as :func:`start_fifo_run` derives a run's."""
+    runs = [start_fifo_run(c, id_bound) for c in carries]
+    k = runs[0].slots.shape[0]
+    width = max(r.queue.imap.shape[0] for r in runs)
+    order = torch.zeros((len(runs), k), dtype=torch.int32, device=runs[0].slots.device)
+    imap = torch.full((len(runs), width), TICKET_NONE, dtype=torch.int32, device=order.device)
+    for row, r in enumerate(runs):
+        order[row, :r.queue.order.shape[0]] = r.queue.order
+        imap[row, :r.queue.imap.shape[0]] = r.queue.imap
+    queue = FIFOQueue(order=order, head=torch.stack([r.queue.head for r in runs]), imap=imap,
+                      occ=torch.stack([r.queue.occ for r in runs]),
+                      misses=torch.stack([r.queue.misses for r in runs]))
+    return FIFOGridCarry(torch.stack([r.slots for r in runs]),
+                         torch.stack([r.stamps for r in runs]),
+                         torch.stack([r.t for r in runs]), queue,
+                         tuple(r.queue.order.shape[0] for r in runs))
+
+
+def fifo_grid_chunk(grid: FIFOGridCarry, ids: torch.Tensor,
+                    flags: Optional[torch.Tensor] = None):
+    """One chunk of every FIFO combo of a grid, in place: one ``fifo_queue``
+    launch a plan on the card (at most two), the plain version row by row
+    on the CPU.  Returns ``(grid, (hits, stats))``, hits (R,), stats (R, 3)."""
+    return grid, fifo_queue(grid.slots, grid.stamps, grid.t, grid.queue, ids, flags,
+                            active=grid.active)
+
+
+def split_fifo_grid(grid: FIFOGridCarry) -> list:
+    """Each combo's carry at the end of a run, as :func:`finish_fifo_run`
+    gives it (views of the grid's rows)."""
+    return [SlotCarry(grid.slots[r], grid.stamps[r], grid.t[r]) for r in range(len(grid.active))]
 
 
 def _occ_slots(carry) -> torch.Tensor:

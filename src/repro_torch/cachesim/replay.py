@@ -1,7 +1,7 @@
 """The per-chunk OGB_cl step: hit accounting, gradient histogram, projection.
 
 Counterpart of ``repro.cachesim.replay`` (``sampling_keys``,
-``sample_chunk_metrics`` and ``_make_ogb_step``).  The reference scans this
+``sample_chunk_metrics``, ``_make_ogb_step`` and ``opt_hits_by_combo``).  The reference scans this
 step inside one ``lax.scan``; here :func:`repro_torch.cachesim.api.run`
 calls it once per chunk from a Python loop.  Every catalog-sized pass of
 the step is a hand-written kernel on the card: the histogram, and the warm
@@ -12,8 +12,9 @@ one mass pass a step, then the clip); ``madow_tree`` adds one tree build
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.jaxcache.fractional import (
@@ -60,8 +61,23 @@ def sample_chunk_metrics(sample: str, capacity, f: torch.Tensor, ids: torch.Tens
 
     ``capacity`` is the static C the Madow modes sample (None otherwise).
     ``madow_tree`` draws the same systematic sample as ``madow`` by
-    prefix-tree descent, up to float32 tree sums at the boundaries."""
+    prefix-tree descent, up to float32 tree sums at the boundaries.
+
+    A grid's (R, N) ``f`` and ``p`` (``"poisson"`` and ``"none"``) give
+    (R,) tensors, each row's hits and occupancy its own run's."""
     _check_sample(sample)
+    if f.dim() == 2:
+        if sample not in ("poisson", "none"):
+            raise ValueError(f"a grid of combos samples 'poisson' or 'none', not {sample!r}")
+        fi = f.index_select(1, ids)
+        reward = fi.sum(dim=1)
+        if sample == "poisson":
+            hits = (fi >= p.index_select(1, ids)).sum(dim=1, dtype=torch.int32)
+            occ = (f >= p).sum(dim=1, dtype=torch.float32)
+        else:
+            hits = torch.zeros(f.shape[0], dtype=torch.int32, device=f.device)
+            occ = f.sum(dim=1)
+        return reward, hits, occ
     fi = f.index_select(0, ids)
     reward = fi.sum()
     if sample == "poisson":
@@ -93,6 +109,11 @@ def _make_ogb_step(sample: str, projection: str, sweeps: int, iters: int,
     hits, tau, occupancy))``; the chunk size B is read off ``ids`` and ``u``
     is the chunk's Madow offset (unused by the other modes).
     ``madow_capacity`` must be the static C for the Madow modes.
+
+    The same step takes a sweep's grid: (R, N) ``f`` and ``p``, (R,)
+    ``eta``, ``cap`` and ``tau_prev``, one chunk of ids for all.  Then the
+    histogram is one launch for the grid and the warm projection one
+    launch, whose rows are bit for bit each combo's own run.
     """
     _check_sample(sample)
     if projection not in ("warm", "bisect"):
@@ -105,7 +126,7 @@ def _make_ogb_step(sample: str, projection: str, sweeps: int, iters: int,
         # The gradient step is y = f + eta * counts, formed inside the
         # kernels.  The reference adds eta once per duplicate id
         # (f.at[ids].add(eta)), so with duplicates y can differ by 1 ulp.
-        counts = request_counts(ids, f.shape[0])
+        counts = request_counts(ids, f.shape[-1])
         if projection == "warm":
             hi = warm_bracket_hi(eta * float(ids.shape[0]))
             f_new, tau = capped_simplex_project_warm(
@@ -116,3 +137,13 @@ def _make_ogb_step(sample: str, projection: str, sweeps: int, iters: int,
         return f_new, tau, (reward, hits, tau, occ)
 
     return step
+
+
+def opt_hits_by_combo(trace_prefix: np.ndarray, combos: List[Dict[str, float]]) -> np.ndarray:
+    """Hindsight static-OPT per combo, computed on the host once per
+    capacity (OPT depends only on the trace histogram and C)."""
+    from repro_torch.core.regret import best_static_hits
+
+    opt_by_c = {c: float(best_static_hits(trace_prefix, c))
+                for c in set(int(combo["capacity"]) for combo in combos)}
+    return np.asarray([opt_by_c[int(c["capacity"])] for c in combos])

@@ -1,16 +1,27 @@
-"""Host-side result of one replay, copied from ``repro.cachesim.results``.
+"""Host-side results of a replay and of a sweep, copied from
+``repro.cachesim.results``.
 
 What a replay fills in: ``RunResult`` and the ``HitStatsMixin`` ratios,
-byte hits for sized runs among them.  The per-chunk arrays are numpy on the host; the
-carry stays on the device it ran on.
+byte hits for sized runs among them; what a sweep fills in:
+``SweepResult``, one row a combo, looked up by :func:`find_combo`.  The
+per-chunk arrays are numpy on the host; the carries stay on the device they
+ran on.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+
+
+def find_combo(combos: "List[Dict[str, float]]", **match) -> int:
+    """Row index of the sweep combo matching all given key/values."""
+    for r, combo in enumerate(combos):
+        if all(combo.get(k) == v for k, v in match.items()):
+            return r
+    raise KeyError(f"no combo matching {match}")
 
 
 class HitStatsMixin:
@@ -73,3 +84,63 @@ class RunResult(HitStatsMixin):
     def regret(self) -> float:
         """Hindsight regret of the fractional (OCO) reward."""
         return self.opt_hits - float(self.reward.sum())
+
+
+@dataclass
+class SweepResult:
+    """Replays over a parameter grid, one row a combo.
+
+    ``combos[r]`` names row ``r``: always ``capacity`` and ``seed``, plus
+    ``eta`` for the fractional policies; :meth:`row` looks rows up by any
+    subset of those keys.  ``carries[r]`` is row r's final carry, of the
+    policy's own type, as :func:`repro_torch.cachesim.api.run` would have
+    returned it.
+    """
+
+    kind: str
+    combos: List[Dict[str, float]]
+    T: int
+    window: int
+    reward: np.ndarray  # (R, M)
+    hits: np.ndarray  # (R, M)
+    aux: np.ndarray  # (R, M)
+    occupancy: np.ndarray  # (R, M)
+    opt_hits: np.ndarray  # (R,) hindsight static-OPT per combo (host-side)
+    wall_seconds: float = 0.0
+    byte_hits: Optional[np.ndarray] = None  # (R, M) per-chunk byte hits
+    bytes_total: float = 0.0  # total bytes requested (sized runs, else 0)
+    carries: Optional[List[Any]] = None  # (R,) final carries
+
+    @property
+    def batch(self) -> int:
+        return self.window
+
+    @property
+    def byte_hit_ratios(self) -> np.ndarray:
+        """Per-combo byte hit ratio (falls back to object ratio unsized)."""
+        if self.byte_hits is None or self.bytes_total <= 0.0:
+            return self.hit_ratios
+        return self.byte_hits.sum(axis=1) / self.bytes_total
+
+    @property
+    def frac_reward(self) -> np.ndarray:
+        return self.reward
+
+    @property
+    def taus(self) -> np.ndarray:
+        return self.aux
+
+    @property
+    def hit_ratios(self) -> np.ndarray:
+        return self.hits.sum(axis=1) / max(self.T, 1)
+
+    @property
+    def frac_hit_ratios(self) -> np.ndarray:
+        return self.reward.sum(axis=1) / max(self.T, 1)
+
+    @property
+    def regrets(self) -> np.ndarray:
+        return self.opt_hits - self.reward.sum(axis=1)
+
+    def row(self, **match) -> int:
+        return find_combo(self.combos, **match)

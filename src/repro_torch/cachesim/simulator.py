@@ -3,7 +3,7 @@
 Drives any policy implementing ``request(i) -> hit`` over a numpy trace and
 records cumulative and windowed hit ratios and wall-clock throughput.  The
 scenario harness runs its host oracle (ARC) through it, on the host as the
-reference does.
+reference does; :func:`compare` runs several host policies over one trace.
 """
 
 from __future__ import annotations
@@ -97,3 +97,35 @@ def simulate(
         occupancy=occ,
         wall_seconds=wall,
     )
+
+
+def compare(
+    policies,
+    trace: np.ndarray,
+    window: int = 100_000,
+    catalog_size: Optional[int] = None,
+    capacity: Optional[int] = None,
+    policy_kw: Optional[Dict[str, Dict]] = None,
+    **kw,
+) -> Dict[str, SimResult]:
+    """Simulate several policies over one trace.
+
+    ``policies`` is either a mapping ``{name: policy-object}`` or an iterable
+    of kind strings resolved through the host registry
+    (:data:`repro_torch.core.policies.POLICY_REGISTRY`): pass
+    ``catalog_size`` and ``capacity`` then, and per-kind constructor
+    keywords as ``policy_kw={"ogb": {"horizon": T}, ...}``.  Results are
+    keyed by each policy's ``name``.
+    """
+    if not isinstance(policies, dict):
+        from repro_torch.core.policies import make_policy
+
+        if catalog_size is None or capacity is None:
+            raise ValueError("kind-string comparison needs catalog_size and capacity")
+        policy_kw = policy_kw or {}
+        built = {}
+        for kind in policies:
+            p = make_policy(kind, catalog_size, capacity, **policy_kw.get(kind, {}))
+            built[getattr(p, "name", kind)] = p
+        policies = built
+    return {name: simulate(p, trace, window=window, **kw) for name, p in policies.items()}

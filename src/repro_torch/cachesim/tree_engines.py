@@ -629,7 +629,8 @@ def tree_chunk(kind: str, carry, ids: torch.Tensor, flags: Optional[torch.Tensor
     the CPU.  Returns
     ``(carry, (hits, stats))``, stats the (3,) float32 (reward, aux,
     occupancy); ``flags``, a (window,) bool tensor where given, gets each
-    request's hit."""
+    request's hit.  An LFU or FTPL grid (:func:`grid_start`) takes its one
+    launch here too: hits (R,), stats (R, 3), flags (R, window)."""
     if kind == "lru":
         return _lru_chunk(carry, ids, flags)
     if kind == "lfu":
@@ -661,6 +662,65 @@ def make_tree_chunk(kind: str, carry, return_flags: bool = False):
         return c, (flags if return_flags else hits, stats[2])
 
     return chunk
+
+
+# ---------------------------------------------------------------------------
+# a sweep's grid: the tree automata's combos stacked, one launch a chunk
+# ---------------------------------------------------------------------------
+def grid_start(carries, id_bound: Optional[int] = None):
+    """The carries of a grid's combos (one tree automaton kind, one slot
+    count) stacked a row a combo: each tensor gains a leading combo axis.
+    The LRU's trees lie in rows padded to a multiple of 4 ints (the
+    kernel's 16-byte loads) and its host bounds are a tuple, a combo each
+    (one read of the device for all, on the card)."""
+    del id_bound
+    first = carries[0]
+    if isinstance(first, TreeLRUCarry):
+        rows, tot = len(carries), first.tree.shape[0]
+        tree = torch.zeros((rows, (tot + 3) & ~3), dtype=torch.int32, device=first.device)
+        tree[:, :tot] = torch.stack([c.tree for c in carries])
+        grid = TreeLRUCarry(tree[:, :tot], *(torch.stack(leaves)
+                                              for leaves in zip(*(c.tensors()[1:]
+                                                                  for c in carries))))
+        if grid.device.type != "cuda":
+            return grid
+        pos, cap = torch.stack([grid.pos, grid.cap]).tolist()
+        return grid._replace(host=tuple(LRUHost(pos_lo=p, pos_hi=p, cap=c)
+                                        for p, c in zip(pos, cap)))
+    return type(first)(*(torch.stack(leaves) for leaves in zip(*carries)))
+
+
+def grid_lru_chunk(grid: TreeLRUCarry, ids: torch.Tensor, flags: Optional[torch.Tensor] = None):
+    """One chunk of every LRU combo of a grid (:func:`grid_start`), in
+    place: one ``tree_lru`` launch for the whole grid on the card (each
+    combo whose host bound says a ring compaction may be due adds its own
+    compaction launch and tree build), the plain version row by row on the
+    CPU.  Returns ``(grid, (hits, stats))``, hits (R,) and stats (R, 3);
+    ``flags``, (R, window) where given, gets each request's hit.  The LFU
+    and FTPL grids take :func:`tree_chunk` itself."""
+    m = leaves_for_storage(grid.tree.shape[1], RING_RADIX)
+    window = ids.numel()
+    args = (grid.tree, grid.last, grid.pos, grid.nseen, grid.cap, ids, m)
+    if grid.device.type == "cpu":
+        return grid, tree_lru(*args, compact=False, flags=flags)
+    compact = [h.pos_hi + window > m for h in grid.host]
+    out = tree_lru(*args, compact=compact, flags=flags)
+    hosts = []
+    for h in grid.host:
+        lo, hi = lru_bounds(h, window, m)
+        hosts.append(h._replace(pos_lo=lo, pos_hi=hi))
+    return grid._replace(host=tuple(hosts)), out
+
+
+def grid_split(grid) -> list:
+    """Each combo's carry of a grid, of the kind's own type (views of the
+    grid's rows)."""
+    if isinstance(grid, TreeLRUCarry):
+        rows = grid.tree.shape[0]
+        return [TreeLRUCarry(*(x[r] for x in grid.tensors()),
+                             host=grid.host[r] if grid.host is not None else None)
+                for r in range(rows)]
+    return [type(grid)(*(x[r] for x in grid)) for r in range(grid.slots.shape[0])]
 
 
 # ---------------------------------------------------------------------------

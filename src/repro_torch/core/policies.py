@@ -6,8 +6,9 @@ Modha 2003), and the paper's OGB and FTPL by lazy loaders.  Each exposes the sim
 pool decides with OGB or LRU; ARC is the scenario harness's host oracle
 (:func:`repro_torch.cachesim.simulator.simulate`); LRU, FIFO, LFU and FTPL
 are the oracles the tests hold the slot automata against, and GDS the
-tree GDS's (``cachesim.tree_engines``).  The classic OGB/OMD oracles are
-not ported yet (ROADMAP.md §1 item 2).
+tree GDS's (``cachesim.tree_engines``).  ``ogb_cl`` and ``omd_cl`` are the
+classic eager baselines (:class:`~.ogb_classic.OGBClassic`,
+:class:`~.omd.OMDClassic`), float64 numpy oracles.
 """
 
 from __future__ import annotations
@@ -259,10 +260,22 @@ def _load_ogb(catalog_size, capacity, **kw):
     return OGB(catalog_size, capacity, **kw)
 
 
+def _load_ogb_cl(catalog_size, capacity, **kw):
+    from .ogb_classic import OGBClassic
+
+    return OGBClassic(catalog_size, capacity, **kw)
+
+
 def _load_ftpl(catalog_size, capacity, **kw):
     from .ftpl import FTPL
 
     return FTPL(catalog_size, capacity, **kw)
+
+
+def _load_omd_cl(catalog_size, capacity, **kw):
+    from .omd import OMDClassic
+
+    return OMDClassic(catalog_size, capacity, **kw)
 
 
 #: the host policy registry: callables ``(catalog_size, capacity, **kw) ->
@@ -274,7 +287,9 @@ POLICY_REGISTRY = {
     "gds": GDS,
     "arc": ARC,
     "ogb": _load_ogb,
+    "ogb_cl": _load_ogb_cl,
     "ftpl": _load_ftpl,
+    "omd_cl": _load_omd_cl,
 }
 
 

@@ -16,14 +16,18 @@ whole solve and its final clip are one launch of
 :func:`~repro_torch.kernels.capped_simplex.ops.project_warm`, f' written
 from the y the solve keeps in registers.
 Scalars stay 0-d tensors on the device, so a projection never waits on the
-host.
+host.  :class:`FractionalState`, :func:`ogb_batch_update` (bisection),
+:func:`ogb_batch_update_warm` and :func:`fractional_hit_ratio` are the
+reference's data-plane step around those projections.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch._device import DeviceLike, resolve_device
 
 from repro_torch.kernels.capped_simplex.ops import (
     Scalar,
@@ -109,6 +113,73 @@ def capped_simplex_project_warm(
     between the two ends on some instances and stop at an infeasible tau.
     """
     return project_warm(f, counts, eta, capacity, lo, hi, tau0, sweeps)
+
+
+class FractionalState(NamedTuple):
+    """Catalog-wide fractional cache state (the data-plane state)."""
+
+    f: torch.Tensor  # (N,) float32, in the capped simplex
+    step: torch.Tensor  # () int32
+
+    @staticmethod
+    def create(catalog_size: int, capacity: int, device: DeviceLike = None) -> "FractionalState":
+        """f = C / N everywhere, on ``device`` (the card unless "cpu")."""
+        dev = resolve_device(device)
+        return FractionalState(
+            f=torch.full((catalog_size,), capacity / catalog_size, dtype=torch.float32,
+                         device=dev),
+            step=torch.zeros((), dtype=torch.int32, device=dev),
+        )
+
+
+def ogb_batch_update(
+    state: FractionalState,
+    request_ids: torch.Tensor,
+    eta: Scalar,
+    capacity: int,
+    iters: int = DEFAULT_BISECT_ITERS,
+) -> Tuple[FractionalState, torch.Tensor]:
+    """One batched OGB_cl step by bisection: (new_state, fractional_reward).
+
+    The reward is sum_t f[r_t] at the pre-update state (OCO order); the
+    counts are one histogram launch and each bisection step one mass pass
+    (:func:`capped_simplex_project`).  ``request_ids`` are int32 on f's
+    device."""
+    f = state.f
+    reward = f.index_select(0, request_ids).sum()
+    counts = request_counts(request_ids, f.shape[0])
+    f_new, _tau = capped_simplex_project(f, counts, eta, float(capacity), iters)
+    return FractionalState(f=f_new, step=state.step + 1), reward
+
+
+def ogb_batch_update_warm(
+    state: FractionalState,
+    request_ids: torch.Tensor,
+    eta: Scalar,
+    capacity: int,
+    tau_prev: Scalar,
+    sweeps: int = DEFAULT_WARM_SWEEPS,
+) -> Tuple[FractionalState, torch.Tensor, torch.Tensor]:
+    """:func:`ogb_batch_update` with the warm projection (one
+    :func:`project_warm` launch on the card): (new_state, reward, tau).
+
+    ``state.f`` is feasible, so the new threshold lies in [0, eta * B], the
+    warm bracket; thread the returned tau into the next step."""
+    f = state.f
+    eta_t = as_scalar(eta, f.device)
+    reward = f.index_select(0, request_ids).sum()
+    counts = request_counts(request_ids, f.shape[0])
+    hi = warm_bracket_hi(eta_t * float(request_ids.shape[0]))
+    f_new, tau = capped_simplex_project_warm(
+        f, counts, eta_t, float(capacity), torch.zeros_like(eta_t), hi,
+        as_scalar(tau_prev, f.device), sweeps,
+    )
+    return FractionalState(f=f_new, step=state.step + 1), reward, tau
+
+
+def fractional_hit_ratio(state: FractionalState, request_ids: torch.Tensor) -> torch.Tensor:
+    """Mean fractional value of the requested items: a 0-d tensor."""
+    return state.f.index_select(0, request_ids).mean()
 
 
 def poisson_sample(f: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

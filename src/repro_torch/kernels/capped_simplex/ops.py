@@ -5,7 +5,10 @@ Counterpart of ``repro.kernels.capped_simplex.ops``.  ``masses`` and
 run the plain versions of :mod:`.ref` on a CPU tensor; ``project_warm_tau``
 launches the warm projection's whole threshold solve, one persistent
 launch of ``csrc/mass.cu``, and ``project_warm`` the same launch with the
-final clip in its epilogue.  Scalars (``eta``, the thresholds, ``tau``) stay
+final clip in its epilogue; either takes one row f of (N,) items or R rows
+(R, N) over one histogram, a sweep's grid in one launch (one a group of
+rows, :func:`warm_groups`, past ~68 rows of 1e6 items on an H100).
+Scalars (``eta``, the thresholds, ``tau``) stay
 on the device and the kernels read them by pointer, so no call waits on the
 host.
 """
@@ -35,6 +38,9 @@ _MASS_MAX_BLOCKS = 1024
 #: threads of a warm-projection block and items of y each keeps in
 #: registers (kWarmThreads and kWarmItems of csrc/mass.cu)
 WARM_THREADS, WARM_ITEMS = 1024, 8
+#: the most rows one block's tiles may touch, and the tiles of a block's
+#: round of partials (kWarmRowsPerBlock, kWarmTilesPerBlock)
+WARM_ROWS_PER_BLOCK, WARM_TILES_PER_BLOCK = 64, 64
 STANDALONE, EPILOGUE = "standalone", "projection epilogue"
 
 
@@ -72,7 +78,7 @@ def _mass_entry():
 def _warm_entry():
     fn = _build.library("mass").repro_project_warm
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, p, p, p, p, p]
+    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -124,52 +130,109 @@ masses.launches = 0
 masses.designs = {}
 
 
-def warm_plan(n: int, sweeps: int, sms: int, resident_blocks_per_sm: int,
-              stream_blocks_per_sm: int) -> dict:
-    """The persistent warm projection's launch over ``n`` items.
+def warm_groups(n: int, sms: int, stream_blocks_per_sm: int, rows: int) -> list:
+    """The launches of the warm projection over ``rows`` rows of ``n``
+    items: ``(start, stop)`` row ranges of near-equal size, each as many
+    rows as keep a streaming block within ``WARM_TILES_PER_BLOCK`` tiles
+    (one range for an 18-row grid at n = 1e6 on 132 SMs); a row whose tiles
+    alone pass that takes a launch of its own, its blocks more tiles each."""
+    tiles = -(-n // (WARM_THREADS * WARM_ITEMS))
+    per = max(1, sms * stream_blocks_per_sm * WARM_TILES_PER_BLOCK // tiles)
+    groups = -(-rows // per)
+    size = -(-rows // groups)
+    return [(r, min(r + size, rows)) for r in range(0, rows, size)]
 
-    One block per resident slot: ``sms`` times the blocks an SM holds of the
-    kernel that keeps y in registers, if its threads hold all ``n`` items at
-    ``WARM_ITEMS`` each; else of the kernel that re-reads f and c every sweep.
-    ``partials`` is the length of each of the (sweeps, blocks) partials
-    buffers (the mass in float64, the count in int32)."""
-    blocks = sms * resident_blocks_per_sm
-    resident = n <= blocks * WARM_THREADS * WARM_ITEMS
-    if not resident:
-        blocks = sms * stream_blocks_per_sm
-    return {"blocks": blocks, "resident": resident, "partials": sweeps * blocks,
+
+def warm_plan(n: int, sweeps: int, sms: int, resident_blocks_per_sm: int,
+              stream_blocks_per_sm: int, rows: int = 1) -> dict:
+    """One persistent launch of the warm projection over ``rows`` rows of
+    ``n`` items.
+
+    Each row is cut into ``tiles`` fixed tiles of ``WARM_THREADS *
+    WARM_ITEMS`` items (the order of a row's sums, whatever the grid).  If
+    every tile has a resident block of the kernel that keeps y in registers
+    (``sms`` times the blocks an SM holds of it), a block takes one tile;
+    else the kernel that re-reads f and c every sweep takes ``per_block``
+    contiguous tiles a block, in rounds of ``WARM_TILES_PER_BLOCK``.
+    ``partials`` is the length of each of the (sweeps, rows, tiles)
+    partials buffers (the mass in float64, the count in int32).  Raises
+    where a block would touch more than ``WARM_ROWS_PER_BLOCK`` rows:
+    :func:`warm_groups` splits the rows so that none does."""
+    tiles = -(-n // (WARM_THREADS * WARM_ITEMS))
+    total = rows * tiles
+    resident = total <= sms * resident_blocks_per_sm
+    per_block = 1 if resident else -(-total // (sms * stream_blocks_per_sm))
+    blocks = -(-total // per_block)
+    if total + per_block >= 2**31 or (per_block + tiles - 2) // tiles + 1 > WARM_ROWS_PER_BLOCK:
+        raise ValueError(f"{rows} rows of {n} items: a block would touch more than "
+                         f"{WARM_ROWS_PER_BLOCK} rows")
+    return {"blocks": blocks, "resident": resident, "tiles": tiles, "per_block": per_block,
+            "partials": sweeps * total,
             "design": "persistent, y " + ("in registers" if resident else "re-read from L2")}
 
 
 def _warm_scalars(f, counts, eta, capacity, lo, hi, tau0) -> tuple:
-    _check_catalog(f, counts)
-    return tuple(as_scalar(x, f.device) for x in (eta, capacity, lo, hi, tau0))
+    """The five scalars, as 0-d float32 tensors for one row (f of shape
+    (N,)) or (R,) tensors for R rows (f of shape (R, N))."""
+    if f.dim() == 1:
+        _check_catalog(f, counts)
+        return tuple(as_scalar(x, f.device) for x in (eta, capacity, lo, hi, tau0))
+    if f.dim() != 2 or f.shape[1:] != counts.shape or f.numel() == 0:
+        raise ValueError(f"f must be (N,) or (R, N) over counts (N,), got {tuple(f.shape)} and "
+                         f"{tuple(counts.shape)}")
+    if f.device != counts.device:
+        raise ValueError(f"f is on {f.device}, counts on {counts.device}")
+    rows = f.shape[0]
+    out = []
+    for x in (eta, capacity, lo, hi, tau0):
+        x = as_scalar(x, f.device) if not isinstance(x, torch.Tensor) or x.dim() == 0 else x
+        out.append(x.to(torch.float32).expand(rows).contiguous() if x.dim() == 0 else x)
+        if out[-1].shape != (rows,) or out[-1].device != f.device:
+            raise ValueError(f"a row scalar must be 0-d or ({rows},) on {f.device}, got "
+                             f"{tuple(out[-1].shape)} on {out[-1].device}")
+    return tuple(out)
 
 
 def _launch_warm(f: torch.Tensor, counts: torch.Tensor, scalars: tuple, sweeps: int,
-                 out: Optional[torch.Tensor]) -> Tuple[torch.Tensor, str]:
-    """One persistent launch of the warm projection (its epilogue writes
-    ``out`` unless it is None); returns tau and the plan's design."""
+                 out: Optional[torch.Tensor]) -> Tuple[torch.Tensor, list]:
+    """The persistent launches of the warm projection over f's rows, one a
+    group of :func:`warm_groups` (its epilogue writes ``out`` unless it is
+    None); returns tau (0-d for one row, (R,) for R) and each launch's
+    design."""
     dev = f.device
     for t, name in zip((f, counts) + scalars,
                        ("f", "counts", "eta", "capacity", "lo", "hi", "tau0")):
         _build.require(t, torch.float32, name, dev)
-    n = f.numel()
-    plan = warm_plan(n, sweeps, _build.sm_count(dev.index),
-                     *(_build.blocks_per_sm("mass", "repro_project_warm_occupancy", dev.index,
-                                            resident) for resident in (True, False)))
-    pmass = torch.empty(plan["partials"], dtype=torch.float64, device=dev)
-    pcnt = torch.empty(plan["partials"], dtype=torch.int32, device=dev)
-    tau = torch.empty((), dtype=torch.float32, device=dev)
-    _build.check(
-        _warm_entry()(
-            f.data_ptr(), counts.data_ptr(), *(x.data_ptr() for x in scalars), n, sweeps,
-            plan["blocks"], int(plan["resident"]), pmass.data_ptr(), pcnt.data_ptr(),
-            tau.data_ptr(), None if out is None else out.data_ptr(), _build.stream_of(f),
-        ),
-        "project_warm",
-    )
-    return tau, plan["design"]
+    rows, n = (1, f.numel()) if f.dim() == 1 else f.shape
+    sms = _build.sm_count(dev.index)
+    per_sm = tuple(_build.blocks_per_sm("mass", "repro_project_warm_occupancy", dev.index,
+                                        resident) for resident in (True, False))
+    groups = warm_groups(n, sms, per_sm[1], rows)
+    plans = [warm_plan(n, sweeps, sms, *per_sm, rows=r1 - r0) for r0, r1 in groups]
+    partials = max(plan["partials"] for plan in plans)
+    pmass = torch.empty(partials, dtype=torch.float64, device=dev)
+    pcnt = torch.empty(partials, dtype=torch.int32, device=dev)
+    tau = torch.empty(rows, dtype=torch.float32, device=dev)
+    for (r0, r1), plan in zip(groups, plans):
+        _build.check(
+            _warm_entry()(
+                f.data_ptr() + 4 * r0 * n, counts.data_ptr(),
+                *(x.data_ptr() + 4 * r0 for x in scalars), n, r1 - r0, sweeps,
+                plan["blocks"], plan["per_block"], int(plan["resident"]), pmass.data_ptr(),
+                pcnt.data_ptr(), tau.data_ptr() + 4 * r0,
+                None if out is None else out.data_ptr() + 4 * r0 * n, _build.stream_of(f),
+            ),
+            "project_warm",
+        )
+    return tau.reshape(()) if f.dim() == 1 else tau, [plan["design"] for plan in plans]
+
+
+def _rows_ref(fn, f, counts, scalars, sweeps):
+    """The plain version over each row of a 2-D f, one row at a time."""
+    outs = [fn(f[r], counts, *(x[r] for x in scalars), sweeps) for r in range(f.shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
 
 
 def project_warm_tau(
@@ -186,12 +249,21 @@ def project_warm_tau(
     on g(tau) = sum(clip(f + eta * counts - tau, 0, 1)) = C from
     clamp(tau0, lo, hi), as :func:`.ref.project_warm_tau_ref` takes them;
     a 0-d float32 tensor.  On the card the whole solve is one persistent
-    launch."""
+    launch.
+
+    ``f`` may also be (R, N), R rows over the one ``counts``, each scalar 0-d
+    or (R,): then tau is (R,), one launch a group of rows
+    (:func:`warm_groups`), and each row's tau is bit
+    for bit the one its row gives alone (on the CPU, a loop of the plain
+    version over the rows)."""
     scalars = _warm_scalars(f, counts, eta, capacity, lo, hi, tau0)
     if f.device.type == "cpu":
+        if f.dim() == 2:
+            return _rows_ref(project_warm_tau_ref, f, counts, scalars, sweeps)
         return project_warm_tau_ref(f, counts, *scalars, sweeps)
-    tau, plan = _launch_warm(f, counts, scalars, sweeps, None)
-    _build.counted(project_warm_tau, plan)
+    tau, plans = _launch_warm(f, counts, scalars, sweeps, None)
+    for plan in plans:
+        _build.counted(project_warm_tau, plan)
     return tau
 
 
@@ -213,14 +285,18 @@ def project_warm(
     counts - tau, 0, 1) at it, as :func:`.ref.project_warm_ref` gives them.
     On the card both come from one launch, f' from the solve's epilogue; it
     counts as a ``mass`` launch and as an ``apply`` (the clip), by the
-    design ``"projection epilogue"``."""
+    design ``"projection epilogue"``.  An (R, N) ``f`` gives (R, N) f' and
+    (R,) tau in one launch, as :func:`project_warm_tau` does."""
     scalars = _warm_scalars(f, counts, eta, capacity, lo, hi, tau0)
     if f.device.type == "cpu":
+        if f.dim() == 2:
+            return _rows_ref(project_warm_ref, f, counts, scalars, sweeps)
         return project_warm_ref(f, counts, *scalars, sweeps)
     out = torch.empty_like(f)
-    tau, plan = _launch_warm(f, counts, scalars, sweeps, out)
-    _build.counted(project_warm, plan)
-    _build.counted(apply, EPILOGUE)
+    tau, plans = _launch_warm(f, counts, scalars, sweeps, out)
+    for plan in plans:
+        _build.counted(project_warm, plan)
+        _build.counted(apply, EPILOGUE)
     return out, tau
 
 

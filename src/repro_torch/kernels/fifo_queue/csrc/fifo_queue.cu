@@ -46,6 +46,14 @@
 // a miss takes the victim of its rank, lane 0 writes, and a lane whose id
 // was admitted takes the new ticket.
 //
+// A sweep's grid of combos: one launch a plan, a block a combo over the
+// same ids (Args.rows names the combos of the plan, Args.actives their
+// active slots), each on its own rows of the stacked carry and queue.  A
+// tile-plan block is sized for the most warps among its launch's combos;
+// the warps past its own combo's tile leave at once, and the tile's
+// barriers are a named barrier over its own warps.  A row is bit for bit
+// its combo's single launch.
+//
 // Bound on an H100: the bytes (the ids, the requested tickets, and each
 // miss's order entry, slot, stamp and ticket) take ~4 us at a 1e6-request
 // chunk; the tile plan is latency-bound, a round of shared atomics and
@@ -97,7 +105,43 @@ struct Args {
   unsigned char* flags;
   int* hits_out;
   float* stats;
+  // a grid of combos: block b runs combo rows[b], whose carry rows lie
+  // these many ints apart; its active slots are actives[row]
+  const int* rows;
+  const int* actives;
+  long long slots_stride, order_stride, imap_stride;
 };
+
+// The block's combo: its rows of the carry, its flags and its outputs.
+__device__ __forceinline__ Args row_args(Args g) {
+  const long long row = g.rows[blockIdx.x];
+  g.active = g.actives[row];
+  g.slots += row * g.slots_stride;
+  g.stamps += row * g.slots_stride;
+  g.order += row * g.order_stride;
+  g.imap += row * g.imap_stride;
+  g.tclock += row;
+  g.head_p += row;
+  g.misses_p += row;
+  g.occ_p += row;
+  if (g.flags != nullptr) g.flags += row * g.window;
+  g.hits_out += row;
+  g.stats += row * 3;
+  return g;
+}
+
+// The warps of a tile over `active` slots: clamp(active / kSlotsPerWarp, 1,
+// kTileWarps).
+__device__ __forceinline__ int tile_warps(int active) {
+  const int per = active / kSlotsPerWarp;
+  return per < 1 ? 1 : per < kTileWarps ? per : kTileWarps;
+}
+
+// A barrier among the tile's `tile` threads: a grid's block is sized for
+// its largest combo, and the warps past its own tile have left.
+__device__ __forceinline__ void tile_sync(int tile) {
+  asm volatile("bar.sync 1, %0;" ::"r"(tile) : "memory");
+}
 
 // the carry's scalars after the chunk: head, misses, occupancy, clock, hits
 __device__ __forceinline__ void finish(const Args& g, int head, int m0, int misses, int hits) {
@@ -124,11 +168,13 @@ __device__ __forceinline__ int order_at(const int* __restrict__ order, int head,
   return __ldg(order + (pos < a ? pos : pos - a));
 }
 
-__global__ void __launch_bounds__(kTileMax) fifo_tile_kernel(Args g) {
+__global__ void __launch_bounds__(kTileMax) fifo_tile_kernel(Args g0) {
   extern __shared__ unsigned char smem_raw[];
   TileShared& sh = *reinterpret_cast<TileShared*>(smem_raw);
+  const Args g = row_args(g0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5, tile = blockDim.x;
+  const int n_warps = tile_warps(g.active), tile = 32 * n_warps;
+  if (warp >= n_warps) return;
   const unsigned below = (1u << lane) - 1u;
   for (int e = tid; e < 2 * kHashSlots; e += tile) {
     (&sh.key[0][0])[e] = kNone;
@@ -142,7 +188,7 @@ __global__ void __launch_bounds__(kTileMax) fifo_tile_kernel(Args g) {
   int ticket_raw = tid < g.window ? __ldcg(g.imap + j) : 0;
   int w_lo = order_at(g.order, head, tid, a), w_hi = order_at(g.order, head, tile + tid, a);
   int window_m = m0, h_prev = -1;
-  __syncthreads();
+  tile_sync(tile);
   for (int base = 0, p = 0; base < g.window; base += tile, p ^= 1) {
     const int n = min(tile, g.window - base);
     const bool valid = tid < n;
@@ -185,7 +231,7 @@ __global__ void __launch_bounds__(kTileMax) fifo_tile_kernel(Args g) {
       sh.ticket_at[p][h] = kNone;
       if (unsure) sh.life_at[p][h] = life;
     }
-    __syncthreads();
+    tile_sync(tile);
     if (h_prev >= 0) {  // every lookup of the previous tile's hash is done
       sh.key[p ^ 1][h_prev] = kNone;
       sh.first_at[p ^ 1][h_prev] = INT_MAX;
@@ -198,7 +244,7 @@ __global__ void __launch_bounds__(kTileMax) fifo_tile_kernel(Args g) {
       sh.miss_w[warp] = miss_ballot;
       sh.unsure_w[warp] = unsure_ballot;
     }
-    __syncthreads();
+    tile_sync(tile);
     if (warp == 0) {
       // lane w holds warp w's words.  In position order: an unsure request
       // misses iff the misses before it outlast its item; a miss readmits
@@ -255,7 +301,7 @@ __global__ void __launch_bounds__(kTileMax) fifo_tile_kernel(Args g) {
       if (lane < n_warps) sh.prefix[lane] = incl - c;
       if (lane == 31) sh.total = incl;
     }
-    __syncthreads();
+    tile_sync(tile);
     const unsigned word = sh.miss_w[warp];
     const int m = sh.total;
     const bool missed = (word >> lane) & 1u;
@@ -276,12 +322,13 @@ __global__ void __launch_bounds__(kTileMax) fifo_tile_kernel(Args g) {
     j = j_next;
     j_next = j_after;
     ticket_raw = ticket_next;
-    __syncthreads();  // the tile's writes are seen by the next tile's reads
+    tile_sync(tile);  // the tile's writes are seen by the next tile's reads
   }
   if (tid == 0) finish(g, head, m_start, m0 - m_start, hits);
 }
 
-__global__ void __launch_bounds__(32) fifo_chain_kernel(Args g) {
+__global__ void __launch_bounds__(32) fifo_chain_kernel(Args g0) {
+  const Args g = row_args(g0);
   const int lane = threadIdx.x;
   const int a = g.active, t0 = *g.tclock, m_start = *g.misses_p;
   int head = *g.head_p, m = m_start, hits = 0;
@@ -319,33 +366,43 @@ __global__ void __launch_bounds__(32) fifo_chain_kernel(Args g) {
 
 }  // namespace
 
-// slots and stamps: the carry's (K,) int32; tclock its () int32 clock.
-// order: the `active` slots by (stamp, index); head, misses, occ: () int32;
-// imap: one int32 ticket an item, covering every id.  flags: null, or one
-// byte a request.  hits: one int32; stats: three float32.  The plan follows
-// `active`: the tile plan from kTileMinSlots slots, a block of
-// clamp(active / kSlotsPerWarp, 1, kTileWarps) warps, else the chain.
+// One chunk of ids for a grid of combos, a block each: `count` blocks run
+// the combos rows[0 .. count) of carries stacked a row a combo.  A combo's
+// slots and stamps: (K,) int32, rows slots_stride apart; tclock its () int32
+// clock; order: its actives[row] active slots by (stamp, index), rows
+// order_stride apart; head, misses, occ: () int32; imap: one int32 ticket
+// an item, covering every id, rows imap_stride apart.  flags: null, or one
+// byte a request, a window a row.  hits: one int32 a combo; stats: three
+// float32.  The scalars lie one apart.  All the combos take one plan:
+// `tile` (every combo's active >= kTileMinSlots), a block of `warps` warps,
+// the most clamp(active / kSlotsPerWarp, 1, kTileWarps) among them; else
+// the chain.  A single chunk is the grid of one combo.
 extern "C" int repro_fifo_queue(int window, const void* ids, void* slots, void* stamps,
-                                void* tclock, const void* order, int active, void* head,
-                                void* misses, void* imap, void* occ, void* flags, void* hits,
-                                void* stats, void* stream) {
-  if (window < 1 || active < 1) return (int)cudaErrorInvalidValue;
+                                void* tclock, const void* order, void* head, void* misses,
+                                void* imap, void* occ, void* flags, void* hits, void* stats,
+                                int count, const void* rows, const void* actives,
+                                long long slots_stride, long long order_stride,
+                                long long imap_stride, int tile, int warps, void* stream) {
+  if (window < 1 || count < 1 || rows == nullptr || actives == nullptr || warps < 1 ||
+      warps > kTileWarps || (!tile && warps != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const Args g{static_cast<int*>(slots), static_cast<int*>(stamps), static_cast<int*>(tclock),
-               static_cast<const int*>(order), active, static_cast<int*>(head),
+               static_cast<const int*>(order), 0, static_cast<int*>(head),
                static_cast<int*>(misses), static_cast<int*>(imap), static_cast<int*>(occ),
                static_cast<const int*>(ids), window, static_cast<unsigned char*>(flags),
-               static_cast<int*>(hits), static_cast<float*>(stats)};
+               static_cast<int*>(hits), static_cast<float*>(stats),
+               static_cast<const int*>(rows), static_cast<const int*>(actives), slots_stride,
+               order_stride, imap_stride};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (active >= kTileMinSlots) {
-    const int per = active / kSlotsPerWarp;
-    const int warps = per < 1 ? 1 : per < kTileWarps ? per : kTileWarps;
+  if (tile) {
     const int smem = (int)sizeof(TileShared);
     const cudaError_t e = cudaFuncSetAttribute(
         fifo_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    fifo_tile_kernel<<<1, 32 * warps, smem, s>>>(g);
+    fifo_tile_kernel<<<count, 32 * warps, smem, s>>>(g);
   } else {
-    fifo_chain_kernel<<<1, 32, 0, s>>>(g);
+    fifo_chain_kernel<<<count, 32, 0, s>>>(g);
   }
   return (int)cudaGetLastError();
 }

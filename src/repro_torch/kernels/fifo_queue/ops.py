@@ -12,6 +12,11 @@ resolves a tile of 32 to 1024 requests at once (:func:`tile_requests`),
 below it one warp takes the requests in order.  On a CPU tensor it runs
 the plain version, :func:`~.ref.fifo_queue_ref`.  Either way the carry and
 the derived state are updated in place.
+
+A sweep's grid of combos runs a block a combo over the shared ids, one
+launch for each plan its combos' active slots call for (at most two), each
+row bit for bit its combo's single launch; a single chunk is the grid of
+one combo.
 """
 
 from __future__ import annotations
@@ -54,10 +59,25 @@ def tile_requests(active: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = _build.library("fifo_queue").repro_fifo_queue
-    i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, p, p, p, p, p, i, p, p, p, p, p, p, p, p]
+    i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
+    fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, p, p, ll, ll, ll, i, i, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_plans(device: torch.device, active: Tuple[int, ...]):
+    """A grid's launches: its combos' active slots on ``device``, and for
+    each plan its combos call for, (design, warps a block, the combos' rows
+    on the device)."""
+    plans = []
+    for tile in (True, False):
+        rows = [r for r, a in enumerate(active) if (a >= TILE_MIN_SLOTS) == tile]
+        if rows:
+            warps = max(tile_requests(active[r]) // 32 for r in rows) if tile else 1
+            plans.append((DESIGN if tile else DESIGN_CHAIN, warps,
+                          torch.tensor(rows, dtype=torch.int32, device=device)))
+    return torch.tensor(active, dtype=torch.int32, device=device), tuple(plans)
 
 
 def fifo_queue(
@@ -67,6 +87,7 @@ def fifo_queue(
     queue: FIFOQueue,
     ids: torch.Tensor,
     flags: Optional[torch.Tensor] = None,
+    active: Optional[Tuple[int, ...]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One FIFO chunk over int32 ``ids`` (each below ``queue.imap``'s
     length; at most :data:`~.ref.MAX_REQUESTS` since the queue was derived),
@@ -75,9 +96,32 @@ def fifo_queue(
 
     Returns ``(hits, stats)``: the () int32 hit count and the (3,) float32
     (reward, aux, occupancy); ``flags``, a (window,) bool tensor where given,
-    gets each request's hit."""
+    gets each request's hit.
+
+    A grid of R combos over the same ids: ``slots``, ``stamps`` (R, K), ``t``
+    (R,), the queue's fields stacked a row a combo (``order`` (R, K), combo r's
+    first ``active[r]`` entries its order; ``imap`` (R, M); the scalars
+    (R,)), ``active`` the combos' active slots, ``flags`` (R, window); hits
+    (R,) and stats (R, 3), from one launch a plan.  One combo is the grid of
+    its one row."""
+    if slots.dim() == 1:
+        hits, stats = fifo_queue(slots[None], stamps[None], t[None],
+                                 FIFOQueue(*(x[None] for x in queue)), ids,
+                                 None if flags is None else flags[None],
+                                 active=(queue.order.numel(),))
+        return hits[0], stats[0]
+    rows = slots.shape[0]
+    active = tuple(int(a) for a in active)
+    if len(active) != rows or not all(0 < a <= queue.order.shape[1] for a in active):
+        raise ValueError(f"active must give each of the {rows} combos' 1 .. "
+                         f"{queue.order.shape[1]} active slots, got {active}")
     if slots.device.type == "cpu":
-        return fifo_queue_ref(slots, stamps, t, queue, ids, flags)
+        outs = [fifo_queue_ref(slots[r], stamps[r], t[r],
+                               FIFOQueue(queue.order[r, :active[r]], queue.head[r],
+                                         queue.imap[r], queue.occ[r], queue.misses[r]),
+                               ids, flags[r] if flags is not None else None)
+                for r in range(rows)]
+        return torch.stack([h for h, _ in outs]), torch.stack([st for _, st in outs])
     dev = slots.device
     for name, x in (("slots", slots), ("stamps", stamps), ("t", t), ("order", queue.order),
                     ("head", queue.head), ("imap", queue.imap), ("occ", queue.occ),
@@ -85,25 +129,32 @@ def fifo_queue(
         _build.require(x, torch.int32, name, dev)
     if ids.dim() != 1 or ids.numel() < 1:
         raise ValueError(f"ids must be a non-empty 1-D tensor, got shape {tuple(ids.shape)}")
-    if stamps.shape != slots.shape or t.dim() != 0 or queue.order.numel() < 1:
-        raise ValueError("stamps must match slots, t must be 0-d and the queue non-empty")
+    if stamps.shape != slots.shape or queue.imap.dim() != 2 or any(
+            x.shape != (rows,) for x in (t, queue.head, queue.occ, queue.misses)) or \
+            queue.order.shape[0] != rows or queue.imap.shape[0] != rows:
+        raise ValueError("the carry and the queue must hold a row a combo: t, head, occ and "
+                         "misses (R,) (0-d for one combo)")
     if flags is not None:
         _build.require(flags, torch.bool, "flags", dev)
-        if flags.shape != ids.shape:
-            raise ValueError("flags must match ids")
-    hits = torch.empty((), dtype=torch.int32, device=dev)
-    stats = torch.empty(3, dtype=torch.float32, device=dev)
-    _build.check(
-        _entry()(
-            ids.numel(), ids.data_ptr(), slots.data_ptr(), stamps.data_ptr(), t.data_ptr(),
-            queue.order.data_ptr(), queue.order.numel(), queue.head.data_ptr(),
-            queue.misses.data_ptr(), queue.imap.data_ptr(), queue.occ.data_ptr(),
-            flags.data_ptr() if flags is not None else None, hits.data_ptr(), stats.data_ptr(),
-            _build.stream_of(slots),
-        ),
-        "fifo_queue",
-    )
-    _build.counted(fifo_queue, design(queue.order.numel()))
+        if flags.shape != (rows,) + tuple(ids.shape):
+            raise ValueError("flags must match ids, a row a combo")
+    hits = torch.empty(rows, dtype=torch.int32, device=dev)
+    stats = torch.empty((rows, 3), dtype=torch.float32, device=dev)
+    actives, plans = _grid_plans(dev, active)
+    for plan, warps, plan_rows in plans:
+        _build.check(
+            _entry()(
+                ids.numel(), ids.data_ptr(), slots.data_ptr(), stamps.data_ptr(), t.data_ptr(),
+                queue.order.data_ptr(), queue.head.data_ptr(), queue.misses.data_ptr(),
+                queue.imap.data_ptr(), queue.occ.data_ptr(),
+                flags.data_ptr() if flags is not None else None, hits.data_ptr(),
+                stats.data_ptr(), plan_rows.numel(), plan_rows.data_ptr(), actives.data_ptr(),
+                slots.shape[1], queue.order.shape[1], queue.imap.shape[1], int(plan == DESIGN),
+                warps, _build.stream_of(slots),
+            ),
+            "fifo_queue",
+        )
+        _build.counted(fifo_queue, plan)
     return hits, stats
 
 

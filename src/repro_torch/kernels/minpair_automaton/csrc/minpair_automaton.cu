@@ -70,6 +70,13 @@
 // keeps its request's imap entry current through the tile: each write to
 // imap is broadcast, and the lanes whose id it names take it.
 //
+// A sweep's grid of combos (repro_torch.sweep): one launch of a block a
+// combo over the same ids, each block on its own rows of the stacked carry
+// (Rows: the strides between the combos' rows) and its own pointer scratch
+// in the L2 plan.  A block runs the single launch's code on its rows, so a
+// row is bit for bit its combo's single launch; the blocks are independent
+// chains on separate SMs.
+//
 // Bound on an H100: bytes (the ids, the touched imap, counts and noise
 // entries, each written entry and the tree nodes on the touched paths)
 // take a few microseconds at a 1e6-request chunk; the kernel is
@@ -492,6 +499,17 @@ __device__ void build_pointers(const int* __restrict__ th, const int* __restrict
   }
 }
 
+// A grid of combos: block b runs row b of each stacked carry tensor, whose
+// rows lie `stride` elements apart (the ids are shared).
+struct Rows {
+  long long imap, items, slots, tree, pointers, flags;
+};
+
+template <class T>
+__device__ __forceinline__ T* row_of(T* p, long long stride) {
+  return p == nullptr ? p : p + (long long)blockIdx.x * stride;
+}
+
 template <int KIND, bool kShared>
 __global__ void __launch_bounds__(kThreads, 1)
     minpair_kernel(int* __restrict__ imap, int* __restrict__ counts,
@@ -499,8 +517,23 @@ __global__ void __launch_bounds__(kThreads, 1)
                    int* __restrict__ tl, int* __restrict__ tclock, float* __restrict__ hval,
                    float* __restrict__ lval, const int* __restrict__ ids, int window, int n_items,
                    Levels lv, int* __restrict__ gptr, unsigned char* __restrict__ flags,
-                   int* __restrict__ hits_out, float* __restrict__ stats) {
+                   int* __restrict__ hits_out, float* __restrict__ stats, Rows rs) {
   extern __shared__ int smem[];
+  // this block's combo: its rows of the carry, its pointer scratch, flags
+  // and outputs
+  imap = row_of(imap, rs.imap);
+  counts = row_of(counts, rs.items);
+  noise = row_of(noise, rs.items);
+  slots = row_of(slots, rs.slots);
+  hval = row_of(hval, rs.slots);
+  th = row_of(th, rs.tree);
+  tl = row_of(tl, rs.tree);
+  gptr = row_of(gptr, rs.pointers);
+  flags = row_of(flags, rs.flags);
+  tclock = row_of(tclock, 1);
+  lval = row_of(lval, 1);
+  hits_out = row_of(hits_out, 1);
+  stats = row_of(stats, 3);
   __shared__ int s_occ;
   const int up = lv.size[0];  // the upper levels follow the leaves
   const int upper = lv.upper;
@@ -535,36 +568,37 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int KIND, bool kShared>
-int launch(int window, const int* ids, int n_items, const Levels& lv, int* gptr, int* imap,
-           int* counts, const float* noise, int* slots, int* th, int* tl, int* t, float* hval,
-           float* lval, unsigned char* flags, int* hits, float* stats, cudaStream_t stream) {
+int launch(int rows, const Rows& rs, int window, const int* ids, int n_items, const Levels& lv,
+           int* gptr, int* imap, int* counts, const float* noise, int* slots, int* th, int* tl,
+           int* t, float* hval, float* lval, unsigned char* flags, int* hits, float* stats,
+           cudaStream_t stream) {
   const size_t smem = (size_t)((kShared ? 3 : 2) * lv.upper) * sizeof(int);
   if (smem + 1024 > 48 * 1024) {  // with the static shared memory, past 48 KB
     const cudaError_t e = cudaFuncSetAttribute(
         minpair_kernel<KIND, kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  minpair_kernel<KIND, kShared><<<1, kThreads, smem, stream>>>(
+  minpair_kernel<KIND, kShared><<<rows, kThreads, smem, stream>>>(
       imap, counts, noise, slots, th, tl, t, hval, lval, ids, window, n_items, lv, gptr, flags,
-      hits, stats);
+      hits, stats, rs);
   return (int)cudaGetLastError();
 }
 
 template <bool kShared>
-int launch_kind(int kind, int window, const int* ids, int n_items, const Levels& lv, int* gptr,
-                int* imap, int* counts, const float* noise, int* slots, int* th, int* tl, int* t,
-                float* hval, float* lval, unsigned char* flags, int* hits, float* stats,
-                cudaStream_t s) {
+int launch_kind(int kind, int rows, const Rows& rs, int window, const int* ids, int n_items,
+                const Levels& lv, int* gptr, int* imap, int* counts, const float* noise,
+                int* slots, int* th, int* tl, int* t, float* hval, float* lval,
+                unsigned char* flags, int* hits, float* stats, cudaStream_t s) {
   switch (kind) {
     case kLFU:
-      return launch<kLFU, kShared>(window, ids, n_items, lv, gptr, imap, counts, noise, slots, th,
-                                   tl, t, hval, lval, flags, hits, stats, s);
+      return launch<kLFU, kShared>(rows, rs, window, ids, n_items, lv, gptr, imap, counts, noise,
+                                   slots, th, tl, t, hval, lval, flags, hits, stats, s);
     case kFTPL:
-      return launch<kFTPL, kShared>(window, ids, n_items, lv, gptr, imap, counts, noise, slots,
-                                    th, tl, t, hval, lval, flags, hits, stats, s);
+      return launch<kFTPL, kShared>(rows, rs, window, ids, n_items, lv, gptr, imap, counts, noise,
+                                    slots, th, tl, t, hval, lval, flags, hits, stats, s);
     case kGDS:
-      return launch<kGDS, kShared>(window, ids, n_items, lv, gptr, imap, counts, noise, slots, th,
-                                   tl, t, hval, lval, flags, hits, stats, s);
+      return launch<kGDS, kShared>(rows, rs, window, ids, n_items, lv, gptr, imap, counts, noise,
+                                   slots, th, tl, t, hval, lval, flags, hits, stats, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -581,13 +615,19 @@ int launch_kind(int kind, int window, const int* ids, int n_items, const Levels&
 // (the L2 plan).  imap holds N + 1 entries, counts N.  flags: null, or one
 // byte a request.  hits: one int32; stats: three float32 (reward, aux,
 // occupancy).
-extern "C" int repro_minpair_automaton(int kind, int window, const void* ids, int n_items,
-                                       int count, const long long* sizes, void* pointers,
-                                       void* imap, void* counts, const void* noise, void* slots,
-                                       void* th, void* tl, void* t, void* hval, void* lval,
-                                       void* flags, void* hits, void* stats, void* stream) {
-  if (count < 1 || count > kMaxLevels || window < 1 || n_items < 1 || sizes[0] < 1 ||
-      sizes[count - 1] > kRadix) {
+// rows: the combos of a grid, a block each, over one chunk of ids; each
+// tensor above then holds `rows` rows, one a combo: imap rows N + 1 apart,
+// counts and noise N, slots and hval K, each tree its storage, the pointer
+// scratch one row of upper nodes, flags the window, t, lval and hits one,
+// stats three.  rows = 1 is the single launch.
+extern "C" int repro_minpair_automaton(int kind, int rows, int window, const void* ids,
+                                       int n_items, int count, const long long* sizes,
+                                       void* pointers, void* imap, void* counts,
+                                       const void* noise, void* slots, void* th, void* tl,
+                                       void* t, void* hval, void* lval, void* flags, void* hits,
+                                       void* stats, void* stream) {
+  if (rows < 1 || count < 1 || count > kMaxLevels || window < 1 || n_items < 1 ||
+      sizes[0] < 1 || sizes[count - 1] > kRadix) {
     return (int)cudaErrorInvalidValue;
   }
   Levels lv{};
@@ -606,6 +646,7 @@ extern "C" int repro_minpair_automaton(int kind, int window, const void* ids, in
   lv.upper = (int)upper;
   lv.top_at = lv.at[count - 1];
   lv.top_size = lv.size[count - 1];
+  const Rows rs{(long long)n_items + 1, n_items, sizes[0], sizes[0] + upper, upper, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ids);
   int* gp = static_cast<int*>(pointers);
@@ -622,9 +663,9 @@ extern "C" int repro_minpair_automaton(int kind, int window, const void* ids, in
   int* ho = static_cast<int*>(hits);
   float* st = static_cast<float*>(stats);
   if (gp == nullptr) {
-    return launch_kind<true>(kind, window, id, n_items, lv, gp, im, c, nz, sl, h, l, tc, hv, lv_,
-                             fl, ho, st, s);
+    return launch_kind<true>(kind, rows, rs, window, id, n_items, lv, gp, im, c, nz, sl, h, l, tc,
+                             hv, lv_, fl, ho, st, s);
   }
-  return launch_kind<false>(kind, window, id, n_items, lv, gp, im, c, nz, sl, h, l, tc, hv, lv_,
-                            fl, ho, st, s);
+  return launch_kind<false>(kind, rows, rs, window, id, n_items, lv, gp, im, c, nz, sl, h, l, tc,
+                            hv, lv_, fl, ho, st, s);
 }

@@ -12,6 +12,11 @@ chunk's start), the leaves in global memory (L2).  On a CPU tensor each
 runs its plain version in :mod:`.ref`.  Either way the carry's tensors are
 updated in place.
 
+A sweep's grid of combos runs in the same launch, a block a combo: each
+carry tensor then has a leading combo axis (the ids are shared), and each
+row is bit for bit its combo's single launch (the same code on its own
+rows); on the CPU the plain version runs row by row.
+
 The kernel takes any slot count K (the tree's leaves), ``n_slots`` above
 the capacity padded with inactive slots, as long as the levels above the
 leaves fit in one block's shared memory (:data:`MAX_UPPER_NODES`: K up to
@@ -62,7 +67,7 @@ _GDS = len(KINDS)
 def _entry():
     fn = _build.library("minpair_automaton").repro_minpair_automaton
     i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, i, p, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p]
+    fn.argtypes = [i, i, i, p, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -78,10 +83,11 @@ def design(k: int, gds: bool = False) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _pointer_scratch(device: torch.device, upper: int) -> torch.Tensor:
+def _pointer_scratch(device: torch.device, upper: int, rows: int = 1) -> torch.Tensor:
     """The L2 plan's least-leaf pointers, one int32 a node above the leaves
-    (the kernel's own: built at each chunk's start, not part of the carry)."""
-    return torch.empty(upper, dtype=torch.int32, device=device)
+    and a row a combo (the kernel's own: built at each chunk's start, not
+    part of the carry)."""
+    return torch.empty(rows * upper, dtype=torch.int32, device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,12 +121,16 @@ def minpair_automaton(
     Returns ``(hits, stats)``: the () int32 hit count and the (3,) float32
     (reward, aux, occupancy); ``flags``, a (window,) bool tensor where
     given, gets each request's hit.
+
+    A grid of R combos: every carry tensor with a leading axis of R (``t``
+    (R,)), the ids shared, ``flags`` (R, window); then hits is (R,) and
+    stats (R, 3), still one launch.
     """
     if kind not in KINDS:
         raise ValueError(f"unknown min-pair automaton {kind!r} (have {KINDS})")
     if slots.device.type == "cpu":
-        return minpair_automaton_ref(kind, imap, counts, noise, slots, tree_hi, tree_lo, t, ids,
-                                     flags)
+        return _by_rows(minpair_automaton_ref, slots, (kind,),
+                        (imap, counts, noise, slots, tree_hi, tree_lo, t), ids, flags)
     dev = slots.device
     lfu = kind == "lfu"
     for name, x in (("slots", slots), ("imap", imap), ("counts", counts), ("tree_hi", tree_hi),
@@ -132,17 +142,31 @@ def minpair_automaton(
         _build.require(noise, torch.float32, "noise", dev)
         if noise.shape != counts.shape:
             raise ValueError("noise must match counts")
-    n = counts.numel()
+    n = counts.shape[-1]
     return _launch(KINDS.index(kind), False, ids, n, imap, counts, None if lfu else noise, slots,
                    tree_hi, tree_lo, t if lfu else None, None, None, flags)
 
 
+def _by_rows(fn, slots, lead, carry, ids, flags):
+    """The plain version ``fn(*lead, *carry, ids, flags)`` on one combo, or
+    row by row on a grid's (the carry's tensors in place); returns (hits,
+    stats), stacked over the rows of a grid."""
+    if slots.dim() == 1:
+        return fn(*lead, *carry, ids, flags)
+    outs = [fn(*lead, *(x[r] if x is not None else None for x in carry), ids,
+               flags[r] if flags is not None else None) for r in range(slots.shape[0])]
+    return torch.stack([h for h, _ in outs]), torch.stack([st for _, st in outs])
+
+
 def _check_slots(imap, slots, tree_hi, tree_lo, ids, n, flags):
     dev = slots.device
-    k = slots.numel()
+    k = slots.shape[-1]
+    lead = tuple(slots.shape[:-1])
+    if slots.dim() > 2:
+        raise ValueError(f"slots must be (K,) or (R, K), got {tuple(slots.shape)}")
     if ids.dim() != 1 or ids.numel() < 1:
         raise ValueError(f"ids must be a non-empty 1-D tensor, got shape {tuple(ids.shape)}")
-    if imap.numel() != n + 1 or tree_hi.shape != (tree_storage(k, SLOT_RADIX),) or \
+    if imap.shape != lead + (n + 1,) or tree_hi.shape != lead + (tree_storage(k, SLOT_RADIX),) or \
             tree_lo.shape != tree_hi.shape:
         raise ValueError(f"imap must hold N+1 = {n + 1} entries and each min-tree "
                          f"{tree_storage(k, SLOT_RADIX)} nodes for {k} slots")
@@ -151,28 +175,33 @@ def _check_slots(imap, slots, tree_hi, tree_lo, ids, n, flags):
                          f"leaves in shared memory; {k} slots need {upper_nodes(k)}")
     if flags is not None:
         _build.require(flags, torch.bool, "flags", dev)
-        if flags.shape != ids.shape:
-            raise ValueError("flags must match ids")
+        if flags.shape != lead + tuple(ids.shape):
+            raise ValueError("flags must match ids, a row a combo")
 
 
 def _launch(kind, gds, ids, n, imap, counts, noise, slots, tree_hi, tree_lo, t, hval, lval,
             flags):
     dev = slots.device
     _check_slots(imap, slots, tree_hi, tree_lo, ids, n, flags)
-    hits = torch.empty((), dtype=torch.int32, device=dev)
-    stats = torch.empty(3, dtype=torch.float32, device=dev)
-    k = slots.numel()
+    lead = tuple(slots.shape[:-1])
+    rows = lead[0] if lead else 1
+    for x, name in ((t, "t"), (lval, "lval")):
+        if x is not None and x.shape != lead:
+            raise ValueError(f"{name} must be {lead}, a combo's scalar each")
+    hits = torch.empty(lead, dtype=torch.int32, device=dev)
+    stats = torch.empty(lead + (3,), dtype=torch.float32, device=dev)
+    k = slots.shape[-1]
     count, sizes = _levels(k)
     plan = design(k, gds)
     upper = upper_nodes(k)
-    pointers = None if upper <= SHARED_POINTER_NODES else _pointer_scratch(dev, upper)
+    pointers = None if upper <= SHARED_POINTER_NODES else _pointer_scratch(dev, upper, rows)
 
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
     _build.check(
         _entry()(
-            kind, ids.numel(), ptr(ids), n, count, ctypes.addressof(sizes), ptr(pointers),
+            kind, rows, ids.numel(), ptr(ids), n, count, ctypes.addressof(sizes), ptr(pointers),
             imap.data_ptr(), ptr(counts), ptr(noise), slots.data_ptr(), tree_hi.data_ptr(),
             tree_lo.data_ptr(), ptr(t), ptr(hval), ptr(lval), ptr(flags), hits.data_ptr(),
             stats.data_ptr(), _build.stream_of(slots),
@@ -208,14 +237,15 @@ def gds_automaton(
 
     Returns ``(hits, stats)`` as :func:`minpair_automaton` does."""
     if slots.device.type == "cpu":
-        return gds_automaton_ref(imap, prio, hval, lval, slots, tree_hi, tree_lo, ids, flags)
+        return _by_rows(gds_automaton_ref, slots, (),
+                        (imap, prio, hval, lval, slots, tree_hi, tree_lo), ids, flags)
     dev = slots.device
     for name, x in (("slots", slots), ("imap", imap), ("tree_hi", tree_hi),
                     ("tree_lo", tree_lo), ("ids", ids)):
         _build.require(x, torch.int32, name, dev)
     for name, x in (("prio", prio), ("hval", hval), ("lval", lval)):
         _build.require(x, torch.float32, name, dev)
-    if hval.shape != slots.shape or lval.dim() != 0:
-        raise ValueError("hval must match slots and lval must be 0-d")
-    return _launch(_GDS, True, ids, prio.numel(), imap, None, prio, slots, tree_hi,
+    if hval.shape != slots.shape or prio.shape != slots.shape[:-1] + prio.shape[-1:]:
+        raise ValueError("hval must match slots, and prio be (N,) a combo")
+    return _launch(_GDS, True, ids, prio.shape[-1], imap, None, prio, slots, tree_hi,
                    tree_lo, None, hval, lval, flags)

@@ -49,6 +49,14 @@
 //   the leaves are the tree's own.  The wrapper then rebuilds the tree from
 //   the leaves with the int32 tree build (prefix_tree/csrc/segsum.cu).
 //
+// A sweep's grid of combos: one chunk launch of a block a combo over the
+// same ids, each block on its own rows of the stacked carry (Rows), the
+// tree rows a multiple of 4 ints apart so that the 16-byte loads hold; each
+// combo's compaction, where its host bound says one may be due, is its own
+// compaction launch and build into its row of the states, and the chunk's
+// launch resets each decision it reads.  A row is bit for bit its combo's
+// single launch.
+//
 // Bound on an H100: bytes, the ids read and each distinct item's last read
 // and written, and the tree nodes on the marks' paths, take a few
 // microseconds at a 1e6-request chunk; the chunk kernel is latency-bound, a
@@ -218,13 +226,35 @@ __device__ __forceinline__ int table_insert(Table& t, int j) {
   return __shfl_sync(kFull, slot, leader);
 }
 
+// A grid of combos: block b runs row b of each stacked carry tensor (the
+// ids are shared): the tree rows `tree_stride` ints apart, last `last_stride`,
+// the compaction states `state_stride`, flags a window; pos, nseen, cap and
+// hits one int apart, stats three floats.
+struct Rows {
+  long long tree, last, state;
+};
+
+template <class T>
+__device__ __forceinline__ T* row_of(T* p, long long stride) {
+  return p == nullptr ? p : p + (long long)blockIdx.x * stride;
+}
+
 __global__ void __launch_bounds__(kThreads)
     tree_lru_kernel(int* __restrict__ tree, int* __restrict__ last, int* __restrict__ pos,
                     int* __restrict__ nseen, const int* __restrict__ cap,
                     const int* __restrict__ ids, int window, Ring r,
-                    const int* __restrict__ state, unsigned char* __restrict__ flags,
-                    int* __restrict__ hits_out, float* __restrict__ stats) {
+                    int* __restrict__ state, unsigned char* __restrict__ flags,
+                    int* __restrict__ hits_out, float* __restrict__ stats, Rows rs) {
   extern __shared__ int4 smem4[];
+  tree = row_of(tree, rs.tree);
+  last = row_of(last, rs.last);
+  pos = row_of(pos, 1);
+  nseen = row_of(nseen, 1);
+  cap = row_of(cap, 1);
+  state = row_of(state, rs.state);
+  flags = row_of(flags, (long long)window);
+  hits_out = row_of(hits_out, 1);
+  stats = row_of(stats, 3);
   int* s_tree = reinterpret_cast<int*>(smem4);  // levels s0 and above
   __shared__ __align__(16) Table s_table;
   __shared__ __align__(16) int s_prev[kThreads];
@@ -233,7 +263,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int m = r.size[0];
   int p0 = *pos;
-  if (state != nullptr && state[0]) p0 = state[1];
+  if (state[0]) p0 = state[1];
   const int c = *cap;
   const int seen0 = *nseen;
   if ((long long)p0 + window > m) {  // the caller's bound was wrong: touch nothing
@@ -254,6 +284,9 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (tid < 2) s_count[tid] = 0;
   __syncthreads();
+  // the compaction's decision is consumed: a later chunk whose compaction
+  // was not launched reads 0 here
+  if (tid == 0) state[0] = 0;
   int total = total_marks(tree, s_tree, r);
   int hits = 0, unseen = 0;
   int jn = tid < window ? __ldg(ids + tid) : -1;
@@ -409,25 +442,34 @@ extern "C" int repro_tree_lru_compact(const void* tree, void* last, const void* 
   return (int)cudaGetLastError();
 }
 
-// One chunk.  state: null, or the compaction's (decision, new pos).  flags:
-// null, or one byte a request.  hits: one int32; stats: three float32
-// (reward, aux, occupancy).
-extern "C" int repro_tree_lru_chunk(void* tree, void* last, void* pos, void* nseen,
+// One chunk of ids for `rows` combos of a grid, a block each; each tensor
+// holds a row a combo (tree rows `tree_stride` apart, last `last_stride`,
+// states `state_stride`; see Rows).  state: a combo's compaction
+// (decision, new pos), the decision reset to 0 once read.  flags: null, or
+// one byte a request.  hits: one int32 a combo; stats: three float32
+// (reward, aux, occupancy).  A single chunk is the grid of one combo.
+extern "C" int repro_tree_lru_chunk(int rows, void* tree, long long tree_stride, void* last,
+                                    long long last_stride, void* pos, void* nseen,
                                     const void* cap, const void* ids, int window,
-                                    const long long* sizes, int count, const void* state,
-                                    void* flags, void* hits, void* stats, void* stream) {
+                                    const long long* sizes, int count, void* state,
+                                    long long state_stride, void* flags, void* hits, void* stats,
+                                    void* stream) {
   Ring r{};
-  if (!ring_of(sizes, count, tree, true, r) || window < 1) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || !ring_of(sizes, count, tree, true, r) || window < 1 || state == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (rows > 1 && tree_stride % 4 != 0) r.vec = 0u;  // rows off 16 bytes: scalar loads
   const size_t smem = (size_t)r.sints * sizeof(int);
   if (smem > 0) {  // beside ~20 KB of static shared memory: past 48 KB in all
     const cudaError_t e = cudaFuncSetAttribute(
         tree_lru_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  tree_lru_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  tree_lru_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(tree), static_cast<int*>(last), static_cast<int*>(pos),
       static_cast<int*>(nseen), static_cast<const int*>(cap), static_cast<const int*>(ids),
-      window, r, static_cast<const int*>(state), static_cast<unsigned char*>(flags),
-      static_cast<int*>(hits), static_cast<float*>(stats));
+      window, r, static_cast<int*>(state), static_cast<unsigned char*>(flags),
+      static_cast<int*>(hits), static_cast<float*>(stats),
+      Rows{tree_stride, last_stride, state_stride});
   return (int)cudaGetLastError();
 }

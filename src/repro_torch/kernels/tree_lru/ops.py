@@ -18,6 +18,10 @@ position) and writes the new leaves; then the int32 tree build
 (``prefix_tree/csrc/segsum.cu``) writes the tree from them, and the
 chunk's launch restarts ``pos``.  Where it is not due, the leaves are the
 tree's own and the build writes the same tree.
+
+A sweep's grid of combos runs in one chunk launch, a block a combo, each
+row of the stacked carry bit for bit its combo's single launch; a single
+chunk is the grid of one combo.
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ def _entries():
     compact.argtypes = [p, p, p, p, i, p, i, i, p, p]
     compact.restype = ctypes.c_int
     chunk = lib.repro_tree_lru_chunk
-    chunk.argtypes = [p, p, p, p, p, p, i, p, i, p, p, p, p, p]
+    ll = ctypes.c_longlong
+    chunk.argtypes = [i, p, ll, p, ll, p, p, p, p, i, p, i, p, ll, p, p, p, p]
     chunk.restype = ctypes.c_int
     return compact, chunk
 
@@ -60,10 +65,12 @@ def _ring(m: int):
 
 
 @functools.lru_cache(maxsize=None)
-def compaction_scratch(device: torch.device, m: int) -> torch.Tensor:
-    """The compaction's scratch on ``device`` for a ring of ``m``: the m new
-    leaves, then the decision and the new ``pos`` for the chunk's launch."""
-    return torch.zeros(m + 2, dtype=torch.int32, device=device)
+def compaction_scratch(device: torch.device, m: int, rows: int) -> torch.Tensor:
+    """The compaction's scratch on ``device`` for ``rows`` combos' rings of
+    ``m``, a row a combo: the m new leaves, then the decision and the new
+    ``pos`` for the chunk's launch (which resets the decision to 0 once
+    read)."""
+    return torch.zeros((rows, m + 2), dtype=torch.int32, device=device)
 
 
 def _check_carry(tree, last, m, **scalars):
@@ -82,13 +89,16 @@ def _check_carry(tree, last, m, **scalars):
 
 
 def ring_compaction(tree: torch.Tensor, last: torch.Tensor, pos: torch.Tensor,
-                    cap: torch.Tensor, window: int, m: int) -> torch.Tensor:
+                    cap: torch.Tensor, window: int, m: int,
+                    scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
     """On the card, the ring compaction a chunk of ``window`` requests may
     need: one launch that decides it from ``pos`` and remaps ``last``, and
-    one int32 tree build into ``tree``.  Returns the scratch whose last two
+    one int32 tree build into ``tree``.  Returns the scratch (``scratch``
+    where given: a combo's row of a grid's; else a new one) whose last two
     entries (decision, new ``pos``) the chunk's launch reads."""
     _check_carry(tree, last, m, pos=pos, cap=cap)
-    scratch = compaction_scratch(tree.device, m)
+    if scratch is None:
+        scratch = torch.zeros(m + 2, dtype=torch.int32, device=tree.device)
     count, sizes = _ring(m)
     compact, _ = _entries()
     _build.check(
@@ -107,7 +117,7 @@ ring_compaction.designs = {}
 
 
 def tree_lru(tree: torch.Tensor, last: torch.Tensor, pos: torch.Tensor, nseen: torch.Tensor,
-             cap: torch.Tensor, ids: torch.Tensor, m: int, *, compact: bool = True,
+             cap: torch.Tensor, ids: torch.Tensor, m: int, *, compact=True,
              flags: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One chunk of the tree LRU over int32 ``ids``, in place.
 
@@ -118,32 +128,56 @@ def tree_lru(tree: torch.Tensor, last: torch.Tensor, pos: torch.Tensor, nseen: t
     Returns ``(hits, stats)``: the () int32 hit count and the (3,) float32
     (reward, aux, occupancy); ``flags``, a (window,) bool tensor where
     given, gets each request's hit.
+
+    A grid of R combos, one launch (a block a combo, the ids shared):
+    ``tree`` (R, TOT) whose rows may lie further apart than TOT (a stride
+    of a multiple of 4 keeps the 16-byte loads), ``last`` (R, N+1), ``pos``,
+    ``nseen`` and ``cap`` (R,), ``compact`` a bool a combo (each combo that
+    may be due adds its own compaction launch and tree build), ``flags`` (R,
+    window); hits (R,) and stats (R, 3).  Each row is bit for bit its
+    combo's single launch; on the CPU the plain version runs row by row.
+    One combo is the grid of its one row.
     """
+    if tree.dim() == 1:  # one combo: the grid of its one row
+        hits, stats = tree_lru(tree[None], last[None], pos[None], nseen[None], cap[None], ids,
+                               m, compact=[compact], flags=None if flags is None else flags[None])
+        return hits[0], stats[0]
     window = ids.numel()
     check_window(window, m)
+    rows = tree.shape[0]
     if tree.device.type == "cpu":
-        return tree_lru_ref(tree, last, pos, nseen, cap, ids, m, flags)
+        outs = [tree_lru_ref(tree[r], last[r], pos[r], nseen[r], cap[r], ids, m,
+                             flags[r] if flags is not None else None)
+                for r in range(rows)]
+        return torch.stack([h for h, _ in outs]), torch.stack([st for _, st in outs])
     dev = tree.device
-    _check_carry(tree, last, m, pos=pos, nseen=nseen, cap=cap)
+    if tree.stride(1) != 1 or last.dim() != 2 or not last.is_contiguous() or \
+            last.shape[0] != rows or any(x.shape != (rows,) for x in (pos, nseen, cap)):
+        raise ValueError("a grid's tree must be (R, TOT) rows of unit stride, last a "
+                         "contiguous (R, N+1), pos, nseen and cap (R,)")
+    for row in range(rows):
+        _check_carry(tree[row], last[row], m, pos=pos[row], nseen=nseen[row], cap=cap[row])
+    compact = [compact] * rows if isinstance(compact, bool) else [bool(c) for c in compact]
     _build.require(ids, torch.int32, "ids", dev)
     if ids.dim() != 1 or window < 1:
         raise ValueError(f"ids must be a non-empty 1-D tensor, got shape {tuple(ids.shape)}")
     if flags is not None:
         _build.require(flags, torch.bool, "flags", dev)
-        if flags.shape != ids.shape:
-            raise ValueError("flags must match ids")
-    state = None
-    if compact:
-        scratch = ring_compaction(tree, last, pos, cap, window, m)
-        state = scratch[m:]
-    hits = torch.empty((), dtype=torch.int32, device=dev)
-    stats = torch.empty(3, dtype=torch.float32, device=dev)
+        if flags.shape != (rows,) + tuple(ids.shape):
+            raise ValueError("flags must match ids, a row a combo")
+    state = compaction_scratch(dev, m, rows)
+    for row in range(rows):
+        if compact[row]:
+            ring_compaction(tree[row], last[row], pos[row], cap[row], window, m,
+                            scratch=state[row])
+    hits = torch.empty(rows, dtype=torch.int32, device=dev)
+    stats = torch.empty((rows, 3), dtype=torch.float32, device=dev)
     count, sizes = _ring(m)
     _, chunk = _entries()
     _build.check(
-        chunk(tree.data_ptr(), last.data_ptr(), pos.data_ptr(), nseen.data_ptr(), cap.data_ptr(),
-              ids.data_ptr(), window, ctypes.addressof(sizes), count,
-              state.data_ptr() if state is not None else None,
+        chunk(rows, tree.data_ptr(), tree.stride(0), last.data_ptr(), last.stride(0),
+              pos.data_ptr(), nseen.data_ptr(), cap.data_ptr(), ids.data_ptr(), window,
+              ctypes.addressof(sizes), count, state[:, m:].data_ptr(), m + 2,
               flags.data_ptr() if flags is not None else None, hits.data_ptr(),
               stats.data_ptr(), _build.stream_of(tree)),
         "tree_lru",

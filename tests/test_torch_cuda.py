@@ -1565,3 +1565,217 @@ def test_tree_lru_rings_with_forced_compactions_match_plain(card, ring):
             assert torch.equal(a.cpu(), b)
     designs = design_counts()["tree_lru"]
     assert designs[CHUNK] == 3 and designs[COMPACTION] == 3
+
+
+# ---------------------------------------------------------------------------
+# a sweep's grid: each batched kernel, a launch for all combos, each row bit
+# for bit its combo's own launch
+# ---------------------------------------------------------------------------
+GRID_SIZES = (1, 2, 7, 18)
+
+
+def _warm_rows(s, n, seed, card):
+    """(R, N) f rows of a mid-run shape, one histogram, and a combo's eta,
+    capacity, bracket and seed each (row r's capacity and eta its own)."""
+    gen = torch.Generator().manual_seed(seed)
+    caps = torch.tensor([0.05 * n * (1 + r % 3) for r in range(s)])
+    f = torch.rand((s, n), generator=gen) * (2.0 * caps[:, None] / n)
+    b = max(1, n // 1000)
+    counts = histogram(torch.randint(0, n, (b,), generator=gen, dtype=torch.int32).to(card), n)
+    eta = 0.02 + 0.05 * torch.rand(s, generator=gen)
+    hi = warm_bracket_hi(eta * float(b))
+    tau0 = hi * torch.rand(s, generator=gen)
+    return (f.to(card), counts, eta.to(card), caps.to(card), torch.zeros(s, device=card),
+            hi.to(card), tau0.to(card))
+
+
+@pytest.mark.parametrize("n", [20_000, 1_000_000])
+@pytest.mark.parametrize("s", GRID_SIZES)
+def test_batched_warm_solve_rows_equal_their_single_launches(card, s, n):
+    """R rows in one launch (each plan: resident where every tile has a
+    block, streaming past it, as at 2 or more rows of 1e6): each row's tau
+    and f' bit for bit its own one-row launch, tau within 1e-6 of the plain
+    version's row by row, f' the plain clip at the kernel's tau."""
+    from repro_torch.kernels.capped_simplex.ops import warm_plan
+    from repro_torch import kernels
+
+    f, counts, eta, cap, lo, hi, tau0 = _warm_rows(s, n, s * 7 + n % 13, card)
+    reset_launch_counts()
+    got_f, got_tau = project_warm(f, counts, eta, cap, lo, hi, tau0, 5)
+    assert launch_counts()["mass"] == 1 and got_tau.shape == (s,) and got_f.shape == (s, n)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    resident = s * -(-n // 8192) <= sms
+    where = "in registers" if resident else "re-read from L2"
+    assert kernels.design_counts()["mass"] == {f"persistent, y {where}": 1}
+    assert warm_plan(n, 5, sms, 1, 1, rows=s)["resident"] == resident
+    tau_only = project_warm_tau(f, counts, eta, cap, lo, hi, tau0, 5)
+    assert torch.equal(tau_only, got_tau)
+    for r in range(s):
+        one_f, one_tau = project_warm(f[r].contiguous(), counts, eta[r], cap[r], lo[r], hi[r],
+                                      tau0[r], 5)
+        assert torch.equal(one_tau, got_tau[r]) and torch.equal(one_f, got_f[r])
+        want = project_warm_tau_ref(f[r], counts, eta[r], cap[r], lo[r], hi[r], tau0[r], 5)
+        assert abs(float(want) - float(got_tau[r])) <= 1e-6
+        assert torch.equal(got_f[r], apply_ref(f[r], counts, eta[r], got_tau[r]))
+
+
+def test_batched_warm_solve_past_one_launch(card):
+    """Past the tiles one launch's streaming blocks take at 64 a block: a
+    grid of rows of 1e6 too many for them runs a launch a group of rows,
+    and one row past them alone takes its blocks' tiles in rounds of 64.
+    Each row's tau and f' bit for bit its own one-row launch, tau within
+    1e-6 of the plain version, f' the plain clip at the kernel's tau."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.capped_simplex.ops import (
+        WARM_ITEMS, WARM_THREADS, WARM_TILES_PER_BLOCK, warm_groups, warm_plan)
+
+    index = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    per_sm = _build.blocks_per_sm("mass", "repro_project_warm_occupancy", index, False)
+    cap_tiles = sms * per_sm * WARM_TILES_PER_BLOCK
+    tile = WARM_THREADS * WARM_ITEMS
+    for s, n in ((cap_tiles // 123 + 2, 1_000_000), (2, cap_tiles * tile + 3 * tile + 5)):
+        f, counts, eta, cap, lo, hi, tau0 = _warm_rows(s, n, s + n % 17, card)
+        groups = warm_groups(n, sms, per_sm, s)
+        assert len(groups) >= 2
+        reset_launch_counts()
+        got_f, got_tau = project_warm(f, counts, eta, cap, lo, hi, tau0, 5)
+        assert launch_counts()["mass"] == len(groups)
+        for r in range(s):
+            one_f, one_tau = project_warm(f[r].contiguous(), counts, eta[r], cap[r], lo[r],
+                                          hi[r], tau0[r], 5)
+            assert torch.equal(one_tau, got_tau[r]) and torch.equal(one_f, got_f[r])
+            want = project_warm_tau_ref(f[r], counts, eta[r], cap[r], lo[r], hi[r], tau0[r], 5)
+            assert abs(float(want) - float(got_tau[r])) <= 1e-6
+            assert torch.equal(got_f[r], apply_ref(f[r], counts, eta[r], got_tau[r]))
+        if s == 2:  # one row a launch, its blocks past 64 tiles each
+            assert warm_plan(n, 5, sms, 1, per_sm)["per_block"] > WARM_TILES_PER_BLOCK
+        del f, got_f, one_f
+        torch.cuda.empty_cache()
+
+
+def _grid_sweep(kind, caps, seeds, trace, n, window, card, **init_kw):
+    """``sweep`` on the card and the CPU and each combo's ``run`` on the
+    card: the hits and every final carry leaf equal; returns the card's
+    sweep and its launches."""
+    pd = repro_torch.policy_def(kind)
+    reset_launch_counts()
+    got = repro_torch.sweep(pd, trace, n, caps, seeds=seeds, window=window, device=card,
+                            track_opt=False, **init_kw)
+    launches, designs = launch_counts(), design_counts()
+    cpu = repro_torch.sweep(pd, trace, n, caps, seeds=seeds, window=window, device="cpu",
+                            track_opt=False, **init_kw)
+    assert pd.batched is not None and np.array_equal(got.hits, cpu.hits)
+    for r, combo in enumerate(got.combos):
+        one = repro_torch.run(pd, trace, n, combo["capacity"], window=window,
+                              seed=combo["seed"], n_slots=max(caps), device=card,
+                              track_opt=False, **init_kw)
+        assert np.array_equal(one.hits, got.hits[r])
+        for a, b, c in zip(got.carries[r], one.carry, cpu.carries[r]):
+            if isinstance(a, torch.Tensor):
+                assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    return got, launches, designs
+
+
+def _grid_caps(s, base):
+    """s combos: capacities base, 2 base, ... (mixed), two seeds past 9."""
+    caps = [base * (1 + r) for r in range(min(s, 9))]
+    return caps, (0, 1) if s > 9 else (0,)
+
+
+@pytest.mark.parametrize("s", GRID_SIZES)
+@pytest.mark.parametrize("kind", ["lru", "lfu", "ftpl", "fifo"])
+def test_batched_automata_rows_equal_their_single_runs(card, kind, s):
+    """Mixed capacities padded to the largest, a launch a chunk for the
+    grid (FIFO: one a plan, its combos below 32 active slots on the chain
+    plan and the rest on the tile plan in one grid), each row's hits and
+    final carry bit for bit its single run on the card and the CPU's."""
+    from repro_torch.kernels.fifo_queue.ops import DESIGN, DESIGN_CHAIN
+
+    caps, seeds = _grid_caps(s, 30 if kind == "fifo" else 23)
+    n, trace = _evicting_trace(max(caps), s)
+    window = len(trace) // 4
+    got, launches, designs = _grid_sweep(kind, caps, seeds, trace, n, window, card)
+    chunks = got.hits.shape[1]
+    name = {"lru": "tree_lru", "fifo": "fifo_queue"}.get(kind, "minpair_automaton")
+    if kind == "fifo":
+        plans = {DESIGN_CHAIN: chunks} if max(caps) < 32 else {DESIGN: chunks}
+        if min(caps) < 32 <= max(caps):
+            plans = {DESIGN: chunks, DESIGN_CHAIN: chunks}
+        assert designs["fifo_queue"] == plans
+    elif kind == "lru":
+        from repro_torch.kernels.tree_lru.ops import CHUNK
+
+        assert designs["tree_lru"][CHUNK] == chunks
+    else:
+        assert launches[name] == chunks
+
+
+@pytest.mark.parametrize("s", [2, 7])
+def test_batched_tree_lru_with_forced_compactions(card, s):
+    """A ring barely above 4C and long chunks: each combo's compactions,
+    decided on the card, beside one chunk launch for the grid."""
+    from repro_torch.kernels.tree_lru.ops import CHUNK, COMPACTION
+
+    caps, seeds = _grid_caps(s, 23)
+    n, trace = _evicting_trace(max(caps), 9)
+    ring = 1 << max(8, (4 * max(caps) - 1).bit_length())
+    window = 3 * ring // 4 - 16
+    got, launches, designs = _grid_sweep("lru", caps, seeds, trace, n, window, card, ring=ring)
+    assert designs["tree_lru"][CHUNK] == got.hits.shape[1]
+    assert designs["tree_lru"].get(COMPACTION, 0) == launches["segsum"] >= 1
+
+
+@pytest.mark.parametrize("kind", ["lfu", "ftpl"])
+def test_batched_minpair_pointers_in_l2(card, kind):
+    """Slots padded past the shared-memory pointers (the L2 plan), a
+    pointer scratch a combo: the grid's chunks bit for bit each combo's
+    single launch and the plain version's."""
+    from repro_torch.cachesim import tree_engines as ttree
+    from repro_torch.kernels.minpair_automaton.ops import DESIGN_L2
+
+    n, trace = _evicting_trace(1000, 12)
+    cpu = [_minpair_carry(kind, n, c, L2_SLOTS, seed=c) for c in (700, 1000, 300)]
+    grid = ttree.grid_start([type(c)(*(x.to(card) for x in c)) for c in cpu])
+    one = [type(c)(*(x.to(card) for x in c)) for c in cpu]
+    reset_launch_counts()
+    for part in np.array_split(trace, 3):
+        ids = torch.from_numpy(np.ascontiguousarray(part))
+        fg = torch.empty((3,) + ids.shape, dtype=torch.bool, device=card)
+        grid, (hg, _) = ttree.tree_chunk(kind, grid, ids.to(card), fg)
+        for r in range(3):
+            fc = torch.empty(ids.shape, dtype=torch.bool)
+            _, (hc, _) = ttree.tree_chunk(kind, cpu[r], ids, fc)
+            _, (ho, _) = ttree.tree_chunk(kind, one[r], ids.to(card))
+            assert int(hg[r]) == int(hc) == int(ho) and torch.equal(fg[r].cpu(), fc)
+    for r, row in enumerate(ttree.grid_split(grid)):
+        for a, b, c in zip(row, one[r], cpu[r]):
+            assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert design_counts()["minpair_automaton"] == {DESIGN_L2: 3 + 3 * 3}
+
+
+@pytest.mark.parametrize("s", GRID_SIZES)
+def test_batched_dense_ogb_rows_equal_their_single_runs(card, s):
+    """Dense ogb (Poisson): one histogram and one warm projection a chunk
+    for the grid, each row's f and tau bit for bit its single run, its hits
+    equal, reward and occupancy within 1e-5 relative."""
+    caps, seeds = _grid_caps(s, 40)
+    etas, seeds = ([None, 0.05], (0,)) if s > 9 else ([None], seeds)
+    n = 3000
+    trace = zipf(n, 40_000, alpha=0.8, seed=s).astype(np.int32)
+    pd = repro_torch.policy_def("ogb")
+    reset_launch_counts()
+    got = repro_torch.sweep(pd, trace, n, caps, etas=etas, seeds=seeds, window=500,
+                            device=card, track_opt=False)
+    launches = launch_counts()
+    assert len(got.combos) == s
+    chunks = got.hits.shape[1]
+    assert launches["histogram"] == chunks and launches["mass"] == chunks
+    for r, combo in enumerate(got.combos):
+        one = repro_torch.run(pd, trace, n, combo["capacity"], window=500, seed=combo["seed"],
+                              eta=combo["eta"], device=card, track_opt=False)
+        assert torch.equal(one.carry.f, got.carries[r].f)
+        assert torch.equal(one.carry.tau, got.carries[r].tau)
+        assert np.array_equal(one.hits, got.hits[r]) and np.array_equal(one.aux, got.aux[r])
+        np.testing.assert_allclose(got.reward[r], one.reward, rtol=1e-5)
+        np.testing.assert_allclose(got.occupancy[r], one.occupancy, rtol=1e-5)

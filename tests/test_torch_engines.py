@@ -185,7 +185,8 @@ def test_host_policies_match_reference(kind, trace):
 
 
 def test_host_registry():
-    assert set(policy_kinds()) == {"lru", "fifo", "lfu", "gds", "arc", "ogb", "ftpl"}
+    assert set(policy_kinds()) == {"lru", "fifo", "lfu", "gds", "arc", "ogb", "ftpl", "ogb_cl",
+                                   "omd_cl"}
     assert make_policy("gds", N, 4).name == "GDS"
     with pytest.raises(ValueError):
         make_policy("no_such_policy", N, 4)

@@ -24,6 +24,8 @@ from repro.serve.kvcache import page_keys as jax_page_keys
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import get_arch, get_smoke, list_archs
 from repro_torch.core.ogb import OGB, theoretical_eta
+from repro_torch.core.ogb_classic import OGBClassic
+from repro_torch.core.omd import OMDClassic
 from repro_torch.core.policies import LRU, make_policy
 from repro_torch.models import model
 from repro_torch.serve.engine import ServeEngine
@@ -66,9 +68,10 @@ def test_make_policy_and_page_keys():
     pol = make_policy("ogb", 1 << 12, 8, horizon=100, batch_size=4)
     assert isinstance(pol, OGB) and pol.eta == theoretical_eta(8, 1 << 12, 100, 4)
     assert isinstance(make_policy("LRU", 10, 2), LRU)
-    for kind in ("ogb_cl", "nope"):  # not ported / unknown
-        with pytest.raises(ValueError, match="unknown policy"):
-            make_policy(kind, 10, 2)
+    for kind, cls in (("ogb_cl", OGBClassic), ("omd_cl", OMDClassic)):  # the classic baselines
+        assert isinstance(make_policy(kind, 10, 2, eta=0.1), cls)
+    with pytest.raises(ValueError, match="unknown policy"):
+        make_policy("nope", 10, 2)
     toks = list(np.random.default_rng(3).integers(0, 1000, 37).astype(np.int32))
     assert page_keys(toks, 8) == jax_page_keys(toks, 8)
 

@@ -186,16 +186,50 @@ def test_plan_constants_mirror_the_sources():
 
 
 def test_warm_plan():
-    # an H100: 132 SMs, one block of 1024 threads an SM, 8 items a thread
+    # an H100: 132 SMs, one block of 1024 threads an SM, 8 items a thread:
+    # 1e6 items are 123 fixed tiles of 8192, a block each
     plan = cs_ops.warm_plan(1_000_000, 5, 132, 1, 1)
-    assert plan["blocks"] == 132 and plan["resident"] and plan["partials"] == 5 * 132
+    assert plan["blocks"] == 123 and plan["resident"] and plan["partials"] == 5 * 123
+    assert plan["tiles"] == 123 and plan["per_block"] == 1
     assert plan["design"] == "persistent, y in registers"
     edge = 132 * 1024 * 8
     assert cs_ops.warm_plan(edge, 5, 132, 1, 1)["resident"]
     past = cs_ops.warm_plan(edge + 1, 25, 132, 1, 2)
-    assert not past["resident"] and past["blocks"] == 264 and past["partials"] == 25 * 264
+    assert not past["resident"] and past["blocks"] == 133 and past["partials"] == 25 * 133
     assert past["design"] == "persistent, y re-read from L2"
     assert cs_ops.warm_plan(1, 1, 1, 1, 1)["resident"]
+    # a sweep's 18 rows of 1e6: 2214 tiles, 9 a block over 2 blocks an SM
+    grid = cs_ops.warm_plan(1_000_000, 5, 132, 1, 2, rows=18)
+    assert not grid["resident"] and grid["per_block"] == 9 and grid["blocks"] == 246
+    assert grid["partials"] == 5 * 18 * 123
+    assert cs_ops.warm_plan(1_000_000, 5, 132, 1, 2, rows=1)["resident"]
+    with pytest.raises(ValueError, match="rows"):
+        cs_ops.warm_plan(10, 5, 1, 1, 1, rows=100)
+
+
+@pytest.mark.parametrize("n, rows, sms, groups", [
+    (1_000_000, 18, 132, [(0, 18)]),
+    # 132 blocks of 64 tiles hold 68 rows of 123 tiles: 69 rows take two
+    # launches of near-equal size
+    (1_000_000, 69, 132, [(0, 35), (35, 69)]),
+    (1_000_000, 200, 132, [(0, 67), (67, 134), (134, 200)]),
+    (10_000_000, 7, 132, [(0, 4), (4, 7)]),
+    # one row past 132 * 64 tiles: a launch of its own, its blocks in rounds
+    (100_000_000, 1, 132, [(0, 1)]),
+    (100_000_000, 3, 132, [(0, 1), (1, 2), (2, 3)]),
+    (10, 100, 1, [(0, 50), (50, 100)]),
+])
+def test_warm_groups(n, rows, sms, groups):
+    assert cs_ops.warm_groups(n, sms, 1, rows) == groups
+    for r0, r1 in groups:
+        plan = cs_ops.warm_plan(n, 5, sms, 1, 1, rows=r1 - r0)
+        assert plan["blocks"] <= sms
+        tiles = plan["tiles"]
+        assert (plan["per_block"] + tiles - 2) // tiles + 1 <= cs_ops.WARM_ROWS_PER_BLOCK
+        assert plan["blocks"] * plan["per_block"] >= (r1 - r0) * tiles
+    single = cs_ops.warm_plan(n, 5, sms, 1, 1, rows=1)
+    if n == 100_000_000:
+        assert single["per_block"] > cs_ops.WARM_TILES_PER_BLOCK
 
 
 def test_solve_plan():
