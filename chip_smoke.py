@@ -167,7 +167,32 @@ script with a non-zero exit:
    solve at one row beside its one-row design in turns, and at 1, 4 and 18
    rows beside as many one-row launches (tools/time_warm_solves.py); the
    tree LRU, LFU and FIFO grids' chunks at 4 combos cold beside 4
-   one-combo launches, each bit for bit them.
+   one-combo launches, each bit for bit them;
+23. out-of-core streams, trace files and multi-tenant fleets: (a) the main
+   trace written as a u32 trace file under build/, read back through
+   open_trace -> CatalogRemap -> run_stream(policy_def("ogb"), C = 50 000,
+   window 1000, horizon 1e7), with prefetch 2 and 0, each bit for bit the
+   one-shot run over remap_trace of the trace (hits, reward, tau, final f),
+   its ingest/device/host split and its growth of resident memory (VmRSS
+   sampled every 20 ms while it ran); (b) edge_fleet_cdn full's edge tier
+   (256 tenants, N = 1e5, 5e5 requests a tenant, C = 1562, window 500: the
+   scenario's traces, made in threads) as run_fleet of the tree LRU and of
+   dense ogb, one tree_lru launch a chunk (and where any tenant's ring
+   compaction may be due one compaction launch and one int32 build of
+   every tenant's tree) and one histogram and one warm solve a chunk for
+   all 256, tenants 0, 85, 170 and 255 bit for bit
+   their own runs (hits, reward, aux, occupancy, final carry), us a
+   request of the fleet beside those four runs; (c) run_fleet of lfu, ftpl
+   and fifo over the first 32 tenants, one launch a chunk (FIFO one a
+   plan), tenants 0 and 31 bit for bit their runs; (d)
+   run_edge_fleet_scenario("edge_fleet_cdn", "quick") on the card against
+   the port's CPU run (a worker process started with phase 17's): the
+   edges exactly, the origin within the dense path's limits (tau 1e-6,
+   hits 1 in 10 000); (e) each per-row kernel (histogram, the warm solve
+   over a counts row a row, tree_lru, minpair_automaton LFU, fifo_queue)
+   at (b)'s shapes, 256 rows of ids, bit for bit its plain version (the
+   warm solve: its one-row launches, tau within 1e-6 of the plain version)
+   and timed cold beside 256 one-row launches and its bound.
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -260,7 +285,7 @@ DESIGNS = {
 #: the design of the standalone apply kernel, which phase 3 times (the dense
 #: main path's clip is the projection's epilogue)
 APPLY_STANDALONE = "standalone: 16-byte body, 2 float4 of f and c in flight a thread"
-DENSE_KERNELS = 21  # device kernels a dense chunk launches (phase 7)
+DENSE_KERNELS = 23  # device kernels a dense chunk launches (phase 7), its reward summed in float64
 #: kernels off the replay paths: serving's attention, the scenario path's automata
 OFF_PATH = {"flash_prefill": 0, "decode_attention": 0, "slot_automaton": 0, "tree_lru": 0,
             "minpair_automaton": 0, "fifo_queue": 0}
@@ -341,6 +366,12 @@ SWEEP_T, SWEEP_CS, SWEEP_ETA_SCALES, SWEEP_SEEDS = 2_000_000, (12_500, 25_000, 5
 SWEEP_AUTOMATA_T, SWEEP_AUTOMATA_CS = 10_000_000, (6_250, 12_500, 25_000, 50_000)
 #: the automata's grids timed chunk by chunk beside their one-combo launches
 SWEEP_TIMED_ROWS = 4
+
+
+#: phase 23: the edge-fleet scenario, the tenants checked against their own
+#: runs in (b) and (c), and (c)'s tenants
+EDGE = "edge_fleet_cdn"
+FLEET_CHECKED, FLEET_SMALL = (0, 85, 170, 255), 32
 
 
 class Failed(Exception):
@@ -1790,8 +1821,24 @@ def start_cpu_quick():
 
     names = SCENARIO_NAMES + (SIZED,)
     pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=len(names), mp_context=multiprocessing.get_context("spawn"))
-    return pool, {name: pool.submit(cpu_quick_rows, name) for name in names}
+        max_workers=len(names) + 1, mp_context=multiprocessing.get_context("spawn"))
+    futures = {name: pool.submit(cpu_quick_rows, name) for name in names}
+    futures[EDGE] = pool.submit(cpu_edge_quick)
+    return pool, futures
+
+
+def cpu_edge_quick():
+    """Phase 23's CPU side, in a worker process: edge_fleet_cdn at quick on
+    the CPU; the edges' hits and the origin's per-chunk arrays."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.cachesim.fleet import run_edge_fleet_scenario
+
+    ef = run_edge_fleet_scenario(EDGE, "quick", device="cpu")
+    return {"edge_hits": ef.edges.hits, "origin_requests": ef.origin_requests,
+            "origin": {k: getattr(ef.origin, k) for k in ("hits", "reward", "aux", "T")}}
 
 
 def automaton_case(kind, n, c, n_slots, trace, dev):
@@ -3052,6 +3099,425 @@ def check_sweep(torch, dev, trace):
             "automaton_grids": grids}
 
 
+# -- streams, trace files and fleets (phase 23) ----------------------------------
+
+def _rss_mb():
+    """This process's resident memory now, MB (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    return float("nan")
+
+
+class RssPeak:
+    """The largest VmRSS sampled every 20 ms while the block ran."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = _rss_mb()
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.02):
+                self.peak = max(self.peak, _rss_mb())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_mb())
+        return False
+
+
+def stream_from_file(torch, trace):
+    """Phase 23 (a): the main trace through a u32 trace file, CatalogRemap
+    and run_stream, with the pipeline and without, against one run."""
+    import numpy as np
+
+    from repro_torch import (CatalogRemap, open_trace, policy_def, remap_trace, run,
+                             run_stream, write_trace)
+
+    path = ROOT / "build" / "chip_smoke" / "main_trace.u32"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    write_trace(str(path), trace, "bin32")
+    write_s = time.perf_counter() - t0
+    pd = policy_def("ogb")
+    out, streams = {"file_mb": path.stat().st_size / 2**20, "write_s": write_s}, {}
+    try:
+        for prefetch in (2, 0):
+            remap = CatalogRemap(max_items=N)
+            with RssPeak() as rss:
+                res = run_stream(pd, remap.remap(open_trace(str(path))), N, C, window=W,
+                                 horizon=T, prefetch=prefetch)
+            streams[prefetch] = res
+            out[f"prefetch_{prefetch}"] = {
+                "wall_s": res.wall_seconds, "ingest_s": res.ingest_seconds,
+                "device_s": res.device_seconds, "host_s": res.host_seconds,
+                "segments": res.n_segments, "us_per_request": res.us_per_request,
+                "rss_start_mb": rss.start, "rss_growth_mb": rss.peak - rss.start,
+                "items": len(remap)}
+    finally:
+        path.unlink()
+    t0 = time.perf_counter()
+    dense = remap_trace(trace)
+    remap_s = time.perf_counter() - t0
+    one = run(pd, dense, N, C, window=W, track_opt=False)
+    for prefetch, res in streams.items():
+        need(res.T == one.T and np.array_equal(res.hits, one.hits)
+             and np.array_equal(res.reward, one.reward) and np.array_equal(res.aux, one.aux)
+             and torch.equal(res.carry.f, one.carry.f),
+             f"run_stream (prefetch {prefetch}) is not the one-shot run bit for bit")
+        o = out[f"prefetch_{prefetch}"]
+        print(f"stream from a u32 file ({out['file_mb']:.1f} MB, written in {write_s:.2f} s) "
+              f"-> CatalogRemap ({o['items']} items) -> run_stream(ogb), prefetch {prefetch}: "
+              f"{o['wall_s']:.2f} s wall, {o['us_per_request']:.4f} us a request, "
+              f"{o['segments']} segments; ingest {o['ingest_s']:.2f} s, device "
+              f"{o['device_s']:.2f} s, host {o['host_s']:.3f} s; resident memory "
+              f"{o['rss_start_mb']:.0f} MB at its start, +{o['rss_growth_mb']:.1f} MB at its "
+              f"peak; bit for bit the one-shot run (hits, reward, tau, final f)")
+    out["one_shot"] = {"wall_s": one.wall_seconds, "us_per_request": one.us_per_request,
+                       "remap_trace_s": remap_s}
+    print(f"one-shot run over remap_trace ({remap_s:.2f} s on the host): {one.wall_seconds:.2f} s"
+          f", {one.us_per_request:.4f} us a request")
+    return out
+
+
+def _make_tenant_traces(sc, scale):
+    """The scenario's (E, T) tenant traces, as make_edge_traces makes them
+    (the same seeds), a thread a tenant at a time."""
+    import numpy as np
+
+    import concurrent.futures
+
+    from repro_torch.cachesim.traces import make_trace
+
+    e, n, t, _, _ = sc.dims(scale)
+    kw = dict(sc.trace_kw)
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        rows = list(ex.map(lambda i: make_trace(sc.trace, n, t, seed=sc.trace_seed + i, **kw),
+                           range(e)))
+    return np.stack(rows)
+
+
+def _fleet_against_runs(torch, kind, traces, n, cap, window, tenants, **kw):
+    """run_fleet of ``kind`` with its launches, and the given tenants' own
+    runs: every per-chunk array and the final carry bit for bit."""
+    import numpy as np
+
+    from repro_torch import policy_def, run
+    from repro_torch.cachesim.fleet import run_fleet
+    from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
+
+    pd = policy_def(kind)
+    reset_launch_counts()
+    fr = run_fleet(pd, traces, n, cap, window=window, track_opt=False, **kw)
+    launches, designs = launch_counts(), design_counts()
+    singles = {}
+    for r in tenants:
+        one = run(pd, traces[r], n, cap, window=window, seed=r, track_opt=False, **kw)
+        same = all(np.array_equal(getattr(fr, a)[r], getattr(one, a))
+                   for a in ("hits", "reward", "aux", "occupancy"))
+        need(same and _same_carry(torch, fr.carry[r], one.carry),
+             f"{kind} fleet: tenant {r} is not its own run bit for bit")
+        singles[r] = one.us_per_request
+    return fr, launches, designs, singles
+
+
+def fleet_full_edge(torch, sc, traces):
+    """Phase 23 (b) and (c): edge_fleet_cdn full's edge tier."""
+    from repro_torch.kernels.tree_lru.ops import CHUNK, COMPACTION
+
+    e, n, t, c_edge, _ = sc.dims("full")
+    window = sc.window
+    chunks = t // window
+    out, fleets = {}, {}
+    for kind in ("lru", "ogb"):
+        fr, launches, designs, singles = _fleet_against_runs(torch, kind, traces, n, c_edge,
+                                                             window, FLEET_CHECKED)
+        if kind == "lru":
+            by_design = designs.get("tree_lru", {})
+            grid_launches = {"tree_lru": by_design.get(CHUNK, 0),
+                             "compaction": by_design.get(COMPACTION, 0),
+                             "segsum": launches["segsum"]}
+            ok = (grid_launches["tree_lru"] == chunks
+                  and grid_launches["compaction"] == grid_launches["segsum"] <= chunks)
+        else:
+            grid_launches = {"histogram": launches["histogram"], "mass": launches["mass"]}
+            ok = launches["histogram"] == chunks and launches["mass"] == chunks
+        need(ok, f"{kind} fleet: launches {grid_launches} over {chunks} chunks, not one a chunk")
+        out[kind] = {"tenants": e, "requests_a_tenant": t, "wall_s": fr.wall_seconds,
+                     "us_per_request": fr.us_per_request, "launches": grid_launches,
+                     "chunks": chunks, "hit_ratio": fr.hit_ratio,
+                     "hit_ratio_p5": fr.hit_ratio_p5, "hit_ratio_p95": fr.hit_ratio_p95,
+                     "singles_us_per_request": singles}
+        fleets[kind] = fr
+        print(f"fleet {kind}, {EDGE} full's edge tier ({e} tenants, N = {n}, {t} requests a "
+              f"tenant, C = {c_edge}, window {window}): {fr.wall_seconds:.3f} s, "
+              f"{fr.us_per_request:.5f} us a request; launches {grid_launches} over {chunks} "
+              f"chunks; hit ratio {fr.hit_ratio:.4f} (tenants p5 {fr.hit_ratio_p5:.4f}, p95 "
+              f"{fr.hit_ratio_p95:.4f}); tenants {FLEET_CHECKED} bit for bit their own runs, "
+              f"which took " + ", ".join(f"{v:.4f}" for v in singles.values())
+              + " us a request")
+    small = traces[:FLEET_SMALL]
+    for kind in ("lfu", "ftpl", "fifo"):
+        fr, launches, designs, singles = _fleet_against_runs(
+            torch, kind, small, n, c_edge, window, (0, FLEET_SMALL - 1))
+        name = "fifo_queue" if kind == "fifo" else "minpair_automaton"
+        per_plan = max(designs.get(name, {}).values(), default=0)
+        need(per_plan == chunks and launches[name] <= 2 * chunks,
+             f"{kind} fleet: {designs.get(name)} over {chunks} chunks, not one a chunk")
+        out[kind] = {"tenants": FLEET_SMALL, "wall_s": fr.wall_seconds,
+                     "us_per_request": fr.us_per_request, "launches": launches[name],
+                     "chunks": chunks, "hit_ratio": fr.hit_ratio,
+                     "singles_us_per_request": singles}
+        fleets[kind] = fr
+        print(f"fleet {kind}, the first {FLEET_SMALL} tenants: {fr.wall_seconds:.3f} s, "
+              f"{fr.us_per_request:.5f} us a request, {name} launches {launches[name]} over "
+              f"{chunks} chunks; tenants 0 and {FLEET_SMALL - 1} bit for bit their own runs "
+              f"(" + ", ".join(f"{v:.4f}" for v in singles.values()) + " us a request)")
+    return out, fleets
+
+
+def edge_quick_against_cpu(cpu_future):
+    """Phase 23 (d): edge_fleet_cdn at quick on the card against the CPU."""
+    import numpy as np
+
+    from repro_torch.cachesim.fleet import run_edge_fleet_scenario
+
+    t0 = time.perf_counter()
+    ef = run_edge_fleet_scenario(EDGE, "quick")
+    wall = time.perf_counter() - t0
+    cpu = cpu_future.result()
+    need(np.array_equal(ef.edges.hits, cpu["edge_hits"]),
+         f"{EDGE} quick: the card's edges are not the CPU's")
+    o = cpu["origin"]
+    dtau = float(np.abs(ef.origin.aux - o["aux"]).max())
+    dhits = abs(int(ef.origin.hits.sum()) - int(o["hits"].sum()))
+    need(ef.origin_requests == cpu["origin_requests"] and ef.origin.T == o["T"]
+         and dtau <= 1e-6 and dhits <= max(1, ef.origin.T // 10_000),
+         f"{EDGE} quick origin: |dtau| {dtau}, hits {dhits} apart over {ef.origin.T}")
+    print(f"{EDGE} quick on the card: {wall:.2f} s; edges equal to the CPU's (hit ratio "
+          f"{ef.edge_hit_ratio:.4f}), origin over {ef.origin_requests} misses: |dtau| "
+          f"{dtau:.3g}, hits {dhits} apart, hit ratio {ef.origin_hit_ratio:.4f}, end to end "
+          f"{ef.end_to_end_hit_ratio:.4f}")
+    return {"wall_s": wall, "origin_dtau": dtau, "origin_hits_apart": dhits,
+            "edge_hit_ratio": ef.edge_hit_ratio, "end_to_end_hit_ratio": ef.end_to_end_hit_ratio}
+
+
+def _timed_rows(torch, flush, grid_call, ones_call, reset):
+    """Device ms of the one launch and of the E one-row launches, cold, the
+    device held busy for twice the host's time to enqueue each call (E
+    one-row launches take milliseconds to enqueue), so the events time the
+    device alone."""
+    out = []
+    for fn, reps in ((grid_call, 3), (ones_call, 2)):
+        if reset is not None:
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        hold = max(HOLD_CYCLES, int(2 * host_s * 2e9))  # ~2e9 cycles a second
+        out.append(timed_ms(torch, fn, reps, flush, hold=hold, reset=reset))
+    return tuple(out)
+
+
+def row_kernels(torch, dev, sc, traces, fleets, flush):
+    """Phase 23 (e): each per-row kernel at (b)'s shapes, a row of ids a
+    tenant, against its plain version and timed cold beside E one-row
+    launches."""
+    from repro_torch import policy_def
+    from repro_torch.cachesim import engines as te
+    from repro_torch.cachesim import tree_engines as tt
+    from repro_torch.cachesim.fleet import run_fleet
+    from repro_torch.jaxcache.fractional import warm_bracket_hi
+    from repro_torch.kernels.capped_simplex.ops import project_warm
+    from repro_torch.kernels.capped_simplex.ref import apply_ref, project_warm_tau_ref
+    from repro_torch.kernels.fifo_queue.ref import FIFOQueue
+    from repro_torch.kernels.scatter_counts.ops import histogram
+    from repro_torch.kernels.scatter_counts.ref import histogram_ref
+
+    e, n, t, c_edge, _ = sc.dims("full")
+    window = sc.window
+    # the chunk after those the fleets replayed: their first chunk again
+    ids64 = torch.from_numpy(traces[:, :window].astype("int64")).to(dev)
+    ids = ids64.to(torch.int32).contiguous()
+    out = {}
+
+    def report(name, ms, ones_ms, n_bytes, extra=""):
+        bound, by = bound_ms(n_bytes, 0)
+        print(f"{name} over {e} rows of ids ({e} x {window}){extra}: one launch {ms * 1e3:.2f} "
+              f"us cold, {e} one-row launches {ones_ms * 1e3:.2f} us ({ones_ms / ms:.2f}x); "
+              f"bound {bound * 1e3:.3f} us by {by}")
+        return {"rows": e, "ms": ms, "one_row_launches_ms": ones_ms, "bound_ms": bound,
+                "bound_by": by}
+
+    # the histogram: (E, W) ids -> (E, N) counts
+    got = histogram(ids, n)
+    need(torch.equal(got, histogram_ref(ids, n))
+         and all(torch.equal(got[r], histogram(ids[r].contiguous(), n)) for r in range(e)),
+         "histogram rows: not the plain version or their one-row calls")
+    rows = [ids[r].contiguous() for r in range(e)]
+    ms, ones_ms = _timed_rows(torch, flush, lambda: histogram(ids, n),
+                              lambda: [histogram(x, n) for x in rows], None)
+    offsets = (torch.arange(e, device=dev) * n)[:, None]
+
+    def library():
+        return torch.zeros(e * n, device=dev).index_add_(
+            0, (ids64 + offsets).reshape(-1), torch.ones(e * window, device=dev))
+
+    need(torch.equal(library().reshape(e, n), got), "histogram rows: index_add_ differs")
+    out["histogram"] = report("histogram", ms, ones_ms, 4 * e * window + 4 * e * n)
+    out["histogram"]["library_ms"] = timed_ms(torch, library, 3, flush)
+    out["histogram"]["plain_ms"] = timed_ms(torch, lambda: histogram_ref(ids, n), 1, flush)
+
+    # the warm solve: the ogb fleet's final states, a counts row a tenant
+    carries = fleets["ogb"].carry
+    f = torch.stack([c.f for c in carries])
+    eta = torch.stack([c.eta for c in carries])
+    cap = torch.stack([c.cap for c in carries])
+    tau0 = torch.stack([c.tau for c in carries])
+    lo, hi = torch.zeros_like(eta), warm_bracket_hi(eta * float(window))
+    got_f, got_tau = project_warm(f, got, eta, cap, lo, hi, tau0, SWEEPS)
+    for r in range(e):
+        one_f, one_tau = project_warm(f[r], got[r], eta[r], cap[r], lo[r], hi[r], tau0[r],
+                                      SWEEPS)
+        need(torch.equal(one_f, got_f[r]) and torch.equal(one_tau, got_tau[r]),
+             f"warm solve row {r}: not its one-row launch bit for bit")
+    dtau = max(abs(float(project_warm_tau_ref(f[r], got[r], eta[r], cap[r], lo[r], hi[r],
+                                              tau0[r], SWEEPS)) - float(got_tau[r]))
+               for r in FLEET_CHECKED)
+    need(dtau <= 1e-6 and all(torch.equal(got_f[r], apply_ref(f[r], got[r], eta[r], got_tau[r]))
+                              for r in FLEET_CHECKED),
+         f"warm solve rows: tau {dtau} from the plain version, or f' not its clip")
+    scal = [(f[r], got[r], eta[r], cap[r], lo[r], hi[r], tau0[r]) for r in range(e)]
+    ms, ones_ms = _timed_rows(
+        torch, flush, lambda: project_warm(f, got, eta, cap, lo, hi, tau0, SWEEPS),
+        lambda: [project_warm(*x, SWEEPS) for x in scal], None)
+    out["mass"] = report("warm solve with its f' epilogue", ms, ones_ms, 12 * e * n,
+                         f" (N = {n}, a counts row a row)")
+    out["mass"]["max_dtau_plain"] = dtau
+    del f, got_f, scal
+
+    # the automata: each kind's grid from its fleet's (or a short run's) carries
+    automata = {}
+    for kind, name in (("lru", "tree_lru"), ("lfu", "minpair_automaton"),
+                       ("fifo", "fifo_queue")):
+        if kind == "lru":
+            start = fleets["lru"].carry
+        else:  # every tenant, its first 20 chunks
+            start = run_fleet(policy_def(kind), traces[:, :20 * window], n, c_edge,
+                              window=window, track_opt=False).carry
+        if kind == "fifo":
+            grid = te.start_fifo_grid(start, n)
+            singles = [te.start_fifo_run(c, n) for c in start]
+            step_grid = lambda g: te.fifo_grid_chunk(g, ids)  # noqa: E731
+            step_one = lambda c, r: te.fifo_chunk(c, rows[r])  # noqa: E731
+            tensors = fifo_tensors
+        else:
+            grid = tt.grid_start([tt.start_tree_run(c) for c in start])
+            singles = [tt.start_tree_run(c) for c in start]
+            step_grid = ((lambda g: tt.grid_lru_chunk(g, ids)) if kind == "lru" else
+                         (lambda g, k=kind: tt.tree_chunk(k, g, ids)))
+            step_one = lambda c, r, k=kind: tt.tree_chunk(k, c, rows[r])  # noqa: E731
+            tensors = lambda c: [x for x in c if hasattr(x, "dtype")]  # noqa: E731
+        grid_saved = [x.clone() for x in _carry_tensors(grid)]
+        one_saved = [[x.clone() for x in tensors(c)] for c in singles]
+        first = list(singles)
+        state = {"grid": grid, "ones": list(singles)}
+
+        def reset(grid=grid, singles=first, gs=grid_saved, os_=one_saved, tensors=tensors,
+                  state=state):
+            for x, y in zip(_carry_tensors(grid), gs):
+                x.copy_(y)
+            for c, ys in zip(singles, os_):
+                for x, y in zip(tensors(c), ys):
+                    x.copy_(y)
+            state.update(grid=grid, ones=list(singles))
+
+        def call_grid(state=state, step_grid=step_grid):
+            state["grid"], _ = step_grid(state["grid"])
+
+        def call_ones(state=state, step_one=step_one):
+            for r, c in enumerate(state["ones"]):
+                state["ones"][r], _ = step_one(c, r)
+
+        reset()
+        g_grid, (g_hits, _) = step_grid(grid)
+        hits = []
+        for r in range(e):
+            singles[r], (h, _) = step_one(singles[r], r)
+            hits.append(h)
+        hits = torch.stack(hits)
+        need(torch.equal(g_hits, hits), f"{name} rows: hits differ from one-row launches")
+        if kind == "fifo":
+            same = all(torch.equal(a, b) for r in range(e)
+                       for a, b in zip((grid.slots[r], grid.stamps[r], grid.t[r]),
+                                       singles[r][:3]))
+        else:
+            same = all(_same_carry(torch, a, b) for a, b in zip(tt.grid_split(g_grid), singles))
+        need(same, f"{name} rows: a row's carry differs from its one-row launch")
+        # the plain version, on the CPU from the same carries, the checked tenants
+        for r in FLEET_CHECKED:
+            before = [y.cpu() for y in one_saved[r]]
+            if kind == "fifo":
+                c0 = te.FIFORunCarry(*before[:3], FIFOQueue(*before[3:]))
+                c0, (h, _) = te.fifo_chunk(c0, rows[r].cpu())
+            else:
+                c0, (h, _) = tt.tree_chunk(kind, type(first[r])(*before), rows[r].cpu())
+            want = tensors(c0)
+            got_r = [x.cpu() for x in tensors(singles[r])]
+            need(int(h) == int(hits[r]) and len(got_r) == len(want)
+                 and all(torch.equal(a, b) for a, b in zip(got_r, want)),
+                 f"{name} row {r}: not its plain version bit for bit")
+        ms, ones_ms = _timed_rows(torch, flush, call_grid, call_ones, reset)
+        if kind == "fifo":
+            n_bytes = sum(fifo_bytes(torch, rows[r], int(hits[r])) for r in range(e))
+        else:
+            n_bytes = sum(tree_bytes(torch, kind, type(first[r])(*one_saved[r]), singles[r],
+                                     rows[r]) for r in range(e))
+        automata[name] = report(name + (" (LFU)" if kind == "lfu" else ""), ms, ones_ms,
+                                n_bytes, f" (C = {c_edge}, N = {n})")
+        reset()
+    out.update(automata)
+    return out
+
+
+def check_fleet(torch, dev, trace, cpu_edge_future):
+    """Phase 23: streams, trace files and fleets."""
+    from repro_torch.cachesim.scenarios import get_edge_fleet_scenario
+
+    t0 = time.perf_counter()
+    print(f"streams and fleets phase 23 on {nvidia_smi_line()}")
+    stream = stream_from_file(torch, trace)
+    sc = get_edge_fleet_scenario(EDGE)
+    t1 = time.perf_counter()
+    traces = _make_tenant_traces(sc, "full")
+    print(f"{EDGE} full's {traces.shape[0]} tenant traces of {traces.shape[1]} requests: "
+          f"{time.perf_counter() - t1:.2f} s on the host")
+    fleet, fleets = fleet_full_edge(torch, sc, traces)
+    quick = edge_quick_against_cpu(cpu_edge_future)
+    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)  # 256 MB > L2
+
+    def flush():
+        flush_buf.zero_()
+
+    kernels = row_kernels(torch, dev, sc, traces, fleets, flush)
+    del fleets, flush_buf
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    print(f"streams and fleets phase 23: {secs:.2f} s")
+    return {"stream": stream, "fleet": fleet, "edge_quick": quick, "row_kernels": kernels,
+            "seconds": secs}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -3131,6 +3597,7 @@ def main() -> int:
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     swept = check_sweep(torch, dev, trace)
+    fleet23 = check_fleet(torch, dev, trace, cpu_futures[EDGE])
 
     # launches: the dense main path's for its kernels, the lazy main path's
     # for the prefix-tree kernels (segsum also ran 1 a chunk on madow_tree)
@@ -3193,6 +3660,23 @@ def main() -> int:
                                  "chunks": swept["automata"][kind]["chunks"]}
     rows["minpair_automaton"]["batched"]["launches_sweep_ftpl"] = \
         swept["automata"]["ftpl"]["launches"]
+    # the fleets (phase 23): each per-row kernel's launches in its fleet over
+    # edge_fleet_cdn full's edge tier and its time at those shapes
+    fleet, row_kernels = fleet23["fleet"], fleet23["row_kernels"]
+    rows["histogram"]["fleet"] = {"launches_ogb_fleet": fleet["ogb"]["launches"]["histogram"],
+                                  "chunks": fleet["ogb"]["chunks"], **row_kernels["histogram"]}
+    rows["mass"]["fleet"] = {"launches_ogb_fleet": fleet["ogb"]["launches"]["mass"],
+                             "chunks": fleet["ogb"]["chunks"], **row_kernels["mass"]}
+    rows["apply"]["fleet"] = {"launches_ogb_fleet": fleet["ogb"]["launches"]["mass"],
+                              "in": "the fleet's warm solve's epilogue (fleet of mass)"}
+    rows["tree_lru"]["fleet"] = {"launches_lru_fleet": fleet["lru"]["launches"]["tree_lru"],
+                                 "chunks": fleet["lru"]["chunks"], **row_kernels["tree_lru"]}
+    rows["minpair_automaton"]["fleet"] = {
+        "launches_lfu_fleet": fleet["lfu"]["launches"],
+        "launches_ftpl_fleet": fleet["ftpl"]["launches"], "chunks": fleet["lfu"]["chunks"],
+        **row_kernels["minpair_automaton"]}
+    rows["fifo_queue"]["fleet"] = {"launches_fifo_fleet": fleet["fifo"]["launches"],
+                                   "chunks": fleet["fifo"]["chunks"], **row_kernels["fifo_queue"]}
     print(f"segsum launches: ogb_tree main path {launches['segsum']}, madow_tree "
           f"{madow_segsum} over {MADOW_CHUNKS} chunks")
     kernels = [
@@ -3202,7 +3686,9 @@ def main() -> int:
     ]
     print(f"chip_smoke.py: every phase in {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels, "sized_cdn_full": rows["sized_cdn_full"],
-                      "sweep": {"dense": swept["dense"], "automata": swept["automata"]}}))
+                      "sweep": {"dense": swept["dense"], "automata": swept["automata"]},
+                      "stream": fleet23["stream"], "fleet": fleet,
+                      "edge_quick": fleet23["edge_quick"]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

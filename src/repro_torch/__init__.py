@@ -11,7 +11,12 @@ has a grid form; ``register_policy_def`` adds a kind), the classic host
 baselines ``ogb_cl`` and ``omd_cl`` (``core.policies.make_policy``), and
 the scenario harness ``cachesim.scenarios.run_scenario`` over the paper's
 comparison scenarios (Figs. 2, 7, 8, and ``sized_cdn``; ARC as its host
-oracle); and the dense model family's serving
+oracle); trace files and out-of-core streams (``open_trace``,
+``CatalogRemap``, ``run_stream``: any length in fixed memory, bit for bit a
+one-shot ``run``); multi-tenant fleets (``run_fleet``,
+``run_fleet_stream``, a row of ids a tenant in one launch a chunk where
+the kind has a grid form, and the two-level ``run_edge_fleet`` with its
+``edge_fleet_cdn`` scenario); and the dense model family's serving
 path, ``serve.engine.ServeEngine`` behind an OGB page pool
 (``serve.kvcache.PagedKVPool``), with its launcher
 ``python -m repro_torch.launch.serve``.  The gradient histogram, every
@@ -37,6 +42,14 @@ attention and one-token decode attention are hand-written CUDA kernels
 
     fig8 = run_scenario("fig8_cdn", "quick")  # one row a policy, and OPT(static)
 
+    from repro_torch import CatalogRemap, open_trace, run_fleet, run_stream
+
+    remap = CatalogRemap(max_items=catalog_size)
+    streamed = run_stream(policy_def("ogb"), remap.remap(open_trace("trace.u32")),
+                          catalog_size, capacity, window=1000, horizon=trace_length)
+    fleet = run_fleet(policy_def("lru"), tenant_traces, catalog_size, capacity,
+                      window=500)  # (E, T) ids: a row a tenant
+
     from repro_torch.configs.base import get_arch
     from repro_torch.core.policies import make_policy
     from repro_torch.models.model import init_params
@@ -54,6 +67,29 @@ Entry points run on the CUDA card; pass ``device="cpu"`` to run the
 kernels' plain PyTorch versions instead.
 """
 
+from repro_torch.cachesim.fleet import (
+    run_edge_fleet,
+    run_edge_fleet_scenario,
+    run_fleet,
+    run_fleet_stream,
+)
+from repro_torch.cachesim.results import (
+    EdgeFleetResult,
+    FleetResult,
+    RunResult,
+    StreamResult,
+)
+from repro_torch.cachesim.scenarios import EDGE_FLEET_SCENARIOS, get_edge_fleet_scenario
+from repro_torch.cachesim.tracelab import (
+    CatalogRemap,
+    StreamFault,
+    load_trace,
+    open_trace,
+    remap_trace,
+    run_stream,
+    tenant_streams,
+    write_trace,
+)
 from repro_torch.cachesim.api import (
     OGBCarry,
     OGBTreeCarry,
@@ -70,6 +106,24 @@ from repro_torch.cachesim.api import (
 )
 
 __all__ = [
+    "CatalogRemap",
+    "EDGE_FLEET_SCENARIOS",
+    "EdgeFleetResult",
+    "FleetResult",
+    "RunResult",
+    "StreamFault",
+    "StreamResult",
+    "get_edge_fleet_scenario",
+    "load_trace",
+    "open_trace",
+    "remap_trace",
+    "run_edge_fleet",
+    "run_edge_fleet_scenario",
+    "run_fleet",
+    "run_fleet_stream",
+    "run_stream",
+    "tenant_streams",
+    "write_trace",
     "OGBCarry",
     "OGBTreeCarry",
     "OMDApiCarry",

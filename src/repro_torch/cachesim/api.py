@@ -30,12 +30,16 @@ one trace.  Where a kind has a grid form (``PolicyDef.batched``: dense
 and each chunk is one launch for the whole grid of each kernel it runs (the
 histogram and the warm projection; ``tree_lru``; ``minpair_automaton``;
 ``fifo_queue`` a plan), each row bit for bit the combo's own run; other
-kinds run their combos one after another.  :func:`register_policy_def`
-adds a kind.
+kinds run their combos one after another.  A grid's step takes one (W,)
+chunk for every row (a sweep) or (R, W) ids, a row of its own ids each row:
+that is how :func:`repro_torch.cachesim.fleet.run_fleet` steps a fleet's
+tenants, each replaying its own stream, in the same launches.
+:func:`register_policy_def` adds a kind.
 
 The reference's ``lax.scan`` becomes a Python loop over chunks on the
 device.  Per-chunk outputs go into preallocated device tensors, and
-:func:`run` synchronises once at the end; the only reads inside the loop are
+:func:`run` synchronises once at the end (``block=False``: not at all, until
+``RunResult.consume``); the only reads inside the loop are
 ``ogb_tree``'s re-anchor checks, one every few dozen chunks at most (the
 tree LRU decides its ring compactions on the device).
 """
@@ -482,11 +486,12 @@ def _sized_step(step):
         if not isinstance(carry, SizedAutomatonCarry):
             carry, (hits, stats) = step(carry, ids, None)
             return carry, StepOut(stats[..., 0], hits, stats[..., 1], stats[..., 2])
-        # the inner carry leads with a tensor of one combo's (X,), a grid's (R, X)
-        flags = torch.empty(tuple(carry.inner[0].shape[:-1]) + tuple(ids.shape),
+        # the inner carry leads with a tensor of one combo's (X,), a grid's
+        # (R, X); ids are (W,), or a fleet's (R, W)
+        flags = torch.empty(tuple(carry.inner[0].shape[:-1]) + tuple(ids.shape[-1:]),
                             dtype=torch.bool, device=ids.device)
         inner, (hits, stats) = step(carry.inner, ids, flags)
-        szs = carry.szs.index_select(0, ids.to(torch.int64))
+        szs = carry.szs[ids.to(torch.int64)]
         byte_hits = torch.where(flags, szs, torch.zeros_like(szs)).sum(dim=-1,
                                                                        dtype=torch.float64)
         return (SizedAutomatonCarry(inner, carry.szs),
@@ -926,6 +931,8 @@ def run(
     costs: Optional[np.ndarray] = None,
     track_opt: bool = True,
     keep_carry: bool = True,
+    name: Optional[str] = None,
+    block: bool = True,
     device: DeviceLike = None,
     **init_kw,
 ) -> RunResult:
@@ -959,6 +966,17 @@ def run(
     run, bit for bit.  A resumed run takes every policy parameter from the
     carry, so ``seed``/``eta``/``horizon`` must not be passed with it.
     The carry passed in is not modified.
+
+    **Non-blocking dispatch:** ``block=False`` returns once every chunk is
+    enqueued: the trace goes up from pinned host memory without waiting for
+    the work already queued, the result's per-chunk outputs stay device
+    tensors, a CUDA event marks the end of the run, and ``wall_seconds``
+    measures the dispatch alone.  :meth:`RunResult.consume` is the one
+    place that waits; it turns the outputs into host arrays.  The returned
+    carry can be passed straight to the next ``run``: the stream orders the
+    two.  (A kind whose ``start`` reads the device, FIFO's queue and the
+    tree LRU's and ``ogb_tree``'s host bounds, waits there for the work
+    before it.)  ``name`` labels the result (default ``pd.name``).
     """
     dev = resolve_device(device)
     trace = np.asarray(trace)
@@ -1011,11 +1029,17 @@ def run(
                          f"int32 admission tickets), got {t_used}")
     if pd.start is not None:
         carry = pd.start(carry, int(n) if n is not None else hi + 1)
-    chunks = torch.from_numpy(trace_used.astype(np.int32).reshape(m, window)).to(dev)
-    _sync(dev)
+    chunks, staged = _upload(trace_used.astype(np.int32).reshape(m, window), dev, block)
+    if block:
+        _sync(dev)
     t0 = time.perf_counter()
     carry, (reward, hits, aux, occupancy, byte_hits) = _replay(pd.step, carry, chunks)
-    _sync(dev)
+    event = None
+    if block:
+        _sync(dev)
+    elif dev.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
     wall = time.perf_counter() - t0
     if pd.finish is not None:
         carry = pd.finish(carry)
@@ -1029,23 +1053,25 @@ def run(
         if (track_opt and capacity is not None)
         else 0.0
     )
-    return RunResult(
-        name=pd.name,
+    result = RunResult(
+        name=name or pd.name,
         kind=pd.kind,
         T=t_used,
         window=window,
         capacity=int(capacity) if capacity is not None else -1,
-        reward=reward.cpu().numpy().astype(np.float64),
-        hits=hits.cpu().numpy().astype(np.int64),
-        aux=aux.cpu().numpy().astype(np.float64),
-        occupancy=occupancy.cpu().numpy().astype(np.float64),
+        reward=reward,
+        hits=hits,
+        aux=aux,
+        occupancy=occupancy,
         opt_hits=opt,
         carry=carry if keep_carry else None,
         wall_seconds=wall,
         extras=extras,
-        byte_hits=byte_hits.cpu().numpy() if byte_hits is not None else None,
+        byte_hits=byte_hits,
         bytes_total=_bytes_total(sizes, trace_used),
+        pending=(event, staged),
     )
+    return result.consume() if block else result
 
 
 def sweep(
@@ -1161,6 +1187,18 @@ def sweep(
         bytes_total=_bytes_total(sizes, trace_used),
         carries=finals,
     )
+
+
+def _upload(chunks: np.ndarray, dev: torch.device, block: bool):
+    """``chunks`` on ``dev``, and the host buffer the copy reads.  Without
+    ``block`` a card's copy goes from pinned memory with ``non_blocking``,
+    so it does not wait for the kernels already queued (a copy from pageable
+    memory would); the buffer must then live until the copy is done."""
+    host = torch.from_numpy(chunks)
+    if block or dev.type != "cuda":
+        return host.to(dev), None
+    staged = host.pin_memory()
+    return staged.to(dev, non_blocking=True), staged
 
 
 def _bytes_total(sizes, trace_used) -> float:

@@ -64,22 +64,30 @@ def sample_chunk_metrics(sample: str, capacity, f: torch.Tensor, ids: torch.Tens
     prefix-tree descent, up to float32 tree sums at the boundaries.
 
     A grid's (R, N) ``f`` and ``p`` (``"poisson"`` and ``"none"``) give
-    (R,) tensors, each row's hits and occupancy its own run's."""
+    (R,) tensors, each row's hits and occupancy its own run's; ``ids`` is
+    then one (B,) chunk for every row (a sweep) or (R, B), a row of ids each
+    (a fleet's tenants)."""
     _check_sample(sample)
     if f.dim() == 2:
         if sample not in ("poisson", "none"):
             raise ValueError(f"a grid of combos samples 'poisson' or 'none', not {sample!r}")
-        fi = f.index_select(1, ids)
-        reward = fi.sum(dim=1)
+        if ids.dim() == 2:  # a row of ids a row of f
+            rows = ids.to(torch.int64)
+            fi = f.gather(1, rows)
+            pi = p.gather(1, rows) if sample == "poisson" else None
+        else:
+            fi = f.index_select(1, ids)
+            pi = p.index_select(1, ids) if sample == "poisson" else None
+        reward = _row_sum(fi)
         if sample == "poisson":
-            hits = (fi >= p.index_select(1, ids)).sum(dim=1, dtype=torch.int32)
+            hits = (fi >= pi).sum(dim=1, dtype=torch.int32)
             occ = (f >= p).sum(dim=1, dtype=torch.float32)
         else:
             hits = torch.zeros(f.shape[0], dtype=torch.int32, device=f.device)
-            occ = f.sum(dim=1)
+            occ = _row_sum(f)
         return reward, hits, occ
     fi = f.index_select(0, ids)
-    reward = fi.sum()
+    reward = _row_sum(fi)
     if sample == "poisson":
         # hits only need the requested coordinates; occupancy is the one
         # remaining catalog pass
@@ -97,8 +105,18 @@ def sample_chunk_metrics(sample: str, capacity, f: torch.Tensor, ids: torch.Tens
         occ = torch.full((), float(capacity), dtype=torch.float32, device=f.device)
     else:
         hits = torch.zeros((), dtype=torch.int32, device=f.device)
-        occ = f.sum()
+        occ = _row_sum(f)
     return reward, hits, occ
+
+
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Float32 sum of ``x`` over its last axis, accumulated in float64 and
+    rounded once.  A row of a grid and the same values alone are reduced
+    in different orders (the card's reduction splits a row by the number
+    of rows); in float64 the orders agree to ~1e-16, so each row rounds to
+    its own run's float32 bits unless its sum lies that close to a float32
+    rounding tie."""
+    return x.sum(dim=-1, dtype=torch.float64).to(torch.float32)
 
 
 def _make_ogb_step(sample: str, projection: str, sweeps: int, iters: int,
@@ -111,9 +129,11 @@ def _make_ogb_step(sample: str, projection: str, sweeps: int, iters: int,
     ``madow_capacity`` must be the static C for the Madow modes.
 
     The same step takes a sweep's grid: (R, N) ``f`` and ``p``, (R,)
-    ``eta``, ``cap`` and ``tau_prev``, one chunk of ids for all.  Then the
-    histogram is one launch for the grid and the warm projection one
-    launch, whose rows are bit for bit each combo's own run.
+    ``eta``, ``cap`` and ``tau_prev``, one chunk of ids for all; or a
+    fleet's, whose (R, B) ids are a row of ids a tenant.  Then the
+    histogram is one launch for the grid ((B,) ids give one histogram,
+    (R, B) a row each) and the warm projection one launch, whose rows are
+    bit for bit each combo's own run.
     """
     _check_sample(sample)
     if projection not in ("warm", "bisect"):
@@ -128,7 +148,7 @@ def _make_ogb_step(sample: str, projection: str, sweeps: int, iters: int,
         # (f.at[ids].add(eta)), so with duplicates y can differ by 1 ulp.
         counts = request_counts(ids, f.shape[-1])
         if projection == "warm":
-            hi = warm_bracket_hi(eta * float(ids.shape[0]))
+            hi = warm_bracket_hi(eta * float(ids.shape[-1]))  # B, a row's chunk
             f_new, tau = capped_simplex_project_warm(
                 f, counts, eta, cap, torch.zeros_like(tau_prev), hi, tau_prev, sweeps
             )

@@ -25,8 +25,11 @@ popularity quartile) runs ``ogb_sized`` at the byte budget
 (:meth:`Scenario.byte_capacity`), ``gds`` and the automata at C slots with
 byte accounting, and adds each row's ``byte_hit_ratio`` (``byte_regret``
 for ``ogb_sized``, against the fractional byte-optimal static allocation,
-:func:`best_static_byte_hits`).  The edge-fleet scenarios wait for the
-fleet's slice.
+:func:`best_static_byte_hits`).
+
+The edge-fleet scenarios (:class:`EdgeFleetScenario`: ``edge_fleet_cdn``)
+hold the shape of a two-level CDN;
+:func:`repro_torch.cachesim.fleet.run_edge_fleet_scenario` runs them.
 """
 
 from __future__ import annotations
@@ -273,6 +276,85 @@ def get_scenario(name: str) -> Scenario:
             f"unknown scenario {name!r}; have {sorted(SCENARIOS)}"
         )
     return SCENARIOS[name]
+
+
+@dataclass(frozen=True)
+class EdgeFleetScenario:
+    """Two-level CDN scenario: E edge caches in front of one shared origin.
+
+    Each edge serves its own stream (the same trace family, per-edge seed
+    ``trace_seed + e``); the edge misses interleave (arrival position major,
+    edge index minor) into the origin's request stream: the bipartite
+    caching network of "Learning to Cache With No Regrets" collapsed to one
+    shared parent, with the paper's no-regret policy at the origin.  The
+    scenario holds only the shape; the replay is
+    :func:`repro_torch.cachesim.fleet.run_edge_fleet` (this module stays
+    below ``fleet``).
+    """
+
+    name: str
+    figure: str
+    claim: str
+    trace: str
+    quick: Tuple[int, int, int]  # (E, N, T_per_edge) at CI scale
+    full: Tuple[int, int, int]
+    edge_cap_div: int  # C_edge = max(N // edge_cap_div, 1)
+    origin_cap_div: int  # C_origin = max(N // origin_cap_div, 1)
+    edge_policy: str = "lru"
+    origin_policy: str = "ogb"
+    window: int = 500
+    trace_kw: Tuple[Tuple[str, Any], ...] = ()
+    trace_seed: int = 0
+
+    def dims(self, scale: str = "quick") -> Tuple[int, int, int, int, int]:
+        """(E, N, T_per_edge, C_edge, C_origin) at the given scale."""
+        if scale == "mini":
+            e0, n0, t0 = self.quick
+            e = max(e0 // 8, 2)
+            n = max(n0 // 10, 4 * self.edge_cap_div)
+            t = max(t0 // 10, 4 * self.window)
+        elif scale in ("quick", "full"):
+            e, n, t = self.quick if scale == "quick" else self.full
+        else:
+            raise ValueError(f"unknown scale {scale!r}")
+        return e, n, t, max(n // self.edge_cap_div, 1), max(n // self.origin_cap_div, 1)
+
+    def make_edge_traces(self, scale: str = "quick") -> np.ndarray:
+        """(E, T_per_edge) per-edge request streams (decorrelated seeds)."""
+        e, n, t, _, _ = self.dims(scale)
+        kw = {k: (v(n, t) if callable(v) else v) for k, v in self.trace_kw}
+        return np.stack([make_trace(self.trace, n, t, seed=self.trace_seed + i, **kw)
+                         for i in range(e)])
+
+
+EDGE_FLEET_SCENARIOS: Dict[str, EdgeFleetScenario] = {
+    s.name: s
+    for s in [
+        EdgeFleetScenario(
+            name="edge_fleet_cdn",
+            figure="ROADMAP north-star (fleet scale); PAPERS.md bipartite setting",
+            claim=(
+                "E per-edge LRU caches in front of one shared no-regret origin: the edges "
+                "absorb each stream's hot head, and the gradient origin recovers tail hits "
+                "from the miss interleave the edges cannot hold"
+            ),
+            trace="zipf",
+            quick=(32, 4096, 25_000),
+            full=(256, 100_000, 500_000),
+            edge_cap_div=64,
+            origin_cap_div=8,
+            trace_kw=(("alpha", 0.8),),
+            trace_seed=40,
+        ),
+    ]
+}
+
+
+def get_edge_fleet_scenario(name: str) -> EdgeFleetScenario:
+    if name not in EDGE_FLEET_SCENARIOS:
+        raise KeyError(f"unknown edge-fleet scenario {name!r}; have "
+                       f"{sorted(EDGE_FLEET_SCENARIOS)}")
+    return EDGE_FLEET_SCENARIOS[name]
 
 
 @dataclass

@@ -419,3 +419,28 @@ def synthesize(
     if not chunks:
         return np.empty(0, dtype=np.int64)
     return np.concatenate(chunks)
+
+
+def tenant_streams(
+    profile: TraceProfile,
+    n_tenants: int,
+    T: int,
+    *,
+    catalog: Optional[int] = None,
+    base_seed: int = 0,
+    chunk_size: int = 65536,
+) -> list:
+    """E stats-matched per-tenant chunk streams for ``cachesim.fleet``.
+
+    Tenant ``e`` synthesizes an independent ``T``-request stream from the
+    same fitted profile with seed ``base_seed + e``: statistically matched
+    tenants with decorrelated request sequences.  Each entry is a fresh
+    :func:`synthesize_chunks` iterator, so the list plugs straight into
+    ``run_fleet_stream(sources=...)`` in fixed memory.
+    """
+    if n_tenants <= 0:
+        raise ValueError(f"n_tenants must be positive (got {n_tenants})")
+    return [
+        synthesize_chunks(profile, T, catalog=catalog, seed=base_seed + e, chunk_size=chunk_size)
+        for e in range(n_tenants)
+    ]

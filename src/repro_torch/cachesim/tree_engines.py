@@ -64,7 +64,12 @@ float64 in input order and rounds once (the ``tree_update`` kernel on the
 card), and the count of a chunk's requests by id goes through the
 histogram kernel, as a re-anchor's leaf counts do.  The re-anchor's leaf
 sums accumulate in float64 (:func:`_leaf_sums`, PyTorch's
-``index_put_(accumulate=True)``, which adds duplicates in a fixed order).
+``index_put_(accumulate=True)``).  On the card that accumulate does not add
+a long run of one index in the CPU's input order, so its order is not fixed
+by construction; what holds the result is that the zeros, the bulk of a
+re-anchor's entries, go to slots of their own (so the runs are short), and
+the card check that agrees with the CPU bit for bit over 50 re-anchoring
+chunks (``chip_smoke.py`` phase 9).
 The step updates the carry's tensors in place; :func:`start_run` gives
 :func:`repro_torch.cachesim.api.run` a private copy to update.
 """
@@ -630,7 +635,8 @@ def tree_chunk(kind: str, carry, ids: torch.Tensor, flags: Optional[torch.Tensor
     ``(carry, (hits, stats))``, stats the (3,) float32 (reward, aux,
     occupancy); ``flags``, a (window,) bool tensor where given, gets each
     request's hit.  An LFU or FTPL grid (:func:`grid_start`) takes its one
-    launch here too: hits (R,), stats (R, 3), flags (R, window)."""
+    launch here too, over one (window,) chunk or a row of ids a combo (R,
+    window): hits (R,), stats (R, 3), flags (R, window)."""
     if kind == "lru":
         return _lru_chunk(carry, ids, flags)
     if kind == "lfu":
@@ -692,14 +698,16 @@ def grid_start(carries, id_bound: Optional[int] = None):
 
 def grid_lru_chunk(grid: TreeLRUCarry, ids: torch.Tensor, flags: Optional[torch.Tensor] = None):
     """One chunk of every LRU combo of a grid (:func:`grid_start`), in
-    place: one ``tree_lru`` launch for the whole grid on the card (each
-    combo whose host bound says a ring compaction may be due adds its own
-    compaction launch and tree build), the plain version row by row on the
-    CPU.  Returns ``(grid, (hits, stats))``, hits (R,) and stats (R, 3);
-    ``flags``, (R, window) where given, gets each request's hit.  The LFU
-    and FTPL grids take :func:`tree_chunk` itself."""
+    place: one ``tree_lru`` launch for the whole grid on the card (where
+    any combo's host bound says a ring compaction may be due, one
+    compaction launch and one int32 tree build for every combo before it),
+    the plain version row by row on the CPU.  ``ids`` is one (window,) chunk for every combo (a sweep's) or
+    (R, window), a row of ids a combo (a fleet's tenants).  Returns ``(grid,
+    (hits, stats))``, hits (R,) and stats (R, 3); ``flags``, (R, window)
+    where given, gets each request's hit.  The LFU and FTPL grids take
+    :func:`tree_chunk` itself."""
     m = leaves_for_storage(grid.tree.shape[1], RING_RADIX)
-    window = ids.numel()
+    window = ids.shape[-1]
     args = (grid.tree, grid.last, grid.pos, grid.nseen, grid.cap, ids, m)
     if grid.device.type == "cpu":
         return grid, tree_lru(*args, compact=False, flags=flags)

@@ -29,10 +29,12 @@
 // repro_project_warm: the warm projection's whole solve in one launch, for
 // one row or for R rows at once (a sweep's grid of combos: R fractional
 // states f over one shared histogram c, each row with its own eta,
-// capacity, bracket and seed).  capped_simplex_project_warm runs `sweeps`
-// safeguarded Newton steps, each a K = 1 mass pass and a few scalar updates.
-// As two launches a sweep and about 12 0-d PyTorch ops, that is ~70 launches
-// enqueued one by one, and the catalog is read once a sweep.  Here:
+// capacity, bracket and seed; or a fleet's tenants: R states f, each over
+// its own row of c, the rows `c_stride` floats apart, 0 for a shared c).
+// capped_simplex_project_warm runs `sweeps` safeguarded Newton steps, each
+// a K = 1 mass pass and a few scalar updates.  As two launches a sweep and
+// about 12 0-d PyTorch ops, that is ~70 launches enqueued one by one, and
+// the catalog is read once a sweep.  Here:
 //   * one persistent cooperative launch; a barrier across the grid ends each
 //     sweep (../../csrc/persistent.cuh), every row's sweep in lock-step;
 //   * each row is cut into fixed tiles of kTile = kWarmThreads * kWarmItems
@@ -220,7 +222,8 @@ constexpr int kWarmTilesPerBlock = 64;  // the tiles of a block's round of parti
 
 struct WarmArgs {
   const float* f;      // (rows, n)
-  const float* c;      // (n,), shared by the rows
+  const float* c;      // (n,) shared by the rows (c_stride 0), or a row each
+  long long c_stride;  // floats between the rows of c: 0 or n
   const float* eta;    // (rows,) each of these
   const float* cap;
   const float* lo;
@@ -245,7 +248,7 @@ __device__ __forceinline__ void add_term(float y, float t, double& m, unsigned& 
 
 __device__ __forceinline__ float form_y(const WarmArgs& a, long long row, long long i,
                                         float eta) {
-  return __fadd_rn(a.f[row * a.n + i], __fmul_rn(eta, a.c[i]));
+  return __fadd_rn(a.f[row * a.n + i], __fmul_rn(eta, a.c[row * a.c_stride + i]));
 }
 
 template <bool kResident>
@@ -442,25 +445,28 @@ extern "C" int repro_project_warm_occupancy(int resident, int* blocks_per_sm) {
                                                             kWarmThreads, 0);
 }
 
-// f: (rows, n) float32, c: (n,); eta, cap, lo, hi, tau0: (rows,) each.
+// f: (rows, n) float32, c: (n,) with c_stride 0, or (rows, n) with c_stride
+// n (a row of counts a row of f); eta, cap, lo, hi, tau0: (rows,) each.
 // tiles = ceil(n / kWarmTile) a row and per_block tiles a block, over
 // `blocks` blocks that cover rows * tiles; resident needs per_block == 1
 // (y in registers).  pmass (double) and pcnt hold sweeps * rows * tiles
 // partials; the wrapper allocates them.  tau: (rows,); out: (rows, n) for
 // f', or null for tau alone.
-extern "C" int repro_project_warm(const void* f, const void* c, const void* eta, const void* cap,
-                                  const void* lo, const void* hi, const void* tau0, long long n,
-                                  int rows, int sweeps, int blocks, int per_block, int resident,
-                                  void* pmass, void* pcnt, void* tau, void* out, void* stream) {
+extern "C" int repro_project_warm(const void* f, const void* c, long long c_stride,
+                                  const void* eta, const void* cap, const void* lo, const void* hi,
+                                  const void* tau0, long long n, int rows, int sweeps, int blocks,
+                                  int per_block, int resident, void* pmass, void* pcnt, void* tau,
+                                  void* out, void* stream) {
   const long long tiles = (n + kWarmTile - 1) / kWarmTile;
   if (n < 1 || rows < 1 || blocks < 1 || per_block < 1 || sweeps < 0 ||
+      (c_stride != 0 && c_stride != n) ||
       rows * tiles + per_block > INT32_MAX ||
       (long long)blocks * per_block < rows * tiles ||
       (long long)(blocks - 1) * per_block >= rows * tiles || (resident && per_block != 1) ||
       (per_block + tiles - 2) / tiles + 1 > kWarmRowsPerBlock) {
     return (int)cudaErrorInvalidValue;
   }
-  WarmArgs a{static_cast<const float*>(f), static_cast<const float*>(c),
+  WarmArgs a{static_cast<const float*>(f), static_cast<const float*>(c), c_stride,
              static_cast<const float*>(eta), static_cast<const float*>(cap),
              static_cast<const float*>(lo), static_cast<const float*>(hi),
              static_cast<const float*>(tau0), n, rows, sweeps, (int)tiles, per_block,

@@ -7,7 +7,8 @@ launches the warm projection's whole threshold solve, one persistent
 launch of ``csrc/mass.cu``, and ``project_warm`` the same launch with the
 final clip in its epilogue; either takes one row f of (N,) items or R rows
 (R, N) over one histogram, a sweep's grid in one launch (one a group of
-rows, :func:`warm_groups`, past ~68 rows of 1e6 items on an H100).
+rows, :func:`warm_groups`, past ~68 rows of 1e6 items on an H100), or over
+R histograms (R, N), a fleet's tenants, a row of counts a row of f.
 Scalars (``eta``, the thresholds, ``tau``) stay
 on the device and the kernels read them by pointer, so no call waits on the
 host.
@@ -27,6 +28,7 @@ from repro_torch.kernels.capped_simplex.ref import (
     masses_ref,
     project_warm_ref,
     project_warm_tau_ref,
+    warm_rows_ref,
 )
 
 Scalar = Union[float, torch.Tensor]
@@ -78,7 +80,8 @@ def _mass_entry():
 def _warm_entry():
     fn = _build.library("mass").repro_project_warm
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i, p, p, p, p, p]
+    ll = ctypes.c_longlong
+    fn.argtypes = [p, p, ll, p, p, p, p, p, ll, i, i, i, i, i, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -173,13 +176,14 @@ def warm_plan(n: int, sweeps: int, sms: int, resident_blocks_per_sm: int,
 
 def _warm_scalars(f, counts, eta, capacity, lo, hi, tau0) -> tuple:
     """The five scalars, as 0-d float32 tensors for one row (f of shape
-    (N,)) or (R,) tensors for R rows (f of shape (R, N))."""
+    (N,)) or (R,) tensors for R rows (f of shape (R, N), over counts (N,) or
+    (R, N))."""
     if f.dim() == 1:
         _check_catalog(f, counts)
         return tuple(as_scalar(x, f.device) for x in (eta, capacity, lo, hi, tau0))
-    if f.dim() != 2 or f.shape[1:] != counts.shape or f.numel() == 0:
-        raise ValueError(f"f must be (N,) or (R, N) over counts (N,), got {tuple(f.shape)} and "
-                         f"{tuple(counts.shape)}")
+    if f.dim() != 2 or counts.shape not in (f.shape[1:], f.shape) or f.numel() == 0:
+        raise ValueError(f"f must be (N,) or (R, N) over counts (N,) or (R, N), got "
+                         f"{tuple(f.shape)} and {tuple(counts.shape)}")
     if f.device != counts.device:
         raise ValueError(f"f is on {f.device}, counts on {counts.device}")
     rows = f.shape[0]
@@ -213,10 +217,11 @@ def _launch_warm(f: torch.Tensor, counts: torch.Tensor, scalars: tuple, sweeps: 
     pmass = torch.empty(partials, dtype=torch.float64, device=dev)
     pcnt = torch.empty(partials, dtype=torch.int32, device=dev)
     tau = torch.empty(rows, dtype=torch.float32, device=dev)
+    c_stride = n if counts.dim() == 2 else 0  # a row of counts a row of f, or one for all
     for (r0, r1), plan in zip(groups, plans):
         _build.check(
             _warm_entry()(
-                f.data_ptr() + 4 * r0 * n, counts.data_ptr(),
+                f.data_ptr() + 4 * r0 * n, counts.data_ptr() + 4 * r0 * c_stride, c_stride,
                 *(x.data_ptr() + 4 * r0 for x in scalars), n, r1 - r0, sweeps,
                 plan["blocks"], plan["per_block"], int(plan["resident"]), pmass.data_ptr(),
                 pcnt.data_ptr(), tau.data_ptr() + 4 * r0,
@@ -225,14 +230,6 @@ def _launch_warm(f: torch.Tensor, counts: torch.Tensor, scalars: tuple, sweeps: 
             "project_warm",
         )
     return tau.reshape(()) if f.dim() == 1 else tau, [plan["design"] for plan in plans]
-
-
-def _rows_ref(fn, f, counts, scalars, sweeps):
-    """The plain version over each row of a 2-D f, one row at a time."""
-    outs = [fn(f[r], counts, *(x[r] for x in scalars), sweeps) for r in range(f.shape[0])]
-    if isinstance(outs[0], tuple):
-        return tuple(torch.stack(parts) for parts in zip(*outs))
-    return torch.stack(outs)
 
 
 def project_warm_tau(
@@ -251,15 +248,15 @@ def project_warm_tau(
     a 0-d float32 tensor.  On the card the whole solve is one persistent
     launch.
 
-    ``f`` may also be (R, N), R rows over the one ``counts``, each scalar 0-d
-    or (R,): then tau is (R,), one launch a group of rows
-    (:func:`warm_groups`), and each row's tau is bit
-    for bit the one its row gives alone (on the CPU, a loop of the plain
-    version over the rows)."""
+    ``f`` may also be (R, N), R rows over the one ``counts`` (a sweep) or
+    over (R, N) ``counts``, a row each (a fleet), each scalar 0-d or (R,):
+    then tau is (R,), one launch a group of rows (:func:`warm_groups`), and
+    each row's tau is bit for bit the one its row gives alone (on the CPU,
+    a loop of the plain version over the rows)."""
     scalars = _warm_scalars(f, counts, eta, capacity, lo, hi, tau0)
     if f.device.type == "cpu":
         if f.dim() == 2:
-            return _rows_ref(project_warm_tau_ref, f, counts, scalars, sweeps)
+            return warm_rows_ref(project_warm_tau_ref, f, counts, scalars, sweeps)
         return project_warm_tau_ref(f, counts, *scalars, sweeps)
     tau, plans = _launch_warm(f, counts, scalars, sweeps, None)
     for plan in plans:
@@ -290,7 +287,7 @@ def project_warm(
     scalars = _warm_scalars(f, counts, eta, capacity, lo, hi, tau0)
     if f.device.type == "cpu":
         if f.dim() == 2:
-            return _rows_ref(project_warm_ref, f, counts, scalars, sweeps)
+            return warm_rows_ref(project_warm_ref, f, counts, scalars, sweeps)
         return project_warm_ref(f, counts, *scalars, sweeps)
     out = torch.empty_like(f)
     tau, plans = _launch_warm(f, counts, scalars, sweeps, out)

@@ -80,3 +80,15 @@ def project_warm_ref(
     at it."""
     tau = project_warm_tau_ref(f, counts, eta, cap, lo, hi, tau0, sweeps)
     return apply_ref(f, counts, eta, tau), tau
+
+
+def warm_rows_ref(fn, f: torch.Tensor, counts: torch.Tensor, scalars, sweeps: int):
+    """``fn`` (:func:`project_warm_tau_ref` or :func:`project_warm_ref`) over
+    each row of a 2-D f, one row at a time: over the one (N,) ``counts`` (a
+    sweep's grid) or over its own row of (R, N) ``counts`` (a fleet's
+    tenants), each of the five ``scalars`` (R,)."""
+    outs = [fn(f[r], counts[r] if counts.dim() == 2 else counts, *(x[r] for x in scalars), sweeps)
+            for r in range(f.shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)

@@ -106,10 +106,11 @@ struct Args {
   int* hits_out;
   float* stats;
   // a grid of combos: block b runs combo rows[b], whose carry rows lie
-  // these many ints apart; its active slots are actives[row]
+  // these many ints apart; its active slots are actives[row]; its ids
+  // ids_stride apart (0: one chunk for every combo, a sweep's)
   const int* rows;
   const int* actives;
-  long long slots_stride, order_stride, imap_stride;
+  long long slots_stride, order_stride, imap_stride, ids_stride;
 };
 
 // The block's combo: its rows of the carry, its flags and its outputs.
@@ -120,6 +121,7 @@ __device__ __forceinline__ Args row_args(Args g) {
   g.stamps += row * g.slots_stride;
   g.order += row * g.order_stride;
   g.imap += row * g.imap_stride;
+  g.ids += row * g.ids_stride;
   g.tclock += row;
   g.head_p += row;
   g.misses_p += row;
@@ -371,8 +373,9 @@ __global__ void __launch_bounds__(32) fifo_chain_kernel(Args g0) {
 // slots and stamps: (K,) int32, rows slots_stride apart; tclock its () int32
 // clock; order: its actives[row] active slots by (stamp, index), rows
 // order_stride apart; head, misses, occ: () int32; imap: one int32 ticket
-// an item, covering every id, rows imap_stride apart.  flags: null, or one
-// byte a request, a window a row.  hits: one int32 a combo; stats: three
+// an item, covering every id, rows imap_stride apart; ids: rows ids_stride
+// apart (0: the combos share one chunk; the window: a fleet's tenants, a
+// row of ids each).  flags: null, or one byte a request, a window a row.  hits: one int32 a combo; stats: three
 // float32.  The scalars lie one apart.  All the combos take one plan:
 // `tile` (every combo's active >= kTileMinSlots), a block of `warps` warps,
 // the most clamp(active / kSlotsPerWarp, 1, kTileWarps) among them; else
@@ -382,9 +385,10 @@ extern "C" int repro_fifo_queue(int window, const void* ids, void* slots, void* 
                                 void* imap, void* occ, void* flags, void* hits, void* stats,
                                 int count, const void* rows, const void* actives,
                                 long long slots_stride, long long order_stride,
-                                long long imap_stride, int tile, int warps, void* stream) {
+                                long long imap_stride, long long ids_stride, int tile, int warps,
+                                void* stream) {
   if (window < 1 || count < 1 || rows == nullptr || actives == nullptr || warps < 1 ||
-      warps > kTileWarps || (!tile && warps != 1)) {
+      warps > kTileWarps || (!tile && warps != 1) || (ids_stride != 0 && ids_stride < window)) {
     return (int)cudaErrorInvalidValue;
   }
   const Args g{static_cast<int*>(slots), static_cast<int*>(stamps), static_cast<int*>(tclock),
@@ -393,7 +397,7 @@ extern "C" int repro_fifo_queue(int window, const void* ids, void* slots, void* 
                static_cast<const int*>(ids), window, static_cast<unsigned char*>(flags),
                static_cast<int*>(hits), static_cast<float*>(stats),
                static_cast<const int*>(rows), static_cast<const int*>(actives), slots_stride,
-               order_stride, imap_stride};
+               order_stride, imap_stride, ids_stride};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile) {
     const int smem = (int)sizeof(TileShared);

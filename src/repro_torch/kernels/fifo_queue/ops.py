@@ -16,7 +16,8 @@ the derived state are updated in place.
 A sweep's grid of combos runs a block a combo over the shared ids, one
 launch for each plan its combos' active slots call for (at most two), each
 row bit for bit its combo's single launch; a single chunk is the grid of
-one combo.
+one combo.  A fleet's tenants take the same launches over a row of ids
+each, (R, window) ids with a row stride.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.fifo_queue.ref import FIFOQueue, fifo_queue_ref
+from repro_torch.kernels.fifo_queue.ref import FIFOQueue, fifo_queue_rows_ref
 
 #: the active slots from which a chunk runs the tile plan (kTileMinSlots):
 #: below it a tile may evict what it admits
@@ -60,7 +61,7 @@ def tile_requests(active: int) -> int:
 def _entry():
     fn = _build.library("fifo_queue").repro_fifo_queue
     i, p, ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, p, p, ll, ll, ll, i, i, p]
+    fn.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p, p, i, p, p, ll, ll, ll, ll, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -98,12 +99,13 @@ def fifo_queue(
     (reward, aux, occupancy); ``flags``, a (window,) bool tensor where given,
     gets each request's hit.
 
-    A grid of R combos over the same ids: ``slots``, ``stamps`` (R, K), ``t``
-    (R,), the queue's fields stacked a row a combo (``order`` (R, K), combo r's
-    first ``active[r]`` entries its order; ``imap`` (R, M); the scalars
-    (R,)), ``active`` the combos' active slots, ``flags`` (R, window); hits
-    (R,) and stats (R, 3), from one launch a plan.  One combo is the grid of
-    its one row."""
+    A grid of R combos: ``slots``, ``stamps`` (R, K), ``t`` (R,), the
+    queue's fields stacked a row a combo (``order`` (R, K), combo r's first
+    ``active[r]`` entries its order; ``imap`` (R, M); the scalars (R,)),
+    ``active`` the combos' active slots, ``ids`` one (window,) chunk for
+    every combo or (R, window), a row of ids a combo, ``flags`` (R,
+    window); hits (R,) and stats (R, 3), from one launch a plan.  One combo
+    is the grid of its one row."""
     if slots.dim() == 1:
         hits, stats = fifo_queue(slots[None], stamps[None], t[None],
                                  FIFOQueue(*(x[None] for x in queue)), ids,
@@ -115,20 +117,17 @@ def fifo_queue(
     if len(active) != rows or not all(0 < a <= queue.order.shape[1] for a in active):
         raise ValueError(f"active must give each of the {rows} combos' 1 .. "
                          f"{queue.order.shape[1]} active slots, got {active}")
+    window = ids.shape[-1] if ids.dim() else 0
+    if ids.dim() not in (1, 2) or window < 1 or (ids.dim() == 2 and ids.shape[0] != rows):
+        raise ValueError(f"ids must be a non-empty (window,) chunk or ({rows}, window), got "
+                         f"shape {tuple(ids.shape)}")
     if slots.device.type == "cpu":
-        outs = [fifo_queue_ref(slots[r], stamps[r], t[r],
-                               FIFOQueue(queue.order[r, :active[r]], queue.head[r],
-                                         queue.imap[r], queue.occ[r], queue.misses[r]),
-                               ids, flags[r] if flags is not None else None)
-                for r in range(rows)]
-        return torch.stack([h for h, _ in outs]), torch.stack([st for _, st in outs])
+        return fifo_queue_rows_ref(slots, stamps, t, queue, ids, flags, active)
     dev = slots.device
     for name, x in (("slots", slots), ("stamps", stamps), ("t", t), ("order", queue.order),
                     ("head", queue.head), ("imap", queue.imap), ("occ", queue.occ),
                     ("misses", queue.misses), ("ids", ids)):
         _build.require(x, torch.int32, name, dev)
-    if ids.dim() != 1 or ids.numel() < 1:
-        raise ValueError(f"ids must be a non-empty 1-D tensor, got shape {tuple(ids.shape)}")
     if stamps.shape != slots.shape or queue.imap.dim() != 2 or any(
             x.shape != (rows,) for x in (t, queue.head, queue.occ, queue.misses)) or \
             queue.order.shape[0] != rows or queue.imap.shape[0] != rows:
@@ -136,7 +135,7 @@ def fifo_queue(
                          "misses (R,) (0-d for one combo)")
     if flags is not None:
         _build.require(flags, torch.bool, "flags", dev)
-        if flags.shape != (rows,) + tuple(ids.shape):
+        if flags.shape != (rows, window):
             raise ValueError("flags must match ids, a row a combo")
     hits = torch.empty(rows, dtype=torch.int32, device=dev)
     stats = torch.empty((rows, 3), dtype=torch.float32, device=dev)
@@ -144,12 +143,13 @@ def fifo_queue(
     for plan, warps, plan_rows in plans:
         _build.check(
             _entry()(
-                ids.numel(), ids.data_ptr(), slots.data_ptr(), stamps.data_ptr(), t.data_ptr(),
+                window, ids.data_ptr(), slots.data_ptr(), stamps.data_ptr(), t.data_ptr(),
                 queue.order.data_ptr(), queue.head.data_ptr(), queue.misses.data_ptr(),
                 queue.imap.data_ptr(), queue.occ.data_ptr(),
                 flags.data_ptr() if flags is not None else None, hits.data_ptr(),
                 stats.data_ptr(), plan_rows.numel(), plan_rows.data_ptr(), actives.data_ptr(),
-                slots.shape[1], queue.order.shape[1], queue.imap.shape[1], int(plan == DESIGN),
+                slots.shape[1], queue.order.shape[1], queue.imap.shape[1],
+                window if ids.dim() == 2 else 0, int(plan == DESIGN),
                 warps, _build.stream_of(slots),
             ),
             "fifo_queue",

@@ -133,3 +133,20 @@ def fifo_queue_ref(
     dev = slots.device
     return (torch.tensor(n_hits, dtype=torch.int32, device=dev),
             torch.tensor([n_hits, 0.0, occ], dtype=torch.float32, device=dev))
+
+
+def fifo_queue_rows_ref(slots: torch.Tensor, stamps: torch.Tensor, t: torch.Tensor,
+                        queue: FIFOQueue, ids: torch.Tensor, flags: Optional[torch.Tensor],
+                        active: Tuple[int, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fifo_queue_ref` over a grid's rows, one row at a time: the
+    carry and the queue stacked a row a combo (combo r's first ``active[r]``
+    entries of ``order`` its order), ``ids`` one (window,) chunk for every
+    row (a sweep) or (R, window), a row of ids each (a fleet's tenants);
+    ``flags`` (R, window).  Returns hits (R,) and stats (R, 3)."""
+    outs = [fifo_queue_ref(slots[r], stamps[r], t[r],
+                           FIFOQueue(queue.order[r, :active[r]], queue.head[r], queue.imap[r],
+                                     queue.occ[r], queue.misses[r]),
+                           ids[r] if ids.dim() == 2 else ids,
+                           flags[r] if flags is not None else None)
+            for r in range(slots.shape[0])]
+    return torch.stack([h for h, _ in outs]), torch.stack([st for _, st in outs])

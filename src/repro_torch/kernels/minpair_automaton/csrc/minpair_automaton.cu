@@ -500,9 +500,11 @@ __device__ void build_pointers(const int* __restrict__ th, const int* __restrict
 }
 
 // A grid of combos: block b runs row b of each stacked carry tensor, whose
-// rows lie `stride` elements apart (the ids are shared).
+// rows lie `stride` elements apart, and row b of the ids: `ids` apart, 0
+// where the combos share one chunk (a sweep), the window where each has its
+// own (a fleet's tenants).
 struct Rows {
-  long long imap, items, slots, tree, pointers, flags;
+  long long imap, items, slots, tree, pointers, flags, ids;
 };
 
 template <class T>
@@ -530,6 +532,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   tl = row_of(tl, rs.tree);
   gptr = row_of(gptr, rs.pointers);
   flags = row_of(flags, rs.flags);
+  ids = row_of(ids, rs.ids);
   tclock = row_of(tclock, 1);
   lval = row_of(lval, 1);
   hits_out = row_of(hits_out, 1);
@@ -615,19 +618,20 @@ int launch_kind(int kind, int rows, const Rows& rs, int window, const int* ids, 
 // (the L2 plan).  imap holds N + 1 entries, counts N.  flags: null, or one
 // byte a request.  hits: one int32; stats: three float32 (reward, aux,
 // occupancy).
-// rows: the combos of a grid, a block each, over one chunk of ids; each
-// tensor above then holds `rows` rows, one a combo: imap rows N + 1 apart,
-// counts and noise N, slots and hval K, each tree its storage, the pointer
-// scratch one row of upper nodes, flags the window, t, lval and hits one,
-// stats three.  rows = 1 is the single launch.
+// rows: the combos of a grid, a block each; each tensor above then holds
+// `rows` rows, one a combo: imap rows N + 1 apart, counts and noise N,
+// slots and hval K, each tree its storage, the pointer scratch one row of
+// upper nodes, flags the window, t, lval and hits one, stats three; the ids
+// rows `ids_stride` apart (0: one chunk for every combo, a sweep's).
+// rows = 1 is the single launch.
 extern "C" int repro_minpair_automaton(int kind, int rows, int window, const void* ids,
-                                       int n_items, int count, const long long* sizes,
+                                       long long ids_stride, int n_items, int count, const long long* sizes,
                                        void* pointers, void* imap, void* counts,
                                        const void* noise, void* slots, void* th, void* tl,
                                        void* t, void* hval, void* lval, void* flags, void* hits,
                                        void* stats, void* stream) {
   if (rows < 1 || count < 1 || count > kMaxLevels || window < 1 || n_items < 1 ||
-      sizes[0] < 1 || sizes[count - 1] > kRadix) {
+      sizes[0] < 1 || sizes[count - 1] > kRadix || (ids_stride != 0 && ids_stride < window)) {
     return (int)cudaErrorInvalidValue;
   }
   Levels lv{};
@@ -646,7 +650,8 @@ extern "C" int repro_minpair_automaton(int kind, int rows, int window, const voi
   lv.upper = (int)upper;
   lv.top_at = lv.at[count - 1];
   lv.top_size = lv.size[count - 1];
-  const Rows rs{(long long)n_items + 1, n_items, sizes[0], sizes[0] + upper, upper, window};
+  const Rows rs{(long long)n_items + 1, n_items, sizes[0], sizes[0] + upper, upper, window,
+                ids_stride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* id = static_cast<const int*>(ids);
   int* gp = static_cast<int*>(pointers);

@@ -13,9 +13,10 @@ runs its plain version in :mod:`.ref`.  Either way the carry's tensors are
 updated in place.
 
 A sweep's grid of combos runs in the same launch, a block a combo: each
-carry tensor then has a leading combo axis (the ids are shared), and each
-row is bit for bit its combo's single launch (the same code on its own
-rows); on the CPU the plain version runs row by row.
+carry tensor then has a leading combo axis (the ids one chunk for all, or a
+fleet's (R, window), a row of ids a tenant), and each row is bit for bit its
+combo's single launch (the same code on its own rows); on the CPU the plain
+version runs row by row.
 
 The kernel takes any slot count K (the tree's leaves), ``n_slots`` above
 the capacity padded with inactive slots, as long as the levels above the
@@ -37,6 +38,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.minpair_automaton.ref import (
     KINDS,
     SLOT_RADIX,
+    automaton_rows_ref,
     gds_automaton_ref,
     minpair_automaton_ref,
 )
@@ -67,7 +69,8 @@ _GDS = len(KINDS)
 def _entry():
     fn = _build.library("minpair_automaton").repro_minpair_automaton
     i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, i, i, p, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p, p, p]
+    fn.argtypes = [i, i, i, p, ctypes.c_longlong, i, i, p, p, p, p, p, p, p, p, p, p, p, p, p,
+                   p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -123,13 +126,15 @@ def minpair_automaton(
     given, gets each request's hit.
 
     A grid of R combos: every carry tensor with a leading axis of R (``t``
-    (R,)), the ids shared, ``flags`` (R, window); then hits is (R,) and
-    stats (R, 3), still one launch.
+    (R,)), ``ids`` one (window,) chunk for all or (R, window), a row of ids
+    a combo, ``flags`` (R, window); then hits is (R,) and stats (R, 3),
+    still one launch.
     """
     if kind not in KINDS:
         raise ValueError(f"unknown min-pair automaton {kind!r} (have {KINDS})")
+    _check_ids(slots, ids)
     if slots.device.type == "cpu":
-        return _by_rows(minpair_automaton_ref, slots, (kind,),
+        return automaton_rows_ref(minpair_automaton_ref, slots, (kind,),
                         (imap, counts, noise, slots, tree_hi, tree_lo, t), ids, flags)
     dev = slots.device
     lfu = kind == "lfu"
@@ -147,15 +152,13 @@ def minpair_automaton(
                    tree_hi, tree_lo, t if lfu else None, None, None, flags)
 
 
-def _by_rows(fn, slots, lead, carry, ids, flags):
-    """The plain version ``fn(*lead, *carry, ids, flags)`` on one combo, or
-    row by row on a grid's (the carry's tensors in place); returns (hits,
-    stats), stacked over the rows of a grid."""
-    if slots.dim() == 1:
-        return fn(*lead, *carry, ids, flags)
-    outs = [fn(*lead, *(x[r] if x is not None else None for x in carry), ids,
-               flags[r] if flags is not None else None) for r in range(slots.shape[0])]
-    return torch.stack([h for h, _ in outs]), torch.stack([st for _, st in outs])
+def _check_ids(slots, ids):
+    """One (window,) chunk, or for a grid of R (R, window), a row a combo."""
+    lead = tuple(slots.shape[:-1])
+    if ids.dim() not in (1, 2) or ids.shape[-1] < 1 or (ids.dim() == 2 and (
+            not lead or ids.shape[0] != lead[0])):
+        raise ValueError(f"ids must be a non-empty (window,) chunk, or (R, window) for a grid of "
+                         f"R, got shape {tuple(ids.shape)}")
 
 
 def _check_slots(imap, slots, tree_hi, tree_lo, ids, n, flags):
@@ -164,8 +167,6 @@ def _check_slots(imap, slots, tree_hi, tree_lo, ids, n, flags):
     lead = tuple(slots.shape[:-1])
     if slots.dim() > 2:
         raise ValueError(f"slots must be (K,) or (R, K), got {tuple(slots.shape)}")
-    if ids.dim() != 1 or ids.numel() < 1:
-        raise ValueError(f"ids must be a non-empty 1-D tensor, got shape {tuple(ids.shape)}")
     if imap.shape != lead + (n + 1,) or tree_hi.shape != lead + (tree_storage(k, SLOT_RADIX),) or \
             tree_lo.shape != tree_hi.shape:
         raise ValueError(f"imap must hold N+1 = {n + 1} entries and each min-tree "
@@ -175,7 +176,7 @@ def _check_slots(imap, slots, tree_hi, tree_lo, ids, n, flags):
                          f"leaves in shared memory; {k} slots need {upper_nodes(k)}")
     if flags is not None:
         _build.require(flags, torch.bool, "flags", dev)
-        if flags.shape != lead + tuple(ids.shape):
+        if flags.shape != lead + tuple(ids.shape[-1:]):
             raise ValueError("flags must match ids, a row a combo")
 
 
@@ -201,7 +202,8 @@ def _launch(kind, gds, ids, n, imap, counts, noise, slots, tree_hi, tree_lo, t, 
 
     _build.check(
         _entry()(
-            kind, rows, ids.numel(), ptr(ids), n, count, ctypes.addressof(sizes), ptr(pointers),
+            kind, rows, ids.shape[-1], ptr(ids), ids.shape[-1] if ids.dim() == 2 else 0, n, count,
+            ctypes.addressof(sizes), ptr(pointers),
             imap.data_ptr(), ptr(counts), ptr(noise), slots.data_ptr(), tree_hi.data_ptr(),
             tree_lo.data_ptr(), ptr(t), ptr(hval), ptr(lval), ptr(flags), hits.data_ptr(),
             stats.data_ptr(), _build.stream_of(slots),
@@ -236,8 +238,9 @@ def gds_automaton(
     leaves :data:`DESIGN_GDS_L2`), the plain version on the CPU.
 
     Returns ``(hits, stats)`` as :func:`minpair_automaton` does."""
+    _check_ids(slots, ids)
     if slots.device.type == "cpu":
-        return _by_rows(gds_automaton_ref, slots, (),
+        return automaton_rows_ref(gds_automaton_ref, slots, (),
                         (imap, prio, hval, lval, slots, tree_hi, tree_lo), ids, flags)
     dev = slots.device
     for name, x in (("slots", slots), ("imap", imap), ("tree_hi", tree_hi),

@@ -245,3 +245,18 @@ def gds_automaton_ref(
     dev = slots.device
     return (torch.tensor(n_hits, dtype=torch.int32, device=dev),
             torch.tensor([n_hits, 0.0, occ], dtype=torch.float32, device=dev))
+
+
+def automaton_rows_ref(fn, slots: torch.Tensor, lead: tuple, carry: tuple, ids: torch.Tensor,
+                       flags: Optional[torch.Tensor] = None):
+    """The plain version ``fn(*lead, *carry, ids, flags)`` (the min-pair
+    automaton's or GDS's) on one combo, or row by row on a grid's (the
+    carry's tensors in place): ``ids`` one (window,) chunk for every row (a
+    sweep) or (R, window), a row of ids each (a fleet's tenants).  Returns
+    (hits, stats), stacked over the rows of a grid."""
+    if slots.dim() == 1:
+        return fn(*lead, *carry, ids, flags)
+    outs = [fn(*lead, *(x[r] if x is not None else None for x in carry),
+               ids[r] if ids.dim() == 2 else ids, flags[r] if flags is not None else None)
+            for r in range(slots.shape[0])]
+    return torch.stack([h for h, _ in outs]), torch.stack([st for _, st in outs])

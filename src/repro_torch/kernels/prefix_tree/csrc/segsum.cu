@@ -36,6 +36,9 @@
 //   mark counts, rebuilt at each ring compaction: radix 16, 4096-leaf tiles,
 //   levels 1-3 in shared memory).  Integer sums are exact in any order.
 //   Bound: 4n + 4 x (tree size) bytes: 2.22 MB, 0.66 us, at 262 144 leaves.
+//   repro_tree_build_i32_rows builds R such trees of one shape in one
+//   launch (a grid's combos' or a fleet's tenants' rings), the grid's y axis
+//   the row and a ticket a row; row r is the tree its own launch builds.
 
 #include <cstdint>
 
@@ -88,7 +91,10 @@ struct Levels {
   int span;
 };
 
-__device__ unsigned int build_ticket = 0;
+// the last-block tickets, one a row of a launch (a one-tree launch takes
+// row 0's)
+constexpr int kMaxRows = 65535;
+__device__ unsigned int build_tickets[kMaxRows] = {0};
 
 // Four values of type T in one 16-byte word.
 template <typename T>
@@ -130,8 +136,11 @@ __device__ __forceinline__ void store4(T* __restrict__ p, long long g, long long
 
 template <typename T>
 __global__ void __launch_bounds__(kBuildThreads)
-tree_build_kernel(const T* __restrict__ leaves, T* __restrict__ tree, int radix, Levels lv) {
+tree_build_kernel(const T* __restrict__ leaves, T* __restrict__ tree, int radix, Levels lv,
+                  long long leaves_stride, long long tree_stride) {
   using Q = typename Quad<T>::type;
+  leaves += blockIdx.y * leaves_stride;  // this block's row (0 for one tree)
+  tree += blockIdx.y * tree_stride;
   __shared__ __align__(16) T tile[kTileLeaves];
   __shared__ T sums[2][kTileLeaves / 2];
   __shared__ bool last;
@@ -184,7 +193,9 @@ tree_build_kernel(const T* __restrict__ leaves, T* __restrict__ tree, int radix,
   // the levels above: summed by the block that finishes last
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicInc(&build_ticket, gridDim.x - 1) == gridDim.x - 1;
+  if (threadIdx.x == 0) {
+    last = atomicInc(&build_tickets[blockIdx.y], gridDim.x - 1) == gridDim.x - 1;
+  }
   __syncthreads();
   if (!last) return;
   __threadfence();
@@ -216,11 +227,13 @@ namespace {
 
 // The whole tree over sizes[0] >= 1 leaves of type T into `tree` (the sum of
 // the `count` level sizes, 16-byte aligned), `radix` a power of two in
-// [2, kTileLeaves].
+// [2, kTileLeaves]; `rows` such trees, row r's leaves `leaves_stride` and
+// its tree `tree_stride` elements after row r - 1's (a multiple of 4).
 template <typename T>
 int build_tree(const void* leaves, void* tree, const long long* sizes, int count, int radix,
-               void* stream) {
+               int rows, long long leaves_stride, long long tree_stride, void* stream) {
   if (count < 1 || count > kMaxLevels || radix < 2 || radix > kTileLeaves || sizes[0] < 1 ||
+      rows < 1 || rows > kMaxRows || (rows > 1 && (tree_stride % 4 != 0 || leaves_stride < 0)) ||
       (reinterpret_cast<std::uintptr_t>(tree) & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -241,8 +254,10 @@ int build_tree(const void* leaves, void* tree, const long long* sizes, int count
   lv.in_block = depth < count - 1 ? depth : count - 1;
   const long long blocks = (sizes[0] + span - 1) / span;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  tree_build_kernel<T><<<(unsigned)blocks, kBuildThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(leaves), static_cast<T*>(tree), radix, lv);
+  tree_build_kernel<T><<<dim3((unsigned)blocks, (unsigned)rows), kBuildThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(leaves), static_cast<T*>(tree), radix, lv, leaves_stride,
+      tree_stride);
   return (int)cudaGetLastError();
 }
 
@@ -251,11 +266,21 @@ int build_tree(const void* leaves, void* tree, const long long* sizes, int count
 // A float32 tree (tree_build over float32 leaves).
 extern "C" int repro_tree_build(const void* leaves, void* tree, const long long* sizes, int count,
                                 int radix, void* stream) {
-  return build_tree<float>(leaves, tree, sizes, count, radix, stream);
+  return build_tree<float>(leaves, tree, sizes, count, radix, 1, 0, 0, stream);
 }
 
 // An int32 tree (tree_build over int32 leaves: the tree LRU's mark counts).
 extern "C" int repro_tree_build_i32(const void* leaves, void* tree, const long long* sizes,
                                     int count, int radix, void* stream) {
-  return build_tree<int>(leaves, tree, sizes, count, radix, stream);
+  return build_tree<int>(leaves, tree, sizes, count, radix, 1, 0, 0, stream);
+}
+
+// `rows` int32 trees of one shape in one launch: row r's leaves at leaves +
+// r * leaves_stride, its tree at tree + r * tree_stride (a multiple of 4).
+extern "C" int repro_tree_build_i32_rows(const void* leaves, long long leaves_stride, void* tree,
+                                         long long tree_stride, int rows,
+                                         const long long* sizes, int count, int radix,
+                                         void* stream) {
+  return build_tree<int>(leaves, tree, sizes, count, radix, rows, leaves_stride, tree_stride,
+                         stream);
 }

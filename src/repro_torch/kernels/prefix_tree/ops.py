@@ -165,6 +165,53 @@ def tree_build(values: torch.Tensor, radix: int,
 tree_build.launches = 0
 tree_build.designs = {}
 
+#: the design a grid's int32 trees are built by: one launch, a row a tree
+WHOLE_TREES = "whole trees of a grid, one launch"
+
+
+@functools.lru_cache(maxsize=None)
+def _tree_build_rows_entry():
+    fn = _build.library("segsum").repro_tree_build_i32_rows
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, ll, p, ll, i, p, i, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tree_build_rows_(leaves: torch.Tensor, radix: int, out: torch.Tensor) -> torch.Tensor:
+    """R int32 trees of one shape, in place: ``out[r]`` becomes the tree of
+    ``leaves[r]`` (R, n), as :func:`tree_build` builds one.  On the card one
+    launch builds them all (counted as a ``tree_build`` launch, design
+    :data:`WHOLE_TREES`); each row is bit for bit its own build (integer
+    sums).  ``leaves`` and ``out`` are (R, ·) with rows of unit stride,
+    ``out``'s rows a multiple of 4 ints apart (16-byte stores)."""
+    radix_shift(radix)
+    rows, n = leaves.shape
+    if leaves.dtype != torch.int32 or out.dtype != torch.int32 or \
+            out.shape != (rows, tree_storage(n, radix)):
+        raise ValueError(f"int32 leaves (R, n) and out (R, {tree_storage(n, radix)}) expected, "
+                         f"got {leaves.dtype} {tuple(leaves.shape)} and {out.dtype} "
+                         f"{tuple(out.shape)}")
+    if leaves.device.type == "cpu":
+        for r in range(rows):
+            out[r].copy_(tree_build_ref(leaves[r], radix))
+        return out
+    if leaves.device != out.device or leaves.stride(1) != 1 or out.stride(1) != 1 or \
+            out.stride(0) % 4 != 0 or out.data_ptr() % 16 != 0 or radix > TILE_LEAVES:
+        raise ValueError("the card builds rows of unit stride into 16-byte aligned tree rows "
+                         f"a multiple of 4 ints apart, at radix <= {TILE_LEAVES}")
+    if rows == 0 or n == 0:
+        return out
+    count, sizes = _levels(n, radix)
+    _build.check(
+        _tree_build_rows_entry()(leaves.data_ptr(), leaves.stride(0), out.data_ptr(),
+                                 out.stride(0), rows, ctypes.addressof(sizes), count, radix,
+                                 _build.stream_of(leaves)),
+        "tree_build_rows_",
+    )
+    _build.counted(tree_build, WHOLE_TREES)
+    return out
+
 
 def tree_update_(tree: torch.Tensor, n: int, radix: int, idx: torch.Tensor,
                  delta: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,11 @@
 // Counts are integers below 2^24, so the float adds are exact and the result
 // equals the plain version's whatever their order.  Ids outside [0, n) are
 // skipped, as the TPU kernel never matches them.
+//
+// A fleet's rows: R rows of B ids each (a tenant's chunk) give R rows of n
+// counts in one bin-tiles launch, the grid's y axis the row.  Block (x, r)
+// reads row r's ids and writes row r's counts with the same code as a
+// one-row call, so each row equals its own call.
 
 #include <cstdint>
 
@@ -70,6 +75,10 @@ __device__ __forceinline__ int bin_of(long long id, long long w0, int bins) {
 __global__ void __launch_bounds__(kTileThreads)
 bin_tiles_kernel(const int* __restrict__ ids, long long b, float* __restrict__ out, long long n) {
   __shared__ __align__(16) unsigned cnt[kTileBins];
+  ids += (long long)blockIdx.y * b;  // this block's row (0 for one row)
+  out += (long long)blockIdx.y * n;
+  // a row's counts start 16-byte aligned where n is a multiple of 4
+  const bool vec = (reinterpret_cast<std::uintptr_t>(out) & 15) == 0;
   uint4* cnt4 = reinterpret_cast<uint4*>(cnt);
   const long long tiles = (n + kTileBins - 1) / kTileBins;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -96,12 +105,13 @@ bin_tiles_kernel(const int* __restrict__ ids, long long b, float* __restrict__ o
     __syncthreads();
     // t0 is a multiple of kTileBins, so out + t0 is as aligned as out
     float* o = out + t0;
+    const int body = vec ? bins / 4 : 0;
     float4* o4 = reinterpret_cast<float4*>(o);
-    for (int i = threadIdx.x; i < bins / 4; i += kTileThreads) {
+    for (int i = threadIdx.x; i < body; i += kTileThreads) {
       const uint4 v = cnt4[i];
       o4[i] = make_float4((float)v.x, (float)v.y, (float)v.z, (float)v.w);
     }
-    for (int i = bins / 4 * 4 + threadIdx.x; i < bins; i += kTileThreads) o[i] = (float)cnt[i];
+    for (int i = body * 4 + threadIdx.x; i < bins; i += kTileThreads) o[i] = (float)cnt[i];
     __syncthreads();  // the tile is read out before the next one is zeroed
   }
 }
@@ -172,11 +182,14 @@ extern "C" int repro_histogram_slices_occupancy(int variant, int* blocks_per_sm)
                                                             kSliceThreads, kSliceSmem);
 }
 
-// counts (n floats, 16-byte aligned) is written whole; slices: the id-slices
-// plan on `blocks` resident blocks, else bin tiles on `blocks` blocks.
-extern "C" int repro_histogram(const void* ids, long long b, void* counts, long long n, int slices,
-                               int blocks, void* stream) {
-  if (n < 1 || b < 0 || blocks < 1 || (reinterpret_cast<std::uintptr_t>(counts) & 15) != 0) {
+// counts (rows * n floats, 16-byte aligned) is written whole; slices: the
+// id-slices plan on `blocks` resident blocks (one row), else bin tiles on
+// `blocks` blocks a row, row r's b ids at ids + r * b and its n counts at
+// counts + r * n.
+extern "C" int repro_histogram(const void* ids, long long b, void* counts, long long n, int rows,
+                               int slices, int blocks, void* stream) {
+  if (n < 1 || b < 0 || blocks < 1 || rows < 1 || rows > 65535 || (slices && rows != 1) ||
+      (reinterpret_cast<std::uintptr_t>(counts) & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -187,7 +200,7 @@ extern "C" int repro_histogram(const void* ids, long long b, void* counts, long 
     return persistent::launch((const void*)id_slices_kernel, blocks, kSliceThreads, args, s,
                               kSliceSmem);
   }
-  bin_tiles_kernel<<<(unsigned)blocks, kTileThreads, 0, s>>>(static_cast<const int*>(ids), b,
-                                                             static_cast<float*>(counts), n);
+  bin_tiles_kernel<<<dim3((unsigned)blocks, (unsigned)rows), kTileThreads, 0, s>>>(
+      static_cast<const int*>(ids), b, static_cast<float*>(counts), n);
   return (int)cudaGetLastError();
 }

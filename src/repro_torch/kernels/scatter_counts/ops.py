@@ -3,7 +3,8 @@
 Counterpart of ``repro.kernels.scatter_counts.ops.scatter_counts``.  On a
 CUDA tensor it launches ``csrc/histogram.cu`` once, in the plan
 :func:`design` names; on a CPU tensor it runs the plain version in
-:mod:`.ref`.
+:mod:`.ref`.  A fleet's (R, B) ids, a row of ids a tenant, give (R, N)
+counts in one bin-tiles launch, each row its own one-row call's.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.scatter_counts.ref import histogram_ref
 
 BIN_TILES, ID_SLICES = "bin tiles", "id slices"
+#: the most rows of ids one launch takes (the grid's y dimension)
+MAX_ROWS = 65535
 #: threads of a bin-tiles block, the bins it keeps in shared memory, and
 #: the blocks an SM is given before tiles loop (kTileThreads and kTileBins
 #: of csrc/histogram.cu; 4 blocks of 32 KB fill an SM's threads)
@@ -40,12 +43,13 @@ def design(b: int, n: int) -> str:
     return ID_SLICES if 2 * b > n > TILE_BINS else BIN_TILES
 
 
-def histogram_plan(b: int, n: int, sms: int, slice_blocks_per_sm: int) -> dict:
+def histogram_plan(b: int, n: int, sms: int, slice_blocks_per_sm: int, rows: int = 1) -> dict:
     """The launch over ``b`` ids and ``n`` bins on ``sms`` SMs: bin tiles on
-    one block a tile, at most ``TILE_BLOCKS_PER_SM`` an SM; id slices on
-    every resident slot (``slice_blocks_per_sm`` an SM), a cooperative
+    one block a tile, at most ``TILE_BLOCKS_PER_SM`` an SM (each of ``rows``
+    rows of ids as many: a fleet's rows always take bin tiles); id slices
+    on every resident slot (``slice_blocks_per_sm`` an SM), a cooperative
     launch."""
-    plan = design(b, n)
+    plan = design(b, n) if rows == 1 else BIN_TILES
     if plan == ID_SLICES:
         blocks = sms * slice_blocks_per_sm
     else:
@@ -57,7 +61,7 @@ def histogram_plan(b: int, n: int, sms: int, slice_blocks_per_sm: int) -> dict:
 def _entry():
     fn = _build.library("histogram").repro_histogram
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, ctypes.c_longlong, p, ctypes.c_longlong, i, i, p]
+    fn.argtypes = [p, ctypes.c_longlong, p, ctypes.c_longlong, i, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -66,26 +70,33 @@ def histogram(ids: torch.Tensor, catalog_size: int) -> torch.Tensor:
     """Dense float32 histogram of int32 ``ids`` over ``[0, catalog_size)``.
 
     Ids outside that range (negative padding, or >= catalog_size) are
-    ignored, as the TPU kernel ignores them.
+    ignored, as the TPU kernel ignores them.  ``ids`` of shape (R, B), a
+    row of ids a tenant, give (R, catalog_size) counts, row r the histogram
+    of ids[r]: one bin-tiles launch for every row on the card (a block a
+    tile and a row), the plain version row by row on the CPU.
     """
-    if ids.dim() != 1:
-        raise ValueError(f"ids must be 1-D, got shape {tuple(ids.shape)}")
+    if ids.dim() not in (1, 2):
+        raise ValueError(f"ids must be 1-D or 2-D, got shape {tuple(ids.shape)}")
     if ids.device.type == "cpu":
         return histogram_ref(ids, catalog_size)
     _build.require(ids, torch.int32, "ids")
     dev = ids.device
-    counts = torch.empty(catalog_size, dtype=torch.float32, device=dev)
-    if catalog_size == 0:
+    rows = ids.shape[0] if ids.dim() == 2 else 1
+    if rows > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} rows of ids a launch, got {rows}")
+    counts = torch.empty(tuple(ids.shape[:-1]) + (catalog_size,), dtype=torch.float32,
+                         device=dev)
+    if catalog_size == 0 or rows == 0:
         return counts
-    b = ids.numel()
-    slices = design(b, catalog_size) == ID_SLICES
+    b = ids.shape[-1]
+    slices = rows == 1 and design(b, catalog_size) == ID_SLICES
     per_sm = (_build.blocks_per_sm("histogram", "repro_histogram_slices_occupancy", dev.index, True)
               if slices else 0)
-    plan = histogram_plan(b, catalog_size, _build.sm_count(dev.index), per_sm)
+    plan = histogram_plan(b, catalog_size, _build.sm_count(dev.index), per_sm, rows)
     _build.check(
         _entry()(
-            ids.data_ptr(), b, counts.data_ptr(), catalog_size, int(slices), plan["blocks"],
-            _build.stream_of(ids),
+            ids.data_ptr(), b, counts.data_ptr(), catalog_size, rows, int(slices),
+            plan["blocks"], _build.stream_of(ids),
         ),
         "histogram",
     )

@@ -50,12 +50,14 @@
 //   the leaves with the int32 tree build (prefix_tree/csrc/segsum.cu).
 //
 // A sweep's grid of combos: one chunk launch of a block a combo over the
-// same ids, each block on its own rows of the stacked carry (Rows), the
-// tree rows a multiple of 4 ints apart so that the 16-byte loads hold; each
-// combo's compaction, where its host bound says one may be due, is its own
-// compaction launch and build into its row of the states, and the chunk's
-// launch resets each decision it reads.  A row is bit for bit its combo's
-// single launch.
+// same ids (a fleet's: over a row of ids a tenant), each block on its own
+// rows of the stacked carry (Rows), the tree rows a multiple of 4 ints
+// apart so that the 16-byte loads hold.  Where any combo's host bound says
+// a compaction may be due, one compaction launch covers every combo (the
+// grid's y axis the combo; each decides from its own pos, and one not due
+// copies its own leaves) and one int32 build rebuilds every combo's tree;
+// the chunk's launch resets each decision it reads.  A row is bit for bit
+// its combo's single launch.
 //
 // Bound on an H100: bytes, the ids read and each distinct item's last read
 // and written, and the tree nodes on the marks' paths, take a few
@@ -175,7 +177,14 @@ __device__ __forceinline__ int total_marks(const int* __restrict__ tree, const i
 __global__ void __launch_bounds__(kCompactThreads)
     compact_kernel(const int* __restrict__ tree, int* __restrict__ last,
                    const int* __restrict__ pos, const int* __restrict__ cap, int window, Ring r,
-                   int n_items, int* __restrict__ scratch) {
+                   int n_items, int* __restrict__ scratch, long long tree_stride,
+                   long long last_stride, long long scratch_stride) {
+  // this block's combo (the grid's y axis; 0 for one combo)
+  tree += blockIdx.y * tree_stride;
+  last += blockIdx.y * last_stride;
+  scratch += blockIdx.y * scratch_stride;
+  pos += blockIdx.y;
+  cap += blockIdx.y;
   const int m = r.size[0];
   const bool due = (long long)*pos + window > m;
   const int nmarks = total_marks(tree, nullptr, r);  // r.s0 == r.count: all in global memory
@@ -226,12 +235,13 @@ __device__ __forceinline__ int table_insert(Table& t, int j) {
   return __shfl_sync(kFull, slot, leader);
 }
 
-// A grid of combos: block b runs row b of each stacked carry tensor (the
-// ids are shared): the tree rows `tree_stride` ints apart, last `last_stride`,
-// the compaction states `state_stride`, flags a window; pos, nseen, cap and
-// hits one int apart, stats three floats.
+// A grid of combos: block b runs row b of each stacked carry tensor: the
+// tree rows `tree_stride` ints apart, last `last_stride`, the compaction
+// states `state_stride`, the ids `ids_stride` (0: a sweep's one chunk for
+// every combo; the window: a fleet's tenants, a row of ids each), flags a
+// window; pos, nseen, cap and hits one int apart, stats three floats.
 struct Rows {
-  long long tree, last, state;
+  long long tree, last, state, ids;
 };
 
 template <class T>
@@ -252,6 +262,7 @@ __global__ void __launch_bounds__(kThreads)
   nseen = row_of(nseen, 1);
   cap = row_of(cap, 1);
   state = row_of(state, rs.state);
+  ids = row_of(ids, rs.ids);
   flags = row_of(flags, (long long)window);
   hits_out = row_of(hits_out, 1);
   stats = row_of(stats, 3);
@@ -423,39 +434,49 @@ bool ring_of(const long long* sizes, int count, const void* tree, bool shared, R
 
 }  // namespace
 
-// The compaction a chunk of `window` requests may need (see above): tree
-// (read), last (N+1 entries, remapped where due), pos and cap (read);
-// scratch holds m + 2 int32: the new leaves, the decision and the new pos.
-extern "C" int repro_tree_lru_compact(const void* tree, void* last, const void* pos,
+// The compaction a chunk of `window` requests may need (see above), for
+// `rows` combos, row r's tensors at its stride: tree (read), last (N+1
+// entries, remapped where due), pos and cap (read, one int apart); scratch
+// holds m + 2 int32 a row: the new leaves, the decision and the new pos.
+extern "C" int repro_tree_lru_compact(int rows, const void* tree, long long tree_stride,
+                                      void* last, long long last_stride, const void* pos,
                                       const void* cap, int window, const long long* sizes,
-                                      int count, int n_items, void* scratch, void* stream) {
+                                      int count, int n_items, void* scratch,
+                                      long long scratch_stride, void* stream) {
   Ring r{};
-  if (!ring_of(sizes, count, tree, false, r) || window < 1 || n_items < 1) {
+  if (rows < 1 || rows > 65535 || !ring_of(sizes, count, tree, false, r) || window < 1 ||
+      n_items < 1) {
     return (int)cudaErrorInvalidValue;
   }
+  if (rows > 1 && tree_stride % 4 != 0) r.vec = 0u;  // rows off 16 bytes: scalar loads
   const int span = n_items > r.size[0] ? n_items : r.size[0];
   int blocks = (span + kCompactThreads - 1) / kCompactThreads;
-  if (blocks > 4096) blocks = 4096;
-  compact_kernel<<<blocks, kCompactThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int cap_blocks = rows > 1 ? (4096 + rows - 1) / rows : 4096;  // ~4096 blocks in all
+  if (blocks > cap_blocks) blocks = cap_blocks;
+  compact_kernel<<<dim3((unsigned)blocks, (unsigned)rows), kCompactThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(tree), static_cast<int*>(last), static_cast<const int*>(pos),
-      static_cast<const int*>(cap), window, r, n_items, static_cast<int*>(scratch));
+      static_cast<const int*>(cap), window, r, n_items, static_cast<int*>(scratch), tree_stride,
+      last_stride, scratch_stride);
   return (int)cudaGetLastError();
 }
 
 // One chunk of ids for `rows` combos of a grid, a block each; each tensor
 // holds a row a combo (tree rows `tree_stride` apart, last `last_stride`,
-// states `state_stride`; see Rows).  state: a combo's compaction
+// states `state_stride`, ids `ids_stride`: 0 where the combos share one
+// chunk; see Rows).  state: a combo's compaction
 // (decision, new pos), the decision reset to 0 once read.  flags: null, or
 // one byte a request.  hits: one int32 a combo; stats: three float32
 // (reward, aux, occupancy).  A single chunk is the grid of one combo.
 extern "C" int repro_tree_lru_chunk(int rows, void* tree, long long tree_stride, void* last,
                                     long long last_stride, void* pos, void* nseen,
-                                    const void* cap, const void* ids, int window,
-                                    const long long* sizes, int count, void* state,
+                                    const void* cap, const void* ids, long long ids_stride,
+                                    int window, const long long* sizes, int count, void* state,
                                     long long state_stride, void* flags, void* hits, void* stats,
                                     void* stream) {
   Ring r{};
-  if (rows < 1 || !ring_of(sizes, count, tree, true, r) || window < 1 || state == nullptr) {
+  if (rows < 1 || !ring_of(sizes, count, tree, true, r) || window < 1 || state == nullptr ||
+      (ids_stride != 0 && ids_stride < window)) {
     return (int)cudaErrorInvalidValue;
   }
   if (rows > 1 && tree_stride % 4 != 0) r.vec = 0u;  // rows off 16 bytes: scalar loads
@@ -470,6 +491,6 @@ extern "C" int repro_tree_lru_chunk(int rows, void* tree, long long tree_stride,
       static_cast<int*>(nseen), static_cast<const int*>(cap), static_cast<const int*>(ids),
       window, r, static_cast<int*>(state), static_cast<unsigned char*>(flags),
       static_cast<int*>(hits), static_cast<float*>(stats),
-      Rows{tree_stride, last_stride, state_stride});
+      Rows{tree_stride, last_stride, state_stride, ids_stride});
   return (int)cudaGetLastError();
 }

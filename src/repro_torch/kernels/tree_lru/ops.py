@@ -21,7 +21,8 @@ tree's own and the build writes the same tree.
 
 A sweep's grid of combos runs in one chunk launch, a block a combo, each
 row of the stacked carry bit for bit its combo's single launch; a single
-chunk is the grid of one combo.
+chunk is the grid of one combo.  A fleet's tenants run the same launch over
+a row of ids each, (R, window) ids with a row stride.
 """
 
 from __future__ import annotations
@@ -33,9 +34,9 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.prefix_tree.ops import tree_build
+from repro_torch.kernels.prefix_tree.ops import tree_build, tree_build_rows_
 from repro_torch.kernels.prefix_tree.ref import tree_sizes, tree_storage
-from repro_torch.kernels.tree_lru.ref import RING_RADIX, check_window, tree_lru_ref
+from repro_torch.kernels.tree_lru.ref import RING_RADIX, check_window, tree_lru_rows_ref
 
 #: the designs each wrapper counts its launches under
 CHUNK = ("chunk: one block, a thread a request of a 256-request sub-chunk; the ring's upper "
@@ -48,11 +49,11 @@ def _entries():
     lib = _build.library("tree_lru")
     p, i = ctypes.c_void_p, ctypes.c_int
     compact = lib.repro_tree_lru_compact
-    compact.argtypes = [p, p, p, p, i, p, i, i, p, p]
+    ll = ctypes.c_longlong
+    compact.argtypes = [i, p, ll, p, ll, p, p, i, p, i, i, p, ll, p]
     compact.restype = ctypes.c_int
     chunk = lib.repro_tree_lru_chunk
-    ll = ctypes.c_longlong
-    chunk.argtypes = [i, p, ll, p, ll, p, p, p, p, i, p, i, p, ll, p, p, p, p]
+    chunk.argtypes = [i, p, ll, p, ll, p, p, p, p, ll, i, p, i, p, ll, p, p, p, p]
     chunk.restype = ctypes.c_int
     return compact, chunk
 
@@ -75,17 +76,27 @@ def compaction_scratch(device: torch.device, m: int, rows: int) -> torch.Tensor:
 
 def _check_carry(tree, last, m, **scalars):
     """Validate the carry's tensors before their pointers go to a kernel:
-    the ring's tree, ``last`` and the 0-d int32 ``scalars``."""
+    the ring's tree, ``last`` and the int32 ``scalars``, for one combo (a
+    (TOT,) tree, 0-d scalars) or a grid's rows at once (an (R, TOT) tree of
+    unit stride, ``last`` (R, N+1), (R,) scalars)."""
     dev = tree.device
-    _build.require(tree, torch.int32, "tree")
-    _build.require(last, torch.int32, "last", dev)
-    for name, x in scalars.items():
-        _build.require(x, torch.int32, name, dev)
-    if tree.numel() != tree_storage(m, RING_RADIX) or any(x.dim() for x in scalars.values()):
-        raise ValueError(f"a ring of {m} positions has {tree_storage(m, RING_RADIX)} tree nodes "
-                         f"and 0-d {', '.join(scalars)}; got {tree.numel()} nodes")
-    if m >= 2**30 or last.numel() >= 2**31:
-        raise ValueError(f"ring {m} or catalog {last.numel() - 1} too large")
+    if dev.type != "cuda":
+        raise ValueError(f"tree must be a CUDA tensor, got {dev}")
+    lead = tuple(tree.shape[:-1])
+    if tree.stride(-1) != 1 or (not lead and not tree.is_contiguous()):
+        raise ValueError("the tree's rows must be of unit stride")
+    for x, name in ((tree, "tree"), (last, "last"), *((x, k) for k, x in scalars.items())):
+        if x.device != dev or x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32 on {dev}, got {x.dtype} on {x.device}")
+    if not last.is_contiguous() or any(not x.is_contiguous() for x in scalars.values()):
+        raise ValueError("last and the scalars must be contiguous")
+    if tree.shape[-1] != tree_storage(m, RING_RADIX) or last.shape[:-1] != lead or \
+            any(x.shape != lead for x in scalars.values()):
+        raise ValueError(f"a ring of {m} positions has {tree_storage(m, RING_RADIX)} tree nodes, "
+                         f"last and {', '.join(scalars)} a row a combo; got a tree of "
+                         f"{tuple(tree.shape)}")
+    if m >= 2**30 or last.shape[-1] >= 2**31:
+        raise ValueError(f"ring {m} or catalog {last.shape[-1] - 1} too large")
 
 
 def ring_compaction(tree: torch.Tensor, last: torch.Tensor, pos: torch.Tensor,
@@ -93,22 +104,33 @@ def ring_compaction(tree: torch.Tensor, last: torch.Tensor, pos: torch.Tensor,
                     scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
     """On the card, the ring compaction a chunk of ``window`` requests may
     need: one launch that decides it from ``pos`` and remaps ``last``, and
-    one int32 tree build into ``tree``.  Returns the scratch (``scratch``
-    where given: a combo's row of a grid's; else a new one) whose last two
-    entries (decision, new ``pos``) the chunk's launch reads."""
+    one int32 tree build into ``tree``.  A grid's (R, TOT) tree, (R, N+1)
+    ``last`` and (R,) ``pos`` and ``cap`` take the same two launches for
+    every combo, each deciding from its own ``pos`` (one not due copies its
+    own leaves, and its tree is rebuilt as it was).  Returns the scratch
+    (``scratch`` where given, (m + 2,) or (R, m + 2); else a new one) whose
+    last two entries a row (decision, new ``pos``) the chunk's launch
+    reads."""
     _check_carry(tree, last, m, pos=pos, cap=cap)
+    grid = tree.dim() == 2
+    rows = tree.shape[0] if grid else 1
     if scratch is None:
-        scratch = torch.zeros(m + 2, dtype=torch.int32, device=tree.device)
+        scratch = torch.zeros(tuple(tree.shape[:-1]) + (m + 2,), dtype=torch.int32,
+                              device=tree.device)
     count, sizes = _ring(m)
     compact, _ = _entries()
     _build.check(
-        compact(tree.data_ptr(), last.data_ptr(), pos.data_ptr(), cap.data_ptr(), window,
-                ctypes.addressof(sizes), count, last.numel(), scratch.data_ptr(),
-                _build.stream_of(tree)),
+        compact(rows, tree.data_ptr(), tree.stride(0) if grid else 0, last.data_ptr(),
+                last.stride(0) if grid else 0, pos.data_ptr(), cap.data_ptr(), window,
+                ctypes.addressof(sizes), count, last.shape[-1], scratch.data_ptr(),
+                scratch.stride(0) if grid else 0, _build.stream_of(tree)),
         "ring_compaction",
     )
     _build.counted(ring_compaction, COMPACTION)
-    tree_build(scratch[:m], RING_RADIX, out=tree)
+    if rows > 1:
+        tree_build_rows_(scratch[:, :m], RING_RADIX, out=tree)
+    else:  # one combo: the one-tree build
+        tree_build(scratch.reshape(-1)[:m], RING_RADIX, out=tree.reshape(-1))
     return scratch
 
 
@@ -129,54 +151,49 @@ def tree_lru(tree: torch.Tensor, last: torch.Tensor, pos: torch.Tensor, nseen: t
     (reward, aux, occupancy); ``flags``, a (window,) bool tensor where
     given, gets each request's hit.
 
-    A grid of R combos, one launch (a block a combo, the ids shared):
-    ``tree`` (R, TOT) whose rows may lie further apart than TOT (a stride
-    of a multiple of 4 keeps the 16-byte loads), ``last`` (R, N+1), ``pos``,
-    ``nseen`` and ``cap`` (R,), ``compact`` a bool a combo (each combo that
-    may be due adds its own compaction launch and tree build), ``flags`` (R,
-    window); hits (R,) and stats (R, 3).  Each row is bit for bit its
-    combo's single launch; on the CPU the plain version runs row by row.
-    One combo is the grid of its one row.
+    A grid of R combos, one launch (a block a combo): ``tree`` (R, TOT)
+    whose rows may lie further apart than TOT (a stride of a multiple of 4
+    keeps the 16-byte loads), ``last`` (R, N+1), ``pos``, ``nseen`` and
+    ``cap`` (R,), ``ids`` one (window,) chunk for every combo (a sweep) or
+    (R, window), a row of ids a combo (a fleet's tenants), ``compact`` a
+    bool a combo (where any combo may be due, one compaction launch and one
+    tree build cover every combo), ``flags`` (R, window); hits (R,) and
+    stats (R, 3).
+    Each row is bit for bit its combo's single launch over its ids; on the
+    CPU the plain version runs row by row.  One combo is the grid of its
+    one row.
     """
     if tree.dim() == 1:  # one combo: the grid of its one row
         hits, stats = tree_lru(tree[None], last[None], pos[None], nseen[None], cap[None], ids,
                                m, compact=[compact], flags=None if flags is None else flags[None])
         return hits[0], stats[0]
-    window = ids.numel()
+    window = ids.shape[-1]
     check_window(window, m)
     rows = tree.shape[0]
+    if ids.dim() not in (1, 2) or (ids.dim() == 2 and ids.shape[0] != rows) or window < 1:
+        raise ValueError(f"ids must be a non-empty (window,) chunk or ({rows}, window), got "
+                         f"shape {tuple(ids.shape)}")
     if tree.device.type == "cpu":
-        outs = [tree_lru_ref(tree[r], last[r], pos[r], nseen[r], cap[r], ids, m,
-                             flags[r] if flags is not None else None)
-                for r in range(rows)]
-        return torch.stack([h for h, _ in outs]), torch.stack([st for _, st in outs])
+        return tree_lru_rows_ref(tree, last, pos, nseen, cap, ids, m, flags)
     dev = tree.device
-    if tree.stride(1) != 1 or last.dim() != 2 or not last.is_contiguous() or \
-            last.shape[0] != rows or any(x.shape != (rows,) for x in (pos, nseen, cap)):
-        raise ValueError("a grid's tree must be (R, TOT) rows of unit stride, last a "
-                         "contiguous (R, N+1), pos, nseen and cap (R,)")
-    for row in range(rows):
-        _check_carry(tree[row], last[row], m, pos=pos[row], nseen=nseen[row], cap=cap[row])
+    _check_carry(tree, last, m, pos=pos, nseen=nseen, cap=cap)
     compact = [compact] * rows if isinstance(compact, bool) else [bool(c) for c in compact]
     _build.require(ids, torch.int32, "ids", dev)
-    if ids.dim() != 1 or window < 1:
-        raise ValueError(f"ids must be a non-empty 1-D tensor, got shape {tuple(ids.shape)}")
     if flags is not None:
         _build.require(flags, torch.bool, "flags", dev)
-        if flags.shape != (rows,) + tuple(ids.shape):
+        if flags.shape != (rows, window):
             raise ValueError("flags must match ids, a row a combo")
     state = compaction_scratch(dev, m, rows)
-    for row in range(rows):
-        if compact[row]:
-            ring_compaction(tree[row], last[row], pos[row], cap[row], window, m,
-                            scratch=state[row])
+    if any(compact):  # one compaction and one build for every combo
+        ring_compaction(tree, last, pos, cap, window, m, scratch=state)
     hits = torch.empty(rows, dtype=torch.int32, device=dev)
     stats = torch.empty((rows, 3), dtype=torch.float32, device=dev)
     count, sizes = _ring(m)
     _, chunk = _entries()
     _build.check(
         chunk(rows, tree.data_ptr(), tree.stride(0), last.data_ptr(), last.stride(0),
-              pos.data_ptr(), nseen.data_ptr(), cap.data_ptr(), ids.data_ptr(), window,
+              pos.data_ptr(), nseen.data_ptr(), cap.data_ptr(), ids.data_ptr(),
+              window if ids.dim() == 2 else 0, window,
               ctypes.addressof(sizes), count, state[:, m:].data_ptr(), m + 2,
               flags.data_ptr() if flags is not None else None, hits.data_ptr(),
               stats.data_ptr(), _build.stream_of(tree)),

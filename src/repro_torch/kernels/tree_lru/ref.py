@@ -220,3 +220,17 @@ def tree_lru_blocked_ref(tree: torch.Tensor, last: torch.Tensor, pos: torch.Tens
     occ = min(int(nseen), c)
     return (torch.tensor(n_hits, dtype=torch.int32, device=dev),
             torch.tensor([n_hits, 0.0, occ], dtype=torch.float32, device=dev))
+
+
+def tree_lru_rows_ref(tree: torch.Tensor, last: torch.Tensor, pos: torch.Tensor,
+                      nseen: torch.Tensor, cap: torch.Tensor, ids: torch.Tensor, m: int,
+                      flags: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`tree_lru_ref` over a grid's rows, one row at a time: every
+    carry tensor with a leading row axis, ``ids`` one (window,) chunk for
+    every row (a sweep) or (R, window), a row of ids each (a fleet's
+    tenants); ``flags`` (R, window).  Returns hits (R,) and stats (R, 3)."""
+    outs = [tree_lru_ref(tree[r], last[r], pos[r], nseen[r], cap[r],
+                         ids[r] if ids.dim() == 2 else ids, m,
+                         flags[r] if flags is not None else None)
+            for r in range(tree.shape[0])]
+    return torch.stack([h for h, _ in outs]), torch.stack([st for _, st in outs])

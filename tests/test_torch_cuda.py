@@ -1779,3 +1779,163 @@ def test_batched_dense_ogb_rows_equal_their_single_runs(card, s):
         assert np.array_equal(one.hits, got.hits[r]) and np.array_equal(one.aux, got.aux[r])
         np.testing.assert_allclose(got.reward[r], one.reward, rtol=1e-5)
         np.testing.assert_allclose(got.occupancy[r], one.occupancy, rtol=1e-5)
+
+
+# -- a fleet's tenants: a row of ids a row of the grid ---------------------------
+
+FLEET_SIZES = (1, 3, 40)
+
+
+@pytest.mark.parametrize("n", [1, 4097, 100_000])
+@pytest.mark.parametrize("e", FLEET_SIZES)
+def test_histogram_rows_equal_their_one_row_calls(card, n, e):
+    """(E, B) ids in one bin-tiles launch (rows off 16 bytes where n is no
+    multiple of 4): each row bit for bit its own one-row call and the plain
+    version's."""
+    from repro_torch.kernels.scatter_counts.ops import BIN_TILES
+
+    gen = torch.Generator().manual_seed(e * 7 + n % 11)
+    ids = torch.randint(-2, n + 3, (e, 500), generator=gen, dtype=torch.int32).to(card)
+    reset_launch_counts()
+    got = histogram(ids, n)
+    assert launch_counts()["histogram"] == 1 and design_counts()["histogram"] == {BIN_TILES: 1}
+    assert got.shape == (e, n) and torch.equal(got.cpu(), histogram_ref(ids.cpu(), n))
+    for r in range(e):
+        assert torch.equal(got[r], histogram(ids[r].contiguous(), n))
+
+
+@pytest.mark.parametrize("n", [20_000, 1_000_000])
+@pytest.mark.parametrize("s", GRID_SIZES)
+def test_warm_solve_over_a_counts_row_a_row(card, s, n):
+    """(R, N) f over (R, N) counts, a row each (a fleet's tenants): one
+    launch, each row's tau and f' bit for bit its own one-row launch over
+    its counts row, tau within 1e-6 of the plain version."""
+    f, _counts, eta, cap, lo, hi, tau0 = _warm_rows(s, n, s * 5 + n % 7, card)
+    gen = torch.Generator().manual_seed(s)
+    b = max(1, n // 1000)
+    counts = histogram(torch.randint(0, n, (s, b), generator=gen, dtype=torch.int32).to(card), n)
+    reset_launch_counts()
+    got_f, got_tau = project_warm(f, counts, eta, cap, lo, hi, tau0, 5)
+    assert launch_counts()["mass"] == 1
+    assert torch.equal(project_warm_tau(f, counts, eta, cap, lo, hi, tau0, 5), got_tau)
+    for r in range(s):
+        one_f, one_tau = project_warm(f[r].contiguous(), counts[r].contiguous(), eta[r], cap[r],
+                                      lo[r], hi[r], tau0[r], 5)
+        assert torch.equal(one_tau, got_tau[r]) and torch.equal(one_f, got_f[r])
+        want = project_warm_tau_ref(f[r], counts[r], eta[r], cap[r], lo[r], hi[r], tau0[r], 5)
+        assert abs(float(want) - float(got_tau[r])) <= 1e-6
+
+
+def _tenant_traces(e, n, t, seed):
+    return np.stack([zipf(n, t, alpha=0.8, seed=seed + r) for r in range(e)]).astype(np.int32)
+
+
+def _same_carries(got, want, cpu=None):
+    for r, (a, b) in enumerate(zip(got, want)):
+        for x, y in zip(a, b):
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, y), f"tenant {r}"
+        if cpu is not None:
+            for x, z in zip(a, cpu[r]):
+                if isinstance(x, torch.Tensor):
+                    assert torch.equal(x.cpu(), z), f"tenant {r} against the CPU"
+
+
+@pytest.mark.parametrize("e", FLEET_SIZES)
+@pytest.mark.parametrize("kind", ["lru", "lfu", "ftpl", "fifo", "ogb"])
+def test_fleet_rows_equal_their_tenants_runs(card, kind, e):
+    """run_fleet on the card: one launch a chunk for every tenant of each
+    kernel (FIFO: one a plan), each tenant's own ids; each row's hits,
+    reward, aux, occupancy and final carry bit for bit its tenant's own run
+    on the card, and the hits and carries the CPU fleet's."""
+    from repro_torch.cachesim.fleet import run_fleet
+    from repro_torch.kernels.tree_lru.ops import CHUNK
+
+    n, window = 2000, 500
+    caps = [20 + 37 * (r % 5) for r in range(e)]
+    traces = _tenant_traces(e, n, 3000, 11 * e)
+    pd = repro_torch.policy_def(kind)
+    reset_launch_counts()
+    fr = run_fleet(pd, traces, n, caps, window=window, device=card, track_opt=False)
+    launches, designs = launch_counts(), design_counts()
+    chunks = fr.hits.shape[1]
+    if kind == "ogb":
+        assert launches["histogram"] == chunks and launches["mass"] == chunks
+    elif kind == "lru":
+        assert designs["tree_lru"][CHUNK] == chunks
+    elif kind == "fifo":
+        assert max(designs["fifo_queue"].values()) == chunks
+    else:
+        assert launches["minpair_automaton"] == chunks
+    cpu = run_fleet(pd, traces, n, caps, window=window, device="cpu", track_opt=False)
+    assert np.array_equal(fr.hits, cpu.hits) or kind == "ogb"
+    ones = []
+    for r in range(e):
+        one = repro_torch.run(pd, traces[r], n, caps[r], window=window, seed=r,
+                              n_slots=max(caps), device=card, track_opt=False)
+        for a in ("hits", "reward", "aux", "occupancy"):
+            assert np.array_equal(getattr(fr, a)[r], getattr(one, a)), (r, a)
+        ones.append(one.carry)
+    _same_carries(fr.carry, ones, None if kind == "ogb" else cpu.carry)
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+@pytest.mark.parametrize("kind", ["ogb", "lru"])
+def test_streams_on_the_card_equal_one_shot_runs(card, kind, prefetch):
+    """run_stream over ragged prime-sized chunks and run_fleet_stream over
+    ragged tenant sources, on the card: bit for bit the one-shot run and
+    run_fleet, with the pipeline or without."""
+    from repro_torch.cachesim.fleet import run_fleet, run_fleet_stream
+    from repro_torch.cachesim.tracelab import run_stream
+
+    n, c, window, t = 3000, 100, 250, 20_000
+    trace = zipf(n, t, alpha=0.8, seed=3)
+    pd = repro_torch.policy_def(kind)
+    one = repro_torch.run(pd, trace, n, c, window=window, device=card, track_opt=False)
+    st = run_stream(pd, (trace[i:i + 1009] for i in range(0, t, 1009)), n, c, window=window,
+                    horizon=t, segment_len=3000, prefetch=prefetch, device=card)
+    for a in ("hits", "reward", "aux", "occupancy"):
+        assert np.array_equal(getattr(st, a), getattr(one, a)), a
+    _same_carries([st.carry], [one.carry])
+    traces = _tenant_traces(3, n, 6000, 5)
+    fr = run_fleet(pd, traces, n, c, window=window, device=card, track_opt=False)
+    fs = run_fleet_stream(pd, [[tr[i:i + 613] for i in range(0, 6000, 613)] for tr in traces],
+                          n, c, window=window, horizons=6000, segment_len=1000,
+                          prefetch=prefetch, device=card)
+    assert np.array_equal(fs.hits, fr.hits) and np.array_equal(fs.reward, fr.reward)
+    _same_carries(fs.carry, fr.carry)
+
+
+def test_edge_fleet_mini_on_the_card_matches_the_cpu(card):
+    """edge_fleet_cdn at mini on the card and the CPU: the edges exactly,
+    the origin's hits equal and its reward within the dense path's limit."""
+    from repro_torch.cachesim.fleet import run_edge_fleet_scenario
+
+    got = run_edge_fleet_scenario("edge_fleet_cdn", "mini", device=card)
+    cpu = run_edge_fleet_scenario("edge_fleet_cdn", "mini", device="cpu")
+    assert np.array_equal(got.edges.hits, cpu.edges.hits)
+    assert got.origin_requests == cpu.origin_requests and got.origin.T == cpu.origin.T
+    np.testing.assert_allclose(got.origin.reward, cpu.origin.reward, rtol=1e-5)
+    np.testing.assert_allclose(got.origin.aux, cpu.origin.aux, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [1000, 262_144])
+@pytest.mark.parametrize("e", FLEET_SIZES)
+def test_int32_tree_builds_of_a_grid_match_their_builds(card, n, e):
+    """R int32 trees in one launch (a ticket a row): each row bit for bit
+    its own one-tree build and the plain version's, twice in a row (the
+    tickets wrap back to 0)."""
+    from repro_torch.kernels.prefix_tree.ops import WHOLE_TREES, tree_build_rows_
+
+    gen = torch.Generator().manual_seed(e + n % 7)
+    leaves = torch.randint(0, 9, (e, n + 2), generator=gen, dtype=torch.int32)[:, :n].to(card)
+    tot = tree_storage(n, 16)
+    out = torch.zeros((e, (tot + 3) & ~3), dtype=torch.int32, device=card)[:, :tot]
+    for _ in range(2):
+        reset_launch_counts()
+        tree_build_rows_(leaves, 16, out)
+        assert launch_counts()["segsum"] == 1
+        assert design_counts()["segsum"] == {WHOLE_TREES: 1} or e == 0
+        for r in range(e):
+            assert torch.equal(out[r], tree_build(leaves[r].contiguous(), 16))
+            assert torch.equal(out[r].cpu(), tree_build_ref(leaves[r].cpu(), 16))
