@@ -192,7 +192,31 @@ script with a non-zero exit:
    over a counts row a row, tree_lru, minpair_automaton LFU, fifo_queue)
    at (b)'s shapes, 256 rows of ids, bit for bit its plain version (the
    warm solve: its one-row launches, tau within 1e-6 of the plain version)
-   and timed cold beside 256 one-row launches and its bound.
+   and timed cold beside 256 one-row launches and its bound;
+24. MoE serving and the expert cache: (a) granite-moe-1b-a400m at full
+   width, all 24 layers (random bf16 weights drawn on the card), served
+   as phase 14 serves glm4-9b, exactly 24 flash_prefill and 24 x 32
+   decode_attention launches a generate call, where its time goes, its
+   logits against the plain attention versions' (rows where no (token,
+   layer) routed differently, and every row with the plain run routed as
+   the kernels'; the flips counted), 8 teacher-forced decode steps, and
+   both attention kernels timed at its served shapes beside their bounds
+   and scaled_dot_product_attention; (b) kimi-k2-1t-a32b at full width
+   with its depth cut from 61 layers to 1 (33.8 GB of bf16 experts drawn
+   expert by expert): a prefill of 1 x 512 tokens through capacity
+   dispatch (capacity 11) and 8 decode steps, 64 sampled tokens' MoE
+   output against a float64 evaluation of the same kept (expert, gate)
+   pairs, and the dispatch's share of the layer's time; (c) OGBExpertCache
+   at kimi-k2's 61 x 384 and granite-moe's 24 x 32 (layer, expert)
+   catalogs, resident fraction 0.25, over 1000 steps of Poisson(5) counts
+   and a 1500-step drift run (8 hot experts a layer, moved at step 500),
+   each step against the port's CPU run (worker processes started before
+   phase 22): f and tau within 1e-5, the residency masks equal off |f - p|
+   <= 1e-5, 50 masses launches and one apply a step, the hit ratio after
+   the drift > 0.5; the step timed and profiled first, and the Poisson
+   run's steps served open-loop by ContinuousServingLoop at 70% of that
+   capacity (p50/p99, sustained req/s, backlog); and ogb_grad's masses and
+   apply at N = 23 424 timed beside their plain versions.
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -1417,33 +1441,31 @@ def check_attention_kernels(torch, dev):
             "flash_prefill": errs[("prefill", "glm4-9b", "bf16", 4096)]}
 
 
-def time_attention_kernels(torch, dev, errs):
-    """Phase 13: each attention kernel in bf16, cold and warm in L2, beside
-    its plain version, one scaled_dot_product_attention call (timed as a
-    yardstick only: the port never calls it) and its bound, at glm4-9b's
-    long shapes and at the shapes the served model launches it."""
+def attention_jobs(torch, dev, H, Hkv, D, seed):
+    """Timed jobs of the two attention kernels in bf16 at heads (H, Hkv, D):
+    ``decode(B, S, lengths)`` and ``prefill(B, S)`` each give (kernel,
+    plain version, one scaled_dot_product_attention call, its bound), and
+    print the kernel's distance from that call."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention.kernel import design as decode_design
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    from repro_torch.kernels.flash_prefill.kernel import design as prefill_design
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 
-    gen = torch.Generator(device=dev).manual_seed(4)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     bf = torch.bfloat16
-    H, Hkv, D = 32, 2, 128
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(bf)
 
-    def decode_job(B, S, lengths):
+    def decode(B, S, lengths):
         q, k, v = randn(B, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
         mask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
         qd, kd, vd = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
         lib = F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, enable_gqa=True)[:, :, 0]
-        print(f"decode B={B} S={S}: max |kernel - scaled_dot_product_attention| = "
+        print(f"decode B={B} S={S} H={H} Hkv={Hkv} D={D}: max |kernel - "
+              f"scaled_dot_product_attention| = "
               f"{float((decode_attention(q, k, v, lengths).float() - lib.float()).abs().max()):.3e}")
         # K and V of every valid position read once, q read and out written once;
         # 4 operations per (query head, position, dim): the two dot products
@@ -1454,11 +1476,12 @@ def time_attention_kernels(torch, dev, errs):
                 lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, enable_gqa=True),
                 bound_ms(n_bytes, 4 * valid * H * D, BF16_OPS_PER_S))
 
-    def prefill_job(B, S):
+    def prefill(B, S):
         q, k, v = randn(B, S, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-        print(f"prefill B={B} S={S}: max |kernel - scaled_dot_product_attention| = "
+        print(f"prefill B={B} S={S} H={H} Hkv={Hkv} D={D}: max |kernel - "
+              f"scaled_dot_product_attention| = "
               f"{float((flash_prefill(q, k, v).float() - lib.transpose(1, 2).float()).abs().max()):.3e}")
         # 4 B H (S^2 / 2) D operations over the bf16 tensor-core peak
         n_bytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)
@@ -1467,22 +1490,43 @@ def time_attention_kernels(torch, dev, errs):
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True),
                 bound_ms(n_bytes, 4 * B * H * (S * S / 2) * D, BF16_OPS_PER_S))
 
-    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    return decode, prefill
 
-    def flush():
-        flush_buf.zero_()
+
+def measure_attention(torch, name, label, job, plain_reps, flush):
+    """One attention job cold and warm in L2, beside its plain version and
+    the library call, printed; the row's numbers."""
+    kern, plain, lib_fn, (b, by) = job
+    ms = timed_ms(torch, kern, 20, flush)
+    warm = timed_ms(torch, kern, 20)
+    plain_ms = timed_ms(torch, plain, plain_reps, flush)
+    lib_ms = timed_ms(torch, lib_fn, 20, flush)
+    print(f"{name} {label}: cold {ms * 1e3:.2f} us, warm in L2 {warm * 1e3:.2f} us (plain "
+          f"{plain_ms * 1e3:.2f} us, scaled_dot_product_attention {lib_ms * 1e3:.2f} us, "
+          f"bound {b * 1e3:.3f} us by {by}; kernel / library {ms / lib_ms:.2f})")
+    return {"ms": ms, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def l2_flush(torch, dev):
+    flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    return flush_buf.zero_
+
+
+def time_attention_kernels(torch, dev, errs):
+    """Phase 13: each attention kernel in bf16, cold and warm in L2, beside
+    its plain version, one scaled_dot_product_attention call (timed as a
+    yardstick only: the port never calls it) and its bound, at glm4-9b's
+    long shapes and at the shapes the served model launches it."""
+    from repro_torch.kernels.decode_attention.kernel import design as decode_design
+    from repro_torch.kernels.flash_prefill.kernel import design as prefill_design
+
+    bf, D = torch.bfloat16, 128
+    decode_job, prefill_job = attention_jobs(torch, dev, 32, 2, D, 4)
+    flush = l2_flush(torch, dev)
 
     def measure(name, label, job, plain_reps):
-        kern, plain, lib_fn, (b, by) = job
-        ms = timed_ms(torch, kern, 20, flush)
-        warm = timed_ms(torch, kern, 20)
-        plain_ms = timed_ms(torch, plain, plain_reps, flush)
-        lib_ms = timed_ms(torch, lib_fn, 20, flush)
-        print(f"{name} {label}: cold {ms * 1e3:.2f} us, warm in L2 {warm * 1e3:.2f} us (plain "
-              f"{plain_ms * 1e3:.2f} us, scaled_dot_product_attention {lib_ms * 1e3:.2f} us, "
-              f"bound {b * 1e3:.3f} us by {by}; kernel / library {ms / lib_ms:.2f})")
-        return {"ms": ms, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-                "library_ms": lib_ms}
+        return measure_attention(torch, name, label, job, plain_reps, flush)
 
     rows = {}
     S = 32768  # decode_32k's cache length, every sequence full
@@ -1497,20 +1541,30 @@ def time_attention_kernels(torch, dev, errs):
     torch.cuda.empty_cache()
     # the served model's shapes: a prefill of SERVE_B prompts of SERVE_S tokens,
     # and a decode step over the SERVE_S + SERVE_NEW cache, lengths SERVE_S + 1 ..
+    for name, row in time_served_attention(torch, dev, decode_job, prefill_job, measure).items():
+        rows[name].update(row)
+    sweep_decode_splits(torch, dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+def time_served_attention(torch, dev, decode_job, prefill_job, measure):
+    """Both attention kernels at a served model's shapes: a prefill of
+    SERVE_B prompts of SERVE_S tokens, and a decode step over the SERVE_S +
+    SERVE_NEW cache, lengths SERVE_S + 1 .. (phases 13 and 24)."""
     S = SERVE_S + SERVE_NEW
     served = torch.arange(SERVE_S + 1, SERVE_S + 1 + SERVE_B, device=dev,
                           dtype=torch.int32).clamp(max=S)
-    rows["decode_attention"]["serving"] = {
+    rows = {"decode_attention": {"serving": {
         "shape": f"B={SERVE_B} S={S} lengths {int(served.min())}..{int(served.max())}",
         **measure("decode_attention", f"serving B={SERVE_B} S={S}",
-                  decode_job(SERVE_B, S, served), 10)}
+                  decode_job(SERVE_B, S, served), 10)}}}
     torch.cuda.empty_cache()
-    rows["flash_prefill"]["serving"] = {
+    rows["flash_prefill"] = {"serving": {
         "shape": f"B={SERVE_B} S={SERVE_S}",
         **measure("flash_prefill", f"serving B={SERVE_B} S={SERVE_S}",
-                  prefill_job(SERVE_B, SERVE_S), 3)}
-    sweep_decode_splits(torch, dev, flush)
-    del flush_buf
+                  prefill_job(SERVE_B, SERVE_S), 3)}}
     torch.cuda.empty_cache()
     return rows
 
@@ -1575,32 +1629,39 @@ def _leaves(tree):
         yield tree
 
 
-def serve_full_width(torch, dev):
-    """Phase 14: glm4-9b at full width behind an OGB page pool, 4 generate
-    calls, every attention launch counted."""
+def serve_full_width(torch, dev, arch=ARCH):
+    """Phase 14 (and 24 (a)): ``arch`` at full width behind an OGB page
+    pool, 4 generate calls, every attention launch counted.  Returns the
+    engine, the first call's prompts and tokens, the launches, and the
+    steady calls' numbers."""
     import numpy as np
 
     from repro_torch.configs.base import get_arch
     from repro_torch.core.policies import make_policy
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models.model import init_params
+    from repro_torch.models.model import init_params, padded_vocab
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.kvcache import PagedKVPool
 
-    cfg = get_arch(ARCH)
+    cfg = get_arch(arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"{ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads} / KV "
-          f"{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
-          f"{n_params} parameters (ArchConfig.param_count {cfg.param_count()} + norms) drawn in "
-          f"bf16 on the card in {time.perf_counter() - t0:.2f} s, "
-          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
-    need(n_params == cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model,
-         "the served model is not glm4-9b's full width")
+    # ArchConfig.param_count, the norms, and the rows of the vocab's padding
+    want = (cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model
+            + 2 * (padded_vocab(cfg) - cfg.vocab_size) * cfg.d_model)
+    experts = (f", {cfg.n_experts} experts of {cfg.expert_ff} top-{cfg.experts_per_token}"
+               if cfg.n_experts else "")
+    print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads} / KV "
+          f"{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}{experts}, vocab "
+          f"{cfg.vocab_size}; {n_params} parameters (ArchConfig.param_count {cfg.param_count()} "
+          f"+ norms + vocab padding) drawn in bf16 on the card in "
+          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
+          f"allocated")
+    need(n_params == want, f"the served model is not {arch}'s full width")
     pages = SERVE_S // PAGE_SIZE
     policy = make_policy("ogb", 1 << 18, POOL_PAGES, horizon=SERVE_CALLS * SERVE_B * pages,
                          batch_size=SERVE_B * pages)
@@ -1646,7 +1707,10 @@ def serve_full_width(torch, dev):
     need(launches == want, f"serving launches {launches}, expected {want}")
     need(engine.stats.prefix_reuse > 0 and pool.stats.page_hit_ratio > 0,
          "the page pool reused nothing by the last call")
-    return engine, batches[0], outs[0], launches
+    steady = {"prefill_s": wp, "decode_ms_a_step": wd * 1e3 / SERVE_NEW,
+              "peak_memory_gb": peak / 1e9, "prefix_reuse": engine.stats.prefix_reuse,
+              "page_hit_ratio": pool.stats.page_hit_ratio}
+    return engine, batches[0], outs[0], launches, steady
 
 
 def serve_breakdown(torch, engine, prompts, steps=4):
@@ -3518,6 +3582,517 @@ def check_fleet(torch, dev, trace, cpu_edge_future):
             "seconds": secs}
 
 
+# -- MoE serving and the expert cache (phase 24) -----------------------------------
+
+#: (a) the MoE model served at full width; (b) the capacity-dispatch model,
+#: its depth cut, a prefill of B x S tokens, its decode steps and the tokens
+#: held against float64
+MOE_ARCH, DISPATCH_ARCH = "granite-moe-1b-a400m", "kimi-k2-1t-a32b"
+DISPATCH_LAYERS, DISPATCH_B, DISPATCH_S, DISPATCH_STEPS, DISPATCH_SAMPLED = 1, 1, 512, 8, 64
+#: (c) the expert catalogs (layers, experts) at resident fraction 0.25; the
+#: Poisson(5) run's steps (benchmarks/serving_slo.py's payloads, seed 0); the
+#: drift run's steps, the step its hot experts move at, and its hot experts a
+#: layer (tests/serve/test_serve.py's routing, the hot set half a layer on);
+#: the serving loop's warm-up and timed steps and its load
+#: (benchmarks/serving_slo.py's LOAD_FACTOR); card against CPU within
+EXPERT_CATALOGS = {"kimi-k2-1t-a32b": (61, 384), "granite-moe-1b-a400m": (24, 32)}
+EXPERT_STEPS, DRIFT_STEPS, DRIFT_SHIFT, DRIFT_HOT = 1000, 1500, 500, 8
+EXPERT_WARM, EXPERT_TIMED, LOAD_FACTOR, EXPERT_TOL = 20, 50, 0.7, 1e-5
+
+
+class moe_routes:
+    """Within this block every MoE layer's routing is recorded in call order
+    (``seen``: its top-k expert ids (T, K); ``inputs``: its (T, D) input,
+    when ``keep_inputs``).  Given ``forced`` (an earlier block's ``seen``),
+    each layer routes by those ids instead, its gates its own softmax at
+    them, renormalised: the run follows the other run's routing, and
+    ``seen`` still holds its own."""
+
+    def __init__(self, forced=None, keep_inputs=False):
+        self.forced, self.keep_inputs = forced, keep_inputs
+        self.seen, self.inputs = [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.saved = moe.route
+
+        def route(p, xt, k):
+            r = self.saved(p, xt, k)
+            self.seen.append(r.eidx)
+            if self.keep_inputs:
+                self.inputs.append(xt)
+            if self.forced is None:
+                return r
+            eidx = self.forced[len(self.seen) - 1]
+            gates = r.probs.gather(1, eidx)
+            gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+            return moe.Routing(r.logits, r.probs, gates, eidx)
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.route = self.saved
+
+
+def routing_flips(torch, a, b, seq_len):
+    """(token, layer) pairs whose top-k expert sets differ between two
+    runs' routings, a layer, and the sequences (rows of ``seq_len``
+    tokens) with none."""
+    flips, clean = [], None
+    for x, y in zip(a, b):
+        differ = (torch.sort(x, dim=-1).values != torch.sort(y, dim=-1).values).any(dim=-1)
+        flips.append(int(differ.sum()))
+        rows = ~differ.view(-1, seq_len).any(dim=-1)
+        clean = rows if clean is None else clean & rows
+    return flips, clean
+
+
+def check_moe_served_against_plain(torch, engine, prompts, first_out):
+    """Phase 24 (a): the MoE model through the kernels against the plain
+    attention versions on the card: the plain run with its own routing,
+    held where no (token, layer) routed differently; and the plain run
+    routed as the kernels' run, held on every row; then 8 teacher-forced
+    decode steps routed the same way, and two generate calls on equal
+    prompts."""
+    import numpy as np
+
+    from repro_torch.models.model import decode_step, prefill
+
+    cfg, params, dev, V = engine.cfg, engine.params, engine.device, engine.cfg.vocab_size
+    tokens = torch.from_numpy(prompts).to(dev)
+    B, S = prompts.shape
+
+    def compare(label, a, b, rows=None):
+        a, b = a[:, :V].float(), b[:, :V].float()
+        if rows is not None:
+            a, b = a[rows], b[rows]
+        if not len(b):
+            print(f"{label}: no row to hold")
+            return 0.0
+        top = float(b.abs().max())
+        tol = 8 * bf16_ulp(top)
+        err = float((a - b).abs().max())
+        print(f"{label}: max |logit kernels - plain| = {err:.4e} over {len(b)} rows (limit "
+              f"{tol:.4e}, 8 bf16 ulps of the largest |logit| {top:.4f})")
+        need(bool(torch.isfinite(a).all()) and err <= tol, f"{label}: logits differ by {err}")
+        return err
+
+    with moe_routes() as kern:
+        lk, ck = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    with plain_attention(), moe_routes() as own:
+        lp, _ = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    by_layer, clean = routing_flips(torch, kern.seen, own.seen, S)
+    flips, decisions = sum(by_layer), B * S * cfg.n_layers
+    print(f"prefill routing, kernels against plain attention with its own routing: {flips} "
+          f"(token, layer) flips of {decisions}, by layer {by_layer} (a flip changes its "
+          f"token's later layers and, through attention, the later tokens'); "
+          f"{int(clean.sum())} of {B} rows with none")
+    compare("prefill, last token, rows routed alike", lk, lp, clean)
+    with plain_attention(), moe_routes(forced=kern.seen):
+        lf, cf = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    errs = [compare("prefill, last token, plain routed as the kernels", lk, lf)]
+    need(np.array_equal(torch.argmax(lk[:, :V], -1).cpu().numpy(), first_out[:, 0]),
+         "prefill does not repeat generate")
+    tok, decode_flips = torch.argmax(lk[:, :V], -1), 0
+    for step in range(TEACHER_STEPS):
+        with moe_routes() as kern:
+            lk, ck = decode_step(cfg, params, ck, tok, dev)
+        with plain_attention(), moe_routes(forced=kern.seen) as own:
+            lf, cf = decode_step(cfg, params, cf, tok, dev)
+        decode_flips += sum(routing_flips(torch, kern.seen, own.seen, 1)[0])
+        errs.append(compare(f"decode step {step + 1}, teacher-forced, routed alike", lk, lf))
+        tok = torch.argmax(lk[:, :V], -1)
+    print(f"decode routing over {TEACHER_STEPS} teacher-forced steps: {decode_flips} (token, "
+          f"layer) flips of {B * TEACHER_STEPS * cfg.n_layers} where plain attention routed "
+          f"by its own scores")
+    again = engine.generate(prompts, SERVE_NEW)
+    need(np.array_equal(again, first_out), "two generate calls on equal prompts differ")
+    print(f"two generate calls on equal prompts: equal tokens ({again.size})")
+    return {"prefill_flips": flips, "prefill_flips_by_layer": by_layer,
+            "prefill_decisions": decisions,
+            "rows_routed_alike": int(clean.sum()), "decode_flips": decode_flips,
+            "max_logit_err": max(errs)}
+
+
+def serve_moe(torch, dev):
+    """Phase 24 (a): granite-moe at full width, all 24 layers, behind an OGB
+    page pool (phase 14's engine and calls), where its time goes, its
+    logits against the plain versions', and its attention kernels timed at
+    its served shapes."""
+    from repro_torch.configs.base import get_arch
+
+    engine, prompts, first_out, launches, steady = serve_full_width(torch, dev, MOE_ARCH)
+    serve_breakdown(torch, engine, prompts)
+    held = check_moe_served_against_plain(torch, engine, prompts, first_out)
+    del engine
+    torch.cuda.empty_cache()
+    cfg = get_arch(MOE_ARCH)
+    decode_job, prefill_job = attention_jobs(torch, dev, cfg.n_heads, cfg.n_kv_heads,
+                                             cfg.head_dim, 24)
+    flush = l2_flush(torch, dev)
+    timed = time_served_attention(
+        torch, dev, decode_job, prefill_job,
+        lambda *a: measure_attention(torch, *a, flush))
+    for name in ("flash_prefill", "decode_attention"):
+        timed[name] = {"launches": launches[name], **timed[name]["serving"]}
+    return {"serving": steady, "held": held, "attention": timed}
+
+
+def expert_f64(torch, p, xt, r, kept, tokens):
+    """The MoE output of ``tokens`` in float64 on the card: each kept
+    (expert, gate) pair's SwiGLU over the layer's bf16 weights, summed."""
+    out = torch.zeros((len(tokens), xt.shape[1]), dtype=torch.float64, device=xt.device)
+    eidx, gates, keep = r.eidx[tokens], r.gates[tokens].double(), kept[tokens]
+    for e in torch.unique(eidx[keep]).tolist():
+        i, k = torch.nonzero((eidx == e) & keep, as_tuple=True)
+        x = xt[tokens][i].double()
+        h = torch.nn.functional.silu(x @ p["w_gate"][e].double()) * (x @ p["w_up"][e].double())
+        out.index_add_(0, i, gates[i, k][:, None] * (h @ p["w_down"][e].double()))
+    return out
+
+
+def check_dispatch_layer(torch, dev):
+    """Phase 24 (b): kimi-k2 at full width, its depth cut from 61 layers to
+    DISPATCH_LAYERS: a prefill of DISPATCH_B x DISPATCH_S tokens through
+    capacity dispatch (the reference's small-batch plan), DISPATCH_STEPS
+    decode steps, the MoE output of DISPATCH_SAMPLED sampled tokens against
+    a float64 evaluation of the same kept (expert, gate) pairs, and the
+    dispatch's share of the layer's time."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import moe
+    from repro_torch.models.model import decode_step, init_params, prefill
+
+    full = get_arch(DISPATCH_ARCH)
+    cfg = dataclasses.replace(full, n_layers=DISPATCH_LAYERS)
+    T = DISPATCH_B * DISPATCH_S
+    need(T * cfg.experts_per_token <= 16_384, "the prefill is past the small-batch plan")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    p = params["blocks"][0]["moe"]
+    expert_bytes = sum(p[k].numel() * p[k].element_size() for k in ("w_gate", "w_up", "w_down"))
+    cap = moe.capacity(T, cfg)
+    print(f"{DISPATCH_ARCH}: depth cut from {full.n_layers} layers to {cfg.n_layers}, every "
+          f"width its own (d_model {cfg.d_model}, heads {cfg.n_heads} / KV {cfg.n_kv_heads}, "
+          f"head_dim {cfg.head_dim}, {cfg.n_experts} experts of {cfg.expert_ff} top-"
+          f"{cfg.experts_per_token}, capacity factor {cfg.capacity_factor}, vocab "
+          f"{cfg.vocab_size}); weights drawn in bf16 on the card expert by expert in "
+          f"{time.perf_counter() - t0:.2f} s, experts {expert_bytes / 1e9:.3f} GB, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated; capacity {cap} at "
+          f"T = {T}")
+    need(cap == 11 and cfg.n_experts * cfg.expert_ff > moe.DENSE_MIXTURE_MAX,
+         "kimi-k2's prefill does not take capacity dispatch at capacity 11")
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (DISPATCH_B, DISPATCH_S))).to(dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with moe_routes(keep_inputs=True) as rec:
+        logits, cache = prefill(cfg, params, {"tokens": tokens}, DISPATCH_S + DISPATCH_STEPS,
+                                dev)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = torch.argmax(logits[:, :cfg.vocab_size], -1)
+    t0 = time.perf_counter()
+    for _ in range(DISPATCH_STEPS):
+        logits, cache = decode_step(cfg, params, cache, tok, dev)
+        tok = torch.argmax(logits[:, :cfg.vocab_size], -1)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DISPATCH_STEPS
+    launches = launch_counts()
+    want = {name: 0 for name in launches}
+    want.update(flash_prefill=cfg.n_layers, decode_attention=cfg.n_layers * DISPATCH_STEPS)
+    need(launches == want, f"kimi-k2 launches {launches}, expected {want}")
+    need(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()), "kimi-k2's logits not finite")
+    xt, r = rec.inputs[0], moe.route(p, rec.inputs[0], cfg.experts_per_token)
+    need(torch.equal(r.eidx, rec.seen[0]), "the layer's routing does not repeat")
+    kept = (moe.dispatch(r, cfg.n_experts, cap) != cfg.n_experts * cap).view(
+        T, cfg.experts_per_token)
+    out = moe.moe_output(p, xt[None], cfg)[0]
+    sample = torch.from_numpy(np.sort(rng.choice(T, DISPATCH_SAMPLED, replace=False))).to(dev)
+    want64 = expert_f64(torch, p, xt, r, kept, sample)
+    top = float(want64.abs().max())
+    tol = 8 * bf16_ulp(top)
+    err = float((out[sample].double() - want64).abs().max())
+    n_kept = int(kept.sum())
+    print(f"kimi-k2 prefill {prefill_s * 1e3:.3f} ms (B={DISPATCH_B}, S={DISPATCH_S}), decode "
+          f"{decode_ms:.3f} ms a step; launches {launches}; {n_kept} of {kept.numel()} "
+          f"assignments kept, {kept.numel() - n_kept} past capacity; MoE output of "
+          f"{DISPATCH_SAMPLED} sampled tokens against float64 of the same kept (expert, gate) "
+          f"pairs: max |bf16 - float64| {err:.4e} (limit {tol:.4e}, 8 bf16 ulps of the "
+          f"largest {top:.4f})")
+    need(bool(torch.isfinite(out).all()) and err <= tol, f"kimi-k2 MoE output off by {err}")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    buf = torch.randn((cfg.n_experts, cap, cfg.d_model), generator=gen, device=dev).to(xt.dtype)
+    layer_ms = timed_ms(torch, lambda: moe.moe_output(p, xt[None], cfg), 10)
+    experts_ms = timed_ms(torch, lambda: moe.expert_swiglu(p, buf), 10)
+    n_ops = 2 * 3 * cfg.n_experts * cap * cfg.d_model * cfg.expert_ff
+    b, by = bound_ms(expert_bytes, n_ops, BF16_OPS_PER_S)
+    share = 1 - experts_ms / layer_ms
+    print(f"kimi-k2 MoE layer at T = {T}: {layer_ms:.3f} ms, its three expert products "
+          f"{experts_ms:.3f} ms (bound {b:.3f} ms by {by}: every expert's weights read once); "
+          f"routing, dispatch and combine {layer_ms - experts_ms:.3f} ms, {share:.4f} of the "
+          f"layer; peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    del params, p, cache, buf, rec
+    torch.cuda.empty_cache()
+    return {"layers": f"{cfg.n_layers} of {full.n_layers}", "prefill_ms": prefill_s * 1e3,
+            "decode_ms_a_step": decode_ms, "capacity": cap, "kept": n_kept,
+            "max_abs_err_f64": err, "layer_ms": layer_ms, "experts_ms": experts_ms,
+            "dispatch_share": share, "experts_bound_ms": b}
+
+
+def expert_payloads(layers, experts, kind):
+    """Routed counts a step: ``poisson``, benchmarks/serving_slo.py's
+    Poisson(5) vectors (seed 0); ``drift``, tests/serve/test_serve.py's
+    routing (DRIFT_HOT hot experts a layer at 50-100 tokens, four others at
+    0-10), the hot set half a layer on from step DRIFT_SHIFT."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    if kind == "poisson":
+        return [rng.poisson(5.0, (layers, experts)).astype(np.float32)
+                for _ in range(EXPERT_STEPS)]
+    out = []
+    for t in range(DRIFT_STEPS):
+        counts = np.zeros((layers, experts), np.float32)
+        start = 0 if t < DRIFT_SHIFT else experts // 2
+        counts[:, start:start + DRIFT_HOT] = rng.integers(50, 100, (layers, DRIFT_HOT))
+        for layer in range(layers):
+            counts[layer, rng.integers(0, experts, 4)] += rng.integers(0, 10, 4)
+        out.append(counts)
+    return out
+
+
+def expert_cache_config(name, kind):
+    from repro_torch.serve.expert_cache import ExpertCacheConfig
+
+    layers, experts = EXPERT_CATALOGS[name]
+    steps = EXPERT_STEPS if kind == "poisson" else DRIFT_STEPS
+    return ExpertCacheConfig(n_layers=layers, n_experts=experts, resident_fraction=0.25,
+                             horizon_steps=steps)
+
+
+def cpu_expert_run(name, kind):
+    """Phase 24 (c)'s CPU side, in a worker process: OGBExpertCache from seed
+    0 on the CPU over the payloads; each step's tau, f and record."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.serve.expert_cache import OGBExpertCache
+
+    ec = OGBExpertCache(expert_cache_config(name, kind), seed=0, device="cpu")
+    taus, fs, recs = [], [], []
+    for counts in expert_payloads(*EXPERT_CATALOGS[name], kind):
+        recs.append(ec.step(counts))
+        taus.append(float(ec.carry.tau))
+        fs.append(ec.carry.f.numpy().copy())
+    return {"tau": np.array(taus), "f": np.stack(fs), "records": recs,
+            "p": ec.carry.p.numpy()}
+
+
+def start_cpu_expert_runs():
+    """Start phase 24 (c)'s CPU runs, one worker process a (catalog, run),
+    spawned, so that they overlap the card's phases 22-24."""
+    import concurrent.futures
+    import multiprocessing
+
+    jobs = [(name, kind) for name in EXPERT_CATALOGS for kind in ("poisson", "drift")]
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=len(jobs), mp_context=multiprocessing.get_context("spawn"))
+    return pool, {job: pool.submit(cpu_expert_run, *job) for job in jobs}
+
+
+def expert_step_time(torch, dev, name):
+    """The cache's step on the card: EXPERT_WARM steps, then EXPERT_TIMED
+    timed (its capacity, as benchmarks/serving_slo.py measures it) and as
+    many profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.expert_cache import OGBExpertCache
+
+    payloads = expert_payloads(*EXPERT_CATALOGS[name], "poisson")
+    ec = OGBExpertCache(expert_cache_config(name, "poisson"), seed=0, device=dev)
+    for counts in payloads[:EXPERT_WARM]:
+        ec.step(counts)
+    t0 = time.perf_counter()
+    for counts in payloads[:EXPERT_TIMED]:
+        ec.step(counts)
+    per_step = (time.perf_counter() - t0) / EXPERT_TIMED
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for counts in payloads[:EXPERT_TIMED]:
+            ec.step(counts)
+        prof_wall = time.perf_counter() - t0
+    _, breakdown = profiled_chunks(torch, prof, EXPERT_TIMED, f"expert cache {name} step",
+                                   per_step * EXPERT_TIMED, prof_wall)
+    return per_step, {k: v for k, v in breakdown.items() if k != "port_kernels"}
+
+
+def expert_run_on_card(torch, dev, name, kind, cpu, rate=None):
+    """One (catalog, run) on the card, from the carry the CPU run started
+    from (seed 0's p is drawn on the host), against the CPU run step by
+    step: tau and f within EXPERT_TOL, the residency masks equal off
+    |f - p| <= EXPERT_TOL, the records equal (the hit ratio within
+    EXPERT_TOL) at the steps where no f was that close, and each step 50
+    masses launches and one standalone apply.  Given ``rate``, the steps
+    are ContinuousServingLoop's decisions over payloads arriving open-loop
+    at ``rate`` a second, as benchmarks/serving_slo.py serves them."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ContinuousServingLoop
+    from repro_torch.serve.expert_cache import OGBExpertCache
+
+    ec = OGBExpertCache(expert_cache_config(name, kind), seed=0, device=dev)
+    p = cpu["p"]
+    need(np.array_equal(ec.carry.p.cpu().numpy(), p), f"{name} {kind}: p differs from the CPU's")
+    payloads = expert_payloads(*EXPERT_CATALOGS[name], kind)
+    fs = torch.empty((len(payloads), ec.N), dtype=torch.float32, device=dev)
+    taus = torch.empty(len(payloads), dtype=torch.float32, device=dev)
+    recs, bad_launches = [], []
+
+    def decide(batch):
+        t = len(recs)
+        reset_launch_counts()
+        recs.append(ec.step(batch[0]))
+        got = launch_counts()
+        if got["mass"] != 50 or got["apply"] != 1 or sum(got.values()) != 51:
+            bad_launches.append(t)
+        fs[t], taus[t] = ec.carry.f, ec.carry.tau
+
+    if rate is None:
+        slo = None
+        for counts in payloads:
+            decide([counts])
+    else:
+        slo = ContinuousServingLoop(decide).run(payloads, rate)
+    fs, taus = fs.cpu().numpy(), taus.cpu().numpy()
+    need(not bad_launches, f"{name} {kind}: steps {bad_launches[:5]} not 50 masses + 1 apply")
+    d_f = float(np.abs(fs - cpu["f"]).max())
+    d_tau = float(np.abs(taus - cpu["tau"]).max())
+    f_prev = np.concatenate([np.full((1, ec.N), ec.C / ec.N, np.float32), cpu["f"][:-1]])
+    near = np.abs(cpu["f"] - p) <= EXPERT_TOL
+    near_step = near.any(axis=1) | (np.abs(f_prev - p) <= EXPERT_TOL).any(axis=1)
+    mask_off = int(((fs >= p) != (cpu["f"] >= p))[~near].sum())
+    d_hit = [abs(a["resident_hit_ratio"] - b["resident_hit_ratio"])
+             for a, b in zip(recs, cpu["records"])]
+    d_hit_all, d_hit = max(d_hit), max((d for d, n in zip(d_hit, near_step) if not n),
+                                       default=0.0)
+
+    def counted(r):
+        return {k: v for k, v in r.items() if k != "resident_hit_ratio"}
+
+    rec_off = sum(counted(a) != counted(b)
+                  for a, b, n in zip(recs, cpu["records"], near_step) if not n)
+    hits = [r["resident_hit_ratio"] for r in recs]
+    windows = [round(float(np.mean(hits[k - 50:k])), 4) for k in range(100, len(hits) + 1, 100)]
+    print(f"expert cache {name} ({ec.N} experts, C {ec.C}, eta {ec.eta:.6f}) {kind}, "
+          f"{len(payloads)} steps, card against CPU: max |df| {d_f:.3e}, max |dtau| "
+          f"{d_tau:.3e}, max |d hit ratio| {d_hit:.3e} ({d_hit_all:.3e} with the steps where "
+          f"an expert was within {EXPERT_TOL} of its p); residency masks differ at {mask_off} "
+          f"(step, expert) off |f - p| <= {EXPERT_TOL}, records at {rec_off} of "
+          f"{int((~near_step).sum())} steps with no such expert; {int(near_step.sum())} steps "
+          f"had one; hit ratio, mean of the 50 steps to each 100th: {windows}; swapped in "
+          f"{ec.swapped_in}, out {ec.swapped_out}; launches 50 masses + 1 apply a step")
+    need(d_f <= EXPERT_TOL and d_tau <= EXPERT_TOL and d_hit <= EXPERT_TOL and not mask_off
+         and not rec_off, f"expert cache {name} {kind}: the card differs from the CPU")
+    out = {"max_df": d_f, "max_dtau": d_tau, "max_dhit": d_hit, "max_dhit_all": d_hit_all,
+           "near_steps": int(near_step.sum()), "hit_ratio_windows": windows,
+           "swapped_in": ec.swapped_in, "swapped_out": ec.swapped_out}
+    if kind == "drift":
+        after = float(np.mean(hits[-50:]))
+        print(f"expert cache {name}: hit ratio {after:.4f} over the last 50 of {DRIFT_STEPS} "
+              f"steps, the hot experts moved at step {DRIFT_SHIFT} (step {DRIFT_SHIFT + 500}: "
+              f"{float(np.mean(hits[DRIFT_SHIFT + 450:DRIFT_SHIFT + 500])):.4f})")
+        need(after > 0.5, f"expert cache {name}: hit ratio {after} after the drift")
+        out["hit_ratio_after_drift"] = after
+    if slo is not None:
+        print(f"expert cache {name} served open-loop: offered {rate:.1f} req/s, sustained "
+              f"{slo.req_per_sec:.1f} req/s; decision latency p50 {slo.p50_ms:.3f} ms, p99 "
+              f"{slo.p99_ms:.3f} ms, mean {slo.mean_ms:.3f} ms, max {slo.max_ms:.3f} ms; "
+              f"backlog max {slo.backlog_max}; mean hit ratio {ec.mean_hit_ratio:.4f}")
+        need(slo.requests == len(payloads) and slo.req_per_sec > 0.5 * rate,
+             f"expert cache {name}: sustained {slo.req_per_sec} of an offered {rate}")
+        out["slo"] = {"offered": rate, "sustained": slo.req_per_sec, "p50_ms": slo.p50_ms,
+                      "p99_ms": slo.p99_ms, "mean_ms": slo.mean_ms, "max_ms": slo.max_ms,
+                      "backlog_max": slo.backlog_max}
+    return out
+
+
+def time_grad_projection(torch, dev, flush):
+    """ogb_grad's projection at kimi-k2's catalog: one K = 1 masses pass and
+    the standalone apply, cold, beside their plain versions and bounds."""
+    from repro_torch.kernels.capped_simplex.ops import apply, as_scalar, masses
+    from repro_torch.kernels.capped_simplex.ref import apply_ref, masses_ref
+
+    n = EXPERT_CATALOGS[DISPATCH_ARCH][0] * EXPERT_CATALOGS[DISPATCH_ARCH][1]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    f = torch.rand(n, generator=gen, device=dev) * 0.5
+    c = torch.rand(n, generator=gen, device=dev) / n
+    eta, tau = as_scalar(2.0, dev), as_scalar(0.25, dev)
+    taus = tau.reshape(1)
+    rows = {}
+    for name, kern, plain, out_bytes in (
+            ("mass", lambda: masses(f, c, eta, taus), lambda: masses_ref(f, c, eta, taus), 8),
+            ("apply", lambda: apply(f, c, eta, tau), lambda: apply_ref(f, c, eta, tau), 4 * n)):
+        got, want = kern(), plain()
+        got, want = (got, want) if name == "mass" else ((got,), (want,))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        ms, plain_ms = timed_ms(torch, kern, 50, flush), timed_ms(torch, plain, 20, flush)
+        b, by = bound_ms(8 * n + out_bytes, (2 + 7) * n if name == "mass" else 4 * n)
+        print(f"ogb_grad's {name} at N = {n}: cold {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} "
+              f"us, bound {b * 1e3:.4f} us by {by}), max |kernel - plain| {err:.3e}")
+        need(err <= 1e-3 if name == "mass" else err <= 1e-6, f"ogb_grad's {name} off by {err}")
+        rows[name] = {"n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                      "max_abs_err": err}
+    return rows
+
+
+def check_moe(torch, dev, cpu_runs):
+    """Phase 24: MoE serving and the expert cache."""
+    import gc
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"MoE serving and the expert cache phase 24 on {nvidia_smi_line()}; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated at its start")
+    need(torch.cuda.memory_allocated(dev) < 4e9, "an earlier phase's weights are still held")
+    served = serve_moe(torch, dev)
+    t1 = time.perf_counter()
+    dispatch = check_dispatch_layer(torch, dev)
+    print(f"phase 24 (a) {t1 - t0:.2f} s, (b) {time.perf_counter() - t1:.2f} s")
+    t1 = time.perf_counter()
+    experts = {}
+    for name in EXPERT_CATALOGS:
+        per_step, breakdown = expert_step_time(torch, dev, name)
+        rate = LOAD_FACTOR / per_step
+        print(f"expert cache {name}: a step {per_step * 1e3:.3f} ms on the card; served at "
+              f"{LOAD_FACTOR} of that, {rate:.1f} req/s")
+        experts[name] = {"ms_a_step": per_step * 1e3, "step_breakdown": breakdown}
+        for kind in ("poisson", "drift"):
+            experts[name][kind] = expert_run_on_card(
+                torch, dev, name, kind, cpu_runs[name, kind].result(),
+                rate if kind == "poisson" else None)
+    projection = time_grad_projection(torch, dev, l2_flush(torch, dev))
+    secs = time.perf_counter() - t0
+    print(f"phase 24 (c) {time.perf_counter() - t1:.2f} s; phase 24: {secs:.2f} s")
+    return {"served": served, "dispatch": dispatch, "experts": experts,
+            "projection": projection, "seconds": secs}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -3571,7 +4146,7 @@ def main() -> int:
     tree_profile = breakdown(torch, trace, eta, kind="ogb_tree")
     attn_errs = check_attention_kernels(torch, dev)
     rows.update(time_attention_kernels(torch, dev, attn_errs))
-    engine, prompts, first_out, serve_launches = serve_full_width(torch, dev)
+    engine, prompts, first_out, serve_launches, _ = serve_full_width(torch, dev)
     serve_breakdown(torch, engine, prompts)
     check_served_against_plain(torch, engine, prompts, first_out)
     del engine
@@ -3596,8 +4171,13 @@ def main() -> int:
         print(f"sized scenario phase 21: {time.perf_counter() - t_sized:.2f} s")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
-    swept = check_sweep(torch, dev, trace)
-    fleet23 = check_fleet(torch, dev, trace, cpu_futures[EDGE])
+    expert_pool, expert_runs = start_cpu_expert_runs()
+    try:
+        swept = check_sweep(torch, dev, trace)
+        fleet23 = check_fleet(torch, dev, trace, cpu_futures[EDGE])
+        moe24 = check_moe(torch, dev, expert_runs)
+    finally:
+        expert_pool.shutdown(wait=True, cancel_futures=True)
 
     # launches: the dense main path's for its kernels, the lazy main path's
     # for the prefix-tree kernels (segsum also ran 1 a chunk on madow_tree)
@@ -3677,6 +4257,15 @@ def main() -> int:
         **row_kernels["minpair_automaton"]}
     rows["fifo_queue"]["fleet"] = {"launches_fifo_fleet": fleet["fifo"]["launches"],
                                    "chunks": fleet["fifo"]["chunks"], **row_kernels["fifo_queue"]}
+    # MoE serving and the expert cache (phase 24): granite-moe's attention
+    # launches and times at its served shapes, ogb_grad's projection a step
+    for name in ("flash_prefill", "decode_attention"):
+        rows[name]["granite_moe"] = moe24["served"]["attention"][name]
+    for name, per_step in (("mass", 50), ("apply", 1)):
+        rows[name]["ogb_grad"] = {
+            "launches_a_step": per_step,
+            "steps": {c: EXPERT_STEPS + DRIFT_STEPS for c in EXPERT_CATALOGS},
+            **moe24["projection"][name]}
     print(f"segsum launches: ogb_tree main path {launches['segsum']}, madow_tree "
           f"{madow_segsum} over {MADOW_CHUNKS} chunks")
     kernels = [
@@ -3688,7 +4277,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "sized_cdn_full": rows["sized_cdn_full"],
                       "sweep": {"dense": swept["dense"], "automata": swept["automata"]},
                       "stream": fleet23["stream"], "fleet": fleet,
-                      "edge_quick": fleet23["edge_quick"]}))
+                      "edge_quick": fleet23["edge_quick"],
+                      "moe": {k: moe24[k] for k in ("served", "dispatch", "experts")}}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,11 @@ the kind has a grid form, and the two-level ``run_edge_fleet`` with its
 ``edge_fleet_cdn`` scenario); and the dense model family's serving
 path, ``serve.engine.ServeEngine`` behind an OGB page pool
 (``serve.kvcache.PagedKVPool``), with its launcher
-``python -m repro_torch.launch.serve``.  The gradient histogram, every
+``python -m repro_torch.launch.serve``; the MoE family (granite-moe,
+kimi-k2: ``models.moe``, the dense mixture and capacity dispatch) on the
+same engine; and the expert-residency cache, ``OGBExpertCache`` over
+``policy_def("ogb_grad")``, with the open-loop ``ContinuousServingLoop``
+and its ``ServingSLO``.  The gradient histogram, every
 capped-simplex catalog pass, every prefix-tree level, the bucket-mass
 threshold solve, the sized solve, a chunk of each automaton (the tree
 LRU, LFU, FTPL and GDS, the default for those kinds, the FIFO queue and
@@ -63,6 +67,13 @@ attention and one-token decode attention are hand-written CUDA kernels
                          max_len=2080)
     tokens = engine.generate(prompts, max_new_tokens=32)  # prompts: (B, S) int32
 
+    from repro_torch import ContinuousServingLoop, ExpertCacheConfig, OGBExpertCache
+
+    experts = OGBExpertCache(ExpertCacheConfig(n_layers=24, n_experts=32,
+                                               horizon_steps=1000))
+    experts.step(routed_counts)  # (24, 32): the swaps, hits and hit ratio
+    slo = ContinuousServingLoop(lambda batch: experts.step(batch[0])).run(payloads, rate)
+
 Entry points run on the CUDA card; pass ``device="cpu"`` to run the
 kernels' plain PyTorch versions instead.
 """
@@ -90,6 +101,8 @@ from repro_torch.cachesim.tracelab import (
     tenant_streams,
     write_trace,
 )
+from repro_torch.serve.engine import ContinuousServingLoop, ServingSLO
+from repro_torch.serve.expert_cache import ExpertCacheConfig, OGBExpertCache
 from repro_torch.cachesim.api import (
     OGBCarry,
     OGBTreeCarry,
@@ -107,6 +120,10 @@ from repro_torch.cachesim.api import (
 
 __all__ = [
     "CatalogRemap",
+    "ContinuousServingLoop",
+    "ExpertCacheConfig",
+    "OGBExpertCache",
+    "ServingSLO",
     "EDGE_FLEET_SCENARIOS",
     "EdgeFleetResult",
     "FleetResult",

@@ -6,7 +6,8 @@ Counterpart of ``repro.cachesim.api``: a :class:`PolicyDef` is an
 trace through it.  Registered kinds (:func:`policy_def_kinds`):
 
 * ``ogb`` with Poisson, Madow (``madow``, ``madow_tree``) or no sampling,
-  and the lazy bucketized ``ogb_tree``;
+  and the lazy bucketized ``ogb_tree``; ``ogb_grad``, the dense-gradient
+  step an expert cache takes (not trace driven);
 * ``omd``, negative-entropy mirror descent (:mod:`.engines`);
 * the automata ``lru``, ``fifo``, ``lfu`` and ``ftpl``.  As in the
   reference, ``lru``, ``lfu`` and ``ftpl`` default to the O(log) tree
@@ -75,7 +76,12 @@ from repro_torch.cachesim.results import RunResult, SweepResult
 from repro_torch.core.ogb import theoretical_eta
 from repro_torch.core.omd import theoretical_eta_omd
 from repro_torch.core.regret import best_static_hits
-from repro_torch.jaxcache.fractional import DEFAULT_BISECT_ITERS, DEFAULT_WARM_SWEEPS
+from repro_torch.jaxcache.fractional import (
+    DEFAULT_BISECT_ITERS,
+    DEFAULT_WARM_SWEEPS,
+    capped_simplex_project,
+    poisson_sample,
+)
 from repro_torch.kernels.capped_simplex.ops import weighted_simplex_project
 from repro_torch.kernels.fifo_queue.ref import MAX_REQUESTS as FIFO_MAX_REQUESTS
 
@@ -410,6 +416,59 @@ def _ogb_tree_def(
         start=_tree.start_run,
         fractional=True,
     )
+
+
+def _ogb_grad_def(iters: int = DEFAULT_BISECT_ITERS) -> PolicyDef:
+    """OGB on dense gradient vectors, the serving-side flavor.
+
+    ``step(carry, grad)`` takes a raw weight per item (routed token counts
+    per (layer, expert)), normalizes it to unit mass and takes one
+    fractional OGB step: ``StepOut.reward`` is the weighted resident mass
+    and ``hits`` the count of requested items resident, both under the
+    carried Poisson sample before the update, ``aux`` the projection's tau
+    and ``occupancy`` the items resident after it.  The projection is the
+    bisection, ``iters`` mass passes and the final clip (on the card
+    ``iters`` K = 1 ``masses`` launches and one standalone ``apply``).
+    Swap telemetry is the consumer's, from the residency masks
+    (:class:`repro_torch.serve.expert_cache.OGBExpertCache`).  Not trace
+    driven: ``run_fleet`` refuses it and the scenarios skip it.  p comes
+    from the port's own seeded generator; a carry from
+    :func:`carry_from_numpy` brings the reference's."""
+
+    def init(catalog_size, capacity, *, seed=0, eta=None, horizon=None, n_slots=None,
+             sizes=None, costs=None, device=None):
+        del horizon, n_slots
+        if sizes is not None or costs is not None:
+            raise ValueError("ogb_grad is unit-size (weights ride the gradient vector); "
+                             "sizes/costs unsupported")
+        if eta is None:
+            raise ValueError("ogb_grad init needs eta")
+        dev = resolve_device(device)
+        p, u_key = sampling_keys(seed, catalog_size, "poisson", dev)
+        return OGBCarry(
+            f=torch.full((catalog_size,), capacity / catalog_size, dtype=torch.float32,
+                         device=dev),
+            tau=torch.zeros((), dtype=torch.float32, device=dev),
+            eta=torch.tensor(float(eta), dtype=torch.float32, device=dev),
+            cap=torch.tensor(float(capacity), dtype=torch.float32, device=dev),
+            p=p,
+            u_key=u_key,
+            t=torch.zeros((), dtype=torch.int32, device=dev),
+        )
+
+    def step(carry, grad):
+        grad = grad.to(torch.float32)
+        norm = grad / torch.clamp_min(grad.sum(), 1.0)  # unit-mass per-step gradient
+        resident = poisson_sample(carry.f, carry.p)
+        reward = torch.sum(norm * resident)
+        hits = torch.sum((grad > 0) & resident, dtype=torch.int32)
+        f, tau = capped_simplex_project(carry.f, norm, carry.eta, carry.cap, iters)
+        carry = carry._replace(f=f, tau=tau, t=carry.t + 1)
+        occupancy = torch.sum(poisson_sample(f, carry.p), dtype=torch.float32)
+        return carry, StepOut(reward, hits, tau, occupancy)
+
+    return PolicyDef(kind="ogb_grad", name="OGB_grad", init=init, step=step, fractional=True,
+                     trace_driven=False)
 
 
 def _omd_def(
@@ -761,6 +820,7 @@ def _ogb_sized_def(
 _POLICY_DEFS = {
     "ogb": _ogb_def,
     "ogb_tree": _ogb_tree_def,
+    "ogb_grad": _ogb_grad_def,
     "omd": _omd_def,
     "gds": _gds_def,
     "ogb_sized": _ogb_sized_def,
@@ -797,6 +857,8 @@ def policy_def(kind: str, **options) -> PolicyDef:
     (the Madow modes need ``madow_capacity``, the run's capacity);
     ``policy_def("ogb_tree", sample="poisson"|"none", buckets=65536,
     radix=64, iters=30, batch_hint=4096)``;
+    ``policy_def("ogb_grad", iters=50)`` (serving: a step takes a gradient
+    vector, not request ids);
     ``policy_def("omd", sample=..., sweeps=10, madow_capacity=C)``;
     ``policy_def(k, impl=None|"tree"|"dense")`` for the automata k in
     ``lru``, ``fifo``, ``lfu`` and ``ftpl``: ``impl=None`` is ``"tree"`` for

@@ -2,9 +2,10 @@
 
 An :class:`ArchConfig` holds a model's published dimensions; each
 registered architecture also has a reduced smoke variant for CPU tests.
-The port carries the dense configurations whose KV cache is stored in the
-compute type (glm4-9b, qwen3-14b, gemma-7b); asking for any other
-architecture of the JAX package raises ``NotImplementedError``.
+The port carries the configurations whose KV cache is stored in the compute
+type: the dense glm4-9b, qwen3-14b and gemma-7b, and the MoE granite-moe and
+kimi-k2; asking for any other architecture of the JAX package raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -147,11 +148,9 @@ _REGISTRY: Dict[str, ArchConfig] = {}
 _SMOKE: Dict[str, ArchConfig] = {}
 
 #: architectures of the JAX package that the port does not carry yet
-#: (MoE, SSM, hybrid, encoder-decoder, VLM, and int8 KV for mistral-nemo)
+#: (SSM, hybrid, encoder-decoder, VLM, and int8 KV for mistral-nemo)
 NOT_PORTED = (
-    "granite-moe-1b-a400m",
     "jamba-1.5-large-398b",
-    "kimi-k2-1t-a32b",
     "mistral-nemo-12b",
     "phi-3-vision-4.2b",
     "rwkv6-1.6b",
@@ -192,4 +191,4 @@ def list_archs() -> List[str]:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    from . import gemma_7b, glm4_9b, qwen3_14b  # noqa: F401
+    from . import gemma_7b, glm4_9b, granite_moe_1b_a400m, kimi_k2, qwen3_14b  # noqa: F401

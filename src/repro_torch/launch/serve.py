@@ -5,7 +5,8 @@
            [--device cuda|cpu]
 
 The counterpart of ``python -m repro.launch.serve``, with its flags: the
-smoke configuration of ``--arch`` with random weights drawn from seed 0,
+smoke configuration of ``--arch`` (a dense model, or the MoE granite-moe
+and kimi-k2) with random weights drawn from seed 0,
 half of each batch drawn from a few hot prompts.  It runs on the card
 unless ``--device cpu`` is given.
 """

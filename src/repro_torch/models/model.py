@@ -1,8 +1,10 @@
-"""The dense decoder-only model: parameters, prefill and one decode step.
+"""The decoder-only model: parameters, prefill and one decode step.
 
-Counterpart of ``repro.models.model`` for ``family == "dense"`` with a KV
-cache in the compute type (glm4-9b, qwen3-14b, gemma-7b); other families
-and an int8 KV cache raise ``NotImplementedError``.  Parameters are plain
+Counterpart of ``repro.models.model`` for ``family`` ``"dense"`` (glm4-9b,
+qwen3-14b, gemma-7b) and ``"moe"`` (granite-moe, kimi-k2: a block's
+``moe`` subtree, :mod:`.moe`, in place of its MLP on the layers
+``_is_moe_layer`` picks) with a KV cache in the compute type; other
+families and an int8 KV cache raise ``NotImplementedError``.  Parameters are plain
 dictionaries of tensors in the JAX layout (``x @ w`` with ``w`` of shape
 ``(in, out)``), ``params["blocks"]`` a list with one dictionary a layer:
 :func:`params_from_numpy` unstacks ``repro``'s ``init_params`` pytree into
@@ -27,18 +29,26 @@ from repro_torch._device import DeviceLike, resolve_device
 from .attention import _project_qkv, attention_decode, causal_attention, init_attention
 from .common import dtype_of, embed_init, rmsnorm, rmsnorm_init
 from .mlp import init_mlp, mlp_forward
+from .moe import init_moe, moe_output
 
 VOCAB_PAD = 256
 NEG_INF = -1e30
 
 Params = Dict[str, Any]
 
+#: leaves kept in float32 under a bf16 compute type (the router's logits)
+F32_KEEP = ("router",)
 
-def _require_dense(cfg) -> None:
-    if cfg.family != "dense" or cfg.n_experts:
+
+def _require_ported(cfg) -> None:
+    if cfg.family not in ("dense", "moe") or (cfg.family == "dense" and cfg.n_experts):
         raise NotImplementedError(f"the {cfg.family} family ({cfg.name}) is not ported")
     if cfg.kv_cache_dtype != "compute":
         raise NotImplementedError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} is not ported")
+
+
+def _is_moe_layer(cfg, layer: int) -> bool:
+    return cfg.n_experts > 0 and (layer % cfg.moe_every) == cfg.moe_offset
 
 
 def padded_vocab(cfg) -> int:
@@ -54,14 +64,15 @@ def _map(fn, tree, name=""):
 
 
 def cast_params_for_compute(cfg, params: Params) -> Params:
-    """The float32 weights in the compute type (a dense model keeps no leaf
-    in float32, unlike ``repro``'s router and SSM leaves).  A leaf already in
-    the compute type is the same tensor, so the engine casts once and every
-    later call costs nothing."""
+    """The float32 weights in the compute type, the router kept in float32
+    (``repro``'s ``_F32_KEEP``).  A leaf already in the compute type is the
+    same tensor, so the engine casts once and every later call costs
+    nothing."""
     cdt = dtype_of(cfg.compute_dtype)
 
-    def cast(_name, leaf):
-        return leaf.to(cdt) if leaf.dtype == torch.float32 else leaf
+    def cast(name, leaf):
+        keep = name in F32_KEEP or leaf.dtype != torch.float32
+        return leaf if keep else leaf.to(cdt)
 
     return params if cdt == torch.float32 else _map(cast, params)
 
@@ -77,9 +88,12 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None,
                 dtype: Optional[torch.dtype] = None) -> Params:
     """Random weights drawn tensor by tensor on ``device`` from a
     ``torch.Generator`` seeded with ``seed``, at ``repro``'s scales, stored
-    in ``dtype`` (default ``cfg.param_dtype``).  Drawing in the compute type
-    on the card keeps the peak near one copy of the weights."""
-    _require_dense(cfg)
+    in ``dtype`` (default ``cfg.param_dtype``; the router stays float32).
+    Drawing in the compute type on the card keeps the peak near one copy of
+    the weights.  Layers are homogeneous, as in the reference: each block
+    has an MLP, or a ``moe`` subtree where ``_is_moe_layer(cfg,
+    cfg.moe_offset)``."""
+    _require_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or dtype_of(cfg.param_dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -90,26 +104,30 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None,
         "final_norm": rmsnorm_init(d, dtype, dev),
         "blocks": [],
     }
+    moe = _is_moe_layer(cfg, cfg.moe_offset)
     for _ in range(cfg.n_layers):
-        params["blocks"].append({
-            "ln1": rmsnorm_init(d, dtype, dev),
-            "ln2": rmsnorm_init(d, dtype, dev),
-            "attn": init_attention(gen, cfg, dtype),
-            "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_activation, dtype),
-        })
+        block = {"ln1": rmsnorm_init(d, dtype, dev), "ln2": rmsnorm_init(d, dtype, dev),
+                 "attn": init_attention(gen, cfg, dtype)}
+        if moe:
+            block["moe"] = init_moe(gen, cfg, dtype)
+        else:
+            block["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_activation, dtype)
+        params["blocks"].append(block)
     return params
 
 
 def params_from_numpy(cfg, params_np: Dict[str, Any], device: DeviceLike,
                       dtype: Optional[torch.dtype] = None) -> Params:
     """``repro``'s ``init_params`` pytree, as numpy arrays, in the port's
-    layout: ``params["blocks"]`` unstacked along its leading L axis."""
-    _require_dense(cfg)
+    layout: ``params["blocks"]`` unstacked along its leading L axis (a
+    block's ``moe`` subtree with it), in ``dtype`` if given, the router
+    left in float32."""
+    _require_ported(cfg)
     dev = resolve_device(device)
 
-    def conv(_name, a):
+    def conv(name, a):
         t = torch.from_numpy(np.array(a)).to(dev)  # a copy: JAX hands out read-only arrays
-        return t if dtype is None else t.to(dtype)
+        return t if dtype is None or name in F32_KEEP else t.to(dtype)
 
     out = {k: _map(conv, v, k) for k, v in params_np.items() if k != "blocks"}
     stacked = params_np["blocks"]
@@ -122,7 +140,7 @@ def params_from_numpy(cfg, params_np: Dict[str, Any], device: DeviceLike,
 def init_cache(cfg, batch: int, max_len: int, device: DeviceLike = None) -> Dict[str, Any]:
     """Stacked (L, B, max_len, Hkv, D) K and V in the compute type, and the
     position of the next token."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     cdt = dtype_of(cfg.compute_dtype)
@@ -141,11 +159,18 @@ def _logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _ffn(cfg, p: Params, h: torch.Tensor) -> torch.Tensor:
+    """A block's MoE layer or its MLP."""
+    if "moe" in p:
+        return moe_output(p["moe"], h, cfg)
+    return mlp_forward(p["mlp"], h, cfg.mlp_activation)
+
+
 def prefill(cfg, params: Params, batch: Dict[str, Any], max_len: int,
             device: DeviceLike = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run whole prompts, fill the decode cache, return last-token logits
     (B, padded vocab) and the cache."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = _device_of(params, device)
     params = cast_params_for_compute(cfg, params)
     cdt = dtype_of(cfg.compute_dtype)
@@ -161,7 +186,7 @@ def prefill(cfg, params: Params, batch: Dict[str, Any], max_len: int,
         h = rmsnorm(x, p["ln1"])
         q, k, v = _project_qkv(p["attn"], h, cfg, positions)
         x = x + causal_attention(q, k, v).reshape(B, S, hd) @ p["attn"]["wo"]
-        x = x + mlp_forward(p["mlp"], rmsnorm(x, p["ln2"]), cfg.mlp_activation)
+        x = x + _ffn(cfg, p, rmsnorm(x, p["ln2"]))
         cache["k"][i, :, :S] = k.to(cdt)
         cache["v"][i, :, :S] = v.to(cdt)
     cache["pos"] = S
@@ -172,7 +197,7 @@ def decode_step(cfg, params: Params, cache: Dict[str, Any], tokens: torch.Tensor
                 device: DeviceLike = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: tokens (B,) -> logits (B, padded vocab).  Writes the
     tokens' K and V at ``cache["pos"]`` in place and advances it."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dev = _device_of(params, device)
     params = cast_params_for_compute(cfg, params)
     cdt = dtype_of(cfg.compute_dtype)
@@ -182,6 +207,6 @@ def decode_step(cfg, params: Params, cache: Dict[str, Any], tokens: torch.Tensor
         h, _ = attention_decode(p["attn"], rmsnorm(x, p["ln1"]),
                                 {"k": cache["k"][i], "v": cache["v"][i]}, pos, cfg)
         x = x + h
-        x = x + mlp_forward(p["mlp"], rmsnorm(x, p["ln2"]), cfg.mlp_activation)
+        x = x + _ffn(cfg, p, rmsnorm(x, p["ln2"]))
     cache["pos"] = pos + 1
     return _logits(cfg, params, x)[:, 0], cache

@@ -1,7 +1,7 @@
-"""The batched serving engine: prefix matching, prefill, greedy decode.
+"""Serving engines: batched prefill/decode and the continuous open loop.
 
-Counterpart of ``repro.serve.engine.ServeEngine``.  One ``generate`` call
-serves a batch of requests in four steps:
+Counterpart of ``repro.serve.engine``.  :class:`ServeEngine`: one
+``generate`` call serves a batch of requests in four steps:
   1. prefix-match each prompt against the page pool (tokens already cached
      count as reused; the pool is frozen during the step),
   2. prefill the prompts (``models.model.prefill``, through the flash-prefill
@@ -14,14 +14,23 @@ serves a batch of requests in four steps:
 The weights are cast to the compute type once, when the engine is built.
 Tokens stay on the device until the step ends; on the card each phase ends
 in a synchronize, so ``EngineStats`` holds device-complete wall times.
-``ContinuousServingLoop`` and ``ServingSLO`` are not ported.
+
+:class:`ContinuousServingLoop`: the continuous regime.  Requests arrive on
+their own clock (open loop: arrivals do not wait for the server, so a slow
+decision builds a backlog that adds to the next request's latency), the
+loop batches whatever has arrived, makes one decision a batch (an
+:class:`~repro_torch.serve.expert_cache.OGBExpertCache` step, a resumed
+``run`` window) and records each request's latency from its arrival to the
+end of the decision that covered it.  :class:`ServingSLO` holds p50/p99
+latency and sustained requests a second.  Host code, copied from the
+reference with its injectable ``clock`` and ``sleep``.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,6 +39,91 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models.model import cast_params_for_compute, decode_step, prefill
 
 from .kvcache import PagedKVPool
+
+
+@dataclass
+class ServingSLO:
+    """The latency-SLO record of one continuous-serving run.
+
+    ``latencies_ms`` holds one entry a request: the time from its open-loop
+    arrival to the end of the decision that covered it, queueing included.
+    ``req_per_sec`` is sustained throughput over the makespan (first
+    arrival to last decision), not the offered rate."""
+
+    requests: int
+    steps: int  # decision batches dispatched
+    seconds: float  # makespan: first arrival -> last decision complete
+    req_per_sec: float
+    p50_ms: float
+    p99_ms: float
+    mean_ms: float
+    max_ms: float
+    backlog_max: int  # deepest arrival backlog observed
+    latencies_ms: np.ndarray = field(repr=False, default=None)
+
+    @classmethod
+    def from_latencies(cls, lat_s: np.ndarray, seconds: float, steps: int,
+                       backlog_max: int) -> "ServingSLO":
+        lat_ms = np.asarray(lat_s, np.float64) * 1e3
+        return cls(
+            requests=len(lat_ms),
+            steps=steps,
+            seconds=float(seconds),
+            req_per_sec=len(lat_ms) / max(seconds, 1e-12),
+            p50_ms=float(np.percentile(lat_ms, 50)),
+            p99_ms=float(np.percentile(lat_ms, 99)),
+            mean_ms=float(np.mean(lat_ms)),
+            max_ms=float(np.max(lat_ms)),
+            backlog_max=int(backlog_max),
+            latencies_ms=lat_ms,
+        )
+
+
+class ContinuousServingLoop:
+    """Open-loop continuous serving: arrivals on a clock, decisions batched.
+
+    ``decide(batch)`` is the cache decision a step, called with a list of
+    up to ``batch_max`` arrived payloads.  The loop is host-driven and
+    single-threaded: what it measures is how long a decision takes under
+    sustained arrivals.  ``clock``/``sleep`` are injectable for
+    deterministic tests."""
+
+    def __init__(self, decide, *, batch_max: int = 1, clock=None, sleep=None):
+        if batch_max < 1:
+            raise ValueError(f"batch_max must be >= 1, got {batch_max}")
+        self.decide = decide
+        self.batch_max = int(batch_max)
+        self.clock = clock or time.perf_counter
+        self.sleep = sleep or time.sleep
+
+    def run(self, payloads: Sequence, rate: float) -> ServingSLO:
+        """Serve ``payloads`` arriving open-loop at ``rate`` requests/sec:
+        request ``i`` arrives ``i / rate`` seconds after the start, whether
+        or not the server has kept up, and its latency runs to the end of
+        the decision batch that included it."""
+        if rate <= 0:
+            raise ValueError(f"rate must be positive, got {rate}")
+        n = len(payloads)
+        arrivals = np.arange(n, dtype=np.float64) / float(rate)
+        lat = np.empty(n, np.float64)
+        t0 = self.clock()
+        served = steps = backlog_max = 0
+        while served < n:
+            now = self.clock() - t0
+            if arrivals[served] > now:  # open loop: idle until the next arrival
+                self.sleep(min(arrivals[served] - now, 0.01))
+                continue
+            # everything that has arrived is backlog; take one batch of it
+            arrived = int(np.searchsorted(arrivals, now, side="right"))
+            backlog_max = max(backlog_max, arrived - served)
+            take = min(arrived - served, self.batch_max)
+            self.decide(list(payloads[served:served + take]))
+            done = self.clock() - t0
+            lat[served:served + take] = done - arrivals[served:served + take]
+            served += take
+            steps += 1
+        makespan = self.clock() - t0
+        return ServingSLO.from_latencies(lat, makespan, steps, backlog_max)
 
 
 @dataclass

@@ -107,8 +107,9 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(trace, monkeypatch):
 def test_unported_options_and_bad_input_raise(trace):
     with pytest.raises(ValueError, match="madow"):
         repro_torch.policy_def("ogb_tree", sample="madow")
+    assert repro_torch.policy_def("ogb_grad").kind == "ogb_grad"
     with pytest.raises(KeyError, match="ported so far"):
-        repro_torch.policy_def("ogb_grad")
+        repro_torch.policy_def("no_such_kind")
     with pytest.raises(ValueError, match="trace ids"):
         repro_torch.run(repro_torch.policy_def("ogb"), trace, 100, 10, window=W, device="cpu")
 

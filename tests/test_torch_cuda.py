@@ -36,7 +36,10 @@ rows and ids out of range, the exactness edge, past the shared workspace,
 and replayed in a CUDA graph), the sized solve in both its plans
 (also past its shared memory) with their tally, ``ogb_sized`` and
 ``sized_cdn`` mini on the card against the CPU, and sized runs with no host
-read in a chunk.
+read in a chunk; the MoE layer (the dense mixture and capacity dispatch)
+on the card against the CPU, attention at granite-moe's and kimi-k2's
+heads, and ``ogb_grad`` and ``OGBExpertCache`` on the card against the CPU
+with their 50 ``masses`` and one ``apply`` launches a step.
 """
 
 import numpy as np
@@ -574,7 +577,9 @@ DECODE_HEADS = [(8, 32, 2, 128), (8, 40, 8, 128), (4, 16, 16, 256), (2, 8, 2, 16
                 # phi-3-vision's D = 96 (the mma design at a D outside {16, 64, 128,
                 # 256}); q-groups of 32 and 40 (mma_grid_plan's row tiles past 16,
                 # the last one ragged)
-                (4, 32, 32, 96), (2, 64, 2, 128), (2, 40, 1, 64)]
+                (4, 32, 32, 96), (2, 64, 2, 128), (2, 40, 1, 64),
+                # granite-moe's served heads (groups of 2 at D = 64) and kimi-k2's
+                (8, 16, 8, 64), (2, 64, 8, 128)]
 KINDS = {torch.bfloat16: "bf16", torch.float32: "f32"}
 #: bf16 lengths at serving's S = 2080 around the mma design's edges: its
 #: 64-position tile, its 3-tile ring (refilled from the 4th tile on), the
@@ -593,7 +598,7 @@ DECODE_CASES = [
     for B, H, Hkv, D in DECODE_HEADS
 ] + [
     pytest.param(8, H, Hkv, D, 2080, torch.bfloat16, lengths, id=f"8-{H}-{Hkv}-{D}-2080-bf16-{name}")
-    for H, Hkv, D in ((32, 2, 128), (40, 8, 128), (16, 16, 256))
+    for H, Hkv, D in ((32, 2, 128), (40, 8, 128), (16, 16, 256), (16, 8, 64))
     for name, lengths in EDGE_LENGTHS.items()
 ]
 
@@ -617,8 +622,11 @@ def test_decode_attention_matches_plain(card, B, H, Hkv, D, S, dtype, lengths):
     assert torch.equal(got, decode_attention(q, k, v, lengths))
 
 
+SERVED_ARCHS = ["glm4-9b", "qwen3-14b", "gemma-7b", "granite-moe-1b-a400m", "kimi-k2-1t-a32b"]
 PREFILL_SHAPES = [(1, 1024, 32, 2, 128), (2, 200, 40, 8, 128), (1, 700, 16, 16, 256), (2, 1, 8, 2, 16),
-                  (2, 65, 8, 2, 16), (1, 512, 4, 1, 64), (1, 700, 8, 2, 192)]
+                  (2, 65, 8, 2, 16), (1, 512, 4, 1, 64), (1, 700, 8, 2, 192),
+                  # granite-moe's heads at its served prompt length, and ragged
+                  (2, 2048, 16, 8, 64), (1, 700, 16, 8, 64)]
 #: bf16 edges of the wgmma design: S around its 64- and 128-row tiles (TMA's
 #: zero fill past S, the diagonal tiles), D = 128 (128-key tiles), 192 and 256
 #: (64-key tiles), groups of 1, 5 and 16 query heads a KV head
@@ -645,7 +653,7 @@ def test_flash_prefill_matches_plain(card, B, S, H, Hkv, D, dtype):
     assert torch.equal(got, flash_prefill(q, k, v))
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "qwen3-14b", "gemma-7b"])
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
 def test_served_shapes_take_their_design(card, arch, monkeypatch):
     """bf16 at a served model's head shapes launches the tensor-core designs
     and float32 the CUDA-core ones: with the other design's entry point made
@@ -682,7 +690,7 @@ def test_served_shapes_take_their_design(card, arch, monkeypatch):
                                        atol=_attention_limit(dtype, want))
 
 
-@pytest.mark.parametrize("arch", ["glm4-9b", "qwen3-14b", "gemma-7b"])
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
 def test_smoke_engine_on_the_card_matches_the_cpu(card, arch):
     """The float32 smoke engine gives the same tokens on the card, through
     the kernels, as on the CPU, through the plain versions."""
@@ -1939,3 +1947,98 @@ def test_int32_tree_builds_of_a_grid_match_their_builds(card, n, e):
         for r in range(e):
             assert torch.equal(out[r], tree_build(leaves[r].contiguous(), 16))
             assert torch.equal(out[r].cpu(), tree_build_ref(leaves[r].cpu(), 16))
+
+
+# -- the MoE layer and the expert cache ---------------------------------------
+
+def _moe_cfg(arch, **kw):
+    import dataclasses
+
+    from repro_torch.configs.base import get_smoke
+
+    return dataclasses.replace(get_smoke(arch), **kw)
+
+
+#: granite-moe's and kimi-k2's smoke layers (the dense mixture), and a
+#: dispatch layer (E * F = 65 536) at capacity factors that drop tokens
+MOE_CASES = {
+    "granite-dense": ("granite-moe-1b-a400m", {}),
+    "kimi-dense": ("kimi-k2-1t-a32b", {}),
+    "dispatch-1.0": ("kimi-k2-1t-a32b", dict(n_experts=64, moe_d_ff=1024, capacity_factor=1.0)),
+    "dispatch-0.5": ("kimi-k2-1t-a32b", dict(n_experts=64, moe_d_ff=1024, capacity_factor=0.5)),
+}
+
+
+@pytest.mark.parametrize("tokens", [(4, 64), (8, 1)], ids=["prefill", "decode"])
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_moe_forward_card_matches_cpu(card, case, tokens):
+    """Float32 weights: the card routes every token to the CPU's experts
+    (the router in float32 with TF32 off) and its output and aux losses
+    agree within 1e-5."""
+    from repro_torch.models.moe import init_moe, moe_forward, route
+
+    arch, kw = MOE_CASES[case]
+    cfg = _moe_cfg(arch, **kw)
+    p = init_moe(torch.Generator().manual_seed(7), cfg, torch.float32)
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(tokens + (cfg.d_model,))
+                         .astype(np.float32))
+    pc = {k: v.to(card) for k, v in p.items()}
+    assert torch.equal(route(pc, x.to(card).reshape(-1, cfg.d_model), 2).eidx.cpu(),
+                       route(p, x.reshape(-1, cfg.d_model), 2).eidx)
+    got, got_aux = moe_forward(pc, x.to(card), cfg)
+    want, want_aux = moe_forward(p, x, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for k in want_aux:
+        torch.testing.assert_close(got_aux[k].cpu(), want_aux[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,c", [(768, 192), (23424, 5856)])
+def test_ogb_grad_step_card_matches_cpu_and_launches(card, n, c):
+    """A step of ``ogb_grad`` on the card against the CPU from the same
+    carry, 30 steps: tau and f within 1e-5, hits equal off |f - p| <= 1e-5;
+    each step launches 50 K = 1 ``masses`` and one standalone ``apply``."""
+    from repro_torch.kernels.capped_simplex.ops import STANDALONE
+
+    pd = repro_torch.policy_def("ogb_grad")
+    cpu = pd.init(n, c, seed=0, eta=0.5, device="cpu")
+    gpu = type(cpu)(*(t.to(card) for t in cpu))
+    rng = np.random.default_rng(n)
+    for t in range(30):
+        g = torch.from_numpy(rng.poisson(5.0, n).astype(np.float32))
+        near = bool(((cpu.f - cpu.p).abs() <= 1e-5).any())
+        reset_launch_counts()
+        gpu, out = pd.step(gpu, g.to(card))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["mass"] == 50 and counts["apply"] == 1
+        assert design_counts()["apply"] == {STANDALONE: 1}
+        assert sum(counts.values()) == 51
+        cpu, want = pd.step(cpu, g)
+        torch.testing.assert_close(gpu.f.cpu(), cpu.f, rtol=0, atol=1e-5)
+        assert abs(float(gpu.tau) - float(cpu.tau)) <= 1e-5, t
+        assert abs(float(out.reward) - float(want.reward)) <= 1e-5
+        if not near:
+            assert int(out.hits) == int(want.hits), t
+
+
+def test_expert_cache_on_the_card_matches_the_cpu(card):
+    from repro_torch.serve.expert_cache import ExpertCacheConfig, OGBExpertCache
+
+    cfg = ExpertCacheConfig(n_layers=24, n_experts=32, horizon_steps=200, bytes_per_expert=7)
+    cpu = OGBExpertCache(cfg, device="cpu")
+    gpu = OGBExpertCache(cfg, carry=type(cpu.carry)(*(t.to(card) for t in cpu.carry)))
+    assert gpu.device.type == "cuda"
+    rng = np.random.default_rng(0)
+    for t in range(100):
+        counts = rng.poisson(5.0, (24, 32)).astype(np.float32)
+        counts[:, (t // 50) * 8:(t // 50) * 8 + 8] += 60
+        near = bool(((cpu.carry.f - cpu.carry.p).abs() <= 1e-5).any())
+        got, want = gpu.step(counts), cpu.step(counts)
+        near = near or bool(((cpu.carry.f - cpu.carry.p).abs() <= 1e-5).any())
+        if not near:
+            assert abs(got["resident_hit_ratio"] - want["resident_hit_ratio"]) <= 1e-5
+            assert got == {**want, "resident_hit_ratio": got["resident_hit_ratio"]}, t
+            np.testing.assert_array_equal(gpu.resident_mask(), cpu.resident_mask())
+    torch.testing.assert_close(gpu.carry.f.cpu(), cpu.carry.f, rtol=0, atol=1e-5)
+    assert abs(gpu.mean_hit_ratio - cpu.mean_hit_ratio) <= 1e-3
+    assert gpu.mean_hit_ratio > 0.25  # above C / N: the hot experts are held

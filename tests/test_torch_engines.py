@@ -136,7 +136,8 @@ def test_policy_defs_registered_and_tree_impl_not_yet():
     from repro_torch.cachesim import tree_engines as ttree
 
     assert set(repro_torch.policy_def_kinds()) == {"ogb", "ogb_tree", "omd", "lru", "fifo",
-                                                   "lfu", "ftpl", "gds", "ogb_sized"}
+                                                   "lfu", "ftpl", "gds", "ogb_sized",
+                                                   "ogb_grad"}
     assert repro_torch.policy_def("lru") is repro_torch.policy_def("lru")  # memoized
     assert repro_torch.policy_def("lfu", impl="dense").name == "LFU"
     assert repro_torch.policy_def("omd").fractional

@@ -77,16 +77,21 @@ def test_make_policy_and_page_keys():
 
 
 def test_unported_architectures_raise():
-    assert list_archs() == ["gemma-7b", "glm4-9b", "qwen3-14b"]
+    assert list_archs() == ["gemma-7b", "glm4-9b", "granite-moe-1b-a400m", "kimi-k2-1t-a32b",
+                            "qwen3-14b"]
     assert get_arch("glm4-9b").param_count() == 9_399_435_264
-    for name in ("mistral-nemo-12b", "granite-moe-1b-a400m", "whisper-large-v3"):
+    for name in ("mistral-nemo-12b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError):
             get_arch(name)
     with pytest.raises(KeyError):
         get_smoke("no-such-model")
     cfg = get_smoke("glm4-9b")
-    for bad in (dataclasses.replace(cfg, family="moe", n_experts=4),
-                dataclasses.replace(cfg, kv_cache_dtype="int8")):
+    # a MoE smoke configuration initializes: a moe subtree in place of each MLP
+    moe = model.init_params(get_smoke("granite-moe-1b-a400m"), device="cpu")
+    assert all("moe" in b and "mlp" not in b for b in moe["blocks"])
+    for bad in (dataclasses.replace(get_smoke("granite-moe-1b-a400m"), kv_cache_dtype="int8"),
+                dataclasses.replace(cfg, kv_cache_dtype="int8"),
+                dataclasses.replace(cfg, family="ssm")):
         with pytest.raises(NotImplementedError):
             model.init_params(bad, device="cpu")
 
