@@ -216,7 +216,28 @@ script with a non-zero exit:
    the drift > 0.5; the step timed and profiled first, and the Poisson
    run's steps served open-loop by ContinuousServingLoop at 70% of that
    capacity (p50/p99, sustained req/s, backlog); and ogb_grad's masses and
-   apply at N = 23 424 timed beside their plain versions.
+   apply at N = 23 424 timed beside their plain versions;
+25. the remaining attention families at full width and depth, each drawn
+   in bf16 on the card and freed before the next: (a) mistral-nemo-12b
+   with its int8 KV cache, served as phase 14 serves glm4-9b in 2 generate
+   calls, exactly 40 flash_prefill and 40 x 32 int8-cache decode_attention
+   launches a call, its logits within phase 15's limit of the plain
+   versions' (prefill, and 8 teacher-forced decode steps from a copy of the
+   kernels' cache), the int8 decode against its plain version at the
+   served shape and around the mma design's tile and ring edges, timed
+   beside the bf16-cache kernel over the same K and V, its bound and
+   scaled_dot_product_attention over the dequantized cache, and at split
+   lengths around its plan's; (b) phi-3-vision-4.2b: 8 prompts of 256 image
+   embeddings and 1792 tokens, 32 decode steps (32 CUDA-core D = 96 causal
+   prefill launches, 32 x 32 decode launches), logits against the plain
+   versions', the D = 96 prefill timed beside scaled_dot_product_attention
+   and its bound; (c) whisper-large-v3: 8 utterances of 1500 frames and
+   224-token prompts, 32 decode steps (a prefill: 32 non-causal, 32 causal
+   and 32 cross flash_prefill launches; a step: 32 self and 32 cross
+   decode_attention launches), logits against the plain versions', 64
+   sampled rows of its first encoder and cross calls against float64
+   attention, and both non-causal modes timed beside their bounds and
+   scaled_dot_product_attention.
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -1600,7 +1621,8 @@ def sweep_decode_splits(torch, dev, flush):
 
             def call():
                 _build.check(dk._entry_mma()(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), B, H, Hkv, D, S,
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), 0, 0, lengths.data_ptr(), B, H, Hkv,
+                    D, S,
                     n_splits, split_len, 1.0 / math.sqrt(D), smem, part_m.data_ptr(),
                     part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
                     torch.cuda.current_stream().cuda_stream), "decode split sweep")
@@ -1629,19 +1651,28 @@ def _leaves(tree):
         yield tree
 
 
-def serve_full_width(torch, dev, arch=ARCH):
-    """Phase 14 (and 24 (a)): ``arch`` at full width behind an OGB page
-    pool, 4 generate calls, every attention launch counted.  Returns the
-    engine, the first call's prompts and tokens, the launches, and the
-    steady calls' numbers."""
-    import numpy as np
+def expected_params(cfg):
+    """A model's parameters as init_params draws them: ArchConfig.param_count
+    (which counts three matrices an MLP, where a GELU MLP has two), the norms,
+    the rows of the vocab's padding, and a vlm's image norm or an encdec's
+    learned positions."""
+    from repro_torch.models.model import DEC_POSITIONS, padded_vocab
 
+    d = cfg.d_model
+    n = cfg.param_count() + 2 * (padded_vocab(cfg) - cfg.vocab_size) * d + d
+    if cfg.mlp_activation == "gelu":
+        n -= (cfg.n_layers + cfg.n_encoder_layers) * d * cfg.d_ff
+    if cfg.family == "encdec":
+        return (n + (2 * cfg.n_encoder_layers + 3 * cfg.n_layers + 1) * d
+                + (cfg.n_audio_frames + DEC_POSITIONS) * d)
+    return n + 2 * cfg.n_layers * d + (d if cfg.family == "vlm" else 0)
+
+
+def draw_full_width(torch, dev, arch):
+    """``arch`` at full width and depth, random bf16 weights drawn on the
+    card, its parameter count held to the configuration's."""
     from repro_torch.configs.base import get_arch
-    from repro_torch.core.policies import make_policy
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models.model import init_params, padded_vocab
-    from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.kvcache import PagedKVPool
+    from repro_torch.models.model import init_params
 
     cfg = get_arch(arch)
     torch.cuda.empty_cache()
@@ -1650,31 +1681,46 @@ def serve_full_width(torch, dev, arch=ARCH):
     params = init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    # ArchConfig.param_count, the norms, and the rows of the vocab's padding
-    want = (cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model
-            + 2 * (padded_vocab(cfg) - cfg.vocab_size) * cfg.d_model)
     experts = (f", {cfg.n_experts} experts of {cfg.expert_ff} top-{cfg.experts_per_token}"
                if cfg.n_experts else "")
-    print(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads {cfg.n_heads} / KV "
-          f"{cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}{experts}, vocab "
-          f"{cfg.vocab_size}; {n_params} parameters (ArchConfig.param_count {cfg.param_count()} "
-          f"+ norms + vocab padding) drawn in bf16 on the card in "
+    encoder = f", {cfg.n_encoder_layers} encoder layers" if cfg.n_encoder_layers else ""
+    print(f"{arch}: {cfg.n_layers} layers{encoder}, d_model {cfg.d_model}, heads {cfg.n_heads} / "
+          f"KV {cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}{experts}, vocab "
+          f"{cfg.vocab_size}, KV cache {cfg.kv_cache_dtype}; {n_params} parameters "
+          f"(ArchConfig.param_count {cfg.param_count()} + norms + vocab padding"
+          f"{' + positions' if encoder else ''}) drawn in bf16 on the card in "
           f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
           f"allocated")
-    need(n_params == want, f"the served model is not {arch}'s full width")
+    need(n_params == expected_params(cfg), f"the model is not {arch}'s full width")
+    return cfg, params
+
+
+def serve_full_width(torch, dev, arch=ARCH, calls=SERVE_CALLS):
+    """Phase 14 (and 24 (a), 25 (a)): ``arch`` at full width behind an OGB
+    page pool, ``calls`` generate calls, every attention launch counted.
+    Returns the engine, the first call's prompts and tokens, the launches,
+    and the steady calls' numbers."""
+    import numpy as np
+
+    from repro_torch.core.policies import make_policy
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.kvcache import PagedKVPool
+
+    cfg, params = draw_full_width(torch, dev, arch)
     pages = SERVE_S // PAGE_SIZE
-    policy = make_policy("ogb", 1 << 18, POOL_PAGES, horizon=SERVE_CALLS * SERVE_B * pages,
+    policy = make_policy("ogb", 1 << 18, POOL_PAGES, horizon=calls * SERVE_B * pages,
                          batch_size=SERVE_B * pages)
     pool = PagedKVPool(policy, page_size=PAGE_SIZE)
     engine = ServeEngine(cfg, params, pool=pool, max_len=SERVE_S + SERVE_NEW, device=dev)
     print(f"page pool: OGB over 2^18 page ids, {POOL_PAGES} pages of {PAGE_SIZE} tokens, "
-          f"eta {policy.eta:.6f}, horizon {SERVE_CALLS * SERVE_B * pages} page touches, "
+          f"eta {policy.eta:.6f}, horizon {calls * SERVE_B * pages} page touches, "
           f"batch {SERVE_B * pages}")
     rng = np.random.default_rng(0)
     hot = [rng.integers(1, cfg.vocab_size, SERVE_S) for _ in range(HOT_PROMPTS)]
     reset_launch_counts()
     batches, outs, steady = [], [], []
-    for step in range(SERVE_CALLS):
+    for step in range(calls):
         prompts = np.stack([hot[(step + b) % HOT_PROMPTS] if b < SERVE_B // 2
                             else rng.integers(1, cfg.vocab_size, SERVE_S)
                             for b in range(SERVE_B)]).astype(np.int32)
@@ -1694,11 +1740,11 @@ def serve_full_width(torch, dev, arch=ARCH):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     want = {name: 0 for name in launches}
-    want["flash_prefill"] = cfg.n_layers * SERVE_CALLS
-    want["decode_attention"] = cfg.n_layers * SERVE_NEW * SERVE_CALLS
+    want["flash_prefill"] = cfg.n_layers * calls
+    want["decode_attention"] = cfg.n_layers * SERVE_NEW * calls
     wp = sum(w for w, _ in steady) / len(steady)
     wd = sum(w for _, w in steady) / len(steady)
-    print(f"serving, calls 2-{SERVE_CALLS}: prefill {SERVE_B * SERVE_S / wp:.1f} tokens/s, "
+    print(f"serving, calls 2-{calls}: prefill {SERVE_B * SERVE_S / wp:.1f} tokens/s, "
           f"decode {wd * 1e3 / SERVE_NEW:.3f} ms a step, {SERVE_B * SERVE_NEW / wd:.2f} tokens/s; "
           f"peak memory {peak / 1e9:.3f} GB (max_memory_allocated); prefix reuse "
           f"{engine.stats.prefix_reuse:.6f}, page hit ratio {pool.stats.page_hit_ratio:.6f}, "
@@ -1773,21 +1819,22 @@ class plain_attention:
         attention.flash_prefill, attention.decode_attention = self.saved
 
 
-def _prefill_f64(q, k, v):
-    """Causal GQA attention in float64, one sequence at a time: what the
-    float32 plain version approximates, for a yardstick of how far the served
+def _prefill_f64(q, k, v, causal=True):
+    """GQA attention in float64, one sequence at a time: what the float32
+    plain version approximates, for a yardstick of how far the served
     model's logits move when attention is rounded differently."""
     import torch
 
     B, S, H, D = q.shape
     g = H // k.shape[2]
-    future = torch.ones(S, S, dtype=torch.bool, device=q.device).triu(1)
+    future = torch.ones(S, k.shape[1], dtype=torch.bool, device=q.device).triu(1)
     out = torch.empty_like(q)
     for b in range(B):
         kf = k[b].double().repeat_interleave(g, dim=1)
         vf = v[b].double().repeat_interleave(g, dim=1)
         s = torch.einsum("qhd,khd->hqk", q[b].double(), kf) / math.sqrt(D)
-        s.masked_fill_(future, -1e30)
+        if causal:
+            s.masked_fill_(future, -1e30)
         out[b] = torch.einsum("hqk,khd->qhd", torch.softmax(s, dim=-1), vf).to(q.dtype)
     return out
 
@@ -1795,6 +1842,20 @@ def _prefill_f64(q, k, v):
 def bf16_ulp(x):
     """The spacing of bf16 values at magnitude x (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def held_logits(torch, label, a, b, V):
+    """Logits within 8 bf16 ulps of the largest |logit|: each layer's
+    attention output may round one ulp apart, and 40 layers carry it.
+    Returns the error and the limit."""
+    a, b = a[:, :V].float(), b[:, :V].float()
+    top = float(b.abs().max())
+    tol = 8 * bf16_ulp(top)
+    err = float((a - b).abs().max())
+    print(f"{label}: max |logit kernels - plain| = {err:.4e} (limit {tol:.4e}, 8 bf16 ulps of "
+          f"the largest |logit| {top:.4f})")
+    need(bool(torch.isfinite(a).all()) and err <= tol, f"{label}: logits differ by {err}")
+    return err, tol
 
 
 def check_served_against_plain(torch, engine, prompts, first_out):
@@ -1813,19 +1874,7 @@ def check_served_against_plain(torch, engine, prompts, first_out):
         lp, cp = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
     need(launch_counts() == before, "the plain run launched a kernel")
 
-    def compare(label, a, b):
-        """Logits within 8 bf16 ulps of the largest |logit|: each layer's
-        attention output may round one ulp apart, and 40 layers carry it."""
-        a, b = a[:, :V].float(), b[:, :V].float()
-        top = float(b.abs().max())
-        tol = 8 * bf16_ulp(top)
-        err = float((a - b).abs().max())
-        print(f"{label}: max |logit kernels - plain| = {err:.4e} (limit {tol:.4e}, 8 bf16 ulps "
-              f"of the largest |logit| {top:.4f})")
-        need(bool(torch.isfinite(a).all()) and err <= tol, f"{label}: logits differ by {err}")
-        return tol
-
-    tol = compare("prefill, last token", lk, lp)
+    tol = held_logits(torch, "prefill, last token", lk, lp, V)[1]
     with plain_attention(prefill=_prefill_f64):
         l64, _ = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
     d32 = float((lp[:, :V].float() - l64[:, :V].float()).abs().max())
@@ -1854,7 +1903,7 @@ def check_served_against_plain(torch, engine, prompts, first_out):
         lk, ck = decode_step(cfg, params, ck, tok, dev)
         with plain_attention():
             lp, cp = decode_step(cfg, params, cp, tok, dev)
-        compare(f"decode step {step + 1}, teacher-forced", lk, lp)
+        held_logits(torch, f"decode step {step + 1}, teacher-forced", lk, lp, V)
         tok = torch.argmax(lk[:, :V], -1)
     again = engine.generate(prompts, SERVE_NEW)
     need(np.array_equal(again, first_out), "two generate calls on equal prompts differ")
@@ -4093,6 +4142,393 @@ def check_moe(torch, dev, cpu_runs):
             "projection": projection, "seconds": secs}
 
 
+# -- the remaining attention families (phase 25) -------------------------------------
+
+#: (a) mistral-nemo with its int8 KV cache, served as phase 14 serves glm4-9b,
+#: in FAMILY_CALLS generate calls; (b) phi-3-vision: SERVE_B prompts of its
+#: n_image_tokens image embeddings and VLM_TEXT tokens, SERVE_NEW decode
+#: steps; (c) whisper: SERVE_B utterances of n_audio_frames frames, a
+#: WHISPER_PROMPT-token prompt and SERVE_NEW new tokens in its
+#: WHISPER_MAX_LEN-token text context; F64_ROWS rows of an encoder call and
+#: of a cross call held against float64; the int8 decode's split lengths
+#: (tiles a split) timed beside its plan's
+INT8_ARCH, VLM_ARCH, ENCDEC_ARCH = "mistral-nemo-12b", "phi-3-vision-4.2b", "whisper-large-v3"
+FAMILY_CALLS, VLM_TEXT, WHISPER_PROMPT, WHISPER_MAX_LEN, F64_ROWS = 2, 1792, 224, 448, 64
+INT8_SPLIT_TILES = (3, 5, 9, 17)
+
+
+def family_against_plain(torch, cfg, params, batch, max_len, dev, first=None):
+    """A model's prefill through the kernels against the same prefill through
+    the plain versions on the card, then TEACHER_STEPS teacher-forced decode
+    steps, the plain run from a copy of the kernels' prefill cache (an int8
+    cache quantizes K and V that the two prefills round differently, so each
+    step holds the decode kernels on the same cache).  ``first``: the tokens
+    a generate call gave after this prefill."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.model import decode_step, prefill
+
+    V = cfg.vocab_size
+    lk, ck = prefill(cfg, params, batch, max_len, dev)
+    before = launch_counts()
+    with plain_attention():
+        lp, _ = prefill(cfg, params, batch, max_len, dev)
+    need(launch_counts() == before, "the plain run launched a kernel")
+    errs = [held_logits(torch, f"{cfg.name} prefill, last token", lk, lp, V)[0]]
+    tok = torch.argmax(lk[:, :V], -1)
+    if first is not None:
+        need(np.array_equal(tok.cpu().numpy(), first), "prefill does not repeat generate")
+    cp = {k: v.clone() if torch.is_tensor(v) else v for k, v in ck.items()}
+    for step in range(TEACHER_STEPS):
+        lk, ck = decode_step(cfg, params, ck, tok, dev)
+        with plain_attention():
+            lp, cp = decode_step(cfg, params, cp, tok, dev)
+        errs.append(held_logits(torch, f"{cfg.name} decode step {step + 1}, teacher-forced",
+                                lk, lp, V)[0])
+        tok = torch.argmax(lk[:, :V], -1)
+    return max(errs)
+
+
+class first_prefill_calls:
+    """Within this block the first flash_prefill call of each mode (causal,
+    non-causal, cross) keeps its inputs in ``calls``; every call still runs
+    the kernel and is counted."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_prefill.kernel import mode
+        from repro_torch.models import attention
+
+        self.saved, self.calls = attention.flash_prefill, {}
+
+        def record(q, k, v, causal=True):
+            self.calls.setdefault(mode(q, k, causal), (q, k, v))
+            return self.saved(q, k, v, causal)
+
+        attention.flash_prefill = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+
+        attention.flash_prefill = self.saved
+
+
+def rows_against_f64(torch, label, q, k, v, out, gen):
+    """F64_ROWS sampled (sequence, query row, head) rows of a non-causal call's
+    output against float64 attention over the same bf16 inputs, within one
+    bf16 ulp of the largest of them."""
+    B, S, H, D = q.shape
+    g = H // k.shape[2]
+    b = torch.randint(0, B, (F64_ROWS,), generator=gen, device=q.device)
+    s = torch.randint(0, S, (F64_ROWS,), generator=gen, device=q.device)
+    h = torch.randint(0, H, (F64_ROWS,), generator=gen, device=q.device)
+    qr = q[b, s, h].double()  # (R, D)
+    kr, vr = k[b, :, h // g].double(), v[b, :, h // g].double()  # (R, T, D)
+    w = torch.softmax(torch.einsum("rd,rtd->rt", qr, kr) / math.sqrt(D), dim=-1)
+    want = torch.einsum("rt,rtd->rd", w, vr)
+    err = float((out[b, s, h].double() - want).abs().max())
+    tol = 2.0 ** -7 * float(want.abs().max())
+    print(f"{label}: {F64_ROWS} sampled rows against float64 attention: max err {err:.3e} "
+          f"(limit {tol:.3e}, one bf16 ulp of the largest)")
+    need(err <= tol, f"{label}: rows differ from float64 by {err}")
+    return err
+
+
+def int8_decode_rows(torch, dev, cfg, flush):
+    """Phase 25 (a): the int8 decode kernel at the served shape (SERVE_B
+    sequences, the SERVE_S + SERVE_NEW cache, lengths SERVE_S + 1 ..) and at
+    lengths around the mma design's tile and ring edges against its plain
+    version; timed beside the bf16-cache kernel over the same K and V
+    unquantized, its bound and scaled_dot_product_attention over the
+    dequantized cache; and at split lengths around its plan's, launched
+    through the C entry point (not counted)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref, dequantize
+    from repro_torch.models.attention import _quantize_kv
+
+    bf, B, S = torch.bfloat16, SERVE_B, SERVE_S + SERVE_NEW
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(25)
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(bf)
+    kv = torch.randn(2, B, S, Hkv, D, generator=gen, device=dev).to(bf)
+    codes, scales = _quantize_kv(kv)
+    k8, v8, ks, vs = codes[0], codes[1], scales[0], scales[1]
+    served = torch.arange(SERVE_S + 1, SERVE_S + 1 + B, device=dev,
+                          dtype=torch.int32).clamp(max=S)
+    errs = []
+    for name, lengths in (("served", served.tolist()),
+                          ("tile", [1, 63, 64, 65, 127, 128, 129, S]),
+                          ("ring", [191, 192, 193, 255, 256, 257, SERVE_S + 1, S])):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        errs.append(_held(torch, f"decode int8 {INT8_ARCH} bf16 B={B} H={H} Hkv={Hkv} D={D} "
+                                 f"S={S} lengths {name} [{dk.design(bf, D)}]",
+                          decode_attention(q, k8, v8, lens, ks, vs),
+                          decode_attention(q, k8, v8, lens, ks, vs),
+                          decode_attention_ref(q, k8, v8, lens, ks, vs), bf))
+    kd, vd = dequantize(k8, ks, bf), dequantize(v8, vs, bf)
+    mask = (torch.arange(S, device=dev)[None, :] < served[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None, :], kd.transpose(1, 2), vd.transpose(1, 2)
+    valid = int(served.sum())
+    # the int8 codes and scales of every valid position read once; q, out, lengths once
+    n_bytes = 2 * valid * Hkv * D + 2 * 4 * valid * Hkv + 2 * 2 * B * H * D + 4 * B
+    row = measure_attention(
+        torch, "decode_attention", f"int8 cache B={B} S={S} (lengths {SERVE_S + 1}..)",
+        (lambda: decode_attention(q, k8, v8, served, ks, vs),
+         lambda: decode_attention_ref(q, k8, v8, served, ks, vs),
+         lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+         bound_ms(n_bytes, 4 * valid * H * D, BF16_OPS_PER_S)), 10, flush)
+    bf16_bytes = 2 * 2 * valid * Hkv * D + 2 * 2 * B * H * D + 4 * B
+    bf16_row = measure_attention(
+        torch, "decode_attention", f"bf16 cache, the same K and V B={B} S={S}",
+        (lambda: decode_attention(q, kv[0], kv[1], served),
+         lambda: decode_attention_ref(q, kv[0], kv[1], served),
+         lambda: F.scaled_dot_product_attention(qt, kv[0].transpose(1, 2), kv[1].transpose(1, 2),
+                                                attn_mask=mask, enable_gqa=True),
+         bound_ms(bf16_bytes, 4 * valid * H * D, BF16_OPS_PER_S)), 10, flush)
+    print(f"int8 decode {row['ms'] * 1e3:.2f} us against the bf16-cache kernel's "
+          f"{bf16_row['ms'] * 1e3:.2f} us at the same shape; bounds {row['bound_ms'] * 1e3:.2f} "
+          f"and {bf16_row['bound_ms'] * 1e3:.2f} us; {nvidia_smi_line()}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan_len = dk.mma_grid_plan(B, H, Hkv, S, D, sms, int8=True)[1]
+    smem = dk.decode_plan(D, int8=True)["smem_bytes"]
+    want = decode_attention_ref(q, k8, v8, served, ks, vs)
+    splits = {}
+    for t in INT8_SPLIT_TILES:
+        split_len = dk.TILE * t
+        n_splits = -(-S // split_len)
+        part_m = torch.empty((B, H, n_splits), dtype=torch.float32, device=dev)
+        part_l = torch.empty_like(part_m)
+        part_acc = torch.empty((B, H, n_splits, D), dtype=torch.float32, device=dev)
+        out = torch.empty_like(q)
+
+        def call():
+            _build.check(dk._entry_mma()(
+                q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+                served.data_ptr(), B, H, Hkv, D, S, n_splits, split_len, 1.0 / math.sqrt(D), smem,
+                part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), "int8 decode split sweep")
+
+        call()
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        need(err <= 2.0 ** -7 * float(want.float().abs().max()),
+             f"int8 decode split sweep, {t} tiles a split: |kernel - plain| = {err}")
+        ms = timed_ms(torch, call, 20, flush)
+        mark = " [mma_grid_plan]" if split_len == plan_len else ""
+        print(f"int8 decode split sweep S={S}: {t} tiles a split, {n_splits} splits, "
+              f"{B * Hkv * n_splits} blocks{mark}: cold {ms * 1e3:.2f} us (both passes)")
+        splits[t] = ms
+    return {**row, "max_abs_err": max(errs), "design": dk.design(bf, D),
+            "shape": f"B={B} H={H} Hkv={Hkv} D={D} S={S} lengths {SERVE_S + 1}..{S}",
+            "bf16_cache": {k: bf16_row[k] for k in ("ms", "warm_ms", "bound_ms", "library_ms")},
+            "split_tiles_ms": splits, "plan_split_tiles": plan_len // dk.TILE}
+
+
+def serve_int8(torch, dev, flush):
+    """Phase 25 (a): mistral-nemo at full width, all 40 layers, its int8 KV
+    cache, served behind an OGB page pool in FAMILY_CALLS generate calls;
+    its logits against the plain versions'; the int8 decode timed."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import design_counts
+
+    engine, prompts, first_out, launches, steady = serve_full_width(torch, dev, INT8_ARCH,
+                                                                    calls=FAMILY_CALLS)
+    cfg, L = engine.cfg, engine.cfg.n_layers
+    designs = design_counts()
+    want = {"flash_prefill": {"wgmma+tma, causal": L * FAMILY_CALLS},
+            "decode_attention": {"mma.sync+cp.async, int8 cache": L * SERVE_NEW * FAMILY_CALLS}}
+    print(f"{INT8_ARCH} launches by design and mode: {designs}")
+    need(cfg.kv_cache_dtype == "int8" and all(designs.get(k) == v for k, v in want.items()),
+         f"{INT8_ARCH}: launches by mode {designs}, expected {want}")
+    err = family_against_plain(torch, cfg, engine.params,
+                               {"tokens": torch.from_numpy(prompts).to(dev)}, engine.max_len,
+                               dev, first_out[:, 0])
+    del engine
+    torch.cuda.empty_cache()
+    decode = int8_decode_rows(torch, dev, get_arch(INT8_ARCH), flush)
+    return {"serving": steady, "launches": launches, "max_logit_err": err, "decode": decode}
+
+
+def serve_vlm(torch, dev, flush):
+    """Phase 25 (b): phi-3-vision at full width, all 32 layers: prefill of
+    SERVE_B prompts of its image embeddings (a seeded normal) and VLM_TEXT
+    tokens, SERVE_NEW decode steps, the D = 96 prefill (the CUDA-core
+    design) timed beside scaled_dot_product_attention and its bound."""
+    import numpy as np
+
+    from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_prefill.kernel import design as prefill_design
+    from repro_torch.models.model import decode_step, prefill
+
+    cfg, params = draw_full_width(torch, dev, VLM_ARCH)
+    L, V, n_img = cfg.n_layers, cfg.vocab_size, cfg.n_image_tokens
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rng = np.random.default_rng(25)
+    batch = {"tokens": torch.from_numpy(rng.integers(1, V, (SERVE_B, VLM_TEXT))).to(dev),
+             "image_embeds": torch.randn(SERVE_B, n_img, cfg.d_model, generator=gen,
+                                         device=dev).to(torch.bfloat16)}
+    max_len = n_img + VLM_TEXT + SERVE_NEW
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(cfg, params, batch, max_len, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok = torch.argmax(logits[:, :V], -1)
+    first = tok.cpu().numpy()
+    for _ in range(SERVE_NEW):
+        logits, cache = decode_step(cfg, params, cache, tok, dev)
+        tok = torch.argmax(logits[:, :V], -1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches, designs = launch_counts(), design_counts()
+    print(f"{VLM_ARCH}: prefill of {SERVE_B} x ({n_img} image + {VLM_TEXT} text) positions "
+          f"{t1 - t0:.4f} s, decode {(t2 - t1) * 1e3 / SERVE_NEW:.3f} ms a step; launches by "
+          f"design and mode {designs}")
+    want = {"flash_prefill": {f"{prefill_design(torch.bfloat16, cfg.head_dim)}, causal": L},
+            "decode_attention": {"mma.sync+cp.async, compute-type cache": L * SERVE_NEW}}
+    need(cache["pos"] == max_len and bool(torch.isfinite(logits[:, :V]).all()),
+         f"{VLM_ARCH}: cache at {cache['pos']}, or non-finite logits")
+    need(all(designs.get(k) == v for k, v in want.items())
+         and sum(launches.values()) == L * (1 + SERVE_NEW),
+         f"{VLM_ARCH}: launches {launches} by mode {designs}, expected {want}")
+    del cache, logits
+    err = family_against_plain(torch, cfg, params, batch, max_len, dev, first)
+    del params, batch
+    torch.cuda.empty_cache()
+    _, prefill_job = attention_jobs(torch, dev, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 25)
+    timed = measure_attention(torch, "flash_prefill", f"{VLM_ARCH} D={cfg.head_dim} B={SERVE_B} "
+                              f"S={n_img + VLM_TEXT}", prefill_job(SERVE_B, n_img + VLM_TEXT), 3,
+                              flush)
+    torch.cuda.empty_cache()
+    return {"prefill_s": t1 - t0, "decode_ms_a_step": (t2 - t1) * 1e3 / SERVE_NEW,
+            "launches": {k: launches[k] for k in ("flash_prefill", "decode_attention")},
+            "max_logit_err": err,
+            "prefill_d96": {**timed, "design": prefill_design(torch.bfloat16, cfg.head_dim),
+                            "shape": f"B={SERVE_B} S={n_img + VLM_TEXT} H={cfg.n_heads} "
+                                     f"Hkv={cfg.n_kv_heads} D={cfg.head_dim}"}}
+
+
+def non_causal_job(torch, dev, S, T, H, D, seed):
+    """A timed non-causal call of S query rows over T keys (B = SERVE_B,
+    H = Hkv, bf16): kernel, plain version, one scaled_dot_product_attention
+    call and the bound (4 B H S T D operations at the bf16 tensor-core peak)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(SERVE_B, S, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(SERVE_B, T, H, D, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    n_bytes = 2 * (2 * SERVE_B * S * H * D + 2 * SERVE_B * T * H * D)
+    return (lambda: flash_prefill(q, k, v, causal=False),
+            lambda: flash_prefill_ref(q, k, v, causal=False),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt),
+            bound_ms(n_bytes, 4 * SERVE_B * H * S * T * D, BF16_OPS_PER_S))
+
+
+def serve_encdec(torch, dev, flush):
+    """Phase 25 (c): whisper at full width, 32 encoder and 32 decoder layers:
+    prefill of SERVE_B utterances (frames a seeded normal) and
+    WHISPER_PROMPT-token prompts, SERVE_NEW decode steps; rows of its first
+    encoder and cross calls against float64; both new modes timed."""
+    import numpy as np
+
+    from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.models.model import decode_step, prefill
+
+    cfg, params = draw_full_width(torch, dev, ENCDEC_ARCH)
+    L, V, T = cfg.n_layers, cfg.vocab_size, cfg.n_audio_frames
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rng = np.random.default_rng(25)
+    batch = {"tokens": torch.from_numpy(rng.integers(1, V, (SERVE_B, WHISPER_PROMPT))).to(dev),
+             "frames": torch.randn(SERVE_B, T, cfg.d_model, generator=gen,
+                                   device=dev).to(torch.bfloat16)}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with first_prefill_calls() as rec:
+        logits, cache = prefill(cfg, params, batch, WHISPER_MAX_LEN, dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok = torch.argmax(logits[:, :V], -1)
+    first = tok.cpu().numpy()
+    for _ in range(SERVE_NEW):
+        logits, cache = decode_step(cfg, params, cache, tok, dev)
+        tok = torch.argmax(logits[:, :V], -1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches, designs = launch_counts(), design_counts()
+    print(f"{ENCDEC_ARCH}: prefill of {SERVE_B} x ({T} frames, {WHISPER_PROMPT} tokens) "
+          f"{t1 - t0:.4f} s, decode {(t2 - t1) * 1e3 / SERVE_NEW:.3f} ms a step; launches by "
+          f"design and mode {designs}")
+    want = {"flash_prefill": {"wgmma+tma, non-causal": cfg.n_encoder_layers,
+                              "wgmma+tma, causal": L, "wgmma+tma, cross": L},
+            "decode_attention": {"mma.sync+cp.async, compute-type cache": 2 * L * SERVE_NEW}}
+    need(cache["pos"] == WHISPER_PROMPT + SERVE_NEW
+         and bool(torch.isfinite(logits[:, :V]).all()),
+         f"{ENCDEC_ARCH}: cache at {cache['pos']}, or non-finite logits")
+    need(all(designs.get(k) == v for k, v in want.items())
+         and sum(launches.values()) == 3 * L + 2 * L * SERVE_NEW,
+         f"{ENCDEC_ARCH}: launches {launches} by mode {designs}, expected {want}")
+    del cache, logits
+    f64 = {}
+    for name in ("non-causal", "cross"):
+        q, k, v = rec.calls[name]
+        f64[name] = rows_against_f64(torch, f"{ENCDEC_ARCH} first {name} call {tuple(q.shape)} "
+                                            f"over {tuple(k.shape)}",
+                                     q, k, v, flash_prefill(q, k, v, causal=False), gen)
+    del rec
+    err = family_against_plain(torch, cfg, params, batch, WHISPER_MAX_LEN, dev, first)
+    del params, batch
+    torch.cuda.empty_cache()
+    timed = {}
+    for name, S in (("non_causal", T), ("cross", WHISPER_PROMPT)):
+        timed[name] = measure_attention(
+            torch, "flash_prefill", f"{name} B={SERVE_B} S={S} T={T} H={cfg.n_heads} "
+                                    f"D={cfg.head_dim}",
+            non_causal_job(torch, dev, S, T, cfg.n_heads, cfg.head_dim, 26), 3, flush)
+        timed[name].update(shape=f"B={SERVE_B} S={S} T={T} H=Hkv={cfg.n_heads} D={cfg.head_dim}",
+                           max_abs_err_f64_rows=f64["non-causal" if S == T else "cross"])
+        torch.cuda.empty_cache()
+    return {"prefill_s": t1 - t0, "decode_ms_a_step": (t2 - t1) * 1e3 / SERVE_NEW,
+            "launches": {k: launches[k] for k in ("flash_prefill", "decode_attention")},
+            "launches_by_mode": designs, "cross_decode_launches": L * SERVE_NEW,
+            "max_logit_err": err, "timed": timed}
+
+
+def check_families(torch, dev):
+    """Phase 25: the remaining attention families at full width and depth,
+    each drawn in bf16 on the card and freed before the next."""
+    import gc
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"attention families phase 25 on {nvidia_smi_line()}; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated at its start")
+    need(torch.cuda.memory_allocated(dev) < 4e9, "an earlier phase's weights are still held")
+    flush = l2_flush(torch, dev)
+    out, secs = {}, {}
+    for name, fn in (("int8", serve_int8), ("vlm", serve_vlm), ("encdec", serve_encdec)):
+        t1 = time.perf_counter()
+        out[name] = fn(torch, dev, flush)
+        gc.collect()
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t1
+        print(f"phase 25 {name}: {secs[name]:.2f} s on {nvidia_smi_line()}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 25: {out['seconds']:.2f} s ({secs})")
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -4178,6 +4614,7 @@ def main() -> int:
         moe24 = check_moe(torch, dev, expert_runs)
     finally:
         expert_pool.shutdown(wait=True, cancel_futures=True)
+    families25 = check_families(torch, dev)
 
     # launches: the dense main path's for its kernels, the lazy main path's
     # for the prefix-tree kernels (segsum also ran 1 a chunk on madow_tree)
@@ -4261,6 +4698,20 @@ def main() -> int:
     # launches and times at its served shapes, ogb_grad's projection a step
     for name in ("flash_prefill", "decode_attention"):
         rows[name]["granite_moe"] = moe24["served"]["attention"][name]
+    # the attention families (phase 25): the new modes at the shapes their
+    # models launch them, with those models' launches
+    encdec, vlm, int8 = families25["encdec"], families25["vlm"], families25["int8"]
+    for name in ("non_causal", "cross"):
+        rows["flash_prefill"][name] = {
+            "launches_whisper_prefill": encdec["launches_by_mode"]["flash_prefill"][
+                "wgmma+tma, " + name.replace("_", "-")], **encdec["timed"][name]}
+    rows["flash_prefill"]["phi3_vision"] = {"launches": vlm["launches"]["flash_prefill"],
+                                            **vlm["prefill_d96"]}
+    rows["decode_attention"]["int8"] = {"launches_mistral_serving":
+                                        int8["launches"]["decode_attention"], **int8["decode"]}
+    rows["decode_attention"]["whisper"] = {"launches": encdec["launches"]["decode_attention"],
+                                           "of_them_cross": encdec["cross_decode_launches"]}
+    rows["decode_attention"]["phi3_vision"] = {"launches": vlm["launches"]["decode_attention"]}
     for name, per_step in (("mass", 50), ("apply", 1)):
         rows[name]["ogb_grad"] = {
             "launches_a_step": per_step,
@@ -4278,7 +4729,11 @@ def main() -> int:
                       "sweep": {"dense": swept["dense"], "automata": swept["automata"]},
                       "stream": fleet23["stream"], "fleet": fleet,
                       "edge_quick": fleet23["edge_quick"],
-                      "moe": {k: moe24[k] for k in ("served", "dispatch", "experts")}}))
+                      "moe": {k: moe24[k] for k in ("served", "dispatch", "experts")},
+                      "families": {
+                          name: {k: v for k, v in families25[name].items()
+                                 if k not in ("decode", "timed", "prefill_d96")}
+                          for name in ("int8", "vlm", "encdec")}}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

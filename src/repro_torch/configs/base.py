@@ -2,10 +2,10 @@
 
 An :class:`ArchConfig` holds a model's published dimensions; each
 registered architecture also has a reduced smoke variant for CPU tests.
-The port carries the configurations whose KV cache is stored in the compute
-type: the dense glm4-9b, qwen3-14b and gemma-7b, and the MoE granite-moe and
-kimi-k2; asking for any other architecture of the JAX package raises
-``NotImplementedError``.
+The port carries the attention families: the dense glm4-9b, qwen3-14b,
+gemma-7b and mistral-nemo (its int8 KV cache), the MoE granite-moe and
+kimi-k2, the VLM phi-3-vision and the encoder-decoder whisper; asking for
+the SSM rwkv6 or the hybrid jamba raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -148,13 +148,10 @@ _REGISTRY: Dict[str, ArchConfig] = {}
 _SMOKE: Dict[str, ArchConfig] = {}
 
 #: architectures of the JAX package that the port does not carry yet
-#: (SSM, hybrid, encoder-decoder, VLM, and int8 KV for mistral-nemo)
+#: (SSM and hybrid: each needs its recurrent scan)
 NOT_PORTED = (
     "jamba-1.5-large-398b",
-    "mistral-nemo-12b",
-    "phi-3-vision-4.2b",
     "rwkv6-1.6b",
-    "whisper-large-v3",
 )
 
 
@@ -191,4 +188,13 @@ def list_archs() -> List[str]:
 def _ensure_loaded() -> None:
     if _REGISTRY:
         return
-    from . import gemma_7b, glm4_9b, granite_moe_1b_a400m, kimi_k2, qwen3_14b  # noqa: F401
+    from . import (  # noqa: F401
+        gemma_7b,
+        glm4_9b,
+        granite_moe_1b_a400m,
+        kimi_k2,
+        mistral_nemo_12b,
+        phi3_vision,
+        qwen3_14b,
+        whisper_large_v3,
+    )

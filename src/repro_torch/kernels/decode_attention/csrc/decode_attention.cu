@@ -50,6 +50,22 @@
 //   widened to float32 in shared memory.  The tensor cores have no
 //   full-float32 product, and TF32's 10 mantissa bits would break the 2e-5
 //   float32 limit the kernel is held to; the served models decode in bf16.
+//
+// An int8 cache (mistral-nemo's kv_cache_dtype="int8": int8 K/V codes and a
+// float32 scale a (position, KV head)) runs in either design, chosen as
+// above by q's type.  repro dequantizes the whole cache in jnp before its
+// attention (src/repro/models/attention.py:241-266: float32(code) * scale,
+// rounded to q's type); here each tile is dequantized the same way, element
+// by element (__fmul_rn, never fused into an FMA, then rounded to q's type),
+// on its way into the tile that the products read, and no dequantized copy
+// of the cache ever reaches HBM.  The reason for the int8 cache is its
+// bytes: at mistral-nemo's served shape (B=8, Hkv=8, D=128, S=2080) the
+// codes are 34.1 MB and the scales 1.1 MB, a bound of 10.5 us, against
+// 68.2 MB and 20.3 us for the same cache in bf16.  In the mma design the
+// codes and scales are staged by cp.async (16-byte copies of codes, 4-byte
+// copies of scales) into the same 3-tile ring, and each warp converts its
+// own 16 positions of a tile into a bf16 tile of its own just before its
+// products, so only a warp-wide barrier sits between the two.
 
 #include <cstdint>
 
@@ -78,18 +94,44 @@ __device__ __forceinline__ void load_pack(const __nv_bfloat16* __restrict__ src,
   reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
 }
 
+// Elements of one staged pack: 16 bytes of float or bf16, 8 int8 codes.
 template <typename T> struct Pack { static constexpr int kElems = 16 / sizeof(T); };
+template <> struct Pack<int8_t> { static constexpr int kElems = 8; };
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
+// One dequantized element as repro computes it: float32(code) * scale in
+// float32 (never contracted into an FMA), rounded to the query's type T.
+template <typename T> __device__ __forceinline__ float dequant(int8_t code, float scale);
+template <> __device__ __forceinline__ float dequant<float>(int8_t code, float scale) {
+  return __fmul_rn((float)code, scale);
+}
+template <> __device__ __forceinline__ float dequant<__nv_bfloat16>(int8_t code, float scale) {
+  return __bfloat162float(__float2bfloat16_rn(__fmul_rn((float)code, scale)));
+}
+
+// Widen 8 int8 codes at src (8-byte aligned), dequantized for queries of type T.
 template <typename T>
+__device__ __forceinline__ void load_pack_q8(const int8_t* __restrict__ src, float scale,
+                                             float* dst) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) dst[e] = dequant<T>(c[e], scale);
+}
+
+// T: the query's (and output's) type; C: the cache's, T or int8_t (then
+// k_scale and v_scale, (B, S, Hkv) float32, dequantize it).
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+decode_split_kernel(const T* __restrict__ q, const C* __restrict__ k, const C* __restrict__ v,
+                    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                     const int* __restrict__ lengths, int H, int Hkv, int D, long long S,
                     int n_splits, long long split_len, float scale, float* __restrict__ part_m,
                     float* __restrict__ part_l, float* __restrict__ part_acc) {
-  constexpr int E = Pack<T>::kElems;
+  constexpr int E = Pack<C>::kElems;  // of a staged K/V pack
+  constexpr int EQ = Pack<T>::kElems;
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int g = H / Hkv;
   const long long len = min((long long)lengths[b], S);
@@ -110,7 +152,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   // the group's queries are g adjacent heads: one contiguous run of g * D
   const T* qg = q + ((long long)b * H + (long long)kvh * g) * D;
-  for (int i = tid; i < g * D / E; i += kThreads) load_pack(qg + i * E, q_s + i * E);
+  for (int i = tid; i < g * D / EQ; i += kThreads) load_pack(qg + i * EQ, q_s + i * EQ);
   for (int i = tid; i < g; i += kThreads) {
     m_s[i] = kNegInf;
     l_s[i] = 0.0f;
@@ -129,9 +171,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       float* kd = k_s + r * ld + c;
       float* vd = v_s + r * ld + c;
       if (r < rows) {
-        const long long off = (((long long)b * S + t0 + r) * Hkv + kvh) * D + c;
-        load_pack(k + off, kd);
-        load_pack(v + off, vd);
+        const long long row = ((long long)b * S + t0 + r) * Hkv + kvh;
+        if constexpr (sizeof(C) == 1) {
+          load_pack_q8<T>(k + row * D + c, k_scale[row], kd);
+          load_pack_q8<T>(v + row * D + c, v_scale[row], vd);
+        } else {
+          load_pack(k + row * D + c, kd);
+          load_pack(v + row * D + c, vd);
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < E; ++e) kd[e] = vd[e] = 0.0f;
@@ -249,20 +296,22 @@ __global__ void decode_combine_kernel(const int* __restrict__ lengths, int H, in
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* lengths, int B, int H,
-           int Hkv, int D, long long S, int n_splits, long long split_len, float scale,
-           void* part_m, void* part_l, void* part_acc, void* out, cudaStream_t stream) {
+template <typename T, typename C>
+int launch(const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+           const void* lengths, int B, int H, int Hkv, int D, long long S, int n_splits,
+           long long split_len, float scale, void* part_m, void* part_l, void* part_acc,
+           void* out, cudaStream_t stream) {
   const int g = H / Hkv;
   const size_t smem =
       sizeof(float) * ((size_t)g * D + 2 * (size_t)kTile * (D + 4) + (size_t)g * kTile + 3 * (size_t)g);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_split_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        decode_split_kernel<T, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_split_kernel<T><<<dim3(n_splits, Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  decode_split_kernel<T, C><<<dim3(n_splits, Hkv, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const C*>(k), static_cast<const C*>(v),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const int*>(lengths), H, Hkv, D, S, n_splits, split_len, scale,
       static_cast<float*>(part_m), static_cast<float*>(part_l), static_cast<float*>(part_acc));
   const cudaError_t e = cudaGetLastError();
@@ -284,10 +333,22 @@ constexpr int kRowPad = 8;        // bf16 padding of a staged row (16 bytes)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+constexpr int kRowPad8 = 16;     // byte padding of a staged row of int8 codes
+
 // Shared memory of one block at head dimension D: the ring of K and V tiles,
 // which the warps' merge reuses (4 x 16 x D floats and 2 x 64 floats fit in
-// it).  kernel.py's decode_plan computes the same figure and passes it in.
+// it).  An int8 cache's ring holds codes (rows of D + 16 bytes) and a scale a
+// row, and each warp a bf16 K and V tile of its 16 rows; the merge's
+// 64 D + 128 floats fit in it too.  kernel.py's decode_plan computes the
+// same figures and passes them in.
 constexpr int mma_smem_bytes(int D) { return kMmaStages * 2 * kTile * (D + kRowPad) * 2; }
+__host__ __device__ constexpr int mma_q8_ring_bytes(int D) {
+  return kMmaStages * 2 * kTile * (D + kRowPad8);
+}
+__host__ __device__ constexpr int mma_q8_scale_bytes() { return kMmaStages * 2 * kTile * 4; }
+__host__ __device__ constexpr int mma_q8_smem_bytes(int D) {
+  return mma_q8_ring_bytes(D) + mma_q8_scale_bytes() + 4 * 2 * 16 * (D + kRowPad) * 2;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -296,6 +357,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 16 bytes from src to dst, or 16 zero bytes when bytes == 0 (src not read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+// 4 bytes from src to dst, or 4 zero bytes when bytes == 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(bytes)
                : "memory");
 }
@@ -338,16 +405,38 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// 8 int8 codes at src (8-byte aligned) times scale, rounded to bf16, to dst
+// (16-byte aligned): repro's dequantization of a bf16 model's cache.
+__device__ __forceinline__ void dequant8_bf16(const int8_t* src, float scale,
+                                              __nv_bfloat16* dst) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(src);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+  uint4 out;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 h = __halves2bfloat162(
+        __float2bfloat16_rn(__fmul_rn((float)c[2 * e], scale)),
+        __float2bfloat16_rn(__fmul_rn((float)c[2 * e + 1], scale)));
+    o[e] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(dst) = out;
+}
+
 // NT: 16-column steps of D the registers are sized for (D <= 16 NT); the
 // steps at or past D / 16 are skipped.  Writes partials as decode_split_kernel
 // does (m in the natural-log domain), so decode_combine_kernel finishes both.
-template <int NT>
+// C: the cache's type, bf16 or int8_t (then k_scale and v_scale, (B, S, Hkv)
+// float32, dequantize it).
+template <int NT, typename C>
 __global__ void __launch_bounds__(kMmaThreads)
-decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths, int H,
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const C* __restrict__ k,
+                  const C* __restrict__ v, const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale, const int* __restrict__ lengths, int H,
                   int Hkv, int D, long long S, int n_splits, long long split_len,
                   float scale_log2, float* __restrict__ part_m, float* __restrict__ part_l,
                   float* __restrict__ part_acc) {
+  constexpr bool kQ8 = sizeof(C) == 1;
   const int g = H / Hkv, row_tiles = (g + 15) / 16;
   const int split = blockIdx.x, kvh = blockIdx.y / row_tiles, g0 = 16 * (blockIdx.y % row_tiles);
   const int b = blockIdx.z;
@@ -362,21 +451,49 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int qr = lane >> 2, qc = 2 * (lane & 3);  // fragment row (and row + 8) and column pair
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  // stage s: K [64][ld] then V [64][ld]
+  // stage s: K [64][ld] then V [64][ld] (bf16); an int8 cache's stage s:
+  // codes K [64][ld8] then V [64][ld8] in ring8, scales K [64] then V [64]
+  // in scl, and each warp's bf16 K [16][ld] then V [16][ld] in wtile
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int ld8 = D + kRowPad8;
+  int8_t* ring8 = reinterpret_cast<int8_t*>(smem_raw);
+  float* scl = reinterpret_cast<float*>(smem_raw + mma_q8_ring_bytes(D));
+  __nv_bfloat16* wtile = reinterpret_cast<__nv_bfloat16*>(
+      smem_raw + mma_q8_ring_bytes(D) + mma_q8_scale_bytes()) + warp * 2 * 16 * ld;
 
   auto load_tile = [&](int t) {
     const long long t0 = s_begin + (long long)kTile * t;
     const int valid = (int)min((long long)kTile, s_end - t0);
-    __nv_bfloat16* ks = ring + (t % kMmaStages) * 2 * kTile * ld;
-    __nv_bfloat16* vs = ks + kTile * ld;
-    const int chunks = D / 8;  // 16-byte chunks of a row
-    for (int i = tid; i < kTile * chunks; i += kMmaThreads) {
-      const int r = i / chunks, c = (i % chunks) * 8;
-      const long long off = (((long long)b * S + t0 + min(r, valid - 1)) * Hkv + kvh) * D + c;
-      const int bytes = r < valid ? 16 : 0;
-      cp_async16(ks + r * ld + c, k + off, bytes);
-      cp_async16(vs + r * ld + c, v + off, bytes);
+    const int stage = t % kMmaStages;
+    if constexpr (sizeof(C) == 1) {  // an int8 cache: codes, and a scale a row
+      int8_t* ks = ring8 + stage * 2 * kTile * ld8;
+      int8_t* vs = ks + kTile * ld8;
+      const int chunks = D / 16;  // 16-byte chunks of a row of codes
+      for (int i = tid; i < kTile * chunks; i += kMmaThreads) {
+        const int r = i / chunks, c = (i % chunks) * 16;
+        const long long off = (((long long)b * S + t0 + min(r, valid - 1)) * Hkv + kvh) * D + c;
+        const int bytes = r < valid ? 16 : 0;
+        cp_async16(ks + r * ld8 + c, k + off, bytes);
+        cp_async16(vs + r * ld8 + c, v + off, bytes);
+      }
+      float* kss = scl + stage * 2 * kTile;
+      for (int r = tid; r < kTile; r += kMmaThreads) {
+        const long long row = ((long long)b * S + t0 + min(r, valid - 1)) * Hkv + kvh;
+        const int bytes = r < valid ? 4 : 0;
+        cp_async4(kss + r, k_scale + row, bytes);
+        cp_async4(kss + kTile + r, v_scale + row, bytes);
+      }
+    } else {
+      __nv_bfloat16* ks = ring + stage * 2 * kTile * ld;
+      __nv_bfloat16* vs = ks + kTile * ld;
+      const int chunks = D / 8;  // 16-byte chunks of a row
+      for (int i = tid; i < kTile * chunks; i += kMmaThreads) {
+        const int r = i / chunks, c = (i % chunks) * 8;
+        const long long off = (((long long)b * S + t0 + min(r, valid - 1)) * Hkv + kvh) * D + c;
+        const int bytes = r < valid ? 16 : 0;
+        cp_async16(ks + r * ld + c, k + off, bytes);
+        cp_async16(vs + r * ld + c, v + off, bytes);
+      }
     }
   };
 #pragma unroll
@@ -406,8 +523,25 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     __syncthreads();                  // and everyone's
     const long long key0 = s_begin + (long long)kTile * t + 16 * warp;  // the warp's 16 keys
     if (key0 < s_end) {  // else none of them is valid: nothing to add
-      const __nv_bfloat16* ks = ring + (t % kMmaStages) * 2 * kTile * ld + 16 * warp * ld;
-      const __nv_bfloat16* vs = ks + kTile * ld;
+      const __nv_bfloat16* ks;
+      const __nv_bfloat16* vs;
+      if constexpr (kQ8) {  // the warp's 16 rows of codes into its own bf16 tiles
+        const int stage = t % kMmaStages;
+        const int8_t* k8 = ring8 + stage * 2 * kTile * ld8 + 16 * warp * ld8;
+        const float* ksc = scl + stage * 2 * kTile + 16 * warp;
+        const int chunks = D / 8;
+        for (int i = lane; i < 16 * chunks; i += 32) {
+          const int r = i / chunks, c = (i % chunks) * 8;
+          dequant8_bf16(k8 + r * ld8 + c, ksc[r], wtile + r * ld + c);
+          dequant8_bf16(k8 + kTile * ld8 + r * ld8 + c, ksc[kTile + r], wtile + (16 + r) * ld + c);
+        }
+        __syncwarp();
+        ks = wtile;
+        vs = wtile + 16 * ld;
+      } else {
+        ks = ring + (t % kMmaStages) * 2 * kTile * ld + 16 * warp * ld;
+        vs = ks + kTile * ld;
+      }
 
       // scores of 16 rows x 16 keys: register 2r + e of n-block nb is row qr + 8r,
       // key key0 + 8 nb + qc + e
@@ -472,7 +606,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
         mma_16816(o[2 * kk + 1], pa, vb[2], vb[3]);
       }
     }
-    __syncthreads();  // everyone is done with tile t's stage: refill it
+    __syncthreads();  // everyone is done with tile t's stage (and its warp tile): refill it
     if (t + kMmaStages < n_tiles) load_tile(t + kMmaStages);
     cp_async_commit();
   }
@@ -520,21 +654,23 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   }
 }
 
-template <int NT>
-int launch_mma(const void* q, const void* k, const void* v, const void* lengths, int B, int H,
-               int Hkv, int D, long long S, int n_splits, long long split_len, float scale,
-               int smem, void* part_m, void* part_l, void* part_acc, void* out,
-               cudaStream_t stream) {
-  if (smem < mma_smem_bytes(D)) return (int)cudaErrorInvalidValue;
+template <int NT, typename C>
+int launch_mma(const void* q, const void* k, const void* v, const void* k_scale,
+               const void* v_scale, const void* lengths, int B, int H, int Hkv, int D,
+               long long S, int n_splits, long long split_len, float scale, int smem,
+               void* part_m, void* part_l, void* part_acc, void* out, cudaStream_t stream) {
+  const int need = sizeof(C) == 1 ? mma_q8_smem_bytes(D) : mma_smem_bytes(D);
+  if (smem < need || smem < 4 * 16 * D * 4 + 2 * 64 * 4) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_mma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        decode_mma_kernel<NT, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int row_tiles = (H / Hkv + 15) / 16;
-  decode_mma_kernel<NT><<<dim3(n_splits, Hkv * row_tiles, B), kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths), H, Hkv, D, S,
+  decode_mma_kernel<NT, C><<<dim3(n_splits, Hkv * row_tiles, B), kMmaThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const C*>(k), static_cast<const C*>(v),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const int*>(lengths), H, Hkv, D, S,
       n_splits, split_len, scale * kLog2e, static_cast<float*>(part_m),
       static_cast<float*>(part_l), static_cast<float*>(part_acc));
   const cudaError_t e = cudaGetLastError();
@@ -548,29 +684,41 @@ int launch_mma(const void* q, const void* k, const void* v, const void* lengths,
 
 }  // namespace
 
-// q (B, H, D), k and v (B, S, Hkv, D), all contiguous, of one type (is_bf16: bf16, else
-// float32); lengths (B,) int32; partials: m and l (B, H, n_splits), acc (B, H, n_splits, D)
-// float32; out (B, H, D) of q's type.  D % 8 == 0, D <= 256, (H / Hkv) * D <= 4096;
-// split_len a multiple of 64 with n_splits * split_len >= S.
+// q (B, H, D), k and v (B, S, Hkv, D), all contiguous, q of one type (is_bf16: bf16, else
+// float32) and k and v of q's type, or int8 codes with k_scale and v_scale (B, S, Hkv)
+// float32 (null for a cache of q's type); lengths (B,) int32; partials: m and l
+// (B, H, n_splits), acc (B, H, n_splits, D) float32; out (B, H, D) of q's type.
+// D % 8 == 0, D <= 256, (H / Hkv) * D <= 4096; split_len a multiple of 64 with
+// n_splits * split_len >= S.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
+                                      const void* k_scale, const void* v_scale,
                                       const void* lengths, int B, int H, int Hkv, int D,
                                       long long S, int n_splits, long long split_len,
                                       float scale, void* part_m, void* part_l, void* part_acc,
                                       void* out, int is_bf16, void* stream) {
   if (B <= 0 || H <= 0) return (int)cudaGetLastError();
+  if ((k_scale == nullptr) != (v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, lengths, B, H, Hkv, D, S, n_splits, split_len, scale,
-                                 part_m, part_l, part_acc, out, st);
-  return launch<float>(q, k, v, lengths, B, H, Hkv, D, S, n_splits, split_len, scale, part_m,
-                       part_l, part_acc, out, st);
+#define REPRO_SPLIT(T, C)                                                                  \
+  return launch<T, C>(q, k, v, k_scale, v_scale, lengths, B, H, Hkv, D, S, n_splits,       \
+                      split_len, scale, part_m, part_l, part_acc, out, st)
+  if (k_scale != nullptr) {
+    if (is_bf16) REPRO_SPLIT(__nv_bfloat16, int8_t);
+    REPRO_SPLIT(float, int8_t);
+  }
+  if (is_bf16) REPRO_SPLIT(__nv_bfloat16, __nv_bfloat16);
+  REPRO_SPLIT(float, float);
+#undef REPRO_SPLIT
 }
 
-// bf16 q (B, H, D), k and v (B, S, Hkv, D), contiguous and 16-byte aligned;
-// lengths (B,) int32; partials: m and l (B, H, n_splits), acc (B, H, n_splits, D)
-// float32; out (B, H, D) bf16.  D % 16 == 0, D <= 256; split_len a multiple of
-// 64 with n_splits * split_len >= S; smem_bytes from kernel.py's decode_plan.
+// bf16 q (B, H, D), k and v (B, S, Hkv, D) bf16, or int8 codes with k_scale and
+// v_scale (B, S, Hkv) float32 (null for a bf16 cache), contiguous and 16-byte
+// aligned; lengths (B,) int32; partials: m and l (B, H, n_splits), acc
+// (B, H, n_splits, D) float32; out (B, H, D) bf16.  D % 16 == 0, D <= 256;
+// split_len a multiple of 64 with n_splits * split_len >= S; smem_bytes from
+// kernel.py's decode_plan.
 extern "C" int repro_decode_attention_mma(const void* q, const void* k, const void* v,
+                                          const void* k_scale, const void* v_scale,
                                           const void* lengths, int B, int H, int Hkv, int D,
                                           long long S, int n_splits, long long split_len,
                                           float scale, int smem_bytes, void* part_m,
@@ -578,14 +726,21 @@ extern "C" int repro_decode_attention_mma(const void* q, const void* k, const vo
                                           void* stream) {
   if (B <= 0 || H <= 0) return (int)cudaGetLastError();
   if (D <= 0 || D % 16 || D > 256) return (int)cudaErrorInvalidValue;
+  if ((k_scale == nullptr) != (v_scale == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_MMA(NT)                                                                      \
-  return launch_mma<NT>(q, k, v, lengths, B, H, Hkv, D, S, n_splits, split_len, scale,      \
-                        smem_bytes, part_m, part_l, part_acc, out, st)
-  if (D <= 16) REPRO_MMA(1);
-  if (D <= 32) REPRO_MMA(2);
-  if (D <= 64) REPRO_MMA(4);
-  if (D <= 128) REPRO_MMA(8);
-  REPRO_MMA(16);
+#define REPRO_MMA(NT, C)                                                                    \
+  return launch_mma<NT, C>(q, k, v, k_scale, v_scale, lengths, B, H, Hkv, D, S, n_splits,     \
+                           split_len, scale, smem_bytes, part_m, part_l, part_acc, out, st)
+#define REPRO_MMA_D(C)          \
+  if (D <= 16) REPRO_MMA(1, C);  \
+  if (D <= 32) REPRO_MMA(2, C);  \
+  if (D <= 64) REPRO_MMA(4, C);  \
+  if (D <= 128) REPRO_MMA(8, C); \
+  REPRO_MMA(16, C)
+  if (k_scale != nullptr) {
+    REPRO_MMA_D(int8_t);
+  }
+  REPRO_MMA_D(__nv_bfloat16);
+#undef REPRO_MMA_D
 #undef REPRO_MMA
 }

@@ -13,6 +13,11 @@ served models, D = 128 and 256, is one), everything else ``"cuda-core"``
 (float32 inputs, which the tensor cores cannot multiply without TF32's loss,
 and bf16 at another D).  It is a dispatch, not a fallback: an error of
 either design raises.
+
+An int8 cache (int8 K/V codes with float32 scales of (B, S, Hkv), ``repro``'s
+``kv_cache_dtype="int8"``) takes the same design by q's type and head
+dimension: its tiles are dequantized on the card as ``repro`` dequantizes
+them, on their way to the products, and never written back.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +39,7 @@ BLOCKS_PER_SM = 2  # the CUDA-core split aims at this many blocks on every SM
 MMA = "mma.sync+cp.async"
 CUDA_CORE = "cuda-core"
 MMA_STAGES, MMA_ROW_PAD = 3, 8  # ring tiles; bf16 padding of a staged row
+MMA_ROW_PAD8 = 16  # byte padding of a staged row of int8 codes
 SM_SHARED = 233_472  # shared memory of an H100 SM; each resident block reserves 1024 more
 
 
@@ -44,11 +50,17 @@ def design(dtype: torch.dtype, head_dim: int) -> str:
     return CUDA_CORE
 
 
-def decode_plan(head_dim: int) -> dict:
+def decode_plan(head_dim: int, int8: bool = False) -> dict:
     """The mma design at ``head_dim``: its ring, the shared memory a block
-    asks for (mma_smem_bytes in the source, which checks it) and how many
-    blocks that lets an SM hold."""
-    smem = MMA_STAGES * 2 * TILE * (head_dim + MMA_ROW_PAD) * 2
+    asks for (mma_smem_bytes, or mma_q8_smem_bytes for an int8 cache, in the
+    source, which checks it) and how many blocks that lets an SM hold.  An
+    int8 cache's ring holds codes and a scale a row, and each of the 4 warps
+    a bf16 K and V tile of its 16 rows."""
+    if int8:
+        smem = (MMA_STAGES * 2 * TILE * (head_dim + MMA_ROW_PAD8) + MMA_STAGES * 2 * TILE * 4
+                + 4 * 2 * 16 * (head_dim + MMA_ROW_PAD) * 2)
+    else:
+        smem = MMA_STAGES * 2 * TILE * (head_dim + MMA_ROW_PAD) * 2
     return {"tile": TILE, "stages": MMA_STAGES, "smem_bytes": smem,
             "blocks_per_sm": max(1, SM_SHARED // (smem + 1024))}
 
@@ -57,7 +69,7 @@ def decode_plan(head_dim: int) -> dict:
 def _entry():
     fn = _build.library("decode_attention").repro_decode_attention
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_longlong, i, ctypes.c_longlong,
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, ctypes.c_longlong,
                    ctypes.c_float, p, p, p, p, i, p]
     fn.restype = ctypes.c_int
     return fn
@@ -67,7 +79,7 @@ def _entry():
 def _entry_mma():
     fn = _build.library("decode_attention").repro_decode_attention_mma
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_longlong, i, ctypes.c_longlong,
+    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, ctypes.c_longlong,
                    ctypes.c_float, i, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
@@ -84,7 +96,9 @@ def split_plan(batch: int, kv_heads: int, seq: int, sm_count: int) -> Tuple[int,
     return -(-seq // split_len), split_len
 
 
-def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor) -> None:
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> None:
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"need q (B, H, D) and k, v (B, S, Hkv, D); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -95,10 +109,22 @@ def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: tor
         raise ValueError("H must be a multiple of Hkv")
     if lengths.shape != (B,):
         raise ValueError(f"lengths must be ({B},), got {tuple(lengths.shape)}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    if k_scale is None:
+        if k.dtype == torch.int8:
+            raise ValueError("an int8 cache needs k_scale and v_scale")
+        return
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError(f"scales go with an int8 cache, got {k.dtype} and {v.dtype}")
+    for t, name in ((k_scale, "k_scale"), (v_scale, "v_scale")):
+        if t.shape != k.shape[:3] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 of {tuple(k.shape[:3])}, got {t.dtype} "
+                             f"of {tuple(t.shape)}")
 
 
 def mma_grid_plan(batch: int, heads: int, kv_heads: int, seq: int, head_dim: int,
-                  sm_count: int) -> Tuple[int, int]:
+                  sm_count: int, int8: bool = False) -> Tuple[int, int]:
     """(n_splits, split_len) of the mma design, a block a (split, KV head,
     16-query row tile, sequence).  Of two splits, the one that puts fewer
     tiles on the busiest SM (the first on a tie): the fewest whole tiles
@@ -117,19 +143,20 @@ def mma_grid_plan(batch: int, heads: int, kv_heads: int, seq: int, head_dim: int
     def busiest(tiles: int) -> int:
         return -(-units * -(-n_tiles // tiles) // sm_count) * tiles
 
-    tiles = fewest_tiles(decode_plan(head_dim)["blocks_per_sm"] * sm_count)
+    tiles = fewest_tiles(decode_plan(head_dim, int8)["blocks_per_sm"] * sm_count)
     alone = fewest_tiles(sm_count)
     if busiest(alone) < busiest(tiles):
         tiles = alone
     return -(-seq // (tiles * TILE)), tiles * TILE
 
 
-def grid_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                lengths: torch.Tensor) -> torch.Tensor:
+def grid_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lengths: torch.Tensor,
+                k_scale: Optional[torch.Tensor] = None,
+                v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch both passes of the kernel on CUDA tensors; returns (B, H, D).
 
     bf16 at D % 16 == 0 launches the mma.sync design, every other call the
-    CUDA-core design (:func:`design`)."""
+    CUDA-core design (:func:`design`); with scales, K and V are int8 codes."""
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -137,14 +164,21 @@ def grid_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mma = design(q.dtype, D) == MMA
     if D % 8 or D > MAX_HEAD_DIM or (not mma and (H // Hkv) * D > MAX_GROUP_DIM):
         raise ValueError(f"head_dim {D} with group {H // Hkv} is outside the kernel's range")
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        _build.require(t, q.dtype, name, q.device)
+    int8 = k_scale is not None
+    kv_dtype = torch.int8 if int8 else q.dtype
+    for t, name, dtype in ((q, "q", q.dtype), (k, "k", kv_dtype), (v, "v", kv_dtype)):
+        _build.require(t, dtype, name, q.device)
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    scales = (0, 0)
+    if int8:
+        for t, name in ((k_scale, "k_scale"), (v_scale, "v_scale")):
+            _build.require(t, torch.float32, name, q.device)
+        scales = (k_scale.data_ptr(), v_scale.data_ptr())
     _build.require(lengths, torch.int32, "lengths", q.device)
     sms = _build.sm_count(q.device.index)
     if mma:
-        n_splits, split_len = mma_grid_plan(B, H, Hkv, S, D, sms)
+        n_splits, split_len = mma_grid_plan(B, H, Hkv, S, D, sms, int8)
     else:
         n_splits, split_len = split_plan(B, Hkv, S, sms)
     part_m = torch.empty((B, H, n_splits), dtype=torch.float32, device=q.device)
@@ -154,8 +188,8 @@ def grid_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mma:
         _build.check(
             _entry_mma()(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), B, H, Hkv, D, S,
-                n_splits, split_len, 1.0 / math.sqrt(D), decode_plan(D)["smem_bytes"],
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lengths.data_ptr(), B, H, Hkv,
+                D, S, n_splits, split_len, 1.0 / math.sqrt(D), decode_plan(D, int8)["smem_bytes"],
                 part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), out.data_ptr(),
                 _build.stream_of(q),
             ),
@@ -164,8 +198,8 @@ def grid_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     _build.check(
         _entry()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), B, H, Hkv, D, S,
-            n_splits, split_len, 1.0 / math.sqrt(D), part_m.data_ptr(), part_l.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *scales, lengths.data_ptr(), B, H, Hkv, D,
+            S, n_splits, split_len, 1.0 / math.sqrt(D), part_m.data_ptr(), part_l.data_ptr(),
             part_acc.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
             _build.stream_of(q),
         ),

@@ -1,4 +1,4 @@
-// Causal GQA flash attention over a whole prompt: two designs in one library.
+// GQA flash attention over a whole prompt, causal or not: two designs in one library.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_prefill/kernel.py:29
 // (prefill_kernel, launched by _grid_prefill at :102).  That kernel runs a
@@ -9,6 +9,18 @@
 // and loops over the key tiles up to the diagonal itself, keeping the state
 // in registers.  Query head h reads KV head h / (H / Hkv), as the Pallas
 // index map does; query tiles are scheduled longest first.
+//
+// A non-causal mode (causal = 0) computes what repro's jnp flash_attention
+// does with causal=False (src/repro/models/attention.py:67), which no Pallas
+// kernel has: S query rows over T keys, T == S for an encoder's
+// self-attention (whisper's, S = T = 1500) and T != S for cross-attention
+// over an encoder's T rows.  A block then walks every key tile up to T; the
+// key tiles come from K's own length (the loop bound, and in the wgmma
+// design K's and V's tensor maps), and only a last tile that runs past T
+// masks, with the same finite -1e30.  The causal mode needs T == S
+// (kernel.py checks it).  Bound of the non-causal mode: 4 B H S T D
+// operations over the bf16 tensor-core peak: at whisper's encoder, B=8,
+// H=20, S=T=1500, D=64, 9.22e10 operations, 93.2 us.
 //
 // Bound on an H100: operations, 4 B H (S^2 / 2) D over the 989 TFLOP/s bf16
 // tensor-core peak: at glm4-9b, B=1, S=4096, 1.37e11 operations, 139 us.
@@ -110,7 +122,8 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ x, int b, int r
 template <typename T, int J>
 __global__ void __launch_bounds__(kThreads)
 prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ out, int S, int H, int Hkv, int D, float scale) {
+               T* __restrict__ out, int S, int T_len, int H, int Hkv, int D, float scale,
+               int causal) {
   const int n_q = (S + kTile - 1) / kTile;
   const int qi = n_q - 1 - (int)blockIdx.x;  // longest query tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -135,10 +148,12 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     for (int c = 0; c < 4 * J; ++c) acc[i][c] = 0.0f;
   }
 
-  for (int kt = 0; kt <= qi; ++kt) {  // tiles above the diagonal are never visited
+  // causal: tiles above the diagonal are never visited; else every tile up to T
+  const int n_k = causal ? qi + 1 : (T_len + kTile - 1) / kTile;
+  for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // the previous tile's readers are done with kv_s and p_s
-    stage_tile(k, b, k0, kvh, Hkv, S, D, ld, kv_s);
+    stage_tile(k, b, k0, kvh, Hkv, T_len, D, ld, kv_s);
     __syncthreads();
 
     float s[4][4];
@@ -163,7 +178,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
         }
     }
 
-    const bool diag = kt == qi;  // the tile that straddles the diagonal: mask it
+    const bool diag = causal && kt == qi;  // the tile that straddles the diagonal: mask it
+    const bool ragged = k0 + kTile > T_len;  // keys at or past T: mask them
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + ty + 16 * i;
@@ -171,7 +187,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float x = s[i][j] * scale;
-        if (diag && k0 + tx + 16 * j > row) x = kNegInf;
+        const int key = k0 + tx + 16 * j;
+        if ((diag && key > row) || (ragged && key >= T_len)) x = kNegInf;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -194,7 +211,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
       for (int c = 0; c < 4 * J; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();  // every thread is done reading K; p_s is complete
-    stage_tile(v, b, k0, kvh, Hkv, S, D, ld, kv_s);
+    stage_tile(v, b, k0, kvh, Hkv, T_len, D, ld, kv_s);
     __syncthreads();
 
     for (int r = 0; r < kTile; ++r) {
@@ -236,8 +253,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 template <typename T, int J>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int Hkv,
-           int D, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int T_len, int H,
+           int Hkv, int D, float scale, int causal, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * (size_t)kTile * (D + 4) + (size_t)kTile * (kTile + 1));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -247,29 +264,31 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   const int n_q = (S + kTile - 1) / kTile;
   prefill_kernel<T, J><<<dim3(n_q, H, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, Hkv, D, scale);
+      static_cast<T*>(out), S, T_len, H, Hkv, D, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* out, int B, int S, int H,
-             int Hkv, int D, float scale, cudaStream_t stream) {
-  if (D <= 64) return launch<T, 1>(q, k, v, out, B, S, H, Hkv, D, scale, stream);
-  if (D <= 128) return launch<T, 2>(q, k, v, out, B, S, H, Hkv, D, scale, stream);
-  return launch<T, 4>(q, k, v, out, B, S, H, Hkv, D, scale, stream);
+int launch_d(const void* q, const void* k, const void* v, void* out, int B, int S, int T_len,
+             int H, int Hkv, int D, float scale, int causal, cudaStream_t stream) {
+  if (D <= 64) return launch<T, 1>(q, k, v, out, B, S, T_len, H, Hkv, D, scale, causal, stream);
+  if (D <= 128) return launch<T, 2>(q, k, v, out, B, S, T_len, H, Hkv, D, scale, causal, stream);
+  return launch<T, 4>(q, k, v, out, B, S, T_len, H, Hkv, D, scale, causal, stream);
 }
 
 }  // namespace
 
-// q (B, S, H, D), k and v (B, S, Hkv, D), out (B, S, H, D), all contiguous and of one type
-// (is_bf16: bf16, else float32).  D % 8 == 0 and D <= 256.
+// q (B, S, H, D), k and v (B, T, Hkv, D), out (B, S, H, D), all contiguous and of one type
+// (is_bf16: bf16, else float32).  D % 8 == 0 and D <= 256; causal needs T == S.
 extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v, void* out, int B,
-                                   int S, int H, int Hkv, int D, float scale, int is_bf16,
-                                   void* stream) {
+                                   int S, int T, int H, int Hkv, int D, float scale, int causal,
+                                   int is_bf16, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaGetLastError();
+  if (T <= 0 || (causal && T != S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_d<__nv_bfloat16>(q, k, v, out, B, S, H, Hkv, D, scale, st);
-  return launch_d<float>(q, k, v, out, B, S, H, Hkv, D, scale, st);
+  if (is_bf16)
+    return launch_d<__nv_bfloat16>(q, k, v, out, B, S, T, H, Hkv, D, scale, causal, st);
+  return launch_d<float>(q, k, v, out, B, S, T, H, Hkv, D, scale, causal, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -454,7 +473,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-                     int S, int H, int Hkv, float scale_log2) {
+                     int S, int T, int H, int Hkv, float scale_log2, int causal) {
   constexpr int kBoxes = D / 64;           // 64-column boxes of a row (128 bytes each)
   constexpr int kQBytes = kRows * D * 2;
   constexpr int kTileBytes = BC * D * 2;   // one K or V tile
@@ -472,8 +491,9 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / Hkv);
   const int q0 = qi * kRows;
-  // key tiles up to the diagonal of the block's last row, and within S
-  const int n_kv = min((q0 + kRows + BC - 1) / BC, (S + BC - 1) / BC);
+  // causal: key tiles up to the diagonal of the block's last row, and within
+  // S; else every key tile up to T
+  const int n_kv = causal ? min((q0 + kRows + BC - 1) / BC, (S + BC - 1) / BC) : (T + BC - 1) / BC;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -569,14 +589,19 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float alpha[2];
     auto softmax = [&](int j) {
       const int k0 = j * BC;
-      const bool diag = k0 + BC - 1 > wg_row;  // straddles the warpgroup's diagonal
+      // causal: the tile straddles the warpgroup's diagonal; either mode: it
+      // runs past T (the TMA unit filled its rows past T with zeros)
+      const bool diag = causal && k0 + BC - 1 > wg_row;
+      const bool ragged = k0 + BC > T;
       float mx[2] = {m[0], m[1]}, sum[2] = {0.0f, 0.0f}, ms[2];
-      if (diag) {
+      if (diag || ragged) {
 #pragma unroll
         for (int n = 0; n < BC / 8; ++n)
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            if (k0 + 8 * n + col0 + (i & 1) > row0 + 8 * (i >> 1)) sc[4 * n + i] = kNegInf;
+          for (int i = 0; i < 4; ++i) {
+            const int key = k0 + 8 * n + col0 + (i & 1);
+            if ((diag && key > row0 + 8 * (i >> 1)) || key >= T) sc[4 * n + i] = kNegInf;
+          }
       }
 #pragma unroll
       for (int i = 0; i < kS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
@@ -711,40 +736,43 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int 
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int H, int Hkv,
-           float scale, int smem, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int T, int H,
+           int Hkv, float scale, int causal, int smem, cudaStream_t stream) {
   constexpr int BC = key_tile(D);
   if (smem < smem_bytes(D)) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
-  if (!make_map(encode, &tq, q, B, S, H, D, kRows) || !make_map(encode, &tk, k, B, S, Hkv, D, BC) ||
-      !make_map(encode, &tv, v, B, S, Hkv, D, BC))
+  if (!make_map(encode, &tq, q, B, S, H, D, kRows) || !make_map(encode, &tk, k, B, T, Hkv, D, BC) ||
+      !make_map(encode, &tv, v, B, T, Hkv, D, BC))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       prefill_wgmma_kernel<D, BC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int n_q = (S + kRows - 1) / kRows;
   prefill_wgmma_kernel<D, BC><<<dim3(n_q, H, B), kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, H, Hkv, scale * kLog2e);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, T, H, Hkv, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wg
 
-// bf16 q (B, S, H, D), k and v (B, S, Hkv, D), out (B, S, H, D), contiguous and
-// 16-byte aligned; D in {64, 128, 192, 256}; smem_bytes from kernel.py's
-// prefill_plan (at least wg::smem_bytes(D)).
+// bf16 q (B, S, H, D), k and v (B, T, Hkv, D), out (B, S, H, D), contiguous and
+// 16-byte aligned; D in {64, 128, 192, 256}; causal needs T == S; smem_bytes
+// from kernel.py's prefill_plan (at least wg::smem_bytes(D)).
 extern "C" int repro_flash_prefill_wgmma(const void* q, const void* k, const void* v, void* out,
-                                         int B, int S, int H, int Hkv, int D, float scale,
-                                         int smem_bytes, void* stream) {
+                                         int B, int S, int T, int H, int Hkv, int D, float scale,
+                                         int causal, int smem_bytes, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaGetLastError();
+  if (T <= 0 || (causal && T != S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_WG(DIM) wg::launch<DIM>(q, k, v, out, B, S, T, H, Hkv, scale, causal, smem_bytes, st)
   switch (D) {
-    case 64: return wg::launch<64>(q, k, v, out, B, S, H, Hkv, scale, smem_bytes, st);
-    case 128: return wg::launch<128>(q, k, v, out, B, S, H, Hkv, scale, smem_bytes, st);
-    case 192: return wg::launch<192>(q, k, v, out, B, S, H, Hkv, scale, smem_bytes, st);
-    case 256: return wg::launch<256>(q, k, v, out, B, S, H, Hkv, scale, smem_bytes, st);
+    case 64: return REPRO_WG(64);
+    case 128: return REPRO_WG(128);
+    case 192: return REPRO_WG(192);
+    case 256: return REPRO_WG(256);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef REPRO_WG
 }

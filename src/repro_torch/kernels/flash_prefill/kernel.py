@@ -3,7 +3,11 @@
 Counterpart of ``repro.kernels.flash_prefill.kernel._grid_prefill``: one
 launch over a grid of (query tile, query head, batch), each block looping
 over the key tiles up to the diagonal.  A ragged S is handled in the
-kernel; nothing is padded here.
+kernel; nothing is padded here.  A non-causal call (``causal=False``) is
+``repro``'s jnp ``flash_attention(causal=False)``, which the Pallas kernel
+has no mode for: an encoder's self-attention (T == S) or cross-attention
+of S query rows over T keys; each block then loops over every key tile up
+to T, and only a ragged last tile masks.
 
 :func:`design` names the design a call takes, by dtype and head dimension
 alone: bf16 at D in {64, 128, 192, 256} runs ``"wgmma+tma"`` (tensor
@@ -53,7 +57,7 @@ def prefill_plan(head_dim: int) -> dict:
 def _entry():
     fn = _build.library("flash_prefill").repro_flash_prefill
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -62,28 +66,42 @@ def _entry():
 def _entry_wgmma():
     fn = _build.library("flash_prefill").repro_flash_prefill_wgmma
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def mode(q: torch.Tensor, k: torch.Tensor, causal: bool) -> str:
+    """The mode a call runs in: ``"causal"`` (a prompt on itself),
+    ``"non-causal"`` (every row over all keys, T == S: an encoder) or
+    ``"cross"`` (non-causal over T != S keys)."""
+    if causal:
+        return "causal"
+    return "non-causal" if k.shape[1] == q.shape[1] else "cross"
+
+
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"need q (B, S, H, D) and k, v (B, S, Hkv, D); got {tuple(q.shape)}, "
+        raise ValueError(f"need q (B, S, H, D) and k, v (B, T, Hkv, D); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, D = q.shape
-    if k.shape[0] != B or k.shape[1] != S or k.shape[3] != D:
+    if k.shape[0] != B or k.shape[3] != D or k.shape[1] < 1:
         raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
+    if causal and k.shape[1] != S:
+        raise ValueError(f"causal attention needs as many keys as queries: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
     if H % k.shape[2]:
         raise ValueError("H must be a multiple of Hkv")
 
 
-def grid_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def grid_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool = True) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; returns (B, S, H, D) in q's type.
 
     bf16 at D in {64, 128, 192, 256} launches the wgmma+TMA design, every
     other call the CUDA-core design (:func:`design`)."""
     B, S, H, D = q.shape
+    T = k.shape[1]
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash prefill takes float32 or bfloat16, got {q.dtype}")
     if D % 8 or D > MAX_HEAD_DIM:
@@ -96,16 +114,18 @@ def grid_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     if design(q.dtype, D) == WGMMA:
         _build.check(
             _entry_wgmma()(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], D,
-                1.0 / math.sqrt(D), prefill_plan(D)["smem_bytes"], _build.stream_of(q),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H, k.shape[2],
+                D, 1.0 / math.sqrt(D), int(causal), prefill_plan(D)["smem_bytes"],
+                _build.stream_of(q),
             ),
             "flash_prefill (wgmma+tma)",
         )
         return out
     _build.check(
         _entry()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], D,
-            1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16), _build.stream_of(q),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H, k.shape[2], D,
+            1.0 / math.sqrt(D), int(causal), int(q.dtype == torch.bfloat16),
+            _build.stream_of(q),
         ),
         "flash_prefill",
     )

@@ -5,10 +5,13 @@
            [--device cuda|cpu]
 
 The counterpart of ``python -m repro.launch.serve``, with its flags: the
-smoke configuration of ``--arch`` (a dense model, or the MoE granite-moe
-and kimi-k2) with random weights drawn from seed 0,
-half of each batch drawn from a few hot prompts.  It runs on the card
-unless ``--device cpu`` is given.
+smoke configuration of ``--arch`` (a dense model such as mistral-nemo, the
+MoE granite-moe and kimi-k2, or phi-3-vision on text-only prompts) with
+random weights drawn from seed 0, half of each batch drawn from a few hot
+prompts.  It runs on the card unless ``--device cpu`` is given.  whisper
+needs audio frames, which a token prompt does not carry: its prefill
+raises a ``ValueError`` naming them (serve it through ``prefill`` and
+``decode_step``).
 """
 
 from __future__ import annotations

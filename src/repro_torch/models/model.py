@@ -1,12 +1,19 @@
-"""The decoder-only model: parameters, prefill and one decode step.
+"""The served models: parameters, prefill and one decode step.
 
-Counterpart of ``repro.models.model`` for ``family`` ``"dense"`` (glm4-9b,
-qwen3-14b, gemma-7b) and ``"moe"`` (granite-moe, kimi-k2: a block's
-``moe`` subtree, :mod:`.moe`, in place of its MLP on the layers
-``_is_moe_layer`` picks) with a KV cache in the compute type; other
-families and an int8 KV cache raise ``NotImplementedError``.  Parameters are plain
-dictionaries of tensors in the JAX layout (``x @ w`` with ``w`` of shape
-``(in, out)``), ``params["blocks"]`` a list with one dictionary a layer:
+Counterpart of ``repro.models.model`` for the attention families:
+``"dense"`` (glm4-9b, qwen3-14b, gemma-7b, mistral-nemo), ``"moe"``
+(granite-moe, kimi-k2: a block's ``moe`` subtree, :mod:`.moe`, in place of
+its MLP on the layers ``_is_moe_layer`` picks), ``"vlm"`` (phi-3-vision: a
+prefix of image embeddings, normed by ``img_norm``, before the prompt's
+tokens) and ``"encdec"`` (whisper: an encoder over frame embeddings with
+learned positions, a decoder with causal self-attention and
+cross-attention over the encoder's output); ``"ssm"`` and ``"hybrid"``
+raise ``NotImplementedError``.  The KV cache is in the compute type or, for
+``kv_cache_dtype="int8"``, int8 codes with float32 scales (an encdec
+cache, as in ``repro``, is always in the compute type).  Parameters are
+plain dictionaries of tensors in the JAX layout (``x @ w`` with ``w`` of
+shape ``(in, out)``), ``params["blocks"]`` (and an encdec's
+``params["encoder"]``) a list with one dictionary a layer:
 :func:`params_from_numpy` unstacks ``repro``'s ``init_params`` pytree into
 it, so both packages run on the same weights.  The KV cache is stacked
 ``(L, B, max_len, Hkv, D)`` tensors; :func:`decode_step` writes the new
@@ -19,6 +26,7 @@ asks for the CPU.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -26,7 +34,17 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 
-from .attention import _project_qkv, attention_decode, causal_attention, init_attention
+from .attention import (
+    _project_qkv,
+    attention_decode,
+    attention_forward,
+    cross_attention_decode,
+    flash_attention,
+    init_attention,
+    init_kv_cache,
+    project_cross_kv,
+    write_kv,
+)
 from .common import dtype_of, embed_init, rmsnorm, rmsnorm_init
 from .mlp import init_mlp, mlp_forward
 from .moe import init_moe, moe_output
@@ -40,10 +58,20 @@ Params = Dict[str, Any]
 F32_KEEP = ("router",)
 
 
+#: the families the port serves; ``ssm`` (rwkv6) and ``hybrid`` (jamba)
+#: need their recurrent scans
+FAMILIES = ("dense", "moe", "vlm", "encdec")
+#: a decoder block's KV cache entries, stacked over the layers
+KV_NAMES = ("k", "v", "k_scale", "v_scale")
+#: rows of an encdec model's learned decoder positions (``repro`` sizes them
+#: for its largest decoder shape)
+DEC_POSITIONS = 32_768
+
+
 def _require_ported(cfg) -> None:
-    if cfg.family not in ("dense", "moe") or (cfg.family == "dense" and cfg.n_experts):
+    if cfg.family not in FAMILIES or (cfg.family == "dense" and cfg.n_experts):
         raise NotImplementedError(f"the {cfg.family} family ({cfg.name}) is not ported")
-    if cfg.kv_cache_dtype != "compute":
+    if cfg.kv_cache_dtype not in ("compute", "int8"):
         raise NotImplementedError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} is not ported")
 
 
@@ -92,27 +120,47 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None,
     Drawing in the compute type on the card keeps the peak near one copy of
     the weights.  Layers are homogeneous, as in the reference: each block
     has an MLP, or a ``moe`` subtree where ``_is_moe_layer(cfg,
-    cfg.moe_offset)``."""
+    cfg.moe_offset)``; a vlm model adds ``img_norm``; an encdec model has
+    ``encoder`` blocks, decoder blocks with ``cross`` attention and ``ln3``,
+    and ``enc_pos``, ``dec_pos`` and ``enc_final_norm``."""
     _require_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or dtype_of(cfg.param_dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
     pv, d = padded_vocab(cfg), cfg.d_model
+
+    def norms(*names):
+        return {name: rmsnorm_init(d, dtype, dev) for name in names}
+
+    def mlp():
+        return init_mlp(gen, d, cfg.d_ff, cfg.mlp_activation, dtype)
+
     params: Params = {
         "embed": embed_init(gen, pv, d, dtype),
         "lm_head": embed_init(gen, d, pv, dtype),  # (d, pv): the transposed draw of repro
         "final_norm": rmsnorm_init(d, dtype, dev),
         "blocks": [],
     }
+    if cfg.family == "encdec":
+        params["encoder"] = [{**norms("ln1", "ln2"), "attn": init_attention(gen, cfg, dtype),
+                              "mlp": mlp()} for _ in range(cfg.n_encoder_layers)]
+        params["blocks"] = [{**norms("ln1", "ln2", "ln3"), "attn": init_attention(gen, cfg, dtype),
+                             "cross": init_attention(gen, cfg, dtype), "mlp": mlp()}
+                            for _ in range(cfg.n_layers)]
+        params["enc_pos"] = embed_init(gen, cfg.n_audio_frames, d, dtype)
+        params["dec_pos"] = embed_init(gen, DEC_POSITIONS, d, dtype)
+        params["enc_final_norm"] = rmsnorm_init(d, dtype, dev)
+        return params
     moe = _is_moe_layer(cfg, cfg.moe_offset)
     for _ in range(cfg.n_layers):
-        block = {"ln1": rmsnorm_init(d, dtype, dev), "ln2": rmsnorm_init(d, dtype, dev),
-                 "attn": init_attention(gen, cfg, dtype)}
+        block = {**norms("ln1", "ln2"), "attn": init_attention(gen, cfg, dtype)}
         if moe:
             block["moe"] = init_moe(gen, cfg, dtype)
         else:
-            block["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_activation, dtype)
+            block["mlp"] = mlp()
         params["blocks"].append(block)
+    if cfg.family == "vlm":
+        params["img_norm"] = rmsnorm_init(d, dtype, dev)
     return params
 
 
@@ -120,8 +168,10 @@ def params_from_numpy(cfg, params_np: Dict[str, Any], device: DeviceLike,
                       dtype: Optional[torch.dtype] = None) -> Params:
     """``repro``'s ``init_params`` pytree, as numpy arrays, in the port's
     layout: ``params["blocks"]`` unstacked along its leading L axis (a
-    block's ``moe`` subtree with it), in ``dtype`` if given, the router
-    left in float32."""
+    block's ``moe`` or ``cross`` subtree with it) and an encdec model's
+    ``params["encoder"]`` along ``n_encoder_layers``; ``enc_pos``,
+    ``dec_pos``, ``enc_final_norm`` and ``img_norm`` as they are; in
+    ``dtype`` if given, the router left in float32."""
     _require_ported(cfg)
     dev = resolve_device(device)
 
@@ -129,23 +179,41 @@ def params_from_numpy(cfg, params_np: Dict[str, Any], device: DeviceLike,
         t = torch.from_numpy(np.array(a)).to(dev)  # a copy: JAX hands out read-only arrays
         return t if dtype is None or name in F32_KEEP else t.to(dtype)
 
-    out = {k: _map(conv, v, k) for k, v in params_np.items() if k != "blocks"}
-    stacked = params_np["blocks"]
-    out["blocks"] = [
-        _map(lambda name, a, i=i: conv(name, a[i]), stacked) for i in range(cfg.n_layers)
-    ]
+    layers = {"blocks": cfg.n_layers, "encoder": cfg.n_encoder_layers}
+    out = {k: _map(conv, v, k) for k, v in params_np.items() if k not in layers}
+    for key, n in layers.items():
+        if key in params_np:
+            out[key] = [_map(lambda name, a, i=i: conv(name, a[i]), params_np[key])
+                        for i in range(n)]
     return out
 
 
 def init_cache(cfg, batch: int, max_len: int, device: DeviceLike = None) -> Dict[str, Any]:
-    """Stacked (L, B, max_len, Hkv, D) K and V in the compute type, and the
-    position of the next token."""
+    """Stacked (L, B, max_len, Hkv, D) K and V in the compute type (for an
+    int8 cache int8 codes and (L, B, max_len, Hkv) float32 ``k_scale`` and
+    ``v_scale``), and the position of the next token; an encdec cache also
+    holds the encoder's cross-attention ``cross_k`` and ``cross_v``,
+    (L, B, n_audio_frames, Hkv, D) in the compute type, which
+    :func:`prefill` fills."""
     _require_ported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     cdt = dtype_of(cfg.compute_dtype)
-    return {"k": torch.zeros(shape, dtype=cdt, device=dev),
-            "v": torch.zeros(shape, dtype=cdt, device=dev), "pos": 0}
+    L = cfg.n_layers
+    if cfg.family == "encdec":  # repro's encdec cache is in the compute type whatever the dtype
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="compute")
+    layer = init_kv_cache(cfg, batch, max_len, cdt, dev)
+    cache: Dict[str, Any] = {name: t.new_zeros((L, *t.shape)) for name, t in layer.items()}
+    if cfg.family == "encdec":
+        shape = (L, batch, cfg.n_audio_frames, cfg.n_kv_heads, cfg.head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=cdt, device=dev)
+        cache["cross_v"] = torch.zeros(shape, dtype=cdt, device=dev)
+    cache["pos"] = 0
+    return cache
+
+
+def _layer_cache(cache: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s K and V (and scales), views of the stacked cache."""
+    return {name: cache[name][i] for name in KV_NAMES if name in cache}
 
 
 def _logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -166,29 +234,96 @@ def _ffn(cfg, p: Params, h: torch.Tensor) -> torch.Tensor:
     return mlp_forward(p["mlp"], h, cfg.mlp_activation)
 
 
+def _encoder_forward(cfg, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over frame embeddings (B, T, d_model), learned positions
+    added, non-causal self-attention; (B, T, d_model) after its final norm."""
+    cdt = dtype_of(cfg.compute_dtype)
+    B, T, _ = frames.shape
+    if T > cfg.n_audio_frames:
+        raise ValueError(f"{T} frames exceed the encoder's {cfg.n_audio_frames} positions")
+    x = frames.to(cdt) + params["enc_pos"][:T].to(cdt)
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    for p in params["encoder"]:
+        x = x + attention_forward(p["attn"], rmsnorm(x, p["ln1"]), cfg, positions, causal=False)
+        x = x + mlp_forward(p["mlp"], rmsnorm(x, p["ln2"]), cfg.mlp_activation)
+    return rmsnorm(x, params["enc_final_norm"])
+
+
+def _decoder_block(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
+                   layer_cache: Dict[str, torch.Tensor],
+                   cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """A decoder block over a whole prompt: causal self-attention, whose K
+    and V it writes into ``layer_cache`` from position 0 (the attention
+    runs on them unquantized, as in ``repro``), an encdec block's
+    cross-attention over the encoder's ``cross`` K and V, then the block's
+    MoE layer or MLP."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p["attn"], rmsnorm(x, p["ln1"]), cfg, positions)
+    attn = flash_attention(q, k, v, causal=True)
+    x = x + attn.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["attn"]["wo"]
+    write_kv(layer_cache, k, v, 0)
+    if cross is None:
+        return x + _ffn(cfg, p, rmsnorm(x, p["ln2"]))
+    x = x + attention_forward(p["cross"], rmsnorm(x, p["ln2"]), cfg, positions, causal=False,
+                              kv=cross)
+    return x + mlp_forward(p["mlp"], rmsnorm(x, p["ln3"]), cfg.mlp_activation)
+
+
+def _decoder_encdec_forward_with_cache(cfg, params: Params, tokens: torch.Tensor,
+                                       cache: Dict[str, Any]) -> torch.Tensor:
+    """The encdec decoder over whole prompts, learned positions added, its
+    self-attention K and V written into the cache, its cross-attention over
+    the cache's encoder K and V; last-token logits."""
+    cdt = dtype_of(cfg.compute_dtype)
+    B, S = tokens.shape
+    x = params["embed"][tokens].to(cdt) + params["dec_pos"][:S].to(cdt)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    for i, p in enumerate(params["blocks"]):
+        x = _decoder_block(cfg, p, x, positions, _layer_cache(cache, i),
+                           (cache["cross_k"][i], cache["cross_v"][i]))
+    return _logits(cfg, params, x[:, -1:])[:, 0]
+
+
 def prefill(cfg, params: Params, batch: Dict[str, Any], max_len: int,
             device: DeviceLike = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run whole prompts, fill the decode cache, return last-token logits
-    (B, padded vocab) and the cache."""
+    (B, padded vocab) and the cache.  ``batch`` holds ``tokens`` (B, S);
+    a vlm model takes optional ``image_embeds`` (B, n_image, d_model),
+    normed and put before the tokens; an encdec model needs ``frames``
+    (B, T, d_model), whose encoder K and V it caches for cross-attention."""
     _require_ported(cfg)
     dev = _device_of(params, device)
     params = cast_params_for_compute(cfg, params)
     cdt = dtype_of(cfg.compute_dtype)
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     B, S = tokens.shape
+    if cfg.family == "encdec":
+        if "frames" not in batch:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: prefill needs the audio "
+                             f"'frames' (B, T, d_model) beside the tokens")
+        if S > max_len:
+            raise ValueError(f"prompt of {S} tokens does not fit max_len {max_len}")
+        enc = _encoder_forward(cfg, params, torch.as_tensor(batch["frames"], device=dev))
+        cache = init_cache(cfg, B, max_len, dev)
+        if enc.shape[1] != cfg.n_audio_frames:  # fewer frames: the cache holds as many rows
+            for name in ("cross_k", "cross_v"):
+                cache[name] = cache[name][:, :, :enc.shape[1]].contiguous()
+        for i, p in enumerate(params["blocks"]):
+            cache["cross_k"][i], cache["cross_v"][i] = project_cross_kv(p["cross"], enc, cfg)
+        logits = _decoder_encdec_forward_with_cache(cfg, params, tokens, cache)
+        cache["pos"] = S
+        return logits, cache
+    x = params["embed"][tokens].to(cdt)
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        img = torch.as_tensor(batch["image_embeds"], device=dev).to(cdt)
+        x = torch.cat([rmsnorm(img, params["img_norm"]), x], dim=1)
+        S = x.shape[1]
     if S > max_len:
-        raise ValueError(f"prompt of {S} tokens does not fit max_len {max_len}")
+        raise ValueError(f"prompt of {S} positions does not fit max_len {max_len}")
     cache = init_cache(cfg, B, max_len, dev)
     positions = torch.arange(S, device=dev).expand(B, S)
-    x = params["embed"][tokens].to(cdt)
-    hd = cfg.n_heads * cfg.head_dim
     for i, p in enumerate(params["blocks"]):
-        h = rmsnorm(x, p["ln1"])
-        q, k, v = _project_qkv(p["attn"], h, cfg, positions)
-        x = x + causal_attention(q, k, v).reshape(B, S, hd) @ p["attn"]["wo"]
-        x = x + _ffn(cfg, p, rmsnorm(x, p["ln2"]))
-        cache["k"][i, :, :S] = k.to(cdt)
-        cache["v"][i, :, :S] = v.to(cdt)
+        x = _decoder_block(cfg, p, x, positions, _layer_cache(cache, i))
     cache["pos"] = S
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
 
@@ -196,17 +331,26 @@ def prefill(cfg, params: Params, batch: Dict[str, Any], max_len: int,
 def decode_step(cfg, params: Params, cache: Dict[str, Any], tokens: torch.Tensor,
                 device: DeviceLike = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step: tokens (B,) -> logits (B, padded vocab).  Writes the
-    tokens' K and V at ``cache["pos"]`` in place and advances it."""
+    tokens' K and V at ``cache["pos"]`` in place (quantized for an int8
+    cache) and advances it; an encdec step also attends over the cached
+    encoder rows."""
     _require_ported(cfg)
     dev = _device_of(params, device)
     params = cast_params_for_compute(cfg, params)
     cdt = dtype_of(cfg.compute_dtype)
     pos = int(cache["pos"])
     x = params["embed"][torch.as_tensor(tokens, device=dev).long()][:, None, :].to(cdt)
+    encdec = cfg.family == "encdec"
+    if encdec:
+        x = x + params["dec_pos"][pos:pos + 1].to(cdt)
     for i, p in enumerate(params["blocks"]):
-        h, _ = attention_decode(p["attn"], rmsnorm(x, p["ln1"]),
-                                {"k": cache["k"][i], "v": cache["v"][i]}, pos, cfg)
+        h, _ = attention_decode(p["attn"], rmsnorm(x, p["ln1"]), _layer_cache(cache, i), pos, cfg)
         x = x + h
-        x = x + _ffn(cfg, p, rmsnorm(x, p["ln2"]))
+        if encdec:
+            x = x + cross_attention_decode(p["cross"], rmsnorm(x, p["ln2"]), cache["cross_k"][i],
+                                           cache["cross_v"][i], cfg, pos)
+            x = x + mlp_forward(p["mlp"], rmsnorm(x, p["ln3"]), cfg.mlp_activation)
+        else:
+            x = x + _ffn(cfg, p, rmsnorm(x, p["ln2"]))
     cache["pos"] = pos + 1
     return _logits(cfg, params, x)[:, 0], cache

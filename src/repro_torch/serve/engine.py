@@ -11,7 +11,11 @@ Counterpart of ``repro.serve.engine``.  :class:`ServeEngine`: one
   4. feed the page touches to the residency policy and call ``batch_end()``
      (the paper's Algorithm 3 cadence).
 
-The weights are cast to the compute type once, when the engine is built.
+The engine passes only tokens, as ``repro``'s does: it serves the dense
+and MoE models (mistral-nemo with its int8 KV cache) and phi-3-vision on
+text-only prompts; whisper's prefill needs ``frames`` and raises a
+``ValueError`` without them.  The weights are cast to the compute type
+once, when the engine is built.
 Tokens stay on the device until the step ends; on the card each phase ends
 in a synchronize, so ``EngineStats`` holds device-complete wall times.
 

@@ -252,7 +252,7 @@ def test_prefill_attention_matches_chunked_flash(arch):
     jq, jk, jv = jattn._project_qkv(jp, jnp.asarray(x), jcfg, jnp.asarray(pos))
     for a, b in ((q, jq), (k, jk), (v, jv)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, rtol=1e-5)
-    got = attention.causal_attention(q, k, v).numpy()
+    got = attention.flash_attention(q, k, v, causal=True).numpy()
     # small chunks, so the chunked jnp path runs several q and kv chunks and pads both
     want = jattn.flash_attention(jq, jk, jv, causal=True, q_chunk=16, kv_chunk=24)
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
@@ -266,9 +266,15 @@ def test_init_kv_cache_matches_reference(arch):
     assert sorted(cache) == sorted(jcache)
     for name in cache:
         assert cache[name].shape == jcache[name].shape and not cache[name].any()
-    with pytest.raises(NotImplementedError):
-        attention.init_kv_cache(dataclasses.replace(cfg, kv_cache_dtype="int8"), 1, 4,
-                                torch.float32, "cpu")
+    # an int8 cache: int8 codes and float32 scales a (position, KV head), repro's layout
+    cache = attention.init_kv_cache(dataclasses.replace(cfg, kv_cache_dtype="int8"), 3, 24,
+                                    torch.float32, "cpu")
+    jcache = jattn.init_kv_cache(dataclasses.replace(jcfg, kv_cache_dtype="int8"), 3, 24,
+                                 jnp.float32)
+    assert sorted(cache) == sorted(jcache) == ["k", "k_scale", "v", "v_scale"]
+    for name in cache:
+        assert cache[name].shape == jcache[name].shape and not cache[name].any()
+        assert str(cache[name].dtype).split(".")[-1] == str(jcache[name].dtype)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -2042,3 +2042,180 @@ def test_expert_cache_on_the_card_matches_the_cpu(card):
     torch.testing.assert_close(gpu.carry.f.cpu(), cpu.carry.f, rtol=0, atol=1e-5)
     assert abs(gpu.mean_hit_ratio - cpu.mean_hit_ratio) <= 1e-3
     assert gpu.mean_hit_ratio > 0.25  # above C / N: the hot experts are held
+
+
+# -- the attention families: mistral-nemo's int8 cache, phi-3-vision, whisper --------
+
+def _int8_cache(gen, card, B, S, Hkv, D):
+    """Int8 codes and float32 scales of a normal K and V, as the model writes them."""
+    from repro_torch.models.attention import _quantize_kv
+
+    codes, scale = _quantize_kv(torch.randn(2, B, S, Hkv, D, generator=gen, device=card))
+    return codes[0], codes[1], scale[0], scale[1]
+
+
+#: (S, T) of the non-causal mode at whisper's heads (H = Hkv = 20, D = 64): a
+#: decoded token, a 224-token prompt and the encoder's own 1500 rows, over the
+#: encoder's 1500 rows and over key lengths around the 64-key tile (the
+#: CUDA-core design's) and the 128-key tile (the wgmma design's)
+NONCAUSAL_CASES = [
+    pytest.param(S, T, dtype, id=f"{S}-{T}-{KINDS[dtype]}")
+    for dtype in (torch.bfloat16, torch.float32) for S in (1, 224, 1500)
+    for T in (1500, 1, 63, 65, 129)
+]
+
+
+@pytest.mark.parametrize("S,T,dtype", NONCAUSAL_CASES)
+def test_non_causal_prefill_matches_plain(card, S, T, dtype):
+    from repro_torch.kernels.flash_prefill.kernel import design, mode
+
+    B, H, D = 2, 20, 64
+    gen = torch.Generator(device=card).manual_seed(S * T)
+    q = torch.randn(B, S, H, D, generator=gen, device=card).to(dtype)
+    k = torch.randn(B, T, H, D, generator=gen, device=card).to(dtype)
+    v = torch.randn(B, T, H, D, generator=gen, device=card).to(dtype)
+    reset_launch_counts()
+    got = flash_prefill(q, k, v, causal=False)
+    want = flash_prefill_ref(q, k, v, causal=False)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_attention_limit(dtype, want))
+    assert design_counts()["flash_prefill"] == {f"{design(dtype, D)}, {mode(q, k, False)}": 1}
+    assert torch.equal(got, flash_prefill(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("S,T,H,Hkv,D", [(130, 1500, 32, 32, 96), (224, 65, 32, 32, 96),
+                                         (100, 333, 16, 16, 256), (129, 1000, 8, 2, 192),
+                                         (300, 300, 8, 2, 128), (2, 70, 8, 2, 16)])
+def test_non_causal_prefill_at_other_heads(card, S, T, H, Hkv, D):
+    """bf16 at phi-3-vision's D = 96 (the CUDA-core design), the wgmma
+    design's 64-key tiles (D = 192, 256) and GQA groups, and a smoke head."""
+    gen = torch.Generator(device=card).manual_seed(S + T + D)
+    q = torch.randn(1, S, H, D, generator=gen, device=card).to(torch.bfloat16)
+    k = torch.randn(1, T, Hkv, D, generator=gen, device=card).to(torch.bfloat16)
+    v = torch.randn(1, T, Hkv, D, generator=gen, device=card).to(torch.bfloat16)
+    want = flash_prefill_ref(q, k, v, causal=False)
+    torch.testing.assert_close(flash_prefill(q, k, v, causal=False).float(), want.float(), rtol=0,
+                               atol=_attention_limit(torch.bfloat16, want))
+
+
+INT8_DECODE_CASES = [
+    pytest.param(8, 32, 8, 128, 2080, dtype, lengths, id=f"mistral-{name}-{KINDS[dtype]}")
+    for dtype in (torch.bfloat16, torch.float32) for name, lengths in EDGE_LENGTHS.items()
+] + [
+    pytest.param(B, H, Hkv, D, S, dtype, None, id=f"{B}-{H}-{Hkv}-{D}-{S}-{KINDS[dtype]}")
+    for dtype in (torch.bfloat16, torch.float32) for S in (1, 130, 4096)
+    # the smoke heads, phi-3-vision's D = 96 and whisper's D = 64
+    for B, H, Hkv, D in ((2, 8, 2, 16), (4, 32, 32, 96), (3, 20, 20, 64))
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,D,S,dtype,lengths", INT8_DECODE_CASES)
+def test_int8_decode_matches_plain(card, B, H, Hkv, D, S, dtype, lengths):
+    from repro_torch.kernels.decode_attention.kernel import design
+
+    gen = torch.Generator(device=card).manual_seed(B * S + D)
+    q = torch.randn(B, H, D, generator=gen, device=card).to(dtype)
+    k, v, ks, vs = _int8_cache(gen, card, B, S, Hkv, D)
+    if lengths is None:
+        lengths = torch.randint(1, S + 1, (B,), generator=gen, device=card, dtype=torch.int32)
+        lengths[0], lengths[-1] = 1, S
+    else:
+        lengths = torch.tensor(lengths, dtype=torch.int32, device=card)
+    reset_launch_counts()
+    got = decode_attention(q, k, v, lengths, ks, vs)
+    want = decode_attention_ref(q, k, v, lengths, ks, vs)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_attention_limit(dtype, want))
+    assert design_counts()["decode_attention"] == {f"{design(dtype, D)}, int8 cache": 1}
+    assert torch.equal(got, decode_attention(q, k, v, lengths, ks, vs))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_int8_decode_equals_the_compute_cache_kernel_on_exact_scales(card, dtype):
+    """Scales that are powers of two: every dequantized value is exact in
+    q's type, so the int8 call computes what the compute-type kernel
+    computes over the dequantized cache (within its limit: the two may split
+    the cache differently)."""
+    from repro_torch.kernels.decode_attention.ref import dequantize
+
+    B, H, Hkv, D, S = 8, 32, 8, 128, 2080
+    gen = torch.Generator(device=card).manual_seed(11)
+    q = torch.randn(B, H, D, generator=gen, device=card).to(dtype)
+    codes = torch.randint(-127, 128, (2, B, S, Hkv, D), generator=gen, device=card,
+                          dtype=torch.int32).to(torch.int8)
+    scale = torch.pow(2.0, torch.randint(-12, -4, (2, B, S, Hkv), generator=gen,
+                                         device=card).float())
+    lengths = torch.arange(2049, 2057, dtype=torch.int32, device=card)
+    deq = [dequantize(codes[i], scale[i], dtype) for i in (0, 1)]
+    assert torch.equal(deq[0].float(), codes[0].float() * scale[0][..., None])
+    want = decode_attention(q, deq[0], deq[1], lengths)
+    got = decode_attention(q, codes[0], codes[1], lengths, scale[0], scale[1])
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_attention_limit(dtype, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_whisper_cross_decode_matches_plain(card, dtype):
+    """A decoded token's cross-attention: one query over all T = 1500 encoder
+    rows, lengths T, at whisper's served B = 8 and heads."""
+    B, H, D, T = 8, 20, 64, 1500
+    gen = torch.Generator(device=card).manual_seed(T)
+    q = torch.randn(B, H, D, generator=gen, device=card).to(dtype)
+    k = torch.randn(B, T, H, D, generator=gen, device=card).to(dtype)
+    v = torch.randn(B, T, H, D, generator=gen, device=card).to(dtype)
+    lengths = torch.full((B,), T, dtype=torch.int32, device=card)
+    want = decode_attention_ref(q, k, v, lengths)
+    torch.testing.assert_close(decode_attention(q, k, v, lengths).float(), want.float(), rtol=0,
+                               atol=_attention_limit(dtype, want))
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "phi-3-vision-4.2b", "whisper-large-v3"])
+def test_families_on_the_card_match_the_cpu(card, arch):
+    """The float32 smoke models (mistral-nemo with its int8 cache) on the card
+    through the kernels against the CPU through the plain versions: prefill
+    (with image embeddings or frames) and 4 decode steps within 1e-4, and
+    each mode's launches: a whisper prefill runs its encoder's non-causal,
+    its decoder's causal and cross launches, a step a self and a cross
+    decode a layer."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.models import model
+
+    cfg = get_smoke(arch)
+    if arch.startswith("mistral"):
+        cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    cpu_params = model.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(1, cfg.vocab_size, (2, 12)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(size=(2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.normal(
+            size=(2, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    L = cfg.n_layers
+    logits = {}
+    for dev in ("cpu", card):
+        params = _to(cpu_params, dev)
+        reset_launch_counts()
+        out, cache = model.prefill(cfg, params, {k: torch.from_numpy(v).to(dev)
+                                                 for k, v in batch.items()}, 40, device=dev)
+        tok = torch.argmax(out[:, :cfg.vocab_size], -1)
+        steps = [out.cpu()]
+        for _ in range(4):
+            out, cache = model.decode_step(cfg, params, cache, tok, device=dev)
+            steps.append(out.cpu())
+        logits[str(dev)] = steps
+        if dev == card:
+            prefill_modes = ({"cuda-core, non-causal": cfg.n_encoder_layers,
+                              "cuda-core, causal": L, "cuda-core, cross": L}
+                             if cfg.family == "encdec" else {"cuda-core, causal": L})
+            cache_kind = "int8 cache" if cfg.kv_cache_dtype == "int8" else "compute-type cache"
+            per_step = 2 * L if cfg.family == "encdec" else L
+            assert design_counts()["flash_prefill"] == prefill_modes
+            assert design_counts()["decode_attention"] == {f"cuda-core, {cache_kind}":
+                                                           4 * per_step}
+    for a, b in zip(logits["cpu"], logits[str(card)]):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
