@@ -9,7 +9,9 @@ toolkit, and builds the kernels from the checkout's sources on first use
 script with a non-zero exit:
 
 1. versions, and the card's name and power limit (nvidia-smi);
-2. build every kernel;
+2. build every kernel; fail if ptxas serializes any wgmma (its C7514/C7518
+   notes, "wgmma ... serialized"), and print each kernel's registers,
+   stack and spills;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (N = 1e6 items, B = 1000 ids, mass at K = 1 and 64;
    segsum 1e6 -> 15 625 and 65 536 -> 1024, bucket_mass at K = 63 and 64
@@ -36,17 +38,17 @@ script with a non-zero exit:
    N = 1e6, T = 1e7, C = 50 000, window 1000, every kernel's launches
    counted, the histogram's all bin tiles and the clip's all in the
    projection's epilogue;
-5. the card against the CPU (the plain versions) over the first 200 chunks;
+5. the card against the CPU (the plain versions) over the first 100 chunks;
 6. resume: 2000 chunks in two calls equal one call, bit for bit;
 7. where a chunk's time goes, from torch.profiler over 300 chunks;
 8. the lazy main path: run(policy_def("ogb_tree")) over the same trace,
    launches, host syncs and re-anchors counted (3 tree builds at init and
    a re-anchor, 3 tree updates and a bin-tiles histogram a chunk), its
    fractional hit ratio held to the JAX reference's for this trace and eta;
-9. ogb_tree on the card against the CPU over 200 chunks, two runs and a
-   resumed run bit for bit, and a re-anchor in every chunk (batch_hint=1:
-   200 chunks on the card, 50 against the CPU), two id-slices histograms
-   a re-anchor;
+9. ogb_tree on the card against the CPU over 100 chunks, two runs of 500
+   chunks and a resumed run bit for bit, and a re-anchor in every chunk
+   (batch_hint=1: 50 chunks on the card, 20 against the CPU), two
+   id-slices histograms a re-anchor;
 10. Madow sampling (madow, madow_tree): 2000 chunks each, occupancy exactly
    C in every chunk (madow_tree: one tree build a chunk), the card against
    the CPU over 100 chunks;
@@ -79,7 +81,7 @@ script with a non-zero exit:
    decode steps, and two generate calls on equal prompts;
 16. the slot automaton (LRU, FIFO, LFU, FTPL; impl="dense") against its plain version:
    each kind at C = 25, 250, 1000 and the design's largest (16 384), zipf
-   and adversarial ids (10 000 a case in 2 launches, from empty slots),
+   and adversarial ids (4000 a case in 2 launches, from empty slots),
    and padded carries; hits, stats and the whole carry bit for bit on the
    card and against the CPU; a larger carry raises; its time a request,
    cold, at each C, and at the quick scenarios' shape beside its bound and
@@ -100,8 +102,10 @@ script with a non-zero exit:
 18. paper scale: fig2_adversarial at full (N = 1000, T = 1e6, C = 250,
    every row, ARC on the host), held to the figure's claims; fig8_cdn at
    full (N = 1e6, T = 2e7, C = 50 000, B = 1000, a window of 1e6) for OGB,
-   OMD, the tree LRU, LFU and FTPL and FIFO (the FIFO queue, past the slot
-   kernel's 16 384 slots), OGB held to a share of OPT(static) and above
+   the tree LRU, LFU and FTPL and FIFO (the FIFO queue, past the slot
+   kernel's 16 384 slots; OMD, whose host-bound KL projection would take
+   ~78 s here, runs at fig2_adversarial full and on every quick scenario),
+   OGB held to a share of OPT(static) and above
    LRU (Fig. 8-left), FIFO's hits the recorded ones, each row's hit
    ratio and us a request printed, every tree kernel and the FIFO queue
    launched, three chunks of each automaton
@@ -154,7 +158,7 @@ script with a non-zero exit:
    share a chunk, and the three stacked updates' time in it;
 22. the sweep: repro_torch.sweep over a grid of combos, each chunk one
    launch of each kernel for the whole grid.  Dense ogb (Poisson) over the
-   main trace's first 2e6 requests, capacities 12 500, 25 000 and 50 000,
+   main trace's first 1e6 requests, capacities 12 500, 25 000 and 50 000,
    etas None (Theorem 3.1's at each capacity) and 0.5 and 2 times Theorem
    3.1's at 50 000, seeds 0 and 1: 18 combos, one histogram and one warm
    projection a chunk for all, and the 18 single runs one after another,
@@ -208,7 +212,7 @@ script with a non-zero exit:
    output against a float64 evaluation of the same kept (expert, gate)
    pairs, and the dispatch's share of the layer's time; (c) OGBExpertCache
    at kimi-k2's 61 x 384 and granite-moe's 24 x 32 (layer, expert)
-   catalogs, resident fraction 0.25, over 1000 steps of Poisson(5) counts
+   catalogs, resident fraction 0.25, over 200 steps of Poisson(5) counts
    and a 1500-step drift run (8 hot experts a layer, moved at step 500),
    each step against the port's CPU run (worker processes started before
    phase 22): f and tau within 1e-5, the residency masks equal off |f - p|
@@ -223,14 +227,18 @@ script with a non-zero exit:
    calls, exactly 40 flash_prefill and 40 x 32 int8-cache decode_attention
    launches a call, its logits within phase 15's limit of the plain
    versions' (prefill, and 8 teacher-forced decode steps from a copy of the
-   kernels' cache), the int8 decode against its plain version at the
-   served shape and around the mma design's tile and ring edges, timed
-   beside the bf16-cache kernel over the same K and V, its bound and
-   scaled_dot_product_attention over the dequantized cache, and at split
-   lengths around its plan's; (b) phi-3-vision-4.2b: 8 prompts of 256 image
-   embeddings and 1792 tokens, 32 decode steps (32 CUDA-core D = 96 causal
-   prefill launches, 32 x 32 decode launches), logits against the plain
-   versions', the D = 96 prefill timed beside scaled_dot_product_attention
+   kernels' cache), the int8 decode (its own kernel and plan) against its
+   plain version at the served shape and around its slice, ring and split
+   edges, timed beside the bf16-cache kernel over the same K and V, its
+   bound and scaled_dot_product_attention over the dequantized cache,
+   beside its PR 28 design in turns (tools/time_int8_decode_designs.py),
+   and at split lengths around its plan's; (b) phi-3-vision-4.2b: 8 prompts
+   of 256 image embeddings and 1792 tokens, 32 decode steps (32 wgmma+tma
+   D = 96 causal prefill launches, 32 x 32 decode launches), logits against
+   the plain versions', the D = 96 prefill against its plain version
+   causal (the served shape), non-causal (S = T = 1500) and cross (S = 224
+   over T = 1500), and timed beside the CUDA-core design it replaced (at
+   the same inputs, through its C entry point), scaled_dot_product_attention
    and its bound; (c) whisper-large-v3: 8 utterances of 1500 frames and
    224-token prompts, 32 decode steps (a prefill: 32 non-causal, 32 causal
    and 32 cross flash_prefill launches; a step: 32 self and 32 cross
@@ -258,8 +266,8 @@ ROOT = Path(__file__).resolve().parent
 
 N, T, C, W = 1_000_000, 10_000_000, 50_000, 1000
 ALPHA = 0.8
-CPU_CHUNKS, RESUME_CHUNKS, PROFILE_CHUNKS = 200, 2000, 300
-MADOW_CHUNKS, MADOW_CPU_CHUNKS, REANCHOR_CHUNKS, REANCHOR_CPU_CHUNKS = 2000, 100, 200, 50
+CPU_CHUNKS, RESUME_CHUNKS, TREE_RESUME_CHUNKS, PROFILE_CHUNKS = 100, 2000, 500, 300
+MADOW_CHUNKS, MADOW_CPU_CHUNKS, REANCHOR_CHUNKS, REANCHOR_CPU_CHUNKS = 2000, 100, 50, 20
 V = 65536  # ogb_tree's buckets
 #: fractional hit ratio of the JAX reference's ogb_tree (repro.cachesim.api)
 #: over this trace at this eta, on the CPU
@@ -342,7 +350,7 @@ PROFILE_TRIES, PROFILE_MOST_TRIES = 3, 10
 FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores, NVIDIA's data sheet
 AUTOMATA = ("lru", "fifo", "lfu", "ftpl")
 #: phase 16's capacities (and the design's largest), ids a case and launches
-AUTOMATON_CS, AUTOMATON_IDS, AUTOMATON_CHUNKS = (25, 250, 1000), 10_000, 2
+AUTOMATON_CS, AUTOMATON_IDS, AUTOMATON_CHUNKS = (25, 250, 1000), 4000, 2
 #: the quick scenarios' shape: N = 20 000, C = 1000, a window of T / 20
 QUICK_N, QUICK_C, QUICK_WINDOW = 20_000, 1000, 10_000
 #: the seven unsized scenarios with a policy set, and their device rows
@@ -360,7 +368,7 @@ QUICK_HIT_TOL, QUICK_FRAC_TOL = 1e-3, 1e-4
 FIG8_OGB_FLOOR = 0.85
 #: fig8_cdn at full: the rows, and the automaton rows' chunks run again under
 #: torch's sync debug mode "error"
-FIG8_POLICIES, FIG8_SYNC_CHUNKS = ("ogb", "omd", "lru", "lfu", "ftpl", "fifo"), 3
+FIG8_POLICIES, FIG8_SYNC_CHUNKS = ("ogb", "lru", "lfu", "ftpl", "fifo"), 3
 TREE_AUTOMATA = ("lru", "lfu", "ftpl")
 #: phase 19's capacities, ids a case after the fill, and the two timed shapes
 #: (C: catalog, chunk): quick's and fig8_cdn full's
@@ -406,7 +414,7 @@ SIZED_PROFILE_CHUNKS = 200
 #: requests at these capacities, etas (Theorem 3.1's at each capacity, and
 #: these multiples of its value at C) and seeds; the automata over fig8_cdn
 #: full's first SWEEP_AUTOMATA_T requests at theirs, at the largest's slots
-SWEEP_T, SWEEP_CS, SWEEP_ETA_SCALES, SWEEP_SEEDS = 2_000_000, (12_500, 25_000, 50_000), \
+SWEEP_T, SWEEP_CS, SWEEP_ETA_SCALES, SWEEP_SEEDS = 1_000_000, (12_500, 25_000, 50_000), \
     (0.5, 2.0), (0, 1)
 SWEEP_AUTOMATA_T, SWEEP_AUTOMATA_CS = 10_000_000, (6_250, 12_500, 25_000, 50_000)
 #: the automata's grids timed chunk by chunk beside their one-combo launches
@@ -426,6 +434,13 @@ class Failed(Exception):
 def need(cond, what):
     if not cond:
         raise Failed(what)
+
+
+def cpu_result(future, timeout=900):
+    """A CPU worker's result, and the seconds the card's phase waited for it."""
+    t0 = time.perf_counter()
+    out = future.result(timeout=timeout)
+    return out, time.perf_counter() - t0
 
 
 def nvidia_smi_line():
@@ -1305,7 +1320,7 @@ def check_tree_repeat_and_resume(torch, trace, eta):
     from repro_torch import policy_def, run
 
     pd = policy_def("ogb_tree")
-    part = trace[: RESUME_CHUNKS * W]
+    part = trace[: TREE_RESUME_CHUNKS * W]
     half = len(part) // 2
     whole = run(pd, part, N, C, window=W, eta=eta)
     again = run(pd, part, N, C, window=W, eta=eta)
@@ -1317,7 +1332,7 @@ def check_tree_repeat_and_resume(torch, trace, eta):
         need(np.array_equal(cat, getattr(whole, name)), f"ogb_tree resume: {name} differs")
     need(all(torch.equal(x, y) for x, y in zip(second.carry.tensors(), whole.carry.tensors())),
          "ogb_tree resume: carry differs")
-    print(f"ogb_tree: two runs of {RESUME_CHUNKS} chunks equal, and two calls equal one, "
+    print(f"ogb_tree: two runs of {TREE_RESUME_CHUNKS} chunks equal, and two calls equal one, "
           f"bit for bit (host syncs {whole.extras['host_syncs']:.0f}, re-anchors "
           f"{whole.extras['reanchors']:.0f})")
 
@@ -2226,7 +2241,7 @@ def check_scenarios(torch, cpu_futures):
     """Phase 17: every unsized scenario with a policy set through
     run_scenario on the card: at mini against the committed goldens, at
     quick against the port's CPU run (phase 17's workers)."""
-    total = {}
+    total, waited = {}, 0.0
     for name in SCENARIO_NAMES:
         res, _, wall = _scenario_launches(name, "mini")
         golden = _golden_rows(name)
@@ -2245,7 +2260,8 @@ def check_scenarios(torch, cpu_futures):
         res, got, wall = _scenario_launches(name, "quick")
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
-        cpu = cpu_futures[name].result(timeout=900)
+        cpu, secs = cpu_result(cpu_futures[name])
+        waited += secs
         for policy, row in cpu.items():
             card = res.rows[policy]
             if policy in FRACTIONAL_ROWS:
@@ -2268,13 +2284,13 @@ def check_scenarios(torch, cpu_futures):
               f"equal to the CPU run (automata exactly; OGB/OMD hit ratio within "
               f"{QUICK_HIT_TOL}, fractional within {QUICK_FRAC_TOL} relative); the tree "
               f"rows LRU, LFU, FTPL equal to the dense slot kernel's")
-    print(f"quick scenarios' launches: {total}")
+    print(f"quick scenarios' launches: {total}; {waited:.2f} s waiting on the CPU runs")
     return total
 
 
 def check_paper_scale(torch):
     """Phase 18: fig2_adversarial at full (every row, ARC too) and
-    fig8_cdn at full for OGB, OMD and the tree LRU, LFU and FTPL."""
+    fig8_cdn at full for OGB, the tree LRU, LFU and FTPL and FIFO."""
     from repro_torch.cachesim.scenarios import get_scenario, run_scenario
 
     sc = get_scenario("fig2_adversarial")
@@ -2305,9 +2321,8 @@ def check_paper_scale(torch):
         print(f"fig8_cdn full {p}: hit ratio {r['hit_ratio']}"
               + "".join(f", {k} {r[k]}" for k in ("frac_hit_ratio", "regret", "us_per_request")
                         if k in r) + (" us a request" if "us_per_request" in r else ""))
-    for p in ("OGB", "OMD"):
-        r = res.rows[p]
-        need(math.isfinite(r["regret"]) and 0.0 < r["hit_ratio"] < 1.0, f"fig8 full {p}: {r}")
+    r = res.rows["OGB"]
+    need(math.isfinite(r["regret"]) and 0.0 < r["hit_ratio"] < 1.0, f"fig8 full OGB: {r}")
     for p in ("LRU", "LFU", "FTPL"):
         need(0.0 < res.rows[p]["hit_ratio"] < 1.0, f"fig8 full {p}: {res.rows[p]}")
     need(res.rows["OGB"]["hit_ratio"] >= FIG8_OGB_FLOOR * opt,
@@ -2847,7 +2862,8 @@ def check_sized_scenario(torch, cpu_future):
           f"{golden['rows']['OGB_sized_tree']['byte_regret']})")
 
     res, got, wall = _scenario_launches(SIZED, "quick")
-    cpu = cpu_future.result(timeout=900)
+    cpu, secs = cpu_result(cpu_future)
+    print(f"{SIZED} quick: {secs:.2f} s waiting on the CPU run")
     need(res.rows.keys() == cpu.keys(), f"{SIZED} quick: rows {sorted(res.rows)}")
     for policy, row in cpu.items():
         card = res.rows[policy]
@@ -3406,7 +3422,8 @@ def edge_quick_against_cpu(cpu_future):
     t0 = time.perf_counter()
     ef = run_edge_fleet_scenario(EDGE, "quick")
     wall = time.perf_counter() - t0
-    cpu = cpu_future.result()
+    cpu, secs = cpu_result(cpu_future, timeout=None)
+    print(f"{EDGE} quick: {secs:.2f} s waiting on the CPU run")
     need(np.array_equal(ef.edges.hits, cpu["edge_hits"]),
          f"{EDGE} quick: the card's edges are not the CPU's")
     o = cpu["origin"]
@@ -3645,7 +3662,7 @@ DISPATCH_LAYERS, DISPATCH_B, DISPATCH_S, DISPATCH_STEPS, DISPATCH_SAMPLED = 1, 1
 #: the serving loop's warm-up and timed steps and its load
 #: (benchmarks/serving_slo.py's LOAD_FACTOR); card against CPU within
 EXPERT_CATALOGS = {"kimi-k2-1t-a32b": (61, 384), "granite-moe-1b-a400m": (24, 32)}
-EXPERT_STEPS, DRIFT_STEPS, DRIFT_SHIFT, DRIFT_HOT = 1000, 1500, 500, 8
+EXPERT_STEPS, DRIFT_STEPS, DRIFT_SHIFT, DRIFT_HOT = 200, 1500, 500, 8
 EXPERT_WARM, EXPERT_TIMED, LOAD_FACTOR, EXPERT_TOL = 20, 50, 0.7, 1e-5
 
 
@@ -4132,9 +4149,10 @@ def check_moe(torch, dev, cpu_runs):
               f"{LOAD_FACTOR} of that, {rate:.1f} req/s")
         experts[name] = {"ms_a_step": per_step * 1e3, "step_breakdown": breakdown}
         for kind in ("poisson", "drift"):
-            experts[name][kind] = expert_run_on_card(
-                torch, dev, name, kind, cpu_runs[name, kind].result(),
-                rate if kind == "poisson" else None)
+            cpu, secs = cpu_result(cpu_runs[name, kind], timeout=None)
+            print(f"expert cache {name} {kind}: {secs:.2f} s waiting on the CPU run")
+            experts[name][kind] = expert_run_on_card(torch, dev, name, kind, cpu,
+                                                     rate if kind == "poisson" else None)
     projection = time_grad_projection(torch, dev, l2_flush(torch, dev))
     secs = time.perf_counter() - t0
     print(f"phase 24 (c) {time.perf_counter() - t1:.2f} s; phase 24: {secs:.2f} s")
@@ -4151,10 +4169,11 @@ def check_moe(torch, dev, cpu_runs):
 #: WHISPER_PROMPT-token prompt and SERVE_NEW new tokens in its
 #: WHISPER_MAX_LEN-token text context; F64_ROWS rows of an encoder call and
 #: of a cross call held against float64; the int8 decode's split lengths
-#: (tiles a split) timed beside its plan's
+#: (tiles a split) timed beside its plan's; the D = 96 prefill's non-causal
+#: calls: S = T = D96_T (an encoder's 1500 rows) and WHISPER_PROMPT over D96_T
 INT8_ARCH, VLM_ARCH, ENCDEC_ARCH = "mistral-nemo-12b", "phi-3-vision-4.2b", "whisper-large-v3"
 FAMILY_CALLS, VLM_TEXT, WHISPER_PROMPT, WHISPER_MAX_LEN, F64_ROWS = 2, 1792, 224, 448, 64
-INT8_SPLIT_TILES = (3, 5, 9, 17)
+INT8_SPLIT_TILES, D96_T = (3, 4, 6, 9, 17), 1500
 
 
 def family_against_plain(torch, cfg, params, batch, max_len, dev, first=None):
@@ -4238,12 +4257,15 @@ def rows_against_f64(torch, label, q, k, v, out, gen):
 def int8_decode_rows(torch, dev, cfg, flush):
     """Phase 25 (a): the int8 decode kernel at the served shape (SERVE_B
     sequences, the SERVE_S + SERVE_NEW cache, lengths SERVE_S + 1 ..) and at
-    lengths around the mma design's tile and ring edges against its plain
-    version; timed beside the bf16-cache kernel over the same K and V
-    unquantized, its bound and scaled_dot_product_attention over the
-    dequantized cache; and at split lengths around its plan's, launched
-    through the C entry point (not counted)."""
+    lengths around its 64-position tile, a warp's 16-position slices, its
+    3-slice ring and its plan's split against its plain version; timed
+    beside the bf16-cache kernel over the same K and V unquantized, its
+    bound and scaled_dot_product_attention over the dequantized cache;
+    beside its PR 28 design in turns (tools/time_int8_decode_designs.py);
+    and at split lengths around its plan's, launched through the C entry
+    point (not counted)."""
     import torch.nn.functional as F
+    from time_int8_decode_designs import time_designs
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel as dk
@@ -4260,10 +4282,15 @@ def int8_decode_rows(torch, dev, cfg, flush):
     k8, v8, ks, vs = codes[0], codes[1], scales[0], scales[1]
     served = torch.arange(SERVE_S + 1, SERVE_S + 1 + B, device=dev,
                           dtype=torch.int32).clamp(max=S)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan_len = dk.mma_grid_plan(B, H, Hkv, S, D, sms, int8=True)[1]
     errs = []
     for name, lengths in (("served", served.tolist()),
                           ("tile", [1, 63, 64, 65, 127, 128, 129, S]),
-                          ("ring", [191, 192, 193, 255, 256, 257, SERVE_S + 1, S])):
+                          ("slices", [15, 16, 17, 31, 32, 33, 47, 49]),
+                          ("ring", [191, 192, 193, 255, 256, 257, SERVE_S + 1, S]),
+                          ("split", [plan_len - 1, plan_len, plan_len + 1, 2 * plan_len - 1,
+                                     2 * plan_len, 2 * plan_len + 1, S - 1, S])):
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         errs.append(_held(torch, f"decode int8 {INT8_ARCH} bf16 B={B} H={H} Hkv={Hkv} D={D} "
                                  f"S={S} lengths {name} [{dk.design(bf, D)}]",
@@ -4293,8 +4320,7 @@ def int8_decode_rows(torch, dev, cfg, flush):
     print(f"int8 decode {row['ms'] * 1e3:.2f} us against the bf16-cache kernel's "
           f"{bf16_row['ms'] * 1e3:.2f} us at the same shape; bounds {row['bound_ms'] * 1e3:.2f} "
           f"and {bf16_row['bound_ms'] * 1e3:.2f} us; {nvidia_smi_line()}")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan_len = dk.mma_grid_plan(B, H, Hkv, S, D, sms, int8=True)[1]
+    earlier = time_designs(torch, q, k8, v8, ks, vs, served, flush)
     smem = dk.decode_plan(D, int8=True)["smem_bytes"]
     want = decode_attention_ref(q, k8, v8, served, ks, vs)
     splits = {}
@@ -4326,6 +4352,8 @@ def int8_decode_rows(torch, dev, cfg, flush):
     return {**row, "max_abs_err": max(errs), "design": dk.design(bf, D),
             "shape": f"B={B} H={H} Hkv={Hkv} D={D} S={S} lengths {SERVE_S + 1}..{S}",
             "bf16_cache": {k: bf16_row[k] for k in ("ms", "warm_ms", "bound_ms", "library_ms")},
+            "earlier": {k: earlier[k] for k in ("ms", "earlier_ms", "turns", "plan",
+                                                "earlier_plan", "earlier_design")},
             "split_tiles_ms": splits, "plan_split_tiles": plan_len // dk.TILE}
 
 
@@ -4354,11 +4382,84 @@ def serve_int8(torch, dev, flush):
     return {"serving": steady, "launches": launches, "max_logit_err": err, "decode": decode}
 
 
+def d96_prefill_rows(torch, dev, cfg, flush):
+    """Phase 25 (b): the D = 96 prefill (the wgmma design) against its plain
+    version non-causal (S = T = D96_T), cross (WHISPER_PROMPT rows over
+    D96_T) and causal at the served shape (SERVE_B prompts of the image
+    embeddings and VLM_TEXT tokens), each launch counted by design and mode;
+    at the served shape timed cold beside the CUDA-core design it replaced
+    (the same inputs, through its C entry point, uncounted), the plain
+    version, scaled_dot_product_attention and its bound, in one call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, design_counts, reset_launch_counts
+    from repro_torch.kernels.flash_prefill import kernel as pk
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+
+    bf, B, S = torch.bfloat16, SERVE_B, cfg.n_image_tokens + VLM_TEXT
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(96)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(bf)
+
+    errs = {}
+    for mode, rows, keys in (("non-causal", D96_T, D96_T), ("cross", WHISPER_PROMPT, D96_T),
+                             ("causal", S, S)):
+        q, k, v = randn(B, rows, H, D), randn(B, keys, Hkv, D), randn(B, keys, Hkv, D)
+        causal = mode == "causal"
+        reset_launch_counts()
+        errs[mode] = _held(torch, f"prefill {VLM_ARCH} D={D} {mode} B={B} S={rows} T={keys} "
+                                  f"H={H} Hkv={Hkv} [{pk.design(bf, D)}]",
+                           flash_prefill(q, k, v, causal), flash_prefill(q, k, v, causal),
+                           flash_prefill_ref(q, k, v, causal), bf)
+        want = {f"{pk.design(bf, D)}, {mode}": 2}
+        need(pk.design(bf, D) == pk.WGMMA and design_counts()["flash_prefill"] == want,
+             f"D={D} {mode}: launches {design_counts()['flash_prefill']}, expected {want}")
+        if not causal:
+            del q, k, v
+            torch.cuda.empty_cache()
+    core_out = torch.empty_like(q)
+
+    def cuda_core():  # the CUDA-core design at the same inputs
+        _build.check(pk._entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), core_out.data_ptr(),
+                                 B, S, S, H, Hkv, D, 1.0 / math.sqrt(D), 1, 1,
+                                 _build.stream_of(q)), "flash_prefill (cuda-core)")
+
+    cuda_core()
+    torch.cuda.synchronize()
+    want = flash_prefill_ref(q, k, v)
+    core_err = float((core_out.float() - want.float()).abs().max())
+    need(core_err <= 2.0 ** -7 * float(want.float().abs().max()),
+         f"the CUDA-core D={D} prefill: |kernel - plain| = {core_err}")
+    del want
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ms = timed_ms(torch, lambda: flash_prefill(q, k, v), 20, flush)
+    warm = timed_ms(torch, lambda: flash_prefill(q, k, v), 20)
+    core_ms = timed_ms(torch, cuda_core, 3, flush)
+    plain_ms = timed_ms(torch, lambda: flash_prefill_ref(q, k, v), 3, flush)
+    lib_ms = timed_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                    enable_gqa=True), 20, flush)
+    # 4 B H (S^2 / 2) D operations over the bf16 tensor-core peak
+    b, by = bound_ms(2 * (2 * B * S * H * D + 2 * B * S * Hkv * D),
+                     4 * B * H * (S * S / 2) * D, BF16_OPS_PER_S)
+    print(f"flash_prefill {VLM_ARCH} D={D} B={B} S={S}: cold {ms * 1e3:.2f} us, warm in L2 "
+          f"{warm * 1e3:.2f} us [{pk.design(bf, D)}]; the CUDA-core design at the same inputs "
+          f"{core_ms * 1e3:.2f} us ({core_ms / ms:.2f}x); plain {plain_ms * 1e3:.2f} us, "
+          f"scaled_dot_product_attention {lib_ms * 1e3:.2f} us, bound {b * 1e3:.3f} us by {by}; "
+          f"kernel / library {ms / lib_ms:.2f}; {nvidia_smi_line()}")
+    return {"ms": ms, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": lib_ms, "earlier_ms": core_ms, "earlier_design": pk.CUDA_CORE,
+            "max_abs_err": errs["causal"], "max_abs_err_by_mode": errs,
+            "earlier_max_abs_err": core_err}
+
+
 def serve_vlm(torch, dev, flush):
     """Phase 25 (b): phi-3-vision at full width, all 32 layers: prefill of
     SERVE_B prompts of its image embeddings (a seeded normal) and VLM_TEXT
-    tokens, SERVE_NEW decode steps, the D = 96 prefill (the CUDA-core
-    design) timed beside scaled_dot_product_attention and its bound."""
+    tokens, SERVE_NEW decode steps, and its D = 96 prefill's rows
+    (d96_prefill_rows)."""
     import numpy as np
 
     from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
@@ -4400,10 +4501,7 @@ def serve_vlm(torch, dev, flush):
     err = family_against_plain(torch, cfg, params, batch, max_len, dev, first)
     del params, batch
     torch.cuda.empty_cache()
-    _, prefill_job = attention_jobs(torch, dev, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 25)
-    timed = measure_attention(torch, "flash_prefill", f"{VLM_ARCH} D={cfg.head_dim} B={SERVE_B} "
-                              f"S={n_img + VLM_TEXT}", prefill_job(SERVE_B, n_img + VLM_TEXT), 3,
-                              flush)
+    timed = d96_prefill_rows(torch, dev, cfg, flush)
     torch.cuda.empty_cache()
     return {"prefill_s": t1 - t0, "decode_ms_a_step": (t2 - t1) * 1e3 / SERVE_NEW,
             "launches": {k: launches[k] for k in ("flash_prefill", "decode_attention")},
@@ -4556,41 +4654,59 @@ def main() -> int:
     t0 = time.perf_counter()
     _libs, logs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s, {sorted(_libs)}")
+    serialized = []
     for name, log in logs.items():
         for line in log.splitlines():
             if "Function properties" in line or "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+            if "serialized" in line or "C7514" in line or "C7518" in line:
+                print(f"  {name}: {line.strip()}")
+                serialized.append(f"{name}: {line.strip()}")
+    need(not serialized, f"ptxas serialized a wgmma: {serialized}")
 
     t0 = time.perf_counter()
     trace = zipf(N, T, alpha=ALPHA, seed=0)
     print(f"trace: zipf N={N} T={T} alpha={ALPHA}, {time.perf_counter() - t0:.2f} s")
     eta = theoretical_eta(C, N, T, 1)
 
+    t_lap = [time.perf_counter()]
+
+    def lap(phases):  # the seconds since the last lap, by phase
+        now = time.perf_counter()
+        print(f"phases {phases}: {now - t_lap[0]:.2f} s")
+        t_lap[0] = now
+
     carry = tree_state(trace, eta)
     rows = check_kernels(torch, dev, trace, eta, dense_tau(trace, eta), carry)
     rows.update(check_tree_kernels(torch, dev, carry, eta))
     rows.update(check_tree_sums(torch, dev, carry, trace, rows.pop("segsum")))
+    lap("1-3 (the trace, the kernels against their plain versions)")
     launches, designs = check_main_path(torch, trace, eta)
     check_card_against_cpu(trace, eta)
     check_resume(torch, trace, eta)
     breakdown(torch, trace, eta)
+    lap("4-7 (the dense main path)")
     tree_launches, tree_designs = check_tree_main_path(trace, eta)
     check_tree_card_against_cpu(trace, eta)
     check_tree_repeat_and_resume(torch, trace, eta)
     reanchor_histograms = check_reanchor(torch, trace, eta)
     madow_segsum = check_madow(trace, eta)
     tree_profile = breakdown(torch, trace, eta, kind="ogb_tree")
+    lap("8-11 (the lazy main path, Madow)")
     attn_errs = check_attention_kernels(torch, dev)
     rows.update(time_attention_kernels(torch, dev, attn_errs))
+    lap("12-13 (attention)")
     engine, prompts, first_out, serve_launches, _ = serve_full_width(torch, dev)
     serve_breakdown(torch, engine, prompts)
     check_served_against_plain(torch, engine, prompts, first_out)
     del engine
+    lap("14-15 (serving)")
 
     t_scenarios = time.perf_counter()
     pool, cpu_futures = start_cpu_quick()
     try:
         rows["slot_automaton"] = check_slot_automaton(torch, dev)
+        lap("16 (the slot automaton)")
         scenario_launches = check_scenarios(torch, cpu_futures)
         fig8_launches = check_paper_scale(torch)
         print(f"scenario phases 16-18: {time.perf_counter() - t_scenarios:.2f} s")

@@ -61,11 +61,33 @@
 // of the cache ever reaches HBM.  The reason for the int8 cache is its
 // bytes: at mistral-nemo's served shape (B=8, Hkv=8, D=128, S=2080) the
 // codes are 34.1 MB and the scales 1.1 MB, a bound of 10.5 us, against
-// 68.2 MB and 20.3 us for the same cache in bf16.  In the mma design the
-// codes and scales are staged by cp.async (16-byte copies of codes, 4-byte
-// copies of scales) into the same 3-tile ring, and each warp converts its
-// own 16 positions of a tile into a bf16 tile of its own just before its
-// products, so only a warp-wide barrier sits between the two.
+// 68.2 MB and 20.3 us for the same cache in bf16.
+//
+// decode_mma_q8_kernel (bf16 q over an int8 cache), the mma design for its
+// own traffic.  Dequantizing adds ~2.5 instructions a code to the bf16
+// kernel's work, and a block of 4 warps that waits on block barriers cannot
+// hide their latency; so:
+//   * each warp streams its own 16 positions of every 64-position tile
+//     through a ring of its own (kQ8Stages slices of codes and scales by
+//     cp.async, 4736 bytes a slice at D = 128), with a warp barrier a slice:
+//     no warp waits for another until the final merge;
+//   * a lane dequantizes in registers, into its own B fragments, with no
+//     bf16 tile in shared memory: for Q K^T 4 adjacent codes of a key's row
+//     a 16-column step (one 32-bit read and the key's scale; the A fragments
+//     of Q take the same 4 columns, a permutation of D inside each step that
+//     the sum over D does not see), for P V one 32-bit read of each of its 4
+//     keys a group of 32 output columns and their 4 scales (the group's
+//     columns dealt 4 to a fragment column, undone when the warps merge);
+//     row strides of D + 16 bytes put both reads on 32 distinct banks; no
+//     branch in a slice (steps past D read zero codes), so its reads issue
+//     ahead of its products and the two key blocks' chains interleave;
+//     codes become floats by an exponent trick, not I2F (code_of);
+//   * the freed shared memory (the PR 28 design's bf16 warp tiles, 34 816
+//     bytes at D = 128) and launch bounds of kQ8Blocks blocks an SM let 3
+//     blocks share an SM at D = 128, and kernel.py's int8 plan splits the
+//     cache for them (mma_grid_plan).
+// tools/time_int8_decode_designs.py keeps the PR 28 design as text and times
+// both in one call.
 
 #include <cstdint>
 
@@ -333,21 +355,25 @@ constexpr int kRowPad = 8;        // bf16 padding of a staged row (16 bytes)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-constexpr int kRowPad8 = 16;     // byte padding of a staged row of int8 codes
+constexpr int kRowPad8 = 16;  // byte padding of a staged row of int8 codes
+constexpr int kQ8Stages = 3;  // 16-position slices a warp keeps in flight
+// Blocks an SM the int8 kernel's registers are bounded for (launch bounds) at
+// D <= 128 (168 registers a thread); at larger D the accumulators need more,
+// and 2 blocks fit.
+constexpr int kQ8Blocks = 3;
 
 // Shared memory of one block at head dimension D: the ring of K and V tiles,
 // which the warps' merge reuses (4 x 16 x D floats and 2 x 64 floats fit in
-// it).  An int8 cache's ring holds codes (rows of D + 16 bytes) and a scale a
-// row, and each warp a bf16 K and V tile of its 16 rows; the merge's
-// 64 D + 128 floats fit in it too.  kernel.py's decode_plan computes the
-// same figures and passes them in.
+// it).  An int8 cache's block: each warp's own ring of kQ8Stages slices, a
+// slice 16 rows of K codes and 16 of V codes (rows of D + 16 bytes) and their
+// 32 scales; the merge's 64 D + 128 floats fit in it too.  kernel.py's
+// decode_plan computes the same figures and passes them in.
 constexpr int mma_smem_bytes(int D) { return kMmaStages * 2 * kTile * (D + kRowPad) * 2; }
-__host__ __device__ constexpr int mma_q8_ring_bytes(int D) {
-  return kMmaStages * 2 * kTile * (D + kRowPad8);
+__host__ __device__ constexpr int q8_slice_bytes(int D) {
+  return 2 * 16 * (D + kRowPad8) + 2 * 16 * 4;
 }
-__host__ __device__ constexpr int mma_q8_scale_bytes() { return kMmaStages * 2 * kTile * 4; }
 __host__ __device__ constexpr int mma_q8_smem_bytes(int D) {
-  return mma_q8_ring_bytes(D) + mma_q8_scale_bytes() + 4 * 2 * 16 * (D + kRowPad) * 2;
+  return 4 * kQ8Stages * q8_slice_bytes(D);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -405,38 +431,94 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// 8 int8 codes at src (8-byte aligned) times scale, rounded to bf16, to dst
-// (16-byte aligned): repro's dequantization of a bf16 model's cache.
-__device__ __forceinline__ void dequant8_bf16(const int8_t* src, float scale,
-                                              __nv_bfloat16* dst) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(src);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
-  uint4 out;
-  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+// The online softmax of a warp's 16 keys key0 .. key0 + 15 (scores of 16 rows
+// x 16 keys: register 2r + e of n-block nb is row qr + 8r, key key0 + 8 nb +
+// qc + e), in the log2 domain: masks keys at or past s_end, updates the
+// running max m and sum l, rescales O, and returns P (rounded to bf16) as the
+// A fragment of O += P V.
+template <int NT>
+__device__ __forceinline__ void softmax_16(float (&sc)[2][4], float (&m)[2], float (&l)[2],
+                                           float (&o)[2 * NT][4], long long key0,
+                                           long long s_end, int qc, float scale_log2,
+                                           uint32_t (&pa)[4]) {
+  const bool last = key0 + 16 > s_end;  // only the split's last keys mask
+  float mx[2] = {m[0], m[1]};
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const __nv_bfloat162 h = __halves2bfloat162(
-        __float2bfloat16_rn(__fmul_rn((float)c[2 * e], scale)),
-        __float2bfloat16_rn(__fmul_rn((float)c[2 * e + 1], scale)));
-    o[e] = *reinterpret_cast<const uint32_t*>(&h);
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = sc[nb][2 * r + e] * scale_log2;
+        if (last && key0 + 8 * nb + qc + e >= s_end) x = kNegInf;
+        sc[nb][2 * r + e] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+  float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    alpha[r] = exp2f(m[r] - mx[r]);
+    m[r] = mx[r];
   }
-  *reinterpret_cast<uint4*>(dst) = out;
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float p0 = exp2f(sc[nb][2 * r] - m[r]), p1 = exp2f(sc[nb][2 * r + 1] - m[r]);
+      sum[r] += p0 + p1;
+      pa[2 * nb + r] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) {
+    o[j][0] *= alpha[0];
+    o[j][1] *= alpha[0];
+    o[j][2] *= alpha[1];
+    o[j][3] *= alpha[1];
+  }
+}
+
+// The 4 warps' states, staged by the caller in w_acc [4][16][D], w_m and w_l
+// [4][16] (the ring's memory, after a barrier), merged in a fixed order into
+// the block's partials (m in the natural-log domain, as decode_split_kernel
+// writes them, so decode_combine_kernel finishes both designs).
+__device__ __forceinline__ void merge_warps(const float* w_acc, const float* w_m, const float* w_l,
+                                            int rows, int D, long long head0, int n_splits,
+                                            int split, float* __restrict__ part_m,
+                                            float* __restrict__ part_l,
+                                            float* __restrict__ part_acc) {
+  for (int i = threadIdx.x; i < rows * D; i += kMmaThreads) {
+    const int gi = i / D, d = i % D;
+    float mm = kNegInf;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, w_m[w * 16 + gi]);
+    float ll = 0.0f, acc = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float s = exp2f(w_m[w * 16 + gi] - mm);  // 0 for a warp that saw no key
+      ll = fmaf(s, w_l[w * 16 + gi], ll);
+      acc = fmaf(s, w_acc[(w * 16 + gi) * D + d], acc);
+    }
+    part_acc[((head0 + gi) * n_splits + split) * D + d] = acc;
+    if (d == 0) {
+      part_m[(head0 + gi) * n_splits + split] = mm * kLn2;
+      part_l[(head0 + gi) * n_splits + split] = ll;
+    }
+  }
 }
 
 // NT: 16-column steps of D the registers are sized for (D <= 16 NT); the
 // steps at or past D / 16 are skipped.  Writes partials as decode_split_kernel
 // does (m in the natural-log domain), so decode_combine_kernel finishes both.
-// C: the cache's type, bf16 or int8_t (then k_scale and v_scale, (B, S, Hkv)
-// float32, dequantize it).
-template <int NT, typename C>
+template <int NT>
 __global__ void __launch_bounds__(kMmaThreads)
-decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const C* __restrict__ k,
-                  const C* __restrict__ v, const float* __restrict__ k_scale,
-                  const float* __restrict__ v_scale, const int* __restrict__ lengths, int H,
+decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths, int H,
                   int Hkv, int D, long long S, int n_splits, long long split_len,
                   float scale_log2, float* __restrict__ part_m, float* __restrict__ part_l,
                   float* __restrict__ part_acc) {
-  constexpr bool kQ8 = sizeof(C) == 1;
   const int g = H / Hkv, row_tiles = (g + 15) / 16;
   const int split = blockIdx.x, kvh = blockIdx.y / row_tiles, g0 = 16 * (blockIdx.y % row_tiles);
   const int b = blockIdx.z;
@@ -451,49 +533,20 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const C* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int qr = lane >> 2, qc = 2 * (lane & 3);  // fragment row (and row + 8) and column pair
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  // stage s: K [64][ld] then V [64][ld] (bf16); an int8 cache's stage s:
-  // codes K [64][ld8] then V [64][ld8] in ring8, scales K [64] then V [64]
-  // in scl, and each warp's bf16 K [16][ld] then V [16][ld] in wtile
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  const int ld8 = D + kRowPad8;
-  int8_t* ring8 = reinterpret_cast<int8_t*>(smem_raw);
-  float* scl = reinterpret_cast<float*>(smem_raw + mma_q8_ring_bytes(D));
-  __nv_bfloat16* wtile = reinterpret_cast<__nv_bfloat16*>(
-      smem_raw + mma_q8_ring_bytes(D) + mma_q8_scale_bytes()) + warp * 2 * 16 * ld;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // stage s: K [64][ld], V [64][ld]
 
   auto load_tile = [&](int t) {
     const long long t0 = s_begin + (long long)kTile * t;
     const int valid = (int)min((long long)kTile, s_end - t0);
-    const int stage = t % kMmaStages;
-    if constexpr (sizeof(C) == 1) {  // an int8 cache: codes, and a scale a row
-      int8_t* ks = ring8 + stage * 2 * kTile * ld8;
-      int8_t* vs = ks + kTile * ld8;
-      const int chunks = D / 16;  // 16-byte chunks of a row of codes
-      for (int i = tid; i < kTile * chunks; i += kMmaThreads) {
-        const int r = i / chunks, c = (i % chunks) * 16;
-        const long long off = (((long long)b * S + t0 + min(r, valid - 1)) * Hkv + kvh) * D + c;
-        const int bytes = r < valid ? 16 : 0;
-        cp_async16(ks + r * ld8 + c, k + off, bytes);
-        cp_async16(vs + r * ld8 + c, v + off, bytes);
-      }
-      float* kss = scl + stage * 2 * kTile;
-      for (int r = tid; r < kTile; r += kMmaThreads) {
-        const long long row = ((long long)b * S + t0 + min(r, valid - 1)) * Hkv + kvh;
-        const int bytes = r < valid ? 4 : 0;
-        cp_async4(kss + r, k_scale + row, bytes);
-        cp_async4(kss + kTile + r, v_scale + row, bytes);
-      }
-    } else {
-      __nv_bfloat16* ks = ring + stage * 2 * kTile * ld;
-      __nv_bfloat16* vs = ks + kTile * ld;
-      const int chunks = D / 8;  // 16-byte chunks of a row
-      for (int i = tid; i < kTile * chunks; i += kMmaThreads) {
-        const int r = i / chunks, c = (i % chunks) * 8;
-        const long long off = (((long long)b * S + t0 + min(r, valid - 1)) * Hkv + kvh) * D + c;
-        const int bytes = r < valid ? 16 : 0;
-        cp_async16(ks + r * ld + c, k + off, bytes);
-        cp_async16(vs + r * ld + c, v + off, bytes);
-      }
+    __nv_bfloat16* ks = ring + (t % kMmaStages) * 2 * kTile * ld;
+    __nv_bfloat16* vs = ks + kTile * ld;
+    const int chunks = D / 8;  // 16-byte chunks of a row
+    for (int i = tid; i < kTile * chunks; i += kMmaThreads) {
+      const int r = i / chunks, c = (i % chunks) * 8;
+      const long long off = (((long long)b * S + t0 + min(r, valid - 1)) * Hkv + kvh) * D + c;
+      const int bytes = r < valid ? 16 : 0;
+      cp_async16(ks + r * ld + c, k + off, bytes);
+      cp_async16(vs + r * ld + c, v + off, bytes);
     }
   };
 #pragma unroll
@@ -523,28 +576,9 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const C* __restrict__ k,
     __syncthreads();                  // and everyone's
     const long long key0 = s_begin + (long long)kTile * t + 16 * warp;  // the warp's 16 keys
     if (key0 < s_end) {  // else none of them is valid: nothing to add
-      const __nv_bfloat16* ks;
-      const __nv_bfloat16* vs;
-      if constexpr (kQ8) {  // the warp's 16 rows of codes into its own bf16 tiles
-        const int stage = t % kMmaStages;
-        const int8_t* k8 = ring8 + stage * 2 * kTile * ld8 + 16 * warp * ld8;
-        const float* ksc = scl + stage * 2 * kTile + 16 * warp;
-        const int chunks = D / 8;
-        for (int i = lane; i < 16 * chunks; i += 32) {
-          const int r = i / chunks, c = (i % chunks) * 8;
-          dequant8_bf16(k8 + r * ld8 + c, ksc[r], wtile + r * ld + c);
-          dequant8_bf16(k8 + kTile * ld8 + r * ld8 + c, ksc[kTile + r], wtile + (16 + r) * ld + c);
-        }
-        __syncwarp();
-        ks = wtile;
-        vs = wtile + 16 * ld;
-      } else {
-        ks = ring + (t % kMmaStages) * 2 * kTile * ld + 16 * warp * ld;
-        vs = ks + kTile * ld;
-      }
+      const __nv_bfloat16* ks = ring + (t % kMmaStages) * 2 * kTile * ld + 16 * warp * ld;
+      const __nv_bfloat16* vs = ks + kTile * ld;
 
-      // scores of 16 rows x 16 keys: register 2r + e of n-block nb is row qr + 8r,
-      // key key0 + 8 nb + qc + e
       float sc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
 #pragma unroll
       for (int kk = 0; kk < NT; ++kk) {
@@ -556,44 +590,8 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const C* __restrict__ k,
                     *reinterpret_cast<const uint32_t*>(kr + 8));
         }
       }
-      const bool last = key0 + 16 > s_end;  // only the split's last keys mask
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float x = sc[nb][2 * r + e] * scale_log2;
-            if (last && key0 + 8 * nb + qc + e >= s_end) x = kNegInf;
-            sc[nb][2 * r + e] = x;
-            mx[r] = fmaxf(mx[r], x);
-          }
-      float alpha[2], sum[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = quad_max(mx[r]);
-        alpha[r] = exp2f(m[r] - mx[r]);
-        m[r] = mx[r];
-      }
-      uint32_t pa[4];  // P as the A fragment of O += P V
-#pragma unroll
-      for (int nb = 0; nb < 2; ++nb)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float p0 = exp2f(sc[nb][2 * r] - m[r]), p1 = exp2f(sc[nb][2 * r + 1] - m[r]);
-          sum[r] += p0 + p1;
-          pa[2 * nb + r] = pack_bf16(p0, p1);
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
-#pragma unroll
-      for (int j = 0; j < 2 * NT; ++j) {
-        o[j][0] *= alpha[0];
-        o[j][1] *= alpha[0];
-        o[j][2] *= alpha[1];
-        o[j][3] *= alpha[1];
-      }
+      uint32_t pa[4];
+      softmax_16<NT>(sc, m, l, o, key0, s_end, qc, scale_log2, pa);
       // B fragments of V (16 keys x 16 columns) by ldmatrix.trans: lanes 0-7
       // address keys 0-7, lanes 8-15 keys 8-15, lanes 16-31 the same 8 columns on
       const __nv_bfloat16* vl = vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4);
@@ -606,7 +604,7 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const C* __restrict__ k,
         mma_16816(o[2 * kk + 1], pa, vb[2], vb[3]);
       }
     }
-    __syncthreads();  // everyone is done with tile t's stage (and its warp tile): refill it
+    __syncthreads();  // everyone is done with tile t's stage: refill it
     if (t + kMmaStages < n_tiles) load_tile(t + kMmaStages);
     cp_async_commit();
   }
@@ -633,52 +631,245 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const C* __restrict__ k,
     }
   }
   __syncthreads();
-  const long long head0 = (long long)b * H + (long long)kvh * g + g0;
-  for (int i = tid; i < rows * D; i += kMmaThreads) {
-    const int gi = i / D, d = i % D;
-    float mm = kNegInf;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) mm = fmaxf(mm, w_m[w * 16 + gi]);
-    float ll = 0.0f, acc = 0.0f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float s = exp2f(w_m[w * 16 + gi] - mm);  // 0 for a warp that saw no key
-      ll = fmaf(s, w_l[w * 16 + gi], ll);
-      acc = fmaf(s, w_acc[(w * 16 + gi) * D + d], acc);
-    }
-    part_acc[((head0 + gi) * n_splits + split) * D + d] = acc;
-    if (d == 0) {
-      part_m[(head0 + gi) * n_splits + split] = mm * kLn2;
-      part_l[(head0 + gi) * n_splits + split] = ll;
-    }
-  }
+  merge_warps(w_acc, w_m, w_l, rows, D, (long long)b * H + (long long)kvh * g + g0, n_splits,
+              split, part_m, part_l, part_acc);
 }
 
+// Code i (0..3) of the word w as a float, exactly, without a conversion
+// instruction (I2F issues at a quarter of the FP32 rate): the float
+// 0x4B0000xx is 2^23 + xx, and xx = code + 128 is the byte with its top bit
+// flipped, so subtracting 2^23 + 128 leaves the code.
+__device__ __forceinline__ float code_of(uint32_t w, int i) {
+  const uint32_t x = __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7650u | (uint32_t)i);
+  return __fsub_rn(__uint_as_float(x), 8388736.0f);
+}
+
+// Two dequantized elements, float32(code) * scale (never fused into an FMA)
+// rounded to bf16 as repro rounds them to q's type, packed as a fragment
+// register with the first in the low half.
+__device__ __forceinline__ uint32_t dequant2(float c0, float s0, float c1, float s1) {
+  return pack_bf16(__fmul_rn(c0, s0), __fmul_rn(c1, s1));
+}
+
+// Column of D that C-fragment column n (0..7) of output n-block j holds in the
+// int8 kernel: the n-blocks of a group of 32 columns deal 4 adjacent columns
+// to each B-fragment column (a last group of 16, where D % 32 == 16, 2), so a
+// lane reads V's codes a 32-bit word (16-bit) a key and group.
+__device__ __forceinline__ int q8_column(int j, int n, int D) {
+  const int G = j >> 2, width = min(32, D - 32 * G);
+  return 32 * G + n * (width / 8) + (j & 3);
+}
+
+// The int8 cache's mma design: as decode_mma_kernel, but each warp streams
+// its own 16 positions of every 64-position tile (a slice) through a ring of
+// its own (kQ8Stages slices of codes and scales by cp.async, a warp barrier
+// a slice: no warp waits for another until the merge), and dequantizes in
+// registers, into the fragments: for Q K^T a lane reads 4 adjacent codes of
+// a key's row a 16-column step (one word; the A fragments take Q's same
+// columns, a permutation of D inside each step that the sum over D does not
+// see) and one scale; for P V one word of each of its 4 keys a group of 32
+// columns (q8_column) and their 4 scales.
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads, NT <= 8 ? kQ8Blocks : 1)
+decode_mma_q8_kernel(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
+                     const int8_t* __restrict__ v, const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale, const int* __restrict__ lengths, int H,
+                     int Hkv, int D, long long S, int n_splits, long long split_len,
+                     float scale_log2, float* __restrict__ part_m, float* __restrict__ part_l,
+                     float* __restrict__ part_acc) {
+  const int g = H / Hkv, row_tiles = (g + 15) / 16;
+  const int split = blockIdx.x, kvh = blockIdx.y / row_tiles, g0 = 16 * (blockIdx.y % row_tiles);
+  const int b = blockIdx.z;
+  const long long len = min((long long)lengths[b], S);
+  const long long s_begin = (long long)split * split_len;
+  if (s_begin >= len) return;  // past this sequence's length: pass 2 reads no partial here
+  const long long s_end = min(s_begin + split_len, len);
+  const int rows = min(16, g - g0);  // query rows of this block's row tile
+  const int nt = D / 16;
+  const int ld8 = D + kRowPad8;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qr = lane >> 2, qc = 2 * (lane & 3), c4 = 4 * (lane & 3);
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // this warp's ring: slice t at + (t % kQ8Stages) * q8_slice_bytes(D): K codes
+  // [16][ld8], V codes [16][ld8], K scales [16], V scales [16]
+  uint8_t* ring = smem_raw + warp * kQ8Stages * q8_slice_bytes(D);
+  // the warp's slices: positions first + 64 t .. + 15, those that start before s_end
+  const long long first = s_begin + 16 * warp;
+  const int n_slices = first < s_end ? (int)((s_end - first + kTile - 1) / kTile) : 0;
+
+  auto slice = [&](int t) { return ring + (t % kQ8Stages) * q8_slice_bytes(D); };
+  auto load_slice = [&](int t) {
+    const long long key0 = first + (long long)kTile * t;
+    const int valid = (int)min(16LL, s_end - key0);
+    int8_t* ks = reinterpret_cast<int8_t*>(slice(t));
+    int8_t* vs = ks + 16 * ld8;
+    float* ss = reinterpret_cast<float*>(vs + 16 * ld8);
+    const int chunks = D / 16;  // 16-byte chunks of a row of codes
+    for (int i = lane; i < 16 * chunks; i += 32) {
+      const int r = i / chunks, c = (i % chunks) * 16;
+      const long long off = (((long long)b * S + key0 + min(r, valid - 1)) * Hkv + kvh) * D + c;
+      const int bytes = r < valid ? 16 : 0;
+      cp_async16(ks + r * ld8 + c, k + off, bytes);
+      cp_async16(vs + r * ld8 + c, v + off, bytes);
+    }
+    if (lane < 16) {  // zero codes and scales past the split's end
+      const long long row = ((long long)b * S + key0 + min(lane, valid - 1)) * Hkv + kvh;
+      const int bytes = lane < valid ? 4 : 0;
+      cp_async4(ss + lane, k_scale + row, bytes);
+      cp_async4(ss + 16 + lane, v_scale + row, bytes);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < kQ8Stages; ++t) {  // the whole ring in flight
+    if (t < n_slices) load_slice(t);
+    cp_async_commit();
+  }
+
+  // the block's queries as A fragments, rows g0 + qr and g0 + qr + 8 of the
+  // group: in step kk, Q's columns 16 kk + c4 .. + 3 (a0 | a2, a1 | a3)
+  const __nv_bfloat16* qg = q + ((long long)b * H + (long long)kvh * g + g0) * D;
+  uint32_t qa[NT][4];
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    uint2 lo = make_uint2(0u, 0u), hi = make_uint2(0u, 0u);
+    if (kk < nt && qr < rows) lo = *reinterpret_cast<const uint2*>(qg + qr * D + 16 * kk + c4);
+    if (kk < nt && qr + 8 < rows)
+      hi = *reinterpret_cast<const uint2*>(qg + (qr + 8) * D + 16 * kk + c4);
+    qa[kk][0] = lo.x;
+    qa[kk][1] = hi.x;
+    qa[kk][2] = lo.y;
+    qa[kk][3] = hi.y;
+  }
+
+  float o[2 * NT][4];
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  for (int t = 0; t < n_slices; ++t) {
+    cp_async_wait<kQ8Stages - 1>();  // slice t has landed (this lane's copies)
+    __syncwarp();                    // and the warp's
+    const int8_t* ks = reinterpret_cast<const int8_t*>(slice(t));
+    const int8_t* vs = ks + 16 * ld8;
+    const float* ss = reinterpret_cast<const float*>(vs + 16 * ld8);
+    const long long key0 = first + (long long)kTile * t;
+
+    // S = Q K^T: B column qr of n-block nb is key key0 + 8 nb + qr; its
+    // elements of step kk are the codes 16 kk + c4 .. + 3 of that key's row.
+    // No branch: the steps past D / 16 (D below the registers' 16 NT) read
+    // zero codes against Q's zero columns, so every read of the slice is
+    // issued ahead of its products and the two n-blocks' chains interleave
+    float sc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+    const int8_t* kr = ks + qr * ld8 + c4;
+    const float sk[2] = {ss[qr], ss[8 + qr]};
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb) {
+        const uint32_t w =
+            kk < nt ? *reinterpret_cast<const uint32_t*>(kr + 8 * nb * ld8 + 16 * kk) : 0u;
+        mma_16816(sc[nb], qa[kk], dequant2(code_of(w, 0), sk[nb], code_of(w, 1), sk[nb]),
+                  dequant2(code_of(w, 2), sk[nb], code_of(w, 3), sk[nb]));
+      }
+    uint32_t pa[4];
+    softmax_16<NT>(sc, m, l, o, key0, s_end, qc, scale_log2, pa);
+
+    // O += P V: B fragment of n-block j is V at keys qc, qc + 1 (b0) and
+    // qc + 8, qc + 9 (b1) of the slice, at column q8_column(j, qr).  A group
+    // of 32 columns reads a word a key, a last one of 16 (D % 32 == 16) a
+    // half word; past D zero codes, into n-blocks that are never written
+    const int8_t* vr = vs + qc * ld8;
+    const int rows_at[4] = {0, ld8, 8 * ld8, 9 * ld8};  // keys qc, qc + 1, qc + 8, qc + 9
+    const float sv[4] = {ss[16 + qc], ss[17 + qc], ss[24 + qc], ss[25 + qc]};
+#pragma unroll
+    for (int G = 0; G < (NT + 1) / 2; ++G) {
+      const int width = D - 32 * G;  // columns left: >= 32, 16, or none
+      uint32_t w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int8_t* p = vr + rows_at[i] + 32 * G;
+        w[i] = width >= 32 ? *reinterpret_cast<const uint32_t*>(p + 4 * qr)
+               : width == 16 ? (uint32_t)*reinterpret_cast<const uint16_t*>(p + 2 * qr) : 0u;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * G + e < 2 * NT)
+          mma_16816(o[4 * G + e], pa, dequant2(code_of(w[0], e), sv[0], code_of(w[1], e), sv[1]),
+                    dequant2(code_of(w[2], e), sv[2], code_of(w[3], e), sv[3]));
+    }
+    __syncwarp();  // every lane is done with slice t's stage: refill it
+    if (t + kQ8Stages < n_slices) load_slice(t + kQ8Stages);
+    cp_async_commit();
+  }
+
+  // merge the 4 warps' states in a fixed order through the rings' memory
+  cp_async_wait<0>();
+  __syncthreads();
+  float* w_acc = reinterpret_cast<float*>(smem_raw);  // [4][16][D]
+  float* w_m = w_acc + 4 * 16 * D;                     // [4][16]
+  float* w_l = w_m + 4 * 16;                           // [4][16]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qr + 8 * r;
+    const float lr = quad_sum(l[r]);
+    float* dst = w_acc + (warp * 16 + row) * D;
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+      if (j >= 2 * nt) break;
+      dst[q8_column(j, qc, D)] = o[j][2 * r];
+      dst[q8_column(j, qc + 1, D)] = o[j][2 * r + 1];
+    }
+    if ((lane & 3) == 0) {
+      w_m[warp * 16 + row] = m[r];
+      w_l[warp * 16 + row] = lr;
+    }
+  }
+  __syncthreads();
+  merge_warps(w_acc, w_m, w_l, rows, D, (long long)b * H + (long long)kvh * g + g0, n_splits,
+              split, part_m, part_l, part_acc);
+}
+
+// C: the cache's type, bf16 (decode_mma_kernel) or int8_t (decode_mma_q8_kernel,
+// with k_scale and v_scale).
 template <int NT, typename C>
 int launch_mma(const void* q, const void* k, const void* v, const void* k_scale,
                const void* v_scale, const void* lengths, int B, int H, int Hkv, int D,
                long long S, int n_splits, long long split_len, float scale, int smem,
                void* part_m, void* part_l, void* part_acc, void* out, cudaStream_t stream) {
-  const int need = sizeof(C) == 1 ? mma_q8_smem_bytes(D) : mma_smem_bytes(D);
+  constexpr bool kQ8 = sizeof(C) == 1;
+  const int need = kQ8 ? mma_q8_smem_bytes(D) : mma_smem_bytes(D);
   if (smem < need || smem < 4 * 16 * D * 4 + 2 * 64 * 4) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_mma_kernel<NT, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
   const int row_tiles = (H / Hkv + 15) / 16;
-  decode_mma_kernel<NT, C><<<dim3(n_splits, Hkv * row_tiles, B), kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const C*>(k), static_cast<const C*>(v),
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<const int*>(lengths), H, Hkv, D, S,
-      n_splits, split_len, scale * kLog2e, static_cast<float*>(part_m),
-      static_cast<float*>(part_l), static_cast<float*>(part_acc));
+  const dim3 grid(n_splits, Hkv * row_tiles, B);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* len = static_cast<const int*>(lengths);
+  auto* pm = static_cast<float*>(part_m);
+  auto* pl = static_cast<float*>(part_l);
+  auto* pa = static_cast<float*>(part_acc);
+  if constexpr (kQ8) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          decode_mma_q8_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    decode_mma_q8_kernel<NT><<<grid, kMmaThreads, smem, stream>>>(
+        qb, static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
+        static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), len, H, Hkv, D, S,
+        n_splits, split_len, scale * kLog2e, pm, pl, pa);
+  } else {
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          decode_mma_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    decode_mma_kernel<NT><<<grid, kMmaThreads, smem, stream>>>(
+        qb, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), len, H,
+        Hkv, D, S, n_splits, split_len, scale * kLog2e, pm, pl, pa);
+  }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   decode_combine_kernel<__nv_bfloat16><<<dim3(H, B), 128, 0, stream>>>(
-      static_cast<const int*>(lengths), H, D, S, n_splits, split_len,
-      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<__nv_bfloat16*>(out));
+      len, H, D, S, n_splits, split_len, pm, pl, pa, static_cast<__nv_bfloat16*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -16,8 +16,11 @@ either design raises.
 
 An int8 cache (int8 K/V codes with float32 scales of (B, S, Hkv), ``repro``'s
 ``kv_cache_dtype="int8"``) takes the same design by q's type and head
-dimension: its tiles are dequantized on the card as ``repro`` dequantizes
-them, on their way to the products, and never written back.
+dimension, in a kernel of its own where it is the mma design: each warp
+streams its own positions through its own ring of codes and scales and
+dequantizes them in registers, into its fragments, as ``repro`` dequantizes
+them (no dequantized copy anywhere); :func:`decode_plan` and
+:func:`mma_grid_plan` give it a plan of its own (``int8=True``).
 """
 
 from __future__ import annotations
@@ -40,6 +43,10 @@ MMA = "mma.sync+cp.async"
 CUDA_CORE = "cuda-core"
 MMA_STAGES, MMA_ROW_PAD = 3, 8  # ring tiles; bf16 padding of a staged row
 MMA_ROW_PAD8 = 16  # byte padding of a staged row of int8 codes
+#: the int8 mma kernel: 16-position slices in each warp's ring, and the
+#: blocks an SM its registers are bounded for (kQ8Stages, kQ8Blocks in the
+#: source; 2 fit past D = 128, where its launch bounds ask for 1)
+MMA_Q8_STAGES, MMA_Q8_BLOCKS = 3, 3
 SM_SHARED = 233_472  # shared memory of an H100 SM; each resident block reserves 1024 more
 
 
@@ -53,14 +60,18 @@ def design(dtype: torch.dtype, head_dim: int) -> str:
 def decode_plan(head_dim: int, int8: bool = False) -> dict:
     """The mma design at ``head_dim``: its ring, the shared memory a block
     asks for (mma_smem_bytes, or mma_q8_smem_bytes for an int8 cache, in the
-    source, which checks it) and how many blocks that lets an SM hold.  An
-    int8 cache's ring holds codes and a scale a row, and each of the 4 warps
-    a bf16 K and V tile of its 16 rows."""
+    source, which checks it) and how many blocks an SM holds.  An int8
+    cache's block is 4 warps, each with a ring of ``MMA_Q8_STAGES`` slices
+    of 16 rows of K and V codes and their 32 scales; its registers are
+    bounded for ``MMA_Q8_BLOCKS`` blocks an SM up to D = 128 (2 past it), so
+    an SM holds the fewer of that and what the shared memory allows."""
     if int8:
-        smem = (MMA_STAGES * 2 * TILE * (head_dim + MMA_ROW_PAD8) + MMA_STAGES * 2 * TILE * 4
-                + 4 * 2 * 16 * (head_dim + MMA_ROW_PAD) * 2)
-    else:
-        smem = MMA_STAGES * 2 * TILE * (head_dim + MMA_ROW_PAD) * 2
+        slice_bytes = 2 * 16 * (head_dim + MMA_ROW_PAD8) + 2 * 16 * 4
+        smem = 4 * MMA_Q8_STAGES * slice_bytes
+        by_regs = MMA_Q8_BLOCKS if head_dim <= 128 else 2
+        return {"tile": TILE, "stages": MMA_Q8_STAGES, "smem_bytes": smem,
+                "blocks_per_sm": max(1, min(by_regs, SM_SHARED // (smem + 1024)))}
+    smem = MMA_STAGES * 2 * TILE * (head_dim + MMA_ROW_PAD) * 2
     return {"tile": TILE, "stages": MMA_STAGES, "smem_bytes": smem,
             "blocks_per_sm": max(1, SM_SHARED // (smem + 1024))}
 
@@ -133,7 +144,16 @@ def mma_grid_plan(batch: int, heads: int, kv_heads: int, seq: int, head_dim: int
     At glm4-9b's B=8 on 132 SMs the second wins for the serving cache
     (S=2080: 7 splits of 5 tiles, where 11 of 3 put 6 tiles on 44 SMs) and
     the first at S=32 768 (16 splits of 32: two blocks an SM stream faster
-    than one block of 64)."""
+    than one block of 64).
+
+    An int8 cache (``int8=True``) takes the fewest whole tiles whose grid
+    fits its block slots (``decode_plan(D, int8=True)["blocks_per_sm"]``, 3
+    an SM up to D = 128) in one wave, and never the one-block-an-SM split.
+    At mistral-nemo's served cache (B=8,
+    Hkv=8, S=2080) that is 6 splits of 6 tiles, 384 blocks, where the rule
+    above would take 2 of 17: chip_smoke.py phase 25's split sweep on an
+    H100 finds the one-wave splits (6 to 9 tiles) fastest, splits past one
+    wave (3 to 5 tiles) and 2 of 17 slower (PERF.md section 6, row 6)."""
     units = batch * kv_heads * -(-(heads // kv_heads) // 16)
     n_tiles = -(-seq // TILE)
 
@@ -144,6 +164,8 @@ def mma_grid_plan(batch: int, heads: int, kv_heads: int, seq: int, head_dim: int
         return -(-units * -(-n_tiles // tiles) // sm_count) * tiles
 
     tiles = fewest_tiles(decode_plan(head_dim, int8)["blocks_per_sm"] * sm_count)
+    if int8:
+        return -(-seq // (tiles * TILE)), tiles * TILE
     alone = fewest_tiles(sm_count)
     if busiest(alone) < busiest(tiles):
         tiles = alone

@@ -27,7 +27,7 @@
 // No CUDA-core design can come near it (67 TFLOP/s float32 is 2.05 ms), so
 // bf16 runs on the tensor cores:
 //
-// repro_flash_prefill_wgmma (bf16, D in {64, 128, 192, 256}):
+// repro_flash_prefill_wgmma (bf16, D in {64, 96, 128, 192, 256}):
 //   * a block of two consumer warpgroups owns a 128-row query tile, 64 rows
 //     each; key tiles are 128 keys at D <= 128 and 64 at larger D, where the
 //     output accumulator alone is 3 or 4 x 32 floats a thread;
@@ -39,11 +39,26 @@
 //     the 128-byte swizzle, built on the host for each call from the
 //     (B, S, H, D) strides (no copy, no transpose); rows at or past S are
 //     filled with zeros by the TMA unit;
+//   * D = 96 (phi-3-vision's heads, 192 bytes a row) is no multiple of the
+//     128-byte swizzle's 64 columns, so there a row is three boxes of 32
+//     columns (64 bytes) under the 64-byte swizzle, and every descriptor
+//     takes that mode (an atom of 8 rows x 64 bytes, 512 bytes apart).  Of
+//     the two layouts that fit 192 bytes (three 64-byte boxes, or a 128-byte
+//     box beside a 64-byte one) the uniform one keeps one descriptor rule,
+//     one loop of 2 k-steps a box for Q K^T (6 in all), and a single P V
+//     product a k-step, m64n96k16, whose MN-major B walks the three boxes by
+//     the descriptor's leading byte offset (a box apart), so the O
+//     accumulator is one fragment of 48 floats a thread; on the card that
+//     product ran faster than three m64n32 products, one a box, and the
+//     mixed layout would need two descriptor modes and two P V products a
+//     k-step.  Key tiles are 128 keys; shared memory 124 032 bytes, one
+//     block an SM;
 //   * S = Q K^T by wgmma m64nNk16 with A and B from shared memory (both
 //     K-major); the online softmax runs in registers on the accumulator's own
 //     layout (a row spans the 4 threads of a quad: two shuffles a max);
-//   * O += P V by wgmma m64n64k16 with P from registers (the f32 accumulator
-//     rounded to bf16 in place: its layout is the A fragment's) and V from
+//   * O += P V by wgmma m64n64k16 (m64n96k16 at D = 96) with P from
+//     registers (the f32 accumulator rounded to bf16 in place: its layout
+//     is the A fragment's) and V from
 //     shared memory as an MN-major B (D-contiguous rows, the transpose flag),
 //     so nothing is transposed in shared memory;
 //   * the warpgroups take turns on the tensor cores: in its turn one issues
@@ -311,6 +326,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 // the swizzled tiles.  kernel.py's prefill_plan computes the same figure and
 // passes it in.
 constexpr int key_tile(int D) { return D <= 128 ? 128 : 64; }
+// Columns of a TMA box and of a swizzle atom's row: 64 (128 bytes, the
+// 128-byte swizzle) where D is a multiple of 64, else 32 (64 bytes, the
+// 64-byte swizzle: D = 96 is three boxes).
+__host__ __device__ constexpr int box_cols(int D) { return D % 64 == 0 ? 64 : 32; }
+// N of one P V product: a 64-column box at D % 64 == 0, the whole row (96)
+// otherwise, its B striding across the boxes.
+__host__ __device__ constexpr int pv_cols(int D) { return D % 64 == 0 ? 64 : D; }
 constexpr int smem_bytes(int D) {
   return 1024 + kRows * D * 2 + 2 * kStages * key_tile(D) * D * 2 + 128;
 }
@@ -353,7 +375,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// One box (64 columns, 1 head, rows, 1 batch) of a 4-D tensor map into dst.
+// One box (box_cols columns, 1 head, rows, 1 batch) of a 4-D tensor map into dst.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int col, int head, int row, int batch) {
   asm volatile(
@@ -363,11 +385,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 = B128.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor of a swizzled operand whose atom rows are
+// kRowBytes long: start address, leading and stride byte offsets (16-byte
+// units), layout 1 = B128 (128-byte rows) or 2 = B64 (64-byte rows).
+template <int kRowBytes>
+__device__ __forceinline__ uint64_t desc_sw(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  static_assert(kRowBytes == 128 || kRowBytes == 64, "a 128- or 64-byte swizzle");
+  constexpr uint64_t layout = kRowBytes == 128 ? 1 : 2;
   return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -393,6 +419,7 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 #define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_D48 WG_D32, WG_D8(32), WG_D8(40)
 #define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
 
 // D (64 x 64, f32) (+)= A (64 x 16, shared, K-major) B (16 x 64, shared, K-major)
@@ -433,7 +460,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D (64 x 96, f32) += A (64 x 16, bf16 registers) B (16 x 96, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : WG_D48
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef WG_D64
+#undef WG_D48
 #undef WG_D32
 #undef WG_D8
 
@@ -458,7 +499,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// D: head dimension (a multiple of 64); BC: keys of a tile.
+// D: head dimension (a multiple of 64, or 96); BC: keys of a tile.
 //
 // Warpgroup 2 is the producer: one thread issues the TMA loads of Q and of
 // every K and V tile, each into its stage once both consumer warpgroups have
@@ -474,7 +515,13 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
                      int S, int T, int H, int Hkv, float scale_log2, int causal) {
-  constexpr int kBoxes = D / 64;           // 64-column boxes of a row (128 bytes each)
+  constexpr int kBoxCols = box_cols(D);    // columns of a box (and of a swizzle atom's row)
+  constexpr int kBoxBytes = 2 * kBoxCols;  // 128 or 64 bytes, the swizzle's span
+  constexpr int kBoxes = D / kBoxCols;     // boxes of a row
+  constexpr int kAtom = 8 * kBoxBytes;     // 8 swizzled rows: the descriptors' stride offset
+  constexpr int kSteps = kBoxCols / 16;    // k-steps of Q K^T a box
+  constexpr int kPV = pv_cols(D);          // N of a P V product
+  constexpr int kPVs = D / kPV;            // P V products a k-step
   constexpr int kQBytes = kRows * D * 2;
   constexpr int kTileBytes = BC * D * 2;   // one K or V tile
   constexpr int kS = BC / 2;               // score registers a thread (m64 x BC)
@@ -516,21 +563,21 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_expect_tx(bar_q, kQBytes);
 #pragma unroll
       for (int c = 0; c < kBoxes; ++c)
-        tma_load(q_s + c * kRows * 128, &tm_q, bar_q, 64 * c, h, q0, b);
+        tma_load(q_s + c * kRows * kBoxBytes, &tm_q, bar_q, kBoxCols * c, h, q0, b);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % kStages, round = j / kStages;
         if (round > 0) mbar_wait(empty_k + 8 * s, (round - 1) & 1);
         mbar_expect_tx(full_k + 8 * s, kTileBytes);
 #pragma unroll
         for (int c = 0; c < kBoxes; ++c)
-          tma_load(k_s + s * kTileBytes + c * BC * 128, &tm_k, full_k + 8 * s, 64 * c, kvh,
-                   j * BC, b);
+          tma_load(k_s + s * kTileBytes + c * BC * kBoxBytes, &tm_k, full_k + 8 * s, kBoxCols * c,
+                   kvh, j * BC, b);
         if (round > 0) mbar_wait(empty_v + 8 * s, (round - 1) & 1);
         mbar_expect_tx(full_v + 8 * s, kTileBytes);
 #pragma unroll
         for (int c = 0; c < kBoxes; ++c)
-          tma_load(v_s + s * kTileBytes + c * BC * 128, &tm_v, full_v + 8 * s, 64 * c, kvh,
-                   j * BC, b);
+          tma_load(v_s + s * kTileBytes + c * BC * kBoxBytes, &tm_v, full_v + 8 * s, kBoxCols * c,
+                   kvh, j * BC, b);
       }
     }
   } else {
@@ -541,27 +588,29 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int row0 = wg_row + 16 * warp + (lane >> 2);  // this thread's rows: row0, row0 + 8
     const int col0 = 2 * (lane & 3);                     // and columns col0, col0 + 1 of each 8
 
-    float o[kBoxes][32];
+    float o[kPVs][kPV / 2];
 #pragma unroll
-    for (int c = 0; c < kBoxes; ++c)
+    for (int c = 0; c < kPVs; ++c)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[c][i] = 0.0f;
+      for (int i = 0; i < kPV / 2; ++i) o[c][i] = 0.0f;
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
     float sc[kS];
     uint32_t p[BC / 16][4];  // P of the previous tile as the A fragments of its P V product
 
     // O += P V_j, issued asynchronously (one commit group); O was rescaled to
     // tile j's running max when P was made, so no other instruction touches
-    // an accumulator between the two products of a turn
+    // an accumulator between the two products of a turn.  V is MN-major: the
+    // leading offset steps from one box (atom column) to the next along N
     auto issue_pv = [&](int j) {
       const int s = j % kStages;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BC / 16; ++kk)
 #pragma unroll
-        for (int c = 0; c < kBoxes; ++c) {
-          const uint64_t db =
-              desc_sw128(v_s + s * kTileBytes + c * BC * 128 + kk * 16 * 128, BC * 128, 1024);
+        for (int c = 0; c < kPVs; ++c) {
+          const uint64_t db = desc_sw<kBoxBytes>(
+              v_s + s * kTileBytes + (c * kPV / kBoxCols) * BC * kBoxBytes + kk * 16 * kBoxBytes,
+              BC * kBoxBytes, kAtom);
           wgmma_rs(o[c], p[kk], db);
         }
       wgmma_commit();
@@ -573,9 +622,11 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const int c = kk / 4, off = 32 * (kk % 4);
-        const uint64_t da = desc_sw128(q_s + c * kRows * 128 + wg * 64 * 128 + off, 16, 1024);
-        const uint64_t db = desc_sw128(k_s + s * kTileBytes + c * BC * 128 + off, 16, 1024);
+        const int c = kk / kSteps, off = 32 * (kk % kSteps);
+        const uint64_t da = desc_sw<kBoxBytes>(
+            q_s + c * kRows * kBoxBytes + wg * 64 * kBoxBytes + off, 16, kAtom);
+        const uint64_t db =
+            desc_sw<kBoxBytes>(k_s + s * kTileBytes + c * BC * kBoxBytes + off, 16, kAtom);
         wgmma_ss(sc, da, db, kk > 0);
       }
       wgmma_commit();
@@ -630,9 +681,9 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int r = 0; r < 2; ++r)
           p[n / 2][2 * (n % 2) + r] = pack_bf16(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]);
 #pragma unroll
-      for (int c = 0; c < kBoxes; ++c) {
+      for (int c = 0; c < kPVs; ++c) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < kPV / 2; ++i) o[c][i] *= alpha[(i >> 1) & 1];
         fence_regs(o[c]);
       }
     };
@@ -668,7 +719,7 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       softmax(j);
       wgmma_wait<0>();  // P_{j-1} V_{j-1} is done: its registers are free
 #pragma unroll
-      for (int c = 0; c < kBoxes; ++c) fence_regs(o[c]);
+      for (int c = 0; c < kPVs; ++c) fence_regs(o[c]);
       mbar_arrive(empty_v + 8 * sp);  // V_{j-1} is read
       to_p();
     }
@@ -677,7 +728,7 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     issue_pv(n_kv - 1);
     wgmma_wait<0>();
 #pragma unroll
-    for (int c = 0; c < kBoxes; ++c) fence_regs(o[c]);
+    for (int c = 0; c < kPVs; ++c) fence_regs(o[c]);
     if (wg == 0) turn_pass(other_turn);
 
 #pragma unroll
@@ -687,10 +738,10 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (row >= S) continue;  // rows past a ragged S are never written
       __nv_bfloat16* dst = out + (((long long)b * S + row) * H + h) * D + col0;
 #pragma unroll
-      for (int c = 0; c < kBoxes; ++c)
+      for (int c = 0; c < kPVs; ++c)
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 64 * c + 8 * n) =
+        for (int n = 0; n < kPV / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(dst + kPV * c + 8 * n) =
               __floats2bfloat162_rn(o[c][4 * n + 2 * r] / denom, o[c][4 * n + 2 * r + 1] / denom);
     }
   }
@@ -721,16 +772,19 @@ EncodeTiled encode_tiled() {
 }
 
 // The 4-D map (D, heads, S, B) of a contiguous (B, S, heads, D) bf16 tensor,
-// boxes of (64, 1, rows, 1), 128-byte swizzle, zeros out of bounds.
+// boxes of (box_cols(D), 1, rows, 1) under the swizzle of that width (128
+// or 64 bytes), zeros out of bounds.
 bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int S, int heads,
               int D, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols(D), 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_cols(D) == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -758,7 +812,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 }  // namespace wg
 
 // bf16 q (B, S, H, D), k and v (B, T, Hkv, D), out (B, S, H, D), contiguous and
-// 16-byte aligned; D in {64, 128, 192, 256}; causal needs T == S; smem_bytes
+// 16-byte aligned; D in {64, 96, 128, 192, 256}; causal needs T == S; smem_bytes
 // from kernel.py's prefill_plan (at least wg::smem_bytes(D)).
 extern "C" int repro_flash_prefill_wgmma(const void* q, const void* k, const void* v, void* out,
                                          int B, int S, int T, int H, int Hkv, int D, float scale,
@@ -769,6 +823,7 @@ extern "C" int repro_flash_prefill_wgmma(const void* q, const void* k, const voi
 #define REPRO_WG(DIM) wg::launch<DIM>(q, k, v, out, B, S, T, H, Hkv, scale, causal, smem_bytes, st)
   switch (D) {
     case 64: return REPRO_WG(64);
+    case 96: return REPRO_WG(96);
     case 128: return REPRO_WG(128);
     case 192: return REPRO_WG(192);
     case 256: return REPRO_WG(256);

@@ -10,12 +10,13 @@ of S query rows over T keys; each block then loops over every key tile up
 to T, and only a ragged last tile masks.
 
 :func:`design` names the design a call takes, by dtype and head dimension
-alone: bf16 at D in {64, 128, 192, 256} runs ``"wgmma+tma"`` (tensor
+alone: bf16 at D in {64, 96, 128, 192, 256} runs ``"wgmma+tma"`` (tensor
 cores, TMA loads into a two-stage K/V ring; every bf16 call of the served
-models, D = 128 and 256, is one), everything else ``"cuda-core"`` (the
-float32 CUDA-core kernel: float32 inputs, which wgmma cannot multiply
-without TF32's loss, and bf16 at another D).  It is a dispatch, not a
-fallback: an error of either design raises.
+models, D = 64, 96 (phi-3-vision: three 64-byte-swizzled boxes a row), 128
+and 256, is one), everything else ``"cuda-core"`` (the float32 CUDA-core
+kernel: float32 inputs, which wgmma cannot multiply without TF32's loss,
+and bf16 at another D, such as the smoke configurations' 16).  It is a
+dispatch, not a fallback: an error of either design raises.
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ from repro_torch.kernels import _build
 
 TILE = 64  # query rows and keys of a tile of the CUDA-core design (kTile in the source)
 MAX_HEAD_DIM = 256
+#: head dimensions of the wgmma design: multiples of 64 (128-byte-swizzled
+#: boxes of 64 columns) and 96 (three 64-byte-swizzled boxes of 32)
+WGMMA_HEAD_DIMS = (64, 96, 128, 192, 256)
 WGMMA = "wgmma+tma"
 CUDA_CORE = "cuda-core"
 #: the wgmma design's query rows a block (two consumer warpgroups of 64, and
@@ -39,15 +43,17 @@ WG_ROWS, WG_STAGES = 128, 2
 
 def design(dtype: torch.dtype, head_dim: int) -> str:
     """The design a CUDA call with this dtype and head dimension launches."""
-    if dtype == torch.bfloat16 and head_dim % 64 == 0 and head_dim <= MAX_HEAD_DIM:
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return WGMMA
     return CUDA_CORE
 
 
 def prefill_plan(head_dim: int) -> dict:
-    """Tiles of the wgmma design at ``head_dim`` and the shared memory a
-    block asks for (wg::smem_bytes in the source, which checks it): the Q
-    tile, the K and V ring, 128 bytes of mbarriers and 1024 of alignment."""
+    """Tiles of the wgmma design at ``head_dim`` (any of
+    ``WGMMA_HEAD_DIMS``: 128-key tiles up to D = 128, so D = 96 asks for
+    124 032 bytes) and the shared memory a block asks for (wg::smem_bytes in
+    the source, which checks it): the Q tile, the K and V ring, 128 bytes of
+    mbarriers and 1024 of alignment."""
     key_tile = 128 if head_dim <= 128 else 64
     smem = 1024 + WG_ROWS * head_dim * 2 + 2 * WG_STAGES * key_tile * head_dim * 2 + 128
     return {"tile_rows": WG_ROWS, "key_tile": key_tile, "stages": WG_STAGES, "smem_bytes": smem}
@@ -98,8 +104,8 @@ def grid_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool = True) -> torch.Tensor:
     """Launch the kernel on CUDA tensors; returns (B, S, H, D) in q's type.
 
-    bf16 at D in {64, 128, 192, 256} launches the wgmma+TMA design, every
-    other call the CUDA-core design (:func:`design`)."""
+    bf16 at D in {64, 96, 128, 192, 256} launches the wgmma+TMA design,
+    every other call the CUDA-core design (:func:`design`)."""
     B, S, H, D = q.shape
     T = k.shape[1]
     if q.dtype not in (torch.float32, torch.bfloat16):

@@ -2088,8 +2088,8 @@ def test_non_causal_prefill_matches_plain(card, S, T, dtype):
                                          (100, 333, 16, 16, 256), (129, 1000, 8, 2, 192),
                                          (300, 300, 8, 2, 128), (2, 70, 8, 2, 16)])
 def test_non_causal_prefill_at_other_heads(card, S, T, H, Hkv, D):
-    """bf16 at phi-3-vision's D = 96 (the CUDA-core design), the wgmma
-    design's 64-key tiles (D = 192, 256) and GQA groups, and a smoke head."""
+    """bf16 at phi-3-vision's D = 96, the wgmma design's 64-key tiles (D =
+    192, 256) and GQA groups, and a smoke head (the CUDA-core design)."""
     gen = torch.Generator(device=card).manual_seed(S + T + D)
     q = torch.randn(1, S, H, D, generator=gen, device=card).to(torch.bfloat16)
     k = torch.randn(1, T, Hkv, D, generator=gen, device=card).to(torch.bfloat16)
@@ -2099,9 +2099,57 @@ def test_non_causal_prefill_at_other_heads(card, S, T, H, Hkv, D):
                                atol=_attention_limit(torch.bfloat16, want))
 
 
+#: (S, T, H, Hkv) of D = 96 calls: test_non_causal_prefill_at_other_heads's
+#: shapes there, and an encoder's (S = T = 1500) and a cross call's (224 over
+#: 1500) at phi-3-vision's heads
+D96_NON_CAUSAL = [(130, 1500, 32, 32), (224, 65, 32, 32), (1500, 1500, 32, 32),
+                  (224, 1500, 32, 32)]
+
+
+def _d96_prefill_case(card, B, S, T, H, Hkv, causal):
+    """A bf16 D = 96 call: within one ulp of the largest output of the plain
+    version, bit for bit on repeat, counted once as the wgmma design's."""
+    from repro_torch.kernels.flash_prefill.kernel import mode
+
+    gen = torch.Generator(device=card).manual_seed(B * S + T + 96)
+    q = torch.randn(B, S, H, 96, generator=gen, device=card).to(torch.bfloat16)
+    k = torch.randn(B, T, Hkv, 96, generator=gen, device=card).to(torch.bfloat16)
+    v = torch.randn(B, T, Hkv, 96, generator=gen, device=card).to(torch.bfloat16)
+    reset_launch_counts()
+    got = flash_prefill(q, k, v, causal)
+    assert design_counts()["flash_prefill"] == {f"wgmma+tma, {mode(q, k, causal)}": 1}
+    want = flash_prefill_ref(q, k, v, causal)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_attention_limit(torch.bfloat16, want))
+    assert torch.equal(got, flash_prefill(q, k, v, causal))
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 2048, 2049])
+def test_d96_causal_prefill_on_the_wgmma_design(card, S):
+    """phi-3-vision's heads (B = 8, H = Hkv = 32, D = 96) causal at S around
+    the design's 64-row warpgroup tiles and 128-key tiles, and its served
+    2048 (TMA's zero fill past S, the diagonal tiles)."""
+    _d96_prefill_case(card, 8, S, S, 32, 32, True)
+
+
+@pytest.mark.parametrize("S,T,H,Hkv", D96_NON_CAUSAL)
+def test_d96_non_causal_prefill_on_the_wgmma_design(card, S, T, H, Hkv):
+    """D = 96 non-causal (T == S) and cross (T != S) calls on the wgmma design."""
+    _d96_prefill_case(card, 1, S, T, H, Hkv, False)
+
+
+#: the int8 mma design's own edges at mistral-nemo's served cache: a warp's
+#: 16-position slices, and its plan's 384-position split (6 of them at S =
+#: 2080 on 132 SMs, mma_grid_plan(..., int8=True))
+INT8_EDGE_LENGTHS = {
+    **EDGE_LENGTHS,
+    "slices": [15, 16, 17, 31, 32, 33, 47, 49],
+    "int8-split": [383, 384, 385, 767, 768, 769, 2079, 2080],
+}
 INT8_DECODE_CASES = [
     pytest.param(8, 32, 8, 128, 2080, dtype, lengths, id=f"mistral-{name}-{KINDS[dtype]}")
-    for dtype in (torch.bfloat16, torch.float32) for name, lengths in EDGE_LENGTHS.items()
+    for dtype in (torch.bfloat16, torch.float32) for name, lengths in INT8_EDGE_LENGTHS.items()
 ] + [
     pytest.param(B, H, Hkv, D, S, dtype, None, id=f"{B}-{H}-{Hkv}-{D}-{S}-{KINDS[dtype]}")
     for dtype in (torch.bfloat16, torch.float32) for S in (1, 130, 4096)

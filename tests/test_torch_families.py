@@ -263,21 +263,23 @@ def test_int8_decode_plain_matches_pallas_on_the_dequantized_cache(D, S, lengths
         decode_attention(torch.from_numpy(q), codes[0], codes[1], torch.from_numpy(lens))
 
 
-@pytest.mark.parametrize("D,blocks", [(16, 11), (64, 4), (96, 3), (128, 2), (256, 1)])
+@pytest.mark.parametrize("D,blocks", [(16, 3), (64, 3), (96, 3), (128, 3), (256, 2)])
 def test_int8_decode_plan_fits_shared_memory(D, blocks):
-    """The mma design over an int8 cache: a ring of 3 tiles of codes (rows
-    padded by 16 bytes) and their scales, and each of the 4 warps' bf16 K and
-    V tiles of 16 rows; the warps' merge (64 D + 128 floats) fits in it."""
+    """The mma design over an int8 cache: each of the 4 warps' ring of 3
+    slices of 16 rows of codes (rows padded by 16 bytes) and their scales;
+    the warps' merge (64 D + 128 floats) fits in it; 3 blocks an SM by the
+    kernel's launch bounds up to D = 128, 2 past it."""
     from repro_torch.kernels.decode_attention.kernel import TILE, decode_plan, mma_grid_plan
 
     plan = decode_plan(D, int8=True)
-    ring = 3 * 2 * TILE * (D + 16) + 3 * 2 * TILE * 4
-    assert plan["smem_bytes"] == ring + 4 * 2 * 16 * (D + 8) * 2 <= 232_448
+    ring = 4 * 3 * (2 * 16 * (D + 16) + 2 * 16 * 4)
+    assert plan["smem_bytes"] == ring <= 232_448
     assert plan["smem_bytes"] >= (64 * D + 128) * 4
     assert plan["blocks_per_sm"] == blocks
-    # mistral-nemo's served cache on 132 SMs: the same split as a bf16 cache
-    assert mma_grid_plan(8, 32, 8, 2080, 128, 132, int8=True) == mma_grid_plan(
-        8, 32, 8, 2080, 128, 132)
+    # mistral-nemo's served cache on 132 SMs: its own split, not the bf16
+    # cache's 2 of 17 tiles
+    assert mma_grid_plan(8, 32, 8, 2080, 128, 132, int8=True) == (6, 6 * TILE)
+    assert mma_grid_plan(8, 32, 8, 2080, 128, 132) == (2, 17 * TILE)
 
 
 # -- phi-3-vision: the image prefix ------------------------------------------------

@@ -43,7 +43,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as smoke  # noqa: E402
 
 #: timed calls a round at each shape (a round: one design, cold)
-REPS = {1000: 5, 50000: 2}
+REPS = {1000: 3, 50000: 1}
 #: what the earlier designs did
 EARLIER_DESIGNS = {
     "minpair_automaton": "one warp a chunk, the requests in order: a miss descends from the "
