@@ -245,7 +245,20 @@ script with a non-zero exit:
    decode_attention launches), logits against the plain versions', 64
    sampled rows of its first encoder and cross calls against float64
    attention, and both non-causal modes timed beside their bounds and
-   scaled_dot_product_attention.
+   scaled_dot_product_attention;
+26. the SSM family: (a) the WKV-6 recurrence's kernel (wkv6) against its
+   plain version on the card at rwkv6-1.6b's served layer (B 8, S 2048,
+   H 32, n 64) from a zero and a mid-run state, with a fast decay, one past
+   it (S 2049), 7 steps and a decode step (S 1), and at n = 16 and 32; y
+   and the final state within WKV_TOL of the largest, two runs bit for bit;
+   timed cold and warm beside its bound and its plain version (no library
+   call computes it);
+   (b) rwkv6-1.6b at full width and depth (random bf16 weights drawn on the
+   card, w0 and u float32, its parameters counted leaf by leaf) served as
+   phase 14 serves glm4-9b: exactly 24 + 24 x 32 wkv6 launches a generate
+   call and no attention launch; (c) its logits against the plain
+   version's after prefill and 8 teacher-forced decode steps, and prefill
+   of 2048 tokens against prefill of 2047 and a decode step.
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -303,6 +316,8 @@ REPLACES = {
     "tree_lru": "src/repro/cachesim/tree_engines.py:151",
     "minpair_automaton": "src/repro/cachesim/tree_engines.py:375",
     "fifo_queue": "src/repro/cachesim/engines.py:172",
+    # no Pallas kernel: the reference scans the WKV recurrence with lax.scan
+    "wkv6": "src/repro/models/rwkv.py:74",
 }
 SOURCES = {
     "histogram": "src/repro_torch/kernels/scatter_counts/csrc/histogram.cu",
@@ -317,11 +332,13 @@ SOURCES = {
     "tree_lru": "src/repro_torch/kernels/tree_lru/csrc/tree_lru.cu",
     "minpair_automaton": "src/repro_torch/kernels/minpair_automaton/csrc/minpair_automaton.cu",
     "fifo_queue": "src/repro_torch/kernels/fifo_queue/csrc/fifo_queue.cu",
+    "wkv6": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
 }
 KERNELS = ("histogram", "mass", "apply", "segsum", "tree_update", "bucket_mass",
            "flash_prefill", "decode_attention", "slot_automaton", "tree_lru",
-           "minpair_automaton", "fifo_queue")
-#: the one design of each kernel that has one (the others name theirs in
+           "minpair_automaton", "fifo_queue", "wkv6")
+#: the one design of each kernel that has one (wkv6's is checked against its
+#: launches by design in phase 26; the others name theirs in
 #: their rows: the attention kernels by design(), the histogram, the clip
 #: and the two threshold solves by the launches of their main path, the
 #: tree automata's kernels by their packages' design names, phase 19, and
@@ -334,14 +351,17 @@ DESIGNS = {
                       "beside their eviction keys, the requests in order, one block-wide argmin "
                       "over (key, slot) a request (redux.sync, one __syncthreads; none on one "
                       "warp); counts a tile of requests at a time",
+    "wkv6": "a block a (sequence, head), thread j a column of the state in registers; "
+            "r, k, w, v staged 16 steps at a time by cp.async in two stages",
 }
 #: the design of the standalone apply kernel, which phase 3 times (the dense
 #: main path's clip is the projection's epilogue)
 APPLY_STANDALONE = "standalone: 16-byte body, 2 float4 of f and c in flight a thread"
 DENSE_KERNELS = 23  # device kernels a dense chunk launches (phase 7), its reward summed in float64
-#: kernels off the replay paths: serving's attention, the scenario path's automata
+#: kernels off the replay paths: serving's attention and recurrence, the scenario
+#: path's automata
 OFF_PATH = {"flash_prefill": 0, "decode_attention": 0, "slot_automaton": 0, "tree_lru": 0,
-            "minpair_automaton": 0, "fifo_queue": 0}
+            "minpair_automaton": 0, "fifo_queue": 0, "wkv6": 0}
 #: the port's kernels in the profiler's rows, by the names of their functions
 PORT_KERNEL_NAMES = ("tree_update_kernel", "tree_build_kernel", "bin_tiles_kernel",
                      "solve_buckets_kernel", "project_warm_kernel", "solve_sized_kernel")
@@ -1670,10 +1690,14 @@ def expected_params(cfg):
     """A model's parameters as init_params draws them: ArchConfig.param_count
     (which counts three matrices an MLP, where a GELU MLP has two), the norms,
     the rows of the vocab's padding, and a vlm's image norm or an encdec's
-    learned positions."""
+    learned positions.  An ssm model's blocks are counted leaf by leaf
+    (param_count counts an ssm block as Mamba's)."""
     from repro_torch.models.model import DEC_POSITIONS, padded_vocab
+    from repro_torch.models.rwkv import block_params
 
     d = cfg.d_model
+    if cfg.family == "ssm":
+        return 2 * padded_vocab(cfg) * d + d + cfg.n_layers * block_params(cfg)
     n = cfg.param_count() + 2 * (padded_vocab(cfg) - cfg.vocab_size) * d + d
     if cfg.mlp_activation == "gelu":
         n -= (cfg.n_layers + cfg.n_encoder_layers) * d * cfg.d_ff
@@ -1699,11 +1723,15 @@ def draw_full_width(torch, dev, arch):
     experts = (f", {cfg.n_experts} experts of {cfg.expert_ff} top-{cfg.experts_per_token}"
                if cfg.n_experts else "")
     encoder = f", {cfg.n_encoder_layers} encoder layers" if cfg.n_encoder_layers else ""
-    print(f"{arch}: {cfg.n_layers} layers{encoder}, d_model {cfg.d_model}, heads {cfg.n_heads} / "
-          f"KV {cfg.n_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}{experts}, vocab "
-          f"{cfg.vocab_size}, KV cache {cfg.kv_cache_dtype}; {n_params} parameters "
-          f"(ArchConfig.param_count {cfg.param_count()} + norms + vocab padding"
-          f"{' + positions' if encoder else ''}) drawn in bf16 on the card in "
+    heads = (f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of {cfg.rwkv_head_dim}, no KV cache"
+             if cfg.family == "ssm" else f"heads {cfg.n_heads} / KV {cfg.n_kv_heads}, head_dim "
+             f"{cfg.head_dim}, KV cache {cfg.kv_cache_dtype}")
+    counted = ("RWKV-6 blocks leaf by leaf + embeddings" if cfg.family == "ssm" else
+               f"ArchConfig.param_count {cfg.param_count()} + norms + vocab padding"
+               f"{' + positions' if encoder else ''}")
+    print(f"{arch}: {cfg.n_layers} layers{encoder}, d_model {cfg.d_model}, {heads}, d_ff "
+          f"{cfg.d_ff}{experts}, vocab {cfg.vocab_size}; {n_params} parameters ({counted}) "
+          f"drawn in bf16 on the card in "
           f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
           f"allocated")
     need(n_params == expected_params(cfg), f"the model is not {arch}'s full width")
@@ -1711,8 +1739,8 @@ def draw_full_width(torch, dev, arch):
 
 
 def serve_full_width(torch, dev, arch=ARCH, calls=SERVE_CALLS):
-    """Phase 14 (and 24 (a), 25 (a)): ``arch`` at full width behind an OGB
-    page pool, ``calls`` generate calls, every attention launch counted.
+    """Phase 14 (and 24 (a), 25 (a), 26 (b)): ``arch`` at full width behind
+    an OGB page pool, ``calls`` generate calls, every kernel launch counted.
     Returns the engine, the first call's prompts and tokens, the launches,
     and the steady calls' numbers."""
     import numpy as np
@@ -1755,8 +1783,11 @@ def serve_full_width(torch, dev, arch=ARCH, calls=SERVE_CALLS):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     want = {name: 0 for name in launches}
-    want["flash_prefill"] = cfg.n_layers * calls
-    want["decode_attention"] = cfg.n_layers * SERVE_NEW * calls
+    if cfg.family == "ssm":  # the recurrence: a launch a layer in a prefill and in a step
+        want["wkv6"] = cfg.n_layers * (1 + SERVE_NEW) * calls
+    else:
+        want["flash_prefill"] = cfg.n_layers * calls
+        want["decode_attention"] = cfg.n_layers * SERVE_NEW * calls
     wp = sum(w for w, _ in steady) / len(steady)
     wd = sum(w for _, w in steady) / len(steady)
     print(f"serving, calls 2-{calls}: prefill {SERVE_B * SERVE_S / wp:.1f} tokens/s, "
@@ -4175,6 +4206,41 @@ INT8_ARCH, VLM_ARCH, ENCDEC_ARCH = "mistral-nemo-12b", "phi-3-vision-4.2b", "whi
 FAMILY_CALLS, VLM_TEXT, WHISPER_PROMPT, WHISPER_MAX_LEN, F64_ROWS = 2, 1792, 224, 448, 64
 INT8_SPLIT_TILES, D96_T = (3, 4, 6, 9, 17), 1500
 
+#: phase 26, the SSM family: rwkv6-1.6b served at full width and depth, and
+#: its recurrence's kernel at the served layer's (B, S, H, n)
+SSM_ARCH, WKV_SERVED = "rwkv6-1.6b", (SERVE_B, SERVE_S, 32, 64)
+#: the kernel against its plain version, y and the final state: within this
+#: share of the largest |value|.  Both are float32; the kernel contracts
+#: u*a + S, r*(..) + y and w*S + a into fmas and sums over i in its order,
+#: PyTorch's einsum in its own, and the state carries an error about
+#: 1 / (1 - w) = 400 steps at w0 = -6 (1.6e-6 measured at S = 2048)
+WKV_TOL = 1e-5
+#: steps of the plain version that make a "mid-run" state
+WKV_WARM = 256
+#: (label, B, S, H, n, fast decay, start state)
+WKV_CASES = (
+    ("served prefill", 8, 2048, 32, 64, False, "zero"),
+    ("served, fast decay", 8, 2048, 32, 64, True, "mid-run"),
+    ("served, from a mid-run state", 8, 2048, 32, 64, False, "mid-run"),
+    ("decode step", 8, 1, 32, 64, False, "mid-run"),
+    ("one past the served length", 8, 2049, 32, 64, False, "zero"),
+    ("7 steps", 8, 7, 32, 64, False, "mid-run"),
+    ("n=16", 4, 2049, 8, 16, False, "mid-run"),
+    ("n=16 decode step", 4, 1, 8, 16, True, "mid-run"),
+    ("n=32", 4, 2049, 8, 32, False, "zero"),
+    ("n=32, 7 steps", 4, 7, 8, 32, True, "mid-run"),
+)
+#: prefill of S tokens against prefill of S - 1 and a decode step: tm_x and
+#: cm_x (in the compute type) within this many bf16 ulps of their largest
+#: |value| (the last token's products run at M = 8 rows in the step and
+#: M = 16 384 in the prefill, so its bf16 activations may round apart, and
+#: 24 layers carry it)
+SPLIT_ULPS = 8
+#: ... and the float32 WKV state tm_s within this share of its largest
+#: |value|: 2.0e-4 measured (0.129 of 643.8 on an H100), with room for noise;
+#: a step that skipped the decay would move it by (1 - w) |S|, about 2.5e-3
+SPLIT_STATE_TOL = 1e-3
+
 
 def family_against_plain(torch, cfg, params, batch, max_len, dev, first=None):
     """A model's prefill through the kernels against the same prefill through
@@ -4627,6 +4693,243 @@ def check_families(torch, dev):
     return out
 
 
+# -- the SSM family (phase 26) --------------------------------------------------------
+
+def wkv6_inputs(torch, dev, B, S, H, n, seed, fast=False, state="zero"):
+    """The recurrence's inputs at (B, S, H, n), drawn on the card: r, k, v
+    N(0, 1) (the served model's projections of a normed x are of unit
+    scale), w = exp(-exp(-6 + 0.12 N(0, 1))) (w0's N(0, 0.1) - 6 and its
+    LoRA's spread; about 0.9975) or, ``fast``, exp(-exp(log(ln 2) + 0.12
+    N(0, 1))) (about 0.5), u 0.1 N(0, 1); the state zero or, "mid-run", the
+    plain version's after WKV_WARM steps of such inputs from zero."""
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(steps):
+        r, k, v = (torch.randn(B, steps, H, n, generator=gen, device=dev) for _ in range(3))
+        centre = math.log(math.log(2.0)) if fast else -6.0
+        w = torch.exp(-torch.exp(centre + 0.12 * torch.randn(B, steps, H, n, generator=gen,
+                                                              device=dev)))
+        return r, k, v, w
+
+    u = 0.1 * torch.randn(H, n, generator=gen, device=dev)
+    s0 = torch.zeros(B, H, n, n, device=dev)
+    if state == "mid-run":
+        s0 = wkv6_ref(*draw(WKV_WARM), u, s0)[1].contiguous()
+    return (*draw(S), u, s0)
+
+
+def wkv6_errors(torch, y, s, want_y, want_s):
+    """max |kernel - plain| over the largest |plain|, of y and of the state."""
+    return {"y": float((y - want_y).abs().max()) / float(want_y.abs().max()),
+            "state": float((s - want_s).abs().max()) / float(want_s.abs().max())}
+
+
+def check_wkv6_kernel(torch, dev, flush):
+    """Phase 26 (a): the WKV-6 kernel against its plain version on the card
+    at WKV_CASES, each from a copy of its state, y and the final state within
+    WKV_TOL of the largest magnitude, two runs bit for bit; at the served
+    layer's shape timed cold and warm beside the plain version and its
+    bound."""
+    from repro_torch.kernels.wkv6.kernel import launch
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    worst, served = 0.0, None
+    for i, (label, B, S, H, n, fast, state) in enumerate(WKV_CASES):
+        r, k, v, w, u, s0 = wkv6_inputs(torch, dev, B, S, H, n, seed=26 + i, fast=fast,
+                                         state=state)
+        s1, s2 = s0.clone(), s0.clone()
+        y1, y2 = launch(r, k, v, w, u, s1), launch(r, k, v, w, u, s2)
+        want_y, want_s = wkv6_ref(r, k, v, w, u, s0)
+        errs = wkv6_errors(torch, y1, s1, want_y, want_s)
+        abs_err = float((y1 - want_y).abs().max())
+        print(f"wkv6 {label} B={B} S={S} H={H} n={n}, {'fast' if fast else 'slow'} decay, "
+              f"{state} state: |kernel - plain| / largest: y {errs['y']:.3e}, state "
+              f"{errs['state']:.3e} (limit {WKV_TOL:.0e}; max |y| {float(want_y.abs().max()):.3f}, "
+              f"max |S| {float(want_s.abs().max()):.3f})")
+        need(bool(torch.isfinite(y1).all() and torch.isfinite(s1).all())
+             and float(y1.abs().max()) > 0, f"wkv6 {label}: empty, zero or non-finite")
+        need(max(errs.values()) <= WKV_TOL, f"wkv6 {label}: {errs} > {WKV_TOL}")
+        need(torch.equal(y1, y2) and torch.equal(s1, s2), f"wkv6 {label}: two runs differ")
+        worst = max(worst, max(errs.values()))
+        if (B, S, H, n) == WKV_SERVED and state == "zero" and not fast:
+            served = {"max_abs_err": abs_err, "relative_err": errs}
+    need(served is not None, "no served-shape case")
+    B, S, H, n = WKV_SERVED
+    r, k, v, w, u, s0 = wkv6_inputs(torch, dev, B, S, H, n, seed=26)
+    work = s0.clone()
+
+    def reset():
+        work.copy_(s0)
+
+    def kernel():
+        return launch(r, k, v, w, u, work)
+
+    ms = timed_ms(torch, kernel, 20, flush, reset=reset)
+    warm = timed_ms(torch, kernel, 20, reset=reset)
+    plain_ms = timed_ms(torch, lambda: wkv6_ref(r, k, v, w, u, s0), 2, flush)
+    elems = B * S * H * n
+    n_bytes = 5 * 4 * elems + 2 * 4 * B * H * n * n + 4 * H * n
+    # the least work of the function: y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i,
+    # so 2 flops an (i, j) for y and 3 for S <- w S + k v, and a (b, t, h)
+    # 3n for the u term's dot and 2n to add it into y
+    n_ops = 5 * elems * n + 5 * elems
+    b, by = bound_ms(n_bytes, n_ops)
+    print(f"wkv6 served layer B={B} S={S} H={H} n={n}: cold {ms * 1e3:.2f} us, warm in L2 "
+          f"{warm * 1e3:.2f} us (plain {plain_ms * 1e3:.1f} us, library call: none, bound "
+          f"{b * 1e3:.2f} us by {by}: {n_bytes} bytes, {n_ops} flops; kernel / bound "
+          f"{ms / b:.2f})")
+    return {"ms": ms, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "library_ms": None, **served, "worst_relative_err": worst,
+            "cases": len(WKV_CASES)}
+
+
+class plain_wkv:
+    """Within this block the RWKV layers run the plain version on the card
+    (the state written into the tensor given, as the wrapper does), and no
+    kernel is launched."""
+
+    def __enter__(self):
+        from repro_torch.kernels.wkv6.ref import wkv6_ref
+        from repro_torch.models import rwkv
+
+        def plain(r, k, v, w, u, state):
+            y, final = wkv6_ref(r, k, v, w, u, state)
+            state.copy_(final)
+            return y, state
+
+        self.saved, rwkv.wkv6 = rwkv.wkv6, plain
+
+    def __exit__(self, *exc):
+        from repro_torch.models import rwkv
+
+        rwkv.wkv6 = self.saved
+
+
+def held_cache(torch, label, got, want):
+    """tm_x and cm_x within SPLIT_ULPS bf16 ulps of their largest |value|,
+    the float32 tm_s within SPLIT_STATE_TOL of its largest |value|."""
+    errs = {}
+    for name in ("tm_x", "tm_s", "cm_x"):
+        a, b = got[name].float(), want[name].float()
+        top = float(b.abs().max())
+        errs[name] = float((a - b).abs().max())
+        if name == "tm_s":
+            tol, why = SPLIT_STATE_TOL * top, f"{SPLIT_STATE_TOL:.0e} of"
+        else:
+            tol, why = SPLIT_ULPS * bf16_ulp(top), f"{SPLIT_ULPS} bf16 ulps of"
+        print(f"{label}, {name}: max |difference| {errs[name]:.4e} (limit {tol:.4e}, "
+              f"{why} the largest {top:.4f})")
+        need(errs[name] <= tol, f"{label}: {name} differs by {errs[name]}")
+    return errs
+
+
+def check_ssm_against_plain(torch, engine, prompts, first_out):
+    """Phase 26 (c): the served rwkv6 through the kernel against the same
+    model through the plain version on the card: last-token logits after
+    prefill and TEACHER_STEPS teacher-forced decode steps within phase 15's
+    8 bf16 ulps of the largest |logit|, the plain steps from a copy of the
+    kernel's prefill state (as phase 25 holds the int8 decode: each step
+    holds the decode kernel on the same state); beside them, printed as a
+    yardstick, the plain steps from the plain prefill's own state, which
+    carries how far bf16 rounding spreads the prefill's difference over 24
+    layers and 2048 steps; and prefill of S tokens against prefill of S - 1
+    and one decode step, through the kernel."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.model import decode_step, prefill
+
+    cfg, params, dev, V = engine.cfg, engine.params, engine.device, engine.cfg.vocab_size
+    tokens = torch.from_numpy(prompts).to(dev)
+    t0 = time.perf_counter()
+    lk, ck = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    before = launch_counts()
+    with plain_wkv():
+        lp, cp = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    torch.cuda.synchronize()
+    need(launch_counts() == before, "the plain run launched a kernel")
+    print(f"{cfg.name}: a prefill through the kernel and one through the plain version in "
+          f"{time.perf_counter() - t0:.2f} s")
+    errs = [held_logits(torch, f"{cfg.name} prefill, last token", lk, lp, V)[0]]
+    state = float((ck["tm_s"] - cp["tm_s"]).abs().max()) / float(cp["tm_s"].abs().max())
+    print(f"{cfg.name} prefill: the kernel's states against the plain version's, max "
+          f"|difference| / largest {state:.3e} over the {cfg.n_layers} layers")
+    tok = torch.argmax(lk[:, :V], -1)
+    need(np.array_equal(tok.cpu().numpy(), first_out[:, 0]), "prefill does not repeat generate")
+    cq = {k: v.clone() if torch.is_tensor(v) else v for k, v in ck.items()}
+    own = []
+    for step in range(TEACHER_STEPS):
+        lk, ck = decode_step(cfg, params, ck, tok, dev)
+        with plain_wkv():
+            lq, cq = decode_step(cfg, params, cq, tok, dev)
+            lp, cp = decode_step(cfg, params, cp, tok, dev)
+        errs.append(held_logits(torch, f"{cfg.name} decode step {step + 1}, teacher-forced",
+                                lk, lq, V)[0])
+        own.append(float((lk[:, :V].float() - lp[:, :V].float()).abs().max()))
+        tok = torch.argmax(lk[:, :V], -1)
+    print(f"yardstick, the plain steps from the plain prefill's own state: max |logit kernels - "
+          f"plain| by step {[round(e, 6) for e in own]}")
+    # prefill(S) against prefill(S - 1) and one decode step, both through the kernel
+    whole_logits, whole = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    part_logits, part = prefill(cfg, params, {"tokens": tokens[:, :-1]}, engine.max_len, dev)
+    part_logits, part = decode_step(cfg, params, part, tokens[:, -1], dev)
+    split_err = held_logits(torch, f"{cfg.name} prefill of {tokens.shape[1]} against "
+                            f"{tokens.shape[1] - 1} and a decode step", part_logits,
+                            whole_logits, V)[0]
+    split_cache = held_cache(torch, f"{cfg.name} prefill against prefill and a decode step",
+                             part, whole)
+    need(part["pos"] == whole["pos"] == tokens.shape[1], "the split run's position")
+    return {"max_logit_err": max(errs), "prefill_state_relative_err": state,
+            "own_state_decode_logit_err": own,
+            "split_logit_err": split_err, "split_cache_err": split_cache}
+
+
+def check_ssm(torch, dev):
+    """Phase 26: the SSM family.  (a) the WKV-6 kernel against its plain
+    version and timed; (b) rwkv6-1.6b at full width and depth, random bf16
+    weights (w0 and u float32) drawn on the card, served behind an OGB page
+    pool in SERVE_CALLS generate calls as phase 14 serves glm4-9b, exactly
+    n_layers * (1 + SERVE_NEW) wkv6 launches a call and no attention launch;
+    (c) its logits against the plain version's, and prefill against a
+    shorter prefill and a decode step."""
+    import gc
+
+    from repro_torch.kernels import design_counts
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"SSM family phase 26 on {nvidia_smi_line()}; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated at its start")
+    need(torch.cuda.memory_allocated(dev) < 4e9, "an earlier phase's weights are still held")
+    flush = l2_flush(torch, dev)
+    kernel = check_wkv6_kernel(torch, dev, flush)
+    del flush
+    t1 = time.perf_counter()
+    engine, prompts, first_out, launches, steady = serve_full_width(torch, dev, SSM_ARCH)
+    L = engine.cfg.n_layers
+    kept = {name: str(engine.params["blocks"][0][name].dtype) for name in ("w0", "u", "w_k")}
+    print(f"{SSM_ARCH} served leaves: {kept}")
+    need(kept == {"w0": "torch.float32", "u": "torch.float32", "w_k": "torch.bfloat16"},
+         f"{SSM_ARCH}: w0 and u are not float32 beside bf16 weights: {kept}")
+    designs = design_counts()
+    print(f"{SSM_ARCH} launches by design: {designs}")
+    need(designs.get("wkv6") == {DESIGNS["wkv6"]: L * (1 + SERVE_NEW) * SERVE_CALLS},
+         f"{SSM_ARCH}: wkv6 launches by design {designs.get('wkv6')}")
+    t2 = time.perf_counter()
+    against = check_ssm_against_plain(torch, engine, prompts, first_out)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = {"kernel": t1 - t0, "serving": t2 - t1, "against_plain": time.perf_counter() - t2,
+            "all": time.perf_counter() - t0}
+    print(f"phase 26: {secs['all']:.2f} s ({secs}) on {nvidia_smi_line()}")
+    return {"kernel": kernel, "serving": steady, "launches": launches,
+            "launches_a_generate": L * (1 + SERVE_NEW), **against, "seconds": secs}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -4731,6 +5034,13 @@ def main() -> int:
     finally:
         expert_pool.shutdown(wait=True, cancel_futures=True)
     families25 = check_families(torch, dev)
+    lap("17-25 (scenarios, sized, sweep, streams and fleets, MoE, the attention families)")
+    ssm26 = check_ssm(torch, dev)
+    lap("26 (the SSM family)")
+    # the SSM family (phase 26): the recurrence's launches in rwkv6's serving
+    launches["wkv6"] = ssm26["launches"]["wkv6"]
+    rows["wkv6"] = {**ssm26["kernel"], "launches_a_generate": ssm26["launches_a_generate"],
+                    "generate_calls": SERVE_CALLS}
 
     # launches: the dense main path's for its kernels, the lazy main path's
     # for the prefix-tree kernels (segsum also ran 1 a chunk on madow_tree)
@@ -4849,7 +5159,8 @@ def main() -> int:
                       "families": {
                           name: {k: v for k, v in families25[name].items()
                                  if k not in ("decode", "timed", "prefill_d96")}
-                          for name in ("int8", "vlm", "encdec")}}))
+                          for name in ("int8", "vlm", "encdec")},
+                      "ssm": {k: v for k, v in ssm26.items() if k != "kernel"}}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

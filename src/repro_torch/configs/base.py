@@ -4,8 +4,8 @@ An :class:`ArchConfig` holds a model's published dimensions; each
 registered architecture also has a reduced smoke variant for CPU tests.
 The port carries the attention families: the dense glm4-9b, qwen3-14b,
 gemma-7b and mistral-nemo (its int8 KV cache), the MoE granite-moe and
-kimi-k2, the VLM phi-3-vision and the encoder-decoder whisper; asking for
-the SSM rwkv6 or the hybrid jamba raises ``NotImplementedError``.
+kimi-k2, the VLM phi-3-vision and the encoder-decoder whisper; and the SSM
+rwkv6; asking for the hybrid jamba raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -147,11 +147,10 @@ SHAPES: Dict[str, ShapeConfig] = {
 _REGISTRY: Dict[str, ArchConfig] = {}
 _SMOKE: Dict[str, ArchConfig] = {}
 
-#: architectures of the JAX package that the port does not carry yet
-#: (SSM and hybrid: each needs its recurrent scan)
+#: architectures of the JAX package that the port does not carry yet (the
+#: hybrid: its Mamba scan and the placement of its experts)
 NOT_PORTED = (
     "jamba-1.5-large-398b",
-    "rwkv6-1.6b",
 )
 
 
@@ -196,5 +195,6 @@ def _ensure_loaded() -> None:
         mistral_nemo_12b,
         phi3_vision,
         qwen3_14b,
+        rwkv6_1b6,
         whisper_large_v3,
     )

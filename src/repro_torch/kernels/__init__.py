@@ -8,7 +8,8 @@ Each wrapper counts its launches in a plain integer attribute
 ``solve_sized.launches``, ``flash_prefill.launches``,
 ``decode_attention.launches``, ``slot_automaton.launches``,
 ``fifo_queue.launches``, ``tree_lru.launches``,
-``ring_compaction.launches``, ``minpair_automaton.launches``), so a run
+``ring_compaction.launches``, ``minpair_automaton.launches``,
+``wkv6.launches``), so a run
 can show that it went through the kernels.  :func:`launch_counts` reads them by
 kernel source (the warm projection counts as ``mass``, the whole-tree
 build as ``segsum``, the bucket and sized solves as ``bucket_mass``, a
@@ -48,6 +49,7 @@ def _wrappers():
     from repro_torch.kernels.minpair_automaton.ops import minpair_automaton
     from repro_torch.kernels.slot_automaton.ops import slot_automaton
     from repro_torch.kernels.tree_lru.ops import ring_compaction, tree_lru
+    from repro_torch.kernels.wkv6.ops import wkv6
 
     return {
         "histogram": (histogram,),
@@ -62,6 +64,7 @@ def _wrappers():
         "fifo_queue": (fifo_queue,),
         "tree_lru": (tree_lru, ring_compaction),
         "minpair_automaton": (minpair_automaton,),
+        "wkv6": (wkv6,),
     }
 
 

@@ -1,4 +1,4 @@
-"""Shared model pieces: dtypes, RMSNorm, RoPE and the initialisers.
+"""Shared model pieces: dtypes, RMSNorm, RoPE, the token shift and the initialisers.
 
 Counterpart of ``repro.models.common``.  Each function rounds where the
 JAX version rounds: ``rmsnorm`` normalises in float32, rounds to the input
@@ -63,3 +63,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def shift_tokens(x: torch.Tensor) -> torch.Tensor:
+    """x_{t-1} with zero at t=0 (RWKV's token shift), along axis 1 of (B, S, D)."""
+    return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1, :]

@@ -1,14 +1,16 @@
 """The served models: parameters, prefill and one decode step.
 
-Counterpart of ``repro.models.model`` for the attention families:
+Counterpart of ``repro.models.model`` for the attention families,
 ``"dense"`` (glm4-9b, qwen3-14b, gemma-7b, mistral-nemo), ``"moe"``
 (granite-moe, kimi-k2: a block's ``moe`` subtree, :mod:`.moe`, in place of
 its MLP on the layers ``_is_moe_layer`` picks), ``"vlm"`` (phi-3-vision: a
 prefix of image embeddings, normed by ``img_norm``, before the prompt's
 tokens) and ``"encdec"`` (whisper: an encoder over frame embeddings with
 learned positions, a decoder with causal self-attention and
-cross-attention over the encoder's output); ``"ssm"`` and ``"hybrid"``
-raise ``NotImplementedError``.  The KV cache is in the compute type or, for
+cross-attention over the encoder's output), and for ``"ssm"`` (rwkv6: a
+stack of RWKV-6 blocks, :mod:`.rwkv`, whose cache is the recurrent state,
+no KV); ``"hybrid"`` raises ``NotImplementedError``.  The KV cache is in
+the compute type or, for
 ``kv_cache_dtype="int8"``, int8 codes with float32 scales (an encdec
 cache, as in ``repro``, is always in the compute type).  Parameters are
 plain dictionaries of tensors in the JAX layout (``x @ w`` with ``w`` of
@@ -17,7 +19,10 @@ shape ``(in, out)``), ``params["blocks"]`` (and an encdec's
 :func:`params_from_numpy` unstacks ``repro``'s ``init_params`` pytree into
 it, so both packages run on the same weights.  The KV cache is stacked
 ``(L, B, max_len, Hkv, D)`` tensors; :func:`decode_step` writes the new
-position in place instead of copying the cache.
+position in place instead of copying the cache.  An ssm cache is the
+stacked token-shift rows ``tm_x`` and ``cm_x`` (L, B, d_model) in the
+compute type and the WKV state ``tm_s`` (L, B, H, n, n) in float32, which
+prefill fills and each decode step updates in place, layer by layer.
 
 Every entry point takes a ``device`` and resolves it through
 :func:`repro_torch._device.resolve_device`: the card unless the caller
@@ -48,19 +53,20 @@ from .attention import (
 from .common import dtype_of, embed_init, rmsnorm, rmsnorm_init
 from .mlp import init_mlp, mlp_forward
 from .moe import init_moe, moe_output
+from .rwkv import init_rwkv_block, rwkv_block_fwd
 
 VOCAB_PAD = 256
 NEG_INF = -1e30
 
 Params = Dict[str, Any]
 
-#: leaves kept in float32 under a bf16 compute type (the router's logits)
-F32_KEEP = ("router",)
+#: leaves kept in float32 under a bf16 compute type (the router's logits,
+#: RWKV's decay base and bonus)
+F32_KEEP = ("router", "w0", "u")
 
 
-#: the families the port serves; ``ssm`` (rwkv6) and ``hybrid`` (jamba)
-#: need their recurrent scans
-FAMILIES = ("dense", "moe", "vlm", "encdec")
+#: the families the port serves; ``hybrid`` (jamba) needs its Mamba scan
+FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm")
 #: a decoder block's KV cache entries, stacked over the layers
 KV_NAMES = ("k", "v", "k_scale", "v_scale")
 #: rows of an encdec model's learned decoder positions (``repro`` sizes them
@@ -92,10 +98,10 @@ def _map(fn, tree, name=""):
 
 
 def cast_params_for_compute(cfg, params: Params) -> Params:
-    """The float32 weights in the compute type, the router kept in float32
-    (``repro``'s ``_F32_KEEP``).  A leaf already in the compute type is the
-    same tensor, so the engine casts once and every later call costs
-    nothing."""
+    """The float32 weights in the compute type, the router and RWKV's ``w0``
+    and ``u`` kept in float32 (``repro``'s ``_F32_KEEP``).  A leaf already
+    in the compute type is the same tensor, so the engine casts once and
+    every later call costs nothing."""
     cdt = dtype_of(cfg.compute_dtype)
 
     def cast(name, leaf):
@@ -116,13 +122,15 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None,
                 dtype: Optional[torch.dtype] = None) -> Params:
     """Random weights drawn tensor by tensor on ``device`` from a
     ``torch.Generator`` seeded with ``seed``, at ``repro``'s scales, stored
-    in ``dtype`` (default ``cfg.param_dtype``; the router stays float32).
+    in ``dtype`` (default ``cfg.param_dtype``; the router, ``w0`` and ``u``
+    stay float32).
     Drawing in the compute type on the card keeps the peak near one copy of
     the weights.  Layers are homogeneous, as in the reference: each block
     has an MLP, or a ``moe`` subtree where ``_is_moe_layer(cfg,
     cfg.moe_offset)``; a vlm model adds ``img_norm``; an encdec model has
     ``encoder`` blocks, decoder blocks with ``cross`` attention and ``ln3``,
-    and ``enc_pos``, ``dec_pos`` and ``enc_final_norm``."""
+    and ``enc_pos``, ``dec_pos`` and ``enc_final_norm``; an ssm model's
+    blocks are RWKV-6 blocks (:func:`.rwkv.init_rwkv_block`)."""
     _require_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or dtype_of(cfg.param_dtype)
@@ -141,6 +149,9 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None,
         "final_norm": rmsnorm_init(d, dtype, dev),
         "blocks": [],
     }
+    if cfg.family == "ssm":
+        params["blocks"] = [init_rwkv_block(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+        return params
     if cfg.family == "encdec":
         params["encoder"] = [{**norms("ln1", "ln2"), "attn": init_attention(gen, cfg, dtype),
                               "mlp": mlp()} for _ in range(cfg.n_encoder_layers)]
@@ -171,7 +182,7 @@ def params_from_numpy(cfg, params_np: Dict[str, Any], device: DeviceLike,
     block's ``moe`` or ``cross`` subtree with it) and an encdec model's
     ``params["encoder"]`` along ``n_encoder_layers``; ``enc_pos``,
     ``dec_pos``, ``enc_final_norm`` and ``img_norm`` as they are; in
-    ``dtype`` if given, the router left in float32."""
+    ``dtype`` if given, the router, ``w0`` and ``u`` left in float32."""
     _require_ported(cfg)
     dev = resolve_device(device)
 
@@ -194,11 +205,19 @@ def init_cache(cfg, batch: int, max_len: int, device: DeviceLike = None) -> Dict
     ``v_scale``), and the position of the next token; an encdec cache also
     holds the encoder's cross-attention ``cross_k`` and ``cross_v``,
     (L, B, n_audio_frames, Hkv, D) in the compute type, which
-    :func:`prefill` fills."""
+    :func:`prefill` fills.  An ssm cache, whatever ``max_len``: ``tm_x`` and
+    ``cm_x`` (L, B, d_model) in the compute type, ``tm_s`` (L, B, H, n, n)
+    in float32, all zero."""
     _require_ported(cfg)
     dev = resolve_device(device)
     cdt = dtype_of(cfg.compute_dtype)
     L = cfg.n_layers
+    if cfg.family == "ssm":
+        n = cfg.rwkv_head_dim
+        rows = torch.zeros((L, batch, cfg.d_model), dtype=cdt, device=dev)
+        return {"tm_x": rows, "tm_s": torch.zeros((L, batch, cfg.d_model // n, n, n),
+                                                  dtype=torch.float32, device=dev),
+                "cm_x": rows.clone(), "pos": 0}
     if cfg.family == "encdec":  # repro's encdec cache is in the compute type whatever the dtype
         cfg = dataclasses.replace(cfg, kv_cache_dtype="compute")
     layer = init_kv_cache(cfg, batch, max_len, cdt, dev)
@@ -232,6 +251,19 @@ def _ffn(cfg, p: Params, h: torch.Tensor) -> torch.Tensor:
     if "moe" in p:
         return moe_output(p["moe"], h, cfg)
     return mlp_forward(p["mlp"], h, cfg.mlp_activation)
+
+
+def _rwkv_stack(cfg, params: Params, x: torch.Tensor, cache: Dict[str, Any]) -> torch.Tensor:
+    """Every RWKV-6 block over x (B, S, d_model), from the cache's state and
+    into it: the kernel writes each layer's ``tm_s`` in place, the last rows
+    go into ``tm_x`` and ``cm_x``.  A zero cache is the reference's
+    stateless prefill (its token shift pads with zero)."""
+    for i, p in enumerate(params["blocks"]):
+        x, (tm_x, _, cm_x) = rwkv_block_fwd(
+            p, x, cfg, state=(cache["tm_x"][i], cache["tm_s"][i], cache["cm_x"][i]))
+        cache["tm_x"][i].copy_(tm_x)
+        cache["cm_x"][i].copy_(cm_x)
+    return x
 
 
 def _encoder_forward(cfg, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -290,13 +322,20 @@ def prefill(cfg, params: Params, batch: Dict[str, Any], max_len: int,
     (B, padded vocab) and the cache.  ``batch`` holds ``tokens`` (B, S);
     a vlm model takes optional ``image_embeds`` (B, n_image, d_model),
     normed and put before the tokens; an encdec model needs ``frames``
-    (B, T, d_model), whose encoder K and V it caches for cross-attention."""
+    (B, T, d_model), whose encoder K and V it caches for cross-attention.
+    An ssm model runs its blocks from a zero state into the cache (a
+    ``wkv6`` launch a layer) and, as the reference, checks no ``max_len``."""
     _require_ported(cfg)
     dev = _device_of(params, device)
     params = cast_params_for_compute(cfg, params)
     cdt = dtype_of(cfg.compute_dtype)
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     B, S = tokens.shape
+    if cfg.family == "ssm":
+        cache = init_cache(cfg, B, max_len, dev)
+        x = _rwkv_stack(cfg, params, params["embed"][tokens].to(cdt), cache)
+        cache["pos"] = S
+        return _logits(cfg, params, x[:, -1:])[:, 0], cache
     if cfg.family == "encdec":
         if "frames" not in batch:
             raise ValueError(f"{cfg.name} is an encoder-decoder: prefill needs the audio "
@@ -333,13 +372,18 @@ def decode_step(cfg, params: Params, cache: Dict[str, Any], tokens: torch.Tensor
     """One decode step: tokens (B,) -> logits (B, padded vocab).  Writes the
     tokens' K and V at ``cache["pos"]`` in place (quantized for an int8
     cache) and advances it; an encdec step also attends over the cached
-    encoder rows."""
+    encoder rows; an ssm step updates each layer's state in place (a
+    ``wkv6`` launch a layer)."""
     _require_ported(cfg)
     dev = _device_of(params, device)
     params = cast_params_for_compute(cfg, params)
     cdt = dtype_of(cfg.compute_dtype)
     pos = int(cache["pos"])
     x = params["embed"][torch.as_tensor(tokens, device=dev).long()][:, None, :].to(cdt)
+    if cfg.family == "ssm":
+        x = _rwkv_stack(cfg, params, x, cache)
+        cache["pos"] = pos + 1
+        return _logits(cfg, params, x)[:, 0], cache
     encdec = cfg.family == "encdec"
     if encdec:
         x = x + params["dec_pos"][pos:pos + 1].to(cdt)

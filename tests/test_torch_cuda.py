@@ -39,7 +39,11 @@ and replayed in a CUDA graph), the sized solve in both its plans
 read in a chunk; the MoE layer (the dense mixture and capacity dispatch)
 on the card against the CPU, attention at granite-moe's and kimi-k2's
 heads, and ``ogb_grad`` and ``OGBExpertCache`` on the card against the CPU
-with their 50 ``masses`` and one ``apply`` launches a step.
+with their 50 ``masses`` and one ``apply`` launches a step; the WKV-6
+recurrence (``wkv6``) against its plain version at n = 16, 32 and 64 and
+S = 1, 7 and 2049 from a zero and a mid-run state, the state written in
+place and two runs bit for bit, what it refuses, and the rwkv6 smoke model
+on the card against the CPU.
 """
 
 import numpy as np
@@ -98,6 +102,8 @@ from repro_torch.kernels.prefix_tree.ref import (
 )
 from repro_torch.kernels.scatter_counts.ops import TILE_BINS, design, histogram
 from repro_torch.kernels.scatter_counts.ref import histogram_ref
+from repro_torch.kernels.wkv6.ops import wkv6
+from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -205,7 +211,7 @@ def test_run_on_the_card_matches_the_cpu_and_counts_launches(card):
     assert launch_counts() == {"histogram": 100, "mass": 100, "apply": 100, "segsum": 0,
                                "tree_update": 0, "bucket_mass": 0, "flash_prefill": 0,
                                "decode_attention": 0, "slot_automaton": 0, "fifo_queue": 0,
-                               "tree_lru": 0, "minpair_automaton": 0}
+                               "tree_lru": 0, "minpair_automaton": 0, "wkv6": 0}
     designs = design_counts()
     assert designs["histogram"] == {"bin tiles": 100}
     assert designs["apply"] == {"projection epilogue": 100}
@@ -2265,5 +2271,91 @@ def test_families_on_the_card_match_the_cpu(card, arch):
             assert design_counts()["flash_prefill"] == prefill_modes
             assert design_counts()["decode_attention"] == {f"cuda-core, {cache_kind}":
                                                            4 * per_step}
+    for a, b in zip(logits["cpu"], logits[str(card)]):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+# -- the SSM family: the WKV-6 recurrence ------------------------------------------
+
+WKV_TOL = 1e-5  # of the largest |value| of y and of the state (chip_smoke.py's WKV_TOL)
+
+
+def _wkv_inputs(card, B, S, H, n, seed, mid_run):
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def draw(steps):
+        r, k, v = (torch.randn(B, steps, H, n, generator=gen, device=card) for _ in range(3))
+        w = torch.exp(-torch.exp(-6.0 + 0.12 * torch.randn(B, steps, H, n, generator=gen,
+                                                            device=card)))
+        return r, k, v, w
+
+    u = 0.1 * torch.randn(H, n, generator=gen, device=card)
+    state = torch.zeros(B, H, n, n, device=card)
+    if mid_run:
+        state = wkv6_ref(*draw(256), u, state)[1].contiguous()
+    return (*draw(S), u, state)
+
+
+@pytest.mark.parametrize("mid_run", [False, True], ids=["zero state", "mid-run state"])
+@pytest.mark.parametrize("S", [1, 7, 2049])
+@pytest.mark.parametrize("n", [16, 32, 64])
+def test_wkv6_matches_plain_and_writes_the_state_in_place(card, n, S, mid_run):
+    r, k, v, w, u, state = _wkv_inputs(card, 2, S, 4, n, seed=n + S, mid_run=mid_run)
+    want_y, want_s = wkv6_ref(r, k, v, w, u, state)
+    got_s, again_s = state.clone(), state.clone()
+    reset_launch_counts()
+    got_y, same = wkv6(r, k, v, w, u, got_s)
+    again_y, _ = wkv6(r, k, v, w, u, again_s)
+    torch.cuda.synchronize()
+    assert same is got_s and launch_counts()["wkv6"] == 2
+    for got, want in ((got_y, want_y), (got_s, want_s)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= WKV_TOL * float(want.abs().max())
+    assert torch.equal(got_y, again_y) and torch.equal(got_s, again_s)
+
+
+def test_wkv6_raises_on_what_it_cannot_take(card):
+    r, k, v, w, u, state = _wkv_inputs(card, 2, 5, 4, 16, seed=0, mid_run=False)
+    odd = [t[..., :8].contiguous() for t in (r, k, v, w)]
+    with pytest.raises(ValueError, match="head dim 8"):
+        wkv6(*odd, u[:, :8].contiguous(), state[:, :, :8, :8].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u, state)
+    with pytest.raises(TypeError, match="float32"):
+        wkv6(r.double(), k, v, w, u, state)
+    shifted = torch.empty(r.numel() + 1, device=card)[1:].view(r.shape)
+    shifted.copy_(r)
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv6(shifted, k, v, w, u, state)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wkv6(r, k, v, w, u.cpu(), state)
+
+
+def test_rwkv_smoke_model_on_the_card_matches_the_cpu(card):
+    """The float32 rwkv6 smoke model on the card through the kernel against
+    the CPU through the plain version: prefill and 4 decode steps within
+    1e-4, a wkv6 launch a layer in each and no attention launch."""
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.models import model
+
+    cfg = get_smoke("rwkv6-1.6b")
+    cpu_params = model.init_params(cfg, seed=0, device="cpu")
+    tokens = np.random.default_rng(2).integers(1, cfg.vocab_size, (2, 40)).astype(np.int32)
+    logits = {}
+    for dev in ("cpu", card):
+        params = _to(cpu_params, dev)
+        reset_launch_counts()
+        out, cache = model.prefill(cfg, params, {"tokens": torch.from_numpy(tokens).to(dev)}, 0,
+                                   device=dev)
+        tok = torch.argmax(out[:, :cfg.vocab_size], -1)
+        steps = [out.cpu()]
+        for _ in range(4):
+            out, cache = model.decode_step(cfg, params, cache, tok, device=dev)
+            steps.append(out.cpu())
+        logits[str(dev)] = steps + [cache["tm_s"].cpu()]
+        if dev == card:
+            counts = launch_counts()
+            assert counts["wkv6"] == 5 * cfg.n_layers
+            assert counts["flash_prefill"] == counts["decode_attention"] == 0
     for a, b in zip(logits["cpu"], logits[str(card)]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)

@@ -79,12 +79,11 @@ def test_make_policy_and_page_keys():
 def test_unported_architectures_raise():
     assert list_archs() == ["gemma-7b", "glm4-9b", "granite-moe-1b-a400m", "kimi-k2-1t-a32b",
                             "mistral-nemo-12b", "phi-3-vision-4.2b", "qwen3-14b",
-                            "whisper-large-v3"]
+                            "rwkv6-1.6b", "whisper-large-v3"]
     assert get_arch("glm4-9b").param_count() == 9_399_435_264
-    for name in ("jamba-1.5-large-398b", "rwkv6-1.6b"):  # SSM and hybrid: not ported
-        for get in (get_arch, get_smoke):
-            with pytest.raises(NotImplementedError):
-                get(name)
+    for get in (get_arch, get_smoke):  # the hybrid family: not ported
+        with pytest.raises(NotImplementedError):
+            get("jamba-1.5-large-398b")
     with pytest.raises(KeyError):
         get_smoke("no-such-model")
     cfg = get_smoke("glm4-9b")
@@ -95,7 +94,11 @@ def test_unported_architectures_raise():
     for int8 in (dataclasses.replace(get_smoke("granite-moe-1b-a400m"), kv_cache_dtype="int8"),
                  dataclasses.replace(cfg, kv_cache_dtype="int8")):
         assert model.init_cache(int8, 1, 4, "cpu")["k"].dtype == torch.int8
-    for bad in (dataclasses.replace(cfg, family="ssm"), dataclasses.replace(cfg, family="hybrid"),
+    # the ssm family initializes: RWKV-6 blocks, w0 and u in float32
+    ssm = model.init_params(dataclasses.replace(cfg, family="ssm"), device="cpu",
+                            dtype=torch.bfloat16)
+    assert all(b["w0"].dtype == torch.float32 and "attn" not in b for b in ssm["blocks"])
+    for bad in (dataclasses.replace(cfg, family="hybrid"),
                 dataclasses.replace(cfg, kv_cache_dtype="fp8")):
         with pytest.raises(NotImplementedError):
             model.init_params(bad, device="cpu")
