@@ -248,11 +248,14 @@ script with a non-zero exit:
    scaled_dot_product_attention;
 26. the SSM family: (a) the WKV-6 recurrence's kernel (wkv6) against its
    plain version on the card at rwkv6-1.6b's served layer (B 8, S 2048,
-   H 32, n 64) from a zero and a mid-run state, with a fast decay, one past
-   it (S 2049), 7 steps and a decode step (S 1), and at n = 16 and 32; y
-   and the final state within WKV_TOL of the largest, two runs bit for bit;
-   timed cold and warm beside its bound and its plain version (no library
-   call computes it);
+   H 32, n 64) from a zero and a mid-run state, with a fast and a
+   near-zero decay, one past it (S 2049), 7 steps and a decode step (S 1),
+   at n = 16 (a near-zero decay too) and 32, and a case a plan (n, P, C)
+   with a near-one decay; y and the final state within WKV_TOL of the
+   largest, two runs bit for bit; at the served layer and a decode step
+   timed cold beside its PR 30 design in turns, its bound, its plain
+   version and the floor of the timing (tools/time_wkv6_designs.py), and
+   warm at the served layer (no library call computes it);
    (b) rwkv6-1.6b at full width and depth (random bf16 weights drawn on the
    card, w0 and u float32, its parameters counted leaf by leaf) served as
    phase 14 serves glm4-9b: exactly 24 + 24 x 32 wkv6 launches a generate
@@ -351,8 +354,10 @@ DESIGNS = {
                       "beside their eviction keys, the requests in order, one block-wide argmin "
                       "over (key, slot) a request (redux.sync, one __syncthreads; none on one "
                       "warp); counts a tile of requests at a time",
-    "wkv6": "a block a (sequence, head), thread j a column of the state in registers; "
-            "r, k, w, v staged 16 steps at a time by cp.async in two stages",
+    "wkv6": "u term factored; a block a (sequence, head), each column's rows cut over P "
+            "threads of C columns (n = 64: 8 x 4, 128 threads, 32 state registers a thread); "
+            "partials summed over the row blocks in order a 16-step chunk; r, k, w, v staged "
+            "by cp.async in a 3-chunk ring",
 }
 #: the design of the standalone apply kernel, which phase 3 times (the dense
 #: main path's clip is the projection's epilogue)
@@ -4210,25 +4215,39 @@ INT8_SPLIT_TILES, D96_T = (3, 4, 6, 9, 17), 1500
 #: its recurrence's kernel at the served layer's (B, S, H, n)
 SSM_ARCH, WKV_SERVED = "rwkv6-1.6b", (SERVE_B, SERVE_S, 32, 64)
 #: the kernel against its plain version, y and the final state: within this
-#: share of the largest |value|.  Both are float32; the kernel contracts
-#: u*a + S, r*(..) + y and w*S + a into fmas and sums over i in its order,
-#: PyTorch's einsum in its own, and the state carries an error about
-#: 1 / (1 - w) = 400 steps at w0 = -6 (1.6e-6 measured at S = 2048)
+#: share of the largest |value|.  Both are float32.  The kernel factors the
+#: u term out (y_j = sum_i r_i S_ij + v_j ru_t, ru_t = sum_i r_i u_i k_i),
+#: contracts r*S + acc, w*S + k*v and v*ru + sum into fmas, sums each column's
+#: rows in P blocks in order and the P partials in order p = 0 .. P-1, and
+#: ru_t over 4-element pieces then a pairwise tree (tests/
+#: test_torch_wkv6_design.py models it); PyTorch's einsum sums in its own
+#: order, and the state carries an error about 1 / (1 - w) = 400 steps at
+#: w0 = -6 (1.6e-6 measured at S = 2048 in PR 30)
 WKV_TOL = 1e-5
 #: steps of the plain version that make a "mid-run" state
 WKV_WARM = 256
-#: (label, B, S, H, n, fast decay, start state)
+#: w0 of each decay, w = exp(-exp(w0 + 0.12 N(0, 1))): ~0.9975 (rwkv6's w0),
+#: ~0.5, exp(-e^2) ~ 6e-4, ~1 - 6e-6
+WKV_DECAYS = {"slow": -6.0, "fast": math.log(math.log(2.0)), "near zero": 2.0,
+              "near one": -12.0}
+#: (label, B, S, H, n, decay, start state); the "plan" cases, one a head
+#: dim, run its Plan<n> (kernel.PLANS) over two chunks and a step
 WKV_CASES = (
-    ("served prefill", 8, 2048, 32, 64, False, "zero"),
-    ("served, fast decay", 8, 2048, 32, 64, True, "mid-run"),
-    ("served, from a mid-run state", 8, 2048, 32, 64, False, "mid-run"),
-    ("decode step", 8, 1, 32, 64, False, "mid-run"),
-    ("one past the served length", 8, 2049, 32, 64, False, "zero"),
-    ("7 steps", 8, 7, 32, 64, False, "mid-run"),
-    ("n=16", 4, 2049, 8, 16, False, "mid-run"),
-    ("n=16 decode step", 4, 1, 8, 16, True, "mid-run"),
-    ("n=32", 4, 2049, 8, 32, False, "zero"),
-    ("n=32, 7 steps", 4, 7, 8, 32, True, "mid-run"),
+    ("served prefill", 8, 2048, 32, 64, "slow", "zero"),
+    ("served, fast decay", 8, 2048, 32, 64, "fast", "mid-run"),
+    ("served, near-zero decay", 8, 2048, 32, 64, "near zero", "mid-run"),
+    ("served, from a mid-run state", 8, 2048, 32, 64, "slow", "mid-run"),
+    ("decode step", 8, 1, 32, 64, "slow", "mid-run"),
+    ("one past the served length", 8, 2049, 32, 64, "slow", "zero"),
+    ("7 steps", 8, 7, 32, 64, "slow", "mid-run"),
+    ("n=16", 4, 2049, 8, 16, "slow", "mid-run"),
+    ("n=16, near-zero decay", 4, 2049, 8, 16, "near zero", "zero"),
+    ("n=16 decode step", 4, 1, 8, 16, "fast", "mid-run"),
+    ("n=32", 4, 2049, 8, 32, "slow", "zero"),
+    ("n=32, 7 steps", 4, 7, 8, 32, "fast", "mid-run"),
+    ("plan of n=16", 2, 33, 4, 16, "near one", "mid-run"),
+    ("plan of n=32", 2, 33, 4, 32, "near one", "mid-run"),
+    ("plan of n=64", 2, 33, 4, 64, "near one", "mid-run"),
 )
 #: prefill of S tokens against prefill of S - 1 and a decode step: tm_x and
 #: cm_x (in the compute type) within this many bf16 ulps of their largest
@@ -4695,22 +4714,21 @@ def check_families(torch, dev):
 
 # -- the SSM family (phase 26) --------------------------------------------------------
 
-def wkv6_inputs(torch, dev, B, S, H, n, seed, fast=False, state="zero"):
+def wkv6_inputs(torch, dev, B, S, H, n, seed, decay="slow", state="zero"):
     """The recurrence's inputs at (B, S, H, n), drawn on the card: r, k, v
     N(0, 1) (the served model's projections of a normed x are of unit
-    scale), w = exp(-exp(-6 + 0.12 N(0, 1))) (w0's N(0, 0.1) - 6 and its
-    LoRA's spread; about 0.9975) or, ``fast``, exp(-exp(log(ln 2) + 0.12
-    N(0, 1))) (about 0.5), u 0.1 N(0, 1); the state zero or, "mid-run", the
-    plain version's after WKV_WARM steps of such inputs from zero."""
+    scale), w = exp(-exp(w0 + 0.12 N(0, 1))) at w0 = WKV_DECAYS[decay] (the
+    "slow" -6 is w0's N(0, 0.1) - 6 with its LoRA's spread, about 0.9975), u
+    0.1 N(0, 1); the state zero or, "mid-run", the plain version's after
+    WKV_WARM steps of such inputs from zero."""
     from repro_torch.kernels.wkv6.ref import wkv6_ref
 
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def draw(steps):
         r, k, v = (torch.randn(B, steps, H, n, generator=gen, device=dev) for _ in range(3))
-        centre = math.log(math.log(2.0)) if fast else -6.0
-        w = torch.exp(-torch.exp(centre + 0.12 * torch.randn(B, steps, H, n, generator=gen,
-                                                              device=dev)))
+        w = torch.exp(-torch.exp(WKV_DECAYS[decay] + 0.12 * torch.randn(
+            B, steps, H, n, generator=gen, device=dev)))
         return r, k, v, w
 
     u = 0.1 * torch.randn(H, n, generator=gen, device=dev)
@@ -4730,21 +4748,25 @@ def check_wkv6_kernel(torch, dev, flush):
     """Phase 26 (a): the WKV-6 kernel against its plain version on the card
     at WKV_CASES, each from a copy of its state, y and the final state within
     WKV_TOL of the largest magnitude, two runs bit for bit; at the served
-    layer's shape timed cold and warm beside the plain version and its
-    bound."""
-    from repro_torch.kernels.wkv6.kernel import launch
+    layer and a decode step timed cold beside its PR 30 design in turns, its
+    bound, the plain version and the floor (tools/time_wkv6_designs.py);
+    warm at the served layer."""
+    from tools.time_wkv6_designs import time_designs
+
+    from repro_torch.kernels.wkv6.kernel import PLANS, launch
     from repro_torch.kernels.wkv6.ref import wkv6_ref
 
+    need({n for _, _, _, _, n, _, _ in WKV_CASES} == set(PLANS), "a head dim without a case")
     worst, served = 0.0, None
-    for i, (label, B, S, H, n, fast, state) in enumerate(WKV_CASES):
-        r, k, v, w, u, s0 = wkv6_inputs(torch, dev, B, S, H, n, seed=26 + i, fast=fast,
+    for i, (label, B, S, H, n, decay, state) in enumerate(WKV_CASES):
+        r, k, v, w, u, s0 = wkv6_inputs(torch, dev, B, S, H, n, seed=26 + i, decay=decay,
                                          state=state)
         s1, s2 = s0.clone(), s0.clone()
         y1, y2 = launch(r, k, v, w, u, s1), launch(r, k, v, w, u, s2)
         want_y, want_s = wkv6_ref(r, k, v, w, u, s0)
         errs = wkv6_errors(torch, y1, s1, want_y, want_s)
         abs_err = float((y1 - want_y).abs().max())
-        print(f"wkv6 {label} B={B} S={S} H={H} n={n}, {'fast' if fast else 'slow'} decay, "
+        print(f"wkv6 {label} B={B} S={S} H={H} n={n} (plan P, C = {PLANS[n]}), {decay} decay, "
               f"{state} state: |kernel - plain| / largest: y {errs['y']:.3e}, state "
               f"{errs['state']:.3e} (limit {WKV_TOL:.0e}; max |y| {float(want_y.abs().max()):.3f}, "
               f"max |S| {float(want_s.abs().max()):.3f})")
@@ -4753,36 +4775,29 @@ def check_wkv6_kernel(torch, dev, flush):
         need(max(errs.values()) <= WKV_TOL, f"wkv6 {label}: {errs} > {WKV_TOL}")
         need(torch.equal(y1, y2) and torch.equal(s1, s2), f"wkv6 {label}: two runs differ")
         worst = max(worst, max(errs.values()))
-        if (B, S, H, n) == WKV_SERVED and state == "zero" and not fast:
+        if (B, S, H, n) == WKV_SERVED and state == "zero" and decay == "slow":
             served = {"max_abs_err": abs_err, "relative_err": errs}
     need(served is not None, "no served-shape case")
+    timed = time_designs(torch, dev, flush)
     B, S, H, n = WKV_SERVED
     r, k, v, w, u, s0 = wkv6_inputs(torch, dev, B, S, H, n, seed=26)
     work = s0.clone()
-
-    def reset():
-        work.copy_(s0)
-
-    def kernel():
-        return launch(r, k, v, w, u, work)
-
-    ms = timed_ms(torch, kernel, 20, flush, reset=reset)
-    warm = timed_ms(torch, kernel, 20, reset=reset)
-    plain_ms = timed_ms(torch, lambda: wkv6_ref(r, k, v, w, u, s0), 2, flush)
-    elems = B * S * H * n
-    n_bytes = 5 * 4 * elems + 2 * 4 * B * H * n * n + 4 * H * n
-    # the least work of the function: y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i,
-    # so 2 flops an (i, j) for y and 3 for S <- w S + k v, and a (b, t, h)
-    # 3n for the u term's dot and 2n to add it into y
-    n_ops = 5 * elems * n + 5 * elems
-    b, by = bound_ms(n_bytes, n_ops)
-    print(f"wkv6 served layer B={B} S={S} H={H} n={n}: cold {ms * 1e3:.2f} us, warm in L2 "
-          f"{warm * 1e3:.2f} us (plain {plain_ms * 1e3:.1f} us, library call: none, bound "
-          f"{b * 1e3:.2f} us by {by}: {n_bytes} bytes, {n_ops} flops; kernel / bound "
-          f"{ms / b:.2f})")
-    return {"ms": ms, "warm_ms": warm, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-            "library_ms": None, **served, "worst_relative_err": worst,
-            "cases": len(WKV_CASES)}
+    warm = timed_ms(torch, lambda: launch(r, k, v, w, u, work), 20,
+                    reset=lambda: work.copy_(s0))
+    cold = timed["served"]
+    print(f"wkv6 served layer B={B} S={S} H={H} n={n}: cold {cold['ms'] * 1e3:.2f} us (PR 30's "
+          f"design {cold['earlier_ms'] * 1e3:.2f}), warm in L2 {warm * 1e3:.2f} us (plain "
+          f"{cold['plain_ms'] * 1e3:.1f} us, library call: none, bound "
+          f"{cold['bound_ms'] * 1e3:.2f} us by {cold['bound_by']}; kernel / bound "
+          f"{cold['ms'] / cold['bound_ms']:.2f}); decode step {timed['decode']['ms'] * 1e3:.2f} us "
+          f"(PR 30's design {timed['decode']['earlier_ms'] * 1e3:.2f}, floor "
+          f"{timed['floor_ms'] * 1e3:.2f})")
+    return {"ms": cold["ms"], "warm_ms": warm, "plain_ms": cold["plain_ms"],
+            "bound_ms": cold["bound_ms"], "bound_by": cold["bound_by"], "library_ms": None,
+            "earlier_ms": cold["earlier_ms"], "earlier_design": timed["earlier_design"],
+            "turns": cold["turns"], "decode_step": timed["decode"], "floor_ms": timed["floor_ms"],
+            "plans": {str(n): list(pc) for n, pc in PLANS.items()},
+            **served, "worst_relative_err": worst, "cases": len(WKV_CASES)}
 
 
 class plain_wkv:

@@ -1,12 +1,16 @@
 """Binding of ``csrc/wkv6.cu``: the WKV-6 recurrence, a block a (sequence, head).
 
 Counterpart of ``repro.models.rwkv._wkv_scan``, which has no Pallas kernel:
-the reference scans the recurrence with ``lax.scan``.  The kernel keeps
-column j of a head's n x n state in the registers of thread j for the whole
-sequence and reads the state from, and writes it back to, the tensor it is
-given; r, k, w and v reach shared memory :data:`CHUNK` steps at a time by
-16-byte asynchronous copies.  It takes n in :data:`HEAD_DIMS`, contiguous
-float32 inputs on 16-byte boundaries; any other call raises.
+the reference scans the recurrence with ``lax.scan``.  The kernel factors
+the u term out (y_j = sum_i r_i S_ij + v_j sum_i r_i u_i k_i), cuts each
+column of a head's n x n state into P row blocks and gives each thread one
+block of C adjacent columns (:data:`PLANS`), in registers for the whole
+sequence; a chunk's partial sums of y are added over the row blocks in
+order at the chunk's end.  The state is read from, and written back to, the
+tensor given; r, k, w and v reach shared memory :data:`CHUNK` steps at a
+time by 16-byte asynchronous copies, in a ring of :data:`STAGES` chunks.
+It takes n in :data:`HEAD_DIMS`, contiguous float32 inputs on 16-byte
+boundaries; any other call raises.
 """
 
 from __future__ import annotations
@@ -19,9 +23,14 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64)  # n, a template argument of the kernel
+#: n -> (P row blocks a column, C columns a thread): Plan<n> in the source
+PLANS = {16: (4, 2), 32: (8, 4), 64: (8, 4)}
 CHUNK = 16  # steps staged in shared memory at once (kChunk in the source)
-DESIGN = ("a block a (sequence, head), thread j a column of the state in registers; "
-          "r, k, w, v staged 16 steps at a time by cp.async in two stages")
+STAGES = 3  # chunks in the ring (kStages in the source)
+DESIGN = ("u term factored; a block a (sequence, head), each column's rows cut over P "
+          "threads of C columns (n = 64: 8 x 4, 128 threads, 32 state registers a thread); "
+          "partials summed over the row blocks in order a 16-step chunk; r, k, w, v staged "
+          "by cp.async in a 3-chunk ring")
 
 
 @functools.lru_cache(maxsize=None)

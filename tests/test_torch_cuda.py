@@ -41,8 +41,9 @@ on the card against the CPU, attention at granite-moe's and kimi-k2's
 heads, and ``ogb_grad`` and ``OGBExpertCache`` on the card against the CPU
 with their 50 ``masses`` and one ``apply`` launches a step; the WKV-6
 recurrence (``wkv6``) against its plain version at n = 16, 32 and 64 and
-S = 1, 7 and 2049 from a zero and a mid-run state, the state written in
-place and two runs bit for bit, what it refuses, and the rwkv6 smoke model
+S = 1, 7 and 2049 from a zero and a mid-run state, at near-zero and
+near-one decays and at each head dim's plan, the state written in place
+and two runs bit for bit, what it refuses, and the rwkv6 smoke model
 on the card against the CPU.
 """
 
@@ -2278,15 +2279,17 @@ def test_families_on_the_card_match_the_cpu(card, arch):
 # -- the SSM family: the WKV-6 recurrence ------------------------------------------
 
 WKV_TOL = 1e-5  # of the largest |value| of y and of the state (chip_smoke.py's WKV_TOL)
+#: w0 of each decay, w = exp(-exp(w0 + 0.12 N(0, 1))) (chip_smoke.py's WKV_DECAYS)
+WKV_DECAYS = {"slow": -6.0, "near zero": 2.0, "near one": -12.0}
 
 
-def _wkv_inputs(card, B, S, H, n, seed, mid_run):
+def _wkv_inputs(card, B, S, H, n, seed, mid_run, decay="slow"):
     gen = torch.Generator(device=card).manual_seed(seed)
 
     def draw(steps):
         r, k, v = (torch.randn(B, steps, H, n, generator=gen, device=card) for _ in range(3))
-        w = torch.exp(-torch.exp(-6.0 + 0.12 * torch.randn(B, steps, H, n, generator=gen,
-                                                            device=card)))
+        w = torch.exp(-torch.exp(WKV_DECAYS[decay] + 0.12 * torch.randn(
+            B, steps, H, n, generator=gen, device=card)))
         return r, k, v, w
 
     u = 0.1 * torch.randn(H, n, generator=gen, device=card)
@@ -2296,11 +2299,23 @@ def _wkv_inputs(card, B, S, H, n, seed, mid_run):
     return (*draw(S), u, state)
 
 
-@pytest.mark.parametrize("mid_run", [False, True], ids=["zero state", "mid-run state"])
-@pytest.mark.parametrize("S", [1, 7, 2049])
-@pytest.mark.parametrize("n", [16, 32, 64])
-def test_wkv6_matches_plain_and_writes_the_state_in_place(card, n, S, mid_run):
-    r, k, v, w, u, state = _wkv_inputs(card, 2, S, 4, n, seed=n + S, mid_run=mid_run)
+#: (n, S, mid-run state, B, H, decay): every head dim at 1, 7 and 2049 steps from
+#: a zero and a mid-run state; w ~ exp(-e^2) (each step nearly forgets the
+#: state) at rwkv6-1.6b's served layer and at n = 16; w ~ 1 - 6e-6 (it nearly
+#: keeps all of it) at each head dim's plan (kernel.PLANS), two chunks and a step
+WKV_CASES = [(n, S, mid_run, 2, 4, "slow") for n in (16, 32, 64) for S in (1, 7, 2049)
+             for mid_run in (False, True)] + [
+    (64, 2048, True, 8, 32, "near zero"), (16, 2049, True, 2, 4, "near zero"),
+    (16, 33, True, 2, 4, "near one"), (32, 33, True, 2, 4, "near one"),
+    (64, 33, True, 2, 4, "near one")]
+WKV_IDS = [f"{n}-{S}-{'mid-run' if mid_run else 'zero'} state" if decay == "slow"
+           else f"{n}-{S}-{B}x{H}-{decay} decay" for n, S, mid_run, B, H, decay in WKV_CASES]
+
+
+@pytest.mark.parametrize("n, S, mid_run, B, H, decay", WKV_CASES, ids=WKV_IDS)
+def test_wkv6_matches_plain_and_writes_the_state_in_place(card, n, S, mid_run, B, H, decay):
+    r, k, v, w, u, state = _wkv_inputs(card, B, S, H, n, seed=n + S, mid_run=mid_run,
+                                       decay=decay)
     want_y, want_s = wkv6_ref(r, k, v, w, u, state)
     got_s, again_s = state.clone(), state.clone()
     reset_launch_counts()

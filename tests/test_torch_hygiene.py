@@ -1,7 +1,8 @@
 """The port stands alone: no file of it imports JAX or the JAX package.
 
 Walks the AST of every Python file under src/repro_torch/, of
-chip_smoke.py and of the port's sweep script, so an import hidden inside a
+chip_smoke.py, of the port's sweep script and of the timing scripts that
+chip_smoke.py imports (tools/time_*.py), so an import hidden inside a
 function is found too.
 """
 
@@ -14,7 +15,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "tools" / "sweep_threshold_solves.py",
-]
+] + sorted((ROOT / "tools").glob("time_*.py"))
 
 
 def _imported_modules(path):
