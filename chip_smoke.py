@@ -261,7 +261,29 @@ script with a non-zero exit:
    phase 14 serves glm4-9b: exactly 24 + 24 x 32 wkv6 launches a generate
    call and no attention launch; (c) its logits against the plain
    version's after prefill and 8 teacher-forced decode steps, and prefill
-   of 2048 tokens against prefill of 2047 and a decode step.
+   of 2048 tokens against prefill of 2047 and a decode step;
+27. the hybrid family: (a) Mamba's selective scan (selective_scan) against
+   its plain version on the card at jamba's served layer (B 8, S 2048,
+   d_in 16 384, n 16) from a zero and a mid-run state, with slow (~1e-3)
+   and fast (~5) dt, 7 steps, a decode step (S 1) and one past it (S 2049),
+   at n = 8 and at a ragged d_in of 200; y and the final state within
+   SCAN_TOL of the largest, two runs bit for bit; at the served layer and a
+   decode step timed cold and warm beside its bound, the exponentials'
+   floor, its plain version and the floor of the timing (no library call
+   computes it); both attention kernels held against their plain versions
+   at jamba's heads (H 64, Hkv 8, D 128) and served shapes, and timed
+   beside scaled_dot_product_attention; (b) jamba-1.5-large at full width,
+   its depth cut from 72 layers to one super-block of 4 (Mamba + MLP,
+   Mamba + MoE, Mamba + MLP, attention + MoE; random bf16 weights drawn on
+   the card, A_log, dt_bias, D and the routers float32, 23 776 305 152
+   parameters counted leaf by leaf) served as phase 14 serves glm4-9b:
+   exactly 3 + 3 x 32 selective_scan, 1 flash_prefill and 32
+   decode_attention launches a generate call, and where a prefill and a
+   decode step go; (c) its logits against the plain versions' after
+   prefill and 8 teacher-forced decode steps (routing flips counted, the
+   plain runs routed as the kernels'), and prefill of 2048 tokens against
+   prefill of 2047 and a decode step on the rows no expert's capacity
+   dropped.
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -321,6 +343,8 @@ REPLACES = {
     "fifo_queue": "src/repro/cachesim/engines.py:172",
     # no Pallas kernel: the reference scans the WKV recurrence with lax.scan
     "wkv6": "src/repro/models/rwkv.py:74",
+    # no Pallas kernel: the reference scans Mamba's recurrence with lax.scan
+    "selective_scan": "src/repro/models/mamba.py:77",
 }
 SOURCES = {
     "histogram": "src/repro_torch/kernels/scatter_counts/csrc/histogram.cu",
@@ -336,12 +360,14 @@ SOURCES = {
     "minpair_automaton": "src/repro_torch/kernels/minpair_automaton/csrc/minpair_automaton.cu",
     "fifo_queue": "src/repro_torch/kernels/fifo_queue/csrc/fifo_queue.cu",
     "wkv6": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
+    "selective_scan": "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
 }
 KERNELS = ("histogram", "mass", "apply", "segsum", "tree_update", "bucket_mass",
            "flash_prefill", "decode_attention", "slot_automaton", "tree_lru",
-           "minpair_automaton", "fifo_queue", "wkv6")
-#: the one design of each kernel that has one (wkv6's is checked against its
-#: launches by design in phase 26; the others name theirs in
+           "minpair_automaton", "fifo_queue", "wkv6", "selective_scan")
+#: the one design of each kernel that has one (wkv6's and selective_scan's
+#: are checked against their launches by design in phases 26 and 27; the
+#: others name theirs in
 #: their rows: the attention kernels by design(), the histogram, the clip
 #: and the two threshold solves by the launches of their main path, the
 #: tree automata's kernels by their packages' design names, phase 19, and
@@ -358,6 +384,9 @@ DESIGNS = {
             "threads of C columns (n = 64: 8 x 4, 128 threads, 32 state registers a thread); "
             "partials summed over the row blocks in order a 16-step chunk; r, k, w, v staged "
             "by cp.async in a 3-chunk ring",
+    "selective_scan": "a thread a channel, its n states and row of A in registers; 128 channels "
+                      "of one sequence a block; B and C staged in shared memory 64 steps at a "
+                      "time; x and dt loaded 8 steps ahead",
 }
 #: the design of the standalone apply kernel, which phase 3 times (the dense
 #: main path's clip is the projection's epilogue)
@@ -366,7 +395,7 @@ DENSE_KERNELS = 23  # device kernels a dense chunk launches (phase 7), its rewar
 #: kernels off the replay paths: serving's attention and recurrence, the scenario
 #: path's automata
 OFF_PATH = {"flash_prefill": 0, "decode_attention": 0, "slot_automaton": 0, "tree_lru": 0,
-            "minpair_automaton": 0, "fifo_queue": 0, "wkv6": 0}
+            "minpair_automaton": 0, "fifo_queue": 0, "wkv6": 0, "selective_scan": 0}
 #: the port's kernels in the profiler's rows, by the names of their functions
 PORT_KERNEL_NAMES = ("tree_update_kernel", "tree_build_kernel", "bin_tiles_kernel",
                      "solve_buckets_kernel", "project_warm_kernel", "solve_sized_kernel")
@@ -1696,13 +1725,23 @@ def expected_params(cfg):
     (which counts three matrices an MLP, where a GELU MLP has two), the norms,
     the rows of the vocab's padding, and a vlm's image norm or an encdec's
     learned positions.  An ssm model's blocks are counted leaf by leaf
-    (param_count counts an ssm block as Mamba's)."""
-    from repro_torch.models.model import DEC_POSITIONS, padded_vocab
+    (param_count counts an ssm block as Mamba's), and so are a hybrid
+    model's (param_count leaves out a Mamba layer's w_dt, convolution and
+    A_log)."""
+    from repro_torch.models.mamba import mamba_params
+    from repro_torch.models.model import DEC_POSITIONS, _is_attn_layer, _is_moe_layer, padded_vocab
     from repro_torch.models.rwkv import block_params
 
     d = cfg.d_model
     if cfg.family == "ssm":
         return 2 * padded_vocab(cfg) * d + d + cfg.n_layers * block_params(cfg)
+    if cfg.family == "hybrid":  # a layer: two norms, attention or Mamba, MoE or MLP
+        attn = 2 * d * cfg.n_heads * cfg.head_dim + 2 * d * cfg.n_kv_heads * cfg.head_dim
+        ffn = {True: cfg.n_experts * (3 * d * cfg.expert_ff + d), False: 3 * d * cfg.d_ff}
+        layers = [layer % cfg.attn_period for layer in range(cfg.n_layers)]
+        return 2 * padded_vocab(cfg) * d + d + sum(
+            2 * d + (attn if _is_attn_layer(cfg, j) else mamba_params(cfg))
+            + ffn[_is_moe_layer(cfg, j)] for j in layers)
     n = cfg.param_count() + 2 * (padded_vocab(cfg) - cfg.vocab_size) * d + d
     if cfg.mlp_activation == "gelu":
         n -= (cfg.n_layers + cfg.n_encoder_layers) * d * cfg.d_ff
@@ -1712,13 +1751,15 @@ def expected_params(cfg):
     return n + 2 * cfg.n_layers * d + (d if cfg.family == "vlm" else 0)
 
 
-def draw_full_width(torch, dev, arch):
-    """``arch`` at full width and depth, random bf16 weights drawn on the
-    card, its parameter count held to the configuration's."""
+def draw_full_width(torch, dev, arch, cfg=None):
+    """``arch`` at full width and depth (or ``cfg``, a depth cut of it),
+    random bf16 weights drawn on the card, its parameter count held to the
+    configuration's."""
     from repro_torch.configs.base import get_arch
     from repro_torch.models.model import init_params
 
-    cfg = get_arch(arch)
+    full = get_arch(arch)
+    cfg = cfg or full
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1731,10 +1772,17 @@ def draw_full_width(torch, dev, arch):
     heads = (f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads of {cfg.rwkv_head_dim}, no KV cache"
              if cfg.family == "ssm" else f"heads {cfg.n_heads} / KV {cfg.n_kv_heads}, head_dim "
              f"{cfg.head_dim}, KV cache {cfg.kv_cache_dtype}")
-    counted = ("RWKV-6 blocks leaf by leaf + embeddings" if cfg.family == "ssm" else
+    if cfg.family == "hybrid":
+        heads += (f", attention 1 layer in {cfg.attn_period}, Mamba d_in "
+                  f"{cfg.ssm_expand * cfg.d_model} state {cfg.ssm_state_dim} conv "
+                  f"{cfg.ssm_conv_width}, MoE every {cfg.moe_every} from {cfg.moe_offset}")
+    counted = (f"{cfg.family} layers leaf by leaf + embeddings"
+               if cfg.family in ("ssm", "hybrid") else
                f"ArchConfig.param_count {cfg.param_count()} + norms + vocab padding"
                f"{' + positions' if encoder else ''}")
-    print(f"{arch}: {cfg.n_layers} layers{encoder}, d_model {cfg.d_model}, {heads}, d_ff "
+    cut = (f" (depth cut from {full.n_layers} layers at attn_period {full.attn_period})"
+           if cfg.n_layers != full.n_layers else "")
+    print(f"{arch}: {cfg.n_layers} layers{cut}{encoder}, d_model {cfg.d_model}, {heads}, d_ff "
           f"{cfg.d_ff}{experts}, vocab {cfg.vocab_size}; {n_params} parameters ({counted}) "
           f"drawn in bf16 on the card in "
           f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
@@ -1743,11 +1791,12 @@ def draw_full_width(torch, dev, arch):
     return cfg, params
 
 
-def serve_full_width(torch, dev, arch=ARCH, calls=SERVE_CALLS):
-    """Phase 14 (and 24 (a), 25 (a), 26 (b)): ``arch`` at full width behind
-    an OGB page pool, ``calls`` generate calls, every kernel launch counted.
-    Returns the engine, the first call's prompts and tokens, the launches,
-    and the steady calls' numbers."""
+def serve_full_width(torch, dev, arch=ARCH, calls=SERVE_CALLS, cfg=None):
+    """Phase 14 (and 24 (a), 25 (a), 26 (b), 27 (b)): ``arch`` at full width
+    (``cfg``, where given, a depth cut of it) behind an OGB page pool,
+    ``calls`` generate calls, every kernel launch counted.  Returns the
+    engine, the first call's prompts and tokens, the launches, and the
+    steady calls' numbers."""
     import numpy as np
 
     from repro_torch.core.policies import make_policy
@@ -1755,7 +1804,7 @@ def serve_full_width(torch, dev, arch=ARCH, calls=SERVE_CALLS):
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.kvcache import PagedKVPool
 
-    cfg, params = draw_full_width(torch, dev, arch)
+    cfg, params = draw_full_width(torch, dev, arch, cfg)
     pages = SERVE_S // PAGE_SIZE
     policy = make_policy("ogb", 1 << 18, POOL_PAGES, horizon=calls * SERVE_B * pages,
                          batch_size=SERVE_B * pages)
@@ -1790,6 +1839,11 @@ def serve_full_width(torch, dev, arch=ARCH, calls=SERVE_CALLS):
     want = {name: 0 for name in launches}
     if cfg.family == "ssm":  # the recurrence: a launch a layer in a prefill and in a step
         want["wkv6"] = cfg.n_layers * (1 + SERVE_NEW) * calls
+    elif cfg.family == "hybrid":  # the scan a Mamba layer, attention a super-block
+        attn = cfg.n_layers // cfg.attn_period
+        want["selective_scan"] = (cfg.n_layers - attn) * (1 + SERVE_NEW) * calls
+        want["flash_prefill"] = attn * calls
+        want["decode_attention"] = attn * SERVE_NEW * calls
     else:
         want["flash_prefill"] = cfg.n_layers * calls
         want["decode_attention"] = cfg.n_layers * SERVE_NEW * calls
@@ -4945,6 +4999,428 @@ def check_ssm(torch, dev):
             "launches_a_generate": L * (1 + SERVE_NEW), **against, "seconds": secs}
 
 
+# -- the hybrid family (phase 27) -----------------------------------------------------
+
+#: phase 27, the hybrid family: jamba-1.5-large at full width, its depth cut
+#: from 72 layers (9 super-blocks of 8) to one super-block of HYBRID_LAYERS:
+#: Mamba + MLP, Mamba + MoE, Mamba + MLP, attention + MoE, every layer kind
+#: of the full model at its width, 23 776 305 152 parameters (47.55 GB in
+#: bf16; a super-block of 8 holds 47.0 G, 94.0 GB, past the card's 80 GB)
+HYBRID_ARCH, HYBRID_LAYERS = "jamba-1.5-large-398b", 4
+#: the scan at the served layer: (B, S, d_in, n)
+SCAN_SERVED = (SERVE_B, SERVE_S, 16384, 16)
+#: the kernel against its plain version, y and the final state: within this
+#: share of the largest |value|.  Both are float32 and round every step in
+#: the reference's order (exp(dt A), (dt x) B, dec h + drv); the plain
+#: version's einsum sums y over n in its own order, about 1e-7 of |y|
+SCAN_TOL = 1e-5
+#: steps of the plain version that make a "mid-run" state
+SCAN_WARM = 256
+#: dt = softplus(c + s N(0, 1)) for (c, s): "served", the served layer's
+#: (dt_bias 0, xin @ w_dt at w_dt's scale 0.01 over d_in 16 384: s ~ 0.6,
+#: dt ~ 0.7); "slow", dt ~ 1e-3; "fast", dt ~ 5
+SCAN_DT = {"served": (0.0, 0.6), "slow": (math.log(math.expm1(1e-3)), 0.1), "fast": (5.0, 0.1)}
+#: (label, B, S, d_in, n, dt, start state)
+SCAN_CASES = (
+    ("served prefill", 8, 2048, 16384, 16, "served", "zero"),
+    ("served, from a mid-run state", 8, 2048, 16384, 16, "served", "mid-run"),
+    ("served, slow dt", 8, 2048, 16384, 16, "slow", "mid-run"),
+    ("served, fast dt", 8, 2048, 16384, 16, "fast", "mid-run"),
+    ("decode step", 8, 1, 16384, 16, "served", "mid-run"),
+    ("7 steps", 8, 7, 16384, 16, "served", "mid-run"),
+    ("one past the served length", 8, 2049, 16384, 16, "served", "zero"),
+    ("n=8 (the smoke state)", 4, 2049, 4096, 8, "served", "mid-run"),
+    ("n=8 decode step", 4, 1, 4096, 8, "fast", "mid-run"),
+    ("ragged d_in", 4, 2049, 200, 16, "served", "mid-run"),
+    ("ragged d_in, n=8", 2, 33, 200, 8, "slow", "zero"),
+)
+#: an H100 SXM's boost clock and its SFU results an SM a clock (exp2 and the
+#: other special functions: the CUDA programming guide's throughput table,
+#: compute capability 9.0): the floor of the scan's exponentials
+SM_CLOCK_HZ, SFU_PER_SM_CLOCK = 1.98e9, 16
+
+
+def jamba_cut():
+    """jamba-1.5-large at full width, one super-block of HYBRID_LAYERS."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+
+    return dataclasses.replace(get_arch(HYBRID_ARCH), n_layers=HYBRID_LAYERS,
+                               attn_period=HYBRID_LAYERS)
+
+
+def scan_inputs(torch, dev, B, S, d_in, n, seed, dt="served", state="zero"):
+    """The scan's inputs at (B, S, d_in, n), drawn on the card: x, B and C
+    N(0, 1), dt = softplus(c + s N(0, 1)) at SCAN_DT[dt], a learned-looking
+    A = -(1 .. n) exp(0.3 N(0, 1)) (not A_log's initial -(1 .. n)), D = 1 +
+    0.1 N(0, 1); the state zero or, "mid-run", the plain version's after
+    SCAN_WARM steps of such inputs from zero."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    c, spread = SCAN_DT[dt]
+
+    def draw(steps):
+        return (randn(B, steps, d_in), F.softplus(c + spread * randn(B, steps, d_in)),
+                randn(B, steps, n), randn(B, steps, n))
+
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev) * torch.exp(0.3 * randn(d_in, n))
+    D = 1.0 + 0.1 * randn(d_in)
+    h0 = torch.zeros(B, d_in, n, device=dev)
+    if state == "mid-run":
+        x, dts, Bm, Cm = draw(SCAN_WARM)
+        h0 = selective_scan_ref(x, dts, A, Bm, Cm, D, h0)[1].contiguous()
+    x, dts, Bm, Cm = draw(S)
+    return x, dts, A, Bm, Cm, D, h0
+
+
+def scan_bound(torch, dev, B, S, d_in, n):
+    """The scan's bound: x and dt read and y written once, B, C, A and D
+    read once, the state read and written; ~6 float32 flops a (b, t, d, k)
+    and 3 a (b, t, d).  Beside it the exponentials' floor, which the bound
+    rule does not count: one SFU result each."""
+    n_bytes = 4 * (3 * B * S * d_in + 2 * B * S * n + d_in * n + d_in + 2 * B * d_in * n)
+    b, by = bound_ms(n_bytes, 6 * B * S * d_in * n + 3 * B * S * d_in)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return b, by, B * S * d_in * n / (SFU_PER_SM_CLOCK * sms * SM_CLOCK_HZ) * 1e3
+
+
+def check_scan_kernel(torch, dev, flush):
+    """Phase 27 (a): the selective-scan kernel against its plain version on
+    the card at SCAN_CASES, each from a copy of its state, y and the final
+    state within SCAN_TOL of the largest magnitude, two runs bit for bit;
+    at the served layer and a decode step timed cold and warm beside its
+    bound, the exponentials' floor, the plain version and the floor of the
+    timing (the kernel at B = S = 1, one block)."""
+    from repro_torch.kernels.selective_scan.kernel import launch
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    worst, served = 0.0, None
+    for i, (label, B, S, d_in, n, dt, state) in enumerate(SCAN_CASES):
+        x, dts, A, Bm, Cm, D, h0 = scan_inputs(torch, dev, B, S, d_in, n, seed=27 + i, dt=dt,
+                                               state=state)
+        h1, h2 = h0.clone(), h0.clone()
+        y1, y2 = launch(x, dts, A, Bm, Cm, D, h1), launch(x, dts, A, Bm, Cm, D, h2)
+        want_y, want_h = selective_scan_ref(x, dts, A, Bm, Cm, D, h0)
+        errs = {"y": float((y1 - want_y).abs().max()) / float(want_y.abs().max()),
+                "state": float((h1 - want_h).abs().max()) / float(want_h.abs().max())}
+        same_state = torch.equal(h1, want_h)
+        print(f"selective_scan {label} B={B} S={S} d_in={d_in} n={n}, {dt} dt (mean "
+              f"{float(dts.mean()):.4g}), {state} state: |kernel - plain| / largest: y "
+              f"{errs['y']:.3e}, state {errs['state']:.3e} (limit {SCAN_TOL:.0e}; max |y| "
+              f"{float(want_y.abs().max()):.3f}, max |h| {float(want_h.abs().max()):.3f}; state "
+              f"bit for bit the plain version's: {same_state})")
+        need(bool(torch.isfinite(y1).all() and torch.isfinite(h1).all())
+             and float(y1.abs().max()) > 0, f"selective_scan {label}: empty, zero or non-finite")
+        need(max(errs.values()) <= SCAN_TOL, f"selective_scan {label}: {errs} > {SCAN_TOL}")
+        need(torch.equal(y1, y2) and torch.equal(h1, h2), f"selective_scan {label}: two runs differ")
+        worst = max(worst, max(errs.values()))
+        if (B, S, d_in, n) == SCAN_SERVED and state == "zero" and dt == "served":
+            served = {"max_abs_err": float((y1 - want_y).abs().max()), "relative_err": errs,
+                      "state_bit_for_bit": same_state}
+        del x, dts, Bm, Cm, y1, y2, h1, h2, want_y, want_h
+    need(served is not None, "no served-shape case")
+    torch.cuda.empty_cache()
+    out = {}
+    for key, S, state in (("served", SCAN_SERVED[1], "zero"), ("decode", 1, "mid-run")):
+        B, _, d_in, n = SCAN_SERVED
+        x, dts, A, Bm, Cm, D, h0 = scan_inputs(torch, dev, B, S, d_in, n, seed=40, state=state)
+        work = h0.clone()
+
+        def call():
+            return launch(x, dts, A, Bm, Cm, D, work)
+
+        cold = timed_ms(torch, call, 10, flush, reset=lambda: work.copy_(h0))
+        warm = timed_ms(torch, call, 10, reset=lambda: work.copy_(h0))
+        plain = timed_ms(torch, lambda: selective_scan_ref(x, dts, A, Bm, Cm, D, h0),
+                         2 if S > 1 else 10, flush)
+        b, by, exp_floor = scan_bound(torch, dev, B, S, d_in, n)
+        out[key] = {"shape": f"B={B} S={S} d_in={d_in} n={n}", "ms": cold, "warm_ms": warm,
+                    "plain_ms": plain, "bound_ms": b, "bound_by": by, "exp_floor_ms": exp_floor}
+        del x, dts, Bm, Cm, work
+        torch.cuda.empty_cache()
+    x, dts, A, Bm, Cm, D, h0 = scan_inputs(torch, dev, 1, 1, 128, 16, seed=41)
+    floor = timed_ms(torch, lambda: launch(x, dts, A, Bm, Cm, D, h0), 20, flush)
+    for key, row in out.items():
+        print(f"selective_scan {key} {row['shape']}: cold {row['ms'] * 1e3:.2f} us, warm in L2 "
+              f"{row['warm_ms'] * 1e3:.2f} us (plain {row['plain_ms'] * 1e3:.1f} us, library "
+              f"call: none, bound {row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}, the "
+              f"exponentials' floor {row['exp_floor_ms'] * 1e3:.2f} us; kernel / bound "
+              f"{row['ms'] / row['bound_ms']:.2f}); floor of the timing (B = S = 1, d_in 128: one "
+              f"block, one step) {floor * 1e3:.2f} us cold")
+    served_row = out.pop("served")
+    return {**served_row, "library_ms": None, "decode_step": out["decode"], "floor_ms": floor,
+            **served, "worst_relative_err": worst, "cases": len(SCAN_CASES)}
+
+
+def check_jamba_attention(torch, dev, cfg, flush):
+    """Phase 27 (a): both attention kernels held against their plain
+    versions at jamba's heads (H 64, Hkv 8, D 128) and the served shapes
+    (prefill B 8 x S 2048; decode B 8 over S 2080, lengths 2049 ..), two
+    runs bit for bit, and timed beside their plain versions,
+    scaled_dot_product_attention and their bounds."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_prefill.kernel import design as prefill_design
+
+    bf, H, Hkv, D = torch.bfloat16, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    decode_job, prefill_job = attention_jobs(torch, dev, H, Hkv, D, 27)
+    S = SERVE_S + SERVE_NEW
+    lengths = torch.arange(SERVE_S + 1, SERVE_S + 1 + SERVE_B, device=dev,
+                           dtype=torch.int32).clamp(max=S)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"{HYBRID_ARCH} attention: decode design {dk.design(bf, D)}, plan (splits, split "
+          f"length) {dk.mma_grid_plan(SERVE_B, H, Hkv, S, D, sms)} at B={SERVE_B} S={S}; prefill "
+          f"design {prefill_design(bf, D)}")
+    errs = {}
+    for name, label, make in (
+            ("decode_attention", f"B={SERVE_B} S={S}", lambda: decode_job(SERVE_B, S, lengths)),
+            ("flash_prefill", f"B={SERVE_B} S={SERVE_S}", lambda: prefill_job(SERVE_B, SERVE_S))):
+        kern, plain = make()[:2]
+        errs[name] = _held(torch, f"{name} at {HYBRID_ARCH}'s heads H={H} Hkv={Hkv} D={D}, "
+                           f"{label}", kern(), kern(), plain(), bf)
+        del kern, plain
+        torch.cuda.empty_cache()
+    timed = time_served_attention(torch, dev, decode_job, prefill_job,
+                                  lambda *a: measure_attention(torch, *a, flush))
+    return {name: {"max_abs_err": errs[name], **timed[name]["serving"]} for name in errs}
+
+
+class plain_scan:
+    """Within this block the Mamba layers run the plain version on the card
+    (the state written into the tensor given, as the wrapper does), and no
+    kernel is launched."""
+
+    def __enter__(self):
+        from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+        from repro_torch.models import mamba
+
+        def plain(x, dt, A, Bm, Cm, D, state):
+            y, final = selective_scan_ref(x, dt, A, Bm, Cm, D, state)
+            state.copy_(final)
+            return y
+
+        self.saved, mamba.selective_scan = mamba.selective_scan, plain
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mamba
+
+        mamba.selective_scan = self.saved
+
+
+def plain_prefill_rows(q, k, v, causal=True):
+    """The plain prefill version a sequence at a time: its (B, H, S, S)
+    float32 scores at jamba's heads would be 8.6 GB, three times over, beside
+    47.55 GB of weights."""
+    import torch
+
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+
+    return torch.cat([flash_prefill_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal)
+                      for b in range(q.shape[0])])
+
+
+def kept_rows(torch, cfg, seen, B):
+    """Sequences none of whose (token, k) assignments was dropped past an
+    expert's capacity in any MoE call of ``seen`` (a decode step of B
+    tokens has capacity 1 an expert at jamba's 16 experts, top-2)."""
+    from repro_torch.models import moe
+
+    rows = torch.ones(B, dtype=torch.bool, device=seen[0].device)
+    for eidx in seen:
+        T = eidx.shape[0]
+        cap = moe.capacity(T, cfg)
+        slot = moe.dispatch(moe.Routing(None, None, None, eidx), cfg.n_experts, cap)
+        rows &= (slot != cfg.n_experts * cap).view(B, -1).all(dim=-1)
+    return rows
+
+
+def held_hybrid_cache(torch, label, got, want, rows):
+    """k, v and conv (in the compute type) and the float32 ssm state of the
+    sequences ``rows``, each within SPLIT_ULPS bf16 ulps of its largest
+    |value|: the state's inputs (x, dt, B, C) are bf16 products cast to
+    float32, and its decay forgets within a few steps, so the last token's
+    rounding is what it holds."""
+    errs = {}
+    for name, axis in (("k", 1), ("v", 1), ("conv", 2), ("ssm", 2)):
+        a = got[name].index_select(axis, rows).float()
+        b = want[name].index_select(axis, rows).float()
+        top = float(b.abs().max())
+        errs[name] = float((a - b).abs().max())
+        tol = SPLIT_ULPS * bf16_ulp(top)
+        print(f"{label}, {name}: max |difference| {errs[name]:.4e} over {len(rows)} rows (limit "
+              f"{tol:.4e}, {SPLIT_ULPS} bf16 ulps of the largest {top:.4f})")
+        need(errs[name] <= tol, f"{label}: {name} differs by {errs[name]}")
+    return errs
+
+
+def check_hybrid_against_plain(torch, engine, prompts, first_out):
+    """Phase 27 (c): the served jamba through the kernels against the same
+    model through the plain versions on the card (the plain scan, the plain
+    attention, its prefill a sequence at a time): last-token logits after
+    prefill and TEACHER_STEPS teacher-forced decode steps within phase 15's
+    8 bf16 ulps of the largest |logit|.  The two MoE layers sit after the
+    scan and the attention, so a rounding apart can flip a near-tie of
+    router scores: the flips are counted (routing_flips), the plain prefill
+    with its own routing is held on the rows with none, and the plain runs
+    routed as the kernels' on every row; the plain steps run from a copy of
+    the kernels' prefill cache (as phase 26), and beside them, printed as a
+    yardstick, from the plain prefill's own cache.  Then prefill of S tokens
+    against prefill of S - 1 and one decode step, through the kernels, held
+    on the rows routed alike whose assignments no expert's capacity dropped
+    (a decode step's capacity is 1 an expert, the prefill's 2560)."""
+    import numpy as np
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models.model import decode_step, prefill
+
+    cfg, params, dev, V = engine.cfg, engine.params, engine.device, engine.cfg.vocab_size
+    tokens = torch.from_numpy(prompts).to(dev)
+    B, S = prompts.shape
+    t0 = time.perf_counter()
+    with moe_routes() as kern:
+        lk, ck = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    before = launch_counts()
+    with plain_attention(prefill=plain_prefill_rows), plain_scan(), moe_routes() as own:
+        lp, cp = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    need(launch_counts() == before, "the plain run launched a kernel")
+    by_layer, clean = routing_flips(torch, kern.seen, own.seen, S)
+    print(f"{cfg.name} prefill routing, kernels against the plain versions with their own "
+          f"routing: {sum(by_layer)} (token, layer) flips of {B * S * len(by_layer)}, by MoE layer "
+          f"{by_layer}; {int(clean.sum())} of {B} rows with none")
+    errs = []
+    if bool(clean.any()):
+        errs.append(held_logits(torch, f"{cfg.name} prefill, last token, rows routed alike",
+                                lk[clean], lp[clean], V)[0])
+    with plain_attention(prefill=plain_prefill_rows), plain_scan(), moe_routes(forced=kern.seen):
+        lf, cf = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: a prefill through the kernels and two through the plain versions in "
+          f"{time.perf_counter() - t0:.2f} s")
+    errs.append(held_logits(torch, f"{cfg.name} prefill, last token, plain routed as the kernels",
+                            lk, lf, V)[0])
+    state = float((ck["ssm"] - cf["ssm"]).abs().max()) / float(cf["ssm"].abs().max())
+    print(f"{cfg.name} prefill: the kernels' scan states against the plain versions', max "
+          f"|difference| / largest {state:.3e} over its {cfg.n_layers - 1} Mamba layers")
+    tok = torch.argmax(lk[:, :V], -1)
+    need(np.array_equal(tok.cpu().numpy(), first_out[:, 0]), "prefill does not repeat generate")
+    cq = {k: v.clone() if torch.is_tensor(v) else v for k, v in ck.items()}
+    own_drift, decode_flips = [], 0
+    for step in range(TEACHER_STEPS):
+        with moe_routes() as kr:
+            lk, ck = decode_step(cfg, params, ck, tok, dev)
+        with plain_attention(), plain_scan():
+            with moe_routes(forced=kr.seen) as pr:
+                lq, cq = decode_step(cfg, params, cq, tok, dev)
+            with moe_routes(forced=kr.seen):
+                lo, cf = decode_step(cfg, params, cf, tok, dev)
+        decode_flips += sum(routing_flips(torch, kr.seen, pr.seen, 1)[0])
+        errs.append(held_logits(torch, f"{cfg.name} decode step {step + 1}, teacher-forced, "
+                                "routed alike", lk, lq, V)[0])
+        own_drift.append(float((lk[:, :V].float() - lo[:, :V].float()).abs().max()))
+        tok = torch.argmax(lk[:, :V], -1)
+    print(f"decode routing over {TEACHER_STEPS} teacher-forced steps: {decode_flips} (token, "
+          f"layer) flips where the plain versions routed by their own scores; yardstick, the "
+          f"plain steps from the plain prefill's own cache: max |logit kernels - plain| by step "
+          f"{[round(e, 6) for e in own_drift]} (the gate above: 8 bf16 ulps of the largest)")
+    # prefill(S) against prefill(S - 1) and one decode step, both through the kernels
+    with moe_routes() as whole_r:
+        whole_logits, whole = prefill(cfg, params, {"tokens": tokens}, engine.max_len, dev)
+    with moe_routes() as part_r:
+        part_logits, part = prefill(cfg, params, {"tokens": tokens[:, :-1]}, engine.max_len, dev)
+        part_logits, part = decode_step(cfg, params, part, tokens[:, -1], dev)
+    n_moe = len(whole_r.seen)
+    K = cfg.experts_per_token
+    joined = [torch.cat([part_r.seen[i].view(B, S - 1, K), part_r.seen[n_moe + i].view(B, 1, K)],
+                        dim=1).reshape(B * S, K) for i in range(n_moe)]
+    split_flips, alike = routing_flips(torch, whole_r.seen, joined, S)
+    rows = alike & kept_rows(torch, cfg, whole_r.seen, B) & kept_rows(torch, cfg, part_r.seen, B)
+    print(f"{cfg.name} prefill of {S} against {S - 1} and a decode step: routing flips by MoE "
+          f"layer {split_flips}; rows routed alike with no assignment dropped in either run: "
+          f"{rows.nonzero().flatten().tolist()} of {B}")
+    need(bool(rows.any()), "no row of the split run to hold")
+    rows_idx = rows.nonzero().flatten()
+    split_err = held_logits(torch, f"{cfg.name} prefill of {S} against {S - 1} and a decode step",
+                            part_logits[rows_idx], whole_logits[rows_idx], V)[0]
+    split_cache = held_hybrid_cache(torch, f"{cfg.name} prefill against prefill and a decode step",
+                                    part, whole, rows_idx)
+    need(part["pos"] == whole["pos"] == S, "the split run's position")
+    return {"max_logit_err": max(errs), "prefill_flips": sum(by_layer),
+            "prefill_flips_by_layer": by_layer, "rows_routed_alike": int(clean.sum()),
+            "decode_flips": decode_flips, "prefill_state_relative_err": state,
+            "own_state_decode_logit_err": own_drift, "split_logit_err": split_err,
+            "split_cache_err": split_cache, "split_rows_held": int(rows.sum())}
+
+
+def check_hybrid(torch, dev):
+    """Phase 27: the hybrid family.  (a) the selective-scan kernel against
+    its plain version and timed, and both attention kernels at jamba's heads;
+    (b) jamba-1.5-large at full width, its depth cut to one super-block of
+    HYBRID_LAYERS (random bf16 weights drawn on the card, A_log, dt_bias, D
+    and the routers float32), served behind an OGB page pool in SERVE_CALLS
+    generate calls as phase 14 serves glm4-9b: exactly 3 + 3 x 32
+    selective_scan, 1 flash_prefill and 32 decode_attention launches a call,
+    and where a prefill and a decode step go; (c) its logits against the
+    plain versions', and prefill against a shorter prefill and a decode
+    step."""
+    import dataclasses
+    import gc
+
+    from repro_torch.kernels import design_counts
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"hybrid family phase 27 on {nvidia_smi_line()}; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated at its start")
+    need(torch.cuda.memory_allocated(dev) < 4e9, "an earlier phase's weights are still held")
+    cfg = jamba_cut()
+    flush = l2_flush(torch, dev)
+    kernel = check_scan_kernel(torch, dev, flush)
+    attention = check_jamba_attention(torch, dev, cfg, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    print(f"{HYBRID_ARCH} served at full width, depth cut to one super-block: "
+          f"{dataclasses.asdict(cfg)}")
+    engine, prompts, first_out, launches, steady = serve_full_width(torch, dev, HYBRID_ARCH,
+                                                                    cfg=cfg)
+    kept = {f"{i}/{kind}/{name}": str(engine.params["blocks"][i][kind][name].dtype)
+            for i, kind, name in ((0, "mamba", "A_log"), (0, "mamba", "dt_bias"),
+                                  (0, "mamba", "D"), (1, "moe", "router"), (0, "mamba", "w_in"))}
+    print(f"{HYBRID_ARCH} served leaves: {kept}")
+    need(list(kept.values()) == ["torch.float32"] * 4 + ["torch.bfloat16"],
+         f"{HYBRID_ARCH}: the SSM dynamics and the router are not float32 beside bf16 weights")
+    mamba_layers = cfg.n_layers - cfg.n_layers // cfg.attn_period
+    designs = design_counts()
+    print(f"{HYBRID_ARCH} launches by design: {designs}")
+    need(designs.get("selective_scan") == {
+        DESIGNS["selective_scan"]: mamba_layers * (1 + SERVE_NEW) * SERVE_CALLS},
+         f"{HYBRID_ARCH}: selective_scan launches by design {designs.get('selective_scan')}")
+    serve_breakdown(torch, engine, prompts)
+    t2 = time.perf_counter()
+    against = check_hybrid_against_plain(torch, engine, prompts, first_out)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = {"kernel_and_attention": t1 - t0, "serving": t2 - t1,
+            "against_plain": time.perf_counter() - t2, "all": time.perf_counter() - t0}
+    print(f"phase 27: {secs['all']:.2f} s ({secs}) on {nvidia_smi_line()}")
+    a_generate = {"selective_scan": mamba_layers * (1 + SERVE_NEW),
+                  "flash_prefill": cfg.n_layers // cfg.attn_period,
+                  "decode_attention": cfg.n_layers // cfg.attn_period * SERVE_NEW}
+    return {"kernel": kernel, "attention": attention, "serving": steady, "launches": launches,
+            "launches_a_generate": a_generate, **against, "seconds": secs,
+            "depth": f"{cfg.n_layers} of 72 layers, attn_period {cfg.attn_period} of 8"}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -5052,10 +5528,22 @@ def main() -> int:
     lap("17-25 (scenarios, sized, sweep, streams and fleets, MoE, the attention families)")
     ssm26 = check_ssm(torch, dev)
     lap("26 (the SSM family)")
+    hybrid27 = check_hybrid(torch, dev)
+    lap("27 (the hybrid family)")
     # the SSM family (phase 26): the recurrence's launches in rwkv6's serving
     launches["wkv6"] = ssm26["launches"]["wkv6"]
     rows["wkv6"] = {**ssm26["kernel"], "launches_a_generate": ssm26["launches_a_generate"],
                     "generate_calls": SERVE_CALLS}
+    # the hybrid family (phase 27): the scan's launches in jamba's serving, and
+    # the attention kernels at its heads with their launches there
+    launches["selective_scan"] = hybrid27["launches"]["selective_scan"]
+    rows["selective_scan"] = {
+        **hybrid27["kernel"], "generate_calls": SERVE_CALLS,
+        "launches_a_generate": hybrid27["launches_a_generate"]["selective_scan"]}
+    for name in ("flash_prefill", "decode_attention"):
+        rows[name]["jamba"] = {"launches": hybrid27["launches"][name],
+                               "launches_a_generate": hybrid27["launches_a_generate"][name],
+                               **hybrid27["attention"][name]}
 
     # launches: the dense main path's for its kernels, the lazy main path's
     # for the prefix-tree kernels (segsum also ran 1 a chunk on madow_tree)
@@ -5175,7 +5663,9 @@ def main() -> int:
                           name: {k: v for k, v in families25[name].items()
                                  if k not in ("decode", "timed", "prefill_d96")}
                           for name in ("int8", "vlm", "encdec")},
-                      "ssm": {k: v for k, v in ssm26.items() if k != "kernel"}}))
+                      "ssm": {k: v for k, v in ssm26.items() if k != "kernel"},
+                      "hybrid": {k: v for k, v in hybrid27.items()
+                                 if k not in ("kernel", "attention")}}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,16 +2,16 @@
 
 An :class:`ArchConfig` holds a model's published dimensions; each
 registered architecture also has a reduced smoke variant for CPU tests.
-The port carries the attention families: the dense glm4-9b, qwen3-14b,
-gemma-7b and mistral-nemo (its int8 KV cache), the MoE granite-moe and
-kimi-k2, the VLM phi-3-vision and the encoder-decoder whisper; and the SSM
-rwkv6; asking for the hybrid jamba raises ``NotImplementedError``.
+The port carries every architecture of the JAX package: the dense
+glm4-9b, qwen3-14b, gemma-7b and mistral-nemo (its int8 KV cache), the
+MoE granite-moe and kimi-k2, the VLM phi-3-vision, the encoder-decoder
+whisper, the SSM rwkv6 and the hybrid jamba (Mamba and attention layers).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 
 @dataclass(frozen=True)
@@ -147,11 +147,8 @@ SHAPES: Dict[str, ShapeConfig] = {
 _REGISTRY: Dict[str, ArchConfig] = {}
 _SMOKE: Dict[str, ArchConfig] = {}
 
-#: architectures of the JAX package that the port does not carry yet (the
-#: hybrid: its Mamba scan and the placement of its experts)
-NOT_PORTED = (
-    "jamba-1.5-large-398b",
-)
+#: architectures of the JAX package that the port does not carry yet
+NOT_PORTED: Tuple[str, ...] = ()
 
 
 def register(cfg: ArchConfig, smoke: ArchConfig) -> ArchConfig:
@@ -191,6 +188,7 @@ def _ensure_loaded() -> None:
         gemma_7b,
         glm4_9b,
         granite_moe_1b_a400m,
+        jamba_1p5_large,
         kimi_k2,
         mistral_nemo_12b,
         phi3_vision,

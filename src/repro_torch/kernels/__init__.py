@@ -9,7 +9,7 @@ Each wrapper counts its launches in a plain integer attribute
 ``decode_attention.launches``, ``slot_automaton.launches``,
 ``fifo_queue.launches``, ``tree_lru.launches``,
 ``ring_compaction.launches``, ``minpair_automaton.launches``,
-``wkv6.launches``), so a run
+``wkv6.launches``, ``selective_scan.launches``), so a run
 can show that it went through the kernels.  :func:`launch_counts` reads them by
 kernel source (the warm projection counts as ``mass``, the whole-tree
 build as ``segsum``, the bucket and sized solves as ``bucket_mass``, a
@@ -46,6 +46,7 @@ def _wrappers():
     )
     from repro_torch.kernels.prefix_tree.ops import tree_build, tree_update_
     from repro_torch.kernels.scatter_counts.ops import histogram
+    from repro_torch.kernels.selective_scan.ops import selective_scan
     from repro_torch.kernels.minpair_automaton.ops import minpair_automaton
     from repro_torch.kernels.slot_automaton.ops import slot_automaton
     from repro_torch.kernels.tree_lru.ops import ring_compaction, tree_lru
@@ -65,6 +66,7 @@ def _wrappers():
         "tree_lru": (tree_lru, ring_compaction),
         "minpair_automaton": (minpair_automaton,),
         "wkv6": (wkv6,),
+        "selective_scan": (selective_scan,),
     }
 
 

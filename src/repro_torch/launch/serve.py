@@ -6,10 +6,12 @@
 
 The counterpart of ``python -m repro.launch.serve``, with its flags: the
 smoke configuration of ``--arch`` (a dense model such as mistral-nemo, the
-MoE granite-moe and kimi-k2, phi-3-vision on text-only prompts, or the SSM
+MoE granite-moe and kimi-k2, phi-3-vision on text-only prompts, the SSM
 rwkv6-1.6b, whose prefill and decode steps run its recurrence through the
-``wkv6`` kernel on the card) with random weights drawn from seed 0, half of
-each batch drawn from a few hot prompts.  It runs on the card unless ``--device cpu`` is given.  whisper
+``wkv6`` kernel on the card, or the hybrid jamba-1.5-large-398b, whose
+Mamba layers run their scan through the ``selective_scan`` kernel) with
+random weights drawn from seed 0, half of each batch drawn from a few hot
+prompts.  It runs on the card unless ``--device cpu`` is given.  whisper
 needs audio frames, which a token prompt does not carry: its prefill
 raises a ``ValueError`` naming them (serve it through ``prefill`` and
 ``decode_step``).

@@ -7,9 +7,12 @@ its MLP on the layers ``_is_moe_layer`` picks), ``"vlm"`` (phi-3-vision: a
 prefix of image embeddings, normed by ``img_norm``, before the prompt's
 tokens) and ``"encdec"`` (whisper: an encoder over frame embeddings with
 learned positions, a decoder with causal self-attention and
-cross-attention over the encoder's output), and for ``"ssm"`` (rwkv6: a
+cross-attention over the encoder's output), for ``"ssm"`` (rwkv6: a
 stack of RWKV-6 blocks, :mod:`.rwkv`, whose cache is the recurrent state,
-no KV); ``"hybrid"`` raises ``NotImplementedError``.  The KV cache is in
+no KV), and for ``"hybrid"`` (jamba: super-blocks of ``attn_period``
+layers, Mamba layers, :mod:`.mamba`, then one attention layer, a MoE
+layer or an MLP after each as ``_is_moe_layer`` picks by the index within
+the super-block).  The KV cache is in
 the compute type or, for
 ``kv_cache_dtype="int8"``, int8 codes with float32 scales (an encdec
 cache, as in ``repro``, is always in the compute type).  Parameters are
@@ -22,7 +25,12 @@ it, so both packages run on the same weights.  The KV cache is stacked
 position in place instead of copying the cache.  An ssm cache is the
 stacked token-shift rows ``tm_x`` and ``cm_x`` (L, B, d_model) in the
 compute type and the WKV state ``tm_s`` (L, B, H, n, n) in float32, which
-prefill fills and each decode step updates in place, layer by layer.
+prefill fills and each decode step updates in place, layer by layer.  A
+hybrid cache is ``repro``'s: K and V (nb, B, max_len, Hkv, D) for the nb
+super-blocks' attention layers, in the compute type, and for their Mamba
+layers the convolution's last inputs ``conv`` (nb, period - 1, B, W - 1,
+d_in) in the compute type and the scan's state ``ssm`` (nb, period - 1, B,
+d_in, n) in float32, which the ``selective_scan`` kernel updates in place.
 
 Every entry point takes a ``device`` and resolves it through
 :func:`repro_torch._device.resolve_device`: the card unless the caller
@@ -51,6 +59,7 @@ from .attention import (
     write_kv,
 )
 from .common import dtype_of, embed_init, rmsnorm, rmsnorm_init
+from .mamba import init_mamba, mamba_forward
 from .mlp import init_mlp, mlp_forward
 from .moe import init_moe, moe_output
 from .rwkv import init_rwkv_block, rwkv_block_fwd
@@ -61,12 +70,12 @@ NEG_INF = -1e30
 Params = Dict[str, Any]
 
 #: leaves kept in float32 under a bf16 compute type (the router's logits,
-#: RWKV's decay base and bonus)
-F32_KEEP = ("router", "w0", "u")
+#: RWKV's decay base and bonus, Mamba's dynamics)
+F32_KEEP = ("router", "w0", "u", "A_log", "dt_bias", "D")
 
 
-#: the families the port serves; ``hybrid`` (jamba) needs its Mamba scan
-FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm")
+#: the families the port serves
+FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm", "hybrid")
 #: a decoder block's KV cache entries, stacked over the layers
 KV_NAMES = ("k", "v", "k_scale", "v_scale")
 #: rows of an encdec model's learned decoder positions (``repro`` sizes them
@@ -79,10 +88,18 @@ def _require_ported(cfg) -> None:
         raise NotImplementedError(f"the {cfg.family} family ({cfg.name}) is not ported")
     if cfg.kv_cache_dtype not in ("compute", "int8"):
         raise NotImplementedError(f"kv_cache_dtype={cfg.kv_cache_dtype!r} is not ported")
+    if cfg.family == "hybrid" and (cfg.attn_period < 1 or cfg.n_layers % cfg.attn_period):
+        raise ValueError(f"a hybrid model's {cfg.n_layers} layers are super-blocks of "
+                         f"attn_period layers; attn_period={cfg.attn_period}")
 
 
 def _is_moe_layer(cfg, layer: int) -> bool:
     return cfg.n_experts > 0 and (layer % cfg.moe_every) == cfg.moe_offset
+
+
+def _is_attn_layer(cfg, layer: int) -> bool:
+    """A hybrid model's attention layer: the last of each super-block."""
+    return (layer % cfg.attn_period) == (cfg.attn_period - 1)
 
 
 def padded_vocab(cfg) -> int:
@@ -98,8 +115,9 @@ def _map(fn, tree, name=""):
 
 
 def cast_params_for_compute(cfg, params: Params) -> Params:
-    """The float32 weights in the compute type, the router and RWKV's ``w0``
-    and ``u`` kept in float32 (``repro``'s ``_F32_KEEP``).  A leaf already
+    """The float32 weights in the compute type, the router, RWKV's ``w0``
+    and ``u`` and Mamba's ``A_log``, ``dt_bias`` and ``D`` kept in float32
+    (``repro``'s ``_F32_KEEP``).  A leaf already
     in the compute type is the same tensor, so the engine casts once and
     every later call costs nothing."""
     cdt = dtype_of(cfg.compute_dtype)
@@ -122,7 +140,7 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None,
                 dtype: Optional[torch.dtype] = None) -> Params:
     """Random weights drawn tensor by tensor on ``device`` from a
     ``torch.Generator`` seeded with ``seed``, at ``repro``'s scales, stored
-    in ``dtype`` (default ``cfg.param_dtype``; the router, ``w0`` and ``u``
+    in ``dtype`` (default ``cfg.param_dtype``; the leaves of :data:`F32_KEEP`
     stay float32).
     Drawing in the compute type on the card keeps the peak near one copy of
     the weights.  Layers are homogeneous, as in the reference: each block
@@ -130,7 +148,10 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None,
     cfg.moe_offset)``; a vlm model adds ``img_norm``; an encdec model has
     ``encoder`` blocks, decoder blocks with ``cross`` attention and ``ln3``,
     and ``enc_pos``, ``dec_pos`` and ``enc_final_norm``; an ssm model's
-    blocks are RWKV-6 blocks (:func:`.rwkv.init_rwkv_block`)."""
+    blocks are RWKV-6 blocks (:func:`.rwkv.init_rwkv_block`); a hybrid
+    model's are heterogeneous, as ``repro``'s ``_init_decoder_layer``
+    keys them by the index within the super-block: ``attn`` or ``mamba``,
+    then ``moe`` or ``mlp``."""
     _require_ported(cfg)
     dev = resolve_device(device)
     dtype = dtype or dtype_of(cfg.param_dtype)
@@ -162,6 +183,20 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None,
         params["dec_pos"] = embed_init(gen, DEC_POSITIONS, d, dtype)
         params["enc_final_norm"] = rmsnorm_init(d, dtype, dev)
         return params
+    if cfg.family == "hybrid":
+        for layer in range(cfg.n_layers):
+            j = layer % cfg.attn_period  # the index within its super-block
+            block = {**norms("ln1", "ln2")}
+            if _is_attn_layer(cfg, j):
+                block["attn"] = init_attention(gen, cfg, dtype)
+            else:
+                block["mamba"] = init_mamba(gen, cfg, dtype)
+            if _is_moe_layer(cfg, j):
+                block["moe"] = init_moe(gen, cfg, dtype)
+            else:
+                block["mlp"] = mlp()
+            params["blocks"].append(block)
+        return params
     moe = _is_moe_layer(cfg, cfg.moe_offset)
     for _ in range(cfg.n_layers):
         block = {**norms("ln1", "ln2"), "attn": init_attention(gen, cfg, dtype)}
@@ -182,7 +217,10 @@ def params_from_numpy(cfg, params_np: Dict[str, Any], device: DeviceLike,
     block's ``moe`` or ``cross`` subtree with it) and an encdec model's
     ``params["encoder"]`` along ``n_encoder_layers``; ``enc_pos``,
     ``dec_pos``, ``enc_final_norm`` and ``img_norm`` as they are; in
-    ``dtype`` if given, the router, ``w0`` and ``u`` left in float32."""
+    ``dtype`` if given, the leaves of :data:`F32_KEEP` left in float32.  A
+    hybrid model's ``blocks`` is a list of ``attn_period`` layers, each leaf
+    stacked over the super-blocks: layer ``sb * attn_period + i`` of the
+    port is ``blocks[i][...][sb]``."""
     _require_ported(cfg)
     dev = resolve_device(device)
 
@@ -193,9 +231,13 @@ def params_from_numpy(cfg, params_np: Dict[str, Any], device: DeviceLike,
     layers = {"blocks": cfg.n_layers, "encoder": cfg.n_encoder_layers}
     out = {k: _map(conv, v, k) for k, v in params_np.items() if k not in layers}
     for key, n in layers.items():
-        if key in params_np:
+        if key in params_np and not (key == "blocks" and cfg.family == "hybrid"):
             out[key] = [_map(lambda name, a, i=i: conv(name, a[i]), params_np[key])
                         for i in range(n)]
+    if cfg.family == "hybrid":
+        period = cfg.attn_period
+        out["blocks"] = [_map(lambda name, a, sb=sb: conv(name, a[sb]), params_np["blocks"][i])
+                         for sb in range(cfg.n_layers // period) for i in range(period)]
     return out
 
 
@@ -207,7 +249,10 @@ def init_cache(cfg, batch: int, max_len: int, device: DeviceLike = None) -> Dict
     (L, B, n_audio_frames, Hkv, D) in the compute type, which
     :func:`prefill` fills.  An ssm cache, whatever ``max_len``: ``tm_x`` and
     ``cm_x`` (L, B, d_model) in the compute type, ``tm_s`` (L, B, H, n, n)
-    in float32, all zero."""
+    in float32, all zero.  A hybrid cache, in ``repro``'s layout over its nb
+    super-blocks of ``period`` layers: ``k`` and ``v`` (nb, B, max_len, Hkv,
+    D) and ``conv`` (nb, period - 1, B, W - 1, d_in) in the compute type,
+    ``ssm`` (nb, period - 1, B, d_in, n) in float32."""
     _require_ported(cfg)
     dev = resolve_device(device)
     cdt = dtype_of(cfg.compute_dtype)
@@ -218,6 +263,17 @@ def init_cache(cfg, batch: int, max_len: int, device: DeviceLike = None) -> Dict
         return {"tm_x": rows, "tm_s": torch.zeros((L, batch, cfg.d_model // n, n, n),
                                                   dtype=torch.float32, device=dev),
                 "cm_x": rows.clone(), "pos": 0}
+    if cfg.family == "hybrid":  # in the compute type whatever the dtype, as repro's
+        nb, mamba = cfg.n_layers // cfg.attn_period, cfg.attn_period - 1
+        d_in = cfg.ssm_expand * cfg.d_model
+        kv = (nb, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(kv, dtype=cdt, device=dev),
+                "v": torch.zeros(kv, dtype=cdt, device=dev),
+                "conv": torch.zeros((nb, mamba, batch, cfg.ssm_conv_width - 1, d_in), dtype=cdt,
+                                    device=dev),
+                "ssm": torch.zeros((nb, mamba, batch, d_in, cfg.ssm_state_dim),
+                                   dtype=torch.float32, device=dev),
+                "pos": 0}
     if cfg.family == "encdec":  # repro's encdec cache is in the compute type whatever the dtype
         cfg = dataclasses.replace(cfg, kv_cache_dtype="compute")
     layer = init_kv_cache(cfg, batch, max_len, cdt, dev)
@@ -263,6 +319,35 @@ def _rwkv_stack(cfg, params: Params, x: torch.Tensor, cache: Dict[str, Any]) -> 
             p, x, cfg, state=(cache["tm_x"][i], cache["tm_s"][i], cache["cm_x"][i]))
         cache["tm_x"][i].copy_(tm_x)
         cache["cm_x"][i].copy_(cm_x)
+    return x
+
+
+def _hybrid_stack(cfg, params: Params, x: torch.Tensor, cache: Dict[str, Any],
+                  positions: Optional[torch.Tensor] = None,
+                  pos: Optional[int] = None) -> torch.Tensor:
+    """Every layer of a hybrid model over x (B, S, d_model), from the
+    cache's state and into it.  Super-block ``sb``'s attention layer (its
+    last) is, in a prefill (``positions`` given), :func:`_decoder_block`
+    into the views of ``k`` and ``v``; in a decode step (``pos`` given)
+    ``attention_decode`` at ``pos``.  Its ``j``-th Mamba layer runs the scan
+    from ``ssm[sb, j]``, which the kernel updates in place (a zero cache is
+    the reference's stateless prefill), and stores its convolution state in
+    ``conv[sb, j]``.  Each layer ends in its MoE layer or MLP."""
+    for i, p in enumerate(params["blocks"]):
+        sb, j = divmod(i, cfg.attn_period)
+        if "attn" in p:
+            kv = {"k": cache["k"][sb], "v": cache["v"][sb]}
+            if pos is None:
+                x = _decoder_block(cfg, p, x, positions, kv)
+                continue
+            h, _ = attention_decode(p["attn"], rmsnorm(x, p["ln1"]), kv, pos, cfg)
+        else:
+            conv = cache["conv"][sb, j]
+            h, (new_conv, _) = mamba_forward(p["mamba"], rmsnorm(x, p["ln1"]), cfg,
+                                             state=(conv, cache["ssm"][sb, j]))
+            conv.copy_(new_conv)
+        x = x + h
+        x = x + _ffn(cfg, p, rmsnorm(x, p["ln2"]))
     return x
 
 
@@ -324,7 +409,10 @@ def prefill(cfg, params: Params, batch: Dict[str, Any], max_len: int,
     normed and put before the tokens; an encdec model needs ``frames``
     (B, T, d_model), whose encoder K and V it caches for cross-attention.
     An ssm model runs its blocks from a zero state into the cache (a
-    ``wkv6`` launch a layer) and, as the reference, checks no ``max_len``."""
+    ``wkv6`` launch a layer) and, as the reference, checks no ``max_len``;
+    a hybrid model runs its Mamba layers from a zero state into the cache
+    (a ``selective_scan`` launch a layer) and its attention layers through
+    ``flash_prefill``."""
     _require_ported(cfg)
     dev = _device_of(params, device)
     params = cast_params_for_compute(cfg, params)
@@ -361,8 +449,11 @@ def prefill(cfg, params: Params, batch: Dict[str, Any], max_len: int,
         raise ValueError(f"prompt of {S} positions does not fit max_len {max_len}")
     cache = init_cache(cfg, B, max_len, dev)
     positions = torch.arange(S, device=dev).expand(B, S)
-    for i, p in enumerate(params["blocks"]):
-        x = _decoder_block(cfg, p, x, positions, _layer_cache(cache, i))
+    if cfg.family == "hybrid":
+        x = _hybrid_stack(cfg, params, x, cache, positions=positions)
+    else:
+        for i, p in enumerate(params["blocks"]):
+            x = _decoder_block(cfg, p, x, positions, _layer_cache(cache, i))
     cache["pos"] = S
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
 
@@ -373,15 +464,18 @@ def decode_step(cfg, params: Params, cache: Dict[str, Any], tokens: torch.Tensor
     tokens' K and V at ``cache["pos"]`` in place (quantized for an int8
     cache) and advances it; an encdec step also attends over the cached
     encoder rows; an ssm step updates each layer's state in place (a
-    ``wkv6`` launch a layer)."""
+    ``wkv6`` launch a layer), a hybrid step each Mamba layer's (a
+    ``selective_scan`` launch a layer) beside its attention layers' K and
+    V."""
     _require_ported(cfg)
     dev = _device_of(params, device)
     params = cast_params_for_compute(cfg, params)
     cdt = dtype_of(cfg.compute_dtype)
     pos = int(cache["pos"])
     x = params["embed"][torch.as_tensor(tokens, device=dev).long()][:, None, :].to(cdt)
-    if cfg.family == "ssm":
-        x = _rwkv_stack(cfg, params, x, cache)
+    if cfg.family in ("ssm", "hybrid"):
+        x = (_rwkv_stack(cfg, params, x, cache) if cfg.family == "ssm"
+             else _hybrid_stack(cfg, params, x, cache, pos=pos))
         cache["pos"] = pos + 1
         return _logits(cfg, params, x)[:, 0], cache
     encdec = cfg.family == "encdec"

@@ -13,8 +13,10 @@ Counterpart of ``repro.serve.engine``.  :class:`ServeEngine`: one
 
 The engine passes only tokens, as ``repro``'s does: it serves the dense
 and MoE models (mistral-nemo with its int8 KV cache), phi-3-vision on
-text-only prompts and rwkv6 (its cache is the recurrent state, the steps
-launch the ``wkv6`` kernel in place of the attention kernels); whisper's prefill needs ``frames`` and raises a
+text-only prompts, rwkv6 (its cache is the recurrent state, the steps
+launch the ``wkv6`` kernel in place of the attention kernels) and jamba
+(its Mamba layers' states beside its attention layers' K and V, a
+``selective_scan`` launch a Mamba layer); whisper's prefill needs ``frames`` and raises a
 ``ValueError`` without them.  The weights are cast to the compute type
 once, when the engine is built.
 Tokens stay on the device until the step ends; on the card each phase ends

@@ -44,8 +44,14 @@ recurrence (``wkv6``) against its plain version at n = 16, 32 and 64 and
 S = 1, 7 and 2049 from a zero and a mid-run state, at near-zero and
 near-one decays and at each head dim's plan, the state written in place
 and two runs bit for bit, what it refuses, and the rwkv6 smoke model
-on the card against the CPU.
+on the card against the CPU; Mamba's selective scan (``selective_scan``)
+against its plain version at n = 8 and 16, S = 1, 7 and 2049, a ragged
+d_in and slow and fast dt from a zero and a mid-run state, the state
+written in place and two runs bit for bit, what it refuses, and the jamba
+smoke model on the card against the CPU.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -104,6 +110,8 @@ from repro_torch.kernels.prefix_tree.ref import (
 from repro_torch.kernels.scatter_counts.ops import TILE_BINS, design, histogram
 from repro_torch.kernels.scatter_counts.ref import histogram_ref
 from repro_torch.kernels.wkv6.ops import wkv6
+from repro_torch.kernels.selective_scan.ops import selective_scan
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 pytestmark = pytest.mark.cuda
@@ -212,7 +220,8 @@ def test_run_on_the_card_matches_the_cpu_and_counts_launches(card):
     assert launch_counts() == {"histogram": 100, "mass": 100, "apply": 100, "segsum": 0,
                                "tree_update": 0, "bucket_mass": 0, "flash_prefill": 0,
                                "decode_attention": 0, "slot_automaton": 0, "fifo_queue": 0,
-                               "tree_lru": 0, "minpair_automaton": 0, "wkv6": 0}
+                               "tree_lru": 0, "minpair_automaton": 0, "wkv6": 0,
+                               "selective_scan": 0}
     designs = design_counts()
     assert designs["histogram"] == {"bin tiles": 100}
     assert designs["apply"] == {"projection epilogue": 100}
@@ -2373,4 +2382,108 @@ def test_rwkv_smoke_model_on_the_card_matches_the_cpu(card):
             assert counts["wkv6"] == 5 * cfg.n_layers
             assert counts["flash_prefill"] == counts["decode_attention"] == 0
     for a, b in zip(logits["cpu"], logits[str(card)]):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+SCAN_TOL = 1e-5  # of the largest |value| of y and of the state (chip_smoke.py's SCAN_TOL)
+#: dt = softplus(c + s N(0, 1)) for (c, s) (chip_smoke.py's SCAN_DT)
+SCAN_DT = {"served": (0.0, 0.6), "slow": (math.log(math.expm1(1e-3)), 0.1), "fast": (5.0, 0.1)}
+
+
+def _scan_inputs(card, B, S, d_in, n, seed, mid_run, dt="served"):
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=card)
+
+    c, spread = SCAN_DT[dt]
+
+    def draw(steps):
+        return (randn(B, steps, d_in), torch.nn.functional.softplus(
+            c + spread * randn(B, steps, d_in)), randn(B, steps, n), randn(B, steps, n))
+
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device=card) * torch.exp(
+        0.3 * randn(d_in, n))
+    D = 1.0 + 0.1 * randn(d_in)
+    state = torch.zeros(B, d_in, n, device=card)
+    if mid_run:
+        x, dt_, Bm, Cm = draw(256)
+        state = selective_scan_ref(x, dt_, A, Bm, Cm, D, state)[1].contiguous()
+    return (*draw(S), A, D, state)
+
+
+#: (n, S, d_in, mid-run state, dt): each state dim at 1, 7 and 2049 steps from a
+#: zero and a mid-run state at jamba's d_in; a ragged d_in (one block and a
+#: part); slow (~1e-3) and fast (~5) dt, phase 27 (a)'s cases at B = 2
+SCAN_CASES = [(n, S, 16384 if n == 16 else 4096, mid_run, "served") for n in (8, 16)
+              for S in (1, 7, 2049) for mid_run in (False, True)] + [
+    (16, 2049, 200, True, "served"), (8, 33, 200, False, "slow"),
+    (16, 2048, 16384, True, "slow"), (16, 2048, 16384, True, "fast"), (8, 1, 4096, True, "fast")]
+SCAN_IDS = [f"n{n}-S{S}-d{d_in}-{dt} dt-{'mid-run' if mid_run else 'zero'} state"
+            for n, S, d_in, mid_run, dt in SCAN_CASES]
+
+
+@pytest.mark.parametrize("n, S, d_in, mid_run, dt", SCAN_CASES, ids=SCAN_IDS)
+def test_selective_scan_matches_plain_and_writes_the_state_in_place(card, n, S, d_in, mid_run,
+                                                                    dt):
+    x, dts, Bm, Cm, A, D, state = _scan_inputs(card, 2, S, d_in, n, seed=n + S + d_in,
+                                               mid_run=mid_run, dt=dt)
+    want_y, want_s = selective_scan_ref(x, dts, A, Bm, Cm, D, state)
+    got_s, again_s = state.clone(), state.clone()
+    reset_launch_counts()
+    got_y = selective_scan(x, dts, A, Bm, Cm, D, got_s)
+    again_y = selective_scan(x, dts, A, Bm, Cm, D, again_s)
+    torch.cuda.synchronize()
+    assert launch_counts()["selective_scan"] == 2
+    for got, want in ((got_y, want_y), (got_s, want_s)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= SCAN_TOL * float(want.abs().max())
+    assert torch.equal(got_y, again_y) and torch.equal(got_s, again_s)
+
+
+def test_selective_scan_raises_on_what_it_cannot_take(card):
+    x, dts, Bm, Cm, A, D, state = _scan_inputs(card, 2, 5, 64, 16, seed=0, mid_run=False)
+    wide = [t.repeat(*([1] * (t.dim() - 1)), 2) for t in (A, Bm, Cm, state)]
+    with pytest.raises(ValueError, match="state dim 32"):
+        selective_scan(x, dts, wide[0], wide[1], wide[2], D, wide[3])
+    with pytest.raises(TypeError, match="float32"):
+        selective_scan(x.double(), dts, A, Bm, Cm, D, state)
+    with pytest.raises(ValueError, match="contiguous"):
+        selective_scan(x, dts, A, Bm, Cm, D, state.transpose(1, 2).contiguous().transpose(1, 2))
+    shifted = torch.empty(x.numel() + 1, device=card)[1:].view(x.shape)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        selective_scan(shifted, dts, A, Bm, Cm, D, state)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        selective_scan(x, dts, A, Bm, Cm, D.cpu(), state)
+
+
+def test_jamba_smoke_model_on_the_card_matches_the_cpu(card):
+    """The float32 jamba smoke model on the card through the kernels against
+    the CPU through the plain versions: prefill and 4 decode steps within
+    1e-4, a selective_scan launch a Mamba layer, a flash_prefill launch a
+    prefill and a decode_attention launch a step for its attention layer."""
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.models import model
+
+    cfg = get_smoke("jamba-1.5-large-398b")
+    cpu_params = model.init_params(cfg, seed=0, device="cpu")
+    tokens = np.random.default_rng(2).integers(1, cfg.vocab_size, (2, 40)).astype(np.int32)
+    out_by = {}
+    for dev in ("cpu", card):
+        params = _to(cpu_params, dev)
+        reset_launch_counts()
+        out, cache = model.prefill(cfg, params, {"tokens": torch.from_numpy(tokens).to(dev)}, 48,
+                                   device=dev)
+        tok = torch.argmax(out[:, :cfg.vocab_size], -1)
+        steps = [out.cpu()]
+        for _ in range(4):
+            out, cache = model.decode_step(cfg, params, cache, tok, device=dev)
+            steps.append(out.cpu())
+        out_by[str(dev)] = steps + [cache[name].cpu() for name in ("k", "v", "conv", "ssm")]
+        if dev == card:
+            counts = launch_counts()
+            assert counts["selective_scan"] == 5 * 3
+            assert counts["flash_prefill"] == 1 and counts["decode_attention"] == 4
+    for a, b in zip(out_by["cpu"], out_by[str(card)]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)

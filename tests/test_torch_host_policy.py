@@ -77,13 +77,12 @@ def test_make_policy_and_page_keys():
 
 
 def test_unported_architectures_raise():
-    assert list_archs() == ["gemma-7b", "glm4-9b", "granite-moe-1b-a400m", "kimi-k2-1t-a32b",
-                            "mistral-nemo-12b", "phi-3-vision-4.2b", "qwen3-14b",
-                            "rwkv6-1.6b", "whisper-large-v3"]
+    assert list_archs() == ["gemma-7b", "glm4-9b", "granite-moe-1b-a400m",
+                            "jamba-1.5-large-398b", "kimi-k2-1t-a32b", "mistral-nemo-12b",
+                            "phi-3-vision-4.2b", "qwen3-14b", "rwkv6-1.6b", "whisper-large-v3"]
     assert get_arch("glm4-9b").param_count() == 9_399_435_264
-    for get in (get_arch, get_smoke):  # the hybrid family: not ported
-        with pytest.raises(NotImplementedError):
-            get("jamba-1.5-large-398b")
+    for get in (get_arch, get_smoke):  # the hybrid family is ported: nothing is left out
+        assert get("jamba-1.5-large-398b").family == "hybrid"
     with pytest.raises(KeyError):
         get_smoke("no-such-model")
     cfg = get_smoke("glm4-9b")
@@ -98,9 +97,12 @@ def test_unported_architectures_raise():
     ssm = model.init_params(dataclasses.replace(cfg, family="ssm"), device="cpu",
                             dtype=torch.bfloat16)
     assert all(b["w0"].dtype == torch.float32 and "attn" not in b for b in ssm["blocks"])
+    with pytest.raises(NotImplementedError):
+        model.init_params(dataclasses.replace(cfg, kv_cache_dtype="fp8"), device="cpu")
+    # a hybrid model is super-blocks of attn_period layers: none, or a ragged last one, raises
     for bad in (dataclasses.replace(cfg, family="hybrid"),
-                dataclasses.replace(cfg, kv_cache_dtype="fp8")):
-        with pytest.raises(NotImplementedError):
+                dataclasses.replace(get_smoke("jamba-1.5-large-398b"), n_layers=6)):
+        with pytest.raises(ValueError, match="attn_period"):
             model.init_params(bad, device="cpu")
 
 
