@@ -268,17 +268,19 @@ script with a non-zero exit:
    and fast (~5) dt, 7 steps, a decode step (S 1) and one past it (S 2049),
    at n = 8 and at a ragged d_in of 200; y and the final state within
    SCAN_TOL of the largest, two runs bit for bit; at the served layer and a
-   decode step timed cold and warm beside its bound, the exponentials'
-   floor, its plain version and the floor of the timing (no library call
-   computes it); both attention kernels held against their plain versions
+   decode step timed cold beside its earlier design in turns, and warm,
+   beside its bound, the exponentials' floor, its plain version and the
+   floor of the timing (tools/time_selective_scan_designs.py; no library
+   call computes it); both attention kernels held against their plain versions
    at jamba's heads (H 64, Hkv 8, D 128) and served shapes, and timed
    beside scaled_dot_product_attention; (b) jamba-1.5-large at full width,
    its depth cut from 72 layers to one super-block of 4 (Mamba + MLP,
    Mamba + MoE, Mamba + MLP, attention + MoE; random bf16 weights drawn on
    the card, A_log, dt_bias, D and the routers float32, 23 776 305 152
    parameters counted leaf by leaf) served as phase 14 serves glm4-9b:
-   exactly 3 + 3 x 32 selective_scan, 1 flash_prefill and 32
-   decode_attention launches a generate call, and where a prefill and a
+   exactly 3 + 3 x 32 selective_scan (3 of the prefill design, 3 x 32 of
+   the decode step's), 1 flash_prefill and 32 decode_attention launches a
+   generate call, and where a prefill and a
    decode step go; (c) its logits against the plain versions' after
    prefill and 8 teacher-forced decode steps (routing flips counted, the
    plain runs routed as the kernels'), and prefill of 2048 tokens against
@@ -384,10 +386,16 @@ DESIGNS = {
             "threads of C columns (n = 64: 8 x 4, 128 threads, 32 state registers a thread); "
             "partials summed over the row blocks in order a 16-step chunk; r, k, w, v staged "
             "by cp.async in a 3-chunk ring",
-    "selective_scan": "a thread a channel, its n states and row of A in registers; 128 channels "
-                      "of one sequence a block; B and C staged in shared memory 64 steps at a "
-                      "time; x and dt loaded 8 steps ahead",
+    "selective_scan": "a thread a channel, its n states (scaled by 2^j at a chunk's step j) and "
+                      "row of A log2(e) in registers; 128 channels of one sequence a block, 3 "
+                      "blocks an SM; 2 dec one ex2.approx of fma(dt, a', 1), h and y by fmas; x, "
+                      "dt, B and C staged by cp.async, 32 steps a chunk in a 2-chunk ring",
 }
+#: selective_scan's second design, a decode step's (S = 1), which phase 27
+#: counts beside the prefill design of DESIGNS
+SCAN_STEP_DESIGN = ("a decode step: a thread a channel, every load (state, A, x, dt, D, B, C) "
+                    "issued before its arithmetic; the state and A read and written a warp's 32 "
+                    "rows at a time through a swizzled shared copy; no block barrier")
 #: the design of the standalone apply kernel, which phase 3 times (the dense
 #: main path's clip is the projection's epilogue)
 APPLY_STANDALONE = "standalone: 16-byte body, 2 float4 of f and c in flight a thread"
@@ -5092,13 +5100,22 @@ def scan_bound(torch, dev, B, S, d_in, n):
     return b, by, B * S * d_in * n / (SFU_PER_SM_CLOCK * sms * SM_CLOCK_HZ) * 1e3
 
 
+def scan_errors(y, h, want_y, want_h):
+    """max |kernel - plain| over the largest |plain|, of y and of the state."""
+    return {"y": float((y - want_y).abs().max()) / float(want_y.abs().max()),
+            "state": float((h - want_h).abs().max()) / float(want_h.abs().max())}
+
+
 def check_scan_kernel(torch, dev, flush):
     """Phase 27 (a): the selective-scan kernel against its plain version on
     the card at SCAN_CASES, each from a copy of its state, y and the final
     state within SCAN_TOL of the largest magnitude, two runs bit for bit;
-    at the served layer and a decode step timed cold and warm beside its
-    bound, the exponentials' floor, the plain version and the floor of the
-    timing (the kernel at B = S = 1, one block)."""
+    at the served layer and a decode step timed cold beside its earlier design
+    in turns, and warm, beside its bound, the exponentials' floor, the plain
+    version and the floor of the timing (the kernel at B = S = 1, one block)
+    (tools/time_selective_scan_designs.py)."""
+    from tools.time_selective_scan_designs import time_designs
+
     from repro_torch.kernels.selective_scan.kernel import launch
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
@@ -5109,8 +5126,7 @@ def check_scan_kernel(torch, dev, flush):
         h1, h2 = h0.clone(), h0.clone()
         y1, y2 = launch(x, dts, A, Bm, Cm, D, h1), launch(x, dts, A, Bm, Cm, D, h2)
         want_y, want_h = selective_scan_ref(x, dts, A, Bm, Cm, D, h0)
-        errs = {"y": float((y1 - want_y).abs().max()) / float(want_y.abs().max()),
-                "state": float((h1 - want_h).abs().max()) / float(want_h.abs().max())}
+        errs = scan_errors(y1, h1, want_y, want_h)
         same_state = torch.equal(h1, want_h)
         print(f"selective_scan {label} B={B} S={S} d_in={d_in} n={n}, {dt} dt (mean "
               f"{float(dts.mean()):.4g}), {state} state: |kernel - plain| / largest: y "
@@ -5128,36 +5144,22 @@ def check_scan_kernel(torch, dev, flush):
         del x, dts, Bm, Cm, y1, y2, h1, h2, want_y, want_h
     need(served is not None, "no served-shape case")
     torch.cuda.empty_cache()
-    out = {}
-    for key, S, state in (("served", SCAN_SERVED[1], "zero"), ("decode", 1, "mid-run")):
-        B, _, d_in, n = SCAN_SERVED
-        x, dts, A, Bm, Cm, D, h0 = scan_inputs(torch, dev, B, S, d_in, n, seed=40, state=state)
-        work = h0.clone()
-
-        def call():
-            return launch(x, dts, A, Bm, Cm, D, work)
-
-        cold = timed_ms(torch, call, 10, flush, reset=lambda: work.copy_(h0))
-        warm = timed_ms(torch, call, 10, reset=lambda: work.copy_(h0))
-        plain = timed_ms(torch, lambda: selective_scan_ref(x, dts, A, Bm, Cm, D, h0),
-                         2 if S > 1 else 10, flush)
-        b, by, exp_floor = scan_bound(torch, dev, B, S, d_in, n)
-        out[key] = {"shape": f"B={B} S={S} d_in={d_in} n={n}", "ms": cold, "warm_ms": warm,
-                    "plain_ms": plain, "bound_ms": b, "bound_by": by, "exp_floor_ms": exp_floor}
-        del x, dts, Bm, Cm, work
-        torch.cuda.empty_cache()
-    x, dts, A, Bm, Cm, D, h0 = scan_inputs(torch, dev, 1, 1, 128, 16, seed=41)
-    floor = timed_ms(torch, lambda: launch(x, dts, A, Bm, Cm, D, h0), 20, flush)
-    for key, row in out.items():
-        print(f"selective_scan {key} {row['shape']}: cold {row['ms'] * 1e3:.2f} us, warm in L2 "
-              f"{row['warm_ms'] * 1e3:.2f} us (plain {row['plain_ms'] * 1e3:.1f} us, library "
-              f"call: none, bound {row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}, the "
-              f"exponentials' floor {row['exp_floor_ms'] * 1e3:.2f} us; kernel / bound "
+    timed = time_designs(torch, dev, flush)
+    torch.cuda.empty_cache()
+    floor = timed["floor_ms"]
+    for key in ("served", "decode"):
+        row = timed[key]
+        print(f"selective_scan {key} {row['shape']}: cold {row['ms'] * 1e3:.2f} us (the earlier "
+              f"design {row['earlier_ms'] * 1e3:.2f}), warm in L2 {row['warm_ms'] * 1e3:.2f} us "
+              f"(plain {row['plain_ms'] * 1e3:.1f} us, library call: none, bound "
+              f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}, the exponentials' floor "
+              f"{row['exp_floor_ms'] * 1e3:.2f} us; kernel / bound "
               f"{row['ms'] / row['bound_ms']:.2f}); floor of the timing (B = S = 1, d_in 128: one "
               f"block, one step) {floor * 1e3:.2f} us cold")
-    served_row = out.pop("served")
-    return {**served_row, "library_ms": None, "decode_step": out["decode"], "floor_ms": floor,
-            **served, "worst_relative_err": worst, "cases": len(SCAN_CASES)}
+    served_row = {k: v for k, v in timed["served"].items() if k != "relative_err"}
+    return {**served_row, "library_ms": None, "decode_step": timed["decode"], "floor_ms": floor,
+            "earlier_design": timed["earlier_design"], "ptxas": timed["ptxas"], **served,
+            "worst_relative_err": worst, "cases": len(SCAN_CASES)}
 
 
 def check_jamba_attention(torch, dev, cfg, flush):
@@ -5402,7 +5404,8 @@ def check_hybrid(torch, dev):
     designs = design_counts()
     print(f"{HYBRID_ARCH} launches by design: {designs}")
     need(designs.get("selective_scan") == {
-        DESIGNS["selective_scan"]: mamba_layers * (1 + SERVE_NEW) * SERVE_CALLS},
+        DESIGNS["selective_scan"]: mamba_layers * SERVE_CALLS,
+        SCAN_STEP_DESIGN: mamba_layers * SERVE_NEW * SERVE_CALLS},
          f"{HYBRID_ARCH}: selective_scan launches by design {designs.get('selective_scan')}")
     serve_breakdown(torch, engine, prompts)
     t2 = time.perf_counter()
@@ -5538,7 +5541,7 @@ def main() -> int:
     # the attention kernels at its heads with their launches there
     launches["selective_scan"] = hybrid27["launches"]["selective_scan"]
     rows["selective_scan"] = {
-        **hybrid27["kernel"], "generate_calls": SERVE_CALLS,
+        **hybrid27["kernel"], "generate_calls": SERVE_CALLS, "design_step": SCAN_STEP_DESIGN,
         "launches_a_generate": hybrid27["launches_a_generate"]["selective_scan"]}
     for name in ("flash_prefill", "decode_attention"):
         rows[name]["jamba"] = {"launches": hybrid27["launches"][name],

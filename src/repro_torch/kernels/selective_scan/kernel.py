@@ -3,11 +3,18 @@
 Counterpart of the ``lax.scan`` in ``repro.models.mamba.mamba_forward``,
 which has no Pallas kernel.  A block of 128 threads takes as many channels
 of one sequence; each thread keeps its channel's n state values and its row
-of A in registers for the whole sequence, B and C reach shared memory 64
-steps at a time, x and dt are loaded 8 steps ahead of their arithmetic
-(:data:`DESIGN`).  The state is read from, and written back to, the tensor
-given.  It takes n in :data:`STATE_DIMS`, contiguous float32 inputs on
-16-byte boundaries; any other call raises.
+of A, pre-scaled by log2(e), in registers for the whole sequence, and takes
+each decay as half of one ``ex2.approx.ftz`` of 1 + dt a' (the argument the
+accurate ``expf`` hands the SFU where a decay is near 1).  A prompt (S > 1)
+runs the prefill design (:data:`DESIGN`): x, dt, B and C reach shared
+memory :data:`CHUNK` steps at a time by asynchronous copies, in a ring of
+:data:`STAGES` chunks, at :data:`MIN_BLOCKS` blocks an SM (the plan
+``tools/time_selective_scan_designs.py --sweep`` chose).  A decode step
+(S = 1) runs a kernel of its own (:data:`DESIGN_STEP`): every load first,
+the state and A moved a warp's 32 rows at a time, no block barrier.  The
+state is read from, and written back to, the tensor given.  It takes n in
+:data:`STATE_DIMS`, contiguous float32 inputs on 16-byte boundaries; any
+other call raises.
 """
 
 from __future__ import annotations
@@ -20,9 +27,22 @@ import torch
 from repro_torch.kernels import _build
 
 STATE_DIMS = (8, 16)  # n, a template argument of the kernel
-DESIGN = ("a thread a channel, its n states and row of A in registers; 128 channels of one "
-          "sequence a block; B and C staged in shared memory 64 steps at a time; x and dt "
-          "loaded 8 steps ahead")
+#: the prefill design's plan: blocks an SM (the __launch_bounds__ minimum),
+#: steps a chunk, chunks in the ring, steps unrolled together (kMinBlocks,
+#: kChunk, kStages, kUnroll in the source)
+MIN_BLOCKS, CHUNK, STAGES, UNROLL = 3, 32, 2, 4
+DESIGN = ("a thread a channel, its n states (scaled by 2^j at a chunk's step j) and row of A "
+          "log2(e) in registers; 128 channels of one sequence a block, 3 blocks an SM; 2 dec "
+          "one ex2.approx of fma(dt, a', 1), h and y by fmas; x, dt, B and C staged by "
+          "cp.async, 32 steps a chunk in a 2-chunk ring")
+DESIGN_STEP = ("a decode step: a thread a channel, every load (state, A, x, dt, D, B, C) "
+               "issued before its arithmetic; the state and A read and written a warp's 32 "
+               "rows at a time through a swizzled shared copy; no block barrier")
+
+
+def design(S: int) -> str:
+    """The design a launch over S steps runs: the decode step's at S = 1."""
+    return DESIGN_STEP if S == 1 else DESIGN
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,7 +2,8 @@
 
 Counterpart of the scan in ``repro.models.mamba.mamba_forward``.  On a
 CUDA tensor it launches ``csrc/selective_scan.cu``, counted in
-``selective_scan.launches`` (and by design in ``selective_scan.designs``);
+``selective_scan.launches`` and by design in ``selective_scan.designs``
+(``kernel.design(S)``: the prefill design, or the decode step's at S = 1);
 on a CPU tensor it runs the plain version of :mod:`.ref`.  There is no
 other path: a CUDA call that the kernel cannot take (another state dim,
 another dtype, a non-contiguous input) raises.
@@ -13,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.selective_scan.kernel import DESIGN, check_shapes, launch
+from repro_torch.kernels.selective_scan.kernel import check_shapes, design, launch
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 
@@ -34,7 +35,7 @@ def selective_scan(
         state.copy_(final)
         return y
     y = launch(x, dt, A, Bm, Cm, D, state)
-    _build.counted(selective_scan, DESIGN)
+    _build.counted(selective_scan, design(x.shape[1]))
     return y
 
 

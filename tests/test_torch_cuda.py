@@ -47,8 +47,11 @@ and two runs bit for bit, what it refuses, and the rwkv6 smoke model
 on the card against the CPU; Mamba's selective scan (``selective_scan``)
 against its plain version at n = 8 and 16, S = 1, 7 and 2049, a ragged
 d_in and slow and fast dt from a zero and a mid-run state, the state
-written in place and two runs bit for bit, what it refuses, and the jamba
-smoke model on the card against the CPU.
+written in place and two runs bit for bit, a decode step (its own kernel)
+continuing a prompt bit for bit, each launch counted by design, its earlier
+design (kept as text by tools/time_selective_scan_designs.py) against the
+plain version, what it refuses, and the jamba smoke model on the card
+against the CPU.
 """
 
 import math
@@ -2418,7 +2421,9 @@ def _scan_inputs(card, B, S, d_in, n, seed, mid_run, dt="served"):
 SCAN_CASES = [(n, S, 16384 if n == 16 else 4096, mid_run, "served") for n in (8, 16)
               for S in (1, 7, 2049) for mid_run in (False, True)] + [
     (16, 2049, 200, True, "served"), (8, 33, 200, False, "slow"),
-    (16, 2048, 16384, True, "slow"), (16, 2048, 16384, True, "fast"), (8, 1, 4096, True, "fast")]
+    (16, 2048, 16384, True, "slow"), (16, 2048, 16384, True, "fast"), (8, 1, 4096, True, "fast"),
+    (16, 1, 16384, True, "slow"), (8, 1, 4096, True, "slow"), (8, 2049, 4096, True, "slow"),
+    (16, 2049, 130, True, "slow")]
 SCAN_IDS = [f"n{n}-S{S}-d{d_in}-{dt} dt-{'mid-run' if mid_run else 'zero'} state"
             for n, S, d_in, mid_run, dt in SCAN_CASES]
 
@@ -2439,6 +2444,52 @@ def test_selective_scan_matches_plain_and_writes_the_state_in_place(card, n, S, 
         assert bool(torch.isfinite(got).all())
         assert float((got - want).abs().max()) <= SCAN_TOL * float(want.abs().max())
     assert torch.equal(got_y, again_y) and torch.equal(got_s, again_s)
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_selective_scan_decode_step_continues_the_prefill_bit_for_bit(card, n):
+    """A decode step (its own kernel) from a prompt's state is that prompt
+    one step longer: the same arithmetic a step in both designs.  Counted
+    by design: the prefill's and the decode step's."""
+    from repro_torch.kernels.selective_scan.kernel import DESIGN, DESIGN_STEP
+
+    x, dts, Bm, Cm, A, D, state = _scan_inputs(card, 2, 9, 16384 if n == 16 else 4096, n,
+                                               seed=5 + n, mid_run=True, dt="slow")
+    reset_launch_counts()
+    whole = state.clone()
+    y9 = selective_scan(x, dts, A, Bm, Cm, D, whole)
+    part = state.clone()
+    y8 = selective_scan(x[:, :8].contiguous(), dts[:, :8].contiguous(), A,
+                        Bm[:, :8].contiguous(), Cm[:, :8].contiguous(), D, part)
+    y1 = selective_scan(x[:, 8:].contiguous(), dts[:, 8:].contiguous(), A,
+                        Bm[:, 8:].contiguous(), Cm[:, 8:].contiguous(), D, part)
+    torch.cuda.synchronize()
+    assert design_counts()["selective_scan"] == {DESIGN: 2, DESIGN_STEP: 1}
+    assert torch.equal(torch.cat([y8, y1], dim=1), y9) and torch.equal(part, whole)
+    want_y, want_s = selective_scan_ref(x, dts, A, Bm, Cm, D, state)
+    for got, want in ((y9, want_y), (whole, want_s)):
+        assert float((got - want).abs().max()) <= SCAN_TOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("S, dt", [(33, "served"), (1, "slow"), (2049, "slow")])
+def test_selective_scan_earlier_design_still_matches_plain(card, S, dt):
+    """The earlier design, built from the text tools/time_selective_scan_designs.py
+    keeps, against the plain version: the yardstick the new design is timed
+    beside."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "time_selective_scan_designs.py"
+    spec = importlib.util.spec_from_file_location("time_selective_scan_designs", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    x, dts, Bm, Cm, A, D, state = _scan_inputs(card, 2, S, 4096, 16, seed=S, mid_run=True, dt=dt)
+    want_y, want_s = selective_scan_ref(x, dts, A, Bm, Cm, D, state)
+    got_s = state.clone()
+    got_y = tool._call(tool.earlier_entry(), x, dts, A, Bm, Cm, D, got_s, torch.empty_like(x))
+    torch.cuda.synchronize()
+    for got, want in ((got_y, want_y), (got_s, want_s)):
+        assert float((got - want).abs().max()) <= SCAN_TOL * float(want.abs().max())
 
 
 def test_selective_scan_raises_on_what_it_cannot_take(card):

@@ -208,6 +208,7 @@ def test_chip_smoke_names_the_kernel():
     from repro_torch.kernels.selective_scan import kernel
 
     assert chip_smoke.DESIGNS["selective_scan"] == kernel.DESIGN
+    assert chip_smoke.SCAN_STEP_DESIGN == kernel.DESIGN_STEP
     assert chip_smoke.SOURCES["selective_scan"].endswith(
         str(_build.sources()["selective_scan"].relative_to(chip_smoke.ROOT)))
     path, line = chip_smoke.REPLACES["selective_scan"].split(":")  # the scan's step, then the scan
