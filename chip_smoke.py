@@ -285,7 +285,33 @@ script with a non-zero exit:
    prefill and 8 teacher-forced decode steps (routing flips counted, the
    plain runs routed as the kernels'), and prefill of 2048 tokens against
    prefill of 2047 and a decode step on the rows no expert's capacity
-   dropped.
+   dropped;
+28. training the attention families: (a) the backward kernel
+   (flash_prefill_bwd: dq, dk, dv in two launches) against its plain version
+   at glm4-9b's training shape (B=2, S=4096, H=32, Hkv=2, D=128, causal),
+   granite-moe's D=64, phi-3-vision's D=96, whisper's non-causal (S = T =
+   1500) and cross (224 over 1500) shapes and the smoke configurations'
+   float32 D=16: within 8 bf16 ulps of each output's largest (float32:
+   1e-4), two runs bit for bit, its time cold beside its bound, its plain
+   version and scaled_dot_product_attention's forward and backward; (b) the
+   forward's log-sum-exp in both designs against the plain version's: the
+   serving call's design with an lse buffer (its output bit for bit the
+   serving call's), and training's (bf16: the wgmma design with P split
+   into bf16 hi + lo for its P V product; its output within 8 bf16 ulps of
+   the plain version's); (c) glm4-9b
+   at full width with its depth cut to 4 layers trained 8 steps (AdamW at
+   lr 1e-4 after 2 warm-up steps,
+   SyntheticLM data made by a worker meanwhile, 4 x 4096 tokens a step in 2
+   microbatches, remat): the loss finite and falling, exactly 4 x 2 x 2
+   flash_prefill and 4 x 2 x 2 flash_prefill_bwd launches a step, step
+   seconds, tokens/s, MFU and peak memory printed, one more step under
+   torch.profiler (busy time, the attention kernels' and the products'
+   shares), and a forward and backward at 1 x 1024 tokens through the
+   kernels against the plain
+   versions from the same weights (loss, grad_norm, every attention weight's
+   gradient); (d) every kernel wrapper without a backward (decode_attention,
+   wkv6, selective_scan, flash_prefill's serving call) raises on a CUDA
+   tensor that requires grad.
 
 The line before the last is the card and its power limit again, preceded
 by one JSON line of per-kernel numbers; the last line is
@@ -347,6 +373,9 @@ REPLACES = {
     "wkv6": "src/repro/models/rwkv.py:74",
     # no Pallas kernel: the reference scans Mamba's recurrence with lax.scan
     "selective_scan": "src/repro/models/mamba.py:77",
+    # flash_prefill's training form: the reference's gradient is JAX's autodiff
+    # of its jnp flash_attention (the Pallas prefill kernel has no backward)
+    "flash_prefill_bwd": "src/repro/models/attention.py:67",
 }
 SOURCES = {
     "histogram": "src/repro_torch/kernels/scatter_counts/csrc/histogram.cu",
@@ -363,10 +392,11 @@ SOURCES = {
     "fifo_queue": "src/repro_torch/kernels/fifo_queue/csrc/fifo_queue.cu",
     "wkv6": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
     "selective_scan": "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
+    "flash_prefill_bwd": "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill_bwd.cu",
 }
 KERNELS = ("histogram", "mass", "apply", "segsum", "tree_update", "bucket_mass",
            "flash_prefill", "decode_attention", "slot_automaton", "tree_lru",
-           "minpair_automaton", "fifo_queue", "wkv6", "selective_scan")
+           "minpair_automaton", "fifo_queue", "wkv6", "selective_scan", "flash_prefill_bwd")
 #: the one design of each kernel that has one (wkv6's and selective_scan's
 #: are checked against their launches by design in phases 26 and 27; the
 #: others name theirs in
@@ -403,7 +433,8 @@ DENSE_KERNELS = 23  # device kernels a dense chunk launches (phase 7), its rewar
 #: kernels off the replay paths: serving's attention and recurrence, the scenario
 #: path's automata
 OFF_PATH = {"flash_prefill": 0, "decode_attention": 0, "slot_automaton": 0, "tree_lru": 0,
-            "minpair_automaton": 0, "fifo_queue": 0, "wkv6": 0, "selective_scan": 0}
+            "minpair_automaton": 0, "fifo_queue": 0, "wkv6": 0, "selective_scan": 0,
+            "flash_prefill_bwd": 0}
 #: the port's kernels in the profiler's rows, by the names of their functions
 PORT_KERNEL_NAMES = ("tree_update_kernel", "tree_build_kernel", "bin_tiles_kernel",
                      "solve_buckets_kernel", "project_warm_kernel", "solve_sized_kernel")
@@ -4571,7 +4602,7 @@ def d96_prefill_rows(torch, dev, cfg, flush):
 
     def cuda_core():  # the CUDA-core design at the same inputs
         _build.check(pk._entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), core_out.data_ptr(),
-                                 B, S, S, H, Hkv, D, 1.0 / math.sqrt(D), 1, 1,
+                                 None, B, S, S, H, Hkv, D, 1.0 / math.sqrt(D), 1, 1,
                                  _build.stream_of(q)), "flash_prefill (cuda-core)")
 
     cuda_core()
@@ -5424,6 +5455,430 @@ def check_hybrid(torch, dev):
             "depth": f"{cfg.n_layers} of 72 layers, attn_period {cfg.attn_period} of 8"}
 
 
+# -- training the attention families (phase 28) -------------------------------------------
+
+TRAIN_ARCH, TRAIN_DEPTH = "glm4-9b", 4  # full width, the depth cut to 4 of 40 layers
+#: the step: train_4k's sequence length, a global batch of 4 sequences in 2
+#: microbatches, 8 steps of SyntheticLM data (made by a worker meanwhile)
+TRAIN_S, TRAIN_B, TRAIN_MICRO, TRAIN_STEPS = 4096, 4, 2, 8
+TRAIN_LR, TRAIN_WARMUP = 1e-4, 2
+#: the kernel run against the plain-version run: tokens of one sequence, and
+#: the limits on the loss (relative), grad_norm (relative) and each attention
+#: weight's gradient (relative Frobenius error)
+TRAIN_PLAIN_TOKENS = 1024
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_FROB = 1e-3, 1e-2, 2e-2
+#: the backward kernel's cases: label, (B, S, T, H, Hkv, D), bf16 or not, causal
+BWD_CASES = (
+    ("glm4-9b train", (2, 4096, 4096, 32, 2, 128), True, True),
+    ("granite-moe D=64", (2, 2048, 2048, 16, 8, 64), True, True),
+    ("phi-3-vision D=96", (1, 2048, 2048, 32, 32, 96), True, True),
+    ("whisper encoder", (2, 1500, 1500, 20, 20, 64), True, False),
+    ("whisper cross", (2, 224, 1500, 20, 20, 64), True, False),
+    ("smoke f32 D=16", (2, 100, 100, 8, 2, 16), False, True),
+)
+BWD_ULPS = 8  # bf16: within 8 ulps of each output's largest
+BWD_F32_TOL = 1e-4  # float32: of each output's largest
+#: the forward's log-sum-exp against the plain version's (natural log, absolute):
+#: ex2.approx and a float32 sum of up to 4096 terms in another order
+LSE_TOL = 1e-4
+ATTN_WEIGHTS = ("wq", "wk", "wv", "wo")
+MATMUL_WEIGHTS = ATTN_WEIGHTS + ("w_gate", "w_up", "w_down")
+
+
+def train_batches(n, vocab, seq_len, batch):
+    """Phase 28's SyntheticLM batches, in a worker process (numpy only)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    data = SyntheticLM(DataConfig(vocab, seq_len, batch))
+    return [data.next_batch() for _ in range(n)]
+
+
+def start_train_batches(vocab):
+    """Start phase 28's data in a spawned worker, so that it overlaps the
+    card's earlier phases (a batch of 4 x 4096 tokens takes seconds)."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(train_batches, TRAIN_STEPS, vocab, TRAIN_S, TRAIN_B)
+
+
+def bwd_bound(B, S, T, H, Hkv, D, itemsize, causal):
+    """Five products of 2 D a (query head, query, key) pair the mask keeps,
+    over the tensor-core (bf16) or CUDA-core (float32) peak; q, k, v, o, dO
+    and the lse read once, dq, dk and dv written once."""
+    pairs = S * (S + 1) // 2 if causal else S * T
+    n_ops = 5 * 2 * B * H * D * pairs
+    n_bytes = itemsize * (4 * B * S * H * D + 4 * B * T * Hkv * D) + 4 * B * H * S
+    return bound_ms(n_bytes, n_ops, BF16_OPS_PER_S if itemsize == 2 else FP32_OPS_PER_S)
+
+
+def check_bwd_case(torch, dev, label, shape, bf16, causal, flush):
+    """Phase 28 (a) and (b) at one shape: the forward's output and lse, and the
+    backward kernel against its plain version, two runs bit for bit, its
+    time cold beside its bound, its plain version's and SDPA's forward and
+    backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_prefill.ops import (
+        flash_prefill,
+        flash_prefill_bwd,
+        flash_prefill_lse,
+    )
+    from repro_torch.kernels.flash_prefill.kernel import (
+        CUDA_CORE,
+        bwd_design,
+        grid_prefill,
+        grid_prefill_bwd,
+    )
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_bwd_ref, flash_prefill_lse_ref
+
+    B, S, T, H, Hkv, D = shape
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(S * 7 + D)
+    q, do = (torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, T, Hkv, D, generator=gen, device=dev).to(dtype) for _ in range(2))
+    out, lse = flash_prefill_lse(q, k, v, causal)  # training's forward: P split where wgmma
+    # the serving design with an lse buffer: the same launch, the same output
+    serve_lse = torch.empty_like(lse)
+    served = grid_prefill(q, k, v, causal, lse=serve_lse)
+    need(torch.equal(served, flash_prefill(q, k, v, causal)),
+         f"{label}: an lse buffer changed the serving call's output")
+    if not bf16:
+        need(torch.equal(out, served), f"{label}: training's forward is not the serving call")
+    design = bwd_design(dtype, D)
+    got = flash_prefill_bwd(q, k, v, out, do, lse, causal)
+    again = flash_prefill_bwd(q, k, v, out, do, lse, causal)
+    # the CUDA-core design at the same inputs, where the call takes the other one
+    core = (grid_prefill_bwd(q, k, v, out, do, lse, causal, which=CUDA_CORE)
+            if design != CUDA_CORE else got)
+    torch.cuda.synchronize()
+    need(all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: two runs differ")
+    lse_err, out_err, out_lim, errs, lims = 0.0, 0.0, 0.0, [0.0] * 3, [0.0] * 3
+    core_errs = [0.0] * 3
+    for b in range(B):  # the plain versions a sequence at a time: (H, S, T) float32 scores
+        sl = slice(b, b + 1)
+        want_out, want_lse = flash_prefill_lse_ref(q[sl], k[sl], v[sl], causal)
+        lse_err = max(lse_err, float((lse[sl] - want_lse).abs().max()),
+                      float((serve_lse[sl] - want_lse).abs().max()))
+        out_err = max(out_err, float((out[sl].float() - want_out.float()).abs().max()))
+        top = float(want_out.float().abs().max())
+        out_lim = max(out_lim, BWD_ULPS * bf16_ulp(top) if bf16 else BWD_F32_TOL * top)
+        del want_out
+        want = flash_prefill_bwd_ref(q[sl], k[sl], v[sl], out[sl], do[sl], lse[sl], causal)
+        for i, (g, w) in enumerate(zip(got, want)):
+            errs[i] = max(errs[i], float((g[sl].float() - w.float()).abs().max()))
+            core_errs[i] = max(core_errs[i], float((core[i][sl].float() - w.float()).abs().max()))
+            top = float(w.float().abs().max())
+            lims[i] = max(lims[i], BWD_ULPS * bf16_ulp(top) if bf16 else BWD_F32_TOL * top)
+        del want
+    need(lse_err <= LSE_TOL, f"{label}: lse differs from the plain version's by {lse_err}")
+    need(out_err <= out_lim, f"{label}: training's forward differs by {out_err} (limit {out_lim})")
+    need(all(e <= lim for e, lim in zip(errs + core_errs, lims + lims)),
+         f"{label}: dq, dk, dv differ from the plain version by {errs} (the CUDA-core design "
+         f"by {core_errs}; limits {lims})")
+    del core
+    reps = 3 if S * T >= 4096 * 4096 // 2 else 10
+
+    def kern():
+        return flash_prefill_bwd(q, k, v, out, do, lse, causal)
+
+    def cuda_core():
+        return grid_prefill_bwd(q, k, v, out, do, lse, causal, which=CUDA_CORE)
+
+    if design != CUDA_CORE and label == BWD_CASES[0][0]:
+        # the CUDA-core design in turns with the mma one: kernel, earlier twice, kernel
+        turns = [timed_ms(torch, fn, reps, flush) for fn in (kern, cuda_core, cuda_core, kern)]
+        ms, core_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    else:
+        ms, core_ms = timed_ms(torch, kern, reps, flush), None
+    fwd_ms = timed_ms(torch, lambda: flash_prefill_lse(q, k, v, causal), reps, flush)
+    serve_ms = timed_ms(torch, lambda: flash_prefill(q, k, v, causal), reps, flush)
+    torch.cuda.empty_cache()
+    plain_ms = timed_ms(torch, lambda: flash_prefill_bwd_ref(q, k, v, out, do, lse, causal), 1,
+                        flush)
+    torch.cuda.empty_cache()
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+
+    lib_out = sdpa()
+    sdpa_fwd_ms = timed_ms(torch, sdpa, reps, flush)
+    sdpa_bwd_ms = timed_ms(
+        torch, lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), reps,
+        flush)
+    bound, by = bwd_bound(B, S, T, H, Hkv, D, q.element_size(), causal)
+    earlier = "" if core_ms is None else f"; the CUDA-core design in turns {core_ms * 1e3:.1f} us"
+    print(f"flash_prefill_bwd {label} B={B} S={S} T={T} H={H} Hkv={Hkv} D={D} "
+          f"{'bf16' if bf16 else 'f32'} {'causal' if causal else 'non-causal'} [{design}]: cold "
+          f"{ms * 1e3:.1f} us{earlier} (bound {bound * 1e3:.1f} us by {by}, {ms / bound:.1f}x; "
+          f"plain "
+          f"{plain_ms * 1e3:.1f} us; SDPA forward {sdpa_fwd_ms * 1e3:.1f} us, backward "
+          f"{sdpa_bwd_ms * 1e3:.1f} us); max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+          f"{errs[2]:.3e} (CUDA-core design {max(core_errs):.3e}; limits {lims[0]:.3e} "
+          f"{lims[1]:.3e} {lims[2]:.3e}); both forward designs' lse "
+          f"max |err| {lse_err:.3e}; training's forward max |err| {out_err:.3e} (limit "
+          f"{out_lim:.3e}), cold {fwd_ms * 1e3:.1f} us (the serving design {serve_ms * 1e3:.1f} "
+          f"us); two runs bit for bit")
+    return {"label": label, "shape": {"B": B, "S": S, "T": T, "H": H, "Hkv": Hkv, "D": D},
+            "dtype": "bf16" if bf16 else "f32", "causal": causal, "design": design, "ms": ms,
+            "cuda_core_ms": core_ms, "cuda_core_max_abs_err": max(core_errs), "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": sdpa_bwd_ms,
+            "sdpa_forward_ms": sdpa_fwd_ms, "max_abs_err": max(errs), "errs": errs,
+            "limits": lims, "lse_max_abs_err": lse_err, "forward_max_abs_err": out_err,
+            "forward_ms": fwd_ms, "serving_forward_ms": serve_ms}
+
+
+#: phase 28's profiled step: the attention kernels by the names of their functions
+TRAIN_ATTENTION_KERNELS = ("prefill_wgmma_kernel", "prefill_kernel", "dq_kernel", "dkv_kernel")
+
+
+def train_breakdown(torch, step_fn, state, batch):
+    """Phase 28 (c): where one more training step goes, from torch.profiler:
+    wall and device busy time, device kernels, the attention kernels' and
+    the matrix products' shares, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    need(busy_ms > 0, "training breakdown: the profiler saw no device time")
+
+    def share(pick):
+        return sum(e.self_device_time_total for e in rows if pick(e.key)) / 1e3
+
+    attention_ms = share(lambda key: any(name in key for name in TRAIN_ATTENTION_KERNELS))
+    gemm_ms = share(lambda key: any(name in key.lower()
+                                    for name in ("nvjet", "gemm", "xmma", "cutlass")))
+    elementwise_ms = share(lambda key: "elementwise_kernel" in key)
+    rest_ms = busy_ms - attention_ms - gemm_ms - elementwise_ms
+    print(f"training breakdown, one step (profiled): wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{sum(e.count for e in rows)} device kernels; attention kernels {attention_ms:.1f} ms, "
+          f"matrix products (cuBLAS) {gemm_ms:.1f} ms, elementwise passes {elementwise_ms:.1f} ms, "
+          f"the rest {rest_ms:.1f} ms")
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:10]
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    return state, {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+                   "attention_ms": attention_ms, "gemm_ms": gemm_ms,
+                   "elementwise_ms": elementwise_ms,
+                   "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top]}
+
+
+class plain_training_attention:
+    """Within this block training's attention function runs the plain
+    versions on the card: its forward and backward wrappers are swapped for
+    them, and put back on leaving."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_prefill import ref
+        from repro_torch.models import attention
+
+        self.saved = attention.flash_prefill_lse, attention.flash_prefill_bwd
+        attention.flash_prefill_lse = ref.flash_prefill_lse_ref
+        attention.flash_prefill_bwd = ref.flash_prefill_bwd_ref
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention
+
+        attention.flash_prefill_lse, attention.flash_prefill_bwd = self.saved
+
+
+def grads_of(torch, cfg, params, batch):
+    """loss, grad_norm and every attention weight's gradient (a copy) of
+    one forward and backward of ``batch``."""
+    from repro_torch.models.model import forward_train
+    from repro_torch.train.optimizer import global_norm, tree_map
+
+    tree_map(lambda p: setattr(p, "grad", None), params)
+    loss, _ = forward_train(cfg, params, batch)
+    loss.backward()
+    grads = tree_map(lambda p: p.grad, params)
+    attn = {(i, name): p["attn"][name].grad.clone() for i, p in enumerate(params["blocks"])
+            for name in ATTN_WEIGHTS}
+    gnorm = float(global_norm(grads))
+    tree_map(lambda p: setattr(p, "grad", None), params)
+    return float(loss.detach()), gnorm, attn
+
+
+def check_guards(torch, dev):
+    """Phase 28 (d): every kernel wrapper without a backward raises on a CUDA
+    tensor that requires grad, before it launches anything."""
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.wkv6.ops import wkv6
+
+    f32, bf = torch.float32, torch.bfloat16
+
+    def t(*shape, dtype=f32, grad=False):
+        return torch.randn(*shape, device=dev).to(dtype).requires_grad_(grad)
+
+    calls = {
+        "decode_attention": lambda: decode_attention(
+            t(2, 8, 128, dtype=bf, grad=True), t(2, 64, 2, 128, dtype=bf),
+            t(2, 64, 2, 128, dtype=bf), torch.full((2,), 64, dtype=torch.int32, device=dev)),
+        "flash_prefill": lambda: flash_prefill(
+            t(1, 64, 8, 128, dtype=bf), t(1, 64, 2, 128, dtype=bf, grad=True),
+            t(1, 64, 2, 128, dtype=bf)),
+        "wkv6": lambda: wkv6(t(1, 4, 2, 64, grad=True), t(1, 4, 2, 64), t(1, 4, 2, 64),
+                             t(1, 4, 2, 64), t(2, 64), torch.zeros(1, 2, 64, 64, device=dev)),
+        "selective_scan": lambda: selective_scan(
+            t(1, 4, 128), t(1, 4, 128, grad=True), t(128, 16), t(1, 4, 16), t(1, 4, 16), t(128),
+            torch.zeros(1, 128, 16, device=dev)),
+    }
+    before = launch_counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as exc:
+            need("no backward" in str(exc), f"{name} raised another error: {exc}")
+        else:
+            raise Failed(f"{name} ran on a tensor that requires grad")
+    need(launch_counts() == before, "a guarded wrapper launched its kernel")
+    print(f"guards: {sorted(calls)} raise on a CUDA tensor that requires grad, before any launch")
+    return sorted(calls)
+
+
+def check_training(torch, dev, batches_future):
+    """Phase 28: the backward kernel and the forward's lse against their
+    plain versions at the training shapes, glm4-9b trained at full width
+    for TRAIN_STEPS steps through the kernels with exact launch counts, a
+    kernel run against a plain-version run from the same weights, and the
+    guards."""
+    import numpy as np
+
+    from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_prefill.kernel import BWD_LAUNCHES, bwd_design, train_design
+    from repro_torch.launch.train import config
+    from repro_torch.models.model import padded_vocab
+    from repro_torch.train.optimizer import OptimizerConfig, tree_leaves
+    from repro_torch.train.train_step import create_train_state, make_train_step
+
+    flush = l2_flush(torch, dev)
+    cases = [check_bwd_case(torch, dev, label, shape, bf16, causal, flush)
+             for label, shape, bf16, causal in BWD_CASES]
+    del flush
+    torch.cuda.empty_cache()
+
+    cfg = config(TRAIN_ARCH, smoke=False, depth=TRAIN_DEPTH)
+    bf16 = torch.bfloat16
+    opt_cfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, opt_cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for _, p in tree_leaves(state.params))
+    n_norms = sum(p.numel() for path, p in tree_leaves(state.params)
+                  if path.split("/")[-1] in ("ln1", "ln2", "final_norm", "q_norm", "k_norm"))
+    need(n_params - n_norms == cfg.param_count(),  # param_count leaves the norms' weights out
+         f"{n_params} parameters ({n_norms} in norms), param_count {cfg.param_count()}")
+    n_matmul = sum(p.numel() for path, p in tree_leaves(state.params)
+                   if path.split("/")[-1] in MATMUL_WEIGHTS or path == "lm_head")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = batches_future.result(timeout=900)
+    waited = time.perf_counter() - t0
+    step_fn = make_train_step(cfg, opt_cfg, TRAIN_MICRO)
+    reset_launch_counts()
+    losses, gnorms, seconds = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        seconds.append(time.perf_counter() - t0)
+        gnorms.append(float(metrics["grad_norm"]))
+        need(math.isfinite(losses[-1]) and math.isfinite(gnorms[-1]),
+             f"step {len(losses)}: loss {losses[-1]}, grad_norm {gnorms[-1]}")
+    launches, designs = launch_counts(), design_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    L, micro = cfg.n_layers, TRAIN_MICRO
+    fwd = L * micro * 2 * TRAIN_STEPS  # a layer's forward and its recomputation under remat
+    bwd = L * micro * BWD_LAUNCHES * TRAIN_STEPS
+    want = {name: 0 for name in launches}
+    want.update({"flash_prefill": fwd, "flash_prefill_bwd": bwd})
+    print(f"training launches over {TRAIN_STEPS} steps: {launches} by design {designs}")
+    need(launches == want, f"training launched {launches}, expected {want}")
+    need(designs["flash_prefill"] == {f"{train_design(bf16, cfg.head_dim)}, causal, lse": fwd}
+         and designs["flash_prefill_bwd"] == {f"{bwd_design(bf16, cfg.head_dim)}, causal": bwd},
+         f"training's designs {designs}")
+    need(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    need(peak_gb < 80, f"peak memory {peak_gb:.2f} GB")
+    state, breakdown = train_breakdown(torch, step_fn, state, batches[-1])
+
+    tokens = TRAIN_B * TRAIN_S
+    step_s = float(np.median(seconds[1:]))
+    attn_ops = L * 7 * 2 * TRAIN_B * cfg.n_heads * cfg.head_dim * (TRAIN_S * (TRAIN_S + 1) // 2)
+    model_ops = 6 * n_matmul * tokens + attn_ops
+    mfu = model_ops / (step_s * BF16_OPS_PER_S)
+    print(f"training {TRAIN_ARCH} at full width, {L} of 40 layers ({n_params} parameters, "
+          f"{n_matmul} in products, vocab {cfg.vocab_size} padded to {padded_vocab(cfg)}), "
+          f"{TRAIN_B} x {TRAIN_S} tokens a step in {micro} microbatches: losses {losses}, "
+          f"grad_norms {gnorms}; step seconds {seconds} (median after the first {step_s:.4f} s, "
+          f"{tokens / step_s:.1f} tokens/s, MFU {mfu:.4f} = {model_ops:.4e} operations a step "
+          f"over 989 TFLOP/s); peak memory {peak_gb:.2f} GB; weights drawn in {init_s:.2f} s, "
+          f"waited {waited:.2f} s for the data")
+
+    # the same weights through the kernels and through the plain versions
+    short = {k: v[:1, :TRAIN_PLAIN_TOKENS] for k, v in batches[0].items()}
+    reset_launch_counts()
+    loss_k, gnorm_k, attn_k = grads_of(torch, cfg, state.params, short)
+    counts = launch_counts()
+    need(counts["flash_prefill"] == 2 * L and counts["flash_prefill_bwd"] == BWD_LAUNCHES * L,
+         f"the kernel run launched {counts}")
+    with plain_training_attention():
+        loss_p, gnorm_p, attn_p = grads_of(torch, cfg, state.params, short)
+    need(launch_counts() == counts, "the plain run launched a kernel")
+    frob = max(float(torch.linalg.vector_norm(attn_k[key] - attn_p[key])
+                     / torch.linalg.vector_norm(attn_p[key])) for key in attn_p)
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    gnorm_err = abs(gnorm_k - gnorm_p) / gnorm_p
+    print(f"kernels against the plain versions at 1 x {TRAIN_PLAIN_TOKENS} tokens: loss {loss_k} "
+          f"vs {loss_p} ({loss_err:.3e} relative, limit {TRAIN_LOSS_TOL}), grad_norm {gnorm_k} "
+          f"vs {gnorm_p} ({gnorm_err:.3e}, limit {TRAIN_GNORM_TOL}), worst attention weight "
+          f"gradient {frob:.3e} relative Frobenius (limit {TRAIN_GRAD_FROB})")
+    need(loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL and frob <= TRAIN_GRAD_FROB,
+         "the kernels' step is not the plain versions'")
+    del state, attn_k, attn_p
+    torch.cuda.empty_cache()
+    guarded = check_guards(torch, dev)
+
+    glm4 = cases[0]
+    return {
+        "kernel": {"max_abs_err": max(c["max_abs_err"] for c in cases),
+                   **{k: glm4[k] for k in ("ms", "cuda_core_ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms", "sdpa_forward_ms")},
+                   "library": "scaled_dot_product_attention backward (torch.autograd.grad)",
+                   "design": bwd_design(bf16, cfg.head_dim),
+                   "launches_a_step": L * micro * BWD_LAUNCHES,
+                   "cases": cases},
+        "lse_max_abs_err": max(c["lse_max_abs_err"] for c in cases),
+        "launches": {"flash_prefill": fwd, "flash_prefill_bwd": bwd},
+        "train": {"arch": TRAIN_ARCH, "layers": L, "parameters": n_params,
+                  "forward_design": train_design(bf16, cfg.head_dim),
+                  "matmul_parameters": n_matmul, "tokens_a_step": tokens, "microbatches": micro,
+                  "steps": TRAIN_STEPS, "losses": losses, "grad_norms": gnorms,
+                  "step_seconds": seconds, "median_step_s": step_s,
+                  "tokens_per_s": tokens / step_s, "mfu": mfu, "peak_memory_gb": peak_gb,
+                  "breakdown": breakdown,
+                  "against_plain": {"loss": [loss_k, loss_p], "grad_norm": [gnorm_k, gnorm_p],
+                                    "attention_grad_frobenius": frob}},
+        "guarded": guarded,
+    }
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -5461,6 +5916,10 @@ def main() -> int:
                 serialized.append(f"{name}: {line.strip()}")
     need(not serialized, f"ptxas serialized a wgmma: {serialized}")
 
+    from repro_torch.configs.base import get_arch
+
+    # phase 28's data, made by a worker process while the card runs phases 1-27
+    train_pool, train_data = start_train_batches(get_arch(TRAIN_ARCH).vocab_size)
     t0 = time.perf_counter()
     trace = zipf(N, T, alpha=ALPHA, seed=0)
     print(f"trace: zipf N={N} T={T} alpha={ALPHA}, {time.perf_counter() - t0:.2f} s")
@@ -5533,6 +5992,20 @@ def main() -> int:
     lap("26 (the SSM family)")
     hybrid27 = check_hybrid(torch, dev)
     lap("27 (the hybrid family)")
+    try:
+        train28 = check_training(torch, dev, train_data)
+    finally:
+        train_pool.shutdown(wait=True, cancel_futures=True)
+    lap("28 (training the attention families)")
+    # training (phase 28): the backward kernel's launches in glm4-9b's 8
+    # steps, and the forward's training launches (with the lse) beside its row
+    launches["flash_prefill_bwd"] = train28["launches"]["flash_prefill_bwd"]
+    rows["flash_prefill_bwd"] = train28["kernel"]
+    rows["flash_prefill"]["training"] = {
+        "launches_8_steps": train28["launches"]["flash_prefill"],
+        "design": train28["train"]["forward_design"],
+        "lse_max_abs_err": train28["lse_max_abs_err"],
+        "forward_ms_glm4_train": train28["kernel"]["cases"][0]["forward_ms"]}
     # the SSM family (phase 26): the recurrence's launches in rwkv6's serving
     launches["wkv6"] = ssm26["launches"]["wkv6"]
     rows["wkv6"] = {**ssm26["kernel"], "launches_a_generate": ssm26["launches_a_generate"],
@@ -5668,7 +6141,8 @@ def main() -> int:
                           for name in ("int8", "vlm", "encdec")},
                       "ssm": {k: v for k, v in ssm26.items() if k != "kernel"},
                       "hybrid": {k: v for k, v in hybrid27.items()
-                                 if k not in ("kernel", "attention")}}))
+                                 if k not in ("kernel", "attention")},
+                      "training": {"train": train28["train"], "guarded": train28["guarded"]}}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

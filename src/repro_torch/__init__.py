@@ -29,7 +29,9 @@ threshold solve, the sized solve, a chunk of each automaton (the tree
 LRU, LFU, FTPL and GDS, the default for those kinds, the FIFO queue and
 the slot automaton), causal prefill
 attention and one-token decode attention are hand-written CUDA kernels
-(``repro_torch.kernels``)::
+(``repro_torch.kernels``).  The attention families also train
+(``train.train_step.make_train_step``, ``launch/train.py``), attention's
+gradient a hand-written kernel too (``flash_prefill_bwd``)::
 
     from repro_torch import policy_def, run
 

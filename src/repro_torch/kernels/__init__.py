@@ -5,7 +5,7 @@ Each wrapper counts its launches in a plain integer attribute
 ``project_warm.launches``, ``apply.launches``, ``block_segment_sums.launches``,
 ``tree_build.launches``, ``tree_update_.launches``,
 ``bucket_masses.launches``, ``solve_buckets.launches``,
-``solve_sized.launches``, ``flash_prefill.launches``,
+``solve_sized.launches``, ``flash_prefill.launches``, ``flash_prefill_bwd.launches``,
 ``decode_attention.launches``, ``slot_automaton.launches``,
 ``fifo_queue.launches``, ``tree_lru.launches``,
 ``ring_compaction.launches``, ``minpair_automaton.launches``,
@@ -36,7 +36,7 @@ def _wrappers():
         project_warm_tau,
     )
     from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_prefill.ops import flash_prefill
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill, flash_prefill_bwd
     from repro_torch.kernels.fifo_queue.ops import fifo_queue
     from repro_torch.kernels.prefix_tree.kernel import (
         block_segment_sums,
@@ -60,6 +60,7 @@ def _wrappers():
         "tree_update": (tree_update_,),
         "bucket_mass": (bucket_masses, solve_buckets, solve_sized),
         "flash_prefill": (flash_prefill,),
+        "flash_prefill_bwd": (flash_prefill_bwd,),
         "decode_attention": (decode_attention,),
         "slot_automaton": (slot_automaton,),
         "fifo_queue": (fifo_queue,),

@@ -134,6 +134,16 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would record a kernel that has no backward: grad
+    mode on and an input that requires grad.  The kernel's output comes from
+    ``torch.empty`` and carries no ``grad_fn``, so its inputs would silently
+    get no gradient from it."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward on the card: call it under torch.no_grad(), "
+                           f"or on tensors that do not require grad")
+
+
 def stream_of(t) -> int:
     """The raw handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -8,6 +8,8 @@ count as one launch in ``decode_attention.launches``, and by design and
 cache in ``decode_attention.designs``: ``"mma.sync+cp.async, int8
 cache"``, ...); on a CPU tensor it runs the plain version of :mod:`.ref`.
 There is no other path: a CUDA call that the kernel cannot take raises.
+It has no backward: on a CUDA tensor it raises where autograd would record
+it (grad mode on and an input that requires grad).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ def decode_attention(
     check_shapes(q, k, v, lengths, k_scale, v_scale)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, lengths, k_scale, v_scale)
+    _build.refuse_grad("decode_attention", q, k, v, k_scale, v_scale)
     out = grid_decode(q, k, v, lengths, k_scale, v_scale)
     cache = "int8 cache" if k_scale is not None else "compute-type cache"
     _build.counted(decode_attention, f"{design(q.dtype, q.shape[2])}, {cache}")

@@ -85,6 +85,17 @@
 //
 // The wrapper (kernel.py::grid_prefill) chooses between the two by dtype and
 // D alone (kernel.py::design); a build or launch error of either raises.
+//
+// Training: both designs take an optional float32 lse (B, H, S).  Where it is
+// given, the epilogue also writes each row's natural log-sum-exp of its
+// scaled scores, m / sqrt(D) + ln(l) (the wgmma design keeps m unscaled and
+// l in base 2's terms: (m log2(e) / sqrt(D) + log2(l)) ln 2), which
+// flash_prefill_bwd.cu reads to recompute P without a second softmax pass.
+// The serving call passes a null pointer: the same launch, the same output.
+// Training's wgmma forward also splits P into bf16 hi + lo for its P V
+// product (kSplitP): with P rounded to bf16 alone, glm4-9b's attention
+// weights' gradients came 1.0-4.3% (relative Frobenius) from the plain
+// version's, past the 2e-2 that chip_smoke.py's phase 28 holds them to.
 
 #include <cstdint>
 
@@ -137,8 +148,8 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ x, int b, int r
 template <typename T, int J>
 __global__ void __launch_bounds__(kThreads)
 prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ out, int S, int T_len, int H, int Hkv, int D, float scale,
-               int causal) {
+               T* __restrict__ out, float* __restrict__ lse, int S, int T_len, int H, int Hkv,
+               int D, float scale, int causal) {
   const int n_q = (S + kTile - 1) / kTile;
   const int qi = n_q - 1 - (int)blockIdx.x;  // longest query tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -255,6 +266,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const int row = q0 + ty + 16 * i;
     if (row >= S) continue;  // rows past a ragged S are never written
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0) lse[((long long)b * H + h) * S + row] = m[i] + logf(denom);
     T* dst = out + (((long long)b * S + row) * H + h) * D;
 #pragma unroll
     for (int jj = 0; jj < J; ++jj) {
@@ -268,8 +280,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 template <typename T, int J>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int T_len, int H,
-           int Hkv, int D, float scale, int causal, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+           int T_len, int H, int Hkv, int D, float scale, int causal, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * (size_t)kTile * (D + 4) + (size_t)kTile * (kTile + 1));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -279,31 +291,35 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   const int n_q = (S + kTile - 1) / kTile;
   prefill_kernel<T, J><<<dim3(n_q, H, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, T_len, H, Hkv, D, scale, causal);
+      static_cast<T*>(out), lse, S, T_len, H, Hkv, D, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* out, int B, int S, int T_len,
-             int H, int Hkv, int D, float scale, int causal, cudaStream_t stream) {
-  if (D <= 64) return launch<T, 1>(q, k, v, out, B, S, T_len, H, Hkv, D, scale, causal, stream);
-  if (D <= 128) return launch<T, 2>(q, k, v, out, B, S, T_len, H, Hkv, D, scale, causal, stream);
-  return launch<T, 4>(q, k, v, out, B, S, T_len, H, Hkv, D, scale, causal, stream);
+int launch_d(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+             int T_len, int H, int Hkv, int D, float scale, int causal, cudaStream_t stream) {
+#define REPRO_CC(J) launch<T, J>(q, k, v, out, lse, B, S, T_len, H, Hkv, D, scale, causal, stream)
+  if (D <= 64) return REPRO_CC(1);
+  if (D <= 128) return REPRO_CC(2);
+  return REPRO_CC(4);
+#undef REPRO_CC
 }
 
 }  // namespace
 
 // q (B, S, H, D), k and v (B, T, Hkv, D), out (B, S, H, D), all contiguous and of one type
-// (is_bf16: bf16, else float32).  D % 8 == 0 and D <= 256; causal needs T == S.
-extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v, void* out, int B,
-                                   int S, int T, int H, int Hkv, int D, float scale, int causal,
-                                   int is_bf16, void* stream) {
+// (is_bf16: bf16, else float32); lse (B, H, S) float32, or null.  D % 8 == 0 and D <= 256;
+// causal needs T == S.
+extern "C" int repro_flash_prefill(const void* q, const void* k, const void* v, void* out,
+                                   void* lse, int B, int S, int T, int H, int Hkv, int D,
+                                   float scale, int causal, int is_bf16, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaGetLastError();
   if (T <= 0 || (causal && T != S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (is_bf16)
-    return launch_d<__nv_bfloat16>(q, k, v, out, B, S, T, H, Hkv, D, scale, causal, st);
-  return launch_d<float>(q, k, v, out, B, S, T, H, Hkv, D, scale, causal, st);
+    return launch_d<__nv_bfloat16>(q, k, v, out, l, B, S, T, H, Hkv, D, scale, causal, st);
+  return launch_d<float>(q, k, v, out, l, B, S, T, H, Hkv, D, scale, causal, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -320,6 +336,7 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 constexpr int kStages = 2;                  // K/V ring
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory a block of head dimension D asks for: Q, the K/V ring, its
 // mbarriers (Q; full and empty, K and V, a stage), and 1024 bytes to align
@@ -509,12 +526,17 @@ __device__ __forceinline__ float quad_sum(float x) {
 // turn a warpgroup issues S_j = Q K_j^T and O += P_{j-1} V_{j-1}, then
 // passes the turn and runs the softmax of S_j while the other warpgroup's
 // products run, so the exp2 work and the tensor-core work of the SM overlap.
-template <int D, int BC>
+//
+// kSplitP (training's forward): P enters the P V product as bf16 hi + lo, two
+// products a k-step, so that O carries P to 16 bits, not bf16's 8; the
+// serving call (kSplitP false) is unchanged.
+template <int D, int BC, bool kSplitP>
 __global__ void __launch_bounds__(kThreads, 1)
 prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-                     int S, int T, int H, int Hkv, float scale_log2, int causal) {
+                     float* __restrict__ lse, int S, int T, int H, int Hkv, float scale_log2,
+                     int causal) {
   constexpr int kBoxCols = box_cols(D);    // columns of a box (and of a swizzle atom's row)
   constexpr int kBoxBytes = 2 * kBoxCols;  // 128 or 64 bytes, the swizzle's span
   constexpr int kBoxes = D / kBoxCols;     // boxes of a row
@@ -596,6 +618,7 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
     float sc[kS];
     uint32_t p[BC / 16][4];  // P of the previous tile as the A fragments of its P V product
+    uint32_t p_lo[kSplitP ? BC / 16 : 1][4];  // and, split, what bf16 rounding left of it
 
     // O += P V_j, issued asynchronously (one commit group); O was rescaled to
     // tile j's running max when P was made, so no other instruction touches
@@ -612,6 +635,7 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
               v_s + s * kTileBytes + (c * kPV / kBoxCols) * BC * kBoxBytes + kk * 16 * kBoxBytes,
               BC * kBoxBytes, kAtom);
           wgmma_rs(o[c], p[kk], db);
+          if constexpr (kSplitP) wgmma_rs(o[c], p_lo[kk], db);
         }
       wgmma_commit();
     };
@@ -678,8 +702,15 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int n = 0; n < BC / 8; ++n)
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          p[n / 2][2 * (n % 2) + r] = pack_bf16(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]);
+        for (int r = 0; r < 2; ++r) {
+          const float x0 = sc[4 * n + 2 * r], x1 = sc[4 * n + 2 * r + 1];
+          p[n / 2][2 * (n % 2) + r] = pack_bf16(x0, x1);
+          if constexpr (kSplitP) {
+            const float2 h = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(&p[n / 2][2 * (n % 2) + r]));
+            p_lo[n / 2][2 * (n % 2) + r] = pack_bf16(x0 - h.x, x1 - h.y);
+          }
+        }
 #pragma unroll
       for (int c = 0; c < kPVs; ++c) {
 #pragma unroll
@@ -736,6 +767,8 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int row = row0 + 8 * r;
       const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
       if (row >= S) continue;  // rows past a ragged S are never written
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[((long long)b * H + h) * S + row] = (m[r] * scale_log2 + log2f(denom)) * kLn2;
       __nv_bfloat16* dst = out + (((long long)b * S + row) * H + h) * D + col0;
 #pragma unroll
       for (int c = 0; c < kPVs; ++c)
@@ -789,9 +822,9 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B, int 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int T, int H,
-           int Hkv, float scale, int causal, int smem, cudaStream_t stream) {
+template <int D, bool kSplitP>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S, int T,
+           int H, int Hkv, float scale, int causal, int smem, cudaStream_t stream) {
   constexpr int BC = key_tile(D);
   if (smem < smem_bytes(D)) return (int)cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
@@ -801,26 +834,31 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
       !make_map(encode, &tv, v, B, T, Hkv, D, BC))
     return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
-      prefill_wgmma_kernel<D, BC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      prefill_wgmma_kernel<D, BC, kSplitP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int n_q = (S + kRows - 1) / kRows;
-  prefill_wgmma_kernel<D, BC><<<dim3(n_q, H, B), kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, T, H, Hkv, scale * kLog2e, causal);
+  prefill_wgmma_kernel<D, BC, kSplitP><<<dim3(n_q, H, B), kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, S, T, H, Hkv, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wg
 
 // bf16 q (B, S, H, D), k and v (B, T, Hkv, D), out (B, S, H, D), contiguous and
-// 16-byte aligned; D in {64, 96, 128, 192, 256}; causal needs T == S; smem_bytes
-// from kernel.py's prefill_plan (at least wg::smem_bytes(D)).
+// 16-byte aligned; lse (B, H, S) float32, or null; D in {64, 96, 128, 192, 256};
+// causal needs T == S; smem_bytes from kernel.py's prefill_plan (at least
+// wg::smem_bytes(D)); split_p: P enters P V as bf16 hi + lo (training).
 extern "C" int repro_flash_prefill_wgmma(const void* q, const void* k, const void* v, void* out,
-                                         int B, int S, int T, int H, int Hkv, int D, float scale,
-                                         int causal, int smem_bytes, void* stream) {
+                                         void* lse, int B, int S, int T, int H, int Hkv, int D,
+                                         float scale, int causal, int smem_bytes, int split_p,
+                                         void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaGetLastError();
   if (T <= 0 || (causal && T != S)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_WG(DIM) wg::launch<DIM>(q, k, v, out, B, S, T, H, Hkv, scale, causal, smem_bytes, st)
+  float* l = static_cast<float*>(lse);
+#define REPRO_WG(DIM)                                                                     \
+  (split_p ? wg::launch<DIM, true>(q, k, v, out, l, B, S, T, H, Hkv, scale, causal, smem_bytes, st) \
+           : wg::launch<DIM, false>(q, k, v, out, l, B, S, T, H, Hkv, scale, causal, smem_bytes, st))
   switch (D) {
     case 64: return REPRO_WG(64);
     case 96: return REPRO_WG(96);

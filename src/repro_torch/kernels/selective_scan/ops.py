@@ -6,7 +6,9 @@ CUDA tensor it launches ``csrc/selective_scan.cu``, counted in
 (``kernel.design(S)``: the prefill design, or the decode step's at S = 1);
 on a CPU tensor it runs the plain version of :mod:`.ref`.  There is no
 other path: a CUDA call that the kernel cannot take (another state dim,
-another dtype, a non-contiguous input) raises.
+another dtype, a non-contiguous input) raises.  It has no backward: on a
+CUDA tensor it raises where autograd would record it (grad mode on and an
+input that requires grad).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ def selective_scan(
         y, final = selective_scan_ref(x, dt, A, Bm, Cm, D, state)
         state.copy_(final)
         return y
+    _build.refuse_grad("selective_scan", x, dt, A, Bm, Cm, D, state)
     y = launch(x, dt, A, Bm, Cm, D, state)
     _build.counted(selective_scan, design(x.shape[1]))
     return y

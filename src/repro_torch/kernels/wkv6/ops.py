@@ -5,6 +5,8 @@ launches ``csrc/wkv6.cu``, counted in ``wkv6.launches`` (and by design in
 ``wkv6.designs``); on a CPU tensor it runs the plain version of
 :mod:`.ref`.  There is no other path: a CUDA call that the kernel cannot
 take (another head dim, another dtype, a non-contiguous input) raises.
+It has no backward: on a CUDA tensor it raises where autograd would record
+it (grad mode on and an input that requires grad).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ def wkv6(
         y, final = wkv6_ref(r, k, v, w, u, state)
         state.copy_(final)
         return y, state
+    _build.refuse_grad("wkv6", r, k, v, w, u, state)
     y = launch(r, k, v, w, u, state)
     _build.counted(wkv6, DESIGN)
     return y, state

@@ -7,7 +7,10 @@ cross-attention over an encoder's rows) goes to ``kernels.flash_prefill``,
 and one-token decode over the KV cache (and a decoded token's
 cross-attention over all encoder rows) to ``kernels.decode_attention``: on
 the card these are the hand-written CUDA kernels, on the CPU their plain
-versions.  Weights are in the JAX layout ``(in, out)``.  A KV cache is in
+versions.  In training, whole-sequence attention is an autograd function
+whose backward is the ``flash_prefill_bwd`` kernel (:class:`FlashAttention`);
+the decode kernel has no backward and raises under autograd.  Weights are
+in the JAX layout ``(in, out)``.  A KV cache is in
 the compute type, or int8 with a float32 scale a (position, KV head)
 (``kv_cache_dtype="int8"``), quantized as ``repro`` quantizes it.  The
 ``q_offset`` argument of ``repro``'s ``flash_attention`` is not ported:
@@ -21,7 +24,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.flash_prefill.ops import flash_prefill
+from repro_torch.kernels.flash_prefill.ops import (
+    flash_prefill,
+    flash_prefill_bwd,
+    flash_prefill_lse,
+)
 
 from .common import apply_rope, dense_init, rmsnorm, rmsnorm_init
 
@@ -62,12 +69,38 @@ def _project_qkv(p, x: torch.Tensor, cfg, positions: torch.Tensor):
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta), v
 
 
+class FlashAttention(torch.autograd.Function):
+    """Training's attention: the forward is ``flash_prefill_lse`` (the
+    prefill kernel, which also saves each row's log-sum-exp), the backward
+    ``flash_prefill_bwd`` (the gradient kernel, from q, k, v, the output and
+    that log-sum-exp).  On the CPU both are their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_prefill_lse(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_prefill_bwd(q, k, v, out, dout.contiguous(), lse, ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool) -> torch.Tensor:
     """q (B, S, H, D) over k, v (B, T, Hkv, D): causal (a prompt on itself,
     T == S) or not (an encoder, or cross-attention over T rows); ``repro``'s
-    ``flash_attention`` without ``q_offset``."""
-    return flash_prefill(q.contiguous(), k.contiguous(), v.contiguous(), causal)
+    ``flash_attention`` without ``q_offset``.  Where autograd records it
+    (grad mode on and an input that requires grad) it is
+    :class:`FlashAttention`, whose backward is a kernel too; otherwise the
+    serving call."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal)
+    return flash_prefill(q, k, v, causal)
 
 
 def attention_forward(p, x: torch.Tensor, cfg, positions: torch.Tensor, causal: bool = True,

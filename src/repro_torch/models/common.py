@@ -1,4 +1,4 @@
-"""Shared model pieces: dtypes, RMSNorm, RoPE, the token shift and the initialisers.
+"""Shared model pieces: dtypes, RMSNorm, RoPE, the token shift, the initialisers and the loss.
 
 Counterpart of ``repro.models.common``.  Each function rounds where the
 JAX version rounds: ``rmsnorm`` normalises in float32, rounds to the input
@@ -11,7 +11,7 @@ float32 and rounds once.  The initialisers draw from an explicit
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -63,6 +63,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def softmax_cross_entropy(
+    logits: torch.Tensor,  # (B, S, V)
+    labels: torch.Tensor,  # (B, S) integer
+    mask: Optional[torch.Tensor] = None,  # (B, S), 1 = count
+    z_loss: float = 1e-4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean next-token loss in float32, plus ``z_loss`` times the squared
+    log-sum-exp (logit drift control), over the positions ``mask`` counts;
+    and the mean log-sum-exp over the same positions."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss > 0:
+        nll = nll + z_loss * torch.square(lse)
+    if mask is None:
+        return nll.mean(), lse.mean()
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    return (nll * mask).sum() / denom, (lse * mask).sum() / denom
 
 
 def shift_tokens(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""The served models: parameters, prefill and one decode step.
+"""The models: parameters, prefill, one decode step and the training forward.
 
 Counterpart of ``repro.models.model`` for the attention families,
 ``"dense"`` (glm4-9b, qwen3-14b, gemma-7b, mistral-nemo), ``"moe"``
@@ -35,6 +35,14 @@ d_in, n) in float32, which the ``selective_scan`` kernel updates in place.
 Every entry point takes a ``device`` and resolves it through
 :func:`repro_torch._device.resolve_device`: the card unless the caller
 asks for the CPU.
+
+:func:`forward_train` is ``repro``'s training forward for the dense, moe,
+vlm and encdec families (the loss and its metrics, each layer checkpointed
+under ``cfg.remat``); its whole-sequence attention runs through
+``attention.FlashAttention``, whose backward is a kernel.  The ssm and
+hybrid families raise: their recurrence kernels have no backward yet.
+:func:`train_state_from_numpy` and :func:`params_to_numpy` carry a
+``repro`` train state across and back.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 
@@ -58,10 +67,10 @@ from .attention import (
     project_cross_kv,
     write_kv,
 )
-from .common import dtype_of, embed_init, rmsnorm, rmsnorm_init
+from .common import dtype_of, embed_init, rmsnorm, rmsnorm_init, softmax_cross_entropy
 from .mamba import init_mamba, mamba_forward
 from .mlp import init_mlp, mlp_forward
-from .moe import init_moe, moe_output
+from .moe import init_moe, moe_forward, moe_output
 from .rwkv import init_rwkv_block, rwkv_block_fwd
 
 VOCAB_PAD = 256
@@ -210,6 +219,22 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None,
     return params
 
 
+def tensor_from_numpy(a) -> torch.Tensor:
+    """A copy of numpy array ``a`` as a CPU tensor; a bfloat16 array (the
+    ``ml_dtypes`` type in which JAX hands bf16 out) keeps its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a copy: JAX hands out read-only arrays
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as numpy; bfloat16, which numpy has no type for,
+    widened to float32 (exactly)."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
 def params_from_numpy(cfg, params_np: Dict[str, Any], device: DeviceLike,
                       dtype: Optional[torch.dtype] = None) -> Params:
     """``repro``'s ``init_params`` pytree, as numpy arrays, in the port's
@@ -225,7 +250,7 @@ def params_from_numpy(cfg, params_np: Dict[str, Any], device: DeviceLike,
     dev = resolve_device(device)
 
     def conv(name, a):
-        t = torch.from_numpy(np.array(a)).to(dev)  # a copy: JAX hands out read-only arrays
+        t = tensor_from_numpy(a).to(dev)
         return t if dtype is None or name in F32_KEEP else t.to(dtype)
 
     layers = {"blocks": cfg.n_layers, "encoder": cfg.n_encoder_layers}
@@ -239,6 +264,48 @@ def params_from_numpy(cfg, params_np: Dict[str, Any], device: DeviceLike,
         out["blocks"] = [_map(lambda name, a, sb=sb: conv(name, a[sb]), params_np["blocks"][i])
                          for sb in range(cfg.n_layers // period) for i in range(period)]
     return out
+
+
+def _stack(trees):
+    """One tree of numpy arrays stacked along a new leading axis from
+    ``trees``, a list of trees of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([tensor_to_numpy(t) for t in trees])
+
+
+def params_to_numpy(cfg, params: Params) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: the port's parameters (or a
+    tree of their shape, such as AdamW's moments) in ``repro``'s
+    ``init_params`` layout as numpy arrays, ``blocks`` and ``encoder``
+    stacked along their leading layer axis (a hybrid model's as ``repro``'s
+    list of ``attn_period`` layers, each stacked over the super-blocks);
+    bfloat16 leaves widened to float32."""
+    out = {k: _map(lambda name, t: tensor_to_numpy(t), v, k) for k, v in params.items()
+           if k not in ("blocks", "encoder")}
+    if "encoder" in params:
+        out["encoder"] = _stack(params["encoder"])
+    if cfg.family == "hybrid":
+        period = cfg.attn_period
+        out["blocks"] = [_stack(params["blocks"][i::period]) for i in range(period)]
+    else:
+        out["blocks"] = _stack(params["blocks"])
+    return out
+
+
+def train_state_from_numpy(cfg, params_np: Dict[str, Any], opt_np, device: DeviceLike):
+    """``repro``'s ``TrainState`` pieces, as numpy arrays, in the port's
+    layout: parameters that require grad, and an ``AdamWState`` whose step is
+    ``opt_np.step`` and whose m and v keep their dtype (float32 or
+    bfloat16)."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState
+
+    params = _map(lambda name, t: t.requires_grad_(True), params_from_numpy(cfg, params_np, device))
+    opt = AdamWState(step=int(np.asarray(opt_np.step)),
+                     m=params_from_numpy(cfg, opt_np.m, device),
+                     v=params_from_numpy(cfg, opt_np.v, device))
+    return TrainState(params=params, opt=opt)
 
 
 def init_cache(cfg, batch: int, max_len: int, device: DeviceLike = None) -> Dict[str, Any]:
@@ -492,3 +559,122 @@ def decode_step(cfg, params: Params, cache: Dict[str, Any], tokens: torch.Tensor
             x = x + _ffn(cfg, p, rmsnorm(x, p["ln2"]))
     cache["pos"] = pos + 1
     return _logits(cfg, params, x)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# training
+
+#: the families that train: the four whose only kernel on the path is
+#: attention, which has a backward kernel
+TRAINED_FAMILIES = ("dense", "moe", "vlm", "encdec")
+#: the kernel whose backward a family's training waits for
+MISSING_BACKWARD = {"ssm": "wkv6", "hybrid": "selective_scan"}
+
+
+def _require_trainable(cfg) -> None:
+    _require_ported(cfg)
+    if cfg.family in MISSING_BACKWARD:
+        kernel = MISSING_BACKWARD[cfg.family]
+        raise NotImplementedError(
+            f"training the {cfg.family} family ({cfg.name}) needs a backward of the {kernel} "
+            f"kernel, which is not written yet: forward_train runs the attention families "
+            f"{TRAINED_FAMILIES}")
+
+
+def _layer(cfg, fn, *args):
+    """``fn(*args)``; under ``cfg.remat`` checkpointed, as ``repro``'s
+    ``_remat`` checkpoints a layer: its activations are recomputed in the
+    backward (the attention kernel runs twice)."""
+    if cfg.remat:
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _train_block(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
+    """A decoder layer of the dense, moe and vlm families: x, and the MoE
+    layer's load-balance and router z-losses (None for an MLP)."""
+    x = x + attention_forward(p["attn"], rmsnorm(x, p["ln1"]), cfg, positions, causal=True)
+    h = rmsnorm(x, p["ln2"])
+    if "moe" in p:
+        h, aux = moe_forward(p["moe"], h, cfg)
+        return x + h, aux["load_balance_loss"], aux["router_z_loss"]
+    return x + mlp_forward(p["mlp"], h, cfg.mlp_activation), None, None
+
+
+def _encoder_block(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    x = x + attention_forward(p["attn"], rmsnorm(x, p["ln1"]), cfg, positions, causal=False)
+    return x + mlp_forward(p["mlp"], rmsnorm(x, p["ln2"]), cfg.mlp_activation)
+
+
+def _encdec_block(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
+                  enc: torch.Tensor) -> torch.Tensor:
+    """An encdec decoder layer: causal self-attention, cross-attention over
+    the encoder's output (its K and V projected in the layer), the MLP."""
+    x = x + attention_forward(p["attn"], rmsnorm(x, p["ln1"]), cfg, positions, causal=True)
+    x = x + attention_forward(p["cross"], rmsnorm(x, p["ln2"]), cfg, positions, causal=False,
+                              kv=project_cross_kv(p["cross"], enc, cfg))
+    return x + mlp_forward(p["mlp"], rmsnorm(x, p["ln3"]), cfg.mlp_activation)
+
+
+def forward_train(cfg, params: Params, batch: Dict[str, Any],
+                  device: DeviceLike = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``repro``'s ``forward_train``: the mean next-token loss (z-loss 1e-4)
+    of ``batch`` (``tokens`` and ``labels`` (B, S); a vlm model's
+    ``image_embeds``, normed and put before the tokens and masked out of
+    the loss; an encdec model's ``frames``, through the encoder, whose
+    output the decoder's cross-attention reads), and its metrics ``nll``
+    and ``lse``; a MoE model adds 0.01 of the load-balance loss and 1e-3 of
+    the router z-loss, summed over the layers, and reports both.  Whole-
+    sequence attention is ``models.attention.FlashAttention`` under
+    autograd: the prefill kernel forward, the ``flash_prefill_bwd`` kernel
+    backward.  Under ``cfg.remat`` each layer is checkpointed.  It runs
+    where the parameters are unless ``device`` says otherwise.  The ssm and
+    hybrid families raise ``NotImplementedError``: their recurrence kernels
+    have no backward yet."""
+    _require_trainable(cfg)
+    dev = _device_of(params, params["embed"].device if device is None else device)
+    params = cast_params_for_compute(cfg, params)
+    cdt = dtype_of(cfg.compute_dtype)
+    need = {"encdec": "frames", "vlm": "image_embeds"}.get(cfg.family)
+    if need is not None and need not in batch:
+        raise ValueError(f"{cfg.name} ({cfg.family}) trains on '{need}' beside the tokens")
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    B, S = tokens.shape
+
+    if cfg.family == "encdec":
+        frames = torch.as_tensor(batch["frames"], device=dev)
+        T = frames.shape[1]
+        x = frames.to(cdt) + params["enc_pos"][:T].to(cdt)
+        enc_positions = torch.arange(T, device=dev).expand(B, T)
+        for p in params["encoder"]:
+            x = _layer(cfg, _encoder_block, cfg, p, x, enc_positions)
+        enc = rmsnorm(x, params["enc_final_norm"])
+        x = params["embed"][tokens].to(cdt) + params["dec_pos"][:S].to(cdt)
+        positions = torch.arange(S, device=dev).expand(B, S)
+        for p in params["blocks"]:
+            x = _layer(cfg, _encdec_block, cfg, p, x, positions, enc)
+        loss, lse = softmax_cross_entropy(_logits(cfg, params, x), labels)
+        return loss, {"nll": loss, "lse": lse}
+
+    x = params["embed"][tokens].to(cdt)
+    mask = None
+    if cfg.family == "vlm":
+        img = rmsnorm(torch.as_tensor(batch["image_embeds"], device=dev).to(cdt),
+                      params["img_norm"])
+        x = torch.cat([img, x], dim=1)
+        n_img = img.shape[1]
+        mask = torch.cat([torch.zeros(B, n_img, device=dev), torch.ones(B, S, device=dev)], dim=1)
+        labels = torch.cat([labels.new_zeros((B, n_img)), labels], dim=1)
+    positions = torch.arange(x.shape[1], device=dev).expand(B, x.shape[1])
+    lb = z = torch.zeros((), dtype=torch.float32, device=dev)
+    for p in params["blocks"]:
+        x, lb_l, z_l = _layer(cfg, _train_block, cfg, p, x, positions)
+        if lb_l is not None:
+            lb, z = lb + lb_l, z + z_l
+    loss, lse = softmax_cross_entropy(_logits(cfg, params, x), labels, mask=mask)
+    metrics = {"nll": loss, "lse": lse}
+    if cfg.n_experts:
+        loss = loss + 0.01 * lb + 1e-3 * z
+        metrics.update({"load_balance_loss": lb, "router_z_loss": z})
+    return loss, metrics

@@ -51,7 +51,17 @@ written in place and two runs bit for bit, a decode step (its own kernel)
 continuing a prompt bit for bit, each launch counted by design, its earlier
 design (kept as text by tools/time_selective_scan_designs.py) against the
 plain version, what it refuses, and the jamba smoke model on the card
-against the CPU.
+against the CPU; training's attention: the backward kernel
+(``flash_prefill_bwd``) against its plain version in its three modes
+(causal, non-causal, cross), at D = 16, 64, 96 and 128, ragged S and
+groups of 1 to 16 query heads a KV head, in bf16 (within 8 bf16 ulps of
+each output's largest) and float32 (1e-4), two runs bit for bit and two
+launches a call; the forward's log-sum-exp in both designs, an lse buffer
+leaving the serving call's output and launch count as they were; a
+training step of the smoke glm4-9b on the card against the CPU; and every
+kernel wrapper without a backward raising on a tensor that requires grad.
+The backward's two designs (bf16 at D = 64, 96, 128 on the tensor cores,
+everything else on CUDA cores) are each held at the other's shapes too.
 """
 
 import math
@@ -224,7 +234,7 @@ def test_run_on_the_card_matches_the_cpu_and_counts_launches(card):
                                "tree_update": 0, "bucket_mass": 0, "flash_prefill": 0,
                                "decode_attention": 0, "slot_automaton": 0, "fifo_queue": 0,
                                "tree_lru": 0, "minpair_automaton": 0, "wkv6": 0,
-                               "selective_scan": 0}
+                               "selective_scan": 0, "flash_prefill_bwd": 0}
     designs = design_counts()
     assert designs["histogram"] == {"bin tiles": 100}
     assert designs["apply"] == {"projection epilogue": 100}
@@ -2538,3 +2548,190 @@ def test_jamba_smoke_model_on_the_card_matches_the_cpu(card):
             assert counts["flash_prefill"] == 1 and counts["decode_attention"] == 4
     for a, b in zip(out_by["cpu"], out_by[str(card)]):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+# -- training's attention: the backward kernel, the forward's lse, the guards -----
+
+#: (B, S, T, H, Hkv, D, causal): every mode, ragged S around the 64-row tiles,
+#: groups of 1, 4 and 16 query heads a KV head, the trained families' D
+BWD_SHAPES = [(2, 65, 65, 8, 2, 16, True), (1, 127, 127, 4, 4, 64, True),
+              (2, 129, 129, 32, 2, 128, True), (1, 200, 200, 32, 32, 96, True),
+              (2, 100, 100, 4, 4, 64, False), (2, 37, 150, 8, 2, 64, False),
+              (1, 1, 1, 16, 1, 128, True), (2, 300, 70, 16, 8, 16, False)]
+BWD_CASES = [pytest.param(*shape, dtype, id="-".join(map(str, shape)) + f"-{KINDS[dtype]}")
+             for shape in BWD_SHAPES for dtype in (torch.bfloat16, torch.float32)]
+
+
+def _bwd_inputs(card, B, S, T, H, Hkv, D, dtype, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q, do = (torch.randn(B, S, H, D, generator=gen, device=card).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, T, Hkv, D, generator=gen, device=card).to(dtype) for _ in range(2))
+    return q, k, v, do
+
+
+def _bwd_limit(dtype, want, cancel=0.0):
+    """8 bf16 ulps of the largest output (float32: 1e-4 of it), and never
+    under ``cancel``."""
+    top = float(want.float().abs().max())
+    limit = 1e-4 * top if dtype == torch.float32 else 8 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    return max(limit, cancel)
+
+
+def _cancel_floor(do, v):
+    """The float32 rounding of dS = P (dP - delta), a difference of two sums
+    of D products: where they cancel (one key, S = 1: dS = 0) that rounding
+    is all that is left of dq and dk."""
+    return 1e-6 * float(do.float().abs().max()) * float(v.float().abs().max()) * v.shape[3]
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal,dtype", BWD_CASES)
+def test_flash_prefill_bwd_matches_plain(card, B, S, T, H, Hkv, D, causal, dtype):
+    from repro_torch.kernels.flash_prefill.kernel import bwd_design, mode
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill_bwd, flash_prefill_lse
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_bwd_ref, flash_prefill_lse_ref
+
+    q, k, v, do = _bwd_inputs(card, B, S, T, H, Hkv, D, dtype, seed=S * T + D)
+    reset_launch_counts()
+    out, lse = flash_prefill_lse(q, k, v, causal)
+    want_out, want_lse = flash_prefill_lse_ref(q, k, v, causal)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=0,
+                               atol=_bwd_limit(dtype, want_out))
+    got = flash_prefill_bwd(q, k, v, out, do, lse, causal)
+    assert launch_counts()["flash_prefill_bwd"] == 2 and launch_counts()["flash_prefill"] == 1
+    assert design_counts()["flash_prefill_bwd"] == {
+        f"{bwd_design(dtype, D)}, {mode(q, k, causal)}": 2}
+    want = flash_prefill_bwd_ref(q, k, v, out, do, lse, causal)
+    for g, w, like in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == like.shape and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=_bwd_limit(dtype, w, _cancel_floor(do, v)))
+    again = flash_prefill_bwd(q, k, v, out, do, lse, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal", [(2, 129, 129, 32, 2, 128, True),
+                                                   (2, 37, 150, 8, 2, 64, False),
+                                                   (1, 200, 200, 32, 32, 96, True)])
+def test_flash_prefill_bwd_cuda_core_design_takes_bf16_too(card, B, S, T, H, Hkv, D, causal):
+    """The CUDA-core design at the shapes that take the mma design: both
+    within the limits of the plain version."""
+    from repro_torch.kernels.flash_prefill.kernel import CUDA_CORE, MMA, bwd_design, grid_prefill_bwd
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill_lse
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_bwd_ref
+
+    dtype = torch.bfloat16
+    assert bwd_design(dtype, D) == MMA
+    q, k, v, do = _bwd_inputs(card, B, S, T, H, Hkv, D, dtype, seed=D + S)
+    out, lse = flash_prefill_lse(q, k, v, causal)
+    want = flash_prefill_bwd_ref(q, k, v, out, do, lse, causal)
+    for which in (CUDA_CORE, MMA):
+        got = grid_prefill_bwd(q, k, v, out, do, lse, causal, which=which)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=_bwd_limit(dtype, w))
+    with pytest.raises(ValueError, match="mma"):
+        grid_prefill_bwd(q.float(), k.float(), v.float(), out.float(), do.float(), lse, causal,
+                         which=MMA)
+
+
+@pytest.mark.parametrize("D", [64, 96, 128, 192, 256])
+def test_wgmma_design_writes_the_lse_and_splits_p_for_training(card, D):
+    from repro_torch.kernels.flash_prefill.kernel import WGMMA, design, grid_prefill
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_lse_ref
+
+    q, k, v, _ = _bwd_inputs(card, 2, 300, 300, 8, 2, D, torch.bfloat16, seed=D)
+    assert design(q.dtype, D) == WGMMA
+    reset_launch_counts()
+    served = flash_prefill(q, k, v)
+    lse = torch.empty(2, 8, 300, dtype=torch.float32, device=card)
+    assert torch.equal(grid_prefill(q, k, v, True, lse=lse), served)
+    assert launch_counts()["flash_prefill"] == 1  # grid_prefill itself counts nothing
+    want_out, want_lse = flash_prefill_lse_ref(q, k, v, True)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    # training's form: P split into bf16 hi + lo for the P V product
+    split_lse = torch.empty_like(lse)
+    split = grid_prefill(q, k, v, True, lse=split_lse, split_p=True)
+    torch.testing.assert_close(split_lse, want_lse, rtol=0, atol=1e-4)
+    torch.testing.assert_close(split.float(), want_out.float(), rtol=0,
+                               atol=_attention_limit(torch.bfloat16, want_out))
+
+
+def test_flash_prefill_bwd_refuses_what_it_cannot_take(card):
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill_bwd, flash_prefill_lse
+
+    q, k, v, do = _bwd_inputs(card, 1, 64, 64, 4, 2, 256, torch.bfloat16, seed=1)
+    out, lse = flash_prefill_lse(q, k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill_bwd(q, k, v, out, do, lse)
+    q, k, v, do = _bwd_inputs(card, 1, 64, 64, 4, 2, 64, torch.bfloat16, seed=1)
+    out, lse = flash_prefill_lse(q, k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_prefill_bwd(q, k, v, out, do.transpose(1, 2).contiguous().transpose(1, 2), lse)
+    with pytest.raises(ValueError, match="lse"):
+        flash_prefill_bwd(q, k, v, out, do, lse[:, :, :10].contiguous())
+
+
+def test_wrappers_without_a_backward_raise_under_autograd(card):
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.wkv6.ops import wkv6
+
+    bf = torch.bfloat16
+    q = torch.randn(2, 8, 128, device=card, dtype=bf, requires_grad=True)
+    k = torch.randn(2, 64, 2, 128, device=card, dtype=bf)
+    lengths = torch.full((2,), 64, dtype=torch.int32, device=card)
+    r = torch.randn(1, 4, 2, 64, device=card, requires_grad=True)
+    x = torch.randn(1, 4, 128, device=card, requires_grad=True)
+    calls = [lambda: decode_attention(q, k, k, lengths),
+             lambda: flash_prefill(torch.randn(1, 64, 8, 128, device=card, dtype=bf), k[:1],
+                                   k[:1].detach().requires_grad_(True)),
+             lambda: wkv6(r, r.detach(), r.detach(), r.detach(), torch.zeros(2, 64, device=card),
+                          torch.zeros(1, 2, 64, 64, device=card)),
+             lambda: selective_scan(x, x.detach(), torch.randn(128, 16, device=card),
+                                    torch.randn(1, 4, 16, device=card),
+                                    torch.randn(1, 4, 16, device=card),
+                                    torch.randn(128, device=card),
+                                    torch.zeros(1, 128, 16, device=card))]
+    reset_launch_counts()
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()  # the same call without autograd runs
+    counts = launch_counts()
+    assert [counts[n] for n in ("decode_attention", "flash_prefill", "wkv6",
+                                "selective_scan")] == [1, 1, 1, 1]
+
+
+def test_smoke_training_step_on_the_card_matches_the_cpu(card):
+    """Two steps of the float32 glm4-9b smoke model, 2 microbatches: the card
+    through the kernels (a CUDA-core training forward and the backward
+    kernel) against the CPU through the plain versions."""
+    from repro_torch.configs.base import get_smoke
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import AdamWState, OptimizerConfig, tree_leaves, tree_map
+    from repro_torch.train.train_step import TrainState, create_train_state, make_train_step
+
+    cfg = get_smoke("glm4-9b")
+    opt_cfg = OptimizerConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    batches = [SyntheticLM(DataConfig(cfg.vocab_size, 64, 4)).next_batch() for _ in range(2)]
+    out = {}
+    start = create_train_state(cfg, opt_cfg, seed=0, device="cpu")
+    for dev in ("cpu", card):
+        copy = lambda t: t.detach().to(dev).clone()
+        state = TrainState(tree_map(lambda t: copy(t).requires_grad_(True), start.params),
+                           AdamWState(0, tree_map(copy, start.opt.m), tree_map(copy, start.opt.v)))
+        step = make_train_step(cfg, opt_cfg, n_microbatches=2)
+        reset_launch_counts()
+        losses = []
+        for batch in batches:
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        out[str(dev)] = (losses, [p.detach().cpu() for _, p in tree_leaves(state.params)])
+        if dev == card:
+            L = cfg.n_layers
+            assert launch_counts()["flash_prefill"] == 2 * L * 2 * 2
+            assert launch_counts()["flash_prefill_bwd"] == 2 * L * 2 * 2
+    (lc, pc), (lk, pk) = out["cpu"], out[str(card)]
+    np.testing.assert_allclose(lk, lc, rtol=1e-5)
+    for a, b in zip(pc, pk):
+        torch.testing.assert_close(b, a, rtol=0, atol=0.1 * opt_cfg.lr)
