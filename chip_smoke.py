@@ -287,13 +287,18 @@ script with a non-zero exit:
    prefill of 2047 and a decode step on the rows no expert's capacity
    dropped;
 28. training the attention families: (a) the backward kernel
-   (flash_prefill_bwd: dq, dk, dv in two launches) against its plain version
-   at glm4-9b's training shape (B=2, S=4096, H=32, Hkv=2, D=128, causal),
-   granite-moe's D=64, phi-3-vision's D=96, whisper's non-causal (S = T =
-   1500) and cross (224 over 1500) shapes and the smoke configurations'
-   float32 D=16: within 8 bf16 ulps of each output's largest (float32:
-   1e-4), two runs bit for bit, its time cold beside its bound, its plain
-   version and scaled_dot_product_attention's forward and backward; (b) the
+   (flash_prefill_bwd: dq, dk, dv in three launches of its wgmma design,
+   two of its CUDA-core design) against its plain version at glm4-9b's
+   training shape (B=2, S=4096, H=32, Hkv=2, D=128, causal), granite-moe's
+   D=64, phi-3-vision's D=96, whisper's non-causal (S = T = 1500) and cross
+   (224 over 1500) shapes and the smoke configurations' float32 D=16:
+   within 8 bf16 ulps of each output's largest (float32: 1e-4), two runs
+   bit for bit, the CUDA-core design and the earlier mma.sync design
+   (tools/time_flash_bwd_designs.py keeps it as text) held to the same
+   limits, its time cold beside the earlier design's in turns (new, old,
+   old, new), its bound, the design's own bound (7 products and the float32
+   partials), its plain version and scaled_dot_product_attention's forward
+   and backward, and the floor of the timing; (b) the
    forward's log-sum-exp in both designs against the plain version's: the
    serving call's design with an lse buffer (its output bit for bit the
    serving call's), and training's (bf16: the wgmma design with P split
@@ -303,7 +308,7 @@ script with a non-zero exit:
    lr 1e-4 after 2 warm-up steps,
    SyntheticLM data made by a worker meanwhile, 4 x 4096 tokens a step in 2
    microbatches, remat): the loss finite and falling, exactly 4 x 2 x 2
-   flash_prefill and 4 x 2 x 2 flash_prefill_bwd launches a step, step
+   flash_prefill and 4 x 2 x 3 flash_prefill_bwd launches a step, step
    seconds, tokens/s, MFU and peak memory printed, one more step under
    torch.profiler (busy time, the attention kernels' and the products'
    shares), and a forward and backward at 1 x 1024 tokens through the
@@ -325,6 +330,7 @@ import math
 import platform
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -392,7 +398,7 @@ SOURCES = {
     "fifo_queue": "src/repro_torch/kernels/fifo_queue/csrc/fifo_queue.cu",
     "wkv6": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
     "selective_scan": "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
-    "flash_prefill_bwd": "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill_bwd.cu",
+    "flash_prefill_bwd": "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill_bwd_wgmma.cu",
 }
 KERNELS = ("histogram", "mass", "apply", "segsum", "tree_update", "bucket_mass",
            "flash_prefill", "decode_attention", "slot_automaton", "tree_lru",
@@ -5517,10 +5523,14 @@ def bwd_bound(B, S, T, H, Hkv, D, itemsize, causal):
 
 def check_bwd_case(torch, dev, label, shape, bf16, causal, flush):
     """Phase 28 (a) and (b) at one shape: the forward's output and lse, and the
-    backward kernel against its plain version, two runs bit for bit, its
-    time cold beside its bound, its plain version's and SDPA's forward and
-    backward."""
+    backward kernel against its plain version, two runs bit for bit, the
+    CUDA-core design's (and, where the call takes the wgmma design, the
+    earlier mma.sync design's) errors, its time cold beside its bound, the
+    earlier design's in turns (tools/time_flash_bwd_designs.py), its plain
+    version's and SDPA's forward and backward."""
     import torch.nn.functional as F
+
+    from tools.time_flash_bwd_designs import earlier_bwd, own_bound, time_in_turns
 
     from repro_torch.kernels.flash_prefill.ops import (
         flash_prefill,
@@ -5529,7 +5539,9 @@ def check_bwd_case(torch, dev, label, shape, bf16, causal, flush):
     )
     from repro_torch.kernels.flash_prefill.kernel import (
         CUDA_CORE,
+        WGMMA,
         bwd_design,
+        bwd_heads_per_block,
         grid_prefill,
         grid_prefill_bwd,
     )
@@ -5551,13 +5563,15 @@ def check_bwd_case(torch, dev, label, shape, bf16, causal, flush):
     design = bwd_design(dtype, D)
     got = flash_prefill_bwd(q, k, v, out, do, lse, causal)
     again = flash_prefill_bwd(q, k, v, out, do, lse, causal)
-    # the CUDA-core design at the same inputs, where the call takes the other one
+    # the CUDA-core design at the same inputs, where the call takes the wgmma
+    # one, and the earlier mma.sync design there
     core = (grid_prefill_bwd(q, k, v, out, do, lse, causal, which=CUDA_CORE)
             if design != CUDA_CORE else got)
+    mma = earlier_bwd(q, k, v, out, do, lse, causal) if design == WGMMA else got
     torch.cuda.synchronize()
     need(all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: two runs differ")
     lse_err, out_err, out_lim, errs, lims = 0.0, 0.0, 0.0, [0.0] * 3, [0.0] * 3
-    core_errs = [0.0] * 3
+    core_errs, mma_errs = [0.0] * 3, [0.0] * 3
     for b in range(B):  # the plain versions a sequence at a time: (H, S, T) float32 scores
         sl = slice(b, b + 1)
         want_out, want_lse = flash_prefill_lse_ref(q[sl], k[sl], v[sl], causal)
@@ -5571,29 +5585,27 @@ def check_bwd_case(torch, dev, label, shape, bf16, causal, flush):
         for i, (g, w) in enumerate(zip(got, want)):
             errs[i] = max(errs[i], float((g[sl].float() - w.float()).abs().max()))
             core_errs[i] = max(core_errs[i], float((core[i][sl].float() - w.float()).abs().max()))
+            mma_errs[i] = max(mma_errs[i], float((mma[i][sl].float() - w.float()).abs().max()))
             top = float(w.float().abs().max())
             lims[i] = max(lims[i], BWD_ULPS * bf16_ulp(top) if bf16 else BWD_F32_TOL * top)
         del want
     need(lse_err <= LSE_TOL, f"{label}: lse differs from the plain version's by {lse_err}")
     need(out_err <= out_lim, f"{label}: training's forward differs by {out_err} (limit {out_lim})")
-    need(all(e <= lim for e, lim in zip(errs + core_errs, lims + lims)),
+    need(all(e <= lim for e, lim in zip(errs + core_errs + mma_errs, lims * 3)),
          f"{label}: dq, dk, dv differ from the plain version by {errs} (the CUDA-core design "
-         f"by {core_errs}; limits {lims})")
-    del core
+         f"by {core_errs}, the earlier mma.sync design by {mma_errs}; limits {lims})")
+    del core, mma
     reps = 3 if S * T >= 4096 * 4096 // 2 else 10
 
     def kern():
         return flash_prefill_bwd(q, k, v, out, do, lse, causal)
 
-    def cuda_core():
-        return grid_prefill_bwd(q, k, v, out, do, lse, causal, which=CUDA_CORE)
-
-    if design != CUDA_CORE and label == BWD_CASES[0][0]:
-        # the CUDA-core design in turns with the mma one: kernel, earlier twice, kernel
-        turns = [timed_ms(torch, fn, reps, flush) for fn in (kern, cuda_core, cuda_core, kern)]
-        ms, core_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    if design == WGMMA:
+        # the earlier mma.sync design in turns with the wgmma one: new, old, old, new
+        ms, earlier_ms, turns = time_in_turns(
+            torch, kern, lambda: earlier_bwd(q, k, v, out, do, lse, causal), flush, reps)
     else:
-        ms, core_ms = timed_ms(torch, kern, reps, flush), None
+        ms, earlier_ms, turns = timed_ms(torch, kern, reps, flush), None, None
     fwd_ms = timed_ms(torch, lambda: flash_prefill_lse(q, k, v, causal), reps, flush)
     serve_ms = timed_ms(torch, lambda: flash_prefill(q, k, v, causal), reps, flush)
     torch.cuda.empty_cache()
@@ -5612,29 +5624,36 @@ def check_bwd_case(torch, dev, label, shape, bf16, causal, flush):
         torch, lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), reps,
         flush)
     bound, by = bwd_bound(B, S, T, H, Hkv, D, q.element_size(), causal)
-    earlier = "" if core_ms is None else f"; the CUDA-core design in turns {core_ms * 1e3:.1f} us"
+    own = own_bound(B, S, T, H, Hkv, D, causal, bwd_heads_per_block(H, Hkv))[0]
+    earlier = ("" if earlier_ms is None else
+               f"; the earlier mma.sync design in turns {earlier_ms * 1e3:.1f} us "
+               f"({earlier_ms / ms:.2f}x); the design's own bound {own * 1e3:.1f} us")
     print(f"flash_prefill_bwd {label} B={B} S={S} T={T} H={H} Hkv={Hkv} D={D} "
           f"{'bf16' if bf16 else 'f32'} {'causal' if causal else 'non-causal'} [{design}]: cold "
           f"{ms * 1e3:.1f} us{earlier} (bound {bound * 1e3:.1f} us by {by}, {ms / bound:.1f}x; "
           f"plain "
           f"{plain_ms * 1e3:.1f} us; SDPA forward {sdpa_fwd_ms * 1e3:.1f} us, backward "
           f"{sdpa_bwd_ms * 1e3:.1f} us); max |err| dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
-          f"{errs[2]:.3e} (CUDA-core design {max(core_errs):.3e}; limits {lims[0]:.3e} "
+          f"{errs[2]:.3e} (CUDA-core design {max(core_errs):.3e}, earlier design "
+          f"{max(mma_errs):.3e}; limits {lims[0]:.3e} "
           f"{lims[1]:.3e} {lims[2]:.3e}); both forward designs' lse "
           f"max |err| {lse_err:.3e}; training's forward max |err| {out_err:.3e} (limit "
           f"{out_lim:.3e}), cold {fwd_ms * 1e3:.1f} us (the serving design {serve_ms * 1e3:.1f} "
           f"us); two runs bit for bit")
     return {"label": label, "shape": {"B": B, "S": S, "T": T, "H": H, "Hkv": Hkv, "D": D},
             "dtype": "bf16" if bf16 else "f32", "causal": causal, "design": design, "ms": ms,
-            "cuda_core_ms": core_ms, "cuda_core_max_abs_err": max(core_errs), "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": sdpa_bwd_ms,
+            "earlier_ms": earlier_ms, "turns": turns, "cuda_core_max_abs_err": max(core_errs),
+            "earlier_max_abs_err": max(mma_errs), "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "own_bound_ms": own if earlier_ms else None,
+            "library_ms": sdpa_bwd_ms,
             "sdpa_forward_ms": sdpa_fwd_ms, "max_abs_err": max(errs), "errs": errs,
             "limits": lims, "lse_max_abs_err": lse_err, "forward_max_abs_err": out_err,
             "forward_ms": fwd_ms, "serving_forward_ms": serve_ms}
 
 
 #: phase 28's profiled step: the attention kernels by the names of their functions
-TRAIN_ATTENTION_KERNELS = ("prefill_wgmma_kernel", "prefill_kernel", "dq_kernel", "dkv_kernel")
+TRAIN_ATTENTION_KERNELS = ("prefill_wgmma_kernel", "prefill_kernel", "dq_kernel", "dkv_kernel",
+                           "dkv_sum_kernel")
 
 
 def train_breakdown(torch, step_fn, state, batch):
@@ -5767,14 +5786,18 @@ def check_training(torch, dev, batches_future):
     from repro_torch.train.optimizer import OptimizerConfig, tree_leaves
     from repro_torch.train.train_step import create_train_state, make_train_step
 
+    from tools.time_flash_bwd_designs import floor_ms
+
     flush = l2_flush(torch, dev)
     cases = [check_bwd_case(torch, dev, label, shape, bf16, causal, flush)
              for label, shape, bf16, causal in BWD_CASES]
+    floor = floor_ms(torch, dev, flush)
     del flush
     torch.cuda.empty_cache()
 
     cfg = config(TRAIN_ARCH, smoke=False, depth=TRAIN_DEPTH)
     bf16 = torch.bfloat16
+    n_bwd = BWD_LAUNCHES[bwd_design(bf16, cfg.head_dim)]  # launches a backward call
     opt_cfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -5806,7 +5829,7 @@ def check_training(torch, dev, batches_future):
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     L, micro = cfg.n_layers, TRAIN_MICRO
     fwd = L * micro * 2 * TRAIN_STEPS  # a layer's forward and its recomputation under remat
-    bwd = L * micro * BWD_LAUNCHES * TRAIN_STEPS
+    bwd = L * micro * n_bwd * TRAIN_STEPS
     want = {name: 0 for name in launches}
     want.update({"flash_prefill": fwd, "flash_prefill_bwd": bwd})
     print(f"training launches over {TRAIN_STEPS} steps: {launches} by design {designs}")
@@ -5836,7 +5859,7 @@ def check_training(torch, dev, batches_future):
     reset_launch_counts()
     loss_k, gnorm_k, attn_k = grads_of(torch, cfg, state.params, short)
     counts = launch_counts()
-    need(counts["flash_prefill"] == 2 * L and counts["flash_prefill_bwd"] == BWD_LAUNCHES * L,
+    need(counts["flash_prefill"] == 2 * L and counts["flash_prefill_bwd"] == n_bwd * L,
          f"the kernel run launched {counts}")
     with plain_training_attention():
         loss_p, gnorm_p, attn_p = grads_of(torch, cfg, state.params, short)
@@ -5858,11 +5881,13 @@ def check_training(torch, dev, batches_future):
     glm4 = cases[0]
     return {
         "kernel": {"max_abs_err": max(c["max_abs_err"] for c in cases),
-                   **{k: glm4[k] for k in ("ms", "cuda_core_ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms", "sdpa_forward_ms")},
+                   **{k: glm4[k] for k in ("ms", "earlier_ms", "turns", "plain_ms", "bound_ms",
+                                           "bound_by", "own_bound_ms", "library_ms",
+                                           "sdpa_forward_ms")},
+                   "floor_ms": floor,
                    "library": "scaled_dot_product_attention backward (torch.autograd.grad)",
                    "design": bwd_design(bf16, cfg.head_dim),
-                   "launches_a_step": L * micro * BWD_LAUNCHES,
+                   "launches_a_step": L * micro * n_bwd,
                    "cases": cases},
         "lse_max_abs_err": max(c["lse_max_abs_err"] for c in cases),
         "launches": {"flash_prefill": fwd, "flash_prefill_bwd": bwd},
@@ -5904,8 +5929,16 @@ def main() -> int:
     print(f"card: {card}")
 
     t0 = time.perf_counter()
+    # phase 28's yardstick, the backward's earlier design (kept as text by
+    # tools/time_flash_bwd_designs.py), builds beside the package's sources
+    from tools.time_flash_bwd_designs import earlier_entry
+
+    earlier_build = threading.Thread(target=earlier_entry, daemon=True)
+    earlier_build.start()
     _libs, logs = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s, {sorted(_libs)}")
+    earlier_build.join()
+    print(f"build: {time.perf_counter() - t0:.2f} s, {sorted(_libs)} and the earlier "
+          f"flash_prefill_bwd design")
     serialized = []
     for name, log in logs.items():
         for line in log.splitlines():

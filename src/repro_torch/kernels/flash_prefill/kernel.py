@@ -11,10 +11,12 @@ to T, and only a ragged last tile masks.
 
 Training adds two things: :func:`grid_prefill` takes an ``lse`` buffer,
 which the same launch fills with each row's log-sum-exp (the serving call
-passes none and launches as before), and :func:`grid_prefill_bwd` binds
-``csrc/flash_prefill_bwd.cu``, the gradient (dq, dk, dv) in two launches,
-in two designs chosen by :func:`bwd_design`: bf16 at D in {64, 96, 128} on
-the tensor cores (``mma.sync``), everything else on CUDA cores.
+passes none and launches as before), and :func:`grid_prefill_bwd` binds the
+gradient (dq, dk, dv) in two designs chosen by :func:`bwd_design`: bf16 at
+D in {64, 96, 128} on wgmma and TMA (``csrc/flash_prefill_bwd_wgmma.cu``,
+three launches: dQ, float32 partial dK and dV a group of query heads, their
+sum), everything else on CUDA cores (``csrc/flash_prefill_bwd.cu``, two
+launches).
 
 :func:`design` names the design a call takes, by dtype and head dimension
 alone: bf16 at D in {64, 96, 128, 192, 256} runs ``"wgmma+tma"`` (tensor
@@ -53,13 +55,24 @@ WG_ROWS, WG_STAGES = 128, 2
 #: plain version's on the card, past the 2e-2 chip_smoke.py's phase 28 holds
 #: them to
 SPLIT_P = "split P"
-#: the backward kernel's designs (:func:`bwd_design`): bf16 at these head
-#: dimensions on the tensor cores (``mma.sync``), everything else on CUDA
-#: cores; launches a call (dQ, then dK and dV) and the largest head dimension
-MMA = "mma.sync"
-BWD_MMA_HEAD_DIMS = (64, 96, 128)
-BWD_LAUNCHES = 2
+#: the backward kernel's designs (:func:`bwd_design`): bf16 at
+#: BWD_WGMMA_HEAD_DIMS on wgmma and TMA (D = 96 as the forward lays it out,
+#: three 64-byte-swizzled boxes a row), everything else on CUDA cores;
+#: launches a call by design (wgmma: dQ, the partial dK and dV, their sum;
+#: CUDA cores: dQ, then dK and dV) and the largest head dimension
+BWD_WGMMA_HEAD_DIMS = (64, 96, 128)
+BWD_LAUNCHES = {WGMMA: 3, CUDA_CORE: 2}
 BWD_MAX_HEAD_DIM = 128
+#: the wgmma backward's plan: query rows of a dQ block and keys of a dK/dV
+#: block (two consumer warpgroups of 64), query rows of a dK/dV step, the
+#: dQ block's key tile and ring stages, the dK/dV block's ring stages, and
+#: at most this many query heads of a KV head a dK/dV block (the group
+#: whose float32 partial dK and dV it writes); the library holds these
+#: plans (BWD_WG_PLANS in the source), tools/time_flash_bwd_designs.py
+#: --sweep builds more
+BWD_ROWS, BWD_STEP_ROWS = 128, 64
+BWD_DQ_KEYS, BWD_DQ_STAGES, BWD_DKV_STAGES = 64, 4, 2
+BWD_HEAD_GROUP = 8
 
 
 def design(dtype: torch.dtype, head_dim: int) -> str:
@@ -101,18 +114,47 @@ def _entry_wgmma():
 def bwd_design(dtype: torch.dtype, head_dim: int) -> str:
     """The design a CUDA backward call with this dtype and head dimension
     launches."""
-    if dtype == torch.bfloat16 and head_dim in BWD_MMA_HEAD_DIMS:
-        return MMA
+    if dtype == torch.bfloat16 and head_dim in BWD_WGMMA_HEAD_DIMS:
+        return WGMMA
     return CUDA_CORE
 
 
-@functools.lru_cache(maxsize=None)
-def _entry_bwd_mma():
-    fn = _build.library("flash_prefill_bwd").repro_flash_prefill_bwd_mma
+def bwd_heads_per_block(n_heads: int, n_kv_heads: int, most: int = BWD_HEAD_GROUP) -> int:
+    """Query heads a dK/dV block of the wgmma backward walks: the largest
+    divisor of H / Hkv not above ``most``."""
+    g = n_heads // n_kv_heads
+    return max(d for d in range(1, min(g, most) + 1) if g % d == 0)
+
+
+def bwd_plan(head_dim: int, dq_keys: int = BWD_DQ_KEYS, dq_stages: int = BWD_DQ_STAGES,
+             dkv_stages: int = BWD_DKV_STAGES) -> dict:
+    """The wgmma backward's tiles at ``head_dim`` and the shared memory of
+    its first two launches (dq_smem and dkv_smem in the source, which checks
+    them): the dQ block's Q and dO tiles (128 rows), its K/V ring, 128
+    floats of delta and its mbarriers; the dK/dV block's K and V tiles (128
+    keys), its ring of Q, dO and the 64 rows' lse and delta, and its
+    mbarriers; 1024 bytes each to align the swizzled tiles."""
+    D = head_dim
+    dq = 1024 + 2 * BWD_ROWS * D * 2 + dq_stages * 2 * dq_keys * D * 2 + BWD_ROWS * 4 \
+        + 8 * (1 + 2 * dq_stages)
+    dkv = 1024 + 2 * BWD_ROWS * D * 2 + dkv_stages * (2 * BWD_STEP_ROWS * D * 2
+                                                      + 2 * BWD_STEP_ROWS * 4) \
+        + 8 * (1 + 2 * dkv_stages)
+    return {"dq_rows": BWD_ROWS, "dq_keys": dq_keys, "dq_stages": dq_stages,
+            "dkv_keys": BWD_ROWS, "dkv_rows": BWD_STEP_ROWS, "dkv_stages": dkv_stages,
+            "dq_smem_bytes": dq, "dkv_smem_bytes": dkv}
+
+
+def _bind_bwd_wgmma(fn):
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, i, p]
+    fn.argtypes = [p] * 12 + [i] * 6 + [ctypes.c_float] + [i] * 7 + [p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_bwd_wgmma():
+    return _bind_bwd_wgmma(_build.library("flash_prefill_bwd_wgmma").repro_flash_prefill_bwd_wgmma)
 
 
 @functools.lru_cache(maxsize=None)
@@ -203,16 +245,17 @@ def grid_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
 def grid_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                      dout: torch.Tensor, lse: torch.Tensor, causal: bool = True,
                      which: Optional[str] = None):
-    """Launch ``csrc/flash_prefill_bwd.cu`` on CUDA tensors: dq (B, S, H,
-    D), dk and dv (B, T, Hkv, D) in q's type, from the forward's output
-    ``o``, its gradient ``dout`` and the forward's ``lse`` (B, H, S)
-    float32.  Two launches (:data:`BWD_LAUNCHES`): dQ over query tiles,
-    which also writes each row's rowsum(dO * O) into a (B, H, S) float32
-    scratch, then dK and dV over key tiles, every query head of a KV head
-    and every query tile added in a fixed order.  bf16 at D in
-    ``BWD_MMA_HEAD_DIMS`` runs on the tensor cores (``mma.sync``), every
-    other call on CUDA cores (:func:`bwd_design`), unless ``which`` names
-    the design (the CUDA-core one takes every call)."""
+    """Launch the backward kernel on CUDA tensors: dq (B, S, H, D), dk and
+    dv (B, T, Hkv, D) in q's type, from the forward's output ``o``, its
+    gradient ``dout`` and the forward's ``lse`` (B, H, S) float32.  The dQ
+    launch comes first and also writes each row's rowsum(dO * O) into a
+    (B, H, S) float32 scratch; dK and dV follow over key tiles, every query
+    head of a KV head and every query tile added in a fixed order
+    (:data:`BWD_LAUNCHES` launches by design).  bf16 at D in
+    ``BWD_WGMMA_HEAD_DIMS`` runs on wgmma and TMA, every other call on CUDA
+    cores (:func:`bwd_design`), unless ``which`` names the design (the
+    CUDA-core one takes every call).  No design gives way to another: an
+    error raises."""
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -231,16 +274,41 @@ def grid_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch
     if lse.shape != (B, H, S):
         raise ValueError(f"lse must be (B, H, S) = {(B, H, S)}, got {tuple(lse.shape)}")
     which = which or bwd_design(q.dtype, D)
-    if which == MMA and bwd_design(q.dtype, D) != MMA:
-        raise ValueError(f"the mma.sync backward does not take {q.dtype} at head_dim {D}")
+    if which not in BWD_LAUNCHES:
+        raise ValueError(f"no backward design {which!r}; the designs are {sorted(BWD_LAUNCHES)}")
+    if which == WGMMA and (q.dtype != torch.bfloat16 or D not in BWD_WGMMA_HEAD_DIMS):
+        raise ValueError(f"the wgmma+tma backward does not take {q.dtype} at head_dim {D}")
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S,
-            T, H, Hkv, D, 1.0 / math.sqrt(D), int(causal))
-    if which == MMA:
-        code = _entry_bwd_mma()(*ptrs, _build.stream_of(q))
-    else:
-        code = _entry_bwd()(*ptrs, int(q.dtype == torch.bfloat16), _build.stream_of(q))
-    _build.check(code, f"flash_prefill_bwd ({which})")
+    if which == WGMMA:
+        launch_bwd_wgmma(_entry_bwd_wgmma(), q, k, v, o, dout, lse, delta, dq, dk, dv, causal)
+        return dq, dk, dv
+    _build.check(
+        _entry_bwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), B, S, T, H, Hkv, D, 1.0 / math.sqrt(D), int(causal),
+                     int(q.dtype == torch.bfloat16), _build.stream_of(q)),
+        f"flash_prefill_bwd ({which})")
     return dq, dk, dv
+
+
+def launch_bwd_wgmma(entry, q, k, v, o, dout, lse, delta, dq, dk, dv, causal, plan=None,
+                     hg=None) -> None:
+    """Run the wgmma backward's C entry point ``entry`` (the package's, or a
+    build with other plans) into ``delta``, ``dq``, ``dk`` and ``dv``, with
+    the float32 partials of dK and dV, (B, T, H / hg, D) each, as scratch:
+    ``plan`` a :func:`bwd_plan`, ``hg`` the query heads of a dK/dV block
+    (:func:`bwd_heads_per_block` by default)."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    plan = plan or bwd_plan(D)
+    hg = hg or bwd_heads_per_block(H, Hkv)
+    parts = torch.empty((2, B, T, H // hg, D), dtype=torch.float32, device=q.device)
+    _build.check(
+        entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+              parts[0].data_ptr(), parts[1].data_ptr(), B, S, T, H, Hkv, D,
+              1.0 / math.sqrt(D), int(causal), hg, plan["dq_keys"], plan["dq_stages"],
+              plan["dkv_stages"], plan["dq_smem_bytes"], plan["dkv_smem_bytes"],
+              _build.stream_of(q)),
+        f"flash_prefill_bwd ({WGMMA})")

@@ -15,9 +15,10 @@ each row's log-sum-exp written beside the output (its wgmma design with P
 split into bf16 hi + lo for the P V product, or the CUDA-core design;
 counted in ``flash_prefill.launches``, its designs with ``", lse"`` at the
 end), and :func:`flash_prefill_bwd`, the gradient, ``csrc/flash_prefill_bwd.cu``
-(bf16 at D in {64, 96, 128} on the tensor cores, ``"mma.sync"``, everything
-else on CUDA cores; counted in ``flash_prefill_bwd.launches``, two a call,
-and by design and mode in ``flash_prefill_bwd.designs``).
+(``csrc/flash_prefill_bwd_wgmma.cu``: bf16 at D in {64, 96, 128} on wgmma
+and TMA, ``"wgmma+tma"``, three launches a call; everything else on CUDA
+cores, two a call; counted in ``flash_prefill_bwd.launches``, and by design
+and mode in ``flash_prefill_bwd.designs``).
 :func:`flash_prefill` itself has no backward: on a CUDA tensor it raises
 where autograd would record it.
 """
@@ -86,14 +87,15 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torc
                       dout: torch.Tensor, lse: torch.Tensor, causal: bool = True):
     """The gradient of :func:`flash_prefill_lse`'s output: (dq, dk, dv) in
     q's type, from its output ``o``, the output's gradient ``dout`` and its
-    ``lse``.  Two launches on the card, each counted."""
+    ``lse``.  Three launches on the card (two of the CUDA-core design),
+    each counted under its design's name."""
     check_shapes(q, k, v, causal)
     if q.device.type == "cpu":
         return flash_prefill_bwd_ref(q, k, v, o, dout, lse, causal)
     out = grid_prefill_bwd(q, k, v, o, dout, lse, causal)
-    for _ in range(BWD_LAUNCHES):
-        _build.counted(flash_prefill_bwd,
-                       f"{bwd_design(q.dtype, q.shape[3])}, {mode(q, k, causal)}")
+    which = bwd_design(q.dtype, q.shape[3])
+    for _ in range(BWD_LAUNCHES[which]):
+        _build.counted(flash_prefill_bwd, f"{which}, {mode(q, k, causal)}")
     return out
 
 

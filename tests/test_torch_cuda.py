@@ -55,8 +55,10 @@ against the CPU; training's attention: the backward kernel
 (``flash_prefill_bwd``) against its plain version in its three modes
 (causal, non-causal, cross), at D = 16, 64, 96 and 128, ragged S and
 groups of 1 to 16 query heads a KV head, in bf16 (within 8 bf16 ulps of
-each output's largest) and float32 (1e-4), two runs bit for bit and two
-launches a call; the forward's log-sum-exp in both designs, an lse buffer
+each output's largest) and float32 (1e-4), two runs bit for bit and the
+design's launches a call (three of the wgmma design, two of the others);
+the wgmma design at phase 28's shapes, S = 1, ragged S and T and the cross
+shape, at every head group, each design by name, and what it refuses; the forward's log-sum-exp in both designs, an lse buffer
 leaving the serving call's output and launch count as they were; a
 training step of the smoke glm4-9b on the card against the CPU; and every
 kernel wrapper without a backward raising on a tensor that requires grad.
@@ -2586,7 +2588,7 @@ def _cancel_floor(do, v):
 
 @pytest.mark.parametrize("B,S,T,H,Hkv,D,causal,dtype", BWD_CASES)
 def test_flash_prefill_bwd_matches_plain(card, B, S, T, H, Hkv, D, causal, dtype):
-    from repro_torch.kernels.flash_prefill.kernel import bwd_design, mode
+    from repro_torch.kernels.flash_prefill.kernel import BWD_LAUNCHES, bwd_design, mode
     from repro_torch.kernels.flash_prefill.ops import flash_prefill_bwd, flash_prefill_lse
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_bwd_ref, flash_prefill_lse_ref
 
@@ -2598,9 +2600,10 @@ def test_flash_prefill_bwd_matches_plain(card, B, S, T, H, Hkv, D, causal, dtype
     torch.testing.assert_close(out.float(), want_out.float(), rtol=0,
                                atol=_bwd_limit(dtype, want_out))
     got = flash_prefill_bwd(q, k, v, out, do, lse, causal)
-    assert launch_counts()["flash_prefill_bwd"] == 2 and launch_counts()["flash_prefill"] == 1
+    n = BWD_LAUNCHES[bwd_design(dtype, D)]
+    assert launch_counts()["flash_prefill_bwd"] == n and launch_counts()["flash_prefill"] == 1
     assert design_counts()["flash_prefill_bwd"] == {
-        f"{bwd_design(dtype, D)}, {mode(q, k, causal)}": 2}
+        f"{bwd_design(dtype, D)}, {mode(q, k, causal)}": n}
     want = flash_prefill_bwd_ref(q, k, v, out, do, lse, causal)
     for g, w, like in zip(got, want, (q, k, v)):
         assert g.dtype == dtype and g.shape == like.shape and bool(torch.isfinite(g).all())
@@ -2610,28 +2613,143 @@ def test_flash_prefill_bwd_matches_plain(card, B, S, T, H, Hkv, D, causal, dtype
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _flash_bwd_tool():
+    """tools/time_flash_bwd_designs.py, which keeps the earlier mma.sync
+    design as text and builds it."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "time_flash_bwd_designs.py"
+    spec = importlib.util.spec_from_file_location("time_flash_bwd_designs", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
 @pytest.mark.parametrize("B,S,T,H,Hkv,D,causal", [(2, 129, 129, 32, 2, 128, True),
                                                    (2, 37, 150, 8, 2, 64, False),
                                                    (1, 200, 200, 32, 32, 96, True)])
 def test_flash_prefill_bwd_cuda_core_design_takes_bf16_too(card, B, S, T, H, Hkv, D, causal):
-    """The CUDA-core design at the shapes that take the mma design: both
-    within the limits of the plain version."""
-    from repro_torch.kernels.flash_prefill.kernel import CUDA_CORE, MMA, bwd_design, grid_prefill_bwd
+    """The CUDA-core design at the shapes that take the wgmma design, and the
+    earlier mma.sync design (kept as text by tools/time_flash_bwd_designs.py):
+    each within the limits of the plain version."""
+    from repro_torch.kernels.flash_prefill.kernel import (
+        CUDA_CORE,
+        WGMMA,
+        bwd_design,
+        grid_prefill_bwd,
+    )
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill_lse
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_bwd_ref
+    earlier_bwd = _flash_bwd_tool().earlier_bwd
+
+    dtype = torch.bfloat16
+    assert bwd_design(dtype, D) == WGMMA
+    q, k, v, do = _bwd_inputs(card, B, S, T, H, Hkv, D, dtype, seed=D + S)
+    out, lse = flash_prefill_lse(q, k, v, causal)
+    want = flash_prefill_bwd_ref(q, k, v, out, do, lse, causal)
+    runs = [grid_prefill_bwd(q, k, v, out, do, lse, causal, which=which)
+            for which in (CUDA_CORE, WGMMA)] + [earlier_bwd(q, k, v, out, do, lse, causal)]
+    for got in runs:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=_bwd_limit(dtype, w))
+    with pytest.raises(ValueError, match="wgmma"):
+        grid_prefill_bwd(q.float(), k.float(), v.float(), out.float(), do.float(), lse, causal,
+                         which=WGMMA)
+
+
+#: (B, S, T, H, Hkv, D, causal): chip_smoke.py phase 28's wgmma shapes (glm4-9b's
+#: training microbatch, granite-moe, phi-3-vision's D = 96, whisper's encoder and
+#: cross calls), one row and one key, ragged S and T around the 128- and 64-row
+#: tiles
+BWD_WGMMA_SHAPES = [(2, 4096, 4096, 32, 2, 128, True), (2, 2048, 2048, 16, 8, 64, True),
+                    (1, 2048, 2048, 32, 32, 96, True), (2, 1500, 1500, 20, 20, 64, False),
+                    (2, 224, 1500, 20, 20, 64, False), (1, 1, 1, 16, 1, 128, True),
+                    (2, 193, 193, 16, 2, 128, True), (1, 65, 65, 4, 1, 64, True),
+                    (2, 37, 150, 8, 2, 64, False), (1, 300, 70, 8, 2, 128, False),
+                    (2, 150, 150, 8, 4, 96, False), (1, 1, 1, 4, 2, 96, True)]
+
+
+@pytest.mark.parametrize("B,S,T,H,Hkv,D,causal", BWD_WGMMA_SHAPES,
+                         ids=["-".join(map(str, s)) for s in BWD_WGMMA_SHAPES])
+def test_flash_prefill_bwd_wgmma_design_at_every_head_group(card, B, S, T, H, Hkv, D, causal):
+    """The wgmma design at every divisor hg of H / Hkv (the query heads of a
+    dK/dV block, whose float32 partials the third launch sums in head
+    order): within 8 bf16 ulps of each output's largest, two runs bit for
+    bit, dq the same at every hg."""
+    from repro_torch.kernels.flash_prefill.kernel import (
+        WGMMA,
+        _entry_bwd_wgmma,
+        bwd_design,
+        launch_bwd_wgmma,
+    )
     from repro_torch.kernels.flash_prefill.ops import flash_prefill_lse
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_bwd_ref
 
     dtype = torch.bfloat16
-    assert bwd_design(dtype, D) == MMA
-    q, k, v, do = _bwd_inputs(card, B, S, T, H, Hkv, D, dtype, seed=D + S)
+    assert bwd_design(dtype, D) == WGMMA
+    q, k, v, do = _bwd_inputs(card, B, S, T, H, Hkv, D, dtype, seed=S + T + D)
     out, lse = flash_prefill_lse(q, k, v, causal)
-    want = flash_prefill_bwd_ref(q, k, v, out, do, lse, causal)
-    for which in (CUDA_CORE, MMA):
-        got = grid_prefill_bwd(q, k, v, out, do, lse, causal, which=which)
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=_bwd_limit(dtype, w))
-    with pytest.raises(ValueError, match="mma"):
-        grid_prefill_bwd(q.float(), k.float(), v.float(), out.float(), do.float(), lse, causal,
-                         which=MMA)
+    want = [flash_prefill_bwd_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], out[b:b + 1],
+                                  do[b:b + 1], lse[b:b + 1], causal) for b in range(B)]
+    want = [torch.cat([w[i] for w in want]) for i in range(3)]
+    g = H // Hkv
+    dq_first = None
+    for hg in [d for d in range(1, g + 1) if g % d == 0]:
+        runs = []
+        for _ in range(2):
+            delta = torch.empty(B, H, S, dtype=torch.float32, device=card)
+            got = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+            launch_bwd_wgmma(_entry_bwd_wgmma(), q, k, v, out, do, lse, delta, *got, causal,
+                             hg=hg)
+            runs.append(got)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), hg
+        for a, w in zip(runs[0], want):
+            assert bool(torch.isfinite(a).all())
+            torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                       atol=_bwd_limit(dtype, w, _cancel_floor(do, v)))
+        dq_first = runs[0][0] if dq_first is None else dq_first
+        assert torch.equal(runs[0][0], dq_first)
+
+
+def test_flash_prefill_bwd_designs_by_name_and_what_they_refuse(card):
+    from repro_torch.kernels.flash_prefill.kernel import (
+        BWD_LAUNCHES,
+        WGMMA,
+        _entry_bwd_wgmma,
+        bwd_plan,
+        grid_prefill_bwd,
+        launch_bwd_wgmma,
+    )
+    from repro_torch.kernels.flash_prefill.ops import flash_prefill_lse
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_bwd_ref
+
+    q, k, v, do = _bwd_inputs(card, 2, 100, 100, 8, 2, 128, torch.bfloat16, seed=3)
+    out, lse = flash_prefill_lse(q, k, v)
+    want = flash_prefill_bwd_ref(q, k, v, out, do, lse)
+    reset_launch_counts()
+    for which in BWD_LAUNCHES:
+        for g, w in zip(grid_prefill_bwd(q, k, v, out, do, lse, which=which), want):
+            torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                       atol=_bwd_limit(torch.bfloat16, w))
+    assert launch_counts()["flash_prefill_bwd"] == 0  # grid_prefill_bwd itself counts nothing
+    with pytest.raises(ValueError, match="no backward design"):
+        grid_prefill_bwd(q, k, v, out, do, lse, which="wgmma")
+    with pytest.raises(ValueError, match="wgmma"):  # float32: no wgmma without TF32's loss
+        grid_prefill_bwd(q.float(), k.float(), v.float(), out.float(), do.float(), lse,
+                         which=WGMMA)
+    q16, k16, v16, do16 = _bwd_inputs(card, 1, 64, 64, 4, 2, 16, torch.bfloat16, seed=4)
+    out16, lse16 = flash_prefill_lse(q16, k16, v16)
+    with pytest.raises(ValueError, match="wgmma"):  # D = 16: the CUDA-core design's alone
+        grid_prefill_bwd(q16, k16, v16, out16, do16, lse16, which=WGMMA)
+    delta = torch.empty(2, 8, 100, dtype=torch.float32, device=card)
+    got = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    with pytest.raises(RuntimeError, match="CUDA error"):  # hg must divide H / Hkv = 4
+        launch_bwd_wgmma(_entry_bwd_wgmma(), q, k, v, out, do, lse, delta, *got, True, hg=3)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # a plan the library does not hold
+        launch_bwd_wgmma(_entry_bwd_wgmma(), q, k, v, out, do, lse, delta, *got, True,
+                         plan={**bwd_plan(128), "dq_stages": 7})
 
 
 @pytest.mark.parametrize("D", [64, 96, 128, 192, 256])
