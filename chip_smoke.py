@@ -382,6 +382,9 @@ REPLACES = {
     # flash_prefill's training form: the reference's gradient is JAX's autodiff
     # of its jnp flash_attention (the Pallas prefill kernel has no backward)
     "flash_prefill_bwd": "src/repro/models/attention.py:67",
+    # wkv6's training form: the reference's gradient is JAX's autodiff of its
+    # lax.scan of the WKV recurrence (no Pallas kernel)
+    "wkv6_bwd": "src/repro/models/rwkv.py:74",
 }
 SOURCES = {
     "histogram": "src/repro_torch/kernels/scatter_counts/csrc/histogram.cu",
@@ -399,10 +402,12 @@ SOURCES = {
     "wkv6": "src/repro_torch/kernels/wkv6/csrc/wkv6.cu",
     "selective_scan": "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu",
     "flash_prefill_bwd": "src/repro_torch/kernels/flash_prefill/csrc/flash_prefill_bwd_wgmma.cu",
+    "wkv6_bwd": "src/repro_torch/kernels/wkv6/csrc/wkv6_bwd.cu",
 }
 KERNELS = ("histogram", "mass", "apply", "segsum", "tree_update", "bucket_mass",
            "flash_prefill", "decode_attention", "slot_automaton", "tree_lru",
-           "minpair_automaton", "fifo_queue", "wkv6", "selective_scan", "flash_prefill_bwd")
+           "minpair_automaton", "fifo_queue", "wkv6", "selective_scan", "flash_prefill_bwd",
+           "wkv6_bwd")
 #: the one design of each kernel that has one (wkv6's and selective_scan's
 #: are checked against their launches by design in phases 26 and 27; the
 #: others name theirs in
@@ -440,7 +445,7 @@ DENSE_KERNELS = 23  # device kernels a dense chunk launches (phase 7), its rewar
 #: path's automata
 OFF_PATH = {"flash_prefill": 0, "decode_attention": 0, "slot_automaton": 0, "tree_lru": 0,
             "minpair_automaton": 0, "fifo_queue": 0, "wkv6": 0, "selective_scan": 0,
-            "flash_prefill_bwd": 0}
+            "flash_prefill_bwd": 0, "wkv6_bwd": 0}
 #: the port's kernels in the profiler's rows, by the names of their functions
 PORT_KERNEL_NAMES = ("tree_update_kernel", "tree_build_kernel", "bin_tiles_kernel",
                      "solve_buckets_kernel", "project_warm_kernel", "solve_sized_kernel")
@@ -4328,7 +4333,7 @@ WKV_WARM = 256
 #: w0 of each decay, w = exp(-exp(w0 + 0.12 N(0, 1))): ~0.9975 (rwkv6's w0),
 #: ~0.5, exp(-e^2) ~ 6e-4, ~1 - 6e-6
 WKV_DECAYS = {"slow": -6.0, "fast": math.log(math.log(2.0)), "near zero": 2.0,
-              "near one": -12.0}
+              "near one": -12.0, "1e-3": math.log(-math.log(1e-3))}
 #: (label, B, S, H, n, decay, start state); the "plan" cases, one a head
 #: dim, run its Plan<n> (kernel.PLANS) over two chunks and a step
 WKV_CASES = (
@@ -5464,6 +5469,10 @@ def check_hybrid(torch, dev):
 # -- training the attention families (phase 28) -------------------------------------------
 
 TRAIN_ARCH, TRAIN_DEPTH = "glm4-9b", 4  # full width, the depth cut to 4 of 40 layers
+#: gemma-7b (head_dim 256) at full width, the depth cut to 4 of 28 layers (all
+#: 28 need ~136 GB of float32 state), its step in 4 microbatches of 1 x 4096
+#: (a microbatch's float32 logits over the 256 000 vocab are 4.2 GB a sequence)
+GEMMA_ARCH, GEMMA_DEPTH, GEMMA_MICRO = "gemma-7b", 4, 4
 #: the step: train_4k's sequence length, a global batch of 4 sequences in 2
 #: microbatches, 8 steps of SyntheticLM data (made by a worker meanwhile)
 TRAIN_S, TRAIN_B, TRAIN_MICRO, TRAIN_STEPS = 4096, 4, 2, 8
@@ -5476,6 +5485,7 @@ TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_FROB = 1e-3, 1e-2, 2e-2
 #: the backward kernel's cases: label, (B, S, T, H, Hkv, D), bf16 or not, causal
 BWD_CASES = (
     ("glm4-9b train", (2, 4096, 4096, 32, 2, 128), True, True),
+    ("gemma-7b D=256", (2, 4096, 4096, 16, 16, 256), True, True),
     ("granite-moe D=64", (2, 2048, 2048, 16, 8, 64), True, True),
     ("phi-3-vision D=96", (1, 2048, 2048, 32, 32, 96), True, True),
     ("whisper encoder", (2, 1500, 1500, 20, 20, 64), True, False),
@@ -5492,7 +5502,7 @@ MATMUL_WEIGHTS = ATTN_WEIGHTS + ("w_gate", "w_up", "w_down")
 
 
 def train_batches(n, vocab, seq_len, batch):
-    """Phase 28's SyntheticLM batches, in a worker process (numpy only)."""
+    """Phase 28's and 29's SyntheticLM batches, in a worker process (numpy only)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.train.data import DataConfig, SyntheticLM
 
@@ -5500,15 +5510,20 @@ def train_batches(n, vocab, seq_len, batch):
     return [data.next_batch() for _ in range(n)]
 
 
-def start_train_batches(vocab):
-    """Start phase 28's data in a spawned worker, so that it overlaps the
-    card's earlier phases (a batch of 4 x 4096 tokens takes seconds)."""
+def start_train_batches(archs):
+    """Start the trained models' data (TRAIN_STEPS batches each, at their
+    vocabularies) in a spawned worker, so that it overlaps the card's
+    earlier phases (a batch of 4 x 4096 tokens takes seconds): the pool and
+    arch -> future."""
     import concurrent.futures
     import multiprocessing
 
+    from repro_torch.configs.base import get_arch
+
     pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=1, mp_context=multiprocessing.get_context("spawn"))
-    return pool, pool.submit(train_batches, TRAIN_STEPS, vocab, TRAIN_S, TRAIN_B)
+    return pool, {arch: pool.submit(train_batches, TRAIN_STEPS, get_arch(arch).vocab_size,
+                                     TRAIN_S, TRAIN_B) for arch in archs}
 
 
 def bwd_bound(B, S, T, H, Hkv, D, itemsize, causal):
@@ -5651,15 +5666,18 @@ def check_bwd_case(torch, dev, label, shape, bf16, causal, flush):
             "forward_ms": fwd_ms, "serving_forward_ms": serve_ms}
 
 
-#: phase 28's profiled step: the attention kernels by the names of their functions
+#: phase 28's and 29's profiled steps: the attention and the recurrence kernels by
+#: the names of their functions
 TRAIN_ATTENTION_KERNELS = ("prefill_wgmma_kernel", "prefill_kernel", "dq_kernel", "dkv_kernel",
                            "dkv_sum_kernel")
+TRAIN_RECURRENCE_KERNELS = ("wkv6_kernel", "wkv6_bwd_kernel", "wkv6_bwd_sum")
 
 
 def train_breakdown(torch, step_fn, state, batch):
-    """Phase 28 (c): where one more training step goes, from torch.profiler:
-    wall and device busy time, device kernels, the attention kernels' and
-    the matrix products' shares, and the top kernels."""
+    """Phase 28 (c) and 29 (b): where one more training step goes, from
+    torch.profiler: wall and device busy time, device kernels, the attention
+    and recurrence kernels', and the matrix products' shares, and the top
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -5677,20 +5695,22 @@ def train_breakdown(torch, step_fn, state, batch):
         return sum(e.self_device_time_total for e in rows if pick(e.key)) / 1e3
 
     attention_ms = share(lambda key: any(name in key for name in TRAIN_ATTENTION_KERNELS))
+    recurrence_ms = share(lambda key: any(name in key for name in TRAIN_RECURRENCE_KERNELS))
     gemm_ms = share(lambda key: any(name in key.lower()
                                     for name in ("nvjet", "gemm", "xmma", "cutlass")))
     elementwise_ms = share(lambda key: "elementwise_kernel" in key)
-    rest_ms = busy_ms - attention_ms - gemm_ms - elementwise_ms
+    rest_ms = busy_ms - attention_ms - recurrence_ms - gemm_ms - elementwise_ms
     print(f"training breakdown, one step (profiled): wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{sum(e.count for e in rows)} device kernels; attention kernels {attention_ms:.1f} ms, "
-          f"matrix products (cuBLAS) {gemm_ms:.1f} ms, elementwise passes {elementwise_ms:.1f} ms, "
-          f"the rest {rest_ms:.1f} ms")
+          f"recurrence kernels {recurrence_ms:.1f} ms, matrix products (cuBLAS) {gemm_ms:.1f} ms, "
+          f"elementwise passes {elementwise_ms:.1f} ms, the rest {rest_ms:.1f} ms")
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:10]
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
     return state, {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-                   "attention_ms": attention_ms, "gemm_ms": gemm_ms,
+                   "attention_ms": attention_ms, "recurrence_ms": recurrence_ms,
+                   "gemm_ms": gemm_ms,
                    "elementwise_ms": elementwise_ms,
                    "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count] for e in top]}
 
@@ -5714,9 +5734,53 @@ class plain_training_attention:
         attention.flash_prefill_lse, attention.flash_prefill_bwd = self.saved
 
 
-def grads_of(torch, cfg, params, batch):
-    """loss, grad_norm and every attention weight's gradient (a copy) of
-    one forward and backward of ``batch``."""
+class plain_training_wkv:
+    """Within this block training's recurrence function (``WKV6``) runs the
+    plain versions on the card: its forward's kernel call and its backward
+    wrapper are swapped for them, and put back on leaving."""
+
+    def __enter__(self):
+        from repro_torch.kernels.wkv6 import ops, ref
+
+        def forward(r, k, v, w, u, state):
+            y, final = ref.wkv6_ref(r, k, v, w, u, state)
+            state.copy_(final)
+            return y
+
+        self.saved = ops._forward, ops.wkv6_bwd
+        ops._forward, ops.wkv6_bwd = forward, ref.wkv6_bwd_ref
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.wkv6 import ops
+
+        ops._forward, ops.wkv6_bwd = self.saved
+
+
+class jittered_plain_wkv(plain_training_wkv):
+    """As :class:`plain_training_wkv`, with each output of the plain
+    backward scaled by 1 + 2^-23 N(0, 1) (about one float32 ulp, a fixed
+    seed): the same function rounded otherwise, the noise floor of a
+    comparison through bf16 products."""
+
+    def __enter__(self):
+        super().__enter__()
+        import torch
+
+        from repro_torch.kernels.wkv6 import ops, ref
+
+        def backward(*args):
+            gen = torch.Generator(device=args[0].device).manual_seed(29)
+            return tuple(g * (1 + 2.0 ** -23 * torch.randn(g.shape, generator=gen,
+                                                            device=g.device))
+                         for g in ref.wkv6_bwd_ref(*args))
+
+        ops.wkv6_bwd = backward
+
+
+def grads_of(torch, cfg, params, batch, names):
+    """loss, grad_norm and the gradient (a copy) of every block weight named
+    in ``names``, by (layer, path), of one forward and backward of
+    ``batch``."""
     from repro_torch.models.model import forward_train
     from repro_torch.train.optimizer import global_norm, tree_map
 
@@ -5724,11 +5788,159 @@ def grads_of(torch, cfg, params, batch):
     loss, _ = forward_train(cfg, params, batch)
     loss.backward()
     grads = tree_map(lambda p: p.grad, params)
-    attn = {(i, name): p["attn"][name].grad.clone() for i, p in enumerate(params["blocks"])
-            for name in ATTN_WEIGHTS}
+    picked = {}
+
+    def walk(tree, i, path):
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                walk(leaf, i, f"{path}{key}/")
+            elif key in names:
+                picked[(i, path + key)] = leaf.grad.clone()
+
+    for i, p in enumerate(params["blocks"]):
+        walk(p, i, "")
+    need(len(picked) == cfg.n_layers * len(names), f"{cfg.name}: {len(picked)} weights compared")
     gnorm = float(global_norm(grads))
     tree_map(lambda p: setattr(p, "grad", None), params)
-    return float(loss.detach()), gnorm, attn
+    return float(loss.detach()), gnorm, picked
+
+
+def train_full_width(torch, dev, cfg, micro, batches, spec):
+    """Train ``cfg`` (a full-width configuration, its depth cut or not) on the
+    card for TRAIN_STEPS steps of ``batches`` (TRAIN_B x TRAIN_S tokens) in
+    ``micro`` microbatches from seed 0: the parameters the configuration's, the
+    loss finite and the last step's below the first, exactly ``spec["want"]``
+    launches by kernel over the steps (``spec["designs"]`` by design), the
+    peak below 80 GB; one more step profiled; and a kernel run against a
+    plain-version run (``spec["plain"]``, a context) from the trained weights
+    at 1 x ``spec["plain_tokens"]`` tokens (``spec["short"]`` launches), in
+    each compute type of ``spec["compare_in"]``: the loss within
+    TRAIN_LOSS_TOL, grad_norm within TRAIN_GNORM_TOL and, in
+    ``spec["weights_gated_in"]``, each block weight named in
+    ``spec["weights"]`` within TRAIN_GRAD_FROB relative Frobenius; where
+    ``spec["floor"]`` (a context) is given, the plain versions against
+    themselves rounded otherwise, printed beside the bf16 comparison.  The
+    MFU counts 6 x the products' parameters (blocks' weights
+    named in ``spec["matmuls"]`` and the lm_head) x tokens, and
+    ``spec["extra_ops"]`` a step."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
+    from repro_torch.models.model import padded_vocab
+    from repro_torch.train.optimizer import OptimizerConfig, tree_leaves
+    from repro_torch.train.train_step import create_train_state, make_train_step
+
+    full_layers = get_arch(cfg.name).n_layers
+    opt_cfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, opt_cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for _, p in tree_leaves(state.params))
+    need(n_params == expected_params(cfg), f"{cfg.name}: {n_params} parameters, expected "
+         f"{expected_params(cfg)}")
+    n_matmul = sum(p.numel() for path, p in tree_leaves(state.params)
+                   if path.split("/")[-1] in spec["matmuls"] or path == "lm_head")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_fn = make_train_step(cfg, opt_cfg, micro)
+    reset_launch_counts()
+    losses, gnorms, seconds = [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        seconds.append(time.perf_counter() - t0)
+        gnorms.append(float(metrics["grad_norm"]))
+        need(math.isfinite(losses[-1]) and math.isfinite(gnorms[-1]),
+             f"{cfg.name} step {len(losses)}: loss {losses[-1]}, grad_norm {gnorms[-1]}")
+    launches, designs = launch_counts(), design_counts()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = {name: 0 for name in launches}
+    want.update(spec["want"])
+    print(f"{cfg.name} training launches over {TRAIN_STEPS} steps: {launches} by design {designs}")
+    need(launches == want, f"{cfg.name} training launched {launches}, expected {want}")
+    need(designs == spec["designs"], f"{cfg.name} training's designs {designs}, expected "
+         f"{spec['designs']}")
+    need(losses[-1] < losses[0], f"{cfg.name}: the loss did not fall: {losses}")
+    need(peak_gb < 80, f"{cfg.name}: peak memory {peak_gb:.2f} GB")
+    state, breakdown = train_breakdown(torch, step_fn, state, batches[-1])
+
+    tokens = TRAIN_B * TRAIN_S
+    step_s = float(np.median(seconds[1:]))
+    model_ops = 6 * n_matmul * tokens + spec["extra_ops"]
+    mfu = model_ops / (step_s * BF16_OPS_PER_S)
+    print(f"training {cfg.name} at full width, {cfg.n_layers} of {full_layers} layers "
+          f"({n_params} parameters, {n_matmul} in products, vocab {cfg.vocab_size} padded to "
+          f"{padded_vocab(cfg)}), {TRAIN_B} x {TRAIN_S} tokens a step in {micro} microbatches: "
+          f"losses {losses}, grad_norms {gnorms}; step seconds {seconds} (median after the first "
+          f"{step_s:.4f} s, {tokens / step_s:.1f} tokens/s, MFU {mfu:.4f} = {model_ops:.4e} "
+          f"operations a step over 989 TFLOP/s{spec['ops_note']}); peak memory {peak_gb:.2f} GB; "
+          f"weights drawn in {init_s:.2f} s on {nvidia_smi_line()}")
+
+    # the same weights through the kernels and through the plain versions
+    short = {k: v[:1, :spec["plain_tokens"]] for k, v in batches[0].items()}
+    against = {"tokens": spec["plain_tokens"]}
+    for compute in spec["compare_in"]:
+        ccfg = dataclasses.replace(cfg, compute_dtype=compute)
+        reset_launch_counts()
+        loss_k, gnorm_k, grads_k = grads_of(torch, ccfg, state.params, short, spec["weights"])
+        counts = launch_counts()
+        need(all(counts[name] == n for name, n in spec["short"].items()),
+             f"{cfg.name}: the kernel run launched {counts}, expected {spec['short']}")
+        with spec["plain"]():
+            loss_p, gnorm_p, grads_p = grads_of(torch, ccfg, state.params, short,
+                                                spec["weights"])
+        need(launch_counts() == counts, "the plain run launched a kernel")
+        frob = {key: float(torch.linalg.vector_norm(grads_k[key] - grads_p[key])
+                           / torch.linalg.vector_norm(grads_p[key])) for key in grads_p}
+        worst = max(frob, key=frob.get)
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        gnorm_err = abs(gnorm_k - gnorm_p) / gnorm_p
+        gated = compute == spec["weights_gated_in"]
+        floor = {}
+        if "floor" in spec and compute == "bfloat16":  # plain against plain, rounded otherwise
+            with spec["floor"]():
+                floor = grads_of(torch, ccfg, state.params, short, spec["weights"])[2]
+            floor = {key: float(torch.linalg.vector_norm(floor[key] - grads_p[key])
+                                / torch.linalg.vector_norm(grads_p[key])) for key in grads_p}
+        by_name = {}
+        for (_, name), e in frob.items():
+            by_name[name] = max(by_name.get(name, 0.0), e)
+        floor_by_name = {}
+        for (_, name), e in floor.items():
+            floor_by_name[name] = max(floor_by_name.get(name, 0.0), e)
+        print(f"{cfg.name} kernels against the plain versions at 1 x {spec['plain_tokens']} tokens "
+              f"in {compute}: loss {loss_k} vs {loss_p} ({loss_err:.3e} relative, limit "
+              f"{TRAIN_LOSS_TOL}), grad_norm {gnorm_k} vs {gnorm_p} ({gnorm_err:.3e}, limit "
+              f"{TRAIN_GNORM_TOL}), worst of {len(frob)} weight gradients {frob[worst]:.3e} "
+              f"relative Frobenius ({worst}; "
+              f"{f'limit {TRAIN_GRAD_FROB}' if gated else 'not gated in this compute type'}); "
+              f"worst by weight {({k: float(f'{e:.3e}') for k, e in by_name.items()})}"
+              + (f"; the plain versions against themselves with a one-ulp jitter of the "
+                 f"recurrence's gradients, worst by weight "
+                 f"{({k: float(f'{e:.3e}') for k, e in floor_by_name.items()})}" if floor else ""))
+        need(loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL
+             and (not gated or frob[worst] <= TRAIN_GRAD_FROB),
+             f"{cfg.name}: the kernels' step is not the plain versions' in {compute}")
+        against[compute] = {"loss": [loss_k, loss_p], "grad_norm": [gnorm_k, gnorm_p],
+                            "worst_grad_frobenius": frob[worst], "worst_weight": list(worst),
+                            "gated": gated, "by_weight": by_name,
+                            "floor_by_weight": floor_by_name or None}
+    del state, grads_k, grads_p, floor
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "of_layers": full_layers,
+            "parameters": n_params, "matmul_parameters": n_matmul, "tokens_a_step": tokens,
+            "microbatches": micro, "steps": TRAIN_STEPS, "losses": losses, "grad_norms": gnorms,
+            "step_seconds": seconds, "median_step_s": step_s, "tokens_per_s": tokens / step_s,
+            "mfu": mfu, "peak_memory_gb": peak_gb, "init_s": init_s, "breakdown": breakdown,
+            "launches": launches, "against_plain": against}
 
 
 def check_guards(torch, dev):
@@ -5738,7 +5950,6 @@ def check_guards(torch, dev):
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_prefill.ops import flash_prefill
     from repro_torch.kernels.selective_scan.ops import selective_scan
-    from repro_torch.kernels.wkv6.ops import wkv6
 
     f32, bf = torch.float32, torch.bfloat16
 
@@ -5752,8 +5963,6 @@ def check_guards(torch, dev):
         "flash_prefill": lambda: flash_prefill(
             t(1, 64, 8, 128, dtype=bf), t(1, 64, 2, 128, dtype=bf, grad=True),
             t(1, 64, 2, 128, dtype=bf)),
-        "wkv6": lambda: wkv6(t(1, 4, 2, 64, grad=True), t(1, 4, 2, 64), t(1, 4, 2, 64),
-                             t(1, 4, 2, 64), t(2, 64), torch.zeros(1, 2, 64, 64, device=dev)),
         "selective_scan": lambda: selective_scan(
             t(1, 4, 128), t(1, 4, 128, grad=True), t(128, 16), t(1, 4, 16), t(1, 4, 16), t(128),
             torch.zeros(1, 128, 16, device=dev)),
@@ -5771,20 +5980,15 @@ def check_guards(torch, dev):
     return sorted(calls)
 
 
-def check_training(torch, dev, batches_future):
+def check_training(torch, dev, batches):
     """Phase 28: the backward kernel and the forward's lse against their
-    plain versions at the training shapes, glm4-9b trained at full width
-    for TRAIN_STEPS steps through the kernels with exact launch counts, a
-    kernel run against a plain-version run from the same weights, and the
-    guards."""
-    import numpy as np
-
-    from repro_torch.kernels import design_counts, launch_counts, reset_launch_counts
+    plain versions at the training shapes; glm4-9b and gemma-7b (head_dim
+    256) trained at full width for TRAIN_STEPS steps through the kernels
+    with exact launch counts, each with a kernel run against a plain-version
+    run from the same weights; and the guards.  ``batches``: arch -> the
+    data worker's future."""
     from repro_torch.kernels.flash_prefill.kernel import BWD_LAUNCHES, bwd_design, train_design
     from repro_torch.launch.train import config
-    from repro_torch.models.model import padded_vocab
-    from repro_torch.train.optimizer import OptimizerConfig, tree_leaves
-    from repro_torch.train.train_step import create_train_state, make_train_step
 
     from tools.time_flash_bwd_designs import floor_ms
 
@@ -5795,90 +5999,35 @@ def check_training(torch, dev, batches_future):
     del flush
     torch.cuda.empty_cache()
 
-    cfg = config(TRAIN_ARCH, smoke=False, depth=TRAIN_DEPTH)
     bf16 = torch.bfloat16
-    n_bwd = BWD_LAUNCHES[bwd_design(bf16, cfg.head_dim)]  # launches a backward call
-    opt_cfg = OptimizerConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    state = create_train_state(cfg, opt_cfg, seed=0, device=dev)
-    n_params = sum(p.numel() for _, p in tree_leaves(state.params))
-    n_norms = sum(p.numel() for path, p in tree_leaves(state.params)
-                  if path.split("/")[-1] in ("ln1", "ln2", "final_norm", "q_norm", "k_norm"))
-    need(n_params - n_norms == cfg.param_count(),  # param_count leaves the norms' weights out
-         f"{n_params} parameters ({n_norms} in norms), param_count {cfg.param_count()}")
-    n_matmul = sum(p.numel() for path, p in tree_leaves(state.params)
-                   if path.split("/")[-1] in MATMUL_WEIGHTS or path == "lm_head")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    batches = batches_future.result(timeout=900)
-    waited = time.perf_counter() - t0
-    step_fn = make_train_step(cfg, opt_cfg, TRAIN_MICRO)
-    reset_launch_counts()
-    losses, gnorms, seconds = [], [], []
-    for batch in batches:
+    trained = {}
+    for arch, depth, micro in ((TRAIN_ARCH, TRAIN_DEPTH, TRAIN_MICRO),
+                               (GEMMA_ARCH, GEMMA_DEPTH, GEMMA_MICRO)):
+        cfg = config(arch, smoke=False, depth=depth)
+        L, D = cfg.n_layers, cfg.head_dim
+        n_bwd = BWD_LAUNCHES[bwd_design(bf16, cfg.head_dim)]  # launches a backward call
+        fwd = L * micro * 2 * TRAIN_STEPS  # a layer's forward and its recomputation under remat
+        bwd = L * micro * n_bwd * TRAIN_STEPS
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        losses.append(float(metrics["loss"]))  # waits for the step
-        seconds.append(time.perf_counter() - t0)
-        gnorms.append(float(metrics["grad_norm"]))
-        need(math.isfinite(losses[-1]) and math.isfinite(gnorms[-1]),
-             f"step {len(losses)}: loss {losses[-1]}, grad_norm {gnorms[-1]}")
-    launches, designs = launch_counts(), design_counts()
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    L, micro = cfg.n_layers, TRAIN_MICRO
-    fwd = L * micro * 2 * TRAIN_STEPS  # a layer's forward and its recomputation under remat
-    bwd = L * micro * n_bwd * TRAIN_STEPS
-    want = {name: 0 for name in launches}
-    want.update({"flash_prefill": fwd, "flash_prefill_bwd": bwd})
-    print(f"training launches over {TRAIN_STEPS} steps: {launches} by design {designs}")
-    need(launches == want, f"training launched {launches}, expected {want}")
-    need(designs["flash_prefill"] == {f"{train_design(bf16, cfg.head_dim)}, causal, lse": fwd}
-         and designs["flash_prefill_bwd"] == {f"{bwd_design(bf16, cfg.head_dim)}, causal": bwd},
-         f"training's designs {designs}")
-    need(losses[-1] < losses[0], f"the loss did not fall: {losses}")
-    need(peak_gb < 80, f"peak memory {peak_gb:.2f} GB")
-    state, breakdown = train_breakdown(torch, step_fn, state, batches[-1])
-
-    tokens = TRAIN_B * TRAIN_S
-    step_s = float(np.median(seconds[1:]))
-    attn_ops = L * 7 * 2 * TRAIN_B * cfg.n_heads * cfg.head_dim * (TRAIN_S * (TRAIN_S + 1) // 2)
-    model_ops = 6 * n_matmul * tokens + attn_ops
-    mfu = model_ops / (step_s * BF16_OPS_PER_S)
-    print(f"training {TRAIN_ARCH} at full width, {L} of 40 layers ({n_params} parameters, "
-          f"{n_matmul} in products, vocab {cfg.vocab_size} padded to {padded_vocab(cfg)}), "
-          f"{TRAIN_B} x {TRAIN_S} tokens a step in {micro} microbatches: losses {losses}, "
-          f"grad_norms {gnorms}; step seconds {seconds} (median after the first {step_s:.4f} s, "
-          f"{tokens / step_s:.1f} tokens/s, MFU {mfu:.4f} = {model_ops:.4e} operations a step "
-          f"over 989 TFLOP/s); peak memory {peak_gb:.2f} GB; weights drawn in {init_s:.2f} s, "
-          f"waited {waited:.2f} s for the data")
-
-    # the same weights through the kernels and through the plain versions
-    short = {k: v[:1, :TRAIN_PLAIN_TOKENS] for k, v in batches[0].items()}
-    reset_launch_counts()
-    loss_k, gnorm_k, attn_k = grads_of(torch, cfg, state.params, short)
-    counts = launch_counts()
-    need(counts["flash_prefill"] == 2 * L and counts["flash_prefill_bwd"] == n_bwd * L,
-         f"the kernel run launched {counts}")
-    with plain_training_attention():
-        loss_p, gnorm_p, attn_p = grads_of(torch, cfg, state.params, short)
-    need(launch_counts() == counts, "the plain run launched a kernel")
-    frob = max(float(torch.linalg.vector_norm(attn_k[key] - attn_p[key])
-                     / torch.linalg.vector_norm(attn_p[key])) for key in attn_p)
-    loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    gnorm_err = abs(gnorm_k - gnorm_p) / gnorm_p
-    print(f"kernels against the plain versions at 1 x {TRAIN_PLAIN_TOKENS} tokens: loss {loss_k} "
-          f"vs {loss_p} ({loss_err:.3e} relative, limit {TRAIN_LOSS_TOL}), grad_norm {gnorm_k} "
-          f"vs {gnorm_p} ({gnorm_err:.3e}, limit {TRAIN_GNORM_TOL}), worst attention weight "
-          f"gradient {frob:.3e} relative Frobenius (limit {TRAIN_GRAD_FROB})")
-    need(loss_err <= TRAIN_LOSS_TOL and gnorm_err <= TRAIN_GNORM_TOL and frob <= TRAIN_GRAD_FROB,
-         "the kernels' step is not the plain versions'")
-    del state, attn_k, attn_p
-    torch.cuda.empty_cache()
+        data = batches[arch].result(timeout=900)
+        print(f"{arch}: waited {time.perf_counter() - t0:.2f} s for the data")
+        trained[arch] = train_full_width(torch, dev, cfg, micro, data, {
+            "want": {"flash_prefill": fwd, "flash_prefill_bwd": bwd},
+            "designs": {"flash_prefill": {f"{train_design(bf16, D)}, causal, lse": fwd},
+                        "flash_prefill_bwd": {f"{bwd_design(bf16, D)}, causal": bwd}},
+            "short": {"flash_prefill": 2 * L, "flash_prefill_bwd": n_bwd * L},
+            "plain": plain_training_attention, "plain_tokens": TRAIN_PLAIN_TOKENS,
+            "compare_in": ("bfloat16",), "weights_gated_in": "bfloat16",
+            "weights": ATTN_WEIGHTS, "matmuls": MATMUL_WEIGHTS,
+            "extra_ops": L * 7 * 2 * TRAIN_B * cfg.n_heads * D * (TRAIN_S * (TRAIN_S + 1) // 2),
+            "ops_note": ", attention's 7 products a layer counted"})
+        trained[arch].update(forward_design=train_design(bf16, D),
+                             backward_design=bwd_design(bf16, D),
+                             launches_8_steps={"flash_prefill": fwd, "flash_prefill_bwd": bwd})
     guarded = check_guards(torch, dev)
 
     glm4 = cases[0]
+    glm4_train = trained[TRAIN_ARCH]
     return {
         "kernel": {"max_abs_err": max(c["max_abs_err"] for c in cases),
                    **{k: glm4[k] for k in ("ms", "earlier_ms", "turns", "plain_ms", "bound_ms",
@@ -5886,22 +6035,152 @@ def check_training(torch, dev, batches_future):
                                            "sdpa_forward_ms")},
                    "floor_ms": floor,
                    "library": "scaled_dot_product_attention backward (torch.autograd.grad)",
-                   "design": bwd_design(bf16, cfg.head_dim),
-                   "launches_a_step": L * micro * n_bwd,
+                   "design": glm4_train["backward_design"],
+                   "launches_a_step": glm4_train["launches_8_steps"]["flash_prefill_bwd"]
+                   // TRAIN_STEPS,
+                   "gemma_d256": {k: cases[1][k] for k in (
+                       "design", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                       "max_abs_err", "forward_ms", "lse_max_abs_err")},
                    "cases": cases},
         "lse_max_abs_err": max(c["lse_max_abs_err"] for c in cases),
-        "launches": {"flash_prefill": fwd, "flash_prefill_bwd": bwd},
-        "train": {"arch": TRAIN_ARCH, "layers": L, "parameters": n_params,
-                  "forward_design": train_design(bf16, cfg.head_dim),
-                  "matmul_parameters": n_matmul, "tokens_a_step": tokens, "microbatches": micro,
-                  "steps": TRAIN_STEPS, "losses": losses, "grad_norms": gnorms,
-                  "step_seconds": seconds, "median_step_s": step_s,
-                  "tokens_per_s": tokens / step_s, "mfu": mfu, "peak_memory_gb": peak_gb,
-                  "breakdown": breakdown,
-                  "against_plain": {"loss": [loss_k, loss_p], "grad_norm": [gnorm_k, gnorm_p],
-                                    "attention_grad_frobenius": frob}},
+        "launches": glm4_train["launches_8_steps"],
+        "train": glm4_train, "gemma": trained[GEMMA_ARCH],
         "guarded": guarded,
     }
+
+
+# -- training the SSM family (phase 29) -----------------------------------------------
+
+#: phase 29: rwkv6-1.6b trained at full width and full depth (24 layers) in
+#: TRAIN_MICRO microbatches; the wkv6 backward kernel at its training
+#: microbatch (B, S, H, n), where it is timed
+SSM_TRAIN_PLAIN_TOKENS, WKV_TRAIN = 256, (TRAIN_B // TRAIN_MICRO, TRAIN_S, 32, 64)
+#: the backward kernel against its plain version: each of dr, dk, dv, dw and du
+#: within this share of its largest |value|: float32 sums in another order
+#: (the lane's columns, then two xor shuffles; dv's row pairs and slices in
+#: order), carried by G over up to 4096 steps at w ~ 0.9975
+WKV_BWD_TOL = 1e-4
+#: (label, B, S, H, n, decay, start state): every head dim at S of one step,
+#: one short of a 16-step chunk, one chunk, one past it and 2049; slow decay
+#: (rwkv6's w0 = -6, w ~ 0.9975) and fast (w ~ 1e-3); a mid-run start state;
+#: the training microbatch
+WKV_BWD_CASES = tuple(
+    (f"n={n} S={S} {decay}", 2, S, 4, n, decay, "zero")
+    for n in (16, 32, 64) for S in (1, 15, 16, 17, 2049) for decay in ("slow", "1e-3")
+) + (("from a mid-run state", 2, 2049, 4, 64, "slow", "mid-run"),
+     ("training microbatch", *WKV_TRAIN, "slow", "zero"))
+#: the time-mix weights whose gradients the kernel run is held to the plain
+#: run's, in float32 compute: through bf16 products a one-ulp jitter of the
+#: plain recurrence's own gradients moves them about as far as the kernel's
+#: float32 sums in another order do (mu_w's most: its gradient is two bf16
+#: sums over the tokens, x and x_prev, that nearly cancel), so the bf16
+#: comparison gates the loss and grad_norm and prints the weights beside that
+#: floor
+TIME_MIX_WEIGHTS = ("w_r", "w_k", "w_v", "w_g", "w_o", "w_lora_a", "w_lora_b", "w0", "u",
+                    "mu_r", "mu_k", "mu_v", "mu_w", "mu_g")
+RWKV_MATMUL_WEIGHTS = ("w_r", "w_k", "w_v", "w_g", "w_o", "w_lora_a", "w_lora_b", "w_ck", "w_cv",
+                       "w_cr")
+
+
+def wkv6_bwd_bound(B, S, H, n):
+    """r, k, v, w and dy read once, dr, dk, dv and dw written once (and the
+    start state, u and du); 14 float32 flops an (b, t, h, i, j): S (3), G
+    (3), and a product and a sum for each of dr, dk, dv, dw."""
+    n_bytes = 4 * (9 * B * S * H * n + B * H * n * n + 2 * H * n)
+    return bound_ms(n_bytes, 14 * B * S * H * n * n)
+
+
+def check_wkv6_bwd_kernel(torch, dev, flush):
+    """Phase 29 (a): the wkv6 backward kernel against its plain version on
+    the card at WKV_BWD_CASES, each of dr, dk, dv, dw and du within
+    WKV_BWD_TOL of its largest, two runs bit for bit; at the training
+    microbatch timed cold beside the forward kernel, its bound, the plain
+    version and the floor of the timing (B = H = S = 1, n = 16)."""
+    from repro_torch.kernels.wkv6.kernel import BWD_LAUNCHES, launch, launch_bwd
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref
+
+    names = ("dr", "dk", "dv", "dw", "du")
+    worst, train = 0.0, None
+    for i, (label, B, S, H, n, decay, state) in enumerate(WKV_BWD_CASES):
+        r, k, v, w, u, s0 = wkv6_inputs(torch, dev, B, S, H, n, seed=290 + i, decay=decay,
+                                         state=state)
+        dy = torch.randn(B, S, H, n, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(i))
+        got, again = launch_bwd(r, k, v, w, u, s0, dy), launch_bwd(r, k, v, w, u, s0, dy)
+        want = wkv6_bwd_ref(r, k, v, w, u, s0, dy)
+        errs = {name: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for name, a, b in zip(names, got, want)}
+        print(f"wkv6_bwd {label} B={B} S={S} H={H} n={n}, {state} start state: |kernel - plain| / "
+              f"largest: {', '.join(f'{k_} {e:.3e}' for k_, e in errs.items())} (limit "
+              f"{WKV_BWD_TOL:.0e})")
+        need(all(bool(torch.isfinite(a).all()) for a in got), f"wkv6_bwd {label}: non-finite")
+        need(max(errs.values()) <= WKV_BWD_TOL, f"wkv6_bwd {label}: {errs} > {WKV_BWD_TOL}")
+        need(all(torch.equal(a, b) for a, b in zip(got, again)), f"wkv6_bwd {label}: two runs "
+             f"differ")
+        worst = max(worst, max(errs.values()))
+        if (B, S, H, n) == WKV_TRAIN:
+            train = {"max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+                     "relative_err": errs}
+        del r, k, v, w, u, s0, dy, got, again, want
+    need(train is not None, "no training-microbatch case")
+    torch.cuda.empty_cache()
+    B, S, H, n = WKV_TRAIN
+    r, k, v, w, u, s0 = wkv6_inputs(torch, dev, B, S, H, n, seed=290)
+    dy = torch.randn_like(r)
+    ms = timed_ms(torch, lambda: launch_bwd(r, k, v, w, u, s0, dy), 10, flush)
+    work = s0.clone()
+    fwd_ms = timed_ms(torch, lambda: launch(r, k, v, w, u, work), 10, flush,
+                      reset=lambda: work.copy_(s0))
+    plain_ms = timed_ms(torch, lambda: wkv6_bwd_ref(r, k, v, w, u, s0, dy), 1, flush)
+    tiny = wkv6_inputs(torch, dev, 1, 1, 1, 16, seed=291)
+    dy1 = torch.randn_like(tiny[0])
+    floor = timed_ms(torch, lambda: launch_bwd(*tiny, dy1), 20, flush)
+    bound, by = wkv6_bwd_bound(B, S, H, n)
+    print(f"wkv6_bwd training microbatch B={B} S={S} H={H} n={n}: cold {ms * 1e3:.1f} us, "
+          f"{BWD_LAUNCHES} launches (the forward kernel at the same shape {fwd_ms * 1e3:.1f} us; "
+          f"bound {bound * 1e3:.1f} us by {by}, kernel / bound {ms / bound:.2f}; plain "
+          f"{plain_ms * 1e3:.1f} us; library call: none; floor of the timing "
+          f"{floor * 1e3:.2f} us) on {nvidia_smi_line()}")
+    return {"ms": ms, "forward_ms": fwd_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None, "floor_ms": floor,
+            "launches_a_call": BWD_LAUNCHES, **train, "worst_relative_err": worst,
+            "cases": len(WKV_BWD_CASES)}
+
+
+def check_ssm_training(torch, dev, batches):
+    """Phase 29: (a) the wkv6 backward kernel against its plain version and
+    timed; (b) rwkv6-1.6b trained at full width and full depth through the
+    wkv6 and wkv6_bwd kernels, exact launch counts (two wkv6 a layer and
+    microbatch, the forward and its recomputation under remat; one backward
+    call), no attention launch, a kernel run against a plain-version run."""
+    from repro_torch.kernels.wkv6.kernel import BWD_DESIGN, BWD_LAUNCHES
+    from repro_torch.launch.train import config
+
+    t0 = time.perf_counter()
+    print(f"SSM training phase 29 on {nvidia_smi_line()}; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated at its start")
+    flush = l2_flush(torch, dev)
+    kernel = check_wkv6_bwd_kernel(torch, dev, flush)
+    del flush
+    t1 = time.perf_counter()
+    cfg = config(SSM_ARCH, smoke=False)
+    L, micro = cfg.n_layers, TRAIN_MICRO
+    fwd = L * micro * 2 * TRAIN_STEPS
+    bwd = L * micro * BWD_LAUNCHES * TRAIN_STEPS
+    data = batches[SSM_ARCH].result(timeout=900)
+    train = train_full_width(torch, dev, cfg, micro, data, {
+        "want": {"wkv6": fwd, "wkv6_bwd": bwd},
+        "designs": {"wkv6": {DESIGNS["wkv6"]: fwd}, "wkv6_bwd": {BWD_DESIGN: bwd}},
+        "short": {"wkv6": 2 * L, "wkv6_bwd": BWD_LAUNCHES * L},
+        "plain": plain_training_wkv, "plain_tokens": SSM_TRAIN_PLAIN_TOKENS,
+        "compare_in": ("bfloat16", "float32"), "weights_gated_in": "float32",
+        "floor": jittered_plain_wkv, "weights": TIME_MIX_WEIGHTS, "matmuls": RWKV_MATMUL_WEIGHTS, "extra_ops": 0,
+        "ops_note": "; the recurrence's flops are left out"})
+    secs = {"kernel": t1 - t0, "training": time.perf_counter() - t1,
+            "all": time.perf_counter() - t0}
+    print(f"phase 29: {secs['all']:.2f} s ({secs}) on {nvidia_smi_line()}")
+    return {"kernel": kernel, "train": train, "launches": {"wkv6": fwd, "wkv6_bwd": bwd},
+            "seconds": secs}
 
 
 def main() -> int:
@@ -5920,6 +6199,7 @@ def main() -> int:
     from repro_torch.cachesim.traces import zipf
     from repro_torch.core.ogb import theoretical_eta
     from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv6.kernel import BWD_DESIGN as WKV6_BWD_DESIGN
 
     dev = torch.device("cuda", torch.cuda.current_device())
     card = nvidia_smi_line()
@@ -5951,8 +6231,8 @@ def main() -> int:
 
     from repro_torch.configs.base import get_arch
 
-    # phase 28's data, made by a worker process while the card runs phases 1-27
-    train_pool, train_data = start_train_batches(get_arch(TRAIN_ARCH).vocab_size)
+    # phase 28's and 29's data, made by a worker process while the card runs phases 1-27
+    train_pool, train_data = start_train_batches((TRAIN_ARCH, GEMMA_ARCH, SSM_ARCH))
     t0 = time.perf_counter()
     trace = zipf(N, T, alpha=ALPHA, seed=0)
     print(f"trace: zipf N={N} T={T} alpha={ALPHA}, {time.perf_counter() - t0:.2f} s")
@@ -6027,9 +6307,11 @@ def main() -> int:
     lap("27 (the hybrid family)")
     try:
         train28 = check_training(torch, dev, train_data)
+        lap("28 (training the attention families)")
+        ssm29 = check_ssm_training(torch, dev, train_data)
+        lap("29 (training the SSM family)")
     finally:
         train_pool.shutdown(wait=True, cancel_futures=True)
-    lap("28 (training the attention families)")
     # training (phase 28): the backward kernel's launches in glm4-9b's 8
     # steps, and the forward's training launches (with the lse) beside its row
     launches["flash_prefill_bwd"] = train28["launches"]["flash_prefill_bwd"]
@@ -6038,11 +6320,21 @@ def main() -> int:
         "launches_8_steps": train28["launches"]["flash_prefill"],
         "design": train28["train"]["forward_design"],
         "lse_max_abs_err": train28["lse_max_abs_err"],
-        "forward_ms_glm4_train": train28["kernel"]["cases"][0]["forward_ms"]}
+        "forward_ms_glm4_train": train28["kernel"]["cases"][0]["forward_ms"],
+        "forward_ms_gemma_train": train28["kernel"]["cases"][1]["forward_ms"],
+        "launches_8_steps_gemma": train28["gemma"]["launches_8_steps"]["flash_prefill"]}
+    rows["flash_prefill_bwd"]["launches_8_steps_gemma"] = \
+        train28["gemma"]["launches_8_steps"]["flash_prefill_bwd"]
+    # training the SSM family (phase 29): the recurrence's backward kernel and its
+    # launches in rwkv6's 8 steps, and the forward's training launches
+    launches["wkv6_bwd"] = ssm29["launches"]["wkv6_bwd"]
+    rows["wkv6_bwd"] = {**ssm29["kernel"], "design": WKV6_BWD_DESIGN}
     # the SSM family (phase 26): the recurrence's launches in rwkv6's serving
     launches["wkv6"] = ssm26["launches"]["wkv6"]
     rows["wkv6"] = {**ssm26["kernel"], "launches_a_generate": ssm26["launches_a_generate"],
-                    "generate_calls": SERVE_CALLS}
+                    "generate_calls": SERVE_CALLS,
+                    "training": {"launches_8_steps": ssm29["launches"]["wkv6"],
+                                 "forward_ms_rwkv6_train": ssm29["kernel"]["forward_ms"]}}
     # the hybrid family (phase 27): the scan's launches in jamba's serving, and
     # the attention kernels at its heads with their launches there
     launches["selective_scan"] = hybrid27["launches"]["selective_scan"]
@@ -6175,7 +6467,8 @@ def main() -> int:
                       "ssm": {k: v for k, v in ssm26.items() if k != "kernel"},
                       "hybrid": {k: v for k, v in hybrid27.items()
                                  if k not in ("kernel", "attention")},
-                      "training": {"train": train28["train"], "guarded": train28["guarded"]}}))
+                      "training": {"train": train28["train"], "gemma": train28["gemma"],
+                                   "rwkv6": ssm29["train"], "guarded": train28["guarded"]}}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,7 @@ Each wrapper counts its launches in a plain integer attribute
 ``decode_attention.launches``, ``slot_automaton.launches``,
 ``fifo_queue.launches``, ``tree_lru.launches``,
 ``ring_compaction.launches``, ``minpair_automaton.launches``,
-``wkv6.launches``, ``selective_scan.launches``), so a run
+``wkv6.launches``, ``wkv6_bwd.launches``, ``selective_scan.launches``), so a run
 can show that it went through the kernels.  :func:`launch_counts` reads them by
 kernel source (the warm projection counts as ``mass``, the whole-tree
 build as ``segsum``, the bucket and sized solves as ``bucket_mass``, a
@@ -50,7 +50,7 @@ def _wrappers():
     from repro_torch.kernels.minpair_automaton.ops import minpair_automaton
     from repro_torch.kernels.slot_automaton.ops import slot_automaton
     from repro_torch.kernels.tree_lru.ops import ring_compaction, tree_lru
-    from repro_torch.kernels.wkv6.ops import wkv6
+    from repro_torch.kernels.wkv6.ops import wkv6, wkv6_bwd
 
     return {
         "histogram": (histogram,),
@@ -68,6 +68,7 @@ def _wrappers():
         "minpair_automaton": (minpair_automaton,),
         "wkv6": (wkv6,),
         "selective_scan": (selective_scan,),
+        "wkv6_bwd": (wkv6_bwd,),
     }
 
 

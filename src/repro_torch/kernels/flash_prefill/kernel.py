@@ -15,8 +15,8 @@ passes none and launches as before), and :func:`grid_prefill_bwd` binds the
 gradient (dq, dk, dv) in two designs chosen by :func:`bwd_design`: bf16 at
 D in {64, 96, 128} on wgmma and TMA (``csrc/flash_prefill_bwd_wgmma.cu``,
 three launches: dQ, float32 partial dK and dV a group of query heads, their
-sum), everything else on CUDA cores (``csrc/flash_prefill_bwd.cu``, two
-launches).
+sum), everything else, D = 192 and 256 included, on CUDA cores
+(``csrc/flash_prefill_bwd.cu``, two launches; 32-key tiles past D = 128).
 
 :func:`design` names the design a call takes, by dtype and head dimension
 alone: bf16 at D in {64, 96, 128, 192, 256} runs ``"wgmma+tma"`` (tensor
@@ -57,12 +57,13 @@ WG_ROWS, WG_STAGES = 128, 2
 SPLIT_P = "split P"
 #: the backward kernel's designs (:func:`bwd_design`): bf16 at
 #: BWD_WGMMA_HEAD_DIMS on wgmma and TMA (D = 96 as the forward lays it out,
-#: three 64-byte-swizzled boxes a row), everything else on CUDA cores;
-#: launches a call by design (wgmma: dQ, the partial dK and dV, their sum;
-#: CUDA cores: dQ, then dK and dV) and the largest head dimension
+#: three 64-byte-swizzled boxes a row), everything else on CUDA cores (D =
+#: 192 and 256, gemma-7b's, in 32-key tiles); launches a call by design
+#: (wgmma: dQ, the partial dK and dV, their sum; CUDA cores: dQ, then dK and
+#: dV) and the largest head dimension, the forward's
 BWD_WGMMA_HEAD_DIMS = (64, 96, 128)
 BWD_LAUNCHES = {WGMMA: 3, CUDA_CORE: 2}
-BWD_MAX_HEAD_DIM = 128
+BWD_MAX_HEAD_DIM = MAX_HEAD_DIM
 #: the wgmma backward's plan: query rows of a dQ block and keys of a dK/dV
 #: block (two consumer warpgroups of 64), query rows of a dK/dV step, the
 #: dQ block's key tile and ring stages, the dK/dV block's ring stages, and
@@ -253,8 +254,8 @@ def grid_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch
     head of a KV head and every query tile added in a fixed order
     (:data:`BWD_LAUNCHES` launches by design).  bf16 at D in
     ``BWD_WGMMA_HEAD_DIMS`` runs on wgmma and TMA, every other call on CUDA
-    cores (:func:`bwd_design`), unless ``which`` names the design (the
-    CUDA-core one takes every call).  No design gives way to another: an
+    cores (:func:`bwd_design`; D = 192 and 256 in 32-key tiles), unless
+    ``which`` names the design (the CUDA-core one takes every call).  No design gives way to another: an
     error raises."""
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]

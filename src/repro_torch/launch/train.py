@@ -12,10 +12,13 @@ tenth of the steps as warm-up, an async checkpoint every ``--ckpt-every``
 steps and a resume from the latest one in ``--ckpt-dir``, and a straggler
 monitor.  It runs on the card unless ``--device cpu`` is given, and prints
 the loss and the gradient norm every 10 steps and at the last, with the
-step's seconds.  The attention families train (dense, moe, vlm, encdec);
-rwkv6 and jamba raise ``NotImplementedError`` (their recurrence kernels
-have no backward yet).  ``--mesh-data`` and ``--mesh-model`` raise:
-distributed training is not ported.
+step's seconds.  The attention families (dense, moe, vlm, encdec) and the
+ssm family train: on the card ``--arch gemma-7b --full --depth 4
+--microbatches 4`` (head_dim 256) and ``--arch rwkv6-1.6b --full`` (all 24
+layers) with ``--seq-len 4096 --global-batch 4``.  jamba raises
+``NotImplementedError`` (its scan kernel has no backward yet).
+``--mesh-data`` and ``--mesh-model`` raise: distributed training is not
+ported.
 """
 
 from __future__ import annotations

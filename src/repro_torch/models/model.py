@@ -37,10 +37,11 @@ Every entry point takes a ``device`` and resolves it through
 asks for the CPU.
 
 :func:`forward_train` is ``repro``'s training forward for the dense, moe,
-vlm and encdec families (the loss and its metrics, each layer checkpointed
-under ``cfg.remat``); its whole-sequence attention runs through
-``attention.FlashAttention``, whose backward is a kernel.  The ssm and
-hybrid families raise: their recurrence kernels have no backward yet.
+vlm, encdec and ssm families (the loss and its metrics, each layer
+checkpointed under ``cfg.remat``); its whole-sequence attention runs
+through ``attention.FlashAttention`` and rwkv6's recurrence through
+``kernels.wkv6.ops.WKV6``, whose backwards are kernels.  The hybrid family
+raises: its scan kernel has no backward yet.
 :func:`train_state_from_numpy` and :func:`params_to_numpy` carry a
 ``repro`` train state across and back.
 """
@@ -55,6 +56,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.kernels.flash_prefill.kernel import BWD_MAX_HEAD_DIM
 
 from .attention import (
     _project_qkv,
@@ -564,21 +566,30 @@ def decode_step(cfg, params: Params, cache: Dict[str, Any], tokens: torch.Tensor
 # ---------------------------------------------------------------------------
 # training
 
-#: the families that train: the four whose only kernel on the path is
-#: attention, which has a backward kernel
-TRAINED_FAMILIES = ("dense", "moe", "vlm", "encdec")
+#: the families that train: the attention families, whose attention has a
+#: backward kernel, and the ssm family (rwkv6), whose recurrence has one
+TRAINED_FAMILIES = ("dense", "moe", "vlm", "encdec", "ssm")
 #: the kernel whose backward a family's training waits for
-MISSING_BACKWARD = {"ssm": "wkv6", "hybrid": "selective_scan"}
+MISSING_BACKWARD = {"hybrid": "selective_scan"}
 
 
-def _require_trainable(cfg) -> None:
+def _require_trainable(cfg, dev: torch.device) -> None:
+    """Raise before the first step for a configuration whose training has no
+    kernel: a family in :data:`MISSING_BACKWARD`, or on the card an
+    attention head dim that the backward kernel does not take (every
+    registered one does)."""
     _require_ported(cfg)
     if cfg.family in MISSING_BACKWARD:
         kernel = MISSING_BACKWARD[cfg.family]
         raise NotImplementedError(
             f"training the {cfg.family} family ({cfg.name}) needs a backward of the {kernel} "
-            f"kernel, which is not written yet: forward_train runs the attention families "
+            f"kernel, which is not written yet: forward_train runs the families "
             f"{TRAINED_FAMILIES}")
+    if dev.type == "cuda" and cfg.family != "ssm" and (
+            cfg.head_dim % 8 or cfg.head_dim > BWD_MAX_HEAD_DIM):
+        raise NotImplementedError(
+            f"{cfg.name}: head_dim {cfg.head_dim} is outside the attention backward kernel's "
+            f"range on the card (a multiple of 8 up to {BWD_MAX_HEAD_DIM})")
 
 
 def _layer(cfg, fn, *args):
@@ -599,6 +610,11 @@ def _train_block(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor):
         h, aux = moe_forward(p["moe"], h, cfg)
         return x + h, aux["load_balance_loss"], aux["router_z_loss"]
     return x + mlp_forward(p["mlp"], h, cfg.mlp_activation), None, None
+
+
+def _rwkv_train_block(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """An RWKV-6 block from a zero state, its final state dropped."""
+    return rwkv_block_fwd(p, x, cfg)[0]
 
 
 def _encoder_block(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -627,12 +643,17 @@ def forward_train(cfg, params: Params, batch: Dict[str, Any],
     the router z-loss, summed over the layers, and reports both.  Whole-
     sequence attention is ``models.attention.FlashAttention`` under
     autograd: the prefill kernel forward, the ``flash_prefill_bwd`` kernel
-    backward.  Under ``cfg.remat`` each layer is checkpointed.  It runs
-    where the parameters are unless ``device`` says otherwise.  The ssm and
-    hybrid families raise ``NotImplementedError``: their recurrence kernels
-    have no backward yet."""
-    _require_trainable(cfg)
+    backward.  An ssm model (rwkv6) runs its blocks from a zero state and
+    drops the final one, as ``repro``'s ``_stack_forward`` does, each
+    layer's recurrence through ``kernels.wkv6.ops.WKV6``: the ``wkv6``
+    kernel forward, the ``wkv6_bwd`` kernel backward; it has no aux loss.
+    Under ``cfg.remat`` each layer is checkpointed.  It runs where the
+    parameters are unless ``device`` says otherwise.  The hybrid family
+    raises ``NotImplementedError``: its scan kernel has no backward yet, as
+    does, on the card, an attention head dim that the backward kernel does
+    not take."""
     dev = _device_of(params, params["embed"].device if device is None else device)
+    _require_trainable(cfg, dev)
     params = cast_params_for_compute(cfg, params)
     cdt = dtype_of(cfg.compute_dtype)
     need = {"encdec": "frames", "vlm": "image_embeds"}.get(cfg.family)
@@ -658,6 +679,12 @@ def forward_train(cfg, params: Params, batch: Dict[str, Any],
         return loss, {"nll": loss, "lse": lse}
 
     x = params["embed"][tokens].to(cdt)
+    if cfg.family == "ssm":
+        for p in params["blocks"]:
+            x = _layer(cfg, _rwkv_train_block, cfg, p, x)
+        loss, lse = softmax_cross_entropy(_logits(cfg, params, x), labels)
+        return loss, {"nll": loss, "lse": lse}
+
     mask = None
     if cfg.family == "vlm":
         img = rmsnorm(torch.as_tensor(batch["image_embeds"], device=dev).to(cdt),

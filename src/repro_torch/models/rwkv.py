@@ -20,7 +20,10 @@ channel mix is squared ReLU with a sigmoid gate.
 A ``state`` passed to :func:`rwkv_time_mix` (and so to
 :func:`rwkv_block_fwd`) is read and its S tensor written in place by the
 kernel: the model's prefill and decode pass views of the cache, so no step
-copies it.
+copies it.  Training (``state`` None, under autograd) runs the recurrence
+through ``kernels.wkv6.ops.WKV6`` with the same roundings: the kernel
+forward from a zero state, the ``wkv6_bwd`` kernel backward, the final
+state a new tensor that no loss reads.
 """
 
 from __future__ import annotations

@@ -9,8 +9,10 @@ the loss is the microbatches' mean, then :func:`apply_updates` updates the
 weights and the moments in place.  On the card every whole-sequence
 attention of the forward (twice a layer under remat: the forward and its
 recomputation) is a ``flash_prefill`` launch with its log-sum-exp, and
-every layer's backward a ``flash_prefill_bwd`` call.  The ssm and hybrid
-families raise ``NotImplementedError`` (``forward_train``).
+every layer's backward a ``flash_prefill_bwd`` call; an rwkv6 layer's
+recurrence is a ``wkv6`` launch (twice under remat) and its backward a
+``wkv6_bwd`` call.  The hybrid family raises ``NotImplementedError``
+(``forward_train``).
 """
 
 from __future__ import annotations

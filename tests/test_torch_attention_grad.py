@@ -9,13 +9,17 @@ GQA (g = 4 query heads a KV head), within 1e-5 of each gradient's largest
 (float32 sums in another order).  ``forward_train``'s loss and every
 parameter's gradient are held against ``jax.value_and_grad`` of
 ``repro``'s for the smoke configurations of glm4-9b, granite-moe,
-phi-3-vision and whisper in float32 on ``repro``'s own weights (carried
+phi-3-vision, whisper, gemma-7b and rwkv6 (whose recurrence trains through
+``kernels.wkv6.ops.WKV6``, on the CPU the plain forward and backward of
+``kernels/wkv6/ref.py``) in float32 on ``repro``'s own weights (carried
 across by ``params_from_numpy``), inputs from numpy seeds: the loss within
 1e-5 relative, each gradient within 1e-4 of its largest (two layers of
-float32 products summed in another order).  On the CPU the attention
-function's forward and backward are the kernels' plain versions; the
-kernels are held against the same plain versions on the card
-(tests/test_torch_cuda.py and chip_smoke.py phase 28).
+float32 products summed in another order).  The plain backward is also
+held at gemma-7b's head dim, D = 256, which the backward kernel takes in
+32-key tiles on the card.  On the CPU the attention function's forward and
+backward are the kernels' plain versions; the kernels are held against the
+same plain versions on the card (tests/test_torch_cuda.py and
+chip_smoke.py phases 28 and 29).
 """
 
 import numpy as np
@@ -42,16 +46,17 @@ from repro_torch.models.attention import FlashAttention, flash_attention
 GRAD_TOL = 1e-5  # the plain backward against autograd and jax.grad, of each largest
 LOSS_TOL = 1e-5  # forward_train's loss, relative
 PARAM_GRAD_TOL = 1e-4  # every parameter's gradient, of each tensor's largest
-ARCHS = ["glm4-9b", "granite-moe-1b-a400m", "phi-3-vision-4.2b", "whisper-large-v3"]
+ARCHS = ["glm4-9b", "granite-moe-1b-a400m", "phi-3-vision-4.2b", "whisper-large-v3", "gemma-7b",
+         "rwkv6-1.6b"]
 #: (causal, S, T): causal, non-causal over T == S, cross over T != S; S ragged
 MODES = [(True, 37, 37), (False, 37, 37), (False, 21, 45)]
 B, H, HKV, D = 2, 8, 2, 16
 
 
-def _inputs(S, T, seed):
+def _inputs(S, T, seed, b=B, h=H, hkv=HKV, d=D):
     rng = np.random.default_rng(seed)
     return [rng.normal(size=shape).astype(np.float32)
-            for shape in ((B, S, H, D), (B, T, HKV, D), (B, T, HKV, D), (B, S, H, D))]
+            for shape in ((b, S, h, d), (b, T, hkv, d), (b, T, hkv, d), (b, S, h, d))]
 
 
 def _close(got, want, tol):
@@ -60,9 +65,15 @@ def _close(got, want, tol):
     assert float(np.abs(got - want).max()) <= tol * scale
 
 
-@pytest.mark.parametrize("causal,S,T", MODES, ids=["causal", "non-causal", "cross"])
-def test_backward_plain_version_matches_autograd_and_jax(causal, S, T):
-    qn, kn, vn, don = _inputs(S, T, seed=S + T)
+#: (causal, S, T, B, H, Hkv, D): the three modes at D = 16, and causal at
+#: gemma-7b's head dim
+GRAD_CASES = [(*mode, B, H, HKV, D) for mode in MODES] + [(True, 37, 37, 1, 2, 1, 256)]
+
+
+@pytest.mark.parametrize("causal,S,T,b,h,hkv,d", GRAD_CASES,
+                         ids=["causal", "non-causal", "cross", "causal-d256"])
+def test_backward_plain_version_matches_autograd_and_jax(causal, S, T, b, h, hkv, d):
+    qn, kn, vn, don = _inputs(S, T, S + T + (d if d != D else 0), b, h, hkv, d)
     q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in (qn, kn, vn))
     out = flash_prefill_ref(q, k, v, causal)
     out.backward(torch.from_numpy(don))
@@ -167,7 +178,7 @@ def test_forward_train_loss_and_every_gradient_match_repro(arch):
         _close(_leaf(grads, path), want, PARAM_GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b"])
 def test_forward_train_raises_for_the_recurrent_families(arch):
     cfg = get_smoke(arch)
     params = model.init_params(cfg, device="cpu")

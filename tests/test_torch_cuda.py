@@ -63,7 +63,15 @@ leaving the serving call's output and launch count as they were; a
 training step of the smoke glm4-9b on the card against the CPU; and every
 kernel wrapper without a backward raising on a tensor that requires grad.
 The backward's two designs (bf16 at D = 64, 96, 128 on the tensor cores,
-everything else on CUDA cores) are each held at the other's shapes too.
+everything else on CUDA cores) are each held at the other's shapes too, and
+the CUDA-core design at D = 192 and 256 (gemma-7b's; 32-key tiles).  The
+WKV-6 backward (``wkv6_bwd``) against its plain version at n = 16, 32 and 64,
+S = 1, 15, 16, 17 and 2049, slow and fast decay, from a zero and a nonzero
+start state, within 1e-4 of each output's largest and two runs bit for bit,
+counted by design, what it refuses, and ``WKV6`` (``wkv6`` under autograd)
+on the card; and a full-width training step of gemma-7b (depth 1) and
+rwkv6-1.6b (depth 2) at 1 x 512 tokens through the kernels against the
+same step through the plain versions on the card.
 """
 
 import math
@@ -236,7 +244,7 @@ def test_run_on_the_card_matches_the_cpu_and_counts_launches(card):
                                "tree_update": 0, "bucket_mass": 0, "flash_prefill": 0,
                                "decode_attention": 0, "slot_automaton": 0, "fifo_queue": 0,
                                "tree_lru": 0, "minpair_automaton": 0, "wkv6": 0,
-                               "selective_scan": 0, "flash_prefill_bwd": 0}
+                               "selective_scan": 0, "flash_prefill_bwd": 0, "wkv6_bwd": 0}
     designs = design_counts()
     assert designs["histogram"] == {"bin tiles": 100}
     assert designs["apply"] == {"projection epilogue": 100}
@@ -2559,7 +2567,10 @@ def test_jamba_smoke_model_on_the_card_matches_the_cpu(card):
 BWD_SHAPES = [(2, 65, 65, 8, 2, 16, True), (1, 127, 127, 4, 4, 64, True),
               (2, 129, 129, 32, 2, 128, True), (1, 200, 200, 32, 32, 96, True),
               (2, 100, 100, 4, 4, 64, False), (2, 37, 150, 8, 2, 64, False),
-              (1, 1, 1, 16, 1, 128, True), (2, 300, 70, 16, 8, 16, False)]
+              (1, 1, 1, 16, 1, 128, True), (2, 300, 70, 16, 8, 16, False),
+              (1, 300, 300, 4, 2, 256, True), (2, 129, 129, 4, 4, 256, True),
+              (1, 37, 150, 4, 2, 256, False), (1, 200, 200, 4, 1, 192, True),
+              (1, 1, 1, 2, 1, 256, True)]
 BWD_CASES = [pytest.param(*shape, dtype, id="-".join(map(str, shape)) + f"-{KINDS[dtype]}")
              for shape in BWD_SHAPES for dtype in (torch.bfloat16, torch.float32)]
 
@@ -2777,10 +2788,9 @@ def test_wgmma_design_writes_the_lse_and_splits_p_for_training(card, D):
 def test_flash_prefill_bwd_refuses_what_it_cannot_take(card):
     from repro_torch.kernels.flash_prefill.ops import flash_prefill_bwd, flash_prefill_lse
 
-    q, k, v, do = _bwd_inputs(card, 1, 64, 64, 4, 2, 256, torch.bfloat16, seed=1)
-    out, lse = flash_prefill_lse(q, k, v)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_prefill_bwd(q, k, v, out, do, lse)
+    q, k, v, do = _bwd_inputs(card, 1, 64, 64, 4, 2, 264, torch.bfloat16, seed=1)
+    with pytest.raises(ValueError, match="head_dim"):  # past 256, the forward's largest too
+        flash_prefill_bwd(q, k, v, q.clone(), do, torch.zeros(1, 4, 64, device=card))
     q, k, v, do = _bwd_inputs(card, 1, 64, 64, 4, 2, 64, torch.bfloat16, seed=1)
     out, lse = flash_prefill_lse(q, k, v)
     with pytest.raises(ValueError, match="contiguous"):
@@ -2791,19 +2801,15 @@ def test_flash_prefill_bwd_refuses_what_it_cannot_take(card):
 
 def test_wrappers_without_a_backward_raise_under_autograd(card):
     from repro_torch.kernels.selective_scan.ops import selective_scan
-    from repro_torch.kernels.wkv6.ops import wkv6
 
     bf = torch.bfloat16
     q = torch.randn(2, 8, 128, device=card, dtype=bf, requires_grad=True)
     k = torch.randn(2, 64, 2, 128, device=card, dtype=bf)
     lengths = torch.full((2,), 64, dtype=torch.int32, device=card)
-    r = torch.randn(1, 4, 2, 64, device=card, requires_grad=True)
     x = torch.randn(1, 4, 128, device=card, requires_grad=True)
     calls = [lambda: decode_attention(q, k, k, lengths),
              lambda: flash_prefill(torch.randn(1, 64, 8, 128, device=card, dtype=bf), k[:1],
                                    k[:1].detach().requires_grad_(True)),
-             lambda: wkv6(r, r.detach(), r.detach(), r.detach(), torch.zeros(2, 64, device=card),
-                          torch.zeros(1, 2, 64, 64, device=card)),
              lambda: selective_scan(x, x.detach(), torch.randn(128, 16, device=card),
                                     torch.randn(1, 4, 16, device=card),
                                     torch.randn(1, 4, 16, device=card),
@@ -2816,8 +2822,8 @@ def test_wrappers_without_a_backward_raise_under_autograd(card):
         with torch.no_grad():
             call()  # the same call without autograd runs
     counts = launch_counts()
-    assert [counts[n] for n in ("decode_attention", "flash_prefill", "wkv6",
-                                "selective_scan")] == [1, 1, 1, 1]
+    assert [counts[n] for n in ("decode_attention", "flash_prefill",
+                                "selective_scan")] == [1, 1, 1]
 
 
 def test_smoke_training_step_on_the_card_matches_the_cpu(card):
@@ -2853,3 +2859,175 @@ def test_smoke_training_step_on_the_card_matches_the_cpu(card):
     np.testing.assert_allclose(lk, lc, rtol=1e-5)
     for a, b in zip(pc, pk):
         torch.testing.assert_close(b, a, rtol=0, atol=0.1 * opt_cfg.lr)
+
+
+#: (n, S, w0, nonzero start state): every head dim at S of one step, one short
+#: of the backward's 16-step chunk, one chunk, one past it and 2049; slow decay
+#: (rwkv6's w0 = -6, w ~ 0.9975) from zero, fast (w ~ 1e-3) from a nonzero state
+WKV_BWD_CASES = [(n, S, w0, nonzero) for n in (16, 32, 64) for S in (1, 15, 16, 17, 2049)
+                 for w0, nonzero in ((-6.0, False), (math.log(-math.log(1e-3)), True))]
+
+
+def _wkv_bwd_inputs(card, B, S, H, n, w0, nonzero, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    r, k, v, dy = (torch.randn(B, S, H, n, generator=gen, device=card) for _ in range(4))
+    w = torch.exp(-torch.exp(w0 + 0.12 * torch.randn(B, S, H, n, generator=gen, device=card)))
+    u = 0.1 * torch.randn(H, n, generator=gen, device=card)
+    s0 = (torch.randn(B, H, n, n, generator=gen, device=card) if nonzero
+          else torch.zeros(B, H, n, n, device=card))
+    return r, k, v, w, u, s0, dy
+
+
+@pytest.mark.parametrize("n,S,w0,nonzero", WKV_BWD_CASES,
+                         ids=[f"n{n}-S{S}-{'fast' if nz else 'slow'}" for n, S, _, nz in
+                              WKV_BWD_CASES])
+def test_wkv6_bwd_matches_plain(card, n, S, w0, nonzero):
+    """dr, dk, dv, dw and du within 1e-4 of each one's largest (chip_smoke.py's
+    WKV_BWD_TOL), two runs bit for bit, two launches a call by design."""
+    from repro_torch.kernels.wkv6.kernel import BWD_DESIGN, BWD_LAUNCHES
+    from repro_torch.kernels.wkv6.ops import wkv6_bwd
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref
+
+    r, k, v, w, u, s0, dy = _wkv_bwd_inputs(card, 2, S, 4, n, w0, nonzero, seed=n + S)
+    reset_launch_counts()
+    got = wkv6_bwd(r, k, v, w, u, s0, dy)
+    assert launch_counts()["wkv6_bwd"] == BWD_LAUNCHES
+    assert design_counts()["wkv6_bwd"] == {BWD_DESIGN: BWD_LAUNCHES}
+    again = wkv6_bwd(r, k, v, w, u, s0, dy)
+    want = wkv6_bwd_ref(r, k, v, w, u, s0, dy)
+    for g, w_, like in zip(got, want, (r, r, r, r, u)):
+        assert g.shape == like.shape and bool(torch.isfinite(g).all())
+        assert float((g - w_).abs().max()) <= 1e-4 * float(w_.abs().max())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_wkv6_bwd_raises_on_what_it_cannot_take(card):
+    from repro_torch.kernels.wkv6.ops import wkv6_bwd
+
+    r, k, v, w, u, s0, dy = _wkv_bwd_inputs(card, 1, 5, 2, 64, -6.0, False, seed=1)
+    odd = [t[..., :8].contiguous() for t in (r, k, v, w)]
+    with pytest.raises(ValueError, match="head dim"):
+        wkv6_bwd(*odd, u[:, :8].contiguous(), s0[:, :, :8, :8].contiguous(), dy[..., :8])
+    with pytest.raises(ValueError, match="dy"):
+        wkv6_bwd(r, k, v, w, u, s0, dy[:, :4].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6_bwd(r, k, v, w, u, s0, dy.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(TypeError):
+        wkv6_bwd(r, k, v, w, u, s0, dy.double())
+
+
+def test_wkv6_function_on_the_card(card):
+    """``wkv6`` under autograd on CUDA tensors: the forward kernel on a fresh
+    state (the start state left as it was), the backward kernel's outputs as
+    the inputs' gradients, one launch of each kernel's call; a start state
+    that requires grad and a gradient into the final state raise."""
+    from repro_torch.kernels.wkv6.kernel import BWD_LAUNCHES
+    from repro_torch.kernels.wkv6.ops import wkv6_bwd
+
+    r, k, v, w, u, s0, dy = _wkv_bwd_inputs(card, 2, 40, 4, 64, -6.0, True, seed=3)
+    leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+    state = s0.clone()
+    reset_launch_counts()
+    y, final = wkv6(*leaves, state)
+    want_y, want_final = wkv6_ref(r, k, v, w, u, s0)
+    assert torch.equal(state, s0)
+    assert float((y.detach() - want_y).abs().max()) <= 1e-5 * float(want_y.abs().max())
+    assert float((final - want_final).abs().max()) <= 1e-5 * float(want_final.abs().max())
+    y.backward(dy)
+    assert launch_counts()["wkv6"] == 1 and launch_counts()["wkv6_bwd"] == BWD_LAUNCHES
+    for leaf, want in zip(leaves, wkv6_bwd(r, k, v, w, u, s0, dy)):
+        assert torch.equal(leaf.grad, want)
+    with pytest.raises(RuntimeError, match="start state"):
+        wkv6(leaves[0], k, v, w, u, s0.clone().requires_grad_(True))
+    y, final = wkv6(*leaves, s0)
+    with pytest.raises(RuntimeError, match="final state"):
+        ((y * dy).sum() + final.sum()).backward()
+
+
+def _step_grads(cfg, params, batch, names):
+    """loss, grad_norm and a copy of each block weight's gradient named in
+    ``names``, by (layer, path), of one forward and backward."""
+    from repro_torch.models.model import forward_train
+    from repro_torch.train.optimizer import global_norm, tree_map
+
+    tree_map(lambda p: setattr(p, "grad", None), params)
+    loss, _ = forward_train(cfg, params, batch)
+    loss.backward()
+    picked = {}
+
+    def walk(tree, i, path):
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                walk(leaf, i, f"{path}{key}/")
+            elif key in names:
+                picked[(i, path + key)] = leaf.grad.clone()
+
+    for i, p in enumerate(params["blocks"]):
+        walk(p, i, "")
+    assert len(picked) == cfg.n_layers * len(names)
+    return float(loss.detach()), float(global_norm(tree_map(lambda p: p.grad, params))), picked
+
+
+#: (arch, depth, block weights compared): gemma-7b's attention at head_dim 256,
+#: rwkv6's time mix
+FULL_WIDTH_STEPS = [("gemma-7b", 1, ("wq", "wk", "wv", "wo")),
+                    ("rwkv6-1.6b", 2, ("w_r", "w_k", "w_v", "w_g", "w_o", "w_lora_a", "w_lora_b",
+                                       "w0", "u", "mu_r", "mu_k", "mu_v", "mu_w", "mu_g"))]
+
+
+@pytest.mark.parametrize("arch,depth,names", FULL_WIDTH_STEPS,
+                         ids=[f"{a}-depth{d}" for a, d, _ in FULL_WIDTH_STEPS])
+def test_full_width_training_step_kernels_match_plain(card, monkeypatch, arch, depth, names):
+    """One forward and backward at full width (random weights from seed 0,
+    1 x 512 SyntheticLM tokens) through the kernels against the same through
+    the plain versions on the card: the loss within 1e-3, grad_norm within
+    1e-2, each compared weight's gradient within 2e-2 relative Frobenius
+    (chip_smoke.py's training gates); two launches of the forward kernel a
+    layer (remat) and one backward call.  gemma-7b in bf16; rwkv6 in
+    float32 compute, where its time-mix gradients are not bf16 rounding
+    noise (chip_smoke.py's TIME_MIX_WEIGHTS)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels.flash_prefill import ref as attn_ref
+    from repro_torch.kernels.flash_prefill.kernel import BWD_LAUNCHES, bwd_design
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.kernels.wkv6.kernel import BWD_LAUNCHES as WKV_BWD_LAUNCHES
+    from repro_torch.models import attention
+    from repro_torch.models.model import init_params
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import tree_map
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=depth)
+    if cfg.family == "ssm":
+        cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    params = tree_map(lambda t: t.requires_grad_(True), init_params(cfg, seed=0, device=card))
+    batch = SyntheticLM(DataConfig(cfg.vocab_size, 512, 1)).next_batch()
+    reset_launch_counts()
+    loss_k, gnorm_k, grads_k = _step_grads(cfg, params, batch, names)
+    counts = launch_counts()
+    with monkeypatch.context() as patch:
+        if cfg.family == "ssm":
+            assert counts["wkv6"] == 2 * depth and counts["wkv6_bwd"] == WKV_BWD_LAUNCHES * depth
+            assert counts["flash_prefill"] == counts["flash_prefill_bwd"] == 0
+
+            def forward(r, k, v, w, u, state):
+                y, final = wkv6_ref(r, k, v, w, u, state)
+                state.copy_(final)
+                return y
+
+            patch.setattr(wkv_ops, "_forward", forward)
+            patch.setattr(wkv_ops, "wkv6_bwd", wkv_ops.wkv6_bwd_ref)
+        else:
+            n_bwd = BWD_LAUNCHES[bwd_design(torch.bfloat16, cfg.head_dim)]
+            assert counts["flash_prefill"] == 2 * depth
+            assert counts["flash_prefill_bwd"] == n_bwd * depth
+            patch.setattr(attention, "flash_prefill_lse", attn_ref.flash_prefill_lse_ref)
+            patch.setattr(attention, "flash_prefill_bwd", attn_ref.flash_prefill_bwd_ref)
+        loss_p, gnorm_p, grads_p = _step_grads(cfg, params, batch, names)
+    assert launch_counts() == counts
+    assert math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-3 * abs(loss_p)
+    assert abs(gnorm_k - gnorm_p) <= 1e-2 * gnorm_p
+    for key, want in grads_p.items():
+        err = float(torch.linalg.vector_norm(grads_k[key] - want) / torch.linalg.vector_norm(want))
+        assert err <= 2e-2, key
